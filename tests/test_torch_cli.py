@@ -1,0 +1,26 @@
+"""The port's training CLI end to end on the CPU, as a user runs it."""
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_cli_trains_cora_stand_in_on_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "gat_pytorch_tpu_torch.cli.train",
+         "--dataset", "Cora", "--device", "cpu", "--num_epochs", "3",
+         "--log_every", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    metrics = json.loads(lines[-1])
+    assert metrics["epochs_run"] == 3
+    for key in ("test_loss", "test_acc", "best_val_loss"):
+        assert math.isfinite(metrics[key]), key
+    assert 0.0 <= metrics["test_acc"] <= 1.0
+    # one printed row per epoch (--log_every 1) before the metrics line
+    assert sum(line.startswith("{'train_loss'") for line in lines) == 3
