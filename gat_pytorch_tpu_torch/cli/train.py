@@ -3,9 +3,12 @@
 Usage:
     python -m gat_pytorch_tpu_torch.cli.train --dataset Cora
     python -m gat_pytorch_tpu_torch.cli.train --dataset Cora --device cpu
+    python -m gat_pytorch_tpu_torch.cli.train --dataset Pubmed --reorder rcm
 
 It keeps the JAX CLI's flags; `--device` (default cuda) takes the place
 of `--platform`, and `--backend` picks the layer path (kernel | segment).
+`--reorder rcm` relabels the nodes by reverse Cuthill-McKee and builds the
+block layout, which puts the kernel path on the windowed attention op.
 Without a GPU it raises unless `--device cpu` is given. Flags of features
 not ported yet raise NotImplementedError naming their ROADMAP item. The
 last line printed is the metrics JSON object, as the JAX CLI prints it.
@@ -27,7 +30,6 @@ _NOT_PORTED = {
     "layer_type": "queue A item 3 (models/naive.py)",
     "sampling_fanouts": "queue A item 9 (sampling)",
     "sampling_batch_size": "queue A item 9 (sampling)",
-    "reorder": "queue A item 8 (locality layouts)",
 }
 
 
@@ -54,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="force synthetic data even if real files exist")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--backend", default=None, choices=["kernel", "segment"],
-                   help="layer path: the v5 kernel op or plain segment ops")
+                   help="layer path: the attention kernel ops or plain "
+                        "segment ops")
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--checkpoint_every_n_epochs", type=int, default=None)
     p.add_argument("--metrics_file", default=None)
@@ -88,7 +91,8 @@ def run(config) -> dict:
     raw = datasets.load_planetoid(config.dataset,
                                   synthetic_override=config.synthetic,
                                   seed=config.seed)
-    graph = loader.transductive_graph(raw)
+    graph = loader.transductive_graph(
+        raw, reorder=config.reorder, src_windows=config.reorder is not None)
     trainer = Trainer(cfg=config.gat_config(), task=task,
                       learning_rate=config.learning_rate,
                       weight_decay=config.l2_reg,
@@ -108,6 +112,10 @@ def run(config) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.reorder == "cluster":
+        raise NotImplementedError(
+            "--reorder cluster is not ported yet (ROADMAP queue A item 12, "
+            "the split-locality layout)")
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) not in (None, "custom"):
             raise NotImplementedError(

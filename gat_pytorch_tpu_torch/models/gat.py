@@ -13,9 +13,14 @@ Reference quirks kept (paper_faithful=False, the default): cross-head
 torch's gradient convention at 0, and +1e-8 in the softmax denominator.
 
 Two layer paths, chosen by `backend`:
-  "kernel"  the v5 whole-attention op (ops/cuda/v5_attention.py): the
-            CUDA kernels on a CUDA graph, their plain versions on a CPU
-            graph. The counterpart of the JAX "pallas" v5 branch.
+  "kernel"  a whole-attention op: the CUDA kernels on a CUDA graph, their
+            plain versions on a CPU graph. A graph that carries a block
+            layout (canonicalize(..., src_windows=True)) takes the
+            windowed op (ops/cuda/window_attention.py, PATH_TRACE "v7"),
+            any other the v5 op (ops/cuda/v5_attention.py, "v5"): the
+            counterparts of the JAX "pallas" v7 and v5 branches. The JAX
+            package also gates v7 on models of the TPU's VMEM and MXU
+            cost; those do not apply to this card and are not ported.
   "segment" plain torch segment ops (ops/segment.py), the counterpart of
             the JAX "xla" path; it also serves paper_faithful and
             const_attention, which the kernel path does not port yet.
@@ -29,9 +34,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..graph.graph import Graph
+from ..graph.graph import BlockLayout, Graph
 from ..ops import segment as seg
 from ..ops.cuda import v5_attention as v5
+from ..ops.cuda import window_attention as v7
 from ..utils.device import check_device, resolve_device
 
 Params = Dict[str, list]
@@ -120,12 +126,15 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                     edge_mask: torch.Tensor, num_nodes: int, *,
                     num_real_edges: Optional[int] = None,
                     src_order: Optional[torch.Tensor] = None,
+                    block_layout: Optional[BlockLayout] = None,
                     generator: Optional[torch.Generator] = None,
                     training: bool = False,
                     backend: str = "kernel") -> torch.Tensor:
     """One GAT layer on a canonicalised graph (self-loops, dst-sorted,
     padded to a sink node, real edges first). num_real_edges defaults to
-    edge_mask.sum() (one host sync); Graph.num_real_edges avoids it."""
+    edge_mask.sum() (one host sync); Graph.num_real_edges avoids it.
+    block_layout (Graph.block_layout) puts the kernel path on the windowed
+    op; the segment path ignores it."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
     nh, f = cfg.num_heads, cfg.out_features
@@ -140,15 +149,11 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                 "paper_faithful / const_attention need the v4 table kernel "
                 "(ROADMAP queue B item 6, not ported); pass "
                 "backend='segment'")
-        if src_order is None:
+        if block_layout is None and src_order is None:
             raise NotImplementedError(
                 "the v5 op needs Graph.src_order; graphs without it take "
                 "the v4 table kernel in the JAX package (ROADMAP queue B "
                 "item 6, not ported); pass backend='segment'")
-        # The JAX package takes v5 from 4096 edges and the v4 table op
-        # below that (v5 there only under GAT_TPU_V5=1). The v4 kernel is
-        # not ported, so every edge count runs v5 here.
-        PATH_TRACE.append("v5")
         a_src, a_dst = _split_attention_map(params["a"], nh, f)
         # one product gives both score tables: s_dst for the op, s_src
         # only for the score bound B (any bound >= max raw logit; it
@@ -156,15 +161,31 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         s_both = h_flat @ torch.cat([a_src, a_dst], dim=1)
         s_dst = s_both[:, nh:]
         bound = (s_both[:, :nh].max() + s_dst.max()).detach()
+        # the mask is drawn in the order of the op's edge list: the
+        # layout's slots (E7, nh) or the dst-sorted edges (E, nh)
+        slots = e if block_layout is None else block_layout.num_slots
         drop = None
         if training and cfg.dropout > 0.0:
-            drop = _attention_dropout((e, nh), cfg.dropout, generator,
+            drop = _attention_dropout((slots, nh), cfg.dropout, generator,
                                       x.device)
-        e_real = (int(edge_mask.sum()) if num_real_edges is None
-                  else num_real_edges)
-        out = v5.fused_gat_table_autocap(
-            h_flat, a_src, s_dst, drop, senders, receivers, src_order,
-            e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope)
+        if block_layout is not None:
+            # The JAX package takes v7 only where its VMEM and MXU-cost
+            # gates pass and from 4096 edges; here every graph that
+            # carries a block layout does.
+            PATH_TRACE.append("v7")
+            out = v7.fused_gat_window_v7(
+                h_flat, a_src, s_dst, drop, block_layout, bound, num_nodes,
+                nh, f, 1e-8, cfg.slope)
+        else:
+            # The JAX package takes v5 from 4096 edges and the v4 table
+            # op below that (v5 there only under GAT_TPU_V5=1). The v4
+            # kernel is not ported, so every edge count runs v5 here.
+            PATH_TRACE.append("v5")
+            e_real = (int(edge_mask.sum()) if num_real_edges is None
+                      else num_real_edges)
+            out = v5.fused_gat_table_autocap(
+                h_flat, a_src, s_dst, drop, senders, receivers, src_order,
+                e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope)
         return _head_combine(out, cfg, num_nodes, params)
 
     PATH_TRACE.append("segment")
@@ -343,7 +364,8 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
             params["layers"][i], lc, x, graph.senders, graph.receivers,
             graph.edge_mask, graph.num_nodes,
             num_real_edges=graph.num_real_edges, src_order=graph.src_order,
-            generator=generator, training=training, backend=backend)
+            block_layout=graph.block_layout, generator=generator,
+            training=training, backend=backend)
         if skip_dims[i] is not None:
             skip_p = params["skips"][skip_count]
             skip_count += 1

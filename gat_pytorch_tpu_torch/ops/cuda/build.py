@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled on its own
-with
+Each `csrc/<name>.cu` has a plain C interface (the `csrc/*.cuh` headers
+are shared) and is compiled on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so
 
 at first use, into `build/torch_kernels/` at the repository root (listed
-in .gitignore). The file name carries a hash of the source and flags, so
-an edited source is rebuilt and a stale library is never loaded.
+in .gitignore). The file name carries a hash of the source, the headers
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded.
 `build_all()` starts one nvcc per source at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -30,14 +31,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("v5_attention", "segment_sum")
+SOURCES = ("v5_attention", "segment_sum", "window_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel on a CUDA tensor, and nowhere else (chip_smoke.py reads these).
 LAUNCHES: Dict[str, int] = {"v5_forward": 0, "v5_backward": 0,
-                            "segment_sum_rows": 0}
+                            "segment_sum_rows": 0, "window_forward": 0,
+                            "window_backward": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -61,6 +63,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                          ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{key}.so"

@@ -45,23 +45,21 @@ def segment_rows_plain(values: torch.Tensor, order: Optional[torch.Tensor],
 
 
 def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
-                       sorted_ids: torch.Tensor, num_segments: int
-                       ) -> torch.Tensor:
+                       seg_ptr: torch.Tensor) -> torch.Tensor:
+    """out[s] = sum of values[order[i]] over i in [seg_ptr[s], seg_ptr[s+1])
+    (order None: the identity), by the kernel."""
     dev = values.device
-    e = sorted_ids.shape[0]
     build.require(values, "values", dev, torch.float32, (None, None))
-    if values.shape[0] < e:
-        raise ValueError(f"values has {values.shape[0]} rows < {e} ids")
     d = values.shape[1]
     if not 1 <= d <= 1024:
         raise ValueError(f"row width {d} outside [1, 1024]")
-    build.require(sorted_ids, "sorted_ids", dev, torch.int32, (e,))
+    build.require(seg_ptr, "seg_ptr", dev, torch.int32, (None,))
+    num_segments = seg_ptr.shape[0] - 1
     if order is not None:
-        build.require(order, "order", dev, torch.int32, (e,))
+        build.require(order, "order", dev, torch.int32, (None,))
     out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
     if num_segments == 0:
         return out
-    seg_ptr = build.csr_offsets(sorted_ids, num_segments)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.segment_sum_rows(
@@ -74,8 +72,16 @@ def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
 
 
 def _segment_rows(values, order, sorted_ids, num_segments):
+    e = sorted_ids.shape[0]
+    if values.shape[0] < e or (order is not None and order.shape[0] != e):
+        raise ValueError(f"{values.shape[0]} rows and order "
+                         f"{None if order is None else tuple(order.shape)} "
+                         f"do not fit {e} ids")
     if values.is_cuda:
-        return _segment_rows_cuda(values, order, sorted_ids, num_segments)
+        build.require(sorted_ids, "sorted_ids", values.device, torch.int32,
+                      (e,))
+        return _segment_rows_cuda(
+            values, order, build.csr_offsets(sorted_ids, num_segments))
     if values.device.type == "cpu":
         return segment_rows_plain(values, order, sorted_ids, num_segments)
     raise ValueError(f"no kernel for device {values.device}")
@@ -98,3 +104,18 @@ def dh_reduce(d_h_rows: torch.Tensor, src_order: torch.Tensor,
     `src_order`, the stable sender-sorting permutation."""
     ids_sorted = senders.index_select(0, src_order.long())
     return _segment_rows(d_h_rows, src_order, ids_sorted, num_nodes)
+
+
+def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
+                  src_ptr: torch.Tensor) -> torch.Tensor:
+    """The same reduction for a caller that holds the sender runs as
+    offsets (the block layout does): sender s's rows are
+    d_h_rows[src_perm[src_ptr[s]:src_ptr[s+1]]]; rows that src_perm does
+    not name are not read. Returns (len(src_ptr) - 1, D)."""
+    if d_h_rows.is_cuda:
+        return _segment_rows_cuda(d_h_rows, src_perm, src_ptr)
+    if d_h_rows.device.type == "cpu":
+        n = src_ptr.shape[0] - 1
+        ids = torch.repeat_interleave(torch.arange(n), src_ptr.long().diff())
+        return segment_rows_plain(d_h_rows, src_perm, ids, n)
+    raise ValueError(f"no kernel for device {d_h_rows.device}")

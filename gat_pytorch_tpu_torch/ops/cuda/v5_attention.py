@@ -52,23 +52,26 @@ def _lib() -> ctypes.CDLL:
 
 
 # -- plain versions (CPU tensors) -------------------------------------------
+#
+# `attention_forward_plain` / `attention_backward_plain` are written over
+# any list of edge slots: `snd` and `rcv` are int64 ids, `valid` (E, 1)
+# marks the slots that are edges, and an `rcv` >= N (a slot that is none)
+# is dropped from every sum. ops/cuda/window_attention.py runs them over
+# its layout's slots.
 
-def _edge_logits(h, a_src, s_dst_eff, senders, receivers, e_real):
-    e = senders.shape[0]
-    snd, rcv = senders.long(), receivers.long()
+def _edge_logits(h, a_src, s_dst_eff, snd, rcv):
     h_e = h.index_select(0, snd)
-    raw = h_e @ a_src + s_dst_eff.index_select(0, rcv)
-    valid = (torch.arange(e, device=h.device) < e_real)[:, None]
-    return h_e, raw, valid, rcv
+    rcv_in = rcv.clamp(max=s_dst_eff.shape[0] - 1)
+    return h_e, h_e @ a_src + s_dst_eff.index_select(0, rcv_in), rcv_in
 
 
-def v5_forward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
-                     e_real: int, slope: float):
-    """(num (N, D), den (N, nh), cap' (), code () int32) — see module doc."""
+def attention_forward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
+                            slope: float):
+    """(num (N, D), den (N, nh), cap' (), code () int32) of the module doc,
+    the code counting slots in the order given."""
     n, nh = s_dst_eff.shape
-    e, d = senders.shape[0], h.shape[1]
-    h_e, raw, valid, rcv = _edge_logits(h, a_src, s_dst_eff, senders,
-                                        receivers, e_real)
+    e, d = snd.shape[0], h.shape[1]
+    h_e, raw, _ = _edge_logits(h, a_src, s_dst_eff, snd, rcv)
     flat = torch.where(valid, raw, torch.full_like(raw, float("-inf")))
     flat = flat.reshape(-1)
     code = torch.argmax(flat)              # first maximal: lowest e*nh + k
@@ -81,24 +84,24 @@ def v5_forward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
     return num, den, cap, code.to(torch.int32)
 
 
-def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
-                      e_real: int, slope: float, g, out, den, epsp,
-                      need_drop: bool):
-    """(d_h rows (E, D) in dst order, d_drop (E, nh) | None,
-    d_s_dst (N, nh), d_a_src (D, nh)) of the op before the cap chain."""
+def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
+                             slope: float, g, out, den, epsp,
+                             need_drop: bool):
+    """(d_h rows (E, D) in slot order, d_drop (E, nh) | None,
+    d_s_dst (N, nh), d_a_src (D, nh)) of the op before the cap chain;
+    the rows of slots that are no edges are 0."""
     n, nh = s_dst_eff.shape
-    e, d = senders.shape[0], h.shape[1]
+    e, d = snd.shape[0], h.shape[1]
     f = d // nh
-    h_e, raw, valid, rcv = _edge_logits(h, a_src, s_dst_eff, senders,
-                                        receivers, e_real)
+    h_e, raw, rcv_in = _edge_logits(h, a_src, s_dst_eff, snd, rcv)
     inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
     d_den = -(out * g).view(n, nh, f).sum(2) * inv
     ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
-    g_e = g.index_select(0, rcv)
-    inv_e = inv.index_select(0, rcv)
+    g_e = g.index_select(0, rcv_in)
+    inv_e = inv.index_select(0, rcv_in)
     m = torch.ones_like(ex) if drop is None else drop
     hg = (h_e * g_e).view(e, nh, f).sum(2)
-    d_raw = slope * ex * (hg * inv_e * m + d_den.index_select(0, rcv))
+    d_raw = slope * ex * (hg * inv_e * m + d_den.index_select(0, rcv_in))
     coef = ex * m * inv_e
     d_h_rows = d_raw @ a_src.t() + (coef[:, :, None]
                                     * g_e.view(e, nh, f)).reshape(e, d)
@@ -106,6 +109,30 @@ def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
     d_sdst = seg.segment_sum(d_raw, rcv, n)
     d_asrc = h_e.t() @ d_raw
     return d_h_rows, d_drop, d_sdst, d_asrc
+
+
+def _real_prefix(senders, receivers, e_real):
+    valid = (torch.arange(senders.shape[0], device=senders.device)
+             < e_real)[:, None]
+    return senders.long(), receivers.long(), valid
+
+
+def v5_forward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
+                     e_real: int, slope: float):
+    """(num, den, cap', code) over the dst-sorted edges e < e_real."""
+    return attention_forward_plain(
+        h, a_src, s_dst_eff, drop,
+        *_real_prefix(senders, receivers, e_real), slope)
+
+
+def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
+                      e_real: int, slope: float, g, out, den, epsp,
+                      need_drop: bool):
+    """(d_h rows in dst order, d_drop, d_s_dst, d_a_src)."""
+    return attention_backward_plain(
+        h, a_src, s_dst_eff, drop,
+        *_real_prefix(senders, receivers, e_real), slope, g, out, den,
+        epsp, need_drop)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -216,7 +243,7 @@ def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
 
 # -- the differentiable op ----------------------------------------------------
 
-def _normalise(num, den, cap, eps: float, slope: float, nh: int):
+def normalise(num, den, cap, eps: float, slope: float, nh: int):
     """The epilogue: (num / (den + eps'), eps'), eps' = eps*exp(slope*cap')
     and 0 where a node receives nothing."""
     n, d = num.shape
@@ -224,6 +251,30 @@ def _normalise(num, den, cap, eps: float, slope: float, nh: int):
     inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
     out = (num.view(n, nh, d // nh) * inv[:, :, None]).reshape(n, d)
     return out, epsp
+
+
+def route_cap_cotangent(d_h, d_asrc, d_sdst, code, senders, receivers,
+                        h_flat, a_src, g, out, den, epsp, slope: float,
+                        nh: int):
+    """Add the cap chain to (d_h, d_a_src, d_s_dst). The cap
+    cap' = h[src*] . a_src[:, k*] + s_dst'[dst*, k*] enters the output only
+    through eps', so its cotangent is closed-form; it goes to the argmax
+    (slot, head) that `code` = slot*nh + head names, `senders` and
+    `receivers` being indexed by slot."""
+    n, d = out.shape
+    inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
+    gout_h = (g * out).view(n, nh, d // nh).sum(2)
+    dc = -slope * epsp * (gout_h * inv).sum()
+    code = code.long().view(1)
+    eidx, hidx = code // nh, code % nh
+    src_star = senders.index_select(0, eidx).long()
+    dst_star = receivers.index_select(0, eidx).long()
+    hrow = h_flat.index_select(0, src_star)               # (1, D)
+    acol = a_src.index_select(1, hidx)                    # (D, 1)
+    d_h = d_h.index_add(0, src_star, dc * acol.view(1, d))
+    d_asrc = d_asrc.index_add(1, hidx, dc * hrow.view(d, 1))
+    d_sdst = d_sdst.index_put((dst_star, hidx), dc.view(1), accumulate=True)
+    return d_h, d_asrc, d_sdst
 
 
 class _V5Attention(torch.autograd.Function):
@@ -234,7 +285,7 @@ class _V5Attention(torch.autograd.Function):
         s_dst_eff = (s_dst - bound).contiguous()
         num, den, cap, code = v5_forward(h_flat, a_src, s_dst_eff, drop_mask,
                                          senders, receivers, e_real, slope)
-        out, epsp = _normalise(num, den, cap, eps, slope, nh)
+        out, epsp = normalise(num, den, cap, eps, slope, nh)
         ctx.save_for_backward(h_flat, a_src, s_dst_eff, drop_mask, senders,
                               receivers, src_order, den, out, epsp, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
@@ -245,7 +296,6 @@ class _V5Attention(torch.autograd.Function):
         (h_flat, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
          den, out, epsp, code) = ctx.saved_tensors
         nh, slope = ctx.nh, ctx.slope
-        n, d = out.shape
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
@@ -253,21 +303,9 @@ class _V5Attention(torch.autograd.Function):
             ctx.e_real, slope, g, out, den, epsp, need_drop)
         d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0])
 
-        # cap chain: cap' = h[src*] . a_src[:, k*] + s_dst'[dst*, k*]; its
-        # cotangent is closed-form (cap' enters only through eps')
-        inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
-        gout_h = (g * out).view(n, nh, d // nh).sum(2)
-        dc = -slope * epsp * (gout_h * inv).sum()
-        code = code.long().view(1)
-        eidx, hidx = code // nh, code % nh
-        src_star = senders.index_select(0, eidx).long()
-        dst_star = receivers.index_select(0, eidx).long()
-        hrow = h_flat.index_select(0, src_star)               # (1, D)
-        acol = a_src.index_select(1, hidx)                    # (D, 1)
-        d_h = d_h.index_add(0, src_star, dc * acol.view(1, d))
-        d_asrc = d_asrc.index_add(1, hidx, dc * hrow.view(d, 1))
-        d_sdst = d_sdst.index_put((dst_star, hidx), dc.view(1),
-                                  accumulate=True)
+        d_h, d_asrc, d_sdst = route_cap_cotangent(
+            d_h, d_asrc, d_sdst, code, senders, receivers, h_flat, a_src,
+            g, out, den, epsp, slope, nh)
         return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 8
 
 

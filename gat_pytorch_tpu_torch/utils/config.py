@@ -38,6 +38,7 @@ class RunConfig:
     log_every: int = 0
     backend: str = "kernel"               # kernel | segment
     device: str = "cuda"
+    reorder: Optional[str] = None         # "rcm": reorder + block layout
 
     def gat_config(self) -> GATConfig:
         return GATConfig(

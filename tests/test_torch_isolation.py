@@ -116,6 +116,6 @@ def test_entry_points_refuse_cpu_unless_asked(no_gpu):
 
 def test_cli_refuses_unported_flags():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--device", "cpu", "--reorder", "rcm"])
+        cli.main(["--device", "cpu", "--reorder", "cluster"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", "--dataset", "PPI"])

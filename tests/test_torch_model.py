@@ -8,7 +8,10 @@ training loss for every parameter must agree to rtol 1e-4 / atol 1e-5
   * the port's kernel path (plain versions on the CPU) against
     gat_model_apply(backend="pallas") in interpret mode, the v5 op forced
     on the small graph with GAT_TPU_V5=1;
-  * the port's segment path against the JAX "xla" path.
+  * the port's segment path against the JAX "xla" path;
+  * on a banded graph that carries a block layout, the port's "v7" path
+    against gat_model_apply(backend="pallas", force_windowed=True) in
+    interpret mode with float32 contractions.
 The Adam update is compared on its own, from identical gradients.
 """
 
@@ -114,6 +117,90 @@ def test_kernel_path_matches_jax_pallas(name, monkeypatch):
     assert tgat.PATH_TRACE == ["v5", "v5"]
     assert tlogits.shape == (tg.num_nodes, tcfg.num_classes)
     assert_same(jlogits, jgrads, tlogits, tparams)
+
+
+def build_windowed(name, n=1500, e=9000, band=400):
+    """`build` on a banded graph (senders near receivers, as
+    tests/test_window_kernel.py) canonicalised with src_windows=True."""
+    kw = dict(CONFIGS[name], num_input_node_features=32, num_layers=2,
+              dropout=0.0)
+    jcfg, tcfg = jgat.GATConfig(**kw), tgat.GATConfig(**kw)
+    arr = make_graph_arrays(kw["num_classes"], n=n, e=e)
+    rng = np.random.default_rng(7)
+    arr["receivers"] = rng.integers(0, n, e)
+    arr["senders"] = np.clip(
+        arr["receivers"] + rng.integers(-band // 2, band // 2, e), 0, n - 1)
+    args = (arr.pop("x"), arr.pop("senders"), arr.pop("receivers"))
+    jg = JT.canonicalize(*args, **arr, src_windows=True)
+    tg = TT.canonicalize(*args, **arr, src_windows=True)
+    jparams = jgat.init_gat_model(jax.random.key(2), jcfg)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
+    return jcfg, tcfg, jg, tg, jparams, tparams
+
+
+@pytest.mark.parametrize("name", ["cora", "skips"])
+def test_windowed_path_matches_jax_v7(name, monkeypatch):
+    monkeypatch.setenv("GAT_TPU_V6_DTYPE", "float32")
+    jcfg, tcfg, jg, tg, jparams, tparams = build_windowed(name)
+    task = jtask()
+
+    def loss(p):
+        logits = jgat.gat_model_apply(p, jcfg, jg, backend="pallas",
+                                      force_windowed=True)
+        return task.loss(logits, jg, "train"), logits
+
+    jgat.PATH_TRACE.clear()
+    (_, jlogits), jgrads = jax.value_and_grad(loss, has_aux=True)(jparams)
+    assert jgat.PATH_TRACE == ["v7", "v7"]
+    tgat.PATH_TRACE.clear()
+    tlogits = torch_loss_and_grads(tcfg, tg, tparams, "kernel")
+    assert tgat.PATH_TRACE == ["v7", "v7"]
+    assert tlogits.shape == (tg.num_nodes, tcfg.num_classes)
+    assert_same(np.asarray(jlogits), jgrads, tlogits, tparams)
+
+
+def test_windowed_path_matches_the_other_paths():
+    """One graph, three routes of the port: the windowed op, the v5 op
+    (the same graph without its block layout) and the segment ops."""
+    _, tcfg, _, tg, _, tparams = build_windowed("skips", n=600, e=3000)
+    results = []
+    for graph, backend, path in ((tg, "kernel", "v7"),
+                                 (tg.replace(block_layout=None), "kernel",
+                                  "v5"),
+                                 (tg, "segment", "segment")):
+        for p in tgat.parameters(tparams):
+            p.grad = None
+        tgat.PATH_TRACE.clear()
+        logits = torch_loss_and_grads(tcfg, graph, tparams, backend)
+        assert tgat.PATH_TRACE == [path, path]
+        results.append((logits, [p.grad.clone().numpy()
+                                 for p in tgat.parameters(tparams)]))
+    for logits, grads in results[1:]:
+        np.testing.assert_allclose(results[0][0], logits, **TOL)
+        for a, b in zip(results[0][1], grads):
+            np.testing.assert_allclose(a, b, **TOL)
+
+
+def test_windowed_dropout_mask_is_drawn_in_slot_order():
+    """With attention dropout on, the kernel path draws an (E7, nh) mask
+    for the layout's slots and an (E, nh) one without a layout: the same
+    generator state then yields different logits on the two routes, and
+    the same on a repeat."""
+    _, _, _, tg, _, tparams = build_windowed("cora", n=600, e=3000)
+    cfg = tgat.GATConfig(**dict(CONFIGS["cora"], num_input_node_features=32,
+                                num_layers=2, dropout=0.5))
+    assert tg.block_layout.num_slots != tg.num_edges
+
+    def run(graph):
+        gen = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            return tgat.gat_model_apply(tparams, cfg, graph, device="cpu",
+                                        generator=gen, training=True)
+
+    a, b = run(tg), run(tg)
+    assert torch.equal(a, b) and torch.isfinite(a).all()
+    assert not torch.allclose(a, run(tg.replace(block_layout=None)))
 
 
 @pytest.mark.parametrize("extra", [
