@@ -4,11 +4,15 @@ Usage:
     python -m gat_pytorch_tpu_torch.cli.train --dataset Cora
     python -m gat_pytorch_tpu_torch.cli.train --dataset Cora --device cpu
     python -m gat_pytorch_tpu_torch.cli.train --dataset Pubmed --reorder rcm
+    python -m gat_pytorch_tpu_torch.cli.train --dataset PPI --paper_faithful
+    python -m gat_pytorch_tpu_torch.cli.train --dataset PATTERN
 
 It keeps the JAX CLI's flags; `--device` (default cuda) takes the place
 of `--platform`, and `--backend` picks the layer path (kernel | segment).
 `--reorder rcm` relabels the nodes by reverse Cuthill-McKee and builds the
-block layout, which puts the kernel path on the windowed attention op.
+block layout, which puts the kernel path on the windowed attention op;
+`--paper_faithful` and `--const_attention` put it on the table op. PPI and
+PATTERN train on reshuffled block-diagonal batches of whole graphs.
 Without a GPU it raises unless `--device cpu` is given. Flags of features
 not ported yet raise NotImplementedError naming their ROADMAP item. The
 last line printed is the metrics JSON object, as the JAX CLI prints it.
@@ -28,8 +32,8 @@ _NOT_PORTED = {
     "tensorboard_dir": "queue A item 6 (metrics logging)",
     "track_grads": "queue A item 6 (metrics logging)",
     "layer_type": "queue A item 3 (models/naive.py)",
-    "sampling_fanouts": "queue A item 9 (sampling)",
-    "sampling_batch_size": "queue A item 9 (sampling)",
+    "sampling_fanouts": "queue A item 9 (data/sampling.py)",
+    "sampling_batch_size": "queue A item 9 (data/sampling.py)",
 }
 
 
@@ -72,8 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(config) -> dict:
     """Train on the dataset, evaluate the best-validation parameters on
-    the test mask, print and return the metrics."""
+    the test data, print and return the metrics."""
     from ..data import datasets, loader
+    from ..train import optim as O
     from ..train.tasks import make_task
     from ..train.trainer import Trainer
     from ..utils.device import resolve_device
@@ -82,26 +87,46 @@ def run(config) -> dict:
     if config.exec_type == "load":
         raise NotImplementedError(
             "--exec_type load needs checkpoints (ROADMAP queue A item 6)")
-    if config.attention_penalty:
-        raise NotImplementedError(
-            "--attention_penalty is the PPI regulariser (ROADMAP queue A "
-            "item 9)")
-    task = make_task(config.dataset,
-                     attention_reward=config.attention_reward)
-    raw = datasets.load_planetoid(config.dataset,
-                                  synthetic_override=config.synthetic,
-                                  seed=config.seed)
-    graph = loader.transductive_graph(
-        raw, reorder=config.reorder, src_windows=config.reorder is not None)
+    name = config.dataset
+    task = make_task(name, attention_reward=config.attention_reward,
+                     attention_penalty=config.attention_penalty)
+    synth = config.synthetic
+    reshuffle = None
+    if name in datasets.PLANETOID:
+        raw = datasets.load_planetoid(name, synthetic_override=synth,
+                                      seed=config.seed)
+        graph = loader.transductive_graph(
+            raw, reorder=config.reorder,
+            src_windows=config.reorder is not None)
+        train_data = val_data = test_data = [graph]
+    else:
+        if config.reorder is not None:
+            raise NotImplementedError(
+                "--reorder relabels one full graph; the batched datasets "
+                "do not take it")
+        load = datasets.load_ppi if name == "PPI" else datasets.load_pattern
+        train, val, test = (load(split, synth, config.seed)
+                            for split in ("train", "val", "test"))
+        batcher = loader.InductiveBatcher(train, config.batch_size,
+                                          seed=config.seed)
+        # as the JAX CLI: the first permutation builds train_data, and
+        # every epoch (the first too) draws the next one
+        train_data = batcher.epoch(0)
+        reshuffle = batcher.epoch
+        val_data = loader.InductiveBatcher(
+            val, config.batch_size, shuffle=False).epoch()
+        test_data = loader.InductiveBatcher(test, 1, shuffle=False).epoch()
+    plateau = (O.ReduceLROnPlateau(factor=0.5, patience=5, min_lr=1e-6)
+               if name == "PATTERN" else None)
     trainer = Trainer(cfg=config.gat_config(), task=task,
                       learning_rate=config.learning_rate,
                       weight_decay=config.l2_reg,
                       max_epochs=config.num_epochs,
-                      patience=config.patience, seed=config.seed,
-                      log_every=config.log_every, device=config.device,
-                      backend=config.backend)
-    result = trainer.fit(graph)
-    metrics = trainer.evaluate(result.params, [graph])
+                      patience=config.patience, plateau=plateau,
+                      seed=config.seed, log_every=config.log_every,
+                      device=config.device, backend=config.backend)
+    result = trainer.fit_epochs(train_data, val_data, reshuffle=reshuffle)
+    metrics = trainer.evaluate(result.params, test_data)
     metrics["best_val_loss"] = result.best_val_loss
     metrics["best_epoch"] = result.best_epoch
     metrics["epochs_run"] = len(result.history)
@@ -125,8 +150,7 @@ def main(argv=None) -> int:
     overrides = {k: v for k, v in vars(args).items()
                  if v is not None and k not in ("dataset", *_NOT_PORTED)}
     config = get_config(args.dataset, **overrides)
-    if (args.dataset in datasets.PLANETOID
-            and datasets.is_synthetic(args.dataset)):
+    if datasets.is_synthetic(args.dataset):
         print(f"[data] real {args.dataset} files not found -> synthetic "
               f"stand-in (set GAT_TPU_DATA to use real data)",
               file=sys.stderr)

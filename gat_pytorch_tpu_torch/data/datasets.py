@@ -1,18 +1,22 @@
-"""Planetoid datasets: the real raw files when present, else the stand-in.
+"""The five datasets: the real raw files when present, else the stand-in.
 
-Counterpart of gat_pytorch_tpu/data/datasets.py for the Planetoid family
-(Cora, Citeseer, Pubmed). If `GAT_TPU_DATA` points at a directory with
-the Kipf/GCN pickles (`<root>/<Name>/raw/ind.<name>.{x,y,tx,ty,allx,ally,
-graph,test.index}`), they are parsed; otherwise the shape-faithful
-synthetic stand-in (data/synthetic.py) is generated. PPI and PATTERN wait
-for ROADMAP queue A item 9.
+Counterpart of gat_pytorch_tpu/data/datasets.py. If `GAT_TPU_DATA` points
+at a directory with the raw files, they are parsed; otherwise the
+shape-faithful synthetic stand-in (data/synthetic.py) is generated.
+  Planetoid (Cora, Citeseer, Pubmed): the Kipf/GCN pickles
+    `<root>/<Name>/raw/ind.<name>.{x,y,tx,ty,allx,ally,graph,test.index}`;
+  PPI: the GraphSAGE files `<root>/PPI/raw/{train,valid,test}_{graph.json,
+    feats.npy,labels.npy,graph_id.npy}`;
+  PATTERN: `<root>/PATTERN/{train,val,test}.pt`, lists of dicts or objects
+    with x, edge_index, y (written by torch.save).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -90,17 +94,94 @@ def _load_planetoid(name: str) -> RawGraph:
                     test_mask=test_mask)
 
 
+def _ppi_available() -> bool:
+    root = data_root()
+    return bool(root) and os.path.exists(
+        os.path.join(root, "PPI", "raw", "train_graph.json"))
+
+
+def _load_ppi(split: str) -> List[RawGraph]:
+    d = os.path.join(data_root(), "PPI", "raw")
+    tag = {"train": "train", "val": "valid", "test": "test"}[split]
+    with open(os.path.join(d, f"{tag}_graph.json")) as f:
+        g = json.load(f)
+    feats = np.load(os.path.join(d, f"{tag}_feats.npy")).astype(np.float32)
+    labels = np.load(os.path.join(d, f"{tag}_labels.npy")).astype(np.float32)
+    gids = np.load(os.path.join(d, f"{tag}_graph_id.npy")).astype(np.int64)
+    links = np.array([[ln["source"], ln["target"]] for ln in g["links"]],
+                     np.int64)
+    graphs = []
+    for gid in np.unique(gids):
+        nodes = np.where(gids == gid)[0]
+        lo, hi = nodes.min(), nodes.max()
+        sel = (links[:, 0] >= lo) & (links[:, 0] <= hi)
+        e = links[sel] - lo
+        s = np.concatenate([e[:, 0], e[:, 1]])
+        r = np.concatenate([e[:, 1], e[:, 0]])
+        graphs.append(RawGraph(x=feats[nodes], senders=s, receivers=r,
+                               y=labels[nodes]))
+    return graphs
+
+
+def _pattern_available() -> bool:
+    root = data_root()
+    return bool(root) and os.path.exists(
+        os.path.join(root, "PATTERN", "train.pt"))
+
+
+def _load_pattern(split: str) -> List[RawGraph]:
+    import torch
+    path = os.path.join(data_root(), "PATTERN", f"{split}.pt")
+    # the files hold pickled graph objects, not only tensors
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    graphs = []
+    for item in blob:
+        def field(name):
+            return item[name] if isinstance(item, dict) else getattr(item,
+                                                                     name)
+        ei = np.asarray(field("edge_index"), np.int64)
+        graphs.append(RawGraph(x=np.asarray(field("x"), np.float32),
+                               senders=ei[0], receivers=ei[1],
+                               y=np.asarray(field("y"), np.int64)))
+    return graphs
+
+
+# -- public API -------------------------------------------------------------
+
+def _use_real(available: bool, synthetic_override: Optional[bool]) -> bool:
+    return available if synthetic_override is None else not synthetic_override
+
+
 def load_planetoid(name: str, synthetic_override: Optional[bool] = None,
                    seed: int = 0) -> RawGraph:
-    use_real = _planetoid_available(name) if synthetic_override is None \
-        else not synthetic_override
-    if use_real:
+    if _use_real(_planetoid_available(name), synthetic_override):
         return _load_planetoid(name)
     return synthetic.make_planetoid_like(name, seed=seed)
 
 
+def load_ppi(split: str, synthetic_override: Optional[bool] = None,
+             seed: int = 0, num_graphs: Optional[int] = None
+             ) -> List[RawGraph]:
+    if _use_real(_ppi_available(), synthetic_override):
+        return _load_ppi(split)
+    return synthetic.make_ppi_like(split, seed=seed, num_graphs=num_graphs)
+
+
+def load_pattern(split: str, synthetic_override: Optional[bool] = None,
+                 seed: int = 0, num_graphs: Optional[int] = None
+                 ) -> List[RawGraph]:
+    if _use_real(_pattern_available(), synthetic_override):
+        return _load_pattern(split)
+    return synthetic.make_pattern_like(split, seed=seed,
+                                       num_graphs=num_graphs)
+
+
 def is_synthetic(dataset: str) -> bool:
-    """True when the named Planetoid dataset would be served synthetically."""
-    if dataset not in PLANETOID:
-        raise ValueError(dataset)
-    return not _planetoid_available(dataset)
+    """True when the named dataset would be served synthetically."""
+    if dataset in PLANETOID:
+        return not _planetoid_available(dataset)
+    if dataset == "PPI":
+        return not _ppi_available()
+    if dataset == "PATTERN":
+        return not _pattern_available()
+    raise ValueError(dataset)

@@ -1,6 +1,6 @@
-"""Deterministic synthetic Planetoid stand-ins.
+"""Deterministic synthetic stand-ins for the five datasets.
 
-Counterpart of gat_pytorch_tpu/data/synthetic.py:21-108: the same numpy
+Counterpart of gat_pytorch_tpu/data/synthetic.py:21-175: the same numpy
 generator calls in the same order, so a seed gives bit-identical arrays
 in both packages. Used when the real raw files are absent.
 """
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -99,3 +99,70 @@ def make_planetoid_like(name: str, seed: int = 0) -> RawGraph:
     return RawGraph(x=x, senders=s, receivers=r, y=labels,
                     train_mask=train_mask, val_mask=val_mask,
                     test_mask=test_mask)
+
+
+def make_ppi_like(split: str, seed: int = 0,
+                  num_graphs: Optional[int] = None) -> List[RawGraph]:
+    """Inductive multi-label graphs: 20 train / 2 val / 2 test graphs,
+    about 1000 nodes each, 50 features, 121 labels (real PPI averages
+    about 2372 nodes a graph)."""
+    counts = {"train": 20, "val": 2, "test": 2}
+    offs = {"train": 0, "val": 20, "test": 22}
+    k = num_graphs if num_graphs is not None else counts[split]
+    # the latent->label and latent->feature maps are shared across graphs
+    # (label semantics are global in real PPI); only node latents and
+    # edges vary per graph
+    shared = np.random.default_rng(seed + 555)
+    proto = shared.standard_normal((8, 121)).astype(np.float32)
+    w = shared.standard_normal((8, 50)).astype(np.float32)
+    graphs = []
+    for gi in range(k):
+        rng = np.random.default_rng(seed + 1000 + offs[split] + gi)
+        n = int(rng.integers(900, 1200))
+        z = rng.standard_normal((n, 8)).astype(np.float32)
+        logits = z @ proto
+        y = (logits > np.quantile(logits, 0.78, axis=0)).astype(np.float32)
+        # edges between latent-similar nodes
+        comm = np.argmax(z[:, :6], axis=1)
+        s, r = _sbm_edges(rng, comm.astype(np.int64), avg_degree=28.0,
+                          homophily=0.8)
+        x = (z @ w + 0.3 * rng.standard_normal((n, 50))).astype(np.float32)
+        graphs.append(RawGraph(x=x, senders=s, receivers=r, y=y))
+    return graphs
+
+
+def make_pattern_like(split: str, seed: int = 0,
+                      num_graphs: Optional[int] = None) -> List[RawGraph]:
+    """PATTERN-style binary node classification: detect the nodes of a
+    planted pattern; about 118 nodes, 3 features, positive fraction about
+    0.1765. The real dataset has 10000/2000/2000 train/val/test graphs;
+    the stand-in's default is 256/64/64."""
+    counts = {"train": 256, "val": 64, "test": 64}
+    offs = {"train": 0, "val": 10000, "test": 12000}
+    k = num_graphs if num_graphs is not None else counts[split]
+    graphs = []
+    for gi in range(k):
+        rng = np.random.default_rng(seed + 7000 + offs[split] + gi)
+        n = int(rng.integers(90, 140))
+        n_pos = max(2, int(round(0.1765 * n)))
+        y = np.zeros(n, np.int64)
+        pos = rng.choice(n, size=n_pos, replace=False)
+        y[pos] = 1
+        # pattern nodes form a denser clique-ish subgraph
+        s, r = _sbm_edges(rng, np.zeros(n, np.int64), avg_degree=10.0,
+                          homophily=0.0)
+        extra = []
+        for i in pos:
+            for j in pos:
+                if i < j and rng.random() < 0.45:
+                    extra.append((i, j))
+        if extra:
+            ex = np.array(extra, np.int64)
+            s = np.concatenate([s, ex[:, 0], ex[:, 1]])
+            r = np.concatenate([r, ex[:, 1], ex[:, 0]])
+        x = rng.integers(0, 3, size=(n, 1)).astype(np.float32)
+        x = np.concatenate([x == 0, x == 1, x == 2], axis=1).astype(np.float32)
+        # leak a noisy hint of membership so the task is learnable
+        x[:, 0] += 0.55 * y + 0.1 * rng.standard_normal(n)
+        graphs.append(RawGraph(x=x, senders=s, receivers=r, y=y))
+    return graphs

@@ -1,7 +1,7 @@
 """Host graph primitives with the semantics of csrc/graphcore.cpp.
 
-Counterpart of gat_pytorch_tpu/graph/graphcore_binding.py:63-108 and
-:134-179, in its numpy form (the spec the C++ library is tested against).
+Counterpart of gat_pytorch_tpu/graph/graphcore_binding.py:63-179, in its
+numpy form (the spec the C++ library is tested against).
 The port does not load the native library: at the sizes of its main path
 these run in milliseconds, except `rcm_order`, whose per-node Python loop
 takes about a second at Pubmed size (once per graph).
@@ -41,6 +41,20 @@ def csr_offsets(receivers: np.ndarray, num_nodes: int) -> np.ndarray:
     """(num_nodes + 1,) offsets of each node's run in sorted `receivers`."""
     counts = np.bincount(_i64(receivers), minlength=num_nodes)
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+def block_diagonal(senders: np.ndarray, receivers: np.ndarray,
+                   node_counts: np.ndarray, edge_counts: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Offset concatenated per-graph edge lists into one big graph.
+    Returns (senders, receivers, graph_ids_per_node)."""
+    senders, receivers = _i64(senders), _i64(receivers)
+    node_counts, edge_counts = _i64(node_counts), _i64(edge_counts)
+    node_off = np.concatenate([[0], np.cumsum(node_counts)[:-1]])
+    offs = np.repeat(node_off, edge_counts)
+    gids = np.repeat(np.arange(len(node_counts), dtype=np.int64),
+                     node_counts)
+    return senders + offs, receivers + offs, gids
 
 
 def rcm_order(senders: np.ndarray, receivers: np.ndarray,

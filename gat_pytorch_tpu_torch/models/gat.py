@@ -14,16 +14,21 @@ torch's gradient convention at 0, and +1e-8 in the softmax denominator.
 
 Two layer paths, chosen by `backend`:
   "kernel"  a whole-attention op: the CUDA kernels on a CUDA graph, their
-            plain versions on a CPU graph. A graph that carries a block
-            layout (canonicalize(..., src_windows=True)) takes the
-            windowed op (ops/cuda/window_attention.py, PATH_TRACE "v7"),
-            any other the v5 op (ops/cuda/v5_attention.py, "v5"): the
-            counterparts of the JAX "pallas" v7 and v5 branches. The JAX
-            package also gates v7 on models of the TPU's VMEM and MXU
-            cost; those do not apply to this card and are not ported.
+            plain versions on a CPU graph. paper_faithful,
+            const_attention and a graph without `src_order` take the
+            table op (ops/cuda/table_attention.py, PATH_TRACE
+            "v4_table"), which gets its edge logits from plain torch;
+            otherwise a graph that carries a block layout
+            (canonicalize(..., src_windows=True)) takes the windowed op
+            (ops/cuda/window_attention.py, "v7") and any other the v5 op
+            (ops/cuda/v5_attention.py, "v5"): the counterparts of the JAX
+            "pallas" v4, v7 and v5 branches. The JAX package also gates
+            v7 on models of the TPU's VMEM and MXU cost and v5 on 4096
+            edges; those gates do not apply to this card and are not
+            ported.
   "segment" plain torch segment ops (ops/segment.py), the counterpart of
-            the JAX "xla" path; it also serves paper_faithful and
-            const_attention, which the kernel path does not port yet.
+            the JAX "xla" path and the reference the kernel path is held
+            against.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch.nn.functional as F
 
 from ..graph.graph import BlockLayout, Graph
 from ..ops import segment as seg
+from ..ops.cuda import table_attention as v4
 from ..ops.cuda import v5_attention as v5
 from ..ops.cuda import window_attention as v7
 from ..utils.device import check_device, resolve_device
@@ -121,6 +127,36 @@ def _head_combine(out: torch.Tensor, cfg: GATLayerConfig, num_nodes: int,
     return out
 
 
+def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
+                 senders: torch.Tensor, receivers: torch.Tensor,
+                 edge_mask: torch.Tensor) -> torch.Tensor:
+    """(E, NH) edge logits after LeakyReLU, from node scores: zeros under
+    const_attention, per-head a = [a_l || a_r] scores under paper_faithful,
+    else the cross-head scores with the global max-cap BEFORE LeakyReLU."""
+    nh, f = cfg.num_heads, cfg.out_features
+    if cfg.const_attention:
+        return torch.zeros((senders.shape[0], nh), dtype=h_flat.dtype,
+                           device=h_flat.device)
+    if cfg.paper_faithful:
+        h = h_flat.reshape(-1, nh, f)
+        a_l, a_r = params["a"][:, :f], params["a"][:, f:]
+        s_src = torch.einsum("nhf,hf->nh", h, a_l)
+        s_dst = torch.einsum("nhf,hf->nh", h, a_r)
+    else:
+        a_src, a_dst = _split_attention_map(params["a"], nh, f)
+        s_both = h_flat @ torch.cat([a_src, a_dst], dim=1)
+        s_src, s_dst = s_both[:, :nh], s_both[:, nh:]
+    logits = seg.gather_rows(s_src, senders) + seg.gather_rows(
+        s_dst, receivers)
+    if not cfg.paper_faithful:
+        masked = torch.where(edge_mask[:, None], logits,
+                             torch.full_like(logits, float("-inf")))
+        logits = logits - masked.max()
+    # torch's LeakyReLU gradient at exactly 0 is the slope; the capped
+    # argmax logit sits at 0, so the convention matters here
+    return F.leaky_relu(logits, cfg.slope)
+
+
 def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                     senders: torch.Tensor, receivers: torch.Tensor,
                     edge_mask: torch.Tensor, num_nodes: int, *,
@@ -134,7 +170,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     padded to a sink node, real edges first). num_real_edges defaults to
     edge_mask.sum() (one host sync); Graph.num_real_edges avoids it.
     block_layout (Graph.block_layout) puts the kernel path on the windowed
-    op; the segment path ignores it."""
+    op; the table op and the segment path ignore it."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
     nh, f = cfg.num_heads, cfg.out_features
@@ -142,18 +178,11 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     # x @ W is a plain product outside any kernel, in full float32
     # (utils/device.resolve_device turns TF32 off)
     h_flat = x @ params["W"]
+    dropping = training and cfg.dropout > 0.0
+    given_logits = cfg.paper_faithful or cfg.const_attention
 
-    if backend == "kernel":
-        if cfg.paper_faithful or cfg.const_attention:
-            raise NotImplementedError(
-                "paper_faithful / const_attention need the v4 table kernel "
-                "(ROADMAP queue B item 6, not ported); pass "
-                "backend='segment'")
-        if block_layout is None and src_order is None:
-            raise NotImplementedError(
-                "the v5 op needs Graph.src_order; graphs without it take "
-                "the v4 table kernel in the JAX package (ROADMAP queue B "
-                "item 6, not ported); pass backend='segment'")
+    if backend == "kernel" and not given_logits and (
+            block_layout is not None or src_order is not None):
         a_src, a_dst = _split_attention_map(params["a"], nh, f)
         # one product gives both score tables: s_dst for the op, s_src
         # only for the score bound B (any bound >= max raw logit; it
@@ -164,10 +193,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         # the mask is drawn in the order of the op's edge list: the
         # layout's slots (E7, nh) or the dst-sorted edges (E, nh)
         slots = e if block_layout is None else block_layout.num_slots
-        drop = None
-        if training and cfg.dropout > 0.0:
-            drop = _attention_dropout((slots, nh), cfg.dropout, generator,
-                                      x.device)
+        drop = (_attention_dropout((slots, nh), cfg.dropout, generator,
+                                   x.device) if dropping else None)
         if block_layout is not None:
             # The JAX package takes v7 only where its VMEM and MXU-cost
             # gates pass and from 4096 edges; here every graph that
@@ -177,9 +204,9 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                 h_flat, a_src, s_dst, drop, block_layout, bound, num_nodes,
                 nh, f, 1e-8, cfg.slope)
         else:
-            # The JAX package takes v5 from 4096 edges and the v4 table
-            # op below that (v5 there only under GAT_TPU_V5=1). The v4
-            # kernel is not ported, so every edge count runs v5 here.
+            # The JAX package takes v5 from 4096 edges and the table op
+            # below that: a gate on the TPU's launch cost, not ported.
+            # Every edge count runs v5 here.
             PATH_TRACE.append("v5")
             e_real = (int(edge_mask.sum()) if num_real_edges is None
                       else num_real_edges)
@@ -188,37 +215,39 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                 e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope)
         return _head_combine(out, cfg, num_nodes, params)
 
-    PATH_TRACE.append("segment")
-    h = h_flat.reshape(num_nodes, nh, f)
-    if cfg.const_attention:
-        logits = torch.zeros((e, nh), dtype=h_flat.dtype, device=x.device)
-    else:
+    logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask)
+    eps = 0.0 if cfg.paper_faithful else 1e-8
+
+    if backend == "kernel":
+        # the table op: paper_faithful, const_attention, and graphs
+        # without src_order (the op then derives the order itself)
+        PATH_TRACE.append("v4_table")
+        pad = torch.full_like(logits, v4.NEG_INF)
+        logits = torch.where(edge_mask[:, None], logits, pad)
         if cfg.paper_faithful:
-            a_l, a_r = params["a"][:, :f], params["a"][:, f:]
-            s_src = torch.einsum("nhf,hf->nh", h, a_l)
-            s_dst = torch.einsum("nhf,hf->nh", h, a_r)
-        else:
-            a_src, a_dst = _split_attention_map(params["a"], nh, f)
-            s_both = h_flat @ torch.cat([a_src, a_dst], dim=1)
-            s_src, s_dst = s_both[:, :nh], s_both[:, nh:]
-        logits = seg.gather_rows(s_src, senders) + seg.gather_rows(
-            s_dst, receivers)
-        if not cfg.paper_faithful:
-            # the global max-cap BEFORE LeakyReLU
-            masked = torch.where(edge_mask[:, None], logits,
-                                 torch.full_like(logits, float("-inf")))
-            logits = logits - masked.max()
-        # torch's LeakyReLU gradient at exactly 0 is the slope; the capped
-        # argmax logit sits at 0, so the convention matters here
-        logits = F.leaky_relu(logits, cfg.slope)
+            # the per-destination max, detached (softmax is invariant to
+            # it), is subtracted here; the op then only needs exp
+            seg_max = seg.segment_max(logits, receivers, num_nodes).detach()
+            seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                                  torch.zeros_like(seg_max))
+            logits = torch.where(
+                edge_mask[:, None],
+                logits - seg.gather_rows(seg_max, receivers), pad)
+        drop = (_attention_dropout((e, nh), cfg.dropout, generator, x.device)
+                if dropping else None)
+        out = v4.fused_segment_attention_table(
+            logits, h_flat, senders, receivers, drop, src_order, num_nodes,
+            nh, f, eps, num_real_edges)
+        return _head_combine(out, cfg, num_nodes, params)
+
+    PATH_TRACE.append("segment")
     alpha = seg.segment_softmax(
-        logits, receivers, num_nodes, edge_mask=edge_mask,
-        eps=0.0 if cfg.paper_faithful else 1e-8,
+        logits, receivers, num_nodes, edge_mask=edge_mask, eps=eps,
         subtract_segment_max=cfg.paper_faithful)
-    if training and cfg.dropout > 0.0:
+    if dropping:
         alpha = alpha * _attention_dropout(alpha.shape, cfg.dropout,
                                            generator, x.device)
-    src_feats = seg.gather_rows(h, senders)                   # (E, NH, F)
+    src_feats = seg.gather_rows(h_flat.reshape(num_nodes, nh, f), senders)
     out = seg.segment_sum(src_feats * alpha[:, :, None], receivers,
                           num_nodes)
     return _head_combine(out, cfg, num_nodes, params)

@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("v5_attention", "segment_sum", "window_attention")
+SOURCES = ("v5_attention", "segment_sum", "window_attention",
+           "table_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -39,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel on a CUDA tensor, and nowhere else (chip_smoke.py reads these).
 LAUNCHES: Dict[str, int] = {"v5_forward": 0, "v5_backward": 0,
                             "segment_sum_rows": 0, "window_forward": 0,
-                            "window_backward": 0}
+                            "window_backward": 0, "table_forward": 0,
+                            "table_backward": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

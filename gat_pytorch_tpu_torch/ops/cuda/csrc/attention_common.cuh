@@ -1,4 +1,5 @@
-// Shared by the attention kernels (v5_attention.cu, window_attention.cu):
+// Shared by the attention kernels (v5_attention.cu, window_attention.cu,
+// table_attention.cu):
 // warp and block reduction helpers, the cross-block second passes, and the
 // dispatch on the row width. Everything sits in an anonymous namespace, so
 // each source gets its own copy.

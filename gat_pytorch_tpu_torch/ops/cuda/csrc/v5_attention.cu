@@ -187,16 +187,10 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       }
     }
 
-    const int lo = row_ptr[d], hi = row_ptr[d + 1];
+    const int lo = row_ptr[d];
+    const int hi = min(row_ptr[d + 1], e_real);  // padding edges: see below
     for (int e = lo; e < hi; ++e) {
       float* dhrow = d_h_rows + (size_t)e * d_feat;
-      if (e >= e_real) {  // padding edge: zero cotangents
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          if (live[c]) dhrow[lane + 32 * c] = 0.f;
-        if (d_drop && lane < nh) d_drop[(size_t)e * nh + lane] = 0.f;
-        continue;
-      }
       const float* hrow = h + (size_t)senders[e] * d_feat;
       float hv[C];
 #pragma unroll
@@ -241,6 +235,17 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       }
     }
     if (lane < nh) d_sdst[(size_t)d * nh + lane] = select_head(sds, lane);
+  }
+
+  // Padding edges (e >= e_real) get zero cotangents. They all hang on the
+  // sink node, thousands of them in a batch padded to its bucket, so the
+  // sink's warp must not walk them alone: all warps share them.
+  for (int e = e_real + blockIdx.x * kWarps + warp; e < row_ptr[n];
+       e += gridDim.x * kWarps) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (live[c]) d_h_rows[(size_t)e * d_feat + lane + 32 * c] = 0.f;
+    if (d_drop && lane < nh) d_drop[(size_t)e * nh + lane] = 0.f;
   }
 
   // block sum of d(a_src): warps add in a fixed order (deterministic)

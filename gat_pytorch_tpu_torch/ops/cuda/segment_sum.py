@@ -29,7 +29,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_KERNEL)
     if not _configured:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segment_sum_rows.argtypes = [p, p, p, i, i, p, i, p]
+        lib.segment_sum_rows.argtypes = [p, p, p, i, i, i, p, i, p]
         lib.segment_sum_rows.restype = ctypes.c_int
         _configured = True
     return lib
@@ -45,9 +45,11 @@ def segment_rows_plain(values: torch.Tensor, order: Optional[torch.Tensor],
 
 
 def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
-                       seg_ptr: torch.Tensor) -> torch.Tensor:
+                       seg_ptr: torch.Tensor,
+                       row_limit: Optional[int] = None) -> torch.Tensor:
     """out[s] = sum of values[order[i]] over i in [seg_ptr[s], seg_ptr[s+1])
-    (order None: the identity), by the kernel."""
+    (order None: the identity), by the kernel; rows from `row_limit` on
+    are skipped (the caller knows them to be zero)."""
     dev = values.device
     build.require(values, "values", dev, torch.float32, (None, None))
     d = values.shape[1]
@@ -64,14 +66,16 @@ def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
     with torch.cuda.device(dev):
         err = lib.segment_sum_rows(
             build.ptr(values), build.ptr(order), build.ptr(seg_ptr),
-            num_segments, d, build.ptr(out), build.grid_blocks(num_segments),
+            num_segments,
+            values.shape[0] if row_limit is None else row_limit, d,
+            build.ptr(out), build.grid_blocks(num_segments),
             build.stream(dev))
     build.check(err, "segment_sum_rows")
     build.LAUNCHES["segment_sum_rows"] += 1
     return out
 
 
-def _segment_rows(values, order, sorted_ids, num_segments):
+def _segment_rows(values, order, sorted_ids, num_segments, row_limit=None):
     e = sorted_ids.shape[0]
     if values.shape[0] < e or (order is not None and order.shape[0] != e):
         raise ValueError(f"{values.shape[0]} rows and order "
@@ -81,7 +85,8 @@ def _segment_rows(values, order, sorted_ids, num_segments):
         build.require(sorted_ids, "sorted_ids", values.device, torch.int32,
                       (e,))
         return _segment_rows_cuda(
-            values, order, build.csr_offsets(sorted_ids, num_segments))
+            values, order, build.csr_offsets(sorted_ids, num_segments),
+            row_limit)
     if values.device.type == "cpu":
         return segment_rows_plain(values, order, sorted_ids, num_segments)
     raise ValueError(f"no kernel for device {values.device}")
@@ -98,12 +103,19 @@ def segment_sum_rows(values: torch.Tensor, sorted_ids: torch.Tensor,
 
 
 def dh_reduce(d_h_rows: torch.Tensor, src_order: torch.Tensor,
-              senders: torch.Tensor, num_nodes: int) -> torch.Tensor:
+              senders: torch.Tensor, num_nodes: int,
+              num_real_edges: Optional[int] = None) -> torch.Tensor:
     """Sum the attention backward's per-edge d(h) rows (dst order) into
     the (num_nodes, D) table by sender: rows are read through
-    `src_order`, the stable sender-sorting permutation."""
+    `src_order`, the stable sender-sorting permutation.
+
+    With `num_real_edges`, the rows from there on belong to padding
+    edges and are zero, as the attention backward writes them; the
+    kernel steps over them without reading (a batch padded to its bucket
+    hangs thousands of them on the sink node, which one warp sums)."""
     ids_sorted = senders.index_select(0, src_order.long())
-    return _segment_rows(d_h_rows, src_order, ids_sorted, num_nodes)
+    return _segment_rows(d_h_rows, src_order, ids_sorted, num_nodes,
+                         num_real_edges)
 
 
 def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,

@@ -301,7 +301,8 @@ class _V5Attention(torch.autograd.Function):
         d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
             h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, slope, g, out, den, epsp, need_drop)
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0])
+        d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0],
+                        ctx.e_real)
 
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, code, senders, receivers, h_flat, a_src,

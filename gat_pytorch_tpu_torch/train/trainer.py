@@ -1,22 +1,26 @@
-"""The training loop for transductive (full-graph) datasets.
+"""The training loop: epochs of minibatches, or one full graph per epoch.
 
-Counterpart of gat_pytorch_tpu/train/trainer.py:Trainer.fit_compiled, run
-one epoch at a time: a train step (forward with dropout, masked loss,
-backward, Adam with L2), then a forward on the validation mask. The
-best-validation parameters are kept by validation loss (ModelCheckpoint
-semantics, as make_scanned_fit_block does on the device), and early
-stopping ends the run after `patience` epochs without a better loss.
-One host synchronisation per epoch reads the epoch's metrics.
+Counterpart of gat_pytorch_tpu/train/trainer.py: `Trainer.fit_epochs` of
+`fit_scanned_epochs` (the inductive datasets: per epoch, reshuffled
+block-diagonal batches, one train step per batch, then the validation
+metrics over the validation batches) and `Trainer.fit` of `fit_compiled`
+(the transductive datasets: the same loop over the one graph). There is
+no scan to mirror: a plain loop over batches that live on the device. Each
+epoch's row is the mean over its batches; the metrics stay on the device
+and one host synchronisation per epoch reads them. The best-validation
+parameters are kept by validation loss (ModelCheckpoint semantics), early
+stopping ends the run after `patience` epochs without a better loss, and
+a plateau schedule may lower the learning rate between epochs.
 
-Checkpoints, TensorBoard, gradient histograms and the inductive and
-sampled fits wait for ROADMAP queue A items 6, 9 and 10.
+Checkpoints, TensorBoard, gradient histograms, the prefetch thread and
+the sampled fit wait for ROADMAP queue A items 6 and 9.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -43,6 +47,19 @@ def _snapshot(params: gat.Params) -> gat.Params:
                     for d in params[group]] for group in params}
 
 
+def _prefixed(prefix: str, metrics: Dict[str, torch.Tensor],
+              skip: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}_{k}": v for k, v in metrics.items() if k not in skip}
+
+
+def _epoch_means(rows: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """Mean over the batches of each metric, read with one host sync."""
+    keys = list(rows[0])
+    table = torch.stack([torch.stack([r[k].float() for k in keys])
+                         for r in rows])
+    return dict(zip(keys, table.mean(dim=0).tolist()))
+
+
 @dataclasses.dataclass
 class Trainer:
     cfg: gat.GATConfig
@@ -51,6 +68,7 @@ class Trainer:
     weight_decay: float = 0.0
     max_epochs: int = 1000
     patience: int = 100                  # early stop (reference: 100)
+    plateau: Optional[O.ReduceLROnPlateau] = None
     seed: int = 0
     log_every: int = 0                   # 0 = silent
     device: str = "cuda"
@@ -69,9 +87,14 @@ class Trainer:
     def apply(self, params: gat.Params, graph: Graph, *,
               generator: Optional[torch.Generator] = None,
               training: bool = False) -> torch.Tensor:
-        return gat.gat_model_apply(params, self.cfg, graph,
-                                   device=self.device, generator=generator,
-                                   training=training, backend=self.backend)
+        """The model's logits, (N, 1) squeezed to (N,) where the task
+        says so."""
+        logits = gat.gat_model_apply(params, self.cfg, graph,
+                                     device=self.device, generator=generator,
+                                     training=training, backend=self.backend)
+        if self.task.squeeze_output and logits.dim() == 2:
+            logits = logits[:, 0]
+        return logits
 
     def train_step(self, params: gat.Params, opt: torch.optim.Optimizer,
                    graph: Graph, generator: torch.Generator):
@@ -87,42 +110,63 @@ class Trainer:
 
     def fit(self, graph: Graph,
             params: Optional[gat.Params] = None) -> TrainResult:
-        """Train on one full graph (moved to the trainer's device)."""
+        """Train on one full graph, which is each epoch's one train and
+        one validation batch (its masks tell the phases apart)."""
+        return self.fit_epochs([graph], [graph], params=params)
+
+    def fit_epochs(self, train_data: Sequence[Graph],
+                   val_data: Sequence[Graph],
+                   reshuffle: Optional[Callable[[int], Sequence[Graph]]]
+                   = None,
+                   params: Optional[gat.Params] = None) -> TrainResult:
+        """Train over `train_data` (or, with `reshuffle`, over the batches
+        reshuffle(epoch) builds anew for each epoch) and validate over
+        `val_data`; all batches are moved to the trainer's device."""
         dev = resolve_device(self.device)
-        graph = graph.to(dev)
+        train_data = [g.to(dev) for g in train_data]
+        val_data = [g.to(dev) for g in val_data]
         if params is None:
             params = self.init_params()
         opt = O.adam_l2(gat.parameters(params), self.learning_rate,
                         self.weight_decay)
         gen = self.dropout_generator()
         stopper = O.EarlyStopping(patience=self.patience)
+        lr = self.learning_rate
         best_val, best_epoch = float("inf"), -1
         best_params = _snapshot(params)
         history: List[Dict[str, float]] = []
         stopped = False
         t0 = time.time()
         for epoch in range(self.max_epochs):
-            loss, logits = self.train_step(params, opt, graph, gen)
+            if reshuffle is not None:
+                train_data = [g.to(dev) for g in reshuffle(epoch)]
+            train_rows, val_rows = [], []
+            for g in train_data:
+                loss, logits = self.train_step(params, opt, g, gen)
+                with torch.no_grad():
+                    train_rows.append({"train_loss": loss, **_prefixed(
+                        "train", self.task.metrics(logits, g, "train"),
+                        skip=("loss",))})
             with torch.no_grad():
-                train = self.task.metrics(logits, graph, "train")
-                val = self.task.metrics(self.apply(params, graph), graph,
-                                        "val")
-            keys = (["train_loss"] + [f"train_{k}" for k in train
-                                      if k != "loss"]
-                    + [f"val_{k}" for k in val])
-            vals = torch.stack([loss] + [v for k, v in train.items()
-                                         if k != "loss"]
-                               + list(val.values())).tolist()
-            row = dict(zip(keys, vals))
-            row["epoch"] = epoch
+                for g in val_data:
+                    val_rows.append(_prefixed("val", self.task.metrics(
+                        self.apply(params, g), g, "val")))
+            row = {**_epoch_means(train_rows), **_epoch_means(val_rows),
+                   "epoch": epoch, "lr": lr}
             history.append(row)
             if self.log_every and epoch % self.log_every == 0:
                 print({k: (round(v, 4) if isinstance(v, float) else v)
                        for k, v in row.items()})
-            if row["val_loss"] < best_val:
-                best_val, best_epoch = row["val_loss"], epoch
+            val_loss = row["val_loss"]
+            if val_loss < best_val:
+                best_val, best_epoch = val_loss, epoch
                 best_params = _snapshot(params)
-            if stopper.update(row["val_loss"]):
+            if self.plateau is not None:
+                new_lr = self.plateau.step(val_loss, lr)
+                if new_lr != lr:
+                    lr = new_lr
+                    O.set_learning_rate(opt, lr)
+            if stopper.update(val_loss):
                 stopped = True
                 break
         return TrainResult(params=best_params, final_params=params,
@@ -134,11 +178,10 @@ class Trainer:
                  phase: str = "test") -> Dict[str, float]:
         """Mean of the task's metrics over `data` for `phase`."""
         dev = resolve_device(self.device)
-        rows = []
         with torch.no_grad():
+            rows = []
             for g in data:
                 g = g.to(dev)
                 rows.append(self.task.metrics(self.apply(params, g), g,
                                               phase))
-        return {f"{phase}_{k}": sum(float(r[k]) for r in rows) / len(rows)
-                for k in rows[0]}
+        return _prefixed(phase, _epoch_means(rows))

@@ -56,3 +56,38 @@ def test_cli_rcm_reorder_takes_the_windowed_op():
 def test_cli_refuses_cluster_reorder():
     with pytest.raises(NotImplementedError, match="item 12"):
         cli.main(["--device", "cpu", "--reorder", "cluster"])
+
+
+def test_cli_trains_ppi_paper_faithful_on_cpu():
+    """`--dataset PPI --paper_faithful` at the full width of the
+    configuration, in-process so that PATH_TRACE can be read: 3 layers x
+    (2 epochs x (10 train + 1 validation batches) + 2 test graphs)
+    forwards, all through the table op."""
+    gat.PATH_TRACE.clear()
+    assert cli.main(["--dataset", "PPI", "--paper_faithful", "--device",
+                     "cpu", "--num_epochs", "2", "--log_every", "0"]) == 0
+    assert gat.PATH_TRACE == ["v4_table"] * (3 * (2 * 11 + 2))
+
+
+def test_cli_trains_pattern_stand_in_on_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "gat_pytorch_tpu_torch.cli.train",
+         "--dataset", "PATTERN", "--device", "cpu", "--num_epochs", "2",
+         "--log_every", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "synthetic stand-in" in proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    metrics = json.loads(lines[-1])
+    assert metrics["epochs_run"] == 2
+    for key in ("test_loss", "test_weighted_acc", "best_val_loss"):
+        assert math.isfinite(metrics[key]), key
+    rows = [line for line in lines if line.startswith("{'train_loss'")]
+    assert len(rows) == 2 and "'lr': 0.005" in rows[0]
+
+
+def test_cli_const_attention_takes_the_table_op():
+    gat.PATH_TRACE.clear()
+    cli.main(["--dataset", "Cora", "--const_attention", "--device", "cpu",
+              "--num_epochs", "1"])
+    assert gat.PATH_TRACE == ["v4_table"] * 6

@@ -108,7 +108,10 @@ def test_entry_points_refuse_cpu_unless_asked(no_gpu):
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_jax({"layers": [{"W": np.zeros((4, 3))}]})
     with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(["--dataset", "Cora", "--num_epochs", "1"])
+        trainer.fit_epochs([g], [g])
+    for dataset in ("Cora", "PPI", "PATTERN"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(["--dataset", dataset, "--num_epochs", "1"])
     # asked for by name, the CPU runs
     out = gat.gat_model_apply(params, cfg, g, device="cpu")
     assert out.shape == (g.num_nodes, 3) and torch.isfinite(out).all()
@@ -117,5 +120,29 @@ def test_entry_points_refuse_cpu_unless_asked(no_gpu):
 def test_cli_refuses_unported_flags():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", "--reorder", "cluster"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--device", "cpu", "--dataset", "PPI"])
+    for flags in (["--dataset", "PPI", "--attention_penalty", "0.1"],
+                  ["--dataset", "Cora", "--attention_reward", "0.1"],
+                  ["--dataset", "Cora", "--sampling_fanouts", "8,8"],
+                  ["--dataset", "PPI", "--exec_type", "load"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(["--device", "cpu"] + flags)
+    with pytest.raises(NotImplementedError, match="full graph"):
+        cli.main(["--device", "cpu", "--dataset", "PATTERN", "--reorder",
+                  "rcm"])
+
+
+def test_table_op_wrapper_launches_or_raises_on_a_cuda_tensor():
+    """A wrapper takes its plain version only for a CPU tensor: the
+    dispatch reads the tensor's device and nothing else."""
+    from gat_pytorch_tpu_torch.ops.cuda import build
+    from gat_pytorch_tpu_torch.ops.cuda import table_attention as ta
+    assert "table_attention" in build.SOURCES
+    assert {"table_forward", "table_backward"} <= set(build.LAUNCHES)
+    before = dict(build.LAUNCHES)
+    logits = torch.zeros((4, 2))
+    h = torch.ones((3, 6))
+    ids = torch.tensor([0, 1, 1, 2], dtype=torch.int32)
+    out, den = ta.table_forward(logits, h, None, ids, ids, 3, 4, 0.0)
+    assert torch.equal(den, torch.tensor([[1., 1.], [2., 2.], [1., 1.]]))
+    assert torch.allclose(out, torch.ones((3, 6)))
+    assert build.LAUNCHES == before          # the plain version counts none

@@ -11,7 +11,11 @@ training loss for every parameter must agree to rtol 1e-4 / atol 1e-5
   * the port's segment path against the JAX "xla" path;
   * on a banded graph that carries a block layout, the port's "v7" path
     against gat_model_apply(backend="pallas", force_windowed=True) in
-    interpret mode with float32 contractions.
+    interpret mode with float32 contractions;
+  * with paper_faithful or const_attention, and on a graph without
+    src_order, the port's "v4_table" path against the JAX "pallas" path
+    (its v4 table op, interpret mode) and the "xla" path; also a 3-layer
+    PPI-shaped model (skip on layer 2, widths 4x16, 4x16, 6x11, BCE loss).
 The Adam update is compared on its own, from identical gradients.
 """
 
@@ -26,10 +30,12 @@ from gat_pytorch_tpu.graph import transforms as JT
 from gat_pytorch_tpu.models import gat as jgat
 from gat_pytorch_tpu.train import optim as jopt
 from gat_pytorch_tpu.train.tasks import planetoid_task as jtask
+from gat_pytorch_tpu.train.tasks import ppi_task as jppi_task
 from gat_pytorch_tpu_torch.graph import transforms as TT
 from gat_pytorch_tpu_torch.models import gat as tgat
 from gat_pytorch_tpu_torch.train import optim as topt
 from gat_pytorch_tpu_torch.train.tasks import planetoid_task as ttask
+from gat_pytorch_tpu_torch.train.tasks import ppi_task as tppi_task
 from gat_pytorch_tpu_torch.utils.convert import params_from_jax
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -214,12 +220,117 @@ def test_segment_path_matches_jax_xla(extra):
     assert_same(jlogits, jgrads, tlogits, tparams)
 
 
-@pytest.mark.parametrize("extra", [
-    {"paper_faithful": True}, {"const_attention": True}])
+@pytest.mark.parametrize("extra", [{"hybrid": True}, {"reorder": "cluster"}])
 def test_kernel_path_refuses_unported_modes(extra):
-    _, tcfg, _, tg, _, tparams = build("cora", **extra)
+    """paper_faithful and const_attention run on the kernel path now (the
+    tests below); what the kernel path still lacks is the split-locality
+    layout, refused where the graph is built."""
+    arr = make_graph_arrays(7)
+    args = (arr.pop("x"), arr.pop("senders"), arr.pop("receivers"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgat.gat_model_apply(tparams, tcfg, tg, device="cpu")
+        TT.canonicalize(*args, **arr, src_windows=True, **extra)
+
+
+@pytest.mark.parametrize("jbackend", ["pallas", "xla"])
+@pytest.mark.parametrize("name,extra", [
+    ("cora", {"paper_faithful": True}), ("cora", {"const_attention": True}),
+    ("skips", {"paper_faithful": True})])
+def test_table_path_matches_jax(name, extra, jbackend):
+    jcfg, tcfg, jg, tg, jparams, tparams = build(name, **extra)
+    jgat.PATH_TRACE.clear()
+    jlogits, jgrads = jax_loss_and_grads(jcfg, jg, jparams, jbackend)
+    assert jgat.PATH_TRACE == [
+        "v4_table" if jbackend == "pallas" else "xla"] * 2
+    tgat.PATH_TRACE.clear()
+    tlogits = torch_loss_and_grads(tcfg, tg, tparams, "kernel")
+    assert tgat.PATH_TRACE == ["v4_table", "v4_table"]
+    assert tlogits.shape == (tg.num_nodes, tcfg.num_classes)
+    assert_same(jlogits, jgrads, tlogits, tparams)
+
+
+def test_table_path_serves_graphs_without_src_order():
+    """The reference-quirk model on a graph that carries no src_order:
+    both packages take the v4 table op (capped logits, eps 1e-8); the
+    result is the v5 path's."""
+    jcfg, tcfg, jg, tg, jparams, tparams = build("cora")
+    jgat.PATH_TRACE.clear()
+    jlogits, jgrads = jax_loss_and_grads(
+        jcfg, jg.replace(src_order=None), jparams, "pallas")
+    assert jgat.PATH_TRACE == ["v4_table", "v4_table"]
+    tgat.PATH_TRACE.clear()
+    tlogits = torch_loss_and_grads(tcfg, tg.replace(src_order=None), tparams,
+                                   "kernel")
+    assert tgat.PATH_TRACE == ["v4_table", "v4_table"]
+    assert_same(jlogits, jgrads, tlogits, tparams)
+    grads = [p.grad.clone() for p in tgat.parameters(tparams)]
+    for p in tgat.parameters(tparams):
+        p.grad = None
+    tgat.PATH_TRACE.clear()
+    v5_logits = torch_loss_and_grads(tcfg, tg, tparams, "kernel")
+    assert tgat.PATH_TRACE == ["v5", "v5"]
+    np.testing.assert_allclose(tlogits, v5_logits, **TOL)
+    for a, p in zip(grads, tgat.parameters(tparams)):
+        np.testing.assert_allclose(a.numpy(), p.grad.numpy(), **TOL)
+
+
+def test_ppi_shaped_model_matches_jax(paper_faithful=True):
+    """Three layers, the skip on layer 2, a mean-folded 6-head last layer
+    of odd width, multi-label BCE, paper_faithful: v4_table on both
+    sides."""
+    kw = dict(num_input_node_features=32, num_layers=3,
+              num_heads_per_layer=[4, 4, 6],
+              heads_concat_per_layer=[True, True, False],
+              head_output_features_per_layer=[32, 16, 16, 11],
+              num_classes=11, add_skip_connection=[False, True, False],
+              dropout=0.0, paper_faithful=paper_faithful)
+    jcfg, tcfg = jgat.GATConfig(**kw), tgat.GATConfig(**kw)
+    arr = make_graph_arrays(2)
+    y = (np.random.default_rng(8).random((200, 11)) < 0.3).astype(np.float32)
+    args = (arr["x"], arr["senders"], arr["receivers"])
+    jg, tg = JT.canonicalize(*args, y=y), TT.canonicalize(*args, y=y)
+    jparams = jgat.init_gat_model(jax.random.key(5), jcfg)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
+    jtask_, ttask_ = jppi_task(), tppi_task()
+
+    def loss(p):
+        logits = jgat.gat_model_apply(p, jcfg, jg, backend="pallas")
+        return jtask_.loss(logits, jg, "train"), logits
+
+    path = "v4_table"
+    jgat.PATH_TRACE.clear()
+    (_, jlogits), jgrads = jax.value_and_grad(loss, has_aux=True)(jparams)
+    assert jgat.PATH_TRACE == [path] * 3
+    tgat.PATH_TRACE.clear()
+    tlogits = tgat.gat_model_apply(tparams, tcfg, tg, device="cpu")
+    ttask_.loss(tlogits, tg, "train").backward()
+    assert tgat.PATH_TRACE == [path] * 3
+    assert tparams["skips"] == [{}]
+    assert_same(np.asarray(jlogits), jgrads, tlogits.detach().numpy(),
+                tparams)
+
+
+def test_table_path_attention_dropout():
+    """With dropout on, the table path draws an (E, nh) mask per layer
+    from the generator: the same state gives the same logits, and no
+    src_order changes nothing but the d(h) order."""
+    _, _, _, tg, _, tparams = build("cora", paper_faithful=True)
+    cfg = tgat.GATConfig(**dict(CONFIGS["cora"], num_input_node_features=32,
+                                num_layers=2, dropout=0.5,
+                                paper_faithful=True))
+
+    def run(graph, seed=3):
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            return tgat.gat_model_apply(tparams, cfg, graph, device="cpu",
+                                        generator=gen, training=True)
+
+    a = run(tg)
+    assert torch.isfinite(a).all() and torch.equal(a, run(tg))
+    assert torch.equal(a, run(tg.replace(src_order=None)))
+    assert not torch.allclose(a, run(tg, seed=4))
+    with pytest.raises(ValueError, match="generator"):
+        tgat.gat_model_apply(tparams, cfg, tg, device="cpu", training=True)
 
 
 def test_adam_update_matches_optax():

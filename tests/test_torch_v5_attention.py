@@ -91,6 +91,14 @@ def test_v5_op_matches_jax(nh, f, dropout):
     assert_same(make_case(nh, f, dropout=dropout))
 
 
+@pytest.mark.parametrize("nh,f", [(4, 32), (6, 11)])
+def test_v5_op_matches_jax_at_wide_rows(nh, f):
+    """The PPI layer shapes (4 x 256, 6 x 121) scaled down: several
+    features per lane, one even and one odd width, so a lane's features
+    span more than one head."""
+    assert_same(make_case(nh, f, seed=4, e_real=700, dropout=True))
+
+
 def test_v5_op_cap_tie_goes_to_lowest_code():
     """Every head scores alike and the top edge is duplicated, so the
     global cap is attained at several (edge, head) codes; both packages

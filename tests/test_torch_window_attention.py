@@ -112,6 +112,14 @@ def test_window_op_matches_jax(nh, f, dropout):
         assert np.all(grads[3][c["tbl"].recv.numpy() < 0] == 0.0)
 
 
+@pytest.mark.parametrize("nh,f", [(4, 32), (6, 11)])
+def test_window_op_matches_jax_at_wide_rows(nh, f):
+    """The PPI layer shapes scaled down: several features per lane, an
+    even and an odd width."""
+    send, recv = banded_edges(2)
+    assert_same(make_case(nh, f, send, recv, 1500, dropout=True))
+
+
 def test_window_op_cap_tie_goes_to_lowest_slot_code():
     """The top edge is duplicated and both heads score alike, so the cap is
     attained at several (slot, head) codes. The code counts layout slots,
