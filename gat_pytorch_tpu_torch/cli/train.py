@@ -4,6 +4,7 @@ Usage:
     python -m gat_pytorch_tpu_torch.cli.train --dataset Cora
     python -m gat_pytorch_tpu_torch.cli.train --dataset Cora --device cpu
     python -m gat_pytorch_tpu_torch.cli.train --dataset Pubmed --reorder rcm
+    python -m gat_pytorch_tpu_torch.cli.train --dataset Pubmed --reorder cluster
     python -m gat_pytorch_tpu_torch.cli.train --dataset PPI --paper_faithful
     python -m gat_pytorch_tpu_torch.cli.train --dataset PATTERN
 
@@ -11,6 +12,9 @@ It keeps the JAX CLI's flags; `--device` (default cuda) takes the place
 of `--platform`, and `--backend` picks the layer path (kernel | segment).
 `--reorder rcm` relabels the nodes by reverse Cuthill-McKee and builds the
 block layout, which puts the kernel path on the windowed attention op;
+`--reorder cluster` relabels them by community and builds the hybrid
+split-locality layout, whose in-window edges take the windowed parts op
+and whose remainder the v5 parts op;
 `--paper_faithful` and `--const_attention` put it on the table op. PPI and
 PATTERN train on reshuffled block-diagonal batches of whole graphs.
 Without a GPU it raises unless `--device cpu` is given. Flags of features
@@ -97,7 +101,8 @@ def run(config) -> dict:
                                       seed=config.seed)
         graph = loader.transductive_graph(
             raw, reorder=config.reorder,
-            src_windows=config.reorder is not None)
+            src_windows=config.reorder is not None,
+            hybrid=config.reorder == "cluster")
         train_data = val_data = test_data = [graph]
     else:
         if config.reorder is not None:
@@ -137,10 +142,6 @@ def run(config) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.reorder == "cluster":
-        raise NotImplementedError(
-            "--reorder cluster is not ported yet (ROADMAP queue A item 12, "
-            "the split-locality layout)")
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) not in (None, "custom"):
             raise NotImplementedError(

@@ -78,15 +78,20 @@ class InductiveBatcher:
 
 def transductive_graph(raw: RawGraph, pad_multiple: int = 128,
                        reorder: Optional[str] = None,
-                       src_windows: bool = False) -> Graph:
+                       src_windows: bool = False,
+                       hybrid: bool = False) -> Graph:
     """Single full-graph CPU Graph with the split masks (Planetoid path).
 
     reorder="rcm" with src_windows=True relabels the nodes by reverse
     Cuthill-McKee and builds the block layout of the windowed attention
-    op. Labels and masks move with the nodes (Graph.node_order maps
-    back), so training and metrics need no un-permute."""
+    op. reorder="cluster" with hybrid=True is the order and layout for
+    graphs RCM cannot band (community graphs such as Pubmed): the edges
+    inside a tile's sender window go to the windowed op, the remainder to
+    the v5 op (transforms.compute_hybrid_layout). Labels and masks move
+    with the nodes (Graph.node_order maps back), so training and metrics
+    need no un-permute."""
     return T.canonicalize(
         raw.x, raw.senders, raw.receivers, y=raw.y,
         train_mask=raw.train_mask, val_mask=raw.val_mask,
         test_mask=raw.test_mask, pad_multiple=pad_multiple,
-        reorder=reorder, src_windows=src_windows)
+        reorder=reorder, src_windows=src_windows, hybrid=hybrid)

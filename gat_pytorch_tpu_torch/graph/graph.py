@@ -12,8 +12,10 @@ Index arrays are int32, as in the JAX Graph; the CUDA kernels take them
 as they are, and the plain torch paths widen them to int64.
 
 `BlockLayout` is the counterpart of gat_pytorch_tpu/graph/graph.py:
-BlockLayout without the hybrid remainder (`rem_*`, ROADMAP queue A item
-12), plus four index arrays the Hopper kernels walk.
+BlockLayout, the hybrid split-locality layout's remainder (`rem_send`,
+`rem_recv`, `rem_order`, `rem_e`) included, plus the index arrays the
+Hopper kernels walk. `rem_count`, the per-shard remainder counts of the
+sharded layouts, waits for ROADMAP queue A item 13.
 """
 
 from __future__ import annotations
@@ -55,6 +57,15 @@ class BlockLayout:
       dst_ptr   row r's slots are dst_perm[dst_ptr[r]:dst_ptr[r+1]];
       src_perm  the real slots ordered by sender (stable);
       src_ptr   sender s's slots are src_perm[src_ptr[s]:src_ptr[s+1]].
+
+    A hybrid split-locality layout (graph/transforms.
+    compute_hybrid_layout) holds only the in-window edges in its slots
+    and carries the out-of-window remainder as a second, dst-sorted edge
+    list for the v5 parts op (models/gat.py sums the two ops' parts):
+    `rem_send`, `rem_recv`, `rem_order` and `rem_e` equal the JAX
+    package's; `rem_dst_ptr` and `rem_src_ptr` are its CSR offsets for
+    the CUDA kernels, built once here instead of per call. All are None
+    (rem_e 0) on a plain layout.
     """
     send: torch.Tensor       # (E7,) int32 senders, tile-grouped, src-sorted
     recv: torch.Tensor       # (E7,) int32 receivers, -1 on pad slots
@@ -72,6 +83,17 @@ class BlockLayout:
     dmax: int                # 8-aligned bound on consecutive tile-base
     #                          deltas when monotone, else -1
     num_real: int            # real (non-pad) slots
+    rem_send: Optional[torch.Tensor] = None   # (Er,) int32, dst-sorted,
+    #                          padded to a multiple of 128 with sink edges
+    rem_recv: Optional[torch.Tensor] = None   # (Er,) int32, ascending
+    rem_order: Optional[torch.Tensor] = None  # (Er,) int32: stable sender
+    #                          sort of the padded remainder
+    rem_dst_ptr: Optional[torch.Tensor] = None  # (N_pad+1,) int32 offsets
+    #                          of rem_recv (all Er edges)
+    rem_src_ptr: Optional[torch.Tensor] = None  # (N_src+1,) int32: sender
+    #                          s's real remainder edges are
+    #                          rem_order[rem_src_ptr[s]:rem_src_ptr[s+1]]
+    rem_e: int = 0           # real (unpadded) remainder edges
 
     @property
     def num_slots(self) -> int:

@@ -1,17 +1,16 @@
 """Host-side graph canonicalisation: self-loops, dst-sort, static padding,
 and the locality layout of the windowed attention op.
 
-Counterpart of gat_pytorch_tpu/graph/transforms.py:26-462. Given the same
+Counterpart of gat_pytorch_tpu/graph/transforms.py:26-637. Given the same
 inputs it yields the same padded arrays, `src_order`, sink node, node
-order, window metadata and block-layout arrays as the JAX package. The
-block sizes the JAX package reads from its GAT_TPU_V7_* environment knobs
-are the constants below (its defaults). `reorder="cluster"` and
-`hybrid=True` (the split-locality layout) wait for ROADMAP queue A item
-12.
+order (RCM or cluster), window metadata, block-layout arrays and hybrid
+remainder as the JAX package. The sizes the JAX package reads from its
+GAT_TPU_* environment knobs are the constants below (its defaults).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -26,6 +25,10 @@ V7_NB = 512               # destination rows per tile
 V7_EB = 1024              # slots per block
 V7_AUTOEB_MAX_E = 500000  # up to here eb/2 is also tried
 V7_COST_K = 2560.0        # per-slot fixed cost, in window rows
+# label_propagation_capped's and compute_hybrid_layout's defaults
+CLUSTER_CAP = 8192        # most members a propagated label may gain
+V7_HYBRID_EB = 256        # slots per block of a hybrid layout
+HYBRID_MAX_W = 8192       # widest per-tile sender window tried
 
 
 def add_remaining_self_loops(senders: np.ndarray, receivers: np.ndarray,
@@ -83,14 +86,16 @@ def canonicalize(x: np.ndarray,
     sorting, so each destination tile's senders fall in a narrow id
     window; features, labels, masks and graph ids are permuted with the
     nodes, and Graph.node_order maps outputs back to the input ids.
+    reorder="cluster" relabels them by community (size-capped label
+    propagation), in RCM order within each community: the order for
+    graphs whose locality is in clusters, which RCM cannot band.
     src_windows=True also computes the window metadata (Graph.tile_lo,
     Graph.src_band) and Graph.block_layout, which puts the kernel path on
-    the windowed attention op."""
-    if reorder == "cluster" or hybrid:
-        raise NotImplementedError(
-            "reorder='cluster' and hybrid=True need the split-locality "
-            "layout (ROADMAP queue A item 12, not ported)")
-    if reorder not in (None, "rcm"):
+    the windowed attention op. hybrid=True (with src_windows) builds the
+    split-locality layout instead (compute_hybrid_layout): the in-window
+    edges in the block layout, the remainder beside it, and the kernel
+    path sums the two ops' unnormalised parts."""
+    if reorder not in (None, "rcm", "cluster"):
         raise ValueError(f"unknown reorder {reorder!r} "
                          f"(expected 'rcm' or 'cluster')")
     senders = np.asarray(senders, dtype=np.int64)
@@ -98,8 +103,14 @@ def canonicalize(x: np.ndarray,
     n = int(x.shape[0])
 
     node_order = None
-    if reorder == "rcm":
+    if reorder is not None:
         order = _core.rcm_order(senders, receivers, n)  # old id at new pos
+        if reorder == "cluster":
+            labels = label_propagation_capped(senders, receivers, n)
+            rcm_rank = np.empty(n, dtype=np.int64)
+            rcm_rank[order] = np.arange(n)
+            # by cluster id, then by RCM rank within the cluster
+            order = np.lexsort((rcm_rank, labels))
         rank = np.empty(n, dtype=np.int64)
         rank[order] = np.arange(n)
         senders, receivers = rank[senders], rank[receivers]
@@ -145,8 +156,8 @@ def canonicalize(x: np.ndarray,
     if src_windows:
         tile_lo, src_band = compute_src_windows(senders_p, receivers_p, e,
                                                 n_pad)
-        block_layout = compute_block_layout(senders_p, receivers_p, e,
-                                            n_pad)
+        layout_fn = compute_hybrid_layout if hybrid else compute_block_layout
+        block_layout = layout_fn(senders_p, receivers_p, e, n_pad)
 
     graph = from_numpy(
         pad_nodes(np.asarray(x)),
@@ -194,9 +205,11 @@ def compute_src_windows(senders: np.ndarray, receivers: np.ndarray,
     return lo.astype(np.int32), int(span.max())
 
 
-def layout_index_arrays(send: np.ndarray, recv: np.ndarray, n_pad: int):
+def layout_index_arrays(send: np.ndarray, recv: np.ndarray, n_pad: int,
+                        n_src: Optional[int] = None):
     """(dst_perm, dst_ptr, src_perm, src_ptr, num_real) of a block layout's
-    slot arrays: the index arrays BlockLayout documents, int32."""
+    slot arrays: the index arrays BlockLayout documents, int32. n_src: the
+    sender range where it differs from the n_pad destination rows."""
     send = np.asarray(send, dtype=np.int64)
     recv = np.asarray(recv, dtype=np.int64)
     real = recv >= 0
@@ -209,13 +222,16 @@ def layout_index_arrays(send: np.ndarray, recv: np.ndarray, n_pad: int):
     return (dst_perm.astype(i32),
             _core.csr_offsets(recv[real], n_pad).astype(i32),
             src_perm.astype(i32),
-            _core.csr_offsets(send[real], n_pad).astype(i32), num_real)
+            _core.csr_offsets(send[real],
+                              n_pad if n_src is None else n_src).astype(i32),
+            num_real)
 
 
 def compute_block_layout(senders: np.ndarray, receivers: np.ndarray,
                          num_real_edges: int, n_pad: int,
                          nb: Optional[int] = None,
-                         eb: Optional[int] = None) -> BlockLayout:
+                         eb: Optional[int] = None,
+                         n_src: Optional[int] = None) -> BlockLayout:
     """The block layout (Graph.block_layout) of the windowed attention op.
 
     Over the real prefix of the dst-sorted edge list: group the edges by
@@ -227,7 +243,11 @@ def compute_block_layout(senders: np.ndarray, receivers: np.ndarray,
     splits outlier blocks when that lowers the JAX package's cost model
     slots x (nb + wb + K). Without explicit sizes, nb in {256, 512} and
     (up to V7_AUTOEB_MAX_E edges) eb in {eb, eb/2} are tried and the
-    cheapest layout by the same model is kept."""
+    cheapest layout by the same model is kept.
+
+    n_src: the sender-id range when it differs from the n_pad destination
+    rows (a layout whose receivers are local to a part of the nodes while
+    its senders index the whole node table); n_pad by default."""
     explicit_nb, explicit_eb = nb is not None, eb is not None
     nb, eb = nb or V7_NB, eb or V7_EB
     if nb % 128 or eb % 128:
@@ -243,7 +263,7 @@ def compute_block_layout(senders: np.ndarray, receivers: np.ndarray,
             for ebx in eb_cands:
                 cand = compute_block_layout(senders, receivers,
                                             num_real_edges, n_pad,
-                                            nb=nbx, eb=ebx)
+                                            nb=nbx, eb=ebx, n_src=n_src)
                 cost = cand.num_slots * (cand.nb + cand.wb + V7_COST_K)
                 if best is None or cost < best_cost:
                     best, best_cost = cand, cost
@@ -340,7 +360,8 @@ def compute_block_layout(senders: np.ndarray, receivers: np.ndarray,
         np.minimum.at(tmin, blk_tile, base)
         np.maximum.at(tmax, blk_tile, bmax)
         has_t = m > 0
-        tile_base = np.where(has_t, np.minimum(tmin, n_pad), 0)
+        tile_base = np.where(
+            has_t, np.minimum(tmin, n_pad if n_src is None else n_src), 0)
         window = int(round_up(
             max(int(np.where(has_t, tmax - tile_base + 1, 1).max()), wb),
             128))
@@ -368,7 +389,7 @@ def compute_block_layout(senders: np.ndarray, receivers: np.ndarray,
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
     dst_perm, dst_ptr, src_perm, src_ptr, num_real = layout_index_arrays(
-        send7, recv7, n_pad)
+        send7, recv7, n_pad, n_src)
     return BlockLayout(
         send=t32(send7), recv=t32(recv7), base=t32(base),
         tile_ptr=t32(tile_ptr), tile_base=t32(tile_base),
@@ -376,3 +397,150 @@ def compute_block_layout(senders: np.ndarray, receivers: np.ndarray,
         src_perm=t32(src_perm), src_ptr=t32(src_ptr),
         wb=int(wb), window=int(window), nb=int(nb), eb=int(eb),
         dmax=int(dmax), num_real=num_real)
+
+
+def label_propagation_capped(senders: np.ndarray, receivers: np.ndarray,
+                             n: int, cap: Optional[int] = None,
+                             rounds: int = 30) -> np.ndarray:
+    """Community labels by synchronous label propagation with a size cap:
+    each round every node adopts the most frequent label among its
+    in-neighbours (ties go to the smaller label), but a node that would
+    join a label with more than `cap` members keeps its own; plain label
+    propagation floods a homophilous graph into one giant label. The cap
+    (CLUSTER_CAP by default) bounds the window the cluster order
+    produces. Labels are compacted to consecutive ints."""
+    if cap is None:
+        cap = CLUSTER_CAP
+    labels = np.arange(n, dtype=np.int64)
+    big = n + 1
+    for _ in range(rounds):
+        key = receivers.astype(np.int64) * big + labels[senders]
+        k = np.sort(key)
+        starts = np.r_[0, np.nonzero(np.diff(k))[0] + 1]
+        counts = np.diff(np.r_[starts, k.size])
+        rcv = k[starts] // big
+        lab = k[starts] % big
+        # one maximum.at ranks by (count, then the smaller label)
+        score = counts * big + (n - lab)
+        best = np.zeros(n, np.int64)
+        np.maximum.at(best, rcv, score)
+        newlab = labels.copy()
+        has = best > 0
+        newlab[has] = n - (best[has] % big)
+        sizes = np.bincount(newlab, minlength=n)
+        revert = (newlab != labels) & (sizes[newlab] > cap)
+        newlab[revert] = labels[revert]
+        if (newlab == labels).all():
+            break
+        labels = newlab
+    _, inv = np.unique(labels, return_inverse=True)
+    return inv.astype(np.int64)
+
+
+def compute_hybrid_layout(senders: np.ndarray, receivers: np.ndarray,
+                          num_real_edges: int, n_pad: int,
+                          nb: Optional[int] = None,
+                          eb: Optional[int] = None,
+                          max_window: Optional[int] = None,
+                          target_local_frac: float = 0.85,
+                          min_local_frac: float = 0.5,
+                          n_src: Optional[int] = None) -> BlockLayout:
+    """The split-locality layout: per nb-row destination tile, one sender
+    window of a static width W that covers the most edges. The in-window
+    edges build the block layout of the windowed op; the out-of-window
+    remainder becomes a second dst-sorted edge list for the v5 op, and
+    models/gat.py sums the two ops' unnormalised (num, den) parts in one
+    epilogue, which is exact because the parts add over any partition of
+    the edges.
+
+    W comes from quantiles of the per-tile minimal spans that cover 90%
+    of a tile's edges: the smallest candidate <= max_window whose global
+    local fraction reaches target_local_frac, else the best candidate
+    with at least min_local_frac, else the plain block layout (also when
+    nothing is left over). Any node order works; reorder="cluster" makes
+    the windows small on community graphs.
+
+    The remainder is padded to a multiple of 128 with sink edges (sender
+    n_src - 1, receiver n_pad - 1), which the v5 op masks by rem_e."""
+    nb = nb or V7_NB
+    # not the banded default 1024: a hybrid graph's tiles spread their
+    # edges over cluster-wide windows, and smaller blocks keep wb narrow
+    eb = eb or V7_HYBRID_EB
+    if max_window is None:
+        max_window = HYBRID_MAX_W
+    e = num_real_edges
+    s = np.asarray(senders[:e], dtype=np.int64)
+    r = np.asarray(receivers[:e], dtype=np.int64)
+    t = -(-n_pad // nb)
+    tid = r // nb
+    order = np.lexsort((s, tid))
+    ss = s[order]
+    m = np.bincount(tid, minlength=t).astype(np.int64)
+    off = np.zeros(t + 1, np.int64)
+    off[1:] = np.cumsum(m)
+
+    def plain():
+        return compute_block_layout(senders, receivers, e, n_pad, nb=nb,
+                                    eb=eb, n_src=n_src)
+
+    spans = []
+    for ti in range(t):
+        lo_i, hi_i = int(off[ti]), int(off[ti + 1])
+        mt = hi_i - lo_i
+        if mt == 0:
+            continue
+        tile = ss[lo_i:hi_i]
+        k = max(int(np.ceil(0.9 * mt)), 1)
+        spans.append(int((tile[k - 1:] - tile[:mt - k + 1]).min()) + 1)
+    if not spans:
+        return plain()
+    cands = sorted({int(round_up(int(q), 128)) for q in
+                    np.quantile(np.asarray(spans), [0.5, 0.75, 0.9, 1.0])})
+    cands = [c for c in cands if c <= max_window] or [max_window]
+
+    def local_mask_for(w):
+        mask = np.zeros(e, bool)
+        for ti in range(t):
+            lo_i, hi_i = int(off[ti]), int(off[ti + 1])
+            mt = hi_i - lo_i
+            if mt == 0:
+                continue
+            tile = ss[lo_i:hi_i]
+            # the start i whose window [tile[i], tile[i] + w) covers most
+            j_ends = np.searchsorted(tile, tile + w, side="left")
+            i_star = int(np.argmax(j_ends - np.arange(mt)))
+            mask[lo_i + i_star:lo_i + int(j_ends[i_star])] = True
+        return mask
+
+    best = None
+    for w in cands:
+        mask = local_mask_for(w)
+        frac = float(mask.mean())
+        if best is None or frac > best[0] + 1e-9:
+            best = (frac, mask)
+        if frac >= target_local_frac:
+            best = (frac, mask)
+            break
+    frac, mask = best
+    if frac < min_local_frac or (~mask).sum() == 0:
+        return plain()
+
+    keep = np.sort(order[mask])
+    bl = compute_block_layout(s[keep], r[keep], keep.size, n_pad, nb=nb,
+                              eb=eb, n_src=n_src)
+    rem = np.sort(order[~mask])
+    er = rem.size
+    er_pad = round_up(max(er, 128), 128)
+    n_send = n_pad if n_src is None else n_src
+    rs = np.concatenate([s[rem], np.full(er_pad - er, n_send - 1, np.int64)])
+    rr = np.concatenate([r[rem], np.full(er_pad - er, n_pad - 1, np.int64)])
+    rorder = np.argsort(rs, kind="stable")
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+    return dataclasses.replace(
+        bl, rem_send=t32(rs), rem_recv=t32(rr), rem_order=t32(rorder),
+        rem_dst_ptr=t32(_core.csr_offsets(rr, n_pad)),
+        rem_src_ptr=t32(_core.csr_offsets(rs[:er], n_send)),
+        rem_e=int(er))

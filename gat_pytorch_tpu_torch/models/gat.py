@@ -17,15 +17,22 @@ Two layer paths, chosen by `backend`:
             plain versions on a CPU graph. paper_faithful,
             const_attention and a graph without `src_order` take the
             table op (ops/cuda/table_attention.py, PATH_TRACE
-            "v4_table"), which gets its edge logits from plain torch;
+            "v4_table"), which gets its edge logits from plain torch
+            (their gathers through ops/segment.gather_rows_sorted_grad,
+            so that the step is reproducible bit for bit);
             otherwise a graph that carries a block layout
             (canonicalize(..., src_windows=True)) takes the windowed op
-            (ops/cuda/window_attention.py, "v7") and any other the v5 op
+            (ops/cuda/window_attention.py, "v7"), one whose layout has a
+            remainder (hybrid=True) the windowed parts op over the
+            in-window edges plus the v5 parts op over the remainder
+            ("v7_hybrid"), and any other the v5 op
             (ops/cuda/v5_attention.py, "v5"): the counterparts of the JAX
-            "pallas" v4, v7 and v5 branches. The JAX package also gates
-            v7 on models of the TPU's VMEM and MXU cost and v5 on 4096
-            edges; those gates do not apply to this card and are not
-            ported.
+            "pallas" v4, v7, hybrid and v5 branches. The JAX package also
+            gates v7 on models of the TPU's VMEM and MXU cost, v5 on 4096
+            edges, the sorted-gradient gathers on 200,000 edges and the
+            hybrid remainder's kernel on 65,536 edges (below, XLA segment
+            ops); those gates price the TPU's launches, do not apply to
+            this card and are not ported.
   "segment" plain torch segment ops (ops/segment.py), the counterpart of
             the JAX "xla" path and the reference the kernel path is held
             against.
@@ -129,11 +136,16 @@ def _head_combine(out: torch.Tensor, cfg: GATLayerConfig, num_nodes: int,
 
 def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
                  senders: torch.Tensor, receivers: torch.Tensor,
-                 edge_mask: torch.Tensor) -> torch.Tensor:
+                 edge_mask: torch.Tensor,
+                 src_order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(E, NH) edge logits after LeakyReLU, from node scores: zeros under
     const_attention, per-head a = [a_l || a_r] scores under paper_faithful,
-    else the cross-head scores with the global max-cap BEFORE LeakyReLU."""
+    else the cross-head scores with the global max-cap BEFORE LeakyReLU.
+    With src_order (the stable sender sort of the edges) the two score
+    gathers take the sorted-gradient form, whose backward has a fixed
+    order of sums; without it, plain gathers (the segment path)."""
     nh, f = cfg.num_heads, cfg.out_features
+    n = h_flat.shape[0]
     if cfg.const_attention:
         return torch.zeros((senders.shape[0], nh), dtype=h_flat.dtype,
                            device=h_flat.device)
@@ -146,8 +158,12 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
         a_src, a_dst = _split_attention_map(params["a"], nh, f)
         s_both = h_flat @ torch.cat([a_src, a_dst], dim=1)
         s_src, s_dst = s_both[:, :nh], s_both[:, nh:]
-    logits = seg.gather_rows(s_src, senders) + seg.gather_rows(
-        s_dst, receivers)
+    if src_order is None:
+        logits = seg.gather_rows(s_src, senders) + seg.gather_rows(
+            s_dst, receivers)
+    else:   # the receivers are sorted as they are
+        logits = (seg.gather_rows_sorted_grad(s_src, senders, n, src_order)
+                  + seg.gather_rows_sorted_grad(s_dst, receivers, n))
     if not cfg.paper_faithful:
         masked = torch.where(edge_mask[:, None], logits,
                              torch.full_like(logits, float("-inf")))
@@ -170,7 +186,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     padded to a sink node, real edges first). num_real_edges defaults to
     edge_mask.sum() (one host sync); Graph.num_real_edges avoids it.
     block_layout (Graph.block_layout) puts the kernel path on the windowed
-    op; the table op and the segment path ignore it."""
+    op, or on the hybrid of the windowed and the v5 parts ops where the
+    layout has a remainder; the table op and the segment path ignore it."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
     nh, f = cfg.num_heads, cfg.out_features
@@ -195,7 +212,35 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         slots = e if block_layout is None else block_layout.num_slots
         drop = (_attention_dropout((slots, nh), cfg.dropout, generator,
                                    x.device) if dropping else None)
-        if block_layout is not None:
+        if block_layout is not None and block_layout.rem_send is not None:
+            # The split-locality layout: the windowed parts op over the
+            # in-window edges, the v5 parts op over the remainder. num
+            # and den add over any partition of the edges (both sum
+            # exp(slope*(raw - B)) terms), the global cap' is the larger
+            # of the two (torch.maximum sends its cotangent to the
+            # winner's argmax chain), and one epilogue in plain torch
+            # normalises under autograd. The second mask, the remainder's
+            # (rem_E, nh), is drawn after the layout's (E7, nh).
+            PATH_TRACE.append("v7_hybrid")
+            bl = block_layout
+            drop_rem = (_attention_dropout(
+                (bl.rem_send.shape[0], nh), cfg.dropout, generator, x.device)
+                if dropping else None)
+            s_dst_eff = s_dst - bound
+            num1, den1, cap1, _ = v7.v7_sweep1_parts(
+                h_flat, a_src, s_dst_eff, drop, bl, num_nodes, nh, f, 1e-8,
+                cfg.slope)
+            # The JAX package sends a remainder of up to 65,536 edges
+            # through XLA segment ops instead, a gate on the TPU's launch
+            # cost; here the remainder always takes the kernel.
+            num2, den2, cap2, _ = v5.v5_sweep1_parts(
+                h_flat, a_src, s_dst_eff, drop_rem, bl.rem_send,
+                bl.rem_recv, bl.rem_order, bl.rem_e, num_nodes, nh, f, 1e-8,
+                cfg.slope, dst_ptr=bl.rem_dst_ptr, src_ptr=bl.rem_src_ptr)
+            out, _ = v5.normalise(num1 + num2, den1 + den2,
+                                  torch.maximum(cap1, cap2), 1e-8, cfg.slope,
+                                  nh)
+        elif block_layout is not None:
             # The JAX package takes v7 only where its VMEM and MXU-cost
             # gates pass and from 4096 edges; here every graph that
             # carries a block layout does.
@@ -215,7 +260,12 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                 e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope)
         return _head_combine(out, cfg, num_nodes, params)
 
-    logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask)
+    if backend == "kernel" and src_order is None:
+        # a stable sort keeps the order of every sum over senders fixed
+        # (the table op's backward would sort them itself otherwise)
+        src_order = torch.argsort(senders, stable=True).to(torch.int32)
+    logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask,
+                          src_order if backend == "kernel" else None)
     eps = 0.0 if cfg.paper_faithful else 1e-8
 
     if backend == "kernel":

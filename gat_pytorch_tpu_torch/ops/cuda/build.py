@@ -41,7 +41,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"v5_forward": 0, "v5_backward": 0,
                             "segment_sum_rows": 0, "window_forward": 0,
                             "window_backward": 0, "table_forward": 0,
-                            "table_backward": 0}
+                            "table_backward": 0, "v5_backward_parts": 0,
+                            "window_backward_parts": 0,
+                            "segment_sum_sorted": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

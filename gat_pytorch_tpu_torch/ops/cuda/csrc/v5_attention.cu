@@ -4,7 +4,9 @@
 //   gat_pytorch_tpu/ops/pallas/segment_attention.py:_kernel_v5_auto
 //     (single-sweep "v10" mode, launched by _forward_v5_auto)
 //   gat_pytorch_tpu/ops/pallas/segment_attention_bwd.py:_kernel_v5_bwd
-//     (sweep1/normalize mode, launched by backward_v5)
+//     (sweep1 mode, launched by backward_v5: normalize=True for the
+//      normalised op, normalize=False for the sweep-1 parts op
+//      v5_sweep1_parts, whose forward is the same _kernel_v5_auto)
 //
 // Contract (per edge e = (src, dst), head k, for e < e_real):
 //   raw'[e,k] = h[src,:] . a_src[:,k] + s_dst'[dst,k]   (s_dst' is B-shifted)
@@ -15,6 +17,20 @@
 // The normalising epilogue out = num / (den + eps*exp(slope*cap')) runs in
 // torch. The backward recomputes ex from the same inputs and emits the
 // per-edge d(h) rows in dst order, d(drop), d(s_dst) per dst and d(a_src).
+// It has two modes (the template parameter NORM of v5_bwd_kernel):
+//   normalised  takes the cotangent g of out with out, den and eps' and
+//               derives inv = 1/(den + eps') and d(den) = -(g . out) * inv
+//               per destination and head itself;
+//   parts       takes the raw cotangents d(num) (n, d_feat) and d(den)
+//               (n, nh) of the unnormalised parts, as a caller hands them
+//               over that differentiates its own epilogue (the hybrid
+//               layer sums the parts of two ops first): per edge
+//               d(raw') = slope * ex * (m * (h[src] . d_num[dst])_k
+//                                       + d_den[dst,k]),
+//               d(h) row = d(raw') @ a_src^T + ex * m * d_num[dst],
+//               d(drop) = ex * (h[src] . d_num[dst])_k.
+// The h table may have more rows than n: senders index h, receivers the n
+// destination rows (a caller whose destinations are a part of the nodes).
 //
 // Design. The TPU kernels gather rows with one-hot matmuls because Mosaic
 // has no in-kernel random gather; Hopper has one. So one warp owns one
@@ -129,7 +145,9 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   }
 }
 
-template <int C>
+// NORM: the normalised mode; else the parts mode, where `g` carries d(num),
+// `den` carries d(den), and `out` and `epsp` are not read (NULL).
+template <int C, bool NORM>
 __global__ void __launch_bounds__(kWarps * 32)
 v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
               const float* __restrict__ s_dst, const float* __restrict__ drop,
@@ -163,7 +181,8 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int k = 0; k < kMaxHeads; ++k) da[c][k] = 0.f;
-  const float eps_p = *epsp;
+  float eps_p = 0.f;
+  if constexpr (NORM) eps_p = *epsp;
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float gv[C];
@@ -176,13 +195,18 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       inv[k] = dden[k] = sd[k] = sds[k] = 0.f;
       if (k < nh) {
         const float dn = den[(size_t)d * nh + k];
-        inv[k] = dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
-        float p = 0.f;
+        if constexpr (NORM) {
+          inv[k] = dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
+          float p = 0.f;
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          if (live[c] && head[c] == k)
-            p += out[(size_t)d * d_feat + lane + 32 * c] * gv[c];
-        dden[k] = -warp_sum(p) * inv[k];
+          for (int c = 0; c < C; ++c)
+            if (live[c] && head[c] == k)
+              p += out[(size_t)d * d_feat + lane + 32 * c] * gv[c];
+          dden[k] = -warp_sum(p) * inv[k];
+        } else {  // the caller's epilogue owns the quotient
+          inv[k] = 1.f;
+          dden[k] = dn;
+        }
         sd[k] = s_dst[(size_t)d * nh + k];
       }
     }
@@ -266,6 +290,38 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
         sacc[(i % nh) * d_feat + i / nh];  // back to (d_feat, nh)
 }
 
+template <bool NORM>
+int launch_v5_backward(const float* h, const float* a_src, const float* s_dst,
+                       const float* drop, const int* senders,
+                       const int* row_ptr, int n, int e_real, int d_feat,
+                       int nh, int f, float slope, const float* g,
+                       const float* out, const float* den, const float* epsp,
+                       float* d_h_rows, float* d_drop, float* d_sdst,
+                       float* dasrc_part, float* d_asrc, int nblk,
+                       void* stream) {
+  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = 2 * (size_t)d_feat * nh * sizeof(float);
+  const int c_need = (d_feat + 31) / 32;
+  cudaError_t err = cudaSuccess;
+#define V5_BWD(CC)                                                          \
+  err = set_smem(v5_bwd_kernel<CC, NORM>, smem);                            \
+  if (err == cudaSuccess)                                                   \
+    v5_bwd_kernel<CC, NORM><<<nblk, kWarps * 32, smem, st>>>(               \
+        h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,  \
+        slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part);
+  ROWS_DISPATCH(V5_BWD)
+#undef V5_BWD
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int len = d_feat * nh;
+  sum_partials_kernel<<<(len + 255) / 256, 256, 0, st>>>(dasrc_part, nblk,
+                                                         len, d_asrc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -299,9 +355,10 @@ int v5_forward(const float* h, const float* a_src, const float* s_dst,
   return (int)cudaGetLastError();
 }
 
-// Backward: d_h_rows (E, d_feat) in dst order, d_drop (E, nh) or NULL,
-// d_sdst (n, nh), d_asrc (d_feat, nh); dasrc_part is (nblk, d_feat*nh)
-// scratch. epsp points at eps' = eps*exp(slope*cap') on the device.
+// Backward, normalised mode: d_h_rows (E, d_feat) in dst order, d_drop
+// (E, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh); dasrc_part is
+// (nblk, d_feat*nh) scratch. epsp points at eps' = eps*exp(slope*cap') on
+// the device.
 int v5_backward(const float* h, const float* a_src, const float* s_dst,
                 const float* drop, const int* senders, const int* row_ptr,
                 int n, int e_real, int d_feat, int nh, int f, float slope,
@@ -309,27 +366,25 @@ int v5_backward(const float* h, const float* a_src, const float* s_dst,
                 const float* epsp, float* d_h_rows, float* d_drop,
                 float* d_sdst, float* dasrc_part, float* d_asrc, int nblk,
                 void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = 2 * (size_t)d_feat * nh * sizeof(float);
-  const int c_need = (d_feat + 31) / 32;
-  cudaError_t err = cudaSuccess;
-#define V5_BWD(CC)                                                          \
-  err = set_smem(v5_bwd_kernel<CC>, smem);                                  \
-  if (err == cudaSuccess)                                                   \
-    v5_bwd_kernel<CC><<<nblk, kWarps * 32, smem, st>>>(                     \
-        h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,  \
-        slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part);
-  ROWS_DISPATCH(V5_BWD)
-#undef V5_BWD
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int len = d_feat * nh;
-  sum_partials_kernel<<<(len + 255) / 256, 256, 0, st>>>(dasrc_part, nblk,
-                                                         len, d_asrc);
-  return (int)cudaGetLastError();
+  return launch_v5_backward<true>(h, a_src, s_dst, drop, senders, row_ptr, n,
+                                  e_real, d_feat, nh, f, slope, g, out, den,
+                                  epsp, d_h_rows, d_drop, d_sdst, dasrc_part,
+                                  d_asrc, nblk, stream);
+}
+
+// Backward, parts mode: the same outputs from the raw cotangents d_num
+// (n, d_feat) and d_den (n, nh) of the unnormalised parts.
+int v5_backward_parts(const float* h, const float* a_src, const float* s_dst,
+                      const float* drop, const int* senders,
+                      const int* row_ptr, int n, int e_real, int d_feat,
+                      int nh, int f, float slope, const float* d_num,
+                      const float* d_den, float* d_h_rows, float* d_drop,
+                      float* d_sdst, float* dasrc_part, float* d_asrc,
+                      int nblk, void* stream) {
+  return launch_v5_backward<false>(h, a_src, s_dst, drop, senders, row_ptr, n,
+                                   e_real, d_feat, nh, f, slope, d_num,
+                                   nullptr, d_den, nullptr, d_h_rows, d_drop,
+                                   d_sdst, dasrc_part, d_asrc, nblk, stream);
 }
 
 }  // extern "C"

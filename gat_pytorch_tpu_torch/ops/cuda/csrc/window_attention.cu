@@ -6,7 +6,9 @@
 //     (block-layout "v7" form, single-sweep "v10" mode, float32
 //      contractions; launched by _forward_v6 for fused_gat_window_v7)
 //   gat_pytorch_tpu/ops/pallas/segment_attention_window.py:_kernel_v6_bwd
-//     (the same form and mode, launched by backward_v6)
+//     (the same form and mode, launched by backward_v6: normalize=True for
+//      the normalised op, normalize=False for the sweep-1 parts op
+//      v7_sweep1_parts, whose forward is the same _kernel_v6)
 //
 // Contract. The edges live in layout slots: grouped per nb-row destination
 // tile, sender-sorted within a tile, padded per block to eb slots; a pad
@@ -22,7 +24,12 @@
 // torch. The backward recomputes ex from the same inputs and emits the
 // per-slot d(h) rows (pad rows are left unwritten: the reduction by
 // sender reads real slots only), d(drop) per slot (0 on pad slots),
-// d(s_dst) per destination and d(a_src).
+// d(s_dst) per destination and d(a_src). Its two modes (the template
+// parameter NORM of window_bwd_kernel) are those of v5_attention.cu: the
+// normalised mode takes g, out, den and eps' and derives inv and d(den)
+// itself; the parts mode takes the raw cotangents d(num) and d(den) of
+// the unnormalised parts from a caller that differentiates its own
+// epilogue.
 //
 // Design. The TPU kernel streams a window of the node table into VMEM per
 // destination tile and gathers from it with one-hot matrix products, per
@@ -151,7 +158,9 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   }
 }
 
-template <int C>
+// NORM: the normalised mode; else the parts mode, where `g` carries d(num),
+// `den` carries d(den), and `out` and `epsp` are not read (NULL).
+template <int C, bool NORM>
 __global__ void __launch_bounds__(kWarps * 32)
 window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
                   const float* __restrict__ s_dst,
@@ -186,7 +195,8 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int k = 0; k < kMaxHeads; ++k) da[c][k] = 0.f;
-  const float eps_p = *epsp;
+  float eps_p = 0.f;
+  if constexpr (NORM) eps_p = *epsp;
 
   // pad slots (the tail of dst_perm) get a zero dropout cotangent
   if (d_drop) {
@@ -207,13 +217,18 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       inv[k] = dden[k] = sd[k] = sds[k] = 0.f;
       if (k < nh) {
         const float dn = den[(size_t)d * nh + k];
-        inv[k] = dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
-        float p = 0.f;
+        if constexpr (NORM) {
+          inv[k] = dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
+          float p = 0.f;
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          if (live[c] && head[c] == k)
-            p += out[(size_t)d * d_feat + lane + 32 * c] * gv[c];
-        dden[k] = -warp_sum(p) * inv[k];
+          for (int c = 0; c < C; ++c)
+            if (live[c] && head[c] == k)
+              p += out[(size_t)d * d_feat + lane + 32 * c] * gv[c];
+          dden[k] = -warp_sum(p) * inv[k];
+        } else {  // the caller's epilogue owns the quotient
+          inv[k] = 1.f;
+          dden[k] = dn;
+        }
         sd[k] = s_dst[(size_t)d * nh + k];
       }
     }
@@ -286,6 +301,39 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
         sacc[(i % nh) * d_feat + i / nh];  // back to (d_feat, nh)
 }
 
+template <bool NORM>
+int launch_window_backward(const float* h, const float* a_src,
+                           const float* s_dst, const float* drop,
+                           const int* send, const int* dst_perm,
+                           const int* dst_ptr, int n, int e7, int d_feat,
+                           int nh, int f, float slope, const float* g,
+                           const float* out, const float* den,
+                           const float* epsp, float* d_h_rows, float* d_drop,
+                           float* d_sdst, float* dasrc_part, float* d_asrc,
+                           int nblk, void* stream) {
+  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = 2 * (size_t)d_feat * nh * sizeof(float);
+  const int c_need = (d_feat + 31) / 32;
+  cudaError_t err = cudaSuccess;
+#define WINDOW_BWD(CC)                                                      \
+  err = set_smem(window_bwd_kernel<CC, NORM>, smem);                        \
+  if (err == cudaSuccess)                                                   \
+    window_bwd_kernel<CC, NORM><<<nblk, kWarps * 32, smem, st>>>(           \
+        h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,  \
+        f, slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part);
+  ROWS_DISPATCH(WINDOW_BWD)
+#undef WINDOW_BWD
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int len = d_feat * nh;
+  sum_partials_kernel<<<(len + 255) / 256, 256, 0, st>>>(dasrc_part, nblk,
+                                                         len, d_asrc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,8 +369,8 @@ int window_forward(const float* h, const float* a_src, const float* s_dst,
   return (int)cudaGetLastError();
 }
 
-// Backward: d_h_rows (e7, d_feat) in slot order (pad rows unwritten),
-// d_drop (e7, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh);
+// Backward, normalised mode: d_h_rows (e7, d_feat) in slot order (pad rows
+// unwritten), d_drop (e7, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh);
 // dasrc_part is (nblk, d_feat*nh) scratch. epsp points at
 // eps' = eps*exp(slope*cap') on the device.
 int window_backward(const float* h, const float* a_src, const float* s_dst,
@@ -332,27 +380,26 @@ int window_backward(const float* h, const float* a_src, const float* s_dst,
                     const float* den, const float* epsp, float* d_h_rows,
                     float* d_drop, float* d_sdst, float* dasrc_part,
                     float* d_asrc, int nblk, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = 2 * (size_t)d_feat * nh * sizeof(float);
-  const int c_need = (d_feat + 31) / 32;
-  cudaError_t err = cudaSuccess;
-#define WINDOW_BWD(CC)                                                      \
-  err = set_smem(window_bwd_kernel<CC>, smem);                              \
-  if (err == cudaSuccess)                                                   \
-    window_bwd_kernel<CC><<<nblk, kWarps * 32, smem, st>>>(                 \
-        h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,  \
-        f, slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part);
-  ROWS_DISPATCH(WINDOW_BWD)
-#undef WINDOW_BWD
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int len = d_feat * nh;
-  sum_partials_kernel<<<(len + 255) / 256, 256, 0, st>>>(dasrc_part, nblk,
-                                                         len, d_asrc);
-  return (int)cudaGetLastError();
+  return launch_window_backward<true>(
+      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
+      slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part, d_asrc,
+      nblk, stream);
+}
+
+// Backward, parts mode: the same outputs from the raw cotangents d_num
+// (n, d_feat) and d_den (n, nh) of the unnormalised parts.
+int window_backward_parts(const float* h, const float* a_src,
+                          const float* s_dst, const float* drop,
+                          const int* send, const int* dst_perm,
+                          const int* dst_ptr, int n, int e7, int d_feat,
+                          int nh, int f, float slope, const float* d_num,
+                          const float* d_den, float* d_h_rows, float* d_drop,
+                          float* d_sdst, float* dasrc_part, float* d_asrc,
+                          int nblk, void* stream) {
+  return launch_window_backward<false>(
+      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
+      slope, d_num, nullptr, d_den, nullptr, d_h_rows, d_drop, d_sdst,
+      dasrc_part, d_asrc, nblk, stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,17 @@
-"""Sorted row segment sum and the attention backward's d(h) reduction.
+"""Sorted row segment sums: the attention backward's d(h) reduction and
+the plain sorted segment sum.
 
 Counterpart of gat_pytorch_tpu/ops/pallas/segment_sum.py:
-segment_sum_pallas_rows (:176, the `_kernel_rows_nt` form) and of the
-`_dh_reduce` glue in segment_attention.py:912-938. The CUDA kernel is
-csrc/segment_sum.cu (its header says what bounds it and why it is
-shaped so); `segment_rows_plain` is its plain torch version.
+segment_sum_pallas_rows (:176, the `_kernel_rows_nt` form) with the
+`_dh_reduce` glue in segment_attention.py:912-938, and segment_sum_pallas
+(:260, `_kernel`), the reduction behind the sorted-gradient gathers
+(ops/segment.py:gather_rows_sorted_grad). The CUDA kernels are in
+csrc/segment_sum.cu (its headers say what bounds them and why they are
+shaped so); `segment_rows_plain` and `segment_sum_sorted_plain` are their
+plain torch versions.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain version. Both sum each segment's rows in increasing position.
+plain version. Every sum has a fixed order: two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.segment_sum_rows.argtypes = [p, p, p, i, i, i, p, i, p]
         lib.segment_sum_rows.restype = ctypes.c_int
+        lib.segment_sum_sorted.argtypes = [p, p, i, i, i, p, p, p]
+        lib.segment_sum_sorted.restype = ctypes.c_int
         _configured = True
     return lib
 
@@ -131,3 +137,44 @@ def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
         ids = torch.repeat_interleave(torch.arange(n), src_ptr.long().diff())
         return segment_rows_plain(d_h_rows, src_perm, ids, n)
     raise ValueError(f"no kernel for device {d_h_rows.device}")
+
+
+def segment_sum_sorted_plain(values: torch.Tensor, sorted_ids: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    return seg.segment_sum(values, sorted_ids, num_segments)
+
+
+def _segment_sum_sorted_cuda(values, sorted_ids, num_segments: int):
+    dev = values.device
+    build.require(values, "values", dev, torch.float32, (None, None))
+    e, d = values.shape
+    if not 1 <= d <= 1024:
+        raise ValueError(f"row width {d} outside [1, 1024]")
+    build.require(sorted_ids, "sorted_ids", dev, torch.int32, (e,))
+    if num_segments < 1:
+        raise ValueError(f"num_segments {num_segments} < 1")
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
+    ptr = torch.empty((num_segments + 1,), dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.segment_sum_sorted(
+            build.ptr(values), build.ptr(sorted_ids), e, num_segments, d,
+            build.ptr(ptr), build.ptr(out), build.stream(dev))
+    build.check(err, "segment_sum_sorted")
+    build.LAUNCHES["segment_sum_sorted"] += 1
+    return out
+
+
+def segment_sum_sorted(values: torch.Tensor, sorted_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """out[s] = sum of values[e] over e with sorted_ids[e] == s, for rows
+    that are already in the order of their ids.
+
+    values: (E, D) float32, 1 <= D <= 1024; sorted_ids: (E,) int32,
+    ascending, ids >= num_segments are dropped. Returns (num_segments, D).
+    Kernel on CUDA tensors, plain version on CPU tensors."""
+    if values.is_cuda:
+        return _segment_sum_sorted_cuda(values, sorted_ids, num_segments)
+    if values.device.type == "cpu":
+        return segment_sum_sorted_plain(values, sorted_ids, num_segments)
+    raise ValueError(f"no kernel for device {values.device}")

@@ -3,8 +3,10 @@
 Counterpart of gat_pytorch_tpu/ops/pallas/segment_attention.py:
 fused_gat_table_autocap (:1551) with its VJP `_fgta_fwd`/`_fgta_bwd`
 (:1577-1669), in the single-sweep (v10) form the JAX package runs by
-default. The kernels are csrc/v5_attention.cu (forward: `_kernel_v5_auto`;
-backward: segment_attention_bwd.py:`_kernel_v5_bwd`) and the d(h)
+default, and v5_sweep1_parts (:1674) with `_v5sp_fwd`/`_v5sp_bwd`, the
+same sweep without its epilogue. The kernels are csrc/v5_attention.cu
+(forward: `_kernel_v5_auto`; backward: segment_attention_bwd.py:
+`_kernel_v5_bwd`, in its normalised and its parts mode) and the d(h)
 reduction of ops/cuda/segment_sum.py. `v5_forward_plain` and
 `v5_backward_plain` are their plain torch versions.
 
@@ -18,6 +20,13 @@ The epilogue out = num / (den + eps'), eps' = eps*exp(slope*cap'), is the
 reference's +eps softmax exactly. The cap enters only through eps', so
 its cotangent is closed-form, dc = -slope*eps'*sum(g.out per head * inv),
 routed to the argmax (edge, head): ties go to the lowest e*nh + k.
+
+`v5_sweep1_parts` returns (num, den, cap', code) and leaves the epilogue
+to its caller, which may first add the parts of another op over other
+edges (num and den are sums over edges, so they add over any partition
+of them; the hybrid layer of models/gat.py does this) and differentiates
+the epilogue itself: the backward then takes the raw cotangents of num,
+den and cap'.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch
 
 from .. import segment as seg
 from . import build
-from .segment_sum import dh_reduce
+from .segment_sum import dh_reduce, dh_reduce_ptr
 
 _KERNEL = "v5_attention"
 MAX_HEADS = 8
@@ -47,6 +56,9 @@ def _lib() -> ctypes.CDLL:
         lib.v5_backward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 9
                                     + [i, p])
         lib.v5_backward.restype = ctypes.c_int
+        lib.v5_backward_parts.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 7
+                                          + [i, p])
+        lib.v5_backward_parts.restype = ctypes.c_int
         _configured = True
     return lib
 
@@ -86,16 +98,23 @@ def attention_forward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
 
 def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
                              slope: float, g, out, den, epsp,
-                             need_drop: bool):
+                             need_drop: bool, normalize: bool = True):
     """(d_h rows (E, D) in slot order, d_drop (E, nh) | None,
     d_s_dst (N, nh), d_a_src (D, nh)) of the op before the cap chain;
-    the rows of slots that are no edges are 0."""
+    the rows of slots that are no edges are 0.
+
+    normalize=False is the parts mode: `g` carries d(num) and `den`
+    carries d(den), the raw cotangents of the unnormalised parts; `out`
+    and `epsp` are not read (the caller's epilogue owns the quotient)."""
     n, nh = s_dst_eff.shape
     e, d = snd.shape[0], h.shape[1]
     f = d // nh
     h_e, raw, rcv_in = _edge_logits(h, a_src, s_dst_eff, snd, rcv)
-    inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
-    d_den = -(out * g).view(n, nh, f).sum(2) * inv
+    if normalize:
+        inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
+        d_den = -(out * g).view(n, nh, f).sum(2) * inv
+    else:
+        inv, d_den = torch.ones_like(den), den
     ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
     g_e = g.index_select(0, rcv_in)
     inv_e = inv.index_select(0, rcv_in)
@@ -127,12 +146,13 @@ def v5_forward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
 
 def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
-                      need_drop: bool):
-    """(d_h rows in dst order, d_drop, d_s_dst, d_a_src)."""
+                      need_drop: bool, normalize: bool = True):
+    """(d_h rows in dst order, d_drop, d_s_dst, d_a_src); normalize=False
+    as attention_backward_plain takes it."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop,
         *_real_prefix(senders, receivers, e_real), slope, g, out, den,
-        epsp, need_drop)
+        epsp, need_drop, normalize)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -158,11 +178,20 @@ def _check_inputs(h, a_src, s_dst_eff, drop, senders, receivers, e_real):
     return dev, s_dst_eff.shape[0], e, d, nh
 
 
+def _row_offsets(receivers, n: int, dst_ptr):
+    """The CSR offsets of the dst-sorted edges: the caller's, built once
+    with the graph, or computed here."""
+    if dst_ptr is None:
+        return build.csr_offsets(receivers, n)
+    build.require(dst_ptr, "dst_ptr", receivers.device, torch.int32, (n + 1,))
+    return dst_ptr
+
+
 def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
-                     e_real: int, slope: float):
+                     e_real: int, slope: float, dst_ptr=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real)
-    row_ptr = build.csr_offsets(receivers, n)
+    row_ptr = _row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     num = torch.empty((n, d), **f32)
@@ -186,14 +215,15 @@ def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
 
 def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
-                      need_drop: bool):
+                      need_drop: bool, normalize: bool = True, dst_ptr=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real)
     build.require(g, "g", dev, torch.float32, (n, d))
-    build.require(out, "out", dev, torch.float32, (n, d))
     build.require(den, "den", dev, torch.float32, (n, nh))
-    build.require(epsp, "epsp", dev, torch.float32, ())
-    row_ptr = build.csr_offsets(receivers, n)
+    if normalize:
+        build.require(out, "out", dev, torch.float32, (n, d))
+        build.require(epsp, "epsp", dev, torch.float32, ())
+    row_ptr = _row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h_rows = torch.empty((e, d), **f32)
@@ -203,23 +233,30 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     d_asrc = torch.empty((d, nh), **f32)
     p = build.ptr
     lib = _lib()
+    graph_args = (p(h), p(a_src), p(s_dst_eff), p(drop), p(senders),
+                  p(row_ptr), n, e_real, d, nh, d // nh, slope)
+    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc), nblk,
+               build.stream(dev))
+    name = "v5_backward" if normalize else "v5_backward_parts"
     with torch.cuda.device(dev):
-        err = lib.v5_backward(
-            p(h), p(a_src), p(s_dst_eff), p(drop), p(senders), p(row_ptr),
-            n, e_real, d, nh, d // nh, slope,
-            p(g), p(out), p(den), p(epsp), p(d_h_rows), p(d_drop),
-            p(d_sdst), p(part), p(d_asrc), nblk, build.stream(dev))
-    build.check(err, "v5_backward")
-    build.LAUNCHES["v5_backward"] += 1
+        if normalize:
+            err = lib.v5_backward(*graph_args, p(g), p(out), p(den), p(epsp),
+                                  *outputs)
+        else:       # g is d(num), den is d(den)
+            err = lib.v5_backward_parts(*graph_args, p(g), p(den), *outputs)
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
 def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
-               e_real: int, slope: float):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+               e_real: int, slope: float, dst_ptr=None):
+    """Kernel on CUDA tensors, plain version on CPU tensors. dst_ptr: the
+    (N + 1,) int32 CSR offsets of `receivers`, where the caller holds
+    them; the kernel wrapper computes them otherwise."""
     if h.is_cuda:
         return _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders,
-                                receivers, e_real, slope)
+                                receivers, e_real, slope, dst_ptr)
     if h.device.type == "cpu":
         return v5_forward_plain(h, a_src, s_dst_eff, drop, senders,
                                 receivers, e_real, slope)
@@ -228,16 +265,19 @@ def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
 
 def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
                 e_real: int, slope: float, g, out, den, epsp,
-                need_drop: bool):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+                need_drop: bool, normalize: bool = True, dst_ptr=None):
+    """Kernel on CUDA tensors, plain version on CPU tensors.
+    normalize=False is the parts mode (attention_backward_plain says what
+    `g` and `den` carry then); it launches the kernel's parts mode and
+    counts as "v5_backward_parts"."""
     if h.is_cuda:
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
-                                 epsp, need_drop)
+                                 epsp, need_drop, normalize, dst_ptr)
     if h.device.type == "cpu":
         return v5_backward_plain(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
-                                 epsp, need_drop)
+                                 epsp, need_drop, normalize)
     raise ValueError(f"no kernel for device {h.device}")
 
 
@@ -253,18 +293,23 @@ def normalise(num, den, cap, eps: float, slope: float, nh: int):
     return out, epsp
 
 
-def route_cap_cotangent(d_h, d_asrc, d_sdst, code, senders, receivers,
-                        h_flat, a_src, g, out, den, epsp, slope: float,
-                        nh: int):
-    """Add the cap chain to (d_h, d_a_src, d_s_dst). The cap
-    cap' = h[src*] . a_src[:, k*] + s_dst'[dst*, k*] enters the output only
-    through eps', so its cotangent is closed-form; it goes to the argmax
-    (slot, head) that `code` = slot*nh + head names, `senders` and
-    `receivers` being indexed by slot."""
+def cap_cotangent(g, out, den, epsp, slope: float, nh: int):
+    """The cotangent of cap' under the normalising epilogue: the cap enters
+    the output only through eps', so it is closed-form,
+    -slope * eps' * sum over (node, head) of (g . out)_head * inv."""
     n, d = out.shape
     inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
     gout_h = (g * out).view(n, nh, d // nh).sum(2)
-    dc = -slope * epsp * (gout_h * inv).sum()
+    return -slope * epsp * (gout_h * inv).sum()
+
+
+def route_cap_cotangent(d_h, d_asrc, d_sdst, dc, code, senders, receivers,
+                        h_flat, a_src, nh: int):
+    """Add the cap chain to (d_h, d_a_src, d_s_dst): the cotangent `dc`
+    (a scalar tensor) of cap' = h[src*] . a_src[:, k*] + s_dst'[dst*, k*]
+    goes to the argmax (slot, head) that `code` = slot*nh + head names,
+    `senders` and `receivers` being indexed by slot."""
+    d = h_flat.shape[1]
     code = code.long().view(1)
     eidx, hidx = code // nh, code % nh
     src_star = senders.index_select(0, eidx).long()
@@ -305,8 +350,8 @@ class _V5Attention(torch.autograd.Function):
                         ctx.e_real)
 
         d_h, d_asrc, d_sdst = route_cap_cotangent(
-            d_h, d_asrc, d_sdst, code, senders, receivers, h_flat, a_src,
-            g, out, den, epsp, slope, nh)
+            d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
+            code, senders, receivers, h_flat, a_src, nh)
         return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 8
 
 
@@ -342,3 +387,88 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
                               s_dst, drop_mask, senders, receivers,
                               src_order, score_bound.detach(), int(e_real),
                               nh, eps, slope)
+
+
+class _V5Sweep1Parts(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
+                src_order, dst_ptr, src_ptr, e_real, nh, slope):
+        num, den, cap, code = v5_forward(h_flat, a_src, s_dst_eff, drop_mask,
+                                         senders, receivers, e_real, slope,
+                                         dst_ptr)
+        ctx.save_for_backward(h_flat, a_src, s_dst_eff, drop_mask, senders,
+                              receivers, src_order, dst_ptr, src_ptr, code)
+        ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
+        ctx.mark_non_differentiable(code)
+        return num, den, cap, code
+
+    @staticmethod
+    def backward(ctx, d_num, d_den, d_cap, _d_code):
+        (h_flat, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
+         dst_ptr, src_ptr, code) = ctx.saved_tensors
+        need_drop = drop_mask is not None and ctx.needs_input_grad[3]
+        d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
+            h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
+            ctx.e_real, ctx.slope, d_num.contiguous(), None,
+            d_den.contiguous(), None, need_drop, normalize=False,
+            dst_ptr=dst_ptr)
+        # senders index the h table, which may have more rows than the
+        # destinations: d(h) is reduced to the table's rows
+        if src_ptr is None:
+            d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0],
+                            ctx.e_real)
+        else:
+            d_h = dh_reduce_ptr(d_h_rows, src_order[:ctx.e_real], src_ptr)
+        d_h, d_asrc, d_sdst = route_cap_cotangent(
+            d_h, d_asrc, d_sdst, d_cap, code, senders, receivers, h_flat,
+            a_src, ctx.nh)
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 8
+
+
+def v5_sweep1_parts(h_flat: torch.Tensor,
+                    a_src: torch.Tensor,
+                    s_dst: torch.Tensor,
+                    drop_mask: Optional[torch.Tensor],
+                    senders: torch.Tensor,
+                    receivers: torch.Tensor,
+                    src_order: torch.Tensor,
+                    e_real: int,
+                    num_nodes: int, nh: int, f: int,
+                    eps: float = 1e-8,
+                    slope: float = 0.01,
+                    num_src_nodes: Optional[int] = None, *,
+                    dst_ptr: Optional[torch.Tensor] = None,
+                    src_ptr: Optional[torch.Tensor] = None):
+    """The unnormalised single-sweep parts (num (num_nodes, nh*f),
+    den (num_nodes, nh), cap' (), code () int32) over the dst-sorted edges
+    e < e_real, differentiable in h_flat, a_src, s_dst and drop_mask.
+
+    s_dst arrives ALREADY B-shifted (the caller subtracts its bound, which
+    it may share with another op over other edges). cap' is the max of the
+    shifted raw logits these edges saw and code = e*nh + head its argmax
+    (not differentiable). The caller completes the softmax,
+        eps' = eps * exp(slope * cap'); out = num / (den + eps'),
+    0 where den == 0, possibly after adding other parts; `eps` is the
+    caller's to use there and is not read here. The backward assumes num
+    and den feed only such an epilogue: it takes their cotangents raw and
+    routes the cap's to the argmax (edge, head).
+
+    num_src_nodes: the rows of h_flat when they are more than num_nodes:
+    receivers and s_dst cover num_nodes rows, senders index h_flat, and
+    d(h_flat) is reduced to its rows.
+    dst_ptr, src_ptr: the CSR offsets of the edges by destination
+    ((num_nodes + 1,), over all edges) and of the real edges by sender
+    ((rows of h_flat + 1,)), where the caller built them with the graph;
+    they are computed per call otherwise."""
+    n_src = num_nodes if num_src_nodes is None else num_src_nodes
+    if (s_dst.shape != (num_nodes, nh)
+            or h_flat.shape != (n_src, nh * f)):
+        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
+                         f"{tuple(s_dst.shape)} do not match num_nodes="
+                         f"{num_nodes}, num_src_nodes={n_src}, nh={nh}, "
+                         f"f={f}")
+    return _V5Sweep1Parts.apply(
+        h_flat.contiguous(), a_src.contiguous(), s_dst.contiguous(),
+        drop_mask, senders, receivers, src_order, dst_ptr, src_ptr,
+        int(e_real), nh, slope)

@@ -3,9 +3,11 @@
 Counterpart of gat_pytorch_tpu/ops/pallas/segment_attention_window.py:
 fused_gat_window_v7 (:1771) with its VJP `_fgw7_fwd`/`_fgw7_bwd`
 (:1803-1927), in the single-sweep (v10) mode and the float32 contraction
-mode. The kernels are csrc/window_attention.cu (forward: `_kernel_v6`;
-backward: `_kernel_v6_bwd`) and the d(h) reduction of
-ops/cuda/segment_sum.py. `window_forward_plain` and
+mode, and v7_sweep1_parts (:1939) with `_v7sp_fwd`/`_v7sp_bwd`, the same
+sweep without its epilogue (ops/cuda/v5_attention.py says what the parts
+are for). The kernels are csrc/window_attention.cu (forward: `_kernel_v6`;
+backward: `_kernel_v6_bwd`, in its normalised and its parts mode) and the
+d(h) reduction of ops/cuda/segment_sum.py. `window_forward_plain` and
 `window_backward_plain` are their plain torch versions.
 
 It computes the function of ops/cuda/v5_attention.py (see its module doc
@@ -29,7 +31,7 @@ from ...graph.graph import BlockLayout
 from . import build
 from .segment_sum import dh_reduce_ptr
 from .v5_attention import (MAX_HEADS, attention_backward_plain,
-                           attention_forward_plain, normalise,
+                           attention_forward_plain, cap_cotangent, normalise,
                            route_cap_cotangent)
 
 _KERNEL = "window_attention"
@@ -47,6 +49,9 @@ def _lib() -> ctypes.CDLL:
         lib.window_backward.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 9
                                         + [i, p])
         lib.window_backward.restype = ctypes.c_int
+        lib.window_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl]
+                                              + [p] * 7 + [i, p])
+        lib.window_backward_parts.restype = ctypes.c_int
         _configured = True
     return lib
 
@@ -70,12 +75,14 @@ def window_forward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
 
 
 def window_backward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
-                          slope: float, g, out, den, epsp, need_drop: bool):
+                          slope: float, g, out, den, epsp, need_drop: bool,
+                          normalize: bool = True):
     """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop (E7, nh) |
-    None, d_s_dst (N, nh), d_a_src (D, nh)) before the cap chain."""
+    None, d_s_dst (N, nh), d_a_src (D, nh)) before the cap chain;
+    normalize=False as v5_attention.attention_backward_plain takes it."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop, *_slots(layout, s_dst_eff.shape[0]),
-        slope, g, out, den, epsp, need_drop)
+        slope, g, out, den, epsp, need_drop, normalize)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -127,12 +134,14 @@ def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float):
 
 
 def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
-                          g, out, den, epsp, need_drop: bool):
+                          g, out, den, epsp, need_drop: bool,
+                          normalize: bool = True):
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout)
     build.require(g, "g", dev, torch.float32, (n, d))
-    build.require(out, "out", dev, torch.float32, (n, d))
     build.require(den, "den", dev, torch.float32, (n, nh))
-    build.require(epsp, "epsp", dev, torch.float32, ())
+    if normalize:
+        build.require(out, "out", dev, torch.float32, (n, d))
+        build.require(epsp, "epsp", dev, torch.float32, ())
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h_rows = torch.empty((e7, d), **f32)
@@ -142,14 +151,21 @@ def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     d_asrc = torch.empty((d, nh), **f32)
     p = build.ptr
     lib = _lib()
+    graph_args = (p(h), p(a_src), p(s_dst_eff), p(drop), p(layout.send),
+                  p(layout.dst_perm), p(layout.dst_ptr), n, e7, d, nh,
+                  d // nh, slope)
+    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc), nblk,
+               build.stream(dev))
+    name = "window_backward" if normalize else "window_backward_parts"
     with torch.cuda.device(dev):
-        err = lib.window_backward(
-            p(h), p(a_src), p(s_dst_eff), p(drop), p(layout.send),
-            p(layout.dst_perm), p(layout.dst_ptr), n, e7, d, nh, d // nh,
-            slope, p(g), p(out), p(den), p(epsp), p(d_h_rows), p(d_drop),
-            p(d_sdst), p(part), p(d_asrc), nblk, build.stream(dev))
-    build.check(err, "window_backward")
-    build.LAUNCHES["window_backward"] += 1
+        if normalize:
+            err = lib.window_backward(*graph_args, p(g), p(out), p(den),
+                                      p(epsp), *outputs)
+        else:       # g is d(num), den is d(den)
+            err = lib.window_backward_parts(*graph_args, p(g), p(den),
+                                            *outputs)
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
@@ -164,15 +180,20 @@ def window_forward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
 
 
 def window_backward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
-                    slope: float, g, out, den, epsp, need_drop: bool):
+                    slope: float, g, out, den, epsp, need_drop: bool,
+                    normalize: bool = True):
     """Kernel on CUDA tensors (the d(h) rows of pad slots are left
-    unwritten there), plain version on CPU tensors."""
+    unwritten there), plain version on CPU tensors. normalize=False is
+    the parts mode; it launches the kernel's parts mode and counts as
+    "window_backward_parts"."""
     if h.is_cuda:
         return _window_backward_cuda(h, a_src, s_dst_eff, drop, layout,
-                                     slope, g, out, den, epsp, need_drop)
+                                     slope, g, out, den, epsp, need_drop,
+                                     normalize)
     if h.device.type == "cpu":
         return window_backward_plain(h, a_src, s_dst_eff, drop, layout,
-                                     slope, g, out, den, epsp, need_drop)
+                                     slope, g, out, den, epsp, need_drop,
+                                     normalize)
     raise ValueError(f"no kernel for device {h.device}")
 
 
@@ -204,8 +225,8 @@ class _WindowAttention(torch.autograd.Function):
             epsp, need_drop)
         d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
-            d_h, d_asrc, d_sdst, code, layout.send, layout.recv, h_flat,
-            a_src, g, out, den, epsp, slope, nh)
+            d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
+            code, layout.send, layout.recv, h_flat, a_src, nh)
         return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 5
 
 
@@ -242,3 +263,60 @@ def fused_gat_window_v7(h_flat: torch.Tensor,
     return _WindowAttention.apply(h_flat.contiguous(), a_src.contiguous(),
                                   s_dst, drop_mask, layout,
                                   score_bound.detach(), nh, eps, slope)
+
+
+class _WindowSweep1Parts(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, layout, nh, slope):
+        num, den, cap, code = window_forward(h_flat, a_src, s_dst_eff,
+                                             drop_mask, layout, slope)
+        ctx.save_for_backward(h_flat, a_src, s_dst_eff, drop_mask, code)
+        ctx.layout, ctx.nh, ctx.slope = layout, nh, slope
+        ctx.mark_non_differentiable(code)
+        return num, den, cap, code
+
+    @staticmethod
+    def backward(ctx, d_num, d_den, d_cap, _d_code):
+        h_flat, a_src, s_dst_eff, drop_mask, code = ctx.saved_tensors
+        layout = ctx.layout
+        need_drop = drop_mask is not None and ctx.needs_input_grad[3]
+        d_h_rows, d_drop, d_sdst, d_asrc = window_backward(
+            h_flat, a_src, s_dst_eff, drop_mask, layout, ctx.slope,
+            d_num.contiguous(), None, d_den.contiguous(), None, need_drop,
+            normalize=False)
+        d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
+        d_h, d_asrc, d_sdst = route_cap_cotangent(
+            d_h, d_asrc, d_sdst, d_cap, code, layout.send, layout.recv,
+            h_flat, a_src, ctx.nh)
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 3
+
+
+def v7_sweep1_parts(h_flat: torch.Tensor,
+                    a_src: torch.Tensor,
+                    s_dst: torch.Tensor,
+                    drop_mask: Optional[torch.Tensor],
+                    layout: BlockLayout,
+                    num_nodes: int, nh: int, f: int,
+                    eps: float = 1e-8,
+                    slope: float = 0.01):
+    """The unnormalised single-sweep parts (num (num_nodes, nh*f),
+    den (num_nodes, nh), cap' (), code () int32) over the slots of
+    `layout`, differentiable in h_flat, a_src, s_dst and drop_mask: the
+    contract of v5_attention.v5_sweep1_parts over layout slots.
+
+    s_dst arrives ALREADY B-shifted, unlike fused_gat_window_v7's;
+    drop_mask is (E7, nh) in slot order; code = slot*nh + head is not
+    differentiable; `eps` is the caller's epilogue's and is not read
+    here. On a hybrid layout the slots hold the in-window edges only;
+    the remainder (layout.rem_*) is another op's."""
+    if (h_flat.shape != (num_nodes, nh * f)
+            or s_dst.shape != (num_nodes, nh)
+            or layout.dst_ptr.shape[0] != num_nodes + 1):
+        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
+                         f"{tuple(s_dst.shape)}, layout over "
+                         f"{layout.dst_ptr.shape[0] - 1} nodes do not match "
+                         f"num_nodes={num_nodes}, nh={nh}, f={f}")
+    return _WindowSweep1Parts.apply(h_flat.contiguous(), a_src.contiguous(),
+                                    s_dst.contiguous(), drop_mask, layout,
+                                    nh, slope)

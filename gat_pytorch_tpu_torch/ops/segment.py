@@ -3,7 +3,11 @@
 Counterpart of gat_pytorch_tpu/ops/segment.py. These are the reference
 ops of the port and the `backend="segment"` layer path (the mirror of the
 JAX package's `backend="xla"` path); they run on any device and launch no
-kernel of this repository.
+kernel of this repository, with one exception: `gather_rows_sorted_grad`,
+whose backward is the sorted segment sum of ops/cuda/segment_sum.py (the
+kernel on CUDA tensors). The kernel path's logits prelude uses it so that
+a training step gives the same bits on every run; `gather_rows`, whose
+backward scatter-adds with atomics on the card, stays the segment path's.
 
 Segment ids >= num_segments (padding) are dropped, as XLA drops
 out-of-bounds scatter updates: they are routed to one spill row that is
@@ -48,6 +52,49 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, indices.long())
 
 
+class _GatherRowsSortedGrad(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, indices, order, num_segments):
+        ctx.save_for_backward(indices, order)
+        ctx.num_segments = num_segments
+        return table.index_select(0, indices.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        # imported here: ops/cuda/segment_sum.py imports this module
+        from .cuda.segment_sum import segment_sum_sorted
+        indices, order = ctx.saved_tensors
+        if order is not None:
+            order = order.long()
+            g, indices = g.index_select(0, order), indices.index_select(
+                0, order)
+        rows = g.reshape(g.shape[0], -1).contiguous()
+        d_table = segment_sum_sorted(rows, indices.to(torch.int32),
+                                     ctx.num_segments)
+        return (d_table.reshape((ctx.num_segments,) + tuple(g.shape[1:])),
+                None, None, None)
+
+
+def gather_rows_sorted_grad(table: torch.Tensor, indices: torch.Tensor,
+                            num_segments: int,
+                            order: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """`table[indices]` whose backward is a sorted segment sum in a fixed
+    order (ops/cuda/segment_sum.segment_sum_sorted) instead of
+    index_select's scatter-add, which uses atomics on the card and so
+    differs from run to run.
+
+    table: (num_segments, ...) float32; indices: (E,) int32. order: a
+    permutation that sorts `indices` ascending (Graph.src_order for the
+    senders); None where they are sorted already (the receivers). The
+    backward permutes the cotangent rows by `order` and reduces them."""
+    if table.shape[0] != num_segments:
+        raise ValueError(f"table has {table.shape[0]} rows, "
+                         f"num_segments={num_segments}")
+    return _GatherRowsSortedGrad.apply(table, indices, order, num_segments)
+
+
 def segment_softmax(logits: torch.Tensor,
                     segment_ids: torch.Tensor,
                     num_segments: int,
@@ -72,6 +119,16 @@ def segment_softmax(logits: torch.Tensor,
     if edge_mask is not None:
         out = torch.where(edge_mask[:, None], out, torch.zeros_like(out))
     return out
+
+
+def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Per-segment mean; empty segments give 0."""
+    sums = segment_sum(values, segment_ids, num_segments)
+    counts = segment_sum(values.new_ones(values.shape[:1]), segment_ids,
+                         num_segments)
+    return sums / counts.clamp(min=1.0).reshape(
+        (num_segments,) + (1,) * (values.dim() - 1))
 
 
 def in_degree(segment_ids: torch.Tensor, num_segments: int, *,

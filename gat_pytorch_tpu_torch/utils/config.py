@@ -38,7 +38,8 @@ class RunConfig:
     log_every: int = 0
     backend: str = "kernel"               # kernel | segment
     device: str = "cuda"
-    reorder: Optional[str] = None         # "rcm": reorder + block layout
+    reorder: Optional[str] = None         # "rcm": reorder + block layout;
+    #                                       "cluster": + the hybrid layout
 
     def gat_config(self) -> GATConfig:
         return GATConfig(

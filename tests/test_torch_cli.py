@@ -54,8 +54,20 @@ def test_cli_rcm_reorder_takes_the_windowed_op():
 
 
 def test_cli_refuses_cluster_reorder():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(["--device", "cpu", "--reorder", "cluster"])
+    """On the batched datasets: a reorder relabels one full graph."""
+    with pytest.raises(NotImplementedError, match="full graph"):
+        cli.main(["--device", "cpu", "--dataset", "PPI", "--reorder",
+                  "cluster"])
+
+
+def test_cli_trains_pubmed_with_cluster_reorder_on_cpu():
+    """`--dataset Pubmed --reorder cluster` at full width, in-process so
+    that PATH_TRACE can be read: every layer of every forward (2 epochs x
+    (train + validation) + the test pass) took the hybrid branch."""
+    gat.PATH_TRACE.clear()
+    assert cli.main(["--dataset", "Pubmed", "--reorder", "cluster",
+                     "--device", "cpu", "--num_epochs", "2"]) == 0
+    assert gat.PATH_TRACE == ["v7_hybrid"] * 10
 
 
 def test_cli_trains_ppi_paper_faithful_on_cpu():

@@ -118,8 +118,9 @@ def test_entry_points_refuse_cpu_unless_asked(no_gpu):
 
 
 def test_cli_refuses_unported_flags():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--device", "cpu", "--reorder", "cluster"])
+    with pytest.raises(NotImplementedError, match="full graph"):
+        cli.main(["--device", "cpu", "--dataset", "PPI", "--reorder",
+                  "cluster"])
     for flags in (["--dataset", "PPI", "--attention_penalty", "0.1"],
                   ["--dataset", "Cora", "--attention_reward", "0.1"],
                   ["--dataset", "Cora", "--sampling_fanouts", "8,8"],
@@ -129,6 +130,26 @@ def test_cli_refuses_unported_flags():
     with pytest.raises(NotImplementedError, match="full graph"):
         cli.main(["--device", "cpu", "--dataset", "PATTERN", "--reorder",
                   "rcm"])
+
+
+def test_new_wrappers_count_no_launch_on_cpu_tensors():
+    """The parts backward modes and the sorted segment sum have their own
+    counters, and the plain versions touch none of them."""
+    from gat_pytorch_tpu_torch.ops import segment as seg
+    from gat_pytorch_tpu_torch.ops.cuda import build
+    from gat_pytorch_tpu_torch.ops.cuda import segment_sum as ss
+    assert {"v5_backward_parts", "window_backward_parts",
+            "segment_sum_sorted"} <= set(build.LAUNCHES)
+    before = dict(build.LAUNCHES)
+    ids = torch.tensor([0, 0, 2, 5], dtype=torch.int32)
+    vals = torch.arange(8, dtype=torch.float32).reshape(4, 2)
+    out = ss.segment_sum_sorted(vals, ids, 4)       # id 5 is dropped
+    assert torch.equal(out, torch.tensor([[2., 4.], [0., 0.], [4., 5.],
+                                          [0., 0.]]))
+    table = torch.ones((4, 2), requires_grad=True)
+    seg.gather_rows_sorted_grad(table, ids[:3], 4).sum().backward()
+    assert torch.equal(table.grad[:, 0], torch.tensor([2., 0., 1., 0.]))
+    assert build.LAUNCHES == before
 
 
 def test_table_op_wrapper_launches_or_raises_on_a_cuda_tensor():

@@ -12,12 +12,18 @@ training loss for every parameter must agree to rtol 1e-4 / atol 1e-5
   * on a banded graph that carries a block layout, the port's "v7" path
     against gat_model_apply(backend="pallas", force_windowed=True) in
     interpret mode with float32 contractions;
+  * on a community graph in cluster order with the hybrid layout, the
+    port's "v7_hybrid" path against the JAX hybrid branch with its
+    remainder sent through v5_sweep1_parts
+    (GAT_TPU_HYBRID_REM_XLA_MAX=0), and against the JAX "xla" path;
   * with paper_faithful or const_attention, and on a graph without
     src_order, the port's "v4_table" path against the JAX "pallas" path
     (its v4 table op, interpret mode) and the "xla" path; also a 3-layer
     PPI-shaped model (skip on layer 2, widths 4x16, 4x16, 6x11, BCE loss).
 The Adam update is compared on its own, from identical gradients.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -33,10 +39,14 @@ from gat_pytorch_tpu.train.tasks import planetoid_task as jtask
 from gat_pytorch_tpu.train.tasks import ppi_task as jppi_task
 from gat_pytorch_tpu_torch.graph import transforms as TT
 from gat_pytorch_tpu_torch.models import gat as tgat
+from gat_pytorch_tpu_torch.ops.cuda import v5_attention as tv5
+from gat_pytorch_tpu_torch.ops.cuda import window_attention as tw
 from gat_pytorch_tpu_torch.train import optim as topt
 from gat_pytorch_tpu_torch.train.tasks import planetoid_task as ttask
 from gat_pytorch_tpu_torch.train.tasks import ppi_task as tppi_task
 from gat_pytorch_tpu_torch.utils.convert import params_from_jax
+
+from .test_torch_layout import clustered
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -220,15 +230,125 @@ def test_segment_path_matches_jax_xla(extra):
     assert_same(jlogits, jgrads, tlogits, tparams)
 
 
-@pytest.mark.parametrize("extra", [{"hybrid": True}, {"reorder": "cluster"}])
+@pytest.mark.parametrize("extra", [{"backend": "naive"}, {"training": True}])
 def test_kernel_path_refuses_unported_modes(extra):
-    """paper_faithful and const_attention run on the kernel path now (the
-    tests below); what the kernel path still lacks is the split-locality
-    layout, refused where the graph is built."""
-    arr = make_graph_arrays(7)
-    args = (arr.pop("x"), arr.pop("senders"), arr.pop("receivers"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.canonicalize(*args, **arr, src_windows=True, **extra)
+    """paper_faithful, const_attention and the hybrid layout run on the
+    kernel path now (the tests around this one); what the model still
+    refuses is a layer path it does not have (the JAX package's "naive"
+    oracle) and dropout without a generator."""
+    _, tcfg, _, tg, _, tparams = build("cora")
+    cfg = tgat.GATConfig(**dict(CONFIGS["cora"], num_input_node_features=32,
+                                num_layers=2, dropout=0.5))
+    with pytest.raises(ValueError, match="backend|generator"):
+        tgat.gat_model_apply(tparams, cfg, tg, device="cpu", **extra)
+
+
+def build_hybrid(seed=4, n=900, dropout=0.0):
+    """The 2-layer model of tests/test_hybrid_layout.py (2 heads x 8
+    concatenated, 2 x 4 mean-folded with a skip projection) on its small
+    SBM (12 features), in cluster order with the hybrid layout."""
+    kw = dict(num_input_node_features=12, num_layers=2,
+              num_heads_per_layer=[2, 2], heads_concat_per_layer=[True, False],
+              head_output_features_per_layer=[12, 8, 4], num_classes=4,
+              add_skip_connection=[False, True], dropout=dropout)
+    jcfg, tcfg = jgat.GATConfig(**kw), tgat.GATConfig(**kw)
+    x, send, recv = clustered(seed, n=n)
+    rng = np.random.default_rng(seed)
+    gkw = dict(y=rng.integers(0, 4, n), train_mask=rng.random(n) < 0.3,
+               reorder="cluster", src_windows=True, hybrid=True)
+    jg = JT.canonicalize(x, send, recv, **gkw)
+    tg = TT.canonicalize(x, send, recv, **gkw)
+    jparams = jgat.init_gat_model(jax.random.key(3), jcfg)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
+    return jcfg, tcfg, jg, tg, jparams, tparams
+
+
+@pytest.mark.parametrize("jbackend", ["pallas", "xla"])
+def test_hybrid_path_matches_jax(jbackend, monkeypatch):
+    monkeypatch.setenv("GAT_TPU_V6", "1")
+    monkeypatch.setenv("GAT_TPU_V6_DTYPE", "float32")
+    # the JAX package's remainder through its v5 parts kernel too
+    monkeypatch.setenv("GAT_TPU_HYBRID_REM_XLA_MAX", "0")
+    jcfg, tcfg, jg, tg, jparams, tparams = build_hybrid()
+    assert tg.block_layout.rem_e > 0
+    jgat.PATH_TRACE.clear()
+    jlogits, jgrads = jax_loss_and_grads(jcfg, jg, jparams, jbackend)
+    assert jgat.PATH_TRACE == [
+        "v7_hybrid" if jbackend == "pallas" else "xla"] * 2
+    tgat.PATH_TRACE.clear()
+    tlogits = torch_loss_and_grads(tcfg, tg, tparams, "kernel")
+    assert tgat.PATH_TRACE == ["v7_hybrid", "v7_hybrid"]
+    assert tlogits.shape == (tg.num_nodes, tcfg.num_classes)
+    assert_same(jlogits, jgrads, tlogits, tparams)
+
+
+def test_hybrid_path_matches_the_other_paths_and_ignores_the_layout_on_v4():
+    """One hybrid graph, the port's routes: hybrid, windowed-free v5 (no
+    layout), segment; paper_faithful goes on ignoring the layout."""
+    _, tcfg, _, tg, _, tparams = build_hybrid(seed=5)
+    results = []
+    for graph, backend, path in (
+            (tg, "kernel", "v7_hybrid"),
+            (tg.replace(block_layout=None), "kernel", "v5"),
+            (tg, "segment", "segment")):
+        for p in tgat.parameters(tparams):
+            p.grad = None
+        tgat.PATH_TRACE.clear()
+        logits = torch_loss_and_grads(tcfg, graph, tparams, backend)
+        assert tgat.PATH_TRACE == [path, path]
+        results.append((logits, [p.grad.clone().numpy()
+                                 for p in tgat.parameters(tparams)]))
+    for logits, grads in results[1:]:
+        np.testing.assert_allclose(results[0][0], logits, **TOL)
+        for a, b in zip(results[0][1], grads):
+            np.testing.assert_allclose(a, b, **TOL)
+    pf = dataclasses.replace(tcfg, paper_faithful=True)
+    pf_params = tgat.init_gat_model(pf, seed=1, device="cpu")
+    tgat.PATH_TRACE.clear()
+    tgat.gat_model_apply(pf_params, pf, tg, device="cpu")
+    assert tgat.PATH_TRACE == ["v4_table", "v4_table"]
+
+
+def test_hybrid_dropout_masks_are_drawn_layout_first():
+    """With attention dropout on, the hybrid branch draws the layout's
+    (E7, nh) mask, then the remainder's (rem_E, nh), from the one
+    generator, after the layer's input dropout: replaying the generator
+    by hand and handing both masks to the parts ops gives the layer's
+    output bit for bit."""
+    _, _, _, tg, _, tparams = build_hybrid(seed=6)
+    bl, nh, f, n = tg.block_layout, 2, 8, tg.num_nodes
+    lc = tgat.GATLayerConfig(in_features=12, out_features=f, num_heads=nh,
+                             concat=True, dropout=0.5)
+    params = {k: v.detach() for k, v in tparams["layers"][0].items()}
+
+    gen = torch.Generator().manual_seed(9)
+    got = tgat.gat_layer_apply(
+        params, lc, tg.x, tg.senders, tg.receivers, tg.edge_mask, n,
+        num_real_edges=tg.num_real_edges, src_order=tg.src_order,
+        block_layout=bl, generator=gen, training=True)
+
+    gen = torch.Generator().manual_seed(9)
+    masks = [(torch.rand((slots, nh), generator=gen) >= 0.5).float() / 0.5
+             for slots in (bl.num_slots, bl.rem_send.shape[0])]
+    h = tg.x @ params["W"]
+    a_src, a_dst = tgat._split_attention_map(params["a"], nh, f)
+    s_both = h @ torch.cat([a_src, a_dst], dim=1)
+    s_eff = s_both[:, nh:] - (s_both[:, :nh].max() + s_both[:, nh:].max())
+    num1, den1, cap1, _ = tw.v7_sweep1_parts(h, a_src, s_eff, masks[0], bl,
+                                             n, nh, f)
+    num2, den2, cap2, _ = tv5.v5_sweep1_parts(
+        h, a_src, s_eff, masks[1], bl.rem_send, bl.rem_recv, bl.rem_order,
+        bl.rem_e, n, nh, f)
+    want, _ = tv5.normalise(num1 + num2, den1 + den2,
+                            torch.maximum(cap1, cap2), 1e-8, lc.slope, nh)
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+    # the other order of the two draws gives another output
+    swapped, _ = tv5.normalise(
+        tw.v7_sweep1_parts(h, a_src, s_eff, masks[0].flip(0), bl, n, nh,
+                           f)[0] + num2, den1 + den2,
+        torch.maximum(cap1, cap2), 1e-8, lc.slope, nh)
+    assert not torch.allclose(got, swapped)
 
 
 @pytest.mark.parametrize("jbackend", ["pallas", "xla"])

@@ -1,8 +1,11 @@
-"""The port's plain segment ops and its d(h) reduction against the JAX
-package: gat_pytorch_tpu.ops.segment, and segment_sum_pallas_rows in
-interpret mode for the sorted row segment sum (tolerance 1e-6: float32
-sums of a few terms, taken in another order)."""
+"""The port's plain segment ops, its d(h) reduction and its sorted segment
+sum against the JAX package: gat_pytorch_tpu.ops.segment, and
+segment_sum_pallas_rows and segment_sum_pallas in interpret mode for the
+sorted sums (tolerance 1e-6: float32 sums of a few terms, taken in
+another order); the sorted-gradient gather against gather_rows_sorted_grad
+in value and gradient."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,3 +96,70 @@ def test_dh_reduce_matches_pallas():
     got = tss.dh_reduce(torch.tensor(rows[:e]), torch.tensor(order),
                         torch.tensor(send), n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 24, 64])
+def test_segment_sum_sorted_matches_pallas(d):
+    """Every width, not only multiples of the lane count; empty segments
+    and ids >= num_segments (dropped) included."""
+    rng = np.random.default_rng(5)
+    n, e = 200, 1300
+    ids = np.sort(np.concatenate([rng.integers(0, n - 40, e),
+                                  np.full(20, n)])).astype(np.int32)
+    vals = rng.normal(size=(ids.shape[0], d)).astype(np.float32)
+    want = jss.segment_sum_pallas(jnp.asarray(vals), jnp.asarray(ids), n,
+                                  interpret=True)
+    got = tss.segment_sum_sorted(torch.tensor(vals), torch.tensor(ids), n)
+    assert got.shape == (n, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.all(got.numpy()[n - 40:] == 0.0)
+
+
+@pytest.mark.parametrize("with_order", [False, True])
+def test_gather_rows_sorted_grad_matches_jax(with_order):
+    """Value and gradient: sorted indices (the receivers) without `order`,
+    unsorted ones (the senders) through their stable sort."""
+    rng = np.random.default_rng(6)
+    n, e, d = 120, 900, 4
+    idx = rng.integers(0, n, e).astype(np.int32)
+    order = None
+    if with_order:
+        order = np.argsort(idx, kind="stable").astype(np.int32)
+    else:
+        idx = np.sort(idx)
+    table = rng.normal(size=(n, d)).astype(np.float32)
+    weight = rng.normal(size=(e, d)).astype(np.float32)
+
+    def jloss(t):
+        rows = jseg.gather_rows_sorted_grad(
+            t, jnp.asarray(idx), n,
+            None if order is None else jnp.asarray(order))
+        return jnp.sum(jnp.sin(rows) * weight), rows
+
+    (_, jrows), jgrad = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(table))
+    t = torch.tensor(table, requires_grad=True)
+    rows = tseg.gather_rows_sorted_grad(
+        t, torch.tensor(idx), n,
+        None if order is None else torch.tensor(order))
+    (torch.sin(rows) * torch.tensor(weight)).sum().backward()
+    np.testing.assert_array_equal(rows.detach().numpy(), np.asarray(jrows))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgrad), rtol=1e-5,
+                               atol=1e-5)
+    # the same gradient as the plain gather's
+    t2 = torch.tensor(table, requires_grad=True)
+    (torch.sin(tseg.gather_rows(t2, torch.tensor(idx)))
+     * torch.tensor(weight)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), t2.grad.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="num_segments"):
+        tseg.gather_rows_sorted_grad(t, torch.tensor(idx), n + 1)
+
+
+def test_segment_mean_matches_jax():
+    rng, recv = _edges(7, 40, 200)
+    vals = rng.normal(size=(recv.shape[0], 3)).astype(np.float32)
+    got = tseg.segment_mean(torch.tensor(vals), torch.tensor(recv), 48)
+    want = jseg.segment_mean(jnp.asarray(vals), jnp.asarray(recv), 48)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.all(got.numpy()[41:] == 0.0)          # empty segments
