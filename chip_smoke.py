@@ -5,8 +5,8 @@
 
     python3 chip_smoke.py --checks-only    (phases 1-2, then stop)
 
-Six paths, each at the full width and depth of its configuration on the
-synthetic stand-in of its dataset:
+Six paths, and three 2-phase forms, each at the full width and depth of
+its configuration on the synthetic stand-in of its dataset:
   Cora    `cli.train --dataset Cora`: the v5 attention op (kernels
           v5_forward, v5_backward, segment_sum_rows);
   Pubmed  `cli.train --dataset Pubmed --reorder rcm`: RCM reorder, block
@@ -25,7 +25,16 @@ synthetic stand-in of its dataset:
           backward by segment_sum_sorted;
   PPI     `cli.train --dataset PPI`: the v5 op at the same widths;
   PATTERN `cli.train --dataset PATTERN`: 4 layers with skip projections,
-          batches of eight graphs, the plateau schedule, the v5 op.
+          batches of eight graphs, the plateau schedule, the v5 op;
+  under the JAX package's 2-phase knobs (set around each fit, CELL_ENV):
+  Cora two-phase (GAT_TPU_V10=0) and Cora unmerged (GAT_TPU_V5_MERGED=0)
+          the v5 op's 2-phase form (kernels v5_cap, v5_forward_two_phase,
+          v5_backward_two_phase, segment_sum_rows);
+  Pubmed two-phase (GAT_TPU_V10=0, RCM): the windowed op's 2-phase form
+          (window_cap, window_forward_two_phase,
+          window_backward_two_phase, segment_sum_rows);
+  Pubmed cluster two-phase (GAT_TPU_V10=0, cluster order): the v6 form,
+          the v5 2-phase kernels over the graph's own edges.
 
 Phases (every failure is fatal):
   1. build the CUDA kernels from gat_pytorch_tpu_torch/ops/cuda/csrc
@@ -47,6 +56,12 @@ Phases (every failure is fatal):
      v5 parts op with more source rows than destinations); the sorted
      segment sum at widths 4 and 6 (PPI, by receiver and by sender) and
      8, 24, 64, 1024 (Pubmed), and the sorted-gradient gather built on it;
+     the 2-phase entries (cap pass, forward, backward with d(cap)) at
+     the Cora, PPI and PATTERN shapes, on the RCM layout and on the
+     cluster-ordered edge list, at the cap, above and below it, eps =
+     1e-8 and 1, with and without dropout, each launched twice; and
+     fused_gat_table with v5_local_cap on more source rows than
+     destinations;
   3. train each stand-in for the epochs of CELLS through the port's
      Trainer (the code the CLI runs), with every launch counter set to 0
      just before and read just after; the train loss must be finite and
@@ -55,13 +70,16 @@ Phases (every failure is fatal):
   4. hold the trained model's logits and gradients on the kernel path
      against the plain segment-op path on the card (Pubmed: the windowed
      path also against the v5 kernel path on the same reordered graph
-     without its block layout);
+     without its block layout; a 2-phase model also against the
+     single-sweep kernel path);
      then two PPI paper_faithful fits and two hybrid Pubmed fits of a
      few epochs, each pair from one seed, must give the same bits in
      every epoch's losses and in every parameter;
   5. time each kernel (CUDA graph replays), its plain version and, where
      one PyTorch call computes the same function, that call; time the
-     train step on each path and profile a short window of steps; time
+     train step on each path (a 2-phase fit's beside the single-sweep
+     step of the same model and graph) and profile a short window of
+     steps; time
      the table op against the v5 op on one PATTERN batch, and the hybrid
      step with its remainder through plain segment ops;
   6. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
@@ -77,6 +95,7 @@ import subprocess
 import sys
 import time
 import types
+from unittest import mock
 
 SHAPES = {"Cora": ((8, 8), (1, 7)),      # (heads, features) per layer
           "Pubmed": ((8, 8), (8, 3)),
@@ -97,7 +116,19 @@ CELLS = {
                            3),
     "PPI": ("PPI", {}, 10, "v5", 3),
     "PATTERN": ("PATTERN", {}, 5, "v5", 4),
+    # the 2-phase forms, under the JAX package's knobs (CELL_ENV); the
+    # layer path's PATH_TRACE name is the first word
+    "Cora two-phase": ("Cora", {}, 50, "v5 2-phase", 2),
+    "Cora unmerged": ("Cora", {}, 10, "v5 2-phase", 2),
+    "Pubmed two-phase": ("Pubmed", {"reorder": "rcm"}, 50, "v7 2-phase", 2),
+    "Pubmed cluster two-phase": ("Pubmed", {"reorder": "cluster"}, 20, "v6",
+                                 2),
 }
+# the environment each fit runs under, set and restored around it
+CELL_ENV = {"Cora two-phase": {"GAT_TPU_V10": "0"},
+            "Cora unmerged": {"GAT_TPU_V5_MERGED": "0"},
+            "Pubmed two-phase": {"GAT_TPU_V10": "0"},
+            "Pubmed cluster two-phase": {"GAT_TPU_V10": "0"}}
 # per path: the kernels of a layer's forward, and of its backward (each
 # launched once per layer unless a count says otherwise). The table path's
 # two sorted sums are the gradients of its logits' score gathers (by
@@ -112,6 +143,13 @@ PATH_KERNELS = {
     "v7_hybrid": (("window_forward", "v5_forward"),
                   {"window_backward_parts": 1, "v5_backward_parts": 1,
                    "segment_sum_rows": 2}),
+    # v5_cap and window_cap each launch the cap kernel and its reduce
+    "v5 2-phase": (("v5_cap", "v5_forward_two_phase"),
+                   {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
+    "v7 2-phase": (("window_cap", "window_forward_two_phase"),
+                   {"window_backward_two_phase": 1, "segment_sum_rows": 1}),
+    "v6": (("v5_cap", "v5_forward_two_phase"),
+           {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
 }
 REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5}
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
@@ -135,6 +173,17 @@ REPLACES = {
     "v5_backward_parts": _PALLAS + "segment_attention_bwd.py:537",
     "window_backward_parts": _PALLAS + "segment_attention_window.py:923",
     "segment_sum_sorted": _PALLAS + "segment_sum.py:30",
+    # the 2-phase forms: the cap pre-pass, the explicit-cap forward (also
+    # the merged _kernel_v5_auto's 2-phase mode, :1265), and the
+    # backward's sweep1=False mode; the windowed kernels' phase 0, phase
+    # 1 and backward in their 2-phase mode
+    "v5_cap": _PALLAS + "segment_attention.py:1117",
+    "v5_forward_two_phase": _PALLAS + "segment_attention.py:809",
+    "v5_backward_two_phase": _PALLAS + "segment_attention_bwd.py:537",
+    "window_cap": _PALLAS + "segment_attention_window.py:163",
+    "window_forward_two_phase": _PALLAS + "segment_attention_window.py:163",
+    "window_backward_two_phase": (_PALLAS
+                                  + "segment_attention_window.py:923"),
 }
 SOURCES = {
     "v5_forward": _CSRC + "v5_attention.cu",
@@ -147,6 +196,12 @@ SOURCES = {
     "v5_backward_parts": _CSRC + "v5_attention.cu",
     "window_backward_parts": _CSRC + "window_attention.cu",
     "segment_sum_sorted": _CSRC + "segment_sum.cu",
+    "v5_cap": _CSRC + "v5_attention.cu",
+    "v5_forward_two_phase": _CSRC + "v5_attention.cu",
+    "v5_backward_two_phase": _CSRC + "v5_attention.cu",
+    "window_cap": _CSRC + "window_attention.cu",
+    "window_forward_two_phase": _CSRC + "window_attention.cu",
+    "window_backward_two_phase": _CSRC + "window_attention.cu",
 }
 BWD_NAMES = ("d_h_rows", "d_drop", "d_s_dst", "d_a_src")
 TABLE_BWD_NAMES = ("d_h_rows", "d_logits", "d_drop")
@@ -167,6 +222,12 @@ def launches_per_epoch(path, layers, train_batches, val_batches):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def knobs(env):
+    """The environment variables of `env` set for a `with` block and
+    restored after it, on any exit."""
+    return mock.patch.dict(os.environ, env)
 
 
 def max_err(got, want, floor=1.0):
@@ -342,6 +403,98 @@ def main():
                     (x is not None and not torch.equal(x, y)):
                 fail(f"{name}: two launches on the same inputs differ")
 
+    # -- 2-phase entries: one checker for the v5 and the window forms ------
+    def v5_two_phase_entries(graph):
+        """(cap, plain cap, forward, plain forward, backward, plain
+        backward) of the v5 2-phase entries bound to `graph`'s edges."""
+        ga = (graph.senders, graph.receivers, graph.num_real_edges)
+        return (lambda h, a, s: v5.v5_cap(h, a, s, *ga),
+                lambda h, a, s: v5.v5_cap_plain(h, a, s, *ga),
+                lambda h, a, s, c, m, *r: v5.v5_forward_two_phase(
+                    h, a, s, c, m, *ga, *r),
+                lambda h, a, s, c, m, *r: v5.v5_forward_two_phase_plain(
+                    h, a, s, c, m, *ga, *r),
+                lambda h, a, s, c, m, *r: v5.v5_backward_two_phase(
+                    h, a, s, c, m, *ga, *r),
+                lambda h, a, s, c, m, *r: v5.v5_backward_two_phase_plain(
+                    h, a, s, c, m, *ga, *r))
+
+    def window_two_phase_entries(layout):
+        return (lambda h, a, s: wa.window_cap(h, a, s, layout),
+                lambda h, a, s: wa.window_cap_plain(h, a, s, layout),
+                lambda h, a, s, c, m, *r: wa.window_forward_two_phase(
+                    h, a, s, c, m, layout, *r),
+                lambda h, a, s, c, m, *r: wa.window_forward_two_phase_plain(
+                    h, a, s, c, m, layout, *r),
+                lambda h, a, s, c, m, *r: wa.window_backward_two_phase(
+                    h, a, s, c, m, layout, *r),
+                lambda h, a, s, c, m, *r: wa.window_backward_two_phase_plain(
+                    h, a, s, c, m, layout, *r))
+
+    def check_two_phase(label, entries, keys, n_, nh, f, slots, real=None):
+        """The three 2-phase entries of one op at one layer shape, each
+        against its plain version and launched twice. The forward and the
+        backward run at the cap (the kernel's own beside the plain
+        version's own: each takes the slope at its argmax, where
+        pre == 0), 0.25 above it (every logit on LeakyReLU's negative
+        branch) and 0.37 below it (the top ones on the positive branch),
+        at eps = 1e-8 and 1, with and without the dropout mask; d(cap) at
+        eps = 1 at the size of the sum it is (below). real: the slots
+        whose d(h) rows
+        the kernel writes (all where None). Returns the inputs of the
+        timings: the cap, with dropout, eps = 1e-8."""
+        cap_k, cap_p, fwd_k, fwd_p, bwd_k, bwd_p = entries
+        kcap, kfwd, kbwd = keys
+        h, a_src, s_dst, drop, g = op_inputs(torch, gen, n_, nh, f, slots,
+                                             dev)
+        cap_args = (h, a_src, s_dst)
+        got, want = cap_k(*cap_args), cap_p(*cap_args)
+        hold_all(f"{kcap} {label}", ("cap",), got[:1], want[:1], kcap)
+        if int(got[1]) != int(want[1]):
+            fail(f"{kcap}: argmax code {int(got[1])} != plain {int(want[1])}")
+        same_bits(kcap, got, cap_k(*cap_args))
+        case = None
+        for mask in (drop, None):
+            tag = " no dropout" if mask is None else ""
+            for where, ck, cp in (("at the cap", got[0], want[0]),
+                                  ("cap + 0.25", got[0] + 0.25,
+                                   got[0] + 0.25),
+                                  ("cap - 0.37", got[0] - 0.37,
+                                   got[0] - 0.37)):
+                for eps in (1e-8, 1.0):
+                    name = f"{label}{tag} {where} eps={eps:g}"
+                    fk = (h, a_src, s_dst, ck, mask, eps, SLOPE)
+                    fp = (h, a_src, s_dst, cp, mask, eps, SLOPE)
+                    out_k = fwd_k(*fk)
+                    out, den = fwd_p(*fp)
+                    hold_all(f"{kfwd} {name}", ("out", "den"), out_k,
+                             (out, den), kfwd)
+                    same_bits(f"{kfwd} {name}", out_k, fwd_k(*fk))
+                    co = (g, out, den, mask is not None)
+                    gk, gp = list(bwd_k(*fk, *co)), list(bwd_p(*fp, *co))
+                    again = list(bwd_k(*fk, *co))
+                    if real is not None:
+                        gk[0], gp[0], again[0] = (gk[0][real], gp[0][real],
+                                                  again[0][real])
+                    same_bits(f"{kbwd} {name}", gk, again)
+                    keep = [i for i in range(4) if gp[i] is not None]
+                    hold_all(f"{kbwd} {name}", [BWD_NAMES[i] for i in keep],
+                             [gk[i] for i in keep], [gp[i] for i in keep],
+                             kbwd, 1.0 if eps < 1.0 else 0.0)
+                    # d(cap) = -sum d(s_dst). At eps = 1 each
+                    # destination's part is slope * (g . out) / (den + 1)
+                    # and they do not cancel: hold it at the size such a
+                    # sum has when the parts' signs vary, |d(s_dst)|_2,
+                    # or its own if larger. At eps = 1e-8 the parts
+                    # cancel within a destination (d(cap) ~ 1e-8): at 1.
+                    hold_all(f"{kbwd} {name}", ("d_cap",), gk[4:], gp[4:],
+                             kbwd, float(gp[2].norm()) if eps == 1.0
+                             else 1.0)
+                    if case is None:
+                        case = dict(nh=nh, f=f, drop=True, cap_args=cap_args,
+                                    fwd_args=fk, bwd_args=fk + co)
+        return case
+
     # -- 2a. the v5 kernels and the reduce against their plain versions -----
     def check_v5(graph, nh, f, with_drop):
         """The v5 kernels and the d(h) reduce at one layer shape on
@@ -401,10 +554,45 @@ def main():
     snd, rcv, order = cora.senders, cora.receivers, cora.src_order
     print(f"[graph] Cora stand-in: {n} nodes (padded), {e} edges "
           f"(padded), {e_real} real")
-    cora_cases = []
+    V5_TWO = ("v5_cap", "v5_forward_two_phase", "v5_backward_two_phase")
+    cora_cases, cora_two = [], []
     for nh, f in SHAPES["Cora"]:
         print(f"[kernels] Cora layer shape {nh}x{f}")
         cora_cases.append(check_v5(cora, nh, f, with_drop=True))
+        print(f"[kernels] Cora layer shape {nh}x{f}, 2-phase")
+        cora_two.append(check_two_phase(
+            f"Cora {nh}x{f}", v5_two_phase_entries(cora), V5_TWO, n, nh, f,
+            e))
+    # fused_gat_table and v5_local_cap take an h table of more rows than
+    # destinations: 256 rows put in front of the table and every sender
+    # moved up by 256 give the bits of the square call
+    c2 = cora_two[0]
+    h, a_src, s_dst, cap, drop = c2["fwd_args"][:5]
+    nh, f, shift = c2["nh"], c2["f"], 256
+    w_out = torch.randn((n, nh * f), generator=gen, device=dev)
+
+    def table_grads(table, senders, n_src):
+        order_ = torch.argsort(senders, stable=True).to(torch.int32)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (table, a_src, s_dst)]
+        cap_ = v5.v5_local_cap(*leaves, senders, rcv, e_real, n, nh, f)
+        out = v5.fused_gat_table(*leaves, cap_, drop, senders, rcv, order_,
+                                 e_real, n, nh, f, 1.0, SLOPE, n_src)
+        (out * w_out).sum().backward()
+        return [out.detach(), cap_.detach()] + [t.grad for t in leaves]
+
+    narrow = table_grads(h, snd, None)
+    wide = table_grads(torch.cat([torch.zeros((shift, nh * f), device=dev),
+                                  h]), snd + shift, n + shift)
+    if wide[2].shape[0] != n + shift or bool(wide[2][:shift].any()):
+        fail("fused_gat_table: d(h) of a wider source table has the wrong "
+             "rows")
+    wide[2] = wide[2][shift:]
+    same_bits("fused_gat_table with more source rows than destinations",
+              narrow, wide)
+    print(f"[kernels] v5_local_cap and fused_gat_table on Cora with "
+          f"{n + shift} source rows for {n} destinations: the bits of the "
+          f"square call")
 
     # -- 2b. the Pubmed path's kernels against their plain versions --------
     t0 = time.time()
@@ -498,6 +686,14 @@ def main():
     pubmed_cases = check_window(bl, np_, SHAPES["Pubmed"], "Pubmed")
     real = (bl.recv >= 0).nonzero().squeeze(1)
     src_ids = bl.send[bl.src_perm.long()]
+    W_TWO = ("window_cap", "window_forward_two_phase",
+             "window_backward_two_phase")
+    pubmed_two = []
+    for nh, f in SHAPES["Pubmed"]:
+        print(f"[kernels] Pubmed layer shape {nh}x{f}, 2-phase")
+        pubmed_two.append(check_two_phase(
+            f"Pubmed {nh}x{f}", window_two_phase_entries(bl), W_TWO, np_, nh,
+            f, e7, real))
 
     # -- 2b'. the hybrid layout of the cluster-ordered Pubmed stand-in ------
     t0 = time.time()
@@ -528,10 +724,17 @@ def main():
         num_nodes=hybrid.num_nodes, num_edges=rem_pad,
         num_real_edges=hb.rem_e, senders=hb.rem_send, receivers=hb.rem_recv,
         src_order=hb.rem_order)
-    rem_cases = []
+    rem_cases, hybrid_two = [], []
     for nh, f in SHAPES["Pubmed"]:
         print(f"[kernels] Pubmed hybrid remainder layer shape {nh}x{f}")
         rem_cases.append(check_v5(remainder, nh, f, with_drop=True))
+        # the v6 form under GAT_TPU_V10=0: the v5 2-phase entries over
+        # the cluster-ordered graph's own edges
+        print(f"[kernels] Pubmed cluster-ordered graph layer shape {nh}x{f}, "
+              f"2-phase (the v6 form)")
+        hybrid_two.append(check_two_phase(
+            f"Pubmed cluster {nh}x{f}", v5_two_phase_entries(hybrid), V5_TWO,
+            hybrid.num_nodes, nh, f, hybrid.num_edges))
     # the layout's own offsets give the bits of the per-call ones, and the
     # parts op takes an h table with more rows than destinations: 256 rows
     # put in front of the table and every sender moved up by 256
@@ -678,6 +881,9 @@ def main():
               f"max-subtracted logits at eps = 0, v5 kernels, no dropout")
         ppi_table_cases.append(check_table(ppi, nh, f, 0.0, True, False))
         ppi_v5_cases.append(check_v5(ppi, nh, f, with_drop=False))
+        print(f"[kernels] PPI layer shape {nh}x{f}, 2-phase")
+        check_two_phase(f"PPI {nh}x{f}", v5_two_phase_entries(ppi), V5_TWO,
+                        ppi.num_nodes, nh, f, ppi.num_edges)
     # the sorted segment sum where the main path launches it: the
     # gradients of the table path's two score gathers, (E, nh) rows summed
     # by receiver and, through src_order, by sender
@@ -727,6 +933,9 @@ def main():
         pattern_table_cases.append(check_table(pattern, nh, f, 1e-8, False,
                                                False))
         pattern_v5_cases.append(check_v5(pattern, nh, f, with_drop=False))
+        print(f"[kernels] PATTERN layer shape {nh}x{f}, 2-phase")
+        check_two_phase(f"PATTERN {nh}x{f}", v5_two_phase_entries(pattern),
+                        V5_TWO, pattern.num_nodes, nh, f, pattern.num_edges)
 
     if "--checks-only" in sys.argv[1:]:
         print("chip_smoke: --checks-only: every kernel built and held "
@@ -766,11 +975,14 @@ def main():
     for name, (dataset, overrides, max_epochs, path, layers) in CELLS.items():
         cfg, trainer, train_data, val_data, reshuffle = make_trainer(
             dataset, overrides, max_epochs)
+        env = CELL_ENV.get(name, {})
         gat.PATH_TRACE.clear()
         build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        result = trainer.fit_epochs(train_data, val_data, reshuffle=reshuffle)
+        with knobs(env):
+            result = trainer.fit_epochs(train_data, val_data,
+                                        reshuffle=reshuffle)
         torch.cuda.synchronize()
         wall = time.time() - t0
         ran = dict(build.LAUNCHES)
@@ -780,7 +992,8 @@ def main():
         losses = [r["train_loss"] for r in hist]
         val_key = next(k for k in hist[-1]
                        if k.startswith("val_") and k != "val_loss")
-        print(f"[train] {name}: {epochs} epochs of {len(train_data)} train "
+        print(f"[train] {name}{''.join(f' {k}={v}' for k, v in env.items())}"
+              f": {epochs} epochs of {len(train_data)} train "
               f"and {len(val_data)} validation batches in {wall:.3f} s "
               f"({wall / epochs * 1e3:.3f} ms/epoch incl. the host's "
               f"batching and the per-epoch metric sync); train_loss "
@@ -793,9 +1006,10 @@ def main():
         if not losses[-1] < losses[0]:
             fail(f"{name}: train loss did not fall")
         forwards = layers * (len(train_data) + len(val_data)) * epochs
-        if trace != {path} or len(gat.PATH_TRACE) != forwards:
+        traced = path.split()[0]
+        if trace != {traced} or len(gat.PATH_TRACE) != forwards:
             fail(f"{name}: layer paths {sorted(trace)} x "
-                 f"{len(gat.PATH_TRACE)}, expected {path} x {forwards}")
+                 f"{len(gat.PATH_TRACE)}, expected {traced} x {forwards}")
         per_epoch[name] = launches_per_epoch(path, layers, len(train_data),
                                              len(val_data))
         for k, per in per_epoch[name].items():
@@ -808,7 +1022,8 @@ def main():
         if reshuffle is not None:     # as cli.train: test batches of one graph
             test_data = loader.InductiveBatcher(
                 inductive[dataset][2], 1, shuffle=False).epoch()
-        metrics = trainer.evaluate(result.params, test_data)
+        with knobs(env):
+            metrics = trainer.evaluate(result.params, test_data)
         print(f"[train] {name}: best epoch {result.best_epoch}, best "
               f"val_loss {result.best_val_loss:.4f}, {metrics}")
         if not all(math.isfinite(v) for v in metrics.values()):
@@ -831,18 +1046,23 @@ def main():
         refs[name] = Trainer(cfg=cfg.gat_config(), task=trainer.task,
                              learning_rate=0.0, device="cuda",
                              backend="segment")
-        lk, gk = logits_and_grads(trainer, params, graph)
+        env = CELL_ENV.get(name, {})
+        with knobs(env):
+            lk, gk = logits_and_grads(trainer, params, graph)
         shape = ((graph.num_nodes,) if trainer.task.squeeze_output
                  else (graph.num_nodes, cfg.num_classes))
         if lk.shape != shape or not torch.isfinite(lk).all():
             fail(f"{name}: logits of shape {tuple(lk.shape)} or not finite")
-        others = [("segment", refs[name], graph)]
+        others = [("segment", refs[name], graph, {})]
+        if env:     # the same model on the single-sweep kernel path
+            others.append(("single-sweep kernel", trainer, graph, {}))
         if graph.block_layout is not None:
             others.append(("v5 kernel", trainer,
-                           graph.replace(block_layout=None)))
-        for label, other, other_graph in others:
+                           graph.replace(block_layout=None), env))
+        for label, other, other_graph, other_env in others:
             gat.PATH_TRACE.clear()
-            lo, go = logits_and_grads(other, params, other_graph)
+            with knobs(other_env):
+                lo, go = logits_and_grads(other, params, other_graph)
             print(f"[model] {name}: kernel path vs {label} path "
                   f"{gat.PATH_TRACE} on the card")
             model_errs = []
@@ -999,6 +1219,49 @@ def main():
         time_rows(f"Cora {c['nh']}x{c['f']}", v5_time_rows(cora, c),
                   into_json=V5_JSON)
 
+    def two_phase_time_rows(c, entries, keys, n_, slots, idx, real_edges,
+                            rows_out):
+        """The three 2-phase entries at one case of check_two_phase. idx:
+        the index words the op reads (v5: senders and receivers, window:
+        send, dst_perm and dst_ptr); rows_out: the d(h) rows written. The
+        cap pass reads the tables and the index, the forward also the
+        mask and the cap and writes out and den, the backward reads g,
+        out, den besides and writes d(h) rows, d(mask), d(s_dst),
+        d(a_src) and d(cap)."""
+        nh, d = c["nh"], c["nh"] * c["f"]
+        dm = slots * nh
+        base = n_ * d + d * nh + n_ * nh + idx
+        o_fwd, o_bwd = attention_ops(real_edges, d, nh)
+        ca, fa, ba = c["cap_args"], c["fwd_args"], c["bwd_args"]
+        cap_k, cap_p, fwd_k, fwd_p, bwd_k, bwd_p = entries
+        return {
+            keys[0]: (lambda: cap_k(*ca), lambda: cap_p(*ca), None,
+                      4 * (base + 2), real_edges * (2 * d * nh + 2 * nh)),
+            keys[1]: (lambda: fwd_k(*fa), lambda: fwd_p(*fa), None,
+                      4 * (base + dm + 1 + n_ * d + n_ * nh), o_fwd),
+            keys[2]: (lambda: bwd_k(*ba), lambda: bwd_p(*ba), None,
+                      4 * (base + dm + 1 + 2 * n_ * d + n_ * nh
+                           + rows_out * d + dm + n_ * nh + d * nh + 1),
+                      o_bwd),
+        }
+
+    for c in cora_two:
+        time_rows(f"Cora {c['nh']}x{c['f']} 2-phase", two_phase_time_rows(
+            c, v5_two_phase_entries(cora), V5_TWO, cora.num_nodes,
+            cora.num_edges, 2 * cora.num_edges, cora.num_real_edges,
+            cora.num_edges), into_json=True)
+    for c in pubmed_two:
+        time_rows(f"Pubmed {c['nh']}x{c['f']} 2-phase", two_phase_time_rows(
+            c, window_two_phase_entries(bl), W_TWO, np_, e7,
+            2 * e7 + np_ + 1, e7_real, e7_real), into_json=True)
+    for c in hybrid_two:
+        he = hybrid.num_edges
+        time_rows(f"Pubmed cluster {c['nh']}x{c['f']} 2-phase (the v6 form)",
+                  two_phase_time_rows(
+                      c, v5_two_phase_entries(hybrid), V5_TWO,
+                      hybrid.num_nodes, he, 2 * he, hybrid.num_real_edges,
+                      he), into_json=False)
+
     def window_time_rows(layout, n_, c):
         """The window kernels at one case of check_window. Inputs h,
         a_src, s_dst, drop, send, dst_perm, dst_ptr; the backward also g,
@@ -1136,26 +1399,36 @@ def main():
                 v5.v5_sweep1_parts = kernel_parts
         return run
 
+    def step_under(tr, gr, env, params, opt, dgen):
+        def step():
+            with knobs(env):
+                return tr.train_step(params, opt, gr, dgen)
+        return step
+
     for name, (cfg, trainer, params, graph) in fits.items():
         opt = torch.optim.Adam(gat.parameters(params), lr=0.0)
         dgen = trainer.dropout_generator()
-        routes = [("kernel path", trainer, graph),
-                  ("segment path", refs[name], graph)]
+        env = CELL_ENV.get(name, {})
+        routes = [("kernel path", trainer, graph, env),
+                  ("segment path", refs[name], graph, {})]
         if graph.block_layout is not None:
             routes.insert(1, ("v5 kernel path", trainer,
-                              graph.replace(block_layout=None)))
+                              graph.replace(block_layout=None), env))
+        if env:
+            # the same model and graph on the single-sweep kernel path
+            routes.insert(1, ("single-sweep kernel path", trainer, graph,
+                              {}))
         if name == "Pubmed cluster":
             # the same model on the RCM-ordered graph takes the windowed op
             routes.insert(1, ("v7 kernel path on the RCM-ordered graph",
-                              trainer, pubmed))
+                              trainer, pubmed, {}))
         if name == "PATTERN":
             # without src_order the same model takes the table op (and
             # sorts the senders itself in every backward)
             routes.insert(1, ("table kernel path", trainer,
-                              graph.replace(src_order=None)))
-        steps = [(label, (lambda tr=tr, gr=gr: tr.train_step(params, opt,
-                                                             gr, dgen)))
-                 for label, tr, gr in routes]
+                              graph.replace(src_order=None), {}))
+        steps = [(label, step_under(tr, gr, ev, params, opt, dgen))
+                 for label, tr, gr, ev in routes]
         if name == "Pubmed cluster":
             # what a gate on the remainder's size would be decided on
             steps.insert(1, ("hybrid with the remainder through plain "
@@ -1181,7 +1454,8 @@ def main():
               f"summed: v5 and segment_sum_rows Cora's, window Pubmed's, "
               f"table PPI's, the parts modes the hybrid Pubmed layout's and "
               f"its remainder's, segment_sum_sorted PPI's score widths by "
-              f"receiver); launches {launches[k]} over the "
+              f"receiver, the v5 2-phase entries Cora's, the window 2-phase "
+              f"entries Pubmed's); launches {launches[k]} over the "
               f"{len(per_epoch)} fits (per epoch: {per})")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],

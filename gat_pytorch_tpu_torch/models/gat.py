@@ -27,7 +27,14 @@ Two layer paths, chosen by `backend`:
             in-window edges plus the v5 parts op over the remainder
             ("v7_hybrid"), and any other the v5 op
             (ops/cuda/v5_attention.py, "v5"): the counterparts of the JAX
-            "pallas" v4, v7, hybrid and v5 branches. The JAX package also
+            "pallas" v4, v7, hybrid and v5 branches. GAT_TPU_V10=0 and
+            GAT_TPU_V5_MERGED=0 select the 2-phase (cap, then attention)
+            forms as in the JAX package (two_phase_modes): the v5 and v7
+            ops take their two_phase mode, and a hybrid layout, which
+            needs the single sweep, gives way to the v6 form
+            fused_gat_window over the graph's edges ("v6"). The JAX
+            package's GAT_TPU_V6 / force_windowed switch and its VMEM and
+            cost gates on v6 are not ported. The JAX package also
             gates v7 on models of the TPU's VMEM and MXU cost, v5 on 4096
             edges, the sorted-gradient gathers on 200,000 edges and the
             hybrid remainder's kernel on 65,536 edges (below, XLA segment
@@ -41,6 +48,7 @@ Two layer paths, chosen by `backend`:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -59,6 +67,16 @@ BACKENDS = ("kernel", "segment")
 # Which layer path each gat_layer_apply call took, one entry per call
 # (tests clear and read it, as the JAX package's PATH_TRACE).
 PATH_TRACE: List[str] = []
+
+
+def two_phase_modes() -> Tuple[bool, bool]:
+    """(v5 2-phase, v7 2-phase), read from the environment at call time
+    with the JAX package's defaults and meanings: the single-sweep forms
+    run unless GAT_TPU_V10=0, which turns both ops 2-phase, or
+    GAT_TPU_V5_MERGED=0, which turns the v5 op 2-phase."""
+    v10 = os.environ.get("GAT_TPU_V10", "1") != "0"
+    merged = os.environ.get("GAT_TPU_V5_MERGED", "1") != "0"
+    return not (v10 and merged), not v10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,6 +197,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                     num_real_edges: Optional[int] = None,
                     src_order: Optional[torch.Tensor] = None,
                     block_layout: Optional[BlockLayout] = None,
+                    tile_lo: Optional[torch.Tensor] = None,
+                    src_band: int = 0,
                     generator: Optional[torch.Generator] = None,
                     training: bool = False,
                     backend: str = "kernel") -> torch.Tensor:
@@ -187,7 +207,9 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     edge_mask.sum() (one host sync); Graph.num_real_edges avoids it.
     block_layout (Graph.block_layout) puts the kernel path on the windowed
     op, or on the hybrid of the windowed and the v5 parts ops where the
-    layout has a remainder; the table op and the segment path ignore it."""
+    layout has a remainder; the table op and the segment path ignore it.
+    tile_lo and src_band (Graph.tile_lo, Graph.src_band) size the v6
+    form's window arguments, as the JAX package derives them."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
     nh, f = cfg.num_heads, cfg.out_features
@@ -201,18 +223,47 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     if backend == "kernel" and not given_logits and (
             block_layout is not None or src_order is not None):
         a_src, a_dst = _split_attention_map(params["a"], nh, f)
+        v5_two, v7_two = two_phase_modes()
+        bl = block_layout
+        hybrid = bl is not None and bl.rem_send is not None
+        # the hybrid's parts add only in the single sweep: under 2-phase
+        # the graph's own edges take the v6 form, as in the JAX package
+        v6 = hybrid and v7_two
+        if v6:
+            bl = None
         # one product gives both score tables: s_dst for the op, s_src
-        # only for the score bound B (any bound >= max raw logit; it
-        # cancels algebraically in the op's epilogue, so no gradient)
+        # only for the single sweep's score bound B (any bound >= max raw
+        # logit; it cancels algebraically in the op's epilogue, so no
+        # gradient); the 2-phase forms take their cap in a pass instead
         s_both = h_flat @ torch.cat([a_src, a_dst], dim=1)
         s_dst = s_both[:, nh:]
-        bound = (s_both[:, :nh].max() + s_dst.max()).detach()
+        two = v5_two if bl is None else v7_two
+        bound = (None if two
+                 else (s_both[:, :nh].max() + s_dst.max()).detach())
+        e_real = None
+        if bl is None:
+            e_real = (int(edge_mask.sum()) if num_real_edges is None
+                      else num_real_edges)
         # the mask is drawn in the order of the op's edge list: the
         # layout's slots (E7, nh) or the dst-sorted edges (E, nh)
-        slots = e if block_layout is None else block_layout.num_slots
+        slots = e if bl is None else bl.num_slots
         drop = (_attention_dropout((slots, nh), cfg.dropout, generator,
                                    x.device) if dropping else None)
-        if block_layout is not None and block_layout.rem_send is not None:
+        if v6:
+            PATH_TRACE.append("v6")
+            n_rows8 = -(-num_nodes // 8) * 8
+            window, tl = n_rows8, tile_lo
+            if src_band > 0 and tile_lo is not None:
+                window = min(-(-src_band // 8) * 8, n_rows8)
+            if window == n_rows8 or tile_lo is None:
+                # the JAX package's whole-table-resident mode
+                tl = torch.zeros((-(-num_nodes // 128),), dtype=torch.int32,
+                                 device=x.device)
+            out = v7.fused_gat_window(
+                h_flat, a_src, s_dst, drop, senders, receivers, e_real, tl,
+                num_nodes, nh, f, window, 1e-8, cfg.slope,
+                src_order=src_order)
+        elif hybrid:
             # The split-locality layout: the windowed parts op over the
             # in-window edges, the v5 parts op over the remainder. num
             # and den add over any partition of the edges (both sum
@@ -222,7 +273,6 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             # normalises under autograd. The second mask, the remainder's
             # (rem_E, nh), is drawn after the layout's (E7, nh).
             PATH_TRACE.append("v7_hybrid")
-            bl = block_layout
             drop_rem = (_attention_dropout(
                 (bl.rem_send.shape[0], nh), cfg.dropout, generator, x.device)
                 if dropping else None)
@@ -240,24 +290,23 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             out, _ = v5.normalise(num1 + num2, den1 + den2,
                                   torch.maximum(cap1, cap2), 1e-8, cfg.slope,
                                   nh)
-        elif block_layout is not None:
+        elif bl is not None:
             # The JAX package takes v7 only where its VMEM and MXU-cost
             # gates pass and from 4096 edges; here every graph that
             # carries a block layout does.
             PATH_TRACE.append("v7")
             out = v7.fused_gat_window_v7(
-                h_flat, a_src, s_dst, drop, block_layout, bound, num_nodes,
-                nh, f, 1e-8, cfg.slope)
+                h_flat, a_src, s_dst, drop, bl, bound, num_nodes, nh, f,
+                1e-8, cfg.slope, two_phase=v7_two)
         else:
             # The JAX package takes v5 from 4096 edges and the table op
             # below that: a gate on the TPU's launch cost, not ported.
             # Every edge count runs v5 here.
             PATH_TRACE.append("v5")
-            e_real = (int(edge_mask.sum()) if num_real_edges is None
-                      else num_real_edges)
             out = v5.fused_gat_table_autocap(
                 h_flat, a_src, s_dst, drop, senders, receivers, src_order,
-                e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope)
+                e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope,
+                two_phase=v5_two)
         return _head_combine(out, cfg, num_nodes, params)
 
     if backend == "kernel" and src_order is None:
@@ -443,7 +492,8 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
             params["layers"][i], lc, x, graph.senders, graph.receivers,
             graph.edge_mask, graph.num_nodes,
             num_real_edges=graph.num_real_edges, src_order=graph.src_order,
-            block_layout=graph.block_layout, generator=generator,
+            block_layout=graph.block_layout, tile_lo=graph.tile_lo,
+            src_band=graph.src_band, generator=generator,
             training=training, backend=backend)
         if skip_dims[i] is not None:
             skip_p = params["skips"][skip_count]

@@ -43,7 +43,11 @@ LAUNCHES: Dict[str, int] = {"v5_forward": 0, "v5_backward": 0,
                             "window_backward": 0, "table_forward": 0,
                             "table_backward": 0, "v5_backward_parts": 0,
                             "window_backward_parts": 0,
-                            "segment_sum_sorted": 0}
+                            "segment_sum_sorted": 0, "v5_cap": 0,
+                            "v5_forward_two_phase": 0,
+                            "v5_backward_two_phase": 0, "window_cap": 0,
+                            "window_forward_two_phase": 0,
+                            "window_backward_two_phase": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -149,6 +153,13 @@ def require(t: torch.Tensor, name: str, device: torch.device,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def require_cpu(t: torch.Tensor) -> None:
+    """Raise unless `t` lies on the CPU: a kernel wrapper takes its plain
+    version there, and only there (a CUDA tensor launches the kernel)."""
+    if t.device.type != "cpu":
+        raise ValueError(f"no kernel for device {t.device}")
 
 
 def csr_offsets(sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

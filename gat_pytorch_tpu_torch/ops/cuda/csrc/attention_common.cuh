@@ -25,6 +25,48 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The source half of head k's raw logit, h[src] . a_src[:, k]: lane l
+// holds features l, l+32, ... of the sender's row in hv, sa is a_src
+// transposed, (nh, d_feat), in shared memory. Every kernel that needs a raw
+// logit (forward, cap pass, backward) takes it from here, so they all get
+// the same bits for the same edge: the 2-phase argmax edge then has
+// raw - cap == 0 exactly, where LeakyReLU's slope-at-0 convention decides
+// its gradient. WITH_Q: the backward's second dot in the same pass over
+// the lane's features, q = h[src] . g[dst] over head k's features (head
+// and gv are not read otherwise).
+template <int C, bool WITH_Q>
+__device__ __forceinline__ float head_dot(const float (&hv)[C],
+                                          const bool (&live)[C],
+                                          const int (&head)[C],
+                                          const float* sa, int k, int d_feat,
+                                          int lane, const float (&gv)[C],
+                                          float& q) {
+  float p = 0.f, r = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (!live[c]) continue;
+    p += hv[c] * sa[k * d_feat + lane + 32 * c];
+    if (WITH_Q && head[c] == k) r += hv[c] * gv[c];
+  }
+  if (WITH_Q) q = warp_sum(r);
+  return warp_sum(p);
+}
+
+// LeakyReLU as the 2-phase kernels apply it: the slope at x <= 0
+__device__ __forceinline__ float leaky(float x, float slope) {
+  return x > 0.f ? x : slope * x;
+}
+
+// The kernel modes. Forward: kSweep1 accumulates the unnormalised parts
+// with exp(slope * raw') and tracks the cap as it goes; kCap only tracks the
+// cap and its argmax code; kTwoPhase takes the cap from device memory and
+// writes the normalised output with exp(leaky(raw - cap)).
+// Backward: kNorm (the sweep-1 op's normalised epilogue, eps' read from
+// device memory), kParts (raw cotangents of the parts), kTwoPhase (the
+// 2-phase op: the full LeakyReLU, the plain eps, and a d(cap) output).
+enum class Fwd { kSweep1, kCap, kTwoPhase };
+enum class Bwd { kNorm, kParts, kTwoPhase };
+
 __device__ __forceinline__ float select_head(const float (&v)[kMaxHeads],
                                              int k) {
   float out = 0.f;

@@ -2,11 +2,18 @@
 //
 // Replaces the TPU kernels
 //   gat_pytorch_tpu/ops/pallas/segment_attention.py:_kernel_v5_auto
-//     (single-sweep "v10" mode, launched by _forward_v5_auto)
+//     (single-sweep "v10" mode, launched by _forward_v5_auto; and its
+//      merged 2-phase mode, served here by v5_cap then
+//      v5_forward_two_phase)
+//   gat_pytorch_tpu/ops/pallas/segment_attention.py:_kernel_v5_cap
+//     (the cap pre-pass: v5_cap)
+//   gat_pytorch_tpu/ops/pallas/segment_attention.py:_kernel_v5
+//     (the explicit-cap normalised forward: v5_forward_two_phase)
 //   gat_pytorch_tpu/ops/pallas/segment_attention_bwd.py:_kernel_v5_bwd
 //     (sweep1 mode, launched by backward_v5: normalize=True for the
 //      normalised op, normalize=False for the sweep-1 parts op
-//      v5_sweep1_parts, whose forward is the same _kernel_v5_auto)
+//      v5_sweep1_parts, whose forward is the same _kernel_v5_auto; and
+//      its sweep1=False mode: v5_backward_two_phase)
 //
 // Contract (per edge e = (src, dst), head k, for e < e_real):
 //   raw'[e,k] = h[src,:] . a_src[:,k] + s_dst'[dst,k]   (s_dst' is B-shifted)
@@ -17,11 +24,12 @@
 // The normalising epilogue out = num / (den + eps*exp(slope*cap')) runs in
 // torch. The backward recomputes ex from the same inputs and emits the
 // per-edge d(h) rows in dst order, d(drop), d(s_dst) per dst and d(a_src).
-// It has two modes (the template parameter NORM of v5_bwd_kernel):
-//   normalised  takes the cotangent g of out with out, den and eps' and
+// It has two modes besides the 2-phase one (the template parameter MODE
+// of v5_bwd_kernel):
+//   kNorm       takes the cotangent g of out with out, den and eps' and
 //               derives inv = 1/(den + eps') and d(den) = -(g . out) * inv
 //               per destination and head itself;
-//   parts       takes the raw cotangents d(num) (n, d_feat) and d(den)
+//   kParts      takes the raw cotangents d(num) (n, d_feat) and d(den)
 //               (n, nh) of the unnormalised parts, as a caller hands them
 //               over that differentiates its own epilogue (the hybrid
 //               layer sums the parts of two ops first): per edge
@@ -29,6 +37,20 @@
 //                                       + d_den[dst,k]),
 //               d(h) row = d(raw') @ a_src^T + ex * m * d_num[dst],
 //               d(drop) = ex * (h[src] . d_num[dst])_k.
+// The 2-phase form (the JAX package under GAT_TPU_V10=0 or
+// GAT_TPU_V5_MERGED=0, and its explicit-cap fused_gat_table) takes the cap
+// as an input, from device memory, and applies the full LeakyReLU:
+//   v5_cap                cap = max raw, code = lowest e*nh + k (raw not
+//                         shifted: the caller's s_dst as it is);
+//   v5_forward_two_phase  ex = exp(leaky(raw - cap)), out = num / (den +
+//                         eps) where den > 0, else 0 (the plain eps);
+//   v5_backward_two_phase d(pre) = ex * (m * inv * (h[src] . g[dst])_k +
+//                         d_den[dst,k]) times the slope where pre <= 0,
+//                         d(raw) = d(pre), and besides the outputs above
+//                         d(cap) = -sum d(raw) over edges and heads.
+// Every mode computes raw with head_dot (attention_common.cuh): the cap
+// kernel, the forward and the backward get the same bits for the same
+// edge, so the argmax edge has pre == 0 exactly and takes the slope.
 // The h table may have more rows than n: senders index h, receivers the n
 // destination rows (a caller whose destinations are a part of the nodes).
 //
@@ -40,8 +62,13 @@
 // warp shuffles, and accumulates num/den in registers. Every output row
 // is written by exactly one warp, so no atomics are needed and the sums
 // run in a fixed order: the results are bitwise reproducible.
-// Cross-block reductions (the cap and its argmax, d(a_src)) go through
-// per-block partials over a fixed grid and a second, ordered pass.
+// Cross-block reductions (the cap and its argmax, d(a_src), d(cap)) go
+// through per-block partials over a fixed grid and a second, ordered pass.
+// The TPU's merged 2-phase launch (grid 2T: cap tiles, then attention
+// tiles, the cap carried in VMEM scratch) has no counterpart here: blocks
+// do not run in order, so the cap is a launch of its own (cap kernel and
+// its reduce) before the forward, in order on one stream, and reaches the
+// forward through device memory with no host sync.
 //
 // What bounds it on the H100: by bytes, the gathered h rows (E x nh*f x
 // 4 bytes), a few MB at Cora size, about a microsecond at 3.35 TB/s. As
@@ -57,15 +84,20 @@
 
 namespace {
 
-template <int C>
+// MODE (attention_common.cuh): kSweep1 writes the unnormalised num/den and
+// the per-block (max, code) partials; kCap only the partials (drop, num,
+// den unused); kTwoPhase reads *cap and writes out = num/(den + eps) into
+// `num` and den, no partials.
+template <int C, Fwd MODE>
 __global__ void __launch_bounds__(kWarps * 32)
 v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
               const float* __restrict__ s_dst, const float* __restrict__ drop,
               const int* __restrict__ senders,
               const int* __restrict__ row_ptr, int n, int e_real,
-              int d_feat, int nh, int f, float slope,
-              float* __restrict__ num, float* __restrict__ den,
-              float* __restrict__ blk_max, int* __restrict__ blk_code) {
+              int d_feat, int nh, int f, float slope, float eps,
+              const float* __restrict__ cap_in, float* __restrict__ num,
+              float* __restrict__ den, float* __restrict__ blk_max,
+              int* __restrict__ blk_code) {
   extern __shared__ float sa[];  // a_src transposed, (nh, d_feat)
   __shared__ float wmax[kWarps];
   __shared__ int wcode[kWarps];
@@ -84,6 +116,8 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   }
   float vmax = -INFINITY;
   int vcode = INT_MAX;
+  float cap = 0.f;
+  if constexpr (MODE == Fwd::kTwoPhase) cap = *cap_in;
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float sd[kMaxHeads], dsum[kMaxHeads], acc[C];
@@ -107,60 +141,85 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       for (int k = 0; k < kMaxHeads; ++k) {
         ex[k] = 0.f;
         if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
-          float p = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            if (live[c]) p += hv[c] * sa[k * d_feat + lane + 32 * c];
-          const float raw = warp_sum(p) + sd[k];
-          take_max(vmax, vcode, raw, e * nh + k);
-          ex[k] = expf(slope * raw);
+          float unused;
+          const float raw = head_dot<C, false>(hv, live, head, sa, k, d_feat,
+                                               lane, hv, unused) + sd[k];
+          if constexpr (MODE == Fwd::kTwoPhase) {
+            ex[k] = expf(leaky(raw - cap, slope));
+          } else {
+            take_max(vmax, vcode, raw, e * nh + k);
+            if constexpr (MODE == Fwd::kSweep1) ex[k] = expf(slope * raw);
+          }
           dsum[k] += ex[k];
         }
+      }
+      if constexpr (MODE != Fwd::kCap) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (!live[c]) continue;
+          float w = select_head(ex, head[c]);
+          if (drop) w *= drop[(size_t)e * nh + head[c]];
+          acc[c] += w * hv[c];
+        }
+      }
+    }
+    if constexpr (MODE != Fwd::kCap) {
+      float inv[kMaxHeads];
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k) {
+        inv[k] = 1.f;
+        if constexpr (MODE == Fwd::kTwoPhase)
+          inv[k] = dsum[k] > 0.f ? 1.f / (dsum[k] + eps) : 0.f;
       }
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         if (!live[c]) continue;
-        float w = select_head(ex, head[c]);
-        if (drop) w *= drop[(size_t)e * nh + head[c]];
-        acc[c] += w * hv[c];
+        float v = acc[c];
+        if constexpr (MODE == Fwd::kTwoPhase) v *= select_head(inv, head[c]);
+        num[(size_t)d * d_feat + lane + 32 * c] = v;
       }
+      if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (live[c]) num[(size_t)d * d_feat + lane + 32 * c] = acc[c];
-    if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
   }
 
-  if (lane == 0) {
-    wmax[warp] = vmax;
-    wcode[warp] = vcode;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = -INFINITY;
-    int code = INT_MAX;
-    for (int w = 0; w < kWarps; ++w) take_max(m, code, wmax[w], wcode[w]);
-    blk_max[blockIdx.x] = m;
-    blk_code[blockIdx.x] = code;
+  if constexpr (MODE != Fwd::kTwoPhase) {
+    if (lane == 0) {
+      wmax[warp] = vmax;
+      wcode[warp] = vcode;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float m = -INFINITY;
+      int code = INT_MAX;
+      for (int w = 0; w < kWarps; ++w) take_max(m, code, wmax[w], wcode[w]);
+      blk_max[blockIdx.x] = m;
+      blk_code[blockIdx.x] = code;
+    }
   }
 }
 
-// NORM: the normalised mode; else the parts mode, where `g` carries d(num),
-// `den` carries d(den), and `out` and `epsp` are not read (NULL).
-template <int C, bool NORM>
+// MODE (attention_common.cuh): kNorm reads eps' at `epsp`; kParts takes
+// d(num) in `g` and d(den) in `den` (out, epsp, cap unread); kTwoPhase
+// reads the cap at `cap`, uses the plain `eps`, and writes each block's
+// -sum d(raw) after its d(a_src) partial (a partial row of
+// d_feat*nh + 1 floats).
+template <int C, Bwd MODE>
 __global__ void __launch_bounds__(kWarps * 32)
 v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
               const float* __restrict__ s_dst, const float* __restrict__ drop,
               const int* __restrict__ senders,
               const int* __restrict__ row_ptr, int n, int e_real,
-              int d_feat, int nh, int f, float slope,
+              int d_feat, int nh, int f, float slope, float eps,
               const float* __restrict__ g, const float* __restrict__ out,
               const float* __restrict__ den, const float* __restrict__ epsp,
-              float* __restrict__ d_h_rows, float* __restrict__ d_drop,
-              float* __restrict__ d_sdst, float* __restrict__ dasrc_part) {
+              const float* __restrict__ cap_in, float* __restrict__ d_h_rows,
+              float* __restrict__ d_drop, float* __restrict__ d_sdst,
+              float* __restrict__ dasrc_part) {
+  constexpr bool kTwo = MODE == Bwd::kTwoPhase;
   extern __shared__ float smem[];
   float* sa = smem;                  // a_src transposed, (nh, d_feat)
   float* sacc = smem + d_feat * nh;  // this block's d(a_src), (nh, d_feat)
+  __shared__ float wdcap[kWarps];
   for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x) {
     sa[(i % nh) * d_feat + i / nh] = a_src[i];
     sacc[i] = 0.f;
@@ -181,8 +240,12 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int k = 0; k < kMaxHeads; ++k) da[c][k] = 0.f;
-  float eps_p = 0.f;
-  if constexpr (NORM) eps_p = *epsp;
+  float eps_p = 0.f, cap = 0.f, dcap = 0.f;
+  if constexpr (MODE == Bwd::kNorm) eps_p = *epsp;
+  if constexpr (kTwo) {
+    eps_p = eps;
+    cap = *cap_in;
+  }
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float gv[C];
@@ -195,7 +258,7 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       inv[k] = dden[k] = sd[k] = sds[k] = 0.f;
       if (k < nh) {
         const float dn = den[(size_t)d * nh + k];
-        if constexpr (NORM) {
+        if constexpr (MODE != Bwd::kParts) {
           inv[k] = dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
           float p = 0.f;
 #pragma unroll
@@ -224,19 +287,23 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       for (int k = 0; k < kMaxHeads; ++k) {
         draw[k] = coef[k] = 0.f;
         if (k < nh) {
-          float p = 0.f, q = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            if (!live[c]) continue;
-            p += hv[c] * sa[k * d_feat + lane + 32 * c];
-            if (head[c] == k) q += hv[c] * gv[c];
-          }
-          const float raw = warp_sum(p) + sd[k];
-          const float hg = warp_sum(q);
-          const float ex = expf(slope * raw);
+          float hg;
+          const float raw = head_dot<C, true>(hv, live, head, sa, k, d_feat,
+                                              lane, gv, hg) + sd[k];
           const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
-          // d(raw') through the negative LeakyReLU branch (raw' <= cap')
-          draw[k] = slope * ex * (hg * inv[k] * m + dden[k]);
+          float ex;
+          if constexpr (kTwo) {
+            const float pre = raw - cap;
+            ex = expf(leaky(pre, slope));
+            // the slope where pre <= 0: the argmax edge has pre == 0
+            const float dlg = ex * (hg * inv[k] * m + dden[k]);
+            draw[k] = pre > 0.f ? dlg : slope * dlg;
+            dcap += draw[k];
+          } else {
+            ex = expf(slope * raw);
+            // d(raw') through the negative LeakyReLU branch (raw' <= cap')
+            draw[k] = slope * ex * (hg * inv[k] * m + dden[k]);
+          }
           coef[k] = ex * m * inv[k];
           sds[k] += draw[k];
           if (d_drop && lane == k)
@@ -272,7 +339,9 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     if (d_drop && lane < nh) d_drop[(size_t)e * nh + lane] = 0.f;
   }
 
-  // block sum of d(a_src): warps add in a fixed order (deterministic)
+  // block sums of d(a_src) and d(cap): warps add in a fixed order
+  // (deterministic); dcap is the same on every lane of a warp
+  if (kTwo && lane == 0) wdcap[warp] = dcap;
   for (int w = 0; w < kWarps; ++w) {
     if (warp == w) {
 #pragma unroll
@@ -285,38 +354,83 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x)
-    dasrc_part[(size_t)blockIdx.x * d_feat * nh + i] =
+  const int len = d_feat * nh, stride = len + (kTwo ? 1 : 0);
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    dasrc_part[(size_t)blockIdx.x * stride + i] =
         sacc[(i % nh) * d_feat + i / nh];  // back to (d_feat, nh)
+  if (kTwo && threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += wdcap[w];
+    dasrc_part[(size_t)blockIdx.x * stride + len] = -s;
+  }
 }
 
-template <bool NORM>
+int check_shape(int d_feat, int nh, int nblk) {
+  return (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
+             ? (int)cudaErrorInvalidValue
+             : (int)cudaSuccess;
+}
+
+// One forward launch in MODE, then (kSweep1, kCap) the cap reduce.
+template <Fwd MODE>
+int launch_v5_forward(const float* h, const float* a_src, const float* s_dst,
+                      const float* drop, const int* senders,
+                      const int* row_ptr, int n, int e_real, int d_feat,
+                      int nh, int f, float slope, float eps,
+                      const float* cap_in, float* num, float* den,
+                      float* blk_max, int* blk_code, float* cap, int* code,
+                      int nblk, void* stream) {
+  int bad = check_shape(d_feat, nh, nblk);
+  if (bad) return bad;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)d_feat * nh * sizeof(float);
+  const int c_need = (d_feat + 31) / 32;
+  cudaError_t err = cudaSuccess;
+#define V5_FWD(CC)                                                        \
+  err = set_smem(v5_fwd_kernel<CC, MODE>, smem);                          \
+  if (err == cudaSuccess)                                                 \
+    v5_fwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(             \
+        h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f, \
+        slope, eps, cap_in, num, den, blk_max, blk_code);
+  ROWS_DISPATCH(V5_FWD)
+#undef V5_FWD
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || MODE == Fwd::kTwoPhase) return (int)err;
+  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(blk_max, blk_code, nblk, cap,
+                                               code);
+  return (int)cudaGetLastError();
+}
+
+template <Bwd MODE>
 int launch_v5_backward(const float* h, const float* a_src, const float* s_dst,
                        const float* drop, const int* senders,
                        const int* row_ptr, int n, int e_real, int d_feat,
-                       int nh, int f, float slope, const float* g,
+                       int nh, int f, float slope, float eps, const float* g,
                        const float* out, const float* den, const float* epsp,
-                       float* d_h_rows, float* d_drop, float* d_sdst,
-                       float* dasrc_part, float* d_asrc, int nblk,
-                       void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
+                       const float* cap_in, float* d_h_rows, float* d_drop,
+                       float* d_sdst, float* dasrc_part, float* d_asrc,
+                       int nblk, void* stream) {
+  int bad = check_shape(d_feat, nh, nblk);
+  if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = 2 * (size_t)d_feat * nh * sizeof(float);
   const int c_need = (d_feat + 31) / 32;
   cudaError_t err = cudaSuccess;
 #define V5_BWD(CC)                                                          \
-  err = set_smem(v5_bwd_kernel<CC, NORM>, smem);                            \
+  err = set_smem(v5_bwd_kernel<CC, MODE>, smem);                            \
   if (err == cudaSuccess)                                                   \
-    v5_bwd_kernel<CC, NORM><<<nblk, kWarps * 32, smem, st>>>(               \
+    v5_bwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(               \
         h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,  \
-        slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part);
+        slope, eps, g, out, den, epsp, cap_in, d_h_rows, d_drop, d_sdst,    \
+        dasrc_part);
   ROWS_DISPATCH(V5_BWD)
 #undef V5_BWD
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int len = d_feat * nh;
+  // d(a_src), and in the 2-phase mode d(cap) after it
+  const int len = d_feat * nh + (MODE == Bwd::kTwoPhase ? 1 : 0);
   sum_partials_kernel<<<(len + 255) / 256, 256, 0, st>>>(dasrc_part, nblk,
                                                          len, d_asrc);
   return (int)cudaGetLastError();
@@ -333,26 +447,36 @@ int v5_forward(const float* h, const float* a_src, const float* s_dst,
                int n, int e_real, int d_feat, int nh, int f, float slope,
                float* num, float* den, float* blk_max, int* blk_code,
                float* cap, int* code, int nblk, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)d_feat * nh * sizeof(float);
-  const int c_need = (d_feat + 31) / 32;
-  cudaError_t err = cudaSuccess;
-#define V5_FWD(CC)                                                        \
-  err = set_smem(v5_fwd_kernel<CC>, smem);                                \
-  if (err == cudaSuccess)                                                 \
-    v5_fwd_kernel<CC><<<nblk, kWarps * 32, smem, st>>>(                   \
-        h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f, \
-        slope, num, den, blk_max, blk_code);
-  ROWS_DISPATCH(V5_FWD)
-#undef V5_FWD
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(blk_max, blk_code, nblk, cap,
-                                               code);
-  return (int)cudaGetLastError();
+  return launch_v5_forward<Fwd::kSweep1>(
+      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+      slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
+      stream);
+}
+
+// The 2-phase cap pass: cap (1,) = max raw over the real edges and heads,
+// code (1,) = its lowest e*nh + k; blk_max / blk_code are (nblk,) scratch.
+int v5_cap(const float* h, const float* a_src, const float* s_dst,
+           const int* senders, const int* row_ptr, int n, int e_real,
+           int d_feat, int nh, int f, float* blk_max, int* blk_code,
+           float* cap, int* code, int nblk, void* stream) {
+  return launch_v5_forward<Fwd::kCap>(
+      h, a_src, s_dst, nullptr, senders, row_ptr, n, e_real, d_feat, nh, f,
+      0.f, 0.f, nullptr, nullptr, nullptr, blk_max, blk_code, cap, code, nblk,
+      stream);
+}
+
+// The 2-phase forward: out (n, d_feat) normalised, den (n, nh), from the
+// cap at `cap` (device memory). drop may be NULL.
+int v5_forward_two_phase(const float* h, const float* a_src,
+                         const float* s_dst, const float* cap,
+                         const float* drop, const int* senders,
+                         const int* row_ptr, int n, int e_real, int d_feat,
+                         int nh, int f, float eps, float slope, float* out,
+                         float* den, int nblk, void* stream) {
+  return launch_v5_forward<Fwd::kTwoPhase>(
+      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+      slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
+      stream);
 }
 
 // Backward, normalised mode: d_h_rows (E, d_feat) in dst order, d_drop
@@ -366,10 +490,10 @@ int v5_backward(const float* h, const float* a_src, const float* s_dst,
                 const float* epsp, float* d_h_rows, float* d_drop,
                 float* d_sdst, float* dasrc_part, float* d_asrc, int nblk,
                 void* stream) {
-  return launch_v5_backward<true>(h, a_src, s_dst, drop, senders, row_ptr, n,
-                                  e_real, d_feat, nh, f, slope, g, out, den,
-                                  epsp, d_h_rows, d_drop, d_sdst, dasrc_part,
-                                  d_asrc, nblk, stream);
+  return launch_v5_backward<Bwd::kNorm>(
+      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+      slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
+      dasrc_part, d_asrc, nblk, stream);
 }
 
 // Backward, parts mode: the same outputs from the raw cotangents d_num
@@ -381,10 +505,28 @@ int v5_backward_parts(const float* h, const float* a_src, const float* s_dst,
                       const float* d_den, float* d_h_rows, float* d_drop,
                       float* d_sdst, float* dasrc_part, float* d_asrc,
                       int nblk, void* stream) {
-  return launch_v5_backward<false>(h, a_src, s_dst, drop, senders, row_ptr, n,
-                                   e_real, d_feat, nh, f, slope, d_num,
-                                   nullptr, d_den, nullptr, d_h_rows, d_drop,
-                                   d_sdst, dasrc_part, d_asrc, nblk, stream);
+  return launch_v5_backward<Bwd::kParts>(
+      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+      slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows, d_drop,
+      d_sdst, dasrc_part, d_asrc, nblk, stream);
+}
+
+// Backward, 2-phase: the outputs of the normalised mode from g, out, den,
+// the cap at `cap` and the plain eps; d_asrc_cap is (d_feat*nh + 1,):
+// d(a_src) then d(cap). dasrc_part is (nblk, d_feat*nh + 1) scratch.
+int v5_backward_two_phase(const float* h, const float* a_src,
+                          const float* s_dst, const float* cap,
+                          const float* drop, const int* senders,
+                          const int* row_ptr, int n, int e_real, int d_feat,
+                          int nh, int f, float eps, float slope,
+                          const float* g, const float* out, const float* den,
+                          float* d_h_rows, float* d_drop, float* d_sdst,
+                          float* dasrc_part, float* d_asrc_cap, int nblk,
+                          void* stream) {
+  return launch_v5_backward<Bwd::kTwoPhase>(
+      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+      slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
+      dasrc_part, d_asrc_cap, nblk, stream);
 }
 
 }  // extern "C"

@@ -9,6 +9,9 @@
 //     (the same form and mode, launched by backward_v6: normalize=True for
 //      the normalised op, normalize=False for the sweep-1 parts op
 //      v7_sweep1_parts, whose forward is the same _kernel_v6)
+//   and both in their 2-phase (sweep1=False) mode, the v7 form under
+//   GAT_TPU_V10=0: window_cap (the phase-0 cap sweep of _kernel_v6),
+//   window_forward_two_phase (its phase 1), window_backward_two_phase.
 //
 // Contract. The edges live in layout slots: grouped per nb-row destination
 // tile, sender-sorted within a tile, padded per block to eb slots; a pad
@@ -29,7 +32,11 @@
 // normalised mode takes g, out, den and eps' and derives inv and d(den)
 // itself; the parts mode takes the raw cotangents d(num) and d(den) of
 // the unnormalised parts from a caller that differentiates its own
-// epilogue.
+// epilogue. The 2-phase entries are those of v5_attention.cu over the
+// slots: window_cap (max raw, lowest slot*nh + k), window_forward_two_phase
+// (exp(leaky(raw - cap)), out = num / (den + eps)), window_backward_two_phase
+// (the full LeakyReLU's derivative and d(cap) = -sum d(raw)); every mode
+// takes raw from head_dot, so the argmax slot has raw - cap == 0 exactly.
 //
 // Design. The TPU kernel streams a window of the node table into VMEM per
 // destination tile and gathers from it with one-hot matrix products, per
@@ -45,9 +52,9 @@
 // a_src (in shared memory) through warp shuffles, and accumulates num/den
 // in registers. Every output row has one writer and a fixed order of
 // sums: no atomics, bitwise reproducible. Pad slots are never visited:
-// dst_ptr[n] is the count of real slots. The cap with its argmax code and
-// d(a_src) go through per-block partials over a fixed grid and an ordered
-// second pass (attention_common.cuh).
+// dst_ptr[n] is the count of real slots. The cap with its argmax code,
+// d(a_src) and d(cap) go through per-block partials over a fixed grid and
+// an ordered second pass (attention_common.cuh).
 //
 // What the layout can buy on this card is locality: the warps of the grid
 // work on neighbouring destination rows at the same time, whose senders
@@ -69,14 +76,16 @@
 
 namespace {
 
-template <int C>
+// MODE as v5_fwd_kernel's (v5_attention.cu): kSweep1, kCap, kTwoPhase.
+template <int C, Fwd MODE>
 __global__ void __launch_bounds__(kWarps * 32)
 window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
                   const float* __restrict__ s_dst,
                   const float* __restrict__ drop, const int* __restrict__ send,
                   const int* __restrict__ dst_perm,
                   const int* __restrict__ dst_ptr, int n, int d_feat, int nh,
-                  int f, float slope, float* __restrict__ num,
+                  int f, float slope, float eps,
+                  const float* __restrict__ cap_in, float* __restrict__ num,
                   float* __restrict__ den, float* __restrict__ blk_max,
                   int* __restrict__ blk_code) {
   extern __shared__ float sa[];  // a_src transposed, (nh, d_feat)
@@ -97,6 +106,8 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   }
   float vmax = -INFINITY;
   int vcode = INT_MAX;
+  float cap = 0.f;
+  if constexpr (MODE == Fwd::kTwoPhase) cap = *cap_in;
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float sd[kMaxHeads], dsum[kMaxHeads], acc[C];
@@ -120,61 +131,84 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       for (int k = 0; k < kMaxHeads; ++k) {
         ex[k] = 0.f;
         if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
-          float p = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            if (live[c]) p += hv[c] * sa[k * d_feat + lane + 32 * c];
-          const float raw = warp_sum(p) + sd[k];
-          take_max(vmax, vcode, raw, slot * nh + k);
-          ex[k] = expf(slope * raw);
+          float unused;
+          const float raw = head_dot<C, false>(hv, live, head, sa, k, d_feat,
+                                               lane, hv, unused) + sd[k];
+          if constexpr (MODE == Fwd::kTwoPhase) {
+            ex[k] = expf(leaky(raw - cap, slope));
+          } else {
+            take_max(vmax, vcode, raw, slot * nh + k);
+            if constexpr (MODE == Fwd::kSweep1) ex[k] = expf(slope * raw);
+          }
           dsum[k] += ex[k];
         }
+      }
+      if constexpr (MODE != Fwd::kCap) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (!live[c]) continue;
+          float w = select_head(ex, head[c]);
+          if (drop) w *= drop[(size_t)slot * nh + head[c]];
+          acc[c] += w * hv[c];
+        }
+      }
+    }
+    if constexpr (MODE != Fwd::kCap) {
+      float inv[kMaxHeads];
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k) {
+        inv[k] = 1.f;
+        if constexpr (MODE == Fwd::kTwoPhase)
+          inv[k] = dsum[k] > 0.f ? 1.f / (dsum[k] + eps) : 0.f;
       }
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         if (!live[c]) continue;
-        float w = select_head(ex, head[c]);
-        if (drop) w *= drop[(size_t)slot * nh + head[c]];
-        acc[c] += w * hv[c];
+        float v = acc[c];
+        if constexpr (MODE == Fwd::kTwoPhase) v *= select_head(inv, head[c]);
+        num[(size_t)d * d_feat + lane + 32 * c] = v;
       }
+      if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (live[c]) num[(size_t)d * d_feat + lane + 32 * c] = acc[c];
-    if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
   }
 
-  if (lane == 0) {
-    wmax[warp] = vmax;
-    wcode[warp] = vcode;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = -INFINITY;
-    int code = INT_MAX;
-    for (int w = 0; w < kWarps; ++w) take_max(m, code, wmax[w], wcode[w]);
-    blk_max[blockIdx.x] = m;
-    blk_code[blockIdx.x] = code;
+  if constexpr (MODE != Fwd::kTwoPhase) {
+    if (lane == 0) {
+      wmax[warp] = vmax;
+      wcode[warp] = vcode;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float m = -INFINITY;
+      int code = INT_MAX;
+      for (int w = 0; w < kWarps; ++w) take_max(m, code, wmax[w], wcode[w]);
+      blk_max[blockIdx.x] = m;
+      blk_code[blockIdx.x] = code;
+    }
   }
 }
 
-// NORM: the normalised mode; else the parts mode, where `g` carries d(num),
-// `den` carries d(den), and `out` and `epsp` are not read (NULL).
-template <int C, bool NORM>
+// MODE as v5_bwd_kernel's (v5_attention.cu): kNorm, kParts, kTwoPhase.
+template <int C, Bwd MODE>
 __global__ void __launch_bounds__(kWarps * 32)
 window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
                   const float* __restrict__ s_dst,
                   const float* __restrict__ drop, const int* __restrict__ send,
                   const int* __restrict__ dst_perm,
                   const int* __restrict__ dst_ptr, int n, int e7, int d_feat,
-                  int nh, int f, float slope, const float* __restrict__ g,
-                  const float* __restrict__ out, const float* __restrict__ den,
-                  const float* __restrict__ epsp, float* __restrict__ d_h_rows,
-                  float* __restrict__ d_drop, float* __restrict__ d_sdst,
+                  int nh, int f, float slope, float eps,
+                  const float* __restrict__ g, const float* __restrict__ out,
+                  const float* __restrict__ den,
+                  const float* __restrict__ epsp,
+                  const float* __restrict__ cap_in,
+                  float* __restrict__ d_h_rows, float* __restrict__ d_drop,
+                  float* __restrict__ d_sdst,
                   float* __restrict__ dasrc_part) {
+  constexpr bool kTwo = MODE == Bwd::kTwoPhase;
   extern __shared__ float smem[];
   float* sa = smem;                  // a_src transposed, (nh, d_feat)
   float* sacc = smem + d_feat * nh;  // this block's d(a_src), (nh, d_feat)
+  __shared__ float wdcap[kWarps];
   for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x) {
     sa[(i % nh) * d_feat + i / nh] = a_src[i];
     sacc[i] = 0.f;
@@ -195,8 +229,12 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   for (int c = 0; c < C; ++c)
 #pragma unroll
     for (int k = 0; k < kMaxHeads; ++k) da[c][k] = 0.f;
-  float eps_p = 0.f;
-  if constexpr (NORM) eps_p = *epsp;
+  float eps_p = 0.f, cap = 0.f, dcap = 0.f;
+  if constexpr (MODE == Bwd::kNorm) eps_p = *epsp;
+  if constexpr (kTwo) {
+    eps_p = eps;
+    cap = *cap_in;
+  }
 
   // pad slots (the tail of dst_perm) get a zero dropout cotangent
   if (d_drop) {
@@ -217,7 +255,7 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       inv[k] = dden[k] = sd[k] = sds[k] = 0.f;
       if (k < nh) {
         const float dn = den[(size_t)d * nh + k];
-        if constexpr (NORM) {
+        if constexpr (MODE != Bwd::kParts) {
           inv[k] = dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
           float p = 0.f;
 #pragma unroll
@@ -246,19 +284,23 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       for (int k = 0; k < kMaxHeads; ++k) {
         draw[k] = coef[k] = 0.f;
         if (k < nh) {
-          float p = 0.f, q = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            if (!live[c]) continue;
-            p += hv[c] * sa[k * d_feat + lane + 32 * c];
-            if (head[c] == k) q += hv[c] * gv[c];
-          }
-          const float raw = warp_sum(p) + sd[k];
-          const float hg = warp_sum(q);
-          const float ex = expf(slope * raw);
+          float hg;
+          const float raw = head_dot<C, true>(hv, live, head, sa, k, d_feat,
+                                              lane, gv, hg) + sd[k];
           const float m = drop ? drop[(size_t)slot * nh + k] : 1.f;
-          // d(raw') through the negative LeakyReLU branch (raw' <= cap')
-          draw[k] = slope * ex * (hg * inv[k] * m + dden[k]);
+          float ex;
+          if constexpr (kTwo) {
+            const float pre = raw - cap;
+            ex = expf(leaky(pre, slope));
+            // the slope where pre <= 0: the argmax slot has pre == 0
+            const float dlg = ex * (hg * inv[k] * m + dden[k]);
+            draw[k] = pre > 0.f ? dlg : slope * dlg;
+            dcap += draw[k];
+          } else {
+            ex = expf(slope * raw);
+            // d(raw') through the negative LeakyReLU branch (raw' <= cap')
+            draw[k] = slope * ex * (hg * inv[k] * m + dden[k]);
+          }
           coef[k] = ex * m * inv[k];
           sds[k] += draw[k];
           if (d_drop && lane == k)
@@ -283,7 +325,9 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     if (lane < nh) d_sdst[(size_t)d * nh + lane] = select_head(sds, lane);
   }
 
-  // block sum of d(a_src): warps add in a fixed order (deterministic)
+  // block sums of d(a_src) and d(cap): warps add in a fixed order
+  // (deterministic); dcap is the same on every lane of a warp
+  if (kTwo && lane == 0) wdcap[warp] = dcap;
   for (int w = 0; w < kWarps; ++w) {
     if (warp == w) {
 #pragma unroll
@@ -296,39 +340,85 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x)
-    dasrc_part[(size_t)blockIdx.x * d_feat * nh + i] =
+  const int len = d_feat * nh, stride = len + (kTwo ? 1 : 0);
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    dasrc_part[(size_t)blockIdx.x * stride + i] =
         sacc[(i % nh) * d_feat + i / nh];  // back to (d_feat, nh)
+  if (kTwo && threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += wdcap[w];
+    dasrc_part[(size_t)blockIdx.x * stride + len] = -s;
+  }
 }
 
-template <bool NORM>
+int check_shape(int d_feat, int nh, int nblk) {
+  return (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
+             ? (int)cudaErrorInvalidValue
+             : (int)cudaSuccess;
+}
+
+template <Fwd MODE>
+int launch_window_forward(const float* h, const float* a_src,
+                          const float* s_dst, const float* drop,
+                          const int* send, const int* dst_perm,
+                          const int* dst_ptr, int n, int d_feat, int nh,
+                          int f, float slope, float eps, const float* cap_in,
+                          float* num, float* den, float* blk_max,
+                          int* blk_code, float* cap, int* code, int nblk,
+                          void* stream) {
+  int bad = check_shape(d_feat, nh, nblk);
+  if (bad) return bad;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)d_feat * nh * sizeof(float);
+  const int c_need = (d_feat + 31) / 32;
+  cudaError_t err = cudaSuccess;
+#define WINDOW_FWD(CC)                                                     \
+  err = set_smem(window_fwd_kernel<CC, MODE>, smem);                       \
+  if (err == cudaSuccess)                                                  \
+    window_fwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(          \
+        h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,  \
+        slope, eps, cap_in, num, den, blk_max, blk_code);
+  ROWS_DISPATCH(WINDOW_FWD)
+#undef WINDOW_FWD
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || MODE == Fwd::kTwoPhase) return (int)err;
+  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(blk_max, blk_code, nblk, cap,
+                                               code);
+  return (int)cudaGetLastError();
+}
+
+template <Bwd MODE>
 int launch_window_backward(const float* h, const float* a_src,
                            const float* s_dst, const float* drop,
                            const int* send, const int* dst_perm,
                            const int* dst_ptr, int n, int e7, int d_feat,
-                           int nh, int f, float slope, const float* g,
-                           const float* out, const float* den,
-                           const float* epsp, float* d_h_rows, float* d_drop,
-                           float* d_sdst, float* dasrc_part, float* d_asrc,
-                           int nblk, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
+                           int nh, int f, float slope, float eps,
+                           const float* g, const float* out, const float* den,
+                           const float* epsp, const float* cap_in,
+                           float* d_h_rows, float* d_drop, float* d_sdst,
+                           float* dasrc_part, float* d_asrc, int nblk,
+                           void* stream) {
+  int bad = check_shape(d_feat, nh, nblk);
+  if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = 2 * (size_t)d_feat * nh * sizeof(float);
   const int c_need = (d_feat + 31) / 32;
   cudaError_t err = cudaSuccess;
 #define WINDOW_BWD(CC)                                                      \
-  err = set_smem(window_bwd_kernel<CC, NORM>, smem);                        \
+  err = set_smem(window_bwd_kernel<CC, MODE>, smem);                        \
   if (err == cudaSuccess)                                                   \
-    window_bwd_kernel<CC, NORM><<<nblk, kWarps * 32, smem, st>>>(           \
+    window_bwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(           \
         h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,  \
-        f, slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part);
+        f, slope, eps, g, out, den, epsp, cap_in, d_h_rows, d_drop, d_sdst, \
+        dasrc_part);
   ROWS_DISPATCH(WINDOW_BWD)
 #undef WINDOW_BWD
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int len = d_feat * nh;
+  // d(a_src), and in the 2-phase mode d(cap) after it
+  const int len = d_feat * nh + (MODE == Bwd::kTwoPhase ? 1 : 0);
   sum_partials_kernel<<<(len + 255) / 256, 256, 0, st>>>(dasrc_part, nblk,
                                                          len, d_asrc);
   return (int)cudaGetLastError();
@@ -347,26 +437,38 @@ int window_forward(const float* h, const float* a_src, const float* s_dst,
                    float slope, float* num, float* den, float* blk_max,
                    int* blk_code, float* cap, int* code, int nblk,
                    void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)d_feat * nh * sizeof(float);
-  const int c_need = (d_feat + 31) / 32;
-  cudaError_t err = cudaSuccess;
-#define WINDOW_FWD(CC)                                                     \
-  err = set_smem(window_fwd_kernel<CC>, smem);                             \
-  if (err == cudaSuccess)                                                  \
-    window_fwd_kernel<CC><<<nblk, kWarps * 32, smem, st>>>(                \
-        h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,  \
-        slope, num, den, blk_max, blk_code);
-  ROWS_DISPATCH(WINDOW_FWD)
-#undef WINDOW_FWD
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(blk_max, blk_code, nblk, cap,
-                                               code);
-  return (int)cudaGetLastError();
+  return launch_window_forward<Fwd::kSweep1>(
+      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
+      slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
+      stream);
+}
+
+// The 2-phase cap pass over the real slots: cap (1,), code (1,) = its
+// lowest slot*nh + k; blk_max / blk_code are (nblk,) scratch.
+int window_cap(const float* h, const float* a_src, const float* s_dst,
+               const int* send, const int* dst_perm, const int* dst_ptr,
+               int n, int d_feat, int nh, int f, float* blk_max,
+               int* blk_code, float* cap, int* code, int nblk,
+               void* stream) {
+  return launch_window_forward<Fwd::kCap>(
+      h, a_src, s_dst, nullptr, send, dst_perm, dst_ptr, n, d_feat, nh, f,
+      0.f, 0.f, nullptr, nullptr, nullptr, blk_max, blk_code, cap, code,
+      nblk, stream);
+}
+
+// The 2-phase forward: out (n, d_feat) normalised, den (n, nh), from the
+// cap at `cap` (device memory). drop (e7, nh) may be NULL.
+int window_forward_two_phase(const float* h, const float* a_src,
+                             const float* s_dst, const float* cap,
+                             const float* drop, const int* send,
+                             const int* dst_perm, const int* dst_ptr, int n,
+                             int d_feat, int nh, int f, float eps,
+                             float slope, float* out, float* den, int nblk,
+                             void* stream) {
+  return launch_window_forward<Fwd::kTwoPhase>(
+      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
+      slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
+      stream);
 }
 
 // Backward, normalised mode: d_h_rows (e7, d_feat) in slot order (pad rows
@@ -380,10 +482,10 @@ int window_backward(const float* h, const float* a_src, const float* s_dst,
                     const float* den, const float* epsp, float* d_h_rows,
                     float* d_drop, float* d_sdst, float* dasrc_part,
                     float* d_asrc, int nblk, void* stream) {
-  return launch_window_backward<true>(
+  return launch_window_backward<Bwd::kNorm>(
       h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
-      slope, g, out, den, epsp, d_h_rows, d_drop, d_sdst, dasrc_part, d_asrc,
-      nblk, stream);
+      slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
+      dasrc_part, d_asrc, nblk, stream);
 }
 
 // Backward, parts mode: the same outputs from the raw cotangents d_num
@@ -396,10 +498,28 @@ int window_backward_parts(const float* h, const float* a_src,
                           const float* d_den, float* d_h_rows, float* d_drop,
                           float* d_sdst, float* dasrc_part, float* d_asrc,
                           int nblk, void* stream) {
-  return launch_window_backward<false>(
+  return launch_window_backward<Bwd::kParts>(
       h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
-      slope, d_num, nullptr, d_den, nullptr, d_h_rows, d_drop, d_sdst,
-      dasrc_part, d_asrc, nblk, stream);
+      slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows, d_drop,
+      d_sdst, dasrc_part, d_asrc, nblk, stream);
+}
+
+// Backward, 2-phase: the outputs of the normalised mode from g, out, den,
+// the cap at `cap` and the plain eps; d_asrc_cap is (d_feat*nh + 1,):
+// d(a_src) then d(cap). dasrc_part is (nblk, d_feat*nh + 1) scratch.
+int window_backward_two_phase(const float* h, const float* a_src,
+                              const float* s_dst, const float* cap,
+                              const float* drop, const int* send,
+                              const int* dst_perm, const int* dst_ptr, int n,
+                              int e7, int d_feat, int nh, int f, float eps,
+                              float slope, const float* g, const float* out,
+                              const float* den, float* d_h_rows,
+                              float* d_drop, float* d_sdst, float* dasrc_part,
+                              float* d_asrc_cap, int nblk, void* stream) {
+  return launch_window_backward<Bwd::kTwoPhase>(
+      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
+      slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
+      dasrc_part, d_asrc_cap, nblk, stream);
 }
 
 }  // extern "C"

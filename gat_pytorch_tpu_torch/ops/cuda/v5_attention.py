@@ -10,6 +10,21 @@ same sweep without its epilogue. The kernels are csrc/v5_attention.cu
 reduction of ops/cuda/segment_sum.py. `v5_forward_plain` and
 `v5_backward_plain` are their plain torch versions.
 
+The 2-phase form (the JAX package's path under GAT_TPU_V10=0 or
+GAT_TPU_V5_MERGED=0) lives here too: v5_local_cap (:1765, the cap
+pre-pass `_kernel_v5_cap`, kernel entry v5_cap), fused_gat_table (:1029,
+the explicit-cap forward `_kernel_v5`, entry v5_forward_two_phase, and
+`_kernel_v5_bwd` in its sweep1=False mode, entry v5_backward_two_phase)
+and fused_gat_table_autocap(two_phase=True), which composes the two. There
+the cap is taken first and the attention pass computes
+    ex = exp(leaky(raw - cap)),  out = sum drop*ex*h[src] / (den + eps)
+with the full LeakyReLU (a caller's cap may leave some pre = raw - cap
+positive) and the plain eps; the backward has a d(cap) output, -sum of
+d(raw), which the cap op routes to its argmax (edge, head). On Hopper the
+merged (one launch) and unmerged (two kernels) contracts of the TPU are
+the same launches: v5_cap, then v5_forward_two_phase, on one stream, the
+cap handed over in device memory.
+
 The algebra (the reference's quirks, models/gat.py in the JAX package):
 the global cap' = max raw' comes BEFORE LeakyReLU, so every capped logit
 is <= 0 and LeakyReLU is `slope * x` on the whole reachable domain; exp
@@ -59,6 +74,14 @@ def _lib() -> ctypes.CDLL:
         lib.v5_backward_parts.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 7
                                           + [i, p])
         lib.v5_backward_parts.restype = ctypes.c_int
+        lib.v5_cap.argtypes = [p] * 5 + [i] * 5 + [p] * 4 + [i, p]
+        lib.v5_cap.restype = ctypes.c_int
+        lib.v5_forward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
+                                             + [p] * 2 + [i, p])
+        lib.v5_forward_two_phase.restype = ctypes.c_int
+        lib.v5_backward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
+                                              + [p] * 8 + [i, p])
+        lib.v5_backward_two_phase.restype = ctypes.c_int
         _configured = True
     return lib
 
@@ -77,57 +100,118 @@ def _edge_logits(h, a_src, s_dst_eff, snd, rcv):
     return h_e, h_e @ a_src + s_dst_eff.index_select(0, rcv_in), rcv_in
 
 
+def _cap_of(raw, valid):
+    """(max of raw over the slots that are edges, its lowest slot*nh + k
+    as int32): argmax returns the first maximal element."""
+    flat = torch.where(valid, raw, torch.full_like(raw, float("-inf")))
+    flat = flat.reshape(-1)
+    return flat.max(), torch.argmax(flat).to(torch.int32)
+
+
+def _aggregate(h_e, w, rcv, n: int, nh: int):
+    """sum over slots of w (E, nh) times the slots' h rows, per receiver."""
+    e, d = h_e.shape
+    return seg.segment_sum((h_e.view(e, nh, d // nh) * w[:, :, None]
+                            ).reshape(e, d), rcv, n)
+
+
 def attention_forward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
                             slope: float):
     """(num (N, D), den (N, nh), cap' (), code () int32) of the module doc,
     the code counting slots in the order given."""
     n, nh = s_dst_eff.shape
-    e, d = snd.shape[0], h.shape[1]
     h_e, raw, _ = _edge_logits(h, a_src, s_dst_eff, snd, rcv)
-    flat = torch.where(valid, raw, torch.full_like(raw, float("-inf")))
-    flat = flat.reshape(-1)
-    code = torch.argmax(flat)              # first maximal: lowest e*nh + k
-    cap = flat.max()
+    cap, code = _cap_of(raw, valid)
     ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
-    w = ex if drop is None else ex * drop
-    num = seg.segment_sum((h_e.view(e, nh, d // nh) * w[:, :, None]
-                           ).reshape(e, d), rcv, n)
+    num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh)
+    return num, seg.segment_sum(ex, rcv, n), cap, code
+
+
+def attention_cap_plain(h, a_src, s_dst, snd, rcv, valid):
+    """(cap (), code () int32): the max raw logit over the slots that are
+    edges and its lowest slot*nh + head (the 2-phase cap pass)."""
+    return _cap_of(_edge_logits(h, a_src, s_dst, snd, rcv)[1], valid)
+
+
+def _two_phase_ex(raw, cap, valid, slope: float):
+    """(pre = raw - cap, ex = exp(leaky(pre)), 0 on slots that are no
+    edges) of the 2-phase form."""
+    pre = raw - cap
+    ex = torch.exp(torch.where(pre > 0, pre, slope * pre))
+    return pre, torch.where(valid, ex, torch.zeros_like(ex))
+
+
+def _safe_inverse(den, eps):
+    return torch.where(den > 0, 1.0 / (den + eps), torch.zeros_like(den))
+
+
+def attention_forward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
+                                      valid, eps: float, slope: float):
+    """(out (N, D) = num / (den + eps), 0 where den == 0; den (N, nh)) of
+    the 2-phase forward, from the given cap."""
+    n, nh = s_dst.shape
+    d = h.shape[1]
+    h_e, raw, _ = _edge_logits(h, a_src, s_dst, snd, rcv)
+    _, ex = _two_phase_ex(raw, cap, valid, slope)
+    num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh)
     den = seg.segment_sum(ex, rcv, n)
-    return num, den, cap, code.to(torch.int32)
+    inv = _safe_inverse(den, eps)
+    return (num.view(n, nh, d // nh) * inv[:, :, None]).reshape(n, d), den
+
+
+def attention_backward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
+                                       valid, eps: float, slope: float, g,
+                                       out, den, need_drop: bool):
+    """(d_h rows (E, D) in slot order, d_drop (E, nh) | None, d_s_dst
+    (N, nh), d_a_src (D, nh), d_cap ()) of the 2-phase op: d(pre) takes
+    the slope where pre <= 0, d(raw) = d(pre), d(cap) = -sum d(raw)."""
+    return attention_backward_plain(h, a_src, s_dst, drop, snd, rcv, valid,
+                                    slope, g, out, den, eps, need_drop,
+                                    cap=cap)
 
 
 def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
                              slope: float, g, out, den, epsp,
-                             need_drop: bool, normalize: bool = True):
+                             need_drop: bool, normalize: bool = True,
+                             cap=None):
     """(d_h rows (E, D) in slot order, d_drop (E, nh) | None,
     d_s_dst (N, nh), d_a_src (D, nh)) of the op before the cap chain;
     the rows of slots that are no edges are 0.
 
     normalize=False is the parts mode: `g` carries d(num) and `den`
     carries d(den), the raw cotangents of the unnormalised parts; `out`
-    and `epsp` are not read (the caller's epilogue owns the quotient)."""
+    and `epsp` are not read (the caller's epilogue owns the quotient).
+    cap: the 2-phase op's cap (a () tensor): ex = exp(leaky(raw - cap)),
+    `epsp` is the plain eps, and d_cap () = -sum d(raw) comes fifth."""
     n, nh = s_dst_eff.shape
     e, d = snd.shape[0], h.shape[1]
     f = d // nh
     h_e, raw, rcv_in = _edge_logits(h, a_src, s_dst_eff, snd, rcv)
     if normalize:
-        inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
+        inv = _safe_inverse(den, epsp)
         d_den = -(out * g).view(n, nh, f).sum(2) * inv
     else:
         inv, d_den = torch.ones_like(den), den
-    ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
+    if cap is None:
+        ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
+    else:
+        pre, ex = _two_phase_ex(raw, cap, valid, slope)
     g_e = g.index_select(0, rcv_in)
     inv_e = inv.index_select(0, rcv_in)
     m = torch.ones_like(ex) if drop is None else drop
     hg = (h_e * g_e).view(e, nh, f).sum(2)
-    d_raw = slope * ex * (hg * inv_e * m + d_den.index_select(0, rcv_in))
+    if cap is None:     # the negative branch everywhere (raw' <= cap')
+        d_raw = slope * ex * (hg * inv_e * m + d_den.index_select(0, rcv_in))
+    else:
+        d_lg = ex * (hg * inv_e * m + d_den.index_select(0, rcv_in))
+        d_raw = torch.where(pre > 0, d_lg, slope * d_lg)
     coef = ex * m * inv_e
     d_h_rows = d_raw @ a_src.t() + (coef[:, :, None]
                                     * g_e.view(e, nh, f)).reshape(e, d)
     d_drop = hg * ex * inv_e if need_drop else None
-    d_sdst = seg.segment_sum(d_raw, rcv, n)
-    d_asrc = h_e.t() @ d_raw
-    return d_h_rows, d_drop, d_sdst, d_asrc
+    grads = (d_h_rows, d_drop, seg.segment_sum(d_raw, rcv, n),
+             h_e.t() @ d_raw)
+    return grads if cap is None else grads + (-d_raw.sum(),)
 
 
 def _real_prefix(senders, receivers, e_real):
@@ -153,6 +237,31 @@ def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
         h, a_src, s_dst_eff, drop,
         *_real_prefix(senders, receivers, e_real), slope, g, out, den,
         epsp, need_drop, normalize)
+
+
+def v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real: int):
+    """(cap, code) over the dst-sorted edges e < e_real."""
+    return attention_cap_plain(h, a_src, s_dst,
+                               *_real_prefix(senders, receivers, e_real))
+
+
+def v5_forward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
+                               receivers, e_real: int, eps: float,
+                               slope: float):
+    """(out, den) of the 2-phase forward over the edges e < e_real."""
+    return attention_forward_two_phase_plain(
+        h, a_src, s_dst, cap, drop,
+        *_real_prefix(senders, receivers, e_real), eps, slope)
+
+
+def v5_backward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
+                                receivers, e_real: int, eps: float,
+                                slope: float, g, out, den, need_drop: bool):
+    """(d_h rows in dst order, d_drop, d_s_dst, d_a_src, d_cap)."""
+    return attention_backward_two_phase_plain(
+        h, a_src, s_dst, cap, drop,
+        *_real_prefix(senders, receivers, e_real), eps, slope, g, out, den,
+        need_drop)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -249,6 +358,77 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
+def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int):
+    dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, None, senders,
+                                     receivers, e_real)
+    row_ptr = build.csr_offsets(receivers, n)
+    nblk = build.grid_blocks(n)
+    blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
+    blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
+    cap = torch.empty((), dtype=torch.float32, device=dev)
+    code = torch.empty((), dtype=torch.int32, device=dev)
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().v5_cap(
+            p(h), p(a_src), p(s_dst), p(senders), p(row_ptr), n, e_real, d,
+            nh, d // nh, p(blk_max), p(blk_code), p(cap), p(code), nblk,
+            build.stream(dev))
+    build.check(err, "v5_cap")
+    build.LAUNCHES["v5_cap"] += 1
+    return cap, code
+
+
+def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
+                               receivers, e_real: int, eps: float,
+                               slope: float):
+    dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
+                                     receivers, e_real)
+    build.require(cap, "cap", dev, torch.float32, ())
+    row_ptr = build.csr_offsets(receivers, n)
+    nblk = build.grid_blocks(n)
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    den = torch.empty((n, nh), dtype=torch.float32, device=dev)
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().v5_forward_two_phase(
+            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(senders),
+            p(row_ptr), n, e_real, d, nh, d // nh, eps, slope, p(out),
+            p(den), nblk, build.stream(dev))
+    build.check(err, "v5_forward_two_phase")
+    build.LAUNCHES["v5_forward_two_phase"] += 1
+    return out, den
+
+
+def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
+                                receivers, e_real: int, eps: float,
+                                slope: float, g, out, den, need_drop: bool):
+    dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
+                                     receivers, e_real)
+    build.require(cap, "cap", dev, torch.float32, ())
+    for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
+                           (den, "den", (n, nh))):
+        build.require(t, name, dev, torch.float32, shape)
+    row_ptr = build.csr_offsets(receivers, n)
+    nblk = build.grid_blocks(n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_h_rows = torch.empty((e, d), **f32)
+    d_drop = torch.empty((e, nh), **f32) if need_drop else None
+    d_sdst = torch.empty((n, nh), **f32)
+    part = torch.empty((nblk, d * nh + 1), **f32)
+    d_asrc_cap = torch.empty((d * nh + 1,), **f32)
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().v5_backward_two_phase(
+            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(senders),
+            p(row_ptr), n, e_real, d, nh, d // nh, eps, slope, p(g), p(out),
+            p(den), p(d_h_rows), p(d_drop), p(d_sdst), p(part),
+            p(d_asrc_cap), nblk, build.stream(dev))
+    build.check(err, "v5_backward_two_phase")
+    build.LAUNCHES["v5_backward_two_phase"] += 1
+    return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
+            d_asrc_cap[d * nh])
+
+
 def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
                e_real: int, slope: float, dst_ptr=None):
     """Kernel on CUDA tensors, plain version on CPU tensors. dst_ptr: the
@@ -257,10 +437,9 @@ def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
     if h.is_cuda:
         return _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders,
                                 receivers, e_real, slope, dst_ptr)
-    if h.device.type == "cpu":
-        return v5_forward_plain(h, a_src, s_dst_eff, drop, senders,
-                                receivers, e_real, slope)
-    raise ValueError(f"no kernel for device {h.device}")
+    build.require_cpu(h)
+    return v5_forward_plain(
+        h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope)
 
 
 def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
@@ -274,11 +453,50 @@ def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
                                  epsp, need_drop, normalize, dst_ptr)
-    if h.device.type == "cpu":
-        return v5_backward_plain(h, a_src, s_dst_eff, drop, senders,
-                                 receivers, e_real, slope, g, out, den,
-                                 epsp, need_drop, normalize)
-    raise ValueError(f"no kernel for device {h.device}")
+    build.require_cpu(h)
+    return v5_backward_plain(
+        h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g,
+        out, den, epsp, need_drop, normalize)
+
+
+def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int):
+    """(cap (), code () int32): the 2-phase cap pass. Kernel on CUDA
+    tensors (cap and code stay in device memory), plain version on CPU
+    tensors."""
+    if h.is_cuda:
+        return _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real)
+    build.require_cpu(h)
+    return v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real)
+
+
+def v5_forward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
+                         e_real: int, eps: float, slope: float):
+    """(out, den) of the 2-phase forward from the cap (a () float32
+    tensor on the device). Kernel on CUDA tensors, plain version on CPU
+    tensors."""
+    if h.is_cuda:
+        return _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop,
+                                          senders, receivers, e_real, eps,
+                                          slope)
+    build.require_cpu(h)
+    return v5_forward_two_phase_plain(
+        h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope)
+
+
+def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
+                          e_real: int, eps: float, slope: float, g, out, den,
+                          need_drop: bool):
+    """(d_h rows in dst order, d_drop | None, d_s_dst, d_a_src, d_cap) of
+    the 2-phase op. Kernel on CUDA tensors, plain version on CPU
+    tensors."""
+    if h.is_cuda:
+        return _v5_backward_two_phase_cuda(
+            h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,
+            slope, g, out, den, need_drop)
+    build.require_cpu(h)
+    return v5_backward_two_phase_plain(
+        h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
+        g, out, den, need_drop)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -288,7 +506,7 @@ def normalise(num, den, cap, eps: float, slope: float, nh: int):
     and 0 where a node receives nothing."""
     n, d = num.shape
     epsp = eps * torch.exp(slope * cap)
-    inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
+    inv = _safe_inverse(den, epsp)
     out = (num.view(n, nh, d // nh) * inv[:, :, None]).reshape(n, d)
     return out, epsp
 
@@ -298,7 +516,7 @@ def cap_cotangent(g, out, den, epsp, slope: float, nh: int):
     the output only through eps', so it is closed-form,
     -slope * eps' * sum over (node, head) of (g . out)_head * inv."""
     n, d = out.shape
-    inv = torch.where(den > 0, 1.0 / (den + epsp), torch.zeros_like(den))
+    inv = _safe_inverse(den, epsp)
     gout_h = (g * out).view(n, nh, d // nh).sum(2)
     return -slope * epsp * (gout_h * inv).sum()
 
@@ -355,6 +573,15 @@ class _V5Attention(torch.autograd.Function):
         return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 8
 
 
+def _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f):
+    if (s_dst.shape != (num_nodes, nh)
+            or h_flat.shape != (n_src, nh * f)):
+        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
+                         f"{tuple(s_dst.shape)} do not match num_nodes="
+                         f"{num_nodes}, num_src_nodes={n_src}, nh={nh}, "
+                         f"f={f}")
+
+
 def fused_gat_table_autocap(h_flat: torch.Tensor,
                             a_src: torch.Tensor,
                             s_dst: torch.Tensor,
@@ -366,7 +593,8 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
                             score_bound: Optional[torch.Tensor],
                             num_nodes: int, nh: int, f: int,
                             eps: float = 1e-8,
-                            slope: float = 0.01) -> torch.Tensor:
+                            slope: float = 0.01,
+                            two_phase: bool = False) -> torch.Tensor:
     """Normalised attention output (num_nodes, nh*f) of the reference GAT
     layer, differentiable in h_flat, a_src, s_dst and drop_mask.
 
@@ -376,17 +604,125 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
     pointing at the sink; src_order sorts the edges by sender.
     drop_mask: (E, nh) attention-dropout multipliers or None.
     score_bound: any scalar >= the max raw logit (stop-gradient); None
-    computes it from the score tables."""
-    if s_dst.shape != (num_nodes, nh) or h_flat.shape[1] != nh * f:
-        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
-                         f"{tuple(s_dst.shape)} do not match "
-                         f"num_nodes={num_nodes}, nh={nh}, f={f}")
+    computes it from the score tables. two_phase: the 2-phase form (the
+    JAX package under GAT_TPU_V10=0 or GAT_TPU_V5_MERGED=0): v5_local_cap
+    then fused_gat_table, the cap's cotangent routed to its argmax (edge,
+    head); score_bound is not read there."""
+    _check_table_shapes(h_flat, s_dst, num_nodes, num_nodes, nh, f)
+    if two_phase:
+        cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
+                           num_nodes, nh, f)
+        return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
+                               receivers, src_order, e_real, num_nodes, nh,
+                               f, eps, slope)
     if score_bound is None:
         score_bound = (h_flat @ a_src).max() + s_dst.max()
     return _V5Attention.apply(h_flat.contiguous(), a_src.contiguous(),
                               s_dst, drop_mask, senders, receivers,
                               src_order, score_bound.detach(), int(e_real),
                               nh, eps, slope)
+
+
+class _V5LocalCap(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h_flat, a_src, s_dst, senders, receivers, e_real):
+        cap, code = v5_cap(h_flat, a_src, s_dst, senders, receivers, e_real)
+        ctx.save_for_backward(h_flat, a_src, senders, receivers, code)
+        ctx.s_shape = s_dst.shape
+        return cap
+
+    @staticmethod
+    def backward(ctx, g):
+        h_flat, a_src, senders, receivers, code = ctx.saved_tensors
+        d_h, d_asrc, d_sdst = route_cap_cotangent(
+            torch.zeros_like(h_flat), torch.zeros_like(a_src),
+            h_flat.new_zeros(ctx.s_shape), g, code, senders, receivers,
+            h_flat, a_src, a_src.shape[1])
+        return (d_h, d_asrc, d_sdst) + (None,) * 3
+
+
+def v5_local_cap(h_flat: torch.Tensor,
+                 a_src: torch.Tensor,
+                 s_dst: torch.Tensor,
+                 senders: torch.Tensor,
+                 receivers: torch.Tensor,
+                 e_real: int,
+                 num_nodes: int, nh: int, f: int) -> torch.Tensor:
+    """The max raw logit h[src] . a_src[:, k] + s_dst[dst, k] over the
+    dst-sorted edges e < e_real and heads (a () tensor), differentiable in
+    h_flat, a_src and s_dst: the cotangent goes to the argmax (edge, head),
+    ties to the lowest e*nh + k. s_dst (num_nodes, nh) covers the rows the
+    receivers index; h_flat may have more rows than num_nodes (the
+    senders index it)."""
+    if s_dst.shape != (num_nodes, nh) or h_flat.shape[1] != nh * f:
+        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
+                         f"{tuple(s_dst.shape)} do not match "
+                         f"num_nodes={num_nodes}, nh={nh}, f={f}")
+    return _V5LocalCap.apply(h_flat.contiguous(), a_src.contiguous(),
+                             s_dst.contiguous(), senders, receivers,
+                             int(e_real))
+
+
+class _V5TwoPhase(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, senders,
+                receivers, src_order, e_real, eps, slope):
+        out, den = v5_forward_two_phase(h_flat, a_src, s_dst, cap,
+                                        drop_mask, senders, receivers,
+                                        e_real, eps, slope)
+        ctx.save_for_backward(h_flat, a_src, s_dst, cap, drop_mask, senders,
+                              receivers, src_order, out, den)
+        ctx.e_real, ctx.eps, ctx.slope = e_real, eps, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (h_flat, a_src, s_dst, cap, drop_mask, senders, receivers, src_order,
+         out, den) = ctx.saved_tensors
+        need_drop = drop_mask is not None and ctx.needs_input_grad[4]
+        d_h_rows, d_drop, d_sdst, d_asrc, d_cap = v5_backward_two_phase(
+            h_flat, a_src, s_dst, cap, drop_mask, senders, receivers,
+            ctx.e_real, ctx.eps, ctx.slope, g.contiguous(), out, den,
+            need_drop)
+        # senders index the h table, which may have more rows than the
+        # destinations: d(h) is reduced to the table's rows
+        d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0],
+                        ctx.e_real)
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 6
+
+
+def fused_gat_table(h_flat: torch.Tensor,
+                    a_src: torch.Tensor,
+                    s_dst: torch.Tensor,
+                    cap: torch.Tensor,
+                    drop_mask: Optional[torch.Tensor],
+                    senders: torch.Tensor,
+                    receivers: torch.Tensor,
+                    src_order: torch.Tensor,
+                    e_real: int,
+                    num_nodes: int, nh: int, f: int,
+                    eps: float = 1e-8,
+                    slope: float = 0.01,
+                    num_src_nodes: Optional[int] = None) -> torch.Tensor:
+    """The 2-phase whole-attention op with the cap given:
+        out[n] = sum_e [recv_e = n] drop_e ex_e h[send_e] / (den[n] + eps),
+        ex_e = exp(leaky_slope(h[send_e] . a_src + s_dst[recv_e] - cap)),
+    0 where a node receives no real edge; (num_nodes, nh*f),
+    differentiable in h_flat, a_src, s_dst, cap (the kernel's d(cap) =
+    -sum of d(raw)) and drop_mask. cap: a () tensor, any caller's
+    (v5_local_cap gives the reference's); the full LeakyReLU applies, so
+    logits above it are fine. num_src_nodes: the rows of h_flat when they
+    are more than num_nodes (senders index h_flat, receivers and s_dst
+    cover num_nodes rows; d(h_flat) has h_flat's rows)."""
+    n_src = num_nodes if num_src_nodes is None else num_src_nodes
+    _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f)
+    cap = torch.as_tensor(cap, dtype=torch.float32, device=h_flat.device)
+    return _V5TwoPhase.apply(h_flat.contiguous(), a_src.contiguous(),
+                             s_dst.contiguous(), cap.reshape(()), drop_mask,
+                             senders, receivers, src_order, int(e_real), eps,
+                             slope)
 
 
 class _V5Sweep1Parts(torch.autograd.Function):
@@ -462,12 +798,7 @@ def v5_sweep1_parts(h_flat: torch.Tensor,
     ((rows of h_flat + 1,)), where the caller built them with the graph;
     they are computed per call otherwise."""
     n_src = num_nodes if num_src_nodes is None else num_src_nodes
-    if (s_dst.shape != (num_nodes, nh)
-            or h_flat.shape != (n_src, nh * f)):
-        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
-                         f"{tuple(s_dst.shape)} do not match num_nodes="
-                         f"{num_nodes}, num_src_nodes={n_src}, nh={nh}, "
-                         f"f={f}")
+    _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f)
     return _V5Sweep1Parts.apply(
         h_flat.contiguous(), a_src.contiguous(), s_dst.contiguous(),
         drop_mask, senders, receivers, src_order, dst_ptr, src_ptr,

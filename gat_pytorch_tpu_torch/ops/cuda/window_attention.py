@@ -18,6 +18,20 @@ cap is the lowest slot*nh + head. The layout's `window`, `wb`, `base`,
 `tile_base`, `tile_ptr` and `dmax` size the TPU kernel's streamed windows;
 the CUDA kernels gather rows directly and walk the slots through the
 layout's `dst_perm`/`dst_ptr` and `src_perm`/`src_ptr` instead.
+
+The 2-phase form of the same op (the JAX package's v7 path under
+GAT_TPU_V10=0: `_kernel_v6` and `_kernel_v6_bwd` with sweep1=False) is
+fused_gat_window_v7(two_phase=True): the kernel entries window_cap,
+window_forward_two_phase and window_backward_two_phase, the contract of
+v5_attention.fused_gat_table over the layout's slots (code slot*nh + head).
+
+fused_gat_window is the v6 form (segment_attention_window.py:1630), the
+2-phase op over the graph's own dst-sorted edges. Its `tile_lo` and
+`window` size the TPU kernel's streamed VMEM window, which it needs for
+its one-hot MXU gather; Hopper gathers rows at random, so on the card the
+op is v5_attention's 2-phase pair (v5_cap, v5_forward_two_phase,
+v5_backward_two_phase) over the graph's CSR, with d(h) reduced by a stable
+sort of the senders. That is the Hopper algorithm for that contract.
 """
 
 from __future__ import annotations
@@ -31,8 +45,11 @@ from ...graph.graph import BlockLayout
 from . import build
 from .segment_sum import dh_reduce_ptr
 from .v5_attention import (MAX_HEADS, attention_backward_plain,
-                           attention_forward_plain, cap_cotangent, normalise,
-                           route_cap_cotangent)
+                           attention_backward_two_phase_plain,
+                           attention_cap_plain, attention_forward_plain,
+                           attention_forward_two_phase_plain, cap_cotangent,
+                           fused_gat_table, normalise, route_cap_cotangent,
+                           v5_local_cap)
 
 _KERNEL = "window_attention"
 _configured = False
@@ -52,6 +69,16 @@ def _lib() -> ctypes.CDLL:
         lib.window_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl]
                                               + [p] * 7 + [i, p])
         lib.window_backward_parts.restype = ctypes.c_int
+        lib.window_cap.argtypes = [p] * 6 + [i] * 4 + [p] * 4 + [i, p]
+        lib.window_cap.restype = ctypes.c_int
+        lib.window_forward_two_phase.argtypes = ([p] * 8 + [i] * 4
+                                                 + [fl] * 2 + [p] * 2
+                                                 + [i, p])
+        lib.window_forward_two_phase.restype = ctypes.c_int
+        lib.window_backward_two_phase.argtypes = ([p] * 8 + [i] * 5
+                                                  + [fl] * 2 + [p] * 8
+                                                  + [i, p])
+        lib.window_backward_two_phase.restype = ctypes.c_int
         _configured = True
     return lib
 
@@ -83,6 +110,32 @@ def window_backward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop, *_slots(layout, s_dst_eff.shape[0]),
         slope, g, out, den, epsp, need_drop, normalize)
+
+
+def window_cap_plain(h, a_src, s_dst, layout: BlockLayout):
+    """(cap (), code () int32) over the real slots, code slot*nh + head."""
+    n = s_dst.shape[0]
+    return attention_cap_plain(h, a_src, s_dst, *_slots(layout, n))
+
+
+def window_forward_two_phase_plain(h, a_src, s_dst, cap, drop,
+                                   layout: BlockLayout, eps: float,
+                                   slope: float):
+    """(out (N, D), den (N, nh)) of the 2-phase forward over the slots."""
+    return attention_forward_two_phase_plain(
+        h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
+        slope)
+
+
+def window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
+                                    layout: BlockLayout, eps: float,
+                                    slope: float, g, out, den,
+                                    need_drop: bool):
+    """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop | None,
+    d_s_dst, d_a_src, d_cap) of the 2-phase op over the slots."""
+    return attention_backward_two_phase_plain(
+        h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
+        slope, g, out, den, need_drop)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -169,14 +222,77 @@ def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
+def _window_cap_cuda(h, a_src, s_dst, layout):
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, None, layout)
+    nblk = build.grid_blocks(n)
+    blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
+    blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
+    cap = torch.empty((), dtype=torch.float32, device=dev)
+    code = torch.empty((), dtype=torch.int32, device=dev)
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().window_cap(
+            p(h), p(a_src), p(s_dst), p(layout.send), p(layout.dst_perm),
+            p(layout.dst_ptr), n, d, nh, d // nh, p(blk_max), p(blk_code),
+            p(cap), p(code), nblk, build.stream(dev))
+    build.check(err, "window_cap")
+    build.LAUNCHES["window_cap"] += 1
+    return cap, code
+
+
+def _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
+                                   eps: float, slope: float):
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout)
+    build.require(cap, "cap", dev, torch.float32, ())
+    nblk = build.grid_blocks(n)
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    den = torch.empty((n, nh), dtype=torch.float32, device=dev)
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().window_forward_two_phase(
+            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(layout.send),
+            p(layout.dst_perm), p(layout.dst_ptr), n, d, nh, d // nh, eps,
+            slope, p(out), p(den), nblk, build.stream(dev))
+    build.check(err, "window_forward_two_phase")
+    build.LAUNCHES["window_forward_two_phase"] += 1
+    return out, den
+
+
+def _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
+                                    eps: float, slope: float, g, out, den,
+                                    need_drop: bool):
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout)
+    build.require(cap, "cap", dev, torch.float32, ())
+    for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
+                           (den, "den", (n, nh))):
+        build.require(t, name, dev, torch.float32, shape)
+    nblk = build.grid_blocks(n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_h_rows = torch.empty((e7, d), **f32)
+    d_drop = torch.empty((e7, nh), **f32) if need_drop else None
+    d_sdst = torch.empty((n, nh), **f32)
+    part = torch.empty((nblk, d * nh + 1), **f32)
+    d_asrc_cap = torch.empty((d * nh + 1,), **f32)
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib().window_backward_two_phase(
+            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(layout.send),
+            p(layout.dst_perm), p(layout.dst_ptr), n, e7, d, nh, d // nh,
+            eps, slope, p(g), p(out), p(den), p(d_h_rows), p(d_drop),
+            p(d_sdst), p(part), p(d_asrc_cap), nblk, build.stream(dev))
+    build.check(err, "window_backward_two_phase")
+    build.LAUNCHES["window_backward_two_phase"] += 1
+    return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
+            d_asrc_cap[d * nh])
+
+
 def window_forward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
                    slope: float):
     """Kernel on CUDA tensors, plain version on CPU tensors."""
     if h.is_cuda:
         return _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope)
-    if h.device.type == "cpu":
-        return window_forward_plain(h, a_src, s_dst_eff, drop, layout, slope)
-    raise ValueError(f"no kernel for device {h.device}")
+    build.require_cpu(h)
+    return window_forward_plain(h, a_src, s_dst_eff, drop, layout, slope)
 
 
 def window_backward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
@@ -190,11 +306,47 @@ def window_backward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
         return _window_backward_cuda(h, a_src, s_dst_eff, drop, layout,
                                      slope, g, out, den, epsp, need_drop,
                                      normalize)
-    if h.device.type == "cpu":
-        return window_backward_plain(h, a_src, s_dst_eff, drop, layout,
-                                     slope, g, out, den, epsp, need_drop,
-                                     normalize)
-    raise ValueError(f"no kernel for device {h.device}")
+    build.require_cpu(h)
+    return window_backward_plain(h, a_src, s_dst_eff, drop, layout, slope,
+                                 g, out, den, epsp, need_drop, normalize)
+
+
+def window_cap(h, a_src, s_dst, layout: BlockLayout):
+    """(cap, code) of the 2-phase cap pass over the real slots. Kernel on
+    CUDA tensors, plain version on CPU tensors."""
+    if h.is_cuda:
+        return _window_cap_cuda(h, a_src, s_dst, layout)
+    build.require_cpu(h)
+    return window_cap_plain(h, a_src, s_dst, layout)
+
+
+def window_forward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
+                             eps: float, slope: float):
+    """(out, den) of the 2-phase forward from the cap (a () float32
+    tensor on the device). Kernel on CUDA tensors, plain version on CPU
+    tensors."""
+    if h.is_cuda:
+        return _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop,
+                                              layout, eps, slope)
+    build.require_cpu(h)
+    return window_forward_two_phase_plain(h, a_src, s_dst, cap, drop, layout,
+                                          eps, slope)
+
+
+def window_backward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
+                              eps: float, slope: float, g, out, den,
+                              need_drop: bool):
+    """(d_h rows in slot order, d_drop | None, d_s_dst, d_a_src, d_cap)
+    of the 2-phase op. Kernel on CUDA tensors (pad rows unwritten there),
+    plain version on CPU tensors."""
+    if h.is_cuda:
+        return _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop,
+                                               layout, eps, slope, g, out,
+                                               den, need_drop)
+    build.require_cpu(h)
+    return window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
+                                           layout, eps, slope, g, out, den,
+                                           need_drop)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -230,6 +382,58 @@ class _WindowAttention(torch.autograd.Function):
         return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 5
 
 
+def _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f):
+    if (h_flat.shape != (num_nodes, nh * f)
+            or s_dst.shape != (num_nodes, nh)
+            or layout.dst_ptr.shape[0] != num_nodes + 1):
+        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
+                         f"{tuple(s_dst.shape)}, layout over "
+                         f"{layout.dst_ptr.shape[0] - 1} nodes do not match "
+                         f"num_nodes={num_nodes}, nh={nh}, f={f}")
+
+
+class _WindowCap(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h_flat, a_src, s_dst, layout):
+        cap, code = window_cap(h_flat, a_src, s_dst, layout)
+        ctx.save_for_backward(h_flat, a_src, code)
+        ctx.layout, ctx.s_shape = layout, s_dst.shape
+        return cap
+
+    @staticmethod
+    def backward(ctx, g):
+        h_flat, a_src, code = ctx.saved_tensors
+        d_h, d_asrc, d_sdst = route_cap_cotangent(
+            torch.zeros_like(h_flat), torch.zeros_like(a_src),
+            h_flat.new_zeros(ctx.s_shape), g, code, ctx.layout.send,
+            ctx.layout.recv, h_flat, a_src, a_src.shape[1])
+        return d_h, d_asrc, d_sdst, None
+
+
+class _WindowTwoPhase(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, layout, eps,
+                slope):
+        out, den = window_forward_two_phase(h_flat, a_src, s_dst, cap,
+                                            drop_mask, layout, eps, slope)
+        ctx.save_for_backward(h_flat, a_src, s_dst, cap, drop_mask, out, den)
+        ctx.layout, ctx.eps, ctx.slope = layout, eps, slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h_flat, a_src, s_dst, cap, drop_mask, out, den = ctx.saved_tensors
+        layout = ctx.layout
+        need_drop = drop_mask is not None and ctx.needs_input_grad[4]
+        d_h_rows, d_drop, d_sdst, d_asrc, d_cap = window_backward_two_phase(
+            h_flat, a_src, s_dst, cap, drop_mask, layout, ctx.eps, ctx.slope,
+            g.contiguous(), out, den, need_drop)
+        d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 3
+
+
 def fused_gat_window_v7(h_flat: torch.Tensor,
                         a_src: torch.Tensor,
                         s_dst: torch.Tensor,
@@ -238,7 +442,8 @@ def fused_gat_window_v7(h_flat: torch.Tensor,
                         score_bound: Optional[torch.Tensor],
                         num_nodes: int, nh: int, f: int,
                         eps: float = 1e-8,
-                        slope: float = 0.01) -> torch.Tensor:
+                        slope: float = 0.01,
+                        two_phase: bool = False) -> torch.Tensor:
     """Normalised attention output (num_nodes, nh*f) of the reference GAT
     layer over the edges of `layout`, differentiable in h_flat, a_src,
     s_dst and drop_mask.
@@ -250,19 +455,62 @@ def fused_gat_window_v7(h_flat: torch.Tensor,
     eb, nb and dmax arguments.
     drop_mask: (E7, nh) attention-dropout multipliers in slot order, or
     None. score_bound: any scalar >= the max raw logit (stop-gradient);
-    None computes it from the score tables."""
-    if (h_flat.shape != (num_nodes, nh * f)
-            or s_dst.shape != (num_nodes, nh)
-            or layout.dst_ptr.shape[0] != num_nodes + 1):
-        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
-                         f"{tuple(s_dst.shape)}, layout over "
-                         f"{layout.dst_ptr.shape[0] - 1} nodes do not match "
-                         f"num_nodes={num_nodes}, nh={nh}, f={f}")
+    None computes it from the score tables. two_phase: the 2-phase form
+    (the JAX package under GAT_TPU_V10=0): the cap pass over the slots,
+    then the attention pass with that cap, whose cotangent goes to the
+    argmax (slot, head); score_bound is not read there."""
+    _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f)
+    h_flat, a_src = h_flat.contiguous(), a_src.contiguous()
+    if two_phase:
+        s_dst = s_dst.contiguous()
+        cap = _WindowCap.apply(h_flat, a_src, s_dst, layout)
+        return _WindowTwoPhase.apply(h_flat, a_src, s_dst, cap, drop_mask,
+                                     layout, eps, slope)
     if score_bound is None:
         score_bound = (h_flat @ a_src).max() + s_dst.max()
-    return _WindowAttention.apply(h_flat.contiguous(), a_src.contiguous(),
-                                  s_dst, drop_mask, layout,
+    return _WindowAttention.apply(h_flat, a_src, s_dst, drop_mask, layout,
                                   score_bound.detach(), nh, eps, slope)
+
+
+def fused_gat_window(h_flat: torch.Tensor,
+                     a_src: torch.Tensor,
+                     s_dst: torch.Tensor,
+                     drop_mask: Optional[torch.Tensor],
+                     senders: torch.Tensor,
+                     receivers: torch.Tensor,
+                     e_real: int,
+                     tile_lo: torch.Tensor,
+                     num_nodes: int, nh: int, f: int,
+                     window: int,
+                     eps: float = 1e-8,
+                     slope: float = 0.01, *,
+                     src_order: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The v6 form: the 2-phase whole-attention op over the graph's own
+    dst-sorted edges (real edges first, e < e_real), its global cap taken
+    in a pass of its own; (num_nodes, nh*f), differentiable in h_flat,
+    a_src, s_dst and drop_mask ((E, nh) in graph edge order, or None).
+
+    tile_lo ((ceil(num_nodes / 128),) int32, per 128-row destination tile
+    the lowest sender) and window (the rows of the streamed sender window)
+    size the TPU kernel's VMEM window for its one-hot MXU gather. Hopper
+    gathers rows at random, so the Hopper algorithm for this contract is
+    v5_local_cap then fused_gat_table over the graph's CSR (the kernels
+    v5_cap, v5_forward_two_phase, v5_backward_two_phase), d(h) reduced by
+    the stable sender sort src_order (Graph.src_order; computed per call
+    where the caller has none). tile_lo and window are checked, not read."""
+    tiles = -(-num_nodes // 128)
+    if tuple(tile_lo.shape) != (tiles,) or window < 1:
+        raise ValueError(f"tile_lo of shape {tuple(tile_lo.shape)} and "
+                         f"window {window}: expected ({tiles},) and >= 1 "
+                         f"for num_nodes={num_nodes}")
+    if src_order is None:
+        src_order = torch.argsort(senders, stable=True).to(torch.int32)
+    cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
+                       num_nodes, nh, f)
+    return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
+                           receivers, src_order, e_real, num_nodes, nh, f,
+                           eps, slope)
 
 
 class _WindowSweep1Parts(torch.autograd.Function):
@@ -310,13 +558,7 @@ def v7_sweep1_parts(h_flat: torch.Tensor,
     differentiable; `eps` is the caller's epilogue's and is not read
     here. On a hybrid layout the slots hold the in-window edges only;
     the remainder (layout.rem_*) is another op's."""
-    if (h_flat.shape != (num_nodes, nh * f)
-            or s_dst.shape != (num_nodes, nh)
-            or layout.dst_ptr.shape[0] != num_nodes + 1):
-        raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
-                         f"{tuple(s_dst.shape)}, layout over "
-                         f"{layout.dst_ptr.shape[0] - 1} nodes do not match "
-                         f"num_nodes={num_nodes}, nh={nh}, f={f}")
+    _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f)
     return _WindowSweep1Parts.apply(h_flat.contiguous(), a_src.contiguous(),
                                     s_dst.contiguous(), drop_mask, layout,
                                     nh, slope)

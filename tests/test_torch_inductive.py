@@ -42,6 +42,8 @@ from gat_pytorch_tpu_torch.train.trainer import Trainer as TTrainer
 from gat_pytorch_tpu_torch.utils import config as tconfig
 from gat_pytorch_tpu_torch.utils.convert import params_from_jax
 
+from .test_torch_knobs import default_knobs  # noqa: F401
+
 RAW_FIELDS = ("x", "senders", "receivers", "y")
 GRAPH_FIELDS = ("x", "senders", "receivers", "edge_mask", "node_mask", "y",
                 "graph_ids", "src_order")

@@ -46,6 +46,7 @@ from gat_pytorch_tpu_torch.train.tasks import planetoid_task as ttask
 from gat_pytorch_tpu_torch.train.tasks import ppi_task as tppi_task
 from gat_pytorch_tpu_torch.utils.convert import params_from_jax
 
+from .test_torch_knobs import default_knobs  # noqa: F401
 from .test_torch_layout import clustered
 
 TOL = dict(rtol=1e-4, atol=1e-5)

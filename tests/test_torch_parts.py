@@ -25,16 +25,12 @@ from gat_pytorch_tpu_torch.graph import transforms as TT
 from gat_pytorch_tpu_torch.ops.cuda import v5_attention as tv5
 from gat_pytorch_tpu_torch.ops.cuda import window_attention as tw
 
+from .test_torch_knobs import default_knobs  # noqa: F401
 from .test_torch_layout import clustered
 
 SLOPE = 0.01
 EPS = 1e-8
 SHAPES = [(8, 8), (8, 3), (2, 8), (4, 32)]
-
-
-@pytest.fixture(autouse=True)
-def _float32_contractions(monkeypatch):
-    monkeypatch.setenv("GAT_TPU_V6_DTYPE", "float32")
 
 
 def op_inputs(rng, n_src, n, nh, f, slots, dropout):
@@ -83,11 +79,16 @@ def torch_run(c, parts):
 
 
 def assert_close(got, want, atol, names):
+    """Each pair within atol after dividing by max(|want|, 1); a failure
+    names the worst element, its two values and the scale."""
     assert len(got) == len(want)
     for a, b, nm in zip(got, want, names):
         scale = max(float(np.abs(b).max()), 1.0)
-        np.testing.assert_allclose(a / scale, b / scale, rtol=0, atol=atol,
-                                   err_msg=nm)
+        worst = np.unravel_index(np.argmax(np.abs(a - b)), np.shape(b))
+        np.testing.assert_allclose(
+            a / scale, b / scale, rtol=0, atol=atol,
+            err_msg=f"{nm}: worst at {worst}: {np.asarray(a)[worst]!r} "
+                    f"against {np.asarray(b)[worst]!r}, scale {scale}")
 
 
 def assert_same(c, jparts, tparts, nh):

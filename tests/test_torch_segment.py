@@ -17,6 +17,8 @@ from gat_pytorch_tpu.ops.pallas import segment_sum as jss
 from gat_pytorch_tpu_torch.ops import segment as tseg
 from gat_pytorch_tpu_torch.ops.cuda import segment_sum as tss
 
+from .test_torch_knobs import default_knobs  # noqa: F401
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

@@ -20,6 +20,8 @@ import torch
 from gat_pytorch_tpu.ops.pallas import segment_attention as jfsa
 from gat_pytorch_tpu_torch.ops.cuda import table_attention as tta
 
+from .test_torch_knobs import default_knobs  # noqa: F401
+
 
 def make_case(nh, f, seed=3, n=256, e_real=700, pad=36, dropout=False,
               eps=1e-8, kind="capped", with_order=True, recv_nodes=None):

@@ -17,6 +17,8 @@ import torch
 from gat_pytorch_tpu.ops.pallas import segment_attention as jfsa
 from gat_pytorch_tpu_torch.ops.cuda import v5_attention as tv5
 
+from .test_torch_knobs import default_knobs  # noqa: F401
+
 SLOPE = 0.01
 
 

@@ -23,12 +23,9 @@ from gat_pytorch_tpu.ops.pallas import segment_attention_window as jfsw
 from gat_pytorch_tpu_torch.graph import transforms as TT
 from gat_pytorch_tpu_torch.ops.cuda import window_attention as tw
 
+from .test_torch_knobs import default_knobs  # noqa: F401
+
 SLOPE = 0.01
-
-
-@pytest.fixture(autouse=True)
-def _float32_contractions(monkeypatch):
-    monkeypatch.setenv("GAT_TPU_V6_DTYPE", "float32")
 
 
 def banded_edges(seed, n=1500, e=9000, band=400):
