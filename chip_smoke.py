@@ -5,8 +5,9 @@
 
     python3 chip_smoke.py --checks-only    (phases 1-2, then stop)
 
-Six paths, and three 2-phase forms, each at the full width and depth of
-its configuration on the synthetic stand-in of its dataset:
+Six paths, three 2-phase forms and the bfloat16 modes, each at the full
+width and depth of its configuration on the synthetic stand-in of its
+dataset:
   Cora    `cli.train --dataset Cora`: the v5 attention op (kernels
           v5_forward, v5_backward, segment_sum_rows);
   Pubmed  `cli.train --dataset Pubmed --reorder rcm`: RCM reorder, block
@@ -34,12 +35,27 @@ its configuration on the synthetic stand-in of its dataset:
           (window_cap, window_forward_two_phase,
           window_backward_two_phase, segment_sum_rows);
   Pubmed cluster two-phase (GAT_TPU_V10=0, cluster order): the v6 form,
-          the v5 2-phase kernels over the graph's own edges.
+          the v5 2-phase kernels over the graph's own edges;
+  and the JAX package's bfloat16 numerics (the float32 fits above pin
+  GAT_TPU_V6_DTYPE=float32): with GAT_TPU_GEMM_DTYPE=bfloat16 (bench.py's
+  numerics) and the windowed op's default bfloat16 payload, Pubmed bf16
+          (RCM: window_forward_bf16, window_backward_bf16 in the packed
+          window mode), Pubmed two-phase bf16, Pubmed cluster bf16 and
+          Pubmed cluster two-phase bf16 (the v6 form's bfloat16 mode on the
+          v5 2-phase kernels); with GAT_TPU_KERNEL_DTYPE, GAT_TPU_H_DTYPE,
+          GAT_TPU_GEMM_DTYPE = bfloat16 and GAT_TPU_DH_REDUCE_NT=0, Cora
+          bf16 kernels (v5_forward_bf16, v5_backward_bf16 on a bfloat16 h
+          table, and segment_sum_rows_t, the feature-major d(h) reduce),
+          PPI paper_faithful bf16 (table_forward_bf16, table_backward_bf16,
+          segment_sum_rows_t), and two more that reach the remaining
+          modes: Cora two-phase bf16 kernels (v5_cap_bf16) and Pubmed
+          cluster bf16 kernels (v5_backward_parts_bf16).
 
 Phases (every failure is fatal):
   1. build the CUDA kernels from gat_pytorch_tpu_torch/ops/cuda/csrc
-     (one nvcc per source, started together) and print the card's name
-     and power limit as nvidia-smi gives them;
+     (one nvcc per library, started together: each source, and the three
+     attention sources again for a bfloat16 h table) and print the card's
+     name and power limit as nvidia-smi gives them;
   2. at each path's layer shapes (Cora 8 heads x 8 features and 1 x 7;
      Pubmed 8 x 8 and 8 x 3; PPI 4 x 256 and 6 x 121; PATTERN 4 x 12,
      4 x 24 and 1 x 1) on its graph or on one batch of its graphs, run
@@ -61,7 +77,13 @@ Phases (every failure is fatal):
      cluster-ordered edge list, at the cap, above and below it, eps =
      1e-8 and 1, with and without dropout, each launched twice; and
      fused_gat_table with v5_local_cap on more source rows than
-     destinations;
+     destinations; every bfloat16 mode of every entry (the flags word of
+     ops/cuda/rounding.py) at the cells' layer shapes, against its plain
+     version in the same mode and in float32 on the same inputs (within
+     1e-2 of the scale, and 10x nearer the same mode's plain version than
+     the float32 one, in RMS, wherever the mode moves an output), launched
+     twice for equal bits; and segment_sum_rows_t against its plain version
+     and against segment_sum_rows's bits;
   3. train each stand-in for the epochs of CELLS through the port's
      Trainer (the code the CLI runs), with every launch counter set to 0
      just before and read just after; the train loss must be finite and
@@ -72,11 +94,16 @@ Phases (every failure is fatal):
      path also against the v5 kernel path on the same reordered graph
      without its block layout; a 2-phase model also against the
      single-sweep kernel path);
-     then two PPI paper_faithful fits and two hybrid Pubmed fits of a
-     few epochs, each pair from one seed, must give the same bits in
-     every epoch's losses and in every parameter;
-  5. time each kernel (CUDA graph replays), its plain version and, where
-     one PyTorch call computes the same function, that call; time the
+     a bfloat16 model against the float32 kernel path and the segment path
+     of the same model at 1e-2 of the scale, and it must differ from the
+     float32 kernel path by more than 10x the float32 paths' own difference
+     (the mode is live);
+     then two PPI paper_faithful fits, two hybrid Pubmed fits and two
+     Pubmed bf16 fits of a few epochs, each pair from one seed, must give
+     the same bits in every epoch's losses and in every parameter;
+  5. time each kernel and bfloat16 mode (CUDA graph replays), its plain
+     version and, where one PyTorch call computes the same function, that
+     call; time the
      train step on each path (a 2-phase fit's beside the single-sweep
      step of the same model and graph) and profile a short window of
      steps; time
@@ -123,12 +150,46 @@ CELLS = {
     "Pubmed two-phase": ("Pubmed", {"reorder": "rcm"}, 50, "v7 2-phase", 2),
     "Pubmed cluster two-phase": ("Pubmed", {"reorder": "cluster"}, 20, "v6",
                                  2),
+    # the JAX package's bfloat16 numerics (CELL_ENV)
+    "Pubmed bf16": ("Pubmed", {"reorder": "rcm"}, 50, "v7 bf16", 2),
+    "Pubmed two-phase bf16": ("Pubmed", {"reorder": "rcm"}, 20,
+                              "v7 2-phase bf16", 2),
+    "Pubmed cluster bf16": ("Pubmed", {"reorder": "cluster"}, 20,
+                            "v7_hybrid bf16", 2),
+    "Pubmed cluster two-phase bf16": ("Pubmed", {"reorder": "cluster"}, 10,
+                                      "v6 bf16", 2),
+    "Cora bf16 kernels": ("Cora", {}, 50, "v5 bf16", 2),
+    "PPI paper_faithful bf16": ("PPI", {"paper_faithful": True}, 10,
+                                "v4_table bf16", 3),
+    "Cora two-phase bf16 kernels": ("Cora", {}, 10, "v5 2-phase bf16", 2),
+    "Pubmed cluster bf16 kernels": ("Pubmed", {"reorder": "cluster"}, 5,
+                                    "v7_hybrid bf16 kernels", 2),
 }
-# the environment each fit runs under, set and restored around it
-CELL_ENV = {"Cora two-phase": {"GAT_TPU_V10": "0"},
+# the environment each fit runs under, set and restored around it; the
+# float32 fits of the windowed op pin its contraction dtype (the JAX
+# package's default is bfloat16)
+F32 = {"GAT_TPU_V6_DTYPE": "float32"}
+GEMM_BF16 = {"GAT_TPU_GEMM_DTYPE": "bfloat16"}
+KERNELS_BF16 = {"GAT_TPU_KERNEL_DTYPE": "bfloat16",
+                "GAT_TPU_H_DTYPE": "bfloat16", "GAT_TPU_DH_REDUCE_NT": "0",
+                **GEMM_BF16}
+TWO_PHASE = {"GAT_TPU_V10": "0"}
+CELL_ENV = {"Pubmed": F32, "Pubmed cluster": F32,
+            "Cora two-phase": TWO_PHASE,
             "Cora unmerged": {"GAT_TPU_V5_MERGED": "0"},
-            "Pubmed two-phase": {"GAT_TPU_V10": "0"},
-            "Pubmed cluster two-phase": {"GAT_TPU_V10": "0"}}
+            "Pubmed two-phase": {**TWO_PHASE, **F32},
+            "Pubmed cluster two-phase": {**TWO_PHASE, **F32},
+            "Pubmed bf16": GEMM_BF16,
+            "Pubmed two-phase bf16": {**TWO_PHASE, **GEMM_BF16},
+            "Pubmed cluster bf16": GEMM_BF16,
+            "Pubmed cluster two-phase bf16": {**TWO_PHASE, **GEMM_BF16},
+            "Cora bf16 kernels": KERNELS_BF16,
+            "PPI paper_faithful bf16": KERNELS_BF16,
+            "Cora two-phase bf16 kernels": {**TWO_PHASE, **KERNELS_BF16},
+            "Pubmed cluster bf16 kernels": KERNELS_BF16}
+# the numerics knobs a bfloat16 fit sets: without them, the same model
+# runs the float32 path (phase 4)
+BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
 # per path: the kernels of a layer's forward, and of its backward (each
 # launched once per layer unless a count says otherwise). The table path's
 # two sorted sums are the gradients of its logits' score gathers (by
@@ -150,8 +211,34 @@ PATH_KERNELS = {
                    {"window_backward_two_phase": 1, "segment_sum_rows": 1}),
     "v6": (("v5_cap", "v5_forward_two_phase"),
            {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
+    "v7 bf16": (("window_forward_bf16",),
+                {"window_backward_bf16": 1, "segment_sum_rows": 1}),
+    "v7 2-phase bf16": (("window_cap", "window_forward_two_phase_bf16"),
+                        {"window_backward_two_phase_bf16": 1,
+                         "segment_sum_rows": 1}),
+    "v7_hybrid bf16": (("window_forward_bf16", "v5_forward"),
+                       {"window_backward_parts_bf16": 1,
+                        "v5_backward_parts": 1, "segment_sum_rows": 2}),
+    "v6 bf16": (("v5_cap", "v5_forward_two_phase_bf16"),
+                {"v5_backward_two_phase_bf16": 1, "segment_sum_rows": 1}),
+    "v5 bf16": (("v5_forward_bf16",),
+                {"v5_backward_bf16": 1, "segment_sum_rows_t": 1}),
+    "v4_table bf16": (("table_forward_bf16",),
+                      {"table_backward_bf16": 1, "segment_sum_rows_t": 1,
+                       "segment_sum_sorted": 2}),
+    "v5 2-phase bf16": (("v5_cap_bf16", "v5_forward_two_phase_bf16"),
+                        {"v5_backward_two_phase_bf16": 1,
+                         "segment_sum_rows_t": 1}),
+    # the windowed parts' d(h) is reduced row-major (the JAX v7 kernel
+    # scatters it itself and reads no knob), the remainder's feature-major
+    "v7_hybrid bf16 kernels": (("window_forward_bf16", "v5_forward_bf16"),
+                               {"window_backward_parts_bf16": 1,
+                                "v5_backward_parts_bf16": 1,
+                                "segment_sum_rows": 1,
+                                "segment_sum_rows_t": 1}),
 }
-REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5}
+REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5,
+                "Pubmed bf16": 5}
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -159,6 +246,10 @@ F32_OPS_PER_S = 67e12
 # kernel vs plain version on the card: sums run in another order
 # (per-warp shuffles against matmul / index_add), float32 rounding only
 REL_TOL = 1e-4
+# the same in a bfloat16 mode, and a bfloat16 model against the float32
+# paths: one float32 difference in the last bit can move a bfloat16
+# rounding by 2^-8 of one term
+BF16_TOL = 1e-2
 _PALLAS = "gat_pytorch_tpu/ops/pallas/"
 _CSRC = "gat_pytorch_tpu_torch/ops/cuda/csrc/"
 REPLACES = {
@@ -184,6 +275,8 @@ REPLACES = {
     "window_forward_two_phase": _PALLAS + "segment_attention_window.py:163",
     "window_backward_two_phase": (_PALLAS
                                   + "segment_attention_window.py:923"),
+    # the feature-major d(h) reduce (GAT_TPU_DH_REDUCE_NT=0)
+    "segment_sum_rows_t": _PALLAS + "segment_sum.py:70",
 }
 SOURCES = {
     "v5_forward": _CSRC + "v5_attention.cu",
@@ -202,7 +295,14 @@ SOURCES = {
     "window_cap": _CSRC + "window_attention.cu",
     "window_forward_two_phase": _CSRC + "window_attention.cu",
     "window_backward_two_phase": _CSRC + "window_attention.cu",
+    "segment_sum_rows_t": _CSRC + "segment_sum.cu",
 }
+# every bfloat16 mode of an entry: the same TPU kernel and source, its
+# launches counted apart (rounding.Rounding.counter)
+BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
+                  if not k.startswith(("segment_sum", "window_cap")))
+for _k in BF16_KEYS:
+    REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
 BWD_NAMES = ("d_h_rows", "d_drop", "d_s_dst", "d_a_src")
 TABLE_BWD_NAMES = ("d_h_rows", "d_logits", "d_drop")
 
@@ -365,6 +465,7 @@ def main():
     from gat_pytorch_tpu_torch.ops.cuda import table_attention as ta
     from gat_pytorch_tpu_torch.ops.cuda import v5_attention as v5
     from gat_pytorch_tpu_torch.ops.cuda import window_attention as wa
+    from gat_pytorch_tpu_torch.ops.cuda.rounding import FLOAT32, Rounding
     from gat_pytorch_tpu_torch.train import optim as O
     from gat_pytorch_tpu_torch.train.tasks import make_task
     from gat_pytorch_tpu_torch.train.trainer import Trainer
@@ -374,8 +475,9 @@ def main():
     # -- 1. build --------------------------------------------------------
     t0 = time.time()
     build.build_all()
-    print(f"[build] {len(build.SOURCES)} sources in "
-          f"{time.time() - t0:.1f} s into {build.BUILD_DIR}")
+    print(f"[build] {len(build.LIBRARIES)} libraries from "
+          f"{len(build.SOURCES)} sources in {time.time() - t0:.1f} s into "
+          f"{build.BUILD_DIR}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -403,13 +505,54 @@ def main():
                     (x is not None and not torch.equal(x, y)):
                 fail(f"{name}: two launches on the same inputs differ")
 
+    def rms(x, y):
+        return float((x.float() - y.float()).pow(2).mean().sqrt())
+
+    def hold_mode(prefix, names, got, want, base, key, floor=1.0):
+        """A bfloat16 mode's kernel outputs against its plain version in
+        the same mode (want) and in float32 on the same inputs (base):
+        within BF16_TOL x max(floor, |want|), and wherever the mode moves
+        an output by more than REL_TOL of that scale, 10x nearer `want`
+        than `base` is in RMS (the kernel rounds where its plain version
+        does). None entries are skipped."""
+        torch.cuda.synchronize()
+        for nm, x, y, z in zip(names, got, want, base):
+            if y is None:
+                continue
+            err, scale = max_err(x, y, floor)
+            moved = max_err(z, y, floor)[0] > REL_TOL * scale
+            ratio = rms(x, y) / max(rms(z, y), 1e-30)
+            print(f"  {prefix} {nm}: max_abs_err {err:.3e} (scale "
+                  f"{scale:.3e}), rms over the float32 plain version's "
+                  f"{ratio:.3e}{'' if moved else ' (not moved by the mode)'}")
+            if not scale > 0.0:
+                fail(f"{prefix} {nm}: the plain version is all zeros")
+            if not err <= BF16_TOL * scale:
+                fail(f"{prefix} {nm} differs from its plain version: {err} > "
+                     f"{BF16_TOL} x {scale}")
+            if moved and not ratio <= 0.1:
+                fail(f"{prefix} {nm}: the kernel does not round where its "
+                     f"plain version does (rms ratio {ratio})")
+            errs[key].append(err)
+
+    def mode_tag(rnd):
+        return ",".join(k for k, v in vars(rnd).items() if v)
+
+    def window_mode(nh, f, v12=True):
+        """The windowed op's bfloat16 policy at a layer shape, as the
+        port reads the JAX package's default (GAT_TPU_V12=0: no pair)."""
+        env = {"GAT_TPU_V6_DTYPE": "bfloat16",
+               "GAT_TPU_V12": "1" if v12 else "0"}
+        with knobs(env):
+            return wa.window_rounding(nh, f)
+
     # -- 2-phase entries: one checker for the v5 and the window forms ------
     def v5_two_phase_entries(graph):
         """(cap, plain cap, forward, plain forward, backward, plain
         backward) of the v5 2-phase entries bound to `graph`'s edges."""
         ga = (graph.senders, graph.receivers, graph.num_real_edges)
-        return (lambda h, a, s: v5.v5_cap(h, a, s, *ga),
-                lambda h, a, s: v5.v5_cap_plain(h, a, s, *ga),
+        return (lambda h, a, s, **kw: v5.v5_cap(h, a, s, *ga, **kw),
+                lambda h, a, s, **kw: v5.v5_cap_plain(h, a, s, *ga),
                 lambda h, a, s, c, m, *r: v5.v5_forward_two_phase(
                     h, a, s, c, m, *ga, *r),
                 lambda h, a, s, c, m, *r: v5.v5_forward_two_phase_plain(
@@ -420,8 +563,8 @@ def main():
                     h, a, s, c, m, *ga, *r))
 
     def window_two_phase_entries(layout):
-        return (lambda h, a, s: wa.window_cap(h, a, s, layout),
-                lambda h, a, s: wa.window_cap_plain(h, a, s, layout),
+        return (lambda h, a, s, **kw: wa.window_cap(h, a, s, layout),
+                lambda h, a, s, **kw: wa.window_cap_plain(h, a, s, layout),
                 lambda h, a, s, c, m, *r: wa.window_forward_two_phase(
                     h, a, s, c, m, layout, *r),
                 lambda h, a, s, c, m, *r: wa.window_forward_two_phase_plain(
@@ -541,10 +684,19 @@ def main():
         same_bits("v5_backward_parts", got,
                   v5.v5_backward(*parts_args, normalize=False))
         got = ss.dh_reduce(rows, order, snd, n, e_real)
-        want = ss.segment_rows_plain(rows, order,
-                                      snd.index_select(0, order.long()), n)
+        ids = snd.index_select(0, order.long())
+        want = ss.segment_rows_plain(rows, order, ids, n)
         hold_all("segment_sum_rows", ("(d(h) reduce)",), (got,), (want,),
                  "segment_sum_rows")
+        # the feature-major form: its plain version, and row 3's bits
+        got_t = ss.dh_reduce(rows, order, snd, n, e_real, transposed=True)
+        hold_all("segment_sum_rows_t", ("(d(h) reduce, feature-major)",),
+                 (got_t,), (ss.segment_rows_t_plain(rows, order, ids, n),),
+                 "segment_sum_rows_t")
+        same_bits("segment_sum_rows_t", (got_t,), (ss.dh_reduce(
+            rows, order, snd, n, e_real, transposed=True),))
+        same_bits("segment_sum_rows_t against segment_sum_rows", (got_t,),
+                  (got,))
         return dict(nh=nh, f=f, drop=with_drop, fwd_args=fwd_args,
                     bwd_args=bwd_args, parts_args=parts_args, rows=rows)
 
@@ -672,6 +824,15 @@ def main():
                         hold_all("segment_sum_rows",
                                  ("(d(h) reduce by ptr)",), (got,), (want,),
                                  "segment_sum_rows")
+                        got_t = ss.dh_reduce_ptr(rows, bl.src_perm,
+                                                 bl.src_ptr, transposed=True)
+                        hold_all("segment_sum_rows_t",
+                                 ("(d(h) reduce by ptr, feature-major)",),
+                                 (got_t,), (ss.segment_rows_t_plain(
+                                     rows, bl.src_perm, src_ids, n_),),
+                                 "segment_sum_rows_t")
+                        same_bits("segment_sum_rows_t by ptr against "
+                                  "segment_sum_rows", (got_t,), (got,))
                         cases.append(dict(nh=nh, f=f, fwd_args=fwd_args,
                                           bwd_args=bwd_args, rows=rows))
                 # the parts mode: raw cotangents of num and den, no eps in
@@ -937,6 +1098,232 @@ def main():
         check_two_phase(f"PATTERN {nh}x{f}", v5_two_phase_entries(pattern),
                         V5_TWO, pattern.num_nodes, nh, f, pattern.num_edges)
 
+    # -- 2d. the bfloat16 modes against their plain versions ---------------
+    # Every mode of every entry that a knob of the JAX package selects, at
+    # the layer shapes of the cells that run it; each against its plain
+    # version in the same mode and in float32 (hold_mode), twice.
+    TABLE_ACC = Rounding(table=True, acc=True)
+    V5_MODES = (Rounding(acc=True), Rounding(table=True), TABLE_ACC)
+
+    def check_v5_modes(graph, label, nh, f, fwd_modes, bwd_mode, parts):
+        """The v5 entries' bfloat16 modes at one layer shape on `graph`'s
+        edges: each forward mode with dropout; the backward mode at eps =
+        1e-8 and 1, or (parts) in the parts mode. Returns the inputs of
+        the timings (the last forward mode)."""
+        n_, er = graph.num_nodes, graph.num_real_edges
+        ga = (graph.senders, graph.receivers, er)
+        h, a_src, s_eff, drop, g = op_inputs(torch, gen, n_, nh, f,
+                                             graph.num_edges, dev)
+        fp = (h, a_src, s_eff, drop) + ga + (SLOPE,)
+        num, den, cap, _ = v5.v5_forward_plain(*fp)
+        case = dict(nh=nh, f=f, drop=True, f32_args=fp)
+        for rnd in fwd_modes:
+            name = f"v5_forward {label} [{mode_tag(rnd)}]"
+            fa = (rnd.table_of(h),) + fp[1:]
+            got = v5.v5_forward(*fa, rounding=rnd)
+            want = v5.v5_forward_plain(*fa, rounding=rnd)
+            hold_mode(name, ("num", "den", "cap"), got[:3], want[:3],
+                      (num, den, cap), "v5_forward_bf16")
+            if int(got[3]) != int(want[3]):
+                fail(f"{name}: argmax code {int(got[3])} != plain "
+                     f"{int(want[3])}")
+            same_bits(name, got, v5.v5_forward(*fa, rounding=rnd))
+            case.update(fwd_args=fa, rounding=rnd)
+        fa, rnd = case["fwd_args"], bwd_mode
+        fa = (rnd.table_of(h),) + fp[1:]
+        d_den = torch.randn((n_, nh), generator=gen, device=dev)
+        runs = ([("parts", "v5_backward_parts_bf16", (g, None, d_den, None,
+                                                      True), False, 0.0)]
+                if parts else
+                [(f"eps={eps:g}", "v5_backward_bf16",
+                  (g,) + (lambda o: (o[0], den, o[1], True))(
+                      epilogue(torch, num, den, cap, f, eps)), True, floor)
+                 for eps, floor in ((1e-8, 1.0), (1.0, 0.0))])
+        for what, key, co, norm, floor in runs:
+            name = f"v5_backward {label} [{mode_tag(rnd)}] {what}"
+            got = v5.v5_backward(*fa, *co, normalize=norm, rounding=rnd)
+            want = v5.v5_backward_plain(*fa, *co, normalize=norm,
+                                        rounding=rnd)
+            base = v5.v5_backward_plain(*fp, *co, normalize=norm)
+            hold_mode(name, BWD_NAMES, got, want, base, key, floor)
+            same_bits(name, got, v5.v5_backward(*fa, *co, normalize=norm,
+                                                rounding=rnd))
+            case.setdefault("bwd_args", fa + co)
+        case.update(bwd_rounding=rnd)
+        return case
+
+    def check_two_phase_modes(label, entries, keys, n_, nh, f, slots, rnd,
+                              real=None):
+        """The 2-phase entries in mode rnd at one layer shape: the cap pass
+        (in the table mode, which it reads), then the forward and the
+        backward at eps = 1e-8 and 1, with dropout, each side at its own
+        cap (as check_two_phase: the argmax slot has pre == 0 exactly on
+        each side, where LeakyReLU's slope at 0 decides its d(raw)): the
+        kernel at the kernel's cap, the plain version in the mode at its
+        own, the float32 plain version at the cap of the float32 rows.
+        Returns the inputs of the timings (eps = 1e-8)."""
+        cap_k, cap_p, fwd_k, fwd_p, bwd_k, bwd_p = entries
+        kcap, kfwd, kbwd = keys
+        h, a_src, s_dst, drop, g = op_inputs(torch, gen, n_, nh, f, slots,
+                                             dev)
+        hk = rnd.table_of(h)
+        cap_args = (hk, a_src, s_dst)
+        cap_b = cap_p(h, a_src, s_dst)
+        if rnd.table:
+            cap_g, cap_w = cap_k(*cap_args, rounding=rnd), cap_p(*cap_args)
+            name = f"{kcap} {label} [{mode_tag(rnd)}]"
+            hold_mode(name, ("cap",), cap_g[:1], cap_w[:1], cap_b[:1],
+                      kcap + "_bf16")
+            if int(cap_g[1]) != int(cap_w[1]):
+                fail(f"{name}: argmax code {int(cap_g[1])} != plain "
+                     f"{int(cap_w[1])}")
+            same_bits(name, cap_g, cap_k(*cap_args, rounding=rnd))
+        else:   # the cap pass of the float32 rows
+            cap_g, cap_w = cap_k(*cap_args), cap_b
+        case = None
+        for eps in (1e-8, 1.0):
+            name = f"{label} [{mode_tag(rnd)}] eps={eps:g}"
+            fk = (hk, a_src, s_dst, cap_g[0], drop, eps, SLOPE)
+            fp = (hk, a_src, s_dst, cap_w[0], drop, eps, SLOPE)
+            fb = (h, a_src, s_dst, cap_b[0], drop, eps, SLOPE)
+            got, want = fwd_k(*fk, rnd), fwd_p(*fp, rnd)
+            base = fwd_p(*fb)
+            hold_mode(f"{kfwd} {name}", ("out", "den"), got, want, base,
+                      kfwd + "_bf16")
+            same_bits(f"{kfwd} {name}", got, fwd_k(*fk, rnd))
+            co = (g, base[0], base[1], True)
+            gk, gp = list(bwd_k(*fk, *co, rnd)), list(bwd_p(*fp, *co, rnd))
+            gb, again = list(bwd_p(*fb, *co)), list(bwd_k(*fk, *co, rnd))
+            if real is not None:
+                for x in (gk, gp, gb, again):
+                    x[0] = x[0][real]
+            same_bits(f"{kbwd} {name}", gk, again)
+            hold_mode(f"{kbwd} {name}", BWD_NAMES, gk[:4], gp[:4], gb[:4],
+                      kbwd + "_bf16", 1.0 if eps < 1.0 else 0.0)
+            hold_mode(f"{kbwd} {name}", ("d_cap",), gk[4:], gp[4:], gb[4:],
+                      kbwd + "_bf16",
+                      float(gp[2].norm()) if eps == 1.0 else 1.0)
+            if case is None:
+                case = dict(nh=nh, f=f, cap_args=cap_args, fwd_args=fk,
+                            bwd_args=fk + co, rounding=rnd)
+        return case
+
+    def check_window_modes(layout, n_, nh, f, rnd, label, parts):
+        """The window entries in mode rnd at one layer shape on `layout`:
+        the forward with dropout, then the normalised backward at eps =
+        1e-8 and 1, or (parts) the parts mode. Returns the inputs of the
+        timings."""
+        real_ = (layout.recv >= 0).nonzero().squeeze(1)
+        h, a_src, s_eff, drop, g = op_inputs(torch, gen, n_, nh, f,
+                                             layout.num_slots, dev)
+        fp = (h, a_src, s_eff, drop, layout, SLOPE)
+        fa = (rnd.table_of(h),) + fp[1:]
+        name = f"window_forward {label} [{mode_tag(rnd)}]"
+        num, den, cap, _ = wa.window_forward_plain(*fp)
+        got = wa.window_forward(*fa, rounding=rnd)
+        want = wa.window_forward_plain(*fa, rounding=rnd)
+        hold_mode(name, ("num", "den", "cap"), got[:3], want[:3],
+                  (num, den, cap), "window_forward_bf16")
+        if int(got[3]) != int(want[3]):
+            fail(f"{name}: argmax code {int(got[3])} != plain "
+                 f"{int(want[3])}")
+        same_bits(name, got, wa.window_forward(*fa, rounding=rnd))
+        case = dict(nh=nh, f=f, fwd_args=fa, rounding=rnd)
+        d_den = torch.randn((n_, nh), generator=gen, device=dev)
+        runs = ([("parts", "window_backward_parts_bf16",
+                  (g, None, d_den, None, True), False, 0.0)] if parts else
+                [(f"eps={eps:g}", "window_backward_bf16",
+                  (g,) + (lambda o: (o[0], den, o[1], True))(
+                      epilogue(torch, num, den, cap, f, eps)), True, floor)
+                 for eps, floor in ((1e-8, 1.0), (1.0, 0.0))])
+        for what, key, co, norm, floor in runs:
+            name = f"window_backward {label} [{mode_tag(rnd)}] {what}"
+            outs = [list(fn(*args, *co, normalize=norm, **kw)) for fn, args, kw
+                    in ((wa.window_backward, fa, {"rounding": rnd}),
+                        (wa.window_backward_plain, fa, {"rounding": rnd}),
+                        (wa.window_backward_plain, fp, {}),
+                        (wa.window_backward, fa, {"rounding": rnd}))]
+            for x in outs:      # pad rows are left unwritten by the kernel
+                x[0] = x[0][real_]
+            same_bits(name, outs[0], outs[3])
+            hold_mode(name, BWD_NAMES, *outs[:3], key, floor)
+            case.setdefault("parts_args" if parts else "bwd_args", fa + co)
+        return case
+
+    def check_table_modes(graph, nh, f, eps, paper_faithful, label):
+        """The table entries' bfloat16 modes at one layer shape: each
+        forward mode of V5_MODES, the backward on a bfloat16 table (its
+        only mode), held at 1 and at each output's own magnitude."""
+        h, lg, drop, g = table_inputs(graph, nh, f, paper_faithful, True)
+        fp = (lg, h, drop, graph.senders, graph.receivers, graph.num_nodes,
+              graph.num_real_edges, eps)
+        out, den = ta.table_forward_plain(*fp)
+        case = dict(nh=nh, f=f, drop=True, f32_args=fp)
+        for rnd in V5_MODES:
+            name = f"table_forward {label} [{mode_tag(rnd)}]"
+            fa = (lg, rnd.table_of(h)) + fp[2:]
+            got = ta.table_forward(*fa, rounding=rnd)
+            hold_mode(name, ("out", "den"), got,
+                      ta.table_forward_plain(*fa, rounding=rnd), (out, den),
+                      "table_forward_bf16")
+            same_bits(name, got, ta.table_forward(*fa, rounding=rnd))
+            case.update(fwd_args=fa, rounding=rnd)
+        rnd = Rounding(table=True)
+        co = (graph.senders, graph.receivers, graph.num_real_edges, eps, g,
+              out, den, True)
+        ba = (lg, rnd.table_of(h), drop) + co
+        name = f"table_backward {label} [{mode_tag(rnd)}]"
+        got = ta.table_backward(*ba, rounding=rnd)
+        want = ta.table_backward_plain(*ba)
+        base = ta.table_backward_plain(lg, h, drop, *co)
+        for floor in (1.0, 0.0):
+            hold_mode(name, TABLE_BWD_NAMES, got, want, base,
+                      "table_backward_bf16", floor)
+        same_bits(name, got, ta.table_backward(*ba, rounding=rnd))
+        case.update(bwd_args=ba, bwd_rounding=rnd)
+        return case
+
+    print("[kernels] the bfloat16 modes")
+    cora_modes, cora_two_modes = [], []
+    for nh, f in SHAPES["Cora"]:
+        cora_modes.append(check_v5_modes(cora, f"Cora {nh}x{f}", nh, f,
+                                         V5_MODES, TABLE_ACC, False))
+        cora_two_modes.append(check_two_phase_modes(
+            f"Cora {nh}x{f}", v5_two_phase_entries(cora), V5_TWO, n, nh, f,
+            e, TABLE_ACC))
+    pubmed_modes, pubmed_two_modes, hybrid_modes = [], [], []
+    pubmed_rows_modes = []
+    rem_modes, v6_modes = [], []
+    for nh, f in SHAPES["Pubmed"]:
+        pair, rows_mode = window_mode(nh, f), window_mode(nh, f, v12=False)
+        if not pair.table or rows_mode.table:
+            fail(f"Pubmed {nh}x{f}: the packed-window policy is not the "
+                 f"table mode")
+        pubmed_modes.append(check_window_modes(
+            bl, np_, nh, f, pair, f"Pubmed {nh}x{f}", False))
+        pubmed_rows_modes.append(check_window_modes(
+            bl, np_, nh, f, rows_mode, f"Pubmed {nh}x{f} GAT_TPU_V12=0",
+            False))
+        with knobs({"GAT_TPU_V6_DTYPE": "bfloat16"}):
+            two_mode = wa.window_rounding(nh, f, sweep1=False)
+        pubmed_two_modes.append(check_two_phase_modes(
+            f"Pubmed {nh}x{f}", window_two_phase_entries(bl), W_TWO, np_, nh,
+            f, e7, two_mode, real))
+        hybrid_modes.append(check_window_modes(
+            hb, hybrid.num_nodes, nh, f, pair,
+            f"Pubmed hybrid layout {nh}x{f}", True))
+        rem_modes.append(check_v5_modes(
+            remainder, f"Pubmed hybrid remainder {nh}x{f}", nh, f,
+            (TABLE_ACC,), TABLE_ACC, True))
+        v6_modes.append(check_two_phase_modes(
+            f"Pubmed cluster {nh}x{f} (the v6 form)",
+            v5_two_phase_entries(hybrid), V5_TWO, hybrid.num_nodes, nh, f,
+            hybrid.num_edges, wa.V6_BF16))
+    ppi_table_modes = [check_table_modes(ppi, nh, f, 0.0, True,
+                                         f"PPI {nh}x{f}")
+                       for nh, f in SHAPES["PPI"]]
+
+
     if "--checks-only" in sys.argv[1:]:
         print("chip_smoke: --checks-only: every kernel built and held "
               "against its plain version; no fit, no timing, no result line")
@@ -1041,21 +1428,81 @@ def main():
         return (logits.detach(),
                 [p.grad.clone() for p in gat.parameters(params)])
 
+    def hold_model(name, label, lk, gk, lo, go, tol):
+        """Logits at max(1, |logits|), and (a trained model's gradients
+        are small, and d(a) is a sum of cancelling terms) each gradient
+        at the largest gradient's magnitude, not at 1 and not at its own;
+        within tol. Returns the logits' relative difference."""
+        gscale = max(float(y.abs().max()) for y in go)
+        rel = []
+        for what, x, y, floor in ([("logits", lk, lo, 1.0)] + [
+                (f"grad param {i}", x, y, gscale)
+                for i, (x, y) in enumerate(zip(gk, go))]):
+            err, scale = max_err(x, y, floor)
+            rel.append(err / scale)
+            print(f"  {what}: max_abs_err {err:.3e} (scale {scale:.3e})")
+            if not scale > 0.0:
+                fail(f"{name} vs {label}: {what} all zeros, nothing to hold")
+            if not err <= tol * scale:
+                fail(f"{name}: {what} differs from the {label} path: {err} "
+                     f"> {tol} x {scale}")
+        return rel[0]
+
+    def float32_env(env):
+        """The same cell's knobs with its bfloat16 ones dropped and the
+        windowed op's contraction pinned to float32."""
+        return {**{k: v for k, v in env.items() if k not in BF16_KNOBS},
+                **F32}
+
     refs = {}
     for name, (cfg, trainer, params, graph) in fits.items():
         refs[name] = Trainer(cfg=cfg.gat_config(), task=trainer.task,
                              learning_rate=0.0, device="cuda",
                              backend="segment")
         env = CELL_ENV.get(name, {})
+        bf16 = "bf16" in name
         with knobs(env):
             lk, gk = logits_and_grads(trainer, params, graph)
         shape = ((graph.num_nodes,) if trainer.task.squeeze_output
                  else (graph.num_nodes, cfg.num_classes))
         if lk.shape != shape or not torch.isfinite(lk).all():
             fail(f"{name}: logits of shape {tuple(lk.shape)} or not finite")
+        if bf16:
+            # the same model in float32 on the kernel path and on the
+            # segment path: the bfloat16 model within BF16_TOL of both,
+            # and further from the float32 kernel path than 10x the
+            # float32 paths' own difference (the mode is live)
+            f32 = float32_env(env)
+            outs = {}
+            for label, other in (("float32 kernel", trainer),
+                                 ("float32 segment", refs[name])):
+                gat.PATH_TRACE.clear()
+                with knobs(f32):
+                    outs[label] = logits_and_grads(other, params, graph)
+                print(f"[model] {name}: bfloat16 kernel path vs {label} "
+                      f"path {gat.PATH_TRACE} on the card")
+                rel = hold_model(name, label, lk, gk, *outs[label], BF16_TOL)
+                if label == "float32 kernel":
+                    live = rel
+            print(f"[model] {name}: float32 kernel path vs float32 segment "
+                  f"path on the card")
+            noise = hold_model(name, "float32 segment",
+                               *outs["float32 kernel"],
+                               *outs["float32 segment"], REL_TOL)
+            print(f"[model] {name}: the bfloat16 logits differ from the "
+                  f"float32 kernel path's by {live:.3e} of their scale, the "
+                  f"float32 paths' by {noise:.3e}")
+            if not live > 10.0 * noise:
+                fail(f"{name}: the bfloat16 mode is not live ({live} <= 10 x "
+                     f"{noise})")
+            continue
         others = [("segment", refs[name], graph, {})]
-        if env:     # the same model on the single-sweep kernel path
-            others.append(("single-sweep kernel", trainer, graph, {}))
+        if {"GAT_TPU_V10", "GAT_TPU_V5_MERGED"} & set(env):
+            # the same model on the single-sweep kernel path
+            others.append(("single-sweep kernel", trainer, graph,
+                           {k: v for k, v in env.items()
+                            if k not in ("GAT_TPU_V10",
+                                         "GAT_TPU_V5_MERGED")}))
         if graph.block_layout is not None:
             others.append(("v5 kernel", trainer,
                            graph.replace(block_layout=None), env))
@@ -1065,14 +1512,7 @@ def main():
                 lo, go = logits_and_grads(other, params, other_graph)
             print(f"[model] {name}: kernel path vs {label} path "
                   f"{gat.PATH_TRACE} on the card")
-            model_errs = []
-            hold("logits", lk, lo, model_errs)
-            # a trained model's gradients are small, and d(a) is a sum of
-            # cancelling terms: hold each at the largest gradient's
-            # magnitude, not at 1 and not at its own
-            gscale = max(float(y.abs().max()) for y in go)
-            for i, (x, y) in enumerate(zip(gk, go)):
-                hold(f"grad param {i}", x, y, model_errs, floor=gscale)
+            hold_model(name, label, lk, gk, lo, go, REL_TOL)
 
     # -- 4b. run-to-run reproducibility ------------------------------------
     # The port's kernels sum in fixed orders and the kernel path's gathers
@@ -1106,8 +1546,9 @@ def main():
         for _ in range(2):
             _, trainer, train_data, val_data, reshuffle = make_trainer(
                 dataset, overrides, epochs)
-            result = trainer.fit_epochs(train_data, val_data,
-                                        reshuffle=reshuffle)
+            with knobs(CELL_ENV.get(name, {})):
+                result = trainer.fit_epochs(train_data, val_data,
+                                            reshuffle=reshuffle)
             torch.cuda.synchronize()
             runs.append((result.history,
                          gat.parameters(result.final_params)))
@@ -1119,7 +1560,8 @@ def main():
               f"{'equal bits' if same_par else 'DIFFER'}; train_loss "
               f"{[r['train_loss'] for r in hist_a]}")
         if not (same_hist and same_par):
-            one_step_report(name, dataset, overrides)
+            with knobs(CELL_ENV.get(name, {})):
+                one_step_report(name, dataset, overrides)
             fail(f"{name}: two fits from one seed differ")
 
     # -- 5. timings ---------------------------------------------------------
@@ -1371,6 +1813,184 @@ def main():
         time_rows(label, table_time_rows(pattern, ct), into_json=False)
         time_rows(label, v5_time_rows(pattern, c5), into_json=False)
 
+    # the bfloat16 modes, at the cases of phase 2d: the work of the float32
+    # row of the same entry and shape (its bytes and operations), less the
+    # h table's two bytes an element where the kernel reads a bfloat16
+    # table; the feature-major d(h) reduce beside row 3's
+    def mode_rows(f32_rows, specs):
+        """{key: (kernel, plain, library, bytes, ops)} from specs {key:
+        (the float32 row's key, kernel, plain, rounding, table rows x
+        width)}."""
+        rows = {}
+        for key, (f32_key, kern, plain, rnd, table_elems) in specs.items():
+            _, _, lib, nbytes, ops = f32_rows[f32_key]
+            rows[key] = (kern, plain, lib,
+                         nbytes - (2 * table_elems if rnd.table else 0), ops)
+        return rows
+
+    for c, c32 in zip(cora_modes, cora_cases):
+        nh, f, d = c["nh"], c["f"], c["nh"] * c["f"]
+        fa, ba = c["fwd_args"], c["bwd_args"]
+        rf, rb = c["rounding"], c["bwd_rounding"]
+        rows, snd_, order_ = c32["rows"], cora.senders, cora.src_order
+        ids_sorted = snd_.index_select(0, order_.long())
+        time_rows(f"Cora {nh}x{f} [{mode_tag(rf)}]", mode_rows(
+            v5_time_rows(cora, c32), {
+                "v5_forward_bf16": (
+                    "v5_forward", lambda: v5.v5_forward(*fa, rounding=rf),
+                    lambda: v5.v5_forward_plain(*fa, rounding=rf), rf,
+                    cora.num_nodes * d),
+                "v5_backward_bf16": (
+                    "v5_backward", lambda: v5.v5_backward(*ba, rounding=rb),
+                    lambda: v5.v5_backward_plain(*ba, rounding=rb), rb,
+                    cora.num_nodes * d),
+                "segment_sum_rows_t": (
+                    "segment_sum_rows",
+                    lambda: ss.dh_reduce(rows, order_, snd_, cora.num_nodes,
+                                         cora.num_real_edges, transposed=True),
+                    lambda: ss.segment_rows_t_plain(rows, order_, ids_sorted,
+                                                    cora.num_nodes),
+                    FLOAT32, 0)}), into_json=True)
+        # each rounding point of the forward alone (printed only)
+        fp = c["f32_args"]
+        for rnd in V5_MODES[:2]:
+            fr = (rnd.table_of(fp[0]),) + fp[1:]
+            time_rows(f"Cora {nh}x{f} [{mode_tag(rnd)}]", mode_rows(
+                v5_time_rows(cora, c32), {"v5_forward_bf16": (
+                    "v5_forward", lambda: v5.v5_forward(*fr, rounding=rnd),
+                    lambda: v5.v5_forward_plain(*fr, rounding=rnd), rnd,
+                    cora.num_nodes * d)}), into_json=False)
+    for c, c32 in zip(cora_two_modes, cora_two):
+        ca, fa, ba, rnd = (c["cap_args"], c["fwd_args"], c["bwd_args"],
+                           c["rounding"])
+        cap_k, cap_p, fwd_k, fwd_p, bwd_k, bwd_p = v5_two_phase_entries(cora)
+        elems = cora.num_nodes * c["nh"] * c["f"]
+        label = f"Cora {c['nh']}x{c['f']} 2-phase [{mode_tag(rnd)}]"
+        time_rows(label, mode_rows(
+            two_phase_time_rows(c32, v5_two_phase_entries(cora), V5_TWO,
+                                cora.num_nodes, cora.num_edges,
+                                2 * cora.num_edges, cora.num_real_edges,
+                                cora.num_edges), {
+                "v5_cap_bf16": ("v5_cap", lambda: cap_k(*ca, rounding=rnd),
+                                lambda: cap_p(*ca), rnd, elems),
+                "v5_forward_two_phase_bf16": (
+                    "v5_forward_two_phase", lambda: fwd_k(*fa, rnd),
+                    lambda: fwd_p(*fa, rnd), rnd, elems),
+                "v5_backward_two_phase_bf16": (
+                    "v5_backward_two_phase", lambda: bwd_k(*ba, rnd),
+                    lambda: bwd_p(*ba, rnd), rnd, elems)}), into_json=True)
+    for c, cr, c32, c2, c232, cw, cw32, c5, c532, c6, c632 in zip(
+            pubmed_modes, pubmed_rows_modes, pubmed_cases, pubmed_two_modes,
+            pubmed_two, hybrid_modes, hybrid_cases, rem_modes, rem_cases,
+            v6_modes, hybrid_two):
+        nh, f, d = c["nh"], c["f"], c["nh"] * c["f"]
+        # the packed window (the result line's), and GAT_TPU_V12=0's rows
+        # mode (printed only: no fit runs it)
+        for cm, into in ((c, True), (cr, False)):
+            fa, ba, rnd = cm["fwd_args"], cm["bwd_args"], cm["rounding"]
+            time_rows(f"Pubmed {nh}x{f} [{mode_tag(rnd)}]", mode_rows(
+                window_time_rows(bl, np_, c32), {
+                    "window_forward_bf16": (
+                        "window_forward",
+                        lambda: wa.window_forward(*fa, rounding=rnd),
+                        lambda: wa.window_forward_plain(*fa, rounding=rnd),
+                        rnd, np_ * d),
+                    "window_backward_bf16": (
+                        "window_backward",
+                        lambda: wa.window_backward(*ba, rounding=rnd),
+                        lambda: wa.window_backward_plain(*ba, rounding=rnd),
+                        rnd, np_ * d)}), into_json=into)
+        fa2, ba2, r2 = c2["fwd_args"], c2["bwd_args"], c2["rounding"]
+        _, _, fwd_k, fwd_p, bwd_k, bwd_p = window_two_phase_entries(bl)
+        time_rows(f"Pubmed {nh}x{f} 2-phase [{mode_tag(r2)}]", mode_rows(
+            two_phase_time_rows(c232, window_two_phase_entries(bl), W_TWO,
+                                np_, e7, 2 * e7 + np_ + 1, e7_real, e7_real), {
+                "window_forward_two_phase_bf16": (
+                    "window_forward_two_phase", lambda: fwd_k(*fa2, r2),
+                    lambda: fwd_p(*fa2, r2), r2, np_ * d),
+                "window_backward_two_phase_bf16": (
+                    "window_backward_two_phase", lambda: bwd_k(*ba2, r2),
+                    lambda: bwd_p(*ba2, r2), r2, np_ * d)}), into_json=True)
+        # the hybrid cell's two parts modes, where the main path runs them
+        nhy = hybrid.num_nodes
+        pa, rw = cw["parts_args"], cw["rounding"]
+        time_rows(f"Pubmed hybrid {nh}x{f}, {hb.num_real} in-window edges "
+                  f"[{mode_tag(rw)}]", mode_rows(
+                      window_time_rows(hb, nhy, cw32), {
+                          "window_backward_parts_bf16": (
+                              "window_backward_parts",
+                              lambda: wa.window_backward(
+                                  *pa, normalize=False, rounding=rw),
+                              lambda: wa.window_backward_plain(
+                                  *pa, normalize=False, rounding=rw), rw,
+                              nhy * d)}), into_json=True)
+        p5, r5 = c5["bwd_args"], c5["bwd_rounding"]
+        time_rows(f"Pubmed hybrid {nh}x{f}, {hb.rem_e} remainder edges "
+                  f"[{mode_tag(r5)}]", mode_rows(
+                      v5_time_rows(remainder, c532), {
+                          "v5_backward_parts_bf16": (
+                              "v5_backward_parts",
+                              lambda: v5.v5_backward(
+                                  *p5, normalize=False, rounding=r5),
+                              lambda: v5.v5_backward_plain(
+                                  *p5, normalize=False, rounding=r5), r5,
+                              nhy * d)}), into_json=True)
+        # the v6 form's mode on the v5 2-phase kernels (the result line
+        # takes those entries' times from Cora, as for float32)
+        fa6, ba6, r6 = c6["fwd_args"], c6["bwd_args"], c6["rounding"]
+        _, _, fwd_k, fwd_p, bwd_k, bwd_p = v5_two_phase_entries(hybrid)
+        he = hybrid.num_edges
+        time_rows(f"Pubmed cluster {nh}x{f} 2-phase (the v6 form) "
+                  f"[{mode_tag(r6)}]", mode_rows(
+                      two_phase_time_rows(c632, v5_two_phase_entries(hybrid),
+                                          V5_TWO, nhy, he, 2 * he,
+                                          hybrid.num_real_edges, he), {
+                          "v5_forward_two_phase_bf16": (
+                              "v5_forward_two_phase",
+                              lambda: fwd_k(*fa6, r6),
+                              lambda: fwd_p(*fa6, r6), r6, nhy * d),
+                          "v5_backward_two_phase_bf16": (
+                              "v5_backward_two_phase",
+                              lambda: bwd_k(*ba6, r6),
+                              lambda: bwd_p(*ba6, r6), r6, nhy * d)}),
+                  into_json=False)
+    for ct, ct32, c5 in zip(ppi_table_modes, ppi_table_cases, ppi_v5_cases):
+        nh, f, d = ct["nh"], ct["f"], ct["nh"] * ct["f"]
+        fa, ba, rf, rb = (ct["fwd_args"], ct["bwd_args"], ct["rounding"],
+                          ct["bwd_rounding"])
+        rows = c5["rows"]
+        order_ = ppi.src_order
+        ids_sorted = ppi.senders.index_select(0, order_.long())
+        time_rows(f"PPI {nh}x{f} [{mode_tag(rf)}]", mode_rows(
+            table_time_rows(ppi, ct32), {
+                "table_forward_bf16": (
+                    "table_forward",
+                    lambda: ta.table_forward(*fa, rounding=rf),
+                    lambda: ta.table_forward_plain(*fa, rounding=rf), rf,
+                    ppi.num_nodes * d),
+                "table_backward_bf16": (
+                    "table_backward",
+                    lambda: ta.table_backward(*ba, rounding=rb),
+                    lambda: ta.table_backward_plain(*ba), rb,
+                    ppi.num_nodes * d)}), into_json=True)
+        fp = ct["f32_args"]
+        for rnd in V5_MODES[:2]:
+            fr = (fp[0], rnd.table_of(fp[1])) + fp[2:]
+            time_rows(f"PPI {nh}x{f} [{mode_tag(rnd)}]", mode_rows(
+                table_time_rows(ppi, ct32), {"table_forward_bf16": (
+                    "table_forward",
+                    lambda: ta.table_forward(*fr, rounding=rnd),
+                    lambda: ta.table_forward_plain(*fr, rounding=rnd), rnd,
+                    ppi.num_nodes * d)}), into_json=False)
+        time_rows(f"PPI {nh}x{f}", mode_rows(v5_time_rows(ppi, c5), {
+            "segment_sum_rows_t": (
+                "segment_sum_rows",
+                lambda: ss.dh_reduce(rows, order_, ppi.senders, ppi.num_nodes,
+                                     ppi.num_real_edges, transposed=True),
+                lambda: ss.segment_rows_t_plain(rows, order_, ids_sorted,
+                                                ppi.num_nodes),
+                FLOAT32, 0)}), into_json=False)
+
     def remainder_by_segment_ops(h, a_src, s_eff, drop, send, recv, order,
                                  e_real, n_, nh, f, eps=1e-8, slope=SLOPE,
                                  num_src_nodes=None, **_):
@@ -1411,17 +2031,24 @@ def main():
         env = CELL_ENV.get(name, {})
         routes = [("kernel path", trainer, graph, env),
                   ("segment path", refs[name], graph, {})]
-        if graph.block_layout is not None:
+        if "bf16" in name:
+            # the same model and graph in float32
+            routes.insert(1, ("float32 kernel path", trainer, graph,
+                              float32_env(env)))
+        elif graph.block_layout is not None:
             routes.insert(1, ("v5 kernel path", trainer,
                               graph.replace(block_layout=None), env))
-        if env:
+        if "bf16" not in name and {"GAT_TPU_V10",
+                                   "GAT_TPU_V5_MERGED"} & set(env):
             # the same model and graph on the single-sweep kernel path
             routes.insert(1, ("single-sweep kernel path", trainer, graph,
-                              {}))
+                              {k: v for k, v in env.items()
+                               if k not in ("GAT_TPU_V10",
+                                            "GAT_TPU_V5_MERGED")}))
         if name == "Pubmed cluster":
             # the same model on the RCM-ordered graph takes the windowed op
             routes.insert(1, ("v7 kernel path on the RCM-ordered graph",
-                              trainer, pubmed, {}))
+                              trainer, pubmed, env))
         if name == "PATTERN":
             # without src_order the same model takes the table op (and
             # sorts the senders itself in every backward)
@@ -1455,7 +2082,8 @@ def main():
               f"table PPI's, the parts modes the hybrid Pubmed layout's and "
               f"its remainder's, segment_sum_sorted PPI's score widths by "
               f"receiver, the v5 2-phase entries Cora's, the window 2-phase "
-              f"entries Pubmed's); launches {launches[k]} over the "
+              f"entries Pubmed's, each bfloat16 mode its entry's, "
+              f"segment_sum_rows_t Cora's); launches {launches[k]} over the "
               f"{len(per_epoch)} fits (per epoch: {per})")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],

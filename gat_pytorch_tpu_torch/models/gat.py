@@ -39,10 +39,20 @@ Two layer paths, chosen by `backend`:
             edges, the sorted-gradient gathers on 200,000 edges and the
             hybrid remainder's kernel on 65,536 edges (below, XLA segment
             ops); those gates price the TPU's launches, do not apply to
-            this card and are not ported.
+            this card and are not ported. The ops read the JAX package's
+            dtype knobs of their kernels themselves (GAT_TPU_V6_DTYPE,
+            GAT_TPU_KERNEL_DTYPE, GAT_TPU_H_DTYPE, GAT_TPU_DH_REDUCE_NT).
   "segment" plain torch segment ops (ops/segment.py), the counterpart of
             the JAX "xla" path and the reference the kernel path is held
             against.
+
+GAT_TPU_GEMM_DTYPE=bfloat16 (`_gemm_dtype`, read when gat_model_apply or
+gat_layer_apply is called, on both backends) takes the products x @ W and
+the skip projections from bfloat16 operands with a float32 result, as the
+JAX package's jnp.dot(..., preferred_element_type=float32) does, and
+rounds their cotangents d(x) and d(W) to bfloat16 as its transpose does
+(`bf16_product`); the model casts its input to bfloat16 once, so that
+layer 0's input dropout runs in bfloat16 arithmetic (`input_dropout`).
 """
 
 from __future__ import annotations
@@ -67,6 +77,60 @@ BACKENDS = ("kernel", "segment")
 # Which layer path each gat_layer_apply call took, one entry per call
 # (tests clear and read it, as the JAX package's PATH_TRACE).
 PATH_TRACE: List[str] = []
+
+
+def _gemm_dtype() -> torch.dtype:
+    """GAT_TPU_GEMM_DTYPE as the JAX package's models/gat._gemm_dtype
+    reads it: bfloat16 operands of x @ W and the skip products where it is
+    "bfloat16", else float32."""
+    return (torch.bfloat16
+            if os.environ.get("GAT_TPU_GEMM_DTYPE") == "bfloat16"
+            else torch.float32)
+
+
+class _Bf16Product(torch.autograd.Function):
+    """bf16(x) @ bf16(W) with a float32 result. The cotangents are those
+    of the JAX product's transpose: d(x) = bf16(g @ bf16(W)^T) in x's
+    dtype and d(W) = bf16(bf16(x)^T @ g), each a float32 product (g is not
+    rounded) rounded once."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.x_dtype = x.dtype
+        if x.is_cuda:   # a bfloat16 GEMM with float32 accumulation and output
+            return torch.mm(xb, wb, out_dtype=torch.float32)
+        # the products of two bfloat16 values are exact in float32
+        return xb.float() @ wb.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        d_x = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_x = (g @ wb.float().t()).to(torch.bfloat16).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            d_w = (xb.float().t() @ g).to(torch.bfloat16).float()
+        return d_x, d_w
+
+
+def bf16_product(x: torch.Tensor, w: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """x @ w: in float32, or from bfloat16 operands (_Bf16Product)."""
+    if dtype == torch.float32:
+        return x @ w
+    return _Bf16Product.apply(x, w)
+
+
+def input_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """x / (1 - rate) where `keep`, else 0, in x's dtype. The scale is
+    rounded to that dtype first and divides as a tensor, as the JAX
+    package's weakly typed scalar does in `_dropout` (a bfloat16 x then
+    divides by bfloat16(1 - rate))."""
+    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros_like(x))
 
 
 def two_phase_modes() -> Tuple[bool, bool]:
@@ -201,7 +265,9 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                     src_band: int = 0,
                     generator: Optional[torch.Generator] = None,
                     training: bool = False,
-                    backend: str = "kernel") -> torch.Tensor:
+                    backend: str = "kernel",
+                    gemm_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """One GAT layer on a canonicalised graph (self-loops, dst-sorted,
     padded to a sink node, real edges first). num_real_edges defaults to
     edge_mask.sum() (one host sync); Graph.num_real_edges avoids it.
@@ -209,14 +275,17 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     op, or on the hybrid of the windowed and the v5 parts ops where the
     layout has a remainder; the table op and the segment path ignore it.
     tile_lo and src_band (Graph.tile_lo, Graph.src_band) size the v6
-    form's window arguments, as the JAX package derives them."""
+    form's window arguments, as the JAX package derives them. gemm_dtype:
+    the operands' dtype of x @ W (None reads GAT_TPU_GEMM_DTYPE now)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
     nh, f = cfg.num_heads, cfg.out_features
     e = senders.shape[0]
     # x @ W is a plain product outside any kernel, in full float32
-    # (utils/device.resolve_device turns TF32 off)
-    h_flat = x @ params["W"]
+    # (utils/device.resolve_device turns TF32 off) or from bfloat16
+    # operands
+    h_flat = bf16_product(x, params["W"],
+                          _gemm_dtype() if gemm_dtype is None else gemm_dtype)
     dropping = training and cfg.dropout > 0.0
     given_logits = cfg.paper_faithful or cfg.const_attention
 
@@ -479,27 +548,27 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
             "generator")
     heads = [1] + list(cfg.num_heads_per_layer)
     skip_dims = cfg.skip_dims()
-    x = graph.x
+    gdt = _gemm_dtype()
+    x = graph.x.to(gdt)     # cast once: layer 0's dropout runs in gdt
     skip_count = 0
     for i, lc in enumerate(cfg.layer_configs()):
         layer_input = x
         if training and cfg.dropout > 0.0:
             keep = torch.rand(x.shape, generator=generator,
                               device=dev) >= cfg.dropout
-            x = torch.where(keep, x / (1.0 - cfg.dropout),
-                            torch.zeros_like(x))
+            x = input_dropout(x, keep, cfg.dropout)
         x = gat_layer_apply(
             params["layers"][i], lc, x, graph.senders, graph.receivers,
             graph.edge_mask, graph.num_nodes,
             num_real_edges=graph.num_real_edges, src_order=graph.src_order,
             block_layout=graph.block_layout, tile_lo=graph.tile_lo,
             src_band=graph.src_band, generator=generator,
-            training=training, backend=backend)
+            training=training, backend=backend, gemm_dtype=gdt)
         if skip_dims[i] is not None:
             skip_p = params["skips"][skip_count]
             skip_count += 1
             skip_out = (layer_input if "w" not in skip_p
-                        else layer_input @ skip_p["w"])
+                        else bf16_product(layer_input, skip_p["w"], gdt))
             if cfg.heads_concat_per_layer[i]:
                 x = x + skip_out
             else:

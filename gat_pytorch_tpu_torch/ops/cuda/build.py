@@ -7,10 +7,13 @@ are shared) and is compiled on its own with
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so
 
 at first use, into `build/torch_kernels/` at the repository root (listed
-in .gitignore). The file name carries a hash of the source, the headers
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded.
-`build_all()` starts one nvcc per source at once.
+in .gitignore). The attention sources are compiled a second time with
+-DGAT_BF16_TABLE, into lib<name>_bf16table-<hash>.so: the same entries
+for a bfloat16 h table (the table modes of rounding.py), each library
+holding the kernels of one element type, so that the two builds run side
+by side. The file name carries a hash of the source, the headers and the
+flags, so an edited source is rebuilt and a stale library is never
+loaded. `build_all()` starts one nvcc per library at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent module only touches nvcc when a kernel is launched
@@ -35,19 +38,24 @@ SOURCES = ("v5_attention", "segment_sum", "window_attention",
            "table_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# the sources built again for a bfloat16 h table, and the libraries
+_BF16_TABLE = "_bf16table"
+TABLE_SOURCES = ("v5_attention", "window_attention", "table_attention")
+LIBRARIES = SOURCES + tuple(s + _BF16_TABLE for s in TABLE_SOURCES)
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel on a CUDA tensor, and nowhere else (chip_smoke.py reads these).
-LAUNCHES: Dict[str, int] = {"v5_forward": 0, "v5_backward": 0,
-                            "segment_sum_rows": 0, "window_forward": 0,
-                            "window_backward": 0, "table_forward": 0,
-                            "table_backward": 0, "v5_backward_parts": 0,
-                            "window_backward_parts": 0,
-                            "segment_sum_sorted": 0, "v5_cap": 0,
-                            "v5_forward_two_phase": 0,
-                            "v5_backward_two_phase": 0, "window_cap": 0,
-                            "window_forward_two_phase": 0,
-                            "window_backward_two_phase": 0}
+# An entry's bfloat16 modes count apart, under "<entry>_bf16"
+# (rounding.Rounding.counter); the cap passes have no such mode.
+_ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
+            "table_forward", "table_backward", "v5_backward_parts",
+            "window_backward_parts", "v5_cap", "v5_forward_two_phase",
+            "v5_backward_two_phase", "window_forward_two_phase",
+            "window_backward_two_phase")
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    _ENTRIES + ("segment_sum_rows", "segment_sum_sorted", "window_cap",
+                "segment_sum_rows_t")
+    + tuple(k + "_bf16" for k in _ENTRIES), 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -69,19 +77,30 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (PATH or $CUDA_HOME/bin)")
 
 
+def library(source: str, bf16_table: bool = False) -> str:
+    """The library of `source` for a float32 or a bfloat16 h table."""
+    return source + _BF16_TABLE if bf16_table else source
+
+
+def _source_and_flags(name: str):
+    if name.endswith(_BF16_TABLE):
+        return name[:-len(_BF16_TABLE)], NVCC_FLAGS + ["-DGAT_BF16_TABLE"]
+    return name, NVCC_FLAGS
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    source, flags = _source_and_flags(name)
+    src = (CSRC / f"{source}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:12]
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every named source that is not built yet, all nvcc
-    processes at once. Returns the compiler's output per source built.
-    Raises RuntimeError naming the source if a build fails."""
+def build_all(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
+    """Compile every named library that is not built yet, all nvcc
+    processes at once. Returns the compiler's output per library built.
+    Raises RuntimeError naming the library if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -89,8 +108,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        source, flags = _source_and_flags(name)
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -99,7 +118,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         text, _ = proc.communicate()
         logs[name] = text
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{text}")
+            failed.append(f"{name} (rc {proc.returncode}):\n{text}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -108,7 +127,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library `name` (of LIBRARIES), built first if needed."""
     lib = _libs.get(name)
     if lib is None:
         path = _lib_path(name)

@@ -1,11 +1,13 @@
 // Shared by the attention kernels (v5_attention.cu, window_attention.cu,
 // table_attention.cu):
-// warp and block reduction helpers, the cross-block second passes, and the
-// dispatch on the row width. Everything sits in an anonymous namespace, so
+// warp and block reduction helpers, the cross-block second passes, the
+// bfloat16 rounding points, and the dispatch on the row width and on the
+// h table's element type. Everything sits in an anonymous namespace, so
 // each source gets its own copy.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -17,6 +19,54 @@ constexpr int kWarps = 8;       // warps per block; one dst node per warp
 constexpr int kMaxHeads = 8;    // the wrapper refuses more heads
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCapThreads = 256;  // threads of the cap reduction
+
+// The flags word every attention C entry takes: where the JAX package's
+// bfloat16 modes round (ops/cuda/rounding.py Rounding names the same
+// points). kBf16Table: h is a bfloat16 table (cast once by the wrapper;
+// the logits and every product read its rows). The others round float32
+// values in registers: kRoundRows the gathered float32 row after its
+// logits are taken, kRoundAcc each edge's [weighted h | ex] before the
+// float32 sums of the forward, kRoundPayload a destination's g, inv and
+// d(den) in the backward (after d(den) is taken from g), kRoundDh the
+// d(h) rows, kRoundDraw d(raw) in d(a_src), kRoundDsdst d(raw) in
+// d(s_dst). Every sum stays float32.
+constexpr int kRoundRows = 1;
+constexpr int kRoundAcc = 2;
+constexpr int kRoundPayload = 4;
+constexpr int kRoundDh = 8;
+constexpr int kRoundDraw = 16;
+constexpr int kRoundDsdst = 32;
+constexpr int kBf16Table = 64;
+
+// x rounded to the nearest bfloat16, ties to even (as XLA's convert and
+// torch's .to(torch.bfloat16)), as a float; never truncated
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float round_if(float x, bool on) {
+  return on ? round_bf16(x) : x;
+}
+
+// one element of an h table, float32 or bfloat16
+__device__ __forceinline__ float load_h(const float* p) { return *p; }
+__device__ __forceinline__ float load_h(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// f(h as the table's element type): the C entries take h as void*. A
+// library holds the kernels of one element type (bfloat16 where it is
+// built with -DGAT_BF16_TABLE, ops/cuda/build.py) and refuses the other.
+template <typename F>
+int with_table(const void* h, int flags, F&& f) {
+#ifdef GAT_BF16_TABLE
+  if (!(flags & kBf16Table)) return (int)cudaErrorInvalidValue;
+  return f(static_cast<const __nv_bfloat16*>(h));
+#else
+  if (flags & kBf16Table) return (int)cudaErrorInvalidValue;
+  return f(static_cast<const float*>(h));
+#endif
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   // butterfly: float addition commutes, so every lane ends bitwise equal
@@ -33,20 +83,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 // raw - cap == 0 exactly, where LeakyReLU's slope-at-0 convention decides
 // its gradient. WITH_Q: the backward's second dot in the same pass over
 // the lane's features, q = h[src] . g[dst] over head k's features (head
-// and gv are not read otherwise).
+// and gv are not read otherwise), of the row rounded to bfloat16 where
+// round_q (kRoundRows: the logit reads the float32 row, q the rounded one).
 template <int C, bool WITH_Q>
 __device__ __forceinline__ float head_dot(const float (&hv)[C],
                                           const bool (&live)[C],
                                           const int (&head)[C],
                                           const float* sa, int k, int d_feat,
                                           int lane, const float (&gv)[C],
-                                          float& q) {
+                                          float& q, bool round_q = false) {
   float p = 0.f, r = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (!live[c]) continue;
     p += hv[c] * sa[k * d_feat + lane + 32 * c];
-    if (WITH_Q && head[c] == k) r += hv[c] * gv[c];
+    if (WITH_Q && head[c] == k) r += round_if(hv[c], round_q) * gv[c];
   }
   if (WITH_Q) q = warp_sum(r);
   return warp_sum(p);

@@ -1,6 +1,7 @@
 // Sorted row segment sums for Hopper (sm_90a): the d(h) reduction of the
-// attention backward (seg_rows_kernel) and the plain sorted segment sum
-// (sorted_sum_kernel, further down, with its own header).
+// attention backward in its row-major (seg_rows_kernel) and feature-major
+// (seg_rows_t_kernel, further down, with its own header) forms, and the
+// plain sorted segment sum (sorted_sum_kernel, with its own header).
 //
 // seg_rows_kernel replaces the TPU kernel
 //   gat_pytorch_tpu/ops/pallas/segment_sum.py:_kernel_rows_nt
@@ -72,6 +73,86 @@ seg_rows_kernel(const float* __restrict__ values, const int* __restrict__ order,
     for (int c = 0; c < C; ++c)
       if (live[c]) out[(size_t)s * d_feat + lane + 32 * c] = acc[c];
   }
+}
+
+// ---------------------------------------------------------------------------
+// The d(h) reduction, feature-major.
+//
+// seg_rows_t_kernel replaces the TPU kernel
+//   gat_pytorch_tpu/ops/pallas/segment_sum.py:_kernel_rows
+//     (segment_sum_pallas_rows(no_transpose=False)), which
+//   gat_pytorch_tpu/ops/pallas/segment_attention.py:_dh_reduce takes under
+//   GAT_TPU_DH_REDUCE_NT=0.
+//
+// Contract: that of seg_rows_kernel, the sums accumulated feature-major:
+// out_t[j, s] = sum over i in [seg_ptr[s], seg_ptr[s+1]) of
+// values[order[i], j], in increasing i, rows order[i] >= row_limit skipped;
+// out_t is (d_feat, nseg) and the wrapper returns its transpose. Each sum
+// starts at 0 and adds the same floats in the same order as
+// seg_rows_kernel's, so the two forms give the same bits.
+//
+// Design. The TPU kernel transposes each block of rows on chip and sums
+// them with a one-hot matrix product into a (D, N) accumulator. Here one
+// block owns a tile of 32 segments and 8 features, and each thread one
+// (feature, segment) accumulator: the warp is the feature, the lane the
+// segment, so the (D, N) stores of a warp are 32 consecutive floats. The
+// tile's segments own one contiguous run of rows [seg_ptr[s0],
+// seg_ptr[s0 + 32]); the block stages it through shared memory a chunk at
+// a time (its row indices, then the 8 features of each row: 32 bytes a
+// row, one sector), and each thread adds its segment's rows of the chunk
+// in order. A chunk whose rows are all past row_limit (the sink's padding
+// rows of a padded batch) is skipped whole. No atomics: one writer per
+// output, a fixed order.
+//
+// What bounds it on the H100: bytes, the rows read once (E x D x 4), the
+// row indices once per 8 features, and the table written once; as written
+// a lane walks its segment serially out of shared memory, so a long
+// segment (the sink) is one lane's latency chain, and narrow rows (D = 7)
+// leave most warps of a block idle.
+
+constexpr int kTileSegs = 32;   // segments per block: one per lane
+constexpr int kTileFeats = 8;   // features per block: one per warp
+constexpr int kChunkRows = 128;
+
+__global__ void __launch_bounds__(kTileSegs * kTileFeats)
+seg_rows_t_kernel(const float* __restrict__ values,
+                  const int* __restrict__ order,
+                  const int* __restrict__ seg_ptr, int nseg, int row_limit,
+                  int d_feat, float* __restrict__ out_t) {
+  __shared__ int rows[kChunkRows];
+  __shared__ float tile[kChunkRows][kTileFeats + 1];  // +1: fewer conflicts
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = blockIdx.x * kTileSegs, f0 = blockIdx.y * kTileFeats;
+  const int s = s0 + lane, j = f0 + warp;
+  const int s_end = min(s0 + kTileSegs, nseg);
+  const int lo_t = seg_ptr[s0], hi_t = seg_ptr[s_end];
+  const int my_lo = s < nseg ? seg_ptr[s] : hi_t;
+  const int my_hi = s < nseg ? seg_ptr[s + 1] : hi_t;
+  float acc = 0.f;
+  for (int base = lo_t; base < hi_t; base += kChunkRows) {
+    const int cnt = min(kChunkRows, hi_t - base);
+    int any = 0;
+    for (int r = threadIdx.x; r < cnt; r += blockDim.x) {
+      const int src = order ? order[base + r] : base + r;
+      rows[r] = src;
+      any |= src < row_limit;
+    }
+    if (!__syncthreads_or(any)) continue;  // padding rows only
+    for (int q = threadIdx.x; q < cnt * kTileFeats; q += blockDim.x) {
+      const int r = q / kTileFeats, c = q % kTileFeats;
+      const int src = rows[r];
+      tile[r][c] = (src < row_limit && f0 + c < d_feat)
+                       ? values[(size_t)src * d_feat + f0 + c]
+                       : 0.f;
+    }
+    __syncthreads();
+    const int a = max(my_lo, base) - base;
+    const int b = min(my_hi, base + cnt) - base;
+    for (int r = a; r < b; ++r)
+      if (rows[r] < row_limit) acc += tile[r][warp];
+    __syncthreads();
+  }
+  if (s < nseg && j < d_feat) out_t[(size_t)j * nseg + s] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -218,6 +299,20 @@ int segment_sum_rows(const float* values, const int* order,
   else if (c_need <= 16) SEG_ROWS(16);
   else SEG_ROWS(32);
 #undef SEG_ROWS
+  return (int)cudaGetLastError();
+}
+
+// out_t (d_feat, nseg), the feature-major form of segment_sum_rows.
+int segment_sum_rows_t(const float* values, const int* order,
+                       const int* seg_ptr, int nseg, int row_limit,
+                       int d_feat, float* out_t, void* stream) {
+  if (d_feat < 1 || d_feat > 1024 || nseg < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((nseg + kTileSegs - 1) / kTileSegs,
+                  (d_feat + kTileFeats - 1) / kTileFeats);
+  seg_rows_t_kernel<<<grid, kTileSegs * kTileFeats, 0,
+                      (cudaStream_t)stream>>>(values, order, seg_ptr, nseg,
+                                              row_limit, d_feat, out_t);
   return (int)cudaGetLastError();
 }
 

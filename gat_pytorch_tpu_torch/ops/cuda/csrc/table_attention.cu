@@ -41,20 +41,27 @@
 // again); at 1024-wide rows and tens of thousands of edges that is a few
 // hundred MB, of the order of 0.1 ms at 3.35 TB/s. As written a warp walks
 // its edges one after another, so narrow rows are bound by latency.
+//
+// The bfloat16 modes (the flags word, attention_common.cuh): the JAX
+// package's GAT_TPU_H_DTYPE, a bfloat16 h table (kBf16Table: both kernels
+// are instantiated for both element types; half the gathered bytes), and
+// GAT_TPU_KERNEL_DTYPE, each edge's [weighted h | ex] rounded before the
+// forward's float32 sums (kRoundAcc).
 
 #include "attention_common.cuh"
 
 namespace {
 
-template <int C>
+template <int C, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-table_fwd_kernel(const float* __restrict__ logits, const float* __restrict__ h,
+table_fwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
                  const float* __restrict__ drop,
                  const int* __restrict__ senders,
                  const int* __restrict__ row_ptr, int n, int e_real,
-                 int d_feat, int nh, int f, float eps,
+                 int d_feat, int nh, int f, float eps, int flags,
                  float* __restrict__ out, float* __restrict__ den) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool r_acc = flags & kRoundAcc;
   int head[C];
   bool live[C];
 #pragma unroll
@@ -73,20 +80,22 @@ table_fwd_kernel(const float* __restrict__ logits, const float* __restrict__ h,
 
     const int lo = row_ptr[d], hi = min(row_ptr[d + 1], e_real);
     for (int e = lo; e < hi; ++e) {
-      const float* hrow = h + (size_t)senders[e] * d_feat;
+      const T* hrow = h + (size_t)senders[e] * d_feat;
       float w[kMaxHeads];
 #pragma unroll
       for (int k = 0; k < kMaxHeads; ++k) {
         w[k] = 0.f;
         if (k < nh) {
           const float ex = expf(logits[(size_t)e * nh + k]);
-          dsum[k] += ex;
+          dsum[k] += round_if(ex, r_acc);
           w[k] = drop ? ex * drop[(size_t)e * nh + k] : ex;
         }
       }
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        if (live[c]) acc[c] += select_head(w, head[c]) * hrow[lane + 32 * c];
+        if (live[c])
+          acc[c] += round_if(
+              select_head(w, head[c]) * load_h(hrow + lane + 32 * c), r_acc);
     }
 
     float inv[kMaxHeads];
@@ -102,9 +111,9 @@ table_fwd_kernel(const float* __restrict__ logits, const float* __restrict__ h,
   }
 }
 
-template <int C>
+template <int C, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-table_bwd_kernel(const float* __restrict__ logits, const float* __restrict__ h,
+table_bwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
                  const float* __restrict__ drop,
                  const int* __restrict__ senders,
                  const int* __restrict__ row_ptr, int n, int e_real,
@@ -145,11 +154,12 @@ table_bwd_kernel(const float* __restrict__ logits, const float* __restrict__ h,
 
     const int lo = row_ptr[d], hi = min(row_ptr[d + 1], e_real);
     for (int e = lo; e < hi; ++e) {
-      const float* hrow = h + (size_t)senders[e] * d_feat;
+      const T* hrow = h + (size_t)senders[e] * d_feat;
       float* dhrow = d_h_rows + (size_t)e * d_feat;
       float hv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) hv[c] = live[c] ? hrow[lane + 32 * c] : 0.f;
+      for (int c = 0; c < C; ++c)
+        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
       float coef[kMaxHeads];
 #pragma unroll
       for (int k = 0; k < kMaxHeads; ++k) {
@@ -190,50 +200,80 @@ table_bwd_kernel(const float* __restrict__ logits, const float* __restrict__ h,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Forward: out (n, d_feat) normalised, den (n, nh). logits (E, nh), h
-// (n_src, d_feat), drop (E, nh) or NULL, row_ptr (n + 1,) the offsets of
-// each destination's run in the dst-sorted edge list, e_real the number of
-// leading real edges.
-int table_forward(const float* logits, const float* h, const float* drop,
-                  const int* senders, const int* row_ptr, int n, int e_real,
-                  int d_feat, int nh, int f, float eps, float* out,
-                  float* den, int nblk, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+int launch_table_forward(const float* logits, const T* h, const float* drop,
+                         const int* senders, const int* row_ptr, int n,
+                         int e_real, int d_feat, int nh, int f, float eps,
+                         float* out, float* den, int nblk, int flags,
+                         cudaStream_t st) {
   const int c_need = (d_feat + 31) / 32;
-#define TABLE_FWD(CC)                                              \
-  table_fwd_kernel<CC><<<nblk, kWarps * 32, 0, st>>>(              \
-      logits, h, drop, senders, row_ptr, n, e_real, d_feat, nh, f, eps, out, \
-      den);
+#define TABLE_FWD(CC)                                                        \
+  table_fwd_kernel<CC, T><<<nblk, kWarps * 32, 0, st>>>(                     \
+      logits, h, drop, senders, row_ptr, n, e_real, d_feat, nh, f, eps,      \
+      flags, out, den);
   ROWS_DISPATCH(TABLE_FWD)
 #undef TABLE_FWD
   return (int)cudaGetLastError();
 }
 
-// Backward: d_h_rows (E, d_feat) in dst order, d_logits (E, nh), d_drop
-// (E, nh) or NULL.
-int table_backward(const float* logits, const float* h, const float* drop,
-                   const int* senders, const int* row_ptr, int n, int e_real,
-                   int e_total, int d_feat, int nh, int f, float eps,
-                   const float* g,
-                   const float* out, const float* den, float* d_h_rows,
-                   float* d_logits, float* d_drop, int nblk, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+int launch_table_backward(const float* logits, const T* h, const float* drop,
+                          const int* senders, const int* row_ptr, int n,
+                          int e_real, int e_total, int d_feat, int nh, int f,
+                          float eps, const float* g, const float* out,
+                          const float* den, float* d_h_rows, float* d_logits,
+                          float* d_drop, int nblk, cudaStream_t st) {
   const int c_need = (d_feat + 31) / 32;
 #define TABLE_BWD(CC)                                                     \
-  table_bwd_kernel<CC><<<nblk, kWarps * 32, 0, st>>>(                     \
+  table_bwd_kernel<CC, T><<<nblk, kWarps * 32, 0, st>>>(                  \
       logits, h, drop, senders, row_ptr, n, e_real, e_total, d_feat, nh, f, \
       eps, g, out, den, d_h_rows, d_logits, d_drop);
   ROWS_DISPATCH(TABLE_BWD)
 #undef TABLE_BWD
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both entries: h is float32, or bfloat16 where flags has kBf16Table;
+// flags is the bfloat16 mode's word (attention_common.cuh), 0 for float32.
+
+// Forward: out (n, d_feat) normalised, den (n, nh). logits (E, nh), h
+// (n_src, d_feat), drop (E, nh) or NULL, row_ptr (n + 1,) the offsets of
+// each destination's run in the dst-sorted edge list, e_real the number of
+// leading real edges.
+int table_forward(const float* logits, const void* h, const float* drop,
+                  const int* senders, const int* row_ptr, int n, int e_real,
+                  int d_feat, int nh, int f, float eps, float* out,
+                  float* den, int nblk, int flags, void* stream) {
+  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  return with_table(h, flags, [&](auto hp) {
+    return launch_table_forward(logits, hp, drop, senders, row_ptr, n,
+                                e_real, d_feat, nh, f, eps, out, den, nblk,
+                                flags, (cudaStream_t)stream);
+  });
+}
+
+// Backward: d_h_rows (E, d_feat) in dst order, d_logits (E, nh), d_drop
+// (E, nh) or NULL.
+int table_backward(const float* logits, const void* h, const float* drop,
+                   const int* senders, const int* row_ptr, int n, int e_real,
+                   int e_total, int d_feat, int nh, int f, float eps,
+                   const float* g,
+                   const float* out, const float* den, float* d_h_rows,
+                   float* d_logits, float* d_drop, int nblk, int flags,
+                   void* stream) {
+  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  return with_table(h, flags, [&](auto hp) {
+    return launch_table_backward(logits, hp, drop, senders, row_ptr, n,
+                                 e_real, e_total, d_feat, nh, f, eps, g, out,
+                                 den, d_h_rows, d_logits, d_drop, nblk,
+                                 (cudaStream_t)stream);
+  });
 }
 
 }  // extern "C"

@@ -53,6 +53,13 @@
 // edge, so the argmax edge has pre == 0 exactly and takes the slope.
 // The h table may have more rows than n: senders index h, receivers the n
 // destination rows (a caller whose destinations are a part of the nodes).
+// The bfloat16 modes (the flags word, attention_common.cuh) are the JAX
+// package's GAT_TPU_KERNEL_DTYPE (kRoundAcc in the forwards: each edge's
+// [weighted h | ex] rounded before the float32 sums), GAT_TPU_H_DTYPE (a
+// bfloat16 h table, kBf16Table: the kernels are instantiated for both
+// element types) and the v6 form of segment_attention_window.py, which the
+// port runs on the 2-phase entries (kRoundRows | kRoundAcc forward,
+// kRoundRows | kRoundDh | kRoundDraw backward).
 //
 // Design. The TPU kernels gather rows with one-hot matmuls because Mosaic
 // has no in-kernel random gather; Hopper has one. So one warp owns one
@@ -88,13 +95,13 @@ namespace {
 // the per-block (max, code) partials; kCap only the partials (drop, num,
 // den unused); kTwoPhase reads *cap and writes out = num/(den + eps) into
 // `num` and den, no partials.
-template <int C, Fwd MODE>
+template <int C, Fwd MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
+v5_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
               const float* __restrict__ s_dst, const float* __restrict__ drop,
               const int* __restrict__ senders,
               const int* __restrict__ row_ptr, int n, int e_real,
-              int d_feat, int nh, int f, float slope, float eps,
+              int d_feat, int nh, int f, float slope, float eps, int flags,
               const float* __restrict__ cap_in, float* __restrict__ num,
               float* __restrict__ den, float* __restrict__ blk_max,
               int* __restrict__ blk_code) {
@@ -118,6 +125,7 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   int vcode = INT_MAX;
   float cap = 0.f;
   if constexpr (MODE == Fwd::kTwoPhase) cap = *cap_in;
+  const bool r_rows = flags & kRoundRows, r_acc = flags & kRoundAcc;
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float sd[kMaxHeads], dsum[kMaxHeads], acc[C];
@@ -132,10 +140,11 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     const int lo = row_ptr[d];
     const int hi = min(row_ptr[d + 1], e_real);  // padding edges add nothing
     for (int e = lo; e < hi; ++e) {
-      const float* hrow = h + (size_t)senders[e] * d_feat;
+      const T* hrow = h + (size_t)senders[e] * d_feat;
       float hv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) hv[c] = live[c] ? hrow[lane + 32 * c] : 0.f;
+      for (int c = 0; c < C; ++c)
+        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
       float ex[kMaxHeads];
 #pragma unroll
       for (int k = 0; k < kMaxHeads; ++k) {
@@ -150,7 +159,7 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
             take_max(vmax, vcode, raw, e * nh + k);
             if constexpr (MODE == Fwd::kSweep1) ex[k] = expf(slope * raw);
           }
-          dsum[k] += ex[k];
+          dsum[k] += round_if(ex[k], r_acc);
         }
       }
       if constexpr (MODE != Fwd::kCap) {
@@ -159,7 +168,7 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
           if (!live[c]) continue;
           float w = select_head(ex, head[c]);
           if (drop) w *= drop[(size_t)e * nh + head[c]];
-          acc[c] += w * hv[c];
+          acc[c] += round_if(w * round_if(hv[c], r_rows), r_acc);
         }
       }
     }
@@ -203,13 +212,13 @@ v5_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
 // reads the cap at `cap`, uses the plain `eps`, and writes each block's
 // -sum d(raw) after its d(a_src) partial (a partial row of
 // d_feat*nh + 1 floats).
-template <int C, Bwd MODE>
+template <int C, Bwd MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
+v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
               const float* __restrict__ s_dst, const float* __restrict__ drop,
               const int* __restrict__ senders,
               const int* __restrict__ row_ptr, int n, int e_real,
-              int d_feat, int nh, int f, float slope, float eps,
+              int d_feat, int nh, int f, float slope, float eps, int flags,
               const float* __restrict__ g, const float* __restrict__ out,
               const float* __restrict__ den, const float* __restrict__ epsp,
               const float* __restrict__ cap_in, float* __restrict__ d_h_rows,
@@ -246,6 +255,9 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     eps_p = eps;
     cap = *cap_in;
   }
+  const bool r_rows = flags & kRoundRows, r_pay = flags & kRoundPayload,
+             r_dh = flags & kRoundDh, r_draw = flags & kRoundDraw,
+             r_sds = flags & kRoundDsdst;
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float gv[C];
@@ -273,15 +285,25 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
         sd[k] = s_dst[(size_t)d * nh + k];
       }
     }
+    if (r_pay) {  // the payload, rounded after d(den) is taken from it
+#pragma unroll
+      for (int c = 0; c < C; ++c) gv[c] = round_bf16(gv[c]);
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k) {
+        inv[k] = round_bf16(inv[k]);
+        dden[k] = round_bf16(dden[k]);
+      }
+    }
 
     const int lo = row_ptr[d];
     const int hi = min(row_ptr[d + 1], e_real);  // padding edges: see below
     for (int e = lo; e < hi; ++e) {
       float* dhrow = d_h_rows + (size_t)e * d_feat;
-      const float* hrow = h + (size_t)senders[e] * d_feat;
+      const T* hrow = h + (size_t)senders[e] * d_feat;
       float hv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) hv[c] = live[c] ? hrow[lane + 32 * c] : 0.f;
+      for (int c = 0; c < C; ++c)
+        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
       float draw[kMaxHeads], coef[kMaxHeads];
 #pragma unroll
       for (int k = 0; k < kMaxHeads; ++k) {
@@ -289,7 +311,7 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
         if (k < nh) {
           float hg;
           const float raw = head_dot<C, true>(hv, live, head, sa, k, d_feat,
-                                              lane, gv, hg) + sd[k];
+                                              lane, gv, hg, r_rows) + sd[k];
           const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
           float ex;
           if constexpr (kTwo) {
@@ -305,7 +327,7 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
             draw[k] = slope * ex * (hg * inv[k] * m + dden[k]);
           }
           coef[k] = ex * m * inv[k];
-          sds[k] += draw[k];
+          sds[k] += round_if(draw[k], r_sds);
           if (d_drop && lane == k)
             d_drop[(size_t)e * nh + k] = hg * ex * inv[k];
         }
@@ -314,15 +336,16 @@ v5_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       for (int c = 0; c < C; ++c) {
         if (!live[c]) continue;
         const int j = lane + 32 * c;
+        const float hq = round_if(hv[c], r_rows);
         float v = 0.f;
 #pragma unroll
         for (int k = 0; k < kMaxHeads; ++k) {
           if (k < nh) {
             v += sa[k * d_feat + j] * draw[k];
-            da[c][k] += hv[c] * draw[k];
+            da[c][k] += hq * round_if(draw[k], r_draw);
           }
         }
-        dhrow[j] = v + select_head(coef, head[c]) * gv[c];
+        dhrow[j] = round_if(v + select_head(coef, head[c]) * gv[c], r_dh);
       }
     }
     if (lane < nh) d_sdst[(size_t)d * nh + lane] = select_head(sds, lane);
@@ -372,14 +395,14 @@ int check_shape(int d_feat, int nh, int nblk) {
 }
 
 // One forward launch in MODE, then (kSweep1, kCap) the cap reduce.
-template <Fwd MODE>
-int launch_v5_forward(const float* h, const float* a_src, const float* s_dst,
+template <Fwd MODE, typename T>
+int launch_v5_forward(const T* h, const float* a_src, const float* s_dst,
                       const float* drop, const int* senders,
                       const int* row_ptr, int n, int e_real, int d_feat,
                       int nh, int f, float slope, float eps,
                       const float* cap_in, float* num, float* den,
                       float* blk_max, int* blk_code, float* cap, int* code,
-                      int nblk, void* stream) {
+                      int nblk, int flags, void* stream) {
   int bad = check_shape(d_feat, nh, nblk);
   if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
@@ -387,11 +410,11 @@ int launch_v5_forward(const float* h, const float* a_src, const float* s_dst,
   const int c_need = (d_feat + 31) / 32;
   cudaError_t err = cudaSuccess;
 #define V5_FWD(CC)                                                        \
-  err = set_smem(v5_fwd_kernel<CC, MODE>, smem);                          \
+  err = set_smem(v5_fwd_kernel<CC, MODE, T>, smem);                       \
   if (err == cudaSuccess)                                                 \
-    v5_fwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(             \
+    v5_fwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(          \
         h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f, \
-        slope, eps, cap_in, num, den, blk_max, blk_code);
+        slope, eps, flags, cap_in, num, den, blk_max, blk_code);
   ROWS_DISPATCH(V5_FWD)
 #undef V5_FWD
   if (err != cudaSuccess) return (int)err;
@@ -402,15 +425,15 @@ int launch_v5_forward(const float* h, const float* a_src, const float* s_dst,
   return (int)cudaGetLastError();
 }
 
-template <Bwd MODE>
-int launch_v5_backward(const float* h, const float* a_src, const float* s_dst,
+template <Bwd MODE, typename T>
+int launch_v5_backward(const T* h, const float* a_src, const float* s_dst,
                        const float* drop, const int* senders,
                        const int* row_ptr, int n, int e_real, int d_feat,
                        int nh, int f, float slope, float eps, const float* g,
                        const float* out, const float* den, const float* epsp,
                        const float* cap_in, float* d_h_rows, float* d_drop,
                        float* d_sdst, float* dasrc_part, float* d_asrc,
-                       int nblk, void* stream) {
+                       int nblk, int flags, void* stream) {
   int bad = check_shape(d_feat, nh, nblk);
   if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
@@ -418,12 +441,12 @@ int launch_v5_backward(const float* h, const float* a_src, const float* s_dst,
   const int c_need = (d_feat + 31) / 32;
   cudaError_t err = cudaSuccess;
 #define V5_BWD(CC)                                                          \
-  err = set_smem(v5_bwd_kernel<CC, MODE>, smem);                            \
+  err = set_smem(v5_bwd_kernel<CC, MODE, T>, smem);                         \
   if (err == cudaSuccess)                                                   \
-    v5_bwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(               \
+    v5_bwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(            \
         h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,  \
-        slope, eps, g, out, den, epsp, cap_in, d_h_rows, d_drop, d_sdst,    \
-        dasrc_part);
+        slope, eps, flags, g, out, den, epsp, cap_in, d_h_rows, d_drop,     \
+        d_sdst, dasrc_part);
   ROWS_DISPATCH(V5_BWD)
 #undef V5_BWD
   if (err != cudaSuccess) return (int)err;
@@ -440,81 +463,94 @@ int launch_v5_backward(const float* h, const float* a_src, const float* s_dst,
 
 extern "C" {
 
+// Every entry: h is float32, or bfloat16 where flags has kBf16Table; flags
+// is the bfloat16 mode's word (attention_common.cuh), 0 for float32.
+
 // Forward: num (n, d_feat), den (n, nh), cap (1,), code (1,).
 // blk_max / blk_code are (nblk,) scratch. drop may be NULL.
-int v5_forward(const float* h, const float* a_src, const float* s_dst,
+int v5_forward(const void* h, const float* a_src, const float* s_dst,
                const float* drop, const int* senders, const int* row_ptr,
                int n, int e_real, int d_feat, int nh, int f, float slope,
                float* num, float* den, float* blk_max, int* blk_code,
-               float* cap, int* code, int nblk, void* stream) {
-  return launch_v5_forward<Fwd::kSweep1>(
-      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-      slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
-      stream);
+               float* cap, int* code, int nblk, int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_v5_forward<Fwd::kSweep1>(
+        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+        slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
+        flags, stream);
+  });
 }
 
 // The 2-phase cap pass: cap (1,) = max raw over the real edges and heads,
 // code (1,) = its lowest e*nh + k; blk_max / blk_code are (nblk,) scratch.
-int v5_cap(const float* h, const float* a_src, const float* s_dst,
+int v5_cap(const void* h, const float* a_src, const float* s_dst,
            const int* senders, const int* row_ptr, int n, int e_real,
            int d_feat, int nh, int f, float* blk_max, int* blk_code,
-           float* cap, int* code, int nblk, void* stream) {
-  return launch_v5_forward<Fwd::kCap>(
-      h, a_src, s_dst, nullptr, senders, row_ptr, n, e_real, d_feat, nh, f,
-      0.f, 0.f, nullptr, nullptr, nullptr, blk_max, blk_code, cap, code, nblk,
-      stream);
+           float* cap, int* code, int nblk, int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_v5_forward<Fwd::kCap>(
+        hp, a_src, s_dst, nullptr, senders, row_ptr, n, e_real, d_feat, nh,
+        f, 0.f, 0.f, nullptr, nullptr, nullptr, blk_max, blk_code, cap, code,
+        nblk, flags, stream);
+  });
 }
 
 // The 2-phase forward: out (n, d_feat) normalised, den (n, nh), from the
 // cap at `cap` (device memory). drop may be NULL.
-int v5_forward_two_phase(const float* h, const float* a_src,
+int v5_forward_two_phase(const void* h, const float* a_src,
                          const float* s_dst, const float* cap,
                          const float* drop, const int* senders,
                          const int* row_ptr, int n, int e_real, int d_feat,
                          int nh, int f, float eps, float slope, float* out,
-                         float* den, int nblk, void* stream) {
-  return launch_v5_forward<Fwd::kTwoPhase>(
-      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-      slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
-      stream);
+                         float* den, int nblk, int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_v5_forward<Fwd::kTwoPhase>(
+        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+        slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
+        flags, stream);
+  });
 }
 
 // Backward, normalised mode: d_h_rows (E, d_feat) in dst order, d_drop
 // (E, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh); dasrc_part is
 // (nblk, d_feat*nh) scratch. epsp points at eps' = eps*exp(slope*cap') on
 // the device.
-int v5_backward(const float* h, const float* a_src, const float* s_dst,
+int v5_backward(const void* h, const float* a_src, const float* s_dst,
                 const float* drop, const int* senders, const int* row_ptr,
                 int n, int e_real, int d_feat, int nh, int f, float slope,
                 const float* g, const float* out, const float* den,
                 const float* epsp, float* d_h_rows, float* d_drop,
                 float* d_sdst, float* dasrc_part, float* d_asrc, int nblk,
-                void* stream) {
-  return launch_v5_backward<Bwd::kNorm>(
-      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-      slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
-      dasrc_part, d_asrc, nblk, stream);
+                int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_v5_backward<Bwd::kNorm>(
+        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+        slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
+        dasrc_part, d_asrc, nblk, flags, stream);
+  });
 }
 
 // Backward, parts mode: the same outputs from the raw cotangents d_num
 // (n, d_feat) and d_den (n, nh) of the unnormalised parts.
-int v5_backward_parts(const float* h, const float* a_src, const float* s_dst,
+int v5_backward_parts(const void* h, const float* a_src, const float* s_dst,
                       const float* drop, const int* senders,
                       const int* row_ptr, int n, int e_real, int d_feat,
                       int nh, int f, float slope, const float* d_num,
                       const float* d_den, float* d_h_rows, float* d_drop,
                       float* d_sdst, float* dasrc_part, float* d_asrc,
-                      int nblk, void* stream) {
-  return launch_v5_backward<Bwd::kParts>(
-      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-      slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows, d_drop,
-      d_sdst, dasrc_part, d_asrc, nblk, stream);
+                      int nblk, int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_v5_backward<Bwd::kParts>(
+        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+        slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows,
+        d_drop, d_sdst, dasrc_part, d_asrc, nblk, flags, stream);
+  });
 }
 
 // Backward, 2-phase: the outputs of the normalised mode from g, out, den,
 // the cap at `cap` and the plain eps; d_asrc_cap is (d_feat*nh + 1,):
 // d(a_src) then d(cap). dasrc_part is (nblk, d_feat*nh + 1) scratch.
-int v5_backward_two_phase(const float* h, const float* a_src,
+int v5_backward_two_phase(const void* h, const float* a_src,
                           const float* s_dst, const float* cap,
                           const float* drop, const int* senders,
                           const int* row_ptr, int n, int e_real, int d_feat,
@@ -522,11 +558,13 @@ int v5_backward_two_phase(const float* h, const float* a_src,
                           const float* g, const float* out, const float* den,
                           float* d_h_rows, float* d_drop, float* d_sdst,
                           float* dasrc_part, float* d_asrc_cap, int nblk,
-                          void* stream) {
-  return launch_v5_backward<Bwd::kTwoPhase>(
-      h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-      slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
-      dasrc_part, d_asrc_cap, nblk, stream);
+                          int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_v5_backward<Bwd::kTwoPhase>(
+        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
+        slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
+        dasrc_part, d_asrc_cap, nblk, flags, stream);
+  });
 }
 
 }  // extern "C"

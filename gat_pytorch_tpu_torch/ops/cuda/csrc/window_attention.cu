@@ -37,6 +37,13 @@
 // (exp(leaky(raw - cap)), out = num / (den + eps)), window_backward_two_phase
 // (the full LeakyReLU's derivative and d(cap) = -sum d(raw)); every mode
 // takes raw from head_dot, so the argmax slot has raw - cap == 0 exactly.
+// The bfloat16 payload mode (GAT_TPU_V6_DTYPE, the JAX package's default)
+// comes in through the flags word (attention_common.cuh): a bfloat16 h
+// table (kBf16Table) where the JAX kernel packs the window and takes the
+// logits from the rounded rows, else the float32 rows rounded after the
+// logits (kRoundRows); kRoundAcc in the forwards; kRoundPayload,
+// kRoundDh, kRoundDraw and kRoundDsdst in the backwards. The 2-phase d(cap)
+// sums the float32 d(raw), and the cap pass has no such mode.
 //
 // Design. The TPU kernel streams a window of the node table into VMEM per
 // destination tile and gathers from it with one-hot matrix products, per
@@ -77,14 +84,14 @@
 namespace {
 
 // MODE as v5_fwd_kernel's (v5_attention.cu): kSweep1, kCap, kTwoPhase.
-template <int C, Fwd MODE>
+template <int C, Fwd MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
+window_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
                   const float* __restrict__ s_dst,
                   const float* __restrict__ drop, const int* __restrict__ send,
                   const int* __restrict__ dst_perm,
                   const int* __restrict__ dst_ptr, int n, int d_feat, int nh,
-                  int f, float slope, float eps,
+                  int f, float slope, float eps, int flags,
                   const float* __restrict__ cap_in, float* __restrict__ num,
                   float* __restrict__ den, float* __restrict__ blk_max,
                   int* __restrict__ blk_code) {
@@ -108,6 +115,7 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   int vcode = INT_MAX;
   float cap = 0.f;
   if constexpr (MODE == Fwd::kTwoPhase) cap = *cap_in;
+  const bool r_rows = flags & kRoundRows, r_acc = flags & kRoundAcc;
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float sd[kMaxHeads], dsum[kMaxHeads], acc[C];
@@ -122,10 +130,11 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     const int lo = dst_ptr[d], hi = dst_ptr[d + 1];  // real slots only
     for (int i = lo; i < hi; ++i) {
       const int slot = dst_perm[i];
-      const float* hrow = h + (size_t)send[slot] * d_feat;
+      const T* hrow = h + (size_t)send[slot] * d_feat;
       float hv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) hv[c] = live[c] ? hrow[lane + 32 * c] : 0.f;
+      for (int c = 0; c < C; ++c)
+        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
       float ex[kMaxHeads];
 #pragma unroll
       for (int k = 0; k < kMaxHeads; ++k) {
@@ -140,7 +149,7 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
             take_max(vmax, vcode, raw, slot * nh + k);
             if constexpr (MODE == Fwd::kSweep1) ex[k] = expf(slope * raw);
           }
-          dsum[k] += ex[k];
+          dsum[k] += round_if(ex[k], r_acc);
         }
       }
       if constexpr (MODE != Fwd::kCap) {
@@ -149,7 +158,7 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
           if (!live[c]) continue;
           float w = select_head(ex, head[c]);
           if (drop) w *= drop[(size_t)slot * nh + head[c]];
-          acc[c] += w * hv[c];
+          acc[c] += round_if(w * round_if(hv[c], r_rows), r_acc);
         }
       }
     }
@@ -189,14 +198,14 @@ window_fwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
 }
 
 // MODE as v5_bwd_kernel's (v5_attention.cu): kNorm, kParts, kTwoPhase.
-template <int C, Bwd MODE>
+template <int C, Bwd MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
+window_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
                   const float* __restrict__ s_dst,
                   const float* __restrict__ drop, const int* __restrict__ send,
                   const int* __restrict__ dst_perm,
                   const int* __restrict__ dst_ptr, int n, int e7, int d_feat,
-                  int nh, int f, float slope, float eps,
+                  int nh, int f, float slope, float eps, int flags,
                   const float* __restrict__ g, const float* __restrict__ out,
                   const float* __restrict__ den,
                   const float* __restrict__ epsp,
@@ -235,6 +244,9 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
     eps_p = eps;
     cap = *cap_in;
   }
+  const bool r_rows = flags & kRoundRows, r_pay = flags & kRoundPayload,
+             r_dh = flags & kRoundDh, r_draw = flags & kRoundDraw,
+             r_sds = flags & kRoundDsdst;
 
   // pad slots (the tail of dst_perm) get a zero dropout cotangent
   if (d_drop) {
@@ -270,15 +282,25 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
         sd[k] = s_dst[(size_t)d * nh + k];
       }
     }
+    if (r_pay) {  // the payload, rounded after d(den) is taken from it
+#pragma unroll
+      for (int c = 0; c < C; ++c) gv[c] = round_bf16(gv[c]);
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k) {
+        inv[k] = round_bf16(inv[k]);
+        dden[k] = round_bf16(dden[k]);
+      }
+    }
 
     const int lo = dst_ptr[d], hi = dst_ptr[d + 1];  // real slots only
     for (int i = lo; i < hi; ++i) {
       const int slot = dst_perm[i];
       float* dhrow = d_h_rows + (size_t)slot * d_feat;
-      const float* hrow = h + (size_t)send[slot] * d_feat;
+      const T* hrow = h + (size_t)send[slot] * d_feat;
       float hv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) hv[c] = live[c] ? hrow[lane + 32 * c] : 0.f;
+      for (int c = 0; c < C; ++c)
+        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
       float draw[kMaxHeads], coef[kMaxHeads];
 #pragma unroll
       for (int k = 0; k < kMaxHeads; ++k) {
@@ -286,7 +308,7 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
         if (k < nh) {
           float hg;
           const float raw = head_dot<C, true>(hv, live, head, sa, k, d_feat,
-                                              lane, gv, hg) + sd[k];
+                                              lane, gv, hg, r_rows) + sd[k];
           const float m = drop ? drop[(size_t)slot * nh + k] : 1.f;
           float ex;
           if constexpr (kTwo) {
@@ -302,7 +324,7 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
             draw[k] = slope * ex * (hg * inv[k] * m + dden[k]);
           }
           coef[k] = ex * m * inv[k];
-          sds[k] += draw[k];
+          sds[k] += round_if(draw[k], r_sds);
           if (d_drop && lane == k)
             d_drop[(size_t)slot * nh + k] = hg * ex * inv[k];
         }
@@ -311,15 +333,16 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
       for (int c = 0; c < C; ++c) {
         if (!live[c]) continue;
         const int j = lane + 32 * c;
+        const float hq = round_if(hv[c], r_rows);
         float v = 0.f;
 #pragma unroll
         for (int k = 0; k < kMaxHeads; ++k) {
           if (k < nh) {
             v += sa[k * d_feat + j] * draw[k];
-            da[c][k] += hv[c] * draw[k];
+            da[c][k] += hq * round_if(draw[k], r_draw);
           }
         }
-        dhrow[j] = v + select_head(coef, head[c]) * gv[c];
+        dhrow[j] = round_if(v + select_head(coef, head[c]) * gv[c], r_dh);
       }
     }
     if (lane < nh) d_sdst[(size_t)d * nh + lane] = select_head(sds, lane);
@@ -351,21 +374,33 @@ window_bwd_kernel(const float* __restrict__ h, const float* __restrict__ a_src,
   }
 }
 
+// The bfloat16-table library (-DGAT_BF16_TABLE) serves the packed window
+// only, whose rows are nh*f <= 64 wide (one or two features a lane), and
+// has no 2-phase entries (the packed window is a single-sweep form).
+#ifdef GAT_BF16_TABLE
+#define WINDOW_DISPATCH(LAUNCH)            \
+  if (c_need <= 1) { LAUNCH(1); }          \
+  else if (c_need <= 2) { LAUNCH(2); }     \
+  else { err = cudaErrorInvalidValue; }
+#else
+#define WINDOW_DISPATCH(LAUNCH) ROWS_DISPATCH(LAUNCH)
+#endif
+
 int check_shape(int d_feat, int nh, int nblk) {
   return (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
              ? (int)cudaErrorInvalidValue
              : (int)cudaSuccess;
 }
 
-template <Fwd MODE>
-int launch_window_forward(const float* h, const float* a_src,
+template <Fwd MODE, typename T>
+int launch_window_forward(const T* h, const float* a_src,
                           const float* s_dst, const float* drop,
                           const int* send, const int* dst_perm,
                           const int* dst_ptr, int n, int d_feat, int nh,
                           int f, float slope, float eps, const float* cap_in,
                           float* num, float* den, float* blk_max,
                           int* blk_code, float* cap, int* code, int nblk,
-                          void* stream) {
+                          int flags, void* stream) {
   int bad = check_shape(d_feat, nh, nblk);
   if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
@@ -373,12 +408,12 @@ int launch_window_forward(const float* h, const float* a_src,
   const int c_need = (d_feat + 31) / 32;
   cudaError_t err = cudaSuccess;
 #define WINDOW_FWD(CC)                                                     \
-  err = set_smem(window_fwd_kernel<CC, MODE>, smem);                       \
+  err = set_smem(window_fwd_kernel<CC, MODE, T>, smem);                    \
   if (err == cudaSuccess)                                                  \
-    window_fwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(          \
+    window_fwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(       \
         h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,  \
-        slope, eps, cap_in, num, den, blk_max, blk_code);
-  ROWS_DISPATCH(WINDOW_FWD)
+        slope, eps, flags, cap_in, num, den, blk_max, blk_code);
+  WINDOW_DISPATCH(WINDOW_FWD)
 #undef WINDOW_FWD
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
@@ -388,8 +423,8 @@ int launch_window_forward(const float* h, const float* a_src,
   return (int)cudaGetLastError();
 }
 
-template <Bwd MODE>
-int launch_window_backward(const float* h, const float* a_src,
+template <Bwd MODE, typename T>
+int launch_window_backward(const T* h, const float* a_src,
                            const float* s_dst, const float* drop,
                            const int* send, const int* dst_perm,
                            const int* dst_ptr, int n, int e7, int d_feat,
@@ -398,7 +433,7 @@ int launch_window_backward(const float* h, const float* a_src,
                            const float* epsp, const float* cap_in,
                            float* d_h_rows, float* d_drop, float* d_sdst,
                            float* dasrc_part, float* d_asrc, int nblk,
-                           void* stream) {
+                           int flags, void* stream) {
   int bad = check_shape(d_feat, nh, nblk);
   if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
@@ -406,13 +441,13 @@ int launch_window_backward(const float* h, const float* a_src,
   const int c_need = (d_feat + 31) / 32;
   cudaError_t err = cudaSuccess;
 #define WINDOW_BWD(CC)                                                      \
-  err = set_smem(window_bwd_kernel<CC, MODE>, smem);                        \
+  err = set_smem(window_bwd_kernel<CC, MODE, T>, smem);                     \
   if (err == cudaSuccess)                                                   \
-    window_bwd_kernel<CC, MODE><<<nblk, kWarps * 32, smem, st>>>(           \
+    window_bwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(        \
         h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,  \
-        f, slope, eps, g, out, den, epsp, cap_in, d_h_rows, d_drop, d_sdst, \
-        dasrc_part);
-  ROWS_DISPATCH(WINDOW_BWD)
+        f, slope, eps, flags, g, out, den, epsp, cap_in, d_h_rows, d_drop,  \
+        d_sdst, dasrc_part);
+  WINDOW_DISPATCH(WINDOW_BWD)
 #undef WINDOW_BWD
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
@@ -428,23 +463,31 @@ int launch_window_backward(const float* h, const float* a_src,
 
 extern "C" {
 
+// Every entry but window_cap: h is float32, or bfloat16 where flags has
+// kBf16Table (the library built with -DGAT_BF16_TABLE, which has
+// window_forward, window_backward and window_backward_parts only); flags
+// is the bfloat16 mode's word (attention_common.cuh), 0 for float32.
+
 // Forward: num (n, d_feat), den (n, nh), cap (1,), code (1,).
 // send (e7,), dst_perm (e7,), dst_ptr (n + 1,); blk_max / blk_code are
 // (nblk,) scratch. drop (e7, nh) may be NULL.
-int window_forward(const float* h, const float* a_src, const float* s_dst,
+int window_forward(const void* h, const float* a_src, const float* s_dst,
                    const float* drop, const int* send, const int* dst_perm,
                    const int* dst_ptr, int n, int d_feat, int nh, int f,
                    float slope, float* num, float* den, float* blk_max,
-                   int* blk_code, float* cap, int* code, int nblk,
+                   int* blk_code, float* cap, int* code, int nblk, int flags,
                    void* stream) {
-  return launch_window_forward<Fwd::kSweep1>(
-      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
-      slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
-      stream);
+  return with_table(h, flags, [&](auto hp) {
+    return launch_window_forward<Fwd::kSweep1>(
+        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
+        slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
+        flags, stream);
+  });
 }
 
-// The 2-phase cap pass over the real slots: cap (1,), code (1,) = its
-// lowest slot*nh + k; blk_max / blk_code are (nblk,) scratch.
+#ifndef GAT_BF16_TABLE
+// The 2-phase cap pass over the real slots (float32 h): cap (1,), code
+// (1,) = its lowest slot*nh + k; blk_max / blk_code are (nblk,) scratch.
 int window_cap(const float* h, const float* a_src, const float* s_dst,
                const int* send, const int* dst_perm, const int* dst_ptr,
                int n, int d_feat, int nh, int f, float* blk_max,
@@ -453,61 +496,70 @@ int window_cap(const float* h, const float* a_src, const float* s_dst,
   return launch_window_forward<Fwd::kCap>(
       h, a_src, s_dst, nullptr, send, dst_perm, dst_ptr, n, d_feat, nh, f,
       0.f, 0.f, nullptr, nullptr, nullptr, blk_max, blk_code, cap, code,
-      nblk, stream);
+      nblk, 0, stream);
 }
 
 // The 2-phase forward: out (n, d_feat) normalised, den (n, nh), from the
 // cap at `cap` (device memory). drop (e7, nh) may be NULL.
-int window_forward_two_phase(const float* h, const float* a_src,
+int window_forward_two_phase(const void* h, const float* a_src,
                              const float* s_dst, const float* cap,
                              const float* drop, const int* send,
                              const int* dst_perm, const int* dst_ptr, int n,
                              int d_feat, int nh, int f, float eps,
                              float slope, float* out, float* den, int nblk,
-                             void* stream) {
-  return launch_window_forward<Fwd::kTwoPhase>(
-      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
-      slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
-      stream);
+                             int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_window_forward<Fwd::kTwoPhase>(
+        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
+        slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
+        flags, stream);
+  });
 }
+
+#endif  // GAT_BF16_TABLE
 
 // Backward, normalised mode: d_h_rows (e7, d_feat) in slot order (pad rows
 // unwritten), d_drop (e7, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh);
 // dasrc_part is (nblk, d_feat*nh) scratch. epsp points at
 // eps' = eps*exp(slope*cap') on the device.
-int window_backward(const float* h, const float* a_src, const float* s_dst,
+int window_backward(const void* h, const float* a_src, const float* s_dst,
                     const float* drop, const int* send, const int* dst_perm,
                     const int* dst_ptr, int n, int e7, int d_feat, int nh,
                     int f, float slope, const float* g, const float* out,
                     const float* den, const float* epsp, float* d_h_rows,
                     float* d_drop, float* d_sdst, float* dasrc_part,
-                    float* d_asrc, int nblk, void* stream) {
-  return launch_window_backward<Bwd::kNorm>(
-      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
-      slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
-      dasrc_part, d_asrc, nblk, stream);
+                    float* d_asrc, int nblk, int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_window_backward<Bwd::kNorm>(
+        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,
+        f, slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
+        dasrc_part, d_asrc, nblk, flags, stream);
+  });
 }
 
 // Backward, parts mode: the same outputs from the raw cotangents d_num
 // (n, d_feat) and d_den (n, nh) of the unnormalised parts.
-int window_backward_parts(const float* h, const float* a_src,
+int window_backward_parts(const void* h, const float* a_src,
                           const float* s_dst, const float* drop,
                           const int* send, const int* dst_perm,
                           const int* dst_ptr, int n, int e7, int d_feat,
                           int nh, int f, float slope, const float* d_num,
                           const float* d_den, float* d_h_rows, float* d_drop,
                           float* d_sdst, float* dasrc_part, float* d_asrc,
-                          int nblk, void* stream) {
-  return launch_window_backward<Bwd::kParts>(
-      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
-      slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows, d_drop,
-      d_sdst, dasrc_part, d_asrc, nblk, stream);
+                          int nblk, int flags, void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_window_backward<Bwd::kParts>(
+        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,
+        f, slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows,
+        d_drop, d_sdst, dasrc_part, d_asrc, nblk, flags, stream);
+  });
 }
 
+#ifndef GAT_BF16_TABLE
 // Backward, 2-phase: the outputs of the normalised mode from g, out, den,
 // the cap at `cap` and the plain eps; d_asrc_cap is (d_feat*nh + 1,):
 // d(a_src) then d(cap). dasrc_part is (nblk, d_feat*nh + 1) scratch.
-int window_backward_two_phase(const float* h, const float* a_src,
+int window_backward_two_phase(const void* h, const float* a_src,
                               const float* s_dst, const float* cap,
                               const float* drop, const int* send,
                               const int* dst_perm, const int* dst_ptr, int n,
@@ -515,11 +567,15 @@ int window_backward_two_phase(const float* h, const float* a_src,
                               float slope, const float* g, const float* out,
                               const float* den, float* d_h_rows,
                               float* d_drop, float* d_sdst, float* dasrc_part,
-                              float* d_asrc_cap, int nblk, void* stream) {
-  return launch_window_backward<Bwd::kTwoPhase>(
-      h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh, f,
-      slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
-      dasrc_part, d_asrc_cap, nblk, stream);
+                              float* d_asrc_cap, int nblk, int flags,
+                              void* stream) {
+  return with_table(h, flags, [&](auto hp) {
+    return launch_window_backward<Bwd::kTwoPhase>(
+        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,
+        f, slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
+        dasrc_part, d_asrc_cap, nblk, flags, stream);
+  });
 }
+#endif  // GAT_BF16_TABLE
 
 }  // extern "C"

@@ -1,22 +1,30 @@
-"""Sorted row segment sums: the attention backward's d(h) reduction and
-the plain sorted segment sum.
+"""Sorted row segment sums: the attention backward's d(h) reduction, in
+its row-major and its feature-major form, and the plain sorted segment
+sum.
 
 Counterpart of gat_pytorch_tpu/ops/pallas/segment_sum.py:
-segment_sum_pallas_rows (:176, the `_kernel_rows_nt` form) with the
-`_dh_reduce` glue in segment_attention.py:912-938, and segment_sum_pallas
-(:260, `_kernel`), the reduction behind the sorted-gradient gathers
-(ops/segment.py:gather_rows_sorted_grad). The CUDA kernels are in
-csrc/segment_sum.cu (its headers say what bounds them and why they are
-shaped so); `segment_rows_plain` and `segment_sum_sorted_plain` are their
-plain torch versions.
+segment_sum_pallas_rows (:176) in its two forms, `_kernel_rows_nt`
+(no_transpose=True, the JAX package's default) and `_kernel_rows`
+(no_transpose=False: accumulated feature-major, (D, N), and transposed
+back), with the `_dh_reduce` glue in segment_attention.py:912-938, which
+picks the form by GAT_TPU_DH_REDUCE_NT (`dh_transposed`); and
+segment_sum_pallas (:260, `_kernel`), the reduction behind the
+sorted-gradient gathers (ops/segment.py:gather_rows_sorted_grad). The
+CUDA kernels are in csrc/segment_sum.cu (its headers say what bounds
+them and why they are shaped so); `segment_rows_plain`,
+`segment_rows_t_plain` and `segment_sum_sorted_plain` are their plain
+torch versions.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain version. Every sum has a fixed order: two calls give the same bits.
+plain version. Every sum has a fixed order: two calls give the same bits,
+and the two d(h) forms give the same bits as each other on the card
+(both add each segment's rows in ascending order from 0).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -35,27 +43,54 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.segment_sum_rows.argtypes = [p, p, p, i, i, i, p, i, p]
         lib.segment_sum_rows.restype = ctypes.c_int
+        lib.segment_sum_rows_t.argtypes = [p, p, p, i, i, i, p, p]
+        lib.segment_sum_rows_t.restype = ctypes.c_int
         lib.segment_sum_sorted.argtypes = [p, p, i, i, i, p, p, p]
         lib.segment_sum_sorted.restype = ctypes.c_int
         _configured = True
     return lib
 
 
+def dh_transposed() -> bool:
+    """GAT_TPU_DH_REDUCE_NT as segment_attention._dh_reduce reads it: the
+    feature-major form (segment_sum_pallas_rows(no_transpose=False))
+    where it is "0", else the row-major one."""
+    return os.environ.get("GAT_TPU_DH_REDUCE_NT", "1") == "0"
+
+
 def segment_rows_plain(values: torch.Tensor, order: Optional[torch.Tensor],
-                        sorted_ids: torch.Tensor, num_segments: int
-                        ) -> torch.Tensor:
+                       sorted_ids: torch.Tensor, num_segments: int
+                       ) -> torch.Tensor:
     e = sorted_ids.shape[0]
     rows = values[:e] if order is None else values.index_select(
         0, order.long())
     return seg.segment_sum(rows, sorted_ids, num_segments)
 
 
+def segment_rows_t_plain(values: torch.Tensor, order: Optional[torch.Tensor],
+                         sorted_ids: torch.Tensor, num_segments: int
+                         ) -> torch.Tensor:
+    """The feature-major form: the rows' transpose summed into a
+    (D, num_segments) buffer by id (ids >= num_segments dropped), then
+    returned row-major."""
+    e, d = sorted_ids.shape[0], values.shape[1]
+    rows = values[:e] if order is None else values.index_select(
+        0, order.long())
+    ids = sorted_ids.long()
+    ids = torch.where(ids < num_segments, ids,
+                      torch.full_like(ids, num_segments))
+    out_t = rows.new_zeros((d, num_segments + 1)).index_add(1, ids, rows.t())
+    return out_t[:, :num_segments].t().contiguous()
+
+
 def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
                        seg_ptr: torch.Tensor,
-                       row_limit: Optional[int] = None) -> torch.Tensor:
+                       row_limit: Optional[int] = None,
+                       transposed: bool = False) -> torch.Tensor:
     """out[s] = sum of values[order[i]] over i in [seg_ptr[s], seg_ptr[s+1])
     (order None: the identity), by the kernel; rows from `row_limit` on
-    are skipped (the caller knows them to be zero)."""
+    are skipped (the caller knows them to be zero). transposed: the
+    feature-major kernel, whose (D, S) result is returned row-major."""
     dev = values.device
     build.require(values, "values", dev, torch.float32, (None, None))
     d = values.shape[1]
@@ -65,23 +100,30 @@ def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
     num_segments = seg_ptr.shape[0] - 1
     if order is not None:
         build.require(order, "order", dev, torch.int32, (None,))
-    out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
+    limit = values.shape[0] if row_limit is None else row_limit
+    shape = (d, num_segments) if transposed else (num_segments, d)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     if num_segments == 0:
-        return out
+        return out.t() if transposed else out
+    p = build.ptr
     lib = _lib()
     with torch.cuda.device(dev):
-        err = lib.segment_sum_rows(
-            build.ptr(values), build.ptr(order), build.ptr(seg_ptr),
-            num_segments,
-            values.shape[0] if row_limit is None else row_limit, d,
-            build.ptr(out), build.grid_blocks(num_segments),
-            build.stream(dev))
-    build.check(err, "segment_sum_rows")
-    build.LAUNCHES["segment_sum_rows"] += 1
-    return out
+        if transposed:
+            err = lib.segment_sum_rows_t(
+                p(values), p(order), p(seg_ptr), num_segments, limit, d,
+                p(out), build.stream(dev))
+        else:
+            err = lib.segment_sum_rows(
+                p(values), p(order), p(seg_ptr), num_segments, limit, d,
+                p(out), build.grid_blocks(num_segments), build.stream(dev))
+    name = "segment_sum_rows_t" if transposed else "segment_sum_rows"
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return out.t().contiguous() if transposed else out
 
 
-def _segment_rows(values, order, sorted_ids, num_segments, row_limit=None):
+def _segment_rows(values, order, sorted_ids, num_segments, row_limit=None,
+                  transposed: bool = False):
     e = sorted_ids.shape[0]
     if values.shape[0] < e or (order is not None and order.shape[0] != e):
         raise ValueError(f"{values.shape[0]} rows and order "
@@ -92,9 +134,10 @@ def _segment_rows(values, order, sorted_ids, num_segments, row_limit=None):
                       (e,))
         return _segment_rows_cuda(
             values, order, build.csr_offsets(sorted_ids, num_segments),
-            row_limit)
+            row_limit, transposed)
     if values.device.type == "cpu":
-        return segment_rows_plain(values, order, sorted_ids, num_segments)
+        plain = segment_rows_t_plain if transposed else segment_rows_plain
+        return plain(values, order, sorted_ids, num_segments)
     raise ValueError(f"no kernel for device {values.device}")
 
 
@@ -110,7 +153,8 @@ def segment_sum_rows(values: torch.Tensor, sorted_ids: torch.Tensor,
 
 def dh_reduce(d_h_rows: torch.Tensor, src_order: torch.Tensor,
               senders: torch.Tensor, num_nodes: int,
-              num_real_edges: Optional[int] = None) -> torch.Tensor:
+              num_real_edges: Optional[int] = None,
+              transposed: bool = False) -> torch.Tensor:
     """Sum the attention backward's per-edge d(h) rows (dst order) into
     the (num_nodes, D) table by sender: rows are read through
     `src_order`, the stable sender-sorting permutation.
@@ -118,24 +162,28 @@ def dh_reduce(d_h_rows: torch.Tensor, src_order: torch.Tensor,
     With `num_real_edges`, the rows from there on belong to padding
     edges and are zero, as the attention backward writes them; the
     kernel steps over them without reading (a batch padded to its bucket
-    hangs thousands of them on the sink node, which one warp sums)."""
+    hangs thousands of them on the sink node, which one warp sums).
+    transposed: the feature-major form (the caller's dh_transposed())."""
     ids_sorted = senders.index_select(0, src_order.long())
     return _segment_rows(d_h_rows, src_order, ids_sorted, num_nodes,
-                         num_real_edges)
+                         num_real_edges, transposed)
 
 
 def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
-                  src_ptr: torch.Tensor) -> torch.Tensor:
+                  src_ptr: torch.Tensor, transposed: bool = False
+                  ) -> torch.Tensor:
     """The same reduction for a caller that holds the sender runs as
     offsets (the block layout does): sender s's rows are
     d_h_rows[src_perm[src_ptr[s]:src_ptr[s+1]]]; rows that src_perm does
     not name are not read. Returns (len(src_ptr) - 1, D)."""
     if d_h_rows.is_cuda:
-        return _segment_rows_cuda(d_h_rows, src_perm, src_ptr)
+        return _segment_rows_cuda(d_h_rows, src_perm, src_ptr,
+                                  transposed=transposed)
     if d_h_rows.device.type == "cpu":
         n = src_ptr.shape[0] - 1
         ids = torch.repeat_interleave(torch.arange(n), src_ptr.long().diff())
-        return segment_rows_plain(d_h_rows, src_perm, ids, n)
+        plain = segment_rows_t_plain if transposed else segment_rows_plain
+        return plain(d_h_rows, src_perm, ids, n)
     raise ValueError(f"no kernel for device {d_h_rows.device}")
 
 

@@ -18,6 +18,14 @@ mask in it), the dropout-weighted sum and the normalisation
 and is differentiable in the logits, h and the dropout mask. The JAX
 op's `eb`, `nb`, `interpret`, `num_src_nodes` and `vma` arguments size
 TPU blocks or serve the sharded layout and are not carried.
+
+The JAX package's dtype knobs of this op (ops/cuda/v5_attention.py's
+v5_rounding, read when the op is called): GAT_TPU_KERNEL_DTYPE=bfloat16
+rounds each edge's [weighted h | ex] to bfloat16 before the forward's
+float32 sums; GAT_TPU_H_DTYPE=bfloat16 casts the h table to bfloat16
+before the gather, so that the forward and the backward read rounded rows
+(gather_h_src_t; d(h) stays float32). GAT_TPU_DH_REDUCE_NT=0 reduces d(h)
+through the feature-major kernel.
 """
 
 from __future__ import annotations
@@ -29,25 +37,28 @@ import torch
 
 from .. import segment as seg
 from . import build
-from .segment_sum import dh_reduce
-from .v5_attention import MAX_HEADS
+from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
+from .segment_sum import dh_reduce, dh_transposed
+from .v5_attention import MAX_HEADS, v5_rounding
 
 NEG_INF = -1e30          # the logit of a padding edge
 _KERNEL = "table_attention"
-_configured = False
+_configured = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _configured
-    lib = build.load(_KERNEL)
-    if not _configured:
+def _lib(bf16_table: bool = False) -> ctypes.CDLL:
+    """The kernels' library for a float32 or a bfloat16 h table."""
+    name = build.library(_KERNEL, bf16_table)
+    lib = build.load(name)
+    if name not in _configured:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.table_forward.argtypes = [p] * 5 + [i] * 5 + [fl, p, p, i, p]
+        lib.table_forward.argtypes = ([p] * 5 + [i] * 5
+                                      + [fl, p, p, i, i, p])
         lib.table_forward.restype = ctypes.c_int
         lib.table_backward.argtypes = ([p] * 5 + [i] * 6 + [fl] + [p] * 6
-                                       + [i, p])
+                                       + [i, i, p])
         lib.table_backward.restype = ctypes.c_int
-        _configured = True
+        _configured.add(name)
     return lib
 
 
@@ -62,18 +73,22 @@ def _real(e: int, e_real: int, device) -> torch.Tensor:
 
 
 def table_forward_plain(logits, h, drop, senders, receivers, num_nodes: int,
-                        e_real: int, eps: float):
+                        e_real: int, eps: float,
+                        rounding: Rounding = FLOAT32):
     """(out (num_nodes, D) normalised, den (num_nodes, nh)) over the
-    edges e < e_real."""
+    edges e < e_real; h is the table the kernel reads (bfloat16 in the
+    table mode), `acc` rounds each edge's terms before the sums."""
     e, nh = logits.shape
     d = h.shape[1]
     ex = torch.where(_real(e, e_real, logits.device), torch.exp(logits),
                      torch.zeros_like(logits))
     w = ex if drop is None else ex * drop
-    h_e = seg.gather_rows(h, senders)
-    num = seg.segment_sum((h_e.view(e, nh, d // nh) * w[:, :, None]
-                           ).reshape(e, d), receivers, num_nodes)
-    den = seg.segment_sum(ex, receivers, num_nodes)
+    h_e = seg.gather_rows(h.float(), senders)
+    num = seg.segment_sum(maybe_bf16((h_e.view(e, nh, d // nh)
+                                      * w[:, :, None]).reshape(e, d),
+                                     rounding.acc), receivers, num_nodes)
+    den = seg.segment_sum(maybe_bf16(ex, rounding.acc), receivers,
+                          num_nodes)
     out = (num.view(num_nodes, nh, d // nh)
            * _inverse(den, eps)[:, :, None]).reshape(num_nodes, d)
     return out, den
@@ -96,7 +111,7 @@ def table_backward_plain(logits, h, drop, senders, receivers, e_real: int,
     g_e = g.index_select(0, rcv_in)
     inv_e = inv.index_select(0, rcv_in)
     m = torch.ones_like(ex) if drop is None else drop
-    hg = (seg.gather_rows(h, senders) * g_e).view(e, nh, f).sum(2)
+    hg = (seg.gather_rows(h.float(), senders) * g_e).view(e, nh, f).sum(2)
     d_h_rows = ((ex * m * inv_e)[:, :, None] * g_e.view(e, nh, f)
                 ).reshape(e, d)
     d_logits = ex * (hg * inv_e * m + d_den.index_select(0, rcv_in))
@@ -106,14 +121,16 @@ def table_backward_plain(logits, h, drop, senders, receivers, e_real: int,
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
 
-def _check_inputs(logits, h, drop, senders, receivers, num_nodes, e_real):
+def _check_inputs(logits, h, drop, senders, receivers, num_nodes, e_real,
+                  rounding: Rounding):
     dev = logits.device
     e = logits.shape[0] if logits.dim() == 2 else -1
     nh = logits.shape[1] if logits.dim() == 2 else -1
     build.require(logits, "logits", dev, torch.float32, (None, None))
     if not 1 <= nh <= MAX_HEADS:
         raise ValueError(f"{nh} heads: the kernel takes 1..{MAX_HEADS}")
-    build.require(h, "h", dev, torch.float32, (None, None))
+    check_table(h, rounding)
+    build.require(h, "h", dev, h.dtype, (None, None))
     d = h.shape[1]
     if not 1 <= d <= 1024 or d % nh:
         raise ValueError(f"row width {d} must be nh*f and at most 1024")
@@ -129,30 +146,32 @@ def _check_inputs(logits, h, drop, senders, receivers, num_nodes, e_real):
 
 
 def _table_forward_cuda(logits, h, drop, senders, receivers, num_nodes: int,
-                        e_real: int, eps: float):
+                        e_real: int, eps: float, rounding: Rounding):
     dev, e, d, nh = _check_inputs(logits, h, drop, senders, receivers,
-                                  num_nodes, e_real)
+                                  num_nodes, e_real, rounding)
     row_ptr = build.csr_offsets(receivers, num_nodes)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((num_nodes, d), **f32)
     den = torch.empty((num_nodes, nh), **f32)
     p = build.ptr
-    lib = _lib()
+    lib = _lib(rounding.table)
     with torch.cuda.device(dev):
         err = lib.table_forward(
             p(logits), p(h), p(drop), p(senders), p(row_ptr), num_nodes,
             e_real, d, nh, d // nh, eps, p(out), p(den),
-            build.grid_blocks(num_nodes), build.stream(dev))
+            build.grid_blocks(num_nodes), rounding.flags(),
+            build.stream(dev))
     build.check(err, "table_forward")
-    build.LAUNCHES["table_forward"] += 1
+    build.LAUNCHES[rounding.counter("table_forward")] += 1
     return out, den
 
 
 def _table_backward_cuda(logits, h, drop, senders, receivers, e_real: int,
-                         eps: float, g, out, den, need_drop: bool):
+                         eps: float, g, out, den, need_drop: bool,
+                         rounding: Rounding):
     n = den.shape[0] if den.dim() == 2 else -1
     dev, e, d, nh = _check_inputs(logits, h, drop, senders, receivers, n,
-                                  e_real)
+                                  e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
     build.require(out, "out", dev, torch.float32, (n, d))
     build.require(den, "den", dev, torch.float32, (n, nh))
@@ -162,36 +181,43 @@ def _table_backward_cuda(logits, h, drop, senders, receivers, e_real: int,
     d_logits = torch.empty((e, nh), **f32)
     d_drop = torch.empty((e, nh), **f32) if need_drop else None
     p = build.ptr
-    lib = _lib()
+    lib = _lib(rounding.table)
     with torch.cuda.device(dev):
         err = lib.table_backward(
             p(logits), p(h), p(drop), p(senders), p(row_ptr), n, e_real, e,
             d, nh, d // nh, eps, p(g), p(out), p(den), p(d_h_rows),
-            p(d_logits), p(d_drop), build.grid_blocks(n), build.stream(dev))
+            p(d_logits), p(d_drop), build.grid_blocks(n), rounding.flags(),
+            build.stream(dev))
     build.check(err, "table_backward")
-    build.LAUNCHES["table_backward"] += 1
+    build.LAUNCHES[rounding.counter("table_backward")] += 1
     return d_h_rows, d_logits, d_drop
 
 
 def table_forward(logits, h, drop, senders, receivers, num_nodes: int,
-                  e_real: int, eps: float):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+                  e_real: int, eps: float, rounding: Rounding = FLOAT32):
+    """Kernel on CUDA tensors, plain version on CPU tensors. rounding:
+    the bfloat16 mode (acc; h a bfloat16 table where `table`)."""
     if logits.is_cuda:
         return _table_forward_cuda(logits, h, drop, senders, receivers,
-                                   num_nodes, e_real, eps)
+                                   num_nodes, e_real, eps, rounding)
     if logits.device.type == "cpu":
+        check_table(h, rounding)
         return table_forward_plain(logits, h, drop, senders, receivers,
-                                   num_nodes, e_real, eps)
+                                   num_nodes, e_real, eps, rounding)
     raise ValueError(f"no kernel for device {logits.device}")
 
 
 def table_backward(logits, h, drop, senders, receivers, e_real: int,
-                   eps: float, g, out, den, need_drop: bool):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+                   eps: float, g, out, den, need_drop: bool,
+                   rounding: Rounding = FLOAT32):
+    """Kernel on CUDA tensors, plain version on CPU tensors (the table
+    mode is h's dtype; no other point of the policy applies here)."""
     if logits.is_cuda:
         return _table_backward_cuda(logits, h, drop, senders, receivers,
-                                    e_real, eps, g, out, den, need_drop)
+                                    e_real, eps, g, out, den, need_drop,
+                                    rounding)
     if logits.device.type == "cpu":
+        check_table(h, rounding)
         return table_backward_plain(logits, h, drop, senders, receivers,
                                     e_real, eps, g, out, den, need_drop)
     raise ValueError(f"no kernel for device {logits.device}")
@@ -203,30 +229,32 @@ class _TableAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, h_flat, drop_mask, senders, receivers,
-                src_order, num_nodes, e_real, eps):
-        out, den = table_forward(logits, h_flat, drop_mask, senders,
-                                 receivers, num_nodes, e_real, eps)
-        ctx.save_for_backward(logits, h_flat, drop_mask, senders, receivers,
+                src_order, num_nodes, e_real, eps, rounding, dh_t):
+        h_k = rounding.table_of(h_flat)
+        out, den = table_forward(logits, h_k, drop_mask, senders,
+                                 receivers, num_nodes, e_real, eps, rounding)
+        ctx.save_for_backward(logits, h_k, drop_mask, senders, receivers,
                               src_order, den, out)
         ctx.e_real, ctx.eps = e_real, eps
+        ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (logits, h_flat, drop_mask, senders, receivers, src_order, den,
+        (logits, h_k, drop_mask, senders, receivers, src_order, den,
          out) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[2]
         d_h_rows, d_logits, d_drop = table_backward(
-            logits, h_flat, drop_mask, senders, receivers, ctx.e_real,
-            ctx.eps, g.contiguous(), out, den, need_drop)
+            logits, h_k, drop_mask, senders, receivers, ctx.e_real,
+            ctx.eps, g.contiguous(), out, den, need_drop, ctx.rounding)
         if src_order is None:
             # a stable sort of the real edges keeps the order of the sums
             # fixed; the padding edges' rows are zero and stay out
             src_order = torch.argsort(senders[:ctx.e_real],
                                       stable=True).to(torch.int32)
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0],
-                        ctx.e_real)
-        return (d_logits, d_h, d_drop) + (None,) * 6
+        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
+                        ctx.e_real, transposed=ctx.dh_t)
+        return (d_logits, d_h, d_drop) + (None,) * 8
 
 
 def fused_segment_attention_table(logits: torch.Tensor,
@@ -251,7 +279,8 @@ def fused_segment_attention_table(logits: torch.Tensor,
     way.
     num_real_edges: the edges from there on are padding (NEG_INF logits,
     the last node as sender, as canonicalize pads) and are not walked;
-    None walks every edge, which gives the same result more slowly."""
+    None walks every edge, which gives the same result more slowly.
+    The dtype knobs (module doc) are read now."""
     e_real = senders.shape[0] if num_real_edges is None else num_real_edges
     if not 0 <= e_real <= senders.shape[0]:
         raise ValueError(f"num_real_edges {e_real} outside "
@@ -262,4 +291,5 @@ def fused_segment_attention_table(logits: torch.Tensor,
                          f"{senders.shape[0]} edges, nh={nh}, f={f}")
     return _TableAttention.apply(logits.contiguous(), h_flat.contiguous(),
                                  drop_mask, senders, receivers, src_order,
-                                 num_nodes, e_real, eps)
+                                 num_nodes, e_real, eps, v5_rounding(),
+                                 dh_transposed())

@@ -42,47 +42,88 @@ edges (num and den are sums over edges, so they add over any partition
 of them; the hybrid layer of models/gat.py does this) and differentiates
 the epilogue itself: the backward then takes the raw cotangents of num,
 den and cap'.
+
+The JAX package's dtype knobs of these ops, read at call time with its
+defaults and meanings: GAT_TPU_KERNEL_DTYPE=bfloat16 (`_matmul_dtype`)
+rounds each edge's [weighted h | ex] to bfloat16 before the float32
+sums of the forwards (not the cap pass, which sums nothing);
+GAT_TPU_H_DTYPE=bfloat16 (`_h_dtype`) casts the h table to bfloat16
+before the gather, so that the logits, every product of the forward and
+backward and the cap chain read rounded rows (d(h) stays float32). The
+op hands its kernels the policy (rounding.Rounding) and, in the table
+mode, a bfloat16 table cast once; an explicit `rounding` (the v6 form of
+window_attention.fused_gat_window, which runs on these kernels) replaces
+the knobs. GAT_TPU_DH_REDUCE_NT=0 (segment_sum.dh_transposed) reduces
+d(h) through the feature-major kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
 
 from .. import segment as seg
 from . import build
-from .segment_sum import dh_reduce, dh_reduce_ptr
+from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
+from .segment_sum import dh_reduce, dh_reduce_ptr, dh_transposed
 
 _KERNEL = "v5_attention"
 MAX_HEADS = 8
-_configured = False
+_configured = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _configured
-    lib = build.load(_KERNEL)
-    if not _configured:
+def _matmul_dtype() -> torch.dtype:
+    """GAT_TPU_KERNEL_DTYPE as segment_attention._matmul_dtype reads it:
+    bfloat16 contraction inputs of the forward kernels' sums where it is
+    "bfloat16", else float32."""
+    return (torch.bfloat16
+            if os.environ.get("GAT_TPU_KERNEL_DTYPE") == "bfloat16"
+            else torch.float32)
+
+
+def _h_dtype() -> torch.dtype:
+    """GAT_TPU_H_DTYPE as segment_attention._v5_operands and
+    gather_h_src_t read it: the h table cast to bfloat16 before the
+    gather where it is "bfloat16", else float32."""
+    return (torch.bfloat16
+            if os.environ.get("GAT_TPU_H_DTYPE") == "bfloat16"
+            else torch.float32)
+
+
+def v5_rounding() -> Rounding:
+    """The policy of the v5 (and v4) ops under the JAX package's knobs,
+    read now."""
+    return Rounding(table=_h_dtype() == torch.bfloat16,
+                    acc=_matmul_dtype() == torch.bfloat16)
+
+
+def _lib(bf16_table: bool = False) -> ctypes.CDLL:
+    """The kernels' library for a float32 or a bfloat16 h table."""
+    name = build.library(_KERNEL, bf16_table)
+    lib = build.load(name)
+    if name not in _configured:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.v5_forward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 6
-                                   + [i, p])
+                                   + [i, i, p])
         lib.v5_forward.restype = ctypes.c_int
         lib.v5_backward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 9
-                                    + [i, p])
+                                    + [i, i, p])
         lib.v5_backward.restype = ctypes.c_int
         lib.v5_backward_parts.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 7
-                                          + [i, p])
+                                          + [i, i, p])
         lib.v5_backward_parts.restype = ctypes.c_int
-        lib.v5_cap.argtypes = [p] * 5 + [i] * 5 + [p] * 4 + [i, p]
+        lib.v5_cap.argtypes = [p] * 5 + [i] * 5 + [p] * 4 + [i, i, p]
         lib.v5_cap.restype = ctypes.c_int
         lib.v5_forward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
-                                             + [p] * 2 + [i, p])
+                                             + [p] * 2 + [i, i, p])
         lib.v5_forward_two_phase.restype = ctypes.c_int
         lib.v5_backward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
-                                              + [p] * 8 + [i, p])
+                                              + [p] * 8 + [i, i, p])
         lib.v5_backward_two_phase.restype = ctypes.c_int
-        _configured = True
+        _configured.add(name)
     return lib
 
 
@@ -92,12 +133,16 @@ def _lib() -> ctypes.CDLL:
 # any list of edge slots: `snd` and `rcv` are int64 ids, `valid` (E, 1)
 # marks the slots that are edges, and an `rcv` >= N (a slot that is none)
 # is dropped from every sum. ops/cuda/window_attention.py runs them over
-# its layout's slots.
+# its layout's slots. Each takes the kernel's rounding policy; h is the
+# table the kernel reads (bfloat16 in the table mode).
 
-def _edge_logits(h, a_src, s_dst_eff, snd, rcv):
-    h_e = h.index_select(0, snd)
+def _edge_logits(h, a_src, s_dst_eff, snd, rcv, rows: bool = False):
+    """(gathered rows, raw logits, clamped receivers): the logits from
+    the rows as gathered, the rows rounded after that where `rows`."""
+    h_e = h.float().index_select(0, snd)
     rcv_in = rcv.clamp(max=s_dst_eff.shape[0] - 1)
-    return h_e, h_e @ a_src + s_dst_eff.index_select(0, rcv_in), rcv_in
+    raw = h_e @ a_src + s_dst_eff.index_select(0, rcv_in)
+    return maybe_bf16(h_e, rows), raw, rcv_in
 
 
 def _cap_of(raw, valid):
@@ -108,28 +153,33 @@ def _cap_of(raw, valid):
     return flat.max(), torch.argmax(flat).to(torch.int32)
 
 
-def _aggregate(h_e, w, rcv, n: int, nh: int):
-    """sum over slots of w (E, nh) times the slots' h rows, per receiver."""
+def _aggregate(h_e, w, rcv, n: int, nh: int, acc: bool = False):
+    """sum over slots of w (E, nh) times the slots' h rows, per receiver;
+    each product rounded to bfloat16 first where `acc`."""
     e, d = h_e.shape
-    return seg.segment_sum((h_e.view(e, nh, d // nh) * w[:, :, None]
-                            ).reshape(e, d), rcv, n)
+    return seg.segment_sum(maybe_bf16(
+        (h_e.view(e, nh, d // nh) * w[:, :, None]).reshape(e, d), acc),
+        rcv, n)
 
 
 def attention_forward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
-                            slope: float):
+                            slope: float, rounding: Rounding = FLOAT32):
     """(num (N, D), den (N, nh), cap' (), code () int32) of the module doc,
     the code counting slots in the order given."""
     n, nh = s_dst_eff.shape
-    h_e, raw, _ = _edge_logits(h, a_src, s_dst_eff, snd, rcv)
+    h_e, raw, _ = _edge_logits(h, a_src, s_dst_eff, snd, rcv, rounding.rows)
     cap, code = _cap_of(raw, valid)
     ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
-    num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh)
-    return num, seg.segment_sum(ex, rcv, n), cap, code
+    num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh,
+                     rounding.acc)
+    return num, seg.segment_sum(maybe_bf16(ex, rounding.acc), rcv, n), \
+        cap, code
 
 
 def attention_cap_plain(h, a_src, s_dst, snd, rcv, valid):
     """(cap (), code () int32): the max raw logit over the slots that are
-    edges and its lowest slot*nh + head (the 2-phase cap pass)."""
+    edges and its lowest slot*nh + head (the 2-phase cap pass; a bfloat16
+    h is the table mode's rounded table)."""
     return _cap_of(_edge_logits(h, a_src, s_dst, snd, rcv)[1], valid)
 
 
@@ -146,34 +196,37 @@ def _safe_inverse(den, eps):
 
 
 def attention_forward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
-                                      valid, eps: float, slope: float):
+                                      valid, eps: float, slope: float,
+                                      rounding: Rounding = FLOAT32):
     """(out (N, D) = num / (den + eps), 0 where den == 0; den (N, nh)) of
     the 2-phase forward, from the given cap."""
     n, nh = s_dst.shape
     d = h.shape[1]
-    h_e, raw, _ = _edge_logits(h, a_src, s_dst, snd, rcv)
+    h_e, raw, _ = _edge_logits(h, a_src, s_dst, snd, rcv, rounding.rows)
     _, ex = _two_phase_ex(raw, cap, valid, slope)
-    num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh)
-    den = seg.segment_sum(ex, rcv, n)
+    num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh,
+                     rounding.acc)
+    den = seg.segment_sum(maybe_bf16(ex, rounding.acc), rcv, n)
     inv = _safe_inverse(den, eps)
     return (num.view(n, nh, d // nh) * inv[:, :, None]).reshape(n, d), den
 
 
 def attention_backward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
                                        valid, eps: float, slope: float, g,
-                                       out, den, need_drop: bool):
+                                       out, den, need_drop: bool,
+                                       rounding: Rounding = FLOAT32):
     """(d_h rows (E, D) in slot order, d_drop (E, nh) | None, d_s_dst
     (N, nh), d_a_src (D, nh), d_cap ()) of the 2-phase op: d(pre) takes
     the slope where pre <= 0, d(raw) = d(pre), d(cap) = -sum d(raw)."""
     return attention_backward_plain(h, a_src, s_dst, drop, snd, rcv, valid,
                                     slope, g, out, den, eps, need_drop,
-                                    cap=cap)
+                                    cap=cap, rounding=rounding)
 
 
 def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
                              slope: float, g, out, den, epsp,
                              need_drop: bool, normalize: bool = True,
-                             cap=None):
+                             cap=None, rounding: Rounding = FLOAT32):
     """(d_h rows (E, D) in slot order, d_drop (E, nh) | None,
     d_s_dst (N, nh), d_a_src (D, nh)) of the op before the cap chain;
     the rows of slots that are no edges are 0.
@@ -182,16 +235,20 @@ def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
     carries d(den), the raw cotangents of the unnormalised parts; `out`
     and `epsp` are not read (the caller's epilogue owns the quotient).
     cap: the 2-phase op's cap (a () tensor): ex = exp(leaky(raw - cap)),
-    `epsp` is the plain eps, and d_cap () = -sum d(raw) comes fifth."""
+    `epsp` is the plain eps, and d_cap () = -sum d(raw) (float32) comes
+    fifth. rounding: rows, payload, d_h, d_raw and d_sdst are read."""
     n, nh = s_dst_eff.shape
     e, d = snd.shape[0], h.shape[1]
     f = d // nh
-    h_e, raw, rcv_in = _edge_logits(h, a_src, s_dst_eff, snd, rcv)
+    r = rounding
+    h_e, raw, rcv_in = _edge_logits(h, a_src, s_dst_eff, snd, rcv, r.rows)
     if normalize:
         inv = _safe_inverse(den, epsp)
         d_den = -(out * g).view(n, nh, f).sum(2) * inv
     else:
         inv, d_den = torch.ones_like(den), den
+    # each destination's payload, rounded after d(den) is taken from it
+    g, inv, d_den = (maybe_bf16(t, r.payload) for t in (g, inv, d_den))
     if cap is None:
         ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
     else:
@@ -206,11 +263,12 @@ def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
         d_lg = ex * (hg * inv_e * m + d_den.index_select(0, rcv_in))
         d_raw = torch.where(pre > 0, d_lg, slope * d_lg)
     coef = ex * m * inv_e
-    d_h_rows = d_raw @ a_src.t() + (coef[:, :, None]
-                                    * g_e.view(e, nh, f)).reshape(e, d)
+    d_h_rows = maybe_bf16(d_raw @ a_src.t() + (
+        coef[:, :, None] * g_e.view(e, nh, f)).reshape(e, d), r.d_h)
     d_drop = hg * ex * inv_e if need_drop else None
-    grads = (d_h_rows, d_drop, seg.segment_sum(d_raw, rcv, n),
-             h_e.t() @ d_raw)
+    grads = (d_h_rows, d_drop,
+             seg.segment_sum(maybe_bf16(d_raw, r.d_sdst), rcv, n),
+             h_e.t() @ maybe_bf16(d_raw, r.d_raw))
     return grads if cap is None else grads + (-d_raw.sum(),)
 
 
@@ -221,22 +279,24 @@ def _real_prefix(senders, receivers, e_real):
 
 
 def v5_forward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
-                     e_real: int, slope: float):
+                     e_real: int, slope: float,
+                     rounding: Rounding = FLOAT32):
     """(num, den, cap', code) over the dst-sorted edges e < e_real."""
     return attention_forward_plain(
         h, a_src, s_dst_eff, drop,
-        *_real_prefix(senders, receivers, e_real), slope)
+        *_real_prefix(senders, receivers, e_real), slope, rounding)
 
 
 def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
-                      need_drop: bool, normalize: bool = True):
+                      need_drop: bool, normalize: bool = True,
+                      rounding: Rounding = FLOAT32):
     """(d_h rows in dst order, d_drop, d_s_dst, d_a_src); normalize=False
     as attention_backward_plain takes it."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop,
         *_real_prefix(senders, receivers, e_real), slope, g, out, den,
-        epsp, need_drop, normalize)
+        epsp, need_drop, normalize, rounding=rounding)
 
 
 def v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real: int):
@@ -247,30 +307,38 @@ def v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real: int):
 
 def v5_forward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
                                receivers, e_real: int, eps: float,
-                               slope: float):
+                               slope: float, rounding: Rounding = FLOAT32):
     """(out, den) of the 2-phase forward over the edges e < e_real."""
     return attention_forward_two_phase_plain(
         h, a_src, s_dst, cap, drop,
-        *_real_prefix(senders, receivers, e_real), eps, slope)
+        *_real_prefix(senders, receivers, e_real), eps, slope, rounding)
 
 
 def v5_backward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
-                                slope: float, g, out, den, need_drop: bool):
+                                slope: float, g, out, den, need_drop: bool,
+                                rounding: Rounding = FLOAT32):
     """(d_h rows in dst order, d_drop, d_s_dst, d_a_src, d_cap)."""
     return attention_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop,
         *_real_prefix(senders, receivers, e_real), eps, slope, g, out, den,
-        need_drop)
+        need_drop, rounding)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
+#
+# Each takes the op's rounding policy: h is a bfloat16 table in the table
+# mode (rounding.check_table) and the policy goes to the C entry as its
+# flags word. A mode counts its launches apart (Rounding.counter: the
+# bfloat16 modes under "<entry>_bf16").
 
-def _check_inputs(h, a_src, s_dst_eff, drop, senders, receivers, e_real):
+def _check_inputs(h, a_src, s_dst_eff, drop, senders, receivers, e_real,
+                  rounding: Rounding):
     dev = h.device
     d = h.shape[1] if h.dim() == 2 else -1
     nh = a_src.shape[1] if a_src.dim() == 2 else -1
-    build.require(h, "h", dev, torch.float32, (None, None))
+    check_table(h, rounding)
+    build.require(h, "h", dev, h.dtype, (None, None))
     build.require(a_src, "a_src", dev, torch.float32, (d, None))
     if not 1 <= nh <= MAX_HEADS:
         raise ValueError(f"{nh} heads: the kernel takes 1..{MAX_HEADS}")
@@ -297,9 +365,10 @@ def _row_offsets(receivers, n: int, dst_ptr):
 
 
 def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
-                     e_real: int, slope: float, dst_ptr=None):
+                     e_real: int, slope: float, dst_ptr=None,
+                     rounding: Rounding = FLOAT32):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
-                                     receivers, e_real)
+                                     receivers, e_real, rounding)
     row_ptr = _row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -310,23 +379,24 @@ def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     cap = torch.empty((), **f32)
     code = torch.empty((), dtype=torch.int32, device=dev)
     p = build.ptr
-    lib = _lib()
+    lib = _lib(rounding.table)
     with torch.cuda.device(dev):
         err = lib.v5_forward(
             p(h), p(a_src), p(s_dst_eff), p(drop), p(senders), p(row_ptr),
             n, e_real, d, nh, d // nh, slope,
             p(num), p(den), p(blk_max), p(blk_code), p(cap), p(code),
-            nblk, build.stream(dev))
+            nblk, rounding.flags(), build.stream(dev))
     build.check(err, "v5_forward")
-    build.LAUNCHES["v5_forward"] += 1
+    build.LAUNCHES[rounding.counter("v5_forward")] += 1
     return num, den, cap, code
 
 
 def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
-                      need_drop: bool, normalize: bool = True, dst_ptr=None):
+                      need_drop: bool, normalize: bool = True, dst_ptr=None,
+                      rounding: Rounding = FLOAT32):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
-                                     receivers, e_real)
+                                     receivers, e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
     build.require(den, "den", dev, torch.float32, (n, nh))
     if normalize:
@@ -341,11 +411,11 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     part = torch.empty((nblk, d * nh), **f32)
     d_asrc = torch.empty((d, nh), **f32)
     p = build.ptr
-    lib = _lib()
+    lib = _lib(rounding.table)
     graph_args = (p(h), p(a_src), p(s_dst_eff), p(drop), p(senders),
                   p(row_ptr), n, e_real, d, nh, d // nh, slope)
     outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc), nblk,
-               build.stream(dev))
+               rounding.flags(), build.stream(dev))
     name = "v5_backward" if normalize else "v5_backward_parts"
     with torch.cuda.device(dev):
         if normalize:
@@ -354,13 +424,14 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
         else:       # g is d(num), den is d(den)
             err = lib.v5_backward_parts(*graph_args, p(g), p(den), *outputs)
     build.check(err, name)
-    build.LAUNCHES[name] += 1
+    build.LAUNCHES[rounding.counter(name)] += 1
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
-def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int):
+def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
+                 rounding: Rounding = FLOAT32):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, None, senders,
-                                     receivers, e_real)
+                                     receivers, e_real, rounding)
     row_ptr = build.csr_offsets(receivers, n)
     nblk = build.grid_blocks(n)
     blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
@@ -369,20 +440,20 @@ def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int):
     code = torch.empty((), dtype=torch.int32, device=dev)
     p = build.ptr
     with torch.cuda.device(dev):
-        err = _lib().v5_cap(
+        err = _lib(rounding.table).v5_cap(
             p(h), p(a_src), p(s_dst), p(senders), p(row_ptr), n, e_real, d,
             nh, d // nh, p(blk_max), p(blk_code), p(cap), p(code), nblk,
-            build.stream(dev))
+            rounding.flags(), build.stream(dev))
     build.check(err, "v5_cap")
-    build.LAUNCHES["v5_cap"] += 1
+    build.LAUNCHES[rounding.counter("v5_cap")] += 1
     return cap, code
 
 
 def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                receivers, e_real: int, eps: float,
-                               slope: float):
+                               slope: float, rounding: Rounding = FLOAT32):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
-                                     receivers, e_real)
+                                     receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
     row_ptr = build.csr_offsets(receivers, n)
     nblk = build.grid_blocks(n)
@@ -390,20 +461,21 @@ def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     den = torch.empty((n, nh), dtype=torch.float32, device=dev)
     p = build.ptr
     with torch.cuda.device(dev):
-        err = _lib().v5_forward_two_phase(
+        err = _lib(rounding.table).v5_forward_two_phase(
             p(h), p(a_src), p(s_dst), p(cap), p(drop), p(senders),
             p(row_ptr), n, e_real, d, nh, d // nh, eps, slope, p(out),
-            p(den), nblk, build.stream(dev))
+            p(den), nblk, rounding.flags(), build.stream(dev))
     build.check(err, "v5_forward_two_phase")
-    build.LAUNCHES["v5_forward_two_phase"] += 1
+    build.LAUNCHES[rounding.counter("v5_forward_two_phase")] += 1
     return out, den
 
 
 def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
-                                slope: float, g, out, den, need_drop: bool):
+                                slope: float, g, out, den, need_drop: bool,
+                                rounding: Rounding = FLOAT32):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
-                                     receivers, e_real)
+                                     receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
     for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
                            (den, "den", (n, nh))):
@@ -418,33 +490,37 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     d_asrc_cap = torch.empty((d * nh + 1,), **f32)
     p = build.ptr
     with torch.cuda.device(dev):
-        err = _lib().v5_backward_two_phase(
+        err = _lib(rounding.table).v5_backward_two_phase(
             p(h), p(a_src), p(s_dst), p(cap), p(drop), p(senders),
             p(row_ptr), n, e_real, d, nh, d // nh, eps, slope, p(g), p(out),
             p(den), p(d_h_rows), p(d_drop), p(d_sdst), p(part),
-            p(d_asrc_cap), nblk, build.stream(dev))
+            p(d_asrc_cap), nblk, rounding.flags(), build.stream(dev))
     build.check(err, "v5_backward_two_phase")
-    build.LAUNCHES["v5_backward_two_phase"] += 1
+    build.LAUNCHES[rounding.counter("v5_backward_two_phase")] += 1
     return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
             d_asrc_cap[d * nh])
 
 
 def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
-               e_real: int, slope: float, dst_ptr=None):
+               e_real: int, slope: float, dst_ptr=None,
+               rounding: Rounding = FLOAT32):
     """Kernel on CUDA tensors, plain version on CPU tensors. dst_ptr: the
     (N + 1,) int32 CSR offsets of `receivers`, where the caller holds
-    them; the kernel wrapper computes them otherwise."""
+    them; the kernel wrapper computes them otherwise. rounding: the
+    bfloat16 mode (rows, acc; h a bfloat16 table where `table`)."""
     if h.is_cuda:
         return _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders,
-                                receivers, e_real, slope, dst_ptr)
+                                receivers, e_real, slope, dst_ptr, rounding)
     build.require_cpu(h)
     return v5_forward_plain(
-        h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope)
+        h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope,
+        rounding)
 
 
 def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
                 e_real: int, slope: float, g, out, den, epsp,
-                need_drop: bool, normalize: bool = True, dst_ptr=None):
+                need_drop: bool, normalize: bool = True, dst_ptr=None,
+                rounding: Rounding = FLOAT32):
     """Kernel on CUDA tensors, plain version on CPU tensors.
     normalize=False is the parts mode (attention_backward_plain says what
     `g` and `den` carry then); it launches the kernel's parts mode and
@@ -452,51 +528,58 @@ def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
     if h.is_cuda:
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
-                                 epsp, need_drop, normalize, dst_ptr)
+                                 epsp, need_drop, normalize, dst_ptr,
+                                 rounding)
     build.require_cpu(h)
     return v5_backward_plain(
         h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g,
-        out, den, epsp, need_drop, normalize)
+        out, den, epsp, need_drop, normalize, rounding)
 
 
-def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int):
-    """(cap (), code () int32): the 2-phase cap pass. Kernel on CUDA
-    tensors (cap and code stay in device memory), plain version on CPU
-    tensors."""
+def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int,
+           rounding: Rounding = FLOAT32):
+    """(cap (), code () int32): the 2-phase cap pass (of a bfloat16 table
+    in the table mode; no other point of the policy applies). Kernel on
+    CUDA tensors (cap and code stay in device memory), plain version on
+    CPU tensors."""
     if h.is_cuda:
-        return _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real)
+        return _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real,
+                            rounding)
     build.require_cpu(h)
+    check_table(h, rounding)
     return v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real)
 
 
 def v5_forward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
-                         e_real: int, eps: float, slope: float):
+                         e_real: int, eps: float, slope: float,
+                         rounding: Rounding = FLOAT32):
     """(out, den) of the 2-phase forward from the cap (a () float32
     tensor on the device). Kernel on CUDA tensors, plain version on CPU
     tensors."""
     if h.is_cuda:
         return _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop,
                                           senders, receivers, e_real, eps,
-                                          slope)
+                                          slope, rounding)
     build.require_cpu(h)
     return v5_forward_two_phase_plain(
-        h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope)
+        h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
+        rounding)
 
 
 def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                           e_real: int, eps: float, slope: float, g, out, den,
-                          need_drop: bool):
+                          need_drop: bool, rounding: Rounding = FLOAT32):
     """(d_h rows in dst order, d_drop | None, d_s_dst, d_a_src, d_cap) of
     the 2-phase op. Kernel on CUDA tensors, plain version on CPU
     tensors."""
     if h.is_cuda:
         return _v5_backward_two_phase_cuda(
             h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,
-            slope, g, out, den, need_drop)
+            slope, g, out, den, need_drop, rounding)
     build.require_cpu(h)
     return v5_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
-        g, out, den, need_drop)
+        g, out, den, need_drop, rounding)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -526,13 +609,14 @@ def route_cap_cotangent(d_h, d_asrc, d_sdst, dc, code, senders, receivers,
     """Add the cap chain to (d_h, d_a_src, d_s_dst): the cotangent `dc`
     (a scalar tensor) of cap' = h[src*] . a_src[:, k*] + s_dst'[dst*, k*]
     goes to the argmax (slot, head) that `code` = slot*nh + head names,
-    `senders` and `receivers` being indexed by slot."""
+    `senders` and `receivers` being indexed by slot. h_flat: the table
+    the op's logits read (a bfloat16 one in the v5 ops' table mode)."""
     d = h_flat.shape[1]
     code = code.long().view(1)
     eidx, hidx = code // nh, code % nh
     src_star = senders.index_select(0, eidx).long()
     dst_star = receivers.index_select(0, eidx).long()
-    hrow = h_flat.index_select(0, src_star)               # (1, D)
+    hrow = h_flat.index_select(0, src_star).float()       # (1, D)
     acol = a_src.index_select(1, hidx)                    # (D, 1)
     d_h = d_h.index_add(0, src_star, dc * acol.view(1, d))
     d_asrc = d_asrc.index_add(1, hidx, dc * hrow.view(d, 1))
@@ -544,33 +628,37 @@ class _V5Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, drop_mask, senders, receivers,
-                src_order, bound, e_real, nh, eps, slope):
+                src_order, bound, e_real, nh, eps, slope, rounding, dh_t):
         s_dst_eff = (s_dst - bound).contiguous()
-        num, den, cap, code = v5_forward(h_flat, a_src, s_dst_eff, drop_mask,
-                                         senders, receivers, e_real, slope)
+        h_k = rounding.table_of(h_flat)
+        num, den, cap, code = v5_forward(h_k, a_src, s_dst_eff, drop_mask,
+                                         senders, receivers, e_real, slope,
+                                         rounding=rounding)
         out, epsp = normalise(num, den, cap, eps, slope, nh)
-        ctx.save_for_backward(h_flat, a_src, s_dst_eff, drop_mask, senders,
+        ctx.save_for_backward(h_k, a_src, s_dst_eff, drop_mask, senders,
                               receivers, src_order, den, out, epsp, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
+        ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (h_flat, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
+        (h_k, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
          den, out, epsp, code) = ctx.saved_tensors
         nh, slope = ctx.nh, ctx.slope
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
-            h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
-            ctx.e_real, slope, g, out, den, epsp, need_drop)
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0],
-                        ctx.e_real)
+            h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
+            ctx.e_real, slope, g, out, den, epsp, need_drop,
+            rounding=ctx.rounding)
+        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
+                        ctx.e_real, transposed=ctx.dh_t)
 
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
-            code, senders, receivers, h_flat, a_src, nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 8
+            code, senders, receivers, h_k, a_src, nh)
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 10
 
 
 def _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f):
@@ -607,39 +695,44 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
     computes it from the score tables. two_phase: the 2-phase form (the
     JAX package under GAT_TPU_V10=0 or GAT_TPU_V5_MERGED=0): v5_local_cap
     then fused_gat_table, the cap's cotangent routed to its argmax (edge,
-    head); score_bound is not read there."""
+    head); score_bound is not read there. The dtype knobs (module doc)
+    are read now."""
     _check_table_shapes(h_flat, s_dst, num_nodes, num_nodes, nh, f)
+    rounding = v5_rounding()
     if two_phase:
         cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
-                           num_nodes, nh, f)
+                           num_nodes, nh, f, rounding=rounding)
         return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
                                receivers, src_order, e_real, num_nodes, nh,
-                               f, eps, slope)
+                               f, eps, slope, rounding=rounding)
     if score_bound is None:
         score_bound = (h_flat @ a_src).max() + s_dst.max()
     return _V5Attention.apply(h_flat.contiguous(), a_src.contiguous(),
                               s_dst, drop_mask, senders, receivers,
                               src_order, score_bound.detach(), int(e_real),
-                              nh, eps, slope)
+                              nh, eps, slope, rounding, dh_transposed())
 
 
 class _V5LocalCap(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, h_flat, a_src, s_dst, senders, receivers, e_real):
-        cap, code = v5_cap(h_flat, a_src, s_dst, senders, receivers, e_real)
-        ctx.save_for_backward(h_flat, a_src, senders, receivers, code)
+    def forward(ctx, h_flat, a_src, s_dst, senders, receivers, e_real,
+                rounding):
+        h_k = rounding.table_of(h_flat)
+        cap, code = v5_cap(h_k, a_src, s_dst, senders, receivers, e_real,
+                           rounding)
+        ctx.save_for_backward(h_k, a_src, senders, receivers, code)
         ctx.s_shape = s_dst.shape
         return cap
 
     @staticmethod
     def backward(ctx, g):
-        h_flat, a_src, senders, receivers, code = ctx.saved_tensors
+        h_k, a_src, senders, receivers, code = ctx.saved_tensors
         d_h, d_asrc, d_sdst = route_cap_cotangent(
-            torch.zeros_like(h_flat), torch.zeros_like(a_src),
-            h_flat.new_zeros(ctx.s_shape), g, code, senders, receivers,
-            h_flat, a_src, a_src.shape[1])
-        return (d_h, d_asrc, d_sdst) + (None,) * 3
+            h_k.new_zeros(h_k.shape, dtype=torch.float32),
+            torch.zeros_like(a_src), a_src.new_zeros(ctx.s_shape), g, code,
+            senders, receivers, h_k, a_src, a_src.shape[1])
+        return (d_h, d_asrc, d_sdst) + (None,) * 4
 
 
 def v5_local_cap(h_flat: torch.Tensor,
@@ -648,49 +741,54 @@ def v5_local_cap(h_flat: torch.Tensor,
                  senders: torch.Tensor,
                  receivers: torch.Tensor,
                  e_real: int,
-                 num_nodes: int, nh: int, f: int) -> torch.Tensor:
+                 num_nodes: int, nh: int, f: int, *,
+                 rounding: Optional[Rounding] = None) -> torch.Tensor:
     """The max raw logit h[src] . a_src[:, k] + s_dst[dst, k] over the
     dst-sorted edges e < e_real and heads (a () tensor), differentiable in
     h_flat, a_src and s_dst: the cotangent goes to the argmax (edge, head),
     ties to the lowest e*nh + k. s_dst (num_nodes, nh) covers the rows the
     receivers index; h_flat may have more rows than num_nodes (the
-    senders index it)."""
+    senders index it). rounding: the policy (only its table mode applies
+    here); None reads the v5 knobs now."""
     if s_dst.shape != (num_nodes, nh) or h_flat.shape[1] != nh * f:
         raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
                          f"{tuple(s_dst.shape)} do not match "
                          f"num_nodes={num_nodes}, nh={nh}, f={f}")
+    rounding = v5_rounding() if rounding is None else rounding
     return _V5LocalCap.apply(h_flat.contiguous(), a_src.contiguous(),
                              s_dst.contiguous(), senders, receivers,
-                             int(e_real))
+                             int(e_real), rounding)
 
 
 class _V5TwoPhase(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, senders,
-                receivers, src_order, e_real, eps, slope):
-        out, den = v5_forward_two_phase(h_flat, a_src, s_dst, cap,
-                                        drop_mask, senders, receivers,
-                                        e_real, eps, slope)
-        ctx.save_for_backward(h_flat, a_src, s_dst, cap, drop_mask, senders,
+                receivers, src_order, e_real, eps, slope, rounding, dh_t):
+        h_k = rounding.table_of(h_flat)
+        out, den = v5_forward_two_phase(h_k, a_src, s_dst, cap, drop_mask,
+                                        senders, receivers, e_real, eps,
+                                        slope, rounding)
+        ctx.save_for_backward(h_k, a_src, s_dst, cap, drop_mask, senders,
                               receivers, src_order, out, den)
         ctx.e_real, ctx.eps, ctx.slope = e_real, eps, slope
+        ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (h_flat, a_src, s_dst, cap, drop_mask, senders, receivers, src_order,
+        (h_k, a_src, s_dst, cap, drop_mask, senders, receivers, src_order,
          out, den) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[4]
         d_h_rows, d_drop, d_sdst, d_asrc, d_cap = v5_backward_two_phase(
-            h_flat, a_src, s_dst, cap, drop_mask, senders, receivers,
+            h_k, a_src, s_dst, cap, drop_mask, senders, receivers,
             ctx.e_real, ctx.eps, ctx.slope, g.contiguous(), out, den,
-            need_drop)
+            need_drop, ctx.rounding)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0],
-                        ctx.e_real)
-        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 6
+        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
+                        ctx.e_real, transposed=ctx.dh_t)
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 8
 
 
 def fused_gat_table(h_flat: torch.Tensor,
@@ -705,7 +803,8 @@ def fused_gat_table(h_flat: torch.Tensor,
                     num_nodes: int, nh: int, f: int,
                     eps: float = 1e-8,
                     slope: float = 0.01,
-                    num_src_nodes: Optional[int] = None) -> torch.Tensor:
+                    num_src_nodes: Optional[int] = None, *,
+                    rounding: Optional[Rounding] = None) -> torch.Tensor:
     """The 2-phase whole-attention op with the cap given:
         out[n] = sum_e [recv_e = n] drop_e ex_e h[send_e] / (den[n] + eps),
         ex_e = exp(leaky_slope(h[send_e] . a_src + s_dst[recv_e] - cap)),
@@ -715,51 +814,57 @@ def fused_gat_table(h_flat: torch.Tensor,
     (v5_local_cap gives the reference's); the full LeakyReLU applies, so
     logits above it are fine. num_src_nodes: the rows of h_flat when they
     are more than num_nodes (senders index h_flat, receivers and s_dst
-    cover num_nodes rows; d(h_flat) has h_flat's rows)."""
+    cover num_nodes rows; d(h_flat) has h_flat's rows). rounding: the
+    bfloat16 policy; None reads the v5 knobs now."""
     n_src = num_nodes if num_src_nodes is None else num_src_nodes
     _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f)
+    rounding = v5_rounding() if rounding is None else rounding
     cap = torch.as_tensor(cap, dtype=torch.float32, device=h_flat.device)
     return _V5TwoPhase.apply(h_flat.contiguous(), a_src.contiguous(),
                              s_dst.contiguous(), cap.reshape(()), drop_mask,
                              senders, receivers, src_order, int(e_real), eps,
-                             slope)
+                             slope, rounding, dh_transposed())
 
 
 class _V5Sweep1Parts(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
-                src_order, dst_ptr, src_ptr, e_real, nh, slope):
-        num, den, cap, code = v5_forward(h_flat, a_src, s_dst_eff, drop_mask,
+                src_order, dst_ptr, src_ptr, e_real, nh, slope, rounding,
+                dh_t):
+        h_k = rounding.table_of(h_flat)
+        num, den, cap, code = v5_forward(h_k, a_src, s_dst_eff, drop_mask,
                                          senders, receivers, e_real, slope,
-                                         dst_ptr)
-        ctx.save_for_backward(h_flat, a_src, s_dst_eff, drop_mask, senders,
+                                         dst_ptr, rounding)
+        ctx.save_for_backward(h_k, a_src, s_dst_eff, drop_mask, senders,
                               receivers, src_order, dst_ptr, src_ptr, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
+        ctx.rounding, ctx.dh_t = rounding, dh_t
         ctx.mark_non_differentiable(code)
         return num, den, cap, code
 
     @staticmethod
     def backward(ctx, d_num, d_den, d_cap, _d_code):
-        (h_flat, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
+        (h_k, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
          dst_ptr, src_ptr, code) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
-            h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
+            h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, ctx.slope, d_num.contiguous(), None,
             d_den.contiguous(), None, need_drop, normalize=False,
-            dst_ptr=dst_ptr)
+            dst_ptr=dst_ptr, rounding=ctx.rounding)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
         if src_ptr is None:
-            d_h = dh_reduce(d_h_rows, src_order, senders, h_flat.shape[0],
-                            ctx.e_real)
+            d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
+                            ctx.e_real, transposed=ctx.dh_t)
         else:
-            d_h = dh_reduce_ptr(d_h_rows, src_order[:ctx.e_real], src_ptr)
+            d_h = dh_reduce_ptr(d_h_rows, src_order[:ctx.e_real], src_ptr,
+                                transposed=ctx.dh_t)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
-            d_h, d_asrc, d_sdst, d_cap, code, senders, receivers, h_flat,
+            d_h, d_asrc, d_sdst, d_cap, code, senders, receivers, h_k,
             a_src, ctx.nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 8
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 10
 
 
 def v5_sweep1_parts(h_flat: torch.Tensor,
@@ -796,10 +901,11 @@ def v5_sweep1_parts(h_flat: torch.Tensor,
     dst_ptr, src_ptr: the CSR offsets of the edges by destination
     ((num_nodes + 1,), over all edges) and of the real edges by sender
     ((rows of h_flat + 1,)), where the caller built them with the graph;
-    they are computed per call otherwise."""
+    they are computed per call otherwise. The dtype knobs (module doc)
+    are read now."""
     n_src = num_nodes if num_src_nodes is None else num_src_nodes
     _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f)
     return _V5Sweep1Parts.apply(
         h_flat.contiguous(), a_src.contiguous(), s_dst.contiguous(),
         drop_mask, senders, receivers, src_order, dst_ptr, src_ptr,
-        int(e_real), nh, slope)
+        int(e_real), nh, slope, v5_rounding(), dh_transposed())

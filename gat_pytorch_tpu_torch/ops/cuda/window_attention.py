@@ -2,12 +2,12 @@
 
 Counterpart of gat_pytorch_tpu/ops/pallas/segment_attention_window.py:
 fused_gat_window_v7 (:1771) with its VJP `_fgw7_fwd`/`_fgw7_bwd`
-(:1803-1927), in the single-sweep (v10) mode and the float32 contraction
-mode, and v7_sweep1_parts (:1939) with `_v7sp_fwd`/`_v7sp_bwd`, the same
-sweep without its epilogue (ops/cuda/v5_attention.py says what the parts
-are for). The kernels are csrc/window_attention.cu (forward: `_kernel_v6`;
-backward: `_kernel_v6_bwd`, in its normalised and its parts mode) and the
-d(h) reduction of ops/cuda/segment_sum.py. `window_forward_plain` and
+(:1803-1927), in the single-sweep (v10) mode, and v7_sweep1_parts (:1939)
+with `_v7sp_fwd`/`_v7sp_bwd`, the same sweep without its epilogue
+(ops/cuda/v5_attention.py says what the parts are for). The kernels are
+csrc/window_attention.cu (forward: `_kernel_v6`; backward:
+`_kernel_v6_bwd`, in its normalised and its parts mode) and the d(h)
+reduction of ops/cuda/segment_sum.py. `window_forward_plain` and
 `window_backward_plain` are their plain torch versions.
 
 It computes the function of ops/cuda/v5_attention.py (see its module doc
@@ -32,17 +32,35 @@ its one-hot MXU gather; Hopper gathers rows at random, so on the card the
 op is v5_attention's 2-phase pair (v5_cap, v5_forward_two_phase,
 v5_backward_two_phase) over the graph's CSR, with d(h) reduced by a stable
 sort of the senders. That is the Hopper algorithm for that contract.
+
+The contraction dtype (GAT_TPU_V6_DTYPE, `_v6_dtype`) is bfloat16 unless
+the variable says "float32", as in the JAX package, read when an op is
+called. In the bfloat16 mode (`window_rounding`) the gathered h rows, each
+edge's [weighted h | ex] before the float32 sums, each destination's
+backward payload [g | 1/(den+eps) | d(den)], the d(h) rows and d(raw) in
+d(a_src) and d(s_dst) are rounded; logits, exp, den's and d(cap)'s sums
+stay float32. Where a single-sweep layer's nh*f fits the packed window
+(`_pair_slot` > 0: round8(nh*f) <= 64 and GAT_TPU_V12 not "0"; never in
+the 2-phase form) the JAX kernel gathers a bfloat16 table and takes the
+logits from the rounded rows: the op then hands its kernels a bfloat16
+table. The v6 form rounds the rows, [weighted h | ex], the d(h) rows and
+d(raw) in d(a_src) only (V6_BF16). The cap chain reads the float32 row,
+as the JAX op's does. GAT_TPU_V11 (a stream of the same rounded rows) and
+GAT_TPU_ONEHOT_DTYPE (int8 one-hots, an exact selection) change no value
+and are not read.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
 
 from ...graph.graph import BlockLayout
 from . import build
+from .rounding import FLOAT32, Rounding, check_table
 from .segment_sum import dh_reduce_ptr
 from .v5_attention import (MAX_HEADS, attention_backward_plain,
                            attention_backward_two_phase_plain,
@@ -52,34 +70,75 @@ from .v5_attention import (MAX_HEADS, attention_backward_plain,
                            v5_local_cap)
 
 _KERNEL = "window_attention"
-_configured = False
+_configured = set()
+
+# the v6 form's bfloat16 mode (fused_gat_window's _kernel_v6 main_body and
+# _kernel_v6_bwd without v7: its payload and d(s_dst) stay float32)
+V6_BF16 = Rounding(rows=True, acc=True, d_h=True, d_raw=True)
 
 
-def _lib() -> ctypes.CDLL:
-    global _configured
-    lib = build.load(_KERNEL)
-    if not _configured:
+def _v6_dtype() -> torch.dtype:
+    """GAT_TPU_V6_DTYPE as segment_attention_window._v6_dtype reads it:
+    float32 only where it is "float32"."""
+    return (torch.float32
+            if os.environ.get("GAT_TPU_V6_DTYPE") == "float32"
+            else torch.bfloat16)
+
+
+def _pair_slot(nhf: int) -> int:
+    """segment_attention_window._pair_slot: the packed window's slot width
+    for a layer of nh*f = nhf (8, 16, 32 or 64, the least >= round8(nhf)),
+    or 0 where nhf > 64 or GAT_TPU_V12 is "0"."""
+    if os.environ.get("GAT_TPU_V12", "1") == "0":
+        return 0
+    nhf8 = -(-nhf // 8) * 8
+    for slot in (8, 16, 32, 64):
+        if nhf8 <= slot:
+            return slot
+    return 0
+
+
+def window_rounding(nh: int, f: int, sweep1: bool = True) -> Rounding:
+    """The windowed op's policy under the knobs, read now: float32, or
+    the bfloat16 payload mode, from a bfloat16 table where the single
+    sweep takes the packed window."""
+    if _v6_dtype() == torch.float32:
+        return FLOAT32
+    pair = sweep1 and _pair_slot(nh * f) > 0
+    return Rounding(table=pair, rows=not pair, acc=True, payload=True,
+                    d_h=True, d_raw=True, d_sdst=True)
+
+
+def _lib(bf16_table: bool = False) -> ctypes.CDLL:
+    """The kernels' library for a float32 h table, or for the packed
+    window's bfloat16 one (window_forward, window_backward and
+    window_backward_parts only, rows at most 64 wide)."""
+    name = build.library(_KERNEL, bf16_table)
+    lib = build.load(name)
+    if name not in _configured:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.window_forward.argtypes = ([p] * 7 + [i] * 4 + [fl] + [p] * 6
-                                       + [i, p])
+                                       + [i, i, p])
         lib.window_forward.restype = ctypes.c_int
         lib.window_backward.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 9
-                                        + [i, p])
+                                        + [i, i, p])
         lib.window_backward.restype = ctypes.c_int
         lib.window_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl]
-                                              + [p] * 7 + [i, p])
+                                              + [p] * 7 + [i, i, p])
         lib.window_backward_parts.restype = ctypes.c_int
+        _configured.add(name)
+        if bf16_table:
+            return lib
         lib.window_cap.argtypes = [p] * 6 + [i] * 4 + [p] * 4 + [i, p]
         lib.window_cap.restype = ctypes.c_int
         lib.window_forward_two_phase.argtypes = ([p] * 8 + [i] * 4
                                                  + [fl] * 2 + [p] * 2
-                                                 + [i, p])
+                                                 + [i, i, p])
         lib.window_forward_two_phase.restype = ctypes.c_int
         lib.window_backward_two_phase.argtypes = ([p] * 8 + [i] * 5
                                                   + [fl] * 2 + [p] * 8
-                                                  + [i, p])
+                                                  + [i, i, p])
         lib.window_backward_two_phase.restype = ctypes.c_int
-        _configured = True
     return lib
 
 
@@ -94,22 +153,23 @@ def _slots(layout: BlockLayout, n: int):
 
 
 def window_forward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
-                         slope: float):
+                         slope: float, rounding: Rounding = FLOAT32):
     """(num (N, D), den (N, nh), cap' (), code () int32)."""
     return attention_forward_plain(
         h, a_src, s_dst_eff, drop, *_slots(layout, s_dst_eff.shape[0]),
-        slope)
+        slope, rounding)
 
 
 def window_backward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
                           slope: float, g, out, den, epsp, need_drop: bool,
-                          normalize: bool = True):
+                          normalize: bool = True,
+                          rounding: Rounding = FLOAT32):
     """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop (E7, nh) |
     None, d_s_dst (N, nh), d_a_src (D, nh)) before the cap chain;
     normalize=False as v5_attention.attention_backward_plain takes it."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop, *_slots(layout, s_dst_eff.shape[0]),
-        slope, g, out, den, epsp, need_drop, normalize)
+        slope, g, out, den, epsp, need_drop, normalize, rounding=rounding)
 
 
 def window_cap_plain(h, a_src, s_dst, layout: BlockLayout):
@@ -120,31 +180,37 @@ def window_cap_plain(h, a_src, s_dst, layout: BlockLayout):
 
 def window_forward_two_phase_plain(h, a_src, s_dst, cap, drop,
                                    layout: BlockLayout, eps: float,
-                                   slope: float):
+                                   slope: float,
+                                   rounding: Rounding = FLOAT32):
     """(out (N, D), den (N, nh)) of the 2-phase forward over the slots."""
     return attention_forward_two_phase_plain(
         h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
-        slope)
+        slope, rounding)
 
 
 def window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
                                     layout: BlockLayout, eps: float,
                                     slope: float, g, out, den,
-                                    need_drop: bool):
+                                    need_drop: bool,
+                                    rounding: Rounding = FLOAT32):
     """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop | None,
     d_s_dst, d_a_src, d_cap) of the 2-phase op over the slots."""
     return attention_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
-        slope, g, out, den, need_drop)
+        slope, g, out, den, need_drop, rounding)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
+#
+# Each takes the op's rounding policy, as ops/cuda/v5_attention.py's do.
 
-def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout):
+def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout,
+                  rounding: Rounding = FLOAT32):
     dev = h.device
     d = h.shape[1] if h.dim() == 2 else -1
     nh = a_src.shape[1] if a_src.dim() == 2 else -1
-    build.require(h, "h", dev, torch.float32, (None, None))
+    check_table(h, rounding)
+    build.require(h, "h", dev, h.dtype, (None, None))
     build.require(a_src, "a_src", dev, torch.float32, (d, None))
     if not 1 <= nh <= MAX_HEADS:
         raise ValueError(f"{nh} heads: the kernel takes 1..{MAX_HEADS}")
@@ -163,8 +229,10 @@ def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout):
     return dev, n, e7, d, nh
 
 
-def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float):
-    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout)
+def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
+                         rounding: Rounding = FLOAT32):
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout,
+                                      rounding)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     num = torch.empty((n, d), **f32)
@@ -174,22 +242,24 @@ def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float):
     cap = torch.empty((), **f32)
     code = torch.empty((), dtype=torch.int32, device=dev)
     p = build.ptr
-    lib = _lib()
+    lib = _lib(rounding.table)
     with torch.cuda.device(dev):
         err = lib.window_forward(
             p(h), p(a_src), p(s_dst_eff), p(drop), p(layout.send),
             p(layout.dst_perm), p(layout.dst_ptr), n, d, nh, d // nh, slope,
             p(num), p(den), p(blk_max), p(blk_code), p(cap), p(code),
-            nblk, build.stream(dev))
+            nblk, rounding.flags(), build.stream(dev))
     build.check(err, "window_forward")
-    build.LAUNCHES["window_forward"] += 1
+    build.LAUNCHES[rounding.counter("window_forward")] += 1
     return num, den, cap, code
 
 
 def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
                           g, out, den, epsp, need_drop: bool,
-                          normalize: bool = True):
-    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout)
+                          normalize: bool = True,
+                          rounding: Rounding = FLOAT32):
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout,
+                                      rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
     build.require(den, "den", dev, torch.float32, (n, nh))
     if normalize:
@@ -203,12 +273,12 @@ def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     part = torch.empty((nblk, d * nh), **f32)
     d_asrc = torch.empty((d, nh), **f32)
     p = build.ptr
-    lib = _lib()
+    lib = _lib(rounding.table)
     graph_args = (p(h), p(a_src), p(s_dst_eff), p(drop), p(layout.send),
                   p(layout.dst_perm), p(layout.dst_ptr), n, e7, d, nh,
                   d // nh, slope)
     outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc), nblk,
-               build.stream(dev))
+               rounding.flags(), build.stream(dev))
     name = "window_backward" if normalize else "window_backward_parts"
     with torch.cuda.device(dev):
         if normalize:
@@ -218,7 +288,7 @@ def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
             err = lib.window_backward_parts(*graph_args, p(g), p(den),
                                             *outputs)
     build.check(err, name)
-    build.LAUNCHES[name] += 1
+    build.LAUNCHES[rounding.counter(name)] += 1
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
@@ -241,8 +311,10 @@ def _window_cap_cuda(h, a_src, s_dst, layout):
 
 
 def _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
-                                   eps: float, slope: float):
-    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout)
+                                   eps: float, slope: float,
+                                   rounding: Rounding = FLOAT32):
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
+                                      rounding)
     build.require(cap, "cap", dev, torch.float32, ())
     nblk = build.grid_blocks(n)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -252,16 +324,19 @@ def _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
         err = _lib().window_forward_two_phase(
             p(h), p(a_src), p(s_dst), p(cap), p(drop), p(layout.send),
             p(layout.dst_perm), p(layout.dst_ptr), n, d, nh, d // nh, eps,
-            slope, p(out), p(den), nblk, build.stream(dev))
+            slope, p(out), p(den), nblk, rounding.flags(),
+            build.stream(dev))
     build.check(err, "window_forward_two_phase")
-    build.LAUNCHES["window_forward_two_phase"] += 1
+    build.LAUNCHES[rounding.counter("window_forward_two_phase")] += 1
     return out, den
 
 
 def _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
                                     eps: float, slope: float, g, out, den,
-                                    need_drop: bool):
-    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout)
+                                    need_drop: bool,
+                                    rounding: Rounding = FLOAT32):
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
+                                      rounding)
     build.require(cap, "cap", dev, torch.float32, ())
     for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
                            (den, "den", (n, nh))):
@@ -279,25 +354,28 @@ def _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
             p(h), p(a_src), p(s_dst), p(cap), p(drop), p(layout.send),
             p(layout.dst_perm), p(layout.dst_ptr), n, e7, d, nh, d // nh,
             eps, slope, p(g), p(out), p(den), p(d_h_rows), p(d_drop),
-            p(d_sdst), p(part), p(d_asrc_cap), nblk, build.stream(dev))
+            p(d_sdst), p(part), p(d_asrc_cap), nblk, rounding.flags(),
+            build.stream(dev))
     build.check(err, "window_backward_two_phase")
-    build.LAUNCHES["window_backward_two_phase"] += 1
+    build.LAUNCHES[rounding.counter("window_backward_two_phase")] += 1
     return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
             d_asrc_cap[d * nh])
 
 
 def window_forward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
-                   slope: float):
+                   slope: float, rounding: Rounding = FLOAT32):
     """Kernel on CUDA tensors, plain version on CPU tensors."""
     if h.is_cuda:
-        return _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope)
+        return _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope,
+                                    rounding)
     build.require_cpu(h)
-    return window_forward_plain(h, a_src, s_dst_eff, drop, layout, slope)
+    return window_forward_plain(h, a_src, s_dst_eff, drop, layout, slope,
+                                rounding)
 
 
 def window_backward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
                     slope: float, g, out, den, epsp, need_drop: bool,
-                    normalize: bool = True):
+                    normalize: bool = True, rounding: Rounding = FLOAT32):
     """Kernel on CUDA tensors (the d(h) rows of pad slots are left
     unwritten there), plain version on CPU tensors. normalize=False is
     the parts mode; it launches the kernel's parts mode and counts as
@@ -305,15 +383,17 @@ def window_backward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
     if h.is_cuda:
         return _window_backward_cuda(h, a_src, s_dst_eff, drop, layout,
                                      slope, g, out, den, epsp, need_drop,
-                                     normalize)
+                                     normalize, rounding)
     build.require_cpu(h)
     return window_backward_plain(h, a_src, s_dst_eff, drop, layout, slope,
-                                 g, out, den, epsp, need_drop, normalize)
+                                 g, out, den, epsp, need_drop, normalize,
+                                 rounding)
 
 
 def window_cap(h, a_src, s_dst, layout: BlockLayout):
-    """(cap, code) of the 2-phase cap pass over the real slots. Kernel on
-    CUDA tensors, plain version on CPU tensors."""
+    """(cap, code) of the 2-phase cap pass over the real slots (from the
+    float32 rows in every mode). Kernel on CUDA tensors, plain version on
+    CPU tensors."""
     if h.is_cuda:
         return _window_cap_cuda(h, a_src, s_dst, layout)
     build.require_cpu(h)
@@ -321,32 +401,33 @@ def window_cap(h, a_src, s_dst, layout: BlockLayout):
 
 
 def window_forward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
-                             eps: float, slope: float):
+                             eps: float, slope: float,
+                             rounding: Rounding = FLOAT32):
     """(out, den) of the 2-phase forward from the cap (a () float32
     tensor on the device). Kernel on CUDA tensors, plain version on CPU
     tensors."""
     if h.is_cuda:
         return _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop,
-                                              layout, eps, slope)
+                                              layout, eps, slope, rounding)
     build.require_cpu(h)
     return window_forward_two_phase_plain(h, a_src, s_dst, cap, drop, layout,
-                                          eps, slope)
+                                          eps, slope, rounding)
 
 
 def window_backward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
                               eps: float, slope: float, g, out, den,
-                              need_drop: bool):
+                              need_drop: bool, rounding: Rounding = FLOAT32):
     """(d_h rows in slot order, d_drop | None, d_s_dst, d_a_src, d_cap)
     of the 2-phase op. Kernel on CUDA tensors (pad rows unwritten there),
     plain version on CPU tensors."""
     if h.is_cuda:
         return _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop,
                                                layout, eps, slope, g, out,
-                                               den, need_drop)
+                                               den, need_drop, rounding)
     build.require_cpu(h)
     return window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
                                            layout, eps, slope, g, out, den,
-                                           need_drop)
+                                           need_drop, rounding)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -355,31 +436,34 @@ class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, drop_mask, layout, bound, nh,
-                eps, slope):
+                eps, slope, rounding):
         s_dst_eff = (s_dst - bound).contiguous()
-        num, den, cap, code = window_forward(h_flat, a_src, s_dst_eff,
-                                             drop_mask, layout, slope)
+        h_k = rounding.table_of(h_flat)
+        num, den, cap, code = window_forward(h_k, a_src, s_dst_eff,
+                                             drop_mask, layout, slope,
+                                             rounding)
         out, epsp = normalise(num, den, cap, eps, slope, nh)
-        ctx.save_for_backward(h_flat, a_src, s_dst_eff, drop_mask, den, out,
-                              epsp, code)
+        ctx.save_for_backward(h_flat, h_k, a_src, s_dst_eff, drop_mask, den,
+                              out, epsp, code)
         ctx.layout, ctx.nh, ctx.slope = layout, nh, slope
+        ctx.rounding = rounding
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (h_flat, a_src, s_dst_eff, drop_mask, den, out, epsp,
+        (h_flat, h_k, a_src, s_dst_eff, drop_mask, den, out, epsp,
          code) = ctx.saved_tensors
         layout, nh, slope = ctx.layout, ctx.nh, ctx.slope
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = window_backward(
-            h_flat, a_src, s_dst_eff, drop_mask, layout, slope, g, out, den,
-            epsp, need_drop)
+            h_k, a_src, s_dst_eff, drop_mask, layout, slope, g, out, den,
+            epsp, need_drop, rounding=ctx.rounding)
         d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
             code, layout.send, layout.recv, h_flat, a_src, nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 5
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 6
 
 
 def _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f):
@@ -415,11 +499,13 @@ class _WindowTwoPhase(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, layout, eps,
-                slope):
+                slope, rounding):
         out, den = window_forward_two_phase(h_flat, a_src, s_dst, cap,
-                                            drop_mask, layout, eps, slope)
+                                            drop_mask, layout, eps, slope,
+                                            rounding)
         ctx.save_for_backward(h_flat, a_src, s_dst, cap, drop_mask, out, den)
         ctx.layout, ctx.eps, ctx.slope = layout, eps, slope
+        ctx.rounding = rounding
         return out
 
     @staticmethod
@@ -429,9 +515,9 @@ class _WindowTwoPhase(torch.autograd.Function):
         need_drop = drop_mask is not None and ctx.needs_input_grad[4]
         d_h_rows, d_drop, d_sdst, d_asrc, d_cap = window_backward_two_phase(
             h_flat, a_src, s_dst, cap, drop_mask, layout, ctx.eps, ctx.slope,
-            g.contiguous(), out, den, need_drop)
+            g.contiguous(), out, den, need_drop, ctx.rounding)
         d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
-        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 3
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 4
 
 
 def fused_gat_window_v7(h_flat: torch.Tensor,
@@ -458,18 +544,21 @@ def fused_gat_window_v7(h_flat: torch.Tensor,
     None computes it from the score tables. two_phase: the 2-phase form
     (the JAX package under GAT_TPU_V10=0): the cap pass over the slots,
     then the attention pass with that cap, whose cotangent goes to the
-    argmax (slot, head); score_bound is not read there."""
+    argmax (slot, head); score_bound is not read there. The contraction
+    dtype (module doc) is read now."""
     _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f)
     h_flat, a_src = h_flat.contiguous(), a_src.contiguous()
+    rounding = window_rounding(nh, f, sweep1=not two_phase)
     if two_phase:
         s_dst = s_dst.contiguous()
         cap = _WindowCap.apply(h_flat, a_src, s_dst, layout)
         return _WindowTwoPhase.apply(h_flat, a_src, s_dst, cap, drop_mask,
-                                     layout, eps, slope)
+                                     layout, eps, slope, rounding)
     if score_bound is None:
         score_bound = (h_flat @ a_src).max() + s_dst.max()
     return _WindowAttention.apply(h_flat, a_src, s_dst, drop_mask, layout,
-                                  score_bound.detach(), nh, eps, slope)
+                                  score_bound.detach(), nh, eps, slope,
+                                  rounding)
 
 
 def fused_gat_window(h_flat: torch.Tensor,
@@ -498,7 +587,9 @@ def fused_gat_window(h_flat: torch.Tensor,
     v5_local_cap then fused_gat_table over the graph's CSR (the kernels
     v5_cap, v5_forward_two_phase, v5_backward_two_phase), d(h) reduced by
     the stable sender sort src_order (Graph.src_order; computed per call
-    where the caller has none). tile_lo and window are checked, not read."""
+    where the caller has none). tile_lo and window are checked, not read.
+    The contraction dtype is read now (V6_BF16 in the bfloat16 mode, the
+    cap pass on the float32 rows); the v5 knobs are not read."""
     tiles = -(-num_nodes // 128)
     if tuple(tile_lo.shape) != (tiles,) or window < 1:
         raise ValueError(f"tile_lo of shape {tuple(tile_lo.shape)} and "
@@ -506,38 +597,43 @@ def fused_gat_window(h_flat: torch.Tensor,
                          f"for num_nodes={num_nodes}")
     if src_order is None:
         src_order = torch.argsort(senders, stable=True).to(torch.int32)
+    rounding = FLOAT32 if _v6_dtype() == torch.float32 else V6_BF16
     cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
-                       num_nodes, nh, f)
+                       num_nodes, nh, f, rounding=FLOAT32)
     return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
                            receivers, src_order, e_real, num_nodes, nh, f,
-                           eps, slope)
+                           eps, slope, rounding=rounding)
 
 
 class _WindowSweep1Parts(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, layout, nh, slope):
-        num, den, cap, code = window_forward(h_flat, a_src, s_dst_eff,
-                                             drop_mask, layout, slope)
-        ctx.save_for_backward(h_flat, a_src, s_dst_eff, drop_mask, code)
+    def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, layout, nh, slope,
+                rounding):
+        h_k = rounding.table_of(h_flat)
+        num, den, cap, code = window_forward(h_k, a_src, s_dst_eff,
+                                             drop_mask, layout, slope,
+                                             rounding)
+        ctx.save_for_backward(h_flat, h_k, a_src, s_dst_eff, drop_mask, code)
         ctx.layout, ctx.nh, ctx.slope = layout, nh, slope
+        ctx.rounding = rounding
         ctx.mark_non_differentiable(code)
         return num, den, cap, code
 
     @staticmethod
     def backward(ctx, d_num, d_den, d_cap, _d_code):
-        h_flat, a_src, s_dst_eff, drop_mask, code = ctx.saved_tensors
+        h_flat, h_k, a_src, s_dst_eff, drop_mask, code = ctx.saved_tensors
         layout = ctx.layout
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = window_backward(
-            h_flat, a_src, s_dst_eff, drop_mask, layout, ctx.slope,
+            h_k, a_src, s_dst_eff, drop_mask, layout, ctx.slope,
             d_num.contiguous(), None, d_den.contiguous(), None, need_drop,
-            normalize=False)
+            normalize=False, rounding=ctx.rounding)
         d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, d_cap, code, layout.send, layout.recv,
             h_flat, a_src, ctx.nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 3
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 4
 
 
 def v7_sweep1_parts(h_flat: torch.Tensor,
@@ -557,8 +653,9 @@ def v7_sweep1_parts(h_flat: torch.Tensor,
     drop_mask is (E7, nh) in slot order; code = slot*nh + head is not
     differentiable; `eps` is the caller's epilogue's and is not read
     here. On a hybrid layout the slots hold the in-window edges only;
-    the remainder (layout.rem_*) is another op's."""
+    the remainder (layout.rem_*) is another op's. The contraction dtype
+    (module doc) is read now."""
     _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f)
     return _WindowSweep1Parts.apply(h_flat.contiguous(), a_src.contiguous(),
                                     s_dst.contiguous(), drop_mask, layout,
-                                    nh, slope)
+                                    nh, slope, window_rounding(nh, f))
