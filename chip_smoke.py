@@ -49,7 +49,14 @@ dataset:
           PPI paper_faithful bf16 (table_forward_bf16, table_backward_bf16,
           segment_sum_rows_t), and two more that reach the remaining
           modes: Cora two-phase bf16 kernels (v5_cap_bf16) and Pubmed
-          cluster bf16 kernels (v5_backward_parts_bf16).
+          cluster bf16 kernels (v5_backward_parts_bf16);
+  and the edge-sharded path (Trainer.fit_sharded, the cut-neighbourhood
+  layout) under a one-rank NCCL process group: Cora sharded, PPI
+  paper_faithful sharded and Cora sharded bf16 kernels
+          (GAT_TPU_KERNEL_DTYPE and GAT_TPU_GEMM_DTYPE = bfloat16), each
+          layer the partial v2 op (kernels v2_forward or v2_forward_bf16,
+          v2_backward, and segment_sum_sorted for the gradients of the
+          h_src gather and the two score gathers).
 
 Phases (every failure is fatal):
   1. build the CUDA kernels from gat_pytorch_tpu_torch/ops/cuda/csrc
@@ -83,7 +90,13 @@ Phases (every failure is fatal):
      1e-2 of the scale, and 10x nearer the same mode's plain version than
      the float32 one, in RMS, wherever the mode moves an output), launched
      twice for equal bits; and segment_sum_rows_t against its plain version
-     and against segment_sum_rows's bits;
+     and against segment_sum_rows's bits; the v2 entries in both modes at
+     the Cora and PPI shapes, with and without the dropout mask (the
+     backward also at eps = 1 and at each output's own magnitude, the
+     forward's bfloat16 mode, each launched twice), and the cut
+     contract: the partial kernel over 4 contiguous slices of the edge
+     list, summed and divided, against the unsharded normalised kernel
+     and its plain version;
   3. train each stand-in for the epochs of CELLS through the port's
      Trainer (the code the CLI runs), with every launch counter set to 0
      just before and read just after; the train loss must be finite and
@@ -101,6 +114,13 @@ Phases (every failure is fatal):
      then two PPI paper_faithful fits, two hybrid Pubmed fits and two
      Pubmed bf16 fits of a few epochs, each pair from one seed, must give
      the same bits in every epoch's losses and in every parameter;
+  4c. under a one-rank NCCL process group (destroyed on any exit), train
+     the sharded cells as phase 3 does, hold each trained sharded model's
+     logits and gradients against the single-device kernel path and the
+     sharded segment path (a bfloat16 model at 1e-2 against the float32
+     ones, and live), hold two Cora sharded fits from one seed to equal
+     bits, and time and profile the sharded step beside the
+     single-device step;
   5. time each kernel and bfloat16 mode (CUDA graph replays), its plain
      version and, where one PyTorch call computes the same function, that
      call; time the
@@ -118,6 +138,7 @@ the port's package is not beside it.
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -186,7 +207,9 @@ CELL_ENV = {"Pubmed": F32, "Pubmed cluster": F32,
             "Cora bf16 kernels": KERNELS_BF16,
             "PPI paper_faithful bf16": KERNELS_BF16,
             "Cora two-phase bf16 kernels": {**TWO_PHASE, **KERNELS_BF16},
-            "Pubmed cluster bf16 kernels": KERNELS_BF16}
+            "Pubmed cluster bf16 kernels": KERNELS_BF16,
+            "Cora sharded bf16 kernels": {"GAT_TPU_KERNEL_DTYPE": "bfloat16",
+                                          **GEMM_BF16}}
 # the numerics knobs a bfloat16 fit sets: without them, the same model
 # runs the float32 path (phase 4)
 BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
@@ -229,6 +252,12 @@ PATH_KERNELS = {
     "v5 2-phase bf16": (("v5_cap_bf16", "v5_forward_two_phase_bf16"),
                         {"v5_backward_two_phase_bf16": 1,
                          "segment_sum_rows_t": 1}),
+    # the sharded layer: the partial v2 op; its backward's sorted sums
+    # are the gradients of the h_src gather and of the two score gathers
+    "sharded_v4_partial": (("v2_forward",),
+                           {"v2_backward": 1, "segment_sum_sorted": 3}),
+    "sharded_v4_partial bf16": (("v2_forward_bf16",),
+                                {"v2_backward": 1, "segment_sum_sorted": 3}),
     # the windowed parts' d(h) is reduced row-major (the JAX v7 kernel
     # scatters it itself and reads no knob), the remainder's feature-major
     "v7_hybrid bf16 kernels": (("window_forward_bf16", "v5_forward_bf16"),
@@ -239,6 +268,19 @@ PATH_KERNELS = {
 }
 REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5,
                 "Pubmed bf16": 5}
+# the sharded fits of phase 4c, under a one-rank NCCL process group
+# (Trainer.fit_sharded, the cut-neighbourhood layout; the card is one,
+# so the edge axis has one shard and every collective is a real NCCL
+# call on it): name -> (dataset, config overrides, epochs, layer path,
+# layers), as CELLS
+SHARDED_CELLS = {
+    "Cora sharded": ("Cora", {}, 50, "sharded_v4_partial", 2),
+    "PPI paper_faithful sharded": ("PPI", {"paper_faithful": True}, 10,
+                                   "sharded_v4_partial", 3),
+    "Cora sharded bf16 kernels": ("Cora", {}, 10,
+                                  "sharded_v4_partial bf16", 2),
+}
+SHARDED_REPRO = ("Cora sharded", 5)
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -277,6 +319,10 @@ REPLACES = {
                                   + "segment_attention_window.py:923"),
     # the feature-major d(h) reduce (GAT_TPU_DH_REDUCE_NT=0)
     "segment_sum_rows_t": _PALLAS + "segment_sum.py:70",
+    # the v2 op over a pre-gathered edge table (both modes; the sharded
+    # path runs its partial mode)
+    "v2_forward": _PALLAS + "segment_attention.py:65",
+    "v2_backward": _PALLAS + "segment_attention_bwd.py:39",
 }
 SOURCES = {
     "v5_forward": _CSRC + "v5_attention.cu",
@@ -296,15 +342,19 @@ SOURCES = {
     "window_forward_two_phase": _CSRC + "window_attention.cu",
     "window_backward_two_phase": _CSRC + "window_attention.cu",
     "segment_sum_rows_t": _CSRC + "segment_sum.cu",
+    "v2_forward": _CSRC + "segment_attention.cu",
+    "v2_backward": _CSRC + "segment_attention.cu",
 }
 # every bfloat16 mode of an entry: the same TPU kernel and source, its
 # launches counted apart (rounding.Rounding.counter)
 BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
-                  if not k.startswith(("segment_sum", "window_cap")))
+                  if not k.startswith(("segment_sum", "window_cap",
+                                       "v2_backward")))
 for _k in BF16_KEYS:
     REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
 BWD_NAMES = ("d_h_rows", "d_drop", "d_s_dst", "d_a_src")
 TABLE_BWD_NAMES = ("d_h_rows", "d_logits", "d_drop")
+V2_BWD_NAMES = ("d_logits", "d_h_src", "d_drop")
 
 
 def launches_per_epoch(path, layers, train_batches, val_batches):
@@ -328,6 +378,14 @@ def knobs(env):
     """The environment variables of `env` set for a `with` block and
     restored after it, on any exit."""
     return mock.patch.dict(os.environ, env)
+
+
+def under(env, fn):
+    """fn, to be run with the knobs of `env`."""
+    def run():
+        with knobs(env):
+            return fn()
+    return run
 
 
 def max_err(got, want, floor=1.0):
@@ -461,16 +519,24 @@ def main():
     from gat_pytorch_tpu_torch.models import gat
     from gat_pytorch_tpu_torch.ops import segment as seg
     from gat_pytorch_tpu_torch.ops.cuda import build
+    from gat_pytorch_tpu_torch.ops.cuda import segment_attention as sa
     from gat_pytorch_tpu_torch.ops.cuda import segment_sum as ss
     from gat_pytorch_tpu_torch.ops.cuda import table_attention as ta
     from gat_pytorch_tpu_torch.ops.cuda import v5_attention as v5
     from gat_pytorch_tpu_torch.ops.cuda import window_attention as wa
-    from gat_pytorch_tpu_torch.ops.cuda.rounding import FLOAT32, Rounding
+    from gat_pytorch_tpu_torch.ops.cuda.rounding import (FLOAT32, V2_BF16,
+                                                         Rounding)
     from gat_pytorch_tpu_torch.train import optim as O
     from gat_pytorch_tpu_torch.train.tasks import make_task
     from gat_pytorch_tpu_torch.train.trainer import Trainer
     from gat_pytorch_tpu_torch.utils.config import get_config
     from gat_pytorch_tpu_torch.utils.device import resolve_device
+
+    started = time.time()
+
+    def elapsed(phase):
+        print(f"[elapsed] {time.time() - started:.1f} s at the start of "
+              f"phase {phase}")
 
     # -- 1. build --------------------------------------------------------
     t0 = time.time()
@@ -638,6 +704,7 @@ def main():
                                     fwd_args=fk, bwd_args=fk + co)
         return case
 
+    elapsed("2a")
     # -- 2a. the v5 kernels and the reduce against their plain versions -----
     def check_v5(graph, nh, f, with_drop):
         """The v5 kernels and the d(h) reduce at one layer shape on
@@ -746,6 +813,7 @@ def main():
           f"{n + shift} source rows for {n} destinations: the bits of the "
           f"square call")
 
+    elapsed("2b")
     # -- 2b. the Pubmed path's kernels against their plain versions --------
     t0 = time.time()
     raw = datasets.load_planetoid("Pubmed", synthetic_override=True, seed=0)
@@ -961,6 +1029,7 @@ def main():
     check_sorted_sum("Pubmed by sender", hybrid_send_sorted,
                      hybrid.num_nodes, (1, 8, 33))
 
+    elapsed("2c")
     # -- 2c. the table kernels, and the v5 kernels at the PPI widths --------
     def table_inputs(graph, nh, f, paper_faithful, with_drop):
         """Seeded inputs of the table op as the model hands them over:
@@ -1098,6 +1167,7 @@ def main():
         check_two_phase(f"PATTERN {nh}x{f}", v5_two_phase_entries(pattern),
                         V5_TWO, pattern.num_nodes, nh, f, pattern.num_edges)
 
+    elapsed("2d")
     # -- 2d. the bfloat16 modes against their plain versions ---------------
     # Every mode of every entry that a knob of the JAX package selects, at
     # the layer shapes of the cells that run it; each against its plain
@@ -1323,12 +1393,121 @@ def main():
                                          f"PPI {nh}x{f}")
                        for nh, f in SHAPES["PPI"]]
 
+    elapsed("2e")
+    # -- 2e. the v2 kernels (rows 9-10) ------------------------------------
+    def check_v2(graph, nh, f, paper_faithful, with_drop, label):
+        """The v2 entries at one layer shape on `graph`'s dst-sorted edges
+        with the logits of table_inputs and h_src the gathered rows of its
+        table: the forward in both modes and in the bfloat16 mode, the
+        backward in both modes (normalised also at eps = 1, partial with
+        a random d(den)), each held at 1 and at every output's own
+        magnitude and launched twice. Returns the inputs of the timings
+        and of the cut check."""
+        h, lg, drop, g = table_inputs(graph, nh, f, paper_faithful,
+                                      with_drop)
+        n_, er, rcv_ = graph.num_nodes, graph.num_real_edges, graph.receivers
+        h_src = seg.gather_rows(h, graph.senders).contiguous()
+        d_den = torch.randn((n_, nh), generator=gen, device=dev)
+        eps = 0.0 if paper_faithful else 1e-8
+        empty = seg.segment_sum(graph.edge_mask.float(), rcv_, n_) == 0
+        case = dict(nh=nh, f=f, drop=with_drop, eps=eps)
+        for norm in (True, False):
+            mode = "normalised" if norm else "partial"
+            name = f"v2_forward {label} {mode}"
+            names = ("out" if norm else "num", "den")
+            fa = (lg, h_src, drop, rcv_, n_, er, eps, norm)
+            got = sa.v2_forward(*fa)
+            want = sa.v2_forward_plain(*fa)
+            hold_all(name, names, got, want, "v2_forward")
+            same_bits(name, got, sa.v2_forward(*fa))
+            if not all(torch.isfinite(x).all() for x in got) or \
+                    not all((x[empty] == 0).all() for x in got):
+                fail(f"{name}: rows without a real edge are not 0")
+            fb = fa + (V2_BF16,)
+            got_b = sa.v2_forward(*fb)
+            hold_mode(f"{name} [{mode_tag(V2_BF16)}]", names, got_b,
+                      sa.v2_forward_plain(*fb), want, "v2_forward_bf16")
+            same_bits(f"{name} [{mode_tag(V2_BF16)}]", got_b,
+                      sa.v2_forward(*fb))
+            for eps_b in ((eps, 1.0) if norm else (0.0,)):
+                name = f"v2_backward {label} {mode} eps={eps_b}"
+                out_, den_ = sa.v2_forward_plain(lg, h_src, drop, rcv_, n_,
+                                                 er, eps_b, True)
+                ba = (lg, h_src, drop, rcv_, er, eps_b, g,
+                      out_ if norm else None, den_ if norm else d_den,
+                      with_drop, norm)
+                got = sa.v2_backward(*ba)
+                want = sa.v2_backward_plain(*ba)
+                keep = [i for i in range(3) if want[i] is not None]
+                for floor, tag in ((1.0, ""), (0.0, " at its own magnitude")):
+                    hold_all(name + tag, [V2_BWD_NAMES[i] for i in keep],
+                             [got[i] for i in keep], [want[i] for i in keep],
+                             "v2_backward", floor)
+                same_bits(name, got, sa.v2_backward(*ba))
+                if not all(torch.isfinite(got[i]).all() and
+                           (got[i][~graph.edge_mask] == 0).all()
+                           for i in keep):
+                    fail(f"{name}: padding edges' cotangents are not 0")
+                case.setdefault(f"bwd_{mode}", ba)
+            case[f"fwd_{mode}"] = fa
+        # the sharded layer hands the partial op the real edges' h_src
+        # rows alone: the same bits, d(h_src) for those rows
+        name = f"v2 {label} partial on the real edges' h_src rows"
+        fa, ba = case["fwd_partial"], case["bwd_partial"]
+        same_bits(name, sa.v2_forward(*fa),
+                  sa.v2_forward(lg, h_src[:er], *fa[2:]))
+        full = sa.v2_backward(*ba)
+        same_bits(name, (full[0], full[1][:er], full[2]),
+                  sa.v2_backward(lg, h_src[:er], *ba[2:]))
+        return case
+
+    def check_cut(graph, c, label, k=4):
+        """The cut contract: the partial kernel on each of k contiguous
+        slices of the edge list, each told its own real-edge count,
+        summed and divided, against the unsharded normalised kernel and
+        its plain version."""
+        lg, h_src, drop, rcv_, n_, er, eps, _ = c["fwd_normalised"]
+        e_ = rcv_.shape[0]
+        if e_ % k:
+            fail(f"{label}: {e_} edges do not divide over {k} shards")
+        s_ = e_ // k
+        num = den = 0.0
+        for i in range(k):
+            sl = slice(i * s_, (i + 1) * s_)
+            n_i, d_i = sa.v2_forward(
+                lg[sl], h_src[sl], None if drop is None else drop[sl],
+                rcv_[sl], n_, min(max(er - i * s_, 0), s_), 0.0, False)
+            num, den = num + n_i, den + d_i
+        inv = torch.where(den > 0, 1.0 / (den + eps), torch.zeros_like(den))
+        out = (num.view(n_, c["nh"], c["f"]) * inv[:, :, None]).reshape(
+            n_, -1)
+        fa = c["fwd_normalised"]
+        for what, want in (("kernel", sa.v2_forward(*fa)),
+                           ("plain version", sa.v2_forward_plain(*fa))):
+            hold_all(f"v2 partial over {k} edge shards {label}, summed, "
+                     f"vs the unsharded {what}", ("out", "den"), (out, den),
+                     want, "v2_forward")
+
+    v2_cases = {}
+    for ds, graph, pf in (("Cora", cora, False), ("PPI", ppi, True)):
+        for nh, f in SHAPES[ds]:
+            for with_drop in (False, True):
+                label = (f"{ds} {nh}x{f}"
+                         f"{' with dropout' if with_drop else ''}")
+                print(f"[kernels] v2 entries at {label} ({graph.num_edges} "
+                      f"edges, {graph.num_real_edges} real)")
+                v2_cases[label] = check_v2(graph, nh, f, pf, with_drop,
+                                           label)
+    for label in ("Cora 8x8 with dropout", "PPI 4x256"):
+        check_cut(cora if label.startswith("Cora") else ppi,
+                  v2_cases[label], label)
 
     if "--checks-only" in sys.argv[1:]:
         print("chip_smoke: --checks-only: every kernel built and held "
               "against its plain version; no fit, no timing, no result line")
         return 0
 
+    elapsed("3")
     # -- 3. the main paths: train each stand-in ----------------------------
     def cell_data(dataset, cfg):
         """(train batches, validation batches, reshuffle) as cli.train
@@ -1359,7 +1538,14 @@ def main():
         return (cfg, trainer) + cell_data(dataset, cfg)
 
     fits, launches, per_epoch = {}, {k: 0 for k in REPLACES}, {}
-    for name, (dataset, overrides, max_epochs, path, layers) in CELLS.items():
+
+    def train_cell(name, spec, fit):
+        """Fit one cell through `fit` (trainer, train batches, validation
+        batches, reshuffle) -> TrainResult, the launch counters set to 0
+        just before and read just after; check the loss, the layer paths
+        and every kernel's launches; evaluate; return (config, trainer,
+        final parameters, first train batch)."""
+        dataset, overrides, max_epochs, path, layers = spec
         cfg, trainer, train_data, val_data, reshuffle = make_trainer(
             dataset, overrides, max_epochs)
         env = CELL_ENV.get(name, {})
@@ -1368,8 +1554,7 @@ def main():
         torch.cuda.synchronize()
         t0 = time.time()
         with knobs(env):
-            result = trainer.fit_epochs(train_data, val_data,
-                                        reshuffle=reshuffle)
+            result = fit(trainer, train_data, val_data, reshuffle)
         torch.cuda.synchronize()
         wall = time.time() - t0
         ran = dict(build.LAUNCHES)
@@ -1415,9 +1600,14 @@ def main():
               f"val_loss {result.best_val_loss:.4f}, {metrics}")
         if not all(math.isfinite(v) for v in metrics.values()):
             fail(f"{name}: test metrics are not finite")
-        fits[name] = (cfg, trainer, result.final_params,
-                      train_data[0].to(dev))
+        return cfg, trainer, result.final_params, train_data[0].to(dev)
 
+    for name, spec in CELLS.items():
+        fits[name] = train_cell(
+            name, spec, lambda tr, td, vd, rs: tr.fit_epochs(td, vd,
+                                                             reshuffle=rs))
+
+    elapsed("4")
     # -- 4. kernel paths against the plain segment path on the card --------
     def logits_and_grads(trainer, params, graph):
         for p in gat.parameters(params):
@@ -1514,6 +1704,7 @@ def main():
                   f"{gat.PATH_TRACE} on the card")
             hold_model(name, label, lk, gk, lo, go, REL_TOL)
 
+    elapsed("4b")
     # -- 4b. run-to-run reproducibility ------------------------------------
     # The port's kernels sum in fixed orders and the kernel path's gathers
     # reduce their gradients through segment_sum_sorted, so two fits from
@@ -1564,6 +1755,156 @@ def main():
                 one_step_report(name, dataset, overrides)
             fail(f"{name}: two fits from one seed differ")
 
+    elapsed("4c")
+    # -- 4c. the sharded path: fits, holds, reproducibility, step times -----
+    # Trainer.fit_sharded over a (data, edge) mesh of one rank: a one-rank
+    # NCCL process group on the card, so that every collective of the
+    # cut-neighbourhood layer and of the sharded step is a real NCCL call
+    import torch.distributed as dist
+    from gat_pytorch_tpu_torch.parallel import (DropoutGenerators,
+                                                make_mesh,
+                                                make_sharded_train_step,
+                                                multihost, shard_batch)
+    from gat_pytorch_tpu_torch.ops import collectives as C
+
+    def sharded_logits_and_grads(trainer, params, shard, mesh, backend):
+        """The sharded model's logits and gradients of its train loss (the
+        sharded step's, without the update)."""
+        for q in gat.parameters(params):
+            q.grad = None
+        logits = gat.gat_model_apply(params, trainer.cfg, shard,
+                                     device=dev, backend=backend,
+                                     edge_axis=mesh.edge)
+        trainer.task.loss(logits, shard, "train").backward()
+        C.psum_grads(gat.parameters(params), mesh.data)
+        torch.cuda.synchronize()
+        return (logits.detach(),
+                [q.grad.clone() for q in gat.parameters(params)])
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh()
+        print(f"[sharded] one-rank {dist.get_backend()} process group, mesh "
+              f"{mesh.shape}")
+        sharded = {}
+        for name, spec in SHARDED_CELLS.items():
+            sharded[name] = train_cell(
+                name, spec, lambda tr, td, vd, rs: tr.fit_sharded(
+                    mesh, td, vd, reshuffle=rs))
+
+        # the trained sharded model against the single-device kernel path
+        # and the sharded segment path, on the same parameters
+        for name, (cfg, trainer, params, graph) in sharded.items():
+            shard = shard_batch([graph], mesh)[0]
+            env = CELL_ENV.get(name, {})
+            with knobs(env):
+                lk, gk = sharded_logits_and_grads(trainer, params, shard,
+                                                  mesh, "kernel")
+            if lk.shape != (graph.num_nodes, cfg.num_classes) or \
+                    not torch.isfinite(lk).all():
+                fail(f"{name}: logits of shape {tuple(lk.shape)} or not "
+                     f"finite")
+            if "bf16" in name:
+                f32 = float32_env(env)
+                with knobs(f32):
+                    outs = {"float32 single-device kernel": logits_and_grads(
+                                trainer, params, graph),
+                            "float32 sharded segment":
+                                sharded_logits_and_grads(
+                                    trainer, params, shard, mesh, "segment"),
+                            "float32 sharded kernel":
+                                sharded_logits_and_grads(
+                                    trainer, params, shard, mesh, "kernel")}
+                for label in ("float32 single-device kernel",
+                              "float32 sharded segment"):
+                    print(f"[model] {name}: bfloat16 sharded kernel path vs "
+                          f"{label} path on the card")
+                    rel = hold_model(name, label, lk, gk, *outs[label],
+                                     BF16_TOL)
+                    if label == "float32 single-device kernel":
+                        live = rel
+                print(f"[model] {name}: float32 sharded kernel path vs "
+                      f"float32 single-device kernel path on the card")
+                noise = hold_model(name, "float32 single-device kernel",
+                                   *outs["float32 sharded kernel"],
+                                   *outs["float32 single-device kernel"],
+                                   REL_TOL)
+                print(f"[model] {name}: the bfloat16 logits differ from the "
+                      f"float32 single-device kernel path's by {live:.3e} of "
+                      f"their scale, the float32 sharded path's by "
+                      f"{noise:.3e}")
+                if not live > 10.0 * noise:
+                    fail(f"{name}: the bfloat16 mode is not live ({live} <= "
+                         f"10 x {noise})")
+                continue
+            for label, fn in (
+                    ("single-device kernel",
+                     lambda: logits_and_grads(trainer, params, graph)),
+                    ("sharded segment",
+                     lambda: sharded_logits_and_grads(trainer, params, shard,
+                                                      mesh, "segment"))):
+                gat.PATH_TRACE.clear()
+                with knobs(env):
+                    lo, go = fn()
+                print(f"[model] {name}: sharded kernel path vs {label} path "
+                      f"{gat.PATH_TRACE} on the card")
+                hold_model(name, label, lk, gk, lo, go, REL_TOL)
+
+        # two sharded fits from one seed give the same bits
+        name, epochs = SHARDED_REPRO
+        dataset, overrides = SHARDED_CELLS[name][:2]
+        runs = []
+        for _ in range(2):
+            _, trainer, train_data, val_data, reshuffle = make_trainer(
+                dataset, overrides, epochs)
+            with knobs(CELL_ENV.get(name, {})):
+                result = trainer.fit_sharded(mesh, train_data, val_data,
+                                             reshuffle=reshuffle)
+            torch.cuda.synchronize()
+            runs.append((result.history,
+                         gat.parameters(result.final_params)))
+        (hist_a, par_a), (hist_b, par_b) = runs
+        same_hist = hist_a == hist_b
+        same_par = all(torch.equal(x, y) for x, y in zip(par_a, par_b))
+        print(f"[repro] {name}: two fits of {epochs} epochs from seed 0: "
+              f"histories {'equal' if same_hist else 'DIFFER'}, parameters "
+              f"{'equal bits' if same_par else 'DIFFER'}; train_loss "
+              f"{[r['train_loss'] for r in hist_a]}")
+        if not (same_hist and same_par):
+            fail(f"{name}: two sharded fits from one seed differ")
+
+        # the sharded step beside the single-device step of the same model
+        for name, (cfg, trainer, params, graph) in sharded.items():
+            shard = shard_batch([graph], mesh)[0]
+            env = CELL_ENV.get(name, {})
+            opt = torch.optim.Adam(gat.parameters(params), lr=0.0)
+            gens = DropoutGenerators.for_rank(trainer.seed + 1, mesh, dev)
+            dgen = trainer.dropout_generator()
+            routes = [(f"sharded {backend} path",
+                       make_sharded_train_step(trainer.cfg, trainer.task,
+                                               mesh, backend=backend), ev)
+                      for backend, ev in (("kernel", env),
+                                          ("segment", float32_env(env)))]
+            steps = [(label, under(ev, lambda st=st: st(params, opt, [shard],
+                                                         gens)))
+                     for label, st, ev in routes]
+            steps.insert(1, ("single-device kernel path", under(
+                env, lambda: trainer.train_step(params, opt, graph, dgen))))
+            times = [step_time_ms(torch, step) for _, step in steps]
+            print(f"[time] {name} train step (forward, loss, backward, "
+                  f"Adam) on {card}: " + ", ".join(
+                      f"{label} {t:.4f} ms"
+                      for (label, _), t in zip(steps, times)))
+            for i, ((label, step), t) in enumerate(zip(steps, times)):
+                profile_steps(torch, step, t, f"{name} {label}",
+                              top=12 if i == 0 else 0)
+    finally:
+        dist.destroy_process_group()
+
+    elapsed("5")
     # -- 5. timings ---------------------------------------------------------
     timing = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                       bytes=0, ops=0) for k in REPLACES}
@@ -1991,6 +2332,55 @@ def main():
                                                 ppi.num_nodes),
                 FLOAT32, 0)}), into_json=False)
 
+    # the v2 kernels: the JSON line's times at the PPI widths without a
+    # mask in the partial mode, as the sharded PPI paper_faithful fit runs
+    # them: h_src holds the real edges' rows alone (1024 floats an edge:
+    # their byte bound is not small); the normalised mode and the Cora
+    # shapes beside them. The kernels read nothing of an edge e >= E_real,
+    # so the inputs are counted over the real edges: the logits, h_src,
+    # the mask and the receivers; the forward writes num (or out) and den,
+    # the backward reads g and d(den) (the normalised mode also out) and
+    # writes d(logits) and d(mask) (E rows, zeros past E_real) and d(h_src)
+    # (E_real rows). Per real edge the forward does nh exp and a d-wide
+    # multiply-add, the backward a d-wide dot and a d-wide product and the
+    # per-head terms.
+    def v2_time_rows(graph, c, mode):
+        n_, e_, er = graph.num_nodes, graph.num_edges, graph.num_real_edges
+        nh, d = c["nh"], c["nh"] * c["f"]
+        fa, ba = c[f"fwd_{mode}"], c[f"bwd_{mode}"]
+        h_real = fa[1][:er].contiguous()
+        fa, ba = (fa[0], h_real) + fa[2:], (ba[0], h_real) + ba[2:]
+        dm_in = er * nh if c["drop"] else 0
+        dm_out = e_ * nh if c["drop"] else 0
+        b_in = er * nh + er * d + dm_in + er
+        b_out = n_ * d if mode == "normalised" else 0
+        return {
+            "v2_forward": (lambda: sa.v2_forward(*fa),
+                           lambda: sa.v2_forward_plain(*fa), None,
+                           4 * (b_in + n_ * d + n_ * nh),
+                           er * (2 * d + 3 * nh)),
+            "v2_backward": (lambda: sa.v2_backward(*ba),
+                            lambda: sa.v2_backward_plain(*ba), None,
+                            4 * (b_in + n_ * d + b_out + n_ * nh + er * d
+                                 + e_ * nh + dm_out),
+                            er * (3 * d + 8 * nh)),
+        }, fa
+
+    for label, c in v2_cases.items():
+        graph = ppi if label.startswith("PPI") else cora
+        json_case = label.startswith("PPI") and not c["drop"]
+        for mode in ("partial", "normalised"):
+            rows, fa = v2_time_rows(graph, c, mode)
+            time_rows(f"{label} {mode}", rows,
+                      into_json=json_case and mode == "partial")
+            time_rows(f"{label} {mode} [{mode_tag(V2_BF16)}]", mode_rows(
+                rows, {"v2_forward_bf16": (
+                    "v2_forward",
+                    lambda fa=fa: sa.v2_forward(*fa, V2_BF16),
+                    lambda fa=fa: sa.v2_forward_plain(*fa, V2_BF16),
+                    V2_BF16, 0)}),
+                into_json=json_case and mode == "partial")
+
     def remainder_by_segment_ops(h, a_src, s_eff, drop, send, recv, order,
                                  e_real, n_, nh, f, eps=1e-8, slope=SLOPE,
                                  num_src_nodes=None, **_):
@@ -2018,12 +2408,6 @@ def main():
             finally:
                 v5.v5_sweep1_parts = kernel_parts
         return run
-
-    def step_under(tr, gr, env, params, opt, dgen):
-        def step():
-            with knobs(env):
-                return tr.train_step(params, opt, gr, dgen)
-        return step
 
     for name, (cfg, trainer, params, graph) in fits.items():
         opt = torch.optim.Adam(gat.parameters(params), lr=0.0)
@@ -2054,7 +2438,8 @@ def main():
             # sorts the senders itself in every backward)
             routes.insert(1, ("table kernel path", trainer,
                               graph.replace(src_order=None), {}))
-        steps = [(label, step_under(tr, gr, ev, params, opt, dgen))
+        steps = [(label, under(ev, lambda tr=tr, gr=gr: tr.train_step(
+                     params, opt, gr, dgen)))
                  for label, tr, gr, ev in routes]
         if name == "Pubmed cluster":
             # what a gate on the remainder's size would be decided on
@@ -2069,6 +2454,7 @@ def main():
             profile_steps(torch, step, t, f"{name} {label}",
                           top=12 if i == 0 else 0)
 
+    elapsed("6")
     # -- 6. results ---------------------------------------------------------
     kernels = []
     for k in REPLACES:
@@ -2083,7 +2469,8 @@ def main():
               f"its remainder's, segment_sum_sorted PPI's score widths by "
               f"receiver, the v5 2-phase entries Cora's, the window 2-phase "
               f"entries Pubmed's, each bfloat16 mode its entry's, "
-              f"segment_sum_rows_t Cora's); launches {launches[k]} over the "
+              f"segment_sum_rows_t Cora's, the v2 entries PPI's in the "
+              f"partial mode); launches {launches[k]} over the "
               f"{len(per_epoch)} fits (per epoch: {per})")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],

@@ -46,6 +46,21 @@ Two layer paths, chosen by `backend`:
             the JAX "xla" path and the reference the kernel path is held
             against.
 
+Under `edge_axis` (a mesh Axis, ops/collectives.py: the edge arrays are
+one contiguous shard of the dst-sorted edge list, the node arrays
+replicated) the layer is the JAX package's cut-neighbourhood layer
+(edge_axis set, dst_owned False): the sharded GEMM (each shard transforms
+its rows of x, a tiled all_gather rebuilds h; a replicated product where
+the nodes do not divide over the shards), the global cap by the owner
+trick, and then on the kernel path ("sharded_v4_partial") the partial
+v2 op (ops/cuda/segment_attention.py) over the shard's gathered h rows,
+psum of num and den and the divide, on the segment path
+("sharded_segment") the distributed segment softmax and a psum of the
+aggregate. The collectives (ops/collectives.py) carry shard_map's
+gradient semantics, so the parameters' gradients come out complete over
+the edge axis. The v5, v7, hybrid and v6 branches need edge_axis None or
+the dst-owned layout in the JAX package and are not taken.
+
 GAT_TPU_GEMM_DTYPE=bfloat16 (`_gemm_dtype`, read when gat_model_apply or
 gat_layer_apply is called, on both backends) takes the products x @ W and
 the skip projections from bfloat16 operands with a float32 result, as the
@@ -65,7 +80,9 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.graph import BlockLayout, Graph
+from ..ops import collectives as C
 from ..ops import segment as seg
+from ..ops.cuda import segment_attention as v2
 from ..ops.cuda import table_attention as v4
 from ..ops.cuda import v5_attention as v5
 from ..ops.cuda import window_attention as v7
@@ -219,13 +236,17 @@ def _head_combine(out: torch.Tensor, cfg: GATLayerConfig, num_nodes: int,
 def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
                  senders: torch.Tensor, receivers: torch.Tensor,
                  edge_mask: torch.Tensor,
-                 src_order: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 src_order: Optional[torch.Tensor] = None,
+                 edge_axis=None) -> torch.Tensor:
     """(E, NH) edge logits after LeakyReLU, from node scores: zeros under
     const_attention, per-head a = [a_l || a_r] scores under paper_faithful,
     else the cross-head scores with the global max-cap BEFORE LeakyReLU.
     With src_order (the stable sender sort of the edges) the two score
     gathers take the sorted-gradient form, whose backward has a fixed
-    order of sums; without it, plain gathers (the segment path)."""
+    order of sums; without it, plain gathers (the segment path).
+    edge_axis: the edges are this rank's shard over that axis; the
+    replicated score tables enter the shard's edges through vary, and the
+    global cap is completed over the shards (_global_cap)."""
     nh, f = cfg.num_heads, cfg.out_features
     n = h_flat.shape[0]
     if cfg.const_attention:
@@ -233,13 +254,15 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
                            device=h_flat.device)
     if cfg.paper_faithful:
         h = h_flat.reshape(-1, nh, f)
-        a_l, a_r = params["a"][:, :f], params["a"][:, f:]
-        s_src = torch.einsum("nhf,hf->nh", h, a_l)
-        s_dst = torch.einsum("nhf,hf->nh", h, a_r)
+        a = params["a"]
+        s_both = torch.cat([torch.einsum("nhf,hf->nh", h, a[:, :f]),
+                            torch.einsum("nhf,hf->nh", h, a[:, f:])], dim=1)
     else:
-        a_src, a_dst = _split_attention_map(params["a"], nh, f)
-        s_both = h_flat @ torch.cat([a_src, a_dst], dim=1)
-        s_src, s_dst = s_both[:, :nh], s_both[:, nh:]
+        s_both = h_flat @ torch.cat(_split_attention_map(params["a"], nh, f),
+                                    dim=1)
+    if edge_axis is not None:
+        s_both = C.vary(s_both, edge_axis)
+    s_src, s_dst = s_both[:, :nh], s_both[:, nh:]
     if src_order is None:
         logits = seg.gather_rows(s_src, senders) + seg.gather_rows(
             s_dst, receivers)
@@ -247,12 +270,41 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
         logits = (seg.gather_rows_sorted_grad(s_src, senders, n, src_order)
                   + seg.gather_rows_sorted_grad(s_dst, receivers, n))
     if not cfg.paper_faithful:
-        masked = torch.where(edge_mask[:, None], logits,
-                             torch.full_like(logits, float("-inf")))
-        logits = logits - masked.max()
+        cap = torch.where(edge_mask[:, None], logits,
+                          torch.full_like(logits, float("-inf"))).max()
+        if edge_axis is not None:
+            cap = C.vary(_global_cap(cap, edge_axis), edge_axis)
+        logits = logits - cap
     # torch's LeakyReLU gradient at exactly 0 is the slope; the capped
     # argmax logit sits at 0, so the convention matters here
     return F.leaky_relu(logits, cfg.slope)
+
+
+def _global_cap(local: torch.Tensor, ax) -> torch.Tensor:
+    """The max of the shards' local maxima over `ax`, differentiable, by
+    the owner trick: forward, only the owner shard (the lowest index
+    reaching the pmax of the detached local maxima) adds its local max
+    into the psum; backward, the psum hands the owner the replicated cap
+    cotangent, which its max routes to the argmax logit. A
+    where(owner, local, pmax) form drops every other shard's cotangent
+    (the JAX package measured about 2.5% of d(a))."""
+    top = C.pmax(local.detach(), ax)
+    cand = torch.where(local.detach() >= top, float(ax.index),
+                       float(ax.size))
+    owner = C.pmin(cand, ax) == ax.index
+    return C.psum(torch.where(owner, local, torch.zeros_like(local)), ax)
+
+
+def _node_transform(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
+                    edge_axis, num_nodes: int) -> torch.Tensor:
+    """h = x @ W (bf16_product). Under an edge axis whose size divides
+    the nodes, the sharded GEMM: each shard transforms its node rows and
+    a tiled all_gather rebuilds the replicated h (JAX models/gat.py
+    :401-416); otherwise the product is replicated."""
+    if edge_axis is None or num_nodes % edge_axis.size:
+        return bf16_product(x, w, dtype)
+    return C.all_gather_rows(bf16_product(
+        C.split_rows(x, edge_axis), C.vary(w, edge_axis), dtype), edge_axis)
 
 
 def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
@@ -266,11 +318,18 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     training: bool = False,
                     backend: str = "kernel",
-                    gemm_dtype: Optional[torch.dtype] = None
+                    gemm_dtype: Optional[torch.dtype] = None,
+                    edge_axis=None,
+                    dst_owned: bool = False
                     ) -> torch.Tensor:
     """One GAT layer on a canonicalised graph (self-loops, dst-sorted,
     padded to a sink node, real edges first). num_real_edges defaults to
     edge_mask.sum() (one host sync); Graph.num_real_edges avoids it.
+    edge_axis: the mesh Axis the edge arrays are sharded over (the module
+    doc); the layer then reads src_order as the shard's own stable sender
+    order with its padding edges last (parallel/sharding.edge_shard; None:
+    sorted here) and ignores block_layout, tile_lo and src_band.
+    dst_owned (the JAX package's boundary-free layout) is not ported.
     block_layout (Graph.block_layout) puts the kernel path on the windowed
     op, or on the hybrid of the windowed and the v5 parts ops where the
     layout has a remainder; the table op and the segment path ignore it.
@@ -279,17 +338,25 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     the operands' dtype of x @ W (None reads GAT_TPU_GEMM_DTYPE now)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
+    if dst_owned:
+        raise NotImplementedError(
+            "the dst-owned layout (partition.py) is not ported (ROADMAP "
+            "queue A item 7)")
     nh, f = cfg.num_heads, cfg.out_features
     e = senders.shape[0]
+    ax = edge_axis
     # x @ W is a plain product outside any kernel, in full float32
     # (utils/device.resolve_device turns TF32 off) or from bfloat16
     # operands
-    h_flat = bf16_product(x, params["W"],
-                          _gemm_dtype() if gemm_dtype is None else gemm_dtype)
+    h_flat = _node_transform(
+        x, params["W"], _gemm_dtype() if gemm_dtype is None else gemm_dtype,
+        ax, num_nodes)
     dropping = training and cfg.dropout > 0.0
     given_logits = cfg.paper_faithful or cfg.const_attention
 
-    if backend == "kernel" and not given_logits and (
+    # the v5, v7 and hybrid branches need edge_axis None (or the dst-owned
+    # layout) in the JAX package
+    if backend == "kernel" and not given_logits and ax is None and (
             block_layout is not None or src_order is not None):
         a_src, a_dst = _split_attention_map(params["a"], nh, f)
         v5_two, v7_two = two_phase_modes()
@@ -378,46 +445,70 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                 two_phase=v5_two)
         return _head_combine(out, cfg, num_nodes, params)
 
-    if backend == "kernel" and src_order is None:
+    kernel = backend == "kernel"
+    if kernel and src_order is None:
         # a stable sort keeps the order of every sum over senders fixed
-        # (the table op's backward would sort them itself otherwise)
-        src_order = torch.argsort(senders, stable=True).to(torch.int32)
+        # (the table op's backward would sort them itself otherwise); an
+        # edge shard's order puts its padding edges last
+        src_order = (torch.argsort(senders, stable=True).to(torch.int32)
+                     if ax is None
+                     else seg.real_first_order(senders, edge_mask, num_nodes))
     logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask,
-                          src_order if backend == "kernel" else None)
+                          src_order if kernel else None, ax)
     eps = 0.0 if cfg.paper_faithful else 1e-8
+    drop = (_attention_dropout((e, nh), cfg.dropout, generator, x.device)
+            if dropping else None)
 
-    if backend == "kernel":
-        # the table op: paper_faithful, const_attention, and graphs
-        # without src_order (the op then derives the order itself)
-        PATH_TRACE.append("v4_table")
+    if kernel:
+        # the table op (paper_faithful, const_attention, and graphs
+        # without src_order; the op then derives the order itself), or on
+        # an edge shard the partial v2 op
         pad = torch.full_like(logits, v4.NEG_INF)
         logits = torch.where(edge_mask[:, None], logits, pad)
         if cfg.paper_faithful:
             # the per-destination max, detached (softmax is invariant to
-            # it), is subtracted here; the op then only needs exp
-            seg_max = seg.segment_max(logits, receivers, num_nodes).detach()
+            # it) and completed over the shards, is subtracted here; the
+            # op then only needs exp
+            seg_max = seg.segment_max(logits, receivers, num_nodes,
+                                      edge_axis=ax).detach()
             seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                                   torch.zeros_like(seg_max))
             logits = torch.where(
                 edge_mask[:, None],
                 logits - seg.gather_rows(seg_max, receivers), pad)
-        drop = (_attention_dropout((e, nh), cfg.dropout, generator, x.device)
-                if dropping else None)
-        out = v4.fused_segment_attention_table(
-            logits, h_flat, senders, receivers, drop, src_order, num_nodes,
-            nh, f, eps, num_real_edges)
+        if ax is None:
+            PATH_TRACE.append("v4_table")
+            out = v4.fused_segment_attention_table(
+                logits, h_flat, senders, receivers, drop, src_order,
+                num_nodes, nh, f, eps, num_real_edges)
+            return _head_combine(out, cfg, num_nodes, params)
+        PATH_TRACE.append("sharded_v4_partial")
+        # only the real edges' rows: the op reads no other, and the
+        # sorted sum of their gradient then has no padding rows (all the
+        # sink's, one long segment) to walk
+        er = (int(edge_mask.sum()) if num_real_edges is None
+              else num_real_edges)
+        h_src = seg.gather_rows_sorted_grad(C.vary(h_flat, ax), senders[:er],
+                                            num_nodes, src_order[:er])
+        num, den = v2.fused_segment_attention_partial(
+            logits, h_src, receivers, drop, num_nodes, nh, f, er)
+        num, den = C.psum(num, ax), C.psum(den, ax)
+        inv = torch.where(den > 0, 1.0 / (den + eps), torch.zeros_like(den))
+        out = num.reshape(num_nodes, nh, f) * inv[:, :, None]
         return _head_combine(out, cfg, num_nodes, params)
 
-    PATH_TRACE.append("segment")
+    PATH_TRACE.append("segment" if ax is None else "sharded_segment")
     alpha = seg.segment_softmax(
         logits, receivers, num_nodes, edge_mask=edge_mask, eps=eps,
-        subtract_segment_max=cfg.paper_faithful)
-    if dropping:
-        alpha = alpha * _attention_dropout(alpha.shape, cfg.dropout,
-                                           generator, x.device)
-    src_feats = seg.gather_rows(h_flat.reshape(num_nodes, nh, f), senders)
-    out = seg.segment_sum(src_feats * alpha[:, :, None], receivers,
-                          num_nodes)
+        subtract_segment_max=cfg.paper_faithful, edge_axis=ax)
+    if drop is not None:
+        alpha = alpha * drop
+    h_rep = h_flat if ax is None else C.vary(h_flat, ax)
+    out = seg.segment_sum(
+        seg.gather_rows(h_rep.reshape(num_nodes, nh, f), senders)
+        * alpha[:, :, None], receivers, num_nodes)
+    if ax is not None:
+        out = C.psum(out, ax)
     return _head_combine(out, cfg, num_nodes, params)
 
 
@@ -534,18 +625,36 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
                     device="cuda",
                     generator: Optional[torch.Generator] = None,
                     training: bool = False,
-                    backend: str = "kernel") -> torch.Tensor:
+                    backend: str = "kernel",
+                    edge_axis=None,
+                    edge_generator: Optional[torch.Generator] = None,
+                    dst_owned: bool = False,
+                    return_attention: bool = False) -> torch.Tensor:
     """The stack: [input dropout -> layer -> skip -> ELU between] x L.
     `graph` and `params` must lie on `device`; the CUDA default raises
     where there is no GPU. Only checked here: the caller resolves the
     device once (resolve_device, which also turns TF32 off), as
-    Trainer.fit and the CLI do."""
+    Trainer.fit and the CLI do.
+
+    edge_axis: the mesh Axis over which `graph` is an edge shard
+    (parallel/sharding.shard_batch): every layer is the cut-neighbourhood
+    layer (gat_layer_apply), the input dropout masks come from
+    `generator`, which must be in the same state on every shard (x is
+    replicated), and the attention dropout masks from `edge_generator`,
+    the shard's own stream (the JAX package folds the shard index into
+    the key). dst_owned and return_attention are not ported (ROADMAP
+    queue A items 7 and 2) and raise."""
+    if return_attention:
+        raise NotImplementedError(
+            "return_attention is not ported (ROADMAP queue A item 2)")
     check_device(graph.device, device)
     dev = graph.device
-    if training and cfg.dropout > 0.0 and generator is None:
+    if training and cfg.dropout > 0.0 and (
+            generator is None or (edge_axis is not None
+                                  and edge_generator is None)):
         raise ValueError(
             "gat_model_apply(training=True) with dropout > 0 requires a "
-            "generator")
+            "generator (and an edge_generator under an edge axis)")
     heads = [1] + list(cfg.num_heads_per_layer)
     skip_dims = cfg.skip_dims()
     gdt = _gemm_dtype()
@@ -562,8 +671,10 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
             graph.edge_mask, graph.num_nodes,
             num_real_edges=graph.num_real_edges, src_order=graph.src_order,
             block_layout=graph.block_layout, tile_lo=graph.tile_lo,
-            src_band=graph.src_band, generator=generator,
-            training=training, backend=backend, gemm_dtype=gdt)
+            src_band=graph.src_band,
+            generator=generator if edge_axis is None else edge_generator,
+            training=training, backend=backend, gemm_dtype=gdt,
+            edge_axis=edge_axis, dst_owned=dst_owned)
         if skip_dims[i] is not None:
             skip_p = params["skips"][skip_count]
             skip_count += 1

@@ -35,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("v5_attention", "segment_sum", "window_attention",
-           "table_attention")
+           "table_attention", "segment_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # the sources built again for a bfloat16 h table, and the libraries
@@ -46,7 +46,8 @@ LIBRARIES = SOURCES + tuple(s + _BF16_TABLE for s in TABLE_SOURCES)
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel on a CUDA tensor, and nowhere else (chip_smoke.py reads these).
 # An entry's bfloat16 modes count apart, under "<entry>_bf16"
-# (rounding.Rounding.counter); the cap passes have no such mode.
+# (rounding.Rounding.counter); the cap passes have no such mode, and of
+# the v2 entries only the forward has one.
 _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
             "table_forward", "table_backward", "v5_backward_parts",
             "window_backward_parts", "v5_cap", "v5_forward_two_phase",
@@ -54,7 +55,8 @@ _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
             "window_backward_two_phase")
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     _ENTRIES + ("segment_sum_rows", "segment_sum_sorted", "window_cap",
-                "segment_sum_rows_t")
+                "segment_sum_rows_t", "v2_forward", "v2_backward",
+                "v2_forward_bf16")
     + tuple(k + "_bf16" for k in _ENTRIES), 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}

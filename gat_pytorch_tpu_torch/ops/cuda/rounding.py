@@ -74,6 +74,11 @@ class Rounding:
 
 
 FLOAT32 = Rounding()
+# the v2 segment attention op (segment_attention.py) under
+# GAT_TPU_KERNEL_DTYPE=bfloat16: each edge's [m*ex*h | ex] rounded before
+# the forward's float32 sums (the JAX kernel's `combined` operand); its
+# h_src rows arrive gathered in float32 and its backward does not round
+V2_BF16 = Rounding(acc=True)
 
 
 def maybe_bf16(t: torch.Tensor, on: bool) -> torch.Tensor:

@@ -16,9 +16,12 @@ sliced off, so no host synchronisation is needed.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+
+from . import collectives as C
 
 
 def _spill_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -36,15 +39,19 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_max(values: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Per-segment max; empty segments get -inf."""
+                num_segments: int, *, edge_axis=None) -> torch.Tensor:
+    """Per-segment max; empty segments get -inf. edge_axis (a mesh Axis,
+    parallel/mesh.py) when the edges are sharded over it: the shards'
+    maxima are completed by pmax, and the result carries no gradient."""
     ids = _spill_ids(segment_ids, num_segments)
     idx = ids.view((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
     out = values.new_full((num_segments + 1,) + tuple(values.shape[1:]),
                           float("-inf"))
     out = out.scatter_reduce(0, idx, values, reduce="amax",
-                             include_self=True)
-    return out[:num_segments]
+                             include_self=True)[:num_segments]
+    if edge_axis is not None:
+        out = C.pmax(out, edge_axis)
+    return out
 
 
 def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -69,9 +76,12 @@ class _GatherRowsSortedGrad(torch.autograd.Function):
             order = order.long()
             g, indices = g.index_select(0, order), indices.index_select(
                 0, order)
-        rows = g.reshape(g.shape[0], -1).contiguous()
-        d_table = segment_sum_sorted(rows, indices.to(torch.int32),
-                                     ctx.num_segments)
+        rows = g.reshape(g.shape[0], math.prod(g.shape[1:])).contiguous()
+        if rows.shape[0] == 0:    # e.g. an edge shard without real edges
+            d_table = rows.new_zeros((ctx.num_segments, rows.shape[1]))
+        else:
+            d_table = segment_sum_sorted(rows, indices.to(torch.int32),
+                                         ctx.num_segments)
         return (d_table.reshape((ctx.num_segments,) + tuple(g.shape[1:])),
                 None, None, None)
 
@@ -95,19 +105,39 @@ def gather_rows_sorted_grad(table: torch.Tensor, indices: torch.Tensor,
     return _GatherRowsSortedGrad.apply(table, indices, order, num_segments)
 
 
+def real_first_order(senders: torch.Tensor, edge_mask: torch.Tensor,
+                     num_nodes: int) -> torch.Tensor:
+    """The stable permutation that sorts the edges by sender with the
+    padding edges last (int32), the `order` of gather_rows_sorted_grad
+    on an edge shard: a padding edge's sender is the sink, the largest
+    node id, so this still sorts the senders, and its first E_real
+    entries sort the real edges alone."""
+    key = torch.where(edge_mask, senders, torch.full_like(senders,
+                                                          num_nodes))
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
 def segment_softmax(logits: torch.Tensor,
                     segment_ids: torch.Tensor,
                     num_segments: int,
                     *,
                     edge_mask: Optional[torch.Tensor] = None,
                     eps: float = 1e-8,
-                    subtract_segment_max: bool = False) -> torch.Tensor:
+                    subtract_segment_max: bool = False,
+                    edge_axis=None) -> torch.Tensor:
     """exp(logit) / (segment_sum(exp) + eps) over in-neighbourhoods, by
     default without a per-segment max shift (the reference applies one
-    global cap earlier instead). logits (E, H) -> (E, H), padding -> 0."""
+    global cap earlier instead). logits (E, H) -> (E, H), padding -> 0.
+
+    edge_axis: the mesh Axis (ops/collectives.py) over which the edge
+    arrays are sharded: the distributed softmax of neighbourhoods cut
+    across shards, the segment max completed by pmax and the denominator
+    by psum (the replicated denominator then enters the shard's edges
+    through collectives.vary)."""
     if subtract_segment_max:
         # detached: softmax is invariant to per-segment shifts
-        seg_max = segment_max(logits, segment_ids, num_segments).detach()
+        seg_max = segment_max(logits, segment_ids, num_segments,
+                              edge_axis=edge_axis).detach()
         seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                               torch.zeros_like(seg_max))
         logits = logits - gather_rows(seg_max, segment_ids)
@@ -115,6 +145,8 @@ def segment_softmax(logits: torch.Tensor,
     if edge_mask is not None:
         ex = torch.where(edge_mask[:, None], ex, torch.zeros_like(ex))
     denom = segment_sum(ex, segment_ids, num_segments)
+    if edge_axis is not None:
+        denom = C.vary(C.psum(denom, edge_axis), edge_axis)
     out = ex / (gather_rows(denom, segment_ids) + eps)
     if edge_mask is not None:
         out = torch.where(edge_mask[:, None], out, torch.zeros_like(out))

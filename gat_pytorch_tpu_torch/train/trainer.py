@@ -12,8 +12,12 @@ parameters are kept by validation loss (ModelCheckpoint semantics), early
 stopping ends the run after `patience` epochs without a better loss, and
 a plateau schedule may lower the learning rate between epochs.
 
+`Trainer.fit_sharded` is the counterpart of the JAX package's
+fit_sharded: the same epochs over a (data, edge) mesh of
+torch.distributed ranks, through the sharded steps of parallel/train.py.
+
 Checkpoints, TensorBoard, gradient histograms, the prefetch thread and
-the sampled fit wait for ROADMAP queue A items 6 and 9.
+the sampled fit wait for ROADMAP queue A items 4 and 5.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ import torch
 
 from ..graph.graph import Graph
 from ..models import gat
+from ..parallel import (DropoutGenerators, make_sharded_eval_step,
+                        make_sharded_train_step, replicated, shard_batch,
+                        stack_graphs)
 from ..utils.device import resolve_device
 from . import optim as O
 from .tasks import Task
@@ -130,6 +137,92 @@ class Trainer:
         opt = O.adam_l2(gat.parameters(params), self.learning_rate,
                         self.weight_decay)
         gen = self.dropout_generator()
+
+        def run_epoch(epoch):
+            data = (train_data if reshuffle is None
+                    else [g.to(dev) for g in reshuffle(epoch)])
+            train_rows = []
+            for g in data:
+                loss, logits = self.train_step(params, opt, g, gen)
+                with torch.no_grad():
+                    train_rows.append({"train_loss": loss, **_prefixed(
+                        "train", self.task.metrics(logits, g, "train"),
+                        skip=("loss",))})
+            with torch.no_grad():
+                val_rows = [_prefixed("val", self.task.metrics(
+                    self.apply(params, g), g, "val")) for g in val_data]
+            return train_rows, val_rows
+
+        return self._fit_loop(params, opt, run_epoch)
+
+    def fit_sharded(self, mesh, train_data: Sequence[Graph],
+                    val_data: Sequence[Graph],
+                    reshuffle: Optional[Callable[[int], Sequence[Graph]]]
+                    = None,
+                    params: Optional[gat.Params] = None,
+                    dst_owned: bool = False) -> TrainResult:
+        """fit_epochs over a (data, edge) mesh of torch.distributed ranks
+        (parallel/mesh.make_mesh), the cut-neighbourhood layout: every
+        rank calls it with the same arguments. Consecutive batches are
+        grouped `data`-axis-wide, the last group filled by wrapping around
+        to the first batches; each rank takes its shard of each group
+        (parallel/sharding.shard_batch) and runs the sharded train step
+        (parallel/train.py), then the sharded eval step over the
+        validation groups. The same bookkeeping as fit_epochs (best
+        parameters by validation loss, plateau schedule, early stopping)
+        on values that are equal on every rank, so every rank returns the
+        same result. The parameters must be equal on every rank (the same
+        seed): it is checked, not broadcast. The attention dropout masks
+        are drawn per edge shard (parallel/train.DropoutGenerators).
+        dst_owned (the boundary-free layout) is not ported and raises."""
+        dev = resolve_device(self.device)
+        step = make_sharded_train_step(self.cfg, self.task, mesh,
+                                       backend=self.backend,
+                                       dst_owned=dst_owned)
+        val_step = make_sharded_eval_step(self.cfg, self.task, mesh, "val",
+                                          backend=self.backend)
+        dp = mesh.data.size
+
+        def group(batches):
+            batches = list(batches)
+            out = []
+            for i in range(0, len(batches), dp):
+                chunk = batches[i:i + dp]
+                while len(chunk) < dp:           # wrap-around fill
+                    chunk.append(batches[len(chunk) % len(batches)])
+                out.append([g.to(dev) for g in
+                            shard_batch(stack_graphs(chunk), mesh)])
+            return out
+
+        if params is None:
+            params = self.init_params()
+        replicated(gat.parameters(params))
+        opt = O.adam_l2(gat.parameters(params), self.learning_rate,
+                        self.weight_decay)
+        gens = DropoutGenerators.for_rank(self.seed + 1, mesh, dev)
+        train_groups, val_groups = group(train_data), group(val_data)
+
+        def run_epoch(epoch):
+            groups = (train_groups if reshuffle is None
+                      else group(reshuffle(epoch)))
+            train_rows = []
+            for batch in groups:
+                loss, mets = step(params, opt, batch, gens)
+                train_rows.append({"train_loss": loss,
+                                   **_prefixed("train", mets)})
+            val_rows = [_prefixed("val", val_step(params, batch))
+                        for batch in val_groups]
+            return train_rows, val_rows
+
+        return self._fit_loop(params, opt, run_epoch)
+
+    def _fit_loop(self, params: gat.Params, opt: torch.optim.Optimizer,
+                  run_epoch: Callable) -> TrainResult:
+        """The epochs of a fit: run_epoch(epoch) trains and validates and
+        returns (train rows, validation rows), dicts of scalar tensors;
+        their means make the epoch's history row (one host sync), which
+        drives the best-parameter tracking, the plateau schedule and
+        early stopping."""
         stopper = O.EarlyStopping(patience=self.patience)
         lr = self.learning_rate
         best_val, best_epoch = float("inf"), -1
@@ -138,19 +231,7 @@ class Trainer:
         stopped = False
         t0 = time.time()
         for epoch in range(self.max_epochs):
-            if reshuffle is not None:
-                train_data = [g.to(dev) for g in reshuffle(epoch)]
-            train_rows, val_rows = [], []
-            for g in train_data:
-                loss, logits = self.train_step(params, opt, g, gen)
-                with torch.no_grad():
-                    train_rows.append({"train_loss": loss, **_prefixed(
-                        "train", self.task.metrics(logits, g, "train"),
-                        skip=("loss",))})
-            with torch.no_grad():
-                for g in val_data:
-                    val_rows.append(_prefixed("val", self.task.metrics(
-                        self.apply(params, g), g, "val")))
+            train_rows, val_rows = run_epoch(epoch)
             row = {**_epoch_means(train_rows), **_epoch_means(val_rows),
                    "epoch": epoch, "lr": lr}
             history.append(row)

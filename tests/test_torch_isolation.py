@@ -2,6 +2,7 @@
 and its entry points refuse to run on the CPU unless asked to."""
 
 import ast
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -64,6 +65,33 @@ def test_no_jax_or_jax_package_import_in_sources():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "gat_pytorch_tpu",
                                "optax", "flax"), f"{path}: {name}"
+
+
+def test_ops_and_models_import_nothing_of_parallel():
+    """The layers sit in order: ops/ (the collectives among them) and
+    models/ import nothing of parallel/, which imports the model; no
+    function-level import gets round that."""
+    for sub in ("ops", "models"):
+        for dirpath, _, names in os.walk(os.path.join(PKG_DIR, sub)):
+            for n in names:
+                if not n.endswith(".py"):
+                    continue
+                path = os.path.join(dirpath, n)
+                for node in ast.walk(ast.parse(open(path).read(), path)):
+                    mods = ([a.name for a in node.names]
+                            if isinstance(node, ast.Import) else
+                            [node.module or ""]
+                            if isinstance(node, ast.ImportFrom) else [])
+                    assert not any("parallel" in m.split(".")
+                                   for m in mods), f"{path}: {mods}"
+    code = ("import sys\n"
+            "import gat_pytorch_tpu_torch.models.gat\n"
+            "import gat_pytorch_tpu_torch.ops.segment\n"
+            "assert not any(k.startswith('gat_pytorch_tpu_torch.parallel')\n"
+            "               for k in sys.modules), sorted(sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_packaging_finds_the_port():
@@ -167,3 +195,113 @@ def test_table_op_wrapper_launches_or_raises_on_a_cuda_tensor():
     assert torch.equal(den, torch.tensor([[1., 1.], [2., 2.], [1., 1.]]))
     assert torch.allclose(out, torch.ones((3, 6)))
     assert build.LAUNCHES == before          # the plain version counts none
+
+
+def test_parallel_and_v2_modules_are_among_the_checked():
+    """The jax-free import check above walks every module of the port:
+    the sharded path's too."""
+    mods = set(_modules())
+    assert {"gat_pytorch_tpu_torch.parallel.mesh",
+            "gat_pytorch_tpu_torch.ops.collectives",
+            "gat_pytorch_tpu_torch.parallel.sharding",
+            "gat_pytorch_tpu_torch.parallel.train",
+            "gat_pytorch_tpu_torch.parallel.multihost",
+            "gat_pytorch_tpu_torch.ops.cuda.segment_attention"} <= mods
+
+
+def test_sharded_entry_points_refuse_cpu_unless_asked(no_gpu, tmp_path):
+    from gat_pytorch_tpu_torch.parallel import multihost
+    cfg, g = _tiny()
+    trainer = Trainer(cfg=cfg, task=make_task("Cora"), learning_rate=0.01,
+                      max_epochs=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.fit_sharded(None, [g], [g])
+    with pytest.raises(RuntimeError, match="cuda"):
+        multihost.initialize(f"file://{tmp_path}/store", 1, 0)
+    # one process and no group asked for: nothing to join
+    assert multihost.initialize() is False
+
+
+def _mesh_here(data=1, edge=1):
+    """A Mesh value as rank 0 sees it, without process groups (for what
+    is checked before any collective)."""
+    from gat_pytorch_tpu_torch.parallel import Axis, Mesh
+    return Mesh(data=Axis("data", data, 0, None),
+                edge=Axis("edge", edge, 0, None))
+
+
+def test_sharded_path_refuses_what_is_not_ported():
+    from gat_pytorch_tpu_torch.parallel import make_sharded_train_step
+    cfg, g = _tiny()
+    mesh = _mesh_here()
+    params = gat.init_gat_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_sharded_train_step(cfg, make_task("Cora"), mesh,
+                                dst_owned=True)
+    task = make_task("Cora")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_sharded_train_step(
+            cfg, dataclasses.replace(task, attention_coef=0.1), mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gat.gat_model_apply(params, cfg, g, device="cpu",
+                            return_attention=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gat.gat_model_apply(params, cfg, g, device="cpu",
+                            edge_axis=mesh.edge, dst_owned=True)
+
+
+def test_edge_shards_cut_the_dst_sorted_edges():
+    """Each shard is a contiguous E/K slice with its own real-edge count
+    and stable sender order; E must divide, and a batch over the data
+    axis too."""
+    from gat_pytorch_tpu_torch.parallel import edge_shard, shard_batch
+    _, g = _tiny()
+    k = 4
+    assert g.num_edges % k == 0 and g.num_edges % 3 != 0
+    s = g.num_edges // k
+    shards = [edge_shard(g, i, k) for i in range(k)]
+    assert torch.equal(torch.cat([sh.receivers for sh in shards]),
+                       g.receivers)
+    assert sum(sh.num_real_edges for sh in shards) == g.num_real_edges
+    for i, sh in enumerate(shards):
+        assert sh.num_edges == s
+        assert sh.num_real_edges == min(max(g.num_real_edges - i * s, 0), s)
+        assert bool(sh.edge_mask[:sh.num_real_edges].all())
+        assert not bool(sh.edge_mask[sh.num_real_edges:].any())
+        assert torch.equal(sh.senders[sh.src_order.long()],
+                           torch.sort(sh.senders, stable=True).values)
+        # the real edges first: the sharded layer gathers them alone
+        real = sh.src_order[:sh.num_real_edges].long()
+        assert bool((real < sh.num_real_edges).all())
+        assert sh.x is g.x and sh.block_layout is None
+    with pytest.raises(ValueError, match="divide"):
+        edge_shard(g, 0, 3)
+    with pytest.raises(ValueError, match="divide"):
+        shard_batch([g, g, g], _mesh_here(data=2))
+
+
+def test_v2_wrappers_count_no_launch_on_cpu_tensors():
+    """The v2 entries have their counters (the forward's bfloat16 mode
+    apart), and their plain versions, which a CPU tensor takes, touch
+    none of them."""
+    from gat_pytorch_tpu_torch.ops.cuda import build
+    from gat_pytorch_tpu_torch.ops.cuda import segment_attention as sa
+    from gat_pytorch_tpu_torch.ops.cuda.rounding import V2_BF16
+    assert "segment_attention" in build.SOURCES
+    assert {"v2_forward", "v2_backward", "v2_forward_bf16"} <= \
+        set(build.LAUNCHES)
+    before = dict(build.LAUNCHES)
+    logits = torch.zeros((4, 2))
+    h_src = torch.ones((4, 6))
+    rcv = torch.tensor([0, 1, 1, 2], dtype=torch.int32)
+    for rnd in (V2_BF16, sa.v2_rounding()):
+        num, den = sa.v2_forward(logits, h_src, None, rcv, 4, 4, 0.0, False,
+                                 rnd)
+        assert torch.equal(den, torch.tensor([[1., 1.], [2., 2.], [1., 1.],
+                                              [0., 0.]]))
+        assert torch.equal(num[:, 0], torch.tensor([1., 2., 1., 0.]))
+    d_logits, d_h, d_drop = sa.v2_backward(
+        logits, h_src, None, rcv, 4, 0.0, torch.ones((4, 6)), None,
+        torch.zeros((4, 2)), False, False)
+    assert torch.equal(d_logits, torch.full((4, 2), 3.0)) and d_drop is None
+    assert build.LAUNCHES == before
