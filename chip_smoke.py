@@ -90,7 +90,13 @@ Phases (every failure is fatal):
      1e-2 of the scale, and 10x nearer the same mode's plain version than
      the float32 one, in RMS, wherever the mode moves an output), launched
      twice for equal bits; and segment_sum_rows_t against its plain version
-     and against segment_sum_rows's bits; the v2 entries in both modes at
+     and against segment_sum_rows's bits; rows 3 and 4 on their own
+     (check_dh_rows) at D = 1, 7, 24, 64, 726 and 1024 with empty
+     segments, a segment of 300 rows and rows past row_limit, through a
+     sender list without offsets and with the Graph's (the two equal
+     bits), against their plain versions, to the bits of the
+     ordered reference (ordered_dh_sum), of each other and of a second
+     launch; the v2 entries in both modes at
      the Cora and PPI shapes, with and without the dropout mask (the
      backward also at eps = 1 and at each output's own magnitude, the
      forward's bfloat16 mode, each launched twice), and the cut
@@ -113,7 +119,9 @@ Phases (every failure is fatal):
      (the mode is live);
      then two PPI paper_faithful fits, two hybrid Pubmed fits and two
      Pubmed bf16 fits of a few epochs, each pair from one seed, must give
-     the same bits in every epoch's losses and in every parameter;
+     the same bits in every epoch's losses and in every parameter, and
+     so must a Cora fit on the graph with its CSR offsets and one on the
+     graph without them (and the trained model's logits and gradients);
   4c. under a one-rank NCCL process group (destroyed on any exit), train
      the sharded cells as phase 3 does, hold each trained sharded model's
      logits and gradients against the single-device kernel path and the
@@ -123,9 +131,11 @@ Phases (every failure is fatal):
      single-device step;
   5. time each kernel and bfloat16 mode (CUDA graph replays), its plain
      version and, where one PyTorch call computes the same function, that
-     call; time the
+     call (rows 3 and 4 also without the graph's offsets and as the bare
+     kernel launch, time_dh_rows); time the
      train step on each path (a 2-phase fit's beside the single-sweep
-     step of the same model and graph) and profile a short window of
+     step of the same model and graph; Cora, Pubmed and the PPI fits
+     also on the graph without its offsets) and profile a short window of
      steps; time
      the table op against the v5 op on one PATTERN batch, and the hybrid
      step with its remainder through plain segment ops;
@@ -508,7 +518,190 @@ def profile_steps(torch, step, step_ms, label, steps=20, top=12):
                   f"{ev.count / steps:5.1f}/step  {ev.key[:90]}")
 
 
+# -- rows 3 and 4, the d(h) reduce: checks and timings shared by main() ------
+# The widths of every d(h) reduce the fits run (Cora 64 and 7, Pubmed 24,
+# PPI 1024 and 726) and of a one-feature row.
+DH_WIDTHS = (1, 7, 24, 64, 726, 1024)
+DH_KEYS = ("segment_sum_rows", "segment_sum_rows_t")
+
+
+def ordered_dh_sum(torch, values, order, ptr, row_limit):
+    """Rows 3 and 4's contract written out on the card, in their order:
+    for k = 0, 1, ... every segment adds its k-th row (if it has one and
+    the row is under row_limit) to its sum, one float add an element, so
+    each sum adds its rows in ascending position from 0."""
+    n = ptr.shape[0] - 1
+    lo, lens = ptr[:-1].long(), (ptr[1:] - ptr[:-1]).long()
+    acc = torch.zeros((n, values.shape[1]), device=values.device)
+    top = max(order.shape[0] - 1, 0)
+    for k in range(int(lens.max()) if n else 0):
+        src = order.long()[(lo + k).clamp(max=top)]
+        take = (k < lens) & (src < row_limit)
+        row = values.index_select(0, src.clamp(max=values.shape[0] - 1))
+        acc = torch.where(take[:, None], acc + row, acc)
+    return acc
+
+
+def dh_cases(torch, np, dev, seed=0):
+    """Two seeded cases of the d(h) reduce, as host arrays on `dev`:
+    "offsets": 1,500 segments of 0-12 rows, 200 of them empty and one of
+    300 rows, read through an order with repeats, a fifth of whose rows
+    lie past row_limit; "graph": a sender list of 9,000 real edges with a
+    hub of 300 and 700 padding edges on the sink, its stable sender order
+    and the offsets of its real edges, as a caller without offsets hands
+    it over (rows past E_real are the padding edges')."""
+    rng = np.random.default_rng(seed)
+    n = 1500
+    lens = rng.integers(0, 13, n)
+    lens[rng.choice(n, 200, replace=False)] = 0
+    lens[700] = 300
+    e = int(lens.sum())
+    rows = e + 64
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    order = rng.integers(0, rows, e).astype(np.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    offsets = dict(rows=rows, limit=int(rows * 0.8), n=n,
+                   ptr=torch.tensor(ptr, **i32),
+                   order=torch.tensor(order, **i32))
+    e_real, pad = 9000, 700
+    senders = rng.integers(0, n - 1, e_real)
+    senders[rng.choice(e_real, 300, replace=False)] = 11      # the hub
+    senders = np.concatenate([senders, np.full(pad, n - 1)]).astype(np.int32)
+    src_order = np.argsort(senders, kind="stable").astype(np.int32)
+    src_ptr = np.searchsorted(senders[src_order[:e_real]],
+                              np.arange(n + 1)).astype(np.int32)
+    graph = dict(rows=e_real + pad, limit=e_real, n=n,
+                 senders=torch.tensor(senders, **i32),
+                 order=torch.tensor(src_order, **i32),
+                 src_ptr=torch.tensor(src_ptr, **i32))
+    return offsets, graph
+
+
+def check_dh_rows(torch, np, ss, dev, errs, widths=DH_WIDTHS):
+    """Rows 3 and 4 at each width on both dh_cases: against their plain
+    versions (rows past row_limit are NaN in the kernels' input, zero in
+    the plain version's: a row not skipped fails), to equal bits with
+    ordered_dh_sum, with each other and across two launches; the graph
+    case with and without its offsets to equal bits, and a table that is
+    not 16-byte aligned (the float-at-a-time form of a float4 width) to
+    the bits of the aligned one."""
+    offsets, graph = dh_cases(torch, np, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def same(name, x, y):
+        torch.cuda.synchronize()
+        if not torch.equal(x, y):
+            bad = int((x != y).any(1).nonzero()[0, 0])
+            fail(f"{name}: not the same bits (first at segment {bad}: "
+                 f"{x[bad, :4].tolist()} against {y[bad, :4].tolist()})")
+
+    def table(case, d):
+        vals = torch.randn((case["rows"], d), generator=gen, device=dev)
+        vals[case["limit"]:] = float("nan")
+        return vals, torch.where(torch.isnan(vals), torch.zeros_like(vals),
+                                 vals)
+
+    for d in widths:
+        firsts = []
+        c_off, c_gr = offsets, graph
+        vals_off, zeroed_off = table(c_off, d)
+        vals_gr, zeroed_gr = table(c_gr, d)
+        ids_off = torch.repeat_interleave(
+            torch.arange(c_off["n"], device=dev), c_off["ptr"].long().diff())
+        ids_gr = c_gr["senders"].index_select(0, c_gr["order"].long())
+        ptr_gr = torch.searchsorted(
+            ids_gr, torch.arange(c_gr["n"] + 1, dtype=torch.int32,
+                                 device=dev), out_int32=True)
+        for t in (False, True):
+            key = DH_KEYS[t]
+            tag = f"{key} D={d}"
+            plain_fn = ss.segment_rows_t_plain if t else ss.segment_rows_plain
+
+            def run(v=vals_off, t=t):
+                return ss._segment_rows_cuda(v, c_off["order"], c_off["ptr"],
+                                             c_off["limit"], transposed=t)
+            got = run()
+            hold(f"{tag} (offsets, empty and long segments, rows past "
+                 f"row_limit)", got,
+                 plain_fn(zeroed_off, c_off["order"], ids_off, c_off["n"]),
+                 errs[key])
+            same(f"{tag} against the ordered reference", got,
+                 ordered_dh_sum(torch, vals_off, c_off["order"],
+                                c_off["ptr"], c_off["limit"]))
+            same(f"{tag}: two launches", got, run())
+            if d % 4 == 0:
+                flat = torch.empty(c_off["rows"] * d + 1, device=dev)[1:]
+                same(f"{tag}: a table off 16-byte alignment", got,
+                     run(flat.view(c_off["rows"], d).copy_(vals_off)))
+            derived = ss.dh_reduce(vals_gr, c_gr["order"], c_gr["senders"],
+                                   c_gr["n"], c_gr["limit"], transposed=t)
+            carried = ss.dh_reduce(vals_gr, c_gr["order"], c_gr["senders"],
+                                   c_gr["n"], c_gr["limit"], transposed=t,
+                                   src_ptr=c_gr["src_ptr"])
+            hold(f"{tag} (a sender list without offsets, padding rows on "
+                 f"the sink)", derived,
+                 plain_fn(zeroed_gr, c_gr["order"], ids_gr, c_gr["n"]),
+                 errs[key])
+            same(f"{tag}: with and without offsets", carried, derived)
+            same(f"{tag} (graph) against the ordered reference", derived,
+                 ordered_dh_sum(torch, vals_gr, c_gr["order"], ptr_gr,
+                                c_gr["limit"]))
+            firsts.append((got, carried))
+        for x, y in zip(*firsts):
+            same(f"segment_sum_rows_t against segment_sum_rows D={d}", y, x)
+        print(f"[kernels] rows 3 and 4 at D={d}: within {REL_TOL} of their "
+              f"plain versions, the ordered reference's bits, each other's, "
+              f"with offsets the bits without, two launches equal")
+
+
+def time_dh_rows(torch, ss, label, rows, order, src_ptr, n, senders=None,
+                 e_real=None, lib=None):
+    """Print rows 3 and 4 at one shape, each timed (time_ms) four ways:
+    the wrapper as the main path calls it (with the offsets the graph or
+    layout carries: dh_reduce / dh_reduce_ptr), the kernel launch alone
+    (_segment_rows_cuda), the wrapper without offsets where the caller
+    has a sender list (the gather and searchsorted before the kernel,
+    the main path before the Graph carried them), and `lib`, the one
+    PyTorch call (index_add_) over the real rows; beside them the plain
+    version. The bound counts the real rows read once, their indices and
+    the offsets once, the table written once. Returns {key: (main path
+    ms, bound ms, library ms)}."""
+    d = rows.shape[1]
+    er = int(src_ptr[-1])
+    bm, by = bound_ms(4 * (er * d + er + n + 1 + n * d), er * d)
+    lm = time_ms(torch, lib) if lib is not None else None
+    ids = torch.repeat_interleave(torch.arange(n, device=rows.device),
+                                  src_ptr.long().diff())
+    out = {}
+    for t, key in enumerate(DH_KEYS):
+        plain = ss.segment_rows_t_plain if t else ss.segment_rows_plain
+        pm = time_ms(torch, lambda p=plain: p(rows, order[:er], ids, n))
+        if senders is None:
+            def main(t=t):
+                return ss.dh_reduce_ptr(rows, order, src_ptr, bool(t))
+        else:
+            def main(t=t):
+                return ss.dh_reduce(rows, order, senders, n, e_real, bool(t),
+                                    src_ptr=src_ptr)
+        km = time_ms(torch, main)
+        alone = time_ms(torch, lambda t=t: ss._segment_rows_cuda(
+            rows, order, src_ptr, transposed=bool(t)))
+        derived = ""
+        if senders is not None:
+            dm = time_ms(torch, lambda t=t: ss.dh_reduce(
+                rows, order, senders, n, e_real, bool(t)))
+            derived = f", without offsets {dm:.4f}"
+        print(f"[time] {key} {label} (D={d}, {er} rows, {n} segments): "
+              f"main path {km:.4f} ms, kernel alone {alone:.4f}{derived}, "
+              f"index_add_ {'null' if lm is None else f'{lm:.4f}'}, plain "
+              f"{pm:.4f}, bound {bm:.5f} ({by})")
+        out[key] = (km, bm, lm)
+    return out
+
+
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -764,6 +957,14 @@ def main():
             rows, order, snd, n, e_real, transposed=True),))
         same_bits("segment_sum_rows_t against segment_sum_rows", (got_t,),
                   (got,))
+        src_ptr = getattr(graph, "src_ptr", None)
+        if src_ptr is not None:     # the main path's call: one launch
+            same_bits("segment_sum_rows by the graph's offsets", (got,),
+                      (ss.dh_reduce(rows, order, snd, n, e_real,
+                                    src_ptr=src_ptr),))
+            same_bits("segment_sum_rows_t by the graph's offsets", (got_t,),
+                      (ss.dh_reduce(rows, order, snd, n, e_real, True,
+                                    src_ptr=src_ptr),))
         return dict(nh=nh, f=f, drop=with_drop, fwd_args=fwd_args,
                     bwd_args=bwd_args, parts_args=parts_args, rows=rows)
 
@@ -782,6 +983,10 @@ def main():
         cora_two.append(check_two_phase(
             f"Cora {nh}x{f}", v5_two_phase_entries(cora), V5_TWO, n, nh, f,
             e))
+    # rows 3 and 4 on their own: every width of the fits, empty and long
+    # segments, rows past row_limit, with and without offsets, against
+    # the ordered reference's bits
+    check_dh_rows(torch, np, ss, dev, errs)
     # fused_gat_table and v5_local_cap take an h table of more rows than
     # destinations: 256 rows put in front of the table and every sender
     # moved up by 256 give the bits of the square call
@@ -952,7 +1157,7 @@ def main():
     remainder = types.SimpleNamespace(
         num_nodes=hybrid.num_nodes, num_edges=rem_pad,
         num_real_edges=hb.rem_e, senders=hb.rem_send, receivers=hb.rem_recv,
-        src_order=hb.rem_order)
+        src_order=hb.rem_order, src_ptr=hb.rem_src_ptr)
     rem_cases, hybrid_two = [], []
     for nh, f in SHAPES["Pubmed"]:
         print(f"[kernels] Pubmed hybrid remainder layer shape {nh}x{f}")
@@ -1755,6 +1960,31 @@ def main():
                 one_step_report(name, dataset, overrides)
             fail(f"{name}: two fits from one seed differ")
 
+    # The CSR offsets carried on the Graph spare launches, not bits: one
+    # Cora fit with them and one without (the wrappers derive them per
+    # call), and the trained model's logits and gradients both ways.
+    runs = []
+    bare = cora.replace(src_ptr=None, dst_ptr=None)
+    for graph in (cora, bare):
+        _, trainer, _, _, _ = make_trainer("Cora", {}, 5)
+        result = trainer.fit_epochs([graph], [graph])
+        runs.append((result.history, gat.parameters(result.final_params)))
+    (hist_a, par_a), (hist_b, par_b) = runs
+    grads = [logits_and_grads(trainer, result.final_params, g)
+             for g in (cora, bare)]
+    identical = (hist_a == hist_b
+                 and all(torch.equal(x, y) for x, y in zip(par_a, par_b))
+                 and torch.equal(grads[0][0], grads[1][0])
+                 and all(torch.equal(x, y)
+                         for x, y in zip(grads[0][1], grads[1][1])))
+    print(f"[repro] Cora, 5 epochs from seed 0 with and without the "
+          f"graph's offsets: histories, parameters, logits and gradients "
+          f"{'equal bits' if identical else 'DIFFER'}; train_loss "
+          f"{[r['train_loss'] for r in hist_a]}")
+    if not identical:
+        fail("Cora: the fit with the graph's offsets differs from the fit "
+             "without them")
+
     elapsed("4c")
     # -- 4c. the sharded path: fits, holds, reproducibility, step times -----
     # Trainer.fit_sharded over a (data, edge) mesh of one rank: a one-rank
@@ -1956,6 +2186,9 @@ def main():
         o_fwd, o_bwd = attention_ops(graph.num_real_edges, d, nh)
         ids_sorted = snd_.index_select(0, order_.long())
         snd_l = snd_.long()
+        # the d(h) reduce as the main path calls it: by the graph's
+        # offsets where it carries them, over its real rows
+        src_ptr, er = getattr(graph, "src_ptr", None), graph.num_real_edges
         return {
             "v5_forward": (lambda: v5.v5_forward(*fa),
                            lambda: v5.v5_forward_plain(*fa), None,
@@ -1968,12 +2201,12 @@ def main():
                 lambda: v5.v5_backward_plain(*pa, normalize=False), None,
                 b_parts, o_bwd),
             "segment_sum_rows": (
-                lambda: ss.dh_reduce(rows, order_, snd_, n_,
-                                     graph.num_real_edges),
+                lambda: ss.dh_reduce(rows, order_, snd_, n_, er,
+                                     src_ptr=src_ptr),
                 lambda: ss.segment_rows_plain(rows, order_, ids_sorted, n_),
                 lambda: torch.zeros((n_, d), device=dev).index_add_(
-                    0, snd_l, rows),
-                4 * (e_ * d + 2 * e_ + n_ * d), e_ * d),
+                    0, snd_l[:er], rows[:er]),
+                4 * (er * d + er + n_ + 1 + n_ * d), er * d),
         }
 
     def table_time_rows(graph, c):
@@ -2001,6 +2234,21 @@ def main():
     for c in cora_cases:
         time_rows(f"Cora {c['nh']}x{c['f']}", v5_time_rows(cora, c),
                   into_json=V5_JSON)
+    # rows 3 and 4 at the Cora and PPI layer shapes (the Pubmed layout's
+    # below), each four ways: as the main path calls them, the kernel
+    # alone, without the graph's offsets, and index_add_ over the real rows
+    for graph, cases, label in ((cora, cora_cases, "Cora"),
+                                (ppi, ppi_v5_cases, "PPI")):
+        er = graph.num_real_edges
+        snd_real = graph.senders[:er].long()
+        for c in cases:
+            rows = c["rows"]
+            time_dh_rows(torch, ss, f"{label} {c['nh']}x{c['f']}", rows,
+                         graph.src_order, graph.src_ptr, graph.num_nodes,
+                         senders=graph.senders, e_real=er,
+                         lib=lambda g=graph, r=rows, s=snd_real, e=er:
+                         torch.zeros((g.num_nodes, r.shape[1]),
+                                     device=dev).index_add_(0, s, r[:e]))
 
     def two_phase_time_rows(c, entries, keys, n_, slots, idx, real_edges,
                             rows_out):
@@ -2094,17 +2342,11 @@ def main():
                   f"{time_ms(torch, lambda: v5.v5_forward(*fa5)):.4f} ms, "
                   f"backward "
                   f"{time_ms(torch, lambda: v5.v5_backward(*ba5)):.4f} ms")
-        # the d(h) reduce at this path's shapes, beside the table's (Cora)
-        time_rows(f"Pubmed {nh}x{f}", {
-            "segment_sum_rows": (
-                lambda: ss.dh_reduce_ptr(rows, bl.src_perm, bl.src_ptr),
-                lambda: ss.segment_rows_plain(rows, bl.src_perm, src_ids,
-                                              np_),
-                lambda: torch.zeros((np_, d), device=dev).index_add_(
-                    0, send_real, rows_real),
-                4 * (e7_real * d + e7_real + np_ + 1 + np_ * d),
-                e7_real * d),
-        }, into_json=False)
+        # rows 3 and 4 at this path's shapes, by the layout's offsets
+        time_dh_rows(torch, ss, f"Pubmed {nh}x{f}", rows, bl.src_perm,
+                     bl.src_ptr, np_,
+                     lib=lambda rr=rows_real, d=d: torch.zeros(
+                         (np_, d), device=dev).index_add_(0, send_real, rr))
     # the hybrid cell: the window kernels over the in-window slots and the
     # v5 kernels over the remainder; the result line takes the two parts
     # backward modes from here, where the main path launches them
@@ -2188,7 +2430,8 @@ def main():
                 "segment_sum_rows_t": (
                     "segment_sum_rows",
                     lambda: ss.dh_reduce(rows, order_, snd_, cora.num_nodes,
-                                         cora.num_real_edges, transposed=True),
+                                         cora.num_real_edges, True,
+                                         src_ptr=cora.src_ptr),
                     lambda: ss.segment_rows_t_plain(rows, order_, ids_sorted,
                                                     cora.num_nodes),
                     FLOAT32, 0)}), into_json=True)
@@ -2295,13 +2538,10 @@ def main():
                               lambda: bwd_k(*ba6, r6),
                               lambda: bwd_p(*ba6, r6), r6, nhy * d)}),
                   into_json=False)
-    for ct, ct32, c5 in zip(ppi_table_modes, ppi_table_cases, ppi_v5_cases):
+    for ct, ct32 in zip(ppi_table_modes, ppi_table_cases):
         nh, f, d = ct["nh"], ct["f"], ct["nh"] * ct["f"]
         fa, ba, rf, rb = (ct["fwd_args"], ct["bwd_args"], ct["rounding"],
                           ct["bwd_rounding"])
-        rows = c5["rows"]
-        order_ = ppi.src_order
-        ids_sorted = ppi.senders.index_select(0, order_.long())
         time_rows(f"PPI {nh}x{f} [{mode_tag(rf)}]", mode_rows(
             table_time_rows(ppi, ct32), {
                 "table_forward_bf16": (
@@ -2323,14 +2563,6 @@ def main():
                     lambda: ta.table_forward(*fr, rounding=rnd),
                     lambda: ta.table_forward_plain(*fr, rounding=rnd), rnd,
                     ppi.num_nodes * d)}), into_json=False)
-        time_rows(f"PPI {nh}x{f}", mode_rows(v5_time_rows(ppi, c5), {
-            "segment_sum_rows_t": (
-                "segment_sum_rows",
-                lambda: ss.dh_reduce(rows, order_, ppi.senders, ppi.num_nodes,
-                                     ppi.num_real_edges, transposed=True),
-                lambda: ss.segment_rows_t_plain(rows, order_, ids_sorted,
-                                                ppi.num_nodes),
-                FLOAT32, 0)}), into_json=False)
 
     # the v2 kernels: the JSON line's times at the PPI widths without a
     # mask in the partial mode, as the sharded PPI paper_faithful fit runs
@@ -2438,6 +2670,12 @@ def main():
             # sorts the senders itself in every backward)
             routes.insert(1, ("table kernel path", trainer,
                               graph.replace(src_order=None), {}))
+        if name in ("Cora", "Pubmed", "PPI paper_faithful", "PPI"):
+            # the wrappers deriving the offsets per call, as before the
+            # Graph carried them (the launches a step they cost)
+            routes.insert(1, ("kernel path without the graph's offsets",
+                              trainer, graph.replace(src_ptr=None,
+                                                     dst_ptr=None), env))
         steps = [(label, under(ev, lambda tr=tr, gr=gr: tr.train_step(
                      params, opt, gr, dgen)))
                  for label, tr, gr, ev in routes]

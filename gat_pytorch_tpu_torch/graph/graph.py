@@ -6,7 +6,11 @@ the same (established by graph/transforms.canonicalize):
   * arrays are padded: `node_mask` / `edge_mask` mark real entries, and
     padding edges are (sink, sink) with sink = num_nodes - 1 and
     edge_mask False, appended after the real edges;
-  * `src_order` is the stable permutation sorting edges by sender.
+  * `src_order` is the stable permutation sorting edges by sender;
+  * `src_ptr` and `dst_ptr` are the CSR offsets the kernels walk (the
+    sender runs of src_order's real prefix, the destination runs of
+    receivers), built once with the graph (`edge_offsets`); `replace`
+    drops them when the edges they describe change.
 
 Index arrays are int32, as in the JAX Graph; the CUDA kernels take them
 as they are, and the plain torch paths widen them to int64.
@@ -25,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..ops.cuda.build import csr_offsets
 
 
 def _to_device(obj, device):
@@ -132,6 +138,13 @@ class Graph:
     node_order: Optional[torch.Tensor] = None
     src_band: int = 0
     block_layout: Optional[BlockLayout] = None
+    # -- CSR offsets, (N_pad+1,) int32 (edge_offsets) ----------------------
+    # src_ptr: sender s's real edges are src_order[src_ptr[s]:src_ptr[s+1]]
+    #   (src_ptr[-1] = num_real_edges; None without src_order).
+    # dst_ptr: node v's edges, padding edges included, are
+    #   [dst_ptr[v], dst_ptr[v+1]) of the dst-sorted edge list.
+    src_ptr: Optional[torch.Tensor] = None
+    dst_ptr: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -142,6 +155,12 @@ class Graph:
         return _to_device(self, device)
 
     def replace(self, **kw) -> "Graph":
+        """dataclasses.replace, which drops src_ptr and dst_ptr where the
+        fields they are derived from change without new offsets given."""
+        if "src_ptr" not in kw and kw.keys() & _SRC_PTR_FROM:
+            kw["src_ptr"] = None
+        if "dst_ptr" not in kw and kw.keys() & _DST_PTR_FROM:
+            kw["dst_ptr"] = None
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> None:
@@ -162,6 +181,35 @@ class Graph:
             raise ValueError("real edges must be the prefix [0, E_real)")
         if (~emask).any() and not (recv[~emask] == self.num_nodes - 1).all():
             raise ValueError("padding edges must target the sink node")
+        src_ptr, dst_ptr = edge_offsets(
+            self.senders.cpu(), self.receivers.cpu(),
+            None if self.src_order is None else self.src_order.cpu(),
+            self.num_real_edges, self.num_nodes)
+        for name, want in (("src_ptr", src_ptr), ("dst_ptr", dst_ptr)):
+            got = getattr(self, name)
+            if got is not None and not torch.equal(got.cpu(), want):
+                raise ValueError(f"{name} does not match the edges")
+
+
+# the fields each offset array is derived from
+_SRC_PTR_FROM = frozenset({"senders", "src_order", "edge_mask",
+                           "num_real_edges", "num_edges", "num_nodes"})
+_DST_PTR_FROM = frozenset({"receivers", "num_edges", "num_nodes"})
+
+
+def edge_offsets(senders: torch.Tensor, receivers: torch.Tensor,
+                 src_order: Optional[torch.Tensor], num_real_edges: int,
+                 num_nodes: int):
+    """(src_ptr, dst_ptr), each (num_nodes + 1,) int32 on the edges'
+    device: src_ptr[s] is the first position of sender s in
+    senders[src_order[:num_real_edges]], which must hold the real edges
+    sorted by sender (None without src_order); dst_ptr[v] the first edge
+    whose receiver is >= v, over all edges (receivers ascending)."""
+    dst_ptr = csr_offsets(receivers, num_nodes)
+    if src_order is None:
+        return None, dst_ptr
+    ids = senders.index_select(0, src_order[:num_real_edges].long())
+    return csr_offsets(ids, num_nodes), dst_ptr
 
 
 def from_numpy(x: np.ndarray,
@@ -180,7 +228,9 @@ def from_numpy(x: np.ndarray,
                node_order: Optional[np.ndarray] = None,
                src_band: int = 0) -> Graph:
     """Wrap host arrays (already canonicalised/padded) into a CPU Graph;
-    `Graph.to(device)` moves it."""
+    `Graph.to(device)` moves it. The CSR offsets are built here
+    (edge_offsets); src_ptr only where src_order's first E_real entries
+    are the real edges, as canonicalize orders them (else None)."""
     n, e = int(x.shape[0]), int(senders.shape[0])
     if edge_mask is None:
         edge_mask = np.ones(e, dtype=bool)
@@ -195,16 +245,22 @@ def from_numpy(x: np.ndarray,
         a = np.ascontiguousarray(a if dtype is None else a.astype(dtype))
         return torch.from_numpy(a)
 
+    e_real = int(np.asarray(edge_mask).sum())
+    senders_t, receivers_t = t(senders, np.int32), t(receivers, np.int32)
+    order_t = t(src_order, np.int32)
+    real_first = order_t is not None and bool(
+        np.asarray(edge_mask)[np.asarray(src_order)[:e_real]].all())
+    src_ptr, dst_ptr = edge_offsets(
+        senders_t, receivers_t, order_t if real_first else None, e_real, n)
     return Graph(
-        x=t(x, np.float32), senders=t(senders, np.int32),
-        receivers=t(receivers, np.int32),
+        x=t(x, np.float32), senders=senders_t,
+        receivers=receivers_t,
         edge_mask=t(edge_mask, bool), node_mask=t(node_mask, bool),
         y=None if y is None else t(y, np.int64 if np.asarray(y).ndim == 1
                                      else np.float32),
         train_mask=t(train_mask, bool), val_mask=t(val_mask, bool),
         test_mask=t(test_mask, bool), graph_ids=t(graph_ids, np.int32),
-        src_order=t(src_order, np.int32),
-        num_nodes=n, num_edges=e,
-        num_real_edges=int(np.asarray(edge_mask).sum()),
+        src_order=order_t,
+        num_nodes=n, num_edges=e, num_real_edges=e_real,
         tile_lo=t(tile_lo, np.int32), node_order=t(node_order, np.int32),
-        src_band=int(src_band))
+        src_band=int(src_band), src_ptr=src_ptr, dst_ptr=dst_ptr)

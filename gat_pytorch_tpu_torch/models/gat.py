@@ -312,6 +312,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                     edge_mask: torch.Tensor, num_nodes: int, *,
                     num_real_edges: Optional[int] = None,
                     src_order: Optional[torch.Tensor] = None,
+                    src_ptr: Optional[torch.Tensor] = None,
+                    dst_ptr: Optional[torch.Tensor] = None,
                     block_layout: Optional[BlockLayout] = None,
                     tile_lo: Optional[torch.Tensor] = None,
                     src_band: int = 0,
@@ -329,6 +331,9 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     doc); the layer then reads src_order as the shard's own stable sender
     order with its padding edges last (parallel/sharding.edge_shard; None:
     sorted here) and ignores block_layout, tile_lo and src_band.
+    src_ptr and dst_ptr (Graph.src_ptr, Graph.dst_ptr): the CSR offsets
+    the kernel ops' wrappers would otherwise derive per call; src_ptr
+    describes src_order and is read only with it.
     dst_owned (the JAX package's boundary-free layout) is not ported.
     block_layout (Graph.block_layout) puts the kernel path on the windowed
     op, or on the hybrid of the windowed and the v5 parts ops where the
@@ -398,7 +403,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             out = v7.fused_gat_window(
                 h_flat, a_src, s_dst, drop, senders, receivers, e_real, tl,
                 num_nodes, nh, f, window, 1e-8, cfg.slope,
-                src_order=src_order)
+                src_order=src_order, src_ptr=src_ptr, dst_ptr=dst_ptr)
         elif hybrid:
             # The split-locality layout: the windowed parts op over the
             # in-window edges, the v5 parts op over the remainder. num
@@ -442,7 +447,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             out = v5.fused_gat_table_autocap(
                 h_flat, a_src, s_dst, drop, senders, receivers, src_order,
                 e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope,
-                two_phase=v5_two)
+                two_phase=v5_two, src_ptr=src_ptr, dst_ptr=dst_ptr)
         return _head_combine(out, cfg, num_nodes, params)
 
     kernel = backend == "kernel"
@@ -453,6 +458,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         src_order = (torch.argsort(senders, stable=True).to(torch.int32)
                      if ax is None
                      else seg.real_first_order(senders, edge_mask, num_nodes))
+        src_ptr = None      # the table op derives the offsets of this order
     logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask,
                           src_order if kernel else None, ax)
     eps = 0.0 if cfg.paper_faithful else 1e-8
@@ -480,7 +486,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             PATH_TRACE.append("v4_table")
             out = v4.fused_segment_attention_table(
                 logits, h_flat, senders, receivers, drop, src_order,
-                num_nodes, nh, f, eps, num_real_edges)
+                num_nodes, nh, f, eps, num_real_edges, src_ptr=src_ptr,
+                dst_ptr=dst_ptr)
             return _head_combine(out, cfg, num_nodes, params)
         PATH_TRACE.append("sharded_v4_partial")
         # only the real edges' rows: the op reads no other, and the
@@ -670,6 +677,7 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
             params["layers"][i], lc, x, graph.senders, graph.receivers,
             graph.edge_mask, graph.num_nodes,
             num_real_edges=graph.num_real_edges, src_order=graph.src_order,
+            src_ptr=graph.src_ptr, dst_ptr=graph.dst_ptr,
             block_layout=graph.block_layout, tile_lo=graph.tile_lo,
             src_band=graph.src_band,
             generator=generator if edge_axis is None else edge_generator,

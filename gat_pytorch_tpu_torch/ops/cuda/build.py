@@ -192,6 +192,17 @@ def csr_offsets(sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.searchsorted(sorted_ids, bounds, out_int32=True)
 
 
+def row_offsets(receivers: torch.Tensor, n: int,
+                dst_ptr: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CSR offsets of the dst-sorted edges over n rows: the caller's
+    (Graph.dst_ptr, built once with the graph), checked, or computed here
+    (csr_offsets, two launches)."""
+    if dst_ptr is None:
+        return csr_offsets(receivers, n)
+    require(dst_ptr, "dst_ptr", receivers.device, torch.int32, (n + 1,))
+    return dst_ptr
+
+
 def ptr(t) -> Optional[int]:
     """Device address for a C argument (None -> NULL)."""
     return None if t is None else t.data_ptr()

@@ -15,10 +15,18 @@ them and why they are shaped so); `segment_rows_plain`,
 `segment_rows_t_plain` and `segment_sum_sorted_plain` are their plain
 torch versions.
 
+The d(h) kernels take the segments as offsets: segment s's rows are
+values[order[ptr[s]:ptr[s+1]]]. A caller that holds them (Graph.src_ptr,
+a block layout's src_ptr) passes them, and the reduction is then one
+kernel launch; `dh_reduce` without them derives them from the senders
+per call (a gather and a searchsorted before the kernel).
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain version. Every sum has a fixed order: two calls give the same bits,
-and the two d(h) forms give the same bits as each other on the card
-(both add each segment's rows in ascending order from 0).
+plain version. Every sum has a fixed order: each d(h) segment's rows are
+added in ascending position, one at a time, starting from 0, in both
+forms. So two calls give the same bits, the two forms give the same bits
+as each other on the card, and the reduction with offsets gives the
+bits of the one without.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_KERNEL)
     if not _configured:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segment_sum_rows.argtypes = [p, p, p, i, i, i, p, i, p]
+        lib.segment_sum_rows.argtypes = [p, p, p, i, i, i, p, p]
         lib.segment_sum_rows.restype = ctypes.c_int
         lib.segment_sum_rows_t.argtypes = [p, p, p, i, i, i, p, p]
         lib.segment_sum_rows_t.restype = ctypes.c_int
@@ -88,9 +96,9 @@ def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
                        row_limit: Optional[int] = None,
                        transposed: bool = False) -> torch.Tensor:
     """out[s] = sum of values[order[i]] over i in [seg_ptr[s], seg_ptr[s+1])
-    (order None: the identity), by the kernel; rows from `row_limit` on
-    are skipped (the caller knows them to be zero). transposed: the
-    feature-major kernel, whose (D, S) result is returned row-major."""
+    (order None: the identity), by the kernel, one launch; rows from
+    `row_limit` on are skipped (the caller knows them to be zero).
+    transposed: the feature-major kernel. Both return (S, D)."""
     dev = values.device
     build.require(values, "values", dev, torch.float32, (None, None))
     d = values.shape[1]
@@ -101,25 +109,17 @@ def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
     if order is not None:
         build.require(order, "order", dev, torch.int32, (None,))
     limit = values.shape[0] if row_limit is None else row_limit
-    shape = (d, num_segments) if transposed else (num_segments, d)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
     if num_segments == 0:
-        return out.t() if transposed else out
-    p = build.ptr
-    lib = _lib()
-    with torch.cuda.device(dev):
-        if transposed:
-            err = lib.segment_sum_rows_t(
-                p(values), p(order), p(seg_ptr), num_segments, limit, d,
-                p(out), build.stream(dev))
-        else:
-            err = lib.segment_sum_rows(
-                p(values), p(order), p(seg_ptr), num_segments, limit, d,
-                p(out), build.grid_blocks(num_segments), build.stream(dev))
+        return out
     name = "segment_sum_rows_t" if transposed else "segment_sum_rows"
+    with torch.cuda.device(dev):
+        err = getattr(_lib(), name)(
+            build.ptr(values), build.ptr(order), build.ptr(seg_ptr),
+            num_segments, limit, d, build.ptr(out), build.stream(dev))
     build.check(err, name)
     build.LAUNCHES[name] += 1
-    return out.t().contiguous() if transposed else out
+    return out
 
 
 def _segment_rows(values, order, sorted_ids, num_segments, row_limit=None,
@@ -154,16 +154,27 @@ def segment_sum_rows(values: torch.Tensor, sorted_ids: torch.Tensor,
 def dh_reduce(d_h_rows: torch.Tensor, src_order: torch.Tensor,
               senders: torch.Tensor, num_nodes: int,
               num_real_edges: Optional[int] = None,
-              transposed: bool = False) -> torch.Tensor:
+              transposed: bool = False,
+              src_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum the attention backward's per-edge d(h) rows (dst order) into
     the (num_nodes, D) table by sender: rows are read through
     `src_order`, the stable sender-sorting permutation.
 
-    With `num_real_edges`, the rows from there on belong to padding
-    edges and are zero, as the attention backward writes them; the
-    kernel steps over them without reading (a batch padded to its bucket
-    hangs thousands of them on the sink node, which one warp sums).
+    src_ptr: the (num_nodes + 1,) int32 offsets of each sender's run of
+    real edges in src_order (Graph.src_ptr), where the caller holds them:
+    the call is then dh_reduce_ptr's, one kernel launch. Without them they
+    are derived here from `senders` per call; with `num_real_edges`, the
+    rows from there on belong to padding edges and are zero, as the
+    attention backward writes them, and the kernel steps over them
+    without reading them (a batch padded to its bucket hangs thousands of
+    them on the sink node). Either way each sender's rows are added in
+    the order of src_order, so the two give the same bits.
     transposed: the feature-major form (the caller's dh_transposed())."""
+    if src_ptr is not None:
+        if src_ptr.shape != (num_nodes + 1,):
+            raise ValueError(f"src_ptr of shape {tuple(src_ptr.shape)} for "
+                             f"{num_nodes} nodes")
+        return dh_reduce_ptr(d_h_rows, src_order, src_ptr, transposed)
     ids_sorted = senders.index_select(0, src_order.long())
     return _segment_rows(d_h_rows, src_order, ids_sorted, num_nodes,
                          num_real_edges, transposed)
@@ -173,17 +184,19 @@ def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
                   src_ptr: torch.Tensor, transposed: bool = False
                   ) -> torch.Tensor:
     """The same reduction for a caller that holds the sender runs as
-    offsets (the block layout does): sender s's rows are
-    d_h_rows[src_perm[src_ptr[s]:src_ptr[s+1]]]; rows that src_perm does
-    not name are not read. Returns (len(src_ptr) - 1, D)."""
+    offsets (the block layout, Graph.src_ptr): sender s's rows are
+    d_h_rows[src_perm[src_ptr[s]:src_ptr[s+1]]]; entries of src_perm from
+    src_ptr[-1] on, and rows that src_perm does not name, are not read.
+    Returns (len(src_ptr) - 1, D)."""
     if d_h_rows.is_cuda:
         return _segment_rows_cuda(d_h_rows, src_perm, src_ptr,
                                   transposed=transposed)
     if d_h_rows.device.type == "cpu":
         n = src_ptr.shape[0] - 1
-        ids = torch.repeat_interleave(torch.arange(n), src_ptr.long().diff())
+        ptr = src_ptr.long()
+        ids = torch.repeat_interleave(torch.arange(n), ptr.diff())
         plain = segment_rows_t_plain if transposed else segment_rows_plain
-        return plain(d_h_rows, src_perm, ids, n)
+        return plain(d_h_rows, src_perm[:int(ptr[-1])], ids, n)
     raise ValueError(f"no kernel for device {d_h_rows.device}")
 
 

@@ -146,10 +146,11 @@ def _check_inputs(logits, h, drop, senders, receivers, num_nodes, e_real,
 
 
 def _table_forward_cuda(logits, h, drop, senders, receivers, num_nodes: int,
-                        e_real: int, eps: float, rounding: Rounding):
+                        e_real: int, eps: float, rounding: Rounding,
+                        dst_ptr=None):
     dev, e, d, nh = _check_inputs(logits, h, drop, senders, receivers,
                                   num_nodes, e_real, rounding)
-    row_ptr = build.csr_offsets(receivers, num_nodes)
+    row_ptr = build.row_offsets(receivers, num_nodes, dst_ptr)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((num_nodes, d), **f32)
     den = torch.empty((num_nodes, nh), **f32)
@@ -168,14 +169,14 @@ def _table_forward_cuda(logits, h, drop, senders, receivers, num_nodes: int,
 
 def _table_backward_cuda(logits, h, drop, senders, receivers, e_real: int,
                          eps: float, g, out, den, need_drop: bool,
-                         rounding: Rounding):
+                         rounding: Rounding, dst_ptr=None):
     n = den.shape[0] if den.dim() == 2 else -1
     dev, e, d, nh = _check_inputs(logits, h, drop, senders, receivers, n,
                                   e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
     build.require(out, "out", dev, torch.float32, (n, d))
     build.require(den, "den", dev, torch.float32, (n, nh))
-    row_ptr = build.csr_offsets(receivers, n)
+    row_ptr = build.row_offsets(receivers, n, dst_ptr)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h_rows = torch.empty((e, d), **f32)
     d_logits = torch.empty((e, nh), **f32)
@@ -194,12 +195,16 @@ def _table_backward_cuda(logits, h, drop, senders, receivers, e_real: int,
 
 
 def table_forward(logits, h, drop, senders, receivers, num_nodes: int,
-                  e_real: int, eps: float, rounding: Rounding = FLOAT32):
+                  e_real: int, eps: float, rounding: Rounding = FLOAT32, *,
+                  dst_ptr=None):
     """Kernel on CUDA tensors, plain version on CPU tensors. rounding:
-    the bfloat16 mode (acc; h a bfloat16 table where `table`)."""
+    the bfloat16 mode (acc; h a bfloat16 table where `table`). dst_ptr:
+    the (num_nodes + 1,) int32 CSR offsets of `receivers` where the
+    caller holds them (Graph.dst_ptr); the kernel wrapper computes them
+    otherwise."""
     if logits.is_cuda:
         return _table_forward_cuda(logits, h, drop, senders, receivers,
-                                   num_nodes, e_real, eps, rounding)
+                                   num_nodes, e_real, eps, rounding, dst_ptr)
     if logits.device.type == "cpu":
         check_table(h, rounding)
         return table_forward_plain(logits, h, drop, senders, receivers,
@@ -209,13 +214,14 @@ def table_forward(logits, h, drop, senders, receivers, num_nodes: int,
 
 def table_backward(logits, h, drop, senders, receivers, e_real: int,
                    eps: float, g, out, den, need_drop: bool,
-                   rounding: Rounding = FLOAT32):
+                   rounding: Rounding = FLOAT32, *, dst_ptr=None):
     """Kernel on CUDA tensors, plain version on CPU tensors (the table
-    mode is h's dtype; no other point of the policy applies here)."""
+    mode is h's dtype; no other point of the policy applies here).
+    dst_ptr: as table_forward's."""
     if logits.is_cuda:
         return _table_backward_cuda(logits, h, drop, senders, receivers,
                                     e_real, eps, g, out, den, need_drop,
-                                    rounding)
+                                    rounding, dst_ptr)
     if logits.device.type == "cpu":
         check_table(h, rounding)
         return table_backward_plain(logits, h, drop, senders, receivers,
@@ -229,32 +235,37 @@ class _TableAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, h_flat, drop_mask, senders, receivers,
-                src_order, num_nodes, e_real, eps, rounding, dh_t):
+                src_order, src_ptr, dst_ptr, num_nodes, e_real, eps,
+                rounding, dh_t):
         h_k = rounding.table_of(h_flat)
         out, den = table_forward(logits, h_k, drop_mask, senders,
-                                 receivers, num_nodes, e_real, eps, rounding)
+                                 receivers, num_nodes, e_real, eps, rounding,
+                                 dst_ptr=dst_ptr)
         ctx.save_for_backward(logits, h_k, drop_mask, senders, receivers,
-                              src_order, den, out)
+                              src_order, src_ptr, dst_ptr, den, out)
         ctx.e_real, ctx.eps = e_real, eps
         ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (logits, h_k, drop_mask, senders, receivers, src_order, den,
-         out) = ctx.saved_tensors
+        (logits, h_k, drop_mask, senders, receivers, src_order, src_ptr,
+         dst_ptr, den, out) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[2]
         d_h_rows, d_logits, d_drop = table_backward(
             logits, h_k, drop_mask, senders, receivers, ctx.e_real,
-            ctx.eps, g.contiguous(), out, den, need_drop, ctx.rounding)
+            ctx.eps, g.contiguous(), out, den, need_drop, ctx.rounding,
+            dst_ptr=dst_ptr)
         if src_order is None:
             # a stable sort of the real edges keeps the order of the sums
-            # fixed; the padding edges' rows are zero and stay out
+            # fixed; the padding edges' rows are zero and stay out (and
+            # the offsets of this order are derived with it)
             src_order = torch.argsort(senders[:ctx.e_real],
                                       stable=True).to(torch.int32)
+            src_ptr = None
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                        ctx.e_real, transposed=ctx.dh_t)
-        return (d_logits, d_h, d_drop) + (None,) * 8
+                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
+        return (d_logits, d_h, d_drop) + (None,) * 10
 
 
 def fused_segment_attention_table(logits: torch.Tensor,
@@ -265,7 +276,9 @@ def fused_segment_attention_table(logits: torch.Tensor,
                                   src_order: Optional[torch.Tensor],
                                   num_nodes: int, nh: int, f: int,
                                   eps: float = 1e-8,
-                                  num_real_edges: Optional[int] = None
+                                  num_real_edges: Optional[int] = None, *,
+                                  src_ptr: Optional[torch.Tensor] = None,
+                                  dst_ptr: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """Normalised attention output (num_nodes, nh*f) from given edge
     logits, differentiable in logits, h_flat and drop_mask.
@@ -280,7 +293,10 @@ def fused_segment_attention_table(logits: torch.Tensor,
     num_real_edges: the edges from there on are padding (NEG_INF logits,
     the last node as sender, as canonicalize pads) and are not walked;
     None walks every edge, which gives the same result more slowly.
-    The dtype knobs (module doc) are read now."""
+    src_ptr, dst_ptr: the graph's CSR offsets (Graph.src_ptr, the sender
+    runs of src_order's real prefix; Graph.dst_ptr), which spare the
+    kernels' wrappers deriving them per call; src_ptr is read only with
+    src_order. The dtype knobs (module doc) are read now."""
     e_real = senders.shape[0] if num_real_edges is None else num_real_edges
     if not 0 <= e_real <= senders.shape[0]:
         raise ValueError(f"num_real_edges {e_real} outside "
@@ -291,5 +307,5 @@ def fused_segment_attention_table(logits: torch.Tensor,
                          f"{senders.shape[0]} edges, nh={nh}, f={f}")
     return _TableAttention.apply(logits.contiguous(), h_flat.contiguous(),
                                  drop_mask, senders, receivers, src_order,
-                                 num_nodes, e_real, eps, v5_rounding(),
-                                 dh_transposed())
+                                 src_ptr, dst_ptr, num_nodes, e_real, eps,
+                                 v5_rounding(), dh_transposed())

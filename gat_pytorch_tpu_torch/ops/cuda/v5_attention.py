@@ -68,7 +68,7 @@ import torch
 from .. import segment as seg
 from . import build
 from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
-from .segment_sum import dh_reduce, dh_reduce_ptr, dh_transposed
+from .segment_sum import dh_reduce, dh_transposed
 
 _KERNEL = "v5_attention"
 MAX_HEADS = 8
@@ -355,21 +355,12 @@ def _check_inputs(h, a_src, s_dst_eff, drop, senders, receivers, e_real,
     return dev, s_dst_eff.shape[0], e, d, nh
 
 
-def _row_offsets(receivers, n: int, dst_ptr):
-    """The CSR offsets of the dst-sorted edges: the caller's, built once
-    with the graph, or computed here."""
-    if dst_ptr is None:
-        return build.csr_offsets(receivers, n)
-    build.require(dst_ptr, "dst_ptr", receivers.device, torch.int32, (n + 1,))
-    return dst_ptr
-
-
 def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                      e_real: int, slope: float, dst_ptr=None,
                      rounding: Rounding = FLOAT32):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real, rounding)
-    row_ptr = _row_offsets(receivers, n, dst_ptr)
+    row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     num = torch.empty((n, d), **f32)
@@ -402,7 +393,7 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     if normalize:
         build.require(out, "out", dev, torch.float32, (n, d))
         build.require(epsp, "epsp", dev, torch.float32, ())
-    row_ptr = _row_offsets(receivers, n, dst_ptr)
+    row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h_rows = torch.empty((e, d), **f32)
@@ -429,10 +420,10 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
 
 
 def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
-                 rounding: Rounding = FLOAT32):
+                 rounding: Rounding = FLOAT32, dst_ptr=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, None, senders,
                                      receivers, e_real, rounding)
-    row_ptr = build.csr_offsets(receivers, n)
+    row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
     blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
@@ -451,11 +442,12 @@ def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
 
 def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                receivers, e_real: int, eps: float,
-                               slope: float, rounding: Rounding = FLOAT32):
+                               slope: float, rounding: Rounding = FLOAT32,
+                               dst_ptr=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
-    row_ptr = build.csr_offsets(receivers, n)
+    row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     den = torch.empty((n, nh), dtype=torch.float32, device=dev)
@@ -473,14 +465,14 @@ def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
 def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
                                 slope: float, g, out, den, need_drop: bool,
-                                rounding: Rounding = FLOAT32):
+                                rounding: Rounding = FLOAT32, dst_ptr=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
     for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
                            (den, "den", (n, nh))):
         build.require(t, name, dev, torch.float32, shape)
-    row_ptr = build.csr_offsets(receivers, n)
+    row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h_rows = torch.empty((e, d), **f32)
@@ -537,14 +529,14 @@ def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
 
 
 def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int,
-           rounding: Rounding = FLOAT32):
+           rounding: Rounding = FLOAT32, *, dst_ptr=None):
     """(cap (), code () int32): the 2-phase cap pass (of a bfloat16 table
     in the table mode; no other point of the policy applies). Kernel on
     CUDA tensors (cap and code stay in device memory), plain version on
-    CPU tensors."""
+    CPU tensors. dst_ptr: as v5_forward's."""
     if h.is_cuda:
         return _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real,
-                            rounding)
+                            rounding, dst_ptr)
     build.require_cpu(h)
     check_table(h, rounding)
     return v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real)
@@ -552,14 +544,14 @@ def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int,
 
 def v5_forward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                          e_real: int, eps: float, slope: float,
-                         rounding: Rounding = FLOAT32):
+                         rounding: Rounding = FLOAT32, *, dst_ptr=None):
     """(out, den) of the 2-phase forward from the cap (a () float32
     tensor on the device). Kernel on CUDA tensors, plain version on CPU
-    tensors."""
+    tensors. dst_ptr: as v5_forward's."""
     if h.is_cuda:
         return _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop,
                                           senders, receivers, e_real, eps,
-                                          slope, rounding)
+                                          slope, rounding, dst_ptr)
     build.require_cpu(h)
     return v5_forward_two_phase_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
@@ -568,14 +560,15 @@ def v5_forward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
 
 def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                           e_real: int, eps: float, slope: float, g, out, den,
-                          need_drop: bool, rounding: Rounding = FLOAT32):
+                          need_drop: bool, rounding: Rounding = FLOAT32, *,
+                          dst_ptr=None):
     """(d_h rows in dst order, d_drop | None, d_s_dst, d_a_src, d_cap) of
     the 2-phase op. Kernel on CUDA tensors, plain version on CPU
-    tensors."""
+    tensors. dst_ptr: as v5_forward's."""
     if h.is_cuda:
         return _v5_backward_two_phase_cuda(
             h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,
-            slope, g, out, den, need_drop, rounding)
+            slope, g, out, den, need_drop, rounding, dst_ptr)
     build.require_cpu(h)
     return v5_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
@@ -628,15 +621,17 @@ class _V5Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, drop_mask, senders, receivers,
-                src_order, bound, e_real, nh, eps, slope, rounding, dh_t):
+                src_order, src_ptr, dst_ptr, bound, e_real, nh, eps, slope,
+                rounding, dh_t):
         s_dst_eff = (s_dst - bound).contiguous()
         h_k = rounding.table_of(h_flat)
         num, den, cap, code = v5_forward(h_k, a_src, s_dst_eff, drop_mask,
                                          senders, receivers, e_real, slope,
-                                         rounding=rounding)
+                                         dst_ptr, rounding)
         out, epsp = normalise(num, den, cap, eps, slope, nh)
         ctx.save_for_backward(h_k, a_src, s_dst_eff, drop_mask, senders,
-                              receivers, src_order, den, out, epsp, code)
+                              receivers, src_order, src_ptr, dst_ptr, den,
+                              out, epsp, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
         ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
@@ -644,21 +639,21 @@ class _V5Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (h_k, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
-         den, out, epsp, code) = ctx.saved_tensors
+         src_ptr, dst_ptr, den, out, epsp, code) = ctx.saved_tensors
         nh, slope = ctx.nh, ctx.slope
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, slope, g, out, den, epsp, need_drop,
-            rounding=ctx.rounding)
+            dst_ptr=dst_ptr, rounding=ctx.rounding)
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                        ctx.e_real, transposed=ctx.dh_t)
+                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
 
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
             code, senders, receivers, h_k, a_src, nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 10
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 12
 
 
 def _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f):
@@ -682,7 +677,10 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
                             num_nodes: int, nh: int, f: int,
                             eps: float = 1e-8,
                             slope: float = 0.01,
-                            two_phase: bool = False) -> torch.Tensor:
+                            two_phase: bool = False, *,
+                            src_ptr: Optional[torch.Tensor] = None,
+                            dst_ptr: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Normalised attention output (num_nodes, nh*f) of the reference GAT
     layer, differentiable in h_flat, a_src, s_dst and drop_mask.
 
@@ -695,32 +693,37 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
     computes it from the score tables. two_phase: the 2-phase form (the
     JAX package under GAT_TPU_V10=0 or GAT_TPU_V5_MERGED=0): v5_local_cap
     then fused_gat_table, the cap's cotangent routed to its argmax (edge,
-    head); score_bound is not read there. The dtype knobs (module doc)
-    are read now."""
+    head); score_bound is not read there. src_ptr, dst_ptr: the graph's
+    CSR offsets (Graph.src_ptr, Graph.dst_ptr), which spare the kernels'
+    wrappers deriving them per call (None: derived). The dtype knobs
+    (module doc) are read now."""
     _check_table_shapes(h_flat, s_dst, num_nodes, num_nodes, nh, f)
     rounding = v5_rounding()
     if two_phase:
         cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
-                           num_nodes, nh, f, rounding=rounding)
+                           num_nodes, nh, f, rounding=rounding,
+                           dst_ptr=dst_ptr)
         return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
                                receivers, src_order, e_real, num_nodes, nh,
-                               f, eps, slope, rounding=rounding)
+                               f, eps, slope, rounding=rounding,
+                               src_ptr=src_ptr, dst_ptr=dst_ptr)
     if score_bound is None:
         score_bound = (h_flat @ a_src).max() + s_dst.max()
     return _V5Attention.apply(h_flat.contiguous(), a_src.contiguous(),
                               s_dst, drop_mask, senders, receivers,
-                              src_order, score_bound.detach(), int(e_real),
-                              nh, eps, slope, rounding, dh_transposed())
+                              src_order, src_ptr, dst_ptr,
+                              score_bound.detach(), int(e_real), nh, eps,
+                              slope, rounding, dh_transposed())
 
 
 class _V5LocalCap(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, senders, receivers, e_real,
-                rounding):
+                rounding, dst_ptr):
         h_k = rounding.table_of(h_flat)
         cap, code = v5_cap(h_k, a_src, s_dst, senders, receivers, e_real,
-                           rounding)
+                           rounding, dst_ptr=dst_ptr)
         ctx.save_for_backward(h_k, a_src, senders, receivers, code)
         ctx.s_shape = s_dst.shape
         return cap
@@ -732,7 +735,7 @@ class _V5LocalCap(torch.autograd.Function):
             h_k.new_zeros(h_k.shape, dtype=torch.float32),
             torch.zeros_like(a_src), a_src.new_zeros(ctx.s_shape), g, code,
             senders, receivers, h_k, a_src, a_src.shape[1])
-        return (d_h, d_asrc, d_sdst) + (None,) * 4
+        return (d_h, d_asrc, d_sdst) + (None,) * 5
 
 
 def v5_local_cap(h_flat: torch.Tensor,
@@ -742,14 +745,16 @@ def v5_local_cap(h_flat: torch.Tensor,
                  receivers: torch.Tensor,
                  e_real: int,
                  num_nodes: int, nh: int, f: int, *,
-                 rounding: Optional[Rounding] = None) -> torch.Tensor:
+                 rounding: Optional[Rounding] = None,
+                 dst_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The max raw logit h[src] . a_src[:, k] + s_dst[dst, k] over the
     dst-sorted edges e < e_real and heads (a () tensor), differentiable in
     h_flat, a_src and s_dst: the cotangent goes to the argmax (edge, head),
     ties to the lowest e*nh + k. s_dst (num_nodes, nh) covers the rows the
     receivers index; h_flat may have more rows than num_nodes (the
     senders index it). rounding: the policy (only its table mode applies
-    here); None reads the v5 knobs now."""
+    here); None reads the v5 knobs now. dst_ptr: the CSR offsets of the
+    receivers (Graph.dst_ptr), or None to derive them per call."""
     if s_dst.shape != (num_nodes, nh) or h_flat.shape[1] != nh * f:
         raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
                          f"{tuple(s_dst.shape)} do not match "
@@ -757,20 +762,22 @@ def v5_local_cap(h_flat: torch.Tensor,
     rounding = v5_rounding() if rounding is None else rounding
     return _V5LocalCap.apply(h_flat.contiguous(), a_src.contiguous(),
                              s_dst.contiguous(), senders, receivers,
-                             int(e_real), rounding)
+                             int(e_real), rounding, dst_ptr)
 
 
 class _V5TwoPhase(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, senders,
-                receivers, src_order, e_real, eps, slope, rounding, dh_t):
+                receivers, src_order, src_ptr, dst_ptr, e_real, eps, slope,
+                rounding, dh_t):
         h_k = rounding.table_of(h_flat)
         out, den = v5_forward_two_phase(h_k, a_src, s_dst, cap, drop_mask,
                                         senders, receivers, e_real, eps,
-                                        slope, rounding)
+                                        slope, rounding, dst_ptr=dst_ptr)
         ctx.save_for_backward(h_k, a_src, s_dst, cap, drop_mask, senders,
-                              receivers, src_order, out, den)
+                              receivers, src_order, src_ptr, dst_ptr, out,
+                              den)
         ctx.e_real, ctx.eps, ctx.slope = e_real, eps, slope
         ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
@@ -778,17 +785,17 @@ class _V5TwoPhase(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (h_k, a_src, s_dst, cap, drop_mask, senders, receivers, src_order,
-         out, den) = ctx.saved_tensors
+         src_ptr, dst_ptr, out, den) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[4]
         d_h_rows, d_drop, d_sdst, d_asrc, d_cap = v5_backward_two_phase(
             h_k, a_src, s_dst, cap, drop_mask, senders, receivers,
             ctx.e_real, ctx.eps, ctx.slope, g.contiguous(), out, den,
-            need_drop, ctx.rounding)
+            need_drop, ctx.rounding, dst_ptr=dst_ptr)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                        ctx.e_real, transposed=ctx.dh_t)
-        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 8
+                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 10
 
 
 def fused_gat_table(h_flat: torch.Tensor,
@@ -804,7 +811,9 @@ def fused_gat_table(h_flat: torch.Tensor,
                     eps: float = 1e-8,
                     slope: float = 0.01,
                     num_src_nodes: Optional[int] = None, *,
-                    rounding: Optional[Rounding] = None) -> torch.Tensor:
+                    rounding: Optional[Rounding] = None,
+                    src_ptr: Optional[torch.Tensor] = None,
+                    dst_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The 2-phase whole-attention op with the cap given:
         out[n] = sum_e [recv_e = n] drop_e ex_e h[send_e] / (den[n] + eps),
         ex_e = exp(leaky_slope(h[send_e] . a_src + s_dst[recv_e] - cap)),
@@ -815,15 +824,19 @@ def fused_gat_table(h_flat: torch.Tensor,
     logits above it are fine. num_src_nodes: the rows of h_flat when they
     are more than num_nodes (senders index h_flat, receivers and s_dst
     cover num_nodes rows; d(h_flat) has h_flat's rows). rounding: the
-    bfloat16 policy; None reads the v5 knobs now."""
+    bfloat16 policy; None reads the v5 knobs now. src_ptr, dst_ptr: the
+    CSR offsets of the real edges by sender ((rows of h_flat + 1,)) and
+    of the edges by destination ((num_nodes + 1,)), where the caller
+    built them with the graph; derived per call otherwise."""
     n_src = num_nodes if num_src_nodes is None else num_src_nodes
     _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f)
     rounding = v5_rounding() if rounding is None else rounding
     cap = torch.as_tensor(cap, dtype=torch.float32, device=h_flat.device)
     return _V5TwoPhase.apply(h_flat.contiguous(), a_src.contiguous(),
                              s_dst.contiguous(), cap.reshape(()), drop_mask,
-                             senders, receivers, src_order, int(e_real), eps,
-                             slope, rounding, dh_transposed())
+                             senders, receivers, src_order, src_ptr, dst_ptr,
+                             int(e_real), eps, slope, rounding,
+                             dh_transposed())
 
 
 class _V5Sweep1Parts(torch.autograd.Function):
@@ -855,12 +868,8 @@ class _V5Sweep1Parts(torch.autograd.Function):
             dst_ptr=dst_ptr, rounding=ctx.rounding)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
-        if src_ptr is None:
-            d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                            ctx.e_real, transposed=ctx.dh_t)
-        else:
-            d_h = dh_reduce_ptr(d_h_rows, src_order[:ctx.e_real], src_ptr,
-                                transposed=ctx.dh_t)
+        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
+                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, d_cap, code, senders, receivers, h_k,
             a_src, ctx.nh)

@@ -573,7 +573,9 @@ def fused_gat_window(h_flat: torch.Tensor,
                      window: int,
                      eps: float = 1e-8,
                      slope: float = 0.01, *,
-                     src_order: Optional[torch.Tensor] = None
+                     src_order: Optional[torch.Tensor] = None,
+                     src_ptr: Optional[torch.Tensor] = None,
+                     dst_ptr: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """The v6 form: the 2-phase whole-attention op over the graph's own
     dst-sorted edges (real edges first, e < e_real), its global cap taken
@@ -587,7 +589,9 @@ def fused_gat_window(h_flat: torch.Tensor,
     v5_local_cap then fused_gat_table over the graph's CSR (the kernels
     v5_cap, v5_forward_two_phase, v5_backward_two_phase), d(h) reduced by
     the stable sender sort src_order (Graph.src_order; computed per call
-    where the caller has none). tile_lo and window are checked, not read.
+    where the caller has none), with the graph's CSR offsets src_ptr (read
+    only with src_order) and dst_ptr where the caller has them (Graph.
+    src_ptr, Graph.dst_ptr). tile_lo and window are checked, not read.
     The contraction dtype is read now (V6_BF16 in the bfloat16 mode, the
     cap pass on the float32 rows); the v5 knobs are not read."""
     tiles = -(-num_nodes // 128)
@@ -597,12 +601,14 @@ def fused_gat_window(h_flat: torch.Tensor,
                          f"for num_nodes={num_nodes}")
     if src_order is None:
         src_order = torch.argsort(senders, stable=True).to(torch.int32)
+        src_ptr = None
     rounding = FLOAT32 if _v6_dtype() == torch.float32 else V6_BF16
     cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
-                       num_nodes, nh, f, rounding=FLOAT32)
+                       num_nodes, nh, f, rounding=FLOAT32, dst_ptr=dst_ptr)
     return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
                            receivers, src_order, e_real, num_nodes, nh, f,
-                           eps, slope, rounding=rounding)
+                           eps, slope, rounding=rounding, src_ptr=src_ptr,
+                           dst_ptr=dst_ptr)
 
 
 class _WindowSweep1Parts(torch.autograd.Function):

@@ -35,7 +35,7 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
-from ..graph.graph import Graph
+from ..graph.graph import Graph, edge_offsets
 from ..ops.segment import real_first_order
 from .mesh import Mesh
 
@@ -55,9 +55,10 @@ def stack_graphs(graphs: Sequence[Graph]) -> List[Graph]:
 
 def edge_shard(graph: Graph, k: int, num_shards: int) -> Graph:
     """Edge shard k of num_shards of `graph`: its contiguous slice of the
-    dst-sorted edges, with the shard's real-edge count and its own stable
-    sender order (padding edges last); the node fields are the graph's
-    (replicated). Raises when the edge count does not divide."""
+    dst-sorted edges, with the shard's real-edge count, its own stable
+    sender order (padding edges last) and the CSR offsets of both; the
+    node fields are the graph's (replicated). Raises when the edge count
+    does not divide."""
     e = graph.num_edges
     if e % num_shards:
         raise ValueError(f"{e} edges do not divide over {num_shards} edge "
@@ -65,14 +66,17 @@ def edge_shard(graph: Graph, k: int, num_shards: int) -> Graph:
     s = e // num_shards
     sl = slice(k * s, (k + 1) * s)
     senders = graph.senders[sl].contiguous()
+    receivers = graph.receivers[sl].contiguous()
     edge_mask = graph.edge_mask[sl].contiguous()
+    order = real_first_order(senders, edge_mask, graph.num_nodes)
+    e_real = min(max(graph.num_real_edges - k * s, 0), s)
+    src_ptr, dst_ptr = edge_offsets(senders, receivers, order, e_real,
+                                    graph.num_nodes)
     return graph.replace(
-        senders=senders, receivers=graph.receivers[sl].contiguous(),
-        edge_mask=edge_mask,
-        src_order=real_first_order(senders, edge_mask, graph.num_nodes),
-        num_edges=s,
-        num_real_edges=min(max(graph.num_real_edges - k * s, 0), s),
-        tile_lo=None, src_band=0, block_layout=None)
+        senders=senders, receivers=receivers, edge_mask=edge_mask,
+        src_order=order, num_edges=s, num_real_edges=e_real,
+        tile_lo=None, src_band=0, block_layout=None, src_ptr=src_ptr,
+        dst_ptr=dst_ptr)
 
 
 def shard_batch(batch: Sequence[Graph], mesh: Mesh) -> List[Graph]:
