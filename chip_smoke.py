@@ -61,8 +61,11 @@ dataset:
 Phases (every failure is fatal):
   1. build the CUDA kernels from gat_pytorch_tpu_torch/ops/cuda/csrc
      (one nvcc per library, started together: each source, and the three
-     attention sources again for a bfloat16 h table) and print the card's
-     name and power limit as nvidia-smi gives them;
+     attention sources again for a bfloat16 h table), print a [build]
+     line per kernel instance with its registers and local memory
+     (cuobjdump -res-usage; a wide v5 backward instance, rows over 256
+     floats, must use none), and print the card's name and power limit as
+     nvidia-smi gives them;
   2. at each path's layer shapes (Cora 8 heads x 8 features and 1 x 7;
      Pubmed 8 x 8 and 8 x 3; PPI 4 x 256 and 6 x 121; PATTERN 4 x 12,
      4 x 24 and 1 x 1) on its graph or on one batch of its graphs, run
@@ -78,7 +81,16 @@ Phases (every failure is fatal):
      stand-in and its remainder (the parts forwards there too, and the
      v5 parts op with more source rows than destinations); the sorted
      segment sum at widths 4 and 6 (PPI, by receiver and by sender) and
-     8, 24, 64, 1024 (Pubmed), and the sorted-gradient gather built on it;
+     8, 24, 64, 1024 (Pubmed), and its contract case by case
+     (check_sorted_forms: one segment of 100,000 rows, a row a segment,
+     ids past the segments, empty segments, D = 1 to 1024, through ids,
+     ids read by a permutation and offsets, with and without row_limit,
+     a table off 16-byte alignment; the forms to each other's bits), and
+     the sorted-gradient gather built on it, also as the main path calls
+     it with the Graph's offsets (one launch, the bits of the call
+     without); at PPI's widths the v5 backward's wide form in every mode
+     (v5_dasrc, d(a_src) by sender, against its plain version and h^T
+     draw, and fused_gat_table with more source rows than destinations);
      the 2-phase entries (cap pass, forward, backward with d(cap)) at
      the Cora, PPI and PATTERN shapes, on the RCM layout and on the
      cluster-ordered edge list, at the cap, above and below it, eps =
@@ -148,6 +160,7 @@ the port's package is not beside it.
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -333,6 +346,9 @@ REPLACES = {
     # path runs its partial mode)
     "v2_forward": _PALLAS + "segment_attention.py:65",
     "v2_backward": _PALLAS + "segment_attention_bwd.py:39",
+    # the d(a_src) of _kernel_v5_bwd at rows wider than 256 floats: the
+    # backward's wide form leaves it to this kernel, by sender (every mode)
+    "v5_dasrc": _PALLAS + "segment_attention_bwd.py:537",
 }
 SOURCES = {
     "v5_forward": _CSRC + "v5_attention.cu",
@@ -354,12 +370,13 @@ SOURCES = {
     "segment_sum_rows_t": _CSRC + "segment_sum.cu",
     "v2_forward": _CSRC + "segment_attention.cu",
     "v2_backward": _CSRC + "segment_attention.cu",
+    "v5_dasrc": _CSRC + "v5_attention.cu",
 }
 # every bfloat16 mode of an entry: the same TPU kernel and source, its
 # launches counted apart (rounding.Rounding.counter)
 BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
                   if not k.startswith(("segment_sum", "window_cap",
-                                       "v2_backward")))
+                                       "v2_backward", "v5_dasrc")))
 for _k in BF16_KEYS:
     REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
 BWD_NAMES = ("d_h_rows", "d_drop", "d_s_dst", "d_a_src")
@@ -367,21 +384,51 @@ TABLE_BWD_NAMES = ("d_h_rows", "d_logits", "d_drop")
 V2_BWD_NAMES = ("d_logits", "d_h_src", "d_drop")
 
 
-def launches_per_epoch(path, layers, train_batches, val_batches):
+# the layers of a v5-path cell wider than 256 floats (PPI: 4 x 256 twice,
+# 6 x 121): their backward takes the wide form, one v5_dasrc launch each
+DASRC_LAYERS = {"PPI": 3}
+
+
+def launches_per_epoch(path, layers, train_batches, val_batches,
+                       dasrc_layers=0):
     """Launches per epoch of a fit on `path`: each layer's forward runs
     in every train step and in every validation batch, its backward
-    kernels in every train step."""
+    kernels in every train step (v5_dasrc in dasrc_layers of them)."""
     fwd, bwd = PATH_KERNELS[path]
     per = {k: 0 for k in REPLACES}
     for k in fwd:
         per[k] = layers * (train_batches + val_batches)
     for k, count in bwd.items():
         per[k] = count * layers * train_batches
+    per["v5_dasrc"] = dasrc_layers * train_batches
     return per
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check_resource_usage(build):
+    """A [build] line per kernel instance of every library: its registers
+    and its local memory (spilled registers, local arrays) as cuobjdump
+    -res-usage reports them. The v5 backward's wide instances (C >= 16
+    features a lane: rows over 256 floats) must use none."""
+    wide = []
+    for lib in build.LIBRARIES:
+        for sym, reg, local, stack in build.resource_usage(lib):
+            print(f"[build] {lib} {sym}: registers {reg}, local {local} "
+                  f"bytes, stack {stack} bytes")
+            c = re.search(r"v5_bwd_kernelILi(\d+)E", sym)
+            if c and int(c.group(1)) >= 16:
+                wide.append((lib, sym, reg, local))
+    if not wide:
+        fail("no wide v5_bwd_kernel instance in cuobjdump's report")
+    for lib, sym, reg, local in wide:
+        if local:
+            fail(f"{lib} {sym}: the wide v5 backward uses {local} bytes "
+                 f"of local memory")
+    print(f"[build] {len(wide)} wide v5_bwd_kernel instances, no local "
+          f"memory (registers {sorted({w[2] for w in wide})})")
 
 
 def knobs(env):
@@ -737,6 +784,7 @@ def main():
     print(f"[build] {len(build.LIBRARIES)} libraries from "
           f"{len(build.SOURCES)} sources in {time.time() - t0:.1f} s into "
           f"{build.BUILD_DIR}")
+    check_resource_usage(build)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -923,7 +971,29 @@ def main():
         got = v5.v5_backward(*bwd_args)
         hold_all("v5_backward", names, [got[i] for i in keep],
                  [want[i] for i in keep], "v5_backward")
+        same_bits("v5_backward", got, v5.v5_backward(*bwd_args))
         rows = want[0]
+        dasrc_args = None
+        if v5.wide_form(nh * f):
+            # the wide form: d(a_src) by sender from the per-edge d(raw)
+            # rows, against its plain version and the direct h^T draw;
+            # the graph's sender runs give the bits of the derived ones
+            draw = v5.v5_backward_plain(*bwd_args, with_draw=True)[-1]
+            runs = v5.sender_runs(snd, e_real, n, order,
+                                  getattr(graph, "src_ptr", None))
+            dasrc_args = (h, draw) + tuple(runs)
+            got_a = v5.dasrc_by_sender(*dasrc_args)[0]
+            hold_all("v5_dasrc", ("d_a_src by sender",), (got_a,),
+                     (v5.dasrc_by_sender_plain(*dasrc_args),), "v5_dasrc",
+                     floor=0.0)
+            hold_all("v5_dasrc", ("d_a_src against h^T draw",), (got_a,),
+                     (want[3],), "v5_dasrc", floor=0.0)
+            same_bits("v5_dasrc", (got_a,),
+                      (v5.dasrc_by_sender(*dasrc_args)[0],))
+            if getattr(graph, "src_ptr", None) is not None:
+                same_bits("v5_backward by the graph's sender runs", got,
+                          v5.v5_backward(*bwd_args, src_order=order,
+                                         src_ptr=graph.src_ptr))
         # At eps = 1e-8, d(s_dst) is about eps' (the softmax's own terms
         # cancel), so the check above cannot see eps' or a d(s_dst) left
         # at zero. At eps = 1, eps' is of the size of den: hold every
@@ -966,7 +1036,8 @@ def main():
                       (ss.dh_reduce(rows, order, snd, n, e_real, True,
                                     src_ptr=src_ptr),))
         return dict(nh=nh, f=f, drop=with_drop, fwd_args=fwd_args,
-                    bwd_args=bwd_args, parts_args=parts_args, rows=rows)
+                    bwd_args=bwd_args, parts_args=parts_args, rows=rows,
+                    dasrc_args=dasrc_args)
 
     raw = datasets.load_planetoid("Cora", synthetic_override=True, seed=0)
     cora = loader.transductive_graph(raw).to(dev)
@@ -989,34 +1060,48 @@ def main():
     check_dh_rows(torch, np, ss, dev, errs)
     # fused_gat_table and v5_local_cap take an h table of more rows than
     # destinations: 256 rows put in front of the table and every sender
-    # moved up by 256 give the bits of the square call
-    c2 = cora_two[0]
-    h, a_src, s_dst, cap, drop = c2["fwd_args"][:5]
-    nh, f, shift = c2["nh"], c2["f"], 256
-    w_out = torch.randn((n, nh * f), generator=gen, device=dev)
+    # moved up by 256 give the bits of the square call (at rows over 256
+    # floats all but d(a_src), which v5_dasrc sums over blocks of senders:
+    # more senders move the blocks' bounds, so it is held at REL_TOL)
+    def more_source_rows(label, graph, c2, shift=256):
+        n_, e_real_ = graph.num_nodes, graph.num_real_edges
+        snd_, rcv_ = graph.senders, graph.receivers
+        h, a_src, s_dst, cap, drop = c2["fwd_args"][:5]
+        nh, f = c2["nh"], c2["f"]
+        w_out = torch.randn((n_, nh * f), generator=gen, device=dev)
 
-    def table_grads(table, senders, n_src):
-        order_ = torch.argsort(senders, stable=True).to(torch.int32)
-        leaves = [t.clone().requires_grad_(True)
-                  for t in (table, a_src, s_dst)]
-        cap_ = v5.v5_local_cap(*leaves, senders, rcv, e_real, n, nh, f)
-        out = v5.fused_gat_table(*leaves, cap_, drop, senders, rcv, order_,
-                                 e_real, n, nh, f, 1.0, SLOPE, n_src)
-        (out * w_out).sum().backward()
-        return [out.detach(), cap_.detach()] + [t.grad for t in leaves]
+        def table_grads(table, senders, n_src):
+            order_ = torch.argsort(senders, stable=True).to(torch.int32)
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (table, a_src, s_dst)]
+            cap_ = v5.v5_local_cap(*leaves, senders, rcv_, e_real_, n_, nh,
+                                   f)
+            out = v5.fused_gat_table(*leaves, cap_, drop, senders, rcv_,
+                                     order_, e_real_, n_, nh, f, 1.0, SLOPE,
+                                     n_src)
+            (out * w_out).sum().backward()
+            return [out.detach(), cap_.detach()] + [t.grad for t in leaves]
 
-    narrow = table_grads(h, snd, None)
-    wide = table_grads(torch.cat([torch.zeros((shift, nh * f), device=dev),
-                                  h]), snd + shift, n + shift)
-    if wide[2].shape[0] != n + shift or bool(wide[2][:shift].any()):
-        fail("fused_gat_table: d(h) of a wider source table has the wrong "
-             "rows")
-    wide[2] = wide[2][shift:]
-    same_bits("fused_gat_table with more source rows than destinations",
-              narrow, wide)
-    print(f"[kernels] v5_local_cap and fused_gat_table on Cora with "
-          f"{n + shift} source rows for {n} destinations: the bits of the "
-          f"square call")
+        square = table_grads(h, snd_, None)
+        wider = table_grads(torch.cat([torch.zeros((shift, nh * f),
+                                                   device=dev), h]),
+                            snd_ + shift, n_ + shift)
+        if wider[2].shape[0] != n_ + shift or bool(wider[2][:shift].any()):
+            fail(f"fused_gat_table {label}: d(h) of a wider source table "
+                 f"has the wrong rows")
+        wider[2] = wider[2][shift:]
+        if v5.wide_form(nh * f):
+            hold_all(f"fused_gat_table {label} with {n_ + shift} source "
+                     f"rows", ("d_a_src",), wider[3:4], square[3:4],
+                     "v5_dasrc", floor=0.0)
+            square, wider = square[:3] + square[4:], wider[:3] + wider[4:]
+        same_bits(f"fused_gat_table {label} with more source rows than "
+                  f"destinations", square, wider)
+        print(f"[kernels] v5_local_cap and fused_gat_table on {label} with "
+              f"{n_ + shift} source rows for {n_} destinations: the bits of "
+              f"the square call")
+
+    more_source_rows("Cora", cora, cora_two[0])
 
     elapsed("2b")
     # -- 2b. the Pubmed path's kernels against their plain versions --------
@@ -1224,6 +1309,74 @@ def main():
             cases[d] = (vals, ids)
         return cases
 
+    def check_sorted_forms():
+        """Row 11's contract case by case: one segment of 100,000 rows,
+        every row its own id, ids past the segments, empty segments, at
+        widths 1 to 1024, each through the ids, through ids read by a
+        permutation (`order`) and through offsets with that permutation,
+        with and without row_limit; each form against its plain version
+        at REL_TOL x max(1, |ref|), launched twice for equal bits, and the
+        three forms of the same rows to each other's bits; a table off
+        16-byte alignment at widths 4 and 6."""
+        rng = np.random.default_rng(1)
+        cases = (
+            ("one segment of 100000 rows", np.full(100000, 3), 8,
+             (1, 4, 6, 64, 1024)),
+            ("every row its own id", np.arange(20000), 20000, (1, 6, 726)),
+            ("ids past the segments",
+             np.sort(rng.integers(0, 3000, 60000)), 2432, (4, 6, 33)),
+            ("empty segments",
+             np.sort(rng.choice(np.arange(0, 4000, 7), 50000)), 4000,
+             (1, 2, 3, 4, 6, 8, 24, 64, 256, 1024)))
+        for label, ids_np, n_, widths in cases:
+            e_ = ids_np.shape[0]
+            ids = torch.tensor(ids_np, dtype=torch.int32, device=dev)
+            perm = torch.randperm(e_, generator=gen, device=dev)
+            order_ = perm.to(torch.int32)
+            ids_rows = torch.empty_like(ids)
+            ids_rows[perm] = ids
+            ptr = torch.searchsorted(
+                ids, torch.arange(n_ + 1, dtype=torch.int32, device=dev),
+                out_int32=True)
+            for d in widths:
+                vals = torch.randn((e_, d), generator=gen, device=dev)
+                stored = torch.empty_like(vals)
+                stored[perm] = vals
+                for limit in (None, (e_ * 7) // 10):
+                    forms = ((vals, ids, {}), (stored, ids_rows,
+                                              {"order": order_}),
+                             (stored, None, {"order": order_, "ptr": ptr}))
+                    first = None
+                    for fi, (v, i, kw) in enumerate(forms):
+                        name = (f"segment_sum_sorted {label} D={d} "
+                                f"row_limit={limit} form {fi}")
+                        got = ss.segment_sum_sorted(v, i, n_, row_limit=limit,
+                                                    **kw)
+                        want = ss.segment_sum_sorted_plain(
+                            v, i, n_, row_limit=limit, **kw)
+                        hold_all(name, ("out",), (got,), (want,),
+                                 "segment_sum_sorted")
+                        same_bits(name, (got,), (ss.segment_sum_sorted(
+                            v, i, n_, row_limit=limit, **kw),))
+                        if first is None:
+                            first = got
+                        else:
+                            same_bits(f"{name} against form 0", (got,),
+                                      (first,))
+                if d in (4, 6):     # float4 / float2 loads refused
+                    buf = torch.randn((e_ * d + 1,), generator=gen,
+                                      device=dev)
+                    odd = buf[1:].view(e_, d)
+                    got = ss.segment_sum_sorted(odd, ids, n_)
+                    hold_all(f"segment_sum_sorted {label} D={d} off "
+                             f"16-byte alignment", ("out",), (got,),
+                             (ss.segment_sum_sorted_plain(odd, ids, n_),),
+                             "segment_sum_sorted")
+        print("[kernels] segment_sum_sorted: every case and form against "
+              "its plain version, equal bits on two launches and across "
+              "the forms")
+
+    check_sorted_forms()
     sorted_cases = {}
     hybrid_send_sorted = hybrid.senders[hybrid.src_order.long()]
     print("[kernels] sorted segment sum on the cluster-ordered Pubmed "
@@ -1310,15 +1463,20 @@ def main():
           f"{ppi.num_nodes} nodes (padded, {int(ppi.node_mask.sum())} "
           f"real), {ppi.num_edges} edges (padded), {ppi.num_real_edges} "
           f"real")
-    ppi_table_cases, ppi_v5_cases = [], []
+    ppi_table_cases, ppi_v5_cases, ppi_two = [], [], []
     for nh, f in SHAPES["PPI"]:
         print(f"[kernels] PPI layer shape {nh}x{f}: table kernels on "
-              f"max-subtracted logits at eps = 0, v5 kernels, no dropout")
+              f"max-subtracted logits at eps = 0, v5 kernels (the wide "
+              f"backward), no dropout")
         ppi_table_cases.append(check_table(ppi, nh, f, 0.0, True, False))
         ppi_v5_cases.append(check_v5(ppi, nh, f, with_drop=False))
+        print(f"[kernels] PPI layer shape {nh}x{f}, v5 with dropout")
+        check_v5(ppi, nh, f, with_drop=True)
         print(f"[kernels] PPI layer shape {nh}x{f}, 2-phase")
-        check_two_phase(f"PPI {nh}x{f}", v5_two_phase_entries(ppi), V5_TWO,
-                        ppi.num_nodes, nh, f, ppi.num_edges)
+        ppi_two.append(check_two_phase(
+            f"PPI {nh}x{f}", v5_two_phase_entries(ppi), V5_TWO,
+            ppi.num_nodes, nh, f, ppi.num_edges))
+    more_source_rows("PPI 4x256", ppi, ppi_two[0])
     # the sorted segment sum where the main path launches it: the
     # gradients of the table path's two score gathers, (E, nh) rows summed
     # by receiver and, through src_order, by sender
@@ -1352,6 +1510,36 @@ def main():
                  (gather_grad(plain_fn),), "segment_sum_sorted", floor=0.0)
         same_bits(f"gather_rows_sorted_grad {label}", (got,),
                   (gather_grad(sorted_fn),))
+    # as the main path calls them: with the Graph's offsets (and the
+    # receivers' real-edge count), the padding edges' cotangent zero as
+    # the layer's torch.where makes it; against index_select's gradient
+    # and against the call without offsets (equal bits)
+    weight[ppi.num_real_edges:] = 0.0
+    er = ppi.num_real_edges
+    for label, with_ptr, without, plain_fn in (
+            ("by sender", lambda t: seg.gather_rows_sorted_grad(
+                t, ppi.senders, ppi.num_nodes, ppi.src_order,
+                ptr=ppi.src_ptr),
+             lambda t: seg.gather_rows_sorted_grad(
+                 t, ppi.senders, ppi.num_nodes, ppi.src_order),
+             lambda t: seg.gather_rows(t, ppi.senders)),
+            ("by receiver", lambda t: seg.gather_rows_sorted_grad(
+                t, ppi.receivers, ppi.num_nodes, ptr=ppi.dst_ptr,
+                num_real=er),
+             lambda t: seg.gather_rows_sorted_grad(
+                 t, ppi.receivers, ppi.num_nodes),
+             lambda t: seg.gather_rows(t, ppi.receivers))):
+        build.reset_launches()
+        got = gather_grad(with_ptr)
+        torch.cuda.synchronize()
+        if build.LAUNCHES["segment_sum_sorted"] != 1:
+            fail(f"gather_rows_sorted_grad {label} with offsets: "
+                 f"{build.LAUNCHES['segment_sum_sorted']} sorted sums")
+        hold_all(f"gather_rows_sorted_grad {label} with the graph's "
+                 f"offsets", ("d(table)",), (got,), (gather_grad(plain_fn),),
+                 "segment_sum_sorted", floor=0.0)
+        same_bits(f"gather_rows_sorted_grad {label} with the graph's "
+                  f"offsets against without", (got,), (gather_grad(without),))
     print("[kernels] Cora layer shape 8x8: table kernels on capped logits "
           "with dropout at eps = 1e-8")
     cora_table_case = check_table(cora, 8, 8, 1e-8, False, True)
@@ -1597,6 +1785,19 @@ def main():
     ppi_table_modes = [check_table_modes(ppi, nh, f, 0.0, True,
                                          f"PPI {nh}x{f}")
                        for nh, f in SHAPES["PPI"]]
+    # the v5 entries' modes at PPI's widths: the wide backward in every
+    # mode (its draw rounded where kRoundDraw says, its h rows where
+    # kRoundRows does)
+    ppi_v5_modes = []
+    for nh, f in SHAPES["PPI"]:
+        ppi_v5_modes.append(check_v5_modes(ppi, f"PPI {nh}x{f}", nh, f,
+                                           V5_MODES, TABLE_ACC, False))
+        check_v5_modes(ppi, f"PPI {nh}x{f}", nh, f, (TABLE_ACC,),
+                       TABLE_ACC, True)
+        for rnd in (TABLE_ACC, wa.V6_BF16):
+            check_two_phase_modes(f"PPI {nh}x{f}", v5_two_phase_entries(ppi),
+                                  V5_TWO, ppi.num_nodes, nh, f,
+                                  ppi.num_edges, rnd)
 
     elapsed("2e")
     # -- 2e. the v2 kernels (rows 9-10) ------------------------------------
@@ -1788,7 +1989,8 @@ def main():
             fail(f"{name}: layer paths {sorted(trace)} x "
                  f"{len(gat.PATH_TRACE)}, expected {traced} x {forwards}")
         per_epoch[name] = launches_per_epoch(path, layers, len(train_data),
-                                             len(val_data))
+                                             len(val_data),
+                                             DASRC_LAYERS.get(name, 0))
         for k, per in per_epoch[name].items():
             if ran[k] != per * epochs:
                 fail(f"{name}: {k}: {ran[k]} launches on the main path, "
@@ -2180,16 +2382,32 @@ def main():
                      + n_ * d + n_ * nh + 2)
         b_bwd = 4 * (n_ * d + d * nh + n_ * nh + dm + 2 * e_ + 2 * n_ * d
                      + n_ * nh + 1 + e_ * d + dm + n_ * nh + d * nh)
+        # the wide form (rows over 256 floats) writes each real edge's
+        # d(raw) row and v5_dasrc reads it back with the sender runs
+        er = graph.num_real_edges
+        if c["dasrc_args"] is not None:
+            b_bwd += 4 * (2 * er * nh + er + n_ + 1)
         # the parts mode reads d(num) and d(den) in place of g, out, den, eps'
         b_parts = b_bwd - 4 * (n_ * d + 1)
         pa = c["parts_args"]
-        o_fwd, o_bwd = attention_ops(graph.num_real_edges, d, nh)
+        o_fwd, o_bwd = attention_ops(er, d, nh)
         ids_sorted = snd_.index_select(0, order_.long())
         snd_l = snd_.long()
         # the d(h) reduce as the main path calls it: by the graph's
         # offsets where it carries them, over its real rows
-        src_ptr, er = getattr(graph, "src_ptr", None), graph.num_real_edges
-        return {
+        src_ptr = getattr(graph, "src_ptr", None)
+        rows_out = {}
+        if c["dasrc_args"] is not None:
+            # draw, the sender order and offsets read, h read, d(a_src)
+            # written; a multiply-add per (sender, feature, head) and an
+            # add per (edge, head)
+            da = c["dasrc_args"]
+            rows_out["v5_dasrc"] = (
+                lambda: v5.dasrc_by_sender(*da),
+                lambda: v5.dasrc_by_sender_plain(*da), None,
+                4 * (er * nh + er + n_ + 1 + n_ * d + d * nh),
+                er * nh + 2 * n_ * d * nh)
+        return rows_out | {
             "v5_forward": (lambda: v5.v5_forward(*fa),
                            lambda: v5.v5_forward_plain(*fa), None,
                            b_fwd, o_fwd),
@@ -2371,20 +2589,63 @@ def main():
                 0, ids_l, vals),
             4 * (e_ * d + e_ + n_ * d), e_ * d)}
 
-    # the result line: the score widths of the PPI paper_faithful fit, by
-    # receiver (the sum by sender runs the same kernel on permuted rows)
+    # by ids, every row read (PPI's receivers with the sink's padding
+    # rows, and the Pubmed widths)
     for label, cases in sorted_cases.items():
         n_ = ppi.num_nodes if label.startswith("PPI") else hybrid.num_nodes
         for d, (vals, ids) in cases.items():
-            time_rows(f"{label} D={d} ({ids.shape[0]} rows, {n_} segments)",
-                      sorted_time_rows(vals, ids, n_),
-                      into_json=label == "PPI by receiver")
+            time_rows(f"{label} D={d} ({ids.shape[0]} rows, {n_} segments, "
+                      f"by ids)", sorted_time_rows(vals, ids, n_),
+                      into_json=False)
+
+    def main_path_sorted_rows(vals, row_ids, n_, **kw):
+        """The sorted sum as a score gather's backward calls it on the
+        main path: the Graph's offsets, the real rows alone (kw: order and
+        ptr, or ptr and row_limit); row_ids: each row's segment, for
+        index_add_ over the real rows. Bytes: the real rows, the order
+        where there is one, the offsets, the table written."""
+        er_, d = ppi.num_real_edges, vals.shape[1]
+        ids_l = row_ids[:er_].long()
+        order_words = er_ if "order" in kw else 0
+        return {"segment_sum_sorted": (
+            lambda: ss.segment_sum_sorted(vals, None, n_, **kw),
+            lambda: ss.segment_sum_sorted_plain(vals, None, n_, **kw),
+            lambda: torch.zeros((n_, d), device=dev).index_add_(
+                0, ids_l, vals[:er_]),
+            4 * (er_ * d + order_words + n_ + 1 + n_ * d), er_ * d)}
+
+    # the result line: the score widths of the PPI paper_faithful fit, by
+    # receiver as the main path calls it; by sender beside it
+    for d in ppi_heads:
+        vals = torch.randn((ppi.num_edges, d), generator=gen, device=dev)
+        label = (f"PPI by receiver D={d} ({ppi.num_real_edges} real rows, "
+                 f"{ppi.num_nodes} segments, the Graph's offsets)")
+        time_rows(label, main_path_sorted_rows(
+            vals, ppi.receivers, ppi.num_nodes, ptr=ppi.dst_ptr,
+            row_limit=ppi.num_real_edges), into_json=True)
+        label = (f"PPI by sender D={d} ({ppi.num_real_edges} real rows, "
+                 f"{ppi.num_nodes} segments, the Graph's offsets)")
+        time_rows(label, main_path_sorted_rows(
+            vals, ppi.senders, ppi.num_nodes, order=ppi.src_order,
+            ptr=ppi.src_ptr), into_json=False)
     # the table kernels at the PPI widths (the JSON line's times), and
     # beside them the v5 kernels and the reduce on the same batch
     for ct, c5 in zip(ppi_table_cases, ppi_v5_cases):
         label = f"PPI {ct['nh']}x{ct['f']}"
         time_rows(label, table_time_rows(ppi, ct), into_json=True)
-        time_rows(label, v5_time_rows(ppi, c5), into_json=False)
+        # row 2 at the widths the PPI fit launches it (the wide form, its
+        # bound with draw's bytes); v5_dasrc's line times from here
+        time_rows(label, v5_time_rows(ppi, c5), into_json=("v5_dasrc",))
+    for c in ppi_two:
+        pe, per_ = ppi.num_edges, ppi.num_real_edges
+        rows_2p = two_phase_time_rows(c, v5_two_phase_entries(ppi), V5_TWO,
+                                      ppi.num_nodes, pe, 2 * pe, per_, pe)
+        kern, plain, lib, nbytes, ops = rows_2p["v5_backward_two_phase"]
+        rows_2p["v5_backward_two_phase"] = (
+            kern, plain, lib, nbytes + 4 * (2 * per_ * c["nh"] + per_
+                                            + ppi.num_nodes + 1), ops)
+        time_rows(f"PPI {c['nh']}x{c['f']} 2-phase", rows_2p,
+                  into_json=False)
     time_rows("Cora 8x8 with dropout", table_time_rows(cora, cora_table_case),
               into_json=False)
     # both ops on one small batch: the JAX package takes the table op
@@ -2705,7 +2966,8 @@ def main():
               f"summed: v5 and segment_sum_rows Cora's, window Pubmed's, "
               f"table PPI's, the parts modes the hybrid Pubmed layout's and "
               f"its remainder's, segment_sum_sorted PPI's score widths by "
-              f"receiver, the v5 2-phase entries Cora's, the window 2-phase "
+              f"receiver with the Graph's offsets, v5_dasrc PPI's, the v5 "
+              f"2-phase entries Cora's, the window 2-phase "
               f"entries Pubmed's, each bfloat16 mode its entry's, "
               f"segment_sum_rows_t Cora's, the v2 entries PPI's in the "
               f"partial mode); launches {launches[k]} over the "

@@ -237,13 +237,20 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
                  senders: torch.Tensor, receivers: torch.Tensor,
                  edge_mask: torch.Tensor,
                  src_order: Optional[torch.Tensor] = None,
-                 edge_axis=None) -> torch.Tensor:
+                 edge_axis=None, *,
+                 src_ptr: Optional[torch.Tensor] = None,
+                 dst_ptr: Optional[torch.Tensor] = None,
+                 num_real_edges: Optional[int] = None) -> torch.Tensor:
     """(E, NH) edge logits after LeakyReLU, from node scores: zeros under
     const_attention, per-head a = [a_l || a_r] scores under paper_faithful,
     else the cross-head scores with the global max-cap BEFORE LeakyReLU.
     With src_order (the stable sender sort of the edges) the two score
     gathers take the sorted-gradient form, whose backward has a fixed
-    order of sums; without it, plain gathers (the segment path).
+    order of sums; without it, plain gathers (the segment path). src_ptr
+    (the offsets of the real edges in src_order), dst_ptr and
+    num_real_edges go to those gathers' backwards: the caller replaces
+    the padding edges' logits, so their cotangent is zero and the sums
+    skip them.
     edge_axis: the edges are this rank's shard over that axis; the
     replicated score tables enter the shard's edges through vary, and the
     global cap is completed over the shards (_global_cap)."""
@@ -267,8 +274,11 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
         logits = seg.gather_rows(s_src, senders) + seg.gather_rows(
             s_dst, receivers)
     else:   # the receivers are sorted as they are
-        logits = (seg.gather_rows_sorted_grad(s_src, senders, n, src_order)
-                  + seg.gather_rows_sorted_grad(s_dst, receivers, n))
+        logits = (seg.gather_rows_sorted_grad(s_src, senders, n, src_order,
+                                              ptr=src_ptr)
+                  + seg.gather_rows_sorted_grad(s_dst, receivers, n,
+                                                ptr=dst_ptr,
+                                                num_real=num_real_edges))
     if not cfg.paper_faithful:
         cap = torch.where(edge_mask[:, None], logits,
                           torch.full_like(logits, float("-inf"))).max()
@@ -460,7 +470,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                      else seg.real_first_order(senders, edge_mask, num_nodes))
         src_ptr = None      # the table op derives the offsets of this order
     logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask,
-                          src_order if kernel else None, ax)
+                          src_order if kernel else None, ax, src_ptr=src_ptr,
+                          dst_ptr=dst_ptr, num_real_edges=num_real_edges)
     eps = 0.0 if cfg.paper_faithful else 1e-8
     drop = (_attention_dropout((e, nh), cfg.dropout, generator, x.device)
             if dropping else None)
@@ -496,7 +507,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         er = (int(edge_mask.sum()) if num_real_edges is None
               else num_real_edges)
         h_src = seg.gather_rows_sorted_grad(C.vary(h_flat, ax), senders[:er],
-                                            num_nodes, src_order[:er])
+                                            num_nodes, src_order[:er],
+                                            ptr=src_ptr)
         num, den = v2.fused_segment_attention_partial(
             logits, h_src, receivers, drop, num_nodes, nh, f, er)
         num, den = C.psum(num, ax), C.psum(den, ax)

@@ -56,7 +56,7 @@ _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     _ENTRIES + ("segment_sum_rows", "segment_sum_sorted", "window_cap",
                 "segment_sum_rows_t", "v2_forward", "v2_backward",
-                "v2_forward_bf16")
+                "v2_forward_bf16", "v5_dasrc")
     + tuple(k + "_bf16" for k in _ENTRIES), 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -126,6 +126,28 @@ def build_all(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def resource_usage(name: str):
+    """[(kernel symbol, registers, local bytes, stack bytes)] of the built
+    library `name`, as `cuobjdump -res-usage` reports them (LOCAL is the
+    per-thread local memory: spilled registers and local arrays)."""
+    tool = str(Path(_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-res-usage", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    found, symbol = [], None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function ") and line.endswith(":"):
+            symbol = line[len("Function "):-1]
+        elif symbol is not None and line.startswith("REG:"):
+            fields = dict(f.split(":", 1) for f in line.split()
+                          if ":" in f)
+            found.append((symbol, int(fields["REG"]),
+                          int(fields.get("LOCAL", 0)),
+                          int(fields.get("STACK", 0))))
+            symbol = None
+    return found
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,7 +2,8 @@
 // attention backward in its row-major (seg_rows_kernel and, for rows wider
 // than 256 floats, seg_rows_wide_kernel) and feature-major
 // (seg_rows_t_kernel, further down, with its own header) forms, and the
-// plain sorted segment sum (sorted_sum_kernel, with its own header).
+// plain sorted segment sum (sorted_sum_kernel, load-balanced over rows,
+// with its own header).
 //
 // seg_rows_kernel and seg_rows_wide_kernel replace the TPU kernel
 //   gat_pytorch_tpu/ops/pallas/segment_sum.py:_kernel_rows_nt
@@ -58,18 +59,26 @@ namespace {
 constexpr int kWarps = 8;  // warps per block
 constexpr unsigned kFull = 0xffffffffu;
 
-// V consecutive floats from p (16-byte aligned where V == 4)
-template <int V>
+// V consecutive floats from p (16-byte aligned where V == 4, 8-byte
+// where V == 2); CG: through L2 only (data another block wrote in this
+// launch, after a fence)
+template <int V, bool CG = false>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p,
                                          float (&v)[V]) {
   if constexpr (V == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
+    const float4 q = CG ? __ldcg(reinterpret_cast<const float4*>(p))
+                        : *reinterpret_cast<const float4*>(p);
     v[0] = q.x;
     v[1] = q.y;
     v[2] = q.z;
     v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = CG ? __ldcg(reinterpret_cast<const float2*>(p))
+                        : *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
   } else {
-    v[0] = *p;
+    v[0] = CG ? __ldcg(p) : *p;
   }
 }
 
@@ -78,6 +87,8 @@ __device__ __forceinline__ void store_vec(float* __restrict__ p,
                                           const float (&v)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
     *p = v[0];
   }
@@ -350,122 +361,418 @@ seg_rows_t_kernel(const float* __restrict__ values,
 }
 
 // ---------------------------------------------------------------------------
-// Plain sorted segment sum.
+// Sorted segment sum (row 11), load-balanced over rows.
 //
 // Replaces the TPU kernel
 //   gat_pytorch_tpu/ops/pallas/segment_sum.py:_kernel (segment_sum_pallas),
-//   the reduction behind ops/pallas/gather.py:gather_rows_src_sorted and
+//   the reduction behind ops/pallas/gather.py:gather_rows_src_sorted, whose
+//   jnp.take permutation of the cotangent is fused into the read here, and
 //   ops/segment.py:gather_rows_sorted_grad: the transpose of a row gather
 //   whose indices are sorted.
 //
-// Contract: out[s, :] = sum of values[e, :] over the rows e with
-// ids[e] == s, for ids ascending; ids >= nseg (and < 0) are dropped;
-// float32, any width 1 <= d_feat <= 1024, no permutation.
+// Contract: out[s, :] = sum of values[r_i, :] over the positions i whose
+// segment is s, r_i = order[i] (order NULL: i), for positions
+// i < min(e, row_limit) (the caller says the rows past row_limit are
+// zero; they are not read). The segment of position i is given one of two
+// ways: by ids, ids[r_i], ascending in i, ids < 0 or >= nseg dropped;
+// or by CSR offsets, the positions [ptr[s], ptr[s+1]) (positions before
+// ptr[0] or from ptr[nseg] on belong to none). Every segment is written, 0
+// where it has no row. float32, 1 <= d_feat <= 1024.
 //
-// Design. Two passes in one call. seg_offsets_kernel turns the sorted ids
-// into row offsets, ptr[j] = the first row with id >= j: thread i looks at
-// the boundary between rows i-1 and i and writes the offsets of the ids
-// that begin there, so every offset has one writer. sorted_sum_kernel then
-// gives one warp one segment, whose rows lie next to each other in memory.
-// The widths this meets are the (E, nh) score cotangents, nh = 1..8, and
-// nh*f = 24..1024. For d_feat <= 32 a row takes G = the next power of two
-// >= d_feat lanes, so the warp reads 32/G consecutive rows per step (one
-// coalesced load when d_feat is a power of two) into one accumulator per
-// lane, and the 32/G partial rows are folded by a butterfly of shuffles,
-// a fixed tree. Wider rows give lane l the features l, l+32, ... of one
-// row per step. The loads of a segment do not depend on one another, so
-// several are in flight. One writer per output row, a fixed order of sums,
-// no atomics: two launches give the same bits. A long segment (the sink
-// node of a padded batch holds thousands of padding edges) is still one
-// warp's, at 32/G rows a step with up to 16 steps' loads in flight.
+// Design. The TPU kernel reduced blocks of 1024 rows with one-hot matmuls
+// into tiles of 128 segments. Here the work is cut by rows, not by
+// segments, so that a long segment (the sink's thousands of padding rows
+// in a padded batch) is spread over many workers:
+//  - a worker, G lanes (the next power of two >= the row's vectors, at
+//    most 32; lane k owns the vectors k, k+G, ... of a row, float4 or
+//    float2 where the width and the tables' alignment allow), owns a chunk
+//    of kChunk = 32 consecutive positions; it issues U rows' loads (and,
+//    by ids, their ids) at once, then walks them in order, adding each row
+//    to the run of its segment;
+//  - where the segment changes, the run is flushed: a segment that lies
+//    wholly in the chunk is written directly; a segment that crosses a
+//    chunk boundary leaves one partial a chunk (slot 1 of the chunk where
+//    it starts, slot 0 of every later one); after its walk each worker
+//    adds an arrival code for each partial to the segment's int counter,
+//    all workers of a warp together after one fence (a post inside the
+//    walk would serialise the warp's diverging workers). The codes sum to
+//    kArrived exactly when all its chunks have arrived, so the last to
+//    arrive, whichever it is, folds the partials (a segment over more
+//    than 8 chunks with its whole warp: 32 lanes over the chunks, then a
+//    fixed butterfly), writes the segment and sets its counter back to 0:
+//    one launch, whatever the segments' lengths, and a second pass that
+//    has nothing to do where no segment crosses. (A worker that read on
+//    into the next chunk to finish a segment that crosses one boundary,
+//    in place of posting it, measured slower: a second round of loads on
+//    most workers costs more than the post.)
+//  - a worker finds the segment of its first position from the ids (one
+//    load) or by a binary search of the offsets, and zeroes the empty
+//    segments that begin in its chunk (the last chunk those after the last
+//    row), so every output row has one writer.
+// No float atomics, and the order of every sum is fixed by the chunking: a
+// segment's rows in order within a chunk, then its chunks in order (over
+// a warp: in a fixed tree). So two
+// launches give the same bits, and the offsets form gives the bits of the
+// ids form on the same rows; a segment's sum is not a left-to-right sum
+// of its rows (its chunks' sums are added), and the contract promises no
+// particular association. The counters are int32 scratch that the caller
+// hands over zeroed and gets back zeroed.
 //
-// What bounds it on the H100: bytes, values (E x D x 4) and ids (E x 4)
-// read once, out (N x D x 4) written once; the offsets (N x 4, written and
-// read) are scratch on top. At a few MB the launch of two kernels and the
-// short per-segment chains (offsets, rows, shuffles, store) dominate.
+// What bounds it on the H100: bytes, the rows read once (E x D x 4), the
+// ids or order read once (E x 4), out written once (N x D x 4): about a
+// microsecond at PPI's score widths, below a launch. So the launch, a
+// chunk's rounds of loads, the posts and the fold of the longest segment
+// (its chunks' partials over a warp, 8 loads in flight a lane) make its
+// time.
 
-__global__ void seg_offsets_kernel(const int* __restrict__ ids, int e,
-                                   int nseg, int* __restrict__ ptr) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i <= e;
-       i += gridDim.x * blockDim.x) {
-    const int prev = i == 0 ? -1 : max(-1, min(ids[i - 1], nseg));
-    const int cur = i == e ? nseg : max(-1, min(ids[i], nseg));
-    for (int j = prev + 1; j <= cur; ++j) ptr[j] = i;
-  }
+constexpr int kChunk = 32;  // positions a worker
+constexpr int kSms = 132;   // the H100's streaming multiprocessors
+// Arrival codes of a segment spanning chunks c0 < c1: c0 adds
+// kArrivalBase + c0 + 1, c1 adds kArrivalBase - c1, every chunk between
+// adds 1. They sum to kArrived, and no proper subset does (c1 <
+// kArrivalBase): without c0's code the sum stays below kArrivalBase,
+// without c1's below kArrivalBase + c1, and with both but j chunks between
+// missing it is kArrived - j.
+constexpr int kArrivalBase = 1 << 29;
+constexpr int kArrived = 2 * kArrivalBase;
+constexpr int kFoldLoads = 8;  // partials in flight while a segment folds
+
+__device__ __forceinline__ int clamp_id(int id, int nseg) {
+  return id < 0 ? -1 : min(id, nseg);
 }
 
-// acc += rows [base, base + k*U*per_step) for the largest k that stays under
-// hi, U steps' loads in flight at once; returns the first row not summed.
-template <int U, int C>
-__device__ __forceinline__ int sum_steps(const float* __restrict__ values,
-                                         int base, int hi, int per_step,
-                                         int sub, int j, int d_feat,
-                                         const bool (&live)[C],
-                                         float (&acc)[C]) {
-  for (; base + U * per_step <= hi; base += U * per_step) {
-    float v[U][C];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const size_t row = (size_t)(base + u * per_step + sub);
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        v[u][c] = live[c] ? values[row * d_feat + j + 32 * c] : 0.f;
+// the largest s in [0, nseg) with ptr[s] <= i, or -1 where ptr[0] > i:
+// a gallop from the guess that segments are of equal length (a few loads
+// where they nearly are), then a binary search of what is left
+__device__ __forceinline__ int segment_of(const int* __restrict__ ptr,
+                                          int nseg, int i, int total) {
+  int lo = -1, hi = nseg - 1;  // the answer lies in [lo, hi]
+  const int guess =
+      min(max((int)((long long)i * nseg / max(total, 1)), 0), nseg - 1);
+  if (ptr[guess] <= i) {
+    lo = guess;
+    int step = 1;
+    while (lo + step <= hi && ptr[lo + step] <= i) {
+      lo += step;
+      step *= 2;
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float part = v[0][c];
-#pragma unroll
-      for (int u = 1; u < U; ++u) part += v[u][c];
-      acc[c] += part;
+    hi = min(hi, lo + step - 1);
+  } else {
+    hi = guess - 1;
+    int step = 1;
+    while (guess - step >= 0 && ptr[guess - step] > i) {
+      hi = guess - step - 1;
+      step *= 2;
+    }
+    lo = max(guess - step, -1);
+  }
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (ptr[mid] <= i) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
     }
   }
-  return base;
+  return lo;
 }
 
-// group: lanes per row (a power of two, 32 when d_feat > 32); C: features
-// per lane (1 when d_feat <= 32)
-template <int C>
+// G lanes a worker, V floats a vector, C vectors a lane (C > 1 only at
+// G = 32), U rows' loads in flight. cnt (nseg,): the crossing segments'
+// arrival counters, zeroed; span (2 nseg,): their first and last chunks.
+// part: 2 rows of d_feat a chunk. Every thread of a block runs to the end
+// (a worker past the last chunk idles): the posts and the folds are
+// warp-wide.
+template <int G, int V, int C, int U>
 __global__ void __launch_bounds__(kWarps * 32)
 sorted_sum_kernel(const float* __restrict__ values,
-                  const int* __restrict__ ptr, int nseg, int d_feat, int group,
+                  const int* __restrict__ ids, const int* __restrict__ order,
+                  const int* __restrict__ ptr, int e, int row_limit,
+                  int nseg, int d_feat, float* __restrict__ part,
+                  int* __restrict__ cnt, int* __restrict__ span,
                   float* __restrict__ out) {
+  constexpr int P = 32 / G;  // workers a warp
+  // partials in flight a lane in a warp's fold: 32 floats' worth
+  constexpr int kLongLoads = 32 / (C * V) > kFoldLoads ? 32 / (C * V)
+                                                       : kFoldLoads;
+  static_assert(kChunk % U == 0, "a chunk is whole rounds of loads");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / group, j = lane % group, per_step = 32 / group;
+  const int k = lane % G, grp = lane / G;
+  const int wpb = blockDim.x >> 5;  // warps a block (1 to kWarps)
+  const int c = (blockIdx.x * wpb + warp) * P + grp;  // the chunk
+  const int nrows = min(ptr ? min(ptr[nseg], e) : e, row_limit);
+  const int last = nrows > 0 ? (nrows - 1) / kChunk : 0;
+  const int nvec = d_feat / V;
   bool live[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) live[c] = j + 32 * c < d_feat;
-  for (int s = blockIdx.x * kWarps + warp; s < nseg; s += gridDim.x * kWarps) {
-    float acc[C];
+  for (int q = 0; q < C; ++q) live[q] = k + G * q < nvec;
+
+  auto store_row = [&](float* dst, const float (&a)[C][V]) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-    const int lo = ptr[s], hi = ptr[s + 1];
-    int base = lo;
-    // A long segment (the sink's padding rows) is one warp's, and a step
-    // costs a memory latency: take 16, then 4 steps' loads at once (none
-    // depends on another) while the segment has that many left. Wide rows
-    // already have C loads per lane in flight.
-    if constexpr (C == 1)
-      base = sum_steps<16, C>(values, base, hi, per_step, sub, j, d_feat, live,
-                              acc);
-    if constexpr (C <= 4)
-      base = sum_steps<4, C>(values, base, hi, per_step, sub, j, d_feat, live,
-                             acc);
-    for (; base < hi; base += per_step) {
-      const int row = base + sub;
-      if (row < hi) {
+    for (int q = 0; q < C; ++q)
+      if (live[q]) store_vec<V>(dst + V * (k + G * q), a[q]);
+  };
+  auto zero_range = [&](int a, int b) {  // out[s] = 0 for s in [a, b)
+    float z[V];
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          if (live[c]) acc[c] += values[(size_t)row * d_feat + j + 32 * c];
+    for (int x = 0; x < V; ++x) z[x] = 0.f;
+    for (int s = max(a, 0); s < min(b, nseg); ++s) {
+#pragma unroll
+      for (int q = 0; q < C; ++q)
+        if (live[q])
+          store_vec<V>(out + (size_t)s * d_feat + V * (k + G * q), z);
+    }
+  };
+  auto row_of = [&](int i) { return order ? order[i] : i; };
+
+  // This worker's crossing segments: slot 0, the one that began before
+  // the chunk; slot 1, the one that begins in it and goes on after it.
+  // Their partials are stored as the walk flushes them; the arrivals are
+  // posted after the walk, by all workers of the warp together.
+  int post_seg[2] = {-1, -1}, post_code[2] = {0, 0};
+  if (c <= last && nrows == 0) {  // chunk 0 alone: every segment is empty
+    zero_range(0, nseg);
+  } else if (c <= last) {
+    const int lo = c * kChunk, hi = min(lo + kChunk, nrows);
+    float acc[C][V];
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+#pragma unroll
+      for (int x = 0; x < V; ++x) acc[q][x] = 0.f;
+
+    // the run of segment s ends: written, or its partial stored
+    auto flush = [&](int s, bool from_before, bool to_after) {
+      if (s < 0 || s >= nseg) return;  // dropped rows
+      if (!from_before && !to_after) {
+        store_row(out + (size_t)s * d_feat, acc);
+        return;
+      }
+      const int slot = from_before ? 0 : 1;
+      store_row(part + ((size_t)c * 2 + slot) * d_feat, acc);
+      if (!from_before) span[2 * s] = c;
+      if (!to_after) span[2 * s + 1] = c;
+      post_seg[slot] = s;
+      post_code[slot] = !from_before ? kArrivalBase + c + 1
+                                     : (to_after ? 1 : kArrivalBase - c);
+    };
+
+    int key[U];
+    float v[U][C][V];
+    // U positions' rows (and, by ids, their segments) from base on, all in
+    // flight at once
+    auto load_round = [&](int base) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u;
+        const bool in = i < hi;
+        const int r = in ? row_of(i) : 0;
+        key[u] = (in && !ptr) ? clamp_id(ids[r], nseg) : -1;
+        const float* row = values + (size_t)r * d_feat + V * k;
+#pragma unroll
+        for (int q = 0; q < C; ++q) {
+          if (in && live[q]) {
+            load_vec<V>(row + V * G * q, v[u][q]);
+          } else {
+#pragma unroll
+            for (int x = 0; x < V; ++x) v[u][q][x] = 0.f;
+          }
+        }
+      }
+    };
+    load_round(lo);  // in flight while the chunk's first segment is found
+
+    // the segment of the first position, whether it began before this
+    // chunk, and the empty segments that begin at lo
+    int cur, nb = 0;  // nb (offsets): where cur's run ends, clipped
+    bool head;
+    int next = -2;    // ids: the segment of position hi
+    if (ptr) {
+      cur = segment_of(ptr, nseg, lo, nrows);
+      head = cur >= 0 && ptr[cur] < lo;
+      if (!head)
+        for (int s = cur - 1; s >= 0 && ptr[s] >= lo; --s)
+          zero_range(s, s + 1);
+      nb = min(ptr[cur + 1], nrows);
+    } else {
+      if (hi < nrows) next = clamp_id(ids[row_of(hi)], nseg);
+      const int prev = lo > 0 ? clamp_id(ids[row_of(lo - 1)], nseg) : -1;
+      cur = key[0];
+      head = lo > 0 && prev == cur;
+      if (!head) zero_range(prev + 1, cur);
+    }
+
+    for (int base = lo; base < hi; base += U) {
+      if (base > lo) load_round(base);
+      // in order: the loads above are all in flight by now
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u;
+        if (i >= hi) break;
+        int key_i = ptr ? cur : key[u];
+        if (ptr && i >= nb) {  // cur's run ended: the largest s, ptr[s] <= i
+          key_i = cur + 1;
+          while (key_i < nseg - 1 && ptr[key_i + 1] <= i) ++key_i;
+        }
+        if (key_i != cur) {
+          flush(cur, head, false);
+          zero_range(cur + 1, key_i);
+          cur = key_i;
+          head = false;
+          if (ptr) nb = min(ptr[cur + 1], nrows);
+#pragma unroll
+          for (int q = 0; q < C; ++q)
+#pragma unroll
+            for (int x = 0; x < V; ++x) acc[q][x] = 0.f;
+        }
+        if (cur >= 0 && cur < nseg) {
+#pragma unroll
+          for (int q = 0; q < C; ++q)
+#pragma unroll
+            for (int x = 0; x < V; ++x) acc[q][x] += v[u][q][x];
+        }
       }
     }
-    if (C == 1) {  // fold the 32/group partial rows, a fixed tree
-      for (int o = 16; o >= group; o >>= 1)
-        acc[0] += __shfl_xor_sync(kFull, acc[0], o);
-    }
-    if (sub == 0) {
+    flush(cur, head, ptr ? nb > hi : next == cur);
+    if (c == last) zero_range(cur + 1, nseg);
+  }
+
+  // Post the arrivals (one lane a worker, after the fence that makes the
+  // partials and spans visible); a worker whose arrival completes a
+  // segment asks for its fold.
+  if (post_seg[0] >= 0 || post_seg[1] >= 0) __threadfence();
+  int fold[2] = {-1, -1};
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (live[c]) out[(size_t)s * d_feat + j + 32 * c] = acc[c];
+  for (int j = 0; j < 2; ++j) {
+    if (k == 0 && post_seg[j] >= 0 &&
+        atomicAdd(cnt + post_seg[j], post_code[j]) + post_code[j] == kArrived)
+      fold[j] = post_seg[j];
+  }
+  // The folds. A segment over at most kFoldLoads chunks (the common case:
+  // a segment that crosses one or two chunk boundaries) is folded by the
+  // worker that completed it, its partials in chunk order, all such
+  // workers of a warp at once. A longer one (the sink's padding rows) by
+  // the whole warp, one after another: group p adds the partials of the
+  // chunks c0 + p, c0 + p + P, ... in order, and the groups' sums meet in
+  // a fixed butterfly. Which way, and so the order of the sum, depends on
+  // the chunking alone.
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int s = __shfl_sync(kFull, fold[j], grp * G);  // the group's ask
+    int c0 = 0, c1 = -1;
+    if (s >= 0) {
+      __threadfence();
+      c0 = __ldcg(span + 2 * s);
+      c1 = __ldcg(span + 2 * s + 1);
+    }
+    if (s >= 0 && c1 - c0 < kFoldLoads) {
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        if (!live[q]) continue;
+        const int off = V * (k + G * q);
+        float w[kFoldLoads][V];
+#pragma unroll
+        for (int t = 0; t < kFoldLoads; ++t)
+          if (c0 + t <= c1)
+            load_vec<V, true>(
+                part + ((size_t)(c0 + t) * 2 + (t == 0 ? 1 : 0)) * d_feat +
+                    off,
+                w[t]);
+#pragma unroll
+        for (int t = 1; t < kFoldLoads; ++t)
+          if (c0 + t <= c1)
+#pragma unroll
+            for (int x = 0; x < V; ++x) w[0][x] += w[t][x];
+        store_vec<V>(out + (size_t)s * d_feat + off, w[0]);
+      }
+      if (k == 0) cnt[s] = 0;  // zeroed for the next launch
+    }
+    unsigned asked = __ballot_sync(kFull, k == 0 && s >= 0 &&
+                                              c1 - c0 >= kFoldLoads);
+    while (asked) {
+      const int src = __ffs(asked) - 1;
+      asked &= asked - 1;
+      const int sl = __shfl_sync(kFull, s, src);
+      __threadfence();
+      const int l0 = __shfl_sync(kFull, c0, src);
+      const int l1 = __shfl_sync(kFull, c1, src);
+      if constexpr (C == 1 && G > 1 && G * V <= 8) {
+        // rows of at most 8 floats: each lane takes whole partial rows, of
+        // the chunks l0 + lane, l0 + lane + 32, ..., and the 32 lanes'
+        // sums meet in a fixed butterfly (the groups of G lanes would leave
+        // all but 32 / G of the lanes' loads idle)
+        float tot[G][V];
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int x = 0; x < V; ++x) tot[q][x] = 0.f;
+        for (int cc = l0 + lane; cc <= l1; cc += 32 * kFoldLoads) {
+          float w[kFoldLoads][G][V];
+#pragma unroll
+          for (int t = 0; t < kFoldLoads; ++t) {
+            const int ct = cc + 32 * t;
+#pragma unroll
+            for (int q = 0; q < G; ++q)
+              if (q < nvec && ct <= l1)
+                load_vec<V, true>(part +
+                                      ((size_t)ct * 2 + (ct == l0 ? 1 : 0)) *
+                                          d_feat +
+                                      V * q,
+                                  w[t][q]);
+          }
+#pragma unroll
+          for (int t = 0; t < kFoldLoads; ++t)
+#pragma unroll
+            for (int q = 0; q < G; ++q)
+              if (q < nvec && cc + 32 * t <= l1)
+#pragma unroll
+                for (int x = 0; x < V; ++x) tot[q][x] += w[t][q][x];
+        }
+#pragma unroll
+        for (int o = 16; o >= 1; o >>= 1)
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+#pragma unroll
+            for (int x = 0; x < V; ++x)
+              tot[q][x] += __shfl_xor_sync(kFull, tot[q][x], o);
+        if (lane == 0)
+#pragma unroll
+          for (int q = 0; q < G; ++q)
+            if (q < nvec)
+              store_vec<V>(out + (size_t)sl * d_feat + V * q, tot[q]);
+        if (lane == 0) cnt[sl] = 0;  // zeroed for the next launch
+        continue;
+      }
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const int off = V * (k + G * q);
+        float tot[V];
+#pragma unroll
+        for (int x = 0; x < V; ++x) tot[x] = 0.f;
+        for (int cc = l0 + grp; cc <= l1; cc += P * kLongLoads) {
+          float w[kLongLoads][V];
+#pragma unroll
+          for (int t = 0; t < kLongLoads; ++t) {
+            const int ct = cc + P * t;
+            if (live[q] && ct <= l1)
+              load_vec<V, true>(
+                  part + ((size_t)ct * 2 + (ct == l0 ? 1 : 0)) * d_feat + off,
+                  w[t]);
+          }
+#pragma unroll
+          for (int t = 0; t < kLongLoads; ++t)
+            if (live[q] && cc + P * t <= l1)
+#pragma unroll
+              for (int x = 0; x < V; ++x) tot[x] += w[t][x];
+        }
+#pragma unroll
+        for (int o = 16; o >= G; o >>= 1)
+#pragma unroll
+          for (int x = 0; x < V; ++x)
+            tot[x] += __shfl_xor_sync(kFull, tot[x], o);
+        if (grp == 0 && live[q])
+          store_vec<V>(out + (size_t)sl * d_feat + off, tot);
+      }
+      if (lane == 0) cnt[sl] = 0;  // zeroed for the next launch
     }
   }
 }
@@ -540,29 +847,72 @@ int segment_sum_rows_t(const float* values, const int* order,
   return (int)cudaGetLastError();
 }
 
-// out (nseg, d_feat) from values (e, d_feat) and ascending ids (e,);
-// ptr is (nseg + 1,) int scratch.
-int segment_sum_sorted(const float* values, const int* ids, int e, int nseg,
-                       int d_feat, int* ptr, float* out, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || e < 0 || nseg < 1)
+// out (nseg, d_feat): the sorted segment sum of the rows values[order[i]]
+// (order NULL: values[i]) over the positions i < min(e, row_limit), by ids
+// (ids[order[i]] ascending in i; NULL where ptr is given) or by the CSR
+// offsets ptr (nseg + 1,). part: (max(1, ceil(min(e, row_limit) / 32)),
+// 2, d_feat) float scratch; cnt: (nseg,) int32 counters that are 0, and
+// are 0 again when the kernel ends (nothing else may write them); span:
+// (2 nseg,) int32 scratch.
+int segment_sum_sorted(const float* values, const int* ids, const int* order,
+                       const int* ptr, int e, int row_limit, int nseg,
+                       int d_feat, float* part, int* cnt, int* span,
+                       float* out, void* stream) {
+  if (d_feat < 1 || d_feat > 1024 || e < 0 || nseg < 1 ||
+      (ids == nullptr) == (ptr == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  seg_offsets_kernel<<<(e + 256) / 256, 256, 0, st>>>(ids, e, nseg, ptr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  int group = 32;
-  while (group / 2 >= d_feat) group /= 2;
-  const int c_need = (d_feat + 31) / 32;
-  const int nblk = (nseg + kWarps - 1) / kWarps;  // every segment in flight
-#define SORTED_SUM(CC)                                   \
-  sorted_sum_kernel<CC><<<nblk, kWarps * 32, 0, st>>>(   \
-      values, ptr, nseg, d_feat, group, out)
-  if (c_need <= 1) SORTED_SUM(1);
-  else if (c_need <= 2) SORTED_SUM(2);
-  else if (c_need <= 4) SORTED_SUM(4);
-  else if (c_need <= 8) SORTED_SUM(8);
-  else if (c_need <= 16) SORTED_SUM(16);
-  else SORTED_SUM(32);
+  const int limit = min(max(row_limit, 0), e);
+  const int nchunk = max(1, (limit + kChunk - 1) / kChunk);
+  // float4 or float2 rows where the width and every float table allow it
+  auto aligned = [&](uintptr_t a) {
+    return (uintptr_t)values % a == 0 && (uintptr_t)out % a == 0 &&
+           (uintptr_t)part % a == 0;
+  };
+  const int vw = d_feat % 4 == 0 && aligned(16) ? 4
+                 : d_feat % 2 == 0 && aligned(8) ? 2 : 1;
+  const int nvec = d_feat / vw;
+  // warps a block: enough blocks to reach every SM where the chunks are
+  // few (PPI's 2,040 chunks of float4 rows fill 64 warps: a warp a block)
+  auto wpb = [&](int per_warp) {
+    const int warps = (nchunk + per_warp - 1) / per_warp;
+    return max(1, min(kWarps, (warps + kSms - 1) / kSms));
+  };
+#define SORTED_SUM(GG, VV, CC, UU)                                          \
+  do {                                                                      \
+    const int w = wpb(32 / GG);                                             \
+    sorted_sum_kernel<GG, VV, CC, UU>                                       \
+        <<<(nchunk + w * (32 / GG) - 1) / (w * (32 / GG)), w * 32, 0, st>>>( \
+            values, ids, order, ptr, e, limit, nseg, d_feat, part, cnt,     \
+            span, out);                                                     \
+  } while (0)
+#define SORTED_NARROW(VV, UU)                      \
+  if (nvec <= 1) SORTED_SUM(1, VV, 1, UU);         \
+  else if (nvec <= 2) SORTED_SUM(2, VV, 1, UU);    \
+  else if (nvec <= 4) SORTED_SUM(4, VV, 1, UU);    \
+  else if (nvec <= 8) SORTED_SUM(8, VV, 1, UU);    \
+  else if (nvec <= 16) SORTED_SUM(16, VV, 1, UU);  \
+  else SORTED_SUM(32, VV, 1, UU)
+  if (vw == 4) {
+    if (nvec <= 32) { SORTED_NARROW(4, 8); }
+    else if (nvec <= 64) SORTED_SUM(32, 4, 2, 4);
+    else if (nvec <= 128) SORTED_SUM(32, 4, 4, 2);
+    else SORTED_SUM(32, 4, 8, 2);
+  } else if (vw == 2) {
+    if (nvec <= 32) { SORTED_NARROW(2, 8); }
+    else if (nvec <= 64) SORTED_SUM(32, 2, 2, 8);
+    else if (nvec <= 128) SORTED_SUM(32, 2, 4, 4);
+    else if (nvec <= 256) SORTED_SUM(32, 2, 8, 2);
+    else SORTED_SUM(32, 2, 16, 2);
+  } else {
+    if (nvec <= 32) { SORTED_NARROW(1, 8); }
+    else if (nvec <= 64) SORTED_SUM(32, 1, 2, 16);
+    else if (nvec <= 128) SORTED_SUM(32, 1, 4, 8);
+    else if (nvec <= 256) SORTED_SUM(32, 1, 8, 4);
+    else if (nvec <= 512) SORTED_SUM(32, 1, 16, 2);
+    else SORTED_SUM(32, 1, 32, 2);
+  }
+#undef SORTED_NARROW
 #undef SORTED_SUM
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ segment_sum_pallas_rows (:176) in its two forms, `_kernel_rows_nt`
 back), with the `_dh_reduce` glue in segment_attention.py:912-938, which
 picks the form by GAT_TPU_DH_REDUCE_NT (`dh_transposed`); and
 segment_sum_pallas (:260, `_kernel`), the reduction behind the
-sorted-gradient gathers (ops/segment.py:gather_rows_sorted_grad). The
+sorted-gradient gathers (ops/segment.py:gather_rows_sorted_grad), whose
+permutation of the cotangent is read through `order` here. The
 CUDA kernels are in csrc/segment_sum.cu (its headers say what bounds
 them and why they are shaped so); `segment_rows_plain`,
 `segment_rows_t_plain` and `segment_sum_sorted_plain` are their plain
@@ -26,7 +27,9 @@ plain version. Every sum has a fixed order: each d(h) segment's rows are
 added in ascending position, one at a time, starting from 0, in both
 forms. So two calls give the same bits, the two forms give the same bits
 as each other on the card, and the reduction with offsets gives the
-bits of the one without.
+bits of the one without. The sorted segment sum cuts its rows into
+chunks of 32 and adds a segment's chunks in order: its bits, too, are
+the same with ids or offsets, and on every launch.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def _lib() -> ctypes.CDLL:
         lib.segment_sum_rows.restype = ctypes.c_int
         lib.segment_sum_rows_t.argtypes = [p, p, p, i, i, i, p, p]
         lib.segment_sum_rows_t.restype = ctypes.c_int
-        lib.segment_sum_sorted.argtypes = [p, p, i, i, i, p, p, p]
+        lib.segment_sum_sorted.argtypes = [p] * 4 + [i] * 4 + [p] * 5
         lib.segment_sum_sorted.restype = ctypes.c_int
         _configured = True
     return lib
@@ -200,42 +203,108 @@ def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
     raise ValueError(f"no kernel for device {d_h_rows.device}")
 
 
-def segment_sum_sorted_plain(values: torch.Tensor, sorted_ids: torch.Tensor,
-                             num_segments: int) -> torch.Tensor:
-    return seg.segment_sum(values, sorted_ids, num_segments)
+def segment_sum_sorted_plain(values: torch.Tensor,
+                             ids: Optional[torch.Tensor],
+                             num_segments: int,
+                             order: Optional[torch.Tensor] = None,
+                             ptr: Optional[torch.Tensor] = None,
+                             row_limit: Optional[int] = None
+                             ) -> torch.Tensor:
+    """segment_sum_sorted's function in plain torch: every position's row
+    added to its segment by index_add in position order, the positions
+    that belong to none (dropped ids, outside the offsets, from row_limit
+    on) to a spill row. No host synchronisation."""
+    n = num_segments
+    e = (order if order is not None
+         else values if ptr is not None else ids).shape[0]
+    pos = torch.arange(e, device=values.device)
+    rows_at = pos if order is None else order.long()
+    if ptr is not None:
+        keys = torch.searchsorted(ptr.long(), pos, right=True) - 1
+    else:
+        keys = ids.long().index_select(0, rows_at)
+    limit = e if row_limit is None else row_limit
+    keys = torch.where((keys < 0) | (pos >= limit), torch.full_like(keys, n),
+                       keys)
+    return seg.segment_sum(values.index_select(0, rows_at), keys, n)
 
 
-def _segment_sum_sorted_cuda(values, sorted_ids, num_segments: int):
+# Per device: the sorted sum's int32 arrival counters, one a segment, zero
+# between launches (the kernel hands them back zeroed), kept so that a call
+# launches nothing but the kernel. Nothing else is ever written there.
+_counters: dict = {}
+
+
+def _counter_scratch(dev: torch.device, num_segments: int) -> torch.Tensor:
+    buf = _counters.get(dev)
+    if buf is None or buf.shape[0] < num_segments:
+        buf = torch.zeros((num_segments,), dtype=torch.int32, device=dev)
+        _counters[dev] = buf
+    return buf
+
+
+_CHUNK = 32     # positions a worker of the kernel (kChunk)
+
+
+def _segment_sum_sorted_cuda(values, ids, num_segments: int, order, ptr,
+                             row_limit):
     dev = values.device
     build.require(values, "values", dev, torch.float32, (None, None))
-    e, d = values.shape
+    rows, d = values.shape
     if not 1 <= d <= 1024:
         raise ValueError(f"row width {d} outside [1, 1024]")
-    build.require(sorted_ids, "sorted_ids", dev, torch.int32, (e,))
     if num_segments < 1:
         raise ValueError(f"num_segments {num_segments} < 1")
+    if order is not None:
+        build.require(order, "order", dev, torch.int32, (None,))
+    if ptr is not None:
+        build.require(ptr, "ptr", dev, torch.int32, (num_segments + 1,))
+        ids = None
+        e = rows if order is None else order.shape[0]
+    else:
+        build.require(ids, "ids", dev, torch.int32, (rows,))
+        e = rows if order is None else order.shape[0]
+    limit = e if row_limit is None else max(0, min(int(row_limit), e))
+    nchunk = max(1, -(-limit // _CHUNK))
     out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
-    ptr = torch.empty((num_segments + 1,), dtype=torch.int32, device=dev)
-    lib = _lib()
+    part = torch.empty((nchunk * 2 * d,), dtype=torch.float32, device=dev)
+    counters = _counter_scratch(dev, num_segments)
+    span = torch.empty((2 * num_segments,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.segment_sum_sorted(
-            build.ptr(values), build.ptr(sorted_ids), e, num_segments, d,
-            build.ptr(ptr), build.ptr(out), build.stream(dev))
+        err = _lib().segment_sum_sorted(
+            build.ptr(values), build.ptr(ids), build.ptr(order),
+            build.ptr(ptr), e, limit, num_segments, d, build.ptr(part),
+            build.ptr(counters), build.ptr(span), build.ptr(out),
+            build.stream(dev))
     build.check(err, "segment_sum_sorted")
     build.LAUNCHES["segment_sum_sorted"] += 1
     return out
 
 
-def segment_sum_sorted(values: torch.Tensor, sorted_ids: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
-    """out[s] = sum of values[e] over e with sorted_ids[e] == s, for rows
-    that are already in the order of their ids.
+def segment_sum_sorted(values: torch.Tensor, ids: Optional[torch.Tensor],
+                       num_segments: int, order: Optional[torch.Tensor] = None,
+                       ptr: Optional[torch.Tensor] = None,
+                       row_limit: Optional[int] = None) -> torch.Tensor:
+    """out[s] = sum of values[order[i]] (order None: values[i]) over the
+    positions i whose segment is s; one kernel launch on CUDA tensors, the
+    plain version on CPU tensors.
 
-    values: (E, D) float32, 1 <= D <= 1024; sorted_ids: (E,) int32,
-    ascending, ids >= num_segments are dropped. Returns (num_segments, D).
-    Kernel on CUDA tensors, plain version on CPU tensors."""
+    values: (rows, D) float32, 1 <= D <= 1024. The segments, one of:
+    ids (rows,) int32, the segment of each row, ascending in the order
+    `order` reads the rows (ids < 0 or >= num_segments are dropped); or
+    ptr (num_segments + 1,) int32, the CSR offsets of the positions
+    (segment s holds positions [ptr[s], ptr[s+1]); ids is not read).
+    order: (E,) int32 row of each position (a permutation that sorts the
+    ids, Graph.src_order); None: position i is row i. row_limit: positions
+    from there on are not read (the caller says their rows are zero).
+    Returns (num_segments, D); a segment without rows is 0. Two calls give
+    the same bits, and so do the ids and the offsets of the same rows."""
+    if ids is None and ptr is None:
+        raise ValueError("segment_sum_sorted needs ids or ptr")
     if values.is_cuda:
-        return _segment_sum_sorted_cuda(values, sorted_ids, num_segments)
+        return _segment_sum_sorted_cuda(values, ids, num_segments, order,
+                                        ptr, row_limit)
     if values.device.type == "cpu":
-        return segment_sum_sorted_plain(values, sorted_ids, num_segments)
+        return segment_sum_sorted_plain(values, ids, num_segments, order,
+                                        ptr, row_limit)
     raise ValueError(f"no kernel for device {values.device}")

@@ -8,7 +8,9 @@ same sweep without its epilogue. The kernels are csrc/v5_attention.cu
 (forward: `_kernel_v5_auto`; backward: segment_attention_bwd.py:
 `_kernel_v5_bwd`, in its normalised and its parts mode) and the d(h)
 reduction of ops/cuda/segment_sum.py. `v5_forward_plain` and
-`v5_backward_plain` are their plain torch versions.
+`v5_backward_plain` are their plain torch versions. At rows wider than
+256 floats the backward takes its wide form: d(a_src) by sender
+(`dasrc_by_sender`, kernel v5_dasrc) from the per-edge d(raw) rows.
 
 The 2-phase form (the JAX package's path under GAT_TPU_V10=0 or
 GAT_TPU_V5_MERGED=0) lives here too: v5_local_cap (:1765, the cap
@@ -68,7 +70,7 @@ import torch
 from .. import segment as seg
 from . import build
 from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
-from .segment_sum import dh_reduce, dh_transposed
+from .segment_sum import dh_reduce, dh_transposed, segment_sum_sorted_plain
 
 _KERNEL = "v5_attention"
 MAX_HEADS = 8
@@ -109,10 +111,10 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.v5_forward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 6
                                    + [i, i, p])
         lib.v5_forward.restype = ctypes.c_int
-        lib.v5_backward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 9
+        lib.v5_backward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 10
                                     + [i, i, p])
         lib.v5_backward.restype = ctypes.c_int
-        lib.v5_backward_parts.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 7
+        lib.v5_backward_parts.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 8
                                           + [i, i, p])
         lib.v5_backward_parts.restype = ctypes.c_int
         lib.v5_cap.argtypes = [p] * 5 + [i] * 5 + [p] * 4 + [i, i, p]
@@ -121,8 +123,10 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
                                              + [p] * 2 + [i, i, p])
         lib.v5_forward_two_phase.restype = ctypes.c_int
         lib.v5_backward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
-                                              + [p] * 8 + [i, i, p])
+                                              + [p] * 9 + [i, i, p])
         lib.v5_backward_two_phase.restype = ctypes.c_int
+        lib.v5_dasrc.argtypes = [p] * 4 + [i] * 3 + [p, i, p, i, i, p]
+        lib.v5_dasrc.restype = ctypes.c_int
         _configured.add(name)
     return lib
 
@@ -226,7 +230,8 @@ def attention_backward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
 def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
                              slope: float, g, out, den, epsp,
                              need_drop: bool, normalize: bool = True,
-                             cap=None, rounding: Rounding = FLOAT32):
+                             cap=None, rounding: Rounding = FLOAT32,
+                             with_draw: bool = False):
     """(d_h rows (E, D) in slot order, d_drop (E, nh) | None,
     d_s_dst (N, nh), d_a_src (D, nh)) of the op before the cap chain;
     the rows of slots that are no edges are 0.
@@ -236,7 +241,9 @@ def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
     and `epsp` are not read (the caller's epilogue owns the quotient).
     cap: the 2-phase op's cap (a () tensor): ex = exp(leaky(raw - cap)),
     `epsp` is the plain eps, and d_cap () = -sum d(raw) (float32) comes
-    fifth. rounding: rows, payload, d_h, d_raw and d_sdst are read."""
+    fifth. rounding: rows, payload, d_h, d_raw and d_sdst are read.
+    with_draw: d(raw) (E, nh), rounded as d(a_src) reads it, comes last
+    (the wide backward's per-edge rows, 0 on slots that are no edges)."""
     n, nh = s_dst_eff.shape
     e, d = snd.shape[0], h.shape[1]
     f = d // nh
@@ -266,10 +273,13 @@ def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
     d_h_rows = maybe_bf16(d_raw @ a_src.t() + (
         coef[:, :, None] * g_e.view(e, nh, f)).reshape(e, d), r.d_h)
     d_drop = hg * ex * inv_e if need_drop else None
+    draw = maybe_bf16(d_raw, r.d_raw)
     grads = (d_h_rows, d_drop,
              seg.segment_sum(maybe_bf16(d_raw, r.d_sdst), rcv, n),
-             h_e.t() @ maybe_bf16(d_raw, r.d_raw))
-    return grads if cap is None else grads + (-d_raw.sum(),)
+             h_e.t() @ draw)
+    if cap is not None:
+        grads += (-d_raw.sum(),)
+    return grads + (draw,) if with_draw else grads
 
 
 def _real_prefix(senders, receivers, e_real):
@@ -290,13 +300,13 @@ def v5_forward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
 def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
                       need_drop: bool, normalize: bool = True,
-                      rounding: Rounding = FLOAT32):
+                      rounding: Rounding = FLOAT32, with_draw: bool = False):
     """(d_h rows in dst order, d_drop, d_s_dst, d_a_src); normalize=False
-    as attention_backward_plain takes it."""
+    and with_draw as attention_backward_plain takes them."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop,
         *_real_prefix(senders, receivers, e_real), slope, g, out, den,
-        epsp, need_drop, normalize, rounding=rounding)
+        epsp, need_drop, normalize, rounding=rounding, with_draw=with_draw)
 
 
 def v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real: int):
@@ -317,12 +327,92 @@ def v5_forward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
 def v5_backward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
                                 slope: float, g, out, den, need_drop: bool,
-                                rounding: Rounding = FLOAT32):
-    """(d_h rows in dst order, d_drop, d_s_dst, d_a_src, d_cap)."""
-    return attention_backward_two_phase_plain(
-        h, a_src, s_dst, cap, drop,
-        *_real_prefix(senders, receivers, e_real), eps, slope, g, out, den,
-        need_drop, rounding)
+                                rounding: Rounding = FLOAT32,
+                                with_draw: bool = False):
+    """(d_h rows in dst order, d_drop, d_s_dst, d_a_src, d_cap[, draw])."""
+    return attention_backward_plain(
+        h, a_src, s_dst, drop, *_real_prefix(senders, receivers, e_real),
+        slope, g, out, den, eps, need_drop, cap=cap, rounding=rounding,
+        with_draw=with_draw)
+
+
+# -- the wide backward's d(a_src), by sender ----------------------------------
+#
+# Rows wider than WIDE_D floats take the backward kernel's wide form
+# (csrc/v5_attention.cu, kWideC): it writes each edge's d(raw) row
+# (E, nh) and leaves d(a_src) to v5_dasrc, which sums those rows by
+# sender, S = (n_src, nh), and takes h^T S in per-block partials and an
+# ordered second pass. The steps below are the same on the CPU (plain)
+# and on the card (the kernel), so the CPU runs this plumbing too.
+
+WIDE_D = 256
+
+
+def wide_form(d: int) -> bool:
+    """Whether the backward at row width d takes the wide form."""
+    return d > WIDE_D
+
+
+def sender_runs(senders, e_real: int, n_src: int, src_order=None,
+                src_ptr=None):
+    """(order, ptr): the real edges' stable sender order and the
+    (n_src + 1,) int32 offsets of each sender's run in it. The caller's
+    (Graph.src_order with Graph.src_ptr, which cover exactly these) where
+    it holds them; derived from senders[:e_real] otherwise."""
+    if src_ptr is not None and src_order is not None:
+        return src_order, src_ptr
+    order = torch.argsort(senders[:e_real], stable=True).to(torch.int32)
+    return order, build.csr_offsets(
+        senders.index_select(0, order.long()), n_src)
+
+
+def dasrc_by_sender_plain(h, draw, order, ptr, rounding: Rounding = FLOAT32):
+    """h^T S, S[s] = the sum of draw's rows of sender s's edges (in the
+    order of `order`, the runs `ptr`); h the table the kernel reads, its
+    rows rounded as d(a_src) reads them (rows)."""
+    s_rows = segment_sum_sorted_plain(draw, None, ptr.shape[0] - 1,
+                                      order=order, ptr=ptr)
+    return maybe_bf16(h.float(), rounding.rows).t() @ s_rows
+
+
+def _dasrc_cuda(h, draw, order, ptr, part, rounding: Rounding):
+    """The ordered sum (stride,) of v5_dasrc's partial rows, `part`
+    (nblk, stride) as the backward kernel left it."""
+    dev = h.device
+    n_src, d = h.shape
+    nh = draw.shape[1]
+    build.require(draw, "draw", dev, torch.float32, (None, nh))
+    build.require(order, "src_order", dev, torch.int32, (None,))
+    build.require(ptr, "src_ptr", dev, torch.int32, (n_src + 1,))
+    nblk, stride = part.shape
+    out = torch.empty((stride,), dtype=torch.float32, device=dev)
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib(rounding.table).v5_dasrc(
+            p(h), p(draw), p(order), p(ptr), n_src, d, nh, p(part), stride,
+            p(out), nblk, rounding.flags(), build.stream(dev))
+    build.check(err, "v5_dasrc")
+    build.LAUNCHES["v5_dasrc"] += 1
+    return out
+
+
+def dasrc_by_sender(h, draw, order, ptr, rounding: Rounding = FLOAT32,
+                    part=None):
+    """d(a_src) (d, nh) of the wide backward from its per-edge d(raw) rows
+    draw (E, nh), by sender (sender_runs gives order and ptr). Kernel on
+    CUDA tensors: `part` is the (nblk, stride) partial rows the backward
+    kernel launched over (a fresh one where None); the whole ordered sum
+    (stride,) comes second (its last entry the 2-phase backward's d(cap)
+    where stride = d*nh + 1). Plain version on CPU tensors (second None)."""
+    d, nh = h.shape[1], draw.shape[1]
+    if h.is_cuda:
+        if part is None:
+            part = torch.empty((build.grid_blocks(h.shape[0]), d * nh),
+                               dtype=torch.float32, device=h.device)
+        flat = _dasrc_cuda(h, draw, order, ptr, part, rounding)
+        return flat[:d * nh].view(d, nh), flat
+    build.require_cpu(h)
+    return dasrc_by_sender_plain(h, draw, order, ptr, rounding), None
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -385,7 +475,8 @@ def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
 def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
                       need_drop: bool, normalize: bool = True, dst_ptr=None,
-                      rounding: Rounding = FLOAT32):
+                      rounding: Rounding = FLOAT32, src_order=None,
+                      src_ptr=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
@@ -401,12 +492,13 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     d_sdst = torch.empty((n, nh), **f32)
     part = torch.empty((nblk, d * nh), **f32)
     d_asrc = torch.empty((d, nh), **f32)
+    draw = torch.empty((e, nh), **f32) if wide_form(d) else None
     p = build.ptr
     lib = _lib(rounding.table)
     graph_args = (p(h), p(a_src), p(s_dst_eff), p(drop), p(senders),
                   p(row_ptr), n, e_real, d, nh, d // nh, slope)
-    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc), nblk,
-               rounding.flags(), build.stream(dev))
+    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc),
+               p(draw), nblk, rounding.flags(), build.stream(dev))
     name = "v5_backward" if normalize else "v5_backward_parts"
     with torch.cuda.device(dev):
         if normalize:
@@ -416,6 +508,10 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
             err = lib.v5_backward_parts(*graph_args, p(g), p(den), *outputs)
     build.check(err, name)
     build.LAUNCHES[rounding.counter(name)] += 1
+    if draw is not None:
+        d_asrc, _ = dasrc_by_sender(
+            h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
+                                  src_ptr), rounding, part)
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
@@ -465,7 +561,8 @@ def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
 def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
                                 slope: float, g, out, den, need_drop: bool,
-                                rounding: Rounding = FLOAT32, dst_ptr=None):
+                                rounding: Rounding = FLOAT32, dst_ptr=None,
+                                src_order=None, src_ptr=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
@@ -480,15 +577,21 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     d_sdst = torch.empty((n, nh), **f32)
     part = torch.empty((nblk, d * nh + 1), **f32)
     d_asrc_cap = torch.empty((d * nh + 1,), **f32)
+    draw = torch.empty((e, nh), **f32) if wide_form(d) else None
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib(rounding.table).v5_backward_two_phase(
             p(h), p(a_src), p(s_dst), p(cap), p(drop), p(senders),
             p(row_ptr), n, e_real, d, nh, d // nh, eps, slope, p(g), p(out),
             p(den), p(d_h_rows), p(d_drop), p(d_sdst), p(part),
-            p(d_asrc_cap), nblk, rounding.flags(), build.stream(dev))
+            p(d_asrc_cap), p(draw), nblk, rounding.flags(),
+            build.stream(dev))
     build.check(err, "v5_backward_two_phase")
     build.LAUNCHES[rounding.counter("v5_backward_two_phase")] += 1
+    if draw is not None:    # d(a_src), then the kernel's d(cap) column
+        _, d_asrc_cap = dasrc_by_sender(
+            h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
+                                  src_ptr), rounding, part)
     return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
             d_asrc_cap[d * nh])
 
@@ -509,23 +612,39 @@ def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
         rounding)
 
 
+def _wide_plain(grads, h, senders, e_real, src_order, src_ptr, rounding):
+    """A plain backward's grads with its d(a_src) (index 3) taken by sender
+    from its draw (last), as the wide form takes it; draw dropped."""
+    *grads, draw = grads
+    grads[3] = dasrc_by_sender(
+        h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
+                              src_ptr), rounding)[0]
+    return tuple(grads)
+
+
 def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
                 e_real: int, slope: float, g, out, den, epsp,
                 need_drop: bool, normalize: bool = True, dst_ptr=None,
-                rounding: Rounding = FLOAT32):
+                rounding: Rounding = FLOAT32, *, src_order=None,
+                src_ptr=None):
     """Kernel on CUDA tensors, plain version on CPU tensors.
     normalize=False is the parts mode (attention_backward_plain says what
     `g` and `den` carry then); it launches the kernel's parts mode and
-    counts as "v5_backward_parts"."""
+    counts as "v5_backward_parts". Rows wider than WIDE_D take d(a_src)
+    by sender (dasrc_by_sender) on either device: src_order and src_ptr
+    are the real edges' sender runs (sender_runs), derived where None."""
     if h.is_cuda:
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
                                  epsp, need_drop, normalize, dst_ptr,
-                                 rounding)
+                                 rounding, src_order, src_ptr)
     build.require_cpu(h)
-    return v5_backward_plain(
+    wide = wide_form(h.shape[1])
+    grads = v5_backward_plain(
         h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g,
-        out, den, epsp, need_drop, normalize, rounding)
+        out, den, epsp, need_drop, normalize, rounding, with_draw=wide)
+    return (_wide_plain(grads, h, senders, e_real, src_order, src_ptr,
+                        rounding) if wide else grads)
 
 
 def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int,
@@ -561,18 +680,23 @@ def v5_forward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
 def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                           e_real: int, eps: float, slope: float, g, out, den,
                           need_drop: bool, rounding: Rounding = FLOAT32, *,
-                          dst_ptr=None):
+                          dst_ptr=None, src_order=None, src_ptr=None):
     """(d_h rows in dst order, d_drop | None, d_s_dst, d_a_src, d_cap) of
     the 2-phase op. Kernel on CUDA tensors, plain version on CPU
-    tensors. dst_ptr: as v5_forward's."""
+    tensors. dst_ptr: as v5_forward's; src_order, src_ptr: as
+    v5_backward's."""
     if h.is_cuda:
         return _v5_backward_two_phase_cuda(
             h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,
-            slope, g, out, den, need_drop, rounding, dst_ptr)
+            slope, g, out, den, need_drop, rounding, dst_ptr, src_order,
+            src_ptr)
     build.require_cpu(h)
-    return v5_backward_two_phase_plain(
+    wide = wide_form(h.shape[1])
+    grads = v5_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
-        g, out, den, need_drop, rounding)
+        g, out, den, need_drop, rounding, with_draw=wide)
+    return (_wide_plain(grads, h, senders, e_real, src_order, src_ptr,
+                        rounding) if wide else grads)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -646,7 +770,8 @@ class _V5Attention(torch.autograd.Function):
         d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, slope, g, out, den, epsp, need_drop,
-            dst_ptr=dst_ptr, rounding=ctx.rounding)
+            dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
+            src_ptr=src_ptr)
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
                         ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
 
@@ -790,7 +915,8 @@ class _V5TwoPhase(torch.autograd.Function):
         d_h_rows, d_drop, d_sdst, d_asrc, d_cap = v5_backward_two_phase(
             h_k, a_src, s_dst, cap, drop_mask, senders, receivers,
             ctx.e_real, ctx.eps, ctx.slope, g.contiguous(), out, den,
-            need_drop, ctx.rounding, dst_ptr=dst_ptr)
+            need_drop, ctx.rounding, dst_ptr=dst_ptr, src_order=src_order,
+            src_ptr=src_ptr)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
@@ -865,7 +991,8 @@ class _V5Sweep1Parts(torch.autograd.Function):
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, ctx.slope, d_num.contiguous(), None,
             d_den.contiguous(), None, need_drop, normalize=False,
-            dst_ptr=dst_ptr, rounding=ctx.rounding)
+            dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
+            src_ptr=src_ptr)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],

@@ -62,47 +62,56 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 class _GatherRowsSortedGrad(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, table, indices, order, num_segments):
-        ctx.save_for_backward(indices, order)
-        ctx.num_segments = num_segments
+    def forward(ctx, table, indices, order, ptr, num_real, num_segments):
+        ctx.save_for_backward(indices, order, ptr)
+        ctx.num_segments, ctx.num_real = num_segments, num_real
         return table.index_select(0, indices.long())
 
     @staticmethod
     def backward(ctx, g):
         # imported here: ops/cuda/segment_sum.py imports this module
         from .cuda.segment_sum import segment_sum_sorted
-        indices, order = ctx.saved_tensors
-        if order is not None:
-            order = order.long()
-            g, indices = g.index_select(0, order), indices.index_select(
-                0, order)
+        indices, order, ptr = ctx.saved_tensors
         rows = g.reshape(g.shape[0], math.prod(g.shape[1:])).contiguous()
         if rows.shape[0] == 0:    # e.g. an edge shard without real edges
             d_table = rows.new_zeros((ctx.num_segments, rows.shape[1]))
         else:
-            d_table = segment_sum_sorted(rows, indices.to(torch.int32),
-                                         ctx.num_segments)
+            d_table = segment_sum_sorted(
+                rows, None if ptr is not None else indices,
+                ctx.num_segments, order=order, ptr=ptr,
+                row_limit=ctx.num_real)
         return (d_table.reshape((ctx.num_segments,) + tuple(g.shape[1:])),
-                None, None, None)
+                None, None, None, None, None)
 
 
 def gather_rows_sorted_grad(table: torch.Tensor, indices: torch.Tensor,
                             num_segments: int,
-                            order: Optional[torch.Tensor] = None
+                            order: Optional[torch.Tensor] = None, *,
+                            ptr: Optional[torch.Tensor] = None,
+                            num_real: Optional[int] = None
                             ) -> torch.Tensor:
     """`table[indices]` whose backward is a sorted segment sum in a fixed
-    order (ops/cuda/segment_sum.segment_sum_sorted) instead of
-    index_select's scatter-add, which uses atomics on the card and so
-    differs from run to run.
+    order (ops/cuda/segment_sum.segment_sum_sorted, one kernel launch)
+    instead of index_select's scatter-add, which uses atomics on the card
+    and so differs from run to run.
 
     table: (num_segments, ...) float32; indices: (E,) int32. order: a
     permutation that sorts `indices` ascending (Graph.src_order for the
     senders); None where they are sorted already (the receivers). The
-    backward permutes the cotangent rows by `order` and reduces them."""
+    backward reads the cotangent rows through `order` itself.
+    ptr: the (num_segments + 1,) int32 CSR offsets of the sorted indices
+    (Graph.src_ptr with src_order, over its real edges; Graph.dst_ptr for
+    the receivers), where the caller holds them: the backward then
+    derives no segment bounds. num_real: the caller's promise that the
+    cotangent rows from position num_real on (in the order `order` reads
+    them) are zero, as the padding edges' are where a layer replaces
+    their logits; they are not read. The result is the same function
+    with or without either."""
     if table.shape[0] != num_segments:
         raise ValueError(f"table has {table.shape[0]} rows, "
                          f"num_segments={num_segments}")
-    return _GatherRowsSortedGrad.apply(table, indices, order, num_segments)
+    return _GatherRowsSortedGrad.apply(table, indices, order, ptr, num_real,
+                                       num_segments)
 
 
 def real_first_order(senders: torch.Tensor, edge_mask: torch.Tensor,
