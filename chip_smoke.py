@@ -21,9 +21,9 @@ dataset:
           twice);
   PPI paper_faithful  `cli.train --dataset PPI --paper_faithful`:
           block-diagonal batches of two graphs, the table op (kernels
-          table_forward, table_backward, segment_sum_rows) at 1024- and
-          726-wide rows, its logits' two score gathers reduced in the
-          backward by segment_sum_sorted;
+          table_forward, table_dden and table_backward, which sums d(h)
+          by sender) at 1024- and 726-wide rows, its logits' two score
+          gathers reduced in the backward by segment_sum_sorted;
   PPI     `cli.train --dataset PPI`: the v5 op at the same widths;
   PATTERN `cli.train --dataset PATTERN`: 4 layers with skip projections,
           batches of eight graphs, the plateau schedule, the v5 op;
@@ -46,8 +46,8 @@ dataset:
           GAT_TPU_GEMM_DTYPE = bfloat16 and GAT_TPU_DH_REDUCE_NT=0, Cora
           bf16 kernels (v5_forward_bf16, v5_backward_bf16 on a bfloat16 h
           table, and segment_sum_rows_t, the feature-major d(h) reduce),
-          PPI paper_faithful bf16 (table_forward_bf16, table_backward_bf16,
-          segment_sum_rows_t), and two more that reach the remaining
+          PPI paper_faithful bf16 (table_forward_bf16, table_dden,
+          table_backward_bf16), and two more that reach the remaining
           modes: Cora two-phase bf16 kernels (v5_cap_bf16) and Pubmed
           cluster bf16 kernels (v5_backward_parts_bf16);
   and the edge-sharded path (Trainer.fit_sharded, the cut-neighbourhood
@@ -73,10 +73,15 @@ Phases (every failure is fatal):
      tensors and hold them together: with and without the dropout mask,
      the v5 and window backward also at eps = 1, the table kernels at
      eps = 0 on max-subtracted logits (PPI) and at eps = 1e-8 with dropout
-     (Cora 8 x 8) and without (PATTERN); the window and table kernels are
-     also launched twice and must give the same bits. The parts modes of
-     the v5 and window backward take random d(num) and d(den), are held
-     at every output's own magnitude and launched twice, at all these
+     (PPI, Cora 8 x 8) and without (PATTERN), the backward by sender as
+     the main path calls it (the Graph's order and offsets) and deriving
+     its sender runs (the two equal bits), its d(h) also against the row-3
+     reduce of the plain per-edge rows on the card (bits compared and
+     printed), zero on senders without a real edge; the window and table
+     kernels are also launched twice and must give the same bits. The
+     parts modes of the v5 and window backward take random d(num) and
+     d(den), are held at every output's own magnitude and launched
+     twice, at all these
      shapes and on the hybrid layout of the cluster-ordered Pubmed
      stand-in and its remainder (the parts forwards there too, and the
      v5 parts op with more source rows than destinations); the sorted
@@ -244,8 +249,9 @@ PATH_KERNELS = {
     "v5": (("v5_forward",), {"v5_backward": 1, "segment_sum_rows": 1}),
     "v7": (("window_forward",),
            {"window_backward": 1, "segment_sum_rows": 1}),
+    # the table backward sums d(h) by sender itself: no segment_sum_rows
     "v4_table": (("table_forward",),
-                 {"table_backward": 1, "segment_sum_rows": 1,
+                 {"table_dden": 1, "table_backward": 1,
                   "segment_sum_sorted": 2}),
     "v7_hybrid": (("window_forward", "v5_forward"),
                   {"window_backward_parts": 1, "v5_backward_parts": 1,
@@ -270,7 +276,7 @@ PATH_KERNELS = {
     "v5 bf16": (("v5_forward_bf16",),
                 {"v5_backward_bf16": 1, "segment_sum_rows_t": 1}),
     "v4_table bf16": (("table_forward_bf16",),
-                      {"table_backward_bf16": 1, "segment_sum_rows_t": 1,
+                      {"table_dden": 1, "table_backward_bf16": 1,
                        "segment_sum_sorted": 2}),
     "v5 2-phase bf16": (("v5_cap_bf16", "v5_forward_two_phase_bf16"),
                         {"v5_backward_two_phase_bf16": 1,
@@ -325,6 +331,8 @@ REPLACES = {
     "window_backward": _PALLAS + "segment_attention_window.py:923",
     "table_forward": _PALLAS + "segment_attention.py:269",
     "table_backward": _PALLAS + "segment_attention_bwd.py:178",
+    # the d(den) prologue of the same TPU kernel (:204-210), its own launch
+    "table_dden": _PALLAS + "segment_attention_bwd.py:178",
     # the same TPU kernels in their normalize=False (sweep-1 parts) mode
     "v5_backward_parts": _PALLAS + "segment_attention_bwd.py:537",
     "window_backward_parts": _PALLAS + "segment_attention_window.py:923",
@@ -358,6 +366,7 @@ SOURCES = {
     "window_backward": _CSRC + "window_attention.cu",
     "table_forward": _CSRC + "table_attention.cu",
     "table_backward": _CSRC + "table_attention.cu",
+    "table_dden": _CSRC + "table_attention.cu",
     "v5_backward_parts": _CSRC + "v5_attention.cu",
     "window_backward_parts": _CSRC + "window_attention.cu",
     "segment_sum_sorted": _CSRC + "segment_sum.cu",
@@ -376,11 +385,12 @@ SOURCES = {
 # launches counted apart (rounding.Rounding.counter)
 BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
                   if not k.startswith(("segment_sum", "window_cap",
-                                       "v2_backward", "v5_dasrc")))
+                                       "v2_backward", "v5_dasrc",
+                                       "table_dden")))
 for _k in BF16_KEYS:
     REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
 BWD_NAMES = ("d_h_rows", "d_drop", "d_s_dst", "d_a_src")
-TABLE_BWD_NAMES = ("d_h_rows", "d_logits", "d_drop")
+TABLE_BWD_NAMES = ("d_h", "d_logits", "d_drop")
 V2_BWD_NAMES = ("d_logits", "d_h_src", "d_drop")
 
 
@@ -1419,12 +1429,16 @@ def main():
         return h, lg.contiguous(), drop, g
 
     def check_table(graph, nh, f, eps, paper_faithful, with_drop):
-        """The table kernels at one layer shape on `graph`; returns the
-        inputs for the timings."""
+        """The table kernels at one layer shape on `graph`: the forward,
+        the backward's prelude (table_dden) and the backward by sender as
+        the main path calls it (the Graph's sender order and offsets) and
+        deriving its sender runs, each against its plain version and
+        launched twice; returns the inputs for the timings."""
         h, lg, drop, g = table_inputs(graph, nh, f, paper_faithful,
                                       with_drop)
+        er = graph.num_real_edges
         fwd_args = (lg, h, drop, graph.senders, graph.receivers,
-                    graph.num_nodes, graph.num_real_edges, eps)
+                    graph.num_nodes, er, eps)
         got = ta.table_forward(*fwd_args)
         out, den = ta.table_forward_plain(*fwd_args)
         hold_all("table_forward", ("out", "den"), got, (out, den),
@@ -1434,22 +1448,47 @@ def main():
         if not torch.isfinite(got[0]).all() or \
                 not (got[0][~graph.node_mask] == 0).all():
             fail("table_forward: rows without a real edge are not 0")
-        bwd_args = (lg, h, drop, graph.senders, graph.receivers,
-                    graph.num_real_edges, eps, g, out, den, with_drop)
-        got = ta.table_backward(*bwd_args)
-        want = ta.table_backward_plain(*bwd_args)
+        dden_args = (g, out, den, eps)
+        dden = ta.table_dden(*dden_args)
+        for floor, tag in ((1.0, ""), (0.0, " at its own magnitude")):
+            hold_all("table_dden" + tag, ("dden",), (dden,),
+                     (ta.table_dden_plain(*dden_args),), "table_dden", floor)
+        same_bits("table_dden", (dden,), (ta.table_dden(*dden_args),))
+        bwd_args = (lg, h, drop, graph.senders, graph.receivers, er, eps, g,
+                    out, den, with_drop)
+        runs = dict(src_order=graph.src_order, src_ptr=graph.src_ptr)
+        got = ta.table_backward(*bwd_args, **runs)
+        want = ta.table_backward_by_sender_plain(*bwd_args, **runs)
         keep = [i for i in range(3) if want[i] is not None]
         for floor, tag in ((1.0, ""), (0.0, " at its own magnitude")):
             hold_all("table_backward" + tag,
                      [TABLE_BWD_NAMES[i] for i in keep],
                      [got[i] for i in keep], [want[i] for i in keep],
                      "table_backward", floor)
-        same_bits("table_backward", got, ta.table_backward(*bwd_args))
+        same_bits("table_backward", got, ta.table_backward(*bwd_args, **runs))
+        same_bits("table_backward deriving its sender runs", got,
+                  ta.table_backward(*bwd_args))
+        sends = torch.zeros(graph.num_nodes, dtype=torch.bool, device=dev)
+        sends[graph.senders[:er].long()] = True
         if not all(torch.isfinite(got[i]).all() for i in keep) or \
-                not (got[1][~graph.edge_mask] == 0).all():
+                not all((got[i][~graph.edge_mask] == 0).all()
+                        for i in keep[1:]):
             fail("table_backward: padding edges' cotangents are not 0")
+        if not (got[0][~sends] == 0).all():
+            fail("table_backward: senders without a real edge have a "
+                 "non-zero d(h) row")
+        # d(h) as the JAX package forms it: the plain per-edge rows on the
+        # card, summed by sender by the d(h) reduce (row 3)
+        rows = ta.table_backward_plain(*bwd_args)[0]
+        reduced = ss.dh_reduce(rows, graph.src_order, graph.senders,
+                               graph.num_nodes, er, src_ptr=graph.src_ptr)
+        err, scale = max_err(got[0], reduced, 0.0)
+        bits = "equal bits" if torch.equal(got[0], reduced) else "bits differ"
+        print(f"  table_backward d_h against dh_reduce over "
+              f"table_backward_plain's rows on the card: {bits}, "
+              f"max_abs_err {err:.3e} (scale {scale:.3e})")
         return dict(nh=nh, f=f, drop=with_drop, fwd_args=fwd_args,
-                    bwd_args=bwd_args, rows=want[0])
+                    bwd_args=bwd_args, runs=runs, dden_args=dden_args)
 
     inductive = {}
     for name in ("PPI", "PATTERN"):
@@ -1469,6 +1508,9 @@ def main():
               f"max-subtracted logits at eps = 0, v5 kernels (the wide "
               f"backward), no dropout")
         ppi_table_cases.append(check_table(ppi, nh, f, 0.0, True, False))
+        print(f"[kernels] PPI layer shape {nh}x{f}: table kernels at eps = "
+              f"1e-8, with dropout")
+        check_table(ppi, nh, f, 1e-8, True, True)
         ppi_v5_cases.append(check_v5(ppi, nh, f, with_drop=False))
         print(f"[kernels] PPI layer shape {nh}x{f}, v5 with dropout")
         check_v5(ppi, nh, f, with_drop=True)
@@ -1715,8 +1757,9 @@ def main():
 
     def check_table_modes(graph, nh, f, eps, paper_faithful, label):
         """The table entries' bfloat16 modes at one layer shape: each
-        forward mode of V5_MODES, the backward on a bfloat16 table (its
-        only mode), held at 1 and at each output's own magnitude."""
+        forward mode of V5_MODES, the backward by sender on a bfloat16
+        table (its only mode), held at 1 and at each output's own
+        magnitude."""
         h, lg, drop, g = table_inputs(graph, nh, f, paper_faithful, True)
         fp = (lg, h, drop, graph.senders, graph.receivers, graph.num_nodes,
               graph.num_real_edges, eps)
@@ -1735,15 +1778,16 @@ def main():
         co = (graph.senders, graph.receivers, graph.num_real_edges, eps, g,
               out, den, True)
         ba = (lg, rnd.table_of(h), drop) + co
+        runs = dict(src_order=graph.src_order, src_ptr=graph.src_ptr)
         name = f"table_backward {label} [{mode_tag(rnd)}]"
-        got = ta.table_backward(*ba, rounding=rnd)
-        want = ta.table_backward_plain(*ba)
-        base = ta.table_backward_plain(lg, h, drop, *co)
+        got = ta.table_backward(*ba, rnd, **runs)
+        want = ta.table_backward_by_sender_plain(*ba, **runs)
+        base = ta.table_backward_by_sender_plain(lg, h, drop, *co, **runs)
         for floor in (1.0, 0.0):
             hold_mode(name, TABLE_BWD_NAMES, got, want, base,
                       "table_backward_bf16", floor)
-        same_bits(name, got, ta.table_backward(*ba, rounding=rnd))
-        case.update(bwd_args=ba, bwd_rounding=rnd)
+        same_bits(name, got, ta.table_backward(*ba, rnd, **runs))
+        case.update(bwd_args=ba, bwd_rounding=rnd, runs=runs)
         return case
 
     print("[kernels] the bfloat16 modes")
@@ -2428,24 +2472,37 @@ def main():
         }
 
     def table_time_rows(graph, c):
-        """The table kernels at one case of check_table. Inputs: logits,
-        h, the mask, senders, receivers (and g, out, den); per real edge
-        the forward does nh exp and a d-wide multiply-add, the backward a
-        d-wide dot, a d-wide product and the per-head terms."""
+        """The table kernels at one case of check_table, as the main path
+        calls them (the Graph's offsets). Forward: reads the logits, h,
+        the mask, senders and receivers, writes out and den; per real edge
+        nh exp and a d-wide multiply-add. table_dden: reads g, out and den,
+        writes dden; a multiply-add per element. The backward (the whole
+        call: table_dden and the pass by sender) reads h, g, out, den, the
+        logits, the mask, the receivers, the sender order and offsets and
+        writes d(h), d(logits) and d(mask); per real edge a d-wide dot, a
+        d-wide product and add, and the per-head terms. The rows it
+        gathers (g per real edge, as the forward gathers h) come from L2
+        and are not in the bound."""
         n_, e_, er = graph.num_nodes, graph.num_edges, graph.num_real_edges
         nh, d = c["nh"], c["nh"] * c["f"]
-        fa, ba = c["fwd_args"], c["bwd_args"]
+        fa, ba, runs, da = (c["fwd_args"], c["bwd_args"], c["runs"],
+                            c["dden_args"])
         dm = e_ * nh if c["drop"] else 0
         b_fwd = 4 * (e_ * nh + n_ * d + dm + 2 * e_ + n_ * d + n_ * nh)
-        b_bwd = 4 * (e_ * nh + n_ * d + dm + 2 * e_ + 2 * n_ * d + n_ * nh
-                     + e_ * d + e_ * nh + dm)
+        b_dden = 4 * (2 * n_ * d + 2 * n_ * nh)
+        b_bwd = 4 * (4 * n_ * d + 2 * e_ * nh + 2 * dm + n_ * nh + 2 * e_
+                     + n_ + 1)
         return {
             "table_forward": (lambda: ta.table_forward(*fa),
                               lambda: ta.table_forward_plain(*fa), None,
                               b_fwd, er * (2 * d + 3 * nh) + n_ * d),
-            "table_backward": (lambda: ta.table_backward(*ba),
-                               lambda: ta.table_backward_plain(*ba), None,
-                               b_bwd, er * (3 * d + 8 * nh) + 2 * n_ * d),
+            "table_dden": (lambda: ta.table_dden(*da),
+                           lambda: ta.table_dden_plain(*da), None, b_dden,
+                           2 * n_ * d),
+            "table_backward": (
+                lambda: ta.table_backward(*ba, **runs),
+                lambda: ta.table_backward_by_sender_plain(*ba, **runs), None,
+                b_bwd, er * (4 * d + 8 * nh) + 2 * n_ * d),
         }
 
     V5_JSON = ("v5_forward", "v5_backward", "segment_sum_rows")
@@ -2812,8 +2869,9 @@ def main():
                     ppi.num_nodes * d),
                 "table_backward_bf16": (
                     "table_backward",
-                    lambda: ta.table_backward(*ba, rounding=rb),
-                    lambda: ta.table_backward_plain(*ba), rb,
+                    lambda: ta.table_backward(*ba, rb, **ct["runs"]),
+                    lambda: ta.table_backward_by_sender_plain(
+                        *ba, **ct["runs"]), rb,
                     ppi.num_nodes * d)}), into_json=True)
         fp = ct["f32_args"]
         for rnd in V5_MODES[:2]:

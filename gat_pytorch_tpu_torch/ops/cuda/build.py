@@ -46,8 +46,8 @@ LIBRARIES = SOURCES + tuple(s + _BF16_TABLE for s in TABLE_SOURCES)
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel on a CUDA tensor, and nowhere else (chip_smoke.py reads these).
 # An entry's bfloat16 modes count apart, under "<entry>_bf16"
-# (rounding.Rounding.counter); the cap passes have no such mode, and of
-# the v2 entries only the forward has one.
+# (rounding.Rounding.counter); the cap passes, v5_dasrc and table_dden
+# have no such mode, and of the v2 entries only the forward has one.
 _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
             "table_forward", "table_backward", "v5_backward_parts",
             "window_backward_parts", "v5_cap", "v5_forward_two_phase",
@@ -56,7 +56,7 @@ _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     _ENTRIES + ("segment_sum_rows", "segment_sum_sorted", "window_cap",
                 "segment_sum_rows_t", "v2_forward", "v2_backward",
-                "v2_forward_bf16", "v5_dasrc")
+                "v2_forward_bf16", "v5_dasrc", "table_dden")
     + tuple(k + "_bf16" for k in _ENTRIES), 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}

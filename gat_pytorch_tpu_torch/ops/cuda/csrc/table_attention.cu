@@ -1,10 +1,16 @@
-// v4 table attention op for Hopper (sm_90a): forward and backward.
+// v4 table attention op for Hopper (sm_90a): forward, and a backward that
+// sums d(h) by sender.
 //
 // Replaces the TPU kernels
 //   gat_pytorch_tpu/ops/pallas/segment_attention.py:_kernel_split
 //     (launched by _forward_split for fused_segment_attention_table)
 //   gat_pytorch_tpu/ops/pallas/segment_attention_bwd.py:_kernel_split
-//     (launched by backward_split)
+//     (launched by backward_split; its d(den) prologue is table_dden_kernel)
+// and, for this op, the d(h) reduction that the JAX package runs after the
+// backward (segment_attention.py:_dh_reduce, segment_sum.py:_kernel_rows_nt
+// or _kernel_rows): the TPU kernel writes per-edge d(h) rows because Mosaic
+// has no in-kernel gather or scatter; here the backward walks each sender's
+// edges and writes its d(h) row once.
 //
 // Contract (per edge e = (src, dst), head k, feature j; the logits come
 // from the caller, masked to -1e30 on padding edges, whose exp is 0; the
@@ -13,231 +19,485 @@
 //   den[dst,k]    = sum_e ex[e,k]              (no dropout mask in den)
 //   inv[dst,k]    = den > 0 ? 1 / (den + eps) : 0
 //   out[dst,kf+j] = inv[dst,k] * sum_e ex[e,k] * drop[e,k] * h[src,kf+j]
-// Backward, with g = d(out), hg[e,k] = sum_j h[src,kf+j] * g[dst,kf+j] and
-// dden[dst,k] = -inv[dst,k] * sum_j out[dst,kf+j] * g[dst,kf+j]:
-//   d_h_rows[e,kf+j] = ex[e,k] * drop[e,k] * inv[dst,k] * g[dst,kf+j]
-//   d_logits[e,k]    = ex[e,k] * (hg[e,k] * inv[dst,k] * drop[e,k] + dden)
-//   d_drop[e,k]      = hg[e,k] * ex[e,k] * inv[dst,k]
-// The d(h) rows come out in dst order; segment_sum.cu sums them by sender.
+// Backward, with g = d(out), hg[e,k] = sum_j h[src,kf+j] * g[dst,kf+j],
+// dden[dst,k] = -inv[dst,k] * sum_j out[dst,kf+j] * g[dst,kf+j] (its own
+// launch, table_dden_kernel) and coef[e,k] = ex[e,k] * drop[e,k] * inv[dst,k]:
+//   d_h[s,kf+j]   = sum over s's edges e, in src_order, of coef[e,k] *
+//                   g[dst,kf+j]
+//   d_logits[e,k] = ex[e,k] * (hg[e,k] * inv[dst,k] * drop[e,k] + dden)
+//   d_drop[e,k]   = hg[e,k] * ex[e,k] * inv[dst,k]
 // A destination without a real edge has den = 0: its output row and every
-// cotangent of its edges are 0, also at eps = 0. The padding edges all hang
-// on one sink node (thousands in a batch padded to its bucket): no warp
-// walks them; the backward's warps share the zeroing of their cotangents.
+// cotangent of its edges are 0, also at eps = 0; so are the cotangents of
+// the padding edges and of edges whose receiver is no row of the call, and
+// a sender without a real edge has a zero d(h) row.
+//
+// d(h)'s bits. Each d_h sum starts at 0 and adds, in ascending position of
+// the sender's run of src_order, the product coef * g rounded to float32
+// (__fmul_rn, then __fadd_rn: no contraction), +0 for an edge whose
+// receiver is no row of the call: the products and the order of the
+// per-edge rows that segment_sum.cu's d(h) reduction summed before, so the
+// same bits. Both of its forms (row-major and GAT_TPU_DH_REDUCE_NT=0's
+// feature-major) give those bits, so this op reads no knob on the card.
 //
 // Design. The TPU kernels turn the row gather and the per-destination sums
-// into one-hot matmuls over edge blocks, with an expander matrix to spread
-// a head's weight over its features, because Mosaic has no in-kernel random
-// gather. Here one warp owns one destination and walks its in-edges
-// (dst-sorted CSR offsets) in order; lane l holds features l, l+32, ... of
-// the gathered sender row, and every lane reads the edge's nh logits (one
-// broadcast load each), so the forward needs no shuffle at all and the
-// backward one warp reduction per head and edge (hg). Each output row is
-// written by exactly one warp in a fixed order: no atomics, and the results
-// are bitwise reproducible. The normalisation runs in the kernel, as it
-// does in the TPU kernel's body.
+// into one-hot matmuls over edge blocks. Here a block of nh warps owns one
+// destination (forward) or one sender (backward), and warp k owns head k:
+// lane l holds the vectors b + V*(l + 32c) (c < C) of a row, b the vector
+// that holds the head's first element, V = 4 where it divides f (16-byte
+// float loads at 4x256), 2 where it divides the row (8-byte loads at 6x121,
+// whose heads start mid-vector: the elements of a neighbouring head are
+// kept out of the dot and the stores), else 1; C*V <= 8 at f <= 256. A
+// warp needs only its head's terms, so it never selects a head per
+// feature. The edges are taken 32 at a time:
+// lane i loads edge i's index, logit and mask and computes its exp once;
+// the warp hands them out by shuffles (no shared memory, no block barrier).
+// Each lane then issues U edges' row loads (U = 32 / (C*V), at most 8)
+// before it uses them. The forward adds w * h with fmaf in ascending edge
+// order and sums den the same way; the backward reads the sender's own h row
+// once, gathers g[dst] per edge, reduces the U edges' hg together
+// (warp_sums: U - 1 + log2(32 / U) shuffles, not 5 U), and writes each
+// real edge's d(logits) and d(drop) from the edge's own lane. Each output
+// row has one writer in a fixed order: no atomics, the same bits on every
+// launch.
 //
-// What bounds it on the H100: by bytes, the gathered h rows in the forward
-// (E x nh*f x 4) and the d(h) rows written in the backward (the same
-// again); at 1024-wide rows and tens of thousands of edges that is a few
-// hundred MB, of the order of 0.1 ms at 3.35 TB/s. As written a warp walks
-// its edges one after another, so narrow rows are bound by latency.
+// What bounds it on the H100: by bytes, the input tables read once and the
+// outputs written once: about 0.01 ms a call at PPI's shapes. In practice
+// the gathered rows (E_real x d floats: h in the forward, g in the
+// backward, 240 MB at 1024-wide rows and 58,000 edges) come from L2, which
+// holds the (N, d) tables, and the L2 read rate sets the floor.
 //
 // The bfloat16 modes (the flags word, attention_common.cuh): the JAX
-// package's GAT_TPU_H_DTYPE, a bfloat16 h table (kBf16Table: both kernels
-// are instantiated for both element types; half the gathered bytes), and
-// GAT_TPU_KERNEL_DTYPE, each edge's [weighted h | ex] rounded before the
-// forward's float32 sums (kRoundAcc).
+// package's GAT_TPU_H_DTYPE, a bfloat16 h table (kBf16Table: every kernel
+// that reads h is instantiated for both element types; half the gathered
+// bytes of the forward; a gathered bfloat16 vector is widened where it is
+// used, not where it is loaded, so that the U edges' loads stay in
+// flight together), and GAT_TPU_KERNEL_DTYPE, each edge's
+// [weighted h | ex] rounded before the forward's float32 sums (kRoundAcc).
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
 namespace {
 
-template <int C, typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// V consecutive floats from p, in one load of V elements (aligned to its
+// size)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// V consecutive elements of T, loaded in one load of V elements (aligned
+// to its size) and read as floats by e(). A bfloat16 vector keeps its
+// loaded bits and widens each element where it is read: widened at the
+// load, every load waited for its data before the next was issued.
+template <typename T, int V>
+struct Vec;
+
+template <int V>
+struct Vec<float, V> {
+  float v[V];
+  __device__ __forceinline__ void load(const float* __restrict__ p) {
+    load_vec<V>(p, v);
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = 0.f;
+  }
+  __device__ __forceinline__ float e(int i) const { return v[i]; }
+};
+
+template <int V>
+struct Vec<__nv_bfloat16, V> {
+  using Bits = std::conditional_t<
+      V == 4, uint2, std::conditional_t<V == 2, unsigned, unsigned short>>;
+  Bits q;
+  __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ p) {
+    q = *reinterpret_cast<const Bits*>(p);
+  }
+  __device__ __forceinline__ void zero() { q = Bits{}; }
+  // a bfloat16 is the high half of its float
+  __device__ __forceinline__ float e(int i) const {
+    if constexpr (V == 4) {
+      const unsigned w = i < 2 ? q.x : q.y;
+      return __uint_as_float(i % 2 ? w & 0xffff0000u : w << 16);
+    } else if constexpr (V == 2) {
+      return __uint_as_float(i ? q & 0xffff0000u : q << 16);
+    } else {
+      return __uint_as_float((unsigned)q << 16);
+    }
+  }
+};
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* __restrict__ p,
+                                          const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// v's elements idx .. idx + V - 1 that lie in [lo, hi): one vector store
+// where all do
+template <int V>
+__device__ __forceinline__ void store_in(float* __restrict__ p,
+                                         const float (&v)[V], int idx,
+                                         int lo, int hi) {
+  if (idx >= lo && idx + V <= hi) {
+    store_vec<V>(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (idx + e >= lo && idx + e < hi) p[e] = v[e];
+  }
+}
+
+// edges whose row loads a lane keeps in flight: U x C x V floats
+__host__ __device__ constexpr int in_flight(int elems) {
+  return elems >= 32 ? 1 : elems >= 16 ? 2 : elems >= 8 ? 4 : 8;
+}
+
+// U warp sums at once (U a power of two): each step halves the values a
+// lane holds, exchanging the half its partner keeps, so the U sums take
+// U - 1 + log2(32 / U) shuffles, not 5 U. Returns the sum of q[lane /
+// (32 / U)]; q is overwritten.
+template <int U>
+__device__ __forceinline__ float warp_sums(float (&q)[U], int lane) {
+#pragma unroll
+  for (int m = U, o = 16; m > 1; m >>= 1, o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int j = 0; j < m / 2; ++j) {
+      const float keep = up ? q[j + m / 2] : q[j];
+      const float give = up ? q[j] : q[j + m / 2];
+      q[j] = keep + __shfl_xor_sync(kFull, give, o);
+    }
+  }
+  float s = q[0];
+#pragma unroll
+  for (int o = 16 / U; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s;
+}
+
+// the forward: block d is destination d, warp k head k
+template <int V, int C, bool RACC, typename T>
+__global__ void __launch_bounds__(kMaxHeads * 32)
 table_fwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
                  const float* __restrict__ drop,
                  const int* __restrict__ senders,
-                 const int* __restrict__ row_ptr, int n, int e_real,
-                 int d_feat, int nh, int f, float eps, int flags,
-                 float* __restrict__ out, float* __restrict__ den) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool r_acc = flags & kRoundAcc;
-  int head[C];
+                 const int* __restrict__ row_ptr, int e_real, int d_feat,
+                 int nh, int f, float eps, float* __restrict__ out,
+                 float* __restrict__ den) {
+  constexpr int U = in_flight(C * V);
+  const int lane = threadIdx.x & 31, k = threadIdx.x >> 5;
+  const int d = blockIdx.x;
+  const int lo_k = k * f, hi_k = lo_k + f;     // head k's elements
+  const int col = lo_k - lo_k % V + V * lane;  // the lane's first vector
   bool live[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int j = lane + 32 * c;
-    live[c] = j < d_feat;
-    head[c] = live[c] ? j / f : 0;
-  }
+  for (int c = 0; c < C; ++c) live[c] = col + 32 * V * c < hi_k;
+  float acc[C][V];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
+  float dsum = 0.f;
 
-  for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
-    float dsum[kMaxHeads], acc[C];
-#pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k) dsum[k] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-
-    const int lo = row_ptr[d], hi = min(row_ptr[d + 1], e_real);
-    for (int e = lo; e < hi; ++e) {
-      const T* hrow = h + (size_t)senders[e] * d_feat;
-      float w[kMaxHeads];
-#pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) {
-        w[k] = 0.f;
-        if (k < nh) {
-          const float ex = expf(logits[(size_t)e * nh + k]);
-          dsum[k] += round_if(ex, r_acc);
-          w[k] = drop ? ex * drop[(size_t)e * nh + k] : ex;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (live[c])
-          acc[c] += round_if(
-              select_head(w, head[c]) * load_h(hrow + lane + 32 * c), r_acc);
+  const int lo = row_ptr[d], hi = min(row_ptr[d + 1], e_real);
+  for (int b = lo; b < hi; b += 32) {
+    const int cnt = min(32, hi - b);
+    // lane i: edge b + i's sender, weight and den term
+    int src = 0;
+    float w = 0.f, term = 0.f;
+    if (lane < cnt) {
+      const size_t ek = (size_t)(b + lane) * nh + k;
+      src = senders[b + lane];
+      const float ex = expf(logits[ek]);
+      term = RACC ? round_bf16(ex) : ex;
+      w = drop ? ex * drop[ek] : ex;
     }
-
-    float inv[kMaxHeads];
+    for (int i0 = 0; i0 < cnt; i0 += U) {
+      Vec<T, V> hv[U][C];
+      float wu[U];
 #pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k)
-      inv[k] = dsum[k] > 0.f ? 1.f / (dsum[k] + eps) : 0.f;
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u;  // past cnt: nothing is loaded or added
+        const int s = __shfl_sync(kFull, src, i & 31);
+        wu[u] = __shfl_sync(kFull, w, i & 31);
+        const float tu = __shfl_sync(kFull, term, i & 31);
+        if (i < cnt) dsum += tu;
+        const T* row = h + (size_t)s * d_feat + col;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (live[c])
-        out[(size_t)d * d_feat + lane + 32 * c] =
-            acc[c] * select_head(inv, head[c]);
-    if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
-  }
-}
-
-template <int C, typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-table_bwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
-                 const float* __restrict__ drop,
-                 const int* __restrict__ senders,
-                 const int* __restrict__ row_ptr, int n, int e_real,
-                 int e_total, int d_feat, int nh, int f, float eps,
-                 const float* __restrict__ g, const float* __restrict__ out,
-                 const float* __restrict__ den, float* __restrict__ d_h_rows,
-                 float* __restrict__ d_logits, float* __restrict__ d_drop) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int head[C];
-  bool live[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int j = lane + 32 * c;
-    live[c] = j < d_feat;
-    head[c] = live[c] ? j / f : 0;
-  }
-
-  for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
-    float gv[C];
-    float inv[kMaxHeads], dden[kMaxHeads];
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      gv[c] = live[c] ? g[(size_t)d * d_feat + lane + 32 * c] : 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k) {
-      inv[k] = dden[k] = 0.f;
-      if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
-        const float dn = den[(size_t)d * nh + k];
-        inv[k] = dn > 0.f ? 1.f / (dn + eps) : 0.f;
-        float p = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          if (live[c] && head[c] == k)
-            p += out[(size_t)d * d_feat + lane + 32 * c] * gv[c];
-        dden[k] = -warp_sum(p) * inv[k];
-      }
-    }
-
-    const int lo = row_ptr[d], hi = min(row_ptr[d + 1], e_real);
-    for (int e = lo; e < hi; ++e) {
-      const T* hrow = h + (size_t)senders[e] * d_feat;
-      float* dhrow = d_h_rows + (size_t)e * d_feat;
-      float hv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
-      float coef[kMaxHeads];
-#pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) {
-        coef[k] = 0.f;
-        if (k < nh) {
-          float q = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            if (live[c] && head[c] == k) q += hv[c] * gv[c];
-          const float hg = warp_sum(q);
-          const float ex = expf(logits[(size_t)e * nh + k]);
-          const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
-          coef[k] = ex * m * inv[k];
-          if (lane == k) {
-            d_logits[(size_t)e * nh + k] = ex * (hg * inv[k] * m + dden[k]);
-            if (d_drop) d_drop[(size_t)e * nh + k] = hg * ex * inv[k];
+        for (int c = 0; c < C; ++c) {
+          if (i < cnt && live[c]) {
+            hv[u][c].load(row + 32 * V * c);
+          } else {
+            hv[u][c].zero();
           }
         }
       }
+      // in ascending edge order: the loads above are all in flight by now
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (live[c]) dhrow[lane + 32 * c] = select_head(coef, head[c]) * gv[c];
+      for (int u = 0; u < U; ++u) {
+        if (i0 + u >= cnt) break;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[c][v] =
+                RACC ? __fadd_rn(acc[c][v],
+                                 round_bf16(__fmul_rn(wu[u], hv[u][c].e(v))))
+                     : fmaf(wu[u], hv[u][c].e(v), acc[c][v]);
+      }
     }
   }
 
-  // padding edges (e >= e_real) and edges whose receiver is no row of this
-  // call (>= n, past row_ptr[n]) get zero cotangents, from all warps
-  const int warps = gridDim.x * kWarps;
-  for (int e = min(e_real, row_ptr[n]) + blockIdx.x * kWarps + warp;
-       e < e_total; e += warps) {
+  const float inv = dsum > 0.f ? 1.f / (dsum + eps) : 0.f;
+  float* orow = out + (size_t)d * d_feat + col;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (live[c]) d_h_rows[(size_t)e * d_feat + lane + 32 * c] = 0.f;
-    if (lane < nh) {
-      d_logits[(size_t)e * nh + lane] = 0.f;
-      if (d_drop) d_drop[(size_t)e * nh + lane] = 0.f;
+  for (int c = 0; c < C; ++c) {
+    if (!live[c]) continue;
+    float o[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[v] = acc[c][v] * inv;
+    store_in<V>(orow + 32 * V * c, o, col + 32 * V * c, lo_k, hi_k);
+  }
+  if (lane == 0) den[(size_t)d * nh + k] = dsum;
+}
+
+constexpr int kDdenWarps = 8;
+
+// the backward's prelude: one warp a (destination, head)
+__global__ void __launch_bounds__(kDdenWarps * 32)
+table_dden_kernel(const float* __restrict__ g, const float* __restrict__ out,
+                  const float* __restrict__ den, int n, int d_feat, int nh,
+                  int f, float eps, float* __restrict__ dden) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kDdenWarps + (threadIdx.x >> 5);
+  if (w >= n * nh) return;  // the whole warp
+  const int d = w / nh, k = w - d * nh;
+  const size_t base = (size_t)d * d_feat + (size_t)k * f;
+  float p = 0.f;
+#pragma unroll 4
+  for (int j = lane; j < f; j += 32) p = fmaf(out[base + j], g[base + j], p);
+  const float dn = den[w];
+  const float inv = dn > 0.f ? 1.f / (dn + eps) : 0.f;
+  const float s = warp_sum(p);
+  if (lane == 0) dden[w] = -s * inv;
+}
+
+// the backward by sender: block s < n_src is sender s, warp k head k; the
+// blocks past them zero the padding edges' d(logits) and d(drop)
+template <int V, int C, typename T>
+__global__ void __launch_bounds__(kMaxHeads * 32)
+table_bwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
+                 const float* __restrict__ drop,
+                 const int* __restrict__ receivers,
+                 const int* __restrict__ order,
+                 const int* __restrict__ src_ptr, int n_src, int n,
+                 int e_real, int e_total, int d_feat, int nh, int f,
+                 float eps, const float* __restrict__ g,
+                 const float* __restrict__ den,
+                 const float* __restrict__ dden, float* __restrict__ d_h,
+                 float* __restrict__ d_logits, float* __restrict__ d_drop) {
+  if ((int)blockIdx.x >= n_src) {
+    const size_t stride = (size_t)(gridDim.x - n_src) * blockDim.x;
+    for (size_t i = (size_t)e_real * nh +
+                    (size_t)(blockIdx.x - n_src) * blockDim.x + threadIdx.x;
+         i < (size_t)e_total * nh; i += stride) {
+      d_logits[i] = 0.f;
+      if (d_drop) d_drop[i] = 0.f;
+    }
+    return;
+  }
+  constexpr int U = in_flight(C * V);
+  constexpr bool kSplit = V == 2;  // vectors may straddle two heads
+  const int lane = threadIdx.x & 31, k = threadIdx.x >> 5;
+  const int s = blockIdx.x;
+  const int lo_k = k * f, hi_k = lo_k + f;
+  const int col = lo_k - lo_k % V + V * lane;
+  bool live[C], inh[C][V];  // inh: the element is head k's
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    live[c] = col + 32 * V * c < hi_k;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int j = col + 32 * V * c + v;
+      inh[c][v] = j >= lo_k && j < hi_k;
     }
   }
+  // the sender's own row, read once, 0 outside head k
+  float hv[C][V], acc[C][V];
+  const T* hrow = h + (size_t)s * d_feat + col;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    Vec<T, V> r;
+    r.zero();
+    if (live[c]) r.load(hrow + 32 * V * c);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      hv[c][v] = inh[c][v] ? r.e(v) : 0.f;
+      acc[c][v] = 0.f;
+    }
+  }
+
+  const int lo = src_ptr[s], hi = src_ptr[s + 1];
+  for (int b = lo; b < hi; b += 32) {
+    const int cnt = min(32, hi - b);
+    // lane i: the edge at position b + i of the sender's run
+    int e = 0, dst = 0;
+    bool real = false, inside = false;
+    float ex = 0.f, m = 1.f, inv = 0.f, dd = 0.f, coef = 0.f;
+    if (lane < cnt) {
+      e = order[b + lane];
+      real = e < e_real;
+      if (real) {
+        dst = receivers[e];
+        inside = dst < n;
+        if (inside) {
+          const size_t ek = (size_t)e * nh + k, dk = (size_t)dst * nh + k;
+          ex = expf(logits[ek]);
+          if (drop) m = drop[ek];
+          const float dn = den[dk];
+          inv = dn > 0.f ? 1.f / (dn + eps) : 0.f;
+          dd = dden[dk];
+          coef = ex * m * inv;
+        }
+      }
+    }
+    // bit i: edge b + i is real, or has its receiver in the call (i < cnt)
+    const unsigned real_bits = __ballot_sync(kFull, real);
+    const unsigned in_bits = __ballot_sync(kFull, inside);
+    if (!real_bits) continue;  // padding edges only
+    float hg_mine = 0.f;
+    for (int i0 = 0; i0 < cnt; i0 += U) {  // i0 + u < 32: U divides 32
+      float gv[U][C][V], cu[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u;
+        const int du = __shfl_sync(kFull, dst, i);
+        cu[u] = __shfl_sync(kFull, coef, i);
+        const float* grow = g + (size_t)du * d_feat + col;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if ((in_bits >> i & 1) && live[c]) {
+            load_vec<V>(grow + 32 * V * c, gv[u][c]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v) gv[u][c][v] = 0.f;
+          }
+        }
+      }
+      // hg over head k's elements (kSplit: a vector may hold a
+      // neighbour's, whose g is not read into the dot); 0 past cnt
+      float q[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        q[u] = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            q[u] = fmaf(hv[c][v], kSplit && !inh[c][v] ? 0.f : gv[u][c][v],
+                        q[u]);
+      }
+      // lane i0 + u takes edge i0 + u's sum from lane u * (32 / U)
+      const float hg = __shfl_sync(
+          kFull, warp_sums<U>(q, lane), ((lane - i0) & (U - 1)) * (32 / U));
+      if (lane >= i0 && lane < i0 + U) hg_mine = hg;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!(real_bits >> (i0 + u) & 1)) continue;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[c][v] = __fadd_rn(acc[c][v], __fmul_rn(cu[u], gv[u][c][v]));
+      }
+    }
+    if (real) {
+      const size_t ek = (size_t)e * nh + k;
+      d_logits[ek] = inside ? ex * (hg_mine * inv * m + dd) : 0.f;
+      if (d_drop) d_drop[ek] = inside ? hg_mine * ex * inv : 0.f;
+    }
+  }
+
+  float* dhrow = d_h + (size_t)s * d_feat + col;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (live[c])
+      store_in<V>(dhrow + 32 * V * c, acc[c], col + 32 * V * c, lo_k, hi_k);
 }
 
-template <typename T>
-int launch_table_forward(const float* logits, const T* h, const float* drop,
-                         const int* senders, const int* row_ptr, int n,
-                         int e_real, int d_feat, int nh, int f, float eps,
-                         float* out, float* den, int nblk, int flags,
-                         cudaStream_t st) {
-  const int c_need = (d_feat + 31) / 32;
-#define TABLE_FWD(CC)                                                        \
-  table_fwd_kernel<CC, T><<<nblk, kWarps * 32, 0, st>>>(                     \
-      logits, h, drop, senders, row_ptr, n, e_real, d_feat, nh, f, eps,      \
-      flags, out, den);
-  ROWS_DISPATCH(TABLE_FWD)
-#undef TABLE_FWD
-  return (int)cudaGetLastError();
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T>
-int launch_table_backward(const float* logits, const T* h, const float* drop,
-                          const int* senders, const int* row_ptr, int n,
-                          int e_real, int e_total, int d_feat, int nh, int f,
-                          float eps, const float* g, const float* out,
-                          const float* den, float* d_h_rows, float* d_logits,
-                          float* d_drop, int nblk, cudaStream_t st) {
-  const int c_need = (d_feat + 31) / 32;
-#define TABLE_BWD(CC)                                                     \
-  table_bwd_kernel<CC, T><<<nblk, kWarps * 32, 0, st>>>(                  \
-      logits, h, drop, senders, row_ptr, n, e_real, e_total, d_feat, nh, f, \
-      eps, g, out, den, d_h_rows, d_logits, d_drop);
-  ROWS_DISPATCH(TABLE_BWD)
-#undef TABLE_BWD
-  return (int)cudaGetLastError();
+// fn(Int<V>): the widest vector of V elements to which every row of the
+// h table (elements of T) and of the float tables a, b is aligned: 4 where
+// it divides f (no vector straddles two heads), else 2 where it divides the
+// row (a vector may straddle two heads: the kernels mask by element), else 1
+template <typename T, typename F>
+int with_vec(int f, int d_feat, const T* h, const float* a, const float* b,
+             F&& fn) {
+  if (f % 4 == 0 && aligned(h, 4 * sizeof(T)) && aligned(a, 16) &&
+      aligned(b, 16))
+    return fn(Int<4>{});
+  if (d_feat % 2 == 0 && aligned(h, 2 * sizeof(T)) && aligned(a, 8) &&
+      aligned(b, 8))
+    return fn(Int<2>{});
+  return fn(Int<1>{});
+}
+
+// fn(Int<C>): the vectors a lane needs to cover head k's elements from the
+// vector that holds the first, C*V <= 32
+template <int V, typename F>
+int with_c(int f, F&& fn) {
+  const int span = f % V ? f + V - 1 : f;
+  const int c_need = (span + 32 * V - 1) / (32 * V);
+  if (c_need <= 1) return fn(Int<1>{});
+  if (c_need <= 2) return fn(Int<2>{});
+  if (c_need <= 4) return fn(Int<4>{});
+  if (c_need <= 8) return fn(Int<8>{});
+  if constexpr (V <= 2)
+    if (c_need <= 16) return fn(Int<16>{});
+  if constexpr (V == 1)
+    if (c_need <= 32) return fn(Int<32>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+bool bad_shape(int d_feat, int nh, int f) {
+  return d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads ||
+         nh * f != d_feat;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Both entries: h is float32, or bfloat16 where flags has kBf16Table;
+// Entries reading h: h is float32, or bfloat16 where flags has kBf16Table;
 // flags is the bfloat16 mode's word (attention_common.cuh), 0 for float32.
 
 // Forward: out (n, d_feat) normalised, den (n, nh). logits (E, nh), h
@@ -247,32 +507,69 @@ extern "C" {
 int table_forward(const float* logits, const void* h, const float* drop,
                   const int* senders, const int* row_ptr, int n, int e_real,
                   int d_feat, int nh, int f, float eps, float* out,
-                  float* den, int nblk, int flags, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
-    return (int)cudaErrorInvalidValue;
+                  float* den, int flags, void* stream) {
+  if (bad_shape(d_feat, nh, f) || n < 1) return (int)cudaErrorInvalidValue;
+  const bool racc = flags & kRoundAcc;
   return with_table(h, flags, [&](auto hp) {
-    return launch_table_forward(logits, hp, drop, senders, row_ptr, n,
-                                e_real, d_feat, nh, f, eps, out, den, nblk,
-                                flags, (cudaStream_t)stream);
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
+    return with_vec(f, d_feat, hp, out, out, [&](auto vc) {
+      constexpr int V = decltype(vc)::value;
+      return with_c<V>(f, [&](auto cc) {
+        constexpr int C = decltype(cc)::value;
+        auto kern = racc ? table_fwd_kernel<V, C, true, T>
+                         : table_fwd_kernel<V, C, false, T>;
+        kern<<<n, nh * 32, 0, (cudaStream_t)stream>>>(
+            logits, hp, drop, senders, row_ptr, e_real, d_feat, nh, f, eps,
+            out, den);
+        return (int)cudaGetLastError();
+      });
+    });
   });
 }
 
-// Backward: d_h_rows (E, d_feat) in dst order, d_logits (E, nh), d_drop
-// (E, nh) or NULL.
+// The backward's prelude: dden (n, nh) from g and out (n, d_feat) and den.
+int table_dden(const float* g, const float* out, const float* den, int n,
+               int d_feat, int nh, int f, float eps, float* dden,
+               void* stream) {
+  if (bad_shape(d_feat, nh, f) || n < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n * nh + kDdenWarps - 1) / kDdenWarps;
+  table_dden_kernel<<<blocks, kDdenWarps * 32, 0, (cudaStream_t)stream>>>(
+      g, out, den, n, d_feat, nh, f, eps, dden);
+  return (int)cudaGetLastError();
+}
+
+// The backward by sender: d_h (n_src, d_feat), d_logits and d_drop (E, nh),
+// d_drop NULL where no mask is given. Sender s's edges are
+// order[src_ptr[s]:src_ptr[s+1]], ascending by position; entries >= e_real
+// are padding edges and are not read. g (n, d_feat), den and dden (n, nh);
+// receivers (E,).
 int table_backward(const float* logits, const void* h, const float* drop,
-                   const int* senders, const int* row_ptr, int n, int e_real,
+                   const int* receivers, const int* order,
+                   const int* src_ptr, int n_src, int n, int e_real,
                    int e_total, int d_feat, int nh, int f, float eps,
-                   const float* g,
-                   const float* out, const float* den, float* d_h_rows,
-                   float* d_logits, float* d_drop, int nblk, int flags,
+                   const float* g, const float* den, const float* dden,
+                   float* d_h, float* d_logits, float* d_drop, int flags,
                    void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1)
+  if (bad_shape(d_feat, nh, f) || n < 1 || n_src < 1 || e_real > e_total)
     return (int)cudaErrorInvalidValue;
+  const long pad = (long)(e_total - e_real) * nh;
+  const long per = (long)nh * 32 * 8;  // elements a zeroing block a pass
+  const int zero_blocks = (int)((pad + per - 1) / per < 64
+                                    ? (pad + per - 1) / per : 64);
   return with_table(h, flags, [&](auto hp) {
-    return launch_table_backward(logits, hp, drop, senders, row_ptr, n,
-                                 e_real, e_total, d_feat, nh, f, eps, g, out,
-                                 den, d_h_rows, d_logits, d_drop, nblk,
-                                 (cudaStream_t)stream);
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
+    return with_vec(f, d_feat, hp, g, d_h, [&](auto vc) {
+      constexpr int V = decltype(vc)::value;
+      return with_c<V>(f, [&](auto cc) {
+        constexpr int C = decltype(cc)::value;
+        table_bwd_kernel<V, C, T>
+            <<<n_src + zero_blocks, nh * 32, 0, (cudaStream_t)stream>>>(
+                logits, hp, drop, receivers, order, src_ptr, n_src, n,
+                e_real, e_total, d_feat, nh, f, eps, g, den, dden, d_h,
+                d_logits, d_drop);
+        return (int)cudaGetLastError();
+      });
+    });
   });
 }
 

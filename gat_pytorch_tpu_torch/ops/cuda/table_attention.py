@@ -2,10 +2,14 @@
 
 Counterpart of gat_pytorch_tpu/ops/pallas/segment_attention.py:
 fused_segment_attention_table (:506) with its VJP `_fsat_fwd`/`_fsat_bwd`
-(:535-590). The kernels are csrc/table_attention.cu (forward:
-`_kernel_split`; backward: segment_attention_bwd.py:`_kernel_split`) and
-the d(h) reduction of ops/cuda/segment_sum.py. `table_forward_plain` and
-`table_backward_plain` are their plain torch versions.
+(:535-590). The kernels are csrc/table_attention.cu: the forward
+(`_kernel_split`), and the backward (segment_attention_bwd.py:
+`_kernel_split`) as two launches, `table_dden` (the per-destination
+d(den) term) and `table_backward`, which walks each sender's edges and
+writes d(h) (N, D) directly. `table_forward_plain` and
+`table_backward_plain` (per-edge d(h) rows) are the plain torch versions
+of the op's function; `table_dden_plain` and
+`table_backward_by_sender_plain` those of the two backward kernels.
 
 The caller computes the edge logits (any formulation: per-head scores
 with a per-destination max subtracted, zeros, or the capped cross-head
@@ -19,13 +23,22 @@ and is differentiable in the logits, h and the dropout mask. The JAX
 op's `eb`, `nb`, `interpret`, `num_src_nodes` and `vma` arguments size
 TPU blocks or serve the sharded layout and are not carried.
 
+d(h). The JAX package's backward writes a d(h) row per edge and sums them
+by sender (`_dh_reduce`), a TPU workaround: Mosaic has no in-kernel
+gather or scatter. On the card the backward sums each sender's terms
+itself, in the order of src_order and with the per-edge products rounded
+as the rows were, so d(h) has the bits of the rows summed by either form
+of ops/cuda/segment_sum.py's reduction; the op therefore reads
+GAT_TPU_DH_REDUCE_NT only on CPU tensors, where it takes the per-edge
+rows and `dh_reduce` in the form the knob names, as the JAX `_fsat_bwd`
+does.
+
 The JAX package's dtype knobs of this op (ops/cuda/v5_attention.py's
 v5_rounding, read when the op is called): GAT_TPU_KERNEL_DTYPE=bfloat16
 rounds each edge's [weighted h | ex] to bfloat16 before the forward's
 float32 sums; GAT_TPU_H_DTYPE=bfloat16 casts the h table to bfloat16
 before the gather, so that the forward and the backward read rounded rows
-(gather_h_src_t; d(h) stays float32). GAT_TPU_DH_REDUCE_NT=0 reduces d(h)
-through the feature-major kernel.
+(gather_h_src_t; d(h) stays float32).
 """
 
 from __future__ import annotations
@@ -38,7 +51,7 @@ import torch
 from .. import segment as seg
 from . import build
 from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
-from .segment_sum import dh_reduce, dh_transposed
+from .segment_sum import dh_reduce, dh_transposed, segment_rows_plain
 from .v5_attention import MAX_HEADS, v5_rounding
 
 NEG_INF = -1e30          # the logit of a padding edge
@@ -53,13 +66,36 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
     if name not in _configured:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.table_forward.argtypes = ([p] * 5 + [i] * 5
-                                      + [fl, p, p, i, i, p])
+                                      + [fl, p, p, i, p])
         lib.table_forward.restype = ctypes.c_int
-        lib.table_backward.argtypes = ([p] * 5 + [i] * 6 + [fl] + [p] * 6
-                                       + [i, i, p])
+        lib.table_dden.argtypes = [p] * 3 + [i] * 4 + [fl, p, p]
+        lib.table_dden.restype = ctypes.c_int
+        lib.table_backward.argtypes = ([p] * 6 + [i] * 7 + [fl] + [p] * 6
+                                       + [i, p])
         lib.table_backward.restype = ctypes.c_int
         _configured.add(name)
     return lib
+
+
+def sender_runs(senders, e_real: int, num_src: int, src_order=None,
+                src_ptr=None):
+    """(order, ptr): sender s's edges are order[ptr[s]:ptr[s+1]]; the
+    caller's src_order and src_ptr (Graph.src_ptr, checked), or derived
+    here: a stable sort of the real edges' senders where there is no
+    src_order, the offsets of the order by searchsorted where there is no
+    src_ptr (src_ptr is read only with src_order)."""
+    if src_order is None:
+        src_order = torch.argsort(senders[:e_real],
+                                  stable=True).to(torch.int32)
+        src_ptr = None
+    build.require(src_order, "src_order", senders.device, torch.int32,
+                  (None,))
+    if src_ptr is None:
+        return src_order, build.csr_offsets(
+            senders.index_select(0, src_order.long()), num_src)
+    build.require(src_ptr, "src_ptr", senders.device, torch.int32,
+                  (num_src + 1,))
+    return src_order, src_ptr
 
 
 # -- plain versions (CPU tensors) -------------------------------------------
@@ -119,6 +155,35 @@ def table_backward_plain(logits, h, drop, senders, receivers, e_real: int,
     return d_h_rows, d_logits, d_drop
 
 
+def table_dden_plain(g, out, den, eps: float):
+    """dden (N, nh) = -inv * sum over each head's features of out * g,
+    the backward's per-destination d(den) term."""
+    n, d = out.shape
+    nh = den.shape[1]
+    return -(out * g).view(n, nh, d // nh).sum(2) * _inverse(den, eps)
+
+
+def table_backward_by_sender_plain(logits, h, drop, senders, receivers,
+                                   e_real: int, eps: float, g, out, den,
+                                   need_drop: bool, src_order=None,
+                                   src_ptr=None):
+    """(d_h (h rows, D), d_logits (E, nh), d_drop (E, nh) | None): the
+    per-edge rows of table_backward_plain summed by sender over the runs
+    the kernel walks (sender_runs)."""
+    rows, d_logits, d_drop = table_backward_plain(
+        logits, h, drop, senders, receivers, e_real, eps, g, out, den,
+        need_drop)
+    n_src = h.shape[0]
+    order, ptr = sender_runs(senders, e_real, n_src, src_order, src_ptr)
+    # each position's sender by the offsets (outside them: dropped), with
+    # no host synchronisation
+    pos = torch.arange(order.shape[0], device=ptr.device)
+    ids = torch.searchsorted(ptr.long(), pos, right=True) - 1
+    ids = ids.masked_fill(ids < 0, n_src)
+    d_h = segment_rows_plain(rows, order, ids, n_src)
+    return d_h, d_logits, d_drop
+
+
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
 
 def _check_inputs(logits, h, drop, senders, receivers, num_nodes, e_real,
@@ -159,39 +224,59 @@ def _table_forward_cuda(logits, h, drop, senders, receivers, num_nodes: int,
     with torch.cuda.device(dev):
         err = lib.table_forward(
             p(logits), p(h), p(drop), p(senders), p(row_ptr), num_nodes,
-            e_real, d, nh, d // nh, eps, p(out), p(den),
-            build.grid_blocks(num_nodes), rounding.flags(),
+            e_real, d, nh, d // nh, eps, p(out), p(den), rounding.flags(),
             build.stream(dev))
     build.check(err, "table_forward")
     build.LAUNCHES[rounding.counter("table_forward")] += 1
     return out, den
 
 
+def _table_dden_cuda(g, out, den, eps: float):
+    dev = out.device
+    n = den.shape[0] if den.dim() == 2 else -1
+    nh = den.shape[1] if den.dim() == 2 else -1
+    build.require(den, "den", dev, torch.float32, (None, None))
+    build.require(out, "out", dev, torch.float32, (n, None))
+    d = out.shape[1]
+    if not 1 <= nh <= MAX_HEADS or not 1 <= d <= 1024 or d % nh:
+        raise ValueError(f"row width {d} and {nh} heads: the kernel takes "
+                         f"nh*f <= 1024 and 1..{MAX_HEADS} heads")
+    build.require(g, "g", dev, torch.float32, (n, d))
+    dden = torch.empty((n, nh), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().table_dden(build.ptr(g), build.ptr(out), build.ptr(den),
+                                n, d, nh, d // nh, eps, build.ptr(dden),
+                                build.stream(dev))
+    build.check(err, "table_dden")
+    build.LAUNCHES["table_dden"] += 1
+    return dden
+
+
 def _table_backward_cuda(logits, h, drop, senders, receivers, e_real: int,
                          eps: float, g, out, den, need_drop: bool,
-                         rounding: Rounding, dst_ptr=None):
+                         rounding: Rounding, src_order, src_ptr):
     n = den.shape[0] if den.dim() == 2 else -1
     dev, e, d, nh = _check_inputs(logits, h, drop, senders, receivers, n,
                                   e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
-    build.require(out, "out", dev, torch.float32, (n, d))
     build.require(den, "den", dev, torch.float32, (n, nh))
-    row_ptr = build.row_offsets(receivers, n, dst_ptr)
+    n_src = h.shape[0]
+    order, ptr = sender_runs(senders, e_real, n_src, src_order, src_ptr)
+    dden = table_dden(g, out, den, eps)
     f32 = dict(dtype=torch.float32, device=dev)
-    d_h_rows = torch.empty((e, d), **f32)
+    d_h = torch.empty((n_src, d), **f32)
     d_logits = torch.empty((e, nh), **f32)
     d_drop = torch.empty((e, nh), **f32) if need_drop else None
     p = build.ptr
     lib = _lib(rounding.table)
     with torch.cuda.device(dev):
         err = lib.table_backward(
-            p(logits), p(h), p(drop), p(senders), p(row_ptr), n, e_real, e,
-            d, nh, d // nh, eps, p(g), p(out), p(den), p(d_h_rows),
-            p(d_logits), p(d_drop), build.grid_blocks(n), rounding.flags(),
-            build.stream(dev))
+            p(logits), p(h), p(drop), p(receivers), p(order), p(ptr), n_src,
+            n, e_real, e, d, nh, d // nh, eps, p(g), p(den), p(dden), p(d_h),
+            p(d_logits), p(d_drop), rounding.flags(), build.stream(dev))
     build.check(err, "table_backward")
     build.LAUNCHES[rounding.counter("table_backward")] += 1
-    return d_h_rows, d_logits, d_drop
+    return d_h, d_logits, d_drop
 
 
 def table_forward(logits, h, drop, senders, receivers, num_nodes: int,
@@ -212,21 +297,33 @@ def table_forward(logits, h, drop, senders, receivers, num_nodes: int,
     raise ValueError(f"no kernel for device {logits.device}")
 
 
+def table_dden(g, out, den, eps: float):
+    """The backward's prelude, dden (N, nh): kernel on CUDA tensors,
+    plain version on CPU tensors."""
+    if out.is_cuda:
+        return _table_dden_cuda(g, out, den, eps)
+    build.require_cpu(out)
+    return table_dden_plain(g, out, den, eps)
+
+
 def table_backward(logits, h, drop, senders, receivers, e_real: int,
                    eps: float, g, out, den, need_drop: bool,
-                   rounding: Rounding = FLOAT32, *, dst_ptr=None):
-    """Kernel on CUDA tensors, plain version on CPU tensors (the table
-    mode is h's dtype; no other point of the policy applies here).
-    dst_ptr: as table_forward's."""
+                   rounding: Rounding = FLOAT32, *, src_order=None,
+                   src_ptr=None):
+    """(d_h (h rows, D), d_logits (E, nh), d_drop (E, nh) | None): on
+    CUDA tensors table_dden and the by-sender kernel, which walks
+    sender_runs(senders, e_real, h rows, src_order, src_ptr); on CPU
+    tensors the plain version (the table mode is h's dtype; no other
+    point of the policy applies here)."""
     if logits.is_cuda:
         return _table_backward_cuda(logits, h, drop, senders, receivers,
                                     e_real, eps, g, out, den, need_drop,
-                                    rounding, dst_ptr)
-    if logits.device.type == "cpu":
-        check_table(h, rounding)
-        return table_backward_plain(logits, h, drop, senders, receivers,
-                                    e_real, eps, g, out, den, need_drop)
-    raise ValueError(f"no kernel for device {logits.device}")
+                                    rounding, src_order, src_ptr)
+    build.require_cpu(logits)
+    check_table(h, rounding)
+    return table_backward_by_sender_plain(logits, h, drop, senders,
+                                          receivers, e_real, eps, g, out,
+                                          den, need_drop, src_order, src_ptr)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -242,7 +339,7 @@ class _TableAttention(torch.autograd.Function):
                                  receivers, num_nodes, e_real, eps, rounding,
                                  dst_ptr=dst_ptr)
         ctx.save_for_backward(logits, h_k, drop_mask, senders, receivers,
-                              src_order, src_ptr, dst_ptr, den, out)
+                              src_order, src_ptr, den, out)
         ctx.e_real, ctx.eps = e_real, eps
         ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
@@ -250,12 +347,19 @@ class _TableAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (logits, h_k, drop_mask, senders, receivers, src_order, src_ptr,
-         dst_ptr, den, out) = ctx.saved_tensors
+         den, out) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[2]
-        d_h_rows, d_logits, d_drop = table_backward(
-            logits, h_k, drop_mask, senders, receivers, ctx.e_real,
-            ctx.eps, g.contiguous(), out, den, need_drop, ctx.rounding,
-            dst_ptr=dst_ptr)
+        args = (logits, h_k, drop_mask, senders, receivers, ctx.e_real,
+                ctx.eps, g.contiguous(), out, den, need_drop)
+        if logits.is_cuda:
+            d_h, d_logits, d_drop = table_backward(
+                *args, ctx.rounding, src_order=src_order, src_ptr=src_ptr)
+            return (d_logits, d_h, d_drop) + (None,) * 10
+        # the JAX package's route: per-edge rows, then the d(h) reduce in
+        # the form GAT_TPU_DH_REDUCE_NT names
+        build.require_cpu(logits)
+        check_table(h_k, ctx.rounding)
+        d_h_rows, d_logits, d_drop = table_backward_plain(*args)
         if src_order is None:
             # a stable sort of the real edges keeps the order of the sums
             # fixed; the padding edges' rows are zero and stay out (and
@@ -286,10 +390,10 @@ def fused_segment_attention_table(logits: torch.Tensor,
     logits (E, nh) float32 over the dst-sorted edges, NEG_INF on padding
     edges; h_flat (N, nh*f) node features; senders, receivers (E,) int32;
     drop_mask (E, nh) attention-dropout multipliers or None.
-    src_order: the stable permutation sorting the edges by sender, which
-    the backward's d(h) reduction reads through; with None the backward
-    derives it with a stable sort, so the sums keep a fixed order either
-    way.
+    src_order: the stable permutation sorting the edges by sender, in
+    whose order the backward sums each sender's d(h); with None the
+    backward derives it with a stable sort, so the sums keep a fixed
+    order either way.
     num_real_edges: the edges from there on are padding (NEG_INF logits,
     the last node as sender, as canonicalize pads) and are not walked;
     None walks every edge, which gives the same result more slowly.
