@@ -718,8 +718,8 @@ def time_dh_rows(torch, ss, label, rows, order, src_ptr, n, senders=None,
     the wrapper as the main path calls it (with the offsets the graph or
     layout carries: dh_reduce / dh_reduce_ptr), the kernel launch alone
     (_segment_rows_cuda), the wrapper without offsets where the caller
-    has a sender list (the gather and searchsorted before the kernel,
-    the main path before the Graph carried them), and `lib`, the one
+    has a sender list (the stable sort, gather and searchsorted before
+    the kernel: build.sender_runs), and `lib`, the one
     PyTorch call (index_add_) over the real rows; beside them the plain
     version. The bound counts the real rows read once, their indices and
     the offsets once, the table written once. Returns {key: (main path
@@ -1429,21 +1429,25 @@ def main():
         return h, lg.contiguous(), drop, g
 
     def check_table(graph, nh, f, eps, paper_faithful, with_drop):
-        """The table kernels at one layer shape on `graph`: the forward,
-        the backward's prelude (table_dden) and the backward by sender as
-        the main path calls it (the Graph's sender order and offsets) and
-        deriving its sender runs, each against its plain version and
-        launched twice; returns the inputs for the timings."""
+        """The table kernels at one layer shape on `graph`: the forward
+        and the backward by sender as the main path calls them (the
+        Graph's receiver offsets; its sender order and offsets), each
+        also deriving them, and the backward's prelude (table_dden), each
+        against its plain version and launched twice; returns the inputs
+        for the timings."""
         h, lg, drop, g = table_inputs(graph, nh, f, paper_faithful,
                                       with_drop)
         er = graph.num_real_edges
         fwd_args = (lg, h, drop, graph.senders, graph.receivers,
                     graph.num_nodes, er, eps)
-        got = ta.table_forward(*fwd_args)
+        fwd_kw = dict(dst_ptr=graph.dst_ptr)
+        got = ta.table_forward(*fwd_args, **fwd_kw)
         out, den = ta.table_forward_plain(*fwd_args)
         hold_all("table_forward", ("out", "den"), got, (out, den),
                  "table_forward")
-        same_bits("table_forward", got, ta.table_forward(*fwd_args))
+        same_bits("table_forward", got, ta.table_forward(*fwd_args, **fwd_kw))
+        same_bits("table_forward deriving its receiver offsets", got,
+                  ta.table_forward(*fwd_args))
         # padded rows have no edge and the sink only padding edges
         if not torch.isfinite(got[0]).all() or \
                 not (got[0][~graph.node_mask] == 0).all():
@@ -1488,7 +1492,8 @@ def main():
               f"table_backward_plain's rows on the card: {bits}, "
               f"max_abs_err {err:.3e} (scale {scale:.3e})")
         return dict(nh=nh, f=f, drop=with_drop, fwd_args=fwd_args,
-                    bwd_args=bwd_args, runs=runs, dden_args=dden_args)
+                    fwd_kw=fwd_kw, bwd_args=bwd_args, runs=runs,
+                    dden_args=dden_args)
 
     inductive = {}
     for name in ("PPI", "PATTERN"):
@@ -1764,15 +1769,19 @@ def main():
         fp = (lg, h, drop, graph.senders, graph.receivers, graph.num_nodes,
               graph.num_real_edges, eps)
         out, den = ta.table_forward_plain(*fp)
-        case = dict(nh=nh, f=f, drop=True, f32_args=fp)
+        fwd_kw = dict(dst_ptr=graph.dst_ptr)
+        case = dict(nh=nh, f=f, drop=True, f32_args=fp, fwd_kw=fwd_kw)
         for rnd in V5_MODES:
             name = f"table_forward {label} [{mode_tag(rnd)}]"
             fa = (lg, rnd.table_of(h)) + fp[2:]
-            got = ta.table_forward(*fa, rounding=rnd)
+            got = ta.table_forward(*fa, rounding=rnd, **fwd_kw)
             hold_mode(name, ("out", "den"), got,
                       ta.table_forward_plain(*fa, rounding=rnd), (out, den),
                       "table_forward_bf16")
-            same_bits(name, got, ta.table_forward(*fa, rounding=rnd))
+            same_bits(name, got, ta.table_forward(*fa, rounding=rnd,
+                                                  **fwd_kw))
+            same_bits(name + " deriving its receiver offsets", got,
+                      ta.table_forward(*fa, rounding=rnd))
             case.update(fwd_args=fa, rounding=rnd)
         rnd = Rounding(table=True)
         co = (graph.senders, graph.receivers, graph.num_real_edges, eps, g,
@@ -2473,27 +2482,30 @@ def main():
 
     def table_time_rows(graph, c):
         """The table kernels at one case of check_table, as the main path
-        calls them (the Graph's offsets). Forward: reads the logits, h,
-        the mask, senders and receivers, writes out and den; per real edge
-        nh exp and a d-wide multiply-add. table_dden: reads g, out and den,
-        writes dden; a multiply-add per element. The backward (the whole
-        call: table_dden and the pass by sender) reads h, g, out, den, the
+        calls them (the Graph's offsets). The kernels read nothing of an
+        edge e >= E_real, so the edge inputs are counted over the real
+        edges. Forward: reads the logits, h, the mask, the senders and
+        the receiver offsets, writes out and den; per real edge nh exp and
+        a d-wide multiply-add. table_dden: reads g, out and den, writes
+        dden; a multiply-add per element. The backward (the whole call:
+        table_dden and the pass by sender) reads h, g, out, den, the
         logits, the mask, the receivers, the sender order and offsets and
-        writes d(h), d(logits) and d(mask); per real edge a d-wide dot, a
-        d-wide product and add, and the per-head terms. The rows it
-        gathers (g per real edge, as the forward gathers h) come from L2
-        and are not in the bound."""
+        writes d(h) and, over all E edges (zeros past E_real), d(logits)
+        and d(mask); per real edge a d-wide dot, a d-wide product and add,
+        and the per-head terms. The rows it gathers (g per real edge, as
+        the forward gathers h) come from L2 and are not in the bound."""
         n_, e_, er = graph.num_nodes, graph.num_edges, graph.num_real_edges
         nh, d = c["nh"], c["nh"] * c["f"]
-        fa, ba, runs, da = (c["fwd_args"], c["bwd_args"], c["runs"],
-                            c["dden_args"])
-        dm = e_ * nh if c["drop"] else 0
-        b_fwd = 4 * (e_ * nh + n_ * d + dm + 2 * e_ + n_ * d + n_ * nh)
+        fa, fk, ba, runs, da = (c["fwd_args"], c["fwd_kw"], c["bwd_args"],
+                                c["runs"], c["dden_args"])
+        masks = 1 + (1 if c["drop"] else 0)
+        b_fwd = 4 * (masks * er * nh + n_ * d + er + n_ + 1 + n_ * d
+                     + n_ * nh)
         b_dden = 4 * (2 * n_ * d + 2 * n_ * nh)
-        b_bwd = 4 * (4 * n_ * d + 2 * e_ * nh + 2 * dm + n_ * nh + 2 * e_
-                     + n_ + 1)
+        b_bwd = 4 * (4 * n_ * d + n_ * nh + masks * er * nh + 2 * er + n_
+                     + 1 + masks * e_ * nh)
         return {
-            "table_forward": (lambda: ta.table_forward(*fa),
+            "table_forward": (lambda: ta.table_forward(*fa, **fk),
                               lambda: ta.table_forward_plain(*fa), None,
                               b_fwd, er * (2 * d + 3 * nh) + n_ * d),
             "table_dden": (lambda: ta.table_dden(*da),
@@ -2864,7 +2876,8 @@ def main():
             table_time_rows(ppi, ct32), {
                 "table_forward_bf16": (
                     "table_forward",
-                    lambda: ta.table_forward(*fa, rounding=rf),
+                    lambda: ta.table_forward(*fa, rounding=rf,
+                                             **ct["fwd_kw"]),
                     lambda: ta.table_forward_plain(*fa, rounding=rf), rf,
                     ppi.num_nodes * d),
                 "table_backward_bf16": (
@@ -2879,7 +2892,8 @@ def main():
             time_rows(f"PPI {nh}x{f} [{mode_tag(rnd)}]", mode_rows(
                 table_time_rows(ppi, ct32), {"table_forward_bf16": (
                     "table_forward",
-                    lambda: ta.table_forward(*fr, rounding=rnd),
+                    lambda: ta.table_forward(*fr, rounding=rnd,
+                                             **ct["fwd_kw"]),
                     lambda: ta.table_forward_plain(*fr, rounding=rnd), rnd,
                     ppi.num_nodes * d)}), into_json=False)
 

@@ -225,6 +225,27 @@ def row_offsets(receivers: torch.Tensor, n: int,
     return dst_ptr
 
 
+def sender_runs(senders: torch.Tensor, e_real: int, n_src: int,
+                src_order: Optional[torch.Tensor] = None,
+                src_ptr: Optional[torch.Tensor] = None):
+    """(order, ptr): the real edges in sender order and the (n_src + 1,)
+    int32 offsets of each sender's run in it; sender s's edges are
+    order[ptr[s]:ptr[s+1]], in the order their d(h) terms are summed.
+
+    The caller's where it holds both (Graph.src_order, the stable
+    permutation sorting the edges by sender, and Graph.src_ptr, the runs
+    of its real edges), checked; derived otherwise, a stable sort of
+    senders[:e_real], whose order is that of a stable src_order's real
+    edges whatever senders the padding edges have."""
+    if src_order is not None and src_ptr is not None:
+        require(src_order, "src_order", senders.device, torch.int32, (None,))
+        require(src_ptr, "src_ptr", senders.device, torch.int32,
+                (n_src + 1,))
+        return src_order, src_ptr
+    order = torch.argsort(senders[:e_real], stable=True).to(torch.int32)
+    return order, csr_offsets(senders.index_select(0, order.long()), n_src)
+
+
 def ptr(t) -> Optional[int]:
     """Device address for a C argument (None -> NULL)."""
     return None if t is None else t.data_ptr()

@@ -20,7 +20,8 @@ The d(h) kernels take the segments as offsets: segment s's rows are
 values[order[ptr[s]:ptr[s+1]]]. A caller that holds them (Graph.src_ptr,
 a block layout's src_ptr) passes them, and the reduction is then one
 kernel launch; `dh_reduce` without them derives them from the senders
-per call (a gather and a searchsorted before the kernel).
+per call (build.sender_runs: a stable sort of the real edges' senders, a
+gather and a searchsorted before the kernel).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version. Every sum has a fixed order: each d(h) segment's rows are
@@ -125,25 +126,6 @@ def _segment_rows_cuda(values: torch.Tensor, order: Optional[torch.Tensor],
     return out
 
 
-def _segment_rows(values, order, sorted_ids, num_segments, row_limit=None,
-                  transposed: bool = False):
-    e = sorted_ids.shape[0]
-    if values.shape[0] < e or (order is not None and order.shape[0] != e):
-        raise ValueError(f"{values.shape[0]} rows and order "
-                         f"{None if order is None else tuple(order.shape)} "
-                         f"do not fit {e} ids")
-    if values.is_cuda:
-        build.require(sorted_ids, "sorted_ids", values.device, torch.int32,
-                      (e,))
-        return _segment_rows_cuda(
-            values, order, build.csr_offsets(sorted_ids, num_segments),
-            row_limit, transposed)
-    if values.device.type == "cpu":
-        plain = segment_rows_t_plain if transposed else segment_rows_plain
-        return plain(values, order, sorted_ids, num_segments)
-    raise ValueError(f"no kernel for device {values.device}")
-
-
 def segment_sum_rows(values: torch.Tensor, sorted_ids: torch.Tensor,
                      num_segments: int) -> torch.Tensor:
     """out[s] = sum of values[e] over e with sorted_ids[e] == s.
@@ -151,36 +133,42 @@ def segment_sum_rows(values: torch.Tensor, sorted_ids: torch.Tensor,
     values: (E_rows >= E, D) float32; rows past E are ignored.
     sorted_ids: (E,) int32, ascending; ids >= num_segments are dropped.
     Returns (num_segments, D)."""
-    return _segment_rows(values, None, sorted_ids, num_segments)
+    e = sorted_ids.shape[0]
+    if values.shape[0] < e:
+        raise ValueError(f"{values.shape[0]} rows do not fit {e} ids")
+    if values.is_cuda:
+        build.require(sorted_ids, "sorted_ids", values.device, torch.int32,
+                      (e,))
+        return _segment_rows_cuda(
+            values, None, build.csr_offsets(sorted_ids, num_segments))
+    if values.device.type == "cpu":
+        return segment_rows_plain(values, None, sorted_ids, num_segments)
+    raise ValueError(f"no kernel for device {values.device}")
 
 
-def dh_reduce(d_h_rows: torch.Tensor, src_order: torch.Tensor,
+def dh_reduce(d_h_rows: torch.Tensor, src_order: Optional[torch.Tensor],
               senders: torch.Tensor, num_nodes: int,
               num_real_edges: Optional[int] = None,
               transposed: bool = False,
               src_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum the attention backward's per-edge d(h) rows (dst order) into
-    the (num_nodes, D) table by sender: rows are read through
-    `src_order`, the stable sender-sorting permutation.
+    the (num_nodes, D) table by sender, each sender's rows in the order
+    of `src_order`, the stable sender-sorting permutation.
 
-    src_ptr: the (num_nodes + 1,) int32 offsets of each sender's run of
-    real edges in src_order (Graph.src_ptr), where the caller holds them:
-    the call is then dh_reduce_ptr's, one kernel launch. Without them they
-    are derived here from `senders` per call; with `num_real_edges`, the
-    rows from there on belong to padding edges and are zero, as the
-    attention backward writes them, and the kernel steps over them
-    without reading them (a batch padded to its bucket hangs thousands of
-    them on the sink node). Either way each sender's rows are added in
-    the order of src_order, so the two give the same bits.
-    transposed: the feature-major form (the caller's dh_transposed())."""
-    if src_ptr is not None:
-        if src_ptr.shape != (num_nodes + 1,):
-            raise ValueError(f"src_ptr of shape {tuple(src_ptr.shape)} for "
-                             f"{num_nodes} nodes")
-        return dh_reduce_ptr(d_h_rows, src_order, src_ptr, transposed)
-    ids_sorted = senders.index_select(0, src_order.long())
-    return _segment_rows(d_h_rows, src_order, ids_sorted, num_nodes,
-                         num_real_edges, transposed)
+    The sender runs are build.sender_runs(senders, num_real_edges,
+    num_nodes, src_order, src_ptr): src_ptr, the offsets of each
+    sender's run of real edges in src_order (Graph.src_ptr), spares
+    deriving them per call; without it they are derived from the real
+    edges' senders, in the same order, so the two give the same bits.
+    Either way the call is dh_reduce_ptr's, one kernel launch, and the
+    rows from `num_real_edges` on, padding edges' rows, are not read (a
+    batch padded to its bucket hangs thousands of them on the sink
+    node). transposed: the feature-major form (the caller's
+    dh_transposed())."""
+    e_real = senders.shape[0] if num_real_edges is None else num_real_edges
+    order, ptr = build.sender_runs(senders, e_real, num_nodes, src_order,
+                                   src_ptr)
+    return dh_reduce_ptr(d_h_rows, order, ptr, transposed)
 
 
 def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
@@ -195,12 +183,22 @@ def dh_reduce_ptr(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
         return _segment_rows_cuda(d_h_rows, src_perm, src_ptr,
                                   transposed=transposed)
     if d_h_rows.device.type == "cpu":
-        n = src_ptr.shape[0] - 1
-        ptr = src_ptr.long()
-        ids = torch.repeat_interleave(torch.arange(n), ptr.diff())
-        plain = segment_rows_t_plain if transposed else segment_rows_plain
-        return plain(d_h_rows, src_perm[:int(ptr[-1])], ids, n)
+        return dh_reduce_plain(d_h_rows, src_perm, src_ptr, transposed)
     raise ValueError(f"no kernel for device {d_h_rows.device}")
+
+
+def dh_reduce_plain(d_h_rows: torch.Tensor, src_perm: torch.Tensor,
+                    src_ptr: torch.Tensor, transposed: bool = False
+                    ) -> torch.Tensor:
+    """dh_reduce_ptr's function in plain torch, on either device and with
+    no host synchronisation: each position of src_perm goes to the run of
+    src_ptr that holds it, the positions past src_ptr[-1] to none."""
+    n = src_ptr.shape[0] - 1
+    pos = torch.arange(src_perm.shape[0], device=src_ptr.device)
+    ids = torch.searchsorted(src_ptr.long(), pos, right=True) - 1
+    ids = ids.masked_fill(ids < 0, n)
+    plain = segment_rows_t_plain if transposed else segment_rows_plain
+    return plain(d_h_rows, src_perm, ids, n)
 
 
 def segment_sum_sorted_plain(values: torch.Tensor,

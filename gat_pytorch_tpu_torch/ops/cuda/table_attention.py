@@ -50,8 +50,9 @@ import torch
 
 from .. import segment as seg
 from . import build
+from .build import sender_runs
 from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
-from .segment_sum import dh_reduce, dh_transposed, segment_rows_plain
+from .segment_sum import dh_reduce, dh_reduce_plain, dh_transposed
 from .v5_attention import MAX_HEADS, v5_rounding
 
 NEG_INF = -1e30          # the logit of a padding edge
@@ -75,27 +76,6 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.table_backward.restype = ctypes.c_int
         _configured.add(name)
     return lib
-
-
-def sender_runs(senders, e_real: int, num_src: int, src_order=None,
-                src_ptr=None):
-    """(order, ptr): sender s's edges are order[ptr[s]:ptr[s+1]]; the
-    caller's src_order and src_ptr (Graph.src_ptr, checked), or derived
-    here: a stable sort of the real edges' senders where there is no
-    src_order, the offsets of the order by searchsorted where there is no
-    src_ptr (src_ptr is read only with src_order)."""
-    if src_order is None:
-        src_order = torch.argsort(senders[:e_real],
-                                  stable=True).to(torch.int32)
-        src_ptr = None
-    build.require(src_order, "src_order", senders.device, torch.int32,
-                  (None,))
-    if src_ptr is None:
-        return src_order, build.csr_offsets(
-            senders.index_select(0, src_order.long()), num_src)
-    build.require(src_ptr, "src_ptr", senders.device, torch.int32,
-                  (num_src + 1,))
-    return src_order, src_ptr
 
 
 # -- plain versions (CPU tensors) -------------------------------------------
@@ -169,19 +149,12 @@ def table_backward_by_sender_plain(logits, h, drop, senders, receivers,
                                    src_ptr=None):
     """(d_h (h rows, D), d_logits (E, nh), d_drop (E, nh) | None): the
     per-edge rows of table_backward_plain summed by sender over the runs
-    the kernel walks (sender_runs)."""
+    the kernel walks (sender_runs), on either device."""
     rows, d_logits, d_drop = table_backward_plain(
         logits, h, drop, senders, receivers, e_real, eps, g, out, den,
         need_drop)
-    n_src = h.shape[0]
-    order, ptr = sender_runs(senders, e_real, n_src, src_order, src_ptr)
-    # each position's sender by the offsets (outside them: dropped), with
-    # no host synchronisation
-    pos = torch.arange(order.shape[0], device=ptr.device)
-    ids = torch.searchsorted(ptr.long(), pos, right=True) - 1
-    ids = ids.masked_fill(ids < 0, n_src)
-    d_h = segment_rows_plain(rows, order, ids, n_src)
-    return d_h, d_logits, d_drop
+    order, ptr = sender_runs(senders, e_real, h.shape[0], src_order, src_ptr)
+    return dh_reduce_plain(rows, order, ptr), d_logits, d_drop
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -360,13 +333,6 @@ class _TableAttention(torch.autograd.Function):
         build.require_cpu(logits)
         check_table(h_k, ctx.rounding)
         d_h_rows, d_logits, d_drop = table_backward_plain(*args)
-        if src_order is None:
-            # a stable sort of the real edges keeps the order of the sums
-            # fixed; the padding edges' rows are zero and stay out (and
-            # the offsets of this order are derived with it)
-            src_order = torch.argsort(senders[:ctx.e_real],
-                                      stable=True).to(torch.int32)
-            src_ptr = None
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
                         ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
         return (d_logits, d_h, d_drop) + (None,) * 10
@@ -391,16 +357,18 @@ def fused_segment_attention_table(logits: torch.Tensor,
     edges; h_flat (N, nh*f) node features; senders, receivers (E,) int32;
     drop_mask (E, nh) attention-dropout multipliers or None.
     src_order: the stable permutation sorting the edges by sender, in
-    whose order the backward sums each sender's d(h); with None the
-    backward derives it with a stable sort, so the sums keep a fixed
-    order either way.
+    whose order the backward sums each sender's d(h); without it or
+    without src_ptr the backward derives the order with a stable sort of
+    the real edges' senders (build.sender_runs), the same order, so the
+    sums keep their order either way.
     num_real_edges: the edges from there on are padding (NEG_INF logits,
     the last node as sender, as canonicalize pads) and are not walked;
     None walks every edge, which gives the same result more slowly.
     src_ptr, dst_ptr: the graph's CSR offsets (Graph.src_ptr, the sender
     runs of src_order's real prefix; Graph.dst_ptr), which spare the
     kernels' wrappers deriving them per call; src_ptr is read only with
-    src_order. The dtype knobs (module doc) are read now."""
+    src_order, and src_order only with src_ptr. The dtype knobs (module
+    doc) are read now."""
     e_real = senders.shape[0] if num_real_edges is None else num_real_edges
     if not 0 <= e_real <= senders.shape[0]:
         raise ValueError(f"num_real_edges {e_real} outside "

@@ -69,6 +69,7 @@ import torch
 
 from .. import segment as seg
 from . import build
+from .build import sender_runs
 from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
 from .segment_sum import dh_reduce, dh_transposed, segment_sum_sorted_plain
 
@@ -351,19 +352,6 @@ WIDE_D = 256
 def wide_form(d: int) -> bool:
     """Whether the backward at row width d takes the wide form."""
     return d > WIDE_D
-
-
-def sender_runs(senders, e_real: int, n_src: int, src_order=None,
-                src_ptr=None):
-    """(order, ptr): the real edges' stable sender order and the
-    (n_src + 1,) int32 offsets of each sender's run in it. The caller's
-    (Graph.src_order with Graph.src_ptr, which cover exactly these) where
-    it holds them; derived from senders[:e_real] otherwise."""
-    if src_ptr is not None and src_order is not None:
-        return src_order, src_ptr
-    order = torch.argsort(senders[:e_real], stable=True).to(torch.int32)
-    return order, build.csr_offsets(
-        senders.index_select(0, order.long()), n_src)
 
 
 def dasrc_by_sender_plain(h, draw, order, ptr, rounding: Rounding = FLOAT32):
