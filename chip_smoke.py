@@ -9,7 +9,8 @@ Six paths, three 2-phase forms and the bfloat16 modes, each at the full
 width and depth of its configuration on the synthetic stand-in of its
 dataset:
   Cora    `cli.train --dataset Cora`: the v5 attention op (kernels
-          v5_forward, v5_backward, segment_sum_rows);
+          source_scores, v5_forward, v5_backward, segment_sum_rows; every
+          v5 and windowed op runs source_scores once a forward);
   Pubmed  `cli.train --dataset Pubmed --reorder rcm`: RCM reorder, block
           layout, the windowed attention op (kernels window_forward,
           window_backward, and segment_sum_rows again for d(h));
@@ -63,10 +64,15 @@ Phases (every failure is fatal):
      (one nvcc per library, started together: each source, and the three
      attention sources again for a bfloat16 h table), print a [build]
      line per kernel instance with its registers and local memory
-     (cuobjdump -res-usage; a wide v5 backward instance, rows over 256
-     floats, must use none), and print the card's name and power limit as
+     (cuobjdump -res-usage; no instance of the wide v5 backward, rows over
+     256 floats, of the v5 and windowed forwards or of the source-score
+     pass may use any), and print the card's name and power limit as
      nvidia-smi gives them;
-  2. at each path's layer shapes (Cora 8 heads x 8 features and 1 x 7;
+  2. the source-score pass (the table every v5 and windowed kernel reads
+     its logits from) at every width the fits run, from float32 and
+     bfloat16 tables, against its plain version, twice for equal bits,
+     with more source rows than destinations and off 16-byte alignment;
+     at each path's layer shapes (Cora 8 heads x 8 features and 1 x 7;
      Pubmed 8 x 8 and 8 x 3; PPI 4 x 256 and 6 x 121; PATTERN 4 x 12,
      4 x 24 and 1 x 1) on its graph or on one batch of its graphs, run
      each kernel's wrapper and its plain PyTorch version on the same card
@@ -146,7 +152,9 @@ Phases (every failure is fatal):
      ones, and live), hold two Cora sharded fits from one seed to equal
      bits, and time and profile the sharded step beside the
      single-device step;
-  5. time each kernel and bfloat16 mode (CUDA graph replays), its plain
+  5. time each kernel and bfloat16 mode (CUDA graph replays; a v5 or
+     windowed forward or cap entry with its source-score pass, a backward
+     entry given its op's table, as the main path calls them), its plain
      version and, where one PyTorch call computes the same function, that
      call (rows 3 and 4 also without the graph's offsets and as the bare
      kernel launch, time_dh_rows); time the
@@ -241,44 +249,55 @@ CELL_ENV = {"Pubmed": F32, "Pubmed cluster": F32,
 # the numerics knobs a bfloat16 fit sets: without them, the same model
 # runs the float32 path (phase 4)
 BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
-# per path: the kernels of a layer's forward, and of its backward (each
-# launched once per layer unless a count says otherwise). The table path's
-# two sorted sums are the gradients of its logits' score gathers (by
-# sender and by receiver), which every model on that path here has.
+# per path: the kernels of a layer's forward (each launched once per layer
+# and name: a name twice, twice), and of its backward (each launched once
+# per layer unless a count says otherwise). Every v5 and windowed op
+# computes its source-score table once in its forward (source_scores, or
+# source_scores_bf16 from a bfloat16 h table) and hands it to its cap
+# pass, forward and backward; the hybrid layer computes one for both its
+# ops where their kernels read the same h table, else one each. The
+# table path's two sorted sums are the gradients of its logits' score
+# gathers (by sender and by receiver), which every model on that path
+# here has.
 PATH_KERNELS = {
-    "v5": (("v5_forward",), {"v5_backward": 1, "segment_sum_rows": 1}),
-    "v7": (("window_forward",),
+    "v5": (("source_scores", "v5_forward"),
+           {"v5_backward": 1, "segment_sum_rows": 1}),
+    "v7": (("source_scores", "window_forward"),
            {"window_backward": 1, "segment_sum_rows": 1}),
     # the table backward sums d(h) by sender itself: no segment_sum_rows
     "v4_table": (("table_forward",),
                  {"table_dden": 1, "table_backward": 1,
                   "segment_sum_sorted": 2}),
-    "v7_hybrid": (("window_forward", "v5_forward"),
+    "v7_hybrid": (("source_scores", "window_forward", "v5_forward"),
                   {"window_backward_parts": 1, "v5_backward_parts": 1,
                    "segment_sum_rows": 2}),
-    # v5_cap and window_cap each launch the cap kernel and its reduce
-    "v5 2-phase": (("v5_cap", "v5_forward_two_phase"),
+    # v5_cap and window_cap each launch the cap stream and its reduce
+    "v5 2-phase": (("source_scores", "v5_cap", "v5_forward_two_phase"),
                    {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
-    "v7 2-phase": (("window_cap", "window_forward_two_phase"),
+    "v7 2-phase": (("source_scores", "window_cap",
+                    "window_forward_two_phase"),
                    {"window_backward_two_phase": 1, "segment_sum_rows": 1}),
-    "v6": (("v5_cap", "v5_forward_two_phase"),
+    "v6": (("source_scores", "v5_cap", "v5_forward_two_phase"),
            {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
-    "v7 bf16": (("window_forward_bf16",),
+    "v7 bf16": (("source_scores_bf16", "window_forward_bf16"),
                 {"window_backward_bf16": 1, "segment_sum_rows": 1}),
-    "v7 2-phase bf16": (("window_cap", "window_forward_two_phase_bf16"),
+    "v7 2-phase bf16": (("source_scores", "window_cap",
+                         "window_forward_two_phase_bf16"),
                         {"window_backward_two_phase_bf16": 1,
                          "segment_sum_rows": 1}),
-    "v7_hybrid bf16": (("window_forward_bf16", "v5_forward"),
+    "v7_hybrid bf16": (("source_scores_bf16", "window_forward_bf16",
+                        "source_scores", "v5_forward"),
                        {"window_backward_parts_bf16": 1,
                         "v5_backward_parts": 1, "segment_sum_rows": 2}),
-    "v6 bf16": (("v5_cap", "v5_forward_two_phase_bf16"),
+    "v6 bf16": (("source_scores", "v5_cap", "v5_forward_two_phase_bf16"),
                 {"v5_backward_two_phase_bf16": 1, "segment_sum_rows": 1}),
-    "v5 bf16": (("v5_forward_bf16",),
+    "v5 bf16": (("source_scores_bf16", "v5_forward_bf16"),
                 {"v5_backward_bf16": 1, "segment_sum_rows_t": 1}),
     "v4_table bf16": (("table_forward_bf16",),
                       {"table_dden": 1, "table_backward_bf16": 1,
                        "segment_sum_sorted": 2}),
-    "v5 2-phase bf16": (("v5_cap_bf16", "v5_forward_two_phase_bf16"),
+    "v5 2-phase bf16": (("source_scores_bf16", "v5_cap_bf16",
+                         "v5_forward_two_phase_bf16"),
                         {"v5_backward_two_phase_bf16": 1,
                          "segment_sum_rows_t": 1}),
     # the sharded layer: the partial v2 op; its backward's sorted sums
@@ -289,7 +308,8 @@ PATH_KERNELS = {
                                 {"v2_backward": 1, "segment_sum_sorted": 3}),
     # the windowed parts' d(h) is reduced row-major (the JAX v7 kernel
     # scatters it itself and reads no knob), the remainder's feature-major
-    "v7_hybrid bf16 kernels": (("window_forward_bf16", "v5_forward_bf16"),
+    "v7_hybrid bf16 kernels": (("source_scores_bf16", "window_forward_bf16",
+                                "v5_forward_bf16"),
                                {"window_backward_parts_bf16": 1,
                                 "v5_backward_parts_bf16": 1,
                                 "segment_sum_rows": 1,
@@ -357,6 +377,10 @@ REPLACES = {
     # the d(a_src) of _kernel_v5_bwd at rows wider than 256 floats: the
     # backward's wide form leaves it to this kernel, by sender (every mode)
     "v5_dasrc": _PALLAS + "segment_attention_bwd.py:537",
+    # the per-edge h_blk @ a_src inside _kernel_v5_auto (and _kernel_v5,
+    # _kernel_v5_cap, _kernel_v5_bwd, _kernel_v6, _kernel_v6_bwd): one pass
+    # over the h table an op call, read by every v5 and windowed kernel
+    "source_scores": _PALLAS + "segment_attention.py:1265",
 }
 SOURCES = {
     "v5_forward": _CSRC + "v5_attention.cu",
@@ -380,6 +404,7 @@ SOURCES = {
     "v2_forward": _CSRC + "segment_attention.cu",
     "v2_backward": _CSRC + "segment_attention.cu",
     "v5_dasrc": _CSRC + "v5_attention.cu",
+    "source_scores": _CSRC + "attention_common.cuh",
 }
 # every bfloat16 mode of an entry: the same TPU kernel and source, its
 # launches counted apart (rounding.Rounding.counter)
@@ -407,7 +432,7 @@ def launches_per_epoch(path, layers, train_batches, val_batches,
     fwd, bwd = PATH_KERNELS[path]
     per = {k: 0 for k in REPLACES}
     for k in fwd:
-        per[k] = layers * (train_batches + val_batches)
+        per[k] += layers * (train_batches + val_batches)
     for k, count in bwd.items():
         per[k] = count * layers * train_batches
     per["v5_dasrc"] = dasrc_layers * train_batches
@@ -418,27 +443,37 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# the kernels that must use no local memory in any instance (cuobjdump):
+# the wide v5 backward (C >= 16 features a lane: rows over 256 floats),
+# the forwards and the source-score pass
+NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
+            "v5_fwd_kernel": r"v5_fwd_kernel",
+            "window_fwd_kernel": r"window_fwd_kernel",
+            "source_scores_kernel": r"source_scores_kernel"}
+
+
 def check_resource_usage(build):
     """A [build] line per kernel instance of every library: its registers
     and its local memory (spilled registers, local arrays) as cuobjdump
-    -res-usage reports them. The v5 backward's wide instances (C >= 16
-    features a lane: rows over 256 floats) must use none."""
-    wide = []
+    -res-usage reports them. No instance of a NO_LOCAL kernel may use
+    any; their registers are summed up per kernel."""
+    found = {name: [] for name in NO_LOCAL}
     for lib in build.LIBRARIES:
         for sym, reg, local, stack in build.resource_usage(lib):
             print(f"[build] {lib} {sym}: registers {reg}, local {local} "
                   f"bytes, stack {stack} bytes")
-            c = re.search(r"v5_bwd_kernelILi(\d+)E", sym)
-            if c and int(c.group(1)) >= 16:
-                wide.append((lib, sym, reg, local))
-    if not wide:
-        fail("no wide v5_bwd_kernel instance in cuobjdump's report")
-    for lib, sym, reg, local in wide:
-        if local:
-            fail(f"{lib} {sym}: the wide v5 backward uses {local} bytes "
-                 f"of local memory")
-    print(f"[build] {len(wide)} wide v5_bwd_kernel instances, no local "
-          f"memory (registers {sorted({w[2] for w in wide})})")
+            for name, pattern in NO_LOCAL.items():
+                if re.search(pattern, sym):
+                    found[name].append((lib, sym, reg, local))
+    for name, rows in found.items():
+        if not rows:
+            fail(f"no {name} instance in cuobjdump's report")
+        for lib, sym, reg, local in rows:
+            if local:
+                fail(f"{lib} {sym}: {name} uses {local} bytes of local "
+                     f"memory")
+        print(f"[build] {len(rows)} {name} instances, no local memory "
+              f"(registers {sorted({r[2] for r in rows})})")
 
 
 def knobs(env):
@@ -874,20 +909,23 @@ def main():
                     h, a, s, c, m, *ga, *r),
                 lambda h, a, s, c, m, *r: v5.v5_forward_two_phase_plain(
                     h, a, s, c, m, *ga, *r),
-                lambda h, a, s, c, m, *r: v5.v5_backward_two_phase(
-                    h, a, s, c, m, *ga, *r),
+                lambda h, a, s, c, m, *r, **kw: v5.v5_backward_two_phase(
+                    h, a, s, c, m, *ga, *r, **kw),
                 lambda h, a, s, c, m, *r: v5.v5_backward_two_phase_plain(
                     h, a, s, c, m, *ga, *r))
 
     def window_two_phase_entries(layout):
-        return (lambda h, a, s, **kw: wa.window_cap(h, a, s, layout),
-                lambda h, a, s, **kw: wa.window_cap_plain(h, a, s, layout),
+        # the cap reads the table: the timed call includes its pass
+        return (lambda h, a, s, **kw: wa.window_cap(v5.source_scores(h, a),
+                                                    s, layout),
+                lambda h, a, s, **kw: wa.window_cap_plain(
+                    v5.source_scores_plain(h, a), s, layout),
                 lambda h, a, s, c, m, *r: wa.window_forward_two_phase(
                     h, a, s, c, m, layout, *r),
                 lambda h, a, s, c, m, *r: wa.window_forward_two_phase_plain(
                     h, a, s, c, m, layout, *r),
-                lambda h, a, s, c, m, *r: wa.window_backward_two_phase(
-                    h, a, s, c, m, layout, *r),
+                lambda h, a, s, c, m, *r, **kw: wa.window_backward_two_phase(
+                    h, a, s, c, m, layout, *r, **kw),
                 lambda h, a, s, c, m, *r: wa.window_backward_two_phase_plain(
                     h, a, s, c, m, layout, *r))
 
@@ -956,7 +994,42 @@ def main():
         return case
 
     elapsed("2a")
-    # -- 2a. the v5 kernels and the reduce against their plain versions -----
+    # -- 2a. the source-score pass, at every width the fits run (Cora 64 and
+    # 7, Pubmed 24, PATTERN 48, 96 and 1, PPI 1024 and 726), from a float32
+    # and a bfloat16 table: against its plain version, twice for equal
+    # bits, and with more source rows than destinations (256 rows put in
+    # front: every row keeps its bits); a table off 16-byte alignment takes
+    # scalar loads and is held against its plain version too
+    SCORE_SHAPES = ((1, 1), (1, 7), (8, 3), (4, 12), (8, 8), (4, 24),
+                    (6, 121), (4, 256))
+
+    def check_source_scores(n_, shift=256):
+        for nh, f in SCORE_SHAPES:
+            d = nh * f
+            h32 = torch.randn((n_, d), generator=gen, device=dev)
+            a = torch.randn((d, nh), generator=gen, device=dev) / d ** 0.5
+            for h, key in ((h32, "source_scores"),
+                           (h32.to(torch.bfloat16), "source_scores_bf16")):
+                got = v5.source_scores(h, a)
+                hold_all(f"{key} {nh}x{f}", ("s_src",), (got,),
+                         (v5.source_scores_plain(h, a),), key)
+                same_bits(f"{key} {nh}x{f}", (got,),
+                          (v5.source_scores(h, a),))
+                wider = torch.cat([torch.zeros((shift, d), dtype=h.dtype,
+                                               device=dev), h])
+                same_bits(f"{key} {nh}x{f} with {shift} rows in front",
+                          (got,), (v5.source_scores(wider, a)[shift:],))
+            if d == 64:
+                off = torch.empty((n_ * d + 1,), device=dev)[1:].view(n_, d)
+                off.copy_(h32)
+                hold_all(f"source_scores {nh}x{f} off 16-byte alignment",
+                         ("s_src",), (v5.source_scores(off, a),),
+                         (v5.source_scores_plain(off, a),), "source_scores")
+        print(f"[kernels] source_scores at widths "
+              f"{[nh * f for nh, f in SCORE_SHAPES]}, float32 and bfloat16 "
+              f"tables: within {REL_TOL} of the plain version, the same bits "
+              f"on two launches and with {shift} rows in front")
+
     def check_v5(graph, nh, f, with_drop):
         """The v5 kernels and the d(h) reduce at one layer shape on
         `graph`; returns the inputs for the timings."""
@@ -972,6 +1045,10 @@ def main():
                  "v5_forward")
         if int(got[3]) != int(want[3]):
             fail(f"argmax code {int(got[3])} != plain {int(want[3])}")
+        same_bits("v5_forward", got, v5.v5_forward(*fwd_args))
+        same_bits("v5_forward given its source-score table", got,
+                  v5.v5_forward(*fwd_args,
+                                s_src=v5.source_scores(h, a_src)))
         num, den, cap, _ = want
         out, epsp = epilogue(torch, num, den, cap, f, 1e-8)
         bwd_args = fwd_args + (g, out, den, epsp, with_drop)
@@ -1055,6 +1132,7 @@ def main():
     snd, rcv, order = cora.senders, cora.receivers, cora.src_order
     print(f"[graph] Cora stand-in: {n} nodes (padded), {e} edges "
           f"(padded), {e_real} real")
+    check_source_scores(n)
     V5_TWO = ("v5_cap", "v5_forward_two_phase", "v5_backward_two_phase")
     cora_cases, cora_two = [], []
     for nh, f in SHAPES["Cora"]:
@@ -1835,6 +1913,11 @@ def main():
             f"Pubmed cluster {nh}x{f} (the v6 form)",
             v5_two_phase_entries(hybrid), V5_TWO, hybrid.num_nodes, nh, f,
             hybrid.num_edges, wa.V6_BF16))
+    # row 2 at PATTERN's 4-head widths in the bfloat16 table mode too
+    # (its narrow backward at 4 heads; no PATTERN fit runs the mode)
+    pattern_v5_modes = [check_v5_modes(pattern, f"PATTERN {nh}x{f}", nh, f,
+                                       (TABLE_ACC,), TABLE_ACC, False)
+                        for nh, f in SHAPES["PATTERN"][:2]]
     ppi_table_modes = [check_table_modes(ppi, nh, f, 0.0, True,
                                          f"PPI {nh}x{f}")
                        for nh, f in SHAPES["PPI"]]
@@ -2398,12 +2481,16 @@ def main():
         """Time each row's kernel, plain version and library call;
         into_json: True, False, or the names whose times the result line
         reports from this call."""
-        for k, (kern, plain, lib, nbytes, ops) in rows.items():
+        for k, (kern, plain, lib, nbytes, ops, *whole) in rows.items():
             km, pm = time_ms(torch, kern), time_ms(torch, plain)
             lm = time_ms(torch, lib) if lib is not None else None
             bm, by = bound_ms(nbytes, ops)
-            print(f"[time] {k} {label}: kernel_ms {km:.4f} plain_ms "
-                  f"{pm:.4f} library_ms "
+            # a backward entry is timed given its op's table; beside it,
+            # the same call computing the table first
+            with_pass = ("" if not whole else f" (with its score pass "
+                         f"{time_ms(torch, whole[0]):.4f})")
+            print(f"[time] {k} {label}: kernel_ms {km:.4f}{with_pass} "
+                  f"plain_ms {pm:.4f} library_ms "
                   f"{'null' if lm is None else f'{lm:.4f}'} bound_us "
                   f"{bm * 1e3:.3f} ({by})")
             if into_json is not True and (not into_json
@@ -2418,11 +2505,26 @@ def main():
             if lm is not None:
                 t["library_ms"] = (t["library_ms"] or 0.0) + lm
 
+    def given(args):
+        """A backward's keywords as the op calls it on the main path: the
+        source-score table its forward computed (the timed call of a
+        backward entry includes no score pass; a forward's does)."""
+        return dict(s_src=v5.source_scores(args[0], args[1]))
+
     # bytes: every input read once, every output written once (float32 and
-    # int32 = 4 bytes); ops: this run's real edges
-    def attention_ops(e_edges, d, nh):
-        return (e_edges * (2 * d * nh + 2 * d + 4 * nh),
-                e_edges * (6 * d * nh + 4 * d + 10 * nh))
+    # int32 = 4 bytes); ops: this run's real edges, and the products that
+    # depend on the sender alone once a sender
+    def attention_ops(n_src, e_edges, d, nh):
+        """(forward, backward) operations of an op over e_edges real edges
+        and n_src senders. Forward, timed with its score pass: the sender's
+        dot h @ a_src once a sender (2 d nh), per edge the weighted row
+        (2 d) and the per-head terms. Backward, given the table: per edge
+        its d(h) row's d(raw) @ a_src^T (2 d nh, the row is per edge), q
+        and the coefficient's row (4 d) and the per-head terms; d(a_src)
+        = h^T S once a sender (2 d nh; S the per-sender sums of d(raw))."""
+        dots = 2 * n_src * d * nh
+        return (dots + e_edges * (2 * d + 4 * nh),
+                dots + e_edges * (2 * d * nh + 4 * d + 10 * nh))
 
     def v5_time_rows(graph, c):
         """The v5 kernels and the d(h) reduce at one case of check_v5."""
@@ -2433,7 +2535,8 @@ def main():
         dm = e_ * nh if c["drop"] else 0      # the mask in, d(mask) out
         b_fwd = 4 * (n_ * d + d * nh + n_ * nh + dm + 2 * e_
                      + n_ * d + n_ * nh + 2)
-        b_bwd = 4 * (n_ * d + d * nh + n_ * nh + dm + 2 * e_ + 2 * n_ * d
+        # the backward also reads the op's source-score table (n, nh)
+        b_bwd = 4 * (n_ * d + d * nh + 2 * n_ * nh + dm + 2 * e_ + 2 * n_ * d
                      + n_ * nh + 1 + e_ * d + dm + n_ * nh + d * nh)
         # the wide form (rows over 256 floats) writes each real edge's
         # d(raw) row and v5_dasrc reads it back with the sender runs
@@ -2443,7 +2546,8 @@ def main():
         # the parts mode reads d(num) and d(den) in place of g, out, den, eps'
         b_parts = b_bwd - 4 * (n_ * d + 1)
         pa = c["parts_args"]
-        o_fwd, o_bwd = attention_ops(er, d, nh)
+        kw = given(ba)
+        o_fwd, o_bwd = attention_ops(n_, er, d, nh)
         ids_sorted = snd_.index_select(0, order_.long())
         snd_l = snd_.long()
         # the d(h) reduce as the main path calls it: by the graph's
@@ -2464,13 +2568,14 @@ def main():
             "v5_forward": (lambda: v5.v5_forward(*fa),
                            lambda: v5.v5_forward_plain(*fa), None,
                            b_fwd, o_fwd),
-            "v5_backward": (lambda: v5.v5_backward(*ba),
+            "v5_backward": (lambda: v5.v5_backward(*ba, **kw),
                             lambda: v5.v5_backward_plain(*ba), None,
-                            b_bwd, o_bwd),
+                            b_bwd, o_bwd, lambda: v5.v5_backward(*ba)),
             "v5_backward_parts": (
-                lambda: v5.v5_backward(*pa, normalize=False),
+                lambda: v5.v5_backward(*pa, normalize=False, **kw),
                 lambda: v5.v5_backward_plain(*pa, normalize=False), None,
-                b_parts, o_bwd),
+                b_parts, o_bwd,
+                lambda: v5.v5_backward(*pa, normalize=False)),
             "segment_sum_rows": (
                 lambda: ss.dh_reduce(rows, order_, snd_, n_, er,
                                      src_ptr=src_ptr),
@@ -2521,6 +2626,34 @@ def main():
     for c in cora_cases:
         time_rows(f"Cora {c['nh']}x{c['f']}", v5_time_rows(cora, c),
                   into_json=V5_JSON)
+
+    def score_time_rows(h, a):
+        """The source-score pass on one table: h read once, a_src read,
+        the table written; a multiply-add per (row, element, head). The
+        library call is torch.mm of a float32 table (none takes a bfloat16
+        table with float32 a_src)."""
+        n_, d = h.shape
+        nh = a.shape[1]
+        bf16 = h.dtype == torch.bfloat16
+        return {("source_scores_bf16" if bf16 else "source_scores"): (
+            lambda: v5.source_scores(h, a),
+            lambda: v5.source_scores_plain(h, a),
+            None if bf16 else (lambda: torch.mm(h, a)),
+            n_ * d * h.element_size() + 4 * (d * nh + n_ * nh),
+            2 * n_ * d * nh)}
+
+    # the result line: the Cora fit's tables (both element types); the
+    # Pubmed and PPI fits' beside them
+    for c in cora_cases:
+        h, a = c["fwd_args"][:2]
+        for table in (h, h.to(torch.bfloat16)):
+            time_rows(f"Cora {c['nh']}x{c['f']}", score_time_rows(table, a),
+                      into_json=True)
+    for label, cases in (("Pubmed", pubmed_cases), ("PPI", ppi_v5_cases)):
+        for c in cases:
+            h, a = c["fwd_args"][:2]
+            time_rows(f"{label} {c['nh']}x{c['f']}", score_time_rows(h, a),
+                      into_json=False)
     # rows 3 and 4 at the Cora and PPI layer shapes (the Pubmed layout's
     # below), each four ways: as the main path calls them, the kernel
     # alone, without the graph's offsets, and index_add_ over the real rows
@@ -2549,18 +2682,20 @@ def main():
         nh, d = c["nh"], c["nh"] * c["f"]
         dm = slots * nh
         base = n_ * d + d * nh + n_ * nh + idx
-        o_fwd, o_bwd = attention_ops(real_edges, d, nh)
+        o_fwd, o_bwd = attention_ops(n_, real_edges, d, nh)
         ca, fa, ba = c["cap_args"], c["fwd_args"], c["bwd_args"]
         cap_k, cap_p, fwd_k, fwd_p, bwd_k, bwd_p = entries
+        kw = given(ba)
         return {
             keys[0]: (lambda: cap_k(*ca), lambda: cap_p(*ca), None,
-                      4 * (base + 2), real_edges * (2 * d * nh + 2 * nh)),
+                      4 * (base + 2),
+                      2 * n_ * d * nh + real_edges * 2 * nh),
             keys[1]: (lambda: fwd_k(*fa), lambda: fwd_p(*fa), None,
                       4 * (base + dm + 1 + n_ * d + n_ * nh), o_fwd),
-            keys[2]: (lambda: bwd_k(*ba), lambda: bwd_p(*ba), None,
-                      4 * (base + dm + 1 + 2 * n_ * d + n_ * nh
+            keys[2]: (lambda: bwd_k(*ba, **kw), lambda: bwd_p(*ba), None,
+                      4 * (base + n_ * nh + dm + 1 + 2 * n_ * d + n_ * nh
                            + rows_out * d + dm + n_ * nh + d * nh + 1),
-                      o_bwd),
+                      o_bwd, lambda: bwd_k(*ba)),
         }
 
     for c in cora_two:
@@ -2590,20 +2725,24 @@ def main():
         slots, slots_real = layout.num_slots, layout.num_real
         b_in = n_ * d + d * nh + n_ * nh + slots * nh + 2 * slots + n_ + 1
         b_fwd = 4 * (b_in + n_ * d + n_ * nh + 2)
-        b_bwd = 4 * (b_in + 2 * n_ * d + n_ * nh + 1 + slots_real * d
-                     + slots * nh + n_ * nh + d * nh)
-        o_fwd, o_bwd = attention_ops(slots_real, d, nh)
+        # the backward also reads the op's source-score table (n, nh)
+        b_bwd = 4 * (b_in + n_ * nh + 2 * n_ * d + n_ * nh + 1
+                     + slots_real * d + slots * nh + n_ * nh + d * nh)
+        o_fwd, o_bwd = attention_ops(n_, slots_real, d, nh)
+        kw = given(ba)
         return {
             "window_forward": (lambda: wa.window_forward(*fa),
                                lambda: wa.window_forward_plain(*fa), None,
                                b_fwd, o_fwd),
-            "window_backward": (lambda: wa.window_backward(*ba),
+            "window_backward": (lambda: wa.window_backward(*ba, **kw),
                                 lambda: wa.window_backward_plain(*ba), None,
-                                b_bwd, o_bwd),
+                                b_bwd, o_bwd,
+                                lambda: wa.window_backward(*ba)),
             "window_backward_parts": (
-                lambda: wa.window_backward(*pa, normalize=False),
+                lambda: wa.window_backward(*pa, normalize=False, **kw),
                 lambda: wa.window_backward_plain(*pa, normalize=False), None,
-                b_bwd - 4 * (n_ * d + 1), o_bwd),
+                b_bwd - 4 * (n_ * d + 1), o_bwd,
+                lambda: wa.window_backward(*pa, normalize=False)),
         }
 
     send_real = bl.send[real].long()
@@ -2709,10 +2848,12 @@ def main():
         pe, per_ = ppi.num_edges, ppi.num_real_edges
         rows_2p = two_phase_time_rows(c, v5_two_phase_entries(ppi), V5_TWO,
                                       ppi.num_nodes, pe, 2 * pe, per_, pe)
-        kern, plain, lib, nbytes, ops = rows_2p["v5_backward_two_phase"]
+        kern, plain, lib, nbytes, ops, *whole = rows_2p[
+            "v5_backward_two_phase"]
         rows_2p["v5_backward_two_phase"] = (
             kern, plain, lib, nbytes + 4 * (2 * per_ * c["nh"] + per_
-                                            + ppi.num_nodes + 1), ops)
+                                            + ppi.num_nodes + 1), ops,
+            *whole)
         time_rows(f"PPI {c['nh']}x{c['f']} 2-phase", rows_2p,
                   into_json=False)
     time_rows("Cora 8x8 with dropout", table_time_rows(cora, cora_table_case),
@@ -2731,14 +2872,16 @@ def main():
     # h table's two bytes an element where the kernel reads a bfloat16
     # table; the feature-major d(h) reduce beside row 3's
     def mode_rows(f32_rows, specs):
-        """{key: (kernel, plain, library, bytes, ops)} from specs {key:
-        (the float32 row's key, kernel, plain, rounding, table rows x
-        width)}."""
+        """{key: (kernel, plain, library, bytes, ops[, with its score
+        pass])} from specs {key: (the float32 row's key, kernel, plain,
+        rounding, table rows x width[, the call with its score pass])}."""
         rows = {}
-        for key, (f32_key, kern, plain, rnd, table_elems) in specs.items():
-            _, _, lib, nbytes, ops = f32_rows[f32_key]
+        for key, (f32_key, kern, plain, rnd, table_elems,
+                  *whole) in specs.items():
+            _, _, lib, nbytes, ops, *_ = f32_rows[f32_key]
             rows[key] = (kern, plain, lib,
-                         nbytes - (2 * table_elems if rnd.table else 0), ops)
+                         nbytes - (2 * table_elems if rnd.table else 0), ops,
+                         *whole)
         return rows
 
     for c, c32 in zip(cora_modes, cora_cases):
@@ -2754,9 +2897,12 @@ def main():
                     lambda: v5.v5_forward_plain(*fa, rounding=rf), rf,
                     cora.num_nodes * d),
                 "v5_backward_bf16": (
-                    "v5_backward", lambda: v5.v5_backward(*ba, rounding=rb),
+                    "v5_backward",
+                    lambda kw=given(ba): v5.v5_backward(*ba, rounding=rb,
+                                                        **kw),
                     lambda: v5.v5_backward_plain(*ba, rounding=rb), rb,
-                    cora.num_nodes * d),
+                    cora.num_nodes * d,
+                    lambda: v5.v5_backward(*ba, rounding=rb)),
                 "segment_sum_rows_t": (
                     "segment_sum_rows",
                     lambda: ss.dh_reduce(rows, order_, snd_, cora.num_nodes,
@@ -2774,6 +2920,17 @@ def main():
                     "v5_forward", lambda: v5.v5_forward(*fr, rounding=rnd),
                     lambda: v5.v5_forward_plain(*fr, rounding=rnd), rnd,
                     cora.num_nodes * d)}), into_json=False)
+    # row 2 at PATTERN's widths in the table mode (printed only)
+    for c, c32 in zip(pattern_v5_modes, pattern_v5_cases):
+        ba, rb = c["bwd_args"], c["bwd_rounding"]
+        time_rows(f"PATTERN {c['nh']}x{c['f']} [{mode_tag(rb)}]", mode_rows(
+            v5_time_rows(pattern, c32), {"v5_backward_bf16": (
+                "v5_backward",
+                lambda kw=given(ba): v5.v5_backward(*ba, rounding=rb, **kw),
+                lambda: v5.v5_backward_plain(*ba, rounding=rb), rb,
+                pattern.num_nodes * c["nh"] * c["f"],
+                lambda: v5.v5_backward(*ba, rounding=rb))}),
+                  into_json=False)
     for c, c32 in zip(cora_two_modes, cora_two):
         ca, fa, ba, rnd = (c["cap_args"], c["fwd_args"], c["bwd_args"],
                            c["rounding"])
@@ -2791,8 +2948,10 @@ def main():
                     "v5_forward_two_phase", lambda: fwd_k(*fa, rnd),
                     lambda: fwd_p(*fa, rnd), rnd, elems),
                 "v5_backward_two_phase_bf16": (
-                    "v5_backward_two_phase", lambda: bwd_k(*ba, rnd),
-                    lambda: bwd_p(*ba, rnd), rnd, elems)}), into_json=True)
+                    "v5_backward_two_phase",
+                    lambda kw=given(ba): bwd_k(*ba, rnd, **kw),
+                    lambda: bwd_p(*ba, rnd), rnd, elems,
+                    lambda: bwd_k(*ba, rnd))}), into_json=True)
     for c, cr, c32, c2, c232, cw, cw32, c5, c532, c6, c632 in zip(
             pubmed_modes, pubmed_rows_modes, pubmed_cases, pubmed_two_modes,
             pubmed_two, hybrid_modes, hybrid_cases, rem_modes, rem_cases,
@@ -2811,9 +2970,12 @@ def main():
                         rnd, np_ * d),
                     "window_backward_bf16": (
                         "window_backward",
-                        lambda: wa.window_backward(*ba, rounding=rnd),
+                        lambda kw=given(ba): wa.window_backward(
+                            *ba, rounding=rnd, **kw),
                         lambda: wa.window_backward_plain(*ba, rounding=rnd),
-                        rnd, np_ * d)}), into_json=into)
+                        rnd, np_ * d,
+                        lambda: wa.window_backward(*ba, rounding=rnd))}),
+                into_json=into)
         fa2, ba2, r2 = c2["fwd_args"], c2["bwd_args"], c2["rounding"]
         _, _, fwd_k, fwd_p, bwd_k, bwd_p = window_two_phase_entries(bl)
         time_rows(f"Pubmed {nh}x{f} 2-phase [{mode_tag(r2)}]", mode_rows(
@@ -2823,8 +2985,10 @@ def main():
                     "window_forward_two_phase", lambda: fwd_k(*fa2, r2),
                     lambda: fwd_p(*fa2, r2), r2, np_ * d),
                 "window_backward_two_phase_bf16": (
-                    "window_backward_two_phase", lambda: bwd_k(*ba2, r2),
-                    lambda: bwd_p(*ba2, r2), r2, np_ * d)}), into_json=True)
+                    "window_backward_two_phase",
+                    lambda kw=given(ba2): bwd_k(*ba2, r2, **kw),
+                    lambda: bwd_p(*ba2, r2), r2, np_ * d,
+                    lambda: bwd_k(*ba2, r2))}), into_json=True)
         # the hybrid cell's two parts modes, where the main path runs them
         nhy = hybrid.num_nodes
         pa, rw = cw["parts_args"], cw["rounding"]
@@ -2833,22 +2997,26 @@ def main():
                       window_time_rows(hb, nhy, cw32), {
                           "window_backward_parts_bf16": (
                               "window_backward_parts",
-                              lambda: wa.window_backward(
-                                  *pa, normalize=False, rounding=rw),
+                              lambda kw=given(pa): wa.window_backward(
+                                  *pa, normalize=False, rounding=rw, **kw),
                               lambda: wa.window_backward_plain(
                                   *pa, normalize=False, rounding=rw), rw,
-                              nhy * d)}), into_json=True)
+                              nhy * d, lambda: wa.window_backward(
+                                  *pa, normalize=False, rounding=rw))}),
+                  into_json=True)
         p5, r5 = c5["bwd_args"], c5["bwd_rounding"]
         time_rows(f"Pubmed hybrid {nh}x{f}, {hb.rem_e} remainder edges "
                   f"[{mode_tag(r5)}]", mode_rows(
                       v5_time_rows(remainder, c532), {
                           "v5_backward_parts_bf16": (
                               "v5_backward_parts",
-                              lambda: v5.v5_backward(
-                                  *p5, normalize=False, rounding=r5),
+                              lambda kw=given(p5): v5.v5_backward(
+                                  *p5, normalize=False, rounding=r5, **kw),
                               lambda: v5.v5_backward_plain(
                                   *p5, normalize=False, rounding=r5), r5,
-                              nhy * d)}), into_json=True)
+                              nhy * d, lambda: v5.v5_backward(
+                                  *p5, normalize=False, rounding=r5))}),
+                  into_json=True)
         # the v6 form's mode on the v5 2-phase kernels (the result line
         # takes those entries' times from Cora, as for float32)
         fa6, ba6, r6 = c6["fwd_args"], c6["bwd_args"], c6["rounding"]
@@ -2865,8 +3033,9 @@ def main():
                               lambda: fwd_p(*fa6, r6), r6, nhy * d),
                           "v5_backward_two_phase_bf16": (
                               "v5_backward_two_phase",
-                              lambda: bwd_k(*ba6, r6),
-                              lambda: bwd_p(*ba6, r6), r6, nhy * d)}),
+                              lambda kw=given(ba6): bwd_k(*ba6, r6, **kw),
+                              lambda: bwd_p(*ba6, r6), r6, nhy * d,
+                              lambda: bwd_k(*ba6, r6))}),
                   into_json=False)
     for ct, ct32 in zip(ppi_table_modes, ppi_table_cases):
         nh, f, d = ct["nh"], ct["f"], ct["nh"] * ct["f"]

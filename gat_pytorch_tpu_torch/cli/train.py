@@ -18,8 +18,9 @@ and whose remainder the v5 parts op;
 `--paper_faithful` and `--const_attention` put it on the table op. PPI and
 PATTERN train on reshuffled block-diagonal batches of whole graphs.
 Without a GPU it raises unless `--device cpu` is given. Flags of features
-not ported yet raise NotImplementedError naming their ROADMAP item. The
-last line printed is the metrics JSON object, as the JAX CLI prints it.
+not ported yet raise NotImplementedError naming the feature, under which
+ROADMAP lists its port. The last line printed is the metrics JSON object,
+as the JAX CLI prints it.
 """
 
 from __future__ import annotations
@@ -28,16 +29,16 @@ import argparse
 import json
 import sys
 
-# flag -> the ROADMAP item that ports what it selects
+# flag -> the feature it selects, as ROADMAP names its port
 _NOT_PORTED = {
-    "checkpoint_dir": "queue A item 6 (save/resume)",
-    "checkpoint_every_n_epochs": "queue A item 6 (save/resume)",
-    "metrics_file": "queue A item 6 (metrics logging)",
-    "tensorboard_dir": "queue A item 6 (metrics logging)",
-    "track_grads": "queue A item 6 (metrics logging)",
-    "layer_type": "queue A item 3 (models/naive.py)",
-    "sampling_fanouts": "queue A item 9 (data/sampling.py)",
-    "sampling_batch_size": "queue A item 9 (data/sampling.py)",
+    "checkpoint_dir": "checkpoints (save/resume)",
+    "checkpoint_every_n_epochs": "checkpoints (save/resume)",
+    "metrics_file": "metrics logging",
+    "tensorboard_dir": "metrics logging",
+    "track_grads": "metrics logging",
+    "layer_type": "the naive layer (models/naive.py)",
+    "sampling_fanouts": "neighbour sampling (data/sampling.py)",
+    "sampling_batch_size": "neighbour sampling (data/sampling.py)",
 }
 
 
@@ -90,7 +91,8 @@ def run(config) -> dict:
     resolve_device(config.device)
     if config.exec_type == "load":
         raise NotImplementedError(
-            "--exec_type load needs checkpoints (ROADMAP queue A item 6)")
+            "--exec_type load needs checkpoints (ROADMAP: checkpoints and "
+            "logging)")
     name = config.dataset
     task = make_task(name, attention_reward=config.attention_reward,
                      attention_penalty=config.attention_penalty)
@@ -145,7 +147,7 @@ def main(argv=None) -> int:
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) not in (None, "custom"):
             raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
+                f"--{flag} is not ported yet (ROADMAP: {item})")
     from ..data import datasets
     from ..utils.config import get_config
     overrides = {k: v for k, v in vars(args).items()

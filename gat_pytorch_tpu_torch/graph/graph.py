@@ -19,7 +19,8 @@ as they are, and the plain torch paths widen them to int64.
 BlockLayout, the hybrid split-locality layout's remainder (`rem_send`,
 `rem_recv`, `rem_order`, `rem_e`) included, plus the index arrays the
 Hopper kernels walk. `rem_count`, the per-shard remainder counts of the
-sharded layouts, waits for ROADMAP queue A item 13.
+sharded layouts, waits for the dst-owned layout (ROADMAP: what is left of
+parallel/).
 """
 
 from __future__ import annotations

@@ -355,8 +355,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         raise ValueError(f"backend must be one of {BACKENDS}")
     if dst_owned:
         raise NotImplementedError(
-            "the dst-owned layout (partition.py) is not ported (ROADMAP "
-            "queue A item 7)")
+            "the dst-owned layout (partition.py) is not ported (ROADMAP: "
+            "what is left of parallel/)")
     nh, f = cfg.num_heads, cfg.out_features
     e = senders.shape[0]
     ax = edge_axis
@@ -382,15 +382,12 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         v6 = hybrid and v7_two
         if v6:
             bl = None
-        # one product gives both score tables: s_dst for the op, s_src
-        # only for the single sweep's score bound B (any bound >= max raw
-        # logit; it cancels algebraically in the op's epilogue, so no
-        # gradient); the 2-phase forms take their cap in a pass instead
-        s_both = h_flat @ torch.cat([a_src, a_dst], dim=1)
-        s_dst = s_both[:, nh:]
-        two = v5_two if bl is None else v7_two
-        bound = (None if two
-                 else (s_both[:, :nh].max() + s_dst.max()).detach())
+        # s_dst for the op; the sender's half of each logit is the op's
+        # own source-score pass, which also gives the single sweep's score
+        # bound B (any bound >= max raw logit; it cancels algebraically in
+        # the epilogue, so no gradient); the 2-phase forms take their cap
+        # in a pass instead
+        s_dst = h_flat @ a_dst
         e_real = None
         if bl is None:
             e_real = (int(edge_mask.sum()) if num_real_edges is None
@@ -427,17 +424,24 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             drop_rem = (_attention_dropout(
                 (bl.rem_send.shape[0], nh), cfg.dropout, generator, x.device)
                 if dropping else None)
-            s_dst_eff = s_dst - bound
+            # one source-score table for both ops where their kernels read
+            # the same h table, and the bound that both share from it
+            rw = v7.window_rounding(nh, f)
+            s_src = (v5.op_scores(rw.table_of(h_flat), a_src)
+                     if rw.table == v5.v5_rounding().table else None)
+            s_dst_eff = s_dst - v5.score_bound_of(
+                h_flat, a_src, s_dst, None if rw.table else s_src)
             num1, den1, cap1, _ = v7.v7_sweep1_parts(
                 h_flat, a_src, s_dst_eff, drop, bl, num_nodes, nh, f, 1e-8,
-                cfg.slope)
+                cfg.slope, s_src=s_src)
             # The JAX package sends a remainder of up to 65,536 edges
             # through XLA segment ops instead, a gate on the TPU's launch
             # cost; here the remainder always takes the kernel.
             num2, den2, cap2, _ = v5.v5_sweep1_parts(
                 h_flat, a_src, s_dst_eff, drop_rem, bl.rem_send,
                 bl.rem_recv, bl.rem_order, bl.rem_e, num_nodes, nh, f, 1e-8,
-                cfg.slope, dst_ptr=bl.rem_dst_ptr, src_ptr=bl.rem_src_ptr)
+                cfg.slope, dst_ptr=bl.rem_dst_ptr, src_ptr=bl.rem_src_ptr,
+                s_src=s_src)
             out, _ = v5.normalise(num1 + num2, den1 + den2,
                                   torch.maximum(cap1, cap2), 1e-8, cfg.slope,
                                   nh)
@@ -447,7 +451,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             # carries a block layout does.
             PATH_TRACE.append("v7")
             out = v7.fused_gat_window_v7(
-                h_flat, a_src, s_dst, drop, bl, bound, num_nodes, nh, f,
+                h_flat, a_src, s_dst, drop, bl, None, num_nodes, nh, f,
                 1e-8, cfg.slope, two_phase=v7_two)
         else:
             # The JAX package takes v5 from 4096 edges and the table op
@@ -456,7 +460,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             PATH_TRACE.append("v5")
             out = v5.fused_gat_table_autocap(
                 h_flat, a_src, s_dst, drop, senders, receivers, src_order,
-                e_real, bound, num_nodes, nh, f, 1e-8, cfg.slope,
+                e_real, None, num_nodes, nh, f, 1e-8, cfg.slope,
                 two_phase=v5_two, src_ptr=src_ptr, dst_ptr=dst_ptr)
         return _head_combine(out, cfg, num_nodes, params)
 
@@ -661,11 +665,13 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
     `generator`, which must be in the same state on every shard (x is
     replicated), and the attention dropout masks from `edge_generator`,
     the shard's own stream (the JAX package folds the shard index into
-    the key). dst_owned and return_attention are not ported (ROADMAP
-    queue A items 7 and 2) and raise."""
+    the key). dst_owned and return_attention are not ported (ROADMAP:
+    what is left of parallel/; return_attention and the attention
+    regulariser) and raise."""
     if return_attention:
         raise NotImplementedError(
-            "return_attention is not ported (ROADMAP queue A item 2)")
+            "return_attention is not ported (ROADMAP: return_attention and "
+            "the attention regulariser)")
     check_device(graph.device, device)
     dev = graph.device
     if training and cfg.dropout > 0.0 and (

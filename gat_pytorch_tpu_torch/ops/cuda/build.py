@@ -47,7 +47,8 @@ LIBRARIES = SOURCES + tuple(s + _BF16_TABLE for s in TABLE_SOURCES)
 # kernel on a CUDA tensor, and nowhere else (chip_smoke.py reads these).
 # An entry's bfloat16 modes count apart, under "<entry>_bf16"
 # (rounding.Rounding.counter); the cap passes, v5_dasrc and table_dden
-# have no such mode, and of the v2 entries only the forward has one.
+# have no such mode, and of the v2 entries only the forward has one. The
+# source-score pass counts a bfloat16 table apart ("source_scores_bf16").
 _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
             "table_forward", "table_backward", "v5_backward_parts",
             "window_backward_parts", "v5_cap", "v5_forward_two_phase",
@@ -56,7 +57,8 @@ _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     _ENTRIES + ("segment_sum_rows", "segment_sum_sorted", "window_cap",
                 "segment_sum_rows_t", "v2_forward", "v2_backward",
-                "v2_forward_bf16", "v5_dasrc", "table_dden")
+                "v2_forward_bf16", "v5_dasrc", "table_dden",
+                "source_scores", "source_scores_bf16")
     + tuple(k + "_bf16" for k in _ENTRIES), 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}

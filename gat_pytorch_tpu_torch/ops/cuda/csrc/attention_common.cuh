@@ -1,9 +1,12 @@
 // Shared by the attention kernels (v5_attention.cu, window_attention.cu,
-// table_attention.cu):
+// table_attention.cu, segment_attention.cu):
 // warp and block reduction helpers, the cross-block second passes, the
-// bfloat16 rounding points, and the dispatch on the row width and on the
-// h table's element type. Everything sits in an anonymous namespace, so
-// each source gets its own copy.
+// bfloat16 rounding points, the dispatch on the row width and on the
+// h table's element type, vector loads and stores, and the pieces of the
+// v5 and windowed ops that both share: the source-score pass, the cap
+// stream and the forward (attention_fwd_wide, attention_fwd_narrow).
+// Everything sits in an anonymous namespace, so each source gets its own
+// copy of what it instantiates.
 
 #pragma once
 
@@ -12,6 +15,9 @@
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -75,32 +81,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The source half of head k's raw logit, h[src] . a_src[:, k]: lane l
-// holds features l, l+32, ... of the sender's row in hv, sa is a_src
-// transposed, (nh, d_feat), in shared memory. Every kernel that needs a raw
-// logit (forward, cap pass, backward) takes it from here, so they all get
-// the same bits for the same edge: the 2-phase argmax edge then has
-// raw - cap == 0 exactly, where LeakyReLU's slope-at-0 convention decides
-// its gradient. WITH_Q: the backward's second dot in the same pass over
-// the lane's features, q = h[src] . g[dst] over head k's features (head
-// and gv are not read otherwise), of the row rounded to bfloat16 where
-// round_q (kRoundRows: the logit reads the float32 row, q the rounded one).
-template <int C, bool WITH_Q>
+// q = h[src] . g[dst] over head k's features, the backward's per-edge
+// dot: lane l holds features l, l+32, ... of the sender's row in hv and
+// of g[dst] in gv, the row rounded to bfloat16 first where round_q
+// (kRoundRows: the logit is the score table's, q reads the rounded row).
+// The raw logit itself is no dot here: every kernel takes it from the
+// source-score table, s_src[src, k] + s_dst[dst, k] (source_scores_kernel
+// below), so the cap pass, the forward and the backward get the same bits
+// for the same edge: the 2-phase argmax edge then has raw - cap == 0
+// exactly, where LeakyReLU's slope-at-0 convention decides its gradient.
+template <int C>
 __device__ __forceinline__ float head_dot(const float (&hv)[C],
                                           const bool (&live)[C],
-                                          const int (&head)[C],
-                                          const float* sa, int k, int d_feat,
-                                          int lane, const float (&gv)[C],
-                                          float& q, bool round_q = false) {
-  float p = 0.f, r = 0.f;
+                                          const int (&head)[C], int k,
+                                          const float (&gv)[C],
+                                          bool round_q) {
+  float r = 0.f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (!live[c]) continue;
-    p += hv[c] * sa[k * d_feat + lane + 32 * c];
-    if (WITH_Q && head[c] == k) r += round_if(hv[c], round_q) * gv[c];
-  }
-  if (WITH_Q) q = warp_sum(r);
-  return warp_sum(p);
+  for (int c = 0; c < C; ++c)
+    if (live[c] && head[c] == k) r += round_if(hv[c], round_q) * gv[c];
+  return warp_sum(r);
 }
 
 // LeakyReLU as the 2-phase kernels apply it: the slope at x <= 0
@@ -108,14 +108,10 @@ __device__ __forceinline__ float leaky(float x, float slope) {
   return x > 0.f ? x : slope * x;
 }
 
-// The kernel modes. Forward: kSweep1 accumulates the unnormalised parts
-// with exp(slope * raw') and tracks the cap as it goes; kCap only tracks the
-// cap and its argmax code; kTwoPhase takes the cap from device memory and
-// writes the normalised output with exp(leaky(raw - cap)).
-// Backward: kNorm (the sweep-1 op's normalised epilogue, eps' read from
-// device memory), kParts (raw cotangents of the parts), kTwoPhase (the
-// 2-phase op: the full LeakyReLU, the plain eps, and a d(cap) output).
-enum class Fwd { kSweep1, kCap, kTwoPhase };
+// The backward modes: kNorm (the sweep-1 op's normalised epilogue, eps'
+// read from device memory), kParts (raw cotangents of the parts),
+// kTwoPhase (the 2-phase op: the full LeakyReLU, the plain eps, and a
+// d(cap) output). The forwards take their mode as a flag (FwdArgs).
 enum class Bwd { kNorm, kParts, kTwoPhase };
 
 __device__ __forceinline__ float select_head(const float (&v)[kMaxHeads],
@@ -178,6 +174,681 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// -- vectors ------------------------------------------------------------------
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// V consecutive floats from p, in one load of V elements (aligned to its
+// size)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// V consecutive elements of T, loaded in one load of V elements (aligned
+// to its size) and read as floats by e(). A bfloat16 vector keeps its
+// loaded bits and widens each element where it is read: widened at the
+// load, every load waited for its data before the next was issued.
+template <typename T, int V>
+struct Vec;
+
+template <int V>
+struct Vec<float, V> {
+  float v[V];
+  __device__ __forceinline__ void load(const float* __restrict__ p) {
+    load_vec<V>(p, v);
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = 0.f;
+  }
+  __device__ __forceinline__ float e(int i) const { return v[i]; }
+};
+
+template <int V>
+struct Vec<__nv_bfloat16, V> {
+  using Bits = std::conditional_t<
+      V == 4, uint2, std::conditional_t<V == 2, unsigned, unsigned short>>;
+  Bits q;
+  __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ p) {
+    q = *reinterpret_cast<const Bits*>(p);
+  }
+  __device__ __forceinline__ void zero() { q = Bits{}; }
+  // a bfloat16 is the high half of its float
+  __device__ __forceinline__ float e(int i) const {
+    if constexpr (V == 4) {
+      const unsigned w = i < 2 ? q.x : q.y;
+      return __uint_as_float(i % 2 ? w & 0xffff0000u : w << 16);
+    } else if constexpr (V == 2) {
+      return __uint_as_float(i ? q & 0xffff0000u : q << 16);
+    } else {
+      return __uint_as_float((unsigned)q << 16);
+    }
+  }
+};
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* __restrict__ p,
+                                          const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// v's elements idx .. idx + V - 1 that lie in [lo, hi): one vector store
+// where all do
+template <int V>
+__device__ __forceinline__ void store_in(float* __restrict__ p,
+                                         const float (&v)[V], int idx,
+                                         int lo, int hi) {
+  if (idx >= lo && idx + V <= hi) {
+    store_vec<V>(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (idx + e >= lo && idx + e < hi) p[e] = v[e];
+  }
+}
+
+// edges whose row loads a lane keeps in flight: U x C x V elements
+__host__ __device__ constexpr int in_flight(int elems) {
+  return elems >= 32 ? 1 : elems >= 16 ? 2 : elems >= 8 ? 4 : 8;
+}
+
+// U warp sums at once (U a power of two): each step halves the values a
+// lane holds, exchanging the half its partner keeps, so the U sums take
+// U - 1 + log2(32 / U) shuffles, not 5 U. Returns the sum of q[lane /
+// (32 / U)]; q is overwritten.
+template <int U>
+__device__ __forceinline__ float warp_sums(float (&q)[U], int lane) {
+#pragma unroll
+  for (int m = U, o = 16; m > 1; m >>= 1, o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int j = 0; j < m / 2; ++j) {
+      const float keep = up ? q[j + m / 2] : q[j];
+      const float give = up ? q[j] : q[j + m / 2];
+      q[j] = keep + __shfl_xor_sync(kFull, give, o);
+    }
+  }
+  float s = q[0];
+#pragma unroll
+  for (int o = 16 / U; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s;
+}
+
+// fn(Int<V>, Int<C>) for the vector width `vec` and the vectors a lane
+// holds `per_lane`, among the pairs with V * C <= LIMIT elements a lane
+// and C <= MAXC; cudaErrorInvalidValue for any other pair
+#define GAT_TRY_VC(VV, CC)                                      \
+  if constexpr (VV * CC <= LIMIT && CC <= MAXC)                 \
+    if (vec == VV && per_lane == CC) return fn(Int<VV>{}, Int<CC>{});
+template <int LIMIT, int MAXC, typename F>
+int with_vc(int vec, int per_lane, F&& fn) {
+  GAT_TRY_VC(4, 1) GAT_TRY_VC(4, 2) GAT_TRY_VC(4, 4) GAT_TRY_VC(4, 8)
+  GAT_TRY_VC(2, 1) GAT_TRY_VC(2, 2) GAT_TRY_VC(2, 4) GAT_TRY_VC(2, 8)
+  GAT_TRY_VC(2, 16)
+  GAT_TRY_VC(1, 1) GAT_TRY_VC(1, 2) GAT_TRY_VC(1, 4) GAT_TRY_VC(1, 8)
+  GAT_TRY_VC(1, 16) GAT_TRY_VC(1, 32)
+  return (int)cudaErrorInvalidValue;
+}
+#undef GAT_TRY_VC
+
+// The (max, lowest code) of every thread of the block into
+// blk_max / blk_code[blockIdx.x]: a butterfly over each warp, then thread
+// 0 over the warps. take_max is exact, so the order does not matter.
+__device__ __forceinline__ void block_max_partial(float m, int c,
+                                                  float* __restrict__ blk_max,
+                                                  int* __restrict__ blk_code) {
+  __shared__ float wmax[kWarps];
+  __shared__ int wcode[kWarps];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float om = __shfl_xor_sync(kFull, m, o);
+    const int oc = __shfl_xor_sync(kFull, c, o);
+    take_max(m, c, om, oc);
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    wmax[warp] = m;
+    wcode[warp] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+      take_max(m, c, wmax[w], wcode[w]);
+    blk_max[blockIdx.x] = m;
+    blk_code[blockIdx.x] = c;
+  }
+}
+
+// -- the source-score pass ---------------------------------------------------
+//
+// s_src[s, k] = h[s, :] . a_src[:, k], float32, for every row s of the h
+// table the kernels read (a bfloat16 table in the kBf16Table mode; under
+// kRoundRows the float32 rows, before they are rounded). Written once per
+// op call; every v5 and windowed kernel takes its raw logit from it,
+// s_src[src, k] + s_dst[dst, k], and computes no source dot. It replaces
+// the per-edge h_blk @ a_src of the TPU kernels _kernel_v5_auto, _kernel_v5
+// and _kernel_v5_cap (gat_pytorch_tpu/ops/pallas/segment_attention.py),
+// _kernel_v5_bwd (segment_attention_bwd.py), _kernel_v6 and _kernel_v6_bwd
+// (segment_attention_window.py), which recompute the sender's dot on every
+// edge: about 24 times a sender on PPI.
+// Design. A team of `lanes` lanes (a power of two) reads a row in
+// vectors of V elements, C of them a lane in flight, chunk after chunk of
+// lanes * V * C elements; a_src sits transposed in shared memory and is
+// read as V-float vectors. Each lane sums its elements per head with fmaf
+// in a fixed order and the team adds its lanes' sums in a butterfly: no
+// atomics, and a row's sums depend on nothing but the row and the plan
+// (not on its position in the table, the block or the grid), so two
+// launches give the same bits. What bounds it: reading the h table once
+// (n_src x d_feat elements) and writing the table, about 0.003 ms for
+// PPI's 2,432 x 1024 floats at 3.35 TB/s.
+constexpr int kScoreThreads = 256;
+
+template <int V, int C, typename T>
+__global__ void __launch_bounds__(kScoreThreads)
+source_scores_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
+                     int n_src, int d_feat, int nh, int lanes,
+                     float* __restrict__ s_src) {
+  extern __shared__ float sa[];  // a_src transposed, (nh, d_feat)
+  for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x)
+    sa[(i % nh) * d_feat + i / nh] = a_src[i];
+  __syncthreads();
+  const int t = threadIdx.x & (lanes - 1);
+  const int teams = kScoreThreads / lanes;
+  const int chunk = lanes * V * C;
+  for (int base = blockIdx.x * teams; base < n_src;
+       base += gridDim.x * teams) {  // the same passes for every lane
+    const int r = base + (int)threadIdx.x / lanes;
+    const bool ok = r < n_src;
+    const T* row = h + (size_t)(ok ? r : 0) * d_feat;
+    float p[kMaxHeads];
+#pragma unroll
+    for (int k = 0; k < kMaxHeads; ++k) p[k] = 0.f;
+    for (int c0 = 0; c0 < d_feat; c0 += chunk) {
+      Vec<T, V> hv[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = c0 + V * (t + lanes * c);
+        if (ok && j < d_feat) {
+          hv[c].load(row + j);
+        } else {
+          hv[c].zero();
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = c0 + V * (t + lanes * c);
+        if (j >= d_feat) continue;
+#pragma unroll
+        for (int k = 0; k < kMaxHeads; ++k) {
+          if (k >= nh) continue;
+          float av[V];
+          load_vec<V>(sa + k * d_feat + j, av);
+#pragma unroll
+          for (int v = 0; v < V; ++v) p[k] = fmaf(hv[c].e(v), av[v], p[k]);
+        }
+      }
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k)
+        if (k < nh) p[k] += __shfl_xor_sync(kFull, p[k], o);
+    }
+    if (ok) {
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k)
+        if (k < nh && (k & (lanes - 1)) == t)
+          s_src[(size_t)r * nh + k] = p[k];
+    }
+  }
+}
+
+// -- the cap stream -----------------------------------------------------------
+//
+// The 2-phase cap pass (v5_cap, window_cap): the max over the slots i <
+// count with recv[i] >= 0 and the heads k of s_src[send[i], k] +
+// s_dst[recv[i], k], the same sum the forward and the backward take, and
+// its lowest code i*nh + k; per-block partials, then cap_reduce_kernel.
+// A stream over count x nh scores: no h row is read.
+constexpr int kStreamThreads = 256;
+
+__global__ void __launch_bounds__(kStreamThreads)
+cap_stream_kernel(const float* __restrict__ s_src,
+                  const float* __restrict__ s_dst,
+                  const int* __restrict__ send, const int* __restrict__ recv,
+                  int count, int nh, float* __restrict__ blk_max,
+                  int* __restrict__ blk_code) {
+  float m = -INFINITY;
+  int code = INT_MAX;
+  const int total = count * nh;
+  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += gridDim.x * blockDim.x) {
+    const int i = idx / nh, k = idx - i * nh;
+    const int r = recv[i];
+    if (r < 0) continue;  // a pad slot of the window layout
+    take_max(m, code,
+             s_src[(size_t)send[i] * nh + k] + s_dst[(size_t)r * nh + k],
+             idx);
+  }
+  block_max_partial(m, code, blk_max, blk_code);
+}
+
+int launch_cap_stream(const float* s_src, const float* s_dst,
+                      const int* send, const int* recv, int count, int nh,
+                      float* blk_max, int* blk_code, float* cap, int* code,
+                      int nblk, void* stream) {
+  if (count < 0 || nh < 1 || nh > kMaxHeads || nblk < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cap_stream_kernel<<<nblk, kStreamThreads, 0, st>>>(
+      s_src, s_dst, send, recv, count, nh, blk_max, blk_code);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(blk_max, blk_code, nblk, cap,
+                                               code);
+  return (int)cudaGetLastError();
+}
+
+// -- the forward -------------------------------------------------------------
+//
+// The forward of the v5 op (v5_fwd_kernel) and of the windowed op
+// (window_fwd_kernel): destination d's run of edge positions p in
+// [ptr[d], min(ptr[d+1], e_end)); its slot is perm[p] (the window
+// layout's dst_perm) or p (perm NULL: the v5 op's dst-sorted edges); the
+// slot's sender send[slot], mask row drop[slot, :] and argmax code
+// slot*nh + k. Per (slot, head): raw = s_src[send, k] + s_dst[d, k]; the
+// sweep-1 mode takes ex = exp(slope * raw) (s_dst B-shifted), tracks the
+// (max raw, lowest code) and writes num unnormalised; the 2-phase mode
+// takes ex = exp(leaky(raw - *cap_in)) and writes out = num / (den + eps),
+// 0 where den == 0. den sums ex (no mask), num ex * drop * h[send].
+template <typename T>
+struct FwdArgs {
+  const T* h;            // (n_src, d_feat)
+  const float* s_src;    // (n_src, nh), the source-score table
+  const float* s_dst;    // (n, nh)
+  const float* drop;     // (slots, nh) or NULL
+  const int* send;
+  const int* perm;       // NULL: a slot is its position
+  const int* ptr;        // (n + 1,)
+  int n, e_end, d_feat, nh, f, lanes;
+  float slope, eps;
+  int flags;
+  bool two_phase;
+  const float* cap_in;   // the 2-phase mode's cap
+  float* num;            // (n, d_feat): num, or out in the 2-phase mode
+  float* den;            // (n, nh)
+  float* blk_max;        // (gridDim.x,): the sweep-1 (max, code) partials
+  int* blk_code;
+};
+
+// ex of one (slot, head) from its score: (w = ex * m, the weight of the
+// sender's row; term = ex, rounded where kRoundAcc, den's), the sweep-1
+// (max, code) updated
+template <bool RACC, typename T>
+__device__ __forceinline__ void edge_weight(const FwdArgs<T>& a, float raw,
+                                            float cap, float m, int code,
+                                            float& vmax, int& vcode,
+                                            float& w, float& term) {
+  float ex;
+  if (a.two_phase) {
+    ex = expf(leaky(raw - cap, a.slope));
+  } else {
+    take_max(vmax, vcode, raw, code);
+    ex = expf(a.slope * raw);
+  }
+  term = RACC ? round_bf16(ex) : ex;
+  w = ex * m;
+}
+
+// acc += w * x, each product rounded to bfloat16 first where RACC
+template <bool RACC>
+__device__ __forceinline__ void add_term(float& acc, float w, float x) {
+  acc = RACC ? __fadd_rn(acc, round_bf16(__fmul_rn(w, x))) : fmaf(w, x, acc);
+}
+
+// Rows of f >= 32 features a head (PPI's 4 x 256 and 6 x 121): a block of
+// nh warps a destination, warp k head k. Lane l holds the vectors b +
+// V*(l + 32c), c < C, of the row, b the vector that holds the head's first
+// element; V = 4 where it divides f, else 2 where it divides the row
+// (6 x 121: heads start mid-vector, and the elements of a neighbouring
+// head are kept out of the stores), else 1. The edges come 32 at a time:
+// lane i takes edge i's slot, sender, score and mask entry and its exp
+// once (after the batch's first row loads are issued), and the warp hands
+// them out by shuffles. Each lane issues U edges' row loads before it
+// uses them and adds w * h in ascending edge order.
+template <int V, int C, bool RACC, typename T>
+__device__ __forceinline__ void attention_fwd_wide(const FwdArgs<T>& a) {
+  constexpr int U = in_flight(C * V);
+  const int lane = threadIdx.x & 31, k = threadIdx.x >> 5;
+  const int nh = a.nh, d_feat = a.d_feat;
+  const int lo_k = k * a.f, hi_k = lo_k + a.f;  // head k's elements
+  const int col = lo_k - lo_k % V + V * lane;   // the lane's first vector
+  bool live[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) live[c] = col + 32 * V * c < hi_k;
+  const bool r_rows = a.flags & kRoundRows;
+  const float cap = a.two_phase ? *a.cap_in : 0.f;
+  float vmax = -INFINITY;
+  int vcode = INT_MAX;
+
+  for (int d = blockIdx.x; d < a.n; d += gridDim.x) {
+    float acc[C][V];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
+    float dsum = 0.f;
+    const float sd = a.s_dst[(size_t)d * nh + k];
+    const int lo = a.ptr[d], hi = min(a.ptr[d + 1], a.e_end);
+    for (int b = lo; b < hi; b += 32) {
+      const int cnt = min(32, hi - b);
+      // lane i: edge b + i's slot, sender, score and mask entry
+      int slot = 0, src = 0;
+      float ss = 0.f, m = 1.f, w = 0.f, term = 0.f;
+      if (lane < cnt) {
+        slot = a.perm ? a.perm[b + lane] : b + lane;
+        src = a.send[slot];
+        ss = a.s_src[(size_t)src * nh + k];
+        if (a.drop) m = a.drop[(size_t)slot * nh + k];
+      }
+      for (int i0 = 0; i0 < cnt; i0 += U) {
+        Vec<T, V> hv[U][C];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u;  // past cnt: nothing is loaded or added
+          const int s = __shfl_sync(kFull, src, i & 31);
+          const T* row = a.h + (size_t)s * d_feat + col;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            if (i < cnt && live[c]) {
+              hv[u][c].load(row + 32 * V * c);
+            } else {
+              hv[u][c].zero();
+            }
+          }
+        }
+        if (i0 == 0 && lane < cnt)  // the batch's exps, once
+          edge_weight<RACC>(a, ss + sd, cap, m, slot * nh + k, vmax, vcode,
+                            w, term);
+        float wu[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u;
+          wu[u] = __shfl_sync(kFull, w, i & 31);
+          const float tu = __shfl_sync(kFull, term, i & 31);
+          if (i < cnt) dsum += tu;
+        }
+        // in ascending edge order: the loads above are all in flight by now
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (i0 + u >= cnt) break;
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              add_term<RACC>(acc[c][v], wu[u],
+                             round_if(hv[u][c].e(v), r_rows));
+        }
+      }
+    }
+    const float inv = dsum > 0.f ? 1.f / (dsum + a.eps) : 0.f;
+    float* orow = a.num + (size_t)d * d_feat + col;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (!live[c]) continue;
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        o[v] = a.two_phase ? acc[c][v] * inv : acc[c][v];
+      store_in<V>(orow + 32 * V * c, o, col + 32 * V * c, lo_k, hi_k);
+    }
+    if (lane == 0) a.den[(size_t)d * nh + k] = dsum;
+  }
+  if (!a.two_phase) block_max_partial(vmax, vcode, a.blk_max, a.blk_code);
+}
+
+// Rows of f < 32 features a head (Cora's 8 x 8 and 1 x 7, Pubmed's 8 x 8
+// and 8 x 3, PATTERN's 4 x 12, 4 x 24 and 1 x 1): one warp a destination,
+// split into 32 / lanes teams of `lanes` lanes, each team a whole row:
+// lane t of a team holds the vectors V*(t + lanes*c), c < C, and team g
+// takes the edges g, g + teams, ... of a batch. A batch is 32 / nh edges:
+// lane i*nh + k takes (edge i, head k)'s slot, sender, score, mask entry
+// and exp once; a team shuffles in its edge's sender and, per vector, the
+// weight of the vector's head, or of its two heads where one starts
+// mid-vector (V does not divide f; the plan keeps V <= f + 1, so a vector
+// meets at most two heads): there each element is tested against the
+// boundary. Each team adds its edges in ascending order, and the teams'
+// sums are added in a butterfly at the end; den sums the batch's terms in
+// edge order in every lane (head lane % nh), lane k < nh writes head k's.
+// U: the edges whose rows a team has in flight, 2 where a batch gives a
+// team at most two (many heads, few teams: the registers of more would
+// only cost resident warps), else in_flight(C * V).
+template <int V, int C, int U, bool RACC, typename T>
+__device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nh = a.nh, d_feat = a.d_feat, f = a.f, lanes = a.lanes;
+  const int teams = 32 / lanes, g = lane / lanes, t = lane & (lanes - 1);
+  const int per = 32 / nh;  // edges a batch
+  const int mine = lane / nh, kh = lane - mine * nh;  // (edge, head) owned
+  const bool split = f % V != 0;  // a vector may meet two heads
+  int j0[C], h0[C], h1[C], cut[C];
+  bool live[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    j0[c] = V * (t + lanes * c);
+    live[c] = j0[c] < d_feat;
+    h0[c] = live[c] ? j0[c] / f : 0;
+    h1[c] = live[c] ? (j0[c] + V - 1) / f : 0;
+    cut[c] = (h0[c] + 1) * f;  // the first element of head h0 + 1
+  }
+  const bool r_rows = a.flags & kRoundRows;
+  const float cap = a.two_phase ? *a.cap_in : 0.f;
+  float vmax = -INFINITY;
+  int vcode = INT_MAX;
+
+  for (int d = blockIdx.x * kWarps + warp; d < a.n;
+       d += gridDim.x * kWarps) {
+    float acc[C][V];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
+    float dsum = 0.f;  // head kh's
+    const float sd = a.s_dst[(size_t)d * nh + kh];
+    const int lo = a.ptr[d], hi = min(a.ptr[d + 1], a.e_end);
+    for (int b = lo; b < hi; b += per) {
+      const int cnt = min(per, hi - b);
+      int slot = 0, src = 0;
+      float ss = 0.f, m = 1.f, w = 0.f, term = 0.f;
+      const bool own = mine < cnt;
+      if (own) {
+        slot = a.perm ? a.perm[b + mine] : b + mine;
+        src = a.send[slot];
+        ss = a.s_src[(size_t)src * nh + kh];
+        if (a.drop) m = a.drop[(size_t)slot * nh + kh];
+      }
+      for (int i0 = 0; i0 < cnt; i0 += teams * U) {
+        Vec<T, V> hv[U][C];
+        int base[U];  // lane of the team's edge's head 0
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (i0 + u * teams >= cnt) break;  // the same for every lane
+          const int i = i0 + u * teams + g;
+          base[u] = (i * nh) & 31;
+          const int s = __shfl_sync(kFull, src, base[u]);
+          const T* row = a.h + (size_t)s * d_feat;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            if (i < cnt && live[c]) {
+              hv[u][c].load(row + j0[c]);
+            } else {
+              hv[u][c].zero();
+            }
+          }
+        }
+        if (i0 == 0) {  // the batch's exps, once, and their den terms
+          if (own)
+            edge_weight<RACC>(a, ss + sd, cap, m, slot * nh + kh, vmax, vcode,
+                              w, term);
+          for (int i = 0; i < cnt; ++i)
+            dsum += __shfl_sync(kFull, term, i * nh + kh);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (i0 + u * teams >= cnt) break;
+          const int i = i0 + u * teams + g;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float w0 = __shfl_sync(kFull, w, base[u] + h0[c]);
+            const float w1 =
+                split ? __shfl_sync(kFull, w, base[u] + h1[c]) : w0;
+            if (i >= cnt) continue;
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              add_term<RACC>(acc[c][v], j0[c] + v < cut[c] ? w0 : w1,
+                             round_if(hv[u][c].e(v), r_rows));
+          }
+        }
+      }
+    }
+    // the teams' sums, in a fixed order
+    for (int o = lanes; o < 32; o <<= 1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[c][v] += __shfl_xor_sync(kFull, acc[c][v], o);
+    }
+    const float inv = dsum > 0.f ? 1.f / (dsum + a.eps) : 0.f;  // head kh
+    float* orow = a.num + (size_t)d * d_feat;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float i0v = 1.f, i1v = 1.f;
+      if (a.two_phase) {  // lane k < nh holds head k's
+        i0v = __shfl_sync(kFull, inv, h0[c]);
+        i1v = split ? __shfl_sync(kFull, inv, h1[c]) : i0v;
+      }
+      if (g != 0 || !live[c]) continue;
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        o[v] = a.two_phase ? acc[c][v] * (j0[c] + v < cut[c] ? i0v : i1v)
+                           : acc[c][v];
+      store_vec<V>(orow + j0[c], o);
+    }
+    if (lane < nh) a.den[(size_t)d * nh + lane] = dsum;
+  }
+  if (!a.two_phase) block_max_partial(vmax, vcode, a.blk_max, a.blk_code);
+}
+
+// Checks the lane plan (wide, vec, per_lane, lanes, unroll) that the wrapper
+// chose (ops/cuda/v5_attention.py lane_plan) against the shapes and the
+// pointers: cudaSuccess where the kernels cover every element once.
+template <typename T>
+int check_plan(const FwdArgs<T>& a, int wide, int vec, int per_lane) {
+  const int d = a.d_feat, f = a.f, lanes = a.lanes;
+  if (d < 1 || d > 1024 || a.nh < 1 || a.nh > kMaxHeads || a.nh * f != d ||
+      vec < 1 || per_lane < 1 || d % vec ||
+      !aligned(a.h, vec * sizeof(T)) || !aligned(a.num, vec * sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  if (wide) {
+    const int span = f % vec ? f + vec - 1 : f;
+    return lanes == 32 && 32 * vec * per_lane >= span
+               ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+  }
+  const bool pow2 = lanes >= 1 && lanes <= 32 && !(lanes & (lanes - 1));
+  return pow2 && lanes * vec * per_lane >= d &&
+                 (f % vec == 0 || vec <= f + 1)
+             ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// One forward launch over the plan, then, in the sweep-1 mode, the cap
+// reduce into cap and code. kernel_of(Int<WIDE>, Int<V>, Int<C>, Int<U>,
+// Int<RACC>) is the source's __global__ kernel of that instance; the
+// wide plans take V * C <= 32 elements a lane and U = in_flight(V * C),
+// the narrow ones NARROW_LIMIT and U = 2 or in_flight(V * C) (WIDE_OK
+// false: a library without the wide instances).
+template <bool WIDE_OK, int NARROW_LIMIT, typename T, typename K>
+int launch_attention_fwd(const FwdArgs<T>& a, int wide, int vec,
+                         int per_lane, int unroll, int nblk, float* cap,
+                         int* code, cudaStream_t st, K kernel_of) {
+  int err = check_plan(a, wide, vec, per_lane);
+  if (err || nblk < 1) return err ? err : (int)cudaErrorInvalidValue;
+  const bool racc = a.flags & kRoundAcc;
+  auto launch = [&](auto w, auto vv, auto cc, auto uu, int threads) {
+    auto kern = racc ? kernel_of(w, vv, cc, uu, Int<1>{})
+                     : kernel_of(w, vv, cc, uu, Int<0>{});
+    kern<<<nblk, threads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  };
+  if (wide) {
+    if constexpr (WIDE_OK) {
+      err = with_vc<32, 32>(vec, per_lane, [&](auto vv, auto cc) {
+        constexpr int U = in_flight(decltype(vv)::value * decltype(cc)::value);
+        return unroll == U ? launch(Int<1>{}, vv, cc, Int<U>{}, a.nh * 32)
+                           : (int)cudaErrorInvalidValue;
+      });
+    } else {
+      err = (int)cudaErrorInvalidValue;
+    }
+  } else {
+    err = with_vc<NARROW_LIMIT, 32>(vec, per_lane, [&](auto vv, auto cc) {
+      constexpr int U = in_flight(decltype(vv)::value * decltype(cc)::value);
+      if (unroll == U) return launch(Int<0>{}, vv, cc, Int<U>{}, kWarps * 32);
+      if (unroll == 2) return launch(Int<0>{}, vv, cc, Int<2>{}, kWarps * 32);
+      return (int)cudaErrorInvalidValue;
+    });
+  }
+  if (err || a.two_phase) return err;
+  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(a.blk_max, a.blk_code, nblk,
+                                               cap, code);
+  return (int)cudaGetLastError();
+}
+
+// The source-score pass over the plan (vec, per_lane, lanes) the wrapper
+// chose (ops/cuda/v5_attention.py score_plan).
+template <typename T>
+int launch_source_scores(const T* h, const float* a_src, int n_src,
+                         int d_feat, int nh, int vec, int per_lane, int lanes,
+                         float* s_src, int nblk, cudaStream_t st) {
+  const bool pow2 = lanes >= 1 && lanes <= 32 && !(lanes & (lanes - 1));
+  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || n_src < 0 ||
+      nblk < 1 || !pow2 || vec < 1 || d_feat % vec ||
+      !aligned(h, vec * sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)d_feat * nh * sizeof(float);
+  return with_vc<32, 8>(vec, per_lane, [&](auto vv, auto cc) {
+    constexpr int V = decltype(vv)::value, C = decltype(cc)::value;
+    source_scores_kernel<V, C, T><<<nblk, kScoreThreads, smem, st>>>(
+        h, a_src, n_src, d_feat, nh, lanes, s_src);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -74,132 +74,12 @@
 // flight together), and GAT_TPU_KERNEL_DTYPE, each edge's
 // [weighted h | ex] rounded before the forward's float32 sums (kRoundAcc).
 
-#include <stdint.h>
-
-#include <type_traits>
-
 #include "attention_common.cuh"
 
 namespace {
 
-template <int N>
-using Int = std::integral_constant<int, N>;
-
-// V consecutive floats from p, in one load of V elements (aligned to its
-// size)
-template <int V>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p,
-                                         float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else if constexpr (V == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-// V consecutive elements of T, loaded in one load of V elements (aligned
-// to its size) and read as floats by e(). A bfloat16 vector keeps its
-// loaded bits and widens each element where it is read: widened at the
-// load, every load waited for its data before the next was issued.
-template <typename T, int V>
-struct Vec;
-
-template <int V>
-struct Vec<float, V> {
-  float v[V];
-  __device__ __forceinline__ void load(const float* __restrict__ p) {
-    load_vec<V>(p, v);
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = 0.f;
-  }
-  __device__ __forceinline__ float e(int i) const { return v[i]; }
-};
-
-template <int V>
-struct Vec<__nv_bfloat16, V> {
-  using Bits = std::conditional_t<
-      V == 4, uint2, std::conditional_t<V == 2, unsigned, unsigned short>>;
-  Bits q;
-  __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ p) {
-    q = *reinterpret_cast<const Bits*>(p);
-  }
-  __device__ __forceinline__ void zero() { q = Bits{}; }
-  // a bfloat16 is the high half of its float
-  __device__ __forceinline__ float e(int i) const {
-    if constexpr (V == 4) {
-      const unsigned w = i < 2 ? q.x : q.y;
-      return __uint_as_float(i % 2 ? w & 0xffff0000u : w << 16);
-    } else if constexpr (V == 2) {
-      return __uint_as_float(i ? q & 0xffff0000u : q << 16);
-    } else {
-      return __uint_as_float((unsigned)q << 16);
-    }
-  }
-};
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* __restrict__ p,
-                                          const float (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    *p = v[0];
-  }
-}
-
-// v's elements idx .. idx + V - 1 that lie in [lo, hi): one vector store
-// where all do
-template <int V>
-__device__ __forceinline__ void store_in(float* __restrict__ p,
-                                         const float (&v)[V], int idx,
-                                         int lo, int hi) {
-  if (idx >= lo && idx + V <= hi) {
-    store_vec<V>(p, v);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e)
-      if (idx + e >= lo && idx + e < hi) p[e] = v[e];
-  }
-}
-
-// edges whose row loads a lane keeps in flight: U x C x V floats
-__host__ __device__ constexpr int in_flight(int elems) {
-  return elems >= 32 ? 1 : elems >= 16 ? 2 : elems >= 8 ? 4 : 8;
-}
-
-// U warp sums at once (U a power of two): each step halves the values a
-// lane holds, exchanging the half its partner keeps, so the U sums take
-// U - 1 + log2(32 / U) shuffles, not 5 U. Returns the sum of q[lane /
-// (32 / U)]; q is overwritten.
-template <int U>
-__device__ __forceinline__ float warp_sums(float (&q)[U], int lane) {
-#pragma unroll
-  for (int m = U, o = 16; m > 1; m >>= 1, o >>= 1) {
-    const bool up = lane & o;
-#pragma unroll
-    for (int j = 0; j < m / 2; ++j) {
-      const float keep = up ? q[j + m / 2] : q[j];
-      const float give = up ? q[j] : q[j + m / 2];
-      q[j] = keep + __shfl_xor_sync(kFull, give, o);
-    }
-  }
-  float s = q[0];
-#pragma unroll
-  for (int o = 16 / U; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-  return s;
-}
+// The vector helpers (Vec, load_vec, store_in, in_flight, warp_sums)
+// are attention_common.cuh's.
 
 // the forward: block d is destination d, warp k head k
 template <int V, int C, bool RACC, typename T>
@@ -449,10 +329,6 @@ table_bwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
   for (int c = 0; c < C; ++c)
     if (live[c])
       store_in<V>(dhrow + 32 * V * c, acc[c], col + 32 * V * c, lo_k, hi_k);
-}
-
-bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // fn(Int<V>): the widest vector of V elements to which every row of the

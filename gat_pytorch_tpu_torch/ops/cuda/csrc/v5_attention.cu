@@ -16,14 +16,17 @@
 //      its sweep1=False mode: v5_backward_two_phase)
 //
 // Contract (per edge e = (src, dst), head k, for e < e_real):
-//   raw'[e,k] = h[src,:] . a_src[:,k] + s_dst'[dst,k]   (s_dst' is B-shifted)
+//   raw'[e,k] = s_src[src,k] + s_dst'[dst,k]   (s_dst' is B-shifted)
 //   ex[e,k]   = exp(slope * raw'[e,k])
 //   num[dst, k*f+j] += ex[e,k] * drop[e,k] * h[src, k*f+j]
 //   den[dst, k]     += ex[e,k]                 (no dropout mask in den)
 //   cap' = max raw', code = lowest e*nh + k attaining it
-// The normalising epilogue out = num / (den + eps*exp(slope*cap')) runs in
-// torch. The backward recomputes ex from the same inputs and emits the
-// per-edge d(h) rows in dst order, d(drop), d(s_dst) per dst and d(a_src).
+// with s_src = h @ a_src the source-score table (n_src, nh), written once
+// per op call by source_scores (attention_common.cuh, source_scores_kernel;
+// the wrapper hands it to every entry). The normalising epilogue
+// out = num / (den + eps*exp(slope*cap')) runs in torch. The backward
+// takes ex from the same table and emits the per-edge d(h) rows in dst
+// order, d(drop), d(s_dst) per dst and d(a_src).
 // It has two modes besides the 2-phase one (the template parameter MODE
 // of v5_bwd_kernel):
 //   kNorm       takes the cotangent g of out with out, den and eps' and
@@ -48,9 +51,10 @@
 //                         d_den[dst,k]) times the slope where pre <= 0,
 //                         d(raw) = d(pre), and besides the outputs above
 //                         d(cap) = -sum d(raw) over edges and heads.
-// Every mode computes raw with head_dot (attention_common.cuh): the cap
-// kernel, the forward and the backward get the same bits for the same
-// edge, so the argmax edge has pre == 0 exactly and takes the slope.
+// Every mode takes raw = s_src[src, k] + s_dst[dst, k] from the one table
+// of its op call: the cap pass, the forward and the backward get the same
+// bits for the same edge, so the argmax edge has pre == 0 exactly and
+// takes the slope.
 // The h table may have more rows than n: senders index h, receivers the n
 // destination rows (a caller whose destinations are a part of the nodes).
 // The bfloat16 modes (the flags word, attention_common.cuh) are the JAX
@@ -62,13 +66,26 @@
 // kRoundRows | kRoundDh | kRoundDraw backward).
 //
 // Design. The TPU kernels gather rows with one-hot matmuls because Mosaic
-// has no in-kernel random gather; Hopper has one. So one warp owns one
-// destination node at a time and walks its in-edges (dst-sorted CSR
-// offsets) in order: it loads the sender's h row (lane l holds features
-// l, l+32, ...), contracts it with a_src (held in shared memory) through
-// warp shuffles, and accumulates num/den in registers. Every output row
-// is written by exactly one warp, so no atomics are needed and the sums
-// run in a fixed order: the results are bitwise reproducible.
+// has no in-kernel random gather; Hopper has one. The sender's half of
+// every logit depends on the sender alone, so it is a pass of its own
+// (source_scores, h read once) and no kernel recomputes it per edge.
+// The forward (v5_fwd_kernel: attention_fwd_wide and attention_fwd_narrow
+// of attention_common.cuh, shared with window_attention.cu) takes each
+// (edge, head)'s exp once, in the lane that owns the pair, and hands the
+// weights out by shuffles; a lane's vector of the row belongs to one head
+// (no select of a head per feature), loads are 16- or 8-byte vectors with
+// several edges' in flight, and lanes fit the row: at f >= 32 a block of
+// nh warps a destination, warp k head k; below, one warp a destination
+// split into teams of lanes sized to the row, each team on its own edges.
+// The lane plan (vector width, vectors a lane, lanes a row) comes from the
+// wrapper (v5_attention.lane_plan), which the CPU tests check. The cap pass
+// (v5_cap) is a stream over the E x nh scores (cap_stream_kernel). The
+// backward walks each destination's edges with one warp: it loads the
+// sender's h row (lane l holds features l, l+32, ...), reduces q = h . g
+// per head through warp shuffles, reads raw from the table, and
+// accumulates d(a_src) in registers. Every output row is written by
+// exactly one warp or block, so no atomics are needed and the sums run in
+// a fixed order: the results are bitwise reproducible.
 // Cross-block reductions (the cap and its argmax, d(a_src), d(cap)) go
 // through per-block partials over a fixed grid and a second, ordered pass.
 // Rows wider than 256 floats take the backward's wide form (kWideC): a
@@ -77,19 +94,17 @@
 // by sender, h^T S with S the per-sender sums of those rows.
 // The TPU's merged 2-phase launch (grid 2T: cap tiles, then attention
 // tiles, the cap carried in VMEM scratch) has no counterpart here: blocks
-// do not run in order, so the cap is a launch of its own (cap kernel and
+// do not run in order, so the cap is a launch of its own (cap stream and
 // its reduce) before the forward, in order on one stream, and reaches the
 // forward through device memory with no host sync.
 //
-// What bounds it on the H100: by bytes, the gathered h rows (E x nh*f x
-// 4 bytes), a few MB at Cora size, about a microsecond at 3.35 TB/s. As
-// written it is bound by latency instead: each warp walks its edges one
-// after another, and every edge is a dependent chain (sender index, row
-// gather, nh warp reductions). Splitting a destination's edges over more
-// lanes, or more destinations per warp for narrow rows, is the next step
-// (PERF.md). No wgmma or TMA: a row gather per edge is the access
-// pattern, and the contraction with a_src is nh*f*nh multiply-adds per
-// edge.
+// What bounds it on the H100: by bytes, the h table read once and the
+// edge arrays, a few MB at Cora size, about a microsecond at 3.35 TB/s;
+// the gathered rows (E x nh*f elements) come from L2. The forward is a
+// chain of three dependent loads a batch of edges (position, sender and
+// score, row) and a few shuffles; the score pass and the cap reduce are
+// launches of their own, so at Cora's size the launches set the floor.
+// No wgmma or TMA: a row gather per edge is the access pattern.
 
 #include "attention_common.cuh"
 
@@ -104,119 +119,17 @@ namespace {
 // local memory.
 constexpr int kWideC = 16;
 
-// MODE (attention_common.cuh): kSweep1 writes the unnormalised num/den and
-// the per-block (max, code) partials; kCap only the partials (drop, num,
-// den unused); kTwoPhase reads *cap and writes out = num/(den + eps) into
-// `num` and den, no partials.
-template <int C, Fwd MODE, typename T>
+// The forward in both its modes (FwdArgs.two_phase): attention_fwd_wide
+// at f >= 32 (a block of nh warps a destination), attention_fwd_narrow
+// below (one warp a destination, teams of lanes), over the dst-sorted
+// edges (perm NULL).
+template <bool WIDE, int V, int C, int U, bool RACC, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-v5_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
-              const float* __restrict__ s_dst, const float* __restrict__ drop,
-              const int* __restrict__ senders,
-              const int* __restrict__ row_ptr, int n, int e_real,
-              int d_feat, int nh, int f, float slope, float eps, int flags,
-              const float* __restrict__ cap_in, float* __restrict__ num,
-              float* __restrict__ den, float* __restrict__ blk_max,
-              int* __restrict__ blk_code) {
-  extern __shared__ float sa[];  // a_src transposed, (nh, d_feat)
-  __shared__ float wmax[kWarps];
-  __shared__ int wcode[kWarps];
-  for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x)
-    sa[(i % nh) * d_feat + i / nh] = a_src[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int head[C];
-  bool live[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int j = lane + 32 * c;
-    live[c] = j < d_feat;
-    head[c] = live[c] ? j / f : 0;
-  }
-  float vmax = -INFINITY;
-  int vcode = INT_MAX;
-  float cap = 0.f;
-  if constexpr (MODE == Fwd::kTwoPhase) cap = *cap_in;
-  const bool r_rows = flags & kRoundRows, r_acc = flags & kRoundAcc;
-
-  for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
-    float sd[kMaxHeads], dsum[kMaxHeads], acc[C];
-#pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k) {
-      sd[k] = k < nh ? s_dst[(size_t)d * nh + k] : 0.f;
-      dsum[k] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-
-    const int lo = row_ptr[d];
-    const int hi = min(row_ptr[d + 1], e_real);  // padding edges add nothing
-    for (int e = lo; e < hi; ++e) {
-      const T* hrow = h + (size_t)senders[e] * d_feat;
-      float hv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
-      float ex[kMaxHeads];
-#pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) {
-        ex[k] = 0.f;
-        if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
-          float unused;
-          const float raw = head_dot<C, false>(hv, live, head, sa, k, d_feat,
-                                               lane, hv, unused) + sd[k];
-          if constexpr (MODE == Fwd::kTwoPhase) {
-            ex[k] = expf(leaky(raw - cap, slope));
-          } else {
-            take_max(vmax, vcode, raw, e * nh + k);
-            if constexpr (MODE == Fwd::kSweep1) ex[k] = expf(slope * raw);
-          }
-          dsum[k] += round_if(ex[k], r_acc);
-        }
-      }
-      if constexpr (MODE != Fwd::kCap) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (!live[c]) continue;
-          float w = select_head(ex, head[c]);
-          if (drop) w *= drop[(size_t)e * nh + head[c]];
-          acc[c] += round_if(w * round_if(hv[c], r_rows), r_acc);
-        }
-      }
-    }
-    if constexpr (MODE != Fwd::kCap) {
-      float inv[kMaxHeads];
-#pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) {
-        inv[k] = 1.f;
-        if constexpr (MODE == Fwd::kTwoPhase)
-          inv[k] = dsum[k] > 0.f ? 1.f / (dsum[k] + eps) : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (!live[c]) continue;
-        float v = acc[c];
-        if constexpr (MODE == Fwd::kTwoPhase) v *= select_head(inv, head[c]);
-        num[(size_t)d * d_feat + lane + 32 * c] = v;
-      }
-      if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
-    }
-  }
-
-  if constexpr (MODE != Fwd::kTwoPhase) {
-    if (lane == 0) {
-      wmax[warp] = vmax;
-      wcode[warp] = vcode;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float m = -INFINITY;
-      int code = INT_MAX;
-      for (int w = 0; w < kWarps; ++w) take_max(m, code, wmax[w], wcode[w]);
-      blk_max[blockIdx.x] = m;
-      blk_code[blockIdx.x] = code;
-    }
+v5_fwd_kernel(const FwdArgs<T> a) {
+  if constexpr (WIDE) {
+    attention_fwd_wide<V, C, RACC>(a);  // U = in_flight(C * V)
+  } else {
+    attention_fwd_narrow<V, C, U, RACC>(a);
   }
 }
 
@@ -233,6 +146,7 @@ v5_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
 template <int C, Bwd MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
+              const float* __restrict__ s_src,
               const float* __restrict__ s_dst, const float* __restrict__ drop,
               const int* __restrict__ senders,
               const int* __restrict__ row_ptr, int n, int e_real,
@@ -253,10 +167,9 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
   enum { kInv, kDden, kSd, kSds, kDraw, kCoef, kTerms };
   __shared__ float wheads[kWide ? kWarps * kTerms * kMaxHeads : 1];
   float* wh = wheads + (kWide ? (threadIdx.x >> 5) * kTerms * kMaxHeads : 0);
-  // the wide form's a_src rows are 32 C floats, zero past d_feat: its dot
-  // products run over every lane's C features with no test of each (a
-  // feature past d_feat adds 0 * 0), which keeps the raw logit's sum the
-  // same as head_dot's
+  // the wide form's a_src rows are 32 C floats, zero past d_feat: its
+  // products d(raw) @ a_src^T run over every lane's C features with no
+  // test of each (a feature past d_feat gets 0)
   constexpr int kPad = 32 * C;
   if constexpr (kWide) {
     for (int i = threadIdx.x; i < nh * kPad; i += blockDim.x) {
@@ -347,40 +260,43 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
 
     const int lo = row_ptr[d];
     const int hi = min(row_ptr[d + 1], e_real);  // padding edges: see below
-    // the wide form has the next edge's row in flight while this one is
-    // reduced (the narrow form's registers hold d(a_src) instead)
-    float hn[kWide ? C : 1];
-    if constexpr (kWide) {
-      if (lo < hi) {
-        const T* nrow = h + (size_t)senders[lo] * d_feat;
+    // The next edge's sender, row and (narrow form) scores in flight
+    // while this one is reduced: kPre, every form but the narrow one at
+    // C = 8 features a lane, whose registers hold d(a_src) instead. Each
+    // lane holds every head's score (broadcast loads): a shuffle a head
+    // on the edge's chain was slower on the card.
+    constexpr bool kPre = kWide || C <= 4;
+    float hn[C];
+    int sn = 0;
+    float svn[kMaxHeads];  // the scores of sender sn
+    auto fetch = [&](int e_) {
+      sn = senders[e_];
+      const T* nrow = h + (size_t)sn * d_feat;
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          hn[c] = live[c] ? load_h(nrow + lane + 32 * c) : 0.f;
-      }
-    }
+      for (int c = 0; c < C; ++c)
+        hn[c] = live[c] ? load_h(nrow + lane + 32 * c) : 0.f;
+      if constexpr (!kWide)
+#pragma unroll
+        for (int k = 0; k < kMaxHeads; ++k)
+          svn[k] = k < nh ? s_src[(size_t)sn * nh + k] : 0.f;
+    };
+    if (kPre && lo < hi) fetch(lo);
     for (int e = lo; e < hi; ++e) {
       float* dhrow = d_h_rows + (size_t)e * d_feat;
+      if constexpr (!kPre) fetch(e);
       float hv[C];
-      if constexpr (kWide) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) hv[c] = hn[c];
-        if (e + 1 < hi) {
-          const T* nrow = h + (size_t)senders[e + 1] * d_feat;
+      for (int c = 0; c < C; ++c) hv[c] = hn[c];
+      const int src = sn;
+      float sv[kMaxHeads];  // the narrow form's
 #pragma unroll
-          for (int c = 0; c < C; ++c)
-            hn[c] = live[c] ? load_h(nrow + lane + 32 * c) : 0.f;
-        }
-      } else {
-        const T* hrow = h + (size_t)senders[e] * d_feat;
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
-      }
+      for (int k = 0; k < kMaxHeads; ++k) sv[k] = svn[k];
+      if (kPre && e + 1 < hi) fetch(e + 1);
       if constexpr (kWide) {
         // The heads in a loop that is not unrolled, their terms in shared
-        // memory: the loop body holds one head_dot of C = 16 or 32
-        // features a lane, where the narrow form unrolls kMaxHeads of
-        // them. The same arithmetic in the same order as the narrow form.
+        // memory: the loop body holds q's sum of C = 16 or 32 features a
+        // lane, where the narrow form unrolls kMaxHeads of them. The same
+        // arithmetic in the same order as the narrow form.
         float hq[C];  // the rows as q reads them
         if (r_rows) {
 #pragma unroll
@@ -389,10 +305,11 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
 #pragma unroll
           for (int c = 0; c < C; ++c) hq[c] = hv[c];
         }
-        // head k's terms from its two sums (q = h[src] . g over the head's
-        // features, raw = the logit): d(raw), coef, d(drop), in order
-        auto head_terms = [&](int k, float hg, float raw) {
-          raw += wh[kSd * kMaxHeads + k];
+        // head k's terms from q = h[src] . g over the head's features and
+        // the logit from the score table: d(raw), coef, d(drop), in order
+        auto head_terms = [&](int k, float hg) {
+          const float raw =
+              s_src[(size_t)src * nh + k] + wh[kSd * kMaxHeads + k];
           const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
           const float ik = wh[kInv * kMaxHeads + k];
           const float dk = wh[kDden * kMaxHeads + k];
@@ -415,34 +332,27 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
           if (d_drop && lane == k) d_drop[(size_t)e * nh + k] = hg * ex * ik;
           if (lane == k) draw_out[(size_t)e * nh + k] = round_if(dr, r_draw);
         };
-        // head_dot's two sums in its order for two heads at once (their
-        // chains of adds interleave), every feature added (a dead one's
-        // terms are 0), q's terms selected, not branched to
+        // head_dot's sum in its order for two heads at once (their chains
+        // of adds interleave), q's terms selected, not branched to
         int k = 0;
 #pragma unroll 1
         for (; k + 1 < nh; k += 2) {
-          float p0 = 0.f, r0 = 0.f, p1 = 0.f, r1 = 0.f;
+          float r0 = 0.f, r1 = 0.f;
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            p0 += hv[c] * sa[k * kPad + lane + 32 * c];
-            p1 += hv[c] * sa[(k + 1) * kPad + lane + 32 * c];
             r0 = head[c] == k ? r0 + hq[c] * gv[c] : r0;
             r1 = head[c] == k + 1 ? r1 + hq[c] * gv[c] : r1;
           }
           const float q0 = warp_sum(r0), q1 = warp_sum(r1);
-          const float raw0 = warp_sum(p0), raw1 = warp_sum(p1);
-          head_terms(k, q0, raw0);
-          head_terms(k + 1, q1, raw1);
+          head_terms(k, q0);
+          head_terms(k + 1, q1);
         }
         if (k < nh) {
-          float p0 = 0.f, r0 = 0.f;
+          float r0 = 0.f;
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            p0 += hv[c] * sa[k * kPad + lane + 32 * c];
+          for (int c = 0; c < C; ++c)
             r0 = head[c] == k ? r0 + hq[c] * gv[c] : r0;
-          }
-          const float q0 = warp_sum(r0);
-          head_terms(k, q0, warp_sum(p0));
+          head_terms(k, warp_sum(r0));
         }
         __syncwarp();
         float v[C];
@@ -472,10 +382,9 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
 #pragma unroll
         for (int k = 0; k < kMaxHeads; ++k) {
           draw[k] = coef[k] = 0.f;
-          if (k < nh) {
-            float hg;
-            const float raw = head_dot<C, true>(hv, live, head, sa, k, d_feat,
-                                                lane, gv, hg, r_rows) + sd[k];
+          if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
+            const float hg = head_dot<C>(hv, live, head, k, gv, r_rows);
+            const float raw = sv[k] + sd[k];
             const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
             float ex;
             if constexpr (kTwo) {
@@ -647,39 +556,33 @@ int check_shape(int d_feat, int nh, int nblk) {
              : (int)cudaSuccess;
 }
 
-// One forward launch in MODE, then (kSweep1, kCap) the cap reduce.
-template <Fwd MODE, typename T>
-int launch_v5_forward(const T* h, const float* a_src, const float* s_dst,
+// One forward launch over the plan (wide, vec, per_lane, lanes, unroll),
+// then, in the sweep-1 mode, the cap reduce.
+template <typename T>
+int launch_v5_forward(const T* h, const float* s_src, const float* s_dst,
                       const float* drop, const int* senders,
                       const int* row_ptr, int n, int e_real, int d_feat,
-                      int nh, int f, float slope, float eps,
+                      int nh, int f, float slope, float eps, bool two_phase,
                       const float* cap_in, float* num, float* den,
                       float* blk_max, int* blk_code, float* cap, int* code,
-                      int nblk, int flags, void* stream) {
-  int bad = check_shape(d_feat, nh, nblk);
-  if (bad) return bad;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)d_feat * nh * sizeof(float);
-  const int c_need = (d_feat + 31) / 32;
-  cudaError_t err = cudaSuccess;
-#define V5_FWD(CC)                                                        \
-  err = set_smem(v5_fwd_kernel<CC, MODE, T>, smem);                       \
-  if (err == cudaSuccess)                                                 \
-    v5_fwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(          \
-        h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f, \
-        slope, eps, flags, cap_in, num, den, blk_max, blk_code);
-  ROWS_DISPATCH(V5_FWD)
-#undef V5_FWD
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess || MODE == Fwd::kTwoPhase) return (int)err;
-  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(blk_max, blk_code, nblk, cap,
-                                               code);
-  return (int)cudaGetLastError();
+                      int wide, int vec, int per_lane, int lanes,
+                      int unroll, int nblk, int flags, void* stream) {
+  const FwdArgs<T> a{h,      s_src, s_dst, drop,      senders, nullptr,
+                     row_ptr, n,     e_real, d_feat,  nh,      f,
+                     lanes,   slope, eps,   flags,     two_phase, cap_in,
+                     num,     den,   blk_max, blk_code};
+  return launch_attention_fwd<true, 8>(
+      a, wide, vec, per_lane, unroll, nblk, cap, code, (cudaStream_t)stream,
+      [](auto w, auto v, auto c, auto u, auto r) {
+        return &v5_fwd_kernel<decltype(w)::value != 0, decltype(v)::value,
+                              decltype(c)::value, decltype(u)::value,
+                              decltype(r)::value != 0, T>;
+      });
 }
 
 template <Bwd MODE, typename T>
-int launch_v5_backward(const T* h, const float* a_src, const float* s_dst,
+int launch_v5_backward(const T* h, const float* a_src, const float* s_src,
+                       const float* s_dst,
                        const float* drop, const int* senders,
                        const int* row_ptr, int n, int e_real, int d_feat,
                        int nh, int f, float slope, float eps, const float* g,
@@ -704,8 +607,9 @@ int launch_v5_backward(const T* h, const float* a_src, const float* s_dst,
     err = set_smem(v5_bwd_kernel<CC, MODE, T>, smem);                       \
     if (err == cudaSuccess)                                                 \
       v5_bwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(          \
-          h, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh,   \
-          f, slope, eps, flags, g, out, den, epsp, cap_in, d_h_rows,        \
+          h, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real,        \
+          d_feat, nh, f, slope, eps, flags, g, out, den, epsp, cap_in,      \
+          d_h_rows,                                                         \
           d_drop, d_sdst, dasrc_part, draw);                                \
   }
   ROWS_DISPATCH(V5_BWD)
@@ -727,48 +631,65 @@ extern "C" {
 // Every entry: h is float32, or bfloat16 where flags has kBf16Table; flags
 // is the bfloat16 mode's word (attention_common.cuh), 0 for float32.
 
-// Forward: num (n, d_feat), den (n, nh), cap (1,), code (1,).
-// blk_max / blk_code are (nblk,) scratch. drop may be NULL.
-int v5_forward(const void* h, const float* a_src, const float* s_dst,
-               const float* drop, const int* senders, const int* row_ptr,
-               int n, int e_real, int d_feat, int nh, int f, float slope,
-               float* num, float* den, float* blk_max, int* blk_code,
-               float* cap, int* code, int nblk, int flags, void* stream) {
+// The source-score table s_src (n_src, nh) = h @ a_src, float32, over
+// the plan (vec, per_lane, lanes) of v5_attention.score_plan; a_src
+// (d_feat, nh). The windowed op's wrappers call this entry too.
+int source_scores(const void* h, const float* a_src, int n_src, int d_feat,
+                  int nh, int vec, int per_lane, int lanes, float* s_src,
+                  int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
-    return launch_v5_forward<Fwd::kSweep1>(
-        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-        slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
-        flags, stream);
+    return launch_source_scores(hp, a_src, n_src, d_feat, nh, vec, per_lane,
+                                lanes, s_src, nblk, (cudaStream_t)stream);
   });
 }
 
-// The 2-phase cap pass: cap (1,) = max raw over the real edges and heads,
-// code (1,) = its lowest e*nh + k; blk_max / blk_code are (nblk,) scratch.
-int v5_cap(const void* h, const float* a_src, const float* s_dst,
-           const int* senders, const int* row_ptr, int n, int e_real,
-           int d_feat, int nh, int f, float* blk_max, int* blk_code,
-           float* cap, int* code, int nblk, int flags, void* stream) {
+// Every forward takes the lane plan (wide, vec, per_lane, lanes, unroll)
+// of v5_attention.lane_plan and the source-score table s_src (n_src, nh).
+
+// Forward: num (n, d_feat), den (n, nh), cap (1,), code (1,).
+// blk_max / blk_code are (nblk,) scratch. drop may be NULL.
+int v5_forward(const void* h, const float* s_src, const float* s_dst,
+               const float* drop, const int* senders, const int* row_ptr,
+               int n, int e_real, int d_feat, int nh, int f, float slope,
+               float* num, float* den, float* blk_max, int* blk_code,
+               float* cap, int* code, int wide, int vec, int per_lane,
+               int lanes, int unroll, int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
-    return launch_v5_forward<Fwd::kCap>(
-        hp, a_src, s_dst, nullptr, senders, row_ptr, n, e_real, d_feat, nh,
-        f, 0.f, 0.f, nullptr, nullptr, nullptr, blk_max, blk_code, cap, code,
-        nblk, flags, stream);
+    return launch_v5_forward(hp, s_src, s_dst, drop, senders, row_ptr, n,
+                             e_real, d_feat, nh, f, slope, 0.f, false,
+                             nullptr, num, den, blk_max, blk_code, cap, code,
+                             wide, vec, per_lane, lanes, unroll, nblk, flags,
+                             stream);
   });
+}
+
+// The 2-phase cap pass, a stream over the real edges' scores: cap (1,) =
+// max of s_src[senders[e], k] + s_dst[receivers[e], k] over e < e_real and
+// the heads, code (1,) = its lowest e*nh + k; blk_max / blk_code are
+// (nblk,) scratch. No h row is read, so the entry takes no flags.
+int v5_cap(const float* s_src, const float* s_dst, const int* senders,
+           const int* receivers, int e_real, int nh, float* blk_max,
+           int* blk_code, float* cap, int* code, int nblk, void* stream) {
+  return launch_cap_stream(s_src, s_dst, senders, receivers, e_real, nh,
+                           blk_max, blk_code, cap, code, nblk, stream);
 }
 
 // The 2-phase forward: out (n, d_feat) normalised, den (n, nh), from the
 // cap at `cap` (device memory). drop may be NULL.
-int v5_forward_two_phase(const void* h, const float* a_src,
+int v5_forward_two_phase(const void* h, const float* s_src,
                          const float* s_dst, const float* cap,
                          const float* drop, const int* senders,
                          const int* row_ptr, int n, int e_real, int d_feat,
                          int nh, int f, float eps, float slope, float* out,
-                         float* den, int nblk, int flags, void* stream) {
+                         float* den, int wide, int vec, int per_lane,
+                         int lanes, int unroll, int nblk, int flags,
+                         void* stream) {
   return with_table(h, flags, [&](auto hp) {
-    return launch_v5_forward<Fwd::kTwoPhase>(
-        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-        slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
-        flags, stream);
+    return launch_v5_forward(hp, s_src, s_dst, drop, senders, row_ptr, n,
+                             e_real, d_feat, nh, f, slope, eps, true, cap,
+                             out, den, nullptr, nullptr, nullptr, nullptr,
+                             wide, vec, per_lane, lanes, unroll, nblk, flags,
+                             stream);
   });
 }
 
@@ -778,8 +699,9 @@ int v5_forward_two_phase(const void* h, const float* a_src,
 // the device. The wide form (d_feat > 256) takes draw (E, nh) and writes
 // each edge's d(raw) there in place of d_asrc, which v5_dasrc then
 // computes from it (draw is NULL at d_feat <= 256).
-int v5_backward(const void* h, const float* a_src, const float* s_dst,
-                const float* drop, const int* senders, const int* row_ptr,
+int v5_backward(const void* h, const float* a_src, const float* s_src,
+                const float* s_dst, const float* drop, const int* senders,
+                const int* row_ptr,
                 int n, int e_real, int d_feat, int nh, int f, float slope,
                 const float* g, const float* out, const float* den,
                 const float* epsp, float* d_h_rows, float* d_drop,
@@ -787,15 +709,16 @@ int v5_backward(const void* h, const float* a_src, const float* s_dst,
                 int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_v5_backward<Bwd::kNorm>(
-        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-        slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
-        dasrc_part, d_asrc, draw, nblk, flags, stream);
+        hp, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat,
+        nh, f, slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop,
+        d_sdst, dasrc_part, d_asrc, draw, nblk, flags, stream);
   });
 }
 
 // Backward, parts mode: the same outputs from the raw cotangents d_num
 // (n, d_feat) and d_den (n, nh) of the unnormalised parts.
-int v5_backward_parts(const void* h, const float* a_src, const float* s_dst,
+int v5_backward_parts(const void* h, const float* a_src,
+                      const float* s_src, const float* s_dst,
                       const float* drop, const int* senders,
                       const int* row_ptr, int n, int e_real, int d_feat,
                       int nh, int f, float slope, const float* d_num,
@@ -804,9 +727,10 @@ int v5_backward_parts(const void* h, const float* a_src, const float* s_dst,
                       float* draw, int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_v5_backward<Bwd::kParts>(
-        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-        slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows,
-        d_drop, d_sdst, dasrc_part, d_asrc, draw, nblk, flags, stream);
+        hp, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat,
+        nh, f, slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr,
+        d_h_rows, d_drop, d_sdst, dasrc_part, d_asrc, draw, nblk, flags,
+        stream);
   });
 }
 
@@ -816,8 +740,9 @@ int v5_backward_parts(const void* h, const float* a_src, const float* s_dst,
 // wide form writes draw as v5_backward's, and each block's -sum d(raw) in
 // the last column of dasrc_part, for v5_dasrc.
 int v5_backward_two_phase(const void* h, const float* a_src,
-                          const float* s_dst, const float* cap,
-                          const float* drop, const int* senders,
+                          const float* s_src, const float* s_dst,
+                          const float* cap, const float* drop,
+                          const int* senders,
                           const int* row_ptr, int n, int e_real, int d_feat,
                           int nh, int f, float eps, float slope,
                           const float* g, const float* out, const float* den,
@@ -826,9 +751,9 @@ int v5_backward_two_phase(const void* h, const float* a_src,
                           int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_v5_backward<Bwd::kTwoPhase>(
-        hp, a_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat, nh, f,
-        slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
-        dasrc_part, d_asrc_cap, draw, nblk, flags, stream);
+        hp, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat,
+        nh, f, slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop,
+        d_sdst, dasrc_part, d_asrc_cap, draw, nblk, flags, stream);
   });
 }
 

@@ -17,14 +17,16 @@
 // tile, sender-sorted within a tile, padded per block to eb slots; a pad
 // slot has recv == -1 and contributes nothing. Per real slot s = (send,
 // recv) and head k:
-//   raw'[s,k] = h[send,:] . a_src[:,k] + s_dst'[recv,k]  (s_dst' B-shifted)
+//   raw'[s,k] = s_src[send,k] + s_dst'[recv,k]  (s_dst' B-shifted)
 //   ex[s,k]   = exp(slope * raw'[s,k])
 //   num[recv, k*f+j] += ex[s,k] * drop[s,k] * h[send, k*f+j]
 //   den[recv, k]     += ex[s,k]                (no dropout mask in den)
 //   cap' = max raw', code = lowest s*nh + k attaining it
-// drop is (E7, nh) in slot order. The normalising epilogue
-// out = num / (den + eps*exp(slope*cap')) and the cap cotangent run in
-// torch. The backward recomputes ex from the same inputs and emits the
+// with s_src = h @ a_src the source-score table (n, nh), written once per
+// op call by the v5 library's source_scores entry (attention_common.cuh
+// source_scores_kernel). drop is (E7, nh) in slot order. The normalising
+// epilogue out = num / (den + eps*exp(slope*cap')) and the cap cotangent
+// run in torch. The backward takes ex from the same table and emits the
 // per-slot d(h) rows (pad rows are left unwritten: the reduction by
 // sender reads real slots only), d(drop) per slot (0 on pad slots),
 // d(s_dst) per destination and d(a_src). Its two modes (the template
@@ -36,14 +38,16 @@
 // slots: window_cap (max raw, lowest slot*nh + k), window_forward_two_phase
 // (exp(leaky(raw - cap)), out = num / (den + eps)), window_backward_two_phase
 // (the full LeakyReLU's derivative and d(cap) = -sum d(raw)); every mode
-// takes raw from head_dot, so the argmax slot has raw - cap == 0 exactly.
+// takes raw from the one score table of its op call, so the argmax slot
+// has raw - cap == 0 exactly.
 // The bfloat16 payload mode (GAT_TPU_V6_DTYPE, the JAX package's default)
 // comes in through the flags word (attention_common.cuh): a bfloat16 h
 // table (kBf16Table) where the JAX kernel packs the window and takes the
 // logits from the rounded rows, else the float32 rows rounded after the
-// logits (kRoundRows); kRoundAcc in the forwards; kRoundPayload,
-// kRoundDh, kRoundDraw and kRoundDsdst in the backwards. The 2-phase d(cap)
-// sums the float32 d(raw), and the cap pass has no such mode.
+// logits (kRoundRows: the table is taken from the float32 rows);
+// kRoundAcc in the forwards; kRoundPayload, kRoundDh, kRoundDraw and
+// kRoundDsdst in the backwards. The 2-phase d(cap) sums the float32
+// d(raw), and the cap pass, a stream over the table, has no such mode.
 //
 // Design. The TPU kernel streams a window of the node table into VMEM per
 // destination tile and gathers from it with one-hot matrix products, per
@@ -53,15 +57,25 @@
 // kernels. What the kernels walk is the layout's slot order through two
 // index arrays computed once with the layout: dst_perm lists the slots by
 // destination (stable, so still sender-sorted within a row, pad slots
-// last) and dst_ptr cuts it into per-row runs. One warp owns one
-// destination row at a time and walks its run in order: it loads the
-// sender's h row (lane l holds features l, l+32, ...), contracts it with
-// a_src (in shared memory) through warp shuffles, and accumulates num/den
-// in registers. Every output row has one writer and a fixed order of
-// sums: no atomics, bitwise reproducible. Pad slots are never visited:
-// dst_ptr[n] is the count of real slots. The cap with its argmax code,
-// d(a_src) and d(cap) go through per-block partials over a fixed grid and
-// an ordered second pass (attention_common.cuh).
+// last) and dst_ptr cuts it into per-row runs; pad slots are never
+// visited: dst_ptr[n] is the count of real slots. The forward
+// (window_fwd_kernel) is the v5 op's (attention_fwd_wide and
+// attention_fwd_narrow of attention_common.cuh) over these runs: a batch's
+// positions are read together, so dst_perm[i], then send[slot], the score
+// and drop[slot, :] come as one batch of independent loads, not one
+// dependent chain a slot; each (slot, head)'s exp is taken once and handed
+// out by shuffles; a lane's vector belongs to one head, or is tested per
+// element where a head starts mid-vector (Pubmed's 8 x 3); lanes are
+// grouped to fit the row (at 8 x 8, teams of 16 lanes with float4 loads,
+// two slots at once). The cap pass is the v5 op's stream over the real
+// slots' scores (cap_stream_kernel). The backward has one warp own one
+// destination row at a time and walk its run in order: it loads the
+// sender's h row (lane l holds features l, l+32, ...), reduces q = h . g
+// per head through warp shuffles, takes raw from the table, and
+// accumulates d(a_src) in registers. Every output row has one writer and
+// a fixed order of sums: no atomics, bitwise reproducible. The cap with
+// its argmax code, d(a_src) and d(cap) go through per-block partials over
+// a fixed grid and an ordered second pass (attention_common.cuh).
 //
 // What the layout can buy on this card is locality: the warps of the grid
 // work on neighbouring destination rows at the same time, whose senders
@@ -72,128 +86,26 @@
 //
 // What bounds it on the H100: by bytes, the h table, the slot arrays, the
 // dropout mask and the outputs, a few MB at Pubmed size (microseconds at
-// 3.35 TB/s). As written it is bound by latency instead: each warp walks
-// its slots one after another, and every slot is a dependent chain (slot
-// index, sender index, row gather, nh warp reductions). Staging a tile's
-// sender window in shared memory with TMA, and narrower lane groups per
-// row for the 64- and 24-wide rows of Pubmed, are the next steps
-// (PERF.md).
+// 3.35 TB/s). Pubmed averages 5.5 real slots a destination, so a
+// destination is one or two batches: three dependent loads (position,
+// sender and score, row) and a few shuffles each, besides the launches of
+// the score pass and, in the 2-phase form, of the cap stream and its
+// reduce.
 
 #include "attention_common.cuh"
 
 namespace {
 
-// MODE as v5_fwd_kernel's (v5_attention.cu): kSweep1, kCap, kTwoPhase.
-template <int C, Fwd MODE, typename T>
+// The forward in both its modes over the layout's per-destination runs
+// (FwdArgs.perm = dst_perm): the kernel of v5_fwd_kernel
+// (v5_attention.cu).
+template <bool WIDE, int V, int C, int U, bool RACC, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-window_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
-                  const float* __restrict__ s_dst,
-                  const float* __restrict__ drop, const int* __restrict__ send,
-                  const int* __restrict__ dst_perm,
-                  const int* __restrict__ dst_ptr, int n, int d_feat, int nh,
-                  int f, float slope, float eps, int flags,
-                  const float* __restrict__ cap_in, float* __restrict__ num,
-                  float* __restrict__ den, float* __restrict__ blk_max,
-                  int* __restrict__ blk_code) {
-  extern __shared__ float sa[];  // a_src transposed, (nh, d_feat)
-  __shared__ float wmax[kWarps];
-  __shared__ int wcode[kWarps];
-  for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x)
-    sa[(i % nh) * d_feat + i / nh] = a_src[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int head[C];
-  bool live[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int j = lane + 32 * c;
-    live[c] = j < d_feat;
-    head[c] = live[c] ? j / f : 0;
-  }
-  float vmax = -INFINITY;
-  int vcode = INT_MAX;
-  float cap = 0.f;
-  if constexpr (MODE == Fwd::kTwoPhase) cap = *cap_in;
-  const bool r_rows = flags & kRoundRows, r_acc = flags & kRoundAcc;
-
-  for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
-    float sd[kMaxHeads], dsum[kMaxHeads], acc[C];
-#pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k) {
-      sd[k] = k < nh ? s_dst[(size_t)d * nh + k] : 0.f;
-      dsum[k] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-
-    const int lo = dst_ptr[d], hi = dst_ptr[d + 1];  // real slots only
-    for (int i = lo; i < hi; ++i) {
-      const int slot = dst_perm[i];
-      const T* hrow = h + (size_t)send[slot] * d_feat;
-      float hv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
-      float ex[kMaxHeads];
-#pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) {
-        ex[k] = 0.f;
-        if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
-          float unused;
-          const float raw = head_dot<C, false>(hv, live, head, sa, k, d_feat,
-                                               lane, hv, unused) + sd[k];
-          if constexpr (MODE == Fwd::kTwoPhase) {
-            ex[k] = expf(leaky(raw - cap, slope));
-          } else {
-            take_max(vmax, vcode, raw, slot * nh + k);
-            if constexpr (MODE == Fwd::kSweep1) ex[k] = expf(slope * raw);
-          }
-          dsum[k] += round_if(ex[k], r_acc);
-        }
-      }
-      if constexpr (MODE != Fwd::kCap) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (!live[c]) continue;
-          float w = select_head(ex, head[c]);
-          if (drop) w *= drop[(size_t)slot * nh + head[c]];
-          acc[c] += round_if(w * round_if(hv[c], r_rows), r_acc);
-        }
-      }
-    }
-    if constexpr (MODE != Fwd::kCap) {
-      float inv[kMaxHeads];
-#pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) {
-        inv[k] = 1.f;
-        if constexpr (MODE == Fwd::kTwoPhase)
-          inv[k] = dsum[k] > 0.f ? 1.f / (dsum[k] + eps) : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (!live[c]) continue;
-        float v = acc[c];
-        if constexpr (MODE == Fwd::kTwoPhase) v *= select_head(inv, head[c]);
-        num[(size_t)d * d_feat + lane + 32 * c] = v;
-      }
-      if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
-    }
-  }
-
-  if constexpr (MODE != Fwd::kTwoPhase) {
-    if (lane == 0) {
-      wmax[warp] = vmax;
-      wcode[warp] = vcode;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float m = -INFINITY;
-      int code = INT_MAX;
-      for (int w = 0; w < kWarps; ++w) take_max(m, code, wmax[w], wcode[w]);
-      blk_max[blockIdx.x] = m;
-      blk_code[blockIdx.x] = code;
-    }
+window_fwd_kernel(const FwdArgs<T> a) {
+  if constexpr (WIDE) {
+    attention_fwd_wide<V, C, RACC>(a);  // U = in_flight(C * V)
+  } else {
+    attention_fwd_narrow<V, C, U, RACC>(a);
   }
 }
 
@@ -201,6 +113,7 @@ window_fwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
 template <int C, Bwd MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 window_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
+                  const float* __restrict__ s_src,
                   const float* __restrict__ s_dst,
                   const float* __restrict__ drop, const int* __restrict__ send,
                   const int* __restrict__ dst_perm,
@@ -293,22 +206,44 @@ window_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
     }
 
     const int lo = dst_ptr[d], hi = dst_ptr[d + 1];  // real slots only
-    for (int i = lo; i < hi; ++i) {
-      const int slot = dst_perm[i];
-      float* dhrow = d_h_rows + (size_t)slot * d_feat;
-      const T* hrow = h + (size_t)send[slot] * d_feat;
-      float hv[C];
+    // The next slot's row and scores in flight while this one is reduced
+    // (kPre: up to C = 4 features a lane; beyond, the registers hold
+    // d(a_src) instead); every lane holds every head's score, as in
+    // v5_bwd_kernel.
+    constexpr bool kPre = C <= 4;
+    float hn[C];
+    int sl = 0;
+    float svn[kMaxHeads];  // the scores of the slot's sender
+    auto fetch = [&](int i_) {
+      sl = dst_perm[i_];
+      const int sn = send[sl];
+      const T* nrow = h + (size_t)sn * d_feat;
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        hv[c] = live[c] ? load_h(hrow + lane + 32 * c) : 0.f;
+        hn[c] = live[c] ? load_h(nrow + lane + 32 * c) : 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k)
+        svn[k] = k < nh ? s_src[(size_t)sn * nh + k] : 0.f;
+    };
+    if (kPre && lo < hi) fetch(lo);
+    for (int i = lo; i < hi; ++i) {
+      if constexpr (!kPre) fetch(i);
+      const int slot = sl;
+      float* dhrow = d_h_rows + (size_t)slot * d_feat;
+      float hv[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) hv[c] = hn[c];
+      float sv[kMaxHeads];
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k) sv[k] = svn[k];
+      if (kPre && i + 1 < hi) fetch(i + 1);
       float draw[kMaxHeads], coef[kMaxHeads];
 #pragma unroll
       for (int k = 0; k < kMaxHeads; ++k) {
         draw[k] = coef[k] = 0.f;
-        if (k < nh) {
-          float hg;
-          const float raw = head_dot<C, true>(hv, live, head, sa, k, d_feat,
-                                              lane, gv, hg, r_rows) + sd[k];
+        if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
+          const float hg = head_dot<C>(hv, live, head, k, gv, r_rows);
+          const float raw = sv[k] + sd[k];
           const float m = drop ? drop[(size_t)slot * nh + k] : 1.f;
           float ex;
           if constexpr (kTwo) {
@@ -375,15 +310,20 @@ window_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
 }
 
 // The bfloat16-table library (-DGAT_BF16_TABLE) serves the packed window
-// only, whose rows are nh*f <= 64 wide (one or two features a lane), and
-// has no 2-phase entries (the packed window is a single-sweep form).
+// only, whose rows are nh*f <= 64 wide (one or two features a lane in the
+// backward, a narrow plan of at most 4 elements a lane in the forward),
+// and has no 2-phase entries (the packed window is a single-sweep form).
 #ifdef GAT_BF16_TABLE
 #define WINDOW_DISPATCH(LAUNCH)            \
   if (c_need <= 1) { LAUNCH(1); }          \
   else if (c_need <= 2) { LAUNCH(2); }     \
   else { err = cudaErrorInvalidValue; }
+constexpr bool kWindowWide = false;
+constexpr int kWindowNarrow = 4;
 #else
 #define WINDOW_DISPATCH(LAUNCH) ROWS_DISPATCH(LAUNCH)
+constexpr bool kWindowWide = true;
+constexpr int kWindowNarrow = 8;
 #endif
 
 int check_shape(int d_feat, int nh, int nblk) {
@@ -392,40 +332,36 @@ int check_shape(int d_feat, int nh, int nblk) {
              : (int)cudaSuccess;
 }
 
-template <Fwd MODE, typename T>
-int launch_window_forward(const T* h, const float* a_src,
+// One forward launch over the plan (wide, vec, per_lane, lanes, unroll),
+// then, in the sweep-1 mode, the cap reduce.
+template <typename T>
+int launch_window_forward(const T* h, const float* s_src,
                           const float* s_dst, const float* drop,
                           const int* send, const int* dst_perm,
                           const int* dst_ptr, int n, int d_feat, int nh,
-                          int f, float slope, float eps, const float* cap_in,
-                          float* num, float* den, float* blk_max,
-                          int* blk_code, float* cap, int* code, int nblk,
-                          int flags, void* stream) {
-  int bad = check_shape(d_feat, nh, nblk);
-  if (bad) return bad;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)d_feat * nh * sizeof(float);
-  const int c_need = (d_feat + 31) / 32;
-  cudaError_t err = cudaSuccess;
-#define WINDOW_FWD(CC)                                                     \
-  err = set_smem(window_fwd_kernel<CC, MODE, T>, smem);                    \
-  if (err == cudaSuccess)                                                  \
-    window_fwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(       \
-        h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,  \
-        slope, eps, flags, cap_in, num, den, blk_max, blk_code);
-  WINDOW_DISPATCH(WINDOW_FWD)
-#undef WINDOW_FWD
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess || MODE == Fwd::kTwoPhase) return (int)err;
-  cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(blk_max, blk_code, nblk, cap,
-                                               code);
-  return (int)cudaGetLastError();
+                          int f, float slope, float eps, bool two_phase,
+                          const float* cap_in, float* num, float* den,
+                          float* blk_max, int* blk_code, float* cap,
+                          int* code, int wide, int vec, int per_lane,
+                          int lanes, int unroll, int nblk, int flags,
+                          void* stream) {
+  const FwdArgs<T> a{h,       s_src, s_dst,   drop,    send,      dst_perm,
+                     dst_ptr, n,     INT_MAX, d_feat,  nh,        f,
+                     lanes,   slope, eps,     flags,   two_phase, cap_in,
+                     num,     den,   blk_max, blk_code};
+  return launch_attention_fwd<kWindowWide, kWindowNarrow>(
+      a, wide, vec, per_lane, unroll, nblk, cap, code, (cudaStream_t)stream,
+      [](auto w, auto v, auto c, auto u, auto r) {
+        return &window_fwd_kernel<decltype(w)::value != 0, decltype(v)::value,
+                                  decltype(c)::value, decltype(u)::value,
+                                  decltype(r)::value != 0, T>;
+      });
 }
 
 template <Bwd MODE, typename T>
 int launch_window_backward(const T* h, const float* a_src,
-                           const float* s_dst, const float* drop,
+                           const float* s_src, const float* s_dst,
+                           const float* drop,
                            const int* send, const int* dst_perm,
                            const int* dst_ptr, int n, int e7, int d_feat,
                            int nh, int f, float slope, float eps,
@@ -444,9 +380,9 @@ int launch_window_backward(const T* h, const float* a_src,
   err = set_smem(window_bwd_kernel<CC, MODE, T>, smem);                     \
   if (err == cudaSuccess)                                                   \
     window_bwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(        \
-        h, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,  \
-        f, slope, eps, flags, g, out, den, epsp, cap_in, d_h_rows, d_drop,  \
-        d_sdst, dasrc_part);
+        h, a_src, s_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7,       \
+        d_feat, nh, f, slope, eps, flags, g, out, den, epsp, cap_in,        \
+        d_h_rows, d_drop, d_sdst, dasrc_part);
   WINDOW_DISPATCH(WINDOW_BWD)
 #undef WINDOW_BWD
   if (err != cudaSuccess) return (int)err;
@@ -467,52 +403,58 @@ extern "C" {
 // kBf16Table (the library built with -DGAT_BF16_TABLE, which has
 // window_forward, window_backward and window_backward_parts only); flags
 // is the bfloat16 mode's word (attention_common.cuh), 0 for float32.
+// s_src (n, nh) is the source-score table (the v5 library's
+// source_scores); the forwards take the lane plan (wide, vec, per_lane,
+// lanes, unroll) of v5_attention.lane_plan.
 
 // Forward: num (n, d_feat), den (n, nh), cap (1,), code (1,).
 // send (e7,), dst_perm (e7,), dst_ptr (n + 1,); blk_max / blk_code are
 // (nblk,) scratch. drop (e7, nh) may be NULL.
-int window_forward(const void* h, const float* a_src, const float* s_dst,
+int window_forward(const void* h, const float* s_src, const float* s_dst,
                    const float* drop, const int* send, const int* dst_perm,
                    const int* dst_ptr, int n, int d_feat, int nh, int f,
                    float slope, float* num, float* den, float* blk_max,
-                   int* blk_code, float* cap, int* code, int nblk, int flags,
+                   int* blk_code, float* cap, int* code, int wide, int vec,
+                   int per_lane, int lanes, int unroll, int nblk, int flags,
                    void* stream) {
   return with_table(h, flags, [&](auto hp) {
-    return launch_window_forward<Fwd::kSweep1>(
-        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
-        slope, 0.f, nullptr, num, den, blk_max, blk_code, cap, code, nblk,
-        flags, stream);
+    return launch_window_forward(hp, s_src, s_dst, drop, send, dst_perm,
+                                 dst_ptr, n, d_feat, nh, f, slope, 0.f, false,
+                                 nullptr, num, den, blk_max, blk_code, cap,
+                                 code, wide, vec, per_lane, lanes, unroll,
+                                 nblk, flags, stream);
   });
 }
 
 #ifndef GAT_BF16_TABLE
-// The 2-phase cap pass over the real slots (float32 h): cap (1,), code
-// (1,) = its lowest slot*nh + k; blk_max / blk_code are (nblk,) scratch.
-int window_cap(const float* h, const float* a_src, const float* s_dst,
-               const int* send, const int* dst_perm, const int* dst_ptr,
-               int n, int d_feat, int nh, int f, float* blk_max,
+// The 2-phase cap pass, a stream over the real slots' scores: cap (1,) =
+// max of s_src[send[s], k] + s_dst[recv[s], k] over the slots s < e7 with
+// recv[s] >= 0 and the heads, code (1,) = its lowest s*nh + k; blk_max /
+// blk_code are (nblk,) scratch.
+int window_cap(const float* s_src, const float* s_dst, const int* send,
+               const int* recv, int e7, int nh, float* blk_max,
                int* blk_code, float* cap, int* code, int nblk,
                void* stream) {
-  return launch_window_forward<Fwd::kCap>(
-      h, a_src, s_dst, nullptr, send, dst_perm, dst_ptr, n, d_feat, nh, f,
-      0.f, 0.f, nullptr, nullptr, nullptr, blk_max, blk_code, cap, code,
-      nblk, 0, stream);
+  return launch_cap_stream(s_src, s_dst, send, recv, e7, nh, blk_max,
+                           blk_code, cap, code, nblk, stream);
 }
 
 // The 2-phase forward: out (n, d_feat) normalised, den (n, nh), from the
 // cap at `cap` (device memory). drop (e7, nh) may be NULL.
-int window_forward_two_phase(const void* h, const float* a_src,
+int window_forward_two_phase(const void* h, const float* s_src,
                              const float* s_dst, const float* cap,
                              const float* drop, const int* send,
                              const int* dst_perm, const int* dst_ptr, int n,
                              int d_feat, int nh, int f, float eps,
-                             float slope, float* out, float* den, int nblk,
-                             int flags, void* stream) {
+                             float slope, float* out, float* den, int wide,
+                             int vec, int per_lane, int lanes, int unroll,
+                             int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
-    return launch_window_forward<Fwd::kTwoPhase>(
-        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, d_feat, nh, f,
-        slope, eps, cap, out, den, nullptr, nullptr, nullptr, nullptr, nblk,
-        flags, stream);
+    return launch_window_forward(hp, s_src, s_dst, drop, send, dst_perm,
+                                 dst_ptr, n, d_feat, nh, f, slope, eps, true,
+                                 cap, out, den, nullptr, nullptr, nullptr,
+                                 nullptr, wide, vec, per_lane, lanes, unroll,
+                                 nblk, flags, stream);
   });
 }
 
@@ -522,26 +464,28 @@ int window_forward_two_phase(const void* h, const float* a_src,
 // unwritten), d_drop (e7, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh);
 // dasrc_part is (nblk, d_feat*nh) scratch. epsp points at
 // eps' = eps*exp(slope*cap') on the device.
-int window_backward(const void* h, const float* a_src, const float* s_dst,
-                    const float* drop, const int* send, const int* dst_perm,
-                    const int* dst_ptr, int n, int e7, int d_feat, int nh,
-                    int f, float slope, const float* g, const float* out,
-                    const float* den, const float* epsp, float* d_h_rows,
+int window_backward(const void* h, const float* a_src, const float* s_src,
+                    const float* s_dst, const float* drop, const int* send,
+                    const int* dst_perm, const int* dst_ptr, int n, int e7,
+                    int d_feat, int nh, int f, float slope, const float* g,
+                    const float* out, const float* den, const float* epsp,
+                    float* d_h_rows,
                     float* d_drop, float* d_sdst, float* dasrc_part,
                     float* d_asrc, int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_window_backward<Bwd::kNorm>(
-        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,
-        f, slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop, d_sdst,
-        dasrc_part, d_asrc, nblk, flags, stream);
+        hp, a_src, s_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7,
+        d_feat, nh, f, slope, 0.f, g, out, den, epsp, nullptr, d_h_rows,
+        d_drop, d_sdst, dasrc_part, d_asrc, nblk, flags, stream);
   });
 }
 
 // Backward, parts mode: the same outputs from the raw cotangents d_num
 // (n, d_feat) and d_den (n, nh) of the unnormalised parts.
 int window_backward_parts(const void* h, const float* a_src,
-                          const float* s_dst, const float* drop,
-                          const int* send, const int* dst_perm,
+                          const float* s_src, const float* s_dst,
+                          const float* drop, const int* send,
+                          const int* dst_perm,
                           const int* dst_ptr, int n, int e7, int d_feat,
                           int nh, int f, float slope, const float* d_num,
                           const float* d_den, float* d_h_rows, float* d_drop,
@@ -549,9 +493,9 @@ int window_backward_parts(const void* h, const float* a_src,
                           int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_window_backward<Bwd::kParts>(
-        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,
-        f, slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr, d_h_rows,
-        d_drop, d_sdst, dasrc_part, d_asrc, nblk, flags, stream);
+        hp, a_src, s_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7,
+        d_feat, nh, f, slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr,
+        d_h_rows, d_drop, d_sdst, dasrc_part, d_asrc, nblk, flags, stream);
   });
 }
 
@@ -560,7 +504,8 @@ int window_backward_parts(const void* h, const float* a_src,
 // the cap at `cap` and the plain eps; d_asrc_cap is (d_feat*nh + 1,):
 // d(a_src) then d(cap). dasrc_part is (nblk, d_feat*nh + 1) scratch.
 int window_backward_two_phase(const void* h, const float* a_src,
-                              const float* s_dst, const float* cap,
+                              const float* s_src, const float* s_dst,
+                              const float* cap,
                               const float* drop, const int* send,
                               const int* dst_perm, const int* dst_ptr, int n,
                               int e7, int d_feat, int nh, int f, float eps,
@@ -571,9 +516,9 @@ int window_backward_two_phase(const void* h, const float* a_src,
                               void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_window_backward<Bwd::kTwoPhase>(
-        hp, a_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7, d_feat, nh,
-        f, slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop, d_sdst,
-        dasrc_part, d_asrc_cap, nblk, flags, stream);
+        hp, a_src, s_src, s_dst, drop, send, dst_perm, dst_ptr, n, e7,
+        d_feat, nh, f, slope, eps, g, out, den, nullptr, cap, d_h_rows,
+        d_drop, d_sdst, dasrc_part, d_asrc_cap, nblk, flags, stream);
   });
 }
 #endif  // GAT_BF16_TABLE

@@ -12,6 +12,16 @@ reduction of ops/cuda/segment_sum.py. `v5_forward_plain` and
 256 floats the backward takes its wide form: d(a_src) by sender
 (`dasrc_by_sender`, kernel v5_dasrc) from the per-edge d(raw) rows.
 
+Every kernel here, and every windowed one (window_attention.py), takes
+its raw logit from the source-score table s_src = h @ a_src
+(`source_scores`, kernel source_scores, with `source_scores_plain`),
+s_src[src, k] + s_dst[dst, k]. Each op computes the table once in its
+forward, from the h table its kernels read, hands it to its cap pass
+(the 2-phase forms) and saves it for its backward, so all of them get
+the same bits for an edge's logit: the 2-phase argmax edge meets its cap
+exactly. A stand-alone entry computes the table itself unless given it
+(`s_src=`). The forwards split a row over lanes by `lane_plan`.
+
 The 2-phase form (the JAX package's path under GAT_TPU_V10=0 or
 GAT_TPU_V5_MERGED=0) lives here too: v5_local_cap (:1765, the cap
 pre-pass `_kernel_v5_cap`, kernel entry v5_cap), fused_gat_table (:1029,
@@ -63,14 +73,15 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import segment as seg
 from . import build
 from .build import sender_runs
-from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
+from .rounding import (BF16_TABLE, FLOAT32, Rounding, check_table,
+                       maybe_bf16)
 from .segment_sum import dh_reduce, dh_transposed, segment_sum_sorted_plain
 
 _KERNEL = "v5_attention"
@@ -109,27 +120,192 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
     lib = build.load(name)
     if name not in _configured:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        plan = [i] * 5      # the lane plan (LanePlan)
+        lib.source_scores.argtypes = [p] * 2 + [i] * 6 + [p, i, i, p]
+        lib.source_scores.restype = ctypes.c_int
         lib.v5_forward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 6
-                                   + [i, i, p])
+                                   + plan + [i, i, p])
         lib.v5_forward.restype = ctypes.c_int
-        lib.v5_backward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 10
+        lib.v5_backward.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 10
                                     + [i, i, p])
         lib.v5_backward.restype = ctypes.c_int
-        lib.v5_backward_parts.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 8
+        lib.v5_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 8
                                           + [i, i, p])
         lib.v5_backward_parts.restype = ctypes.c_int
-        lib.v5_cap.argtypes = [p] * 5 + [i] * 5 + [p] * 4 + [i, i, p]
+        lib.v5_cap.argtypes = [p] * 4 + [i] * 2 + [p] * 4 + [i, p]
         lib.v5_cap.restype = ctypes.c_int
         lib.v5_forward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
-                                             + [p] * 2 + [i, i, p])
+                                             + [p] * 2 + plan + [i, i, p])
         lib.v5_forward_two_phase.restype = ctypes.c_int
-        lib.v5_backward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
+        lib.v5_backward_two_phase.argtypes = ([p] * 8 + [i] * 5 + [fl] * 2
                                               + [p] * 9 + [i, i, p])
         lib.v5_backward_two_phase.restype = ctypes.c_int
         lib.v5_dasrc.argtypes = [p] * 4 + [i] * 3 + [p, i, p, i, i, p]
         lib.v5_dasrc.restype = ctypes.c_int
         _configured.add(name)
     return lib
+
+
+# -- lane plans -------------------------------------------------------------
+#
+# How the forward kernels and the source-score pass split a row over lanes
+# (csrc/attention_common.cuh). The kernels check a plan and refuse one that
+# does not cover the row; the CPU tests check what a plan covers.
+
+class LanePlan(NamedTuple):
+    """The forward's split of a row (attention_fwd_wide / _narrow): wide,
+    a block of nh warps a destination, warp k head k, lane l holding the
+    vectors b + vec*(l + 32c) of head k's elements (b: the vector holding
+    its first); else one warp a destination in teams of `lanes` lanes,
+    lane t of a team holding the vectors vec*(t + lanes*c), c < per_lane,
+    of the whole row. unroll: the edges whose rows a warp (wide) or a
+    team (narrow) has in flight."""
+    wide: bool
+    vec: int
+    per_lane: int
+    lanes: int
+    unroll: int
+
+
+class ScorePlan(NamedTuple):
+    """The source-score pass's split of a row: teams of `lanes` lanes,
+    lane t holding the vectors c0 + vec*(t + lanes*c), c < per_lane, of
+    each chunk c0 of lanes*vec*per_lane elements."""
+    vec: int
+    per_lane: int
+    lanes: int
+
+
+def _pow2(x: int) -> int:
+    """The least power of two >= x (x >= 1)."""
+    return 1 << (x - 1).bit_length()
+
+
+def in_flight(elems: int) -> int:
+    """Edges whose rows a lane keeps in flight when it holds `elems`
+    elements of a row (csrc/attention_common.cuh in_flight)."""
+    return 1 if elems >= 32 else 2 if elems >= 16 else 4 if elems >= 8 else 8
+
+
+def lane_plan(nh: int, f: int, align: int = 4) -> LanePlan:
+    """The forward's plan at nh heads of f features, vectors of at most
+    `align` elements (the widest to which the h table and the output are
+    aligned). Wide rows (f >= 32): vectors of 4 where 4 divides f, else of
+    2 where 2 divides the row (heads may start mid-vector: the kernel keeps
+    a neighbouring head's elements out of the stores), else 1; enough
+    vectors a lane to cover a head from its first vector. Narrow rows: the
+    widest vector that divides the row and meets at most two heads
+    (vec <= f + 1; where vec does not divide f the kernel tests each
+    element), and the fewest lanes, a power of two, that cover the row
+    with one vector each, or 32 lanes of several. A narrow team keeps two
+    edges' rows in flight where a batch of 32 // nh edges gives it at most
+    two (fewer registers, more resident warps), else in_flight's."""
+    d = nh * f
+    if f >= 32:
+        vec = (4 if f % 4 == 0 and align >= 4
+               else 2 if d % 2 == 0 and align >= 2 else 1)
+        span = f + vec - 1 if f % vec else f
+        per_lane = _pow2(-(-span // (32 * vec)))
+        return LanePlan(True, vec, per_lane, 32, in_flight(vec * per_lane))
+    vec = next(v for v in (4, 2, 1)
+               if v <= align and d % v == 0 and (f % v == 0 or v <= f + 1))
+    nvec = d // vec
+    per_lane, lanes = ((1, _pow2(nvec)) if nvec <= 32
+                       else (_pow2(-(-nvec // 32)), 32))
+    teams = 32 // lanes
+    few = -(-(32 // nh) // teams) <= 2     # a team's edges a batch
+    return LanePlan(False, vec, per_lane, lanes,
+                    2 if few else in_flight(vec * per_lane))
+
+
+def score_plan(d: int, align: int = 4) -> ScorePlan:
+    """The source-score pass's plan at rows of d elements: the widest
+    vector (of at most `align`) that divides the row, the fewest lanes
+    (a power of two, at most 32) that give each a vector, and up to 8
+    vectors a lane."""
+    vec = next(v for v in (4, 2, 1) if v <= align and d % v == 0)
+    nvec = d // vec
+    lanes = min(32, _pow2(nvec))
+    return ScorePlan(vec, min(8, _pow2(-(-nvec // lanes))), lanes)
+
+
+def align_of(t: torch.Tensor) -> int:
+    """The widest vector (4, 2 or 1 elements) to which t's start is
+    aligned."""
+    b = t.element_size()
+    return next(v for v in (4, 2, 1) if t.data_ptr() % (v * b) == 0)
+
+
+def forward_blocks(plan: LanePlan, n: int) -> int:
+    """The forward's grid: a block a destination (wide, up to 16 blocks of
+    nh warps an SM of the 132), or eight destinations a block (narrow, up
+    to eight blocks an SM); destinations past it are taken in turn."""
+    if plan.wide:
+        return max(1, min(n, 16 * 132))
+    return max(1, min(-(-n // build.WARPS_PER_BLOCK), 8 * 132))
+
+
+# -- the source-score pass --------------------------------------------------
+
+def source_scores_plain(h, a_src):
+    """s_src = h @ a_src (n_src, nh) in float32, from the table as the
+    kernels read it (a bfloat16 table widened)."""
+    return h.float() @ a_src
+
+
+def _source_scores_cuda(h, a_src):
+    dev = h.device
+    n_src, d = h.shape if h.dim() == 2 else (-1, -1)
+    build.require(h, "h", dev, h.dtype, (None, None))
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"h: dtype {h.dtype}, expected float32 or bfloat16")
+    build.require(a_src, "a_src", dev, torch.float32, (d, None))
+    nh = a_src.shape[1]
+    if not 1 <= nh <= MAX_HEADS or not 1 <= d <= 1024:
+        raise ValueError(f"{nh} heads, row width {d}: the kernel takes "
+                         f"1..{MAX_HEADS} heads and rows of 1..1024")
+    plan = score_plan(d, align_of(h))
+    s_src = torch.empty((n_src, nh), dtype=torch.float32, device=dev)
+    teams = 256 // plan.lanes
+    nblk = max(1, min(-(-n_src // teams), 8 * 132))
+    bf16 = h.dtype == torch.bfloat16
+    with torch.cuda.device(dev):
+        err = _lib(bf16).source_scores(
+            build.ptr(h), build.ptr(a_src), n_src, d, nh, *plan,
+            build.ptr(s_src), nblk, BF16_TABLE if bf16 else 0,
+            build.stream(dev))
+    build.check(err, "source_scores")
+    build.LAUNCHES["source_scores_bf16" if bf16 else "source_scores"] += 1
+    return s_src
+
+
+def source_scores(h, a_src):
+    """The source-score table s_src = h @ a_src (n_src, nh), float32: the
+    sender's half of every raw logit, s_src[src, k] + s_dst[dst, k], which
+    every v5 and windowed kernel reads. h is the table the kernels read
+    (float32, or bfloat16 in the table mode). Kernel on CUDA tensors
+    (counted as "source_scores", "source_scores_bf16" for a bfloat16
+    table), plain version on CPU tensors. Not differentiable: the ops'
+    backwards give h and a_src their gradients."""
+    if h.is_cuda:
+        return _source_scores_cuda(h, a_src)
+    build.require_cpu(h)
+    return source_scores_plain(h, a_src)
+
+
+def check_scores(s_src, h, nh: int):
+    """Raise unless s_src is a contiguous float32 (rows of h, nh) table on
+    h's device."""
+    build.require(s_src, "s_src", h.device, torch.float32,
+                  (h.shape[0], nh))
+
+
+def scores_of(h, a_src, s_src=None):
+    """The caller's table, checked, or one computed now."""
+    if s_src is None:
+        return source_scores(h, a_src)
+    check_scores(s_src, h, a_src.shape[1])
+    return s_src
 
 
 # -- plain versions (CPU tensors) -------------------------------------------
@@ -139,14 +315,20 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
 # marks the slots that are edges, and an `rcv` >= N (a slot that is none)
 # is dropped from every sum. ops/cuda/window_attention.py runs them over
 # its layout's slots. Each takes the kernel's rounding policy; h is the
-# table the kernel reads (bfloat16 in the table mode).
+# table the kernel reads (bfloat16 in the table mode). Each takes the raw
+# logit from the source-score table s_src, as the kernels do: the
+# caller's, or source_scores_plain(h, a_src) where it gives none.
 
-def _edge_logits(h, a_src, s_dst_eff, snd, rcv, rows: bool = False):
-    """(gathered rows, raw logits, clamped receivers): the logits from
-    the rows as gathered, the rows rounded after that where `rows`."""
+def _edge_logits(h, a_src, s_dst_eff, snd, rcv, rows: bool = False,
+                 s_src=None):
+    """(gathered rows, raw logits, clamped receivers): the logits
+    s_src[snd] + s_dst[rcv], the rows rounded where `rows` (the logits
+    read the table before)."""
+    if s_src is None:
+        s_src = source_scores_plain(h, a_src)
     h_e = h.float().index_select(0, snd)
     rcv_in = rcv.clamp(max=s_dst_eff.shape[0] - 1)
-    raw = h_e @ a_src + s_dst_eff.index_select(0, rcv_in)
+    raw = s_src.index_select(0, snd) + s_dst_eff.index_select(0, rcv_in)
     return maybe_bf16(h_e, rows), raw, rcv_in
 
 
@@ -168,11 +350,13 @@ def _aggregate(h_e, w, rcv, n: int, nh: int, acc: bool = False):
 
 
 def attention_forward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
-                            slope: float, rounding: Rounding = FLOAT32):
+                            slope: float, rounding: Rounding = FLOAT32,
+                            s_src=None):
     """(num (N, D), den (N, nh), cap' (), code () int32) of the module doc,
     the code counting slots in the order given."""
     n, nh = s_dst_eff.shape
-    h_e, raw, _ = _edge_logits(h, a_src, s_dst_eff, snd, rcv, rounding.rows)
+    h_e, raw, _ = _edge_logits(h, a_src, s_dst_eff, snd, rcv, rounding.rows,
+                               s_src)
     cap, code = _cap_of(raw, valid)
     ex = torch.where(valid, torch.exp(slope * raw), torch.zeros_like(raw))
     num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh,
@@ -181,11 +365,13 @@ def attention_forward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
         cap, code
 
 
-def attention_cap_plain(h, a_src, s_dst, snd, rcv, valid):
-    """(cap (), code () int32): the max raw logit over the slots that are
-    edges and its lowest slot*nh + head (the 2-phase cap pass; a bfloat16
-    h is the table mode's rounded table)."""
-    return _cap_of(_edge_logits(h, a_src, s_dst, snd, rcv)[1], valid)
+def attention_cap_plain(s_src, s_dst, snd, rcv, valid):
+    """(cap (), code () int32): the max raw logit s_src[snd] + s_dst[rcv]
+    over the slots that are edges and its lowest slot*nh + head (the
+    2-phase cap pass, a stream over the score tables)."""
+    rcv_in = rcv.clamp(max=s_dst.shape[0] - 1)
+    return _cap_of(s_src.index_select(0, snd)
+                   + s_dst.index_select(0, rcv_in), valid)
 
 
 def _two_phase_ex(raw, cap, valid, slope: float):
@@ -202,12 +388,14 @@ def _safe_inverse(den, eps):
 
 def attention_forward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
                                       valid, eps: float, slope: float,
-                                      rounding: Rounding = FLOAT32):
+                                      rounding: Rounding = FLOAT32,
+                                      s_src=None):
     """(out (N, D) = num / (den + eps), 0 where den == 0; den (N, nh)) of
     the 2-phase forward, from the given cap."""
     n, nh = s_dst.shape
     d = h.shape[1]
-    h_e, raw, _ = _edge_logits(h, a_src, s_dst, snd, rcv, rounding.rows)
+    h_e, raw, _ = _edge_logits(h, a_src, s_dst, snd, rcv, rounding.rows,
+                               s_src)
     _, ex = _two_phase_ex(raw, cap, valid, slope)
     num = _aggregate(h_e, ex if drop is None else ex * drop, rcv, n, nh,
                      rounding.acc)
@@ -219,20 +407,21 @@ def attention_forward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
 def attention_backward_two_phase_plain(h, a_src, s_dst, cap, drop, snd, rcv,
                                        valid, eps: float, slope: float, g,
                                        out, den, need_drop: bool,
-                                       rounding: Rounding = FLOAT32):
+                                       rounding: Rounding = FLOAT32,
+                                       s_src=None):
     """(d_h rows (E, D) in slot order, d_drop (E, nh) | None, d_s_dst
     (N, nh), d_a_src (D, nh), d_cap ()) of the 2-phase op: d(pre) takes
     the slope where pre <= 0, d(raw) = d(pre), d(cap) = -sum d(raw)."""
     return attention_backward_plain(h, a_src, s_dst, drop, snd, rcv, valid,
                                     slope, g, out, den, eps, need_drop,
-                                    cap=cap, rounding=rounding)
+                                    cap=cap, rounding=rounding, s_src=s_src)
 
 
 def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
                              slope: float, g, out, den, epsp,
                              need_drop: bool, normalize: bool = True,
                              cap=None, rounding: Rounding = FLOAT32,
-                             with_draw: bool = False):
+                             with_draw: bool = False, s_src=None):
     """(d_h rows (E, D) in slot order, d_drop (E, nh) | None,
     d_s_dst (N, nh), d_a_src (D, nh)) of the op before the cap chain;
     the rows of slots that are no edges are 0.
@@ -249,7 +438,8 @@ def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
     e, d = snd.shape[0], h.shape[1]
     f = d // nh
     r = rounding
-    h_e, raw, rcv_in = _edge_logits(h, a_src, s_dst_eff, snd, rcv, r.rows)
+    h_e, raw, rcv_in = _edge_logits(h, a_src, s_dst_eff, snd, rcv, r.rows,
+                                    s_src)
     if normalize:
         inv = _safe_inverse(den, epsp)
         d_den = -(out * g).view(n, nh, f).sum(2) * inv
@@ -291,50 +481,58 @@ def _real_prefix(senders, receivers, e_real):
 
 def v5_forward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
                      e_real: int, slope: float,
-                     rounding: Rounding = FLOAT32):
+                     rounding: Rounding = FLOAT32, s_src=None):
     """(num, den, cap', code) over the dst-sorted edges e < e_real."""
     return attention_forward_plain(
         h, a_src, s_dst_eff, drop,
-        *_real_prefix(senders, receivers, e_real), slope, rounding)
+        *_real_prefix(senders, receivers, e_real), slope, rounding, s_src)
 
 
 def v5_backward_plain(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
                       need_drop: bool, normalize: bool = True,
-                      rounding: Rounding = FLOAT32, with_draw: bool = False):
+                      rounding: Rounding = FLOAT32, with_draw: bool = False,
+                      s_src=None):
     """(d_h rows in dst order, d_drop, d_s_dst, d_a_src); normalize=False
     and with_draw as attention_backward_plain takes them."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop,
         *_real_prefix(senders, receivers, e_real), slope, g, out, den,
-        epsp, need_drop, normalize, rounding=rounding, with_draw=with_draw)
+        epsp, need_drop, normalize, rounding=rounding, with_draw=with_draw,
+        s_src=s_src)
 
 
-def v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real: int):
-    """(cap, code) over the dst-sorted edges e < e_real."""
-    return attention_cap_plain(h, a_src, s_dst,
+def v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real: int,
+                 s_src=None):
+    """(cap, code) over the dst-sorted edges e < e_real, from the table
+    s_src (source_scores_plain(h, a_src) where None)."""
+    if s_src is None:
+        s_src = source_scores_plain(h, a_src)
+    return attention_cap_plain(s_src, s_dst,
                                *_real_prefix(senders, receivers, e_real))
 
 
 def v5_forward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
                                receivers, e_real: int, eps: float,
-                               slope: float, rounding: Rounding = FLOAT32):
+                               slope: float, rounding: Rounding = FLOAT32,
+                               s_src=None):
     """(out, den) of the 2-phase forward over the edges e < e_real."""
     return attention_forward_two_phase_plain(
         h, a_src, s_dst, cap, drop,
-        *_real_prefix(senders, receivers, e_real), eps, slope, rounding)
+        *_real_prefix(senders, receivers, e_real), eps, slope, rounding,
+        s_src)
 
 
 def v5_backward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
                                 slope: float, g, out, den, need_drop: bool,
                                 rounding: Rounding = FLOAT32,
-                                with_draw: bool = False):
+                                with_draw: bool = False, s_src=None):
     """(d_h rows in dst order, d_drop, d_s_dst, d_a_src, d_cap[, draw])."""
     return attention_backward_plain(
         h, a_src, s_dst, drop, *_real_prefix(senders, receivers, e_real),
         slope, g, out, den, eps, need_drop, cap=cap, rounding=rounding,
-        with_draw=with_draw)
+        with_draw=with_draw, s_src=s_src)
 
 
 # -- the wide backward's d(a_src), by sender ----------------------------------
@@ -433,16 +631,28 @@ def _check_inputs(h, a_src, s_dst_eff, drop, senders, receivers, e_real,
     return dev, s_dst_eff.shape[0], e, d, nh
 
 
+def plan_of(h, out, nh: int, f: int) -> LanePlan:
+    """The forward's lane plan for the h table and the output `out`."""
+    return lane_plan(nh, f, min(align_of(h), align_of(out)))
+
+
+def cap_blocks(items: int) -> int:
+    """The cap stream's grid over `items` (slot, head) scores."""
+    return max(1, min(-(-items // 256), 4 * 132))
+
+
 def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                      e_real: int, slope: float, dst_ptr=None,
-                     rounding: Rounding = FLOAT32):
+                     rounding: Rounding = FLOAT32, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real, rounding)
+    s_src = scores_of(h, a_src, s_src)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
-    nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     num = torch.empty((n, d), **f32)
     den = torch.empty((n, nh), **f32)
+    plan = plan_of(h, num, nh, d // nh)
+    nblk = forward_blocks(plan, n)
     blk_max = torch.empty((nblk,), **f32)
     blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
     cap = torch.empty((), **f32)
@@ -451,10 +661,10 @@ def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     lib = _lib(rounding.table)
     with torch.cuda.device(dev):
         err = lib.v5_forward(
-            p(h), p(a_src), p(s_dst_eff), p(drop), p(senders), p(row_ptr),
+            p(h), p(s_src), p(s_dst_eff), p(drop), p(senders), p(row_ptr),
             n, e_real, d, nh, d // nh, slope,
             p(num), p(den), p(blk_max), p(blk_code), p(cap), p(code),
-            nblk, rounding.flags(), build.stream(dev))
+            *plan, nblk, rounding.flags(), build.stream(dev))
     build.check(err, "v5_forward")
     build.LAUNCHES[rounding.counter("v5_forward")] += 1
     return num, den, cap, code
@@ -464,7 +674,7 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
                       need_drop: bool, normalize: bool = True, dst_ptr=None,
                       rounding: Rounding = FLOAT32, src_order=None,
-                      src_ptr=None):
+                      src_ptr=None, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
@@ -472,6 +682,7 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     if normalize:
         build.require(out, "out", dev, torch.float32, (n, d))
         build.require(epsp, "epsp", dev, torch.float32, ())
+    s_src = scores_of(h, a_src, s_src)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -483,8 +694,8 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     draw = torch.empty((e, nh), **f32) if wide_form(d) else None
     p = build.ptr
     lib = _lib(rounding.table)
-    graph_args = (p(h), p(a_src), p(s_dst_eff), p(drop), p(senders),
-                  p(row_ptr), n, e_real, d, nh, d // nh, slope)
+    graph_args = (p(h), p(a_src), p(s_src), p(s_dst_eff), p(drop),
+                  p(senders), p(row_ptr), n, e_real, d, nh, d // nh, slope)
     outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc),
                p(draw), nblk, rounding.flags(), build.stream(dev))
     name = "v5_backward" if normalize else "v5_backward_parts"
@@ -504,21 +715,21 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
 
 
 def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
-                 rounding: Rounding = FLOAT32, dst_ptr=None):
+                 rounding: Rounding = FLOAT32, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, None, senders,
                                      receivers, e_real, rounding)
-    row_ptr = build.row_offsets(receivers, n, dst_ptr)
-    nblk = build.grid_blocks(n)
+    s_src = scores_of(h, a_src, s_src)
+    nblk = cap_blocks(e_real * nh)
     blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
     blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
     cap = torch.empty((), dtype=torch.float32, device=dev)
     code = torch.empty((), dtype=torch.int32, device=dev)
     p = build.ptr
     with torch.cuda.device(dev):
-        err = _lib(rounding.table).v5_cap(
-            p(h), p(a_src), p(s_dst), p(senders), p(row_ptr), n, e_real, d,
-            nh, d // nh, p(blk_max), p(blk_code), p(cap), p(code), nblk,
-            rounding.flags(), build.stream(dev))
+        err = _lib().v5_cap(
+            p(s_src), p(s_dst), p(senders), p(receivers), e_real, nh,
+            p(blk_max), p(blk_code), p(cap), p(code), nblk,
+            build.stream(dev))
     build.check(err, "v5_cap")
     build.LAUNCHES[rounding.counter("v5_cap")] += 1
     return cap, code
@@ -527,20 +738,22 @@ def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
 def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                receivers, e_real: int, eps: float,
                                slope: float, rounding: Rounding = FLOAT32,
-                               dst_ptr=None):
+                               dst_ptr=None, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
+    s_src = scores_of(h, a_src, s_src)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
-    nblk = build.grid_blocks(n)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     den = torch.empty((n, nh), dtype=torch.float32, device=dev)
+    plan = plan_of(h, out, nh, d // nh)
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib(rounding.table).v5_forward_two_phase(
-            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(senders),
+            p(h), p(s_src), p(s_dst), p(cap), p(drop), p(senders),
             p(row_ptr), n, e_real, d, nh, d // nh, eps, slope, p(out),
-            p(den), nblk, rounding.flags(), build.stream(dev))
+            p(den), *plan, forward_blocks(plan, n), rounding.flags(),
+            build.stream(dev))
     build.check(err, "v5_forward_two_phase")
     build.LAUNCHES[rounding.counter("v5_forward_two_phase")] += 1
     return out, den
@@ -550,13 +763,14 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
                                 slope: float, g, out, den, need_drop: bool,
                                 rounding: Rounding = FLOAT32, dst_ptr=None,
-                                src_order=None, src_ptr=None):
+                                src_order=None, src_ptr=None, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
     for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
                            (den, "den", (n, nh))):
         build.require(t, name, dev, torch.float32, shape)
+    s_src = scores_of(h, a_src, s_src)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -569,10 +783,10 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib(rounding.table).v5_backward_two_phase(
-            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(senders),
-            p(row_ptr), n, e_real, d, nh, d // nh, eps, slope, p(g), p(out),
-            p(den), p(d_h_rows), p(d_drop), p(d_sdst), p(part),
-            p(d_asrc_cap), p(draw), nblk, rounding.flags(),
+            p(h), p(a_src), p(s_src), p(s_dst), p(cap), p(drop),
+            p(senders), p(row_ptr), n, e_real, d, nh, d // nh, eps, slope,
+            p(g), p(out), p(den), p(d_h_rows), p(d_drop), p(d_sdst),
+            p(part), p(d_asrc_cap), p(draw), nblk, rounding.flags(),
             build.stream(dev))
     build.check(err, "v5_backward_two_phase")
     build.LAUNCHES[rounding.counter("v5_backward_two_phase")] += 1
@@ -586,18 +800,21 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
 
 def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
                e_real: int, slope: float, dst_ptr=None,
-               rounding: Rounding = FLOAT32):
+               rounding: Rounding = FLOAT32, *, s_src=None):
     """Kernel on CUDA tensors, plain version on CPU tensors. dst_ptr: the
     (N + 1,) int32 CSR offsets of `receivers`, where the caller holds
     them; the kernel wrapper computes them otherwise. rounding: the
-    bfloat16 mode (rows, acc; h a bfloat16 table where `table`)."""
+    bfloat16 mode (rows, acc; h a bfloat16 table where `table`). s_src:
+    the source-score table of h (source_scores), where the caller holds
+    it; computed here otherwise (a timed call includes the pass)."""
     if h.is_cuda:
         return _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders,
-                                receivers, e_real, slope, dst_ptr, rounding)
+                                receivers, e_real, slope, dst_ptr, rounding,
+                                s_src)
     build.require_cpu(h)
     return v5_forward_plain(
         h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope,
-        rounding)
+        rounding, scores_of(h, a_src, s_src))
 
 
 def _wide_plain(grads, h, senders, e_real, src_order, src_ptr, rounding):
@@ -614,75 +831,82 @@ def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
                 e_real: int, slope: float, g, out, den, epsp,
                 need_drop: bool, normalize: bool = True, dst_ptr=None,
                 rounding: Rounding = FLOAT32, *, src_order=None,
-                src_ptr=None):
+                src_ptr=None, s_src=None):
     """Kernel on CUDA tensors, plain version on CPU tensors.
     normalize=False is the parts mode (attention_backward_plain says what
     `g` and `den` carry then); it launches the kernel's parts mode and
     counts as "v5_backward_parts". Rows wider than WIDE_D take d(a_src)
     by sender (dasrc_by_sender) on either device: src_order and src_ptr
-    are the real edges' sender runs (sender_runs), derived where None."""
+    are the real edges' sender runs (sender_runs), derived where None.
+    s_src: as v5_forward's."""
     if h.is_cuda:
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
                                  epsp, need_drop, normalize, dst_ptr,
-                                 rounding, src_order, src_ptr)
+                                 rounding, src_order, src_ptr, s_src)
     build.require_cpu(h)
     wide = wide_form(h.shape[1])
     grads = v5_backward_plain(
         h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g,
-        out, den, epsp, need_drop, normalize, rounding, with_draw=wide)
+        out, den, epsp, need_drop, normalize, rounding, with_draw=wide,
+        s_src=scores_of(h, a_src, s_src))
     return (_wide_plain(grads, h, senders, e_real, src_order, src_ptr,
                         rounding) if wide else grads)
 
 
 def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int,
-           rounding: Rounding = FLOAT32, *, dst_ptr=None):
-    """(cap (), code () int32): the 2-phase cap pass (of a bfloat16 table
-    in the table mode; no other point of the policy applies). Kernel on
-    CUDA tensors (cap and code stay in device memory), plain version on
-    CPU tensors. dst_ptr: as v5_forward's."""
+           rounding: Rounding = FLOAT32, *, s_src=None):
+    """(cap (), code () int32): the 2-phase cap pass, a stream over the
+    real edges' scores s_src[sender] + s_dst[receiver] (the table of a
+    bfloat16 h in the table mode; no other point of the policy applies).
+    Kernel on CUDA tensors (cap and code stay in device memory), plain
+    version on CPU tensors. s_src: as v5_forward's."""
     if h.is_cuda:
         return _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real,
-                            rounding, dst_ptr)
+                            rounding, s_src)
     build.require_cpu(h)
     check_table(h, rounding)
-    return v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real)
+    return v5_cap_plain(h, a_src, s_dst, senders, receivers, e_real,
+                        scores_of(h, a_src, s_src))
 
 
 def v5_forward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                          e_real: int, eps: float, slope: float,
-                         rounding: Rounding = FLOAT32, *, dst_ptr=None):
+                         rounding: Rounding = FLOAT32, *, dst_ptr=None,
+                         s_src=None):
     """(out, den) of the 2-phase forward from the cap (a () float32
     tensor on the device). Kernel on CUDA tensors, plain version on CPU
-    tensors. dst_ptr: as v5_forward's."""
+    tensors. dst_ptr, s_src: as v5_forward's."""
     if h.is_cuda:
         return _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop,
                                           senders, receivers, e_real, eps,
-                                          slope, rounding, dst_ptr)
+                                          slope, rounding, dst_ptr, s_src)
     build.require_cpu(h)
     return v5_forward_two_phase_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
-        rounding)
+        rounding, scores_of(h, a_src, s_src))
 
 
 def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                           e_real: int, eps: float, slope: float, g, out, den,
                           need_drop: bool, rounding: Rounding = FLOAT32, *,
-                          dst_ptr=None, src_order=None, src_ptr=None):
+                          dst_ptr=None, src_order=None, src_ptr=None,
+                          s_src=None):
     """(d_h rows in dst order, d_drop | None, d_s_dst, d_a_src, d_cap) of
     the 2-phase op. Kernel on CUDA tensors, plain version on CPU
-    tensors. dst_ptr: as v5_forward's; src_order, src_ptr: as
+    tensors. dst_ptr, s_src: as v5_forward's; src_order, src_ptr: as
     v5_backward's."""
     if h.is_cuda:
         return _v5_backward_two_phase_cuda(
             h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,
             slope, g, out, den, need_drop, rounding, dst_ptr, src_order,
-            src_ptr)
+            src_ptr, s_src)
     build.require_cpu(h)
     wide = wide_form(h.shape[1])
     grads = v5_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
-        g, out, den, need_drop, rounding, with_draw=wide)
+        g, out, den, need_drop, rounding, with_draw=wide,
+        s_src=scores_of(h, a_src, s_src))
     return (_wide_plain(grads, h, senders, e_real, src_order, src_ptr,
                         rounding) if wide else grads)
 
@@ -729,29 +953,52 @@ def route_cap_cotangent(d_h, d_asrc, d_sdst, dc, code, senders, receivers,
     return d_h, d_asrc, d_sdst
 
 
+def op_scores(h_k, a_src, s_src=None):
+    """The one source-score table of an op call, outside autograd: the
+    caller's, checked, or computed from the table the kernels read."""
+    with torch.no_grad():
+        return scores_of(h_k.detach(), a_src.detach(), s_src)
+
+
+def score_bound_of(h_flat, a_src, s_dst, s_src=None):
+    """The single sweep's bound B >= max raw logit (stop-gradient: it
+    cancels in the epilogue): from the float32 source-score table s_src
+    of the op call, or where None (the op's kernels read a bfloat16 table)
+    from the float32 rows, as the JAX package takes it: there the bound
+    decides where the rounded terms fall."""
+    with torch.no_grad():
+        s = h_flat.detach() @ a_src.detach() if s_src is None else s_src
+        return s.max() + s_dst.detach().max()
+
+
 class _V5Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, drop_mask, senders, receivers,
                 src_order, src_ptr, dst_ptr, bound, e_real, nh, eps, slope,
                 rounding, dh_t):
-        s_dst_eff = (s_dst - bound).contiguous()
         h_k = rounding.table_of(h_flat)
+        s_src = op_scores(h_k, a_src)
+        if bound is None:
+            bound = score_bound_of(h_flat, a_src, s_dst,
+                                   None if rounding.table else s_src)
+        s_dst_eff = (s_dst - bound).contiguous()
         num, den, cap, code = v5_forward(h_k, a_src, s_dst_eff, drop_mask,
                                          senders, receivers, e_real, slope,
-                                         dst_ptr, rounding)
+                                         dst_ptr, rounding, s_src=s_src)
         out, epsp = normalise(num, den, cap, eps, slope, nh)
-        ctx.save_for_backward(h_k, a_src, s_dst_eff, drop_mask, senders,
-                              receivers, src_order, src_ptr, dst_ptr, den,
-                              out, epsp, code)
+        ctx.save_for_backward(h_k, a_src, s_src, s_dst_eff, drop_mask,
+                              senders, receivers, src_order, src_ptr,
+                              dst_ptr, den, out, epsp, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
         ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (h_k, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
-         src_ptr, dst_ptr, den, out, epsp, code) = ctx.saved_tensors
+        (h_k, a_src, s_src, s_dst_eff, drop_mask, senders, receivers,
+         src_order, src_ptr, dst_ptr, den, out, epsp,
+         code) = ctx.saved_tensors
         nh, slope = ctx.nh, ctx.slope
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
@@ -759,7 +1006,7 @@ class _V5Attention(torch.autograd.Function):
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, slope, g, out, den, epsp, need_drop,
             dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
-            src_ptr=src_ptr)
+            src_ptr=src_ptr, s_src=s_src)
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
                         ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
 
@@ -803,40 +1050,41 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
     pointing at the sink; src_order sorts the edges by sender.
     drop_mask: (E, nh) attention-dropout multipliers or None.
     score_bound: any scalar >= the max raw logit (stop-gradient); None
-    computes it from the score tables. two_phase: the 2-phase form (the
-    JAX package under GAT_TPU_V10=0 or GAT_TPU_V5_MERGED=0): v5_local_cap
-    then fused_gat_table, the cap's cotangent routed to its argmax (edge,
-    head); score_bound is not read there. src_ptr, dst_ptr: the graph's
-    CSR offsets (Graph.src_ptr, Graph.dst_ptr), which spare the kernels'
-    wrappers deriving them per call (None: derived). The dtype knobs
-    (module doc) are read now."""
+    takes it from the op's own source-score table (score_bound_of).
+    two_phase:
+    the 2-phase form (the JAX package under GAT_TPU_V10=0 or
+    GAT_TPU_V5_MERGED=0): v5_local_cap then fused_gat_table, both reading
+    one source-score table, the cap's cotangent routed to its argmax
+    (edge, head); score_bound is not read there. src_ptr, dst_ptr: the
+    graph's CSR offsets (Graph.src_ptr, Graph.dst_ptr), which spare the
+    kernels' wrappers deriving them per call (None: derived). The dtype
+    knobs (module doc) are read now."""
     _check_table_shapes(h_flat, s_dst, num_nodes, num_nodes, nh, f)
     rounding = v5_rounding()
     if two_phase:
+        s_src = op_scores(rounding.table_of(h_flat), a_src)
         cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
-                           num_nodes, nh, f, rounding=rounding,
-                           dst_ptr=dst_ptr)
+                           num_nodes, nh, f, rounding=rounding, s_src=s_src)
         return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
                                receivers, src_order, e_real, num_nodes, nh,
                                f, eps, slope, rounding=rounding,
-                               src_ptr=src_ptr, dst_ptr=dst_ptr)
-    if score_bound is None:
-        score_bound = (h_flat @ a_src).max() + s_dst.max()
+                               src_ptr=src_ptr, dst_ptr=dst_ptr, s_src=s_src)
     return _V5Attention.apply(h_flat.contiguous(), a_src.contiguous(),
                               s_dst, drop_mask, senders, receivers,
                               src_order, src_ptr, dst_ptr,
-                              score_bound.detach(), int(e_real), nh, eps,
-                              slope, rounding, dh_transposed())
+                              None if score_bound is None
+                              else score_bound.detach(), int(e_real), nh,
+                              eps, slope, rounding, dh_transposed())
 
 
 class _V5LocalCap(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, senders, receivers, e_real,
-                rounding, dst_ptr):
+                rounding, s_src):
         h_k = rounding.table_of(h_flat)
         cap, code = v5_cap(h_k, a_src, s_dst, senders, receivers, e_real,
-                           rounding, dst_ptr=dst_ptr)
+                           rounding, s_src=op_scores(h_k, a_src, s_src))
         ctx.save_for_backward(h_k, a_src, senders, receivers, code)
         ctx.s_shape = s_dst.shape
         return cap
@@ -859,15 +1107,16 @@ def v5_local_cap(h_flat: torch.Tensor,
                  e_real: int,
                  num_nodes: int, nh: int, f: int, *,
                  rounding: Optional[Rounding] = None,
-                 dst_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 s_src: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The max raw logit h[src] . a_src[:, k] + s_dst[dst, k] over the
     dst-sorted edges e < e_real and heads (a () tensor), differentiable in
     h_flat, a_src and s_dst: the cotangent goes to the argmax (edge, head),
     ties to the lowest e*nh + k. s_dst (num_nodes, nh) covers the rows the
     receivers index; h_flat may have more rows than num_nodes (the
     senders index it). rounding: the policy (only its table mode applies
-    here); None reads the v5 knobs now. dst_ptr: the CSR offsets of the
-    receivers (Graph.dst_ptr), or None to derive them per call."""
+    here); None reads the v5 knobs now. s_src: the source-score table of
+    the op call (source_scores of the table the policy reads), which a
+    2-phase op hands to its forward too; computed here where None."""
     if s_dst.shape != (num_nodes, nh) or h_flat.shape[1] != nh * f:
         raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
                          f"{tuple(s_dst.shape)} do not match "
@@ -875,7 +1124,7 @@ def v5_local_cap(h_flat: torch.Tensor,
     rounding = v5_rounding() if rounding is None else rounding
     return _V5LocalCap.apply(h_flat.contiguous(), a_src.contiguous(),
                              s_dst.contiguous(), senders, receivers,
-                             int(e_real), rounding, dst_ptr)
+                             int(e_real), rounding, s_src)
 
 
 class _V5TwoPhase(torch.autograd.Function):
@@ -883,33 +1132,35 @@ class _V5TwoPhase(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, senders,
                 receivers, src_order, src_ptr, dst_ptr, e_real, eps, slope,
-                rounding, dh_t):
+                rounding, dh_t, s_src):
         h_k = rounding.table_of(h_flat)
+        s_src = op_scores(h_k, a_src, s_src)
         out, den = v5_forward_two_phase(h_k, a_src, s_dst, cap, drop_mask,
                                         senders, receivers, e_real, eps,
-                                        slope, rounding, dst_ptr=dst_ptr)
-        ctx.save_for_backward(h_k, a_src, s_dst, cap, drop_mask, senders,
-                              receivers, src_order, src_ptr, dst_ptr, out,
-                              den)
+                                        slope, rounding, dst_ptr=dst_ptr,
+                                        s_src=s_src)
+        ctx.save_for_backward(h_k, a_src, s_src, s_dst, cap, drop_mask,
+                              senders, receivers, src_order, src_ptr,
+                              dst_ptr, out, den)
         ctx.e_real, ctx.eps, ctx.slope = e_real, eps, slope
         ctx.rounding, ctx.dh_t = rounding, dh_t
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (h_k, a_src, s_dst, cap, drop_mask, senders, receivers, src_order,
-         src_ptr, dst_ptr, out, den) = ctx.saved_tensors
+        (h_k, a_src, s_src, s_dst, cap, drop_mask, senders, receivers,
+         src_order, src_ptr, dst_ptr, out, den) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[4]
         d_h_rows, d_drop, d_sdst, d_asrc, d_cap = v5_backward_two_phase(
             h_k, a_src, s_dst, cap, drop_mask, senders, receivers,
             ctx.e_real, ctx.eps, ctx.slope, g.contiguous(), out, den,
             need_drop, ctx.rounding, dst_ptr=dst_ptr, src_order=src_order,
-            src_ptr=src_ptr)
+            src_ptr=src_ptr, s_src=s_src)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
                         ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
-        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 10
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 11
 
 
 def fused_gat_table(h_flat: torch.Tensor,
@@ -927,7 +1178,8 @@ def fused_gat_table(h_flat: torch.Tensor,
                     num_src_nodes: Optional[int] = None, *,
                     rounding: Optional[Rounding] = None,
                     src_ptr: Optional[torch.Tensor] = None,
-                    dst_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    dst_ptr: Optional[torch.Tensor] = None,
+                    s_src: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The 2-phase whole-attention op with the cap given:
         out[n] = sum_e [recv_e = n] drop_e ex_e h[send_e] / (den[n] + eps),
         ex_e = exp(leaky_slope(h[send_e] . a_src + s_dst[recv_e] - cap)),
@@ -941,7 +1193,10 @@ def fused_gat_table(h_flat: torch.Tensor,
     bfloat16 policy; None reads the v5 knobs now. src_ptr, dst_ptr: the
     CSR offsets of the real edges by sender ((rows of h_flat + 1,)) and
     of the edges by destination ((num_nodes + 1,)), where the caller
-    built them with the graph; derived per call otherwise."""
+    built them with the graph; derived per call otherwise. s_src: the
+    source-score table the cap was taken from (v5_local_cap's), so that
+    the argmax edge meets its cap with the same bits; computed here
+    where None."""
     n_src = num_nodes if num_src_nodes is None else num_src_nodes
     _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f)
     rounding = v5_rounding() if rounding is None else rounding
@@ -950,7 +1205,7 @@ def fused_gat_table(h_flat: torch.Tensor,
                              s_dst.contiguous(), cap.reshape(()), drop_mask,
                              senders, receivers, src_order, src_ptr, dst_ptr,
                              int(e_real), eps, slope, rounding,
-                             dh_transposed())
+                             dh_transposed(), s_src)
 
 
 class _V5Sweep1Parts(torch.autograd.Function):
@@ -958,13 +1213,15 @@ class _V5Sweep1Parts(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
                 src_order, dst_ptr, src_ptr, e_real, nh, slope, rounding,
-                dh_t):
+                dh_t, s_src):
         h_k = rounding.table_of(h_flat)
+        s_src = op_scores(h_k, a_src, s_src)
         num, den, cap, code = v5_forward(h_k, a_src, s_dst_eff, drop_mask,
                                          senders, receivers, e_real, slope,
-                                         dst_ptr, rounding)
-        ctx.save_for_backward(h_k, a_src, s_dst_eff, drop_mask, senders,
-                              receivers, src_order, dst_ptr, src_ptr, code)
+                                         dst_ptr, rounding, s_src=s_src)
+        ctx.save_for_backward(h_k, a_src, s_src, s_dst_eff, drop_mask,
+                              senders, receivers, src_order, dst_ptr,
+                              src_ptr, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
         ctx.rounding, ctx.dh_t = rounding, dh_t
         ctx.mark_non_differentiable(code)
@@ -972,15 +1229,15 @@ class _V5Sweep1Parts(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_num, d_den, d_cap, _d_code):
-        (h_k, a_src, s_dst_eff, drop_mask, senders, receivers, src_order,
-         dst_ptr, src_ptr, code) = ctx.saved_tensors
+        (h_k, a_src, s_src, s_dst_eff, drop_mask, senders, receivers,
+         src_order, dst_ptr, src_ptr, code) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, ctx.slope, d_num.contiguous(), None,
             d_den.contiguous(), None, need_drop, normalize=False,
             dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
-            src_ptr=src_ptr)
+            src_ptr=src_ptr, s_src=s_src)
         # senders index the h table, which may have more rows than the
         # destinations: d(h) is reduced to the table's rows
         d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
@@ -988,7 +1245,7 @@ class _V5Sweep1Parts(torch.autograd.Function):
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, d_cap, code, senders, receivers, h_k,
             a_src, ctx.nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 10
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 11
 
 
 def v5_sweep1_parts(h_flat: torch.Tensor,
@@ -1004,7 +1261,8 @@ def v5_sweep1_parts(h_flat: torch.Tensor,
                     slope: float = 0.01,
                     num_src_nodes: Optional[int] = None, *,
                     dst_ptr: Optional[torch.Tensor] = None,
-                    src_ptr: Optional[torch.Tensor] = None):
+                    src_ptr: Optional[torch.Tensor] = None,
+                    s_src: Optional[torch.Tensor] = None):
     """The unnormalised single-sweep parts (num (num_nodes, nh*f),
     den (num_nodes, nh), cap' (), code () int32) over the dst-sorted edges
     e < e_real, differentiable in h_flat, a_src, s_dst and drop_mask.
@@ -1025,11 +1283,13 @@ def v5_sweep1_parts(h_flat: torch.Tensor,
     dst_ptr, src_ptr: the CSR offsets of the edges by destination
     ((num_nodes + 1,), over all edges) and of the real edges by sender
     ((rows of h_flat + 1,)), where the caller built them with the graph;
-    they are computed per call otherwise. The dtype knobs (module doc)
-    are read now."""
+    they are computed per call otherwise. s_src: the source-score table
+    of the table this op's kernels read (source_scores), where the caller
+    shares one with another op; computed here where None. The dtype knobs
+    (module doc) are read now."""
     n_src = num_nodes if num_src_nodes is None else num_src_nodes
     _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f)
     return _V5Sweep1Parts.apply(
         h_flat.contiguous(), a_src.contiguous(), s_dst.contiguous(),
         drop_mask, senders, receivers, src_order, dst_ptr, src_ptr,
-        int(e_real), nh, slope, v5_rounding(), dh_transposed())
+        int(e_real), nh, slope, v5_rounding(), dh_transposed(), s_src)

@@ -17,7 +17,10 @@ mask and its cotangent are (E7, nh) in slot order; the argmax code of the
 cap is the lowest slot*nh + head. The layout's `window`, `wb`, `base`,
 `tile_base`, `tile_ptr` and `dmax` size the TPU kernel's streamed windows;
 the CUDA kernels gather rows directly and walk the slots through the
-layout's `dst_perm`/`dst_ptr` and `src_perm`/`src_ptr` instead.
+layout's `dst_perm`/`dst_ptr` and `src_perm`/`src_ptr` instead. As the
+v5 kernels do, they read their logits from the op's source-score table
+(v5_attention.source_scores), computed once a call; window_cap reads
+the tables alone.
 
 The 2-phase form of the same op (the JAX package's v7 path under
 GAT_TPU_V10=0: `_kernel_v6` and `_kernel_v6_bwd` with sweep1=False) is
@@ -65,8 +68,10 @@ from .segment_sum import dh_reduce_ptr
 from .v5_attention import (MAX_HEADS, attention_backward_plain,
                            attention_backward_two_phase_plain,
                            attention_cap_plain, attention_forward_plain,
-                           attention_forward_two_phase_plain, cap_cotangent,
-                           fused_gat_table, normalise, route_cap_cotangent,
+                           attention_forward_two_phase_plain, cap_blocks,
+                           cap_cotangent, forward_blocks,
+                           fused_gat_table, normalise, op_scores, plan_of,
+                           route_cap_cotangent, score_bound_of, scores_of,
                            v5_local_cap)
 
 _KERNEL = "window_attention"
@@ -117,25 +122,26 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
     lib = build.load(name)
     if name not in _configured:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        plan = [i] * 5      # the lane plan (v5_attention.LanePlan)
         lib.window_forward.argtypes = ([p] * 7 + [i] * 4 + [fl] + [p] * 6
-                                       + [i, i, p])
+                                       + plan + [i, i, p])
         lib.window_forward.restype = ctypes.c_int
-        lib.window_backward.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 9
+        lib.window_backward.argtypes = ([p] * 8 + [i] * 5 + [fl] + [p] * 9
                                         + [i, i, p])
         lib.window_backward.restype = ctypes.c_int
-        lib.window_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl]
+        lib.window_backward_parts.argtypes = ([p] * 8 + [i] * 5 + [fl]
                                               + [p] * 7 + [i, i, p])
         lib.window_backward_parts.restype = ctypes.c_int
         _configured.add(name)
         if bf16_table:
             return lib
-        lib.window_cap.argtypes = [p] * 6 + [i] * 4 + [p] * 4 + [i, p]
+        lib.window_cap.argtypes = [p] * 4 + [i] * 2 + [p] * 4 + [i, p]
         lib.window_cap.restype = ctypes.c_int
         lib.window_forward_two_phase.argtypes = ([p] * 8 + [i] * 4
                                                  + [fl] * 2 + [p] * 2
-                                                 + [i, i, p])
+                                                 + plan + [i, i, p])
         lib.window_forward_two_phase.restype = ctypes.c_int
-        lib.window_backward_two_phase.argtypes = ([p] * 8 + [i] * 5
+        lib.window_backward_two_phase.argtypes = ([p] * 9 + [i] * 5
                                                   + [fl] * 2 + [p] * 8
                                                   + [i, i, p])
         lib.window_backward_two_phase.restype = ctypes.c_int
@@ -143,6 +149,9 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
 
 
 # -- plain versions (CPU tensors) -------------------------------------------
+#
+# Each takes the source-score table s_src as the kernels do (computed from
+# h where None; window_cap_plain reads only the tables).
 
 def _slots(layout: BlockLayout, n: int):
     """(send, recv with pad slots sent to n, valid (E7, 1)) as int64."""
@@ -153,56 +162,73 @@ def _slots(layout: BlockLayout, n: int):
 
 
 def window_forward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
-                         slope: float, rounding: Rounding = FLOAT32):
+                         slope: float, rounding: Rounding = FLOAT32,
+                         s_src=None):
     """(num (N, D), den (N, nh), cap' (), code () int32)."""
     return attention_forward_plain(
         h, a_src, s_dst_eff, drop, *_slots(layout, s_dst_eff.shape[0]),
-        slope, rounding)
+        slope, rounding, s_src)
 
 
 def window_backward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
                           slope: float, g, out, den, epsp, need_drop: bool,
                           normalize: bool = True,
-                          rounding: Rounding = FLOAT32):
+                          rounding: Rounding = FLOAT32, s_src=None):
     """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop (E7, nh) |
     None, d_s_dst (N, nh), d_a_src (D, nh)) before the cap chain;
     normalize=False as v5_attention.attention_backward_plain takes it."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop, *_slots(layout, s_dst_eff.shape[0]),
-        slope, g, out, den, epsp, need_drop, normalize, rounding=rounding)
+        slope, g, out, den, epsp, need_drop, normalize, rounding=rounding,
+        s_src=s_src)
 
 
-def window_cap_plain(h, a_src, s_dst, layout: BlockLayout):
-    """(cap (), code () int32) over the real slots, code slot*nh + head."""
+def window_cap_plain(s_src, s_dst, layout: BlockLayout):
+    """(cap (), code () int32) over the real slots, code slot*nh + head,
+    from the score tables."""
     n = s_dst.shape[0]
-    return attention_cap_plain(h, a_src, s_dst, *_slots(layout, n))
+    return attention_cap_plain(s_src, s_dst, *_slots(layout, n))
 
 
 def window_forward_two_phase_plain(h, a_src, s_dst, cap, drop,
                                    layout: BlockLayout, eps: float,
                                    slope: float,
-                                   rounding: Rounding = FLOAT32):
+                                   rounding: Rounding = FLOAT32,
+                                   s_src=None):
     """(out (N, D), den (N, nh)) of the 2-phase forward over the slots."""
     return attention_forward_two_phase_plain(
         h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
-        slope, rounding)
+        slope, rounding, s_src)
 
 
 def window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
                                     layout: BlockLayout, eps: float,
                                     slope: float, g, out, den,
                                     need_drop: bool,
-                                    rounding: Rounding = FLOAT32):
+                                    rounding: Rounding = FLOAT32,
+                                    s_src=None):
     """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop | None,
     d_s_dst, d_a_src, d_cap) of the 2-phase op over the slots."""
     return attention_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
-        slope, g, out, den, need_drop, rounding)
+        slope, g, out, den, need_drop, rounding, s_src)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
 #
-# Each takes the op's rounding policy, as ops/cuda/v5_attention.py's do.
+# Each takes the op's rounding policy, as ops/cuda/v5_attention.py's do,
+# and the source-score table (v5_attention.source_scores, the v5
+# library's entry) where the caller holds it, computing it otherwise.
+
+def _check_layout(layout: BlockLayout, dev, n: int):
+    e7 = layout.num_slots
+    build.require(layout.send, "layout.send", dev, torch.int32, (e7,))
+    build.require(layout.dst_perm, "layout.dst_perm", dev, torch.int32,
+                  (e7,))
+    build.require(layout.dst_ptr, "layout.dst_ptr", dev, torch.int32,
+                  (n + 1,))
+    return e7
+
 
 def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout,
                   rounding: Rounding = FLOAT32):
@@ -218,25 +244,22 @@ def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout,
         raise ValueError(f"row width {d} must be nh*f and at most 1024")
     n = h.shape[0]
     build.require(s_dst_eff, "s_dst", dev, torch.float32, (n, nh))
-    e7 = layout.num_slots
-    build.require(layout.send, "layout.send", dev, torch.int32, (e7,))
-    build.require(layout.dst_perm, "layout.dst_perm", dev, torch.int32,
-                  (e7,))
-    build.require(layout.dst_ptr, "layout.dst_ptr", dev, torch.int32,
-                  (n + 1,))
+    e7 = _check_layout(layout, dev, n)
     if drop is not None:
         build.require(drop, "drop_mask", dev, torch.float32, (e7, nh))
     return dev, n, e7, d, nh
 
 
 def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
-                         rounding: Rounding = FLOAT32):
+                         rounding: Rounding = FLOAT32, s_src=None):
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout,
                                       rounding)
-    nblk = build.grid_blocks(n)
+    s_src = scores_of(h, a_src, s_src)
     f32 = dict(dtype=torch.float32, device=dev)
     num = torch.empty((n, d), **f32)
     den = torch.empty((n, nh), **f32)
+    plan = plan_of(h, num, nh, d // nh)
+    nblk = forward_blocks(plan, n)
     blk_max = torch.empty((nblk,), **f32)
     blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
     cap = torch.empty((), **f32)
@@ -245,10 +268,10 @@ def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     lib = _lib(rounding.table)
     with torch.cuda.device(dev):
         err = lib.window_forward(
-            p(h), p(a_src), p(s_dst_eff), p(drop), p(layout.send),
+            p(h), p(s_src), p(s_dst_eff), p(drop), p(layout.send),
             p(layout.dst_perm), p(layout.dst_ptr), n, d, nh, d // nh, slope,
             p(num), p(den), p(blk_max), p(blk_code), p(cap), p(code),
-            nblk, rounding.flags(), build.stream(dev))
+            *plan, nblk, rounding.flags(), build.stream(dev))
     build.check(err, "window_forward")
     build.LAUNCHES[rounding.counter("window_forward")] += 1
     return num, den, cap, code
@@ -257,7 +280,7 @@ def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
 def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
                           g, out, den, epsp, need_drop: bool,
                           normalize: bool = True,
-                          rounding: Rounding = FLOAT32):
+                          rounding: Rounding = FLOAT32, s_src=None):
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout,
                                       rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
@@ -265,6 +288,7 @@ def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     if normalize:
         build.require(out, "out", dev, torch.float32, (n, d))
         build.require(epsp, "epsp", dev, torch.float32, ())
+    s_src = scores_of(h, a_src, s_src)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h_rows = torch.empty((e7, d), **f32)
@@ -274,9 +298,9 @@ def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     d_asrc = torch.empty((d, nh), **f32)
     p = build.ptr
     lib = _lib(rounding.table)
-    graph_args = (p(h), p(a_src), p(s_dst_eff), p(drop), p(layout.send),
-                  p(layout.dst_perm), p(layout.dst_ptr), n, e7, d, nh,
-                  d // nh, slope)
+    graph_args = (p(h), p(a_src), p(s_src), p(s_dst_eff), p(drop),
+                  p(layout.send), p(layout.dst_perm), p(layout.dst_ptr), n,
+                  e7, d, nh, d // nh, slope)
     outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc), nblk,
                rounding.flags(), build.stream(dev))
     name = "window_backward" if normalize else "window_backward_parts"
@@ -292,9 +316,16 @@ def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     return d_h_rows, d_drop, d_sdst, d_asrc
 
 
-def _window_cap_cuda(h, a_src, s_dst, layout):
-    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, None, layout)
-    nblk = build.grid_blocks(n)
+def _window_cap_cuda(s_src, s_dst, layout):
+    dev = s_dst.device
+    n, nh = s_dst.shape if s_dst.dim() == 2 else (-1, -1)
+    build.require(s_dst, "s_dst", dev, torch.float32, (n, nh))
+    if not 1 <= nh <= MAX_HEADS:
+        raise ValueError(f"{nh} heads: the kernel takes 1..{MAX_HEADS}")
+    build.require(s_src, "s_src", dev, torch.float32, (None, nh))
+    e7 = _check_layout(layout, dev, n)
+    build.require(layout.recv, "layout.recv", dev, torch.int32, (e7,))
+    nblk = cap_blocks(e7 * nh)
     blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
     blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
     cap = torch.empty((), dtype=torch.float32, device=dev)
@@ -302,9 +333,9 @@ def _window_cap_cuda(h, a_src, s_dst, layout):
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib().window_cap(
-            p(h), p(a_src), p(s_dst), p(layout.send), p(layout.dst_perm),
-            p(layout.dst_ptr), n, d, nh, d // nh, p(blk_max), p(blk_code),
-            p(cap), p(code), nblk, build.stream(dev))
+            p(s_src), p(s_dst), p(layout.send), p(layout.recv), e7, nh,
+            p(blk_max), p(blk_code), p(cap), p(code), nblk,
+            build.stream(dev))
     build.check(err, "window_cap")
     build.LAUNCHES["window_cap"] += 1
     return cap, code
@@ -312,20 +343,22 @@ def _window_cap_cuda(h, a_src, s_dst, layout):
 
 def _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
                                    eps: float, slope: float,
-                                   rounding: Rounding = FLOAT32):
+                                   rounding: Rounding = FLOAT32,
+                                   s_src=None):
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
                                       rounding)
     build.require(cap, "cap", dev, torch.float32, ())
-    nblk = build.grid_blocks(n)
+    s_src = scores_of(h, a_src, s_src)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     den = torch.empty((n, nh), dtype=torch.float32, device=dev)
+    plan = plan_of(h, out, nh, d // nh)
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib().window_forward_two_phase(
-            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(layout.send),
+            p(h), p(s_src), p(s_dst), p(cap), p(drop), p(layout.send),
             p(layout.dst_perm), p(layout.dst_ptr), n, d, nh, d // nh, eps,
-            slope, p(out), p(den), nblk, rounding.flags(),
-            build.stream(dev))
+            slope, p(out), p(den), *plan, forward_blocks(plan, n),
+            rounding.flags(), build.stream(dev))
     build.check(err, "window_forward_two_phase")
     build.LAUNCHES[rounding.counter("window_forward_two_phase")] += 1
     return out, den
@@ -334,13 +367,15 @@ def _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
 def _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
                                     eps: float, slope: float, g, out, den,
                                     need_drop: bool,
-                                    rounding: Rounding = FLOAT32):
+                                    rounding: Rounding = FLOAT32,
+                                    s_src=None):
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
                                       rounding)
     build.require(cap, "cap", dev, torch.float32, ())
     for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
                            (den, "den", (n, nh))):
         build.require(t, name, dev, torch.float32, shape)
+    s_src = scores_of(h, a_src, s_src)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h_rows = torch.empty((e7, d), **f32)
@@ -351,11 +386,11 @@ def _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib().window_backward_two_phase(
-            p(h), p(a_src), p(s_dst), p(cap), p(drop), p(layout.send),
-            p(layout.dst_perm), p(layout.dst_ptr), n, e7, d, nh, d // nh,
-            eps, slope, p(g), p(out), p(den), p(d_h_rows), p(d_drop),
-            p(d_sdst), p(part), p(d_asrc_cap), nblk, rounding.flags(),
-            build.stream(dev))
+            p(h), p(a_src), p(s_src), p(s_dst), p(cap), p(drop),
+            p(layout.send), p(layout.dst_perm), p(layout.dst_ptr), n, e7, d,
+            nh, d // nh, eps, slope, p(g), p(out), p(den), p(d_h_rows),
+            p(d_drop), p(d_sdst), p(part), p(d_asrc_cap), nblk,
+            rounding.flags(), build.stream(dev))
     build.check(err, "window_backward_two_phase")
     build.LAUNCHES[rounding.counter("window_backward_two_phase")] += 1
     return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
@@ -363,71 +398,83 @@ def _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
 
 
 def window_forward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
-                   slope: float, rounding: Rounding = FLOAT32):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+                   slope: float, rounding: Rounding = FLOAT32, *,
+                   s_src=None):
+    """Kernel on CUDA tensors, plain version on CPU tensors. s_src: the
+    source-score table of h (v5_attention.source_scores), where the
+    caller holds it; computed here otherwise."""
     if h.is_cuda:
         return _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope,
-                                    rounding)
+                                    rounding, s_src)
     build.require_cpu(h)
     return window_forward_plain(h, a_src, s_dst_eff, drop, layout, slope,
-                                rounding)
+                                rounding, scores_of(h, a_src, s_src))
 
 
 def window_backward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
                     slope: float, g, out, den, epsp, need_drop: bool,
-                    normalize: bool = True, rounding: Rounding = FLOAT32):
+                    normalize: bool = True, rounding: Rounding = FLOAT32, *,
+                    s_src=None):
     """Kernel on CUDA tensors (the d(h) rows of pad slots are left
     unwritten there), plain version on CPU tensors. normalize=False is
     the parts mode; it launches the kernel's parts mode and counts as
-    "window_backward_parts"."""
+    "window_backward_parts". s_src: as window_forward's."""
     if h.is_cuda:
         return _window_backward_cuda(h, a_src, s_dst_eff, drop, layout,
                                      slope, g, out, den, epsp, need_drop,
-                                     normalize, rounding)
+                                     normalize, rounding, s_src)
     build.require_cpu(h)
     return window_backward_plain(h, a_src, s_dst_eff, drop, layout, slope,
                                  g, out, den, epsp, need_drop, normalize,
-                                 rounding)
+                                 rounding, scores_of(h, a_src, s_src))
 
 
-def window_cap(h, a_src, s_dst, layout: BlockLayout):
-    """(cap, code) of the 2-phase cap pass over the real slots (from the
-    float32 rows in every mode). Kernel on CUDA tensors, plain version on
-    CPU tensors."""
-    if h.is_cuda:
-        return _window_cap_cuda(h, a_src, s_dst, layout)
-    build.require_cpu(h)
-    return window_cap_plain(h, a_src, s_dst, layout)
+def window_cap(s_src, s_dst, layout: BlockLayout):
+    """(cap, code) of the 2-phase cap pass over the real slots: a stream
+    over the scores s_src[send] + s_dst[recv] (s_src the source-score
+    table of the float32 rows, v5_attention.source_scores; the cap reads
+    no h). Kernel on CUDA tensors, plain version on CPU tensors."""
+    if s_dst.is_cuda:
+        return _window_cap_cuda(s_src, s_dst, layout)
+    build.require_cpu(s_dst)
+    build.require(s_src, "s_src", s_dst.device, torch.float32,
+                  (None, s_dst.shape[1]))
+    return window_cap_plain(s_src, s_dst, layout)
 
 
 def window_forward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
                              eps: float, slope: float,
-                             rounding: Rounding = FLOAT32):
+                             rounding: Rounding = FLOAT32, *, s_src=None):
     """(out, den) of the 2-phase forward from the cap (a () float32
     tensor on the device). Kernel on CUDA tensors, plain version on CPU
-    tensors."""
+    tensors. s_src: as window_forward's."""
     if h.is_cuda:
         return _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop,
-                                              layout, eps, slope, rounding)
+                                              layout, eps, slope, rounding,
+                                              s_src)
     build.require_cpu(h)
     return window_forward_two_phase_plain(h, a_src, s_dst, cap, drop, layout,
-                                          eps, slope, rounding)
+                                          eps, slope, rounding,
+                                          scores_of(h, a_src, s_src))
 
 
 def window_backward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
                               eps: float, slope: float, g, out, den,
-                              need_drop: bool, rounding: Rounding = FLOAT32):
+                              need_drop: bool, rounding: Rounding = FLOAT32,
+                              *, s_src=None):
     """(d_h rows in slot order, d_drop | None, d_s_dst, d_a_src, d_cap)
     of the 2-phase op. Kernel on CUDA tensors (pad rows unwritten there),
-    plain version on CPU tensors."""
+    plain version on CPU tensors. s_src: as window_forward's."""
     if h.is_cuda:
         return _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop,
                                                layout, eps, slope, g, out,
-                                               den, need_drop, rounding)
+                                               den, need_drop, rounding,
+                                               s_src)
     build.require_cpu(h)
     return window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
                                            layout, eps, slope, g, out, den,
-                                           need_drop, rounding)
+                                           need_drop, rounding,
+                                           scores_of(h, a_src, s_src))
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -437,28 +484,32 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, drop_mask, layout, bound, nh,
                 eps, slope, rounding):
-        s_dst_eff = (s_dst - bound).contiguous()
         h_k = rounding.table_of(h_flat)
+        s_src = op_scores(h_k, a_src)
+        if bound is None:
+            bound = score_bound_of(h_flat, a_src, s_dst,
+                                   None if rounding.table else s_src)
+        s_dst_eff = (s_dst - bound).contiguous()
         num, den, cap, code = window_forward(h_k, a_src, s_dst_eff,
                                              drop_mask, layout, slope,
-                                             rounding)
+                                             rounding, s_src=s_src)
         out, epsp = normalise(num, den, cap, eps, slope, nh)
-        ctx.save_for_backward(h_flat, h_k, a_src, s_dst_eff, drop_mask, den,
-                              out, epsp, code)
+        ctx.save_for_backward(h_flat, h_k, a_src, s_src, s_dst_eff,
+                              drop_mask, den, out, epsp, code)
         ctx.layout, ctx.nh, ctx.slope = layout, nh, slope
         ctx.rounding = rounding
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (h_flat, h_k, a_src, s_dst_eff, drop_mask, den, out, epsp,
+        (h_flat, h_k, a_src, s_src, s_dst_eff, drop_mask, den, out, epsp,
          code) = ctx.saved_tensors
         layout, nh, slope = ctx.layout, ctx.nh, ctx.slope
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = window_backward(
             h_k, a_src, s_dst_eff, drop_mask, layout, slope, g, out, den,
-            epsp, need_drop, rounding=ctx.rounding)
+            epsp, need_drop, rounding=ctx.rounding, s_src=s_src)
         d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
@@ -477,10 +528,12 @@ def _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f):
 
 
 class _WindowCap(torch.autograd.Function):
+    """The cap of the 2-phase op from its score table; differentiable in
+    h_flat, a_src and s_dst through the argmax (slot, head)."""
 
     @staticmethod
-    def forward(ctx, h_flat, a_src, s_dst, layout):
-        cap, code = window_cap(h_flat, a_src, s_dst, layout)
+    def forward(ctx, h_flat, a_src, s_dst, layout, s_src):
+        cap, code = window_cap(s_src, s_dst, layout)
         ctx.save_for_backward(h_flat, a_src, code)
         ctx.layout, ctx.s_shape = layout, s_dst.shape
         return cap
@@ -492,32 +545,34 @@ class _WindowCap(torch.autograd.Function):
             torch.zeros_like(h_flat), torch.zeros_like(a_src),
             h_flat.new_zeros(ctx.s_shape), g, code, ctx.layout.send,
             ctx.layout.recv, h_flat, a_src, a_src.shape[1])
-        return d_h, d_asrc, d_sdst, None
+        return d_h, d_asrc, d_sdst, None, None
 
 
 class _WindowTwoPhase(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, layout, eps,
-                slope, rounding):
+                slope, rounding, s_src):
         out, den = window_forward_two_phase(h_flat, a_src, s_dst, cap,
                                             drop_mask, layout, eps, slope,
-                                            rounding)
-        ctx.save_for_backward(h_flat, a_src, s_dst, cap, drop_mask, out, den)
+                                            rounding, s_src=s_src)
+        ctx.save_for_backward(h_flat, a_src, s_src, s_dst, cap, drop_mask,
+                              out, den)
         ctx.layout, ctx.eps, ctx.slope = layout, eps, slope
         ctx.rounding = rounding
         return out
 
     @staticmethod
     def backward(ctx, g):
-        h_flat, a_src, s_dst, cap, drop_mask, out, den = ctx.saved_tensors
+        (h_flat, a_src, s_src, s_dst, cap, drop_mask, out,
+         den) = ctx.saved_tensors
         layout = ctx.layout
         need_drop = drop_mask is not None and ctx.needs_input_grad[4]
         d_h_rows, d_drop, d_sdst, d_asrc, d_cap = window_backward_two_phase(
             h_flat, a_src, s_dst, cap, drop_mask, layout, ctx.eps, ctx.slope,
-            g.contiguous(), out, den, need_drop, ctx.rounding)
+            g.contiguous(), out, den, need_drop, ctx.rounding, s_src=s_src)
         d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
-        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 4
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 5
 
 
 def fused_gat_window_v7(h_flat: torch.Tensor,
@@ -541,23 +596,25 @@ def fused_gat_window_v7(h_flat: torch.Tensor,
     eb, nb and dmax arguments.
     drop_mask: (E7, nh) attention-dropout multipliers in slot order, or
     None. score_bound: any scalar >= the max raw logit (stop-gradient);
-    None computes it from the score tables. two_phase: the 2-phase form
+    None takes it from the op's own source-score table
+    (v5_attention.score_bound_of). two_phase: the 2-phase form
     (the JAX package under GAT_TPU_V10=0): the cap pass over the slots,
-    then the attention pass with that cap, whose cotangent goes to the
-    argmax (slot, head); score_bound is not read there. The contraction
-    dtype (module doc) is read now."""
+    then the attention pass with that cap, both reading one source-score
+    table, the cap's cotangent going to the argmax (slot, head);
+    score_bound is not read there. The contraction dtype (module doc) is
+    read now."""
     _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f)
     h_flat, a_src = h_flat.contiguous(), a_src.contiguous()
     rounding = window_rounding(nh, f, sweep1=not two_phase)
     if two_phase:
         s_dst = s_dst.contiguous()
-        cap = _WindowCap.apply(h_flat, a_src, s_dst, layout)
+        s_src = op_scores(h_flat, a_src)    # the 2-phase form: no table mode
+        cap = _WindowCap.apply(h_flat, a_src, s_dst, layout, s_src)
         return _WindowTwoPhase.apply(h_flat, a_src, s_dst, cap, drop_mask,
-                                     layout, eps, slope, rounding)
-    if score_bound is None:
-        score_bound = (h_flat @ a_src).max() + s_dst.max()
+                                     layout, eps, slope, rounding, s_src)
     return _WindowAttention.apply(h_flat, a_src, s_dst, drop_mask, layout,
-                                  score_bound.detach(), nh, eps, slope,
+                                  None if score_bound is None
+                                  else score_bound.detach(), nh, eps, slope,
                                   rounding)
 
 
@@ -587,7 +644,8 @@ def fused_gat_window(h_flat: torch.Tensor,
     size the TPU kernel's VMEM window for its one-hot MXU gather. Hopper
     gathers rows at random, so the Hopper algorithm for this contract is
     v5_local_cap then fused_gat_table over the graph's CSR (the kernels
-    v5_cap, v5_forward_two_phase, v5_backward_two_phase), d(h) reduced by
+    source_scores, v5_cap, v5_forward_two_phase, v5_backward_two_phase;
+    one score table for the cap and the attention pass), d(h) reduced by
     the stable sender sort src_order (Graph.src_order; computed per call
     where the caller has none), with the graph's CSR offsets src_ptr (read
     only with src_order) and dst_ptr where the caller has them (Graph.
@@ -603,24 +661,28 @@ def fused_gat_window(h_flat: torch.Tensor,
         src_order = torch.argsort(senders, stable=True).to(torch.int32)
         src_ptr = None
     rounding = FLOAT32 if _v6_dtype() == torch.float32 else V6_BF16
+    # both passes read the float32 rows' table (V6_BF16 has no table mode)
+    s_src = op_scores(h_flat, a_src)
     cap = v5_local_cap(h_flat, a_src, s_dst, senders, receivers, e_real,
-                       num_nodes, nh, f, rounding=FLOAT32, dst_ptr=dst_ptr)
+                       num_nodes, nh, f, rounding=FLOAT32, s_src=s_src)
     return fused_gat_table(h_flat, a_src, s_dst, cap, drop_mask, senders,
                            receivers, src_order, e_real, num_nodes, nh, f,
                            eps, slope, rounding=rounding, src_ptr=src_ptr,
-                           dst_ptr=dst_ptr)
+                           dst_ptr=dst_ptr, s_src=s_src)
 
 
 class _WindowSweep1Parts(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, layout, nh, slope,
-                rounding):
+                rounding, s_src):
         h_k = rounding.table_of(h_flat)
+        s_src = op_scores(h_k, a_src, s_src)
         num, den, cap, code = window_forward(h_k, a_src, s_dst_eff,
                                              drop_mask, layout, slope,
-                                             rounding)
-        ctx.save_for_backward(h_flat, h_k, a_src, s_dst_eff, drop_mask, code)
+                                             rounding, s_src=s_src)
+        ctx.save_for_backward(h_flat, h_k, a_src, s_src, s_dst_eff,
+                              drop_mask, code)
         ctx.layout, ctx.nh, ctx.slope = layout, nh, slope
         ctx.rounding = rounding
         ctx.mark_non_differentiable(code)
@@ -628,18 +690,19 @@ class _WindowSweep1Parts(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_num, d_den, d_cap, _d_code):
-        h_flat, h_k, a_src, s_dst_eff, drop_mask, code = ctx.saved_tensors
+        (h_flat, h_k, a_src, s_src, s_dst_eff, drop_mask,
+         code) = ctx.saved_tensors
         layout = ctx.layout
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
         d_h_rows, d_drop, d_sdst, d_asrc = window_backward(
             h_k, a_src, s_dst_eff, drop_mask, layout, ctx.slope,
             d_num.contiguous(), None, d_den.contiguous(), None, need_drop,
-            normalize=False, rounding=ctx.rounding)
+            normalize=False, rounding=ctx.rounding, s_src=s_src)
         d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, d_cap, code, layout.send, layout.recv,
             h_flat, a_src, ctx.nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 4
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 5
 
 
 def v7_sweep1_parts(h_flat: torch.Tensor,
@@ -649,7 +712,8 @@ def v7_sweep1_parts(h_flat: torch.Tensor,
                     layout: BlockLayout,
                     num_nodes: int, nh: int, f: int,
                     eps: float = 1e-8,
-                    slope: float = 0.01):
+                    slope: float = 0.01, *,
+                    s_src: Optional[torch.Tensor] = None):
     """The unnormalised single-sweep parts (num (num_nodes, nh*f),
     den (num_nodes, nh), cap' (), code () int32) over the slots of
     `layout`, differentiable in h_flat, a_src, s_dst and drop_mask: the
@@ -659,9 +723,11 @@ def v7_sweep1_parts(h_flat: torch.Tensor,
     drop_mask is (E7, nh) in slot order; code = slot*nh + head is not
     differentiable; `eps` is the caller's epilogue's and is not read
     here. On a hybrid layout the slots hold the in-window edges only;
-    the remainder (layout.rem_*) is another op's. The contraction dtype
-    (module doc) is read now."""
+    the remainder (layout.rem_*) is another op's. s_src: the source-score
+    table of the table this op's kernels read, where the caller shares one
+    with another op (the hybrid layer's v5 parts op); computed here where
+    None. The contraction dtype (module doc) is read now."""
     _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f)
     return _WindowSweep1Parts.apply(h_flat.contiguous(), a_src.contiguous(),
                                     s_dst.contiguous(), drop_mask, layout,
-                                    nh, slope, window_rounding(nh, f))
+                                    nh, slope, window_rounding(nh, f), s_src)

@@ -5,7 +5,7 @@ Counterpart of gat_pytorch_tpu/parallel/ for the cut-neighbourhood
 layout: each graph's dst-sorted edge list cut into contiguous ranges
 over the edge axis, cut neighbourhoods completed by sums over it
 (models/gat.py `edge_axis`). The dst-owned layout (partition.py) and
-GSPMD auto-sharding are not ported (ROADMAP queue A item 7).
+GSPMD auto-sharding are not ported (ROADMAP: what is left of parallel/).
 """
 
 from .mesh import DATA_AXIS, EDGE_AXIS, Axis, Mesh, make_mesh

@@ -20,8 +20,9 @@ layout). One step on every rank:
     gradient bits and takes the same Adam step.
 
 There is no jit and no scan: each step runs eagerly, as Trainer.train_step
-does. The attention regulariser (task.attention_coef != 0, ROADMAP queue
-A item 2) and the dst-owned layout (A7) are not ported and raise.
+does. The attention regulariser (task.attention_coef != 0, ROADMAP:
+return_attention and the attention regulariser) and the dst-owned layout
+(ROADMAP: what is left of parallel/) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -63,12 +64,12 @@ class DropoutGenerators:
 def _refuse(task: Task, dst_owned: bool) -> None:
     if task.attention_coef != 0.0:
         raise NotImplementedError(
-            "the attention regulariser needs return_attention (ROADMAP "
-            "queue A item 2, not ported)")
+            "the attention regulariser needs return_attention (ROADMAP: "
+            "return_attention and the attention regulariser, not ported)")
     if dst_owned:
         raise NotImplementedError(
-            "the dst-owned layout (partition.py) is not ported (ROADMAP "
-            "queue A item 7)")
+            "the dst-owned layout (partition.py) is not ported (ROADMAP: "
+            "what is left of parallel/)")
 
 
 def _squeeze(logits: torch.Tensor, task: Task) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Counterpart of gat_pytorch_tpu/train/tasks.py: a `Task` bundles the loss,
 the metric set and which node mask applies in each phase. The attention
 regulariser (a non-zero `attention_coef`) needs `return_attention`, which
-is not ported (ROADMAP queue A item 3), so a non-zero coefficient raises.
+is not ported (ROADMAP: return_attention and the attention regulariser),
+so a non-zero coefficient raises.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def _refuse_regulariser(coef: float) -> None:
     if coef != 0.0:
         raise NotImplementedError(
             "the attention regulariser needs return_attention "
-            "(ROADMAP queue A item 3, not ported)")
+            "(ROADMAP: return_attention and the attention regulariser, not "
+            "ported)")
 
 
 def _phase_mask(graph: Graph, phase: str) -> torch.Tensor:

@@ -17,7 +17,8 @@ fit_sharded: the same epochs over a (data, edge) mesh of
 torch.distributed ranks, through the sharded steps of parallel/train.py.
 
 Checkpoints, TensorBoard, gradient histograms, the prefetch thread and
-the sampled fit wait for ROADMAP queue A items 4 and 5.
+the sampled fit wait for their ports (ROADMAP: checkpoints and logging;
+sampling and prefetch).
 """
 
 from __future__ import annotations

@@ -259,9 +259,9 @@ def test_make_task_covers_the_five_datasets():
         assert ttasks.make_task(name).name == jtasks.make_task(name).name
     with pytest.raises(ValueError):
         ttasks.make_task("Reddit")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="attention regulariser"):
         ttasks.make_task("PPI", attention_penalty=0.1)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="attention regulariser"):
         ttasks.make_task("Cora", attention_reward=0.1)
 
 

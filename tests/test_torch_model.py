@@ -311,6 +311,35 @@ def test_hybrid_path_matches_the_other_paths_and_ignores_the_layout_on_v4():
     assert tgat.PATH_TRACE == ["v4_table", "v4_table"]
 
 
+@pytest.mark.parametrize("env,tables", [
+    ({}, 1),                                     # float32 tables
+    ({"GAT_TPU_V6_DTYPE": "bfloat16"}, 2),       # packed bfloat16, float32
+    ({"GAT_TPU_V6_DTYPE": "bfloat16", "GAT_TPU_H_DTYPE": "bfloat16"}, 1),
+])
+def test_hybrid_layer_computes_one_source_score_table(env, tables,
+                                                      monkeypatch):
+    """The hybrid layer's two parts ops read one source-score table where
+    their kernels read the same h table, and each its own where they do
+    not (the windowed op's packed bfloat16 table beside the v5 op's
+    float32 one)."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    _, tcfg, _, tg, _, tparams = build_hybrid(seed=5)
+    dtypes = []
+    scores = tv5.source_scores
+
+    def counted(h, a_src):
+        dtypes.append(h.dtype)
+        return scores(h, a_src)
+
+    monkeypatch.setattr(tv5, "source_scores", counted)
+    tgat.PATH_TRACE.clear()
+    tgat.gat_model_apply(tparams, tcfg, tg, device="cpu")
+    assert tgat.PATH_TRACE == ["v7_hybrid", "v7_hybrid"]
+    assert len(dtypes) == 2 * tables
+    assert len(set(dtypes)) == (2 if tables == 2 else 1)
+
+
 def test_hybrid_dropout_masks_are_drawn_layout_first():
     """With attention dropout on, the hybrid branch draws the layout's
     (E7, nh) mask, then the remainder's (rem_E, nh), from the one
