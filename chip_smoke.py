@@ -12,14 +12,14 @@ dataset:
           source_scores, v5_forward, v5_backward, segment_sum_rows; every
           v5 and windowed op runs source_scores once a forward);
   Pubmed  `cli.train --dataset Pubmed --reorder rcm`: RCM reorder, block
-          layout, the windowed attention op (kernels window_forward,
-          window_backward, and segment_sum_rows again for d(h));
+          layout, the windowed attention op (kernels window_forward and
+          window_backward, which sums d(h) by sender);
   Pubmed cluster  `cli.train --dataset Pubmed --reorder cluster`: cluster
           order, the hybrid split-locality layout, the windowed parts op
           over the in-window edges plus the v5 parts op over the
           remainder (kernels window_forward, v5_forward,
-          window_backward_parts, v5_backward_parts, segment_sum_rows
-          twice);
+          window_backward_parts, v5_backward_parts, segment_sum_rows for
+          the remainder's d(h));
   PPI paper_faithful  `cli.train --dataset PPI --paper_faithful`:
           block-diagonal batches of two graphs, the table op (kernels
           table_forward, table_dden and table_backward, which sums d(h)
@@ -34,7 +34,7 @@ dataset:
           v5_backward_two_phase, segment_sum_rows);
   Pubmed two-phase (GAT_TPU_V10=0, RCM): the windowed op's 2-phase form
           (window_cap, window_forward_two_phase,
-          window_backward_two_phase, segment_sum_rows);
+          window_backward_two_phase);
   Pubmed cluster two-phase (GAT_TPU_V10=0, cluster order): the v6 form,
           the v5 2-phase kernels over the graph's own edges;
   and the JAX package's bfloat16 numerics (the float32 fits above pin
@@ -65,9 +65,10 @@ Phases (every failure is fatal):
      attention sources again for a bfloat16 h table), print a [build]
      line per kernel instance with its registers and local memory
      (cuobjdump -res-usage; no instance of the wide v5 backward, rows over
-     256 floats, of the v5 and windowed forwards or of the source-score
-     pass may use any), and print the card's name and power limit as
-     nvidia-smi gives them;
+     256 floats, of the v5 and windowed forwards, of the source-score
+     pass, of the window backward by sender and its tail, of the v2
+     backward or of the d(den) prologue may use any), and print the card's
+     name and power limit as nvidia-smi gives them;
   2. the source-score pass (the table every v5 and windowed kernel reads
      its logits from) at every width the fits run, from float32 and
      bfloat16 tables, against its plain version, twice for equal bits,
@@ -90,7 +91,10 @@ Phases (every failure is fatal):
      twice, at all these
      shapes and on the hybrid layout of the cluster-ordered Pubmed
      stand-in and its remainder (the parts forwards there too, and the
-     v5 parts op with more source rows than destinations); the sorted
+     v5 parts op with more source rows than destinations); the window
+     backward's d(h), summed by sender, also against row 3 over the plain
+     version's per-slot rows (bits compared and printed), and every window
+     backward mode at 1 x 7 and 8 x 128 on the Pubmed layout; the sorted
      segment sum at widths 4 and 6 (PPI, by receiver and by sender) and
      8, 24, 64, 1024 (Pubmed), and its contract case by case
      (check_sorted_forms: one segment of 100,000 rows, a row a segment,
@@ -121,8 +125,10 @@ Phases (every failure is fatal):
      ordered reference (ordered_dh_sum), of each other and of a second
      launch; the v2 entries in both modes at
      the Cora and PPI shapes, with and without the dropout mask (the
-     backward also at eps = 1 and at each output's own magnitude, the
-     forward's bfloat16 mode, each launched twice), and the cut
+     backward also at eps = 1, at each output's own magnitude and over
+     fewer rows than the receivers reach, the forward with the Graph's
+     dst_ptr to the bits of the call without and in its bfloat16 mode,
+     each launched twice), and the cut
      contract: the partial kernel over 4 contiguous slices of the edge
      list, summed and divided, against the unsharded normalised kernel
      and its plain version;
@@ -262,33 +268,33 @@ BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
 PATH_KERNELS = {
     "v5": (("source_scores", "v5_forward"),
            {"v5_backward": 1, "segment_sum_rows": 1}),
-    "v7": (("source_scores", "window_forward"),
-           {"window_backward": 1, "segment_sum_rows": 1}),
+    # the window backward sums d(h) by sender itself: no segment_sum_rows
+    "v7": (("source_scores", "window_forward"), {"window_backward": 1}),
     # the table backward sums d(h) by sender itself: no segment_sum_rows
     "v4_table": (("table_forward",),
                  {"table_dden": 1, "table_backward": 1,
                   "segment_sum_sorted": 2}),
+    # segment_sum_rows: the remainder's d(h)
     "v7_hybrid": (("source_scores", "window_forward", "v5_forward"),
                   {"window_backward_parts": 1, "v5_backward_parts": 1,
-                   "segment_sum_rows": 2}),
+                   "segment_sum_rows": 1}),
     # v5_cap and window_cap each launch the cap stream and its reduce
     "v5 2-phase": (("source_scores", "v5_cap", "v5_forward_two_phase"),
                    {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
     "v7 2-phase": (("source_scores", "window_cap",
                     "window_forward_two_phase"),
-                   {"window_backward_two_phase": 1, "segment_sum_rows": 1}),
+                   {"window_backward_two_phase": 1}),
     "v6": (("source_scores", "v5_cap", "v5_forward_two_phase"),
            {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
     "v7 bf16": (("source_scores_bf16", "window_forward_bf16"),
-                {"window_backward_bf16": 1, "segment_sum_rows": 1}),
+                {"window_backward_bf16": 1}),
     "v7 2-phase bf16": (("source_scores", "window_cap",
                          "window_forward_two_phase_bf16"),
-                        {"window_backward_two_phase_bf16": 1,
-                         "segment_sum_rows": 1}),
+                        {"window_backward_two_phase_bf16": 1}),
     "v7_hybrid bf16": (("source_scores_bf16", "window_forward_bf16",
                         "source_scores", "v5_forward"),
                        {"window_backward_parts_bf16": 1,
-                        "v5_backward_parts": 1, "segment_sum_rows": 2}),
+                        "v5_backward_parts": 1, "segment_sum_rows": 1}),
     "v6 bf16": (("source_scores", "v5_cap", "v5_forward_two_phase_bf16"),
                 {"v5_backward_two_phase_bf16": 1, "segment_sum_rows": 1}),
     "v5 bf16": (("source_scores_bf16", "v5_forward_bf16"),
@@ -306,13 +312,13 @@ PATH_KERNELS = {
                            {"v2_backward": 1, "segment_sum_sorted": 3}),
     "sharded_v4_partial bf16": (("v2_forward_bf16",),
                                 {"v2_backward": 1, "segment_sum_sorted": 3}),
-    # the windowed parts' d(h) is reduced row-major (the JAX v7 kernel
-    # scatters it itself and reads no knob), the remainder's feature-major
+    # the remainder's d(h) is reduced feature-major under
+    # GAT_TPU_DH_REDUCE_NT=0; the windowed parts sum theirs by sender (the
+    # JAX v7 kernel scatters its own and reads no knob)
     "v7_hybrid bf16 kernels": (("source_scores_bf16", "window_forward_bf16",
                                 "v5_forward_bf16"),
                                {"window_backward_parts_bf16": 1,
                                 "v5_backward_parts_bf16": 1,
-                                "segment_sum_rows": 1,
                                 "segment_sum_rows_t": 1}),
 }
 REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5,
@@ -414,7 +420,7 @@ BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
                                        "table_dden")))
 for _k in BF16_KEYS:
     REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
-BWD_NAMES = ("d_h_rows", "d_drop", "d_s_dst", "d_a_src")
+BWD_NAMES = ("d_h", "d_drop", "d_s_dst", "d_a_src")
 TABLE_BWD_NAMES = ("d_h", "d_logits", "d_drop")
 V2_BWD_NAMES = ("d_logits", "d_h_src", "d_drop")
 
@@ -445,33 +451,50 @@ def fail(msg):
 
 # the kernels that must use no local memory in any instance (cuobjdump):
 # the wide v5 backward (C >= 16 features a lane: rows over 256 floats),
-# the forwards and the source-score pass
+# the forwards, the source-score pass, the window backward by sender with
+# its tail, the v2 backward and the d(den) prologue
 NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
             "v5_fwd_kernel": r"v5_fwd_kernel",
             "window_fwd_kernel": r"window_fwd_kernel",
-            "source_scores_kernel": r"source_scores_kernel"}
+            "source_scores_kernel": r"source_scores_kernel",
+            "window_bwd_kernel": r"window_bwd_kernel",
+            "window_bwd_tail_kernel": r"window_bwd_tail_kernel",
+            "v2_bwd_kernel": r"v2_bwd_(wide_)?kernel",
+            "dden_kernel": r"\d+dden_(narrow_)?kernel"}
+# of those, the kernels whose registers must not spill either (ptxas's
+# spill stores and loads, which cuobjdump's LOCAL does not count: they go
+# to the stack frame)
+NO_SPILL = ("window_bwd_kernel", "window_bwd_tail_kernel", "v2_bwd_kernel",
+            "dden_kernel")
 
 
 def check_resource_usage(build):
     """A [build] line per kernel instance of every library: its registers
     and its local memory (spilled registers, local arrays) as cuobjdump
-    -res-usage reports them. No instance of a NO_LOCAL kernel may use
-    any; their registers are summed up per kernel."""
+    -res-usage reports them, and ptxas's spill stores and loads. No
+    instance of a NO_LOCAL kernel may use local memory, nor may one of a
+    NO_SPILL kernel spill; their registers are summed up per kernel."""
     found = {name: [] for name in NO_LOCAL}
     for lib in build.LIBRARIES:
+        ptxas = build.spills(lib)
         for sym, reg, local, stack in build.resource_usage(lib):
+            frame, st, ld = ptxas.get(sym, (None, None, None))
             print(f"[build] {lib} {sym}: registers {reg}, local {local} "
-                  f"bytes, stack {stack} bytes")
+                  f"bytes, stack {stack} bytes, spill stores {st} and "
+                  f"loads {ld} bytes")
             for name, pattern in NO_LOCAL.items():
                 if re.search(pattern, sym):
-                    found[name].append((lib, sym, reg, local))
+                    found[name].append((lib, sym, reg, local, st, ld))
     for name, rows in found.items():
         if not rows:
             fail(f"no {name} instance in cuobjdump's report")
-        for lib, sym, reg, local in rows:
+        for lib, sym, reg, local, st, ld in rows:
             if local:
                 fail(f"{lib} {sym}: {name} uses {local} bytes of local "
                      f"memory")
+            if name in NO_SPILL and (st is None or st or ld):
+                fail(f"{lib} {sym}: {name} spills ({st} bytes stored, "
+                     f"{ld} loaded; None: no ptxas report)")
         print(f"[build] {len(rows)} {name} instances, no local memory "
               f"(registers {sorted({r[2] for r in rows})})")
 
@@ -1215,7 +1238,6 @@ def main():
         offsets at each layer shape on the layout `bl` over n_ nodes;
         returns the inputs for the timings."""
         e7 = bl.num_slots
-        real = (bl.recv >= 0).nonzero().squeeze(1)
         src_ids = bl.send[bl.src_perm.long()]      # ascending sender ids
         cases = []
         for nh, f in shapes:
@@ -1238,24 +1260,30 @@ def main():
                 need = mask is not None
 
                 def backward_mode(name, key, floor, norm, cotangents):
-                    """One backward mode against its plain version, twice;
-                    returns (its arguments, the plain d(h) rows)."""
+                    """One backward mode against its plain version, twice,
+                    and its d(h) by sender against the route it replaces
+                    (the plain per-slot rows reduced by row 3 on the
+                    card); returns (its arguments, the plain rows)."""
                     bwd_args = fwd_args + cotangents + (need,)
                     got = list(wa.window_backward(*bwd_args,
                                                   normalize=norm))
                     want = list(wa.window_backward_plain(*bwd_args,
                                                          normalize=norm))
-                    rows = want[0]
-                    # the kernel leaves the d(h) rows of pad slots unwritten
-                    got[0], want[0] = got[0][real], rows[real]
-                    again = list(wa.window_backward(*bwd_args,
-                                                    normalize=norm))
-                    again[0] = again[0][real]
-                    same_bits(name, got, again)
+                    same_bits(name, got, wa.window_backward(*bwd_args,
+                                                            normalize=norm))
                     keep = [i for i in range(4) if want[i] is not None]
                     hold_all(name, [BWD_NAMES[i] for i in keep],
                              [got[i] for i in keep], [want[i] for i in keep],
                              key, floor)
+                    rows = wa.window_backward_rows_plain(*bwd_args,
+                                                         normalize=norm)[0]
+                    routed = ss.dh_reduce_ptr(rows, bl.src_perm, bl.src_ptr)
+                    hold_all(name, ("d_h against row 3 over the plain "
+                                    "per-slot rows",), got[:1], (routed,),
+                             key, floor)
+                    print(f"  {name}: d(h) by sender "
+                          f"{'has' if torch.equal(got[0], routed) else 'has not'}"
+                          f" the bits of row 3 over the plain per-slot rows")
                     return bwd_args, rows
 
                 for eps, floor in ((1e-8, 1.0), (1.0, 0.0)):
@@ -1295,12 +1323,39 @@ def main():
     src_ids = bl.send[bl.src_perm.long()]
     W_TWO = ("window_cap", "window_forward_two_phase",
              "window_backward_two_phase")
+    # the index words the window backward by sender reads: recv, dst_perm
+    # (every slot), src_perm (the real ones), src_ptr and dst_ptr
+    W_BWD_IDX = 2 * e7 + e7_real + 2 * (np_ + 1)
     pubmed_two = []
     for nh, f in SHAPES["Pubmed"]:
         print(f"[kernels] Pubmed layer shape {nh}x{f}, 2-phase")
         pubmed_two.append(check_two_phase(
             f"Pubmed {nh}x{f}", window_two_phase_entries(bl), W_TWO, np_, nh,
-            f, e7, real))
+            f, e7))
+
+    # the backward by sender at widths no fit gives it on this layout (one
+    # head of 7 features: teams of 8 lanes, 32 slots in flight; a 1024-wide
+    # row: one team a warp, 32 floats a lane), in every float32 mode,
+    # against its plain version and twice for equal bits
+    for nh, f in ((1, 7), (8, 128)):
+        h, a_src, s_eff, drop, g = op_inputs(torch, gen, np_, nh, f, e7, dev)
+        fa = (h, a_src, s_eff, drop, bl, SLOPE)
+        num, den, cap, _ = wa.window_forward_plain(*fa)
+        out, epsp = epilogue(torch, num, den, cap, f, 1e-8)
+        d_den = torch.randn((np_, nh), generator=gen, device=dev)
+        for norm, co in ((True, (g, out, den, epsp)),
+                         (False, (g, None, d_den, None))):
+            name = (f"window_backward{'' if norm else '_parts'} Pubmed "
+                    f"layout {nh}x{f}")
+            ba = fa + co + (True,)
+            got = wa.window_backward(*ba, normalize=norm)
+            hold_all(name, BWD_NAMES, got,
+                     wa.window_backward_plain(*ba, normalize=norm),
+                     "window_backward" if norm else "window_backward_parts",
+                     1.0 if norm else 0.0)
+            same_bits(name, got, wa.window_backward(*ba, normalize=norm))
+        check_two_phase(f"Pubmed layout {nh}x{f}",
+                        window_two_phase_entries(bl), W_TWO, np_, nh, f, e7)
 
     # -- 2b'. the hybrid layout of the cluster-ordered Pubmed stand-in ------
     t0 = time.time()
@@ -1801,7 +1856,6 @@ def main():
         the forward with dropout, then the normalised backward at eps =
         1e-8 and 1, or (parts) the parts mode. Returns the inputs of the
         timings."""
-        real_ = (layout.recv >= 0).nonzero().squeeze(1)
         h, a_src, s_eff, drop, g = op_inputs(torch, gen, n_, nh, f,
                                              layout.num_slots, dev)
         fp = (h, a_src, s_eff, drop, layout, SLOPE)
@@ -1831,8 +1885,6 @@ def main():
                         (wa.window_backward_plain, fa, {"rounding": rnd}),
                         (wa.window_backward_plain, fp, {}),
                         (wa.window_backward, fa, {"rounding": rnd}))]
-            for x in outs:      # pad rows are left unwritten by the kernel
-                x[0] = x[0][real_]
             same_bits(name, outs[0], outs[3])
             hold_mode(name, BWD_NAMES, *outs[:3], key, floor)
             case.setdefault("parts_args" if parts else "bwd_args", fa + co)
@@ -1902,7 +1954,7 @@ def main():
             two_mode = wa.window_rounding(nh, f, sweep1=False)
         pubmed_two_modes.append(check_two_phase_modes(
             f"Pubmed {nh}x{f}", window_two_phase_entries(bl), W_TWO, np_, nh,
-            f, e7, two_mode, real))
+            f, e7, two_mode))
         hybrid_modes.append(check_window_modes(
             hb, hybrid.num_nodes, nh, f, pair,
             f"Pubmed hybrid layout {nh}x{f}", True))
@@ -1962,6 +2014,8 @@ def main():
             want = sa.v2_forward_plain(*fa)
             hold_all(name, names, got, want, "v2_forward")
             same_bits(name, got, sa.v2_forward(*fa))
+            same_bits(name + " with the graph's dst_ptr", got,
+                      sa.v2_forward(*fa, dst_ptr=graph.dst_ptr))
             if not all(torch.isfinite(x).all() for x in got) or \
                     not all((x[empty] == 0).all() for x in got):
                 fail(f"{name}: rows without a real edge are not 0")
@@ -1992,6 +2046,21 @@ def main():
                     fail(f"{name}: padding edges' cotangents are not 0")
                 case.setdefault(f"bwd_{mode}", ba)
             case[f"fwd_{mode}"] = fa
+        # edges whose receiver is no row of the call (a cotangent of fewer
+        # rows than the receivers reach) get zero cotangents
+        ba = case["bwd_partial"]
+        cut = n_ - 7
+        bc = ba[:6] + (ba[6][:cut].contiguous(), None,
+                       ba[8][:cut].contiguous()) + ba[9:]
+        name = f"v2_backward {label} partial over the first {cut} rows"
+        got, want = sa.v2_backward(*bc), sa.v2_backward_plain(*bc)
+        keep = [i for i in range(3) if want[i] is not None]
+        hold_all(name, [V2_BWD_NAMES[i] for i in keep],
+                 [got[i] for i in keep], [want[i] for i in keep],
+                 "v2_backward", 0.0)
+        past = rcv_ >= cut
+        if not all((got[i][past] == 0).all() for i in keep):
+            fail(f"{name}: edges past the rows have non-zero cotangents")
         # the sharded layer hands the partial op the real edges' h_src
         # rows alone: the same bits, d(h_src) for those rows
         name = f"v2 {label} partial on the real edges' h_src rows"
@@ -2514,17 +2583,19 @@ def main():
     # bytes: every input read once, every output written once (float32 and
     # int32 = 4 bytes); ops: this run's real edges, and the products that
     # depend on the sender alone once a sender
-    def attention_ops(n_src, e_edges, d, nh):
+    def attention_ops(n_src, e_edges, d, nh, sums=False):
         """(forward, backward) operations of an op over e_edges real edges
         and n_src senders. Forward, timed with its score pass: the sender's
         dot h @ a_src once a sender (2 d nh), per edge the weighted row
         (2 d) and the per-head terms. Backward, given the table: per edge
         its d(h) row's d(raw) @ a_src^T (2 d nh, the row is per edge), q
-        and the coefficient's row (4 d) and the per-head terms; d(a_src)
+        and the coefficient's row (4 d) and the per-head terms, and where
+        it sums d(h) by sender itself (sums) the row's add (d); d(a_src)
         = h^T S once a sender (2 d nh; S the per-sender sums of d(raw))."""
         dots = 2 * n_src * d * nh
         return (dots + e_edges * (2 * d + 4 * nh),
-                dots + e_edges * (2 * d * nh + 4 * d + 10 * nh))
+                dots + e_edges * (2 * d * nh + (5 if sums else 4) * d
+                                  + 10 * nh))
 
     def v5_time_rows(graph, c):
         """The v5 kernels and the d(h) reduce at one case of check_v5."""
@@ -2671,18 +2742,22 @@ def main():
                                      device=dev).index_add_(0, s, r[:e]))
 
     def two_phase_time_rows(c, entries, keys, n_, slots, idx, real_edges,
-                            rows_out):
+                            rows_out, idx_bwd=None):
         """The three 2-phase entries at one case of check_two_phase. idx:
         the index words the op reads (v5: senders and receivers, window:
-        send, dst_perm and dst_ptr); rows_out: the d(h) rows written. The
-        cap pass reads the tables and the index, the forward also the
-        mask and the cap and writes out and den, the backward reads g,
-        out, den besides and writes d(h) rows, d(mask), d(s_dst),
-        d(a_src) and d(cap)."""
+        send, dst_perm and dst_ptr); rows_out: the d(h) rows written;
+        idx_bwd: the backward's index words where they differ (the window
+        backward by sender: recv, src_perm, src_ptr, dst_perm, dst_ptr; it
+        writes d(h) per node and sums it itself). The cap pass reads the
+        tables and the index, the forward also the mask and the cap and
+        writes out and den, the backward reads g, out, den besides and
+        writes d(h), d(mask), d(s_dst), d(a_src) and d(cap)."""
         nh, d = c["nh"], c["nh"] * c["f"]
         dm = slots * nh
         base = n_ * d + d * nh + n_ * nh + idx
-        o_fwd, o_bwd = attention_ops(n_, real_edges, d, nh)
+        base_bwd = base if idx_bwd is None else base - idx + idx_bwd
+        o_fwd, o_bwd = attention_ops(n_, real_edges, d, nh,
+                                     sums=idx_bwd is not None)
         ca, fa, ba = c["cap_args"], c["fwd_args"], c["bwd_args"]
         cap_k, cap_p, fwd_k, fwd_p, bwd_k, bwd_p = entries
         kw = given(ba)
@@ -2693,8 +2768,9 @@ def main():
             keys[1]: (lambda: fwd_k(*fa), lambda: fwd_p(*fa), None,
                       4 * (base + dm + 1 + n_ * d + n_ * nh), o_fwd),
             keys[2]: (lambda: bwd_k(*ba, **kw), lambda: bwd_p(*ba), None,
-                      4 * (base + n_ * nh + dm + 1 + 2 * n_ * d + n_ * nh
-                           + rows_out * d + dm + n_ * nh + d * nh + 1),
+                      4 * (base_bwd + n_ * nh + dm + 1 + 2 * n_ * d
+                           + n_ * nh + rows_out * d + dm + n_ * nh + d * nh
+                           + 1),
                       o_bwd, lambda: bwd_k(*ba)),
         }
 
@@ -2706,7 +2782,7 @@ def main():
     for c in pubmed_two:
         time_rows(f"Pubmed {c['nh']}x{c['f']} 2-phase", two_phase_time_rows(
             c, window_two_phase_entries(bl), W_TWO, np_, e7,
-            2 * e7 + np_ + 1, e7_real, e7_real), into_json=True)
+            2 * e7 + np_ + 1, e7_real, np_, W_BWD_IDX), into_json=True)
     for c in hybrid_two:
         he = hybrid.num_edges
         time_rows(f"Pubmed cluster {c['nh']}x{c['f']} 2-phase (the v6 form)",
@@ -2717,18 +2793,21 @@ def main():
 
     def window_time_rows(layout, n_, c):
         """The window kernels at one case of check_window. Inputs h,
-        a_src, s_dst, drop, send, dst_perm, dst_ptr; the backward also g,
-        out, den, eps' (parts mode: d(num), d(den)) and writes the real
-        slots' rows."""
+        a_src, s_dst, drop, send, dst_perm, dst_ptr; the backward (by
+        sender) also the source-score table, g, out, den, eps' (parts
+        mode: d(num), d(den)) and the index words recv, src_perm, src_ptr,
+        dst_perm, dst_ptr, and writes d(h) per node, d(mask), d(s_dst) and
+        d(a_src)."""
         nh, d = c["nh"], c["nh"] * c["f"]
         fa, ba, pa = c["fwd_args"], c["bwd_args"], c["parts_args"]
         slots, slots_real = layout.num_slots, layout.num_real
-        b_in = n_ * d + d * nh + n_ * nh + slots * nh + 2 * slots + n_ + 1
-        b_fwd = 4 * (b_in + n_ * d + n_ * nh + 2)
-        # the backward also reads the op's source-score table (n, nh)
-        b_bwd = 4 * (b_in + n_ * nh + 2 * n_ * d + n_ * nh + 1
-                     + slots_real * d + slots * nh + n_ * nh + d * nh)
-        o_fwd, o_bwd = attention_ops(n_, slots_real, d, nh)
+        b_in = n_ * d + d * nh + n_ * nh + slots * nh
+        b_fwd = 4 * (b_in + 2 * slots + n_ + 1 + n_ * d + n_ * nh + 2)
+        idx_bwd = 2 * slots + slots_real + 2 * (n_ + 1)
+        b_bwd = 4 * (b_in + idx_bwd + n_ * nh + 2 * n_ * d + n_ * nh + 1
+                     + n_ * d + slots * nh + n_ * nh + d * nh)
+        o_fwd = attention_ops(n_, slots_real, d, nh)[0]
+        o_bwd = attention_ops(n_, slots_real, d, nh, sums=True)[1]
         kw = given(ba)
         return {
             "window_forward": (lambda: wa.window_forward(*fa),
@@ -2980,7 +3059,8 @@ def main():
         _, _, fwd_k, fwd_p, bwd_k, bwd_p = window_two_phase_entries(bl)
         time_rows(f"Pubmed {nh}x{f} 2-phase [{mode_tag(r2)}]", mode_rows(
             two_phase_time_rows(c232, window_two_phase_entries(bl), W_TWO,
-                                np_, e7, 2 * e7 + np_ + 1, e7_real, e7_real), {
+                                np_, e7, 2 * e7 + np_ + 1, e7_real, np_,
+                                W_BWD_IDX), {
                 "window_forward_two_phase_bf16": (
                     "window_forward_two_phase", lambda: fwd_k(*fa2, r2),
                     lambda: fwd_p(*fa2, r2), r2, np_ * d),

@@ -514,7 +514,8 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                                             num_nodes, src_order[:er],
                                             ptr=src_ptr)
         num, den = v2.fused_segment_attention_partial(
-            logits, h_src, receivers, drop, num_nodes, nh, f, er)
+            logits, h_src, receivers, drop, num_nodes, nh, f, er,
+            dst_ptr=dst_ptr)
         num, den = C.psum(num, ax), C.psum(den, ax)
         inv = torch.where(den > 0, 1.0 / (den + eps), torch.zeros_like(den))
         out = num.reshape(num_nodes, nh, f) * inv[:, :, None]

@@ -13,7 +13,9 @@ for a bfloat16 h table (the table modes of rounding.py), each library
 holding the kernels of one element type, so that the two builds run side
 by side. The file name carries a hash of the source, the headers and the
 flags, so an edited source is rebuilt and a stale library is never
-loaded. `build_all()` starts one nvcc per library at once.
+loaded. `build_all()` starts one nvcc per library at once; ptxas's report
+of each kernel (-Xptxas -v: registers, stack frame, spill stores and
+loads) is kept beside the library (`spills`).
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent module only touches nvcc when a kernel is launched
@@ -37,7 +39,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("v5_attention", "segment_sum", "window_attention",
            "table_attention", "segment_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the sources built again for a bfloat16 h table, and the libraries
 _BF16_TABLE = "_bf16table"
 TABLE_SOURCES = ("v5_attention", "window_attention", "table_attention")
@@ -124,6 +126,7 @@ def build_all(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name} (rc {proc.returncode}):\n{text}")
             continue
+        out.with_suffix(".ptxas.txt").write_text(text)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -148,6 +151,23 @@ def resource_usage(name: str):
             found.append((symbol, int(fields["REG"]),
                           int(fields.get("LOCAL", 0)),
                           int(fields.get("STACK", 0))))
+            symbol = None
+    return found
+
+
+def spills(name: str):
+    """{kernel symbol: (stack frame bytes, spill store bytes, spill load
+    bytes)} of the built library `name`, from ptxas's report kept beside
+    it at its build."""
+    text = _lib_path(name).with_suffix(".ptxas.txt").read_text()
+    found, symbol = {}, None
+    for line in text.splitlines():
+        if "Function properties for " in line:
+            symbol = line.split("Function properties for ", 1)[1].strip()
+        elif symbol is not None and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            found[symbol] = tuple(nums[:3])
             symbol = None
     return found
 

@@ -301,6 +301,274 @@ __device__ __forceinline__ float warp_sums(float (&q)[U], int lane) {
   return s;
 }
 
+// warp_sums over each team of `lanes` lanes (a power of two >= KP, KP a
+// power of two; a team is an aligned group of lanes): KP - 1 +
+// log2(lanes / KP) shuffles. Lane t of a team returns the team's sum of
+// q[t / (lanes / KP)]; q is overwritten.
+template <int KP>
+__device__ __forceinline__ float team_sums(float (&q)[KP], int lane,
+                                           int lanes) {
+  int o = lanes >> 1;
+#pragma unroll
+  for (int m = KP; m > 1; m >>= 1, o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int j = 0; j < m / 2; ++j) {
+      const float keep = up ? q[j + m / 2] : q[j];
+      const float give = up ? q[j] : q[j + m / 2];
+      q[j] = keep + __shfl_xor_sync(kFull, give, o);
+    }
+  }
+  float s = q[0];
+  for (; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s;
+}
+
+// V consecutive floats read or written once (a stream through device
+// memory that L2 need not keep: evict-first)
+template <int V>
+__device__ __forceinline__ void load_vec_cs(const float* __restrict__ p,
+                                            float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = __ldcs(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec_cs(float* __restrict__ p,
+                                             const float (&v)[V]) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (V == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+// -- the backwards' d(den) prologue -------------------------------------------
+//
+// dden[d, k] = -inv[d, k] * sum over head k's features j of out[d, kf+j] *
+// g[d, kf+j], inv = den > 0 ? 1 / (den + eps) : 0: the per-destination
+// d(den) term of the normalised backwards of the table and v2 ops
+// (table_attention.cu, segment_attention.cu). Heads of at least 32
+// features: one warp a (destination, head), the products summed with fmaf
+// in a fixed order and a butterfly; narrower heads: one thread a
+// (destination, head), its products summed with fmaf in feature order.
+constexpr int kDdenWarps = 8;
+
+__global__ void __launch_bounds__(kDdenWarps * 32, 1)
+dden_kernel(const float* __restrict__ g, const float* __restrict__ out,
+            const float* __restrict__ den, int n, int d_feat, int nh, int f,
+            float eps, float* __restrict__ dden) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kDdenWarps + (threadIdx.x >> 5);
+  if (w >= n * nh) return;  // the whole warp
+  const int d = w / nh, k = w - d * nh;
+  const size_t base = (size_t)d * d_feat + (size_t)k * f;
+  float p = 0.f;
+#pragma unroll 4
+  for (int j = lane; j < f; j += 32) p = fmaf(out[base + j], g[base + j], p);
+  const float dn = den[w];
+  const float inv = dn > 0.f ? 1.f / (dn + eps) : 0.f;
+  const float s = warp_sum(p);
+  if (lane == 0) dden[w] = -s * inv;
+}
+
+__global__ void __launch_bounds__(kDdenWarps * 32, 1)
+dden_narrow_kernel(const float* __restrict__ g, const float* __restrict__ out,
+                   const float* __restrict__ den, int n, int d_feat, int nh,
+                   int f, float eps, float* __restrict__ dden) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n * nh) return;
+  const int d = w / nh, k = w - d * nh;
+  const size_t base = (size_t)d * d_feat + (size_t)k * f;
+  float p = 0.f;
+  for (int j = 0; j < f; ++j) p = fmaf(out[base + j], g[base + j], p);
+  const float dn = den[w];
+  const float inv = dn > 0.f ? 1.f / (dn + eps) : 0.f;
+  dden[w] = -p * inv;
+}
+
+inline int launch_dden(const float* g, const float* out, const float* den,
+                       int n, int d_feat, int nh, int f, float eps,
+                       float* dden, cudaStream_t st) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const int threads = kDdenWarps * 32;
+  if (f >= 32) {
+    const int blocks = (n * nh + kDdenWarps - 1) / kDdenWarps;
+    dden_kernel<<<blocks, threads, 0, st>>>(g, out, den, n, d_feat, nh, f,
+                                            eps, dden);
+  } else {
+    const int blocks = (n * nh + threads - 1) / threads;
+    dden_narrow_kernel<<<blocks, threads, 0, st>>>(g, out, den, n, d_feat,
+                                                   nh, f, eps, dden);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[i] = sum over the rows r < nrows, in order, of part[r, i], for the
+// kSumCols columns i of block `blk` (of ceil(len / kSumCols) blocks of
+// WARPS warps): warp w adds the rows w, w + WARPS, ..., lane l column
+// blk * kSumCols + l, then the warps' sums are added in warp order. A fixed
+// order whatever the grid of the pass that wrote the rows.
+constexpr int kSumCols = 32;
+
+template <int WARPS>
+__device__ __forceinline__ void sum_rows_block(const float* __restrict__ part,
+                                               int nrows, int len, int blk,
+                                               float* __restrict__ out) {
+  __shared__ float ws[WARPS][kSumCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blk * kSumCols + lane;
+  float s = 0.f;
+  if (i < len) {
+#pragma unroll 4
+    for (int r = warp; r < nrows; r += WARPS) s += part[(size_t)r * len + i];
+  }
+  ws[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && i < len) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) t += ws[w][lane];
+    out[i] = t;
+  }
+}
+
+// The plan of a kernel that gives a whole row to a team of `lanes` lanes
+// (ops/cuda/v5_attention.py row_plan): lane t of a team holds the vectors
+// of V elements starting at V * (t + lanes * c), c < C; teams of at least
+// kMaxHeads lanes (team_sums over the heads), a vector meeting at most two
+// heads (V <= f + 1), every pointer aligned to V elements.
+inline bool row_plan_ok(int d_feat, int nh, int f, int vec, int per_lane,
+                        int lanes) {
+  const bool pow2 = lanes >= kMaxHeads && lanes <= 32 && !(lanes & (lanes - 1));
+  return d_feat >= 1 && d_feat <= 1024 && nh >= 1 && nh <= kMaxHeads &&
+         nh * f == d_feat && vec >= 1 && per_lane >= 1 && !(d_feat % vec) &&
+         pow2 && lanes * vec * per_lane >= d_feat &&
+         (f % vec == 0 || vec <= f + 1);
+}
+
+// The rows a team of such a kernel keeps in flight: in_flight's, at most
+// four (eight left a team's per-head partial sums of every row live at
+// once, and ptxas spilled them)
+__host__ __device__ constexpr int row_flight(int elems) {
+  return in_flight(elems) < 4 ? in_flight(elems) : 4;
+}
+
+// A lane's place in such a plan: its team g and lane t in the team, and
+// per vector c its first element j0, whether it lies in the row (live),
+// the heads h0 and h1 of its first and last element, and whether element
+// v of it is head h0's (first). The heads are packed four bits a vector
+// and the elements one bit each, worked out once: taken per element, the
+// divisions by f cost more than the row's loads at 6 x 121, and arrays of
+// them took 160 registers at 32 elements a lane.
+template <int V, int C>
+struct RowLanes {
+  static_assert(V * C <= 32, "one mask bit an element");
+  int teams, g, t, lanes, d_feat;
+  bool split;
+  unsigned firsts;                 // bit V*c + v: element v is head h0's
+  unsigned heads[(C + 7) / 8];     // h0 of vector c: 4 bits at 4*(c%8)
+  __device__ __forceinline__ RowLanes(int lane, int lanes_, int d_feat_,
+                                      int f)
+      : teams(32 / lanes_), g(lane / lanes_), t(lane & (lanes_ - 1)),
+        lanes(lanes_), d_feat(d_feat_), split(f % V != 0), firsts(0u) {
+#pragma unroll
+    for (int i = 0; i < (C + 7) / 8; ++i) heads[i] = 0u;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = j0(c);
+      const int h = j < d_feat ? j / f : 0;
+      heads[c / 8] |= (unsigned)h << (4 * (c % 8));
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (j >= d_feat || j + v < (h + 1) * f) firsts |= 1u << (V * c + v);
+    }
+  }
+  // at 16 or more elements a lane the plan has one team of 32 lanes: the
+  // offsets are then constants past t (a register each, else)
+  __device__ __forceinline__ int j0(int c) const {
+    if constexpr (V * C >= 16) {
+      return V * (t + 32 * c);
+    } else {
+      return V * (t + lanes * c);
+    }
+  }
+  __device__ __forceinline__ bool live(int c) const {
+    return j0(c) < d_feat;
+  }
+  __device__ __forceinline__ int h0(int c) const {
+    return (heads[c / 8] >> (4 * (c % 8))) & 15;
+  }
+  // element v of vector c belongs to head h0 (else h1 = h0 + 1)
+  __device__ __forceinline__ bool first(int c, int v) const {
+    return (firsts >> (V * c + v)) & 1u;
+  }
+  __device__ __forceinline__ int h1(int c) const {
+    return h0(c) + (((~firsts >> (V * c)) & ((1u << V) - 1u)) ? 1 : 0);
+  }
+  // q[k] += this lane's part of sum over head k's elements of x * y
+  __device__ __forceinline__ void add_head_dots(const float (&x)[V],
+                                                const float (&y)[V], int c,
+                                                float (&q)[kMaxHeads]) const {
+    float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (first(c, v)) {
+        p0 = fmaf(x[v], y[v], p0);
+      } else {
+        p1 = fmaf(x[v], y[v], p1);
+      }
+    }
+    const int k0 = h0(c);
+#pragma unroll
+    for (int k = 0; k < kMaxHeads; ++k) {
+      if (k == k0) q[k] += p0;
+      if (split && k == k0 + 1) q[k] += p1;
+    }
+  }
+  // q[k] = this lane's part of sum over head k's elements of x * y
+  __device__ __forceinline__ void head_dots(const float (&x)[C][V],
+                                            const float (&y)[C][V],
+                                            float (&q)[kMaxHeads]) const {
+#pragma unroll
+    for (int k = 0; k < kMaxHeads; ++k) q[k] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) add_head_dots(x[c], y[c], c, q);
+  }
+};
+
+// V consecutive floats of shared memory at p, read where they are used:
+// volatile, so that the compiler does not hoist a loop-invariant table
+// (a_src, nh x 32 floats a lane at wide rows) into registers
+template <int V>
+__device__ __forceinline__ void lds_vec(const float* p, float (&v)[V]) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (V == 4) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                 : "r"(a));
+  } else if constexpr (V == 2) {
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                 : "=f"(v[0]), "=f"(v[1])
+                 : "r"(a));
+  } else {
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[0]) : "r"(a));
+  }
+}
+
 // fn(Int<V>, Int<C>) for the vector width `vec` and the vectors a lane
 // holds `per_lane`, among the pairs with V * C <= LIMIT elements a lane
 // and C <= MAXC; cudaErrorInvalidValue for any other pair
@@ -317,6 +585,42 @@ int with_vc(int vec, int per_lane, F&& fn) {
   return (int)cudaErrorInvalidValue;
 }
 #undef GAT_TRY_VC
+
+// The split of a head's elements over a warp (table_attention.cu, and the
+// v2 backward at f >= 32): lane l holds the vectors b + V*(l + 32c), c < C,
+// b the vector that holds the head's first element.
+// fn(Int<V>): the widest vector of V elements to which every row of the
+// h table (elements of T) and of the float tables a, b is aligned: 4 where
+// it divides f (no vector straddles two heads), else 2 where it divides the
+// row (a vector may straddle two heads: the kernels mask by element), else 1
+template <typename T, typename F>
+int with_vec(int f, int d_feat, const T* h, const float* a, const float* b,
+             F&& fn) {
+  if (f % 4 == 0 && aligned(h, 4 * sizeof(T)) && aligned(a, 16) &&
+      aligned(b, 16))
+    return fn(Int<4>{});
+  if (d_feat % 2 == 0 && aligned(h, 2 * sizeof(T)) && aligned(a, 8) &&
+      aligned(b, 8))
+    return fn(Int<2>{});
+  return fn(Int<1>{});
+}
+
+// fn(Int<C>): the vectors a lane needs to cover head k's elements from the
+// vector that holds the first, C*V <= 32
+template <int V, typename F>
+int with_c(int f, F&& fn) {
+  const int span = f % V ? f + V - 1 : f;
+  const int c_need = (span + 32 * V - 1) / (32 * V);
+  if (c_need <= 1) return fn(Int<1>{});
+  if (c_need <= 2) return fn(Int<2>{});
+  if (c_need <= 4) return fn(Int<4>{});
+  if (c_need <= 8) return fn(Int<8>{});
+  if constexpr (V <= 2)
+    if (c_need <= 16) return fn(Int<16>{});
+  if constexpr (V == 1)
+    if (c_need <= 32) return fn(Int<32>{});
+  return (int)cudaErrorInvalidValue;
+}
 
 // The (max, lowest code) of every thread of the block into
 // blk_max / blk_code[blockIdx.x]: a butterfly over each warp, then thread

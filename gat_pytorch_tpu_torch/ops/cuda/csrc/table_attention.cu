@@ -5,7 +5,7 @@
 //   gat_pytorch_tpu/ops/pallas/segment_attention.py:_kernel_split
 //     (launched by _forward_split for fused_segment_attention_table)
 //   gat_pytorch_tpu/ops/pallas/segment_attention_bwd.py:_kernel_split
-//     (launched by backward_split; its d(den) prologue is table_dden_kernel)
+//     (launched by backward_split; its d(den) prologue is dden_kernel)
 // and, for this op, the d(h) reduction that the JAX package runs after the
 // backward (segment_attention.py:_dh_reduce, segment_sum.py:_kernel_rows_nt
 // or _kernel_rows): the TPU kernel writes per-edge d(h) rows because Mosaic
@@ -21,7 +21,8 @@
 //   out[dst,kf+j] = inv[dst,k] * sum_e ex[e,k] * drop[e,k] * h[src,kf+j]
 // Backward, with g = d(out), hg[e,k] = sum_j h[src,kf+j] * g[dst,kf+j],
 // dden[dst,k] = -inv[dst,k] * sum_j out[dst,kf+j] * g[dst,kf+j] (its own
-// launch, table_dden_kernel) and coef[e,k] = ex[e,k] * drop[e,k] * inv[dst,k]:
+// launch, attention_common.cuh dden_kernel) and coef[e,k] = ex[e,k] *
+// drop[e,k] * inv[dst,k]:
 //   d_h[s,kf+j]   = sum over s's edges e, in src_order, of coef[e,k] *
 //                   g[dst,kf+j]
 //   d_logits[e,k] = ex[e,k] * (hg[e,k] * inv[dst,k] * drop[e,k] + dden)
@@ -167,27 +168,6 @@ table_fwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
   if (lane == 0) den[(size_t)d * nh + k] = dsum;
 }
 
-constexpr int kDdenWarps = 8;
-
-// the backward's prelude: one warp a (destination, head)
-__global__ void __launch_bounds__(kDdenWarps * 32)
-table_dden_kernel(const float* __restrict__ g, const float* __restrict__ out,
-                  const float* __restrict__ den, int n, int d_feat, int nh,
-                  int f, float eps, float* __restrict__ dden) {
-  const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kDdenWarps + (threadIdx.x >> 5);
-  if (w >= n * nh) return;  // the whole warp
-  const int d = w / nh, k = w - d * nh;
-  const size_t base = (size_t)d * d_feat + (size_t)k * f;
-  float p = 0.f;
-#pragma unroll 4
-  for (int j = lane; j < f; j += 32) p = fmaf(out[base + j], g[base + j], p);
-  const float dn = den[w];
-  const float inv = dn > 0.f ? 1.f / (dn + eps) : 0.f;
-  const float s = warp_sum(p);
-  if (lane == 0) dden[w] = -s * inv;
-}
-
 // the backward by sender: block s < n_src is sender s, warp k head k; the
 // blocks past them zero the padding edges' d(logits) and d(drop)
 template <int V, int C, typename T>
@@ -331,39 +311,6 @@ table_bwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
       store_in<V>(dhrow + 32 * V * c, acc[c], col + 32 * V * c, lo_k, hi_k);
 }
 
-// fn(Int<V>): the widest vector of V elements to which every row of the
-// h table (elements of T) and of the float tables a, b is aligned: 4 where
-// it divides f (no vector straddles two heads), else 2 where it divides the
-// row (a vector may straddle two heads: the kernels mask by element), else 1
-template <typename T, typename F>
-int with_vec(int f, int d_feat, const T* h, const float* a, const float* b,
-             F&& fn) {
-  if (f % 4 == 0 && aligned(h, 4 * sizeof(T)) && aligned(a, 16) &&
-      aligned(b, 16))
-    return fn(Int<4>{});
-  if (d_feat % 2 == 0 && aligned(h, 2 * sizeof(T)) && aligned(a, 8) &&
-      aligned(b, 8))
-    return fn(Int<2>{});
-  return fn(Int<1>{});
-}
-
-// fn(Int<C>): the vectors a lane needs to cover head k's elements from the
-// vector that holds the first, C*V <= 32
-template <int V, typename F>
-int with_c(int f, F&& fn) {
-  const int span = f % V ? f + V - 1 : f;
-  const int c_need = (span + 32 * V - 1) / (32 * V);
-  if (c_need <= 1) return fn(Int<1>{});
-  if (c_need <= 2) return fn(Int<2>{});
-  if (c_need <= 4) return fn(Int<4>{});
-  if (c_need <= 8) return fn(Int<8>{});
-  if constexpr (V <= 2)
-    if (c_need <= 16) return fn(Int<16>{});
-  if constexpr (V == 1)
-    if (c_need <= 32) return fn(Int<32>{});
-  return (int)cudaErrorInvalidValue;
-}
-
 bool bad_shape(int d_feat, int nh, int f) {
   return d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads ||
          nh * f != d_feat;
@@ -408,10 +355,8 @@ int table_dden(const float* g, const float* out, const float* den, int n,
                int d_feat, int nh, int f, float eps, float* dden,
                void* stream) {
   if (bad_shape(d_feat, nh, f) || n < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n * nh + kDdenWarps - 1) / kDdenWarps;
-  table_dden_kernel<<<blocks, kDdenWarps * 32, 0, (cudaStream_t)stream>>>(
-      g, out, den, n, d_feat, nh, f, eps, dden);
-  return (int)cudaGetLastError();
+  return launch_dden(g, out, den, n, d_feat, nh, f, eps, dden,
+                     (cudaStream_t)stream);
 }
 
 // The backward by sender: d_h (n_src, d_feat), d_logits and d_drop (E, nh),

@@ -22,7 +22,11 @@ dropout-weighted sum:
 and fused_segment_attention returns num * inv with
 inv = den > 0 ? 1 / (den + eps) : 0, fused_segment_attention_partial
 (num, den) for a sum over edge shards (models/gat.py). Both are
-differentiable in the logits, h_src and the mask. The JAX ops' `eb`,
+differentiable in the logits, h_src and the mask. The forward kernel walks
+each destination's run of the dst-sorted edges: a caller that holds their
+CSR offsets (Graph.dst_ptr, an edge shard's own) passes them as dst_ptr,
+else they are derived per call; the backward kernel is a map over the
+edges and reads no offsets. The JAX ops' `eb`,
 `nb`, `interpret` and `vma` arguments size TPU blocks or type shard_map
 outputs and are not carried.
 
@@ -43,7 +47,7 @@ import torch
 from .. import segment as seg
 from . import build
 from .rounding import FLOAT32, V2_BF16, Rounding, maybe_bf16
-from .v5_attention import MAX_HEADS, _matmul_dtype
+from .v5_attention import MAX_HEADS, _matmul_dtype, align_of, row_plan
 
 NEG_INF = -1e30          # the logit of a padding edge
 _KERNEL = "segment_attention"
@@ -62,8 +66,8 @@ def _lib() -> ctypes.CDLL:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.v2_forward.argtypes = [p] * 4 + [i] * 5 + [fl, i, p, p, i, i, p]
         lib.v2_forward.restype = ctypes.c_int
-        lib.v2_backward.argtypes = ([p] * 4 + [i] * 7 + [fl, i] + [p] * 6
-                                    + [i, p])
+        lib.v2_backward.argtypes = ([p] * 4 + [i] * 7 + [fl, i] + [p] * 7
+                                    + [i] * 4 + [p])
         lib.v2_backward.restype = ctypes.c_int
         _configured = True
     return lib
@@ -168,12 +172,12 @@ def _check_inputs(logits, h_src, drop, receivers, num_nodes, e_real):
 
 def _v2_forward_cuda(logits, h_src, drop, receivers, num_nodes: int,
                      e_real: int, eps: float, normalize: bool,
-                     rounding: Rounding):
+                     rounding: Rounding, dst_ptr=None):
     dev, e, d, nh = _check_inputs(logits, h_src, drop, receivers,
                                   num_nodes, e_real)
     if rounding not in (FLOAT32, V2_BF16):
         raise ValueError(f"no such mode of the v2 forward: {rounding}")
-    row_ptr = build.csr_offsets(receivers, num_nodes)
+    row_ptr = build.row_offsets(receivers, num_nodes, dst_ptr)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((num_nodes, d), **f32)
     den = torch.empty((num_nodes, nh), **f32)
@@ -199,30 +203,38 @@ def _v2_backward_cuda(logits, h_src, drop, receivers, e_real: int,
         build.require(out, "out", dev, torch.float32, (n, d))
     build.require(pay, "den" if normalize else "d_den", dev, torch.float32,
                   (n, nh))
-    row_ptr = build.csr_offsets(receivers, n)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h = torch.empty((h_src.shape[0], d), **f32)
     d_logits = torch.empty((e, nh), **f32)
     d_drop = torch.empty((e, nh), **f32) if need_drop else None
+    dden = torch.empty((n, nh), **f32) if normalize else None
+    plan = row_plan(nh, d // nh, min(align_of(h_src), align_of(g)))
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib().v2_backward(
-            p(logits), p(h_src), p(drop), p(row_ptr), n, e_real,
+            p(logits), p(h_src), p(drop), p(receivers), n, e_real,
             h_src.shape[0], e, d, nh, d // nh, eps, int(normalize), p(g),
-            p(out) if normalize else None, p(pay), p(d_h), p(d_logits),
-            p(d_drop), build.grid_blocks(n), build.stream(dev))
+            p(out) if normalize else None, p(pay), p(dden), p(d_h),
+            p(d_logits), p(d_drop), *plan, build.stream(dev))
     build.check(err, "v2_backward")
     build.LAUNCHES["v2_backward"] += 1
     return d_logits, d_h, d_drop
 
 
 def v2_forward(logits, h_src, drop, receivers, num_nodes: int, e_real: int,
-               eps: float, normalize: bool, rounding: Rounding = FLOAT32):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+               eps: float, normalize: bool, rounding: Rounding = FLOAT32,
+               dst_ptr=None):
+    """Kernel on CUDA tensors, plain version on CPU tensors. dst_ptr: the
+    receivers' CSR offsets (num_nodes + 1,) where the caller holds them
+    (Graph.dst_ptr; build.row_offsets checks them), derived per call
+    otherwise; the plain version reads the receivers alone."""
     if logits.is_cuda:
         return _v2_forward_cuda(logits, h_src, drop, receivers, num_nodes,
-                                e_real, eps, normalize, rounding)
+                                e_real, eps, normalize, rounding, dst_ptr)
     build.require_cpu(logits)
+    if dst_ptr is not None:
+        build.require(dst_ptr, "dst_ptr", receivers.device, torch.int32,
+                      (num_nodes + 1,))
     return v2_forward_plain(logits, h_src, drop, receivers, num_nodes,
                             e_real, eps, normalize, rounding)
 
@@ -244,9 +256,9 @@ class _SegmentAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, h_src, drop_mask, receivers, num_nodes, e_real,
-                eps, rounding):
+                eps, rounding, dst_ptr):
         out, den = v2_forward(logits, h_src, drop_mask, receivers,
-                              num_nodes, e_real, eps, True, rounding)
+                              num_nodes, e_real, eps, True, rounding, dst_ptr)
         ctx.save_for_backward(logits, h_src, drop_mask, receivers, out, den)
         ctx.e_real, ctx.eps = e_real, eps
         return out
@@ -258,16 +270,17 @@ class _SegmentAttention(torch.autograd.Function):
             logits, h_src, drop_mask, receivers, ctx.e_real, ctx.eps,
             g.contiguous(), out, den,
             drop_mask is not None and ctx.needs_input_grad[2], True)
-        return (d_logits, d_h, d_drop) + (None,) * 5
+        return (d_logits, d_h, d_drop) + (None,) * 6
 
 
 class _SegmentAttentionPartial(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, h_src, drop_mask, receivers, num_nodes, e_real,
-                rounding):
+                rounding, dst_ptr):
         num, den = v2_forward(logits, h_src, drop_mask, receivers,
-                              num_nodes, e_real, 0.0, False, rounding)
+                              num_nodes, e_real, 0.0, False, rounding,
+                              dst_ptr)
         ctx.save_for_backward(logits, h_src, drop_mask, receivers)
         ctx.e_real = e_real
         return num, den
@@ -283,7 +296,7 @@ class _SegmentAttentionPartial(torch.autograd.Function):
             logits, h_src, drop_mask, receivers, ctx.e_real, 0.0,
             g_num.contiguous(), None, g_den.contiguous(),
             drop_mask is not None and ctx.needs_input_grad[2], False)
-        return (d_logits, d_h, d_drop) + (None,) * 4
+        return (d_logits, d_h, d_drop) + (None,) * 5
 
 
 def _edges(logits, h_src, receivers, nh: int, f: int,
@@ -306,7 +319,8 @@ def fused_segment_attention(logits: torch.Tensor, h_src: torch.Tensor,
                             drop_mask: Optional[torch.Tensor],
                             num_nodes: int, nh: int, f: int,
                             eps: float = 1e-8,
-                            num_real_edges: Optional[int] = None
+                            num_real_edges: Optional[int] = None, *,
+                            dst_ptr: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """out (num_nodes, nh*f): the softmax-weighted sum of h_src by
     destination, differentiable in logits, h_src and drop_mask.
@@ -317,11 +331,14 @@ def fused_segment_attention(logits: torch.Tensor, h_src: torch.Tensor,
     drop_mask (E, nh) attention-dropout multipliers or None.
     num_real_edges: the edges from there on are padding and are not
     walked; None walks every edge that has an h_src row, which gives the
-    same result. The dtype knob (module doc) is read now."""
+    same result. dst_ptr: the receivers' CSR offsets (num_nodes + 1,)
+    int32, where the caller holds them (Graph.dst_ptr, an edge shard's
+    own); the forward derives them otherwise (two launches a call). The
+    dtype knob (module doc) is read now."""
     e_real = _edges(logits, h_src, receivers, nh, f, num_real_edges)
     return _SegmentAttention.apply(logits.contiguous(), h_src.contiguous(),
                                    drop_mask, receivers, num_nodes, e_real,
-                                   eps, v2_rounding())
+                                   eps, v2_rounding(), dst_ptr)
 
 
 def fused_segment_attention_partial(logits: torch.Tensor,
@@ -329,7 +346,8 @@ def fused_segment_attention_partial(logits: torch.Tensor,
                                     receivers: torch.Tensor,
                                     drop_mask: Optional[torch.Tensor],
                                     num_nodes: int, nh: int, f: int,
-                                    num_real_edges: Optional[int] = None
+                                    num_real_edges: Optional[int] = None,
+                                    *, dst_ptr: Optional[torch.Tensor] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(num (num_nodes, nh*f), den (num_nodes, nh)), unnormalised: every
     destination row is written, zeros where it has no edge here, so that
@@ -338,4 +356,4 @@ def fused_segment_attention_partial(logits: torch.Tensor,
     e_real = _edges(logits, h_src, receivers, nh, f, num_real_edges)
     return _SegmentAttentionPartial.apply(
         logits.contiguous(), h_src.contiguous(), drop_mask, receivers,
-        num_nodes, e_real, v2_rounding())
+        num_nodes, e_real, v2_rounding(), dst_ptr)

@@ -176,6 +176,18 @@ class ScorePlan(NamedTuple):
     lanes: int
 
 
+class RowPlan(NamedTuple):
+    """The split of a row for the kernels that give a whole row to a team
+    of `lanes` lanes (the windowed backward by sender, the v2 backward;
+    attention_common.cuh RowLanes): lane t of a team holds the vectors
+    vec*(t + lanes*c), c < per_lane; unroll: the rows a team has in
+    flight."""
+    vec: int
+    per_lane: int
+    lanes: int
+    unroll: int
+
+
 def _pow2(x: int) -> int:
     """The least power of two >= x (x >= 1)."""
     return 1 << (x - 1).bit_length()
@@ -216,6 +228,28 @@ def lane_plan(nh: int, f: int, align: int = 4) -> LanePlan:
     few = -(-(32 // nh) // teams) <= 2     # a team's edges a batch
     return LanePlan(False, vec, per_lane, lanes,
                     2 if few else in_flight(vec * per_lane))
+
+
+def row_plan(nh: int, f: int, align: int = 4) -> RowPlan:
+    """The team-per-row plan at nh heads of f features, vectors of at most
+    `align` elements: the widest vector that divides the row and meets at
+    most two heads (as lane_plan's narrow rows), and the fewest lanes, a
+    power of two of at least MAX_HEADS (the kernels reduce a team's
+    per-head sums across its lanes) and at most 32, that cover the row with
+    one vector each, or 32 lanes of several: the most teams a warp (at
+    Pubmed's 8 x 3, four teams of 8 lanes beat one of 32 lanes with heads
+    of whole lanes, PERF.md). A team keeps two rows in flight where a batch
+    of 32 // nh rows gives it at most two, else in_flight's, at most four
+    (csrc/attention_common.cuh row_flight)."""
+    d = nh * f
+    vec = next(v for v in (4, 2, 1)
+               if v <= align and d % v == 0 and (f % v == 0 or v <= f + 1))
+    nvec = d // vec
+    lanes = min(32, max(MAX_HEADS, _pow2(nvec)))
+    per_lane = _pow2(-(-nvec // lanes))
+    few = -(-(32 // nh) // (32 // lanes)) <= 2
+    return RowPlan(vec, per_lane, lanes,
+                   2 if few else min(4, in_flight(vec * per_lane)))
 
 
 def score_plan(d: int, align: int = 4) -> ScorePlan:

@@ -6,8 +6,9 @@ fused_gat_window_v7 (:1771) with its VJP `_fgw7_fwd`/`_fgw7_bwd`
 with `_v7sp_fwd`/`_v7sp_bwd`, the same sweep without its epilogue
 (ops/cuda/v5_attention.py says what the parts are for). The kernels are
 csrc/window_attention.cu (forward: `_kernel_v6`; backward:
-`_kernel_v6_bwd`, in its normalised and its parts mode) and the d(h)
-reduction of ops/cuda/segment_sum.py. `window_forward_plain` and
+`_kernel_v6_bwd`, in its normalised and its parts mode, with the d(h)
+reduction that the JAX package runs after it: the backward sums d(h) by
+sender and returns it per node). `window_forward_plain` and
 `window_backward_plain` are their plain torch versions.
 
 It computes the function of ops/cuda/v5_attention.py (see its module doc
@@ -64,15 +65,15 @@ import torch
 from ...graph.graph import BlockLayout
 from . import build
 from .rounding import FLOAT32, Rounding, check_table
-from .segment_sum import dh_reduce_ptr
+from .segment_sum import dh_reduce_plain
 from .v5_attention import (MAX_HEADS, attention_backward_plain,
                            attention_backward_two_phase_plain,
                            attention_cap_plain, attention_forward_plain,
                            attention_forward_two_phase_plain, cap_blocks,
                            cap_cotangent, forward_blocks,
                            fused_gat_table, normalise, op_scores, plan_of,
-                           route_cap_cotangent, score_bound_of, scores_of,
-                           v5_local_cap)
+                           route_cap_cotangent, row_plan, score_bound_of,
+                           scores_of, v5_local_cap, align_of)
 
 _KERNEL = "window_attention"
 _configured = set()
@@ -116,8 +117,8 @@ def window_rounding(nh: int, f: int, sweep1: bool = True) -> Rounding:
 
 def _lib(bf16_table: bool = False) -> ctypes.CDLL:
     """The kernels' library for a float32 h table, or for the packed
-    window's bfloat16 one (window_forward, window_backward and
-    window_backward_parts only, rows at most 64 wide)."""
+    window's bfloat16 one (window_forward, and window_backward in its
+    single-sweep modes, rows at most 64 wide)."""
     name = build.library(_KERNEL, bf16_table)
     lib = build.load(name)
     if name not in _configured:
@@ -126,12 +127,9 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.window_forward.argtypes = ([p] * 7 + [i] * 4 + [fl] + [p] * 6
                                        + plan + [i, i, p])
         lib.window_forward.restype = ctypes.c_int
-        lib.window_backward.argtypes = ([p] * 8 + [i] * 5 + [fl] + [p] * 9
-                                        + [i, i, p])
+        lib.window_backward.argtypes = ([p] * 10 + [i] * 6 + [fl] * 2
+                                        + [p] * 12 + [i] * 6 + [p])
         lib.window_backward.restype = ctypes.c_int
-        lib.window_backward_parts.argtypes = ([p] * 8 + [i] * 5 + [fl]
-                                              + [p] * 7 + [i, i, p])
-        lib.window_backward_parts.restype = ctypes.c_int
         _configured.add(name)
         if bf16_table:
             return lib
@@ -141,10 +139,6 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
                                                  + [fl] * 2 + [p] * 2
                                                  + plan + [i, i, p])
         lib.window_forward_two_phase.restype = ctypes.c_int
-        lib.window_backward_two_phase.argtypes = ([p] * 9 + [i] * 5
-                                                  + [fl] * 2 + [p] * 8
-                                                  + [i, i, p])
-        lib.window_backward_two_phase.restype = ctypes.c_int
     return lib
 
 
@@ -170,17 +164,39 @@ def window_forward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
         slope, rounding, s_src)
 
 
-def window_backward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
-                          slope: float, g, out, den, epsp, need_drop: bool,
-                          normalize: bool = True,
-                          rounding: Rounding = FLOAT32, s_src=None):
+def window_backward_rows_plain(h, a_src, s_dst_eff, drop,
+                               layout: BlockLayout, slope: float, g, out,
+                               den, epsp, need_drop: bool,
+                               normalize: bool = True,
+                               rounding: Rounding = FLOAT32, s_src=None):
     """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop (E7, nh) |
-    None, d_s_dst (N, nh), d_a_src (D, nh)) before the cap chain;
+    None, d_s_dst (N, nh), d_a_src (D, nh)): the TPU kernel's outputs, whose
+    per-slot rows the JAX package then reduces by sender;
     normalize=False as v5_attention.attention_backward_plain takes it."""
     return attention_backward_plain(
         h, a_src, s_dst_eff, drop, *_slots(layout, s_dst_eff.shape[0]),
         slope, g, out, den, epsp, need_drop, normalize, rounding=rounding,
         s_src=s_src)
+
+
+def window_backward_plain(h, a_src, s_dst_eff, drop, layout: BlockLayout,
+                          slope: float, g, out, den, epsp, need_drop: bool,
+                          normalize: bool = True,
+                          rounding: Rounding = FLOAT32, s_src=None):
+    """(d_h (N, D) per node, d_drop (E7, nh) | None, d_s_dst (N, nh),
+    d_a_src (D, nh)) before the cap chain: window_backward_rows_plain with
+    each sender's rows summed in ascending position of its run of
+    layout.src_perm (dh_reduce_plain), the order of the kernel."""
+    rows, *rest = window_backward_rows_plain(
+        h, a_src, s_dst_eff, drop, layout, slope, g, out, den, epsp,
+        need_drop, normalize, rounding, s_src)
+    return (_by_sender(rows, layout), *rest)
+
+
+def _by_sender(rows, layout: BlockLayout):
+    """Per-slot d(h) rows (E7, D) summed by sender (N, D) over the runs of
+    layout.src_perm, in ascending position."""
+    return dh_reduce_plain(rows, layout.src_perm, layout.src_ptr)
 
 
 def window_cap_plain(s_src, s_dst, layout: BlockLayout):
@@ -201,17 +217,33 @@ def window_forward_two_phase_plain(h, a_src, s_dst, cap, drop,
         slope, rounding, s_src)
 
 
+def window_backward_two_phase_rows_plain(h, a_src, s_dst, cap, drop,
+                                         layout: BlockLayout, eps: float,
+                                         slope: float, g, out, den,
+                                         need_drop: bool,
+                                         rounding: Rounding = FLOAT32,
+                                         s_src=None):
+    """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop | None,
+    d_s_dst, d_a_src, d_cap): the 2-phase TPU kernel's outputs over the
+    slots."""
+    return attention_backward_two_phase_plain(
+        h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
+        slope, g, out, den, need_drop, rounding, s_src)
+
+
 def window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
                                     layout: BlockLayout, eps: float,
                                     slope: float, g, out, den,
                                     need_drop: bool,
                                     rounding: Rounding = FLOAT32,
                                     s_src=None):
-    """(d_h rows (E7, D) in slot order, 0 on pad slots, d_drop | None,
-    d_s_dst, d_a_src, d_cap) of the 2-phase op over the slots."""
-    return attention_backward_two_phase_plain(
-        h, a_src, s_dst, cap, drop, *_slots(layout, s_dst.shape[0]), eps,
-        slope, g, out, den, need_drop, rounding, s_src)
+    """(d_h (N, D) per node, d_drop | None, d_s_dst, d_a_src, d_cap) of
+    the 2-phase op over the slots, d_h summed by sender as
+    window_backward_plain's."""
+    rows, *rest = window_backward_two_phase_rows_plain(
+        h, a_src, s_dst, cap, drop, layout, eps, slope, g, out, den,
+        need_drop, rounding, s_src)
+    return (_by_sender(rows, layout), *rest)
 
 
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
@@ -228,6 +260,16 @@ def _check_layout(layout: BlockLayout, dev, n: int):
     build.require(layout.dst_ptr, "layout.dst_ptr", dev, torch.int32,
                   (n + 1,))
     return e7
+
+
+def _check_sender_runs(layout: BlockLayout, dev, n: int):
+    """The backward by sender also walks the real slots by sender."""
+    e7 = layout.num_slots
+    build.require(layout.recv, "layout.recv", dev, torch.int32, (e7,))
+    build.require(layout.src_perm, "layout.src_perm", dev, torch.int32,
+                  (None,))
+    build.require(layout.src_ptr, "layout.src_ptr", dev, torch.int32,
+                  (n + 1,))
 
 
 def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout,
@@ -277,43 +319,69 @@ def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
     return num, den, cap, code
 
 
+_MODES = {"window_backward": 0, "window_backward_parts": 1,
+          "window_backward_two_phase": 2}
+
+
+def _window_backward_launch(name, h, a_src, s_src, s_dst, drop, layout,
+                            slope: float, eps: float, g, out, den, epsp, cap,
+                            need_drop: bool, rounding: Rounding):
+    """One call of the C entry window_backward in the mode of `name`:
+    (d_h (n, d), d_drop | None, d_sdst, d_asrc (d*nh [+ 1]))."""
+    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
+                                      rounding)
+    _check_sender_runs(layout, dev, n)
+    mode = _MODES[name]
+    build.require(g, "g", dev, torch.float32, (n, d))
+    build.require(den, "den" if mode != 1 else "d_den", dev, torch.float32,
+                  (n, nh))
+    if mode != 1:
+        build.require(out, "out", dev, torch.float32, (n, d))
+    if mode == 0:
+        build.require(epsp, "epsp", dev, torch.float32, ())
+    if mode == 2:
+        build.require(cap, "cap", dev, torch.float32, ())
+    s_src = scores_of(h, a_src, s_src)
+    # a fixed grid (a function of n: the blocks' d(a_src) partial rows are
+    # summed in block order), up to eight blocks an SM of the 132: senders'
+    # runs differ in length, and more blocks than fit at once balance them
+    nblk = max(1, min(-(-n // build.WARPS_PER_BLOCK), 8 * 132))
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_h = torch.empty((n, d), **f32)
+    d_drop = torch.empty((e7, nh), **f32) if need_drop else None
+    d_sdst = torch.empty((n, nh), **f32)
+    stride = d * nh + (1 if mode == 2 else 0)
+    d_asrc = torch.empty((stride,), **f32)
+    dsd = torch.empty((e7, nh), **f32)
+    dsum = torch.empty((n, nh), **f32)
+    part = torch.empty((nblk, stride), **f32)
+    plan = row_plan(nh, d // nh, min(align_of(h), align_of(g)))
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib(rounding.table).window_backward(
+            p(h), p(a_src), p(s_src), p(s_dst), p(drop), p(layout.recv),
+            p(layout.src_perm), p(layout.src_ptr), p(layout.dst_perm),
+            p(layout.dst_ptr), n, e7, d, nh, d // nh, mode, slope, eps,
+            p(g), p(out) if mode != 1 else None, p(den),
+            p(epsp) if mode == 0 else None, p(cap) if mode == 2 else None,
+            p(d_h), p(d_drop), p(d_sdst), p(d_asrc), p(dsd), p(dsum),
+            p(part), *plan, nblk, rounding.flags(),
+            build.stream(dev))
+    build.check(err, name)
+    build.LAUNCHES[rounding.counter(name)] += 1
+    return d_h, d_drop, d_sdst, d_asrc
+
+
 def _window_backward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
                           g, out, den, epsp, need_drop: bool,
                           normalize: bool = True,
                           rounding: Rounding = FLOAT32, s_src=None):
-    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout,
-                                      rounding)
-    build.require(g, "g", dev, torch.float32, (n, d))
-    build.require(den, "den", dev, torch.float32, (n, nh))
-    if normalize:
-        build.require(out, "out", dev, torch.float32, (n, d))
-        build.require(epsp, "epsp", dev, torch.float32, ())
-    s_src = scores_of(h, a_src, s_src)
-    nblk = build.grid_blocks(n)
-    f32 = dict(dtype=torch.float32, device=dev)
-    d_h_rows = torch.empty((e7, d), **f32)
-    d_drop = torch.empty((e7, nh), **f32) if need_drop else None
-    d_sdst = torch.empty((n, nh), **f32)
-    part = torch.empty((nblk, d * nh), **f32)
-    d_asrc = torch.empty((d, nh), **f32)
-    p = build.ptr
-    lib = _lib(rounding.table)
-    graph_args = (p(h), p(a_src), p(s_src), p(s_dst_eff), p(drop),
-                  p(layout.send), p(layout.dst_perm), p(layout.dst_ptr), n,
-                  e7, d, nh, d // nh, slope)
-    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc), nblk,
-               rounding.flags(), build.stream(dev))
     name = "window_backward" if normalize else "window_backward_parts"
-    with torch.cuda.device(dev):
-        if normalize:
-            err = lib.window_backward(*graph_args, p(g), p(out), p(den),
-                                      p(epsp), *outputs)
-        else:       # g is d(num), den is d(den)
-            err = lib.window_backward_parts(*graph_args, p(g), p(den),
-                                            *outputs)
-    build.check(err, name)
-    build.LAUNCHES[rounding.counter(name)] += 1
-    return d_h_rows, d_drop, d_sdst, d_asrc
+    d_h, d_drop, d_sdst, d_asrc = _window_backward_launch(
+        name, h, a_src, s_src, s_dst_eff, drop, layout, slope, 0.0, g,
+        out if normalize else None, den, epsp if normalize else None, None,
+        need_drop, rounding)
+    return d_h, d_drop, d_sdst, d_asrc.view(h.shape[1], -1)
 
 
 def _window_cap_cuda(s_src, s_dst, layout):
@@ -369,32 +437,12 @@ def _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
                                     need_drop: bool,
                                     rounding: Rounding = FLOAT32,
                                     s_src=None):
-    dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
-                                      rounding)
-    build.require(cap, "cap", dev, torch.float32, ())
-    for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
-                           (den, "den", (n, nh))):
-        build.require(t, name, dev, torch.float32, shape)
-    s_src = scores_of(h, a_src, s_src)
-    nblk = build.grid_blocks(n)
-    f32 = dict(dtype=torch.float32, device=dev)
-    d_h_rows = torch.empty((e7, d), **f32)
-    d_drop = torch.empty((e7, nh), **f32) if need_drop else None
-    d_sdst = torch.empty((n, nh), **f32)
-    part = torch.empty((nblk, d * nh + 1), **f32)
-    d_asrc_cap = torch.empty((d * nh + 1,), **f32)
-    p = build.ptr
-    with torch.cuda.device(dev):
-        err = _lib().window_backward_two_phase(
-            p(h), p(a_src), p(s_src), p(s_dst), p(cap), p(drop),
-            p(layout.send), p(layout.dst_perm), p(layout.dst_ptr), n, e7, d,
-            nh, d // nh, eps, slope, p(g), p(out), p(den), p(d_h_rows),
-            p(d_drop), p(d_sdst), p(part), p(d_asrc_cap), nblk,
-            rounding.flags(), build.stream(dev))
-    build.check(err, "window_backward_two_phase")
-    build.LAUNCHES[rounding.counter("window_backward_two_phase")] += 1
-    return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
-            d_asrc_cap[d * nh])
+    d_h, d_drop, d_sdst, d_asrc_cap = _window_backward_launch(
+        "window_backward_two_phase", h, a_src, s_src, s_dst, drop, layout,
+        slope, eps, g, out, den, None, cap, need_drop, rounding)
+    d = h.shape[1]
+    return (d_h, d_drop, d_sdst, d_asrc_cap[:-1].view(d, -1),
+            d_asrc_cap[-1])
 
 
 def window_forward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
@@ -415,9 +463,10 @@ def window_backward(h, a_src, s_dst_eff, drop, layout: BlockLayout,
                     slope: float, g, out, den, epsp, need_drop: bool,
                     normalize: bool = True, rounding: Rounding = FLOAT32, *,
                     s_src=None):
-    """Kernel on CUDA tensors (the d(h) rows of pad slots are left
-    unwritten there), plain version on CPU tensors. normalize=False is
-    the parts mode; it launches the kernel's parts mode and counts as
+    """(d_h (N, D) per node, d_drop (E7, nh) | None, d_s_dst (N, nh),
+    d_a_src (D, nh)) before the cap chain: the kernel by sender on CUDA
+    tensors, the plain version on CPU tensors. normalize=False is the parts
+    mode; it launches the kernel's parts mode and counts as
     "window_backward_parts". s_src: as window_forward's."""
     if h.is_cuda:
         return _window_backward_cuda(h, a_src, s_dst_eff, drop, layout,
@@ -462,9 +511,9 @@ def window_backward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
                               eps: float, slope: float, g, out, den,
                               need_drop: bool, rounding: Rounding = FLOAT32,
                               *, s_src=None):
-    """(d_h rows in slot order, d_drop | None, d_s_dst, d_a_src, d_cap)
-    of the 2-phase op. Kernel on CUDA tensors (pad rows unwritten there),
-    plain version on CPU tensors. s_src: as window_forward's."""
+    """(d_h (N, D) per node, d_drop | None, d_s_dst, d_a_src, d_cap) of
+    the 2-phase op. Kernel on CUDA tensors, plain version on CPU tensors.
+    s_src: as window_forward's."""
     if h.is_cuda:
         return _window_backward_two_phase_cuda(h, a_src, s_dst, cap, drop,
                                                layout, eps, slope, g, out,
@@ -507,10 +556,9 @@ class _WindowAttention(torch.autograd.Function):
         layout, nh, slope = ctx.layout, ctx.nh, ctx.slope
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
-        d_h_rows, d_drop, d_sdst, d_asrc = window_backward(
+        d_h, d_drop, d_sdst, d_asrc = window_backward(
             h_k, a_src, s_dst_eff, drop_mask, layout, slope, g, out, den,
             epsp, need_drop, rounding=ctx.rounding, s_src=s_src)
-        d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
             code, layout.send, layout.recv, h_flat, a_src, nh)
@@ -568,10 +616,9 @@ class _WindowTwoPhase(torch.autograd.Function):
          den) = ctx.saved_tensors
         layout = ctx.layout
         need_drop = drop_mask is not None and ctx.needs_input_grad[4]
-        d_h_rows, d_drop, d_sdst, d_asrc, d_cap = window_backward_two_phase(
+        d_h, d_drop, d_sdst, d_asrc, d_cap = window_backward_two_phase(
             h_flat, a_src, s_dst, cap, drop_mask, layout, ctx.eps, ctx.slope,
             g.contiguous(), out, den, need_drop, ctx.rounding, s_src=s_src)
-        d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 5
 
 
@@ -694,11 +741,10 @@ class _WindowSweep1Parts(torch.autograd.Function):
          code) = ctx.saved_tensors
         layout = ctx.layout
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
-        d_h_rows, d_drop, d_sdst, d_asrc = window_backward(
+        d_h, d_drop, d_sdst, d_asrc = window_backward(
             h_k, a_src, s_dst_eff, drop_mask, layout, ctx.slope,
             d_num.contiguous(), None, d_den.contiguous(), None, need_drop,
             normalize=False, rounding=ctx.rounding, s_src=s_src)
-        d_h = dh_reduce_ptr(d_h_rows, layout.src_perm, layout.src_ptr)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, d_cap, code, layout.send, layout.recv,
             h_flat, a_src, ctx.nh)

@@ -1,10 +1,13 @@
-"""Side-by-side times of the narrow attention backwards of two trees of
-the port on one card: the v5 backward (row 2 of PERF.md's kernel table)
-at Cora's and PATTERN's layer shapes and the windowed backward (row 13)
-at Pubmed's, in float32 and in the bfloat16 mode each fit runs.
+"""Side-by-side times of attention backwards of two trees of the port on
+one card: the v5 backward (row 2 of PERF.md's kernel table) at Cora's and
+PATTERN's layer shapes, the windowed backward (row 13) at Pubmed's in its
+three modes (normalised and 2-phase on the RCM layout, parts on the hybrid
+layout's in-window slots), and the v2 backward (row 10) at PPI's and
+Cora's layer shapes in its partial and normalised modes, each in float32
+and in the bfloat16 mode its fits run (the v2 backward has none).
 
     python3 tools/ab_backward.py --tree parent=build/parent --tree change=. \
-        --order parent,change,change,parent
+        --order parent,change,change,parent [--rows 2,10,13]
 
 Each entry of --order runs in a process of its own, from its tree (its
 package and its kernels, built there under build/torch_kernels), on the
@@ -15,9 +18,12 @@ backward recomputes the sender's dot per edge; or one that computes the
 table first), and `given`, the call given the table its op's forward
 computed, where the tree's entry takes one (`s_src=`), and the largest
 difference of the call's outputs from its plain version on the same
-inputs over max(1, |ref|). The card's name and power limit are printed
-with the results, which also go to chiprun_out/ab_backward.jsonl. Needs
-one CUDA card.
+inputs over max(1, |ref|). A windowed backward's time includes its d(h)
+per node: where the tree's entry returns per-slot rows, the call is the
+entry and the reduction by sender the op runs after it (row 3,
+dh_reduce_ptr). The card's name and power limit are printed with the
+results, which are also written as JSON lines (ab_backward.jsonl, in the
+output directory below). Needs one CUDA card.
 """
 
 import argparse
@@ -29,8 +35,13 @@ import sys
 from pathlib import Path
 
 SLOPE, DROPOUT = 0.01, 0.6     # as chip_smoke.py
-CASES = (("Cora", 8, 8), ("Cora", 1, 7), ("PATTERN", 4, 12),
-         ("PATTERN", 4, 24), ("Pubmed", 8, 8), ("Pubmed", 8, 3))
+V5_CASES = (("Cora", 8, 8), ("Cora", 1, 7), ("PATTERN", 4, 12),
+            ("PATTERN", 4, 24))
+WINDOW_CASES = (("Pubmed", 8, 8), ("Pubmed", 8, 3))
+# the v2 backward as the sharded fits run it: PPI paper_faithful (no
+# mask) and Cora (dropout)
+V2_CASES = (("PPI", 4, 256, False), ("PPI", 6, 121, False),
+            ("Cora", 8, 8, True), ("Cora", 1, 7, True))
 
 
 def time_ms(torch, fn, calls=20, replays=10):
@@ -56,12 +67,22 @@ def time_ms(torch, fn, calls=20, replays=10):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def worker(label, root):
-    """Time every case from the tree at `root`; one JSON line per case."""
+def rel_err(got, want):
+    """Largest |got - want| over max(1, |want|) across the outputs."""
+    return max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+               for x, y in zip(got, want) if x is not None)
+
+
+def worker(label, root, rows):
+    """Time every case of the rows asked for from the tree at `root`; one
+    JSON line per case."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
     from gat_pytorch_tpu_torch.data import datasets, loader
+    from gat_pytorch_tpu_torch.ops import segment as seg
     from gat_pytorch_tpu_torch.ops.cuda import build
+    from gat_pytorch_tpu_torch.ops.cuda import segment_attention as sa
+    from gat_pytorch_tpu_torch.ops.cuda import segment_sum as ss
     from gat_pytorch_tpu_torch.ops.cuda import v5_attention as v5
     from gat_pytorch_tpu_torch.ops.cuda import window_attention as wa
     from gat_pytorch_tpu_torch.ops.cuda.rounding import FLOAT32, Rounding
@@ -69,22 +90,30 @@ def worker(label, root):
 
     build.build_all()
     dev = torch.device("cuda")
+    pubmed_raw = datasets.load_planetoid("Pubmed", synthetic_override=True,
+                                         seed=0)
     graphs = {"Cora": loader.transductive_graph(datasets.load_planetoid(
         "Cora", synthetic_override=True, seed=0)).to(dev)}
     graphs["PATTERN"] = loader.InductiveBatcher(
         datasets.load_pattern("train", True, 0),
         get_config("PATTERN").batch_size, shuffle=False).epoch()[0].to(dev)
+    graphs["PPI"] = loader.InductiveBatcher(
+        datasets.load_ppi("train", True, 0), get_config("PPI").batch_size,
+        shuffle=False).epoch()[0].to(dev)
     graphs["Pubmed"] = loader.transductive_graph(
-        datasets.load_planetoid("Pubmed", synthetic_override=True, seed=0),
-        reorder="rcm", src_windows=True).to(dev)
+        pubmed_raw, reorder="rcm", src_windows=True).to(dev)
+    hybrid = loader.transductive_graph(
+        pubmed_raw, reorder="cluster", src_windows=True, hybrid=True).to(dev)
     takes_table = ("s_src" in inspect.signature(v5.v5_backward).parameters)
-    for name, nh, f in CASES:
-        graph = graphs[name]
-        gen = torch.Generator(device=dev).manual_seed(nh * 100 + f)
-        n, d = graph.num_nodes, nh * f
-        windowed = name == "Pubmed"
-        slots = (graph.block_layout.num_slots if windowed
-                 else graph.num_edges)
+
+    def emit(row, case, tag, whole, given, err):
+        print(json.dumps({"tree": label, "row": row, "case": case,
+                          "mode": tag, "whole_ms": whole, "given_ms": given,
+                          "rel_err": err}), flush=True)
+
+    def inputs(n, nh, f, slots, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d = nh * f
         h = torch.randn((n, d), generator=gen, device=dev)
         a_src = torch.randn((d, nh), generator=gen, device=dev) / d ** 0.5
         s_dst = torch.randn((n, nh), generator=gen, device=dev)
@@ -92,54 +121,127 @@ def worker(label, root):
         drop = ((torch.rand((slots, nh), generator=gen, device=dev)
                  >= DROPOUT).float() / (1.0 - DROPOUT))
         g = torch.randn((n, d), generator=gen, device=dev)
-        if windowed:
-            os.environ["GAT_TPU_V6_DTYPE"] = "bfloat16"
-            modes = (("float32", FLOAT32),
-                     ("bf16", wa.window_rounding(nh, f)))
-        else:
-            modes = (("float32", FLOAT32),
-                     ("bf16", Rounding(table=True, acc=True)))
-        for tag, rnd in modes:
-            hk = rnd.table_of(h)
-            if windowed:
-                bl = graph.block_layout
-                num, den, cap, _ = wa.window_forward(hk, a_src, s_eff, drop,
-                                                     bl, SLOPE, rnd)
-                args = (hk, a_src, s_eff, drop, bl, SLOPE)
-                entry, kw = wa.window_backward, dict(rounding=rnd)
-            else:
-                er = graph.num_real_edges
+        d_den = torch.randn((n, nh), generator=gen, device=dev)
+        return h, a_src, s_dst, s_eff, drop, g, d_den
+
+    def time_entry(entry, args, kw, table_of, done=None):
+        """Time entry(*args, **kw) whole and given its table (table_of()),
+        `done` applied to its outputs (a windowed tree's reduction)."""
+        call = entry if done is None else (
+            lambda *a, **k: done(entry(*a, **k)))
+        whole = time_ms(torch, lambda: call(*args, **kw))
+        given = None
+        if takes_table:
+            table = table_of()
+            given = time_ms(torch, lambda: call(*args, **kw, s_src=table))
+        return whole, given
+
+    if "2" in rows:
+        for name, nh, f in V5_CASES:
+            graph = graphs[name]
+            n, er = graph.num_nodes, graph.num_real_edges
+            h, a_src, _, s_eff, drop, g, _ = inputs(
+                n, nh, f, graph.num_edges, nh * 100 + f)
+            for tag, rnd in (("float32", FLOAT32),
+                             ("bf16", Rounding(table=True, acc=True))):
+                hk = rnd.table_of(h)
                 num, den, cap, _ = v5.v5_forward(
                     hk, a_src, s_eff, drop, graph.senders, graph.receivers,
                     er, SLOPE, graph.dst_ptr, rnd)
+                epsp = 1e-8 * torch.exp(SLOPE * cap)
+                out = num / (den.repeat_interleave(f, dim=1) + epsp)
                 args = (hk, a_src, s_eff, drop, graph.senders,
-                        graph.receivers, er, SLOPE)
-                entry = v5.v5_backward
+                        graph.receivers, er, SLOPE, g, out, den, epsp, True)
                 kw = dict(dst_ptr=graph.dst_ptr, rounding=rnd,
                           src_order=graph.src_order, src_ptr=graph.src_ptr)
-            epsp = 1e-8 * torch.exp(SLOPE * cap)
-            out = num / (den.repeat_interleave(f, dim=1) + epsp)
-            args += (g, out, den, epsp, True)
-            # the kernel against its plain version on the card (the
-            # windowed d(h) rows of pad slots are unwritten: not compared)
-            plain = (wa.window_backward_plain if windowed
-                     else v5.v5_backward_plain)
-            got = entry(*args, **kw)
-            want = plain(*args, rounding=rnd)
-            err = max(float((x - y).abs().max()) / max(1.0, float(
-                y.abs().max())) for x, y in zip(got[1 if windowed else 0:],
-                                                 want[1 if windowed else 0:])
-                      if x is not None)
-            whole = time_ms(torch, lambda: entry(*args, **kw))
-            given = None
-            if takes_table:
-                table = v5.source_scores(hk, a_src)
-                given = time_ms(torch, lambda: entry(*args, **kw,
-                                                     s_src=table))
-            print(json.dumps({"tree": label, "case": f"{name} {nh}x{f}",
-                              "mode": tag, "whole_ms": whole,
-                              "given_ms": given, "rel_err": err}),
-                  flush=True)
+                err = rel_err(v5.v5_backward(*args, **kw),
+                              v5.v5_backward_plain(*args, rounding=rnd))
+                emit(2, f"{name} {nh}x{f}", tag, *time_entry(
+                    v5.v5_backward, args, kw,
+                    lambda: v5.source_scores(hk, a_src)), err)
+
+    if "13" in rows:
+        for name, nh, f in WINDOW_CASES:
+            os.environ["GAT_TPU_V6_DTYPE"] = "bfloat16"
+            for mode, graph in (("normalised", graphs["Pubmed"]),
+                                ("parts", hybrid),
+                                ("2-phase", graphs["Pubmed"])):
+                bl, n = graph.block_layout, graph.num_nodes
+                h, a_src, s_dst, s_eff, drop, g, d_den = inputs(
+                    n, nh, f, bl.num_slots, nh * 100 + f)
+
+                def by_sender(outs, bl=bl, n=n):
+                    """d(h) per node: the tree's, or its per-slot rows
+                    reduced as the op reduces them."""
+                    if outs[0].shape[0] == n:
+                        return outs
+                    return (ss.dh_reduce_ptr(outs[0], bl.src_perm,
+                                             bl.src_ptr),) + tuple(outs[1:])
+
+                two = mode == "2-phase"
+                for tag, rnd in (("float32", FLOAT32),
+                                 ("bf16", wa.window_rounding(
+                                     nh, f, sweep1=not two))):
+                    hk = rnd.table_of(h)
+                    if two:
+                        cap = wa.window_cap(v5.source_scores(h, a_src),
+                                            s_dst, bl)[0]
+                        fa = (hk, a_src, s_dst, cap, drop, bl, 1e-8, SLOPE)
+                        out, den = wa.window_forward_two_phase(*fa, rnd)
+                        args = fa + (g, out, den, True)
+                        entry, plain = (wa.window_backward_two_phase,
+                                        wa.window_backward_two_phase_plain)
+                        kw = dict(rounding=rnd)
+                    else:
+                        num, den, cap, _ = wa.window_forward(
+                            hk, a_src, s_eff, drop, bl, SLOPE, rnd)
+                        epsp = 1e-8 * torch.exp(SLOPE * cap)
+                        out = num / (den.repeat_interleave(f, dim=1) + epsp)
+                        co = ((g, out, den, epsp) if mode == "normalised"
+                              else (g, None, d_den, None))
+                        args = (hk, a_src, s_eff, drop, bl, SLOPE) + co + (
+                            True,)
+                        entry, plain = wa.window_backward, \
+                            wa.window_backward_plain
+                        kw = dict(rounding=rnd,
+                                  normalize=mode == "normalised")
+                    got = by_sender(entry(*args, **kw))
+                    want = by_sender(plain(*args, **kw))
+                    emit(13, f"{name} {nh}x{f}", f"{mode} {tag}",
+                         *time_entry(entry, args, kw,
+                                     lambda: v5.source_scores(hk, a_src),
+                                     by_sender), rel_err(got, want))
+
+    if "10" in rows:
+        for name, nh, f, with_drop in V2_CASES:
+            graph = graphs[name]
+            n, e, er = graph.num_nodes, graph.num_edges, graph.num_real_edges
+            d = nh * f
+            gen = torch.Generator(device=dev).manual_seed(nh * 1000 + f)
+            h = torch.randn((n, d), generator=gen, device=dev)
+            logits = torch.where(
+                graph.edge_mask[:, None],
+                torch.randn((e, nh), generator=gen, device=dev),
+                torch.full((e, nh), sa.NEG_INF, device=dev))
+            # the sharded layer's h_src: the real edges' rows alone
+            h_src = seg.gather_rows(h, graph.senders[:er]).contiguous()
+            drop = (((torch.rand((e, nh), generator=gen, device=dev)
+                      >= DROPOUT).float() / (1.0 - DROPOUT))
+                    if with_drop else None)
+            g = torch.randn((n, d), generator=gen, device=dev)
+            d_den = torch.randn((n, nh), generator=gen, device=dev)
+            for mode in ("partial", "normalised"):
+                norm = mode == "normalised"
+                out, den = sa.v2_forward_plain(logits, h_src, drop,
+                                               graph.receivers, n, er, 1e-8,
+                                               True)
+                args = (logits, h_src, drop, graph.receivers, er, 1e-8, g,
+                        out if norm else None, den if norm else d_den,
+                        with_drop, norm)
+                err = rel_err(sa.v2_backward(*args),
+                              sa.v2_backward_plain(*args))
+                whole = time_ms(torch, lambda: sa.v2_backward(*args))
+                emit(10, f"{name} {nh}x{f}", mode, whole, None, err)
 
 
 def main():
@@ -148,39 +250,44 @@ def main():
                     help="LABEL=PATH of a tree of the repo")
     ap.add_argument("--order", help="comma-separated labels, one process "
                     "each, in this order")
+    ap.add_argument("--rows", default="2,10,13",
+                    help="comma-separated rows of PERF.md's kernel table "
+                    "to time (2, 10, 13)")
     ap.add_argument("--worker", nargs=2, metavar=("LABEL", "PATH"),
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
+    rows = a.rows.split(",")
     if a.worker:
-        worker(*a.worker)
+        worker(*a.worker, rows)
         return
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("ab_backward: no CUDA card")
     trees = dict(t.split("=", 1) for t in a.tree)
-    rows = []
+    results = []
     for label in a.order.split(","):
         proc = subprocess.run(
-            [sys.executable, __file__, "--worker", label, trees[label]],
-            capture_output=True, text=True)
+            [sys.executable, __file__, "--worker", label, trees[label],
+             "--rows", a.rows], capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"ab_backward: {label} failed:\n"
                              f"{proc.stdout}\n{proc.stderr}")
-        rows += [json.loads(line) for line in proc.stdout.splitlines()
-                 if line.startswith("{")]
+        results += [json.loads(line) for line in proc.stdout.splitlines()
+                    if line.startswith("{")]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    for r in rows:
+    for r in results:
         given = ("" if r["given_ms"] is None
                  else f"  given {r['given_ms']:.4f}")
-        print(f"{r['tree']:>8} {r['case']:<14} {r['mode']:<8} whole "
+        print(f"{r['tree']:>8} row {r['row']:<2} {r['case']:<14} "
+              f"{r['mode']:<18} whole "
               f"{r['whole_ms']:.4f}{given} ms (against the plain version: "
               f"{r['rel_err']:.2e} of max(1, |ref|))")
     print(card)
     Path("chiprun_out").mkdir(exist_ok=True)
     with open("chiprun_out/ab_backward.jsonl", "w") as fh:
-        for r in rows:
+        for r in results:
             fh.write(json.dumps(dict(r, card=card)) + "\n")
 
 
