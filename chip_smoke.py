@@ -9,8 +9,9 @@ Six paths, three 2-phase forms and the bfloat16 modes, each at the full
 width and depth of its configuration on the synthetic stand-in of its
 dataset:
   Cora    `cli.train --dataset Cora`: the v5 attention op (kernels
-          source_scores, v5_forward, v5_backward, segment_sum_rows; every
-          v5 and windowed op runs source_scores once a forward);
+          source_scores, v5_forward, v5_backward, which sums d(h) by
+          sender; every v5 and windowed op runs source_scores once a
+          forward);
   Pubmed  `cli.train --dataset Pubmed --reorder rcm`: RCM reorder, block
           layout, the windowed attention op (kernels window_forward and
           window_backward, which sums d(h) by sender);
@@ -18,20 +19,22 @@ dataset:
           order, the hybrid split-locality layout, the windowed parts op
           over the in-window edges plus the v5 parts op over the
           remainder (kernels window_forward, v5_forward,
-          window_backward_parts, v5_backward_parts, segment_sum_rows for
-          the remainder's d(h));
+          window_backward_parts, v5_backward_parts; both backwards sum
+          d(h) by sender);
   PPI paper_faithful  `cli.train --dataset PPI --paper_faithful`:
           block-diagonal batches of two graphs, the table op (kernels
           table_forward, table_dden and table_backward, which sums d(h)
           by sender) at 1024- and 726-wide rows, its logits' two score
           gathers reduced in the backward by segment_sum_sorted;
-  PPI     `cli.train --dataset PPI`: the v5 op at the same widths;
+  PPI     `cli.train --dataset PPI`: the v5 op at the same widths (the
+          backward's wide form: per-edge rows, v5_dasrc and
+          segment_sum_rows after it);
   PATTERN `cli.train --dataset PATTERN`: 4 layers with skip projections,
           batches of eight graphs, the plateau schedule, the v5 op;
   under the JAX package's 2-phase knobs (set around each fit, CELL_ENV):
   Cora two-phase (GAT_TPU_V10=0) and Cora unmerged (GAT_TPU_V5_MERGED=0)
           the v5 op's 2-phase form (kernels v5_cap, v5_forward_two_phase,
-          v5_backward_two_phase, segment_sum_rows);
+          v5_backward_two_phase);
   Pubmed two-phase (GAT_TPU_V10=0, RCM): the windowed op's 2-phase form
           (window_cap, window_forward_two_phase,
           window_backward_two_phase);
@@ -46,7 +49,9 @@ dataset:
           v5 2-phase kernels); with GAT_TPU_KERNEL_DTYPE, GAT_TPU_H_DTYPE,
           GAT_TPU_GEMM_DTYPE = bfloat16 and GAT_TPU_DH_REDUCE_NT=0, Cora
           bf16 kernels (v5_forward_bf16, v5_backward_bf16 on a bfloat16 h
-          table, and segment_sum_rows_t, the feature-major d(h) reduce),
+          table; the backward by sender reads no GAT_TPU_DH_REDUCE_NT, so
+          no fit runs segment_sum_rows_t, the feature-major d(h) reduce,
+          which phase 2 holds),
           PPI paper_faithful bf16 (table_forward_bf16, table_dden,
           table_backward_bf16), and two more that reach the remaining
           modes: Cora two-phase bf16 kernels (v5_cap_bf16) and Pubmed
@@ -65,10 +70,12 @@ Phases (every failure is fatal):
      attention sources again for a bfloat16 h table), print a [build]
      line per kernel instance with its registers and local memory
      (cuobjdump -res-usage; no instance of the wide v5 backward, rows over
-     256 floats, of the v5 and windowed forwards, of the source-score
-     pass, of the window backward by sender and its tail, of the v2
-     backward or of the d(den) prologue may use any), and print the card's
-     name and power limit as nvidia-smi gives them;
+     256 floats, of the v5, windowed, table and v2 forwards, of the
+     source-score pass, of the window and v5 backwards by sender and
+     their tail, of the v2 backward or of the d(den) prologue may use any,
+     nor may the backwards by sender, their tail, the v2 kernels, the
+     table forward and the d(den) prologue spill: ptxas's report), and
+     print the card's name and power limit as nvidia-smi gives them;
   2. the source-score pass (the table every v5 and windowed kernel reads
      its logits from) at every width the fits run, from float32 and
      bfloat16 tables, against its plain version, twice for equal bits,
@@ -80,12 +87,13 @@ Phases (every failure is fatal):
      tensors and hold them together: with and without the dropout mask,
      the v5 and window backward also at eps = 1, the table kernels at
      eps = 0 on max-subtracted logits (PPI) and at eps = 1e-8 with dropout
-     (PPI, Cora 8 x 8) and without (PATTERN), the backward by sender as
-     the main path calls it (the Graph's order and offsets) and deriving
-     its sender runs (the two equal bits), its d(h) also against the row-3
-     reduce of the plain per-edge rows on the card (bits compared and
-     printed), zero on senders without a real edge; the window and table
-     kernels are also launched twice and must give the same bits. The
+     (PPI, Cora 8 x 8) and without (PATTERN), the table and v5 backwards
+     by sender as the main path calls them (the Graph's order and
+     offsets) and deriving their sender runs (the two equal bits), their
+     d(h) also against the row-3 reduce of the plain per-edge rows on the
+     card (bits compared and printed), zero on senders without a real
+     edge; the v5, window and table kernels are also launched twice and
+     must give the same bits. The
      parts modes of the v5 and window backward take random d(num) and
      d(den), are held at every output's own magnitude and launched
      twice, at all these
@@ -111,7 +119,9 @@ Phases (every failure is fatal):
      cluster-ordered edge list, at the cap, above and below it, eps =
      1e-8 and 1, with and without dropout, each launched twice; and
      fused_gat_table with v5_local_cap on more source rows than
-     destinations; every bfloat16 mode of every entry (the flags word of
+     destinations (the bits of the square call, but for the sums over
+     blocks of senders: d(a_src) and d(cap), and where d(cap) is routed,
+     held at 1e-4); every bfloat16 mode of every entry (the flags word of
      ops/cuda/rounding.py) at the cells' layer shapes, against its plain
      version in the same mode and in float32 on the same inputs (within
      1e-2 of the scale, and 10x nearer the same mode's plain version than
@@ -266,26 +276,27 @@ BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
 # gathers (by sender and by receiver), which every model on that path
 # here has.
 PATH_KERNELS = {
-    "v5": (("source_scores", "v5_forward"),
-           {"v5_backward": 1, "segment_sum_rows": 1}),
+    # the backward sums d(h) by sender itself at rows of 256 floats or
+    # fewer; wider rows (PPI) take its wide form and row 3 after it
+    # (WIDE_LAYERS)
+    "v5": (("source_scores", "v5_forward"), {"v5_backward": 1}),
     # the window backward sums d(h) by sender itself: no segment_sum_rows
     "v7": (("source_scores", "window_forward"), {"window_backward": 1}),
     # the table backward sums d(h) by sender itself: no segment_sum_rows
     "v4_table": (("table_forward",),
                  {"table_dden": 1, "table_backward": 1,
                   "segment_sum_sorted": 2}),
-    # segment_sum_rows: the remainder's d(h)
+    # the remainder's backward sums its d(h) by sender too
     "v7_hybrid": (("source_scores", "window_forward", "v5_forward"),
-                  {"window_backward_parts": 1, "v5_backward_parts": 1,
-                   "segment_sum_rows": 1}),
+                  {"window_backward_parts": 1, "v5_backward_parts": 1}),
     # v5_cap and window_cap each launch the cap stream and its reduce
     "v5 2-phase": (("source_scores", "v5_cap", "v5_forward_two_phase"),
-                   {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
+                   {"v5_backward_two_phase": 1}),
     "v7 2-phase": (("source_scores", "window_cap",
                     "window_forward_two_phase"),
                    {"window_backward_two_phase": 1}),
     "v6": (("source_scores", "v5_cap", "v5_forward_two_phase"),
-           {"v5_backward_two_phase": 1, "segment_sum_rows": 1}),
+           {"v5_backward_two_phase": 1}),
     "v7 bf16": (("source_scores_bf16", "window_forward_bf16"),
                 {"window_backward_bf16": 1}),
     "v7 2-phase bf16": (("source_scores", "window_cap",
@@ -294,32 +305,31 @@ PATH_KERNELS = {
     "v7_hybrid bf16": (("source_scores_bf16", "window_forward_bf16",
                         "source_scores", "v5_forward"),
                        {"window_backward_parts_bf16": 1,
-                        "v5_backward_parts": 1, "segment_sum_rows": 1}),
+                        "v5_backward_parts": 1}),
     "v6 bf16": (("source_scores", "v5_cap", "v5_forward_two_phase_bf16"),
-                {"v5_backward_two_phase_bf16": 1, "segment_sum_rows": 1}),
+                {"v5_backward_two_phase_bf16": 1}),
+    # under GAT_TPU_DH_REDUCE_NT=0 too: the backward by sender reads no
+    # knob (the feature-major reduce runs only after the wide form)
     "v5 bf16": (("source_scores_bf16", "v5_forward_bf16"),
-                {"v5_backward_bf16": 1, "segment_sum_rows_t": 1}),
+                {"v5_backward_bf16": 1}),
     "v4_table bf16": (("table_forward_bf16",),
                       {"table_dden": 1, "table_backward_bf16": 1,
                        "segment_sum_sorted": 2}),
     "v5 2-phase bf16": (("source_scores_bf16", "v5_cap_bf16",
                          "v5_forward_two_phase_bf16"),
-                        {"v5_backward_two_phase_bf16": 1,
-                         "segment_sum_rows_t": 1}),
+                        {"v5_backward_two_phase_bf16": 1}),
     # the sharded layer: the partial v2 op; its backward's sorted sums
     # are the gradients of the h_src gather and of the two score gathers
     "sharded_v4_partial": (("v2_forward",),
                            {"v2_backward": 1, "segment_sum_sorted": 3}),
     "sharded_v4_partial bf16": (("v2_forward_bf16",),
                                 {"v2_backward": 1, "segment_sum_sorted": 3}),
-    # the remainder's d(h) is reduced feature-major under
-    # GAT_TPU_DH_REDUCE_NT=0; the windowed parts sum theirs by sender (the
-    # JAX v7 kernel scatters its own and reads no knob)
+    # both parts ops sum their d(h) by sender and read no
+    # GAT_TPU_DH_REDUCE_NT
     "v7_hybrid bf16 kernels": (("source_scores_bf16", "window_forward_bf16",
                                 "v5_forward_bf16"),
                                {"window_backward_parts_bf16": 1,
-                                "v5_backward_parts_bf16": 1,
-                                "segment_sum_rows_t": 1}),
+                                "v5_backward_parts_bf16": 1}),
 }
 REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5,
                 "Pubmed bf16": 5}
@@ -426,22 +436,25 @@ V2_BWD_NAMES = ("d_logits", "d_h_src", "d_drop")
 
 
 # the layers of a v5-path cell wider than 256 floats (PPI: 4 x 256 twice,
-# 6 x 121): their backward takes the wide form, one v5_dasrc launch each
-DASRC_LAYERS = {"PPI": 3}
+# 6 x 121): their backward takes the wide form, one v5_dasrc launch and
+# one d(h) reduce (row 3) each
+WIDE_LAYERS = {"PPI": 3}
 
 
 def launches_per_epoch(path, layers, train_batches, val_batches,
-                       dasrc_layers=0):
+                       wide_layers=0):
     """Launches per epoch of a fit on `path`: each layer's forward runs
     in every train step and in every validation batch, its backward
-    kernels in every train step (v5_dasrc in dasrc_layers of them)."""
+    kernels in every train step (v5_dasrc and segment_sum_rows in
+    wide_layers of them)."""
     fwd, bwd = PATH_KERNELS[path]
     per = {k: 0 for k in REPLACES}
     for k in fwd:
         per[k] += layers * (train_batches + val_batches)
     for k, count in bwd.items():
         per[k] = count * layers * train_batches
-    per["v5_dasrc"] = dasrc_layers * train_batches
+    per["v5_dasrc"] = wide_layers * train_batches
+    per["segment_sum_rows"] += wide_layers * train_batches
     return per
 
 
@@ -450,22 +463,27 @@ def fail(msg):
 
 
 # the kernels that must use no local memory in any instance (cuobjdump):
-# the wide v5 backward (C >= 16 features a lane: rows over 256 floats),
-# the forwards, the source-score pass, the window backward by sender with
-# its tail, the v2 backward and the d(den) prologue
+# the wide v5 backward (rows over 256 floats), the forwards (the v5,
+# windowed, table and v2 ops'), the source-score pass, the backwards by
+# sender (the windowed op's and the v5 op's) with their tail, the v2
+# backward and the d(den) prologue
 NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
             "v5_fwd_kernel": r"v5_fwd_kernel",
             "window_fwd_kernel": r"window_fwd_kernel",
+            "table_fwd_kernel": r"table_fwd_kernel",
+            "v2_fwd_kernel": r"v2_fwd_kernel",
             "source_scores_kernel": r"source_scores_kernel",
             "window_bwd_kernel": r"window_bwd_kernel",
-            "window_bwd_tail_kernel": r"window_bwd_tail_kernel",
+            "v5_bwd_sender_kernel": r"v5_bwd_sender_kernel",
+            "bwd_tail_kernel": r"bwd_tail_kernel",
             "v2_bwd_kernel": r"v2_bwd_(wide_)?kernel",
             "dden_kernel": r"\d+dden_(narrow_)?kernel"}
 # of those, the kernels whose registers must not spill either (ptxas's
 # spill stores and loads, which cuobjdump's LOCAL does not count: they go
 # to the stack frame)
-NO_SPILL = ("window_bwd_kernel", "window_bwd_tail_kernel", "v2_bwd_kernel",
-            "dden_kernel")
+NO_SPILL = ("window_bwd_kernel", "v5_bwd_sender_kernel", "bwd_tail_kernel",
+            "v2_bwd_kernel", "dden_kernel", "v2_fwd_kernel",
+            "table_fwd_kernel")
 
 
 def check_resource_usage(build):
@@ -926,6 +944,11 @@ def main():
         """(cap, plain cap, forward, plain forward, backward, plain
         backward) of the v5 2-phase entries bound to `graph`'s edges."""
         ga = (graph.senders, graph.receivers, graph.num_real_edges)
+        # the backward as the main path calls it: the graph's sender runs
+        # and offsets (the kernel by sender walks them)
+        runs = {k: getattr(graph, k) for k in ("src_order", "src_ptr",
+                                               "dst_ptr")
+                if getattr(graph, k, None) is not None}
         return (lambda h, a, s, **kw: v5.v5_cap(h, a, s, *ga, **kw),
                 lambda h, a, s, **kw: v5.v5_cap_plain(h, a, s, *ga),
                 lambda h, a, s, c, m, *r: v5.v5_forward_two_phase(
@@ -933,9 +956,10 @@ def main():
                 lambda h, a, s, c, m, *r: v5.v5_forward_two_phase_plain(
                     h, a, s, c, m, *ga, *r),
                 lambda h, a, s, c, m, *r, **kw: v5.v5_backward_two_phase(
-                    h, a, s, c, m, *ga, *r, **kw),
-                lambda h, a, s, c, m, *r: v5.v5_backward_two_phase_plain(
-                    h, a, s, c, m, *ga, *r))
+                    h, a, s, c, m, *ga, *r, **runs, **kw),
+                lambda h, a, s, c, m, *r:
+                v5.v5_backward_two_phase_by_sender_plain(h, a, s, c, m, *ga,
+                                                         *r))
 
     def window_two_phase_entries(layout):
         # the cap reads the table: the timed call includes its pass
@@ -1075,54 +1099,78 @@ def main():
         num, den, cap, _ = want
         out, epsp = epilogue(torch, num, den, cap, f, 1e-8)
         bwd_args = fwd_args + (g, out, den, epsp, with_drop)
-        want = v5.v5_backward_plain(*bwd_args)
+        src_ptr = getattr(graph, "src_ptr", None)
+        runs = (dict(src_order=order, src_ptr=src_ptr)
+                if src_ptr is not None else {})
+        # the backward returns d(h) per node: by sender at rows of 256
+        # floats or fewer (the kernel sums it), the wide form's rows
+        # reduced by row 3 above them; held against the plain version by
+        # sender, and the kernel's d(h) against the route it replaces, the
+        # plain per-edge rows (the TPU kernel's) reduced by row 3 on the card
+        want = v5.v5_backward_by_sender_plain(*bwd_args)
         keep = [i for i in range(4) if want[i] is not None]
         names = [BWD_NAMES[i] for i in keep]
-        got = v5.v5_backward(*bwd_args)
+        got = v5.v5_backward(*bwd_args, **runs)
         hold_all("v5_backward", names, [got[i] for i in keep],
                  [want[i] for i in keep], "v5_backward")
-        same_bits("v5_backward", got, v5.v5_backward(*bwd_args))
-        rows = want[0]
+        same_bits("v5_backward", got, v5.v5_backward(*bwd_args, **runs))
+        # the graph's sender runs and the ones the wrapper derives
+        same_bits("v5_backward deriving its sender runs", got,
+                  v5.v5_backward(*bwd_args))
+        rows = v5.v5_backward_plain(*bwd_args)[0]
+        routed = ss.dh_reduce(rows, order, snd, n, e_real)
+        hold_all("v5_backward", ("d_h against row 3 over the plain per-edge "
+                                 "rows",), got[:1], (routed,), "v5_backward")
+        print(f"  v5_backward {nh}x{f} d_h "
+              f"{'has' if torch.equal(got[0], routed) else 'has not'} the "
+              f"bits of row 3 over the plain per-edge rows (max_abs_err "
+              f"{float((got[0] - routed).abs().max()):.3e})")
+        idle = torch.ones(n, dtype=torch.bool, device=dev)
+        idle[snd[:e_real].long()] = False
+        if bool(idle.any()) and bool(got[0][idle].any()):
+            fail(f"v5_backward {nh}x{f}: a sender without a real edge has a "
+                 f"non-zero d(h) row")
         dasrc_args = None
         if v5.wide_form(nh * f):
             # the wide form: d(a_src) by sender from the per-edge d(raw)
-            # rows, against its plain version and the direct h^T draw;
-            # the graph's sender runs give the bits of the derived ones
+            # rows, against its plain version and the direct h^T draw
             draw = v5.v5_backward_plain(*bwd_args, with_draw=True)[-1]
-            runs = v5.sender_runs(snd, e_real, n, order,
-                                  getattr(graph, "src_ptr", None))
-            dasrc_args = (h, draw) + tuple(runs)
+            dasrc_args = (h, draw) + tuple(v5.sender_runs(snd, e_real, n,
+                                                          order, src_ptr))
             got_a = v5.dasrc_by_sender(*dasrc_args)[0]
             hold_all("v5_dasrc", ("d_a_src by sender",), (got_a,),
                      (v5.dasrc_by_sender_plain(*dasrc_args),), "v5_dasrc",
                      floor=0.0)
             hold_all("v5_dasrc", ("d_a_src against h^T draw",), (got_a,),
-                     (want[3],), "v5_dasrc", floor=0.0)
+                     (v5.v5_backward_plain(*bwd_args)[3],), "v5_dasrc",
+                     floor=0.0)
             same_bits("v5_dasrc", (got_a,),
                       (v5.dasrc_by_sender(*dasrc_args)[0],))
-            if getattr(graph, "src_ptr", None) is not None:
-                same_bits("v5_backward by the graph's sender runs", got,
-                          v5.v5_backward(*bwd_args, src_order=order,
-                                         src_ptr=graph.src_ptr))
         # At eps = 1e-8, d(s_dst) is about eps' (the softmax's own terms
         # cancel), so the check above cannot see eps' or a d(s_dst) left
         # at zero. At eps = 1, eps' is of the size of den: hold every
         # output there at its own magnitude.
         out1, epsp1 = epilogue(torch, num, den, cap, f, 1.0)
         bwd1 = fwd_args + (g, out1, den, epsp1, with_drop)
-        got, want = v5.v5_backward(*bwd1), v5.v5_backward_plain(*bwd1)
+        got = v5.v5_backward(*bwd1, **runs)
+        want = v5.v5_backward_by_sender_plain(*bwd1)
         hold_all("v5_backward eps=1", names, [got[i] for i in keep],
                  [want[i] for i in keep], "v5_backward", floor=0.0)
         # the parts mode: raw cotangents of num and den, no eps in it,
         # every output at its own magnitude
         d_den = torch.randn((n, nh), generator=gen, device=dev)
         parts_args = fwd_args + (g, None, d_den, None, with_drop)
-        got = v5.v5_backward(*parts_args, normalize=False)
-        want = v5.v5_backward_plain(*parts_args, normalize=False)
+        got = v5.v5_backward(*parts_args, normalize=False, **runs)
+        want = v5.v5_backward_by_sender_plain(*parts_args, normalize=False)
         hold_all("v5_backward_parts", names, [got[i] for i in keep],
                  [want[i] for i in keep], "v5_backward_parts", floor=0.0)
         same_bits("v5_backward_parts", got,
-                  v5.v5_backward(*parts_args, normalize=False))
+                  v5.v5_backward(*parts_args, normalize=False, **runs))
+        routed = ss.dh_reduce(v5.v5_backward_plain(
+            *parts_args, normalize=False)[0], order, snd, n, e_real)
+        hold_all("v5_backward_parts", ("d_h against row 3 over the plain "
+                                       "per-edge rows",), got[:1],
+                 (routed,), "v5_backward_parts", floor=0.0)
         got = ss.dh_reduce(rows, order, snd, n, e_real)
         ids = snd.index_select(0, order.long())
         want = ss.segment_rows_plain(rows, order, ids, n)
@@ -1137,7 +1185,6 @@ def main():
             rows, order, snd, n, e_real, transposed=True),))
         same_bits("segment_sum_rows_t against segment_sum_rows", (got_t,),
                   (got,))
-        src_ptr = getattr(graph, "src_ptr", None)
         if src_ptr is not None:     # the main path's call: one launch
             same_bits("segment_sum_rows by the graph's offsets", (got,),
                       (ss.dh_reduce(rows, order, snd, n, e_real,
@@ -1147,7 +1194,7 @@ def main():
                                     src_ptr=src_ptr),))
         return dict(nh=nh, f=f, drop=with_drop, fwd_args=fwd_args,
                     bwd_args=bwd_args, parts_args=parts_args, rows=rows,
-                    dasrc_args=dasrc_args)
+                    dasrc_args=dasrc_args, runs=runs)
 
     raw = datasets.load_planetoid("Cora", synthetic_override=True, seed=0)
     cora = loader.transductive_graph(raw).to(dev)
@@ -1171,9 +1218,13 @@ def main():
     check_dh_rows(torch, np, ss, dev, errs)
     # fused_gat_table and v5_local_cap take an h table of more rows than
     # destinations: 256 rows put in front of the table and every sender
-    # moved up by 256 give the bits of the square call (at rows over 256
-    # floats all but d(a_src), which v5_dasrc sums over blocks of senders:
-    # more senders move the blocks' bounds, so it is held at REL_TOL)
+    # moved up by 256 give the bits of the square call, but for the sums
+    # over blocks of senders, held at REL_TOL (more senders move the
+    # blocks' bounds): at rows over 256 floats d(a_src) (v5_dasrc), at 256
+    # or fewer d(a_src) and d(cap) (the backward by sender's partial rows),
+    # and so the argmax edge's d(h) row and d(s_dst) entry, where the cap
+    # op routes d(cap); every other d(h) row and d(s_dst) entry keeps its
+    # bits
     def more_source_rows(label, graph, c2, shift=256):
         n_, e_real_ = graph.num_nodes, graph.num_real_edges
         snd_, rcv_ = graph.senders, graph.receivers
@@ -1201,16 +1252,30 @@ def main():
             fail(f"fused_gat_table {label}: d(h) of a wider source table "
                  f"has the wrong rows")
         wider[2] = wider[2][shift:]
+        tag = f"fused_gat_table {label} with {n_ + shift} source rows"
         if v5.wide_form(nh * f):
-            hold_all(f"fused_gat_table {label} with {n_ + shift} source "
-                     f"rows", ("d_a_src",), wider[3:4], square[3:4],
-                     "v5_dasrc", floor=0.0)
+            hold_all(tag, ("d_a_src",), wider[3:4], square[3:4], "v5_dasrc",
+                     floor=0.0)
             square, wider = square[:3] + square[4:], wider[:3] + wider[4:]
+        else:
+            hold_all(tag, ("d_h", "d_a_src", "d_s_dst"), wider[2:5],
+                     square[2:5], "v5_backward_two_phase", floor=0.0)
+            code = int(v5.v5_cap(h, a_src, s_dst, snd_, rcv_, e_real_)[1])
+            e_star, k_star = code // nh, code % nh
+            rows_ = torch.ones(n_, dtype=torch.bool, device=dev)
+            rows_[snd_[e_star].long()] = False
+            cells = torch.ones((n_, nh), dtype=torch.bool, device=dev)
+            cells[rcv_[e_star].long(), k_star] = False
+            same_bits(f"{tag}: d(h) but the argmax sender's row, d(s_dst) "
+                      f"but the argmax entry",
+                      (square[2][rows_], square[4][cells]),
+                      (wider[2][rows_], wider[4][cells]))
+            square, wider = square[:2], wider[:2]
         same_bits(f"fused_gat_table {label} with more source rows than "
                   f"destinations", square, wider)
         print(f"[kernels] v5_local_cap and fused_gat_table on {label} with "
               f"{n_ + shift} source rows for {n_} destinations: the bits of "
-              f"the square call")
+              f"the square call but its sums over blocks of senders")
 
     more_source_rows("Cora", cora, cora_two[0])
 
@@ -1385,7 +1450,8 @@ def main():
     remainder = types.SimpleNamespace(
         num_nodes=hybrid.num_nodes, num_edges=rem_pad,
         num_real_edges=hb.rem_e, senders=hb.rem_send, receivers=hb.rem_recv,
-        src_order=hb.rem_order, src_ptr=hb.rem_src_ptr)
+        src_order=hb.rem_order, src_ptr=hb.rem_src_ptr,
+        dst_ptr=hb.rem_dst_ptr)
     rem_cases, hybrid_two = [], []
     for nh, f in SHAPES["Pubmed"]:
         print(f"[kernels] Pubmed hybrid remainder layer shape {nh}x{f}")
@@ -1431,10 +1497,16 @@ def main():
         fail("v5_sweep1_parts: d(h) of a wider source table has the wrong "
              "rows")
     wide[4] = wide[4][shift:]
+    # d(a_src), a sum over blocks of senders, at REL_TOL (more senders
+    # move the blocks' bounds); the rest to the bits
+    hold_all(f"v5_sweep1_parts with {n_ + shift} source rows",
+             ("d_a_src",), wide[5:6], narrow[5:6], "v5_backward_parts",
+             floor=0.0)
     same_bits("v5_sweep1_parts with more source rows than destinations",
-              narrow, wide)
+              narrow[:5] + narrow[6:], wide[:5] + wide[6:])
     print(f"[kernels] v5_sweep1_parts on the remainder with {n_ + shift} "
-          f"source rows for {n_} destinations: the bits of the square call")
+          f"source rows for {n_} destinations: the bits of the square call "
+          f"but d(a_src)")
 
     # -- 2b''. the sorted segment sum and the gather built on it ------------
     def check_sorted_sum(label, ids, n_, widths):
@@ -1785,9 +1857,9 @@ def main():
         for what, key, co, norm, floor in runs:
             name = f"v5_backward {label} [{mode_tag(rnd)}] {what}"
             got = v5.v5_backward(*fa, *co, normalize=norm, rounding=rnd)
-            want = v5.v5_backward_plain(*fa, *co, normalize=norm,
-                                        rounding=rnd)
-            base = v5.v5_backward_plain(*fp, *co, normalize=norm)
+            want = v5.v5_backward_by_sender_plain(*fa, *co, normalize=norm,
+                                                  rounding=rnd)
+            base = v5.v5_backward_by_sender_plain(*fp, *co, normalize=norm)
             hold_mode(name, BWD_NAMES, got, want, base, key, floor)
             same_bits(name, got, v5.v5_backward(*fa, *co, normalize=norm,
                                                 rounding=rnd))
@@ -2195,7 +2267,7 @@ def main():
                  f"{len(gat.PATH_TRACE)}, expected {traced} x {forwards}")
         per_epoch[name] = launches_per_epoch(path, layers, len(train_data),
                                              len(val_data),
-                                             DASRC_LAYERS.get(name, 0))
+                                             WIDE_LAYERS.get(name, 0))
         for k, per in per_epoch[name].items():
             if ran[k] != per * epochs:
                 fail(f"{name}: {k}: {ran[k]} launches on the main path, "
@@ -2598,7 +2670,17 @@ def main():
                                   + 10 * nh))
 
     def v5_time_rows(graph, c):
-        """The v5 kernels and the d(h) reduce at one case of check_v5."""
+        """The v5 kernels and the d(h) reduce at one case of check_v5, as
+        the main path calls them (the Graph's offsets and sender runs
+        where it carries them; a backward given its op's table). The
+        backward, the whole call with d(h) per node (at rows over 256
+        floats the wide form, v5_dasrc and row 3 after it): reads h,
+        a_src, the score tables, the mask and, over the real edges, the
+        receivers, the sender order, the sender and receiver offsets, g,
+        out, den and eps'; writes d(h) per node, d(mask) over all E edges
+        (zeros past E_real), d(s_dst) and d(a_src). Intermediates (the
+        wide form's per-edge rows and d(raw)) are no part of the
+        function, and not of its bound."""
         n_, e_ = graph.num_nodes, graph.num_edges
         snd_, order_ = graph.senders, graph.src_order
         nh, d = c["nh"], c["nh"] * c["f"]
@@ -2606,19 +2688,18 @@ def main():
         dm = e_ * nh if c["drop"] else 0      # the mask in, d(mask) out
         b_fwd = 4 * (n_ * d + d * nh + n_ * nh + dm + 2 * e_
                      + n_ * d + n_ * nh + 2)
-        # the backward also reads the op's source-score table (n, nh)
-        b_bwd = 4 * (n_ * d + d * nh + 2 * n_ * nh + dm + 2 * e_ + 2 * n_ * d
-                     + n_ * nh + 1 + e_ * d + dm + n_ * nh + d * nh)
-        # the wide form (rows over 256 floats) writes each real edge's
-        # d(raw) row and v5_dasrc reads it back with the sender runs
         er = graph.num_real_edges
-        if c["dasrc_args"] is not None:
-            b_bwd += 4 * (2 * er * nh + er + n_ + 1)
+        dm_r = er * nh if c["drop"] else 0
+        b_bwd = 4 * (n_ * d + d * nh + 2 * n_ * nh + dm_r + 2 * er
+                     + 2 * (n_ + 1) + 2 * n_ * d + n_ * nh + 1 + n_ * d + dm
+                     + n_ * nh + d * nh)
         # the parts mode reads d(num) and d(den) in place of g, out, den, eps'
         b_parts = b_bwd - 4 * (n_ * d + 1)
         pa = c["parts_args"]
-        kw = given(ba)
-        o_fwd, o_bwd = attention_ops(n_, er, d, nh)
+        dst_ptr = getattr(graph, "dst_ptr", None)
+        kw = given(ba) | c["runs"] | ({} if dst_ptr is None
+                                      else {"dst_ptr": dst_ptr})
+        o_fwd, o_bwd = attention_ops(n_, er, d, nh, sums=True)
         ids_sorted = snd_.index_select(0, order_.long())
         snd_l = snd_.long()
         # the d(h) reduce as the main path calls it: by the graph's
@@ -2640,12 +2721,14 @@ def main():
                            lambda: v5.v5_forward_plain(*fa), None,
                            b_fwd, o_fwd),
             "v5_backward": (lambda: v5.v5_backward(*ba, **kw),
-                            lambda: v5.v5_backward_plain(*ba), None,
-                            b_bwd, o_bwd, lambda: v5.v5_backward(*ba)),
+                            lambda: v5.v5_backward_by_sender_plain(*ba),
+                            None, b_bwd, o_bwd,
+                            lambda: v5.v5_backward(*ba)),
             "v5_backward_parts": (
                 lambda: v5.v5_backward(*pa, normalize=False, **kw),
-                lambda: v5.v5_backward_plain(*pa, normalize=False), None,
-                b_parts, o_bwd,
+                lambda: v5.v5_backward_by_sender_plain(*pa,
+                                                       normalize=False),
+                None, b_parts, o_bwd,
                 lambda: v5.v5_backward(*pa, normalize=False)),
             "segment_sum_rows": (
                 lambda: ss.dh_reduce(rows, order_, snd_, n_, er,
@@ -2693,7 +2776,9 @@ def main():
                 b_bwd, er * (4 * d + 8 * nh) + 2 * n_ * d),
         }
 
-    V5_JSON = ("v5_forward", "v5_backward", "segment_sum_rows")
+    # row 3 runs on no Cora layer since the backward sums d(h) by sender:
+    # its result-line time is PPI's (below), where the wide form runs it
+    V5_JSON = ("v5_forward", "v5_backward")
     for c in cora_cases:
         time_rows(f"Cora {c['nh']}x{c['f']}", v5_time_rows(cora, c),
                   into_json=V5_JSON)
@@ -2746,9 +2831,10 @@ def main():
         """The three 2-phase entries at one case of check_two_phase. idx:
         the index words the op reads (v5: senders and receivers, window:
         send, dst_perm and dst_ptr); rows_out: the d(h) rows written;
-        idx_bwd: the backward's index words where they differ (the window
-        backward by sender: recv, src_perm, src_ptr, dst_perm, dst_ptr; it
-        writes d(h) per node and sums it itself). The cap pass reads the
+        idx_bwd: the backward's index words where they differ (the
+        backwards by sender, which write d(h) per node and sum it
+        themselves: the window's recv, src_perm, src_ptr, dst_perm,
+        dst_ptr; the v5 op's v5_bwd_idx). The cap pass reads the
         tables and the index, the forward also the mask and the cap and
         writes out and den, the backward reads g, out, den besides and
         writes d(h), d(mask), d(s_dst), d(a_src) and d(cap)."""
@@ -2774,11 +2860,17 @@ def main():
                       o_bwd, lambda: bwd_k(*ba)),
         }
 
+    def v5_bwd_idx(graph):
+        """The v5 backward's index words: the receivers and the sender
+        order over the real edges, the sender and receiver offsets."""
+        return 2 * graph.num_real_edges + 2 * (graph.num_nodes + 1)
+
+    # the v5 backward writes d(h) per node (rows_out = n)
     for c in cora_two:
         time_rows(f"Cora {c['nh']}x{c['f']} 2-phase", two_phase_time_rows(
             c, v5_two_phase_entries(cora), V5_TWO, cora.num_nodes,
             cora.num_edges, 2 * cora.num_edges, cora.num_real_edges,
-            cora.num_edges), into_json=True)
+            cora.num_nodes, v5_bwd_idx(cora)), into_json=True)
     for c in pubmed_two:
         time_rows(f"Pubmed {c['nh']}x{c['f']} 2-phase", two_phase_time_rows(
             c, window_two_phase_entries(bl), W_TWO, np_, e7,
@@ -2789,7 +2881,7 @@ def main():
                   two_phase_time_rows(
                       c, v5_two_phase_entries(hybrid), V5_TWO,
                       hybrid.num_nodes, he, 2 * he, hybrid.num_real_edges,
-                      he), into_json=False)
+                      hybrid.num_nodes, v5_bwd_idx(hybrid)), into_json=False)
 
     def window_time_rows(layout, n_, c):
         """The window kernels at one case of check_window. Inputs h,
@@ -2920,21 +3012,15 @@ def main():
     for ct, c5 in zip(ppi_table_cases, ppi_v5_cases):
         label = f"PPI {ct['nh']}x{ct['f']}"
         time_rows(label, table_time_rows(ppi, ct), into_json=True)
-        # row 2 at the widths the PPI fit launches it (the wide form, its
-        # bound with draw's bytes); v5_dasrc's line times from here
-        time_rows(label, v5_time_rows(ppi, c5), into_json=("v5_dasrc",))
+        # row 2 at the widths the PPI fit launches it (the wide form, then
+        # row 3); v5_dasrc's and row 3's result-line times from here
+        time_rows(label, v5_time_rows(ppi, c5),
+                  into_json=("v5_dasrc", "segment_sum_rows"))
     for c in ppi_two:
         pe, per_ = ppi.num_edges, ppi.num_real_edges
-        rows_2p = two_phase_time_rows(c, v5_two_phase_entries(ppi), V5_TWO,
-                                      ppi.num_nodes, pe, 2 * pe, per_, pe)
-        kern, plain, lib, nbytes, ops, *whole = rows_2p[
-            "v5_backward_two_phase"]
-        rows_2p["v5_backward_two_phase"] = (
-            kern, plain, lib, nbytes + 4 * (2 * per_ * c["nh"] + per_
-                                            + ppi.num_nodes + 1), ops,
-            *whole)
-        time_rows(f"PPI {c['nh']}x{c['f']} 2-phase", rows_2p,
-                  into_json=False)
+        time_rows(f"PPI {c['nh']}x{c['f']} 2-phase", two_phase_time_rows(
+            c, v5_two_phase_entries(ppi), V5_TWO, ppi.num_nodes, pe, 2 * pe,
+            per_, ppi.num_nodes, v5_bwd_idx(ppi)), into_json=False)
     time_rows("Cora 8x8 with dropout", table_time_rows(cora, cora_table_case),
               into_json=False)
     # both ops on one small batch: the JAX package takes the table op
@@ -2977,10 +3063,11 @@ def main():
                     cora.num_nodes * d),
                 "v5_backward_bf16": (
                     "v5_backward",
-                    lambda kw=given(ba): v5.v5_backward(*ba, rounding=rb,
-                                                        **kw),
-                    lambda: v5.v5_backward_plain(*ba, rounding=rb), rb,
-                    cora.num_nodes * d,
+                    lambda kw=given(ba) | c32["runs"] | {
+                        "dst_ptr": cora.dst_ptr}: v5.v5_backward(
+                            *ba, rounding=rb, **kw),
+                    lambda: v5.v5_backward_by_sender_plain(*ba, rounding=rb),
+                    rb, cora.num_nodes * d,
                     lambda: v5.v5_backward(*ba, rounding=rb)),
                 "segment_sum_rows_t": (
                     "segment_sum_rows",
@@ -3005,8 +3092,10 @@ def main():
         time_rows(f"PATTERN {c['nh']}x{c['f']} [{mode_tag(rb)}]", mode_rows(
             v5_time_rows(pattern, c32), {"v5_backward_bf16": (
                 "v5_backward",
-                lambda kw=given(ba): v5.v5_backward(*ba, rounding=rb, **kw),
-                lambda: v5.v5_backward_plain(*ba, rounding=rb), rb,
+                lambda kw=given(ba) | c32["runs"] | {
+                    "dst_ptr": pattern.dst_ptr}: v5.v5_backward(
+                        *ba, rounding=rb, **kw),
+                lambda: v5.v5_backward_by_sender_plain(*ba, rounding=rb), rb,
                 pattern.num_nodes * c["nh"] * c["f"],
                 lambda: v5.v5_backward(*ba, rounding=rb))}),
                   into_json=False)
@@ -3020,7 +3109,7 @@ def main():
             two_phase_time_rows(c32, v5_two_phase_entries(cora), V5_TWO,
                                 cora.num_nodes, cora.num_edges,
                                 2 * cora.num_edges, cora.num_real_edges,
-                                cora.num_edges), {
+                                cora.num_nodes, v5_bwd_idx(cora)), {
                 "v5_cap_bf16": ("v5_cap", lambda: cap_k(*ca, rounding=rnd),
                                 lambda: cap_p(*ca), rnd, elems),
                 "v5_forward_two_phase_bf16": (
@@ -3090,9 +3179,10 @@ def main():
                       v5_time_rows(remainder, c532), {
                           "v5_backward_parts_bf16": (
                               "v5_backward_parts",
-                              lambda kw=given(p5): v5.v5_backward(
+                              lambda kw=given(p5) | c532["runs"] | {
+                                  "dst_ptr": hb.rem_dst_ptr}: v5.v5_backward(
                                   *p5, normalize=False, rounding=r5, **kw),
-                              lambda: v5.v5_backward_plain(
+                              lambda: v5.v5_backward_by_sender_plain(
                                   *p5, normalize=False, rounding=r5), r5,
                               nhy * d, lambda: v5.v5_backward(
                                   *p5, normalize=False, rounding=r5))}),
@@ -3106,7 +3196,8 @@ def main():
                   f"[{mode_tag(r6)}]", mode_rows(
                       two_phase_time_rows(c632, v5_two_phase_entries(hybrid),
                                           V5_TWO, nhy, he, 2 * he,
-                                          hybrid.num_real_edges, he), {
+                                          hybrid.num_real_edges, nhy,
+                                          v5_bwd_idx(hybrid)), {
                           "v5_forward_two_phase_bf16": (
                               "v5_forward_two_phase",
                               lambda: fwd_k(*fa6, r6),
@@ -3168,10 +3259,13 @@ def main():
         dm_out = e_ * nh if c["drop"] else 0
         b_in = er * nh + er * d + dm_in + er
         b_out = n_ * d if mode == "normalised" else 0
+        # the forward as the sharded layer calls it: the shard's offsets
+        # (n + 1 words) in place of the receivers
+        dp = graph.dst_ptr
         return {
-            "v2_forward": (lambda: sa.v2_forward(*fa),
+            "v2_forward": (lambda: sa.v2_forward(*fa, dst_ptr=dp),
                            lambda: sa.v2_forward_plain(*fa), None,
-                           4 * (b_in + n_ * d + n_ * nh),
+                           4 * (b_in - er + n_ + 1 + n_ * d + n_ * nh),
                            er * (2 * d + 3 * nh)),
             "v2_backward": (lambda: sa.v2_backward(*ba),
                             lambda: sa.v2_backward_plain(*ba), None,
@@ -3190,7 +3284,8 @@ def main():
             time_rows(f"{label} {mode} [{mode_tag(V2_BF16)}]", mode_rows(
                 rows, {"v2_forward_bf16": (
                     "v2_forward",
-                    lambda fa=fa: sa.v2_forward(*fa, V2_BF16),
+                    lambda fa=fa, dp=graph.dst_ptr: sa.v2_forward(
+                        *fa, V2_BF16, dst_ptr=dp),
                     lambda fa=fa: sa.v2_forward_plain(*fa, V2_BF16),
                     V2_BF16, 0)}),
                 into_json=json_case and mode == "partial")
@@ -3284,7 +3379,8 @@ def main():
         print(f"[kernel] {k}: kernel_ms {t['ms']:.4f} plain_ms "
               f"{t['plain_ms']:.4f} library_ms {t['library_ms']} bound_us "
               f"{t['bound_ms'] * 1e3:.3f} (both layer shapes of its path "
-              f"summed: v5 and segment_sum_rows Cora's, window Pubmed's, "
+              f"summed: v5 Cora's, segment_sum_rows PPI's, window "
+              f"Pubmed's, "
               f"table PPI's, the parts modes the hybrid Pubmed layout's and "
               f"its remainder's, segment_sum_sorted PPI's score widths by "
               f"receiver with the Graph's offsets, v5_dasrc PPI's, the v5 "

@@ -2,9 +2,13 @@
 // table_attention.cu, segment_attention.cu):
 // warp and block reduction helpers, the cross-block second passes, the
 // bfloat16 rounding points, the dispatch on the row width and on the
-// h table's element type, vector loads and stores, and the pieces of the
-// v5 and windowed ops that both share: the source-score pass, the cap
-// stream and the forward (attention_fwd_wide, attention_fwd_narrow).
+// h table's element type, vector loads and stores, and the bodies that
+// several ops share: the source-score pass, the cap stream, the forward
+// (attention_fwd_wide, attention_fwd_narrow: the v5 and windowed ops over
+// the score tables, the table op over its gathered rows, the v2 op over
+// its streamed edge table) and the backward by sender with its tail
+// (attention_bwd_by_sender, bwd_tail_kernel: the windowed op over its
+// layout, the v5 op over its dst-sorted edge list).
 // Everything sits in an anonymous namespace, so each source gets its own
 // copy of what it instantiates.
 
@@ -81,27 +85,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q = h[src] . g[dst] over head k's features, the backward's per-edge
-// dot: lane l holds features l, l+32, ... of the sender's row in hv and
-// of g[dst] in gv, the row rounded to bfloat16 first where round_q
-// (kRoundRows: the logit is the score table's, q reads the rounded row).
-// The raw logit itself is no dot here: every kernel takes it from the
-// source-score table, s_src[src, k] + s_dst[dst, k] (source_scores_kernel
-// below), so the cap pass, the forward and the backward get the same bits
-// for the same edge: the 2-phase argmax edge then has raw - cap == 0
-// exactly, where LeakyReLU's slope-at-0 convention decides its gradient.
-template <int C>
-__device__ __forceinline__ float head_dot(const float (&hv)[C],
-                                          const bool (&live)[C],
-                                          const int (&head)[C], int k,
-                                          const float (&gv)[C],
-                                          bool round_q) {
-  float r = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    if (live[c] && head[c] == k) r += round_if(hv[c], round_q) * gv[c];
-  return warp_sum(r);
-}
+// The raw logit of an edge is no dot in any kernel: every v5 and windowed
+// kernel takes it from the source-score table, s_src[src, k] +
+// s_dst[dst, k] (source_scores_kernel below), so the cap pass, the forward
+// and the backward get the same bits for the same edge: the 2-phase argmax
+// edge then has raw - cap == 0 exactly, where LeakyReLU's slope-at-0
+// convention decides its gradient.
 
 // LeakyReLU as the 2-phase kernels apply it: the slope at x <= 0
 __device__ __forceinline__ float leaky(float x, float slope) {
@@ -113,15 +102,6 @@ __device__ __forceinline__ float leaky(float x, float slope) {
 // kTwoPhase (the 2-phase op: the full LeakyReLU, the plain eps, and a
 // d(cap) output). The forwards take their mode as a flag (FwdArgs).
 enum class Bwd { kNorm, kParts, kTwoPhase };
-
-__device__ __forceinline__ float select_head(const float (&v)[kMaxHeads],
-                                             int k) {
-  float out = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxHeads; ++i)
-    if (i == k) out = v[i];
-  return out;
-}
 
 // (m, c) <- the larger value; on a tie, the lower (edge, head) code
 __device__ __forceinline__ void take_max(float& m, int& c, float v, int vc) {
@@ -205,6 +185,38 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p,
   }
 }
 
+// V consecutive floats read or written once (a stream through device
+// memory that L2 need not keep: evict-first)
+template <int V>
+__device__ __forceinline__ void load_vec_cs(const float* __restrict__ p,
+                                            float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = __ldcs(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec_cs(float* __restrict__ p,
+                                             const float (&v)[V]) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (V == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
 // V consecutive elements of T, loaded in one load of V elements (aligned
 // to its size) and read as floats by e(). A bfloat16 vector keeps its
 // loaded bits and widens each element where it is read: widened at the
@@ -217,6 +229,10 @@ struct Vec<float, V> {
   float v[V];
   __device__ __forceinline__ void load(const float* __restrict__ p) {
     load_vec<V>(p, v);
+  }
+  // read once from device memory (evict-first): a streamed table
+  __device__ __forceinline__ void load_cs(const float* __restrict__ p) {
+    load_vec_cs<V>(p, v);
   }
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -322,38 +338,6 @@ __device__ __forceinline__ float team_sums(float (&q)[KP], int lane,
   float s = q[0];
   for (; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
   return s;
-}
-
-// V consecutive floats read or written once (a stream through device
-// memory that L2 need not keep: evict-first)
-template <int V>
-__device__ __forceinline__ void load_vec_cs(const float* __restrict__ p,
-                                            float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else if constexpr (V == 2) {
-    const float2 q = __ldcs(reinterpret_cast<const float2*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-  } else {
-    v[0] = __ldcs(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec_cs(float* __restrict__ p,
-                                             const float (&v)[V]) {
-  if constexpr (V == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (V == 2) {
-    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  } else {
-    __stcs(p, v[0]);
-  }
 }
 
 // -- the backwards' d(den) prologue -------------------------------------------
@@ -781,21 +765,38 @@ int launch_cap_stream(const float* s_src, const float* s_dst,
 
 // -- the forward -------------------------------------------------------------
 //
-// The forward of the v5 op (v5_fwd_kernel) and of the windowed op
-// (window_fwd_kernel): destination d's run of edge positions p in
-// [ptr[d], min(ptr[d+1], e_end)); its slot is perm[p] (the window
-// layout's dst_perm) or p (perm NULL: the v5 op's dst-sorted edges); the
-// slot's sender send[slot], mask row drop[slot, :] and argmax code
-// slot*nh + k. Per (slot, head): raw = s_src[send, k] + s_dst[d, k]; the
-// sweep-1 mode takes ex = exp(slope * raw) (s_dst B-shifted), tracks the
-// (max raw, lowest code) and writes num unnormalised; the 2-phase mode
-// takes ex = exp(leaky(raw - *cap_in)) and writes out = num / (den + eps),
-// 0 where den == 0. den sums ex (no mask), num ex * drop * h[send].
+// The forwards of four ops, which differ only in where an edge's weight
+// and row come from (Src):
+//   kScores  the v5 op (v5_fwd_kernel) and the windowed op
+//            (window_fwd_kernel): destination d's run of edge positions p
+//            in [ptr[d], min(ptr[d+1], e_end)); its slot is perm[p] (the
+//            window layout's dst_perm) or p (perm NULL: the v5 op's
+//            dst-sorted edges); the slot's sender send[slot], mask row
+//            drop[slot, :] and argmax code slot*nh + k. Per (slot, head):
+//            raw = s_src[send, k] + s_dst[d, k]; the sweep-1 mode takes
+//            ex = exp(slope * raw) (s_dst B-shifted), tracks the (max raw,
+//            lowest code) and writes num unnormalised; the 2-phase mode
+//            takes ex = exp(leaky(raw - *cap_in)) and writes out = num /
+//            (den + eps), 0 where den == 0;
+//   kLogits  the table op (table_fwd_kernel): edge p of the run, ex =
+//            exp(logits[p, k]), the row h[send[p]] gathered (from L2,
+//            where the (n_src, d) table sits);
+//   kStream  the v2 op (v2_fwd_kernel): edge p of the run, ex =
+//            exp(logits[p, k]), the row h[p] of the pre-gathered (E, d)
+//            edge table, read once from device memory with evict-first
+//            loads (__ldcs): nothing else reads it, and L2 is kept for
+//            the logits and the outputs.
+// The logit ops write out = num / (den + eps), 0 where den == 0, where
+// `norm`, else num (the v2 op's partial mode). den sums ex (no mask), num
+// ex * drop * row, each edge's terms rounded to bfloat16 first where
+// kRoundAcc.
+enum class Src { kScores, kLogits, kStream };
+
 template <typename T>
 struct FwdArgs {
-  const T* h;            // (n_src, d_feat)
-  const float* s_src;    // (n_src, nh), the source-score table
-  const float* s_dst;    // (n, nh)
+  const T* h;            // (n_src, d_feat); kStream: (E, d_feat) edge rows
+  const float* s_src;    // (n_src, nh), the source-score table (kScores)
+  const float* s_dst;    // (n, nh) (kScores)
   const float* drop;     // (slots, nh) or NULL
   const int* send;
   const int* perm;       // NULL: a slot is its position
@@ -809,6 +810,8 @@ struct FwdArgs {
   float* den;            // (n, nh)
   float* blk_max;        // (gridDim.x,): the sweep-1 (max, code) partials
   int* blk_code;
+  const float* logits;   // (E, nh): kLogits and kStream
+  bool norm;             // kLogits and kStream: write out, else num
 };
 
 // ex of one (slot, head) from its score: (w = ex * m, the weight of the
@@ -830,10 +833,37 @@ __device__ __forceinline__ void edge_weight(const FwdArgs<T>& a, float raw,
   w = ex * m;
 }
 
+// the same from a given logit (kLogits, kStream)
+template <bool RACC>
+__device__ __forceinline__ void logit_weight(float logit, float m, float& w,
+                                             float& term) {
+  const float ex = expf(logit);
+  term = RACC ? round_bf16(ex) : ex;
+  w = ex * m;
+}
+
 // acc += w * x, each product rounded to bfloat16 first where RACC
 template <bool RACC>
 __device__ __forceinline__ void add_term(float& acc, float w, float x) {
   acc = RACC ? __fadd_rn(acc, round_bf16(__fmul_rn(w, x))) : fmaf(w, x, acc);
+}
+
+// An edge's row: its sender's (kScores, kLogits: src, shuffled in from the
+// lane that loaded it) or its own, at edge position pos (kStream), whose
+// loads are evict-first
+template <Src SRC, typename T>
+__device__ __forceinline__ const T* edge_row(const FwdArgs<T>& a, int pos,
+                                             int src) {
+  return a.h + (size_t)(SRC == Src::kStream ? pos : src) * a.d_feat;
+}
+
+template <Src SRC, typename T, int V>
+__device__ __forceinline__ void load_row(Vec<T, V>& v, const T* p) {
+  if constexpr (SRC == Src::kStream) {
+    v.load_cs(p);
+  } else {
+    v.load(p);
+  }
 }
 
 // Rows of f >= 32 features a head (PPI's 4 x 256 and 6 x 121): a block of
@@ -842,13 +872,14 @@ __device__ __forceinline__ void add_term(float& acc, float w, float x) {
 // element; V = 4 where it divides f, else 2 where it divides the row
 // (6 x 121: heads start mid-vector, and the elements of a neighbouring
 // head are kept out of the stores), else 1. The edges come 32 at a time:
-// lane i takes edge i's slot, sender, score and mask entry and its exp
-// once (after the batch's first row loads are issued), and the warp hands
-// them out by shuffles. Each lane issues U edges' row loads before it
-// uses them and adds w * h in ascending edge order.
-template <int V, int C, bool RACC, typename T>
+// lane i takes edge i's slot, sender, score (or logit) and mask entry and
+// its exp once (after the batch's first row loads are issued), and the
+// warp hands them out by shuffles. Each lane issues U edges' row loads
+// before it uses them and adds w * h in ascending edge order.
+template <int V, int C, bool RACC, Src SRC, typename T>
 __device__ __forceinline__ void attention_fwd_wide(const FwdArgs<T>& a) {
   constexpr int U = in_flight(C * V);
+  constexpr bool kScore = SRC == Src::kScores;
   const int lane = threadIdx.x & 31, k = threadIdx.x >> 5;
   const int nh = a.nh, d_feat = a.d_feat;
   const int lo_k = k * a.f, hi_k = lo_k + a.f;  // head k's elements
@@ -856,8 +887,10 @@ __device__ __forceinline__ void attention_fwd_wide(const FwdArgs<T>& a) {
   bool live[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) live[c] = col + 32 * V * c < hi_k;
-  const bool r_rows = a.flags & kRoundRows;
-  const float cap = a.two_phase ? *a.cap_in : 0.f;
+  const bool r_rows = kScore && (a.flags & kRoundRows);
+  const float cap = kScore && a.two_phase ? *a.cap_in : 0.f;
+  // the epilogue's quotient: the 2-phase mode, or a logit op's `norm`
+  const bool norm = kScore ? a.two_phase : a.norm;
   float vmax = -INFINITY;
   int vcode = INT_MAX;
 
@@ -868,17 +901,18 @@ __device__ __forceinline__ void attention_fwd_wide(const FwdArgs<T>& a) {
 #pragma unroll
       for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
     float dsum = 0.f;
-    const float sd = a.s_dst[(size_t)d * nh + k];
+    const float sd = kScore ? a.s_dst[(size_t)d * nh + k] : 0.f;
     const int lo = a.ptr[d], hi = min(a.ptr[d + 1], a.e_end);
     for (int b = lo; b < hi; b += 32) {
       const int cnt = min(32, hi - b);
-      // lane i: edge b + i's slot, sender, score and mask entry
+      // lane i: edge b + i's slot, sender, score (logit) and mask entry
       int slot = 0, src = 0;
       float ss = 0.f, m = 1.f, w = 0.f, term = 0.f;
       if (lane < cnt) {
-        slot = a.perm ? a.perm[b + lane] : b + lane;
-        src = a.send[slot];
-        ss = a.s_src[(size_t)src * nh + k];
+        slot = kScore && a.perm ? a.perm[b + lane] : b + lane;
+        if constexpr (SRC != Src::kStream) src = a.send[slot];
+        ss = kScore ? a.s_src[(size_t)src * nh + k]
+                    : a.logits[(size_t)slot * nh + k];
         if (a.drop) m = a.drop[(size_t)slot * nh + k];
       }
       for (int i0 = 0; i0 < cnt; i0 += U) {
@@ -886,20 +920,27 @@ __device__ __forceinline__ void attention_fwd_wide(const FwdArgs<T>& a) {
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int i = i0 + u;  // past cnt: nothing is loaded or added
-          const int s = __shfl_sync(kFull, src, i & 31);
-          const T* row = a.h + (size_t)s * d_feat + col;
+          int s = 0;
+          if constexpr (SRC != Src::kStream)
+            s = __shfl_sync(kFull, src, i & 31);
+          const T* row = edge_row<SRC>(a, b + i, s) + col;
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             if (i < cnt && live[c]) {
-              hv[u][c].load(row + 32 * V * c);
+              load_row<SRC>(hv[u][c], row + 32 * V * c);
             } else {
               hv[u][c].zero();
             }
           }
         }
-        if (i0 == 0 && lane < cnt)  // the batch's exps, once
-          edge_weight<RACC>(a, ss + sd, cap, m, slot * nh + k, vmax, vcode,
-                            w, term);
+        if (i0 == 0 && lane < cnt) {  // the batch's exps, once
+          if constexpr (kScore) {
+            edge_weight<RACC>(a, ss + sd, cap, m, slot * nh + k, vmax,
+                              vcode, w, term);
+          } else {
+            logit_weight<RACC>(ss, m, w, term);
+          }
+        }
         float wu[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -928,13 +969,13 @@ __device__ __forceinline__ void attention_fwd_wide(const FwdArgs<T>& a) {
       if (!live[c]) continue;
       float o[V];
 #pragma unroll
-      for (int v = 0; v < V; ++v)
-        o[v] = a.two_phase ? acc[c][v] * inv : acc[c][v];
+      for (int v = 0; v < V; ++v) o[v] = norm ? acc[c][v] * inv : acc[c][v];
       store_in<V>(orow + 32 * V * c, o, col + 32 * V * c, lo_k, hi_k);
     }
     if (lane == 0) a.den[(size_t)d * nh + k] = dsum;
   }
-  if (!a.two_phase) block_max_partial(vmax, vcode, a.blk_max, a.blk_code);
+  if constexpr (kScore)
+    if (!a.two_phase) block_max_partial(vmax, vcode, a.blk_max, a.blk_code);
 }
 
 // Rows of f < 32 features a head (Cora's 8 x 8 and 1 x 7, Pubmed's 8 x 8
@@ -942,19 +983,21 @@ __device__ __forceinline__ void attention_fwd_wide(const FwdArgs<T>& a) {
 // split into 32 / lanes teams of `lanes` lanes, each team a whole row:
 // lane t of a team holds the vectors V*(t + lanes*c), c < C, and team g
 // takes the edges g, g + teams, ... of a batch. A batch is 32 / nh edges:
-// lane i*nh + k takes (edge i, head k)'s slot, sender, score, mask entry
-// and exp once; a team shuffles in its edge's sender and, per vector, the
-// weight of the vector's head, or of its two heads where one starts
-// mid-vector (V does not divide f; the plan keeps V <= f + 1, so a vector
-// meets at most two heads): there each element is tested against the
-// boundary. Each team adds its edges in ascending order, and the teams'
-// sums are added in a butterfly at the end; den sums the batch's terms in
-// edge order in every lane (head lane % nh), lane k < nh writes head k's.
+// lane i*nh + k takes (edge i, head k)'s slot, sender, score (logit), mask
+// entry and exp once; a team shuffles in its edge's sender and, per
+// vector, the weight of the vector's head, or of its two heads where one
+// starts mid-vector (V does not divide f; the plan keeps V <= f + 1, so a
+// vector meets at most two heads): there each element is tested against
+// the boundary. Each team adds its edges in ascending order, and the
+// teams' sums are added in a butterfly at the end; den sums the batch's
+// terms in edge order in every lane (head lane % nh), lane k < nh writes
+// head k's.
 // U: the edges whose rows a team has in flight, 2 where a batch gives a
 // team at most two (many heads, few teams: the registers of more would
 // only cost resident warps), else in_flight(C * V).
-template <int V, int C, int U, bool RACC, typename T>
+template <int V, int C, int U, bool RACC, Src SRC, typename T>
 __device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
+  constexpr bool kScore = SRC == Src::kScores;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nh = a.nh, d_feat = a.d_feat, f = a.f, lanes = a.lanes;
   const int teams = 32 / lanes, g = lane / lanes, t = lane & (lanes - 1);
@@ -971,8 +1014,9 @@ __device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
     h1[c] = live[c] ? (j0[c] + V - 1) / f : 0;
     cut[c] = (h0[c] + 1) * f;  // the first element of head h0 + 1
   }
-  const bool r_rows = a.flags & kRoundRows;
-  const float cap = a.two_phase ? *a.cap_in : 0.f;
+  const bool r_rows = kScore && (a.flags & kRoundRows);
+  const float cap = kScore && a.two_phase ? *a.cap_in : 0.f;
+  const bool norm = kScore ? a.two_phase : a.norm;
   float vmax = -INFINITY;
   int vcode = INT_MAX;
 
@@ -984,7 +1028,7 @@ __device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
 #pragma unroll
       for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
     float dsum = 0.f;  // head kh's
-    const float sd = a.s_dst[(size_t)d * nh + kh];
+    const float sd = kScore ? a.s_dst[(size_t)d * nh + kh] : 0.f;
     const int lo = a.ptr[d], hi = min(a.ptr[d + 1], a.e_end);
     for (int b = lo; b < hi; b += per) {
       const int cnt = min(per, hi - b);
@@ -992,9 +1036,10 @@ __device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
       float ss = 0.f, m = 1.f, w = 0.f, term = 0.f;
       const bool own = mine < cnt;
       if (own) {
-        slot = a.perm ? a.perm[b + mine] : b + mine;
-        src = a.send[slot];
-        ss = a.s_src[(size_t)src * nh + kh];
+        slot = kScore && a.perm ? a.perm[b + mine] : b + mine;
+        if constexpr (SRC != Src::kStream) src = a.send[slot];
+        ss = kScore ? a.s_src[(size_t)src * nh + kh]
+                    : a.logits[(size_t)slot * nh + kh];
         if (a.drop) m = a.drop[(size_t)slot * nh + kh];
       }
       for (int i0 = 0; i0 < cnt; i0 += teams * U) {
@@ -1005,21 +1050,28 @@ __device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
           if (i0 + u * teams >= cnt) break;  // the same for every lane
           const int i = i0 + u * teams + g;
           base[u] = (i * nh) & 31;
-          const int s = __shfl_sync(kFull, src, base[u]);
-          const T* row = a.h + (size_t)s * d_feat;
+          int s = 0;
+          if constexpr (SRC != Src::kStream)
+            s = __shfl_sync(kFull, src, base[u]);
+          const T* row = edge_row<SRC>(a, b + i, s);
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             if (i < cnt && live[c]) {
-              hv[u][c].load(row + j0[c]);
+              load_row<SRC>(hv[u][c], row + j0[c]);
             } else {
               hv[u][c].zero();
             }
           }
         }
         if (i0 == 0) {  // the batch's exps, once, and their den terms
-          if (own)
-            edge_weight<RACC>(a, ss + sd, cap, m, slot * nh + kh, vmax, vcode,
-                              w, term);
+          if (own) {
+            if constexpr (kScore) {
+              edge_weight<RACC>(a, ss + sd, cap, m, slot * nh + kh, vmax,
+                                vcode, w, term);
+            } else {
+              logit_weight<RACC>(ss, m, w, term);
+            }
+          }
           for (int i = 0; i < cnt; ++i)
             dsum += __shfl_sync(kFull, term, i * nh + kh);
         }
@@ -1054,7 +1106,7 @@ __device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       float i0v = 1.f, i1v = 1.f;
-      if (a.two_phase) {  // lane k < nh holds head k's
+      if (norm) {  // lane k < nh holds head k's
         i0v = __shfl_sync(kFull, inv, h0[c]);
         i1v = split ? __shfl_sync(kFull, inv, h1[c]) : i0v;
       }
@@ -1062,13 +1114,14 @@ __device__ __forceinline__ void attention_fwd_narrow(const FwdArgs<T>& a) {
       float o[V];
 #pragma unroll
       for (int v = 0; v < V; ++v)
-        o[v] = a.two_phase ? acc[c][v] * (j0[c] + v < cut[c] ? i0v : i1v)
-                           : acc[c][v];
+        o[v] = norm ? acc[c][v] * (j0[c] + v < cut[c] ? i0v : i1v)
+                    : acc[c][v];
       store_vec<V>(orow + j0[c], o);
     }
     if (lane < nh) a.den[(size_t)d * nh + lane] = dsum;
   }
-  if (!a.two_phase) block_max_partial(vmax, vcode, a.blk_max, a.blk_code);
+  if constexpr (kScore)
+    if (!a.two_phase) block_max_partial(vmax, vcode, a.blk_max, a.blk_code);
 }
 
 // Checks the lane plan (wide, vec, per_lane, lanes, unroll) that the wrapper
@@ -1092,12 +1145,13 @@ int check_plan(const FwdArgs<T>& a, int wide, int vec, int per_lane) {
              ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
-// One forward launch over the plan, then, in the sweep-1 mode, the cap
-// reduce into cap and code. kernel_of(Int<WIDE>, Int<V>, Int<C>, Int<U>,
-// Int<RACC>) is the source's __global__ kernel of that instance; the
-// wide plans take V * C <= 32 elements a lane and U = in_flight(V * C),
-// the narrow ones NARROW_LIMIT and U = 2 or in_flight(V * C) (WIDE_OK
-// false: a library without the wide instances).
+// One forward launch over the plan, then, in the sweep-1 mode of the score
+// ops, the cap reduce into cap and code (a logit op, a.logits given, has
+// no cap). kernel_of(Int<WIDE>, Int<V>, Int<C>, Int<U>, Int<RACC>) is the
+// source's __global__ kernel of that instance; the wide plans take V * C
+// <= 32 elements a lane and U = in_flight(V * C), the narrow ones
+// NARROW_LIMIT and U = 2 or in_flight(V * C) (WIDE_OK false: a library
+// without the wide instances).
 template <bool WIDE_OK, int NARROW_LIMIT, typename T, typename K>
 int launch_attention_fwd(const FwdArgs<T>& a, int wide, int vec,
                          int per_lane, int unroll, int nblk, float* cap,
@@ -1129,7 +1183,7 @@ int launch_attention_fwd(const FwdArgs<T>& a, int wide, int vec,
       return (int)cudaErrorInvalidValue;
     });
   }
-  if (err || a.two_phase) return err;
+  if (err || a.two_phase || a.logits) return err;
   cap_reduce_kernel<<<1, kCapThreads, 0, st>>>(a.blk_max, a.blk_code, nblk,
                                                cap, code);
   return (int)cudaGetLastError();
@@ -1155,13 +1209,504 @@ int launch_source_scores(const T* h, const float* a_src, int n_src,
   });
 }
 
-}  // namespace
+// -- the backward by sender ---------------------------------------------------
+//
+// The backward by sender, every mode (Bwd, a runtime argument here: the
+// modes differ in a few scalars a (slot, head)), over a list of slots: the
+// windowed op's layout slots (window_bwd_kernel: pad slots have recv ==
+// -1 and are never visited, dst_perm lists the slots by destination, pad
+// slots last), or the v5 op's dst-sorted edges (v5_bwd_sender_kernel: a
+// slot is an edge, dst_perm is NULL, the real edges come first, e_real of
+// them). src_perm lists the real slots by sender, each sender's run in
+// ascending slot order: the windowed layout's src_perm, or the v5 graph's
+// src_order (Graph.src_order, build.sender_runs).
+template <typename T>
+struct BwdArgs {
+  const T* h;            // (n_src, d_feat): the table the forward read
+  const float* a_src;    // (d_feat, nh)
+  const float* s_src;    // (n_src, nh): the source-score table
+  const float* s_dst;    // (n, nh)
+  const float* drop;     // (e7, nh) or NULL
+  const int* recv;       // (e7,)
+  const int* src_perm;   // the real slots by sender
+  const int* src_ptr;    // (n_src + 1,)
+  const int* dst_perm;   // (e7,): the slots by destination; NULL: identity
+  const int* dst_ptr;    // (n + 1,)
+  int n_src, n, e7, e_real, d_feat, nh, f, lanes;
+  Bwd mode;
+  float slope, eps;      // eps: the 2-phase mode's plain eps
+  int flags;
+  const float* g;        // d(out), or d(num) in the parts mode
+  const float* out;      // the forward's output; NULL in the parts mode
+  const float* den;      // the forward's den, or d(den) in the parts mode
+  const float* epsp;     // kNorm: eps' on the device
+  const float* cap_in;   // kTwoPhase: the cap on the device
+  float* d_h;            // (n_src, d_feat)
+  float* d_drop;         // (e7, nh) or NULL
+  float* dsd;            // (e7, nh) scratch: each slot's d(s_dst) term
+  float* dsum;           // (n_src, nh) scratch: each sender's d(raw) summed
+  float* part;           // (gridDim.x, stride): d(a_src) [| -d(cap)]
+  int stride;
+};
 
-// LAUNCH(C) with C = the features per lane that cover c_need = ceil(D / 32)
-#define ROWS_DISPATCH(LAUNCH) \
-  if (c_need <= 1) { LAUNCH(1); }   \
-  else if (c_need <= 2) { LAUNCH(2); } \
-  else if (c_need <= 4) { LAUNCH(4); } \
-  else if (c_need <= 8) { LAUNCH(8); } \
-  else if (c_need <= 16) { LAUNCH(16); } \
-  else { LAUNCH(32); }
+// Warp w of block b owns the senders b * kWarps + w, then every
+// gridDim.x * kWarps-th after it, in teams of `lanes` lanes that each hold
+// a whole row (RowLanes). A batch is 32 / nh positions of the sender's run
+// of src_perm: lane i * nh + k takes slot i's index, destination, head k's
+// den (inv, rounded where kRoundPayload), s_dst entry and mask entry, and
+// its exp once. Team g gathers g[dst] of the slots i0 + u * teams + g, U of
+// them in flight, and reads out[dst] into the dots as it arrives; the
+// per-head dots out . g and h . g reach the slot's lane, which takes
+// d(den) = -inv * out . g (before g is rounded: kRoundPayload rounds the
+// payload after d(den) is taken from it), d(raw), d(drop) and the slot's
+// d(s_dst) term. Where a head is whole lanes of one vector each (C = 1, V
+// divides f: Pubmed's 8 x 8, Cora's 1 x 7), a head's dot is a sum over its
+// f / V lanes (the instance AL); elsewhere (Pubmed's 8 x 3, whose vectors
+// of 4 meet two heads) each lane sums its elements per head and team_sums
+// reduces all heads together. Each team then takes its slot's
+// d(h) term, round_if(d(raw) @ a_src^T + coef * g, kRoundDh), and every
+// lane adds the teams' terms in slot order, so that a sender's d(h) row is
+// the sum of its slots' terms in ascending position of its run, from 0,
+// with no contraction: the order in which segment_sum.cu reduced the
+// per-slot rows. At 16 or more elements a lane (one team a warp) the sums
+// live in shared memory and the sender's own row is read per slot (from
+// L1): held in registers beside a g row, they spilled. Each sender's d(raw)
+// sums (kRoundDraw) go to dsum; at the end the block takes its senders'
+// h^T dsum into its partial row of d(a_src) (the products once a sender).
+template <int V, int C>
+constexpr bool kWideRow = V * C >= 16;
+
+// AL: heads of whole lanes (C == 1, V divides f), the fast path below.
+// The body of a __global__ kernel of kWarps warps
+// (__launch_bounds__(kWarps * 32, 1)) with the dynamic shared memory of
+// bwd_smem_bytes.
+template <int V, int C, int U, bool AL, typename T>
+__device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
+  constexpr bool kWide = kWideRow<V, C>;
+  extern __shared__ float smem[];
+  float* sa = smem;  // a_src transposed, (nh, d_feat)
+  __shared__ float wdcap[kWarps];
+  const int d_feat = a.d_feat, nh = a.nh, lanes = a.lanes;
+  for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x)
+    sa[(i % nh) * d_feat + i / nh] = a.a_src[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // kWide: this warp's sums, (d_feat,); one team, so one lane an element
+  float* sacc = smem + d_feat * nh + warp * d_feat;
+  const RowLanes<V, C> r(lane, lanes, d_feat, a.f);
+  const int teams = r.teams;
+  const int per = 32 / nh;                            // positions a batch
+  const int mine = lane / nh, kh = lane - mine * nh;  // (slot, head) owned
+  // heads of whole lanes: hl lanes a head
+  static_assert(!AL || C == 1, "whole-lane heads take one vector a lane");
+  const int hl = a.f / V;
+  const bool hl_pow2 = !(hl & (hl - 1));
+  const int from = AL ? kh * hl : kh * (lanes / kMaxHeads);
+  const bool two = a.mode == Bwd::kTwoPhase, parts = a.mode == Bwd::kParts;
+  const float eps_p = a.mode == Bwd::kNorm ? *a.epsp : a.eps;
+  const float cap = two ? *a.cap_in : 0.f, slope = a.slope;
+  const bool r_rows = a.flags & kRoundRows, r_pay = a.flags & kRoundPayload,
+             r_dh = a.flags & kRoundDh, r_draw = a.flags & kRoundDraw,
+             r_sds = a.flags & kRoundDsdst;
+  float dcap = 0.f;
+
+  // the sum over head (lane / hl)'s lanes of x, in every one of them
+  auto head_sum = [&](float x) {
+    if (hl_pow2) {
+      for (int o = hl >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+      return x;
+    }
+    const int first = lane - r.t % hl;
+    float s = 0.f;
+    for (int o = 0; o < hl; ++o) s += __shfl_sync(kFull, x, (first + o) & 31);
+    return s;
+  };
+
+  // the slots that are no edges (the tail of dst_perm: pad slots, or the
+  // padding edges from e_real on) get a zero dropout cotangent
+  if (a.d_drop) {
+    const int n_real = min(a.dst_ptr[a.n], a.e_real);
+    const int pads = (a.e7 - n_real) * nh;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < pads;
+         i += gridDim.x * blockDim.x) {
+      const int p = n_real + i / nh;
+      a.d_drop[(size_t)(a.dst_perm ? a.dst_perm[p] : p) * nh + i % nh] = 0.f;
+    }
+  }
+
+  for (int s = blockIdx.x * kWarps + warp; s < a.n_src;
+       s += gridDim.x * kWarps) {
+    // the sender's own row, rounded where kRoundRows (the dots and d(a_src)
+    // read it so)
+    const T* hrow = a.h + (size_t)s * d_feat;
+    auto own = [&](int c, float (&x)[V]) {
+      Vec<T, V> y;
+      if (r.live(c)) {
+        y.load(hrow + r.j0(c));
+      } else {
+        y.zero();
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) x[v] = round_if(y.e(v), r_rows);
+    };
+    float hv[kWide ? 1 : C][V], acc[kWide ? 1 : C][V];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if constexpr (kWide) {
+        if (r.live(c)) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) sacc[r.j0(c) + v] = 0.f;
+        }
+      } else {
+        own(c, hv[c]);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
+      }
+    }
+    const float ss = a.s_src[(size_t)s * nh + kh];
+    float dsa = 0.f;  // lane (i, k): its slots' d(raw) as d(a_src) reads it
+    const int lo = a.src_ptr[s], hi = a.src_ptr[s + 1];
+    for (int b = lo; b < hi; b += per) {
+      const int cnt = min(per, hi - b);
+      const bool mine_ok = mine < cnt;
+      int slot = 0, dst = 0;
+      float ex = 0.f, m = 1.f, inv = 0.f, inv_p = 0.f, dn = 0.f, coef = 0.f,
+            pre = 0.f;
+      if (mine_ok) {
+        slot = a.src_perm[b + mine];
+        dst = a.recv[slot];
+        const size_t dk = (size_t)dst * nh + kh;
+        dn = a.den[dk];
+        // the caller's epilogue owns the quotient in the parts mode
+        inv = parts ? 1.f : dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
+        inv_p = round_if(inv, r_pay);  // the payload's, rounded
+        if (a.drop) m = a.drop[(size_t)slot * nh + kh];
+        const float raw = ss + a.s_dst[dk];
+        if (two) {
+          pre = raw - cap;
+          ex = expf(leaky(pre, slope));
+        } else {
+          ex = expf(slope * raw);
+        }
+        coef = ex * m * inv_p;
+      }
+      for (int i0 = 0; i0 < cnt; i0 += teams * U) {
+        // team g takes the slot i0 + u * teams + g: U rows of g in flight
+        float gv[U][C][V];
+        int base[U];  // the lane of (the team's slot, head 0)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (i0 + u * teams >= cnt) break;  // the same for every lane
+          const int i = i0 + u * teams + r.g;
+          base[u] = (i * nh) & 31;
+          const int du = __shfl_sync(kFull, dst, base[u]);
+          const float* grow = a.g + (size_t)du * d_feat;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            if (i < cnt && r.live(c)) {
+              load_vec<V>(grow + r.j0(c), gv[u][c]);
+            } else {
+#pragma unroll
+              for (int v = 0; v < V; ++v) gv[u][c][v] = 0.f;
+            }
+          }
+        }
+        // slot by slot of the U in flight: the per-head dots out . g
+        // (d(den), from the unrounded g) and h . g (from the payload's g),
+        // the slot's lane's d(raw), then the team's d(h) term
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (i0 + u * teams >= cnt) break;  // the same for every lane
+          const int i = i0 + u * teams + r.g;
+          const float* orow =
+              a.out + (size_t)__shfl_sync(kFull, dst, base[u]) * d_feat;
+          float red_og = 0.f, red_hg;
+          if constexpr (AL) {  // C == 1: the lane's vector is one head's
+            float xo = 0.f, xh = 0.f;
+            if (!parts) {
+              float ov[V];
+              if (i < cnt && r.live(0)) {
+                load_vec<V>(orow + r.j0(0), ov);
+              } else {
+#pragma unroll
+                for (int v = 0; v < V; ++v) ov[v] = 0.f;
+              }
+#pragma unroll
+              for (int v = 0; v < V; ++v) xo = fmaf(ov[v], gv[u][0][v], xo);
+              red_og = head_sum(xo);
+            }
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              gv[u][0][v] = round_if(gv[u][0][v], r_pay);
+              xh = fmaf(hv[0][v], gv[u][0][v], xh);  // never a wide row
+            }
+            red_hg = head_sum(xh);
+          } else {
+            float q[kMaxHeads];
+            if (!parts) {
+#pragma unroll
+              for (int k = 0; k < kMaxHeads; ++k) q[k] = 0.f;
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                float ov[V];
+                if (i < cnt && r.live(c)) {
+                  load_vec<V>(orow + r.j0(c), ov);
+                } else {
+#pragma unroll
+                  for (int v = 0; v < V; ++v) ov[v] = 0.f;
+                }
+                r.add_head_dots(ov, gv[u][c], c, q);
+              }
+              red_og = team_sums<kMaxHeads>(q, lane, lanes);
+            }
+            if (r_pay) {
+#pragma unroll
+              for (int c = 0; c < C; ++c)
+#pragma unroll
+                for (int v = 0; v < V; ++v)
+                  gv[u][c][v] = round_bf16(gv[u][c][v]);
+            }
+#pragma unroll
+            for (int k = 0; k < kMaxHeads; ++k) q[k] = 0.f;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              float x[V];
+              if constexpr (kWide) {
+                own(c, x);
+              } else {
+#pragma unroll
+                for (int v = 0; v < V; ++v) x[v] = hv[c][v];
+              }
+              r.add_head_dots(x, gv[u][c], c, q);
+            }
+            red_hg = team_sums<kMaxHeads>(q, lane, lanes);
+          }
+          // lane (i, k) of a slot of this u takes its dots for head k
+          const int gg = mine - i0 - u * teams;  // the team of slot mine
+          const int src = ((gg & (teams - 1)) * lanes + from) & 31;
+          const float hg = __shfl_sync(kFull, red_hg, src);
+          const float og = parts ? 0.f : __shfl_sync(kFull, red_og, src);
+          float draw = 0.f;
+          if (mine_ok && gg >= 0 && gg < teams) {
+            const float dd = round_if(parts ? dn : -og * inv, r_pay);
+            const float q = hg * inv_p * m + dd;
+            if (two) {
+              // the slope where pre <= 0: the argmax slot has pre == 0
+              const float dlg = ex * q;
+              draw = pre > 0.f ? dlg : slope * dlg;
+              dcap += draw;
+            } else {
+              // d(raw') through the negative LeakyReLU branch
+              draw = slope * ex * q;
+            }
+            const size_t sk = (size_t)slot * nh + kh;
+            if (a.d_drop) a.d_drop[sk] = hg * ex * inv_p;
+            a.dsd[sk] = round_if(draw, r_sds);
+            dsa += round_if(draw, r_draw);
+          }
+          // the team's d(h) term of its slot, a vector at a time; every
+          // lane adds the teams' terms in slot order (every team ends with
+          // the same sums)
+          float dr[kMaxHeads];
+#pragma unroll
+          for (int k = 0; k < kMaxHeads; ++k)
+            dr[k] = k < nh ? __shfl_sync(kFull, draw, (base[u] + k) & 31)
+                           : 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float c0 =
+                __shfl_sync(kFull, coef, (base[u] + r.h0(c)) & 31);
+            const float c1 =
+                r.split ? __shfl_sync(kFull, coef, (base[u] + r.h1(c)) & 31)
+                        : c0;
+            float term[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) term[v] = 0.f;
+            if (r.live(c)) {
+#pragma unroll
+              for (int k = 0; k < kMaxHeads; ++k) {
+                if (k >= nh) continue;
+                float av[V];
+                lds_vec<V>(sa + k * d_feat + r.j0(c), av);
+#pragma unroll
+                for (int v = 0; v < V; ++v)
+                  term[v] = fmaf(av[v], dr[k], term[v]);
+              }
+            }
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              term[v] = round_if(
+                  fmaf(r.first(c, v) ? c0 : c1, gv[u][c][v], term[v]), r_dh);
+            if constexpr (kWide) {  // one team: this lane's elements alone
+              if (r.live(c)) {
+#pragma unroll
+                for (int v = 0; v < V; ++v) {
+                  float* p = sacc + r.j0(c) + v;
+                  *p = __fadd_rn(*p, term[v]);
+                }
+              }
+            } else {
+              for (int t2 = 0; t2 < teams; ++t2) {
+                const bool real = i0 + u * teams + t2 < cnt;  // all lanes
+#pragma unroll
+                for (int v = 0; v < V; ++v) {
+                  const float y =
+                      __shfl_sync(kFull, term[v], t2 * lanes + r.t);
+                  if (real) acc[c][v] = __fadd_rn(acc[c][v], y);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    if (r.g == 0) {
+      float* drow = a.d_h + (size_t)s * d_feat;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!r.live(c)) continue;
+        if constexpr (kWide) {
+          float x[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v) x[v] = sacc[r.j0(c) + v];
+          store_vec<V>(drow + r.j0(c), x);
+        } else {
+          store_vec<V>(drow + r.j0(c), acc[c]);
+        }
+      }
+    }
+    // the sender's d(raw) sums, head k's in lane k
+    float tot = 0.f;
+    for (int i = 0; i < per; ++i)
+      tot += __shfl_sync(kFull, dsa, (i * nh + lane) & 31);
+    if (lane < nh) a.dsum[(size_t)s * nh + lane] = tot;
+  }
+
+  // the block's d(a_src): sum over its senders s of hq[s, j] * dsum[s, k],
+  // the senders of its warps in turn (eight loads in flight); then -d(cap)
+  // (kTwoPhase), the warps' sums in warp order
+  if (two) {
+    const float w = warp_sum(dcap);
+    if (lane == 0) wdcap[warp] = w;
+  }
+  __syncthreads();  // the block's dsum rows are written
+  const int len = d_feat * nh;
+  float* prow = a.part + (size_t)blockIdx.x * a.stride;
+  for (int q = threadIdx.x; q < len; q += blockDim.x) {
+    const int j = q / nh, k = q - j * nh;
+    float x = 0.f;
+    for (int s0 = blockIdx.x * kWarps; s0 < a.n_src;
+         s0 += gridDim.x * kWarps) {
+      float hq[kWarps], ds[kWarps];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int s = s0 + w;
+        hq[w] = s < a.n_src
+                    ? round_if(load_h(a.h + (size_t)s * d_feat + j), r_rows)
+                    : 0.f;
+        ds[w] = s < a.n_src ? a.dsum[(size_t)s * nh + k] : 0.f;
+      }
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) x = fmaf(hq[w], ds[w], x);
+    }
+    prow[q] = x;  // (d_feat, nh)
+  }
+  if (two && threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t += wdcap[w];
+    prow[len] = -t;
+  }
+}
+
+// After the backward: d_sdst[d, k] = sum over d's run of dst_perm (the
+// identity where NULL) below e_real, in order, of the slots' d(s_dst)
+// terms (blocks below sd_blocks, a thread a (destination, head)), and the
+// d(a_src) [| d(cap)] partial rows summed in row order (sum_rows_block,
+// the blocks from sd_blocks on, 32 warps a block: a warp adds every 32nd
+// row).
+constexpr int kTailWarps = 32;
+
+__global__ void __launch_bounds__(kTailWarps * 32, 1)
+bwd_tail_kernel(const float* __restrict__ dsd,
+                const int* __restrict__ dst_perm,
+                const int* __restrict__ dst_ptr, int n, int nh, int e_real,
+                int sd_blocks, const float* __restrict__ part, int nrows,
+                int len, float* __restrict__ d_sdst,
+                float* __restrict__ d_asrc) {
+  if ((int)blockIdx.x < sd_blocks) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n * nh) return;
+    const int d = i / nh, k = i - d * nh;
+    const int hi = min(dst_ptr[d + 1], e_real);
+    float s = 0.f;
+    for (int p = dst_ptr[d]; p < hi; ++p)
+      s += dsd[(size_t)(dst_perm ? dst_perm[p] : p) * nh + k];
+    d_sdst[i] = s;
+    return;
+  }
+  sum_rows_block<kTailWarps>(part, nrows, len, blockIdx.x - sd_blocks,
+                            d_asrc);
+}
+
+// the dynamic shared memory of attention_bwd_by_sender: a_src, and at wide
+// rows the warps' sums
+template <int V, int C>
+size_t bwd_smem_bytes(int d_feat, int nh) {
+  return ((size_t)d_feat * nh + (kWideRow<V, C> ? kWarps * d_feat : 0)) *
+         sizeof(float);
+}
+
+// The backward by sender over the plan (vec, per_lane, lanes, unroll) of
+// v5_attention.row_plan: the kernel on a fixed grid of nblk blocks, then
+// the tail (d(s_dst) by destination, d(a_src) [| d(cap)] from the partial
+// rows): two launches in every mode. kernel_of(Int<V>, Int<C>, Int<U>,
+// Int<AL>) is the source's __global__ kernel of that instance, among the
+// plans of V * C <= LIMIT elements a lane and C <= MAXC.
+template <int LIMIT, int MAXC, typename T, typename K>
+int launch_bwd_by_sender(BwdArgs<T> a, float* d_sdst, float* d_asrc,
+                         int vec, int per_lane, int unroll, int nblk,
+                         cudaStream_t st, K kernel_of) {
+  const bool parts = a.mode == Bwd::kParts;
+  if (!row_plan_ok(a.d_feat, a.nh, a.f, vec, per_lane, a.lanes) ||
+      nblk < 1 || a.n < 1 || a.n_src < 1 || a.e_real < 1 ||
+      !aligned(a.h, vec * sizeof(T)) || !aligned(a.g, vec * sizeof(float)) ||
+      !aligned(a.d_h, vec * sizeof(float)) || (parts != !a.out) ||
+      (a.out && !aligned(a.out, vec * sizeof(float))))
+    return (int)cudaErrorInvalidValue;
+  a.stride = a.d_feat * a.nh + (a.mode == Bwd::kTwoPhase ? 1 : 0);
+  int err = with_vc<LIMIT, MAXC>(vec, per_lane, [&](auto vv, auto cc) {
+    constexpr int V = decltype(vv)::value, C = decltype(cc)::value;
+    constexpr int U = row_flight(V * C);
+    const size_t smem = bwd_smem_bytes<V, C>(a.d_feat, a.nh);
+    if (kWideRow<V, C> && a.lanes != 32) return (int)cudaErrorInvalidValue;
+    auto launch = [&](auto kern) {
+      cudaError_t e = set_smem(kern, smem);
+      if (e != cudaSuccess) return (int)e;
+      kern<<<nblk, kWarps * 32, smem, st>>>(a);
+      return (int)cudaGetLastError();
+    };
+    // the instance for heads of whole lanes where the plan gives them
+    auto with_u = [&](auto uu) {
+      if constexpr (C == 1)
+        if (a.f % V == 0) return launch(kernel_of(vv, cc, uu, Int<1>{}));
+      return launch(kernel_of(vv, cc, uu, Int<0>{}));
+    };
+    if (unroll == U) return with_u(Int<U>{});
+    // two in flight: where a batch gives a team at most two slots (teams
+    // of under 32 lanes, one vector a lane: row_plan)
+    if constexpr (U != 2 && V * C <= 4)
+      if (unroll == 2) return with_u(Int<2>{});
+    return (int)cudaErrorInvalidValue;
+  });
+  if (err) return err;
+  const int sd_blocks =
+      (a.n * a.nh + kTailWarps * 32 - 1) / (kTailWarps * 32);
+  const int sum_blocks = (a.stride + kSumCols - 1) / kSumCols;
+  bwd_tail_kernel<<<sd_blocks + sum_blocks, kTailWarps * 32, 0, st>>>(
+      a.dsd, a.dst_perm, a.dst_ptr, a.n, a.nh, a.e_real, sd_blocks, a.part,
+      nblk, a.stride, d_sdst, d_asrc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -36,12 +36,25 @@
 // blocks, and spreads a head's weight over its features with an expander
 // matmul: all of it because Mosaic has no in-kernel random gather. Here
 // the receivers are sorted, so the forward takes per-destination CSR
-// offsets (the caller's, Graph.dst_ptr, or derived per call) and one warp
-// owns one destination: it walks that destination's
-// edges in order, lane l holding features l, l+32, ... of the edge's
-// contiguous h_src row, and adds m*ex*h and ex in float32 in a fixed
-// order. No atomics, no shared memory, and two launches give the same
-// bits. The backward is a map over the edges: no sum crosses them, so it
+// offsets (the caller's, Graph.dst_ptr, or derived per call) and walks
+// each destination's run with the forward bodies of the v5 and table ops
+// (attention_common.cuh attention_fwd_wide and attention_fwd_narrow, the
+// row source Src::kStream: an edge's row is its own, h_src[e], where the
+// table op gathers h[senders[e]]). At f >= 32 a block of nh warps owns a
+// destination and warp k head k: no head is selected per element; lane l
+// holds vectors of the head's elements (16-byte where 4 divides f, 8-byte
+// at 6 x 121, whose heads start mid-vector: the neighbouring head's
+// elements are kept out of the stores); lane i of a batch of 32 edges
+// takes edge i's logit and mask entry and its exp once, and the warp hands
+// the weights out by shuffles; each lane has U edges' row loads in flight
+// before it uses any, and adds m*ex*h and ex in float32 in ascending edge
+// order. Below f = 32 one warp owns a destination in teams of lanes sized
+// to the row (v5_attention.lane_plan): a lane takes an (edge, head)'s exp
+// once, each team adds its edges in ascending order and the teams' sums
+// are added in a fixed butterfly. No atomics, and two launches give the
+// same bits. The rows are read once from device memory with evict-first
+// loads (__ldcs), which keep L2 for the logits and the outputs.
+// The backward is a map over the edges: no sum crosses them, so it
 // gives each edge's row to a team of lanes sized to the row (the v5 and
 // windowed kernels' teams, v5_attention.row_plan: 16-byte vectors where 4
 // divides the row, 8-byte at 6 x 121, whose heads start mid-vector and
@@ -61,12 +74,10 @@
 // a call, about 0.14 ms at 3.35 TB/s (the first kernel of the port whose
 // byte bound is not negligible). The rows are read from device memory,
 // not from L2 as the gathered tables of the other kernels are, so both
-// start the loads of a row (C vectors a lane) before they use any of them
-// (with each load consumed right after it started, the forward ran at a
-// third of the backward's rate), and the backward streams h_src in and
-// d(h_src) out past L2 (evict-first loads and stores), keeping L2 for the
-// gathered g table. The forward's warp walks its destination's edges one
-// after another, so narrow rows are bound by latency there.
+// start the loads of several rows before they use any of them (with each
+// load consumed right after it started, the forward ran at a third of the
+// backward's rate), and both stream h_src (and d(h_src)) past L2
+// (evict-first loads and stores), keeping L2 for the gathered g table.
 //
 // The bfloat16 mode (flags, attention_common.cuh): the JAX package's
 // GAT_TPU_KERNEL_DTYPE=bfloat16 rounds each edge's [m*ex*h | ex] to
@@ -83,71 +94,19 @@ namespace {
 // grid gives the same bits; up to 16 blocks an SM of the 132
 constexpr int kV2Blocks = 16 * 132;
 
-// x rounded to bfloat16 in the kRoundAcc mode (a template parameter, so
-// that the float32 mode carries no rounding instruction in its loop)
-template <bool ACC>
-__device__ __forceinline__ float acc_term(float x) {
-  return ACC ? round_bf16(x) : x;
-}
-
-template <int C, bool NORM, bool ACC>
-__global__ void __launch_bounds__(kWarps * 32)
-v2_fwd_kernel(const float* __restrict__ logits,
-              const float* __restrict__ h_src,
-              const float* __restrict__ drop,
-              const int* __restrict__ row_ptr, int n, int e_real,
-              int d_feat, int nh, int f, float eps,
-              float* __restrict__ out, float* __restrict__ den) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int head[C];
-  bool live[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int j = lane + 32 * c;
-    live[c] = j < d_feat;
-    head[c] = live[c] ? j / f : 0;
-  }
-
-  for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
-    float dsum[kMaxHeads], acc[C];
-#pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k) dsum[k] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-
-    const int lo = row_ptr[d], hi = min(row_ptr[d + 1], e_real);
-    for (int e = lo; e < hi; ++e) {
-      // every load of the row starts before any is used: the row is read
-      // from device memory once, so their latencies must overlap
-      const float* hrow = h_src + (size_t)e * d_feat;
-      float hv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) hv[c] = live[c] ? hrow[lane + 32 * c] : 0.f;
-      float w[kMaxHeads];
-#pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) {
-        w[k] = 0.f;
-        if (k < nh) {
-          const float ex = expf(logits[(size_t)e * nh + k]);
-          dsum[k] += acc_term<ACC>(ex);
-          w[k] = drop ? ex * drop[(size_t)e * nh + k] : ex;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (live[c]) acc[c] += acc_term<ACC>(select_head(w, head[c]) * hv[c]);
-    }
-
-    float inv[kMaxHeads];
-#pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k)
-      inv[k] = !NORM ? 1.f : (dsum[k] > 0.f ? 1.f / (dsum[k] + eps) : 0.f);
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (live[c])
-        out[(size_t)d * d_feat + lane + 32 * c] =
-            NORM ? acc[c] * select_head(inv, head[c]) : acc[c];
-    if (lane < nh) den[(size_t)d * nh + lane] = select_head(dsum, lane);
+// The forward, both modes (FwdArgs.norm), over the caller's per-destination
+// offsets of the dst-sorted edges: attention_fwd_wide at f >= 32 (a block
+// of nh warps a destination, warp k head k), attention_fwd_narrow below
+// (one warp a destination, teams of lanes sized to the row), each reading
+// the edge table h_src as a stream (Src::kStream). minBlocks 1: without
+// it ptxas held the narrow V = 4 instance to 48 registers and spilled.
+template <bool WIDE, int V, int C, int U, bool RACC>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+v2_fwd_kernel(const FwdArgs<float> a) {
+  if constexpr (WIDE) {
+    attention_fwd_wide<V, C, RACC, Src::kStream>(a);  // U = in_flight(C*V)
+  } else {
+    attention_fwd_narrow<V, C, U, RACC, Src::kStream>(a);
   }
 }
 
@@ -409,33 +368,29 @@ extern "C" {
 
 // Forward: (out (n, d_feat) normalised where normalize, else num; den
 // (n, nh)). logits (E, nh), h_src (e_h >= e_real rows, d_feat; rows from
-// e_real on are not read), drop (E, nh) or NULL,
-// row_ptr (n + 1,) the offsets of each destination's run in the dst-sorted
-// edge list, e_real the number of leading real edges; flags the bfloat16
-// mode's word (kRoundAcc or 0).
+// e_real on are not read), drop (E, nh) or NULL, row_ptr (n + 1,) the
+// offsets of each destination's run in the dst-sorted edge list, e_real
+// the number of leading real edges; (wide, vec, per_lane, lanes, unroll)
+// the lane plan of v5_attention.lane_plan, over nblk blocks; flags the
+// bfloat16 mode's word (kRoundAcc or 0).
 int v2_forward(const float* logits, const float* h_src, const float* drop,
                const int* row_ptr, int n, int e_real, int d_feat, int nh,
                int f, float eps, int normalize, float* out, float* den,
+               int wide, int vec, int per_lane, int lanes, int unroll,
                int nblk, int flags, void* stream) {
-  if (d_feat < 1 || d_feat > 1024 || nh < 1 || nh > kMaxHeads || nblk < 1 ||
-      (flags & ~kRoundAcc))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int c_need = (d_feat + 31) / 32;
-  const bool acc = flags & kRoundAcc;
-#define V2_FWD_MODE(CC, NORM, ACC)                                    \
-  v2_fwd_kernel<CC, NORM, ACC><<<nblk, kWarps * 32, 0, st>>>(         \
-      logits, h_src, drop, row_ptr, n, e_real, d_feat, nh, f, eps, out, \
-      den);
-#define V2_FWD(CC)                                   \
-  if (normalize && acc) { V2_FWD_MODE(CC, true, true) } \
-  else if (normalize) { V2_FWD_MODE(CC, true, false) }  \
-  else if (acc) { V2_FWD_MODE(CC, false, true) }        \
-  else { V2_FWD_MODE(CC, false, false) }
-  ROWS_DISPATCH(V2_FWD)
-#undef V2_FWD
-#undef V2_FWD_MODE
-  return (int)cudaGetLastError();
+  if (n < 1 || (flags & ~kRoundAcc)) return (int)cudaErrorInvalidValue;
+  const FwdArgs<float> a{h_src,   nullptr, nullptr, drop,    nullptr,
+                         nullptr, row_ptr, n,       e_real,  d_feat,
+                         nh,      f,       lanes,   0.f,     eps,
+                         flags,   false,   nullptr, out,     den,
+                         nullptr, nullptr, logits,  normalize != 0};
+  return launch_attention_fwd<true, 8>(
+      a, wide, vec, per_lane, unroll, nblk, nullptr, nullptr,
+      (cudaStream_t)stream, [](auto w, auto v, auto c, auto u, auto r) {
+        return &v2_fwd_kernel<decltype(w)::value != 0, decltype(v)::value,
+                              decltype(c)::value, decltype(u)::value,
+                              decltype(r)::value != 0>;
+      });
 }
 
 // Backward: d_h_src (e_h, d_feat), d_logits (E, nh), d_drop (E, nh) or

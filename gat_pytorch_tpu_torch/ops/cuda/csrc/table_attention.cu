@@ -54,7 +54,9 @@
 // the warp hands them out by shuffles (no shared memory, no block barrier).
 // Each lane then issues U edges' row loads (U = 32 / (C*V), at most 8)
 // before it uses them. The forward adds w * h with fmaf in ascending edge
-// order and sums den the same way; the backward reads the sender's own h row
+// order and sums den the same way (its body, attention_fwd_wide of
+// attention_common.cuh, is the v5 op's and the v2 op's: only where a row
+// and a weight come from differs); the backward reads the sender's own h row
 // once, gathers g[dst] per edge, reduces the U edges' hg together
 // (warp_sums: U - 1 + log2(32 / U) shuffles, not 5 U), and writes each
 // real edge's d(logits) and d(drop) from the edge's own lane. Each output
@@ -82,90 +84,13 @@ namespace {
 // The vector helpers (Vec, load_vec, store_in, in_flight, warp_sums)
 // are attention_common.cuh's.
 
-// the forward: block d is destination d, warp k head k
+// The forward: block d is destination d, warp k head k; the body is the
+// v5 and v2 ops' (attention_common.cuh attention_fwd_wide), its rows
+// gathered by sender and its weights from the given logits (Src::kLogits)
 template <int V, int C, bool RACC, typename T>
 __global__ void __launch_bounds__(kMaxHeads * 32)
-table_fwd_kernel(const float* __restrict__ logits, const T* __restrict__ h,
-                 const float* __restrict__ drop,
-                 const int* __restrict__ senders,
-                 const int* __restrict__ row_ptr, int e_real, int d_feat,
-                 int nh, int f, float eps, float* __restrict__ out,
-                 float* __restrict__ den) {
-  constexpr int U = in_flight(C * V);
-  const int lane = threadIdx.x & 31, k = threadIdx.x >> 5;
-  const int d = blockIdx.x;
-  const int lo_k = k * f, hi_k = lo_k + f;     // head k's elements
-  const int col = lo_k - lo_k % V + V * lane;  // the lane's first vector
-  bool live[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) live[c] = col + 32 * V * c < hi_k;
-  float acc[C][V];
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
-  float dsum = 0.f;
-
-  const int lo = row_ptr[d], hi = min(row_ptr[d + 1], e_real);
-  for (int b = lo; b < hi; b += 32) {
-    const int cnt = min(32, hi - b);
-    // lane i: edge b + i's sender, weight and den term
-    int src = 0;
-    float w = 0.f, term = 0.f;
-    if (lane < cnt) {
-      const size_t ek = (size_t)(b + lane) * nh + k;
-      src = senders[b + lane];
-      const float ex = expf(logits[ek]);
-      term = RACC ? round_bf16(ex) : ex;
-      w = drop ? ex * drop[ek] : ex;
-    }
-    for (int i0 = 0; i0 < cnt; i0 += U) {
-      Vec<T, V> hv[U][C];
-      float wu[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u;  // past cnt: nothing is loaded or added
-        const int s = __shfl_sync(kFull, src, i & 31);
-        wu[u] = __shfl_sync(kFull, w, i & 31);
-        const float tu = __shfl_sync(kFull, term, i & 31);
-        if (i < cnt) dsum += tu;
-        const T* row = h + (size_t)s * d_feat + col;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (i < cnt && live[c]) {
-            hv[u][c].load(row + 32 * V * c);
-          } else {
-            hv[u][c].zero();
-          }
-        }
-      }
-      // in ascending edge order: the loads above are all in flight by now
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (i0 + u >= cnt) break;
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-#pragma unroll
-          for (int v = 0; v < V; ++v)
-            acc[c][v] =
-                RACC ? __fadd_rn(acc[c][v],
-                                 round_bf16(__fmul_rn(wu[u], hv[u][c].e(v))))
-                     : fmaf(wu[u], hv[u][c].e(v), acc[c][v]);
-      }
-    }
-  }
-
-  const float inv = dsum > 0.f ? 1.f / (dsum + eps) : 0.f;
-  float* orow = out + (size_t)d * d_feat + col;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (!live[c]) continue;
-    float o[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) o[v] = acc[c][v] * inv;
-    store_in<V>(orow + 32 * V * c, o, col + 32 * V * c, lo_k, hi_k);
-  }
-  if (lane == 0) den[(size_t)d * nh + k] = dsum;
+table_fwd_kernel(const FwdArgs<T> a) {
+  attention_fwd_wide<V, C, RACC, Src::kLogits>(a);
 }
 
 // the backward by sender: block s < n_src is sender s, warp k head k; the
@@ -341,9 +266,12 @@ int table_forward(const float* logits, const void* h, const float* drop,
         constexpr int C = decltype(cc)::value;
         auto kern = racc ? table_fwd_kernel<V, C, true, T>
                          : table_fwd_kernel<V, C, false, T>;
-        kern<<<n, nh * 32, 0, (cudaStream_t)stream>>>(
-            logits, hp, drop, senders, row_ptr, e_real, d_feat, nh, f, eps,
-            out, den);
+        const FwdArgs<T> a{hp,      nullptr, nullptr, drop,    senders,
+                           nullptr, row_ptr, n,       e_real,  d_feat,
+                           nh,      f,       32,      0.f,     eps,
+                           flags,   false,   nullptr, out,     den,
+                           nullptr, nullptr, logits,  true};
+        kern<<<n, nh * 32, 0, (cudaStream_t)stream>>>(a);
         return (int)cudaGetLastError();
       });
     });

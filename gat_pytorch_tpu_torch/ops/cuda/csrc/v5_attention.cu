@@ -111,12 +111,11 @@
 namespace {
 
 // Rows wider than 256 floats (C >= 16 features a lane: PPI's 1024 and 726)
-// take the backward's wide form. There a per-lane d(a_src) accumulator,
-// C x kMaxHeads floats, beside the row, g and the per-head terms, comes to
-// 255 registers and spills: every edge a read-modify-write of local
-// memory (cuobjdump -res-usage of the C = 32 instances built with it).
-// At C <= 8 it is at most 64 floats and the narrow form keeps it, without
-// local memory.
+// take the backward's wide form, v5_bwd_kernel below: per-edge d(h) rows,
+// then row 3 (segment_sum.cu) by sender, and d(a_src) by v5_dasrc_kernel.
+// Rows of 256 floats or fewer take the backward by sender
+// (v5_bwd_sender_kernel, attention_common.cuh attention_bwd_by_sender),
+// which writes d(h) per node.
 constexpr int kWideC = 16;
 
 // The forward in both its modes (FwdArgs.two_phase): attention_fwd_wide
@@ -127,22 +126,33 @@ template <bool WIDE, int V, int C, int U, bool RACC, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 v5_fwd_kernel(const FwdArgs<T> a) {
   if constexpr (WIDE) {
-    attention_fwd_wide<V, C, RACC>(a);  // U = in_flight(C * V)
+    attention_fwd_wide<V, C, RACC, Src::kScores>(a);  // U = in_flight(C*V)
   } else {
-    attention_fwd_narrow<V, C, U, RACC>(a);
+    attention_fwd_narrow<V, C, U, RACC, Src::kScores>(a);
   }
 }
 
-// MODE (attention_common.cuh): kNorm reads eps' at `epsp`; kParts takes
-// d(num) in `g` and d(den) in `den` (out, epsp, cap unread); kTwoPhase
-// reads the cap at `cap`, uses the plain `eps`, and writes each block's
-// -sum d(raw) after its d(a_src) partial (a partial row of
-// d_feat*nh + 1 floats).
-// The wide form (C >= kWideC): d(a_src) is not accumulated here. Each
-// edge's d(raw) row, rounded as d(a_src) reads it (kRoundDraw), goes to
-// draw_out (E, nh) instead, padding edges' 0, and v5_dasrc_kernel takes
-// d(a_src) from it by sender; the block's partial row gets only its
-// -sum d(raw) (kTwoPhase), at column d_feat*nh.
+// The backward by sender at rows of 256 floats or fewer, every mode, over
+// the dst-sorted edges (a slot is an edge, src_order's real prefix the
+// sender runs): d(h) per node, no per-edge rows and no row 3 after it
+template <int V, int C, int U, bool AL, typename T>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+v5_bwd_sender_kernel(const BwdArgs<T> a) {
+  attention_bwd_by_sender<V, C, U, AL>(a);
+}
+
+// The wide form (C >= kWideC features a lane). One warp walks a
+// destination's edges in order, lane l holding features l, l+32, ... of
+// the sender's row and of g[dst]; the next edge's sender and row are in
+// flight while this one is reduced. MODE (attention_common.cuh): kNorm
+// reads eps' at `epsp`; kParts takes d(num) in `g` and d(den) in `den`
+// (out, epsp, cap unread); kTwoPhase reads the cap at `cap`, uses the
+// plain `eps`, and writes each block's -sum d(raw) in column d_feat*nh of
+// its partial row. d(a_src) is not accumulated here: a per-lane
+// accumulator, C x kMaxHeads floats beside the row, g and the per-head
+// terms, came to 255 registers and spilled. Each edge's d(raw) row,
+// rounded as d(a_src) reads it (kRoundDraw), goes to draw_out (E, nh),
+// padding edges' 0, and v5_dasrc_kernel takes d(a_src) from it by sender.
 template <int C, Bwd MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
@@ -156,31 +166,22 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
               const float* __restrict__ cap_in, float* __restrict__ d_h_rows,
               float* __restrict__ d_drop, float* __restrict__ d_sdst,
               float* __restrict__ dasrc_part, float* __restrict__ draw_out) {
+  static_assert(C >= kWideC, "the wide form");
   constexpr bool kTwo = MODE == Bwd::kTwoPhase;
-  constexpr bool kWide = C >= kWideC;
   extern __shared__ float smem[];
-  float* sa = smem;                  // a_src transposed, (nh, d_feat)
-  float* sacc = smem + d_feat * nh;  // this block's d(a_src), (nh, d_feat)
+  float* sa = smem;  // a_src transposed, (nh, 32 C), zero past d_feat
   __shared__ float wdcap[kWarps];
-  // the wide form's head terms, a row of kMaxHeads each a warp: inv,
-  // d(den), s_dst, the sum for d(s_dst), an edge's d(raw) and its coef
+  // the head terms, a row of kMaxHeads each a warp: inv, d(den), s_dst,
+  // the sum for d(s_dst), an edge's d(raw) and its coef
   enum { kInv, kDden, kSd, kSds, kDraw, kCoef, kTerms };
-  __shared__ float wheads[kWide ? kWarps * kTerms * kMaxHeads : 1];
-  float* wh = wheads + (kWide ? (threadIdx.x >> 5) * kTerms * kMaxHeads : 0);
-  // the wide form's a_src rows are 32 C floats, zero past d_feat: its
-  // products d(raw) @ a_src^T run over every lane's C features with no
-  // test of each (a feature past d_feat gets 0)
+  __shared__ float wheads[kWarps * kTerms * kMaxHeads];
+  float* wh = wheads + (threadIdx.x >> 5) * kTerms * kMaxHeads;
+  // the products d(raw) @ a_src^T run over every lane's C features with
+  // no test of each (a feature past d_feat gets 0)
   constexpr int kPad = 32 * C;
-  if constexpr (kWide) {
-    for (int i = threadIdx.x; i < nh * kPad; i += blockDim.x) {
-      const int j = i % kPad;
-      sa[i] = j < d_feat ? a_src[j * nh + i / kPad] : 0.f;
-    }
-  } else {
-    for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x) {
-      sa[(i % nh) * d_feat + i / nh] = a_src[i];
-      sacc[i] = 0.f;
-    }
+  for (int i = threadIdx.x; i < nh * kPad; i += blockDim.x) {
+    const int j = i % kPad;
+    sa[i] = j < d_feat ? a_src[j * nh + i / kPad] : 0.f;
   }
   __syncthreads();
 
@@ -193,12 +194,6 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
     live[c] = j < d_feat;
     head[c] = live[c] ? j / f : 0;
   }
-  // d(a_src) over this warp's edges (narrow form only: kWide has none)
-  float da[kWide ? 1 : C][kMaxHeads];
-#pragma unroll
-  for (int c = 0; c < (kWide ? 1 : C); ++c)
-#pragma unroll
-    for (int k = 0; k < kMaxHeads; ++k) da[c][k] = 0.f;
   float eps_p = 0.f, cap = 0.f, dcap = 0.f;
   if constexpr (MODE == Bwd::kNorm) eps_p = *epsp;
   if constexpr (kTwo) {
@@ -211,13 +206,13 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
 
   for (int d = blockIdx.x * kWarps + warp; d < n; d += gridDim.x * kWarps) {
     float gv[C];
-    float inv[kMaxHeads], dden[kMaxHeads], sd[kMaxHeads], sds[kMaxHeads];
+    float inv[kMaxHeads], dden[kMaxHeads], sd[kMaxHeads];
 #pragma unroll
     for (int c = 0; c < C; ++c)
       gv[c] = live[c] ? g[(size_t)d * d_feat + lane + 32 * c] : 0.f;
 #pragma unroll
     for (int k = 0; k < kMaxHeads; ++k) {
-      inv[k] = dden[k] = sd[k] = sds[k] = 0.f;
+      inv[k] = dden[k] = sd[k] = 0.f;
       if (k < nh) {
         const float dn = den[(size_t)d * nh + k];
         if constexpr (MODE != Bwd::kParts) {
@@ -244,190 +239,126 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
         dden[k] = round_bf16(dden[k]);
       }
     }
-    if constexpr (kWide) {
-      __syncwarp();  // the last destination's terms are read
-      if (lane == 0) {
+    __syncwarp();  // the last destination's terms are read
+    if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < kMaxHeads; ++k) {
-          wh[kInv * kMaxHeads + k] = inv[k];
-          wh[kDden * kMaxHeads + k] = dden[k];
-          wh[kSd * kMaxHeads + k] = sd[k];
-          wh[kSds * kMaxHeads + k] = 0.f;
-        }
+      for (int k = 0; k < kMaxHeads; ++k) {
+        wh[kInv * kMaxHeads + k] = inv[k];
+        wh[kDden * kMaxHeads + k] = dden[k];
+        wh[kSd * kMaxHeads + k] = sd[k];
+        wh[kSds * kMaxHeads + k] = 0.f;
       }
-      __syncwarp();
     }
+    __syncwarp();
 
     const int lo = row_ptr[d];
     const int hi = min(row_ptr[d + 1], e_real);  // padding edges: see below
-    // The next edge's sender, row and (narrow form) scores in flight
-    // while this one is reduced: kPre, every form but the narrow one at
-    // C = 8 features a lane, whose registers hold d(a_src) instead. Each
-    // lane holds every head's score (broadcast loads): a shuffle a head
-    // on the edge's chain was slower on the card.
-    constexpr bool kPre = kWide || C <= 4;
+    // the next edge's sender and row in flight while this one is reduced
     float hn[C];
     int sn = 0;
-    float svn[kMaxHeads];  // the scores of sender sn
     auto fetch = [&](int e_) {
       sn = senders[e_];
       const T* nrow = h + (size_t)sn * d_feat;
 #pragma unroll
       for (int c = 0; c < C; ++c)
         hn[c] = live[c] ? load_h(nrow + lane + 32 * c) : 0.f;
-      if constexpr (!kWide)
-#pragma unroll
-        for (int k = 0; k < kMaxHeads; ++k)
-          svn[k] = k < nh ? s_src[(size_t)sn * nh + k] : 0.f;
     };
-    if (kPre && lo < hi) fetch(lo);
+    if (lo < hi) fetch(lo);
     for (int e = lo; e < hi; ++e) {
       float* dhrow = d_h_rows + (size_t)e * d_feat;
-      if constexpr (!kPre) fetch(e);
       float hv[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) hv[c] = hn[c];
       const int src = sn;
-      float sv[kMaxHeads];  // the narrow form's
+      if (e + 1 < hi) fetch(e + 1);
+      // The heads in a loop that is not unrolled, their terms in shared
+      // memory: the loop body holds q's sum of C = 16 or 32 features a
+      // lane.
+      float hq[C];  // the rows as q reads them
+      if (r_rows) {
 #pragma unroll
-      for (int k = 0; k < kMaxHeads; ++k) sv[k] = svn[k];
-      if (kPre && e + 1 < hi) fetch(e + 1);
-      if constexpr (kWide) {
-        // The heads in a loop that is not unrolled, their terms in shared
-        // memory: the loop body holds q's sum of C = 16 or 32 features a
-        // lane, where the narrow form unrolls kMaxHeads of them. The same
-        // arithmetic in the same order as the narrow form.
-        float hq[C];  // the rows as q reads them
-        if (r_rows) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) hq[c] = round_bf16(hv[c]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < C; ++c) hq[c] = hv[c];
-        }
-        // head k's terms from q = h[src] . g over the head's features and
-        // the logit from the score table: d(raw), coef, d(drop), in order
-        auto head_terms = [&](int k, float hg) {
-          const float raw =
-              s_src[(size_t)src * nh + k] + wh[kSd * kMaxHeads + k];
-          const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
-          const float ik = wh[kInv * kMaxHeads + k];
-          const float dk = wh[kDden * kMaxHeads + k];
-          float ex, dr;
-          if constexpr (kTwo) {
-            const float pre = raw - cap;
-            ex = expf(leaky(pre, slope));
-            const float dlg = ex * (hg * ik * m + dk);
-            dr = pre > 0.f ? dlg : slope * dlg;
-            dcap += dr;
-          } else {
-            ex = expf(slope * raw);
-            dr = slope * ex * (hg * ik * m + dk);
-          }
-          if (lane == 0) {
-            wh[kDraw * kMaxHeads + k] = dr;
-            wh[kCoef * kMaxHeads + k] = ex * m * ik;
-            wh[kSds * kMaxHeads + k] += round_if(dr, r_sds);
-          }
-          if (d_drop && lane == k) d_drop[(size_t)e * nh + k] = hg * ex * ik;
-          if (lane == k) draw_out[(size_t)e * nh + k] = round_if(dr, r_draw);
-        };
-        // head_dot's sum in its order for two heads at once (their chains
-        // of adds interleave), q's terms selected, not branched to
-        int k = 0;
-#pragma unroll 1
-        for (; k + 1 < nh; k += 2) {
-          float r0 = 0.f, r1 = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            r0 = head[c] == k ? r0 + hq[c] * gv[c] : r0;
-            r1 = head[c] == k + 1 ? r1 + hq[c] * gv[c] : r1;
-          }
-          const float q0 = warp_sum(r0), q1 = warp_sum(r1);
-          head_terms(k, q0);
-          head_terms(k + 1, q1);
-        }
-        if (k < nh) {
-          float r0 = 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            r0 = head[c] == k ? r0 + hq[c] * gv[c] : r0;
-          head_terms(k, warp_sum(r0));
-        }
-        __syncwarp();
-        float v[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) v[c] = 0.f;
-#pragma unroll 1
-        for (int k = 0; k < nh; ++k) {
-          const float dk = wh[kDraw * kMaxHeads + k];
-#pragma unroll
-          for (int c = 0; c < C; ++c) v[c] += sa[k * kPad + lane + 32 * c] * dk;
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          v[c] += wh[kCoef * kMaxHeads + head[c]] * gv[c];
-        if (r_dh) {
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            if (live[c]) dhrow[lane + 32 * c] = round_bf16(v[c]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            if (live[c]) dhrow[lane + 32 * c] = v[c];
-        }
-        __syncwarp();  // this edge's terms are read
+        for (int c = 0; c < C; ++c) hq[c] = round_bf16(hv[c]);
       } else {
-        float draw[kMaxHeads], coef[kMaxHeads];
 #pragma unroll
-        for (int k = 0; k < kMaxHeads; ++k) {
-          draw[k] = coef[k] = 0.f;
-          if (k < nh) {  // nh is warp-uniform: every lane joins the shuffles
-            const float hg = head_dot<C>(hv, live, head, k, gv, r_rows);
-            const float raw = sv[k] + sd[k];
-            const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
-            float ex;
-            if constexpr (kTwo) {
-              const float pre = raw - cap;
-              ex = expf(leaky(pre, slope));
-              // the slope where pre <= 0: the argmax edge has pre == 0
-              const float dlg = ex * (hg * inv[k] * m + dden[k]);
-              draw[k] = pre > 0.f ? dlg : slope * dlg;
-              dcap += draw[k];
-            } else {
-              ex = expf(slope * raw);
-              // d(raw') through the negative LeakyReLU branch (raw' <= cap')
-              draw[k] = slope * ex * (hg * inv[k] * m + dden[k]);
-            }
-            coef[k] = ex * m * inv[k];
-            sds[k] += round_if(draw[k], r_sds);
-            if (d_drop && lane == k)
-              d_drop[(size_t)e * nh + k] = hg * ex * inv[k];
-          }
+        for (int c = 0; c < C; ++c) hq[c] = hv[c];
+      }
+      // head k's terms from q = h[src] . g over the head's features and
+      // the logit from the score table: d(raw), coef, d(drop), in order
+      auto head_terms = [&](int k, float hg) {
+        const float raw =
+            s_src[(size_t)src * nh + k] + wh[kSd * kMaxHeads + k];
+        const float m = drop ? drop[(size_t)e * nh + k] : 1.f;
+        const float ik = wh[kInv * kMaxHeads + k];
+        const float dk = wh[kDden * kMaxHeads + k];
+        float ex, dr;
+        if constexpr (kTwo) {
+          const float pre = raw - cap;
+          ex = expf(leaky(pre, slope));
+          // the slope where pre <= 0: the argmax edge has pre == 0
+          const float dlg = ex * (hg * ik * m + dk);
+          dr = pre > 0.f ? dlg : slope * dlg;
+          dcap += dr;
+        } else {
+          ex = expf(slope * raw);
+          // d(raw') through the negative LeakyReLU branch (raw' <= cap')
+          dr = slope * ex * (hg * ik * m + dk);
         }
+        if (lane == 0) {
+          wh[kDraw * kMaxHeads + k] = dr;
+          wh[kCoef * kMaxHeads + k] = ex * m * ik;
+          wh[kSds * kMaxHeads + k] += round_if(dr, r_sds);
+        }
+        if (d_drop && lane == k) d_drop[(size_t)e * nh + k] = hg * ex * ik;
+        if (lane == k) draw_out[(size_t)e * nh + k] = round_if(dr, r_draw);
+      };
+      // a warp sum over each head's features, two heads at once (their
+      // chains of adds interleave), q's terms selected, not branched to
+      int k = 0;
+#pragma unroll 1
+      for (; k + 1 < nh; k += 2) {
+        float r0 = 0.f, r1 = 0.f;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          if (!live[c]) continue;
-          const int j = lane + 32 * c;
-          const float hq = round_if(hv[c], r_rows);
-          float v = 0.f;
-#pragma unroll
-          for (int k = 0; k < kMaxHeads; ++k) {
-            if (k < nh) {
-              v += sa[k * d_feat + j] * draw[k];
-              da[c][k] += hq * round_if(draw[k], r_draw);
-            }
-          }
-          dhrow[j] = round_if(v + select_head(coef, head[c]) * gv[c], r_dh);
+          r0 = head[c] == k ? r0 + hq[c] * gv[c] : r0;
+          r1 = head[c] == k + 1 ? r1 + hq[c] * gv[c] : r1;
         }
+        const float q0 = warp_sum(r0), q1 = warp_sum(r1);
+        head_terms(k, q0);
+        head_terms(k + 1, q1);
       }
+      if (k < nh) {
+        float r0 = 0.f;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          r0 = head[c] == k ? r0 + hq[c] * gv[c] : r0;
+        head_terms(k, warp_sum(r0));
+      }
+      __syncwarp();
+      float v[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = 0.f;
+#pragma unroll 1
+      for (int k = 0; k < nh; ++k) {
+        const float dk = wh[kDraw * kMaxHeads + k];
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] += sa[k * kPad + lane + 32 * c] * dk;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        v[c] += wh[kCoef * kMaxHeads + head[c]] * gv[c];
+      if (r_dh) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (live[c]) dhrow[lane + 32 * c] = round_bf16(v[c]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (live[c]) dhrow[lane + 32 * c] = v[c];
+      }
+      __syncwarp();  // this edge's terms are read
     }
-    if constexpr (kWide) {
-      if (lane < nh)
-        d_sdst[(size_t)d * nh + lane] = wh[kSds * kMaxHeads + lane];
-    } else {
-      if (lane < nh) d_sdst[(size_t)d * nh + lane] = select_head(sds, lane);
-    }
+    if (lane < nh)
+      d_sdst[(size_t)d * nh + lane] = wh[kSds * kMaxHeads + lane];
   }
 
   // Padding edges (e >= e_real) get zero cotangents. They all hang on the
@@ -439,42 +370,18 @@ v5_bwd_kernel(const T* __restrict__ h, const float* __restrict__ a_src,
     for (int c = 0; c < C; ++c)
       if (live[c]) d_h_rows[(size_t)e * d_feat + lane + 32 * c] = 0.f;
     if (d_drop && lane < nh) d_drop[(size_t)e * nh + lane] = 0.f;
-    if (kWide && lane < nh) draw_out[(size_t)e * nh + lane] = 0.f;
+    if (lane < nh) draw_out[(size_t)e * nh + lane] = 0.f;
   }
 
-  // block sums of d(a_src) and d(cap): warps add in a fixed order
+  // the block's -sum d(raw) (kTwoPhase): warps add in a fixed order
   // (deterministic); dcap is the same on every lane of a warp
-  if (kTwo && lane == 0) wdcap[warp] = dcap;
-  const int len = d_feat * nh, stride = len + (kTwo ? 1 : 0);
-  if constexpr (kWide) {
-    if constexpr (kTwo) {
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float s = 0.f;
-        for (int w = 0; w < kWarps; ++w) s += wdcap[w];
-        dasrc_part[(size_t)blockIdx.x * stride + len] = -s;
-      }
-    }
-  } else {
-    for (int w = 0; w < kWarps; ++w) {
-      if (warp == w) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (!live[c]) continue;
-#pragma unroll
-          for (int k = 0; k < kMaxHeads; ++k)
-            if (k < nh) sacc[k * d_feat + lane + 32 * c] += da[c][k];
-        }
-      }
-      __syncthreads();
-    }
-    for (int i = threadIdx.x; i < len; i += blockDim.x)
-      dasrc_part[(size_t)blockIdx.x * stride + i] =
-          sacc[(i % nh) * d_feat + i / nh];  // back to (d_feat, nh)
-    if (kTwo && threadIdx.x == 0) {
+  if constexpr (kTwo) {
+    if (lane == 0) wdcap[warp] = dcap;
+    __syncthreads();
+    if (threadIdx.x == 0) {
       float s = 0.f;
       for (int w = 0; w < kWarps; ++w) s += wdcap[w];
-      dasrc_part[(size_t)blockIdx.x * stride + len] = -s;
+      dasrc_part[(size_t)blockIdx.x * (d_feat * nh + 1) + d_feat * nh] = -s;
     }
   }
 }
@@ -580,6 +487,8 @@ int launch_v5_forward(const T* h, const float* s_src, const float* s_dst,
       });
 }
 
+// The wide form's launch (rows over 256 floats); its d(a_src) is
+// v5_dasrc's, from draw
 template <Bwd MODE, typename T>
 int launch_v5_backward(const T* h, const float* a_src, const float* s_src,
                        const float* s_dst,
@@ -588,40 +497,25 @@ int launch_v5_backward(const T* h, const float* a_src, const float* s_src,
                        int nh, int f, float slope, float eps, const float* g,
                        const float* out, const float* den, const float* epsp,
                        const float* cap_in, float* d_h_rows, float* d_drop,
-                       float* d_sdst, float* dasrc_part, float* d_asrc,
-                       float* draw, int nblk, int flags, void* stream) {
+                       float* d_sdst, float* dasrc_part, float* draw,
+                       int nblk, int flags, void* stream) {
   int bad = check_shape(d_feat, nh, nblk);
   if (bad) return bad;
-  cudaStream_t st = (cudaStream_t)stream;
   const int c_need = (d_feat + 31) / 32;
-  // the wide form (C >= kWideC in ROWS_DISPATCH) writes draw, and its
-  // d(a_src) is v5_dasrc's
-  const bool wide = c_need > kWideC / 2;
-  if (wide != (draw != nullptr)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
-#define V5_BWD(CC)                                                          \
-  {                                                                         \
-    const size_t smem =                                                     \
-        (CC >= kWideC ? (size_t)32 * CC : 2 * (size_t)d_feat) * nh *        \
-        sizeof(float);                                                      \
-    err = set_smem(v5_bwd_kernel<CC, MODE, T>, smem);                       \
-    if (err == cudaSuccess)                                                 \
-      v5_bwd_kernel<CC, MODE, T><<<nblk, kWarps * 32, smem, st>>>(          \
-          h, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real,        \
-          d_feat, nh, f, slope, eps, flags, g, out, den, epsp, cap_in,      \
-          d_h_rows,                                                         \
-          d_drop, d_sdst, dasrc_part, draw);                                \
-  }
-  ROWS_DISPATCH(V5_BWD)
-#undef V5_BWD
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess || wide) return (int)err;
-  // d(a_src), and in the 2-phase mode d(cap) after it
-  const int len = d_feat * nh + (MODE == Bwd::kTwoPhase ? 1 : 0);
-  sum_partials_kernel<<<(len + 255) / 256, 256, 0, st>>>(dasrc_part, nblk,
-                                                         len, d_asrc);
-  return (int)cudaGetLastError();
+  if (c_need <= kWideC / 2 || draw == nullptr)
+    return (int)cudaErrorInvalidValue;  // v5_backward_by_sender's rows
+  auto launch = [&](auto kern, int cc) {
+    const size_t smem = (size_t)32 * cc * nh * sizeof(float);
+    cudaError_t err = set_smem(kern, smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<nblk, kWarps * 32, smem, (cudaStream_t)stream>>>(
+        h, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat,
+        nh, f, slope, eps, flags, g, out, den, epsp, cap_in, d_h_rows,
+        d_drop, d_sdst, dasrc_part, draw);
+    return (int)cudaGetLastError();
+  };
+  return c_need <= 16 ? launch(v5_bwd_kernel<16, MODE, T>, 16)
+                      : launch(v5_bwd_kernel<32, MODE, T>, 32);
 }
 
 }  // namespace
@@ -693,52 +587,96 @@ int v5_forward_two_phase(const void* h, const float* s_src,
   });
 }
 
-// Backward, normalised mode: d_h_rows (E, d_feat) in dst order, d_drop
-// (E, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh); dasrc_part is
-// (nblk, d_feat*nh) scratch. epsp points at eps' = eps*exp(slope*cap') on
-// the device. The wide form (d_feat > 256) takes draw (E, nh) and writes
-// each edge's d(raw) there in place of d_asrc, which v5_dasrc then
-// computes from it (draw is NULL at d_feat <= 256).
+// Backward by sender, the form of rows of 256 floats or fewer, mode 0
+// (normalised: g = d(out), out and den the forward's, eps' at epsp on the
+// device), 1 (parts: g = d(num), den = d(den); out, epsp and cap unread) or
+// 2 (2-phase: the cap at `cap`, the plain eps). d_h (n_src, d_feat) per
+// node, d_drop (e_total, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh)
+// and in mode 2 d(cap) after it. Scratch: dsd (e_total, nh), dsum (n_src,
+// nh), part (nblk, d_feat*nh [+ 1]). receivers (e_total,); src_order and
+// src_ptr (n_src + 1,): the real edges' sender runs (build.sender_runs);
+// row_ptr (n + 1,): the edges' offsets by destination; (vec, per_lane,
+// lanes, unroll): v5_attention.row_plan. Two launches: the kernel by
+// sender and the tail.
+int v5_backward_by_sender(const void* h, const float* a_src,
+                          const float* s_src, const float* s_dst,
+                          const float* drop, const int* receivers,
+                          const int* src_order, const int* src_ptr,
+                          const int* row_ptr, int n_src, int n, int e_real,
+                          int e_total, int d_feat, int nh, int f, int mode,
+                          float slope, float eps, const float* g,
+                          const float* out, const float* den,
+                          const float* epsp, const float* cap, float* d_h,
+                          float* d_drop, float* d_sdst, float* d_asrc,
+                          float* dsd, float* dsum, float* part, int vec,
+                          int per_lane, int lanes, int unroll, int nblk,
+                          int flags, void* stream) {
+  if (mode < 0 || mode > 2 || d_feat > 32 * (kWideC / 2) ||
+      e_real > e_total)
+    return (int)cudaErrorInvalidValue;
+  return with_table(h, flags, [&](auto hp) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
+    const BwdArgs<T> a{hp,       a_src,     s_src,   s_dst,   drop,
+                       receivers, src_order, src_ptr, nullptr, row_ptr,
+                       n_src,    n,         e_total, e_real,  d_feat,
+                       nh,       f,         lanes,   (Bwd)mode, slope,
+                       eps,      flags,     g,       out,     den,
+                       epsp,     cap,       d_h,     d_drop,  dsd,
+                       dsum,     part,      0};
+    // at most 8 elements a lane at 256 floats
+    return launch_bwd_by_sender<8, 8>(
+        a, d_sdst, d_asrc, vec, per_lane, unroll, nblk, (cudaStream_t)stream,
+        [](auto v, auto c, auto u, auto al) {
+          return &v5_bwd_sender_kernel<decltype(v)::value, decltype(c)::value,
+                                       decltype(u)::value,
+                                       decltype(al)::value != 0, T>;
+        });
+  });
+}
+
+// The wide form (rows over 256 floats), three entries, one a mode: d_h_rows
+// (E, d_feat) in dst order, d_drop (E, nh) or NULL, d_sdst (n, nh), and
+// draw (E, nh), each edge's d(raw), from which v5_dasrc takes d(a_src).
+// Normalised mode: g = d(out), out and den the forward's, epsp points at
+// eps' = eps*exp(slope*cap') on the device; dasrc_part is (nblk,
+// d_feat*nh) scratch for v5_dasrc.
 int v5_backward(const void* h, const float* a_src, const float* s_src,
                 const float* s_dst, const float* drop, const int* senders,
                 const int* row_ptr,
                 int n, int e_real, int d_feat, int nh, int f, float slope,
                 const float* g, const float* out, const float* den,
                 const float* epsp, float* d_h_rows, float* d_drop,
-                float* d_sdst, float* dasrc_part, float* d_asrc, float* draw,
-                int nblk, int flags, void* stream) {
+                float* d_sdst, float* dasrc_part, float* draw, int nblk,
+                int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_v5_backward<Bwd::kNorm>(
         hp, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat,
         nh, f, slope, 0.f, g, out, den, epsp, nullptr, d_h_rows, d_drop,
-        d_sdst, dasrc_part, d_asrc, draw, nblk, flags, stream);
+        d_sdst, dasrc_part, draw, nblk, flags, stream);
   });
 }
 
-// Backward, parts mode: the same outputs from the raw cotangents d_num
-// (n, d_feat) and d_den (n, nh) of the unnormalised parts.
+// Parts mode: the same outputs from the raw cotangents d_num (n, d_feat)
+// and d_den (n, nh) of the unnormalised parts.
 int v5_backward_parts(const void* h, const float* a_src,
                       const float* s_src, const float* s_dst,
                       const float* drop, const int* senders,
                       const int* row_ptr, int n, int e_real, int d_feat,
                       int nh, int f, float slope, const float* d_num,
                       const float* d_den, float* d_h_rows, float* d_drop,
-                      float* d_sdst, float* dasrc_part, float* d_asrc,
-                      float* draw, int nblk, int flags, void* stream) {
+                      float* d_sdst, float* dasrc_part, float* draw,
+                      int nblk, int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_v5_backward<Bwd::kParts>(
         hp, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat,
         nh, f, slope, 0.f, d_num, nullptr, d_den, nullptr, nullptr,
-        d_h_rows, d_drop, d_sdst, dasrc_part, d_asrc, draw, nblk, flags,
-        stream);
+        d_h_rows, d_drop, d_sdst, dasrc_part, draw, nblk, flags, stream);
   });
 }
 
-// Backward, 2-phase: the outputs of the normalised mode from g, out, den,
-// the cap at `cap` and the plain eps; d_asrc_cap is (d_feat*nh + 1,):
-// d(a_src) then d(cap). dasrc_part is (nblk, d_feat*nh + 1) scratch. The
-// wide form writes draw as v5_backward's, and each block's -sum d(raw) in
-// the last column of dasrc_part, for v5_dasrc.
+// 2-phase: the outputs of the normalised mode from g, out, den, the cap at
+// `cap` and the plain eps; dasrc_part is (nblk, d_feat*nh + 1) scratch,
+// each block's -sum d(raw) in its last column, for v5_dasrc.
 int v5_backward_two_phase(const void* h, const float* a_src,
                           const float* s_src, const float* s_dst,
                           const float* cap, const float* drop,
@@ -747,13 +685,13 @@ int v5_backward_two_phase(const void* h, const float* a_src,
                           int nh, int f, float eps, float slope,
                           const float* g, const float* out, const float* den,
                           float* d_h_rows, float* d_drop, float* d_sdst,
-                          float* dasrc_part, float* d_asrc_cap, float* draw,
-                          int nblk, int flags, void* stream) {
+                          float* dasrc_part, float* draw, int nblk,
+                          int flags, void* stream) {
   return with_table(h, flags, [&](auto hp) {
     return launch_v5_backward<Bwd::kTwoPhase>(
         hp, a_src, s_src, s_dst, drop, senders, row_ptr, n, e_real, d_feat,
         nh, f, slope, eps, g, out, den, nullptr, cap, d_h_rows, d_drop,
-        d_sdst, dasrc_part, d_asrc_cap, draw, nblk, flags, stream);
+        d_sdst, dasrc_part, draw, nblk, flags, stream);
   });
 }
 

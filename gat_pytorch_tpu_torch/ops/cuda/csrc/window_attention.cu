@@ -73,7 +73,9 @@
 // two slots at once). The cap pass is the v5 op's stream over the real
 // slots' scores (cap_stream_kernel).
 //
-// The backward is owned by senders (window_bwd_kernel): a warp takes a
+// The backward is owned by senders (window_bwd_kernel, whose body,
+// attention_bwd_by_sender of attention_common.cuh, the v5 op's backward
+// shares over its dst-sorted edges): a warp takes a
 // sender, reads its own h row once and walks its run of src_perm (the real
 // slots by sender) in batches, a lane a (slot, head) taking the slot's
 // destination, payload and exp once, teams of lanes sized to the row (the
@@ -85,9 +87,10 @@
 // = -inv * sum out * g, a destination's, is taken per slot from out[dst]
 // gathered beside g[dst] (a second row from L2, where a prologue of its
 // own would be a third launch); d(s_dst), each destination's slots' terms
-// summed in dst_perm order, is the tail's (window_bwd_tail_kernel), which
-// also adds the blocks' d(a_src) [| d(cap)] partial rows in row order. d(a_src) is h^T S with S each sender's d(raw)
-// summed over its slots: the products once a sender. Every output row has
+// summed in dst_perm order, is the tail's (bwd_tail_kernel), which also
+// adds the blocks' d(a_src) [| d(cap)] partial rows in row order. d(a_src)
+// is h^T S with S each sender's d(raw) summed over its slots: the
+// products once a sender. Every output row has
 // one writer and a fixed order of sums: no atomics, bitwise reproducible;
 // the cap with its argmax code, d(a_src) and d(cap) go through per-block
 // partials over a fixed grid and an ordered second pass.
@@ -117,432 +120,18 @@ template <bool WIDE, int V, int C, int U, bool RACC, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 window_fwd_kernel(const FwdArgs<T> a) {
   if constexpr (WIDE) {
-    attention_fwd_wide<V, C, RACC>(a);  // U = in_flight(C * V)
+    attention_fwd_wide<V, C, RACC, Src::kScores>(a);  // U = in_flight(C*V)
   } else {
-    attention_fwd_narrow<V, C, U, RACC>(a);
+    attention_fwd_narrow<V, C, U, RACC, Src::kScores>(a);
   }
 }
 
-// The backward by sender, every mode (Bwd of attention_common.cuh, a
-// runtime argument here: the modes differ in a few scalars a (slot, head)).
-template <typename T>
-struct BwdArgs {
-  const T* h;            // (n, d_feat): the table the forward read
-  const float* a_src;    // (d_feat, nh)
-  const float* s_src;    // (n, nh): the source-score table
-  const float* s_dst;    // (n, nh)
-  const float* drop;     // (e7, nh) or NULL
-  const int* recv;       // (e7,)
-  const int* src_perm;   // (e7,): the real slots by sender
-  const int* src_ptr;    // (n + 1,)
-  const int* dst_perm;   // (e7,): the slots by destination, pad slots last
-  const int* dst_ptr;    // (n + 1,)
-  int n, e7, d_feat, nh, f, lanes;
-  Bwd mode;
-  float slope, eps;      // eps: the 2-phase mode's plain eps
-  int flags;
-  const float* g;        // d(out), or d(num) in the parts mode
-  const float* out;      // the forward's output; NULL in the parts mode
-  const float* den;      // the forward's den, or d(den) in the parts mode
-  const float* epsp;     // kNorm: eps' on the device
-  const float* cap_in;   // kTwoPhase: the cap on the device
-  float* d_h;            // (n, d_feat)
-  float* d_drop;         // (e7, nh) or NULL
-  float* dsd;            // (e7, nh) scratch: each slot's d(s_dst) term
-  float* dsum;           // (n, nh) scratch: each sender's d(raw) summed
-  float* part;           // (gridDim.x, stride): d(a_src) [| -d(cap)]
-  int stride;
-};
-
-// Warp w of block b owns the senders b * kWarps + w, then every
-// gridDim.x * kWarps-th after it, in teams of `lanes` lanes that each hold
-// a whole row (RowLanes). A batch is 32 / nh positions of the sender's run
-// of src_perm: lane i * nh + k takes slot i's index, destination, head k's
-// den (inv, rounded where kRoundPayload), s_dst entry and mask entry, and
-// its exp once. Team g gathers g[dst] of the slots i0 + u * teams + g, U of
-// them in flight, and reads out[dst] into the dots as it arrives; the
-// per-head dots out . g and h . g reach the slot's lane, which takes
-// d(den) = -inv * out . g (before g is rounded: kRoundPayload rounds the
-// payload after d(den) is taken from it), d(raw), d(drop) and the slot's
-// d(s_dst) term. Where a head is whole lanes of one vector each (C = 1, V
-// divides f: Pubmed's 8 x 8, Cora's 1 x 7), a head's dot is a sum over its
-// f / V lanes (the instance AL); elsewhere (Pubmed's 8 x 3, whose vectors
-// of 4 meet two heads) each lane sums its elements per head and team_sums
-// reduces all heads together. Each team then takes its slot's
-// d(h) term, round_if(d(raw) @ a_src^T + coef * g, kRoundDh), and every
-// lane adds the teams' terms in slot order, so that a sender's d(h) row is
-// the sum of its slots' terms in ascending position of its run, from 0,
-// with no contraction: the order in which segment_sum.cu reduced the
-// per-slot rows. At 16 or more elements a lane (one team a warp) the sums
-// live in shared memory and the sender's own row is read per slot (from
-// L1): held in registers beside a g row, they spilled. Each sender's d(raw)
-// sums (kRoundDraw) go to dsum; at the end the block takes its senders'
-// h^T dsum into its partial row of d(a_src) (the products once a sender).
-template <int V, int C>
-constexpr bool kWideRow = V * C >= 16;
-
-// AL: heads of whole lanes (C == 1, V divides f), the fast path below
+// The backward by sender over the layout's slots (attention_common.cuh,
+// attention_bwd_by_sender, shared with the v5 op's v5_bwd_sender_kernel)
 template <int V, int C, int U, bool AL, typename T>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 window_bwd_kernel(const BwdArgs<T> a) {
-  constexpr bool kWide = kWideRow<V, C>;
-  extern __shared__ float smem[];
-  float* sa = smem;  // a_src transposed, (nh, d_feat)
-  __shared__ float wdcap[kWarps];
-  const int d_feat = a.d_feat, nh = a.nh, lanes = a.lanes;
-  for (int i = threadIdx.x; i < d_feat * nh; i += blockDim.x)
-    sa[(i % nh) * d_feat + i / nh] = a.a_src[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // kWide: this warp's sums, (d_feat,); one team, so one lane an element
-  float* sacc = smem + d_feat * nh + warp * d_feat;
-  const RowLanes<V, C> r(lane, lanes, d_feat, a.f);
-  const int teams = r.teams;
-  const int per = 32 / nh;                            // positions a batch
-  const int mine = lane / nh, kh = lane - mine * nh;  // (slot, head) owned
-  // heads of whole lanes: hl lanes a head
-  static_assert(!AL || C == 1, "whole-lane heads take one vector a lane");
-  const int hl = a.f / V;
-  const bool hl_pow2 = !(hl & (hl - 1));
-  const int from = AL ? kh * hl : kh * (lanes / kMaxHeads);
-  const bool two = a.mode == Bwd::kTwoPhase, parts = a.mode == Bwd::kParts;
-  const float eps_p = a.mode == Bwd::kNorm ? *a.epsp : a.eps;
-  const float cap = two ? *a.cap_in : 0.f, slope = a.slope;
-  const bool r_rows = a.flags & kRoundRows, r_pay = a.flags & kRoundPayload,
-             r_dh = a.flags & kRoundDh, r_draw = a.flags & kRoundDraw,
-             r_sds = a.flags & kRoundDsdst;
-  float dcap = 0.f;
-
-  // the sum over head (lane / hl)'s lanes of x, in every one of them
-  auto head_sum = [&](float x) {
-    if (hl_pow2) {
-      for (int o = hl >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-      return x;
-    }
-    const int first = lane - r.t % hl;
-    float s = 0.f;
-    for (int o = 0; o < hl; ++o) s += __shfl_sync(kFull, x, (first + o) & 31);
-    return s;
-  };
-
-  // pad slots (the tail of dst_perm) get a zero dropout cotangent
-  if (a.d_drop) {
-    const int n_real = a.dst_ptr[a.n], pads = (a.e7 - n_real) * nh;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < pads;
-         i += gridDim.x * blockDim.x)
-      a.d_drop[(size_t)a.dst_perm[n_real + i / nh] * nh + i % nh] = 0.f;
-  }
-
-  for (int s = blockIdx.x * kWarps + warp; s < a.n;
-       s += gridDim.x * kWarps) {
-    // the sender's own row, rounded where kRoundRows (the dots and d(a_src)
-    // read it so)
-    const T* hrow = a.h + (size_t)s * d_feat;
-    auto own = [&](int c, float (&x)[V]) {
-      Vec<T, V> y;
-      if (r.live(c)) {
-        y.load(hrow + r.j0(c));
-      } else {
-        y.zero();
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v) x[v] = round_if(y.e(v), r_rows);
-    };
-    float hv[kWide ? 1 : C][V], acc[kWide ? 1 : C][V];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if constexpr (kWide) {
-        if (r.live(c)) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) sacc[r.j0(c) + v] = 0.f;
-        }
-      } else {
-        own(c, hv[c]);
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
-      }
-    }
-    const float ss = a.s_src[(size_t)s * nh + kh];
-    float dsa = 0.f;  // lane (i, k): its slots' d(raw) as d(a_src) reads it
-    const int lo = a.src_ptr[s], hi = a.src_ptr[s + 1];
-    for (int b = lo; b < hi; b += per) {
-      const int cnt = min(per, hi - b);
-      const bool mine_ok = mine < cnt;
-      int slot = 0, dst = 0;
-      float ex = 0.f, m = 1.f, inv = 0.f, inv_p = 0.f, dn = 0.f, coef = 0.f,
-            pre = 0.f;
-      if (mine_ok) {
-        slot = a.src_perm[b + mine];
-        dst = a.recv[slot];
-        const size_t dk = (size_t)dst * nh + kh;
-        dn = a.den[dk];
-        // the caller's epilogue owns the quotient in the parts mode
-        inv = parts ? 1.f : dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
-        inv_p = round_if(inv, r_pay);  // the payload's, rounded
-        if (a.drop) m = a.drop[(size_t)slot * nh + kh];
-        const float raw = ss + a.s_dst[dk];
-        if (two) {
-          pre = raw - cap;
-          ex = expf(leaky(pre, slope));
-        } else {
-          ex = expf(slope * raw);
-        }
-        coef = ex * m * inv_p;
-      }
-      for (int i0 = 0; i0 < cnt; i0 += teams * U) {
-        // team g takes the slot i0 + u * teams + g: U rows of g in flight
-        float gv[U][C][V];
-        int base[U];  // the lane of (the team's slot, head 0)
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (i0 + u * teams >= cnt) break;  // the same for every lane
-          const int i = i0 + u * teams + r.g;
-          base[u] = (i * nh) & 31;
-          const int du = __shfl_sync(kFull, dst, base[u]);
-          const float* grow = a.g + (size_t)du * d_feat;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            if (i < cnt && r.live(c)) {
-              load_vec<V>(grow + r.j0(c), gv[u][c]);
-            } else {
-#pragma unroll
-              for (int v = 0; v < V; ++v) gv[u][c][v] = 0.f;
-            }
-          }
-        }
-        // slot by slot of the U in flight: the per-head dots out . g
-        // (d(den), from the unrounded g) and h . g (from the payload's g),
-        // the slot's lane's d(raw), then the team's d(h) term
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (i0 + u * teams >= cnt) break;  // the same for every lane
-          const int i = i0 + u * teams + r.g;
-          const float* orow =
-              a.out + (size_t)__shfl_sync(kFull, dst, base[u]) * d_feat;
-          float red_og = 0.f, red_hg;
-          if constexpr (AL) {  // C == 1: the lane's vector is one head's
-            float xo = 0.f, xh = 0.f;
-            if (!parts) {
-              float ov[V];
-              if (i < cnt && r.live(0)) {
-                load_vec<V>(orow + r.j0(0), ov);
-              } else {
-#pragma unroll
-                for (int v = 0; v < V; ++v) ov[v] = 0.f;
-              }
-#pragma unroll
-              for (int v = 0; v < V; ++v) xo = fmaf(ov[v], gv[u][0][v], xo);
-              red_og = head_sum(xo);
-            }
-#pragma unroll
-            for (int v = 0; v < V; ++v) {
-              gv[u][0][v] = round_if(gv[u][0][v], r_pay);
-              xh = fmaf(hv[0][v], gv[u][0][v], xh);  // never a wide row
-            }
-            red_hg = head_sum(xh);
-          } else {
-            float q[kMaxHeads];
-            if (!parts) {
-#pragma unroll
-              for (int k = 0; k < kMaxHeads; ++k) q[k] = 0.f;
-#pragma unroll
-              for (int c = 0; c < C; ++c) {
-                float ov[V];
-                if (i < cnt && r.live(c)) {
-                  load_vec<V>(orow + r.j0(c), ov);
-                } else {
-#pragma unroll
-                  for (int v = 0; v < V; ++v) ov[v] = 0.f;
-                }
-                r.add_head_dots(ov, gv[u][c], c, q);
-              }
-              red_og = team_sums<kMaxHeads>(q, lane, lanes);
-            }
-            if (r_pay) {
-#pragma unroll
-              for (int c = 0; c < C; ++c)
-#pragma unroll
-                for (int v = 0; v < V; ++v)
-                  gv[u][c][v] = round_bf16(gv[u][c][v]);
-            }
-#pragma unroll
-            for (int k = 0; k < kMaxHeads; ++k) q[k] = 0.f;
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-              float x[V];
-              if constexpr (kWide) {
-                own(c, x);
-              } else {
-#pragma unroll
-                for (int v = 0; v < V; ++v) x[v] = hv[c][v];
-              }
-              r.add_head_dots(x, gv[u][c], c, q);
-            }
-            red_hg = team_sums<kMaxHeads>(q, lane, lanes);
-          }
-          // lane (i, k) of a slot of this u takes its dots for head k
-          const int gg = mine - i0 - u * teams;  // the team of slot mine
-          const int src = ((gg & (teams - 1)) * lanes + from) & 31;
-          const float hg = __shfl_sync(kFull, red_hg, src);
-          const float og = parts ? 0.f : __shfl_sync(kFull, red_og, src);
-          float draw = 0.f;
-          if (mine_ok && gg >= 0 && gg < teams) {
-            const float dd = round_if(parts ? dn : -og * inv, r_pay);
-            const float q = hg * inv_p * m + dd;
-            if (two) {
-              // the slope where pre <= 0: the argmax slot has pre == 0
-              const float dlg = ex * q;
-              draw = pre > 0.f ? dlg : slope * dlg;
-              dcap += draw;
-            } else {
-              // d(raw') through the negative LeakyReLU branch
-              draw = slope * ex * q;
-            }
-            const size_t sk = (size_t)slot * nh + kh;
-            if (a.d_drop) a.d_drop[sk] = hg * ex * inv_p;
-            a.dsd[sk] = round_if(draw, r_sds);
-            dsa += round_if(draw, r_draw);
-          }
-          // the team's d(h) term of its slot, a vector at a time; every
-          // lane adds the teams' terms in slot order (every team ends with
-          // the same sums)
-          float dr[kMaxHeads];
-#pragma unroll
-          for (int k = 0; k < kMaxHeads; ++k)
-            dr[k] = k < nh ? __shfl_sync(kFull, draw, (base[u] + k) & 31)
-                           : 0.f;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const float c0 =
-                __shfl_sync(kFull, coef, (base[u] + r.h0(c)) & 31);
-            const float c1 =
-                r.split ? __shfl_sync(kFull, coef, (base[u] + r.h1(c)) & 31)
-                        : c0;
-            float term[V];
-#pragma unroll
-            for (int v = 0; v < V; ++v) term[v] = 0.f;
-            if (r.live(c)) {
-#pragma unroll
-              for (int k = 0; k < kMaxHeads; ++k) {
-                if (k >= nh) continue;
-                float av[V];
-                lds_vec<V>(sa + k * d_feat + r.j0(c), av);
-#pragma unroll
-                for (int v = 0; v < V; ++v)
-                  term[v] = fmaf(av[v], dr[k], term[v]);
-              }
-            }
-#pragma unroll
-            for (int v = 0; v < V; ++v)
-              term[v] = round_if(
-                  fmaf(r.first(c, v) ? c0 : c1, gv[u][c][v], term[v]), r_dh);
-            if constexpr (kWide) {  // one team: this lane's elements alone
-              if (r.live(c)) {
-#pragma unroll
-                for (int v = 0; v < V; ++v) {
-                  float* p = sacc + r.j0(c) + v;
-                  *p = __fadd_rn(*p, term[v]);
-                }
-              }
-            } else {
-              for (int t2 = 0; t2 < teams; ++t2) {
-                const bool real = i0 + u * teams + t2 < cnt;  // all lanes
-#pragma unroll
-                for (int v = 0; v < V; ++v) {
-                  const float y =
-                      __shfl_sync(kFull, term[v], t2 * lanes + r.t);
-                  if (real) acc[c][v] = __fadd_rn(acc[c][v], y);
-                }
-              }
-            }
-          }
-        }
-      }
-    }
-    if (r.g == 0) {
-      float* drow = a.d_h + (size_t)s * d_feat;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (!r.live(c)) continue;
-        if constexpr (kWide) {
-          float x[V];
-#pragma unroll
-          for (int v = 0; v < V; ++v) x[v] = sacc[r.j0(c) + v];
-          store_vec<V>(drow + r.j0(c), x);
-        } else {
-          store_vec<V>(drow + r.j0(c), acc[c]);
-        }
-      }
-    }
-    // the sender's d(raw) sums, head k's in lane k
-    float tot = 0.f;
-    for (int i = 0; i < per; ++i)
-      tot += __shfl_sync(kFull, dsa, (i * nh + lane) & 31);
-    if (lane < nh) a.dsum[(size_t)s * nh + lane] = tot;
-  }
-
-  // the block's d(a_src): sum over its senders s of hq[s, j] * dsum[s, k],
-  // the senders of its warps in turn (eight loads in flight); then -d(cap)
-  // (kTwoPhase), the warps' sums in warp order
-  if (two) {
-    const float w = warp_sum(dcap);
-    if (lane == 0) wdcap[warp] = w;
-  }
-  __syncthreads();  // the block's dsum rows are written
-  const int len = d_feat * nh;
-  float* prow = a.part + (size_t)blockIdx.x * a.stride;
-  for (int q = threadIdx.x; q < len; q += blockDim.x) {
-    const int j = q / nh, k = q - j * nh;
-    float x = 0.f;
-    for (int s0 = blockIdx.x * kWarps; s0 < a.n; s0 += gridDim.x * kWarps) {
-      float hq[kWarps], ds[kWarps];
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int s = s0 + w;
-        hq[w] = s < a.n ? round_if(load_h(a.h + (size_t)s * d_feat + j),
-                                   r_rows)
-                        : 0.f;
-        ds[w] = s < a.n ? a.dsum[(size_t)s * nh + k] : 0.f;
-      }
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) x = fmaf(hq[w], ds[w], x);
-    }
-    prow[q] = x;  // (d_feat, nh)
-  }
-  if (two && threadIdx.x == 0) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += wdcap[w];
-    prow[len] = -t;
-  }
-}
-
-// After the backward: d_sdst[d, k] = sum over d's run of dst_perm, in
-// order, of the slots' d(s_dst) terms (blocks below sd_blocks, a thread a
-// (destination, head)), and the d(a_src) [| d(cap)] partial rows summed in
-// row order (sum_rows_block, the blocks from sd_blocks on, 32 warps a
-// block: a warp adds every 32nd row).
-constexpr int kTailWarps = 32;
-
-__global__ void __launch_bounds__(kTailWarps * 32, 1)
-window_bwd_tail_kernel(const float* __restrict__ dsd,
-                       const int* __restrict__ dst_perm,
-                       const int* __restrict__ dst_ptr, int n, int nh,
-                       int sd_blocks, const float* __restrict__ part,
-                       int nrows, int len, float* __restrict__ d_sdst,
-                       float* __restrict__ d_asrc) {
-  if ((int)blockIdx.x < sd_blocks) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n * nh) return;
-    const int d = i / nh, k = i - d * nh;
-    float s = 0.f;
-    for (int p = dst_ptr[d]; p < dst_ptr[d + 1]; ++p)
-      s += dsd[(size_t)dst_perm[p] * nh + k];
-    d_sdst[i] = s;
-    return;
-  }
-  sum_rows_block<kTailWarps>(part, nrows, len, blockIdx.x - sd_blocks,
-                            d_asrc);
+  attention_bwd_by_sender<V, C, U, AL>(a);
 }
 
 // The bfloat16-table library (-DGAT_BF16_TABLE) serves the packed window
@@ -584,61 +173,6 @@ int launch_window_forward(const T* h, const float* s_src,
                                   decltype(c)::value, decltype(u)::value,
                                   decltype(r)::value != 0, T>;
       });
-}
-
-// The backward over the plan (vec, per_lane, lanes, unroll) of
-// v5_attention.row_plan: the kernel by sender on a fixed grid of nblk
-// blocks, then the tail (d(s_dst) by destination, d(a_src) [| d(cap)] from
-// the partial rows): two launches in every mode.
-template <typename T>
-int launch_window_backward(BwdArgs<T> a, float* d_sdst, float* d_asrc,
-                           int vec, int per_lane, int unroll, int nblk,
-                           cudaStream_t st) {
-  const bool parts = a.mode == Bwd::kParts;
-  if (!row_plan_ok(a.d_feat, a.nh, a.f, vec, per_lane, a.lanes) ||
-      nblk < 1 || a.n < 1 || !aligned(a.h, vec * sizeof(T)) ||
-      !aligned(a.g, vec * sizeof(float)) ||
-      !aligned(a.d_h, vec * sizeof(float)) || (parts != !a.out) ||
-      (a.out && !aligned(a.out, vec * sizeof(float))))
-    return (int)cudaErrorInvalidValue;
-  a.stride = a.d_feat * a.nh + (a.mode == Bwd::kTwoPhase ? 1 : 0);
-  int err = (int)cudaSuccess;
-  err = with_vc<kBwdLimit, kBwdMaxC>(vec, per_lane, [&](auto vv, auto cc) {
-    constexpr int V = decltype(vv)::value, C = decltype(cc)::value;
-    constexpr int U = row_flight(V * C);
-    // a_src, and at wide rows the warps' sums
-    const size_t smem =
-        ((size_t)a.d_feat * a.nh + (kWideRow<V, C> ? kWarps * a.d_feat : 0)) *
-        sizeof(float);
-    if (kWideRow<V, C> && a.lanes != 32) return (int)cudaErrorInvalidValue;
-    auto launch = [&](auto kern) {
-      cudaError_t e = set_smem(kern, smem);
-      if (e != cudaSuccess) return (int)e;
-      kern<<<nblk, kWarps * 32, smem, st>>>(a);
-      return (int)cudaGetLastError();
-    };
-    // the instance for heads of whole lanes where the plan gives them
-    auto with_u = [&](auto uu) {
-      constexpr int UU = decltype(uu)::value;
-      if constexpr (C == 1)
-        if (a.f % V == 0) return launch(window_bwd_kernel<V, C, UU, true, T>);
-      return launch(window_bwd_kernel<V, C, UU, false, T>);
-    };
-    if (unroll == U) return with_u(Int<U>{});
-    // two in flight: where a batch gives a team at most two slots (teams
-    // of under 32 lanes, one vector a lane: row_plan)
-    if constexpr (U != 2 && V * C <= 4)
-      if (unroll == 2) return with_u(Int<2>{});
-    return (int)cudaErrorInvalidValue;
-  });
-  if (err) return err;
-  const int sd_blocks =
-      (a.n * a.nh + kTailWarps * 32 - 1) / (kTailWarps * 32);
-  const int sum_blocks = (a.stride + kSumCols - 1) / kSumCols;
-  window_bwd_tail_kernel<<<sd_blocks + sum_blocks, kTailWarps * 32, 0, st>>>(
-      a.dsd, a.dst_perm, a.dst_ptr, a.n, a.nh, sd_blocks, a.part, nblk,
-      a.stride, d_sdst, d_asrc);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -732,14 +266,22 @@ int window_backward(const void* h, const float* a_src, const float* s_src,
 #endif
   return with_table(h, flags, [&](auto hp) {
     using T = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
-    const BwdArgs<T> a{hp,    a_src,  s_src,   s_dst,    drop,   recv,
-                       src_perm, src_ptr, dst_perm, dst_ptr, n,  e7,
-                       d_feat, nh,    f,       lanes,    (Bwd)mode, slope,
-                       eps,    flags, g,       out,      den,    epsp,
-                       cap,    d_h,   d_drop,  dsd,      dsum,   part,
-                       0};
-    return launch_window_backward(a, d_sdst, d_asrc, vec, per_lane, unroll,
-                                  nblk, (cudaStream_t)stream);
+    // a sender and a destination are rows of the one node table; every
+    // slot of dst_perm's runs is real (e_real: no bound)
+    const BwdArgs<T> a{hp,       a_src,   s_src,    s_dst,   drop,
+                       recv,     src_perm, src_ptr, dst_perm, dst_ptr,
+                       n,        n,       e7,       INT_MAX, d_feat,
+                       nh,       f,       lanes,    (Bwd)mode, slope,
+                       eps,      flags,   g,        out,     den,
+                       epsp,     cap,     d_h,      d_drop,  dsd,
+                       dsum,     part,    0};
+    return launch_bwd_by_sender<kBwdLimit, kBwdMaxC>(
+        a, d_sdst, d_asrc, vec, per_lane, unroll, nblk, (cudaStream_t)stream,
+        [](auto v, auto c, auto u, auto al) {
+          return &window_bwd_kernel<decltype(v)::value, decltype(c)::value,
+                                    decltype(u)::value,
+                                    decltype(al)::value != 0, T>;
+        });
   });
 }
 

@@ -23,7 +23,9 @@ and fused_segment_attention returns num * inv with
 inv = den > 0 ? 1 / (den + eps) : 0, fused_segment_attention_partial
 (num, den) for a sum over edge shards (models/gat.py). Both are
 differentiable in the logits, h_src and the mask. The forward kernel walks
-each destination's run of the dst-sorted edges: a caller that holds their
+each destination's run of the dst-sorted edges (the v5 and table ops'
+forward bodies over streamed rows, with the v5 forward's lane plan,
+v5_attention.plan_of, and `forward_blocks`): a caller that holds their
 CSR offsets (Graph.dst_ptr, an edge shard's own) passes them as dst_ptr,
 else they are derived per call; the backward kernel is a map over the
 edges and reads no offsets. The JAX ops' `eb`,
@@ -47,7 +49,8 @@ import torch
 from .. import segment as seg
 from . import build
 from .rounding import FLOAT32, V2_BF16, Rounding, maybe_bf16
-from .v5_attention import MAX_HEADS, _matmul_dtype, align_of, row_plan
+from .v5_attention import (MAX_HEADS, LanePlan, _matmul_dtype, align_of,
+                           plan_of, row_plan)
 
 NEG_INF = -1e30          # the logit of a padding edge
 _KERNEL = "segment_attention"
@@ -64,7 +67,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_KERNEL)
     if not _configured:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.v2_forward.argtypes = [p] * 4 + [i] * 5 + [fl, i, p, p, i, i, p]
+        lib.v2_forward.argtypes = ([p] * 4 + [i] * 5 + [fl, i, p, p]
+                                   + [i] * 5 + [i, i, p])
         lib.v2_forward.restype = ctypes.c_int
         lib.v2_backward.argtypes = ([p] * 4 + [i] * 7 + [fl, i] + [p] * 7
                                     + [i] * 4 + [p])
@@ -170,6 +174,15 @@ def _check_inputs(logits, h_src, drop, receivers, num_nodes, e_real):
     return dev, e, d, nh
 
 
+def forward_blocks(plan: LanePlan, n: int) -> int:
+    """The forward's grid over n destinations for its lane plan (the v5
+    forward's, v5_attention.plan_of): a block each (wide; the card
+    schedules them as they finish, which balances runs of unequal length,
+    and no partial sum is kept a block), or eight a block, a warp each
+    (narrow)."""
+    return max(1, n if plan.wide else -(-n // build.WARPS_PER_BLOCK))
+
+
 def _v2_forward_cuda(logits, h_src, drop, receivers, num_nodes: int,
                      e_real: int, eps: float, normalize: bool,
                      rounding: Rounding, dst_ptr=None):
@@ -181,12 +194,13 @@ def _v2_forward_cuda(logits, h_src, drop, receivers, num_nodes: int,
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((num_nodes, d), **f32)
     den = torch.empty((num_nodes, nh), **f32)
+    plan = plan_of(h_src, out, nh, d // nh)
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib().v2_forward(
             p(logits), p(h_src), p(drop), p(row_ptr), num_nodes, e_real, d,
-            nh, d // nh, eps, int(normalize), p(out), p(den),
-            build.grid_blocks(num_nodes), rounding.flags(),
+            nh, d // nh, eps, int(normalize), p(out), p(den), *plan,
+            forward_blocks(plan, num_nodes), rounding.flags(),
             build.stream(dev))
     build.check(err, "v2_forward")
     build.LAUNCHES[rounding.counter("v2_forward")] += 1

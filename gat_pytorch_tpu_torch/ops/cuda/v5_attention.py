@@ -6,11 +6,14 @@ fused_gat_table_autocap (:1551) with its VJP `_fgta_fwd`/`_fgta_bwd`
 default, and v5_sweep1_parts (:1674) with `_v5sp_fwd`/`_v5sp_bwd`, the
 same sweep without its epilogue. The kernels are csrc/v5_attention.cu
 (forward: `_kernel_v5_auto`; backward: segment_attention_bwd.py:
-`_kernel_v5_bwd`, in its normalised and its parts mode) and the d(h)
-reduction of ops/cuda/segment_sum.py. `v5_forward_plain` and
-`v5_backward_plain` are their plain torch versions. At rows wider than
-256 floats the backward takes its wide form: d(a_src) by sender
-(`dasrc_by_sender`, kernel v5_dasrc) from the per-edge d(raw) rows.
+`_kernel_v5_bwd`, in its normalised and its parts mode). At rows of
+WIDE_D = 256 floats or fewer the backward is owned by senders and returns
+d(h) per node (`v5_backward_by_sender_plain` is its plain version): the
+d(h) reduction that the JAX package runs after the TPU kernel
+(ops/cuda/segment_sum.py) is inside it. Wider rows take its wide form:
+per-edge rows (`v5_backward_plain`, the TPU kernel's contract), d(a_src)
+by sender (`dasrc_by_sender`, kernel v5_dasrc) and then the d(h) reduce.
+`v5_forward_plain` is the forward's plain version.
 
 Every kernel here, and every windowed one (window_attention.py), takes
 its raw logit from the source-score table s_src = h @ a_src
@@ -66,7 +69,9 @@ op hands its kernels the policy (rounding.Rounding) and, in the table
 mode, a bfloat16 table cast once; an explicit `rounding` (the v6 form of
 window_attention.fused_gat_window, which runs on these kernels) replaces
 the knobs. GAT_TPU_DH_REDUCE_NT=0 (segment_sum.dh_transposed) reduces
-d(h) through the feature-major kernel.
+d(h) through the feature-major kernel where a reduce runs: the wide form
+on the card, and the CPU route. It changes no value in the JAX package,
+and the kernel by sender does not read it.
 """
 
 from __future__ import annotations
@@ -82,7 +87,8 @@ from . import build
 from .build import sender_runs
 from .rounding import (BF16_TABLE, FLOAT32, Rounding, check_table,
                        maybe_bf16)
-from .segment_sum import dh_reduce, dh_transposed, segment_sum_sorted_plain
+from .segment_sum import (dh_reduce, dh_reduce_plain, dh_transposed,
+                          segment_sum_sorted_plain)
 
 _KERNEL = "v5_attention"
 MAX_HEADS = 8
@@ -126,19 +132,22 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.v5_forward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 6
                                    + plan + [i, i, p])
         lib.v5_forward.restype = ctypes.c_int
-        lib.v5_backward.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 10
+        lib.v5_backward.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 9
                                     + [i, i, p])
         lib.v5_backward.restype = ctypes.c_int
-        lib.v5_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 8
+        lib.v5_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 7
                                           + [i, i, p])
         lib.v5_backward_parts.restype = ctypes.c_int
+        lib.v5_backward_by_sender.argtypes = ([p] * 9 + [i] * 8 + [fl] * 2
+                                              + [p] * 12 + [i] * 6 + [p])
+        lib.v5_backward_by_sender.restype = ctypes.c_int
         lib.v5_cap.argtypes = [p] * 4 + [i] * 2 + [p] * 4 + [i, p]
         lib.v5_cap.restype = ctypes.c_int
         lib.v5_forward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
                                              + [p] * 2 + plan + [i, i, p])
         lib.v5_forward_two_phase.restype = ctypes.c_int
         lib.v5_backward_two_phase.argtypes = ([p] * 8 + [i] * 5 + [fl] * 2
-                                              + [p] * 9 + [i, i, p])
+                                              + [p] * 8 + [i, i, p])
         lib.v5_backward_two_phase.restype = ctypes.c_int
         lib.v5_dasrc.argtypes = [p] * 4 + [i] * 3 + [p, i, p, i, i, p]
         lib.v5_dasrc.restype = ctypes.c_int
@@ -635,6 +644,61 @@ def dasrc_by_sender(h, draw, order, ptr, rounding: Rounding = FLOAT32,
     return dasrc_by_sender_plain(h, draw, order, ptr, rounding), None
 
 
+# -- the backward by sender --------------------------------------------------
+#
+# At rows of WIDE_D floats or fewer the backward kernel is owned by senders
+# (csrc/attention_common.cuh attention_bwd_by_sender, the windowed op's
+# body over the dst-sorted edges): it sums d(h) per node itself, each
+# sender's edges' terms in ascending position of its run of src_order, and
+# takes d(a_src) = h^T S by sender, S the per-sender sums of d(raw). The
+# plain versions below have that contract; the per-edge rows of
+# v5_backward_plain are the TPU kernel's, whose reduction by sender the
+# JAX package runs after it.
+
+def _by_sender_plain(grads, h, senders, e_real: int, src_order, src_ptr,
+                     rounding: Rounding):
+    """A plain backward's grads (with draw last) by sender: its per-edge
+    d(h) rows summed per node over sender_runs (dh_reduce_plain), d(a_src)
+    taken as h^T S (dasrc_by_sender_plain); draw dropped."""
+    *grads, draw = grads
+    order, ptr = sender_runs(senders, e_real, h.shape[0], src_order,
+                             src_ptr)
+    grads[0] = dh_reduce_plain(grads[0], order, ptr)
+    grads[3] = dasrc_by_sender_plain(h, draw, order, ptr, rounding)
+    return tuple(grads)
+
+
+def v5_backward_by_sender_plain(h, a_src, s_dst_eff, drop, senders,
+                                receivers, e_real: int, slope: float, g, out,
+                                den, epsp, need_drop: bool,
+                                normalize: bool = True,
+                                rounding: Rounding = FLOAT32, s_src=None,
+                                src_order=None, src_ptr=None):
+    """(d_h (rows of h, D) per node, d_drop, d_s_dst, d_a_src): the
+    backward by sender's function in plain torch, on either device and
+    with no kernel; normalize=False is the parts mode (as
+    attention_backward_plain takes it)."""
+    return _by_sender_plain(v5_backward_plain(
+        h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g, out,
+        den, epsp, need_drop, normalize, rounding, with_draw=True,
+        s_src=s_src), h, senders, e_real, src_order, src_ptr, rounding)
+
+
+def v5_backward_two_phase_by_sender_plain(h, a_src, s_dst, cap, drop,
+                                          senders, receivers, e_real: int,
+                                          eps: float, slope: float, g, out,
+                                          den, need_drop: bool,
+                                          rounding: Rounding = FLOAT32,
+                                          s_src=None, src_order=None,
+                                          src_ptr=None):
+    """(d_h (rows of h, D) per node, d_drop, d_s_dst, d_a_src, d_cap) of
+    the 2-phase op by sender, in plain torch."""
+    return _by_sender_plain(v5_backward_two_phase_plain(
+        h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
+        g, out, den, need_drop, rounding, with_draw=True, s_src=s_src), h,
+        senders, e_real, src_order, src_ptr, rounding)
+
+
 # -- kernel wrappers (CUDA tensors) -----------------------------------------
 #
 # Each takes the op's rounding policy: h is a bfloat16 table in the table
@@ -704,11 +768,62 @@ def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     return num, den, cap, code
 
 
+_BY_SENDER_MODES = {"v5_backward": 0, "v5_backward_parts": 1,
+                    "v5_backward_two_phase": 2}
+
+
+def _v5_backward_by_sender_cuda(name, h, a_src, s_src, s_dst, drop,
+                                senders, receivers, e_real: int,
+                                slope: float, eps: float, g, out, den, epsp,
+                                cap, need_drop: bool, rounding: Rounding,
+                                dst_ptr, src_order, src_ptr):
+    """One call of the C entry v5_backward_by_sender in the mode of
+    `name` (rows of WIDE_D floats or fewer): (d_h (rows of h, d) per node,
+    d_drop | None, d_sdst, d_asrc (d*nh [+ 1]))."""
+    dev = h.device
+    n_src, d = h.shape
+    n, nh = s_dst.shape
+    e = senders.shape[0]
+    mode = _BY_SENDER_MODES[name]
+    order, ptr = sender_runs(senders, e_real, n_src, src_order, src_ptr)
+    row_ptr = build.row_offsets(receivers, n, dst_ptr)
+    # a fixed grid (a function of n_src: the blocks' d(a_src) partial rows
+    # are summed in block order) of one wave, two blocks an SM (the main
+    # path's instances hold 91-144 registers): faster than 528 or 1056
+    # blocks at Cora's and Pubmed's shapes, where the tail's sum over the
+    # blocks' partial rows is a part of the call (PERF.md)
+    nblk = build.grid_blocks(n_src)
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_h = torch.empty((n_src, d), **f32)
+    d_drop = torch.empty((e, nh), **f32) if need_drop else None
+    d_sdst = torch.empty((n, nh), **f32)
+    stride = d * nh + (1 if mode == 2 else 0)
+    d_asrc = torch.empty((stride,), **f32)
+    dsd = torch.empty((e, nh), **f32)
+    dsum = torch.empty((n_src, nh), **f32)
+    part = torch.empty((nblk, stride), **f32)
+    aligns = [align_of(h), align_of(g)] + ([] if out is None
+                                           else [align_of(out)])
+    plan = row_plan(nh, d // nh, min(aligns))
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = _lib(rounding.table).v5_backward_by_sender(
+            p(h), p(a_src), p(s_src), p(s_dst), p(drop), p(receivers),
+            p(order), p(ptr), p(row_ptr), n_src, n, e_real, e, d, nh,
+            d // nh, mode, slope, eps, p(g), p(out), p(den), p(epsp),
+            p(cap), p(d_h), p(d_drop), p(d_sdst), p(d_asrc), p(dsd),
+            p(dsum), p(part), *plan, nblk, rounding.flags(),
+            build.stream(dev))
+    build.check(err, name)
+    build.LAUNCHES[rounding.counter(name)] += 1
+    return d_h, d_drop, d_sdst, d_asrc
+
+
 def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
                       need_drop: bool, normalize: bool = True, dst_ptr=None,
                       rounding: Rounding = FLOAT32, src_order=None,
-                      src_ptr=None, s_src=None):
+                      src_ptr=None, s_src=None, transposed: bool = False):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
@@ -717,6 +832,16 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
         build.require(out, "out", dev, torch.float32, (n, d))
         build.require(epsp, "epsp", dev, torch.float32, ())
     s_src = scores_of(h, a_src, s_src)
+    name = "v5_backward" if normalize else "v5_backward_parts"
+    if not wide_form(d):
+        d_h, d_drop, d_sdst, d_asrc = _v5_backward_by_sender_cuda(
+            name, h, a_src, s_src, s_dst_eff, drop, senders, receivers,
+            e_real, slope, 0.0, g, out if normalize else None, den,
+            epsp if normalize else None, None, need_drop, rounding,
+            dst_ptr, src_order, src_ptr)
+        return d_h, d_drop, d_sdst, d_asrc.view(d, nh)
+    # the wide form: per-edge rows, d(a_src) by sender (v5_dasrc), then the
+    # rows summed by sender (row 3, or row 4 where `transposed`)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -724,15 +849,13 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     d_drop = torch.empty((e, nh), **f32) if need_drop else None
     d_sdst = torch.empty((n, nh), **f32)
     part = torch.empty((nblk, d * nh), **f32)
-    d_asrc = torch.empty((d, nh), **f32)
-    draw = torch.empty((e, nh), **f32) if wide_form(d) else None
+    draw = torch.empty((e, nh), **f32)
     p = build.ptr
     lib = _lib(rounding.table)
     graph_args = (p(h), p(a_src), p(s_src), p(s_dst_eff), p(drop),
                   p(senders), p(row_ptr), n, e_real, d, nh, d // nh, slope)
-    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(d_asrc),
-               p(draw), nblk, rounding.flags(), build.stream(dev))
-    name = "v5_backward" if normalize else "v5_backward_parts"
+    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(draw), nblk,
+               rounding.flags(), build.stream(dev))
     with torch.cuda.device(dev):
         if normalize:
             err = lib.v5_backward(*graph_args, p(g), p(out), p(den), p(epsp),
@@ -741,11 +864,11 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
             err = lib.v5_backward_parts(*graph_args, p(g), p(den), *outputs)
     build.check(err, name)
     build.LAUNCHES[rounding.counter(name)] += 1
-    if draw is not None:
-        d_asrc, _ = dasrc_by_sender(
-            h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
-                                  src_ptr), rounding, part)
-    return d_h_rows, d_drop, d_sdst, d_asrc
+    order, ptr = sender_runs(senders, e_real, h.shape[0], src_order, src_ptr)
+    d_asrc, _ = dasrc_by_sender(h, draw, order, ptr, rounding, part)
+    d_h = dh_reduce(d_h_rows, order, senders, h.shape[0], e_real,
+                    transposed, src_ptr=ptr)
+    return d_h, d_drop, d_sdst, d_asrc
 
 
 def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
@@ -797,7 +920,8 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
                                 slope: float, g, out, den, need_drop: bool,
                                 rounding: Rounding = FLOAT32, dst_ptr=None,
-                                src_order=None, src_ptr=None, s_src=None):
+                                src_order=None, src_ptr=None, s_src=None,
+                                transposed: bool = False):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
@@ -805,6 +929,13 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                            (den, "den", (n, nh))):
         build.require(t, name, dev, torch.float32, shape)
     s_src = scores_of(h, a_src, s_src)
+    if not wide_form(d):
+        d_h, d_drop, d_sdst, d_asrc_cap = _v5_backward_by_sender_cuda(
+            "v5_backward_two_phase", h, a_src, s_src, s_dst, drop, senders,
+            receivers, e_real, slope, eps, g, out, den, None, cap, need_drop,
+            rounding, dst_ptr, src_order, src_ptr)
+        return (d_h, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
+                d_asrc_cap[d * nh])
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -812,23 +943,22 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     d_drop = torch.empty((e, nh), **f32) if need_drop else None
     d_sdst = torch.empty((n, nh), **f32)
     part = torch.empty((nblk, d * nh + 1), **f32)
-    d_asrc_cap = torch.empty((d * nh + 1,), **f32)
-    draw = torch.empty((e, nh), **f32) if wide_form(d) else None
+    draw = torch.empty((e, nh), **f32)
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib(rounding.table).v5_backward_two_phase(
             p(h), p(a_src), p(s_src), p(s_dst), p(cap), p(drop),
             p(senders), p(row_ptr), n, e_real, d, nh, d // nh, eps, slope,
             p(g), p(out), p(den), p(d_h_rows), p(d_drop), p(d_sdst),
-            p(part), p(d_asrc_cap), p(draw), nblk, rounding.flags(),
-            build.stream(dev))
+            p(part), p(draw), nblk, rounding.flags(), build.stream(dev))
     build.check(err, "v5_backward_two_phase")
     build.LAUNCHES[rounding.counter("v5_backward_two_phase")] += 1
-    if draw is not None:    # d(a_src), then the kernel's d(cap) column
-        _, d_asrc_cap = dasrc_by_sender(
-            h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
-                                  src_ptr), rounding, part)
-    return (d_h_rows, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
+    # d(a_src), then the kernel's d(cap) column; the rows by sender
+    order, ptr = sender_runs(senders, e_real, h.shape[0], src_order, src_ptr)
+    _, d_asrc_cap = dasrc_by_sender(h, draw, order, ptr, rounding, part)
+    d_h = dh_reduce(d_h_rows, order, senders, h.shape[0], e_real,
+                    transposed, src_ptr=ptr)
+    return (d_h, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
             d_asrc_cap[d * nh])
 
 
@@ -851,13 +981,21 @@ def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
         rounding, scores_of(h, a_src, s_src))
 
 
-def _wide_plain(grads, h, senders, e_real, src_order, src_ptr, rounding):
-    """A plain backward's grads with its d(a_src) (index 3) taken by sender
-    from its draw (last), as the wide form takes it; draw dropped."""
-    *grads, draw = grads
-    grads[3] = dasrc_by_sender(
-        h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
-                              src_ptr), rounding)[0]
+def _per_node(grads, h, senders, e_real, src_order, src_ptr, rounding,
+              transposed: bool, wide: bool):
+    """A plain backward's grads as the op's CPU route takes them: the
+    per-edge d(h) rows (index 0) reduced by sender with the JAX package's
+    d(h) reduce (dh_reduce, the feature-major form where `transposed`)
+    and, at wide rows, d(a_src) (index 3) by sender from its draw (last,
+    dropped) as the wide form takes it."""
+    grads = list(grads)
+    if wide:
+        draw = grads.pop()
+        grads[3] = dasrc_by_sender(
+            h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
+                                  src_ptr), rounding)[0]
+    grads[0] = dh_reduce(grads[0], src_order, senders, h.shape[0], e_real,
+                         transposed, src_ptr=src_ptr)
     return tuple(grads)
 
 
@@ -865,27 +1003,35 @@ def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
                 e_real: int, slope: float, g, out, den, epsp,
                 need_drop: bool, normalize: bool = True, dst_ptr=None,
                 rounding: Rounding = FLOAT32, *, src_order=None,
-                src_ptr=None, s_src=None):
-    """Kernel on CUDA tensors, plain version on CPU tensors.
-    normalize=False is the parts mode (attention_backward_plain says what
-    `g` and `den` carry then); it launches the kernel's parts mode and
-    counts as "v5_backward_parts". Rows wider than WIDE_D take d(a_src)
-    by sender (dasrc_by_sender) on either device: src_order and src_ptr
-    are the real edges' sender runs (sender_runs), derived where None.
-    s_src: as v5_forward's."""
+                src_ptr=None, s_src=None, transposed: bool = False):
+    """(d_h (rows of h, D) per node, d_drop (E, nh) | None, d_s_dst (N,
+    nh), d_a_src (D, nh)) before the cap chain. normalize=False is the
+    parts mode (attention_backward_plain says what `g` and `den` carry
+    then); it counts as "v5_backward_parts". src_order and src_ptr: the
+    real edges' sender runs (sender_runs), derived where None. s_src: as
+    v5_forward's.
+
+    On CUDA tensors, rows of WIDE_D floats or fewer take the kernel by
+    sender (C entry v5_backward_by_sender: two launches, d(h) per node,
+    reading no knob); wider rows the wide form (per-edge rows, v5_dasrc,
+    then the d(h) reduce, feature-major where `transposed`, the op's
+    GAT_TPU_DH_REDUCE_NT=0). On CPU tensors the JAX package's route: the
+    plain per-edge rows, then the d(h) reduce in the form `transposed`
+    names (d(a_src) by sender at wide rows)."""
     if h.is_cuda:
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
                                  epsp, need_drop, normalize, dst_ptr,
-                                 rounding, src_order, src_ptr, s_src)
+                                 rounding, src_order, src_ptr, s_src,
+                                 transposed)
     build.require_cpu(h)
     wide = wide_form(h.shape[1])
     grads = v5_backward_plain(
         h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g,
         out, den, epsp, need_drop, normalize, rounding, with_draw=wide,
         s_src=scores_of(h, a_src, s_src))
-    return (_wide_plain(grads, h, senders, e_real, src_order, src_ptr,
-                        rounding) if wide else grads)
+    return _per_node(grads, h, senders, e_real, src_order, src_ptr,
+                     rounding, transposed, wide)
 
 
 def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int,
@@ -925,24 +1071,25 @@ def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                           e_real: int, eps: float, slope: float, g, out, den,
                           need_drop: bool, rounding: Rounding = FLOAT32, *,
                           dst_ptr=None, src_order=None, src_ptr=None,
-                          s_src=None):
-    """(d_h rows in dst order, d_drop | None, d_s_dst, d_a_src, d_cap) of
-    the 2-phase op. Kernel on CUDA tensors, plain version on CPU
-    tensors. dst_ptr, s_src: as v5_forward's; src_order, src_ptr: as
-    v5_backward's."""
+                          s_src=None, transposed: bool = False):
+    """(d_h (rows of h, D) per node, d_drop | None, d_s_dst, d_a_src,
+    d_cap) of the 2-phase op: the kernel by sender on CUDA tensors (at
+    wide rows the wide form and the d(h) reduce), the JAX package's route
+    on CPU tensors, as v5_backward's. dst_ptr, s_src: as v5_forward's;
+    src_order, src_ptr, transposed: as v5_backward's."""
     if h.is_cuda:
         return _v5_backward_two_phase_cuda(
             h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,
             slope, g, out, den, need_drop, rounding, dst_ptr, src_order,
-            src_ptr, s_src)
+            src_ptr, s_src, transposed)
     build.require_cpu(h)
     wide = wide_form(h.shape[1])
     grads = v5_backward_two_phase_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
         g, out, den, need_drop, rounding, with_draw=wide,
         s_src=scores_of(h, a_src, s_src))
-    return (_wide_plain(grads, h, senders, e_real, src_order, src_ptr,
-                        rounding) if wide else grads)
+    return _per_node(grads, h, senders, e_real, src_order, src_ptr,
+                     rounding, transposed, wide)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -1036,14 +1183,11 @@ class _V5Attention(torch.autograd.Function):
         nh, slope = ctx.nh, ctx.slope
         g = g.contiguous()
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
-        d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
+        d_h, d_drop, d_sdst, d_asrc = v5_backward(
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, slope, g, out, den, epsp, need_drop,
             dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
-            src_ptr=src_ptr, s_src=s_src)
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
-
+            src_ptr=src_ptr, s_src=s_src, transposed=ctx.dh_t)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
             code, senders, receivers, h_k, a_src, nh)
@@ -1185,15 +1329,13 @@ class _V5TwoPhase(torch.autograd.Function):
         (h_k, a_src, s_src, s_dst, cap, drop_mask, senders, receivers,
          src_order, src_ptr, dst_ptr, out, den) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[4]
-        d_h_rows, d_drop, d_sdst, d_asrc, d_cap = v5_backward_two_phase(
+        # senders index the h table, which may have more rows than the
+        # destinations: d(h) has the table's rows
+        d_h, d_drop, d_sdst, d_asrc, d_cap = v5_backward_two_phase(
             h_k, a_src, s_dst, cap, drop_mask, senders, receivers,
             ctx.e_real, ctx.eps, ctx.slope, g.contiguous(), out, den,
             need_drop, ctx.rounding, dst_ptr=dst_ptr, src_order=src_order,
-            src_ptr=src_ptr, s_src=s_src)
-        # senders index the h table, which may have more rows than the
-        # destinations: d(h) is reduced to the table's rows
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
+            src_ptr=src_ptr, s_src=s_src, transposed=ctx.dh_t)
         return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 11
 
 
@@ -1266,16 +1408,14 @@ class _V5Sweep1Parts(torch.autograd.Function):
         (h_k, a_src, s_src, s_dst_eff, drop_mask, senders, receivers,
          src_order, dst_ptr, src_ptr, code) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
-        d_h_rows, d_drop, d_sdst, d_asrc = v5_backward(
+        # senders index the h table, which may have more rows than the
+        # destinations: d(h) has the table's rows
+        d_h, d_drop, d_sdst, d_asrc = v5_backward(
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, ctx.slope, d_num.contiguous(), None,
             d_den.contiguous(), None, need_drop, normalize=False,
             dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
-            src_ptr=src_ptr, s_src=s_src)
-        # senders index the h table, which may have more rows than the
-        # destinations: d(h) is reduced to the table's rows
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
+            src_ptr=src_ptr, s_src=s_src, transposed=ctx.dh_t)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, d_cap, code, senders, receivers, h_k,
             a_src, ctx.nh)

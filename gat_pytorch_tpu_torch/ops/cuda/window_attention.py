@@ -34,8 +34,9 @@ fused_gat_window is the v6 form (segment_attention_window.py:1630), the
 `window` size the TPU kernel's streamed VMEM window, which it needs for
 its one-hot MXU gather; Hopper gathers rows at random, so on the card the
 op is v5_attention's 2-phase pair (v5_cap, v5_forward_two_phase,
-v5_backward_two_phase) over the graph's CSR, with d(h) reduced by a stable
-sort of the senders. That is the Hopper algorithm for that contract.
+v5_backward_two_phase) over the graph's CSR, with d(h) summed by sender
+over a stable sort of the senders. That is the Hopper algorithm for that
+contract.
 
 The contraction dtype (GAT_TPU_V6_DTYPE, `_v6_dtype`) is bfloat16 unless
 the variable says "float32", as in the JAX package, read when an op is
@@ -692,9 +693,10 @@ def fused_gat_window(h_flat: torch.Tensor,
     gathers rows at random, so the Hopper algorithm for this contract is
     v5_local_cap then fused_gat_table over the graph's CSR (the kernels
     source_scores, v5_cap, v5_forward_two_phase, v5_backward_two_phase;
-    one score table for the cap and the attention pass), d(h) reduced by
-    the stable sender sort src_order (Graph.src_order; computed per call
-    where the caller has none), with the graph's CSR offsets src_ptr (read
+    one score table for the cap and the attention pass), d(h) summed by
+    sender over the stable sender sort src_order (Graph.src_order;
+    computed per call where the caller has none), with the graph's CSR
+    offsets src_ptr (read
     only with src_order) and dst_ptr where the caller has them (Graph.
     src_ptr, Graph.dst_ptr). tile_lo and window are checked, not read.
     The contraction dtype is read now (V6_BF16 in the bfloat16 mode, the

@@ -1,13 +1,17 @@
-"""Side-by-side times of attention backwards of two trees of the port on
-one card: the v5 backward (row 2 of PERF.md's kernel table) at Cora's and
-PATTERN's layer shapes, the windowed backward (row 13) at Pubmed's in its
-three modes (normalised and 2-phase on the RCM layout, parts on the hybrid
-layout's in-window slots), and the v2 backward (row 10) at PPI's and
-Cora's layer shapes in its partial and normalised modes, each in float32
+"""Side-by-side times of attention kernels of two trees of the port on one
+card: the v5 backward (row 2 of PERF.md's kernel table) at Cora's and
+PATTERN's layer shapes in its normalised mode, at Cora's in its 2-phase
+mode, on the hybrid Pubmed layout's remainder in its parts mode and on the
+cluster-ordered Pubmed graph in its 2-phase mode (the v6 form); the v2
+forward (row 9) at PPI's and Cora's layer shapes in its partial and
+normalised modes; the windowed backward (row 13) at Pubmed's in its three
+modes (normalised and 2-phase on the RCM layout, parts on the hybrid
+layout's in-window slots); and the v2 backward (row 10) at PPI's and
+Cora's layer shapes in its partial and normalised modes: each in float32
 and in the bfloat16 mode its fits run (the v2 backward has none).
 
     python3 tools/ab_backward.py --tree parent=build/parent --tree change=. \
-        --order parent,change,change,parent [--rows 2,10,13]
+        --order parent,change,change,parent [--rows 2,9,10,13]
 
 Each entry of --order runs in a process of its own, from its tree (its
 package and its kernels, built there under build/torch_kernels), on the
@@ -18,12 +22,13 @@ backward recomputes the sender's dot per edge; or one that computes the
 table first), and `given`, the call given the table its op's forward
 computed, where the tree's entry takes one (`s_src=`), and the largest
 difference of the call's outputs from its plain version on the same
-inputs over max(1, |ref|). A windowed backward's time includes its d(h)
-per node: where the tree's entry returns per-slot rows, the call is the
-entry and the reduction by sender the op runs after it (row 3,
-dh_reduce_ptr). The card's name and power limit are printed with the
-results, which are also written as JSON lines (ab_backward.jsonl, in the
-output directory below). Needs one CUDA card.
+inputs over max(1, |ref|). A backward's time includes its d(h) per node:
+where the tree's entry returns per-edge (or per-slot) rows, the call is
+the entry and the reduction by sender the op runs after it (row 3,
+dh_reduce or dh_reduce_ptr). The v2 forward is called with the graph's
+offsets, as the sharded layer calls it. The card's name and power limit
+are printed with the results, which are also written as JSON lines
+(ab_backward.jsonl, in the output directory below). Needs one CUDA card.
 """
 
 import argparse
@@ -32,14 +37,21 @@ import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 SLOPE, DROPOUT = 0.01, 0.6     # as chip_smoke.py
-V5_CASES = (("Cora", 8, 8), ("Cora", 1, 7), ("PATTERN", 4, 12),
-            ("PATTERN", 4, 24))
+# (graph, heads, features, mode): the fits' layer shapes in each mode the
+# main paths run
+V5_CASES = (("Cora", 8, 8, "normalised"), ("Cora", 1, 7, "normalised"),
+            ("PATTERN", 4, 12, "normalised"), ("PATTERN", 4, 24, "normalised"),
+            ("Cora", 8, 8, "2-phase"), ("Cora", 1, 7, "2-phase"),
+            ("remainder", 8, 8, "parts"), ("remainder", 8, 3, "parts"),
+            ("Pubmed cluster", 8, 8, "v6 form"),
+            ("Pubmed cluster", 8, 3, "v6 form"))
 WINDOW_CASES = (("Pubmed", 8, 8), ("Pubmed", 8, 3))
-# the v2 backward as the sharded fits run it: PPI paper_faithful (no
-# mask) and Cora (dropout)
+# the v2 forward and backward as the sharded fits run them: PPI
+# paper_faithful (no mask) and Cora (dropout)
 V2_CASES = (("PPI", 4, 256, False), ("PPI", 6, 121, False),
             ("Cora", 8, 8, True), ("Cora", 1, 7, True))
 
@@ -85,7 +97,8 @@ def worker(label, root, rows):
     from gat_pytorch_tpu_torch.ops.cuda import segment_sum as ss
     from gat_pytorch_tpu_torch.ops.cuda import v5_attention as v5
     from gat_pytorch_tpu_torch.ops.cuda import window_attention as wa
-    from gat_pytorch_tpu_torch.ops.cuda.rounding import FLOAT32, Rounding
+    from gat_pytorch_tpu_torch.ops.cuda.rounding import (FLOAT32, V2_BF16,
+                                                         Rounding)
     from gat_pytorch_tpu_torch.utils.config import get_config
 
     build.build_all()
@@ -137,28 +150,97 @@ def worker(label, root, rows):
         return whole, given
 
     if "2" in rows:
-        for name, nh, f in V5_CASES:
+        hb = hybrid.block_layout
+        graphs["Pubmed cluster"] = hybrid
+        # the hybrid layer's remainder: a dst-sorted edge list over the
+        # cluster-ordered graph's nodes, with the layout's own runs
+        graphs["remainder"] = types.SimpleNamespace(
+            num_nodes=hybrid.num_nodes, num_edges=hb.rem_send.shape[0],
+            num_real_edges=hb.rem_e, senders=hb.rem_send,
+            receivers=hb.rem_recv, src_order=hb.rem_order,
+            src_ptr=hb.rem_src_ptr, dst_ptr=hb.rem_dst_ptr)
+        table_bf16 = Rounding(table=True, acc=True)
+        for name, nh, f, mode in V5_CASES:
             graph = graphs[name]
             n, er = graph.num_nodes, graph.num_real_edges
-            h, a_src, _, s_eff, drop, g, _ = inputs(
+            h, a_src, s_dst, s_eff, drop, g, d_den = inputs(
                 n, nh, f, graph.num_edges, nh * 100 + f)
-            for tag, rnd in (("float32", FLOAT32),
-                             ("bf16", Rounding(table=True, acc=True))):
+            snd, rcv = graph.senders, graph.receivers
+
+            def by_sender(outs, graph=graph, n=n, er=er):
+                """d(h) per node: the tree's, or its per-edge rows reduced
+                as the op reduces them (row 3 by the graph's runs)."""
+                if outs[0].shape[0] == n:
+                    return outs
+                return (ss.dh_reduce(outs[0], graph.src_order,
+                                     graph.senders, n, er,
+                                     src_ptr=graph.src_ptr),) + tuple(
+                                         outs[1:])
+
+            modes = (("float32", FLOAT32),
+                     ("bf16", wa.V6_BF16 if mode == "v6 form"
+                      else table_bf16))
+            for tag, rnd in modes:
                 hk = rnd.table_of(h)
-                num, den, cap, _ = v5.v5_forward(
-                    hk, a_src, s_eff, drop, graph.senders, graph.receivers,
-                    er, SLOPE, graph.dst_ptr, rnd)
-                epsp = 1e-8 * torch.exp(SLOPE * cap)
-                out = num / (den.repeat_interleave(f, dim=1) + epsp)
-                args = (hk, a_src, s_eff, drop, graph.senders,
-                        graph.receivers, er, SLOPE, g, out, den, epsp, True)
-                kw = dict(dst_ptr=graph.dst_ptr, rounding=rnd,
-                          src_order=graph.src_order, src_ptr=graph.src_ptr)
-                err = rel_err(v5.v5_backward(*args, **kw),
-                              v5.v5_backward_plain(*args, rounding=rnd))
-                emit(2, f"{name} {nh}x{f}", tag, *time_entry(
-                    v5.v5_backward, args, kw,
-                    lambda: v5.source_scores(hk, a_src)), err)
+                runs = dict(dst_ptr=graph.dst_ptr, src_order=graph.src_order,
+                            src_ptr=graph.src_ptr)
+                if mode in ("2-phase", "v6 form"):
+                    cap = v5.v5_cap(h, a_src, s_dst, snd, rcv, er)[0]
+                    fa = (hk, a_src, s_dst, cap, drop, snd, rcv, er, 1e-8,
+                          SLOPE)
+                    out, den = v5.v5_forward_two_phase(
+                        *fa, rnd, dst_ptr=graph.dst_ptr)
+                    args = fa + (g, out, den, True)
+                    entry, plain = (v5.v5_backward_two_phase,
+                                    v5.v5_backward_two_phase_plain)
+                    kw = dict(rounding=rnd, **runs)
+                    pkw = dict(rounding=rnd)
+                else:
+                    num, den, cap, _ = v5.v5_forward(
+                        hk, a_src, s_eff, drop, snd, rcv, er, SLOPE,
+                        graph.dst_ptr, rnd)
+                    epsp = 1e-8 * torch.exp(SLOPE * cap)
+                    out = num / (den.repeat_interleave(f, dim=1) + epsp)
+                    norm = mode == "normalised"
+                    args = (hk, a_src, s_eff, drop, snd, rcv, er, SLOPE, g) + (
+                        (out, den, epsp) if norm else (None, d_den, None)) + (
+                        True,)
+                    entry, plain = v5.v5_backward, v5.v5_backward_plain
+                    kw = dict(normalize=norm, rounding=rnd, **runs)
+                    pkw = dict(normalize=norm, rounding=rnd)
+                err = rel_err(by_sender(entry(*args, **kw)),
+                              by_sender(plain(*args, **pkw)))
+                emit(2, f"{name} {nh}x{f}", f"{mode} {tag}", *time_entry(
+                    entry, args, kw, lambda: v5.source_scores(hk, a_src),
+                    by_sender), err)
+
+    if "9" in rows:
+        for name, nh, f, with_drop in V2_CASES:
+            graph = graphs[name]
+            n, e, er = graph.num_nodes, graph.num_edges, graph.num_real_edges
+            d = nh * f
+            gen = torch.Generator(device=dev).manual_seed(nh * 1000 + f)
+            h = torch.randn((n, d), generator=gen, device=dev)
+            logits = torch.where(
+                graph.edge_mask[:, None],
+                torch.randn((e, nh), generator=gen, device=dev),
+                torch.full((e, nh), sa.NEG_INF, device=dev))
+            # the sharded layer's h_src: the real edges' rows alone
+            h_src = seg.gather_rows(h, graph.senders[:er]).contiguous()
+            drop = (((torch.rand((e, nh), generator=gen, device=dev)
+                      >= DROPOUT).float() / (1.0 - DROPOUT))
+                    if with_drop else None)
+            for mode in ("partial", "normalised"):
+                for tag, rnd in (("float32", FLOAT32), ("bf16", V2_BF16)):
+                    args = (logits, h_src, drop, graph.receivers, n, er,
+                            1e-8, mode == "normalised", rnd)
+                    err = rel_err(
+                        sa.v2_forward(*args, dst_ptr=graph.dst_ptr),
+                        sa.v2_forward_plain(*args))
+                    whole = time_ms(torch, lambda: sa.v2_forward(
+                        *args, dst_ptr=graph.dst_ptr))
+                    emit(9, f"{name} {nh}x{f}", f"{mode} {tag}", whole,
+                         None, err)
 
     if "13" in rows:
         for name, nh, f in WINDOW_CASES:
@@ -250,9 +332,9 @@ def main():
                     help="LABEL=PATH of a tree of the repo")
     ap.add_argument("--order", help="comma-separated labels, one process "
                     "each, in this order")
-    ap.add_argument("--rows", default="2,10,13",
+    ap.add_argument("--rows", default="2,9,10,13",
                     help="comma-separated rows of PERF.md's kernel table "
-                    "to time (2, 10, 13)")
+                    "to time (2, 9, 10, 13)")
     ap.add_argument("--worker", nargs=2, metavar=("LABEL", "PATH"),
                     help=argparse.SUPPRESS)
     a = ap.parse_args()
