@@ -56,9 +56,17 @@ dataset:
           table_backward_bf16), and two more that reach the remaining
           modes: Cora two-phase bf16 kernels (v5_cap_bf16) and Pubmed
           cluster bf16 kernels (v5_backward_parts_bf16);
+  with the attention regulariser (`--attention_reward`,
+  `--attention_penalty`): Cora attention (v5), Pubmed attention (RCM,
+  windowed) and PPI paper_faithful attention (table), whose alpha (from
+  the score tables or the layer's logits) sums through
+  segment_sum_sorted: four launches a v5 or windowed layer a train step,
+  two a table layer; and Cora naive (`--layer_type naive`, the plain-torch
+  oracle layer: no kernel);
   and the edge-sharded path (Trainer.fit_sharded, the cut-neighbourhood
   layout) under a one-rank NCCL process group: Cora sharded, PPI
-  paper_faithful sharded and Cora sharded bf16 kernels
+  paper_faithful sharded (also with the regulariser, two more sorted sums
+  a layer) and Cora sharded bf16 kernels
           (GAT_TPU_KERNEL_DTYPE and GAT_TPU_GEMM_DTYPE = bfloat16), each
           layer the partial v2 op (kernels v2_forward or v2_forward_bf16,
           v2_backward, and segment_sum_sorted for the gradients of the
@@ -147,17 +155,21 @@ Phases (every failure is fatal):
      just before and read just after; the train loss must be finite and
      fall, every kernel of the path must have run the expected number of
      times, and PATH_TRACE must name the path;
-  4. hold the trained model's logits and gradients on the kernel path
+  4. hold the trained model's logits and the gradients of its training
+     loss (the regulariser included) on the kernel path
      against the plain segment-op path on the card (Pubmed: the windowed
      path also against the v5 kernel path on the same reordered graph
      without its block layout; a 2-phase model also against the
-     single-sweep kernel path);
+     single-sweep kernel path; a regularised model's alpha of each layer
+     and its attention norm also against the segment path and the naive
+     layer; the naive model against the segment path);
      a bfloat16 model against the float32 kernel path and the segment path
      of the same model at 1e-2 of the scale, and it must differ from the
      float32 kernel path by more than 10x the float32 paths' own difference
      (the mode is live);
-     then two PPI paper_faithful fits, two hybrid Pubmed fits and two
-     Pubmed bf16 fits of a few epochs, each pair from one seed, must give
+     then two PPI paper_faithful fits, two hybrid Pubmed fits, two
+     Pubmed bf16 fits and two Cora attention fits of a few epochs, each
+     pair from one seed, must give
      the same bits in every epoch's losses and in every parameter, and
      so must a Cora fit on the graph with its CSR offsets and one on the
      graph without them (and the trained model's logits and gradients);
@@ -175,7 +187,9 @@ Phases (every failure is fatal):
      call (rows 3 and 4 also without the graph's offsets and as the bare
      kernel launch, time_dh_rows); time the
      train step on each path (a 2-phase fit's beside the single-sweep
-     step of the same model and graph; Cora, Pubmed and the PPI fits
+     step of the same model and graph, a regularised fit's beside the
+     same step without the regulariser, the naive fit's beside the v5
+     kernel path's; Cora, Pubmed and the PPI fits
      also on the graph without its offsets) and profile a short window of
      steps; time
      the table op against the v5 op on one PATTERN batch, and the hybrid
@@ -186,6 +200,7 @@ It exits non-zero without printing a result when there is no GPU or when
 the port's package is not beside it.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -237,6 +252,18 @@ CELLS = {
     "Cora two-phase bf16 kernels": ("Cora", {}, 10, "v5 2-phase bf16", 2),
     "Pubmed cluster bf16 kernels": ("Pubmed", {"reorder": "cluster"}, 5,
                                     "v7_hybrid bf16 kernels", 2),
+    # the attention regulariser (cli: --attention_reward,
+    # --attention_penalty) on three kernel paths, and the naive oracle
+    # layer (--layer_type naive), which launches no kernel
+    "Cora attention": ("Cora", {"attention_reward": 0.1}, 20,
+                       "v5 attention", 2),
+    "Pubmed attention": ("Pubmed", {"reorder": "rcm",
+                                    "attention_reward": 0.1}, 10,
+                         "v7 attention", 2),
+    "PPI paper_faithful attention": ("PPI", {"paper_faithful": True,
+                                             "attention_penalty": 0.05}, 5,
+                                     "v4_table attention", 3),
+    "Cora naive": ("Cora", {"layer_type": "naive"}, 10, "naive", 2),
 }
 # the environment each fit runs under, set and restored around it; the
 # float32 fits of the windowed op pin its contraction dtype (the JAX
@@ -247,7 +274,7 @@ KERNELS_BF16 = {"GAT_TPU_KERNEL_DTYPE": "bfloat16",
                 "GAT_TPU_H_DTYPE": "bfloat16", "GAT_TPU_DH_REDUCE_NT": "0",
                 **GEMM_BF16}
 TWO_PHASE = {"GAT_TPU_V10": "0"}
-CELL_ENV = {"Pubmed": F32, "Pubmed cluster": F32,
+CELL_ENV = {"Pubmed": F32, "Pubmed cluster": F32, "Pubmed attention": F32,
             "Cora two-phase": TWO_PHASE,
             "Cora unmerged": {"GAT_TPU_V5_MERGED": "0"},
             "Pubmed two-phase": {**TWO_PHASE, **F32},
@@ -330,9 +357,27 @@ PATH_KERNELS = {
                                 "v5_forward_bf16"),
                                {"window_backward_parts_bf16": 1,
                                 "v5_backward_parts_bf16": 1}),
+    # the regulariser's alpha, in train steps only (a validation forward
+    # asks for no attention): a v5 or windowed layer adds four sorted sums,
+    # alpha's denominator and the backwards of its three sorted-gradient
+    # gathers (the two score gathers and the denominator's); a table or
+    # sharded layer two, the denominator's sum and gather, since alpha
+    # shares the layer's logits and their score gathers
+    "v5 attention": (("source_scores", "v5_forward"),
+                     {"v5_backward": 1, "segment_sum_sorted": 4}),
+    "v7 attention": (("source_scores", "window_forward"),
+                     {"window_backward": 1, "segment_sum_sorted": 4}),
+    "v4_table attention": (("table_forward",),
+                           {"table_dden": 1, "table_backward": 1,
+                            "segment_sum_sorted": 2 + 2}),
+    "sharded_v4_partial attention": (("v2_forward",),
+                                     {"v2_backward": 1,
+                                      "segment_sum_sorted": 3 + 2}),
+    # the oracle layer: plain torch, no kernel of this repository
+    "naive": ((), {}),
 }
 REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5,
-                "Pubmed bf16": 5}
+                "Pubmed bf16": 5, "Cora attention": 5}
 # the sharded fits of phase 4c, under a one-rank NCCL process group
 # (Trainer.fit_sharded, the cut-neighbourhood layout; the card is one,
 # so the edge axis has one shard and every collective is a real NCCL
@@ -344,6 +389,9 @@ SHARDED_CELLS = {
                                    "sharded_v4_partial", 3),
     "Cora sharded bf16 kernels": ("Cora", {}, 10,
                                   "sharded_v4_partial bf16", 2),
+    "PPI paper_faithful sharded attention": (
+        "PPI", {"paper_faithful": True, "attention_penalty": 0.05}, 3,
+        "sharded_v4_partial attention", 3),
 }
 SHARDED_REPRO = ("Cora sharded", 5)
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
@@ -577,7 +625,7 @@ def time_ms(torch, fn, calls=20, replays=10):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def step_time_ms(torch, fn, iters=100, warmup=10):
+def step_time_ms(torch, fn, iters=50, warmup=5):
     """Mean milliseconds per eager call, host launch overhead included
     (CUDA events around back-to-back calls)."""
     for _ in range(warmup):
@@ -619,7 +667,7 @@ def epilogue(torch, num, den, cap, f, eps):
     return num / (den.repeat_interleave(f, dim=1) + epsp), epsp
 
 
-def profile_steps(torch, step, step_ms, label, steps=20, top=12):
+def profile_steps(torch, step, step_ms, label, steps=10, top=12):
     """Profile `steps` train steps; print the device's busy time per step,
     its idle share of `step_ms`, and the top kernels and host operations."""
     from torch.autograd import DeviceType
@@ -2213,11 +2261,15 @@ def main():
                          **overrides)
         plateau = (O.ReduceLROnPlateau(factor=0.5, patience=5, min_lr=1e-6)
                    if dataset == "PATTERN" else None)
-        trainer = Trainer(cfg=cfg.gat_config(), task=make_task(dataset),
+        task = make_task(dataset, attention_reward=cfg.attention_reward,
+                         attention_penalty=cfg.attention_penalty)
+        trainer = Trainer(cfg=cfg.gat_config(), task=task,
                           learning_rate=cfg.learning_rate,
                           weight_decay=cfg.l2_reg, max_epochs=cfg.num_epochs,
                           patience=cfg.patience, plateau=plateau, seed=0,
-                          device="cuda")
+                          device="cuda",
+                          backend=("naive" if cfg.layer_type == "naive"
+                                   else cfg.backend))
         return (cfg, trainer) + cell_data(dataset, cfg)
 
     fits, launches, per_epoch = {}, {k: 0 for k in REPLACES}, {}
@@ -2294,10 +2346,13 @@ def main():
     elapsed("4")
     # -- 4. kernel paths against the plain segment path on the card --------
     def logits_and_grads(trainer, params, graph):
+        """The logits and the gradients of the training loss as the step
+        takes it (the regulariser's norm included where the task has
+        one), without dropout."""
         for p in gat.parameters(params):
             p.grad = None
-        logits = trainer.apply(params, graph)
-        trainer.task.loss(logits, graph, "train").backward()
+        loss, logits, _ = trainer.train_loss(params, graph, training=False)
+        loss.backward()
         torch.cuda.synchronize()
         return (logits.detach(),
                 [p.grad.clone() for p in gat.parameters(params)])
@@ -2321,6 +2376,50 @@ def main():
                 fail(f"{name}: {what} differs from the {label} path: {err} "
                      f"> {tol} x {scale}")
         return rel[0]
+
+    def attention_of(trainer, params, graph, backend):
+        """The model's alpha of each layer and its attention norm on
+        `backend`, without dropout."""
+        with torch.no_grad():
+            _, att = gat.gat_model_apply(params, trainer.cfg, graph,
+                                         device=dev, backend=backend,
+                                         return_attention=True)
+            norm = gat.calc_attention_norm(graph, att)
+        torch.cuda.synchronize()
+        return att, norm
+
+    def hold_attention(name, trainer, params, graph, env):
+        """A regularised model's alpha of each layer, (E, heads) over the
+        graph's edges and 0 on its padding edges, within REL_TOL (alpha
+        lies in [0, 1]) and its attention norm within REL_TOL of its own
+        magnitude, on the kernel path against the segment path and the
+        naive layer."""
+        with knobs(env):
+            att_k, norm_k = attention_of(trainer, params, graph, "kernel")
+        pad = ~graph.edge_mask
+        for i, (alpha, heads) in enumerate(zip(
+                att_k, trainer.cfg.num_heads_per_layer)):
+            if alpha.shape != (graph.num_edges, heads) or \
+                    not torch.isfinite(alpha).all() or \
+                    bool(alpha[pad].any()):
+                fail(f"{name}: layer {i}'s alpha of shape "
+                     f"{tuple(alpha.shape)}, not finite or not 0 on the "
+                     f"padding edges")
+        for backend in ("segment", "naive"):
+            att_o, norm_o = attention_of(trainer, params, graph, backend)
+            errs_a = [max_err(x, y)[0] for x, y in zip(att_k, att_o)]
+            err_n = abs(float(norm_k) - float(norm_o))
+            print(f"[model] {name}: kernel path vs {backend} path, alpha "
+                  f"per layer max_abs_err {[f'{e:.3e}' for e in errs_a]}, "
+                  f"attention norm {float(norm_k):.6e} vs "
+                  f"{float(norm_o):.6e}")
+            if not max(errs_a) <= REL_TOL:
+                fail(f"{name}: alpha differs from the {backend} path's: "
+                     f"{errs_a}")
+            if not err_n <= REL_TOL * abs(float(norm_o)):
+                fail(f"{name}: the attention norm differs from the "
+                     f"{backend} path's: {float(norm_k)} vs "
+                     f"{float(norm_o)}")
 
     def float32_env(env):
         """The same cell's knobs with its bfloat16 ones dropped and the
@@ -2384,9 +2483,11 @@ def main():
             gat.PATH_TRACE.clear()
             with knobs(other_env):
                 lo, go = logits_and_grads(other, params, other_graph)
-            print(f"[model] {name}: kernel path vs {label} path "
-                  f"{gat.PATH_TRACE} on the card")
+            print(f"[model] {name}: {trainer.backend} path vs {label} "
+                  f"path {gat.PATH_TRACE} on the card")
             hold_model(name, label, lk, gk, lo, go, REL_TOL)
+        if trainer.task.attention_coef != 0.0:
+            hold_attention(name, trainer, params, graph, env)
 
     elapsed("4b")
     # -- 4b. run-to-run reproducibility ------------------------------------
@@ -2403,9 +2504,9 @@ def main():
         for _ in range(2):
             for q in gat.parameters(params):
                 q.grad = None
-            logits = trainer.apply(params, graph, training=True,
-                                   generator=trainer.dropout_generator())
-            trainer.task.loss(logits, graph, "train").backward()
+            loss, logits, _ = trainer.train_loss(
+                params, graph, generator=trainer.dropout_generator())
+            loss.backward()
             torch.cuda.synchronize()
             runs.append([logits.detach()] + [q.grad.clone() for q in
                                              gat.parameters(params)])
@@ -2478,13 +2579,20 @@ def main():
 
     def sharded_logits_and_grads(trainer, params, shard, mesh, backend):
         """The sharded model's logits and gradients of its train loss (the
-        sharded step's, without the update)."""
+        sharded step's, the regulariser included, without the update)."""
         for q in gat.parameters(params):
             q.grad = None
-        logits = gat.gat_model_apply(params, trainer.cfg, shard,
-                                     device=dev, backend=backend,
-                                     edge_axis=mesh.edge)
-        trainer.task.loss(logits, shard, "train").backward()
+        coef = trainer.task.attention_coef
+        out = gat.gat_model_apply(params, trainer.cfg, shard,
+                                  device=dev, backend=backend,
+                                  edge_axis=mesh.edge,
+                                  return_attention=coef != 0.0)
+        logits = out[0] if coef != 0.0 else out
+        loss = trainer.task.loss(logits, shard, "train")
+        if coef != 0.0:
+            loss = loss + coef * gat.calc_attention_norm(
+                shard, out[1], edge_axis=mesh.edge)
+        loss.backward()
         C.psum_grads(gat.parameters(params), mesh.data)
         torch.cuda.synchronize()
         return (logits.detach(),
@@ -3322,7 +3430,7 @@ def main():
         opt = torch.optim.Adam(gat.parameters(params), lr=0.0)
         dgen = trainer.dropout_generator()
         env = CELL_ENV.get(name, {})
-        routes = [("kernel path", trainer, graph, env),
+        routes = [(f"{trainer.backend} path", trainer, graph, env),
                   ("segment path", refs[name], graph, {})]
         if "bf16" in name:
             # the same model and graph in float32
@@ -3342,6 +3450,18 @@ def main():
             # the same model on the RCM-ordered graph takes the windowed op
             routes.insert(1, ("v7 kernel path on the RCM-ordered graph",
                               trainer, pubmed, env))
+        if trainer.task.attention_coef != 0.0:
+            # the same model and graph without the regulariser: what it
+            # costs a step
+            routes.insert(1, ("kernel path without the regulariser",
+                              dataclasses.replace(trainer, task=(
+                                  dataclasses.replace(trainer.task,
+                                                      attention_coef=0.0))),
+                              graph, env))
+        if trainer.backend == "naive":
+            # the same model on the kernel path
+            routes.insert(1, ("v5 kernel path", dataclasses.replace(
+                trainer, backend="kernel"), graph, env))
         if name == "PATTERN":
             # without src_order the same model takes the table op (and
             # sorts the senders itself in every backward)

@@ -7,9 +7,19 @@ Usage:
     python -m gat_pytorch_tpu_torch.cli.train --dataset Pubmed --reorder cluster
     python -m gat_pytorch_tpu_torch.cli.train --dataset PPI --paper_faithful
     python -m gat_pytorch_tpu_torch.cli.train --dataset PATTERN
+    python -m gat_pytorch_tpu_torch.cli.train --dataset Cora \
+        --attention_reward 0.1
+    python -m gat_pytorch_tpu_torch.cli.train --dataset PPI \
+        --attention_penalty 0.05
+    python -m gat_pytorch_tpu_torch.cli.train --dataset Cora \
+        --layer_type naive
 
 It keeps the JAX CLI's flags; `--device` (default cuda) takes the place
-of `--platform`, and `--backend` picks the layer path (kernel | segment).
+of `--platform`, and `--backend` picks the layer path (kernel | segment);
+`--layer_type naive` takes the third, the oracle layer of
+models/naive.py (Trainer(backend="naive")). `--attention_reward`
+(Planetoid) and `--attention_penalty` (PPI) add the attention
+regulariser to the loss.
 `--reorder rcm` relabels the nodes by reverse Cuthill-McKee and builds the
 block layout, which puts the kernel path on the windowed attention op;
 `--reorder cluster` relabels them by community and builds the hybrid
@@ -36,7 +46,6 @@ _NOT_PORTED = {
     "metrics_file": "metrics logging",
     "tensorboard_dir": "metrics logging",
     "track_grads": "metrics logging",
-    "layer_type": "the naive layer (models/naive.py)",
     "sampling_fanouts": "neighbour sampling (data/sampling.py)",
     "sampling_batch_size": "neighbour sampling (data/sampling.py)",
 }
@@ -131,7 +140,9 @@ def run(config) -> dict:
                       max_epochs=config.num_epochs,
                       patience=config.patience, plateau=plateau,
                       seed=config.seed, log_every=config.log_every,
-                      device=config.device, backend=config.backend)
+                      device=config.device,
+                      backend=("naive" if config.layer_type == "naive"
+                               else config.backend))
     result = trainer.fit_epochs(train_data, val_data, reshuffle=reshuffle)
     metrics = trainer.evaluate(result.params, test_data)
     metrics["best_val_loss"] = result.best_val_loss
@@ -145,7 +156,7 @@ def run(config) -> dict:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) not in (None, "custom"):
+        if getattr(args, flag) is not None:
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP: {item})")
     from ..data import datasets

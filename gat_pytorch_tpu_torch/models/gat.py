@@ -12,7 +12,7 @@ Reference quirks kept (paper_faithful=False, the default): cross-head
 `a`, a global max-cap on the raw logits BEFORE LeakyReLU, slope 0.01 with
 torch's gradient convention at 0, and +1e-8 in the softmax denominator.
 
-Two layer paths, chosen by `backend`:
+Three layer paths, chosen by `backend`:
   "kernel"  a whole-attention op: the CUDA kernels on a CUDA graph, their
             plain versions on a CPU graph. paper_faithful,
             const_attention and a graph without `src_order` take the
@@ -45,6 +45,23 @@ Two layer paths, chosen by `backend`:
   "segment" plain torch segment ops (ops/segment.py), the counterpart of
             the JAX "xla" path and the reference the kernel path is held
             against.
+  "naive"   the oracle layer of models/naive.py (the JAX package's
+            backend "naive", which --layer_type naive selects): a second
+            transcription of the layer that shares none of this module's
+            code; single device only.
+
+return_attention: every path also returns the layer's attention
+coefficients alpha, (E, NH) over the graph's dst-sorted edges (never over
+a layout's slots), taken before dropout, 0 on padding edges, as the JAX
+package does. The segment and naive paths return the alpha they
+aggregate with; the kernel path computes it beside the op's output
+(`_alpha_replica` on the v5, v7, hybrid and v6 branches, from the score
+tables; on the table branches the softmax of the logits the branch
+holds), through ops/segment.segment_softmax_sorted, so that its sums and
+those of its backward are the sorted segment sum (no atomics) and the
+step stays reproducible. Alpha's cotangent reaches the parameters through
+h and `a` beside the op's own; the kernels are not changed.
+calc_attention_norm is the attention regulariser of the JAX package.
 
 Under `edge_axis` (a mesh Axis, ops/collectives.py: the edge arrays are
 one contiguous shard of the dst-sorted edge list, the node arrays
@@ -86,10 +103,12 @@ from ..ops.cuda import segment_attention as v2
 from ..ops.cuda import table_attention as v4
 from ..ops.cuda import v5_attention as v5
 from ..ops.cuda import window_attention as v7
+from ..ops.cuda.build import csr_offsets as build_offsets
 from ..utils.device import check_device, resolve_device
+from .naive import gat_layer_naive
 
 Params = Dict[str, list]
-BACKENDS = ("kernel", "segment")
+BACKENDS = ("kernel", "segment", "naive")
 
 # Which layer path each gat_layer_apply call took, one entry per call
 # (tests clear and read it, as the JAX package's PATH_TRACE).
@@ -290,6 +309,33 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
     return F.leaky_relu(logits, cfg.slope)
 
 
+def _alpha_replica(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
+                   senders: torch.Tensor, receivers: torch.Tensor,
+                   edge_mask: torch.Tensor, num_nodes: int,
+                   src_order: Optional[torch.Tensor],
+                   src_ptr: Optional[torch.Tensor],
+                   dst_ptr: Optional[torch.Tensor],
+                   num_real_edges: Optional[int]) -> torch.Tensor:
+    """Alpha as a value beside a v5, v7, hybrid or v6 op's output (JAX
+    models/gat.py _alpha_replica): the edge logits of _edge_logits (the
+    source scores from a plain, differentiable h @ a_src; the global cap
+    before LeakyReLU, torch's gradient at 0), then the sorted softmax at
+    eps 1e-8 without a per-segment max. Its cotangent into h and `a` adds
+    to the op's own (a shared input), which the op's kernels never see.
+    The score gathers take the sorted-gradient form at every edge count
+    (the JAX package does from 200,000 edges): a graph without src_order
+    is sorted by sender here."""
+    if src_order is None:
+        src_order, src_ptr = (torch.argsort(senders, stable=True)
+                              .to(torch.int32), None)
+    logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask,
+                          src_order, src_ptr=src_ptr, dst_ptr=dst_ptr,
+                          num_real_edges=num_real_edges)
+    return seg.segment_softmax_sorted(logits, receivers, num_nodes,
+                                      edge_mask=edge_mask, ptr=dst_ptr,
+                                      num_real=num_real_edges, eps=1e-8)
+
+
 def _global_cap(local: torch.Tensor, ax) -> torch.Tensor:
     """The max of the shards' local maxima over `ax`, differentiable, by
     the owner trick: forward, only the owner shard (the lowest index
@@ -332,11 +378,13 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                     backend: str = "kernel",
                     gemm_dtype: Optional[torch.dtype] = None,
                     edge_axis=None,
-                    dst_owned: bool = False
-                    ) -> torch.Tensor:
+                    dst_owned: bool = False,
+                    return_attention: bool = False):
     """One GAT layer on a canonicalised graph (self-loops, dst-sorted,
-    padded to a sink node, real edges first). num_real_edges defaults to
-    edge_mask.sum() (one host sync); Graph.num_real_edges avoids it.
+    padded to a sink node, real edges first): its (N, out) output, or
+    (output, alpha) where return_attention (the module doc).
+    num_real_edges defaults to edge_mask.sum() (one host sync) where the
+    op needs it; Graph.num_real_edges avoids it.
     edge_axis: the mesh Axis the edge arrays are sharded over (the module
     doc); the layer then reads src_order as the shard's own stable sender
     order with its padding edges last (parallel/sharding.edge_shard; None:
@@ -350,9 +398,19 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     layout has a remainder; the table op and the segment path ignore it.
     tile_lo and src_band (Graph.tile_lo, Graph.src_band) size the v6
     form's window arguments, as the JAX package derives them. gemm_dtype:
-    the operands' dtype of x @ W (None reads GAT_TPU_GEMM_DTYPE now)."""
+    the operands' dtype of x @ W (None reads GAT_TPU_GEMM_DTYPE now).
+    backend "naive" takes none of these but the generator."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
+    if backend == "naive":
+        if edge_axis is not None:
+            raise ValueError("backend 'naive' is the single-device oracle "
+                             "layer: no edge sharding")
+        PATH_TRACE.append("naive")
+        return gat_layer_naive(params, cfg, x, senders, receivers,
+                               edge_mask, num_nodes, generator=generator,
+                               training=training,
+                               return_attention=return_attention)
     if dst_owned:
         raise NotImplementedError(
             "the dst-owned layout (partition.py) is not ported (ROADMAP: "
@@ -368,6 +426,10 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         ax, num_nodes)
     dropping = training and cfg.dropout > 0.0
     given_logits = cfg.paper_faithful or cfg.const_attention
+
+    def finish(out, alpha=None):
+        out = _head_combine(out, cfg, num_nodes, params)
+        return (out, alpha) if return_attention else out
 
     # the v5, v7 and hybrid branches need edge_axis None (or the dst-owned
     # layout) in the JAX package
@@ -462,7 +524,11 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                 h_flat, a_src, s_dst, drop, senders, receivers, src_order,
                 e_real, None, num_nodes, nh, f, 1e-8, cfg.slope,
                 two_phase=v5_two, src_ptr=src_ptr, dst_ptr=dst_ptr)
-        return _head_combine(out, cfg, num_nodes, params)
+        # alpha over the graph's own edges, whatever the op's edge list
+        return finish(out, _alpha_replica(
+            params, cfg, h_flat, senders, receivers, edge_mask, num_nodes,
+            src_order, src_ptr, dst_ptr, num_real_edges)
+            if return_attention else None)
 
     kernel = backend == "kernel"
     if kernel and src_order is None:
@@ -477,6 +543,17 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                           src_order if kernel else None, ax, src_ptr=src_ptr,
                           dst_ptr=dst_ptr, num_real_edges=num_real_edges)
     eps = 0.0 if cfg.paper_faithful else 1e-8
+
+    def table_alpha(num_real):
+        """The sorted softmax of the branch's logits before their padding
+        (JAX models/gat.py:1182-1198), completed over the edge axis."""
+        if not return_attention:
+            return None
+        return seg.segment_softmax_sorted(
+            raw_logits, receivers, num_nodes, edge_mask=edge_mask,
+            ptr=dst_ptr, num_real=num_real, eps=eps,
+            subtract_segment_max=cfg.paper_faithful, edge_axis=ax)
+
     drop = (_attention_dropout((e, nh), cfg.dropout, generator, x.device)
             if dropping else None)
 
@@ -484,6 +561,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         # the table op (paper_faithful, const_attention, and graphs
         # without src_order; the op then derives the order itself), or on
         # an edge shard the partial v2 op
+        raw_logits = logits
         pad = torch.full_like(logits, v4.NEG_INF)
         logits = torch.where(edge_mask[:, None], logits, pad)
         if cfg.paper_faithful:
@@ -503,7 +581,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                 logits, h_flat, senders, receivers, drop, src_order,
                 num_nodes, nh, f, eps, num_real_edges, src_ptr=src_ptr,
                 dst_ptr=dst_ptr)
-            return _head_combine(out, cfg, num_nodes, params)
+            return finish(out, table_alpha(num_real_edges))
         PATH_TRACE.append("sharded_v4_partial")
         # only the real edges' rows: the op reads no other, and the
         # sorted sum of their gradient then has no padding rows (all the
@@ -519,12 +597,13 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         num, den = C.psum(num, ax), C.psum(den, ax)
         inv = torch.where(den > 0, 1.0 / (den + eps), torch.zeros_like(den))
         out = num.reshape(num_nodes, nh, f) * inv[:, :, None]
-        return _head_combine(out, cfg, num_nodes, params)
+        return finish(out, table_alpha(er))
 
     PATH_TRACE.append("segment" if ax is None else "sharded_segment")
     alpha = seg.segment_softmax(
         logits, receivers, num_nodes, edge_mask=edge_mask, eps=eps,
         subtract_segment_max=cfg.paper_faithful, edge_axis=ax)
+    alpha_pre = alpha
     if drop is not None:
         alpha = alpha * drop
     h_rep = h_flat if ax is None else C.vary(h_flat, ax)
@@ -533,7 +612,7 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
         * alpha[:, :, None], receivers, num_nodes)
     if ax is not None:
         out = C.psum(out, ax)
-    return _head_combine(out, cfg, num_nodes, params)
+    return finish(out, alpha_pre)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -653,8 +732,10 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
                     edge_axis=None,
                     edge_generator: Optional[torch.Generator] = None,
                     dst_owned: bool = False,
-                    return_attention: bool = False) -> torch.Tensor:
-    """The stack: [input dropout -> layer -> skip -> ELU between] x L.
+                    return_attention: bool = False):
+    """The stack: [input dropout -> layer -> skip -> ELU between] x L; the
+    logits, or (logits, [alpha of each layer]) where return_attention
+    (gat_layer_apply).
     `graph` and `params` must lie on `device`; the CUDA default raises
     where there is no GPU. Only checked here: the caller resolves the
     device once (resolve_device, which also turns TF32 off), as
@@ -666,13 +747,8 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
     `generator`, which must be in the same state on every shard (x is
     replicated), and the attention dropout masks from `edge_generator`,
     the shard's own stream (the JAX package folds the shard index into
-    the key). dst_owned and return_attention are not ported (ROADMAP:
-    what is left of parallel/; return_attention and the attention
-    regulariser) and raise."""
-    if return_attention:
-        raise NotImplementedError(
-            "return_attention is not ported (ROADMAP: return_attention and "
-            "the attention regulariser)")
+    the key); each layer's alpha is then the shard's edges'. dst_owned
+    (ROADMAP: what is left of parallel/) is not ported and raises."""
     check_device(graph.device, device)
     dev = graph.device
     if training and cfg.dropout > 0.0 and (
@@ -685,6 +761,7 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
     skip_dims = cfg.skip_dims()
     gdt = _gemm_dtype()
     x = graph.x.to(gdt)     # cast once: layer 0's dropout runs in gdt
+    attention: List[torch.Tensor] = []
     skip_count = 0
     for i, lc in enumerate(cfg.layer_configs()):
         layer_input = x
@@ -701,7 +778,11 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
             src_band=graph.src_band,
             generator=generator if edge_axis is None else edge_generator,
             training=training, backend=backend, gemm_dtype=gdt,
-            edge_axis=edge_axis, dst_owned=dst_owned)
+            edge_axis=edge_axis, dst_owned=dst_owned,
+            return_attention=return_attention)
+        if return_attention:
+            x, alpha = x
+            attention.append(alpha)
         if skip_dims[i] is not None:
             skip_p = params["skips"][skip_count]
             skip_count += 1
@@ -716,4 +797,40 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
                     cfg.head_output_features_per_layer[i + 1]).mean(dim=1)
         if i != cfg.num_layers - 1:
             x = F.elu(x)
-    return x
+    return (x, attention) if return_attention else x
+
+
+def calc_attention_norm(graph: Graph, attention: Sequence[torch.Tensor], *,
+                        edge_axis=None) -> torch.Tensor:
+    """The attention regulariser (JAX models/gat.py calc_attention_norm,
+    the reference's GATModel.py:189-234): the mean over layers of
+    sum(|alpha * deg - 1| over the real edges) / E_real, deg the real
+    in-degree of each edge's destination. edge_axis: `graph` is an edge
+    shard over that axis; the degrees, E_real and the sums are completed
+    by psum, so the result is the unsharded graph's, equal on every
+    rank.
+
+    The degrees are differences of the destinations' CSR offsets
+    (Graph.dst_ptr, or computed from the sorted receivers) clipped to the
+    real edges, which come first: exact counts, no scatter and no
+    atomics. E_real is at least 1."""
+    ptr = graph.dst_ptr
+    if ptr is None:
+        ptr = build_offsets(graph.receivers, graph.num_nodes)
+    real = graph.edge_mask.sum()
+    degrees = torch.diff(torch.minimum(ptr.long(), real)).float()
+    e_real = real.float()
+    if edge_axis is not None:
+        degrees = C.psum(degrees, edge_axis)
+        e_real = C.psum(e_real, edge_axis)
+    e_real = e_real.clamp(min=1.0)
+    deg_per_edge = seg.gather_rows(degrees, graph.receivers)[:, None]
+    mask = graph.edge_mask[:, None]
+    total = 0.0
+    for alpha in attention:
+        dev = torch.where(mask, (alpha * deg_per_edge - 1.0).abs(), 0.0)
+        s = dev.sum()
+        if edge_axis is not None:
+            s = C.psum(s, edge_axis)
+        total = total + s / e_real
+    return total / float(len(attention))

@@ -3,11 +3,14 @@
 Counterpart of gat_pytorch_tpu/ops/segment.py. These are the reference
 ops of the port and the `backend="segment"` layer path (the mirror of the
 JAX package's `backend="xla"` path); they run on any device and launch no
-kernel of this repository, with one exception: `gather_rows_sorted_grad`,
-whose backward is the sorted segment sum of ops/cuda/segment_sum.py (the
-kernel on CUDA tensors). The kernel path's logits prelude uses it so that
-a training step gives the same bits on every run; `gather_rows`, whose
-backward scatter-adds with atomics on the card, stays the segment path's.
+kernel of this repository, with three exceptions built on the sorted
+segment sum of ops/cuda/segment_sum.py (the kernel on CUDA tensors):
+`gather_rows_sorted_grad` (its backward), `segment_sum_sorted_grad` (its
+forward) and `segment_softmax_sorted` (both). The kernel path's logits
+prelude and its attention coefficients use them so that a training step
+gives the same bits on every run; `gather_rows` and `segment_sum`, whose
+backward and forward scatter-add with atomics on the card, stay the
+segment path's.
 
 Segment ids >= num_segments (padding) are dropped, as XLA drops
 out-of-bounds scatter updates: they are routed to one spill row that is
@@ -124,6 +127,92 @@ def real_first_order(senders: torch.Tensor, edge_mask: torch.Tensor,
     key = torch.where(edge_mask, senders, torch.full_like(senders,
                                                           num_nodes))
     return torch.argsort(key, stable=True).to(torch.int32)
+
+
+class _SegmentSumSorted(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, values, ids, ptr, num_real, num_segments):
+        from .cuda.segment_sum import segment_sum_sorted
+        ctx.save_for_backward(ids)
+        ctx.num_segments, ctx.num_real = num_segments, num_real
+        rows = values.reshape(values.shape[0], -1).contiguous()
+        if rows.shape[0] == 0:    # e.g. an edge shard without real edges
+            out = rows.new_zeros((num_segments, rows.shape[1]))
+        else:
+            out = segment_sum_sorted(rows, None if ptr is not None else ids,
+                                     num_segments, ptr=ptr,
+                                     row_limit=num_real)
+        return out.reshape((num_segments,) + tuple(values.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        # each position reads its segment's cotangent; a position outside
+        # the segments (a dropped id, or from num_real on) gets zero
+        (ids,) = ctx.saved_tensors
+        n = ctx.num_segments
+        keep = (ids >= 0) & (ids < n)
+        if ctx.num_real is not None:
+            keep &= torch.arange(ids.shape[0], device=ids.device) \
+                < ctx.num_real
+        rows = g.index_select(0, ids.long().clamp(0, max(n - 1, 0)))
+        keep = keep.view((-1,) + (1,) * (g.dim() - 1))
+        return torch.where(keep, rows, 0.0), None, None, None, None
+
+
+def segment_sum_sorted_grad(values: torch.Tensor, segment_ids: torch.Tensor,
+                            num_segments: int, *,
+                            ptr: Optional[torch.Tensor] = None,
+                            num_real: Optional[int] = None
+                            ) -> torch.Tensor:
+    """segment_sum over rows whose ids ascend, differentiable, summed by
+    the sorted segment sum (ops/cuda/segment_sum.segment_sum_sorted, one
+    kernel launch on CUDA tensors) in a fixed order instead of index_add's
+    atomics; the backward gathers each row's segment cotangent.
+
+    values: (E, ...) float32; segment_ids: (E,) int32, ascending (the
+    receivers); ids outside [0, num_segments) are dropped. ptr: their
+    (num_segments + 1,) int32 CSR offsets (Graph.dst_ptr), where the
+    caller holds them: the kernel then reads no ids. num_real: the
+    caller's promise that the rows from num_real on are zero (the padding
+    edges'); they are not read. The result is the same function with or
+    without either."""
+    return _SegmentSumSorted.apply(values, segment_ids, ptr, num_real,
+                                   num_segments)
+
+
+def segment_softmax_sorted(logits: torch.Tensor,
+                           segment_ids: torch.Tensor,
+                           num_segments: int,
+                           *,
+                           edge_mask: torch.Tensor,
+                           ptr: Optional[torch.Tensor] = None,
+                           num_real: Optional[int] = None,
+                           eps: float = 1e-8,
+                           subtract_segment_max: bool = False,
+                           edge_axis=None) -> torch.Tensor:
+    """segment_softmax's function over dst-sorted edges, for the kernel
+    path: the denominator is segment_sum_sorted_grad of the masked
+    numerator and goes back to the edges through gather_rows_sorted_grad,
+    so that every sum of the forward and of the backward is the sorted
+    segment sum, in a fixed order. The per-segment max (detached) and the
+    edge axis's psum and vary are segment_softmax's. ptr and num_real (the
+    CSR offsets of the ids and the real edge count, the padding edges
+    last) go to both sums."""
+    if subtract_segment_max:
+        seg_max = segment_max(logits, segment_ids, num_segments,
+                              edge_axis=edge_axis).detach()
+        seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                              torch.zeros_like(seg_max))
+        logits = logits - gather_rows(seg_max, segment_ids)
+    ex = torch.where(edge_mask[:, None], torch.exp(logits), 0.0)
+    denom = segment_sum_sorted_grad(ex, segment_ids, num_segments, ptr=ptr,
+                                    num_real=num_real)
+    if edge_axis is not None:
+        denom = C.vary(C.psum(denom, edge_axis), edge_axis)
+    out = ex / (gather_rows_sorted_grad(denom, segment_ids, num_segments,
+                                        ptr=ptr, num_real=num_real) + eps)
+    return torch.where(edge_mask[:, None], out, 0.0)
 
 
 def segment_softmax(logits: torch.Tensor,

@@ -10,7 +10,9 @@ layout). One step on every rank:
     (models/gat.py `edge_axis`), so every rank of an edge group holds the
     same replicated logits;
   * the loss is the sum of the per-graph losses over the global batch
-    size; its cotangent is replicated, and the collectives' backwards
+    size, each with coef * calc_attention_norm (over the edge axis) where
+    the task's attention coefficient is not 0; its cotangent is
+    replicated, and the collectives' backwards
     (ops/collectives.py) leave every parameter's gradient complete
     over the edge axis;
   * nothing crosses the data axis inside the loss, so the gradients are
@@ -20,9 +22,8 @@ layout). One step on every rank:
     gradient bits and takes the same Adam step.
 
 There is no jit and no scan: each step runs eagerly, as Trainer.train_step
-does. The attention regulariser (task.attention_coef != 0, ROADMAP:
-return_attention and the attention regulariser) and the dst-owned layout
-(ROADMAP: what is left of parallel/) are not ported and raise.
+does. The dst-owned layout (ROADMAP: what is left of parallel/) is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -61,11 +62,7 @@ class DropoutGenerators:
         return cls(node=node, edge=edge)
 
 
-def _refuse(task: Task, dst_owned: bool) -> None:
-    if task.attention_coef != 0.0:
-        raise NotImplementedError(
-            "the attention regulariser needs return_attention (ROADMAP: "
-            "return_attention and the attention regulariser, not ported)")
+def _refuse(dst_owned: bool) -> None:
     if dst_owned:
         raise NotImplementedError(
             "the dst-owned layout (partition.py) is not ported (ROADMAP: "
@@ -86,9 +83,12 @@ def make_sharded_train_step(cfg: gat.GATConfig, task: Task, mesh: Mesh, *,
     len(batch) x the data axis's size. The loss and the metrics (the
     task's "train" metrics but its loss, each a mean over the global
     batch) are detached scalar tensors, equal on every rank; `opt` (over
-    gat.parameters(params)) has taken its step."""
-    _refuse(task, dst_owned)
+    gat.parameters(params)) has taken its step. With the regulariser the
+    metrics carry `attention_norm`, the per-graph norm's mean over the
+    global batch."""
+    _refuse(dst_owned)
     edge_axis = mesh.edge
+    coef = task.attention_coef
 
     def train_step(params: gat.Params, opt: torch.optim.Optimizer,
                    batch: Sequence[Graph], gens: DropoutGenerators):
@@ -96,11 +96,18 @@ def make_sharded_train_step(cfg: gat.GATConfig, task: Task, mesh: Mesh, *,
         loss = 0.0
         mets: Dict[str, torch.Tensor] = {}
         for g in batch:
-            logits = _squeeze(gat.gat_model_apply(
+            out = gat.gat_model_apply(
                 params, cfg, g, device=g.device, generator=gens.node,
                 edge_generator=gens.edge, training=True, backend=backend,
-                edge_axis=edge_axis), task)
+                edge_axis=edge_axis, return_attention=coef != 0.0)
+            logits = _squeeze(out[0] if coef != 0.0 else out, task)
             loss = loss + task.loss(logits, g, "train")
+            if coef != 0.0:
+                norm = gat.calc_attention_norm(g, out[1],
+                                               edge_axis=edge_axis)
+                loss = loss + coef * norm
+                mets["attention_norm"] = (mets.get("attention_norm", 0.0)
+                                          + norm.detach())
             with torch.no_grad():
                 for k, v in task.metrics(logits, g, "train").items():
                     if k != "loss":
@@ -121,8 +128,9 @@ def make_sharded_eval_step(cfg: gat.GATConfig, task: Task, mesh: Mesh,
                            phase: str, *, backend: str = "kernel",
                            dst_owned: bool = False) -> Callable:
     """step(params, batch) -> metrics: the task's metrics of `phase`, each
-    a mean over the global batch, equal on every rank."""
-    _refuse(task, dst_owned)
+    a mean over the global batch, equal on every rank (no regulariser:
+    the loss is the task's)."""
+    _refuse(dst_owned)
 
     def eval_step(params: gat.Params, batch: Sequence[Graph]):
         b_global = len(batch) * mesh.data.size

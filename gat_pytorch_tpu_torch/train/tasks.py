@@ -1,10 +1,10 @@
 """Task heads: per-dataset loss and metrics over (logits, Graph).
 
 Counterpart of gat_pytorch_tpu/train/tasks.py: a `Task` bundles the loss,
-the metric set and which node mask applies in each phase. The attention
-regulariser (a non-zero `attention_coef`) needs `return_attention`, which
-is not ported (ROADMAP: return_attention and the attention regulariser),
-so a non-zero coefficient raises.
+the metric set and which node mask applies in each phase. A non-zero
+`attention_coef` turns on the attention regulariser: the trainer adds
+coef * models.gat.calc_attention_norm to the training loss (the reference
+adds it for both signs of its flags: "reward" is its name, not its sign).
 """
 
 from __future__ import annotations
@@ -26,21 +26,13 @@ class Task:
     loss: Callable[[torch.Tensor, Graph, str], torch.Tensor]
     # metrics(logits, graph, phase) -> dict of scalars
     metrics: Callable[[torch.Tensor, Graph, str], Dict[str, torch.Tensor]]
-    # coefficient on the attention regulariser (not ported: must be 0)
+    # coefficient on the attention regulariser (0: off)
     attention_coef: float = 0.0
     # squeeze logits (N, 1) -> (N,) before loss and metrics (PATTERN)
     squeeze_output: bool = False
 
 
 PATTERN_PROP_POS = 0.1765  # the positive fraction of the PATTERN labels
-
-
-def _refuse_regulariser(coef: float) -> None:
-    if coef != 0.0:
-        raise NotImplementedError(
-            "the attention regulariser needs return_attention "
-            "(ROADMAP: return_attention and the attention regulariser, not "
-            "ported)")
 
 
 def _phase_mask(graph: Graph, phase: str) -> torch.Tensor:
@@ -54,8 +46,8 @@ def _phase_mask(graph: Graph, phase: str) -> torch.Tensor:
 
 
 def planetoid_task(attention_reward: float = 0.0) -> Task:
-    """Masked cross-entropy and accuracy."""
-    _refuse_regulariser(attention_reward)
+    """Masked cross-entropy and accuracy; attention_reward is added to
+    the loss times the attention norm."""
 
     def loss(logits, graph, phase):
         return M.masked_cross_entropy(logits, graph.y,
@@ -71,8 +63,8 @@ def planetoid_task(attention_reward: float = 0.0) -> Task:
 
 
 def ppi_task(attention_penalty: float = 0.0) -> Task:
-    """Multi-label BCE and micro-F1 over whole graphs."""
-    _refuse_regulariser(attention_penalty)
+    """Multi-label BCE and micro-F1 over whole graphs; attention_penalty
+    is added to the loss times the attention norm."""
 
     def loss(logits, graph, phase):
         return M.masked_bce_with_logits(logits, graph.y, graph.node_mask)

@@ -10,7 +10,12 @@ epoch's row is the mean over its batches; the metrics stay on the device
 and one host synchronisation per epoch reads them. The best-validation
 parameters are kept by validation loss (ModelCheckpoint semantics), early
 stopping ends the run after `patience` epochs without a better loss, and
-a plateau schedule may lower the learning rate between epochs.
+a plateau schedule may lower the learning rate between epochs. With a
+task's attention coefficient set, a train step runs the model with
+return_attention and adds coef * calc_attention_norm to the loss (the
+regulariser); each row's `train_loss` is that total and
+`train_attention_norm` the norm (0.0 without the regulariser, whose step
+computes no attention).
 
 `Trainer.fit_sharded` is the counterpart of the JAX package's
 fit_sharded: the same epochs over a (data, edge) mesh of
@@ -94,27 +99,47 @@ class Trainer:
 
     def apply(self, params: gat.Params, graph: Graph, *,
               generator: Optional[torch.Generator] = None,
-              training: bool = False) -> torch.Tensor:
+              training: bool = False, return_attention: bool = False):
         """The model's logits, (N, 1) squeezed to (N,) where the task
-        says so."""
-        logits = gat.gat_model_apply(params, self.cfg, graph,
-                                     device=self.device, generator=generator,
-                                     training=training, backend=self.backend)
+        says so; with return_attention, (logits, [alpha per layer])."""
+        out = gat.gat_model_apply(params, self.cfg, graph,
+                                  device=self.device, generator=generator,
+                                  training=training, backend=self.backend,
+                                  return_attention=return_attention)
+        logits, attention = out if return_attention else (out, None)
         if self.task.squeeze_output and logits.dim() == 2:
             logits = logits[:, 0]
-        return logits
+        return (logits, attention) if return_attention else logits
+
+    def train_loss(self, params: gat.Params, graph: Graph, *,
+                   generator: Optional[torch.Generator] = None,
+                   training: bool = True):
+        """(loss, logits, attention norm or None): the task's training
+        loss, plus coef * calc_attention_norm where the task's attention
+        coefficient is not 0."""
+        coef = self.task.attention_coef
+        if coef == 0.0:
+            logits = self.apply(params, graph, generator=generator,
+                                training=training)
+            return self.task.loss(logits, graph, "train"), logits, None
+        logits, attention = self.apply(params, graph, generator=generator,
+                                       training=training,
+                                       return_attention=True)
+        norm = gat.calc_attention_norm(graph, attention)
+        return (self.task.loss(logits, graph, "train") + coef * norm, logits,
+                norm)
 
     def train_step(self, params: gat.Params, opt: torch.optim.Optimizer,
                    graph: Graph, generator: torch.Generator):
-        """One step: forward with dropout, loss, backward, update.
-        Returns (loss, logits), both detached."""
-        logits = self.apply(params, graph, generator=generator,
-                            training=True)
-        loss = self.task.loss(logits, graph, "train")
+        """One step: forward with dropout, loss (train_loss), backward,
+        update. Returns (loss, logits, attention norm or None), detached."""
+        loss, logits, norm = self.train_loss(params, graph,
+                                             generator=generator)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
-        return loss.detach(), logits.detach()
+        return (loss.detach(), logits.detach(),
+                None if norm is None else norm.detach())
 
     def fit(self, graph: Graph,
             params: Optional[gat.Params] = None) -> TrainResult:
@@ -138,17 +163,21 @@ class Trainer:
         opt = O.adam_l2(gat.parameters(params), self.learning_rate,
                         self.weight_decay)
         gen = self.dropout_generator()
+        zero = torch.zeros((), device=dev)   # the norm without a regulariser
 
         def run_epoch(epoch):
             data = (train_data if reshuffle is None
                     else [g.to(dev) for g in reshuffle(epoch)])
             train_rows = []
             for g in data:
-                loss, logits = self.train_step(params, opt, g, gen)
+                loss, logits, norm = self.train_step(params, opt, g, gen)
                 with torch.no_grad():
-                    train_rows.append({"train_loss": loss, **_prefixed(
-                        "train", self.task.metrics(logits, g, "train"),
-                        skip=("loss",))})
+                    train_rows.append({
+                        "train_loss": loss,
+                        "train_attention_norm": zero if norm is None
+                        else norm, **_prefixed(
+                            "train", self.task.metrics(logits, g, "train"),
+                            skip=("loss",))})
             with torch.no_grad():
                 val_rows = [_prefixed("val", self.task.metrics(
                     self.apply(params, g), g, "val")) for g in val_data]
@@ -202,6 +231,7 @@ class Trainer:
                         self.weight_decay)
         gens = DropoutGenerators.for_rank(self.seed + 1, mesh, dev)
         train_groups, val_groups = group(train_data), group(val_data)
+        zero = torch.zeros((), device=dev)   # the norm without a regulariser
 
         def run_epoch(epoch):
             groups = (train_groups if reshuffle is None
@@ -210,6 +240,7 @@ class Trainer:
             for batch in groups:
                 loss, mets = step(params, opt, batch, gens)
                 train_rows.append({"train_loss": loss,
+                                   "train_attention_norm": zero,
                                    **_prefixed("train", mets)})
             val_rows = [_prefixed("val", val_step(params, batch))
                         for batch in val_groups]

@@ -37,6 +37,7 @@ class RunConfig:
     synthetic: Optional[bool] = None      # None = real data if present
     log_every: int = 0
     backend: str = "kernel"               # kernel | segment
+    layer_type: str = "custom"            # custom | naive (backend naive)
     device: str = "cuda"
     reorder: Optional[str] = None         # "rcm": reorder + block layout;
     #                                       "cluster": + the hybrid layout

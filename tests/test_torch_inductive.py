@@ -259,10 +259,12 @@ def test_make_task_covers_the_five_datasets():
         assert ttasks.make_task(name).name == jtasks.make_task(name).name
     with pytest.raises(ValueError):
         ttasks.make_task("Reddit")
-    with pytest.raises(NotImplementedError, match="attention regulariser"):
-        ttasks.make_task("PPI", attention_penalty=0.1)
-    with pytest.raises(NotImplementedError, match="attention regulariser"):
-        ttasks.make_task("Cora", attention_reward=0.1)
+    # the regulariser's coefficient passes through as in the JAX package
+    for name, kw in (("PPI", dict(attention_penalty=0.1)),
+                     ("Cora", dict(attention_reward=0.1))):
+        assert (ttasks.make_task(name, **kw).attention_coef
+                == jtasks.make_task(name, **kw).attention_coef == 0.1)
+    assert ttasks.make_task("PATTERN").attention_coef == 0.0
 
 
 # -- the plateau schedule ------------------------------------------------------------

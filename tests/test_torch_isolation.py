@@ -2,7 +2,6 @@
 and its entry points refuse to run on the CPU unless asked to."""
 
 import ast
-import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -149,9 +148,9 @@ def test_cli_refuses_unported_flags():
     with pytest.raises(NotImplementedError, match="full graph"):
         cli.main(["--device", "cpu", "--dataset", "PPI", "--reorder",
                   "cluster"])
-    for flags in (["--dataset", "PPI", "--attention_penalty", "0.1"],
-                  ["--dataset", "Cora", "--attention_reward", "0.1"],
-                  ["--dataset", "Cora", "--sampling_fanouts", "8,8"],
+    for flags in (["--dataset", "Cora", "--sampling_fanouts", "8,8"],
+                  ["--dataset", "Cora", "--checkpoint_dir", "ckpt"],
+                  ["--dataset", "Cora", "--metrics_file", "m.jsonl"],
                   ["--dataset", "PPI", "--exec_type", "load"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["--device", "cpu"] + flags)
@@ -238,13 +237,10 @@ def test_sharded_path_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sharded_train_step(cfg, make_task("Cora"), mesh,
                                 dst_owned=True)
-    task = make_task("Cora")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sharded_train_step(
-            cfg, dataclasses.replace(task, attention_coef=0.1), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gat.gat_model_apply(params, cfg, g, device="cpu",
-                            return_attention=True)
+            cfg, make_task("Cora", attention_reward=0.1), mesh,
+            dst_owned=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gat.gat_model_apply(params, cfg, g, device="cpu",
                             edge_axis=mesh.edge, dst_owned=True)

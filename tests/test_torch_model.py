@@ -231,12 +231,13 @@ def test_segment_path_matches_jax_xla(extra):
     assert_same(jlogits, jgrads, tlogits, tparams)
 
 
-@pytest.mark.parametrize("extra", [{"backend": "naive"}, {"training": True}])
+@pytest.mark.parametrize("extra", [{"backend": "xla"}, {"training": True}])
 def test_kernel_path_refuses_unported_modes(extra):
     """paper_faithful, const_attention and the hybrid layout run on the
     kernel path now (the tests around this one); what the model still
-    refuses is a layer path it does not have (the JAX package's "naive"
-    oracle) and dropout without a generator."""
+    refuses is a layer path it does not have (the JAX package's "xla"
+    name: the port calls it "segment") and dropout without a
+    generator."""
     _, tcfg, _, tg, _, tparams = build("cora")
     cfg = tgat.GATConfig(**dict(CONFIGS["cora"], num_input_node_features=32,
                                 num_layers=2, dropout=0.5))

@@ -84,7 +84,8 @@ def model_job(job):
 
 def step_job(job):
     """One sharded train step (SGD, lr job["lr"]) per backend: the loss,
-    the metrics, the gradients and the parameters after the step."""
+    the metrics, the gradients and the parameters after the step; the
+    task from make_task(job["task"], **job["task_kw"])."""
     from gat_pytorch_tpu_torch.models import gat
     from gat_pytorch_tpu_torch.parallel import (DropoutGenerators,
                                                 make_sharded_train_step,
@@ -95,8 +96,9 @@ def step_job(job):
     batch = shard_batch([graph_of(a) for a in job["graphs"]], mesh)
     out = {}
     for backend in job.get("backends", ("kernel", "segment")):
-        step = make_sharded_train_step(cfg, make_task(job["task"]), mesh,
-                                       backend=backend)
+        step = make_sharded_train_step(
+            cfg, make_task(job["task"], **job.get("task_kw", {})), mesh,
+            backend=backend)
         runs = []
         for _ in range(job.get("repeats", 1)):
             gens = DropoutGenerators.for_rank(job.get("seed", 1), mesh,
@@ -130,7 +132,8 @@ def fit_job(job):
     mesh = _mesh(job)
     graphs = [graph_of(a) for a in job["graphs"]]
     n_train = job["n_train"]
-    tr = Trainer(cfg=gat.GATConfig(**job["cfg"]), task=make_task(job["task"]),
+    tr = Trainer(cfg=gat.GATConfig(**job["cfg"]),
+                 task=make_task(job["task"], **job.get("task_kw", {})),
                  learning_rate=job["lr"], max_epochs=job["epochs"],
                  patience=100, seed=0, device="cpu",
                  backend=job["backend"])
