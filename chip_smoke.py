@@ -63,6 +63,11 @@ dataset:
   segment_sum_sorted: four launches a v5 or windowed layer a train step,
   two a table layer; and Cora naive (`--layer_type naive`, the plain-torch
   oracle layer: no kernel);
+  Cora sampled `cli.train --dataset Cora --sampling_fanouts 10,10
+          --sampling_batch_size 128`: each epoch two neighbour-sampled
+          subgraphs of the train nodes (data/sampling.py, one bucket,
+          the next epoch's built by the prefetch thread) on the v5 op, and
+          the full graph's validation forward;
   and the edge-sharded path (Trainer.fit_sharded, the cut-neighbourhood
   layout) under a one-rank NCCL process group: Cora sharded, PPI
   paper_faithful sharded (also with the regulariser, two more sorted sums
@@ -168,11 +173,14 @@ Phases (every failure is fatal):
      float32 kernel path by more than 10x the float32 paths' own difference
      (the mode is live);
      then two PPI paper_faithful fits, two hybrid Pubmed fits, two
-     Pubmed bf16 fits and two Cora attention fits of a few epochs, each
-     pair from one seed, must give
+     Pubmed bf16 fits, two Cora attention fits and two Cora sampled fits
+     of a few epochs, each pair from one seed, must give
      the same bits in every epoch's losses and in every parameter, and
      so must a Cora fit on the graph with its CSR offsets and one on the
-     graph without them (and the trained model's logits and gradients);
+     graph without them (and the trained model's logits and gradients),
+     and a Cora sampled fit and a PPI paper_faithful fit with the prefetch
+     thread and one without it (PREFETCH_REPRO), and the prefetch
+     iterator's own copies to the card (put=True) must equal the batches;
   4c. under a one-rank NCCL process group (destroyed on any exit), train
      the sharded cells as phase 3 does, hold each trained sharded model's
      logits and gradients against the single-device kernel path and the
@@ -180,6 +188,14 @@ Phases (every failure is fatal):
      ones, and live), hold two Cora sharded fits from one seed to equal
      bits, and time and profile the sharded step beside the
      single-device step;
+  4d. in a temporary directory under build/: a Cora fit of 10 epochs
+     with checkpoint_every_n_epochs=5 and a metrics file (the JSONL rows
+     must equal the history); resume_state from its epoch-5 snapshot and
+     5 train steps must give its final parameters to the bits (the Adam
+     state and the CUDA generator's state restored); cli.train.run with
+     exec_type "load" must print the train run's test metrics; a Cora fit
+     with track_grads (histograms to a recording logger) must give the
+     bits of one without;
   5. time each kernel and bfloat16 mode (CUDA graph replays; a v5 or
      windowed forward or cap entry with its source-score pass, a backward
      entry given its op's table, as the main path calls them), its plain
@@ -193,14 +209,20 @@ Phases (every failure is fatal):
      also on the graph without its offsets) and profile a short window of
      steps; time
      the table op against the v5 op on one PATTERN batch, and the hybrid
-     step with its remainder through plain segment ops;
+     step with its remainder through plain segment ops; the sampled Cora
+     step beside the full-graph step, an epoch of the sampled and PPI
+     paper_faithful fits with and without the prefetch thread, the host
+     build of a sampled epoch, and save_checkpoint at Cora's and PPI's
+     widths;
   6. print one {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 It exits non-zero without printing a result when there is no GPU or when
 the port's package is not beside it.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -208,10 +230,14 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from unittest import mock
 
+# scratch space of phase 4d (checkpoints), gitignored
+ROOT_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build")
 SHAPES = {"Cora": ((8, 8), (1, 7)),      # (heads, features) per layer
           "Pubmed": ((8, 8), (8, 3)),
           "PPI": ((4, 256), (6, 121)),   # layers 1-2 share 4 x 256
@@ -264,6 +290,11 @@ CELLS = {
                                              "attention_penalty": 0.05}, 5,
                                      "v4_table attention", 3),
     "Cora naive": ("Cora", {"layer_type": "naive"}, 10, "naive", 2),
+    # neighbour-sampled minibatches (cli: --sampling_fanouts 10,10
+    # --sampling_batch_size 128): each epoch two sampled subgraphs of the
+    # train nodes, in one bucket, and the full graph's validation forward
+    "Cora sampled": ("Cora", {"sampling_fanouts": "10,10",
+                              "sampling_batch_size": 128}, 20, "v5", 2),
 }
 # the environment each fit runs under, set and restored around it; the
 # float32 fits of the windowed op pin its contraction dtype (the JAX
@@ -377,7 +408,10 @@ PATH_KERNELS = {
     "naive": ((), {}),
 }
 REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5,
-                "Pubmed bf16": 5, "Cora attention": 5}
+                "Pubmed bf16": 5, "Cora attention": 5, "Cora sampled": 5}
+# fits held to the same bits with the prefetch thread and without it
+# (Trainer.prefetch): cells of multi-batch epochs
+PREFETCH_REPRO = {"Cora sampled": 5, "PPI paper_faithful": 3}
 # the sharded fits of phase 4c, under a one-rank NCCL process group
 # (Trainer.fit_sharded, the cut-neighbourhood layout; the card is one,
 # so the edge axis has one shard and every collective is a real NCCL
@@ -625,7 +659,7 @@ def time_ms(torch, fn, calls=20, replays=10):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def step_time_ms(torch, fn, iters=50, warmup=5):
+def step_time_ms(torch, fn, iters=30, warmup=5):
     """Mean milliseconds per eager call, host launch overhead included
     (CUDA events around back-to-back calls)."""
     for _ in range(warmup):
@@ -638,6 +672,17 @@ def step_time_ms(torch, fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_host(fn):
+    """Host milliseconds of one call of fn, the card synchronised before
+    and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def bound_ms(nbytes, ops):
@@ -667,7 +712,7 @@ def epilogue(torch, num, den, cap, f, eps):
     return num / (den.repeat_interleave(f, dim=1) + epsp), epsp
 
 
-def profile_steps(torch, step, step_ms, label, steps=10, top=12):
+def profile_steps(torch, step, step_ms, label, steps=5, top=12):
     """Profile `steps` train steps; print the device's busy time per step,
     its idle share of `step_ms`, and the top kernels and host operations."""
     from torch.autograd import DeviceType
@@ -889,7 +934,9 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gat_pytorch_tpu_torch.cli import train as cli_train
     from gat_pytorch_tpu_torch.data import datasets, loader
+    from gat_pytorch_tpu_torch.data.prefetch import PrefetchIterator
     from gat_pytorch_tpu_torch.models import gat
     from gat_pytorch_tpu_torch.ops import segment as seg
     from gat_pytorch_tpu_torch.ops.cuda import build
@@ -902,7 +949,7 @@ def main():
                                                          Rounding)
     from gat_pytorch_tpu_torch.train import optim as O
     from gat_pytorch_tpu_torch.train.tasks import make_task
-    from gat_pytorch_tpu_torch.train.trainer import Trainer
+    from gat_pytorch_tpu_torch.train.trainer import Trainer, TrainState
     from gat_pytorch_tpu_torch.utils.config import get_config
     from gat_pytorch_tpu_torch.utils.device import resolve_device
 
@@ -1244,8 +1291,9 @@ def main():
                     bwd_args=bwd_args, parts_args=parts_args, rows=rows,
                     dasrc_args=dasrc_args, runs=runs)
 
-    raw = datasets.load_planetoid("Cora", synthetic_override=True, seed=0)
-    cora = loader.transductive_graph(raw).to(dev)
+    cora_raw = datasets.load_planetoid("Cora", synthetic_override=True,
+                                       seed=0)
+    cora = loader.transductive_graph(cora_raw).to(dev)
     n, e, e_real = cora.num_nodes, cora.num_edges, cora.num_real_edges
     snd, rcv, order = cora.senders, cora.receivers, cora.src_order
     print(f"[graph] Cora stand-in: {n} nodes (padded), {e} edges "
@@ -2243,6 +2291,9 @@ def main():
     def cell_data(dataset, cfg):
         """(train batches, validation batches, reshuffle) as cli.train
         builds them."""
+        if dataset == "Cora" and cfg.sampling_fanouts:
+            sampled = cli_train.neighbour_sampler(cora_raw, cfg)
+            return sampled.epoch(0), [cora], sampled.epoch
         if dataset == "Cora":
             return [cora], [cora], None
         if dataset == "Pubmed":
@@ -2327,7 +2378,7 @@ def main():
                      f"validation forwards included)")
             launches[k] += ran[k]
         test_data = val_data
-        if reshuffle is not None:     # as cli.train: test batches of one graph
+        if dataset in inductive:      # as cli.train: test batches of one graph
             test_data = loader.InductiveBatcher(
                 inductive[dataset][2], 1, shuffle=False).epoch()
         with knobs(env):
@@ -2516,19 +2567,22 @@ def main():
                   f"{'equal bits' if torch.equal(x, y) else 'DIFFER'} "
                   f"(max abs diff {float((x - y).abs().max()):.3e})")
 
-    for name, epochs in REPRO_EPOCHS.items():
+    def repro_fit(name, epochs, **trainer_kw):
+        """(history, final parameters) of a fit of cell `name` from seed
+        0, the trainer's fields in trainer_kw replaced."""
         dataset, overrides = CELLS[name][:2]
-        runs = []
-        for _ in range(2):
-            _, trainer, train_data, val_data, reshuffle = make_trainer(
-                dataset, overrides, epochs)
-            with knobs(CELL_ENV.get(name, {})):
-                result = trainer.fit_epochs(train_data, val_data,
-                                            reshuffle=reshuffle)
-            torch.cuda.synchronize()
-            runs.append((result.history,
-                         gat.parameters(result.final_params)))
-        (hist_a, par_a), (hist_b, par_b) = runs
+        _, trainer, train_data, val_data, reshuffle = make_trainer(
+            dataset, overrides, epochs)
+        trainer = dataclasses.replace(trainer, **trainer_kw)
+        with knobs(CELL_ENV.get(name, {})):
+            result = trainer.fit_epochs(train_data, val_data,
+                                        reshuffle=reshuffle)
+        torch.cuda.synchronize()
+        return result.history, gat.parameters(result.final_params)
+
+    for name, epochs in REPRO_EPOCHS.items():
+        (hist_a, par_a), (hist_b, par_b) = (repro_fit(name, epochs)
+                                            for _ in range(2))
         same_hist = hist_a == hist_b
         same_par = all(torch.equal(x, y) for x, y in zip(par_a, par_b))
         print(f"[repro] {name}: two fits of {epochs} epochs from seed 0: "
@@ -2536,9 +2590,39 @@ def main():
               f"{'equal bits' if same_par else 'DIFFER'}; train_loss "
               f"{[r['train_loss'] for r in hist_a]}")
         if not (same_hist and same_par):
+            dataset, overrides = CELLS[name][:2]
             with knobs(CELL_ENV.get(name, {})):
                 one_step_report(name, dataset, overrides)
             fail(f"{name}: two fits from one seed differ")
+
+    # The prefetch thread builds a reshuffled fit's next epoch on the host
+    # and touches no torch generator: the fit gives the same bits without
+    # it.
+    for name, epochs in PREFETCH_REPRO.items():
+        (hist_a, par_a), (hist_b, par_b) = (
+            repro_fit(name, epochs, prefetch=on) for on in (True, False))
+        same = hist_a == hist_b and all(torch.equal(x, y)
+                                        for x, y in zip(par_a, par_b))
+        print(f"[repro] {name}: fits of {epochs} epochs from seed 0 with "
+              f"and without the prefetch thread: histories and parameters "
+              f"{'equal bits' if same else 'DIFFER'}")
+        if not same:
+            fail(f"{name}: the fit with the prefetch thread differs from "
+                 f"the fit without it")
+    # the iterator's own copies (put=True: a side stream, an event the
+    # consumer's stream waits on, record_stream), which no fit takes
+    batches = loader.InductiveBatcher(inductive["PPI"][0], 2,
+                                      seed=0).epoch(0)
+    fetched = list(PrefetchIterator(batches, depth=2, device=dev))
+    same = len(fetched) == len(batches) and all(
+        torch.equal(getattr(a, k), getattr(b.to(dev), k))
+        for a, b in zip(fetched, batches)
+        for k in ("x", "senders", "receivers", "y", "src_ptr", "dst_ptr"))
+    print(f"[repro] PrefetchIterator(put=True) over an epoch of PPI batches: "
+          f"{len(fetched)} batches on {fetched[0].device}, "
+          f"{'equal' if same else 'DIFFERENT'} to copies on this thread")
+    if not same or fetched[0].device != dev:
+        fail("PrefetchIterator's copies differ from the batches")
 
     # The CSR offsets carried on the Graph spare launches, not bits: one
     # Cora fit with them and one without (the wrappers derive them per
@@ -2720,6 +2804,104 @@ def main():
                               top=12 if i == 0 else 0)
     finally:
         dist.destroy_process_group()
+
+    elapsed("4d")
+    # -- 4d. checkpoints, resume, the CLI's load route, metrics logging -----
+    # In a temporary directory under build/ (gitignored), removed after.
+    class Recorder:
+        """A logger that keeps the histogram tags it is given."""
+        def __init__(self):
+            self.tags = set()
+
+        def log_scalars(self, step, row):
+            pass
+
+        def log_histogram(self, step, tag, values):
+            self.tags.add(tag)
+
+        def close(self):
+            pass
+
+    os.makedirs(ROOT_BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT_BUILD) \
+            as tmp:
+        # a Cora fit of 10 epochs, snapshots every 5, its rows to JSONL
+        ck_dir = os.path.join(tmp, "fit")
+        jsonl = os.path.join(tmp, "rows.jsonl")
+        _, trainer, _, _, _ = make_trainer("Cora", {}, 10)
+        trainer = dataclasses.replace(trainer, checkpoint_dir=ck_dir,
+                                      checkpoint_every_n_epochs=5,
+                                      metrics_file=jsonl)
+        result = trainer.fit_epochs([cora], [cora])
+        files = sorted(os.listdir(ck_dir))
+        if files != ["best", "epoch-10", "epoch-5"]:
+            fail(f"Cora checkpoints: {files}, expected best, epoch-5 and "
+                 f"epoch-10")
+        rows = [json.loads(line) for line in open(jsonl)]
+        if rows != [{"step": r["epoch"], **r} for r in result.history]:
+            fail("Cora: the JSONL rows differ from the history")
+        # resumed from epoch-5 (the Adam state and the CUDA generator's
+        # state restored), 5 more steps give the fit's final parameters
+        state = trainer.resume_state(os.path.join(ck_dir, "epoch-5"))
+        resumed_at = state.step
+        if resumed_at != 5 or state.generator.device != dev:
+            fail(f"Cora resume: step {resumed_at} on "
+                 f"{state.generator.device}")
+        for _ in range(5):
+            trainer.train_step(state.params, state.opt, cora, state.generator)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(
+            gat.parameters(state.params),
+            gat.parameters(result.final_params)))
+        print(f"[checkpoint] Cora, 10 epochs with snapshots every 5: {files}; "
+              f"the JSONL rows equal the history; resumed from epoch-5 "
+              f"(step {resumed_at}) and 5 train steps: parameters "
+              f"{'equal bits' if same else 'DIFFER'} to the fit's final ones")
+        if not same:
+            fail("Cora: the run resumed from epoch-5 differs from the "
+                 "uninterrupted fit")
+        # cli.train: a run, then --exec_type load on its checkpoint
+        outs = []
+        for exec_type in ("train", "load"):
+            config = get_config("Cora", num_epochs=10, device="cuda",
+                                synthetic=True, exec_type=exec_type,
+                                checkpoint_dir=os.path.join(tmp, "cli"))
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                metrics = cli_train.run(config)
+            line = json.loads(out.getvalue().strip().splitlines()[-1])
+            outs.append((metrics, line))
+        (trained, _), (loaded, printed) = outs
+        tests = {k: v for k, v in trained.items() if k.startswith("test_")}
+        print(f"[checkpoint] cli.train Cora, 10 epochs: {tests}; "
+              f"--exec_type load printed {printed}")
+        if not tests or printed != tests or loaded != tests:
+            fail("cli.train --exec_type load did not print the train run's "
+                 "test metrics")
+        # the gradient and attention histograms (a recording logger; the
+        # card's machine has no tensorboard) leave the fit's bits as they
+        # were: their dropout masks come from a clone of the generator
+        rec = Recorder()
+        runs = []
+        for track in (True, False):
+            _, trainer, _, _, _ = make_trainer("Cora", {}, 5)
+            if track:
+                trainer = dataclasses.replace(
+                    trainer, tensorboard_dir=os.path.join(tmp, "tb"),
+                    track_grads=True)
+            with mock.patch.object(Trainer, "_logger", lambda self: rec):
+                res = trainer.fit_epochs([cora], [cora])
+            runs.append((res.history, gat.parameters(res.final_params)))
+        (hist_a, par_a), (hist_b, par_b) = runs
+        same = hist_a == hist_b and all(torch.equal(x, y)
+                                        for x, y in zip(par_a, par_b))
+        print(f"[checkpoint] Cora, 5 epochs with and without track_grads "
+              f"(histograms {sorted(rec.tags)}): histories and parameters "
+              f"{'equal bits' if same else 'DIFFER'}")
+        if not same or not {"grad/layers/0/W",
+                            "unnormalised_attention_layer_1"} <= rec.tags:
+            fail("Cora: the fit with track_grads differs from the fit "
+                 "without, or logged no histograms")
 
     elapsed("5")
     # -- 5. timings ---------------------------------------------------------
@@ -3467,6 +3649,9 @@ def main():
             # sorts the senders itself in every backward)
             routes.insert(1, ("table kernel path", trainer,
                               graph.replace(src_order=None), {}))
+        if name == "Cora sampled":
+            # the same model's step on the full graph
+            routes.insert(1, ("full-graph Cora step", trainer, cora, env))
         if name in ("Cora", "Pubmed", "PPI paper_faithful", "PPI"):
             # the wrappers deriving the offsets per call, as before the
             # Graph carried them (the launches a step they cost)
@@ -3488,6 +3673,59 @@ def main():
         for i, ((label, step), t) in enumerate(zip(steps, times)):
             profile_steps(torch, step, t, f"{name} {label}",
                           top=12 if i == 0 else 0)
+
+    # the host's share of the sampled and batched fits: an epoch with and
+    # without the prefetch thread (fits of 3 epochs in turns: on, off, off,
+    # on), the host build of a sampled epoch, and one save_checkpoint at
+    # Cora's and PPI's widths
+    for name in PREFETCH_REPRO:
+        dataset, overrides = CELLS[name][:2]
+        walls = {True: [], False: []}
+        for on in (True, False, False, True):
+            _, trainer, train_data, val_data, reshuffle = make_trainer(
+                dataset, overrides, 3)
+            trainer = dataclasses.replace(trainer, prefetch=on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit_epochs(train_data, val_data, reshuffle=reshuffle)
+            torch.cuda.synchronize()
+            walls[on].append((time.perf_counter() - t0) / 3 * 1e3)
+        print(f"[time] {name} epoch ({len(train_data)} train batches, "
+              f"reshuffled on the host, and {len(val_data)} validation) on "
+              f"{card}: with the prefetch thread building the next epoch "
+              f"{walls[True]} ms, without "
+              f"{walls[False]} ms (mean {np.mean(walls[True]):.1f} against "
+              f"{np.mean(walls[False]):.1f})")
+    sampler = cli_train.neighbour_sampler(cora_raw, fits["Cora sampled"][0])
+    builds = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        epoch = sampler.epoch(i)
+        builds.append((time.perf_counter() - t0) * 1e3)
+    print(f"[time] Cora sampled: host build of an epoch ({len(epoch)} "
+          f"subgraphs in a bucket of {epoch[0].num_nodes} nodes and "
+          f"{epoch[0].num_edges} edges; real nodes "
+          f"{[int(g.node_mask.sum()) for g in epoch]}, real edges "
+          f"{[g.num_real_edges for g in epoch]}): "
+          f"{[round(b, 1) for b in builds]} ms; its copy to the card "
+          f"{time_host(lambda: [g.to(dev) for g in epoch]):.2f} ms")
+    os.makedirs(ROOT_BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT_BUILD) \
+            as tmp:
+        for name in ("Cora", "PPI"):
+            cfg, trainer, params, graph = fits[name]
+            trainer = dataclasses.replace(trainer, checkpoint_dir=tmp)
+            opt = O.adam_l2(gat.parameters(params), 0.0)
+            gen = trainer.dropout_generator()
+            trainer.train_step(params, opt, graph, gen)   # Adam's moments
+            state = TrainState(params, opt, gen)
+            saves = [time_host(lambda: trainer.save_checkpoint(
+                state, 0, 1.0, name=name)) for _ in range(5)]
+            size = os.path.getsize(os.path.join(tmp, name))
+            print(f"[time] save_checkpoint at {name}'s width "
+                  f"({sum(p.numel() for p in gat.parameters(params))} "
+                  f"parameters, a file of {size} bytes) on {card}: "
+                  f"{[round(t, 2) for t in saves]} ms")
 
     elapsed("6")
     # -- 6. results ---------------------------------------------------------

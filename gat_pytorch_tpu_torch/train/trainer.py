@@ -21,26 +21,40 @@ computes no attention).
 fit_sharded: the same epochs over a (data, edge) mesh of
 torch.distributed ranks, through the sharded steps of parallel/train.py.
 
-Checkpoints, TensorBoard, gradient histograms, the prefetch thread and
-the sampled fit wait for their ports (ROADMAP: checkpoints and logging;
-sampling and prefetch).
+Around every fit: checkpoints (`save_checkpoint`: one torch.save file for
+`<checkpoint_dir>/best` whenever the validation loss improves, and
+`epoch-<E>` every `checkpoint_every_n_epochs`; `load_checkpoint`,
+`resume_state`), the metrics logger (train/logging.py: each history row to
+`metrics_file` and `tensorboard_dir`, with the attention histograms, and
+the gradient histograms under `track_grads`, every max(log_every, 1)
+epochs on the epoch's first batch) and, where a `reshuffle` builds each
+epoch's batches anew, the prefetch thread (data/prefetch.py) that builds
+the next epoch while this one trains. The neighbour-sampled fit is
+fit_epochs with data/sampling.py's batcher as `reshuffle`. Under
+torch.distributed only rank 0 writes checkpoints and logs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..data.prefetch import PrefetchIterator
 from ..graph.graph import Graph
 from ..models import gat
+from ..ops import segment as seg
 from ..parallel import (DropoutGenerators, make_sharded_eval_step,
                         make_sharded_train_step, replicated, shard_batch,
                         stack_graphs)
 from ..utils.device import resolve_device
 from . import optim as O
+from .logging import MetricsLogger
 from .tasks import Task
 
 
@@ -53,6 +67,25 @@ class TrainResult:
     best_epoch: int
     stopped_early: bool
     wall_time_s: float
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a continued run needs (the JAX package's TrainState): the
+    parameters, the optimizer over them (Adam's moments and step count)
+    and the dropout stream, a torch.Generator (a sharded fit's
+    DropoutGenerators)."""
+    params: gat.Params
+    opt: torch.optim.Optimizer
+    generator: Union[torch.Generator, DropoutGenerators]
+
+    @property
+    def step(self) -> int:
+        """Optimizer steps taken (Adam's step count; 0 before the first)."""
+        for st in self.opt.state.values():
+            if "step" in st:
+                return int(st["step"])
+        return 0
 
 
 def _snapshot(params: gat.Params) -> gat.Params:
@@ -73,6 +106,22 @@ def _epoch_means(rows: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
     return dict(zip(keys, table.mean(dim=0).tolist()))
 
 
+def _host_parts(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """`tensors` as numpy arrays of their shapes, copied to the host in
+    one transfer."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    parts = np.split(flat.cpu().numpy(),
+                     np.cumsum([t.numel() for t in tensors])[:-1])
+    return [p.reshape(t.shape) for p, t in zip(parts, tensors)]
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints and logs: rank 0 of a
+    torch.distributed group, or a process outside one."""
+    return not (dist.is_available() and dist.is_initialized()) or \
+        dist.get_rank() == 0
+
+
 @dataclasses.dataclass
 class Trainer:
     cfg: gat.GATConfig
@@ -82,8 +131,19 @@ class Trainer:
     max_epochs: int = 1000
     patience: int = 100                  # early stop (reference: 100)
     plateau: Optional[O.ReduceLROnPlateau] = None
+    checkpoint_dir: Optional[str] = None
     seed: int = 0
     log_every: int = 0                   # 0 = silent
+    metrics_file: Optional[str] = None   # JSONL stream of the history rows
+    tensorboard_dir: Optional[str] = None  # TensorBoard event files
+    track_grads: bool = False            # gradient histograms (reference
+    #                                      GATModel.on_after_backward),
+    #                                      every max(log_every, 1) epochs
+    prefetch: bool = True                # a reshuffled fit's next epoch
+    #                                      built by the prefetch thread
+    checkpoint_every_n_epochs: int = 0   # 0 = best only; N > 0 also saves
+    #                                      <checkpoint_dir>/epoch-<E> every
+    #                                      N epochs (E 1-based)
     device: str = "cuda"
     backend: str = "kernel"              # gat.BACKENDS
 
@@ -141,6 +201,56 @@ class Trainer:
         return (loss.detach(), logits.detach(),
                 None if norm is None else norm.detach())
 
+    # -- logging -----------------------------------------------------------
+    def _logger(self):
+        return MetricsLogger(self.metrics_file, self.tensorboard_dir)
+
+    def _log_grad_histograms(self, logger, epoch: int, state: TrainState,
+                             graph: Graph) -> None:
+        """Histograms of the task loss's gradients (the task's loss only,
+        as the JAX package takes them) at the current parameters in
+        training mode, tagged grad/layers/<i>/<name> and grad/skips/<j>/w
+        as the JAX tree paths name them. The dropout masks come from a
+        clone of the fit's generator, so the fit draws the masks it draws
+        without the histograms."""
+        if not (self.track_grads and self.tensorboard_dir):
+            return
+        gen = torch.Generator(device=state.generator.device)
+        gen.set_state(state.generator.get_state())
+        logits = self.apply(state.params, graph, generator=gen,
+                            training=True)
+        loss = self.task.loss(logits, graph, "train")
+        grads = torch.autograd.grad(loss, gat.parameters(state.params))
+        names = [f"grad/{group}/{i}/{k}" for group in ("layers", "skips")
+                 for i, d in enumerate(state.params[group])
+                 for k in sorted(d)]
+        for name, values in zip(names, _host_parts(grads)):
+            logger.log_histogram(epoch, name, values)
+
+    def _log_attention_histograms(self, logger, epoch: int,
+                                  params: gat.Params, graph: Graph) -> None:
+        """Per-layer attention histograms: alpha * in-degree over the real
+        edges ("unnormalised attention") and that minus 1, with the
+        reference's tag names, from the segment path's return_attention
+        (the JAX package's "xla" backend)."""
+        if not self.tensorboard_dir:
+            return
+        with torch.no_grad():
+            _, attention = gat.gat_model_apply(
+                params, self.cfg, graph, device=self.device, training=False,
+                return_attention=True, backend="segment")
+            emask = graph.edge_mask
+            deg = seg.in_degree(graph.receivers, graph.num_nodes,
+                                edge_mask=emask)
+            deg_e = seg.gather_rows(deg, graph.receivers)[emask]
+            unnorm = [alpha[emask] * deg_e[:, None] for alpha in attention]
+        for i, values in enumerate(_host_parts(unnorm)):
+            logger.log_histogram(
+                epoch, f"unnormalised_attention_layer_{i}", values)
+            logger.log_histogram(
+                epoch, f"attention_minus_const_layer_{i}", values - 1.0)
+
+    # -- fits --------------------------------------------------------------
     def fit(self, graph: Graph,
             params: Optional[gat.Params] = None) -> TrainResult:
         """Train on one full graph, which is each epoch's one train and
@@ -153,24 +263,30 @@ class Trainer:
                    = None,
                    params: Optional[gat.Params] = None) -> TrainResult:
         """Train over `train_data` (or, with `reshuffle`, over the batches
-        reshuffle(epoch) builds anew for each epoch) and validate over
-        `val_data`; all batches are moved to the trainer's device."""
+        reshuffle(epoch) builds anew for each epoch: with `prefetch`, in
+        the prefetch thread, one epoch ahead) and validate over
+        `val_data`; all batches are moved to the trainer's device, on this
+        thread."""
         dev = resolve_device(self.device)
-        train_data = [g.to(dev) for g in train_data]
+        if reshuffle is None:
+            train_data = [g.to(dev) for g in train_data]
         val_data = [g.to(dev) for g in val_data]
         if params is None:
             params = self.init_params()
-        opt = O.adam_l2(gat.parameters(params), self.learning_rate,
-                        self.weight_decay)
-        gen = self.dropout_generator()
+        state = TrainState(params, O.adam_l2(gat.parameters(params),
+                                             self.learning_rate,
+                                             self.weight_decay),
+                           self.dropout_generator())
         zero = torch.zeros((), device=dev)   # the norm without a regulariser
 
         def run_epoch(epoch):
-            data = (train_data if reshuffle is None
-                    else [g.to(dev) for g in reshuffle(epoch)])
-            train_rows = []
-            for g in data:
-                loss, logits, norm = self.train_step(params, opt, g, gen)
+            batches = (train_data if reshuffle is None
+                       else (g.to(dev) for g in next(built)))
+            train_rows, first = [], None
+            for g in batches:
+                first = g if first is None else first
+                loss, logits, norm = self.train_step(
+                    state.params, state.opt, g, state.generator)
                 with torch.no_grad():
                     train_rows.append({
                         "train_loss": loss,
@@ -180,10 +296,14 @@ class Trainer:
                             skip=("loss",))})
             with torch.no_grad():
                 val_rows = [_prefixed("val", self.task.metrics(
-                    self.apply(params, g), g, "val")) for g in val_data]
-            return train_rows, val_rows
+                    self.apply(state.params, g), g, "val"))
+                    for g in val_data]
+            return train_rows, val_rows, first
 
-        return self._fit_loop(params, opt, run_epoch)
+        if reshuffle is None:
+            return self._fit_loop(state, run_epoch)
+        built = self._built_epochs(reshuffle, list)
+        return self._fit_loop(state, run_epoch, streams=(built,))
 
     def fit_sharded(self, mesh, train_data: Sequence[Graph],
                     val_data: Sequence[Graph],
@@ -199,12 +319,16 @@ class Trainer:
         (parallel/sharding.shard_batch) and runs the sharded train step
         (parallel/train.py), then the sharded eval step over the
         validation groups. The same bookkeeping as fit_epochs (best
-        parameters by validation loss, plateau schedule, early stopping)
-        on values that are equal on every rank, so every rank returns the
-        same result. The parameters must be equal on every rank (the same
-        seed): it is checked, not broadcast. The attention dropout masks
-        are drawn per edge shard (parallel/train.DropoutGenerators).
-        dst_owned (the boundary-free layout) is not ported and raises."""
+        parameters by validation loss, plateau schedule, early stopping,
+        checkpoints and logs, which rank 0 alone writes) on values that
+        are equal on every rank, so every rank returns the same result.
+        The parameters must be equal on every rank (the same seed): it is
+        checked, not broadcast. The attention dropout masks are drawn per
+        edge shard (parallel/train.DropoutGenerators). With `reshuffle`,
+        each epoch's groups (reshuffle, stack_graphs, shard_batch: host
+        work) are built as fit_epochs builds its batches: with `prefetch`,
+        in the prefetch thread, one epoch ahead. dst_owned (the
+        boundary-free layout) is not ported and raises."""
         dev = resolve_device(self.device)
         step = make_sharded_train_step(self.cfg, self.task, mesh,
                                        backend=self.backend,
@@ -213,76 +337,122 @@ class Trainer:
                                           backend=self.backend)
         dp = mesh.data.size
 
-        def group(batches):
+        def build(batches):
+            """This rank's shard of each data-axis-wide group, unmoved."""
             batches = list(batches)
             out = []
             for i in range(0, len(batches), dp):
                 chunk = batches[i:i + dp]
                 while len(chunk) < dp:           # wrap-around fill
                     chunk.append(batches[len(chunk) % len(batches)])
-                out.append([g.to(dev) for g in
-                            shard_batch(stack_graphs(chunk), mesh)])
+                out.append(shard_batch(stack_graphs(chunk), mesh))
             return out
+
+        def to_device(groups):
+            return [[g.to(dev) for g in shard] for shard in groups]
 
         if params is None:
             params = self.init_params()
         replicated(gat.parameters(params))
-        opt = O.adam_l2(gat.parameters(params), self.learning_rate,
-                        self.weight_decay)
-        gens = DropoutGenerators.for_rank(self.seed + 1, mesh, dev)
-        train_groups, val_groups = group(train_data), group(val_data)
+        state = TrainState(params, O.adam_l2(gat.parameters(params),
+                                             self.learning_rate,
+                                             self.weight_decay),
+                           DropoutGenerators.for_rank(self.seed + 1, mesh,
+                                                      dev))
+        val_groups = to_device(build(val_data))
+        if reshuffle is None:
+            train_groups = to_device(build(train_data))
         zero = torch.zeros((), device=dev)   # the norm without a regulariser
 
         def run_epoch(epoch):
-            groups = (train_groups if reshuffle is None
-                      else group(reshuffle(epoch)))
             train_rows = []
+            groups = (train_groups if reshuffle is None
+                      else to_device(next(built)))
             for batch in groups:
-                loss, mets = step(params, opt, batch, gens)
+                loss, mets = step(state.params, state.opt, batch,
+                                  state.generator)
                 train_rows.append({"train_loss": loss,
                                    "train_attention_norm": zero,
                                    **_prefixed("train", mets)})
-            val_rows = [_prefixed("val", val_step(params, batch))
+            val_rows = [_prefixed("val", val_step(state.params, batch))
                         for batch in val_groups]
-            return train_rows, val_rows
+            return train_rows, val_rows, None
 
-        return self._fit_loop(params, opt, run_epoch)
+        if reshuffle is None:
+            return self._fit_loop(state, run_epoch)
+        built = self._built_epochs(reshuffle, build)
+        return self._fit_loop(state, run_epoch, streams=(built,))
 
-    def _fit_loop(self, params: gat.Params, opt: torch.optim.Optimizer,
-                  run_epoch: Callable) -> TrainResult:
+    def _built_epochs(self, reshuffle: Callable[[int], Sequence[Graph]],
+                      build: Callable):
+        """The epochs' training data, build(reshuffle(epoch)) for each
+        epoch in turn: with `prefetch` (and more than one epoch), built by
+        the prefetch thread one epoch ahead of the consumer and handed
+        over as built (put=False), the copies to the device left to the
+        consumer's thread, where they cost less than in the thread
+        (tools/prefetch_ab.py; PERF.md). Host work only: the reshuffle
+        draws from its own numpy generator, which nothing else draws from.
+        The caller's _fit_loop closes it."""
+        built = (build(reshuffle(epoch)) for epoch in range(self.max_epochs))
+        if self.prefetch and self.max_epochs > 1:
+            return PrefetchIterator(built, depth=1, put=False)
+        return built
+
+    def _fit_loop(self, state: TrainState, run_epoch: Callable,
+                  streams: Sequence = ()) -> TrainResult:
         """The epochs of a fit: run_epoch(epoch) trains and validates and
-        returns (train rows, validation rows), dicts of scalar tensors;
-        their means make the epoch's history row (one host sync), which
-        drives the best-parameter tracking, the plateau schedule and
-        early stopping."""
+        returns (train rows, validation rows, the epoch's first train batch
+        on the device or None), the rows dicts of scalar tensors; their
+        means make the epoch's history row (one host sync), which is
+        logged and drives the best-parameter tracking (saved to
+        <checkpoint_dir>/best on each improvement), the epoch snapshots,
+        the plateau schedule and early stopping. The histograms run on the
+        first batch every max(log_every, 1) epochs. `streams` (prefetch
+        iterators) are closed when the loop ends, breaks or raises."""
+        writer = _writes()
+        logger = self._logger() if writer else MetricsLogger()
         stopper = O.EarlyStopping(patience=self.patience)
         lr = self.learning_rate
         best_val, best_epoch = float("inf"), -1
-        best_params = _snapshot(params)
+        best_params = _snapshot(state.params)
         history: List[Dict[str, float]] = []
         stopped = False
         t0 = time.time()
-        for epoch in range(self.max_epochs):
-            train_rows, val_rows = run_epoch(epoch)
-            row = {**_epoch_means(train_rows), **_epoch_means(val_rows),
-                   "epoch": epoch, "lr": lr}
-            history.append(row)
-            if self.log_every and epoch % self.log_every == 0:
-                print({k: (round(v, 4) if isinstance(v, float) else v)
-                       for k, v in row.items()})
-            val_loss = row["val_loss"]
-            if val_loss < best_val:
-                best_val, best_epoch = val_loss, epoch
-                best_params = _snapshot(params)
-            if self.plateau is not None:
-                new_lr = self.plateau.step(val_loss, lr)
-                if new_lr != lr:
-                    lr = new_lr
-                    O.set_learning_rate(opt, lr)
-            if stopper.update(val_loss):
-                stopped = True
-                break
-        return TrainResult(params=best_params, final_params=params,
+        try:
+            for epoch in range(self.max_epochs):
+                train_rows, val_rows, first = run_epoch(epoch)
+                row = {**_epoch_means(train_rows), **_epoch_means(val_rows),
+                       "epoch": epoch, "lr": lr}
+                history.append(row)
+                logger.log_scalars(epoch, row)
+                if first is not None and epoch % max(self.log_every, 1) == 0:
+                    self._log_grad_histograms(logger, epoch, state, first)
+                    self._log_attention_histograms(logger, epoch,
+                                                   state.params, first)
+                if self.log_every and epoch % self.log_every == 0:
+                    print({k: (round(v, 4) if isinstance(v, float) else v)
+                           for k, v in row.items()})
+                val_loss = row["val_loss"]
+                if val_loss < best_val:
+                    best_val, best_epoch = val_loss, epoch
+                    best_params = _snapshot(state.params)
+                    if self.checkpoint_dir and writer:
+                        self.save_checkpoint(state, epoch, best_val)
+                if writer:
+                    self._maybe_snapshot(epoch, state, best_val)
+                if self.plateau is not None:
+                    new_lr = self.plateau.step(val_loss, lr)
+                    if new_lr != lr:
+                        lr = new_lr
+                        O.set_learning_rate(state.opt, lr)
+                if stopper.update(val_loss):
+                    stopped = True
+                    break
+        finally:
+            for stream in streams:
+                stream.close()
+            logger.close()
+        return TrainResult(params=best_params, final_params=state.params,
                            history=history, best_val_loss=best_val,
                            best_epoch=best_epoch, stopped_early=stopped,
                            wall_time_s=time.time() - t0)
@@ -298,3 +468,89 @@ class Trainer:
                 rows.append(self.task.metrics(self.apply(params, g), g,
                                               phase))
         return _prefixed(phase, _epoch_means(rows))
+
+    # -- checkpoints -------------------------------------------------------
+    # The logical content of the JAX package's Orbax checkpoints (and of
+    # the reference's Lightning ones): parameters, optimizer state, the
+    # dropout stream, step, epoch and the monitored metric, so a restore
+    # resumes training exactly, not just inference.
+    def _maybe_snapshot(self, epoch: int, state: TrainState,
+                        best_val: float) -> None:
+        """Every-N-epochs snapshot to <checkpoint_dir>/epoch-<E> (E the
+        1-based epoch count, as the reference's '<ds>-<E>epochs.ckpt')."""
+        n = self.checkpoint_every_n_epochs
+        if n and self.checkpoint_dir and (epoch + 1) % n == 0:
+            self.save_checkpoint(state, epoch, best_val,
+                                 name=f"epoch-{epoch + 1}")
+
+    def save_checkpoint(self, state: TrainState, epoch: int,
+                        best_val: float, name: str = "best") -> None:
+        """Write <checkpoint_dir>/<name>, one torch.save file: the
+        parameters (detached, on the CPU), the optimizer's state_dict, the
+        dropout generator's state (a sharded fit's: this rank's node and
+        edge streams), the step, the epoch and best_val_loss. It is
+        written under a temporary name and renamed over the old file, so
+        an interrupted save leaves the previous checkpoint whole."""
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        path = os.path.join(self.checkpoint_dir, name)
+        gen = state.generator
+        rng = ({"node": gen.node.get_state(), "edge": gen.edge.get_state()}
+               if isinstance(gen, DropoutGenerators) else gen.get_state())
+        payload = {"params": {group: [{k: v.detach().cpu()
+                                       for k, v in d.items()}
+                                      for d in state.params[group]]
+                              for group in state.params},
+                   "opt_state": state.opt.state_dict(),
+                   "rng": rng,
+                   "step": state.step,
+                   "epoch": int(epoch),
+                   "best_val_loss": float(best_val)}
+        tmp = f"{path}.tmp-{os.getpid()}"
+        try:
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    @staticmethod
+    def load_checkpoint(checkpoint_path: str, device="cuda") -> dict:
+        """A checkpoint's payload (save_checkpoint) with its tensors on
+        `device`, the parameters as plain tensors. `checkpoint_path` is a
+        checkpoint file itself (.../best, .../epoch-20) or a checkpoint_dir
+        that holds "best"."""
+        dev = resolve_device(device)
+        path = checkpoint_path
+        if os.path.isdir(path):
+            path = os.path.join(path, "best")
+        return torch.load(path, map_location=dev, weights_only=True)
+
+    def resume_state(self, checkpoint_dir: Optional[str] = None
+                     ) -> TrainState:
+        """The TrainState a saved checkpoint holds (full resume): its
+        parameters requiring grad, an adam_l2 optimizer over them with the
+        saved state (moments, step count, learning rate) loaded, and a
+        generator with the saved dropout stream's state, not re-seeded.
+        `checkpoint_dir` (default: the trainer's) as load_checkpoint takes
+        it. A sharded fit's checkpoint holds rank 0's streams only and is
+        not resumed (ValueError)."""
+        ck = self.load_checkpoint(checkpoint_dir or self.checkpoint_dir,
+                                  self.device)
+        if isinstance(ck["rng"], dict):
+            raise ValueError("a sharded fit's checkpoint holds rank 0's "
+                             "dropout streams only; it restores parameters "
+                             "(load_checkpoint), not a run")
+        params = ck["params"]
+        for p in gat.parameters(params):
+            p.requires_grad_(True)
+        opt = O.adam_l2(gat.parameters(params), self.learning_rate,
+                        self.weight_decay)
+        opt_state = ck["opt_state"]
+        for st in opt_state["state"].values():
+            # Adam (neither capturable nor fused) keeps its step count on
+            # the CPU; load_checkpoint mapped it to the device
+            st["step"] = st["step"].cpu()
+        opt.load_state_dict(opt_state)
+        gen = torch.Generator(device=resolve_device(self.device))
+        gen.set_state(ck["rng"].cpu())
+        return TrainState(params, opt, gen)

@@ -33,11 +33,19 @@ class RunConfig:
     attention_penalty: float = 0.0
     patience: int = 100
     exec_type: str = "train"
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every_n_epochs: int = 0    # also save epoch-N snapshots
     seed: int = 0
     synthetic: Optional[bool] = None      # None = real data if present
     log_every: int = 0
+    metrics_file: Optional[str] = None    # JSONL stream of epoch rows
+    tensorboard_dir: Optional[str] = None
+    track_grads: bool = False             # gradient histograms
     backend: str = "kernel"               # kernel | segment
     layer_type: str = "custom"            # custom | naive (backend naive)
+    # neighbour-sampled minibatches (Planetoid only), e.g. "10,10"
+    sampling_fanouts: Optional[str] = None
+    sampling_batch_size: int = 128
     device: str = "cuda"
     reorder: Optional[str] = None         # "rcm": reorder + block layout;
     #                                       "cluster": + the hybrid layout

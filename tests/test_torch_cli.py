@@ -14,11 +14,19 @@ from gat_pytorch_tpu_torch.models import gat
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_cli_trains_cora_stand_in_on_cpu():
+@pytest.fixture(autouse=True)
+def in_tmp_path(tmp_path, monkeypatch):
+    """The CLI checkpoints to ./checkpoints by default: each in-process
+    run writes in a directory of its own (the subprocesses, which run
+    from the repository's root, are given --checkpoint_dir)."""
+    monkeypatch.chdir(tmp_path)
+
+
+def test_cli_trains_cora_stand_in_on_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "gat_pytorch_tpu_torch.cli.train",
          "--dataset", "Cora", "--device", "cpu", "--num_epochs", "3",
-         "--log_every", "1"],
+         "--log_every", "1", "--checkpoint_dir", str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
@@ -31,11 +39,11 @@ def test_cli_trains_cora_stand_in_on_cpu():
     assert sum(line.startswith("{'train_loss'") for line in lines) == 3
 
 
-def test_cli_trains_with_rcm_reorder_on_cpu():
+def test_cli_trains_with_rcm_reorder_on_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "gat_pytorch_tpu_torch.cli.train",
          "--dataset", "Cora", "--reorder", "rcm", "--device", "cpu",
-         "--num_epochs", "2"],
+         "--num_epochs", "2", "--checkpoint_dir", str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     metrics = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -81,11 +89,11 @@ def test_cli_trains_ppi_paper_faithful_on_cpu():
     assert gat.PATH_TRACE == ["v4_table"] * (3 * (2 * 11 + 2))
 
 
-def test_cli_trains_pattern_stand_in_on_cpu():
+def test_cli_trains_pattern_stand_in_on_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "gat_pytorch_tpu_torch.cli.train",
          "--dataset", "PATTERN", "--device", "cpu", "--num_epochs", "2",
-         "--log_every", "1"],
+         "--log_every", "1", "--checkpoint_dir", str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "synthetic stand-in" in proc.stderr

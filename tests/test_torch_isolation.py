@@ -121,7 +121,9 @@ def _tiny():
     return cfg, g
 
 
-def test_entry_points_refuse_cpu_unless_asked(no_gpu):
+def test_entry_points_refuse_cpu_unless_asked(no_gpu, tmp_path,
+                                             monkeypatch):
+    monkeypatch.chdir(tmp_path)       # the CLI checkpoints to ./checkpoints
     cfg, g = _tiny()
     params = gat.init_gat_model(cfg, device="cpu")
     trainer = Trainer(cfg=cfg, task=make_task("Cora"), learning_rate=0.01,
@@ -144,16 +146,42 @@ def test_entry_points_refuse_cpu_unless_asked(no_gpu):
     assert out.shape == (g.num_nodes, 3) and torch.isfinite(out).all()
 
 
-def test_cli_refuses_unported_flags():
+class _Reached(Exception):
+    pass
+
+
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch, capsys):
+    """The reorder flags on the batched datasets are still refused; the
+    flags that raised until their ports (sampling, checkpoints, metrics,
+    --exec_type load) now parse and reach the Trainer, or the load
+    branch, which finds no checkpoint here."""
+    from gat_pytorch_tpu_torch.train import trainer as T
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="full graph"):
         cli.main(["--device", "cpu", "--dataset", "PPI", "--reorder",
                   "cluster"])
-    for flags in (["--dataset", "Cora", "--sampling_fanouts", "8,8"],
-                  ["--dataset", "Cora", "--checkpoint_dir", "ckpt"],
-                  ["--dataset", "Cora", "--metrics_file", "m.jsonl"],
-                  ["--dataset", "PPI", "--exec_type", "load"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    reached = []
+
+    def fit_epochs(self, train_data, val_data, reshuffle=None, params=None):
+        reached.append((self, reshuffle))
+        raise _Reached
+
+    monkeypatch.setattr(T.Trainer, "fit_epochs", fit_epochs)
+    for flags, check in (
+            (["--dataset", "Cora", "--sampling_fanouts", "8,8"],
+             lambda tr, rs: rs.__self__.fanouts == [8, 8]),
+            (["--dataset", "Cora", "--checkpoint_dir", "ckpt"],
+             lambda tr, rs: tr.checkpoint_dir == "ckpt"),
+            (["--dataset", "Cora", "--metrics_file", "m.jsonl"],
+             lambda tr, rs: tr.metrics_file == "m.jsonl")):
+        with pytest.raises(_Reached):
             cli.main(["--device", "cpu"] + flags)
+        assert check(*reached[-1]), flags
+    assert cli.main(["--device", "cpu", "--dataset", "PPI", "--exec_type",
+                     "load"]) == 0
+    assert "There is no saved checkpoint for this dataset!" in \
+        capsys.readouterr().out
+    assert len(reached) == 3
     with pytest.raises(NotImplementedError, match="full graph"):
         cli.main(["--device", "cpu", "--dataset", "PATTERN", "--reorder",
                   "rcm"])
@@ -206,6 +234,30 @@ def test_parallel_and_v2_modules_are_among_the_checked():
             "gat_pytorch_tpu_torch.parallel.train",
             "gat_pytorch_tpu_torch.parallel.multihost",
             "gat_pytorch_tpu_torch.ops.cuda.segment_attention"} <= mods
+
+
+def test_checkpoint_logging_and_sampling_modules_are_among_the_checked():
+    """The jax-free import check walks the modules of checkpoints and
+    logging, sampling and prefetch too; none of them, nor the trainer or
+    the CLI, imports TensorBoard unless a tensorboard_dir asks for it."""
+    mods = set(_modules())
+    assert {"gat_pytorch_tpu_torch.data.sampling",
+            "gat_pytorch_tpu_torch.data.prefetch",
+            "gat_pytorch_tpu_torch.train.logging",
+            "gat_pytorch_tpu_torch.utils.lightning_import"} <= mods
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['gat_pytorch_tpu'] = None\n"
+            "import gat_pytorch_tpu_torch.cli.train\n"
+            "import gat_pytorch_tpu_torch.train.trainer as T\n"
+            "import gat_pytorch_tpu_torch.utils.lightning_import\n"
+            "T.MetricsLogger(None, None).close()\n"
+            "assert not any(k.startswith(('tensorboard',\n"
+            "                             'torch.utils.tensorboard'))\n"
+            "               for k in sys.modules), 'tensorboard imported'\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_sharded_entry_points_refuse_cpu_unless_asked(no_gpu, tmp_path):

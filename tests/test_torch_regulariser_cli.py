@@ -16,9 +16,12 @@ from gat_pytorch_tpu_torch.models import gat as tgat
     (["--dataset", "Cora", "--attention_reward", "0.1"], "v5"),
     (["--dataset", "PPI", "--attention_penalty", "0.05"], "v5"),
     (["--dataset", "Cora", "--layer_type", "naive"], "naive")])
-def test_cli_trains_an_epoch_with_the_new_flags(flags, path, capsys):
+def test_cli_trains_an_epoch_with_the_new_flags(flags, path, capsys,
+                                                tmp_path, monkeypatch):
     """In-process, so that PATH_TRACE and the printed rows can be read;
-    the regularised runs report a norm above 0, the naive one 0."""
+    the regularised runs report a norm above 0, the naive one 0. In a
+    directory of its own: the CLI checkpoints to ./checkpoints."""
+    monkeypatch.chdir(tmp_path)
     tgat.PATH_TRACE.clear()
     assert cli.main(["--device", "cpu", "--num_epochs", "1",
                      "--log_every", "1"] + flags) == 0

@@ -125,22 +125,56 @@ def masks_job(job):
 
 
 def fit_job(job):
-    """Trainer.fit_sharded: the history and the final parameters."""
+    """Trainer.fit_sharded: the history and the final parameters. Options:
+    job["reshuffle"] rotates the train graphs by the epoch (a reshuffle
+    that builds each epoch anew); job["checkpoint_dir"] (formatted with
+    this process's rank) and job["every"] the trainer's checkpoints, whose
+    files are listed; job["patience"]; job["spy_prefetch"] records the
+    trainer's prefetch iterators (their put flag, and whether each thread
+    still runs when the fit returns)."""
     from gat_pytorch_tpu_torch.models import gat
+    from gat_pytorch_tpu_torch.train import trainer as T
     from gat_pytorch_tpu_torch.train.tasks import make_task
-    from gat_pytorch_tpu_torch.train.trainer import Trainer
     mesh = _mesh(job)
     graphs = [graph_of(a) for a in job["graphs"]]
     n_train = job["n_train"]
-    tr = Trainer(cfg=gat.GATConfig(**job["cfg"]),
-                 task=make_task(job["task"], **job.get("task_kw", {})),
-                 learning_rate=job["lr"], max_epochs=job["epochs"],
-                 patience=100, seed=0, device="cpu",
-                 backend=job["backend"])
-    res = tr.fit_sharded(mesh, graphs[:n_train], graphs[n_train:],
-                         params=params_of(job["params"]))
+    train = graphs[:n_train]
+    ckpt = job.get("checkpoint_dir")
+    if ckpt is not None:
+        ckpt = ckpt.format(rank=torch.distributed.get_rank())
+    spied, plain = [], T.PrefetchIterator
+
+    class Spy(plain):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            spied.append((kw.get("put", True), self))
+
+    tr = T.Trainer(cfg=gat.GATConfig(**job["cfg"]),
+                   task=make_task(job["task"], **job.get("task_kw", {})),
+                   learning_rate=job["lr"], max_epochs=job["epochs"],
+                   patience=job.get("patience", 100), seed=0, device="cpu",
+                   backend=job["backend"], checkpoint_dir=ckpt,
+                   checkpoint_every_n_epochs=job.get("every", 0),
+                   prefetch=job.get("prefetch", True))
+    reshuffle = None
+    if job.get("reshuffle"):
+        def reshuffle(epoch):
+            k = epoch % len(train)
+            return train[k:] + train[:k]
+    if job.get("spy_prefetch"):
+        T.PrefetchIterator = Spy
+    try:
+        res = tr.fit_sharded(mesh, train, graphs[n_train:],
+                             reshuffle=reshuffle,
+                             params=params_of(job["params"]))
+    finally:
+        T.PrefetchIterator = plain
     return dict(history=res.history, best_epoch=res.best_epoch,
-                params=[t.detach() for t in gat.parameters(res.final_params)])
+                stopped_early=res.stopped_early,
+                params=[t.detach() for t in gat.parameters(res.final_params)],
+                files=(sorted(os.listdir(ckpt))
+                       if ckpt is not None and os.path.isdir(ckpt) else []),
+                prefetch=[(put, it.alive) for put, it in spied])
 
 
 def pod_job(job):
