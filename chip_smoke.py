@@ -75,7 +75,14 @@ dataset:
           (GAT_TPU_KERNEL_DTYPE and GAT_TPU_GEMM_DTYPE = bfloat16), each
           layer the partial v2 op (kernels v2_forward or v2_forward_bf16,
           v2_backward, and segment_sum_sorted for the gradients of the
-          h_src gather and the two score gathers).
+          h_src gather and the two score gathers);
+  and the dst-owned layout (Trainer.fit_sharded(dst_owned=True): each
+  graph partitioned by destination, parallel/partition.py) on the same
+  group: Cora dst-owned (the sharded_v5 branch: the v5 parts op over the
+  shard's rows), Pubmed dst-owned (RCM, sharded_v7: the windowed parts
+  op over the shard's own block layout), Pubmed cluster dst-owned
+  (sharded_v7_hybrid: both parts ops) and PPI paper_faithful dst-owned
+  (sharded_v4_table: the table op over the shard's rows).
 
 Phases (every failure is fatal):
   1. build the CUDA kernels from gat_pytorch_tpu_torch/ops/cuda/csrc
@@ -155,6 +162,17 @@ Phases (every failure is fatal):
      contract: the partial kernel over 4 contiguous slices of the edge
      list, summed and divided, against the unsharded normalised kernel
      and its plain version;
+  2f. the dst-owned branches' kernels shard by shard, without a process
+     group: each of 4 shards of Cora (v5 parts), the RCM Pubmed layout
+     (windowed parts), the cluster-ordered Pubmed (both parts ops over
+     the shard's layout and its remainder) and a PPI batch (table op),
+     partitioned by destination (N/4 destination rows, the N-row h
+     table), forward and backward with dropout against their plain
+     versions (d(h) over all N rows); the shards' outputs without
+     dropout joined (the global cap' the largest shard cap') against the
+     unsharded op; and the v5 and windowed parts ops over a shard without
+     edges (a padded bucket's last shard): zeros, cap' -1e30, code 0,
+     zero gradients and no launch;
   3. train each stand-in for the epochs of CELLS through the port's
      Trainer (the code the CLI runs), with every launch counter set to 0
      just before and read just after; the train loss must be finite and
@@ -187,7 +205,12 @@ Phases (every failure is fatal):
      sharded segment path (a bfloat16 model at 1e-2 against the float32
      ones, and live), hold two Cora sharded fits from one seed to equal
      bits, and time and profile the sharded step beside the
-     single-device step;
+     single-device step; then the dst-owned cells (DST_CELLS) the same
+     way, each held against the single-device kernel path and the
+     dst-owned segment path, two Cora dst-owned fits to equal bits, and
+     each dst-owned step timed in turns beside the cut-neighbourhood step
+     of the same cell with the collectives each makes a step
+     (`[collectives]` lines: kind, shape, bytes);
   4d. in a temporary directory under build/: a Cora fit of 10 epochs
      with checkpoint_every_n_epochs=5 and a metrics file (the JSONL rows
      must equal the history); resume_state from its epoch-5 snapshot and
@@ -319,7 +342,8 @@ CELL_ENV = {"Pubmed": F32, "Pubmed cluster": F32, "Pubmed attention": F32,
             "Cora two-phase bf16 kernels": {**TWO_PHASE, **KERNELS_BF16},
             "Pubmed cluster bf16 kernels": KERNELS_BF16,
             "Cora sharded bf16 kernels": {"GAT_TPU_KERNEL_DTYPE": "bfloat16",
-                                          **GEMM_BF16}}
+                                          **GEMM_BF16},
+            "Pubmed dst-owned": F32, "Pubmed cluster dst-owned": F32}
 # the numerics knobs a bfloat16 fit sets: without them, the same model
 # runs the float32 path (phase 4)
 BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
@@ -382,6 +406,19 @@ PATH_KERNELS = {
                            {"v2_backward": 1, "segment_sum_sorted": 3}),
     "sharded_v4_partial bf16": (("v2_forward_bf16",),
                                 {"v2_backward": 1, "segment_sum_sorted": 3}),
+    # the dst-owned layer's branches: the parts ops (the single sweep)
+    # over a shard's rows, or the table op over them; the global cap' and
+    # the epilogue are plain torch and collectives
+    "sharded_v5": (("source_scores", "v5_forward"),
+                   {"v5_backward_parts": 1}),
+    "sharded_v7": (("source_scores", "window_forward"),
+                   {"window_backward_parts": 1}),
+    "sharded_v7_hybrid": (("source_scores", "window_forward", "v5_forward"),
+                          {"window_backward_parts": 1,
+                           "v5_backward_parts": 1}),
+    "sharded_v4_table": (("table_forward",),
+                         {"table_dden": 1, "table_backward": 1,
+                          "segment_sum_sorted": 2}),
     # both parts ops sum their d(h) by sender and read no
     # GAT_TPU_DH_REDUCE_NT
     "v7_hybrid bf16 kernels": (("source_scores_bf16", "window_forward_bf16",
@@ -428,6 +465,22 @@ SHARDED_CELLS = {
         "sharded_v4_partial attention", 3),
 }
 SHARDED_REPRO = ("Cora sharded", 5)
+# the dst-owned fits of phase 4c, on the same one-rank group
+# (Trainer.fit_sharded(dst_owned=True): the graphs partitioned by
+# destination, a Pubmed graph's per-shard block layout from its own, plain
+# or hybrid), as CELLS; and the cells of phase 2f's per-shard holds at
+# K = DST_K shards without a process group: name -> (graph, partition
+# keywords, branch, layer shape)
+DST_CELLS = {
+    "Cora dst-owned": ("Cora", {}, 20, "sharded_v5", 2),
+    "Pubmed dst-owned": ("Pubmed", {"reorder": "rcm"}, 10, "sharded_v7", 2),
+    "Pubmed cluster dst-owned": ("Pubmed", {"reorder": "cluster"}, 10,
+                                 "sharded_v7_hybrid", 2),
+    "PPI paper_faithful dst-owned": ("PPI", {"paper_faithful": True}, 5,
+                                     "sharded_v4_table", 3),
+}
+DST_REPRO = ("Cora dst-owned", 5)
+DST_K = 4
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2281,6 +2334,238 @@ def main():
         check_cut(cora if label.startswith("Cora") else ppi,
                   v2_cases[label], label)
 
+    elapsed("2f")
+    # -- 2f. the dst-owned layout's kernels, shard by shard -----------------
+    from gat_pytorch_tpu_torch.graph import transforms as TT
+    from gat_pytorch_tpu_torch.parallel import (dst_shard,
+                                                partition_edges_by_dst)
+
+    def hold_v5_parts(label, args, g, dden, drop):
+        """The v5 parts forward and backward (d(h) over all the table's
+        rows) on one edge list against their plain versions; returns the
+        forward's parts without dropout."""
+        h, a_src, sd, s_src, snd, rcv, order, er, dptr, sptr = args
+        got = v5.v5_forward(h, a_src, sd, drop, snd, rcv, er, SLOPE, dptr,
+                            s_src=s_src)
+        want = v5.v5_forward_plain(h, a_src, sd, drop, snd, rcv, er, SLOPE,
+                                   s_src=s_src)
+        hold_all(f"{label} v5_forward (parts)", ("num", "den", "cap'"),
+                 got[:3], want[:3], "v5_forward")
+        if int(got[3]) != int(want[3]):
+            fail(f"{label}: v5_forward's argmax code differs")
+        got = v5.v5_backward(h, a_src, sd, drop, snd, rcv, er, SLOPE, g,
+                             None, dden, None, True, normalize=False,
+                             dst_ptr=dptr, src_order=order, src_ptr=sptr,
+                             s_src=s_src)
+        want = v5.v5_backward_by_sender_plain(
+            h, a_src, sd, drop, snd, rcv, er, SLOPE, g, None, dden, None,
+            True, normalize=False, s_src=s_src, src_order=order,
+            src_ptr=sptr)
+        if got[0].shape != h.shape:
+            fail(f"{label}: v5_backward_parts' d(h) of shape "
+                 f"{tuple(got[0].shape)}, not the table's {tuple(h.shape)}")
+        hold_all(f"{label} v5_backward_parts",
+                 ("d_h", "d_drop", "d_s_dst", "d_a_src"), got, want,
+                 "v5_backward_parts", 0.0)
+        return v5.v5_forward(h, a_src, sd, None, snd, rcv, er, SLOPE, dptr,
+                             s_src=s_src)[:3]
+
+    def hold_window_parts(label, args, bl, g, dden, drop):
+        """The same for the windowed parts op over a shard's layout."""
+        h, a_src, sd, s_src = args
+        got = wa.window_forward(h, a_src, sd, drop, bl, SLOPE, s_src=s_src)
+        want = wa.window_forward_plain(h, a_src, sd, drop, bl, SLOPE,
+                                       s_src=s_src)
+        hold_all(f"{label} window_forward (parts)", ("num", "den", "cap'"),
+                 got[:3], want[:3], "window_forward")
+        got = wa.window_backward(h, a_src, sd, drop, bl, SLOPE, g, None,
+                                 dden, None, True, normalize=False,
+                                 s_src=s_src)
+        want = wa.window_backward_plain(h, a_src, sd, drop, bl, SLOPE, g,
+                                        None, dden, None, True,
+                                        normalize=False, s_src=s_src)
+        if got[0].shape != h.shape:
+            fail(f"{label}: window_backward_parts' d(h) of shape "
+                 f"{tuple(got[0].shape)}, not the table's {tuple(h.shape)}")
+        hold_all(f"{label} window_backward_parts",
+                 ("d_h", "d_drop", "d_s_dst", "d_a_src"), got, want,
+                 "window_backward_parts", 0.0)
+        return wa.window_forward(h, a_src, sd, None, bl, SLOPE,
+                                 s_src=s_src)[:3]
+
+    def drop_mask(slots, nh):
+        return ((torch.rand((slots, nh), generator=gen, device=dev)
+                 >= DROPOUT).float() / (1.0 - DROPOUT))
+
+    def hold_dst_shards(label, graph, part, branch, nh, f):
+        """The dst-owned branch's kernels on each of DST_K shards of
+        `graph` partitioned by destination (N / DST_K rows, the h table's
+        N rows): forward and backward against their plain versions with
+        dropout; then the shards' normalised outputs without dropout (the
+        global cap' the largest shard cap', one bound B for all), joined
+        in row order, against the unsharded layer's op on the graph."""
+        graph = graph.to(dev)
+        g2, eps_ = partition_edges_by_dst(graph.to("cpu"), DST_K, **part)
+        n_, d = g2.num_nodes, nh * f
+        rows = n_ // DST_K
+        h = torch.randn((n_, d), generator=gen, device=dev)
+        a_src = torch.randn((d, nh), generator=gen, device=dev) / d ** 0.5
+        s_dst = torch.randn((n_, nh), generator=gen, device=dev)
+        s_src = v5.source_scores(h, a_src)
+        s_eff = (s_dst - (s_src.max() + s_dst.max())).contiguous()
+
+        def table_logits(snd, rcv, emask):
+            score = (seg.gather_rows(s_src, snd)
+                     + seg.gather_rows(s_dst, rcv))
+            return torch.where(
+                emask[:, None],
+                torch.nn.functional.leaky_relu(score, PF_SLOPE),
+                torch.full_like(score, ta.NEG_INF)).contiguous()
+
+        outs, parts, real = [], [], []
+        for j in range(DST_K):
+            sh = dst_shard(g2, j, DST_K).to(dev)
+            rcv = (sh.receivers - j * rows).contiguous()
+            real.append(sh.num_real_edges)
+            g = torch.randn((rows, d), generator=gen, device=dev)
+            tag = f"{label} shard {j}/{DST_K}"
+            if branch == "table":
+                lg = table_logits(sh.senders, sh.receivers, sh.edge_mask)
+                fwd = (lg, h, drop_mask(eps_, nh), sh.senders, rcv, rows,
+                       sh.num_real_edges, 0.0)
+                got = ta.table_forward(*fwd, dst_ptr=sh.dst_ptr)
+                want = ta.table_forward_plain(*fwd)
+                hold_all(f"{tag} table_forward", ("out", "den"), got, want,
+                         "table_forward")
+                bwd = (*fwd[:3], sh.senders, rcv, sh.num_real_edges, 0.0, g,
+                       want[0], want[1], True)
+                got = ta.table_backward(*bwd, src_order=sh.src_order,
+                                        src_ptr=sh.src_ptr)
+                want = ta.table_backward_by_sender_plain(
+                    *bwd, sh.src_order, sh.src_ptr)
+                if got[0].shape != h.shape:
+                    fail(f"{tag}: table_backward's d(h) of shape "
+                         f"{tuple(got[0].shape)}")
+                hold_all(f"{tag} table_backward",
+                         ("d_h", "d_logits", "d_drop"), got, want,
+                         "table_backward", 0.0)
+                outs.append(ta.table_forward(
+                    lg, h, None, sh.senders, rcv, rows, sh.num_real_edges,
+                    0.0, dst_ptr=sh.dst_ptr)[0])
+                continue
+            dden = torch.randn((rows, nh), generator=gen, device=dev)
+            sd = s_eff[j * rows:(j + 1) * rows].contiguous()
+            bl = sh.block_layout
+            acc = []
+            if branch in ("v7", "hybrid"):
+                acc.append(hold_window_parts(
+                    f"{tag} ({bl.num_real} of {bl.num_slots} slots real)",
+                    (h, a_src, sd, s_src), bl, g, dden,
+                    drop_mask(bl.num_slots, nh)))
+            lists = []
+            if branch == "v5":
+                lists = [(sh.senders, rcv, sh.src_order, sh.num_real_edges,
+                          sh.dst_ptr, sh.src_ptr)]
+            elif branch == "hybrid":
+                lists = [(bl.rem_send, bl.rem_recv, bl.rem_order, bl.rem_e,
+                          bl.rem_dst_ptr, bl.rem_src_ptr)]
+            for snd, rcv_, order, er, dptr, sptr in lists:
+                acc.append(hold_v5_parts(
+                    f"{tag} ({er} real edges of {snd.shape[0]})",
+                    (h, a_src, sd, s_src, snd, rcv_, order, er, dptr, sptr),
+                    g, dden, drop_mask(snd.shape[0], nh)))
+            parts.append((sum(p[0] for p in acc), sum(p[1] for p in acc),
+                          torch.stack([p[2] for p in acc]).max()))
+        if branch == "table":
+            joined = torch.cat(outs)
+            want = ta.table_forward(
+                table_logits(graph.senders, graph.receivers,
+                             graph.edge_mask), h, None, graph.senders,
+                graph.receivers, n_, graph.num_real_edges, 0.0,
+                dst_ptr=graph.dst_ptr)[0]
+            key = "table_forward"
+        else:
+            cap_g = torch.stack([p[2] for p in parts]).max()
+            joined = torch.cat([epilogue(torch, num, den, cap_g, f, 1e-8)[0]
+                                for num, den, _ in parts])
+            if branch == "v7":
+                want = wa.fused_gat_window_v7(h, a_src, s_dst, None,
+                                              graph.block_layout, None, n_,
+                                              nh, f, 1e-8, SLOPE)
+                key = "window_forward"
+            else:
+                want = v5.fused_gat_table_autocap(
+                    h, a_src, s_dst, None, graph.senders, graph.receivers,
+                    graph.src_order, graph.num_real_edges, None, n_, nh, f,
+                    1e-8, SLOPE, src_ptr=graph.src_ptr,
+                    dst_ptr=graph.dst_ptr)
+                key = "v5_forward"
+        torch.cuda.synchronize()
+        rem = ("" if branch != "hybrid" else
+               f", remainders {g2.block_layout.rem_count.tolist()}")
+        print(f"[dst-owned] {label}: {DST_K} shards of {rows} rows and "
+              f"{eps_} edge slots ({real} real edges{rem}); the joined "
+              f"outputs against the unsharded layer's op")
+        hold(f"{label} joined", joined, want, errs[key])
+
+    with knobs(F32):
+        for label, graph, part, branch, (nh, f) in (
+                ("Cora", cora, {}, "v5", SHAPES["Cora"][0]),
+                ("Pubmed RCM", pubmed_cpu, dict(src_windows=True), "v7",
+                 SHAPES["Pubmed"][0]),
+                ("Pubmed cluster", hybrid_cpu,
+                 dict(src_windows=True, hybrid=True), "hybrid",
+                 SHAPES["Pubmed"][0]),
+                ("PPI paper_faithful", ppi, {}, "table",
+                 SHAPES["PPI"][0])):
+            print(f"[kernels] dst-owned shards of {label}, {nh}x{f} "
+                  f"({branch})")
+            hold_dst_shards(f"{label} {nh}x{f}", graph, part, branch, nh, f)
+
+    # empty edge lists: the last of DST_K shards of a 32-node bucket of 24
+    # real nodes holds only padding rows; the parts ops give zeros, cap'
+    # -1e30 and code 0 as the JAX ops do, launch nothing, and have no
+    # gradient
+    rng_ = np.random.default_rng(1)
+    tiny = TT.canonicalize(
+        rng_.normal(size=(24, 16)).astype(np.float32),
+        np.repeat(np.arange(24), 3), rng_.integers(0, 24, 72),
+        node_bucket=32, edge_bucket=128, pad_multiple=32)
+    tg2, _ = partition_edges_by_dst(tiny, DST_K, pad_multiple=32,
+                                    src_windows=True, nb=128, eb=128)
+    empty = dst_shard(tg2, DST_K - 1, DST_K).to(dev)
+    if empty.num_real_edges or empty.block_layout.num_real:
+        fail("the padded bucket's last shard has real edges")
+    rows_e = tg2.num_nodes // DST_K
+    leaves = [torch.randn(shape, generator=gen, device=dev).requires_grad_()
+              for shape in ((tg2.num_nodes, 16), (16, 2), (rows_e, 2))]
+    rcv = (empty.receivers - (DST_K - 1) * rows_e).contiguous()
+    before = dict(build.LAUNCHES)
+    for op, run in (
+            ("v5_sweep1_parts", lambda: v5.v5_sweep1_parts(
+                *leaves, None, empty.senders, rcv, empty.src_order, 0,
+                rows_e, 2, 8, 1e-8, SLOPE, tg2.num_nodes,
+                dst_ptr=empty.dst_ptr, src_ptr=empty.src_ptr)),
+            ("v7_sweep1_parts", lambda: wa.v7_sweep1_parts(
+                *leaves, None, empty.block_layout, rows_e, 2, 8, 1e-8,
+                SLOPE, tg2.num_nodes))):
+        num, den, cap, code = run()
+        (num.sum() + den.sum() + cap).backward()
+        torch.cuda.synchronize()
+        grads = [t.grad for t in leaves]
+        if (num.any() or den.any() or cap.item() != -1.0000000150474662e30
+                or int(code) != 0 or any(not torch.isfinite(x).all()
+                                         or x.any() for x in grads)):
+            fail(f"{op} over no edges: not (0, 0, -1e30, 0) with zero "
+                 f"gradients")
+        for t in leaves:
+            t.grad = None
+        print(f"[dst-owned] {op} over a shard without edges on the card: "
+              f"num 0, den 0, cap' {cap.item():.6e}, code 0, zero "
+              f"gradients")
+    if dict(build.LAUNCHES) != before:
+        fail("a parts op over no edges launched a kernel")
+
     if "--checks-only" in sys.argv[1:]:
         print("chip_smoke: --checks-only: every kernel built and held "
               "against its plain version; no fit, no timing, no result line")
@@ -2661,21 +2946,23 @@ def main():
                                                 multihost, shard_batch)
     from gat_pytorch_tpu_torch.ops import collectives as C
 
-    def sharded_logits_and_grads(trainer, params, shard, mesh, backend):
+    def sharded_logits_and_grads(trainer, params, shard, mesh, backend,
+                                 dst_owned=False):
         """The sharded model's logits and gradients of its train loss (the
-        sharded step's, the regulariser included, without the update)."""
+        sharded step's, the regulariser included, without the update), in
+        the cut-neighbourhood or the dst-owned layout."""
         for q in gat.parameters(params):
             q.grad = None
         coef = trainer.task.attention_coef
         out = gat.gat_model_apply(params, trainer.cfg, shard,
                                   device=dev, backend=backend,
-                                  edge_axis=mesh.edge,
+                                  edge_axis=mesh.edge, dst_owned=dst_owned,
                                   return_attention=coef != 0.0)
         logits = out[0] if coef != 0.0 else out
         loss = trainer.task.loss(logits, shard, "train")
         if coef != 0.0:
             loss = loss + coef * gat.calc_attention_norm(
-                shard, out[1], edge_axis=mesh.edge)
+                shard, out[1], edge_axis=mesh.edge, dst_owned=dst_owned)
         loss.backward()
         C.psum_grads(gat.parameters(params), mesh.data)
         torch.cuda.synchronize()
@@ -2802,6 +3089,106 @@ def main():
             for i, ((label, step), t) in enumerate(zip(steps, times)):
                 profile_steps(torch, step, t, f"{name} {label}",
                               top=12 if i == 0 else 0)
+
+        # -- the dst-owned layout on the same group: fits, holds, a
+        # reproducibility pair, and its step beside the cut-neighbourhood
+        # step of the same cell with the collectives of each
+        def dst_shard_of(graph):
+            """This rank's dst shard of `graph` over the edge axis, with
+            per-shard block layouts where the graph has one (as
+            fit_sharded(dst_owned=True) builds them), on the card."""
+            bl = graph.block_layout
+            g2, _ = partition_edges_by_dst(
+                graph.to("cpu"), mesh.edge.size, src_windows=bl is not None,
+                hybrid=bl is not None and bl.rem_send is not None)
+            return dst_shard(g2, mesh.edge.index, mesh.edge.size).to(dev)
+
+        owned = {}
+        for name, spec in DST_CELLS.items():
+            owned[name] = train_cell(
+                name, spec, lambda tr, td, vd, rs: tr.fit_sharded(
+                    mesh, td, vd, reshuffle=rs, dst_owned=True))
+        for name, (cfg, trainer, params, graph) in owned.items():
+            shard = dst_shard_of(graph)
+            env = CELL_ENV.get(name, {})
+            with knobs(env):
+                lk, gk = sharded_logits_and_grads(trainer, params, shard,
+                                                  mesh, "kernel", True)
+            if lk.shape != (graph.num_nodes, cfg.num_classes) or \
+                    not torch.isfinite(lk).all():
+                fail(f"{name}: logits of shape {tuple(lk.shape)} or not "
+                     f"finite")
+            for label, fn in (
+                    ("single-device kernel",
+                     lambda: logits_and_grads(trainer, params, graph)),
+                    ("dst-owned segment",
+                     lambda: sharded_logits_and_grads(
+                         trainer, params, shard, mesh, "segment", True))):
+                gat.PATH_TRACE.clear()
+                with knobs(env):
+                    lo, go = fn()
+                print(f"[model] {name}: dst-owned kernel path vs {label} "
+                      f"path {gat.PATH_TRACE} on the card")
+                hold_model(name, label, lk, gk, lo, go, REL_TOL)
+
+        name, epochs = DST_REPRO
+        dataset, overrides = DST_CELLS[name][:2]
+        runs = []
+        for _ in range(2):
+            _, trainer, train_data, val_data, reshuffle = make_trainer(
+                dataset, overrides, epochs)
+            with knobs(CELL_ENV.get(name, {})):
+                result = trainer.fit_sharded(mesh, train_data, val_data,
+                                             reshuffle=reshuffle,
+                                             dst_owned=True)
+            torch.cuda.synchronize()
+            runs.append((result.history,
+                         gat.parameters(result.final_params)))
+        (hist_a, par_a), (hist_b, par_b) = runs
+        same_hist = hist_a == hist_b
+        same_par = all(torch.equal(x, y) for x, y in zip(par_a, par_b))
+        print(f"[repro] {name}: two fits of {epochs} epochs from seed 0: "
+              f"histories {'equal' if same_hist else 'DIFFER'}, parameters "
+              f"{'equal bits' if same_par else 'DIFFER'}; train_loss "
+              f"{[r['train_loss'] for r in hist_a]}")
+        if not (same_hist and same_par):
+            fail(f"{name}: two dst-owned fits from one seed differ")
+
+        for name, (cfg, trainer, params, graph) in owned.items():
+            env = CELL_ENV.get(name, {})
+            opt = torch.optim.Adam(gat.parameters(params), lr=0.0)
+            gens = DropoutGenerators.for_rank(trainer.seed + 1, mesh, dev)
+            steps = []
+            for label, batch, dst_owned in (
+                    ("dst-owned kernel path", dst_shard_of(graph), True),
+                    ("cut-neighbourhood kernel path",
+                     shard_batch([graph], mesh)[0], False)):
+                st = make_sharded_train_step(trainer.cfg, trainer.task, mesh,
+                                             dst_owned=dst_owned)
+                steps.append((label, under(
+                    env, lambda st=st, b=batch: st(params, opt, [b], gens))))
+            for label, step in steps:
+                with C.recording() as calls:
+                    step()
+                kinds = {}
+                for kind, shape, dtype in calls:
+                    key = f"{kind} {list(shape)} {str(dtype)[6:]}"
+                    kinds[key] = kinds.get(key, 0) + 1
+                print(f"[collectives] {name} {label}: {len(calls)} a step, "
+                      f"{C.collective_bytes(calls)} bytes: {kinds}")
+            # in turns (dst-owned, cut, cut, dst-owned): the host-bound
+            # step drifts within a call
+            runs = ([], [])
+            for i in (0, 1, 1, 0):
+                runs[i].append(step_time_ms(torch, steps[i][1]))
+            times = [sum(r) / len(r) for r in runs]
+            print(f"[time] {name} train step (forward, loss, backward, "
+                  f"Adam) on {card}, in turns: " + ", ".join(
+                      f"{label} {t:.4f} ms ({r[0]:.4f}, {r[1]:.4f})"
+                      for (label, _), t, r in zip(steps, times, runs)))
+            for (label, step), t in zip(steps, times):
+                profile_steps(torch, step, t, f"{name} {label}",
+                              top=12 if label.startswith("dst") else 0)
     finally:
         dist.destroy_process_group()
 

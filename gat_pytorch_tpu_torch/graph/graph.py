@@ -18,9 +18,9 @@ as they are, and the plain torch paths widen them to int64.
 `BlockLayout` is the counterpart of gat_pytorch_tpu/graph/graph.py:
 BlockLayout, the hybrid split-locality layout's remainder (`rem_send`,
 `rem_recv`, `rem_order`, `rem_e`) included, plus the index arrays the
-Hopper kernels walk. `rem_count`, the per-shard remainder counts of the
-sharded layouts, waits for the dst-owned layout (ROADMAP: what is left of
-parallel/).
+Hopper kernels walk, and `rem_count`, the per-shard remainder counts of
+a layout stacked over the shards of the dst-owned layout
+(parallel/partition.py).
 """
 
 from __future__ import annotations
@@ -73,6 +73,14 @@ class BlockLayout:
     package's; `rem_dst_ptr` and `rem_src_ptr` are its CSR offsets for
     the CUDA kernels, built once here instead of per call. All are None
     (rem_e 0) on a plain layout.
+
+    A layout stacked over K shards (parallel/partition.py) holds each
+    shard's arrays as its K-th equal slice (the offsets per shard: K
+    runs of rows + 1 and N + 1 entries; src_perm padded to the slots
+    with the pad slots), `rem_count` (K,) the real remainder edges of
+    each shard and rem_e their largest count; a shard's own layout
+    (parallel/sharding.dst_shard) has its rows' offsets, rem_e its own
+    count and rem_count None.
     """
     send: torch.Tensor       # (E7,) int32 senders, tile-grouped, src-sorted
     recv: torch.Tensor       # (E7,) int32 receivers, -1 on pad slots
@@ -101,6 +109,8 @@ class BlockLayout:
     #                          s's real remainder edges are
     #                          rem_order[rem_src_ptr[s]:rem_src_ptr[s+1]]
     rem_e: int = 0           # real (unpadded) remainder edges
+    rem_count: Optional[torch.Tensor] = None  # (K,) int32 of a stacked
+    #                          layout: each shard's real remainder edges
 
     @property
     def num_slots(self) -> int:

@@ -76,7 +76,31 @@ psum of num and den and the divide, on the segment path
 aggregate. The collectives (ops/collectives.py) carry shard_map's
 gradient semantics, so the parameters' gradients come out complete over
 the edge axis. The v5, v7, hybrid and v6 branches need edge_axis None or
-the dst-owned layout in the JAX package and are not taken.
+the dst-owned layout in the JAX package and are not taken there.
+
+dst_owned (with edge_axis: a graph partitioned by destination,
+parallel/partition.py, each rank's edges the in-edges of its N/K node
+rows, parallel/sharding.dst_shard) is the JAX package's boundary-free
+layer (`_dst_owned_layer`): the replicated product x @ W, then the
+attention over the shard's own rows, local but for the global cap, and
+one tiled all_gather of the (N/K, nh*f) output slices
+(GAT_TPU_AG_DTYPE=bfloat16: in bfloat16, read when the layer is called).
+On the kernel path it takes the JAX package's branches in its order:
+"sharded_v7" (the windowed parts op over the shard's block layout),
+"sharded_v7_hybrid" (the windowed and the v5 parts ops over a hybrid
+layout's two edge lists, single sweep only), "sharded_v5" (the v5 parts
+op, or under GAT_TPU_V10=0 v5_local_cap and fused_gat_table), each with
+the global cap' by the owner trick and the epilogue over the shard's
+rows; "sharded_v4_table" (paper_faithful, const_attention,
+return_attention, and whatever the others do not take: the table op over
+the shard's rows, the per-destination max without a pmax); the segment
+path is "dst_owned_segment", a local segment softmax. Every op reads the
+whole replicated h table by sender and writes the shard's rows. Between
+the layers of a dst-owned stack the node tables are varying
+(ops/collectives.py): the layer takes its parameters through vary, its
+output leaves through all_gather_varying, and gat_model_apply ends in
+owned_rows, so that the step runs no (N, nh*f) all_reduce and the
+parameters' gradients come out whole on every rank.
 
 GAT_TPU_GEMM_DTYPE=bfloat16 (`_gemm_dtype`, read when gat_model_apply or
 gat_layer_apply is called, on both backends) takes the products x @ W and
@@ -259,7 +283,8 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
                  edge_axis=None, *,
                  src_ptr: Optional[torch.Tensor] = None,
                  dst_ptr: Optional[torch.Tensor] = None,
-                 num_real_edges: Optional[int] = None) -> torch.Tensor:
+                 num_real_edges: Optional[int] = None,
+                 own: Optional[slice] = None) -> torch.Tensor:
     """(E, NH) edge logits after LeakyReLU, from node scores: zeros under
     const_attention, per-head a = [a_l || a_r] scores under paper_faithful,
     else the cross-head scores with the global max-cap BEFORE LeakyReLU.
@@ -272,7 +297,9 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
     skip them.
     edge_axis: the edges are this rank's shard over that axis; the
     replicated score tables enter the shard's edges through vary, and the
-    global cap is completed over the shards (_global_cap)."""
+    global cap is completed over the shards (_global_cap). own: the rows
+    of a dst-owned shard (its receivers are then local to them, its score
+    tables already varying, and dst_ptr covers its rows)."""
     nh, f = cfg.num_heads, cfg.out_features
     n = h_flat.shape[0]
     if cfg.const_attention:
@@ -286,16 +313,19 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
     else:
         s_both = h_flat @ torch.cat(_split_attention_map(params["a"], nh, f),
                                     dim=1)
-    if edge_axis is not None:
+    if edge_axis is not None and own is None:
         s_both = C.vary(s_both, edge_axis)
     s_src, s_dst = s_both[:, :nh], s_both[:, nh:]
+    n_dst = n
+    if own is not None:
+        s_dst, n_dst = s_dst[own], own.stop - own.start
     if src_order is None:
         logits = seg.gather_rows(s_src, senders) + seg.gather_rows(
             s_dst, receivers)
     else:   # the receivers are sorted as they are
         logits = (seg.gather_rows_sorted_grad(s_src, senders, n, src_order,
                                               ptr=src_ptr)
-                  + seg.gather_rows_sorted_grad(s_dst, receivers, n,
+                  + seg.gather_rows_sorted_grad(s_dst, receivers, n_dst,
                                                 ptr=dst_ptr,
                                                 num_real=num_real_edges))
     if not cfg.paper_faithful:
@@ -351,6 +381,169 @@ def _global_cap(local: torch.Tensor, ax) -> torch.Tensor:
     return C.psum(torch.where(owner, local, torch.zeros_like(local)), ax)
 
 
+def _ag_tiled(out_local: torch.Tensor, ax) -> torch.Tensor:
+    """The tiled all_gather of a dst-owned shard's output rows
+    (all_gather_varying), carried in bfloat16 and widened after it where
+    GAT_TPU_AG_DTYPE=bfloat16 (read now; the cotangent then travels in
+    bfloat16 too), as the JAX package's _ag_tiled."""
+    if (os.environ.get("GAT_TPU_AG_DTYPE") == "bfloat16"
+            and out_local.dtype == torch.float32):
+        return C.all_gather_varying(out_local.to(torch.bfloat16),
+                                    ax).float()
+    return C.all_gather_varying(out_local, ax)
+
+
+def _shard_bound(h_flat, a_src, s_dst, s_src, ax) -> torch.Tensor:
+    """The single sweep's score bound B on a dst-owned shard, equal on
+    every rank: the largest source score of the whole table (from the op's
+    float32 table s_src, or where None from h_flat @ a_src, as
+    v5_attention.score_bound_of) plus the pmax of the shards' largest
+    destination scores. It cancels in the epilogue: no gradient."""
+    with torch.no_grad():
+        s = h_flat.detach() @ a_src.detach() if s_src is None else s_src
+        return s.max() + C.pmax(s_dst.detach().max(), ax)
+
+
+def _dst_owned_layer(params, cfg: GATLayerConfig, x, senders, receivers,
+                     edge_mask, num_nodes: int, ax, *, num_real_edges,
+                     src_order, src_ptr, dst_ptr, block_layout, generator,
+                     training: bool, backend: str, gemm_dtype,
+                     return_attention: bool):
+    """The dst-owned layer (module doc; JAX models/gat.py:401-417,
+    :741-1020, :1155-1165 and :1203-1251): x and the result are the
+    varying node tables of a dst-owned stack, the parameters replicated.
+    The drawn dropout masks are the shard's: its slots (then its
+    remainder's), or its edges."""
+    nh, f = cfg.num_heads, cfg.out_features
+    if num_nodes % ax.size:
+        raise ValueError(f"{num_nodes} nodes do not divide over {ax.size} "
+                         f"dst-owned shards")
+    rows = num_nodes // ax.size
+    own = slice(ax.index * rows, (ax.index + 1) * rows)
+    p = {name: C.vary(t, ax) for name, t in params.items()}
+    h_flat = bf16_product(x, p["W"], gemm_dtype)
+    recv = receivers - own.start
+    e_real = (int(edge_mask.sum()) if num_real_edges is None
+              else num_real_edges)
+    dropping = training and cfg.dropout > 0.0
+
+    def mask(slots: int):
+        return (_attention_dropout((slots, nh), cfg.dropout, generator,
+                                   x.device) if dropping else None)
+
+    def finish(out_local, alpha=None):
+        out = _head_combine(_ag_tiled(out_local, ax), cfg, num_nodes, p)
+        return (out, alpha) if return_attention else out
+
+    bl = block_layout
+    hybrid = bl is not None and bl.rem_send is not None
+    v10 = os.environ.get("GAT_TPU_V10", "1") != "0"
+    branch = None
+    if backend == "kernel" and not (cfg.paper_faithful or cfg.const_attention
+                                    or return_attention):
+        if bl is not None and not hybrid:
+            branch = "sharded_v7"
+        elif hybrid and v10:
+            branch = "sharded_v7_hybrid"
+        elif src_order is not None:
+            branch = "sharded_v5"
+    if branch is not None:
+        PATH_TRACE.append(branch)
+        a_src, a_dst = _split_attention_map(p["a"], nh, f)
+        s_dst = h_flat[own] @ a_dst
+        if branch == "sharded_v5" and not v10:
+            # the 2-phase form: the global cap first, then the attention
+            # pass with it over the shard's rows
+            r = v5.v5_rounding()
+            s_src = v5.op_scores(r.table_of(h_flat), a_src)
+            cap = v5.v5_local_cap(h_flat, a_src, s_dst, senders, recv,
+                                  e_real, rows, nh, f, rounding=r,
+                                  s_src=s_src)
+            return finish(v5.fused_gat_table(
+                h_flat, a_src, s_dst, C.vary(_global_cap(cap, ax), ax),
+                mask(senders.shape[0]), senders, recv, src_order, e_real,
+                rows, nh, f, 1e-8, cfg.slope, num_nodes, rounding=r,
+                src_ptr=src_ptr, dst_ptr=dst_ptr, s_src=s_src))
+        # the single sweep: unnormalised parts over the shard's rows in
+        # the frame of one bound B on every rank, the global cap' by the
+        # owner trick (a shard without edges has cap' NEG_INF and never
+        # owns it), and the epilogue
+        if branch == "sharded_v5":
+            r = v5.v5_rounding()
+            s_src = v5.op_scores(r.table_of(h_flat), a_src)
+            s_eff = s_dst - _shard_bound(h_flat, a_src, s_dst,
+                                         None if r.table else s_src, ax)
+            num, den, cap, _ = v5.v5_sweep1_parts(
+                h_flat, a_src, s_eff, mask(senders.shape[0]), senders, recv,
+                src_order, e_real, rows, nh, f, 1e-8, cfg.slope, num_nodes,
+                dst_ptr=dst_ptr, src_ptr=src_ptr, s_src=s_src)
+        else:
+            rw = v7.window_rounding(nh, f)
+            # one source-score table for both ops of a hybrid layout where
+            # their kernels read the same h table
+            share = not hybrid or rw.table == v5.v5_rounding().table
+            s_src = (v5.op_scores(rw.table_of(h_flat), a_src) if share
+                     else None)
+            s_eff = s_dst - _shard_bound(h_flat, a_src, s_dst,
+                                         None if rw.table else s_src, ax)
+            num, den, cap, _ = v7.v7_sweep1_parts(
+                h_flat, a_src, s_eff, mask(bl.num_slots), bl, rows, nh, f,
+                1e-8, cfg.slope, num_nodes, s_src=s_src)
+            if hybrid:
+                num2, den2, cap2, _ = v5.v5_sweep1_parts(
+                    h_flat, a_src, s_eff, mask(bl.rem_send.shape[0]),
+                    bl.rem_send, bl.rem_recv, bl.rem_order, bl.rem_e, rows,
+                    nh, f, 1e-8, cfg.slope, num_nodes,
+                    dst_ptr=bl.rem_dst_ptr, src_ptr=bl.rem_src_ptr,
+                    s_src=s_src)
+                num, den = num + num2, den + den2
+                cap = torch.maximum(cap, cap2)
+        out, _ = v5.normalise(num, den, C.vary(_global_cap(cap, ax), ax),
+                              1e-8, cfg.slope, nh)
+        return finish(out)
+
+    kernel = backend == "kernel"
+    if kernel and src_order is None:
+        src_order, src_ptr = seg.real_first_order(senders, edge_mask,
+                                                  num_nodes), None
+    logits = _edge_logits(p, cfg, h_flat, senders, recv, edge_mask,
+                          src_order if kernel else None, ax, src_ptr=src_ptr,
+                          dst_ptr=dst_ptr, num_real_edges=num_real_edges,
+                          own=own)
+    eps = 0.0 if cfg.paper_faithful else 1e-8
+    drop = mask(senders.shape[0])
+    if kernel:
+        PATH_TRACE.append("sharded_v4_table")
+        raw_logits = logits
+        pad = torch.full_like(logits, v4.NEG_INF)
+        logits = torch.where(edge_mask[:, None], logits, pad)
+        if cfg.paper_faithful:
+            # every destination's edges are the shard's: no pmax
+            seg_max = seg.segment_max(logits, recv, rows).detach()
+            seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                                  torch.zeros_like(seg_max))
+            logits = torch.where(edge_mask[:, None],
+                                 logits - seg.gather_rows(seg_max, recv), pad)
+        out = v4.fused_segment_attention_table(
+            logits, h_flat, senders, recv, drop, src_order, rows, nh, f, eps,
+            e_real, src_ptr=src_ptr, dst_ptr=dst_ptr)
+        alpha = (seg.segment_softmax_sorted(
+            raw_logits, recv, rows, edge_mask=edge_mask, ptr=dst_ptr,
+            num_real=e_real, eps=eps,
+            subtract_segment_max=cfg.paper_faithful)
+            if return_attention else None)
+        return finish(out, alpha)
+    PATH_TRACE.append("dst_owned_segment")
+    alpha = seg.segment_softmax(logits, recv, rows, edge_mask=edge_mask,
+                                eps=eps,
+                                subtract_segment_max=cfg.paper_faithful)
+    weights = alpha if drop is None else alpha * drop
+    out = seg.segment_sum(seg.gather_rows(h_flat.reshape(num_nodes, nh, f),
+                                          senders) * weights[:, :, None],
+                          recv, rows)
+    return finish(out.reshape(rows, nh * f), alpha)
+
+
 def _node_transform(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
                     edge_axis, num_nodes: int) -> torch.Tensor:
     """h = x @ W (bf16_product). Under an edge axis whose size divides
@@ -392,7 +585,11 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     src_ptr and dst_ptr (Graph.src_ptr, Graph.dst_ptr): the CSR offsets
     the kernel ops' wrappers would otherwise derive per call; src_ptr
     describes src_order and is read only with it.
-    dst_owned (the JAX package's boundary-free layout) is not ported.
+    dst_owned (with edge_axis): the boundary-free layer of the module
+    doc, on a rank's shard of a graph partitioned by destination
+    (receivers global, src_order its local order, src_ptr over the N
+    senders, dst_ptr and block_layout its own rows'); x and the output
+    are the varying node tables of gat_model_apply's dst-owned stack.
     block_layout (Graph.block_layout) puts the kernel path on the windowed
     op, or on the hybrid of the windowed and the v5 parts ops where the
     layout has a remainder; the table op and the segment path ignore it.
@@ -411,19 +608,23 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                                edge_mask, num_nodes, generator=generator,
                                training=training,
                                return_attention=return_attention)
+    gdt = _gemm_dtype() if gemm_dtype is None else gemm_dtype
     if dst_owned:
-        raise NotImplementedError(
-            "the dst-owned layout (partition.py) is not ported (ROADMAP: "
-            "what is left of parallel/)")
+        if edge_axis is None:
+            raise ValueError("dst_owned needs the edge axis of the shards")
+        return _dst_owned_layer(
+            params, cfg, x, senders, receivers, edge_mask, num_nodes,
+            edge_axis, num_real_edges=num_real_edges, src_order=src_order,
+            src_ptr=src_ptr, dst_ptr=dst_ptr, block_layout=block_layout,
+            generator=generator, training=training, backend=backend,
+            gemm_dtype=gdt, return_attention=return_attention)
     nh, f = cfg.num_heads, cfg.out_features
     e = senders.shape[0]
     ax = edge_axis
     # x @ W is a plain product outside any kernel, in full float32
     # (utils/device.resolve_device turns TF32 off) or from bfloat16
     # operands
-    h_flat = _node_transform(
-        x, params["W"], _gemm_dtype() if gemm_dtype is None else gemm_dtype,
-        ax, num_nodes)
+    h_flat = _node_transform(x, params["W"], gdt, ax, num_nodes)
     dropping = training and cfg.dropout > 0.0
     given_logits = cfg.paper_faithful or cfg.const_attention
 
@@ -747,8 +948,12 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
     `generator`, which must be in the same state on every shard (x is
     replicated), and the attention dropout masks from `edge_generator`,
     the shard's own stream (the JAX package folds the shard index into
-    the key); each layer's alpha is then the shard's edges'. dst_owned
-    (ROADMAP: what is left of parallel/) is not ported and raises."""
+    the key); each layer's alpha is then the shard's edges'. dst_owned:
+    `graph` is a rank's shard of a graph partitioned by destination
+    (parallel/sharding.dst_shard) and every layer the dst-owned layer; the
+    stack's node tables are varying (module doc): the skip projections
+    take their weights through vary, and the logits, replicated in value,
+    leave through owned_rows."""
     check_device(graph.device, device)
     dev = graph.device
     if training and cfg.dropout > 0.0 and (
@@ -786,8 +991,11 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
         if skip_dims[i] is not None:
             skip_p = params["skips"][skip_count]
             skip_count += 1
-            skip_out = (layer_input if "w" not in skip_p
-                        else bf16_product(layer_input, skip_p["w"], gdt))
+            skip_w = skip_p.get("w")
+            if skip_w is not None and dst_owned:
+                skip_w = C.vary(skip_w, edge_axis)
+            skip_out = (layer_input if skip_w is None
+                        else bf16_product(layer_input, skip_w, gdt))
             if cfg.heads_concat_per_layer[i]:
                 x = x + skip_out
             else:
@@ -797,34 +1005,45 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
                     cfg.head_output_features_per_layer[i + 1]).mean(dim=1)
         if i != cfg.num_layers - 1:
             x = F.elu(x)
+    if dst_owned:
+        x = C.owned_rows(x, edge_axis)
     return (x, attention) if return_attention else x
 
 
 def calc_attention_norm(graph: Graph, attention: Sequence[torch.Tensor], *,
-                        edge_axis=None) -> torch.Tensor:
+                        edge_axis=None, dst_owned: bool = False
+                        ) -> torch.Tensor:
     """The attention regulariser (JAX models/gat.py calc_attention_norm,
     the reference's GATModel.py:189-234): the mean over layers of
     sum(|alpha * deg - 1| over the real edges) / E_real, deg the real
     in-degree of each edge's destination. edge_axis: `graph` is an edge
     shard over that axis; the degrees, E_real and the sums are completed
     by psum, so the result is the unsharded graph's, equal on every
-    rank.
+    rank. dst_owned: `graph` is a dst-owned shard (dst_shard) and alpha
+    the shard's; the degrees of its rows are complete on the shard (its
+    dst_ptr covers them), E_real and the sums are psummed.
 
     The degrees are differences of the destinations' CSR offsets
     (Graph.dst_ptr, or computed from the sorted receivers) clipped to the
     real edges, which come first: exact counts, no scatter and no
     atomics. E_real is at least 1."""
+    recv, n = graph.receivers, graph.num_nodes
+    local = edge_axis is not None and dst_owned
+    if local:
+        n //= edge_axis.size
+        recv = recv - edge_axis.index * n
     ptr = graph.dst_ptr
     if ptr is None:
-        ptr = build_offsets(graph.receivers, graph.num_nodes)
+        ptr = build_offsets(recv, n)
     real = graph.edge_mask.sum()
     degrees = torch.diff(torch.minimum(ptr.long(), real)).float()
     e_real = real.float()
     if edge_axis is not None:
-        degrees = C.psum(degrees, edge_axis)
+        if not local:
+            degrees = C.psum(degrees, edge_axis)
         e_real = C.psum(e_real, edge_axis)
     e_real = e_real.clamp(min=1.0)
-    deg_per_edge = seg.gather_rows(degrees, graph.receivers)[:, None]
+    deg_per_edge = seg.gather_rows(degrees, recv)[:, None]
     mask = graph.edge_mask[:, None]
     total = 0.0
     for alpha in attention:

@@ -243,16 +243,19 @@ int window_forward_two_phase(const void* h, const float* s_src,
 // Backward by sender, mode 0 (normalised: g = d(out), out and den the
 // forward's, eps' at epsp on the device), 1 (parts: g = d(num), den =
 // d(den); out, epsp and cap unread) or 2 (2-phase: the cap at `cap`, the
-// plain eps; not in the bfloat16-table library). d_h (n, d_feat), d_drop
-// (e7, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh) and in mode 2
-// d(cap) after it. Scratch: dsd (e7, nh), dsum (n, nh), part (nblk,
-// d_feat*nh [+ 1]). recv, src_perm, dst_perm
-// (e7,), src_ptr, dst_ptr (n + 1,): the layout's; (vec, per_lane, lanes,
-// unroll): v5_attention.row_plan.
+// plain eps; not in the bfloat16-table library). h and s_src have n_src
+// rows, the destinations n (fewer on a dst-owned shard's layout, whose
+// senders index the whole table). d_h (n_src, d_feat), d_drop (e7, nh) or
+// NULL, d_sdst (n, nh), d_asrc (d_feat, nh) and in mode 2 d(cap) after
+// it. Scratch: dsd (e7, nh), dsum (n_src, nh), part (nblk, d_feat*nh [+
+// 1]). recv, src_perm, dst_perm (e7,), src_ptr (n_src + 1,), dst_ptr (n +
+// 1,): the layout's; (vec, per_lane, lanes, unroll):
+// v5_attention.row_plan.
 int window_backward(const void* h, const float* a_src, const float* s_src,
                     const float* s_dst, const float* drop, const int* recv,
                     const int* src_perm, const int* src_ptr,
-                    const int* dst_perm, const int* dst_ptr, int n, int e7,
+                    const int* dst_perm, const int* dst_ptr, int n_src,
+                    int n, int e7,
                     int d_feat, int nh, int f, int mode, float slope,
                     float eps, const float* g, const float* out,
                     const float* den, const float* epsp, const float* cap,
@@ -266,11 +269,10 @@ int window_backward(const void* h, const float* a_src, const float* s_src,
 #endif
   return with_table(h, flags, [&](auto hp) {
     using T = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
-    // a sender and a destination are rows of the one node table; every
-    // slot of dst_perm's runs is real (e_real: no bound)
+    // every slot of dst_perm's runs is real (e_real: no bound)
     const BwdArgs<T> a{hp,       a_src,   s_src,    s_dst,   drop,
                        recv,     src_perm, src_ptr, dst_perm, dst_ptr,
-                       n,        n,       e7,       INT_MAX, d_feat,
+                       n_src,    n,       e7,       INT_MAX, d_feat,
                        nh,       f,       lanes,    (Bwd)mode, slope,
                        eps,      flags,   g,        out,     den,
                        epsp,     cap,     d_h,      d_drop,  dsd,

@@ -20,8 +20,12 @@ sender rows, the per-destination denominator (no dropout
 mask in it), the dropout-weighted sum and the normalisation
     out = num / (den + eps), 0 where a destination has no real edge,
 and is differentiable in the logits, h and the dropout mask. The JAX
-op's `eb`, `nb`, `interpret`, `num_src_nodes` and `vma` arguments size
-TPU blocks or serve the sharded layout and are not carried.
+op's `eb`, `nb`, `interpret` and `vma` arguments size TPU blocks or type
+shard_map's values and are not carried. Its `num_src_nodes` (the rows of
+the h table where a dst-owned shard's destinations are fewer) is h's own
+row count here: the senders index h, the receivers the num_nodes rows of
+the output, and d(h) has h's rows (models/gat.py's sharded_v4_table
+branch; chip_smoke.py holds the kernels at N/4 destination rows).
 
 d(h). The JAX package's backward writes a d(h) row per edge and sums them
 by sender (`_dh_reduce`), a TPU workaround: Mosaic has no in-kernel
@@ -53,9 +57,7 @@ from . import build
 from .build import sender_runs
 from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
 from .segment_sum import dh_reduce, dh_reduce_plain, dh_transposed
-from .v5_attention import MAX_HEADS, v5_rounding
-
-NEG_INF = -1e30          # the logit of a padding edge
+from .v5_attention import MAX_HEADS, NEG_INF, v5_rounding
 _KERNEL = "table_attention"
 _configured = set()
 

@@ -92,6 +92,7 @@ from .segment_sum import (dh_reduce, dh_reduce_plain, dh_transposed,
 
 _KERNEL = "v5_attention"
 MAX_HEADS = 8
+NEG_INF = -1e30     # the cap' of no edges, and a padding edge's logit
 _configured = set()
 
 
@@ -377,10 +378,40 @@ def _edge_logits(h, a_src, s_dst_eff, snd, rcv, rows: bool = False,
 
 def _cap_of(raw, valid):
     """(max of raw over the slots that are edges, its lowest slot*nh + k
-    as int32): argmax returns the first maximal element."""
+    as int32): argmax returns the first maximal element. Without an edge,
+    (NEG_INF, 0), as the JAX kernels give."""
     flat = torch.where(valid, raw, torch.full_like(raw, float("-inf")))
     flat = flat.reshape(-1)
-    return flat.max(), torch.argmax(flat).to(torch.int32)
+    cap = flat.max()
+    cap = torch.where(cap > float("-inf"), cap, torch.full_like(cap, NEG_INF))
+    return cap, torch.argmax(flat).to(torch.int32)
+
+
+def empty_cap(dev):
+    """(cap', code) over no edges: NEG_INF and 0, launching nothing."""
+    return (torch.full((), NEG_INF, dtype=torch.float32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def empty_parts(n: int, d: int, nh: int, dev):
+    """(num, den, cap', code) over no edges, as the JAX op returns them:
+    zeros, NEG_INF and 0, launching nothing (an empty edge shard or
+    hybrid remainder of the dst-owned layout)."""
+    return (torch.zeros((n, d), dtype=torch.float32, device=dev),
+            torch.zeros((n, nh), dtype=torch.float32, device=dev),
+            *empty_cap(dev))
+
+
+def empty_grads(n_src: int, n: int, d: int, nh: int, e: int,
+                need_drop: bool, dev, two_phase: bool = False):
+    """A backward's (d_h (n_src, d), d_drop (e, nh) | None, d_s_dst (n,
+    nh), d_a_src (d, nh) [, d_cap]) over no edges: zeros, launching
+    nothing."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    grads = (torch.zeros((n_src, d), **f32),
+             torch.zeros((e, nh), **f32) if need_drop else None,
+             torch.zeros((n, nh), **f32), torch.zeros((d, nh), **f32))
+    return grads + (torch.zeros((), **f32),) if two_phase else grads
 
 
 def _aggregate(h_e, w, rcv, n: int, nh: int, acc: bool = False):
@@ -724,8 +755,8 @@ def _check_inputs(h, a_src, s_dst_eff, drop, senders, receivers, e_real,
     build.require(receivers, "receivers", dev, torch.int32, (e,))
     if drop is not None:
         build.require(drop, "drop_mask", dev, torch.float32, (e, nh))
-    if not 0 < e_real <= e:
-        raise ValueError(f"e_real {e_real} outside (0, {e}]")
+    if not 0 <= e_real <= e:
+        raise ValueError(f"e_real {e_real} outside [0, {e}]")
     return dev, s_dst_eff.shape[0], e, d, nh
 
 
@@ -744,6 +775,8 @@ def _v5_forward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                      rounding: Rounding = FLOAT32, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real, rounding)
+    if e_real == 0:
+        return empty_parts(n, d, nh, dev)
     s_src = scores_of(h, a_src, s_src)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -831,6 +864,8 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
     if normalize:
         build.require(out, "out", dev, torch.float32, (n, d))
         build.require(epsp, "epsp", dev, torch.float32, ())
+    if e_real == 0:
+        return empty_grads(h.shape[0], n, d, nh, e, need_drop, dev)
     s_src = scores_of(h, a_src, s_src)
     name = "v5_backward" if normalize else "v5_backward_parts"
     if not wide_form(d):
@@ -875,6 +910,8 @@ def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
                  rounding: Rounding = FLOAT32, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, None, senders,
                                      receivers, e_real, rounding)
+    if e_real == 0:
+        return empty_cap(dev)
     s_src = scores_of(h, a_src, s_src)
     nblk = cap_blocks(e_real * nh)
     blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
@@ -899,6 +936,8 @@ def _v5_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
+    if e_real == 0:
+        return empty_parts(n, d, nh, dev)[:2]
     s_src = scores_of(h, a_src, s_src)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -928,6 +967,8 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     for t, name, shape in ((g, "g", (n, d)), (out, "out", (n, d)),
                            (den, "den", (n, nh))):
         build.require(t, name, dev, torch.float32, shape)
+    if e_real == 0:
+        return empty_grads(h.shape[0], n, d, nh, e, need_drop, dev, True)
     s_src = scores_of(h, a_src, s_src)
     if not wide_form(d):
         d_h, d_drop, d_sdst, d_asrc_cap = _v5_backward_by_sender_cuda(
@@ -1264,17 +1305,18 @@ class _V5LocalCap(torch.autograd.Function):
         cap, code = v5_cap(h_k, a_src, s_dst, senders, receivers, e_real,
                            rounding, s_src=op_scores(h_k, a_src, s_src))
         ctx.save_for_backward(h_k, a_src, senders, receivers, code)
-        ctx.s_shape = s_dst.shape
+        ctx.s_shape, ctx.e_real = s_dst.shape, e_real
         return cap
 
     @staticmethod
     def backward(ctx, g):
         h_k, a_src, senders, receivers, code = ctx.saved_tensors
-        d_h, d_asrc, d_sdst = route_cap_cotangent(
-            h_k.new_zeros(h_k.shape, dtype=torch.float32),
-            torch.zeros_like(a_src), a_src.new_zeros(ctx.s_shape), g, code,
-            senders, receivers, h_k, a_src, a_src.shape[1])
-        return (d_h, d_asrc, d_sdst) + (None,) * 5
+        grads = (h_k.new_zeros(h_k.shape, dtype=torch.float32),
+                 torch.zeros_like(a_src), a_src.new_zeros(ctx.s_shape))
+        if ctx.e_real:      # over no edges the cap is a constant
+            grads = route_cap_cotangent(*grads, g, code, senders, receivers,
+                                        h_k, a_src, a_src.shape[1])
+        return grads + (None,) * 5
 
 
 def v5_local_cap(h_flat: torch.Tensor,
@@ -1391,10 +1433,14 @@ class _V5Sweep1Parts(torch.autograd.Function):
                 src_order, dst_ptr, src_ptr, e_real, nh, slope, rounding,
                 dh_t, s_src):
         h_k = rounding.table_of(h_flat)
-        s_src = op_scores(h_k, a_src, s_src)
-        num, den, cap, code = v5_forward(h_k, a_src, s_dst_eff, drop_mask,
-                                         senders, receivers, e_real, slope,
-                                         dst_ptr, rounding, s_src=s_src)
+        if e_real == 0:     # no edges: no score pass either
+            num, den, cap, code = empty_parts(
+                s_dst_eff.shape[0], h_k.shape[1], nh, h_k.device)
+        else:
+            s_src = op_scores(h_k, a_src, s_src)
+            num, den, cap, code = v5_forward(
+                h_k, a_src, s_dst_eff, drop_mask, senders, receivers, e_real,
+                slope, dst_ptr, rounding, s_src=s_src)
         ctx.save_for_backward(h_k, a_src, s_src, s_dst_eff, drop_mask,
                               senders, receivers, src_order, dst_ptr,
                               src_ptr, code)
@@ -1408,6 +1454,11 @@ class _V5Sweep1Parts(torch.autograd.Function):
         (h_k, a_src, s_src, s_dst_eff, drop_mask, senders, receivers,
          src_order, dst_ptr, src_ptr, code) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
+        if ctx.e_real == 0:     # over no edges the parts are constants
+            d_h, d_drop, d_sdst, d_asrc = empty_grads(
+                h_k.shape[0], s_dst_eff.shape[0], h_k.shape[1], ctx.nh,
+                senders.shape[0], need_drop, h_k.device)
+            return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 11
         # senders index the h table, which may have more rows than the
         # destinations: d(h) has the table's rows
         d_h, d_drop, d_sdst, d_asrc = v5_backward(
@@ -1440,6 +1491,10 @@ def v5_sweep1_parts(h_flat: torch.Tensor,
     """The unnormalised single-sweep parts (num (num_nodes, nh*f),
     den (num_nodes, nh), cap' (), code () int32) over the dst-sorted edges
     e < e_real, differentiable in h_flat, a_src, s_dst and drop_mask.
+    Over no edges (e_real 0: an empty shard or remainder of the dst-owned
+    layout) it gives zeros, cap' NEG_INF and code 0 as the JAX op does,
+    launches nothing (no score pass either), and its parts are constants
+    with no gradient.
 
     s_dst arrives ALREADY B-shifted (the caller subtracts its bound, which
     it may share with another op over other edges). cap' is the max of the

@@ -71,8 +71,9 @@ from .v5_attention import (MAX_HEADS, attention_backward_plain,
                            attention_backward_two_phase_plain,
                            attention_cap_plain, attention_forward_plain,
                            attention_forward_two_phase_plain, cap_blocks,
-                           cap_cotangent, forward_blocks,
-                           fused_gat_table, normalise, op_scores, plan_of,
+                           cap_cotangent, empty_cap, empty_grads,
+                           empty_parts, forward_blocks, fused_gat_table,
+                           normalise, op_scores, plan_of,
                            route_cap_cotangent, row_plan, score_bound_of,
                            scores_of, v5_local_cap, align_of)
 
@@ -128,7 +129,7 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.window_forward.argtypes = ([p] * 7 + [i] * 4 + [fl] + [p] * 6
                                        + plan + [i, i, p])
         lib.window_forward.restype = ctypes.c_int
-        lib.window_backward.argtypes = ([p] * 10 + [i] * 6 + [fl] * 2
+        lib.window_backward.argtypes = ([p] * 10 + [i] * 7 + [fl] * 2
                                         + [p] * 12 + [i] * 6 + [p])
         lib.window_backward.restype = ctypes.c_int
         _configured.add(name)
@@ -254,6 +255,7 @@ def window_backward_two_phase_plain(h, a_src, s_dst, cap, drop,
 # library's entry) where the caller holds it, computing it otherwise.
 
 def _check_layout(layout: BlockLayout, dev, n: int):
+    """The slots' arrays over n destination rows."""
     e7 = layout.num_slots
     build.require(layout.send, "layout.send", dev, torch.int32, (e7,))
     build.require(layout.dst_perm, "layout.dst_perm", dev, torch.int32,
@@ -263,14 +265,15 @@ def _check_layout(layout: BlockLayout, dev, n: int):
     return e7
 
 
-def _check_sender_runs(layout: BlockLayout, dev, n: int):
-    """The backward by sender also walks the real slots by sender."""
+def _check_sender_runs(layout: BlockLayout, dev, n_src: int):
+    """The backward by sender also walks the real slots by sender, over
+    the n_src rows of the h table."""
     e7 = layout.num_slots
     build.require(layout.recv, "layout.recv", dev, torch.int32, (e7,))
     build.require(layout.src_perm, "layout.src_perm", dev, torch.int32,
                   (None,))
     build.require(layout.src_ptr, "layout.src_ptr", dev, torch.int32,
-                  (n + 1,))
+                  (n_src + 1,))
 
 
 def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout,
@@ -285,8 +288,9 @@ def _check_inputs(h, a_src, s_dst_eff, drop, layout: BlockLayout,
         raise ValueError(f"{nh} heads: the kernel takes 1..{MAX_HEADS}")
     if not 1 <= d <= 1024 or d % nh:
         raise ValueError(f"row width {d} must be nh*f and at most 1024")
-    n = h.shape[0]
-    build.require(s_dst_eff, "s_dst", dev, torch.float32, (n, nh))
+    # the destination rows: all of h's, or a dst-owned shard's fewer
+    build.require(s_dst_eff, "s_dst", dev, torch.float32, (None, nh))
+    n = s_dst_eff.shape[0]
     e7 = _check_layout(layout, dev, n)
     if drop is not None:
         build.require(drop, "drop_mask", dev, torch.float32, (e7, nh))
@@ -297,6 +301,8 @@ def _window_forward_cuda(h, a_src, s_dst_eff, drop, layout, slope: float,
                          rounding: Rounding = FLOAT32, s_src=None):
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, layout,
                                       rounding)
+    if layout.num_real == 0:
+        return empty_parts(n, d, nh, dev)
     s_src = scores_of(h, a_src, s_src)
     f32 = dict(dtype=torch.float32, device=dev)
     num = torch.empty((n, d), **f32)
@@ -328,10 +334,12 @@ def _window_backward_launch(name, h, a_src, s_src, s_dst, drop, layout,
                             slope: float, eps: float, g, out, den, epsp, cap,
                             need_drop: bool, rounding: Rounding):
     """One call of the C entry window_backward in the mode of `name`:
-    (d_h (n, d), d_drop | None, d_sdst, d_asrc (d*nh [+ 1]))."""
+    (d_h (n_src, d), d_drop | None, d_sdst (n, nh), d_asrc (d*nh [+
+    1])), n_src the rows of h and n those of s_dst."""
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
                                       rounding)
-    _check_sender_runs(layout, dev, n)
+    n_src = h.shape[0]
+    _check_sender_runs(layout, dev, n_src)
     mode = _MODES[name]
     build.require(g, "g", dev, torch.float32, (n, d))
     build.require(den, "den" if mode != 1 else "d_den", dev, torch.float32,
@@ -342,19 +350,23 @@ def _window_backward_launch(name, h, a_src, s_src, s_dst, drop, layout,
         build.require(epsp, "epsp", dev, torch.float32, ())
     if mode == 2:
         build.require(cap, "cap", dev, torch.float32, ())
-    s_src = scores_of(h, a_src, s_src)
-    # a fixed grid (a function of n: the blocks' d(a_src) partial rows are
-    # summed in block order), up to eight blocks an SM of the 132: senders'
-    # runs differ in length, and more blocks than fit at once balance them
-    nblk = max(1, min(-(-n // build.WARPS_PER_BLOCK), 8 * 132))
+    stride = d * nh + (1 if mode == 2 else 0)
     f32 = dict(dtype=torch.float32, device=dev)
-    d_h = torch.empty((n, d), **f32)
+    if layout.num_real == 0:
+        return (*empty_grads(n_src, n, d, nh, e7, need_drop, dev)[:3],
+                torch.zeros((stride,), **f32))
+    s_src = scores_of(h, a_src, s_src)
+    # a fixed grid (a function of n_src: the blocks' d(a_src) partial rows
+    # are summed in block order), up to eight blocks an SM of the 132:
+    # senders' runs differ in length, and more blocks than fit at once
+    # balance them
+    nblk = max(1, min(-(-n_src // build.WARPS_PER_BLOCK), 8 * 132))
+    d_h = torch.empty((n_src, d), **f32)
     d_drop = torch.empty((e7, nh), **f32) if need_drop else None
     d_sdst = torch.empty((n, nh), **f32)
-    stride = d * nh + (1 if mode == 2 else 0)
     d_asrc = torch.empty((stride,), **f32)
     dsd = torch.empty((e7, nh), **f32)
-    dsum = torch.empty((n, nh), **f32)
+    dsum = torch.empty((n_src, nh), **f32)
     part = torch.empty((nblk, stride), **f32)
     plan = row_plan(nh, d // nh, min(align_of(h), align_of(g)))
     p = build.ptr
@@ -362,8 +374,8 @@ def _window_backward_launch(name, h, a_src, s_src, s_dst, drop, layout,
         err = _lib(rounding.table).window_backward(
             p(h), p(a_src), p(s_src), p(s_dst), p(drop), p(layout.recv),
             p(layout.src_perm), p(layout.src_ptr), p(layout.dst_perm),
-            p(layout.dst_ptr), n, e7, d, nh, d // nh, mode, slope, eps,
-            p(g), p(out) if mode != 1 else None, p(den),
+            p(layout.dst_ptr), n_src, n, e7, d, nh, d // nh, mode, slope,
+            eps, p(g), p(out) if mode != 1 else None, p(den),
             p(epsp) if mode == 0 else None, p(cap) if mode == 2 else None,
             p(d_h), p(d_drop), p(d_sdst), p(d_asrc), p(dsd), p(dsum),
             p(part), *plan, nblk, rounding.flags(),
@@ -394,6 +406,8 @@ def _window_cap_cuda(s_src, s_dst, layout):
     build.require(s_src, "s_src", dev, torch.float32, (None, nh))
     e7 = _check_layout(layout, dev, n)
     build.require(layout.recv, "layout.recv", dev, torch.int32, (e7,))
+    if layout.num_real == 0:
+        return empty_cap(dev)
     nblk = cap_blocks(e7 * nh)
     blk_max = torch.empty((nblk,), dtype=torch.float32, device=dev)
     blk_code = torch.empty((nblk,), dtype=torch.int32, device=dev)
@@ -417,6 +431,8 @@ def _window_forward_two_phase_cuda(h, a_src, s_dst, cap, drop, layout,
     dev, n, e7, d, nh = _check_inputs(h, a_src, s_dst, drop, layout,
                                       rounding)
     build.require(cap, "cap", dev, torch.float32, ())
+    if layout.num_real == 0:
+        return empty_parts(n, d, nh, dev)[:2]
     s_src = scores_of(h, a_src, s_src)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     den = torch.empty((n, nh), dtype=torch.float32, device=dev)
@@ -566,14 +582,19 @@ class _WindowAttention(torch.autograd.Function):
         return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 6
 
 
-def _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f):
-    if (h_flat.shape != (num_nodes, nh * f)
+def _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f,
+                         num_src_nodes=None):
+    n_src = num_nodes if num_src_nodes is None else num_src_nodes
+    if (h_flat.shape != (n_src, nh * f)
             or s_dst.shape != (num_nodes, nh)
-            or layout.dst_ptr.shape[0] != num_nodes + 1):
+            or layout.dst_ptr.shape[0] != num_nodes + 1
+            or layout.src_ptr.shape[0] != n_src + 1):
         raise ValueError(f"shapes h {tuple(h_flat.shape)}, s_dst "
                          f"{tuple(s_dst.shape)}, layout over "
-                         f"{layout.dst_ptr.shape[0] - 1} nodes do not match "
-                         f"num_nodes={num_nodes}, nh={nh}, f={f}")
+                         f"{layout.dst_ptr.shape[0] - 1} nodes and "
+                         f"{layout.src_ptr.shape[0] - 1} senders do not "
+                         f"match num_nodes={num_nodes}, num_src_nodes="
+                         f"{n_src}, nh={nh}, f={f}")
 
 
 class _WindowCap(torch.autograd.Function):
@@ -726,10 +747,14 @@ class _WindowSweep1Parts(torch.autograd.Function):
     def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, layout, nh, slope,
                 rounding, s_src):
         h_k = rounding.table_of(h_flat)
-        s_src = op_scores(h_k, a_src, s_src)
-        num, den, cap, code = window_forward(h_k, a_src, s_dst_eff,
-                                             drop_mask, layout, slope,
-                                             rounding, s_src=s_src)
+        if layout.num_real == 0:    # no real slot: no score pass either
+            num, den, cap, code = empty_parts(
+                s_dst_eff.shape[0], h_k.shape[1], nh, h_k.device)
+        else:
+            s_src = op_scores(h_k, a_src, s_src)
+            num, den, cap, code = window_forward(
+                h_k, a_src, s_dst_eff, drop_mask, layout, slope, rounding,
+                s_src=s_src)
         ctx.save_for_backward(h_flat, h_k, a_src, s_src, s_dst_eff,
                               drop_mask, code)
         ctx.layout, ctx.nh, ctx.slope = layout, nh, slope
@@ -743,6 +768,11 @@ class _WindowSweep1Parts(torch.autograd.Function):
          code) = ctx.saved_tensors
         layout = ctx.layout
         need_drop = drop_mask is not None and ctx.needs_input_grad[3]
+        if layout.num_real == 0:    # the parts are constants
+            d_h, d_drop, d_sdst, d_asrc = empty_grads(
+                h_k.shape[0], s_dst_eff.shape[0], h_k.shape[1], ctx.nh,
+                layout.num_slots, need_drop, h_k.device)
+            return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 5
         d_h, d_drop, d_sdst, d_asrc = window_backward(
             h_k, a_src, s_dst_eff, drop_mask, layout, ctx.slope,
             d_num.contiguous(), None, d_den.contiguous(), None, need_drop,
@@ -760,7 +790,8 @@ def v7_sweep1_parts(h_flat: torch.Tensor,
                     layout: BlockLayout,
                     num_nodes: int, nh: int, f: int,
                     eps: float = 1e-8,
-                    slope: float = 0.01, *,
+                    slope: float = 0.01,
+                    num_src_nodes: Optional[int] = None, *,
                     s_src: Optional[torch.Tensor] = None):
     """The unnormalised single-sweep parts (num (num_nodes, nh*f),
     den (num_nodes, nh), cap' (), code () int32) over the slots of
@@ -774,8 +805,15 @@ def v7_sweep1_parts(h_flat: torch.Tensor,
     the remainder (layout.rem_*) is another op's. s_src: the source-score
     table of the table this op's kernels read, where the caller shares one
     with another op (the hybrid layer's v5 parts op); computed here where
-    None. The contraction dtype (module doc) is read now."""
-    _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f)
+    None. num_src_nodes: the rows of h_flat where they are more than
+    num_nodes (a dst-owned shard's layout: its receivers are its own rows,
+    its senders index the whole table, and d(h_flat) has the table's
+    rows); the layout's offsets cover those rows. A layout without a
+    real slot gives zeros, cap' NEG_INF and code 0, launches nothing, and
+    its parts are constants with no gradient.
+    The contraction dtype (module doc) is read now."""
+    _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f,
+                         num_src_nodes)
     return _WindowSweep1Parts.apply(h_flat.contiguous(), a_src.contiguous(),
                                     s_dst.contiguous(), drop_mask, layout,
                                     nh, slope, window_rounding(nh, f), s_src)

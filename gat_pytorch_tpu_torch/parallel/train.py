@@ -1,14 +1,16 @@
 """Train and eval steps over the (data, edge) mesh.
 
 Counterpart of gat_pytorch_tpu/parallel/train.py (make_sharded_train_step
-and make_sharded_eval_step at dst_owned=False, the cut-neighbourhood
-layout). One step on every rank:
+and make_sharded_eval_step), in the cut-neighbourhood layout and, with
+dst_owned=True, the dst-owned one (the rank's graphs are dst shards,
+shard_batch(..., dst_owned=True)). One step on every rank:
 
   * the rank's graphs (its data rows of the batch, parallel/sharding.py)
     go through the model with their edge arrays cut over ``edge``; the
     layers complete the cut neighbourhoods with sums over the edge axis
-    (models/gat.py `edge_axis`), so every rank of an edge group holds the
-    same replicated logits;
+    (models/gat.py `edge_axis`), or in the dst-owned layout own the
+    attention of their rows and gather the layer's output rows, so every
+    rank of an edge group holds the same replicated logits;
   * the loss is the sum of the per-graph losses over the global batch
     size, each with coef * calc_attention_norm (over the edge axis) where
     the task's attention coefficient is not 0; its cotangent is
@@ -22,8 +24,10 @@ layout). One step on every rank:
     gradient bits and takes the same Adam step.
 
 There is no jit and no scan: each step runs eagerly, as Trainer.train_step
-does. The dst-owned layout (ROADMAP: what is left of parallel/) is not
-ported and raises.
+does. The JAX package's dst-owned step scales the loss by 1/K and sums
+the gradients over the edge axis, a workaround for shard_map without
+check_vma; here the collectives' own backwards (ops/collectives.py) leave
+the gradients whole, in both layouts.
 """
 
 from __future__ import annotations
@@ -62,13 +66,6 @@ class DropoutGenerators:
         return cls(node=node, edge=edge)
 
 
-def _refuse(dst_owned: bool) -> None:
-    if dst_owned:
-        raise NotImplementedError(
-            "the dst-owned layout (partition.py) is not ported (ROADMAP: "
-            "what is left of parallel/)")
-
-
 def _squeeze(logits: torch.Tensor, task: Task) -> torch.Tensor:
     if task.squeeze_output and logits.dim() == 2:
         return logits[:, 0]
@@ -85,8 +82,7 @@ def make_sharded_train_step(cfg: gat.GATConfig, task: Task, mesh: Mesh, *,
     batch) are detached scalar tensors, equal on every rank; `opt` (over
     gat.parameters(params)) has taken its step. With the regulariser the
     metrics carry `attention_norm`, the per-graph norm's mean over the
-    global batch."""
-    _refuse(dst_owned)
+    global batch. dst_owned: the batch holds dst shards."""
     edge_axis = mesh.edge
     coef = task.attention_coef
 
@@ -99,12 +95,13 @@ def make_sharded_train_step(cfg: gat.GATConfig, task: Task, mesh: Mesh, *,
             out = gat.gat_model_apply(
                 params, cfg, g, device=g.device, generator=gens.node,
                 edge_generator=gens.edge, training=True, backend=backend,
-                edge_axis=edge_axis, return_attention=coef != 0.0)
+                edge_axis=edge_axis, dst_owned=dst_owned,
+                return_attention=coef != 0.0)
             logits = _squeeze(out[0] if coef != 0.0 else out, task)
             loss = loss + task.loss(logits, g, "train")
             if coef != 0.0:
-                norm = gat.calc_attention_norm(g, out[1],
-                                               edge_axis=edge_axis)
+                norm = gat.calc_attention_norm(g, out[1], edge_axis=edge_axis,
+                                               dst_owned=dst_owned)
                 loss = loss + coef * norm
                 mets["attention_norm"] = (mets.get("attention_norm", 0.0)
                                           + norm.detach())
@@ -129,8 +126,7 @@ def make_sharded_eval_step(cfg: gat.GATConfig, task: Task, mesh: Mesh,
                            dst_owned: bool = False) -> Callable:
     """step(params, batch) -> metrics: the task's metrics of `phase`, each
     a mean over the global batch, equal on every rank (no regulariser:
-    the loss is the task's)."""
-    _refuse(dst_owned)
+    the loss is the task's). dst_owned: the batch holds dst shards."""
 
     def eval_step(params: gat.Params, batch: Sequence[Graph]):
         b_global = len(batch) * mesh.data.size
@@ -139,7 +135,7 @@ def make_sharded_eval_step(cfg: gat.GATConfig, task: Task, mesh: Mesh,
             for g in batch:
                 logits = _squeeze(gat.gat_model_apply(
                     params, cfg, g, device=g.device, backend=backend,
-                    edge_axis=mesh.edge), task)
+                    edge_axis=mesh.edge, dst_owned=dst_owned), task)
                 for k, v in task.metrics(logits, g, phase).items():
                     mets[k] = mets.get(k, 0.0) + v.float()
             return {k: C.psum(v / b_global, mesh.data)

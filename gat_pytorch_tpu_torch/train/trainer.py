@@ -50,8 +50,8 @@ from ..graph.graph import Graph
 from ..models import gat
 from ..ops import segment as seg
 from ..parallel import (DropoutGenerators, make_sharded_eval_step,
-                        make_sharded_train_step, replicated, shard_batch,
-                        stack_graphs)
+                        make_sharded_train_step, partition_batches,
+                        replicated, shard_batch, stack_graphs)
 from ..utils.device import resolve_device
 from . import optim as O
 from .logging import MetricsLogger
@@ -312,10 +312,11 @@ class Trainer:
                     params: Optional[gat.Params] = None,
                     dst_owned: bool = False) -> TrainResult:
         """fit_epochs over a (data, edge) mesh of torch.distributed ranks
-        (parallel/mesh.make_mesh), the cut-neighbourhood layout: every
-        rank calls it with the same arguments. Consecutive batches are
-        grouped `data`-axis-wide, the last group filled by wrapping around
-        to the first batches; each rank takes its shard of each group
+        (parallel/mesh.make_mesh), in the cut-neighbourhood layout or
+        (dst_owned) the dst-owned one: every rank calls it with the same
+        arguments. Consecutive batches are grouped `data`-axis-wide, the
+        last group filled by wrapping around to the first batches; each
+        rank takes its shard of each group
         (parallel/sharding.shard_batch) and runs the sharded train step
         (parallel/train.py), then the sharded eval step over the
         validation groups. The same bookkeeping as fit_epochs (best
@@ -327,25 +328,63 @@ class Trainer:
         edge shard (parallel/train.DropoutGenerators). With `reshuffle`,
         each epoch's groups (reshuffle, stack_graphs, shard_batch: host
         work) are built as fit_epochs builds its batches: with `prefetch`,
-        in the prefetch thread, one epoch ahead. dst_owned (the
-        boundary-free layout) is not ported and raises."""
+        in the prefetch thread, one epoch ahead.
+
+        dst_owned: the dst-owned layout (parallel/partition.py) over the
+        edge axis, train and validation steps both. Each epoch's batches
+        (the validation batches first) are partitioned by destination with
+        one sticky per-shard bucket, as the JAX package's fit_sharded
+        keeps it: the first partition's bucket with 25% headroom rounded
+        up to 256 edges, regrown so once a later epoch overflows it. Where
+        the graphs carry a block layout (canonicalize(src_windows=True)),
+        each shard gets its own (hybrid where the graph's has a
+        remainder), which puts the kernel path on the sharded windowed or
+        hybrid branch; the JAX package's fit builds none and runs v5."""
         dev = resolve_device(self.device)
         step = make_sharded_train_step(self.cfg, self.task, mesh,
                                        backend=self.backend,
                                        dst_owned=dst_owned)
         val_step = make_sharded_eval_step(self.cfg, self.task, mesh, "val",
-                                          backend=self.backend)
+                                          backend=self.backend,
+                                          dst_owned=dst_owned)
         dp = mesh.data.size
+        bucket = [None]     # the sticky per-shard edge bucket
+
+        def partition(batches):
+            bl = batches[0].block_layout
+            kw = dict(src_windows=bl is not None,
+                      hybrid=bl is not None and bl.rem_send is not None)
+            k = mesh.edge.size
+
+            def headroom(eps):
+                return ((int(eps * 1.25) + 255) // 256) * 256
+
+            try:
+                parts, eps = partition_batches(batches, k, eps=bucket[0],
+                                               **kw)
+            except ValueError:
+                # a reshuffled epoch overflowed the bucket: regrow it once
+                _, eps = partition_batches(batches, k, **kw)
+                parts, eps = partition_batches(batches, k,
+                                               eps=headroom(eps), **kw)
+            if bucket[0] is None:
+                parts, eps = partition_batches(batches, k,
+                                               eps=headroom(eps), **kw)
+            bucket[0] = eps
+            return parts
 
         def build(batches):
             """This rank's shard of each data-axis-wide group, unmoved."""
             batches = list(batches)
+            if dst_owned:
+                batches = partition(batches)
             out = []
             for i in range(0, len(batches), dp):
                 chunk = batches[i:i + dp]
                 while len(chunk) < dp:           # wrap-around fill
                     chunk.append(batches[len(chunk) % len(batches)])
-                out.append(shard_batch(stack_graphs(chunk), mesh))
+                out.append(shard_batch(stack_graphs(chunk), mesh,
+                                       dst_owned=dst_owned))
             return out
 
         def to_device(groups):

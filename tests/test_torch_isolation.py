@@ -231,6 +231,7 @@ def test_parallel_and_v2_modules_are_among_the_checked():
     assert {"gat_pytorch_tpu_torch.parallel.mesh",
             "gat_pytorch_tpu_torch.ops.collectives",
             "gat_pytorch_tpu_torch.parallel.sharding",
+            "gat_pytorch_tpu_torch.parallel.partition",
             "gat_pytorch_tpu_torch.parallel.train",
             "gat_pytorch_tpu_torch.parallel.multihost",
             "gat_pytorch_tpu_torch.ops.cuda.segment_attention"} <= mods
@@ -282,20 +283,26 @@ def _mesh_here(data=1, edge=1):
 
 
 def test_sharded_path_refuses_what_is_not_ported():
-    from gat_pytorch_tpu_torch.parallel import make_sharded_train_step
+    """The dst-owned layout is ported: its steps build (with the
+    regulariser too). What the sharded path refuses: dst_owned without
+    an edge axis to own rows over, and the naive oracle layer, which is
+    single-device, under one."""
+    from gat_pytorch_tpu_torch.parallel import (make_sharded_eval_step,
+                                                make_sharded_train_step)
     cfg, g = _tiny()
     mesh = _mesh_here()
     params = gat.init_gat_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_train_step(cfg, make_task("Cora"), mesh,
-                                dst_owned=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_train_step(
-            cfg, make_task("Cora", attention_reward=0.1), mesh,
-            dst_owned=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gat.gat_model_apply(params, cfg, g, device="cpu",
-                            edge_axis=mesh.edge, dst_owned=True)
+    assert callable(make_sharded_train_step(cfg, make_task("Cora"), mesh,
+                                            dst_owned=True))
+    assert callable(make_sharded_train_step(
+        cfg, make_task("Cora", attention_reward=0.1), mesh, dst_owned=True))
+    assert callable(make_sharded_eval_step(cfg, make_task("Cora"), mesh,
+                                           "val", dst_owned=True))
+    with pytest.raises(ValueError, match="edge axis"):
+        gat.gat_model_apply(params, cfg, g, device="cpu", dst_owned=True)
+    with pytest.raises(ValueError, match="oracle"):
+        gat.gat_model_apply(params, cfg, g, device="cpu", backend="naive",
+                            edge_axis=mesh.edge)
 
 
 def test_edge_shards_cut_the_dst_sorted_edges():

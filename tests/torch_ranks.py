@@ -1,5 +1,6 @@
-"""The rank side of tests/test_torch_parallel.py: what each of several
-torch.distributed processes runs (gloo, CPU tensors).
+"""The rank side of tests/test_torch_parallel.py and the other tests of
+the port's sharded paths: what each of several torch.distributed
+processes runs (gloo, CPU tensors).
 
 Its top level imports only torch and numpy, and nothing here imports
 jax: the ranks are started with the spawn method, which imports this
@@ -7,12 +8,18 @@ module anew in each process. The test process hands every input over as
 numpy arrays (graphs canonicalised and parameters initialised by the JAX
 package) and reads each rank's results from a file.
 
-`run_jobs(rank, world, store, jobs, out_dir)` joins a gloo group through
-a FileStore, runs each job (a dict; `kind` names one of JOBS) and saves
-{job name: result} to out_dir/rank<r>.pt.
+`run_jobs(rank, world, store, jobs_path, out_dir)` joins a gloo group
+through a FileStore, runs each job of the list pickled at jobs_path (a
+dict; `kind` names one of JOBS) and saves {job name: result} to
+out_dir/rank<r>.pt. The jobs go through a file, not the processes'
+arguments: spawn writes a process's arguments to a pipe that the child
+reads only once its interpreter is up, so arguments larger than the pipe
+hold each start until the child before it has imported torch.
 """
 
+import contextlib
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -32,6 +39,33 @@ def params_of(tree):
 def grads_of(params):
     from gat_pytorch_tpu_torch.models import gat
     return [p.grad.clone() for p in gat.parameters(params)]
+
+
+@contextlib.contextmanager
+def _env(values):
+    """The environment variables `values` set inside the block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _batch(job, mesh):
+    """This rank's shard of job["graphs"]: cut over the edge axis, or
+    where job["dst_owned"] partitioned by destination (partition_batches
+    with job["partition"]) and cut by dst_shard."""
+    from gat_pytorch_tpu_torch.parallel import partition_batches, shard_batch
+    graphs = [graph_of(a) for a in job["graphs"]]
+    if job.get("dst_owned"):
+        graphs, _ = partition_batches(graphs, mesh.edge.size,
+                                      **job.get("partition", {}))
+    return shard_batch(graphs, mesh, dst_owned=job.get("dst_owned", False))
 
 
 def _mesh(job):
@@ -64,6 +98,50 @@ def layer_job(job):
     return out
 
 
+def dst_model_job(job):
+    """The dst-owned model (mesh (1, K)) on this rank's shard of one graph
+    partitioned by destination (job["partition"]), under the environment
+    job["env"], for each backend of job["backends"]: logits, PATH_TRACE,
+    the collectives made, and the gradients of mean(logits ** 2), plus the
+    attention norm where job["attention"] (then alpha and the norm too)."""
+    from gat_pytorch_tpu_torch.models import gat
+    from gat_pytorch_tpu_torch.ops import collectives as C
+    from gat_pytorch_tpu_torch.parallel import (dst_shard,
+                                                partition_edges_by_dst)
+    mesh = _mesh(job)
+    cfg = gat.GATConfig(**job["cfg"])
+    attention = job.get("attention", False)
+    g2, _ = partition_edges_by_dst(graph_of(job["graph"]), mesh.edge.size,
+                                   **job.get("partition", {}))
+    g = dst_shard(g2, mesh.edge.index, mesh.edge.size)
+    out = {}
+    with _env(job.get("env", {})):
+        for backend in job["backends"]:
+            params = params_of(job["params"])
+            gat.PATH_TRACE.clear()
+            with C.recording() as calls:
+                res = gat.gat_model_apply(
+                    params, cfg, g, device="cpu", backend=backend,
+                    edge_axis=mesh.edge, dst_owned=True,
+                    return_attention=attention)
+                logits, alpha = res if attention else (res, [])
+                loss = (logits ** 2).mean()
+                norm = None
+                if attention:
+                    norm = gat.calc_attention_norm(
+                        g, alpha, edge_axis=mesh.edge, dst_owned=True)
+                    loss = loss + norm
+                loss.backward()
+            out[backend] = dict(
+                logits=logits.detach(), grads=grads_of(params),
+                trace=list(gat.PATH_TRACE), calls=list(calls),
+                alpha=[a.detach() for a in alpha],
+                norm=None if norm is None else norm.detach(),
+                rem_e=(None if g.block_layout is None
+                       else g.block_layout.rem_e))
+    return out
+
+
 def model_job(job):
     """The model on this rank's shard of one graph (mesh (1, K)): logits
     and the gradients of mean(logits ** 2) for each backend."""
@@ -84,31 +162,35 @@ def model_job(job):
 
 def step_job(job):
     """One sharded train step (SGD, lr job["lr"]) per backend: the loss,
-    the metrics, the gradients and the parameters after the step; the
-    task from make_task(job["task"], **job["task_kw"])."""
+    the metrics, the gradients, the parameters after the step and the
+    collectives it made; the task from make_task(job["task"],
+    **job["task_kw"]); the dst-owned layout where job["dst_owned"]
+    (_batch)."""
     from gat_pytorch_tpu_torch.models import gat
+    from gat_pytorch_tpu_torch.ops import collectives as C
     from gat_pytorch_tpu_torch.parallel import (DropoutGenerators,
-                                                make_sharded_train_step,
-                                                shard_batch)
+                                                make_sharded_train_step)
     from gat_pytorch_tpu_torch.train.tasks import make_task
     mesh = _mesh(job)
     cfg = gat.GATConfig(**job["cfg"])
-    batch = shard_batch([graph_of(a) for a in job["graphs"]], mesh)
+    batch = _batch(job, mesh)
     out = {}
     for backend in job.get("backends", ("kernel", "segment")):
         step = make_sharded_train_step(
             cfg, make_task(job["task"], **job.get("task_kw", {})), mesh,
-            backend=backend)
+            backend=backend, dst_owned=job.get("dst_owned", False))
         runs = []
         for _ in range(job.get("repeats", 1)):
             gens = DropoutGenerators.for_rank(job.get("seed", 1), mesh,
                                               torch.device("cpu"))
             params = params_of(job["params"])
             opt = torch.optim.SGD(gat.parameters(params), lr=job["lr"])
-            loss, mets = step(params, opt, batch, gens)
+            with C.recording() as calls:
+                loss, mets = step(params, opt, batch, gens)
             runs.append(dict(loss=loss, metrics=mets, grads=grads_of(params),
                              params=[t.detach() for t in
-                                     gat.parameters(params)]))
+                                     gat.parameters(params)],
+                             calls=list(calls)))
         out[backend] = runs
     return out
 
@@ -131,7 +213,8 @@ def fit_job(job):
     this process's rank) and job["every"] the trainer's checkpoints, whose
     files are listed; job["patience"]; job["spy_prefetch"] records the
     trainer's prefetch iterators (their put flag, and whether each thread
-    still runs when the fit returns)."""
+    still runs when the fit returns); job["dst_owned"] the dst-owned
+    layout."""
     from gat_pytorch_tpu_torch.models import gat
     from gat_pytorch_tpu_torch.train import trainer as T
     from gat_pytorch_tpu_torch.train.tasks import make_task
@@ -166,7 +249,8 @@ def fit_job(job):
     try:
         res = tr.fit_sharded(mesh, train, graphs[n_train:],
                              reshuffle=reshuffle,
-                             params=params_of(job["params"]))
+                             params=params_of(job["params"]),
+                             dst_owned=job.get("dst_owned", False))
     finally:
         T.PrefetchIterator = plain
     return dict(history=res.history, best_epoch=res.best_epoch,
@@ -199,13 +283,16 @@ def pod_job(job):
                 joined=multihost.initialize(), same=same, shards=len(got))
 
 
-JOBS = {"layer": layer_job, "model": model_job, "step": step_job,
+JOBS = {"layer": layer_job, "model": model_job, "dst_model": dst_model_job,
+        "step": step_job,
         "masks": masks_job, "fit": fit_job, "pod": pod_job}
 
 
-def run_jobs(rank, world, store, jobs, out_dir):
+def run_jobs(rank, world, store, jobs_path, out_dir):
     import torch.distributed as dist
     torch.set_num_threads(1)
+    with open(jobs_path, "rb") as fh:
+        jobs = pickle.load(fh)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
@@ -215,13 +302,29 @@ def run_jobs(rank, world, store, jobs, out_dir):
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def spawn(jobs, world, tmp_dir):
-    """Run `jobs` on `world` gloo ranks; returns each rank's results."""
-    torch.multiprocessing.start_processes(
-        run_jobs, args=(world, os.path.join(tmp_dir, "store"), jobs,
-                        tmp_dir), nprocs=world, start_method="spawn")
+def start(jobs, world, tmp_dir):
+    """Start `jobs` on `world` gloo ranks and return at once (the caller
+    may work meanwhile); results(...) waits for them."""
+    jobs_path = os.path.join(tmp_dir, "jobs.pkl")
+    with open(jobs_path, "wb") as fh:
+        pickle.dump(jobs, fh)
+    return torch.multiprocessing.start_processes(
+        run_jobs, args=(world, os.path.join(tmp_dir, "store"), jobs_path,
+                        tmp_dir), nprocs=world, join=False,
+        start_method="spawn")
+
+
+def results(context, world, tmp_dir):
+    """Each rank's results, once the ranks of `context` (start) end."""
+    while not context.join():
+        pass
     return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]
+
+
+def spawn(jobs, world, tmp_dir):
+    """Run `jobs` on `world` gloo ranks; returns each rank's results."""
+    return results(start(jobs, world, tmp_dir), world, tmp_dir)
 
 
 def numpy_graph(g):
