@@ -94,8 +94,11 @@ Phases (every failure is fatal):
      source-score pass, of the window and v5 backwards by sender and
      their tail, of the v2 backward or of the d(den) prologue may use any,
      nor may the backwards by sender, their tail, the v2 kernels, the
-     table forward and the d(den) prologue spill: ptxas's report), and
-     print the card's name and power limit as nvidia-smi gives them;
+     table forward and the d(den) prologue spill: ptxas's report); build
+     the native graphcore library (csrc/graphcore.cpp with $CXX or g++
+     into build/graphcore/; a [build] line with its seconds), with which
+     every graph below is built; and print the card's name and power
+     limit as nvidia-smi gives them;
   2. the source-score pass (the table every v5 and windowed kernel reads
      its logits from) at every width the fits run, from float32 and
      bfloat16 tables, against its plain version, twice for equal bits,
@@ -219,6 +222,30 @@ Phases (every failure is fatal):
      exec_type "load" must print the train run's test metrics; a Cora fit
      with track_grads (histograms to a recording logger) must give the
      bits of one without;
+  4e. the last modules ported: the native graphcore library against its
+     numpy form as equal arrays (the Pubmed stand-in's self-loops, sort
+     and permutation, CSR offsets and RCM order; PPI's block-diagonal
+     batches), sample_neighbors' invariants (min(k, degree) distinct
+     slots of each seed's run, over every node of Cora and Pubmed), and
+     a [graph] line with the host ms of RCM and of a sampled Cora epoch's
+     build, native beside numpy; the attention extraction of cli/vis.py
+     (its _load_params and get_test_graph, then vis.attention's
+     extract_attention) on Cora from 4d's epoch-5 snapshot (before its
+     directory is removed), and with seed-0 weights on the first test
+     graph of PPI and of PATTERN (v5 path) and of PATTERN under
+     paper_faithful (table path), each with the launch counters set to 0
+     just before and read just after (a layer: source_scores, v5_forward
+     and segment_sum_sorted, or table_forward and segment_sum_sorted;
+     added to the result line's launches), alpha of every layer against
+     the segment path within 1e-4, each real node's alphas summing to 1,
+     the entropies no larger than the uniform ones, and the entropies and
+     degree-scaled weights of the two paths within 1e-4 (the figures need
+     matplotlib, which this machine may lack: the CPU tests hold them);
+     utils/profiling: time_fn's median of the Cora eval forward, and a
+     trace of three Cora train steps (one under annotate("gat_layer_0"))
+     and an attention extraction, parsed for both regions and the port's
+     kernels (v5_fwd_kernel, source_scores_kernel, v5_bwd_sender_kernel,
+     sorted_sum_kernel);
   5. time each kernel and bfloat16 mode (CUDA graph replays; a v5 or
      windowed forward or cap entry with its source-score pass, a backward
      entry given its op's table, as the main path calls them), its plain
@@ -979,6 +1006,234 @@ def time_dh_rows(torch, ss, label, rows, order, src_ptr, n, senders=None,
     return out
 
 
+# -- phase 4e: the native graphcore library, vis and profiling --------------
+
+# the graphs of phase 4e's attention extraction (cli/vis.py's _load_params
+# and get_test_graph): name -> (dataset, config overrides, the eval
+# forward's layer path). The port runs v5 at every edge count (the JAX
+# package's table op below 4096 edges is a gate on the TPU's launch cost,
+# not ported), so a PATTERN test graph takes v5, and the table path is
+# the same graph under paper_faithful.
+VIS_GRAPHS = {"Cora": ("Cora", {}, "v5"),
+              "PPI": ("PPI", {}, "v5"),
+              "PATTERN": ("PATTERN", {}, "v5"),
+              "PATTERN paper_faithful": ("PATTERN", {"paper_faithful": True},
+                                         "v4_table")}
+# the kernels a layer's eval forward with return_attention launches, once
+# each: the path's forward and alpha's denominator (segment_sum_sorted)
+VIS_KERNELS = {"v5": ("source_scores", "v5_forward", "segment_sum_sorted"),
+               "v4_table": ("table_forward", "segment_sum_sorted")}
+# the kernels a written trace must name (train steps on the v5 path, and
+# an attention extraction for the sorted sum)
+TRACE_KERNELS = ("v5_fwd_kernel", "source_scores_kernel",
+                 "v5_bwd_sender_kernel", "sorted_sum_kernel")
+
+
+def check_graphcore(np, core, datasets, sampling, cli_train, get_config,
+                    ppi_train, cora_raw, card):
+    """Phase 4e's holds of the native graphcore library: each function
+    against its numpy form as equal arrays (the Pubmed stand-in: self-loops,
+    the sort with its permutation, CSR offsets, the RCM order; PPI's
+    block-diagonal batches), sample_neighbors' invariants, and the host ms
+    of RCM and of a sampled Cora epoch's build on either."""
+    if not core.native_available():
+        fail("the native graphcore library is not loaded")
+
+    def numpy_form(fn, *args, **kw):
+        with mock.patch.object(core, "_load", lambda: None):
+            return fn(*args, **kw)
+
+    def same(label, fn, *args, **kw):
+        got, want = fn(*args, **kw), numpy_form(fn, *args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if len(got) != len(want) or not all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(got, want)):
+            fail(f"graphcore {label}: the native library differs from its "
+                 f"numpy form")
+        return got
+
+    raw = datasets.load_planetoid("Pubmed", synthetic_override=True, seed=0)
+    n, s, r = raw.num_nodes, raw.senders, raw.receivers
+    ls, lr = same("add_remaining_self_loops", core.add_remaining_self_loops,
+                  s, r, n)
+    _, sr, _ = same("sort_by_destination", core.sort_by_destination, ls, lr,
+                    return_perm=True)
+    same("csr_offsets", core.csr_offsets, sr, n)
+    (order,) = same("rcm_order", core.rcm_order, s, r, n)
+    if not np.array_equal(np.sort(order), np.arange(n)):
+        fail("graphcore rcm_order: not a permutation")
+    for i in range(0, len(ppi_train), 2):
+        chunk = ppi_train[i:i + 2]
+        same(f"block_diagonal (PPI batch {i // 2})", core.block_diagonal,
+             np.concatenate([g.senders for g in chunk]),
+             np.concatenate([g.receivers for g in chunk]),
+             np.array([g.num_nodes for g in chunk]),
+             np.array([g.num_edges for g in chunk]))
+    # sample_neighbors over slot ids: exactly min(k, degree) distinct slots
+    # a seed, each inside its seed's run, the seeds in order; the same
+    # draw over the senders reads those slots
+    draws = 0
+    for label, g in (("Cora", cora_raw), ("Pubmed", raw)):
+        csr = sampling.CSRGraph(g.senders, g.receivers, g.num_nodes)
+        slots = np.arange(csr.senders.size, dtype=np.int64)
+        seeds = np.arange(csr.num_nodes, dtype=np.int64)
+        deg = np.diff(csr.offsets)
+        for k in (1, 4, 10, 25):
+            got, dst = core.sample_neighbors(csr.offsets, slots, seeds, k,
+                                             k + 7)
+            src, dst2 = core.sample_neighbors(csr.offsets, csr.senders,
+                                              seeds, k, k + 7)
+            ok = (np.array_equal(np.bincount(dst, minlength=csr.num_nodes),
+                                 np.minimum(k, deg))
+                  and np.unique(got).size == got.size
+                  and bool(((got >= csr.offsets[dst])
+                            & (got < csr.offsets[dst + 1])).all())
+                  and bool((np.diff(dst) >= 0).all())
+                  and np.array_equal(dst2, dst)
+                  and np.array_equal(src, csr.senders[got]))
+            if not ok:
+                fail(f"graphcore sample_neighbors on {label} at k={k}: not "
+                     f"min(k, degree) distinct slots of each seed's run")
+            draws += got.size
+    # host ms: RCM, and a sampled Cora epoch's build (both packages' CLI
+    # settings), native beside the numpy form
+    rcm, builds = {}, {}
+    cfg = get_config("Cora", sampling_fanouts="10,10",
+                     sampling_batch_size=128)
+    for branch, call in (("native", lambda fn, *a: fn(*a)),
+                         ("numpy", numpy_form)):
+        rcm[branch] = []
+        for _ in range(3 if branch == "native" else 1):
+            t0 = time.perf_counter()
+            call(core.rcm_order, s, r, n)
+            rcm[branch].append(round((time.perf_counter() - t0) * 1e3, 2))
+        sampler = cli_train.neighbour_sampler(cora_raw, cfg)
+        builds[branch] = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            epoch = call(sampler.epoch, i)
+            builds[branch].append(round((time.perf_counter() - t0) * 1e3, 1))
+    print(f"[graphcore] native against numpy, equal arrays: the Pubmed "
+          f"stand-in ({n} nodes, {s.size} edges: self-loops, sort and "
+          f"permutation, CSR offsets, RCM order), {len(ppi_train) // 2} PPI "
+          f"block-diagonal batches; sample_neighbors' invariants at k = 1, "
+          f"4, 10, 25 over every node of Cora and Pubmed ({draws} slots)")
+    print(f"[graph] host ms on the machine of the {card}: RCM of the "
+          f"Pubmed stand-in "
+          f"native {rcm['native']}, numpy {rcm['numpy']}; a sampled Cora "
+          f"epoch's build ({len(epoch)} subgraphs, fanouts 10,10, batch 128) "
+          f"native {builds['native']}, numpy {builds['numpy']}")
+
+
+def hold_vis(torch, np, A, gat, build, label, params, cfg, graph, path,
+             launches):
+    """Phase 4e on one graph: extract_attention on the kernel path with
+    the launch counters set to 0 just before and read just after (each
+    kernel of VIS_KERNELS[path] once a layer, no other; added to
+    `launches`), then alpha of every layer against the segment path's
+    (REL_TOL), each real node's alphas summing to 1, the entropies no
+    larger than the uniform ones and, with the degree-scaled weights,
+    held against the segment path's."""
+    gat.PATH_TRACE.clear()
+    build.reset_launches()
+    torch.cuda.synchronize()
+    logits, att = A.extract_attention(params, cfg, graph)
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in build.LAUNCHES.items() if v}
+    want = {k: cfg.num_layers for k in VIS_KERNELS[path]}
+    print(f"[vis] {label}: {graph.num_nodes} nodes, {graph.num_real_edges} "
+          f"real edges; paths {sorted(set(gat.PATH_TRACE))}; launches {ran}")
+    if ran != want or gat.PATH_TRACE != [path] * cfg.num_layers:
+        fail(f"vis {label}: launches {ran} on paths {gat.PATH_TRACE}, "
+             f"expected {want} on {path}")
+    for k, v in ran.items():
+        launches[k] += v
+    if logits.shape != (graph.num_nodes, cfg.num_classes) or \
+            not np.isfinite(logits).all():
+        fail(f"vis {label}: logits {logits.shape}, or not finite")
+    with torch.no_grad():
+        _, seg_att = gat.gat_model_apply(params, cfg, graph,
+                                         device=graph.device,
+                                         backend="segment",
+                                         return_attention=True)
+    recv = graph.receivers.cpu().numpy()
+    emask = graph.edge_mask.cpu().numpy()
+    deg = np.bincount(recv[emask], minlength=graph.num_nodes)
+    real = graph.node_mask.cpu().numpy() & (deg > 0)
+    for li, (a, b) in enumerate(zip(att, seg_att)):
+        b = b.cpu().numpy()
+        err = float(np.abs(a - b).max())
+        sums = np.zeros((graph.num_nodes, a.shape[1]))
+        np.add.at(sums, recv[emask], a[emask])
+        sum_err = float(np.abs(sums[real] - 1.0).max())
+        ents, unis = A.attention_entropies(a, graph)
+        seg_ents, seg_unis = A.attention_entropies(b, graph)
+        over = float((ents - unis).max())
+        ent_err = float(np.abs(ents - seg_ents).max())
+        w_err = max(float(np.abs(
+            A.degree_scaled_weights(a, graph, h, np.inf)[0]
+            - A.degree_scaled_weights(b, graph, h, np.inf)[0]).max())
+            for h in range(a.shape[1]))
+        print(f"  layer {li} ({a.shape[1]} heads): alpha against the "
+              f"segment path {err:.3e}; sums to 1 within {sum_err:.3e}; "
+              f"entropy - uniform at most {over:.3e} over {ents.size} "
+              f"(node, head) pairs; entropies against the segment path's "
+              f"{ent_err:.3e}, degree-scaled weights {w_err:.3e}")
+        if not (err <= REL_TOL and sum_err <= REL_TOL and over <= 1e-5
+                and ents.shape == seg_ents.shape and ent_err <= REL_TOL
+                and np.array_equal(unis, seg_unis) and w_err <= REL_TOL):
+            fail(f"vis {label} layer {li}: alpha {err}, sums {sum_err}, "
+                 f"entropy over uniform {over}, entropies {ent_err}, "
+                 f"weights {w_err} (limits {REL_TOL}, 1e-5)")
+    return att
+
+
+def check_profiling(torch, prof_utils, A, gat, O, trainer, params, cfg,
+                    graph, logdir, card):
+    """time_fn of the Cora eval forward; a trace of three Cora train steps
+    (the second under annotate("gat_layer_0")) and an attention extraction
+    (under annotate("extract_attention")), parsed: it must name both
+    regions and the kernels of TRACE_KERNELS."""
+    with torch.no_grad():
+        sec, out = prof_utils.time_fn(
+            lambda: gat.gat_model_apply(params, cfg, graph,
+                                        device=graph.device),
+            warmup=2, iters=20)
+    print(f"[profile] time_fn: the Cora eval forward (4d's epoch-5 "
+          f"parameters), median {sec * 1e3:.4f} ms of 20 calls after 2 of "
+          f"warm-up, host launches included, on {card}")
+    if out.shape != (graph.num_nodes, cfg.num_classes):
+        fail(f"time_fn returned {tuple(out.shape)}")
+    train_params = trainer.init_params()
+    opt = O.adam_l2(gat.parameters(train_params), trainer.learning_rate,
+                    trainer.weight_decay)
+    gen = trainer.dropout_generator()
+    with prof_utils.trace(logdir) as prof:
+        trainer.train_step(train_params, opt, graph, gen)
+        with prof_utils.annotate("gat_layer_0"):
+            trainer.train_step(train_params, opt, graph, gen)
+        trainer.train_step(train_params, opt, graph, gen)
+        with prof_utils.annotate("extract_attention"):
+            A.extract_attention(train_params, cfg, graph)
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels) for k in TRACE_KERNELS}
+    print(f"[profile] trace: {os.path.basename(prof.trace_path)}, "
+          f"{os.path.getsize(prof.trace_path)} bytes, {len(events)} events, "
+          f"{len(kernels)} kernel launches; regions gat_layer_0 "
+          f"{'gat_layer_0' in names}, extract_attention "
+          f"{'extract_attention' in names}; the port's kernels {found}")
+    if not {"gat_layer_0", "extract_attention"} <= names or \
+            not all(found.values()):
+        fail("the written trace misses an annotated region or a kernel of "
+             "the port")
+
+
 def main():
     import numpy as np
     import torch
@@ -988,8 +1243,10 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gat_pytorch_tpu_torch.cli import train as cli_train
-    from gat_pytorch_tpu_torch.data import datasets, loader
+    from gat_pytorch_tpu_torch.cli import vis as cli_vis
+    from gat_pytorch_tpu_torch.data import datasets, loader, sampling
     from gat_pytorch_tpu_torch.data.prefetch import PrefetchIterator
+    from gat_pytorch_tpu_torch.graph import graphcore_binding as core
     from gat_pytorch_tpu_torch.models import gat
     from gat_pytorch_tpu_torch.ops import segment as seg
     from gat_pytorch_tpu_torch.ops.cuda import build
@@ -1004,7 +1261,9 @@ def main():
     from gat_pytorch_tpu_torch.train.tasks import make_task
     from gat_pytorch_tpu_torch.train.trainer import Trainer, TrainState
     from gat_pytorch_tpu_torch.utils.config import get_config
+    from gat_pytorch_tpu_torch.utils import profiling as prof_utils
     from gat_pytorch_tpu_torch.utils.device import resolve_device
+    from gat_pytorch_tpu_torch.vis import attention as vis_attention
 
     started = time.time()
 
@@ -1019,6 +1278,15 @@ def main():
           f"{len(build.SOURCES)} sources in {time.time() - t0:.1f} s into "
           f"{build.BUILD_DIR}")
     check_resource_usage(build)
+    # the native graphcore library (csrc/graphcore.cpp), which every graph
+    # below is built with: a compiler must be found here
+    t0 = time.time()
+    cxx = core.compiler()
+    if cxx is None:
+        fail("no C++ compiler ($CXX or g++) for the graphcore library")
+    gc_lib = core.build(cxx)
+    print(f"[build] graphcore: {gc_lib.name} from csrc/graphcore.cpp "
+          f"({cxx} {' '.join(core.CXXFLAGS)}) in {time.time() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3290,6 +3558,32 @@ def main():
             fail("Cora: the fit with track_grads differs from the fit "
                  "without, or logged no histograms")
 
+        elapsed("4e")
+        # -- 4e. the native graphcore library, attention visualisation
+        # (cli/vis.py's loading and extraction; the figures need
+        # matplotlib, which the CPU tests hold) and the profiling utilities
+        check_graphcore(np, core, datasets, sampling, cli_train, get_config,
+                        inductive["PPI"][0], cora_raw, card)
+        vis = {}
+        for vis_name, (vis_set, vis_over, vis_path) in VIS_GRAPHS.items():
+            run_cfg = get_config(vis_set, **vis_over)
+            vis_cfg = run_cfg.gat_config()
+            snapshot = (os.path.join(ck_dir, "epoch-5")
+                        if vis_name == "Cora" else None)
+            vis_params = cli_vis._load_params(snapshot, vis_cfg, run_cfg,
+                                              "cuda")
+            vis_graph = cli_vis.get_test_graph(vis_set, True, "cuda")
+            vis[vis_name] = (vis_cfg, vis_params, vis_graph)
+            weights = "epoch-5 snapshot" if snapshot else "seed 0"
+            hold_vis(torch, np, vis_attention, gat, build,
+                     f"{vis_name} ({weights})", vis_params, vis_cfg,
+                     vis_graph, vis_path, launches)
+        vis_cfg, vis_params, vis_graph = vis["Cora"]
+        _, vis_trainer, _, _, _ = make_trainer("Cora", {}, 3)
+        check_profiling(torch, prof_utils, vis_attention, gat, O, vis_trainer,
+                        vis_params, vis_cfg, vis_graph,
+                        os.path.join(tmp, "trace"), card)
+
     elapsed("5")
     # -- 5. timings ---------------------------------------------------------
     timing = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
@@ -4133,7 +4427,8 @@ def main():
               f"entries Pubmed's, each bfloat16 mode its entry's, "
               f"segment_sum_rows_t Cora's, the v2 entries PPI's in the "
               f"partial mode); launches {launches[k]} over the "
-              f"{len(per_epoch)} fits (per epoch: {per})")
+              f"{len(per_epoch)} fits and phase 4e's forwards (per epoch: "
+              f"{per})")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
             "replaces": REPLACES[k], "launches": launches[k],

@@ -2,7 +2,7 @@
 
 The JAX package `gat_pytorch_tpu` is the reference: this package mirrors
 its layout (graph/, data/, ops/, models/, train/, parallel/, utils/,
-cli/) and its public function signatures and parameter layouts, so each
+cli/, vis/) and its public function signatures and parameter layouts, so each
 module can be held against its JAX counterpart in the tests. It imports torch and never
 jax, and nothing of the JAX package.
 

@@ -12,14 +12,18 @@ taken on the seed nodes only, through the subgraph's train_mask.
 canonicalize adds the self-loops, so a seed keeps its own features at
 fanout 0.
 
-The draws are the JAX package's numpy branch (its `sample_subgraph`
-without the native library): the same np.random.Generator calls in the
-same order (a permutation of the seeds an epoch, then per frontier node
-np.unique of its in-neighbours and, only where there are more than the
-fanout, rng.choice(..., replace=False); no draw for a node with no
-in-edge). The port does not load the native library, so the JAX package
-draws other subgraphs from the same seed where its native library is
-built.
+The draws are the JAX package's, branch for branch. Where the native
+graphcore library is loaded (graph/graphcore_binding.native_available) a
+hop draws one seed, int(rng.integers(2 ** 62)), and the C entry
+gc_sample_neighbors samples every frontier node's in-edge slots from it;
+the pairs are deduplicated (np.unique(..., axis=0)) and grouped by
+destination in their first appearance. Without it (the numpy branch) the
+same np.random.Generator calls come in the same order as there: a
+permutation of the seeds an epoch, then per frontier node np.unique of
+its in-neighbours and, only where there are more than the fanout,
+rng.choice(..., replace=False); no draw for a node with no in-edge. So
+from one seed the port draws what the JAX package draws where both load
+the library, or neither does.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from ..graph import graphcore_binding as core
 from ..graph import transforms as T
 from ..graph.graph import Graph
 
@@ -68,14 +73,30 @@ def sample_subgraph(csr: CSRGraph,
     sub_s: List[int] = []
     sub_r: List[int] = []
     frontier = np.asarray(nodes, dtype=np.int64)
+    use_native = core.native_available()
     for fanout in fanouts:
+        if use_native:
+            # one draw a hop seeds the C entry's Floyd sampling; only
+            # parallel edges collapse in the dedupe
+            src, dst = core.sample_neighbors(
+                csr.offsets, csr.senders, frontier, fanout,
+                int(rng.integers(2 ** 62)))
+            pairs = np.unique(np.stack([src, dst], axis=1), axis=0)
+            per_v = {}
+            for u, v in pairs:
+                per_v.setdefault(int(v), []).append(int(u))
+            hop = list(per_v.items())
+        else:
+            hop = []
+            for v in frontier:
+                nbrs = np.unique(csr.in_edges(int(v)))
+                if nbrs.size == 0:
+                    continue
+                if nbrs.size > fanout:
+                    nbrs = rng.choice(nbrs, size=fanout, replace=False)
+                hop.append((int(v), nbrs))
         nxt: List[int] = []
-        for v in frontier:
-            nbrs = np.unique(csr.in_edges(int(v)))
-            if nbrs.size == 0:
-                continue
-            if nbrs.size > fanout:
-                nbrs = rng.choice(nbrs, size=fanout, replace=False)
+        for v, nbrs in hop:
             for u in nbrs:
                 u = int(u)
                 if u not in local:
@@ -83,7 +104,7 @@ def sample_subgraph(csr: CSRGraph,
                     nodes.append(u)
                     nxt.append(u)
                 sub_s.append(local[u])
-                sub_r.append(local[int(v)])
+                sub_r.append(local[v])
         frontier = np.asarray(nxt, dtype=np.int64)
     seed_local = np.array([local[int(s)] for s in seeds], dtype=np.int64)
     return (np.asarray(nodes, dtype=np.int64),

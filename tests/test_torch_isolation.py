@@ -261,6 +261,30 @@ def test_checkpoint_logging_and_sampling_modules_are_among_the_checked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_vis_profiling_and_graphcore_modules_are_among_the_checked():
+    """The jax-free import check walks the last modules ported (vis, its
+    CLI, profiling, the native graphcore binding); importing vis or its
+    CLI imports no matplotlib, which only drawing a figure needs."""
+    mods = set(_modules())
+    assert {"gat_pytorch_tpu_torch.vis",
+            "gat_pytorch_tpu_torch.vis.attention",
+            "gat_pytorch_tpu_torch.vis.plots",
+            "gat_pytorch_tpu_torch.cli.vis",
+            "gat_pytorch_tpu_torch.utils.profiling",
+            "gat_pytorch_tpu_torch.graph.graphcore_binding"} <= mods
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['gat_pytorch_tpu'] = None\n"
+            "import gat_pytorch_tpu_torch.vis\n"
+            "import gat_pytorch_tpu_torch.cli.vis as V\n"
+            "V.build_parser().parse_args(['--device', 'cpu'])\n"
+            "assert not any(k == 'matplotlib' or k.startswith('matplotlib.')\n"
+            "               for k in sys.modules), 'matplotlib imported'\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_sharded_entry_points_refuse_cpu_unless_asked(no_gpu, tmp_path):
     from gat_pytorch_tpu_torch.parallel import multihost
     cfg, g = _tiny()

@@ -1,11 +1,14 @@
 """Neighbour-sampled minibatches (data/sampling.py) against the JAX package.
 
-The JAX sampler is held on its numpy branch (its native library's
-`native_available` patched to False, which edits no file of the JAX
-package): the port draws the same np.random.Generator calls in the same
-order, so from one seed both give the same subgraphs, array for array, in
-every epoch. A sampled fit (the batcher as `reshuffle`, dropout 0, the
-JAX parameters carried over) then follows the JAX fit's history.
+Both samplers are pinned to one branch a test, which edits no file of the
+JAX package: the numpy branch (the port's native library hidden, the JAX
+binding's `native_available` patched to False), where the port draws the
+same np.random.Generator calls in the same order; or the native branch
+(the JAX binding's `_LIB_PATH` pointed at the port's built library), where
+both draw one seed a hop for the same C entry. From one seed both give the
+same subgraphs, array for array, in every epoch. A sampled fit (the
+batcher as `reshuffle`, dropout 0, the JAX parameters carried over) then
+follows the JAX fit's history (numpy branch).
 """
 
 import jax
@@ -14,10 +17,12 @@ import pytest
 import torch
 
 from gat_pytorch_tpu.data import sampling as jS
+from gat_pytorch_tpu.graph import graphcore_binding as jcore
 from gat_pytorch_tpu.models import gat as jgat
 from gat_pytorch_tpu.train import tasks as jtasks
 from gat_pytorch_tpu.train.trainer import Trainer as JTrainer
 from gat_pytorch_tpu_torch.data import sampling as tS
+from gat_pytorch_tpu_torch.graph import graphcore_binding as tcore
 from gat_pytorch_tpu_torch.models import gat as tgat
 from gat_pytorch_tpu_torch.train import tasks as ttasks
 from gat_pytorch_tpu_torch.train.trainer import Trainer as TTrainer
@@ -29,9 +34,23 @@ GRAPH_FIELDS = ("x", "senders", "receivers", "edge_mask", "node_mask", "y",
                 "train_mask", "graph_ids", "src_order")
 
 
-@pytest.fixture(autouse=True)
-def jax_numpy_sampler(monkeypatch):
-    monkeypatch.setattr(jS.core, "native_available", lambda: False)
+def pin_branch(monkeypatch, branch):
+    """Put both packages' samplers on `branch` ("numpy" or "native")."""
+    if branch == "numpy":
+        monkeypatch.setattr(tcore, "_load", lambda: None)
+        monkeypatch.setattr(jcore, "native_available", lambda: False)
+        return
+    lib = tcore._load()
+    assert lib is not None, "no C++ compiler: the native branch cannot run"
+    monkeypatch.setattr(jcore, "_LIB_PATH", lib._name)
+    monkeypatch.setattr(jcore, "_lib", None)
+    assert jcore.native_available()
+
+
+@pytest.fixture(params=["numpy", "native"])
+def branch(request, monkeypatch):
+    pin_branch(monkeypatch, request.param)
+    return request.param
 
 
 def random_graph(n=60, deg=4, nf=6, nc=3, seed=0, isolated=()):
@@ -66,9 +85,9 @@ def assert_graphs_equal(tg, jg, label):
 
 
 @pytest.mark.parametrize("fanouts", [(2, 3), (10, 10), (0, 4), (3,)])
-def test_sample_subgraph_draws_as_the_jax_numpy_branch(fanouts):
+def test_sample_subgraph_draws_as_the_jax_numpy_branch(fanouts, branch):
     """Fanouts below and above the degrees, and 0; a seed without
-    in-edges (node 7) and a repeated seed."""
+    in-edges (node 7) and a repeated seed; on either branch."""
     x, s, r, y = random_graph(isolated=(7,))
     seeds = np.array([3, 7, 11, 3, 42])
     out = []
@@ -88,9 +107,9 @@ def test_sample_subgraph_draws_as_the_jax_numpy_branch(fanouts):
 
 @pytest.mark.parametrize("fanouts,batch", [((2, 3), 8), ((10, 10), 16),
                                            ((0, 2), 5)])
-def test_batcher_epochs_equal_the_jax_batcher(fanouts, batch):
+def test_batcher_epochs_equal_the_jax_batcher(fanouts, batch, branch):
     """Three epochs of padded subgraphs, field for field, with the ragged
-    last batch, from one seed."""
+    last batch, from one seed, on either branch."""
     x, s, r, y = random_graph(seed=2, isolated=(4, 9))
     seeds = np.array([4, 9, 1, 2, 3, 5, 6, 8, 10, 12, 14, 16, 18, 20, 22,
                       24, 26, 28, 30, 4])
@@ -108,11 +127,12 @@ def test_batcher_epochs_equal_the_jax_batcher(fanouts, batch):
         assert sum(int(g.train_mask.sum()) for g in tep) <= seeds.size
 
 
-def test_sampled_fit_matches_the_jax_fit():
+def test_sampled_fit_matches_the_jax_fit(monkeypatch):
     """fit_epochs on the port's batcher (prefetch thread on) against JAX
     Trainer.fit on the JAX batcher, both from the JAX initial parameters:
     dropout 0, three epochs of three sampled batches, validation on the
-    full graph."""
+    full graph (numpy branch)."""
+    pin_branch(monkeypatch, "numpy")
     from gat_pytorch_tpu.graph import transforms as jT
     from gat_pytorch_tpu_torch.graph import transforms as tT
     x, s, r, y = random_graph(n=80, deg=5, nf=8, nc=4, seed=7)
