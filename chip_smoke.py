@@ -242,10 +242,11 @@ Phases (every failure is fatal):
      degree-scaled weights of the two paths within 1e-4 (the figures need
      matplotlib, which this machine may lack: the CPU tests hold them);
      utils/profiling: time_fn's median of the Cora eval forward, and a
-     trace of three Cora train steps (one under annotate("gat_layer_0"))
-     and an attention extraction, parsed for both regions and the port's
-     kernels (v5_fwd_kernel, source_scores_kernel, v5_bwd_sender_kernel,
-     sorted_sum_kernel);
+     trace of three Cora train steps (one under span("gat_layer_0"))
+     and an attention extraction, parsed for both regions, the port's own
+     spans and the port's kernels (v5_fwd_kernel, source_scores_kernel,
+     v5_bwd_sender_kernel, sorted_sum_kernel), with the three steps'
+     records: each phase's device time and the step's host syncs;
   5. time each kernel and bfloat16 mode (CUDA graph replays; a v5 or
      windowed forward or cap entry with its source-score pass, a backward
      entry given its op's table, as the main path calls them), its plain
@@ -1193,9 +1194,10 @@ def hold_vis(torch, np, A, gat, build, label, params, cfg, graph, path,
 def check_profiling(torch, prof_utils, A, gat, O, trainer, params, cfg,
                     graph, logdir, card):
     """time_fn of the Cora eval forward; a trace of three Cora train steps
-    (the second under annotate("gat_layer_0")) and an attention extraction
-    (under annotate("extract_attention")), parsed: it must name both
-    regions and the kernels of TRACE_KERNELS."""
+    (the second under span("gat_layer_0")) and an attention extraction
+    (under span("extract_attention")), parsed: it must name both regions,
+    the port's spans of a step and the kernels of TRACE_KERNELS; the
+    three steps' records must give each phase a device time."""
     with torch.no_grad():
         sec, out = prof_utils.time_fn(
             lambda: gat.gat_model_apply(params, cfg, graph,
@@ -1212,10 +1214,10 @@ def check_profiling(torch, prof_utils, A, gat, O, trainer, params, cfg,
     gen = trainer.dropout_generator()
     with prof_utils.trace(logdir) as prof:
         trainer.train_step(train_params, opt, graph, gen)
-        with prof_utils.annotate("gat_layer_0"):
+        with prof_utils.span("gat_layer_0"):
             trainer.train_step(train_params, opt, graph, gen)
         trainer.train_step(train_params, opt, graph, gen)
-        with prof_utils.annotate("extract_attention"):
+        with prof_utils.span("extract_attention"):
             A.extract_attention(train_params, cfg, graph)
         torch.cuda.synchronize()
     with open(prof.trace_path) as f:
@@ -1223,15 +1225,30 @@ def check_profiling(torch, prof_utils, A, gat, O, trainer, params, cfg,
     names = {e.get("name", "") for e in events}
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     found = {k: sum(k in name for name in kernels) for k in TRACE_KERNELS}
+    spans = {"gat.step", "gat.forward", "gat.backward", "gat.optimizer",
+             "gat.layer.0", "gat.op.v5_attention.forward",
+             "gat.op.v5_attention.backward"}
     print(f"[profile] trace: {os.path.basename(prof.trace_path)}, "
           f"{os.path.getsize(prof.trace_path)} bytes, {len(events)} events, "
           f"{len(kernels)} kernel launches; regions gat_layer_0 "
           f"{'gat_layer_0' in names}, extract_attention "
-          f"{'extract_attention' in names}; the port's kernels {found}")
+          f"{'extract_attention' in names}; the port's spans missing "
+          f"{sorted(spans - names)}; the port's kernels {found}")
+    steps = prof_utils.records()[-3:]
+    for rec in steps:
+        phases = {name: sum(s.device_ms for s in rec.named(name))
+                  for name in ("gat.step", "gat.forward", "gat.backward",
+                               "gat.optimizer")}
+        print(f"[profile] step record {rec.step_id}: device ms "
+              + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+              + f"; host syncs {rec.counters['host_syncs']}")
+        if not all(v > 0.0 for v in phases.values()):
+            fail(f"step record {rec.step_id}: a phase without device time")
     if not {"gat_layer_0", "extract_attention"} <= names or \
-            not all(found.values()):
-        fail("the written trace misses an annotated region or a kernel of "
-             "the port")
+            not spans <= names or not all(found.values()) or \
+            len(steps) != 3:
+        fail("the written trace misses an annotated region, a span or a "
+             "kernel of the port, or the records a step")
 
 
 def main():

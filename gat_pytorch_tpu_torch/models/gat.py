@@ -128,6 +128,7 @@ from ..ops.cuda import table_attention as v4
 from ..ops.cuda import v5_attention as v5
 from ..ops.cuda import window_attention as v7
 from ..ops.cuda.build import csr_offsets as build_offsets
+from ..utils import profiling
 from ..utils.device import check_device, resolve_device
 from .naive import gat_layer_naive
 
@@ -970,21 +971,23 @@ def gat_model_apply(params: Params, cfg: GATConfig, graph: Graph, *,
     skip_count = 0
     for i, lc in enumerate(cfg.layer_configs()):
         layer_input = x
-        if training and cfg.dropout > 0.0:
-            keep = torch.rand(x.shape, generator=generator,
-                              device=dev) >= cfg.dropout
-            x = input_dropout(x, keep, cfg.dropout)
-        x = gat_layer_apply(
-            params["layers"][i], lc, x, graph.senders, graph.receivers,
-            graph.edge_mask, graph.num_nodes,
-            num_real_edges=graph.num_real_edges, src_order=graph.src_order,
-            src_ptr=graph.src_ptr, dst_ptr=graph.dst_ptr,
-            block_layout=graph.block_layout, tile_lo=graph.tile_lo,
-            src_band=graph.src_band,
-            generator=generator if edge_axis is None else edge_generator,
-            training=training, backend=backend, gemm_dtype=gdt,
-            edge_axis=edge_axis, dst_owned=dst_owned,
-            return_attention=return_attention)
+        with profiling.span("gat.layer", i):
+            if training and cfg.dropout > 0.0:
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=dev) >= cfg.dropout
+                x = input_dropout(x, keep, cfg.dropout)
+            x = gat_layer_apply(
+                params["layers"][i], lc, x, graph.senders, graph.receivers,
+                graph.edge_mask, graph.num_nodes,
+                num_real_edges=graph.num_real_edges,
+                src_order=graph.src_order, src_ptr=graph.src_ptr,
+                dst_ptr=graph.dst_ptr, block_layout=graph.block_layout,
+                tile_lo=graph.tile_lo, src_band=graph.src_band,
+                generator=generator if edge_axis is None
+                else edge_generator,
+                training=training, backend=backend, gemm_dtype=gdt,
+                edge_axis=edge_axis, dst_owned=dst_owned,
+                return_attention=return_attention)
         if return_attention:
             x, alpha = x
             attention.append(alpha)

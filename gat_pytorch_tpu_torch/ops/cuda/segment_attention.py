@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.profiling import op_spans
 from .. import segment as seg
 from . import build
 from .rounding import FLOAT32, V2_BF16, Rounding, maybe_bf16
@@ -287,6 +288,7 @@ class _SegmentAttention(torch.autograd.Function):
         return (d_logits, d_h, d_drop) + (None,) * 6
 
 
+@op_spans("segment_attention_partial")
 class _SegmentAttentionPartial(torch.autograd.Function):
 
     @staticmethod

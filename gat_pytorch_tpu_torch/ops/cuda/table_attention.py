@@ -52,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from ...utils.profiling import op_spans
 from .. import segment as seg
 from . import build
 from .build import sender_runs
@@ -303,6 +304,7 @@ def table_backward(logits, h, drop, senders, receivers, e_real: int,
 
 # -- the differentiable op ----------------------------------------------------
 
+@op_spans("table_attention")
 class _TableAttention(torch.autograd.Function):
 
     @staticmethod

@@ -82,6 +82,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...utils.profiling import op_spans
 from .. import segment as seg
 from . import build
 from .build import sender_runs
@@ -1193,6 +1194,7 @@ def score_bound_of(h_flat, a_src, s_dst, s_src=None):
         return s.max() + s_dst.detach().max()
 
 
+@op_spans("v5_attention")
 class _V5Attention(torch.autograd.Function):
 
     @staticmethod
@@ -1296,6 +1298,7 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
                               eps, slope, rounding, dh_transposed())
 
 
+@op_spans("v5_local_cap")
 class _V5LocalCap(torch.autograd.Function):
 
     @staticmethod
@@ -1347,6 +1350,7 @@ def v5_local_cap(h_flat: torch.Tensor,
                              int(e_real), rounding, s_src)
 
 
+@op_spans("v5_two_phase")
 class _V5TwoPhase(torch.autograd.Function):
 
     @staticmethod
@@ -1426,6 +1430,7 @@ def fused_gat_table(h_flat: torch.Tensor,
                              dh_transposed(), s_src)
 
 
+@op_spans("v5_sweep1_parts")
 class _V5Sweep1Parts(torch.autograd.Function):
 
     @staticmethod

@@ -64,6 +64,7 @@ from typing import Optional
 import torch
 
 from ...graph.graph import BlockLayout
+from ...utils.profiling import op_spans
 from . import build
 from .rounding import FLOAT32, Rounding, check_table
 from .segment_sum import dh_reduce_plain
@@ -545,6 +546,7 @@ def window_backward_two_phase(h, a_src, s_dst, cap, drop, layout: BlockLayout,
 
 # -- the differentiable op ----------------------------------------------------
 
+@op_spans("window_attention")
 class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
@@ -597,6 +599,7 @@ def _check_layout_shapes(h_flat, s_dst, layout, num_nodes, nh, f,
                          f"{n_src}, nh={nh}, f={f}")
 
 
+@op_spans("window_cap")
 class _WindowCap(torch.autograd.Function):
     """The cap of the 2-phase op from its score table; differentiable in
     h_flat, a_src and s_dst through the argmax (slot, head)."""
@@ -618,6 +621,7 @@ class _WindowCap(torch.autograd.Function):
         return d_h, d_asrc, d_sdst, None, None
 
 
+@op_spans("window_two_phase")
 class _WindowTwoPhase(torch.autograd.Function):
 
     @staticmethod
@@ -741,6 +745,7 @@ def fused_gat_window(h_flat: torch.Tensor,
                            dst_ptr=dst_ptr, s_src=s_src)
 
 
+@op_spans("window_sweep1_parts")
 class _WindowSweep1Parts(torch.autograd.Function):
 
     @staticmethod

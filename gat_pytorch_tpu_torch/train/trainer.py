@@ -52,6 +52,7 @@ from ..ops import segment as seg
 from ..parallel import (DropoutGenerators, make_sharded_eval_step,
                         make_sharded_train_step, partition_batches,
                         replicated, shard_batch, stack_graphs)
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import optim as O
 from .logging import MetricsLogger
@@ -192,14 +193,20 @@ class Trainer:
     def train_step(self, params: gat.Params, opt: torch.optim.Optimizer,
                    graph: Graph, generator: torch.Generator):
         """One step: forward with dropout, loss (train_loss), backward,
-        update. Returns (loss, logits, attention norm or None), detached."""
-        loss, logits, norm = self.train_loss(params, graph,
-                                             generator=generator)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return (loss.detach(), logits.detach(),
-                None if norm is None else norm.detach())
+        update. Returns (loss, logits, attention norm or None), detached.
+        Under a profiler, the step's spans (utils/profiling)."""
+        with profiling.step(graph.device):
+            with profiling.span("gat.forward"):
+                loss, logits, norm = self.train_loss(params, graph,
+                                                     generator=generator)
+            with profiling.span("gat.optimizer"):
+                opt.zero_grad(set_to_none=True)
+            with profiling.span("gat.backward"):
+                loss.backward()
+            with profiling.span("gat.optimizer"):
+                opt.step()
+            return (loss.detach(), logits.detach(),
+                    None if norm is None else norm.detach())
 
     # -- logging -----------------------------------------------------------
     def _logger(self):

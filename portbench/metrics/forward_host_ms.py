@@ -1,0 +1,27 @@
+"""forward_host_ms, layer "model" (models/gat.py, train/tasks.py); moves
+train_edges_per_s.
+
+The host milliseconds of the port's span "gat.forward" (in
+Trainer.train_step: the model and the task's loss, until their launches
+are enqueued, any wait on the device inside included), the sum a step,
+the mean over the traced steps: the last ctx["steps"] of the port's step
+records (utils/profiling `records()`, kept while the profiler records).
+Nothing is read from a port that keeps no records, or where no record
+holds such a span.
+"""
+
+LAYER = "model"
+MOVES = "train_edges_per_s"
+SPAN = "gat.forward"
+
+
+def read(ctx):
+    try:
+        from gat_pytorch_tpu_torch.utils.profiling import records
+    except ImportError:
+        return None
+    steps = records()[-ctx["steps"]:] if ctx["steps"] else []
+    ms = [s.host_ms for r in steps for s in r.spans if s.name == SPAN]
+    if not ms:
+        return None
+    return sum(ms) / len(steps)

@@ -1,0 +1,26 @@
+"""optimizer_host_ms, layer "optimiser" (train/optim.py); moves
+train_edges_per_s.
+
+The host milliseconds of the port's two spans "gat.optimizer" (in
+Trainer.train_step: zero_grad before the backward, the Adam update after
+it), the sum a step, the mean over the traced steps: the last
+ctx["steps"] of the port's step records (utils/profiling `records()`,
+kept while the profiler records). Nothing is read from a port that keeps
+no records, or where no record holds such a span.
+"""
+
+LAYER = "optimiser"
+MOVES = "train_edges_per_s"
+SPAN = "gat.optimizer"
+
+
+def read(ctx):
+    try:
+        from gat_pytorch_tpu_torch.utils.profiling import records
+    except ImportError:
+        return None
+    steps = records()[-ctx["steps"]:] if ctx["steps"] else []
+    ms = [s.host_ms for r in steps for s in r.spans if s.name == SPAN]
+    if not ms:
+        return None
+    return sum(ms) / len(steps)
