@@ -5,6 +5,9 @@
 
     python3 chip_smoke.py --checks-only    (phases 1-2, then stop)
 
+    python3 chip_smoke.py --hub-only       (phase 1, then the backward
+                                            by sender on the hub graph)
+
 Six paths, three 2-phase forms and the bfloat16 modes, each at the full
 width and depth of its configuration on the synthetic stand-in of its
 dataset:
@@ -27,8 +30,8 @@ dataset:
           by sender) at 1024- and 726-wide rows, its logits' two score
           gathers reduced in the backward by segment_sum_sorted;
   PPI     `cli.train --dataset PPI`: the v5 op at the same widths (the
-          backward's wide form: per-edge rows, v5_dasrc and
-          segment_sum_rows after it);
+          backward by sender's wide plans, which sum d(h) in shared
+          memory);
   PATTERN `cli.train --dataset PATTERN`: 4 layers with skip projections,
           batches of eight graphs, the plateau schedule, the v5 op;
   under the JAX package's 2-phase knobs (set around each fit, CELL_ENV):
@@ -134,9 +137,15 @@ Phases (every failure is fatal):
      a table off 16-byte alignment; the forms to each other's bits), and
      the sorted-gradient gather built on it, also as the main path calls
      it with the Graph's offsets (one launch, the bits of the call
-     without); at PPI's widths the v5 backward's wide form in every mode
-     (v5_dasrc, d(a_src) by sender, against its plain version and h^T
-     draw, and fused_gat_table with more source rows than destinations);
+     without); at PPI's widths the v5 backward by sender in every mode,
+     and v5_dasrc (d(a_src) by sender from per-edge d(raw) rows, the
+     wide form's, which only a bfloat16 table's wide rows take) against
+     its plain version and h^T draw, and fused_gat_table with more source
+     rows than destinations; before Cora's, the v5 backward by sender on
+     a graph whose node 0 sends 14,521 edges (check_hub_backward: its run
+     cut into items) at 8 x 40 and 8 x 8 in every mode, against the split
+     plain versions, launched twice, and timed (--hub-only: phase 1, this
+     check, then stop);
      the 2-phase entries (cap pass, forward, backward with d(cap)) at
      the Cora, PPI and PATTERN shapes, on the RCM layout and on the
      cluster-ordered edge list, at the cap, above and below it, eps =
@@ -386,9 +395,9 @@ BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
 # gathers (by sender and by receiver), which every model on that path
 # here has.
 PATH_KERNELS = {
-    # the backward sums d(h) by sender itself at rows of 256 floats or
-    # fewer; wider rows (PPI) take its wide form and row 3 after it
-    # (WIDE_LAYERS)
+    # the backward sums d(h) by sender itself at every width of a float32
+    # table (PPI's too); only a bfloat16 table's rows over 256 floats,
+    # which no fit has, take the wide form and row 3 after it
     "v5": (("source_scores", "v5_forward"), {"v5_backward": 1}),
     # the window backward sums d(h) by sender itself: no segment_sum_rows
     "v7": (("source_scores", "window_forward"), {"window_backward": 1}),
@@ -598,26 +607,16 @@ TABLE_BWD_NAMES = ("d_h", "d_logits", "d_drop")
 V2_BWD_NAMES = ("d_logits", "d_h_src", "d_drop")
 
 
-# the layers of a v5-path cell wider than 256 floats (PPI: 4 x 256 twice,
-# 6 x 121): their backward takes the wide form, one v5_dasrc launch and
-# one d(h) reduce (row 3) each
-WIDE_LAYERS = {"PPI": 3}
-
-
-def launches_per_epoch(path, layers, train_batches, val_batches,
-                       wide_layers=0):
+def launches_per_epoch(path, layers, train_batches, val_batches):
     """Launches per epoch of a fit on `path`: each layer's forward runs
     in every train step and in every validation batch, its backward
-    kernels in every train step (v5_dasrc and segment_sum_rows in
-    wide_layers of them)."""
+    kernels in every train step."""
     fwd, bwd = PATH_KERNELS[path]
     per = {k: 0 for k in REPLACES}
     for k in fwd:
         per[k] += layers * (train_batches + val_batches)
     for k, count in bwd.items():
         per[k] = count * layers * train_batches
-    per["v5_dasrc"] = wide_layers * train_batches
-    per["segment_sum_rows"] += wide_layers * train_batches
     return per
 
 
@@ -1535,9 +1534,9 @@ def main():
         src_ptr = getattr(graph, "src_ptr", None)
         runs = (dict(src_order=order, src_ptr=src_ptr)
                 if src_ptr is not None else {})
-        # the backward returns d(h) per node: by sender at rows of 256
-        # floats or fewer (the kernel sums it), the wide form's rows
-        # reduced by row 3 above them; held against the plain version by
+        # the backward returns d(h) per node, by sender at every width (the
+        # kernel sums it; a cut run's partial rows in item order, within
+        # REL_TOL of the sums from 0); held against the plain version by
         # sender, and the kernel's d(h) against the route it replaces, the
         # plain per-edge rows (the TPU kernel's) reduced by row 3 on the card
         want = v5.v5_backward_by_sender_plain(*bwd_args)
@@ -1629,6 +1628,117 @@ def main():
                     bwd_args=bwd_args, parts_args=parts_args, rows=rows,
                     dasrc_args=dasrc_args, runs=runs)
 
+    # -- the backward by sender on a hub: its run cut into items ---------
+    HUB_RUN = 14_521
+    HUB_SHAPES = ((8, 40), (8, 8))
+
+    def hub_graph(n_h=20_000, per_node=8):
+        """n_h nodes, about per_node random edges a node (no self-pairs,
+        none from node 0), and node 0 sending to HUB_RUN - 1 others: with
+        its self-loop a run of HUB_RUN slots, cut into items of at most L
+        (build.sender_items); the Graph the port's loader builds
+        (self-loops, dst-sorted, its offsets and sender runs) on the
+        card."""
+        from gat_pytorch_tpu_torch.graph import transforms as TT
+        rng = np.random.default_rng(21)
+        snd_h = rng.integers(1, n_h, n_h * per_node)
+        rcv_h = rng.integers(0, n_h, n_h * per_node)
+        keep = snd_h != rcv_h
+        hub_r = rng.choice(np.arange(1, n_h), HUB_RUN - 1, replace=False)
+        snd_h = np.concatenate([snd_h[keep], np.zeros(HUB_RUN - 1, np.int64)])
+        rcv_h = np.concatenate([rcv_h[keep], hub_r])
+        graph = TT.canonicalize(np.zeros((n_h, 1), np.float32), snd_h,
+                                rcv_h).to(dev)
+        runs = torch.diff(graph.src_ptr.long())
+        if int(runs[0]) != HUB_RUN or int(runs[1:].max()) >= 64:
+            fail(f"hub graph: node 0 sends {int(runs[0])}, the largest "
+                 f"other run is {int(runs[1:].max())}")
+        return graph
+
+    def check_hub_backward():
+        """The v5 backward by sender at HUB_SHAPES (8 x 40, a 320-float
+        row, the wide plan; 8 x 8) on hub_graph, as the main path calls it
+        (the Graph's sender runs and offsets), in its normalised, parts
+        and 2-phase modes: against the split plain versions (the kernel's
+        association) at REL_TOL, d(drop) and d(s_dst) also against the
+        by-sender plain version, the same bits on a second launch, and
+        timed (the whole call given its op's table, CUDA-graph replay)
+        beside its bound. Returns {shape: (ms, bound ms)}."""
+        graph = hub_graph()
+        n_h, e_h, er = (graph.num_nodes, graph.num_edges,
+                        graph.num_real_edges)
+        snd_h, rcv_h = graph.senders, graph.receivers
+        runs = dict(src_order=graph.src_order, src_ptr=graph.src_ptr,
+                    dst_ptr=graph.dst_ptr)
+        plain_runs = dict(src_order=graph.src_order, src_ptr=graph.src_ptr)
+        items = build.sender_items(graph.src_ptr, v5.sender_warps(n_h))
+        print(f"[graph] hub graph: {n_h} nodes (padded), {er} real edges, "
+              f"node 0 sending {HUB_RUN}; items of at most L = "
+              f"{items.limit} slots: {items.n_items} items, "
+              f"{items.n_split} run cut into {items.n_parts}, "
+              f"{items.split_slots} of {items.slots} slots in cut runs")
+        if items.n_split != 1 or int(items.split_src[0]) != 0:
+            fail("hub graph: the hub's run is not the one run cut")
+        timed = {}
+        for nh, f in HUB_SHAPES:
+            d = nh * f
+            h, a_src, s_eff, drop, g = op_inputs(torch, gen, n_h, nh, f,
+                                                 e_h, dev)
+            fa = (h, a_src, s_eff, drop, snd_h, rcv_h, er, SLOPE)
+            num, den, cap, _ = v5.v5_forward_plain(*fa)
+            out, epsp = epilogue(torch, num, den, cap, f, 1.0)
+            d_den = torch.randn((n_h, nh), generator=gen, device=dev)
+            cap2 = cap.clone()
+            cases = {
+                "normalised": (fa + (g, out, den, epsp, True), {},
+                               v5.v5_backward, v5.v5_backward_split_plain,
+                               v5.v5_backward_by_sender_plain),
+                "parts": (fa + (g, None, d_den, None, True),
+                          {"normalize": False}, v5.v5_backward,
+                          v5.v5_backward_split_plain,
+                          v5.v5_backward_by_sender_plain),
+                "2-phase": ((h, a_src, s_eff, cap2, drop, snd_h, rcv_h, er,
+                             1.0, SLOPE, g, out, den, True), {},
+                            v5.v5_backward_two_phase,
+                            v5.v5_backward_two_phase_split_plain,
+                            v5.v5_backward_two_phase_by_sender_plain)}
+            for mode, (args, kw, kern, split, by) in cases.items():
+                tag = f"v5_backward {nh}x{f} hub {mode}"
+                got = kern(*args, **kw, **runs)
+                want = split(*args, **kw, **plain_runs)
+                names = BWD_NAMES + (("d_cap",) if len(want) > 4 else ())
+                hold_all(tag, names, got, want, "v5_backward", floor=0.0)
+                by_ = by(*args, **kw, **plain_runs)
+                hold_all(tag + " against the by-sender plain version",
+                         ("d_h", "d_drop", "d_s_dst"), got[:3], by_[:3],
+                         "v5_backward", floor=0.0)
+                same_bits(tag, got, kern(*args, **kw, **runs))
+            nbytes = 4 * (n_h * d + d * nh + 2 * n_h * nh + er * nh + 2 * er
+                          + 2 * (n_h + 1) + 2 * n_h * d + n_h * nh + 1
+                          + n_h * d + e_h * nh + n_h * nh + d * nh)
+            ops = 2 * n_h * d * nh + er * (2 * d * nh + 5 * d + 10 * nh)
+            bound, by_what = bound_ms(nbytes, ops)
+            s_src = v5.source_scores(h, a_src)
+            ms = time_ms(torch, lambda: v5.v5_backward(
+                *cases["normalised"][0], s_src=s_src, **runs))
+            timed[f"{nh}x{f}"] = (round(ms, 4), round(bound, 5))
+            print(f"[timing] v5_backward {nh}x{f} on the hub graph: "
+                  f"{ms:.4f} ms a call (three launches: each destination's "
+                  f"d(den), the kernel by sender, its tail), bound "
+                  f"{bound:.5f} ms ({by_what}), "
+                  f"{ms / bound:.1f}x")
+        print(f"[kernels] v5_backward by sender on the hub graph at "
+              f"{', '.join(f'{a}x{b}' for a, b in HUB_SHAPES)}: every mode "
+              f"within {REL_TOL} of the split plain version, the same bits "
+              f"on two launches")
+        return timed
+
+    hub_times = check_hub_backward()
+    if "--hub-only" in sys.argv[1:]:
+        print("chip_smoke: --hub-only: built, the backward by sender held "
+              f"and timed on the hub graph: {hub_times}")
+        return 0
+
     cora_raw = datasets.load_planetoid("Cora", synthetic_override=True,
                                        seed=0)
     cora = loader.transductive_graph(cora_raw).to(dev)
@@ -1687,7 +1797,7 @@ def main():
                  f"has the wrong rows")
         wider[2] = wider[2][shift:]
         tag = f"fused_gat_table {label} with {n_ + shift} source rows"
-        if v5.wide_form(nh * f):
+        if not v5.by_sender_on_card(nh * f):
             hold_all(tag, ("d_a_src",), wider[3:4], square[3:4], "v5_dasrc",
                      floor=0.0)
             square, wider = square[:3] + square[4:], wider[:3] + wider[4:]
@@ -2939,8 +3049,7 @@ def main():
             fail(f"{name}: layer paths {sorted(trace)} x "
                  f"{len(gat.PATH_TRACE)}, expected {traced} x {forwards}")
         per_epoch[name] = launches_per_epoch(path, layers, len(train_data),
-                                             len(val_data),
-                                             WIDE_LAYERS.get(name, 0))
+                                             len(val_data))
         for k, per in per_epoch[name].items():
             if ran[k] != per * epochs:
                 fail(f"{name}: {k}: {ran[k]} launches on the main path, "
@@ -3662,7 +3771,8 @@ def main():
         the main path calls them (the Graph's offsets and sender runs
         where it carries them; a backward given its op's table). The
         backward, the whole call with d(h) per node (at rows over 256
-        floats the wide form, v5_dasrc and row 3 after it): reads h,
+        floats of a bfloat16 table the wide form, v5_dasrc and row 3
+        after it): reads h,
         a_src, the score tables, the mask and, over the real edges, the
         receivers, the sender order, the sender and receiver offsets, g,
         out, den and eps'; writes d(h) per node, d(mask) over all E edges
@@ -3765,7 +3875,7 @@ def main():
         }
 
     # row 3 runs on no Cora layer since the backward sums d(h) by sender:
-    # its result-line time is PPI's (below), where the wide form runs it
+    # its result-line time is PPI's (below), timed on its own
     V5_JSON = ("v5_forward", "v5_backward")
     for c in cora_cases:
         time_rows(f"Cora {c['nh']}x{c['f']}", v5_time_rows(cora, c),
@@ -4000,8 +4110,8 @@ def main():
     for ct, c5 in zip(ppi_table_cases, ppi_v5_cases):
         label = f"PPI {ct['nh']}x{ct['f']}"
         time_rows(label, table_time_rows(ppi, ct), into_json=True)
-        # row 2 at the widths the PPI fit launches it (the wide form, then
-        # row 3); v5_dasrc's and row 3's result-line times from here
+        # row 2 at the widths the PPI fit launches it (by sender); v5_dasrc's
+        # and row 3's result-line times from here, each timed on its own
         time_rows(label, v5_time_rows(ppi, c5),
                   into_json=("v5_dasrc", "segment_sum_rows"))
     for c in ppi_two:

@@ -29,8 +29,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
 
@@ -266,6 +267,127 @@ def sender_runs(senders: torch.Tensor, e_real: int, n_src: int,
         return src_order, src_ptr
     order = torch.argsort(senders[:e_real], stable=True).to(torch.int32)
     return order, csr_offsets(senders.index_select(0, order.long()), n_src)
+
+
+# -- the backward by sender's work items ---------------------------------------
+#
+# The backward by sender (csrc/attention_common.cuh attention_bwd_by_sender)
+# gives its warps items where it once gave them senders: an item is a run
+# of at most L slots of one sender's run of src_order, each sender's run
+# cut into items in slot order. A run of L slots or fewer is one item,
+# which writes its sender's d(h) row itself; the items of a longer run
+# each write a partial row, which the backward's tail adds in item order.
+# Items are numbered in sender order, and warp w takes every warps-th
+# item from w, so the items of one run land on as many warps.
+
+SPLIT_MIN = 64      # no run of this many slots or fewer is cut
+SPLIT_SHARE = 16    # L: at most 1/16 of the warps' mean load
+
+
+def split_limit(e_real: int, max_run: int, warps: int) -> int:
+    """L, the most slots of one sender that a warp walks over `warps`
+    warps: a SPLIT_SHARE-th of their mean load e_real / warps, at least
+    SPLIT_MIN, and at least max_run / warps, so that a run never has
+    more items than there are warps."""
+    return max(SPLIT_MIN, -(-e_real // (SPLIT_SHARE * warps)),
+               -(-max_run // warps))
+
+
+class SenderItems(NamedTuple):
+    """The item table of a graph's sender runs for `warps` warps, one
+    packed int32 tensor on the runs' device, the C entries' layout:
+    ptr (n_items + 1,) the item's positions of src_order, ptr[i] to
+    ptr[i+1]; src (n_items,) its sender; part (n_items,) -1 where the
+    item is its sender's whole run, else its partial d(h) row; split_src
+    (n_split,) the senders whose runs are cut, in order; split_ptr
+    (n_split + 1,) their partial rows, split_ptr[j] to split_ptr[j+1].
+    slots: the real slots; split_slots: those in the runs that are
+    cut."""
+    table: torch.Tensor
+    n_items: int
+    n_split: int
+    n_parts: int
+    limit: int
+    slots: int
+    split_slots: int
+
+    def _at(self, lo: int, size: int) -> torch.Tensor:
+        return self.table[lo:lo + size]
+
+    @property
+    def ptr(self) -> torch.Tensor:
+        return self._at(0, self.n_items + 1)
+
+    @property
+    def src(self) -> torch.Tensor:
+        return self._at(self.n_items + 1, self.n_items)
+
+    @property
+    def part(self) -> torch.Tensor:
+        return self._at(2 * self.n_items + 1, self.n_items)
+
+    @property
+    def split_src(self) -> torch.Tensor:
+        return self._at(3 * self.n_items + 1, self.n_split)
+
+    @property
+    def split_ptr(self) -> torch.Tensor:
+        return self._at(3 * self.n_items + 1 + self.n_split,
+                        self.n_split + 1)
+
+
+def _build_items(src_ptr: torch.Tensor, warps: int) -> SenderItems:
+    """The item table of the runs src_ptr, built on the host (one copy of
+    the offsets there) and moved to their device."""
+    ptr = src_ptr.to("cpu", torch.int64)
+    lens = ptr[1:] - ptr[:-1]
+    slots = int(ptr[-1] - ptr[0])
+    max_run = int(lens.max()) if lens.numel() else 0
+    limit = split_limit(slots, max_run, warps)
+    per = torch.clamp((lens + limit - 1) // limit, min=1)
+    n_items = int(per.sum())
+    src = torch.repeat_interleave(torch.arange(lens.numel()), per)
+    first = torch.cumsum(per, 0) - per
+    lo = ptr[src] + (torch.arange(n_items) - first[src]) * limit
+    cut = per > 1
+    in_cut = cut[src]
+    part = torch.where(in_cut, torch.cumsum(in_cut, 0) - 1, -1)
+    split_src = torch.nonzero(cut).flatten()
+    split_ptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                           torch.cumsum(per[cut], 0)])
+    table = torch.cat([lo, ptr[-1:], src, part, split_src, split_ptr])
+    return SenderItems(table.to(src_ptr.device, torch.int32), n_items,
+                       int(split_src.numel()), int(split_ptr[-1]), limit,
+                       slots, int(lens[cut].sum()))
+
+
+# the tables of the callers' runs: (id(owner), warps, *key) -> (a weak
+# reference to the owner, its table), dropped with the owner. A graph's
+# arrays are never written after it is built.
+_ITEMS: Dict[tuple, tuple] = {}
+
+
+def sender_items(src_ptr: torch.Tensor, warps: int,
+                 owner: Optional[torch.Tensor] = None,
+                 key: tuple = ()) -> SenderItems:
+    """The item table of the sender runs src_ptr (sender_runs' ptr) for
+    `warps` warps. owner: a tensor held across calls (a graph's) whose
+    contents, with `key`, fix the runs: the caller's src_ptr, or the
+    senders they were derived from (key: e_real and the senders' count).
+    Its table is built on the first call, a copy of the offsets to the
+    host, and kept while the owner lives, so that later calls copy nothing
+    (and can be captured in a CUDA graph); with no owner it is built for
+    this call."""
+    if owner is None:
+        return _build_items(src_ptr, warps)
+    k = (id(owner), warps) + tuple(key)
+    held = _ITEMS.get(k)
+    if held is not None and held[0]() is owner:
+        return held[1]
+    items = _build_items(src_ptr, warps)
+    weakref.finalize(owner, _ITEMS.pop, k, None)
+    _ITEMS[k] = (weakref.ref(owner), items)
+    return items
 
 
 def ptr(t) -> Optional[int]:

@@ -351,13 +351,14 @@ __device__ __forceinline__ float team_sums(float (&q)[KP], int lane,
 // (destination, head), its products summed with fmaf in feature order.
 constexpr int kDdenWarps = 8;
 
-__global__ void __launch_bounds__(kDdenWarps * 32, 1)
-dden_kernel(const float* __restrict__ g, const float* __restrict__ out,
-            const float* __restrict__ den, int n, int d_feat, int nh, int f,
-            float eps, float* __restrict__ dden) {
+// (destination, head) w's d(den), by the whole warp (f >= 32)
+__device__ __forceinline__ void dden_warp(const float* __restrict__ g,
+                                          const float* __restrict__ out,
+                                          const float* __restrict__ den,
+                                          int d_feat, int nh, int f,
+                                          float eps, float* __restrict__ dden,
+                                          int w) {
   const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kDdenWarps + (threadIdx.x >> 5);
-  if (w >= n * nh) return;  // the whole warp
   const int d = w / nh, k = w - d * nh;
   const size_t base = (size_t)d * d_feat + (size_t)k * f;
   float p = 0.f;
@@ -369,12 +370,13 @@ dden_kernel(const float* __restrict__ g, const float* __restrict__ out,
   if (lane == 0) dden[w] = -s * inv;
 }
 
-__global__ void __launch_bounds__(kDdenWarps * 32, 1)
-dden_narrow_kernel(const float* __restrict__ g, const float* __restrict__ out,
-                   const float* __restrict__ den, int n, int d_feat, int nh,
-                   int f, float eps, float* __restrict__ dden) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= n * nh) return;
+// (destination, head) w's d(den), by one thread (f < 32)
+__device__ __forceinline__ void dden_thread(const float* __restrict__ g,
+                                            const float* __restrict__ out,
+                                            const float* __restrict__ den,
+                                            int d_feat, int nh, int f,
+                                            float eps,
+                                            float* __restrict__ dden, int w) {
   const int d = w / nh, k = w - d * nh;
   const size_t base = (size_t)d * d_feat + (size_t)k * f;
   float p = 0.f;
@@ -382,6 +384,24 @@ dden_narrow_kernel(const float* __restrict__ g, const float* __restrict__ out,
   const float dn = den[w];
   const float inv = dn > 0.f ? 1.f / (dn + eps) : 0.f;
   dden[w] = -p * inv;
+}
+
+__global__ void __launch_bounds__(kDdenWarps * 32, 1)
+dden_kernel(const float* __restrict__ g, const float* __restrict__ out,
+            const float* __restrict__ den, int n, int d_feat, int nh, int f,
+            float eps, float* __restrict__ dden) {
+  const int w = blockIdx.x * kDdenWarps + (threadIdx.x >> 5);
+  if (w >= n * nh) return;  // the whole warp
+  dden_warp(g, out, den, d_feat, nh, f, eps, dden, w);
+}
+
+__global__ void __launch_bounds__(kDdenWarps * 32, 1)
+dden_narrow_kernel(const float* __restrict__ g, const float* __restrict__ out,
+                   const float* __restrict__ den, int n, int d_feat, int nh,
+                   int f, float eps, float* __restrict__ dden) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n * nh) return;
+  dden_thread(g, out, den, d_feat, nh, f, eps, dden, w);
 }
 
 inline int launch_dden(const float* g, const float* out, const float* den,
@@ -444,11 +464,13 @@ inline bool row_plan_ok(int d_feat, int nh, int f, int vec, int per_lane,
          (f % vec == 0 || vec <= f + 1);
 }
 
-// The rows a team of such a kernel keeps in flight: in_flight's, at most
-// four (eight left a team's per-head partial sums of every row live at
-// once, and ptxas spilled them)
+// The rows a team of such a kernel keeps in flight: one at 12 or more
+// elements a lane (one team a warp: more held more registers, and the
+// warps an SM fewer, and took longer on the card, PERF.md), else
+// in_flight's, at most four (eight left a team's per-head partial sums of
+// every row live at once, and ptxas spilled them)
 __host__ __device__ constexpr int row_flight(int elems) {
-  return in_flight(elems) < 4 ? in_flight(elems) : 4;
+  return elems >= 12 ? 1 : in_flight(elems) < 4 ? in_flight(elems) : 4;
 }
 
 // A lane's place in such a plan: its team g and lane t in the team, and
@@ -536,7 +558,8 @@ struct RowLanes {
 
 // V consecutive floats of shared memory at p, read where they are used:
 // volatile, so that the compiler does not hoist a loop-invariant table
-// (a_src, nh x 32 floats a lane at wide rows) into registers
+// (a_src, nh x 32 floats a lane at wide rows) into registers; sts_vec
+// writes them, volatile too, so that the two stay in program order
 template <int V>
 __device__ __forceinline__ void lds_vec(const float* p, float (&v)[V]) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
@@ -550,6 +573,42 @@ __device__ __forceinline__ void lds_vec(const float* p, float (&v)[V]) {
                  : "r"(a));
   } else {
     asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[0]) : "r"(a));
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void sts_vec(float* p, const float (&v)[V]) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (V == 4) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+                 "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]));
+  } else if constexpr (V == 2) {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(a), "f"(v[0]),
+                 "f"(v[1]));
+  } else {
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v[0]));
+  }
+}
+
+// p[0, V) += t, V consecutive floats of shared memory, aligned to V
+template <int V>
+__device__ __forceinline__ void sts_add(float* p, const float (&t)[V]) {
+  if constexpr (V == 4) {
+    float4* q = reinterpret_cast<float4*>(p);
+    float4 x = *q;
+    x.x = __fadd_rn(x.x, t[0]);
+    x.y = __fadd_rn(x.y, t[1]);
+    x.z = __fadd_rn(x.z, t[2]);
+    x.w = __fadd_rn(x.w, t[3]);
+    *q = x;
+  } else if constexpr (V == 2) {
+    float2* q = reinterpret_cast<float2*>(p);
+    float2 x = *q;
+    x.x = __fadd_rn(x.x, t[0]);
+    x.y = __fadd_rn(x.y, t[1]);
+    *q = x;
+  } else {
+    *p = __fadd_rn(*p, t[0]);
   }
 }
 
@@ -567,6 +626,15 @@ int with_vc(int vec, int per_lane, F&& fn) {
   GAT_TRY_VC(1, 1) GAT_TRY_VC(1, 2) GAT_TRY_VC(1, 4) GAT_TRY_VC(1, 8)
   GAT_TRY_VC(1, 16) GAT_TRY_VC(1, 32)
   return (int)cudaErrorInvalidValue;
+}
+
+// with_vc's pairs and those of three vectors a lane, which row_plan gives
+// a team of 32 lanes where three cover the row (three=True: a 320-float
+// row in three vectors of four, not four with the last one dead)
+template <int LIMIT, int MAXC, typename F>
+int with_vc_rows(int vec, int per_lane, F&& fn) {
+  GAT_TRY_VC(4, 3) GAT_TRY_VC(2, 3) GAT_TRY_VC(1, 3)
+  return with_vc<LIMIT, MAXC>(vec, per_lane, fn);
 }
 #undef GAT_TRY_VC
 
@@ -1219,7 +1287,10 @@ int launch_source_scores(const T* h, const float* a_src, int n_src,
 // slot is an edge, dst_perm is NULL, the real edges come first, e_real of
 // them). src_perm lists the real slots by sender, each sender's run in
 // ascending slot order: the windowed layout's src_perm, or the v5 graph's
-// src_order (Graph.src_order, build.sender_runs).
+// src_order (Graph.src_order, build.sender_runs). The warps take items
+// (build.sender_items): runs of at most L slots of one sender, a longer
+// run cut into several in slot order, each of which writes a partial d(h)
+// row (dh_part) that the tail adds in item order.
 template <typename T>
 struct BwdArgs {
   const T* h;            // (n_src, d_feat): the table the forward read
@@ -1244,41 +1315,100 @@ struct BwdArgs {
   float* d_h;            // (n_src, d_feat)
   float* d_drop;         // (e7, nh) or NULL
   float* dsd;            // (e7, nh) scratch: each slot's d(s_dst) term
-  float* dsum;           // (n_src, nh) scratch: each sender's d(raw) summed
+  float* dsum;           // (n_items, nh) scratch: each item's d(raw) summed
   float* part;           // (gridDim.x, stride): d(a_src) [| -d(cap)]
   int stride;
+  // the item table of src_ptr's runs (build.SenderItems: ptr, src, part,
+  // split_src, split_ptr packed)
+  const int* items;
+  int n_items, n_split;
+  float* dh_part;        // (the partial rows, d_feat): the cut runs' items'
+  // (n, nh): each destination's d(den), taken by the first launch
+  // (bwd_dden); unread in the parts mode, where den carries d(den)
+  float* dden;
 };
 
-// Warp w of block b owns the senders b * kWarps + w, then every
+// dden[d, k] = -inv[d, k] * out[d] . g[d] over head k's elements (inv =
+// 1 / (den + eps'), eps' at epsp in the normalised mode, the plain eps in
+// the 2-phase one; 0 where den is 0), a grid-stride pass over the
+// (destination, head) pairs: a warp a pair at f >= 32, else a thread
+template <typename T>
+__device__ __forceinline__ void bwd_dden(const BwdArgs<T>& a) {
+  const float eps = a.mode == Bwd::kNorm ? *a.epsp : a.eps;
+  const int pairs = a.n * a.nh;
+  if (a.f >= 32) {
+    const int warps = gridDim.x * (blockDim.x >> 5);
+    for (int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+         w < pairs; w += warps)
+      dden_warp(a.g, a.out, a.den, a.d_feat, a.nh, a.f, eps, a.dden, w);
+  } else {
+    for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < pairs;
+         w += gridDim.x * blockDim.x)
+      dden_thread(a.g, a.out, a.den, a.d_feat, a.nh, a.f, eps, a.dden,
+                  w);
+  }
+}
+
+// Item it of a BwdArgs: its sender s, the positions [lo, hi) of src_perm
+// it walks, and its partial d(h) row (-1: it writes d_h[s] itself)
+struct BwdItem {
+  int s, lo, hi, part;
+};
+
+template <typename T>
+__device__ __forceinline__ BwdItem bwd_item(const BwdArgs<T>& a, int it) {
+  const int* p = a.items;
+  return {p[a.n_items + 1 + it], p[it], p[it + 1],
+          p[2 * a.n_items + 1 + it]};
+}
+
+// Warp w of block b owns the items b * kWarps + w, then every
 // gridDim.x * kWarps-th after it, in teams of `lanes` lanes that each hold
-// a whole row (RowLanes). A batch is 32 / nh positions of the sender's run
+// a whole row (RowLanes). A batch is 32 / nh positions of the item's run
 // of src_perm: lane i * nh + k takes slot i's index, destination, head k's
 // den (inv, rounded where kRoundPayload), s_dst entry and mask entry, and
-// its exp once. Team g gathers g[dst] of the slots i0 + u * teams + g, U of
-// them in flight, and reads out[dst] into the dots as it arrives; the
-// per-head dots out . g and h . g reach the slot's lane, which takes
-// d(den) = -inv * out . g (before g is rounded: kRoundPayload rounds the
-// payload after d(den) is taken from it), d(raw), d(drop) and the slot's
-// d(s_dst) term. Where a head is whole lanes of one vector each (C = 1, V
-// divides f: Pubmed's 8 x 8, Cora's 1 x 7), a head's dot is a sum over its
-// f / V lanes (the instance AL); elsewhere (Pubmed's 8 x 3, whose vectors
-// of 4 meet two heads) each lane sums its elements per head and team_sums
-// reduces all heads together. Each team then takes its slot's
-// d(h) term, round_if(d(raw) @ a_src^T + coef * g, kRoundDh), and every
-// lane adds the teams' terms in slot order, so that a sender's d(h) row is
-// the sum of its slots' terms in ascending position of its run, from 0,
-// with no contraction: the order in which segment_sum.cu reduced the
-// per-slot rows. At 16 or more elements a lane (one team a warp) the sums
-// live in shared memory and the sender's own row is read per slot (from
-// L1): held in registers beside a g row, they spilled. Each sender's d(raw)
-// sums (kRoundDraw) go to dsum; at the end the block takes its senders'
-// h^T dsum into its partial row of d(a_src) (the products once a sender).
+// its exp once; a batch's slots and destinations are loaded two and one
+// batches ahead, so that a batch waits on one load before its rows. Team g
+// gathers g[dst] of the slots i0 + u * teams + g, U of them in flight; the
+// per-head dots h . g reach the slot's lane, which takes d(raw), d(drop)
+// and the slot's d(s_dst) term from them and from its destination's
+// d(den) = -inv * out . g, read from dden (taken once a destination by the
+// launch before, from the unrounded g: kRoundPayload rounds the payload
+// after d(den) is taken from it). Where a head is whole lanes of one
+// vector each (C = 1, V divides f: Pubmed's 8 x 8, Cora's 1 x 7), a head's
+// dot is a sum over its f / V lanes (the instance AL); elsewhere (Pubmed's
+// 8 x 3, whose vectors of 4 meet two heads) each lane sums its elements
+// per head and team_sums reduces all heads together. Each team then takes
+// its slot's d(h) term, round_if(d(raw) @ a_src^T + coef * g, kRoundDh),
+// and every lane adds the teams' terms in slot order, so that an item's
+// d(h) row is the sum of its slots' terms in ascending position of its
+// run, from 0,
+// with no contraction (for a sender of one item, the order in which
+// segment_sum.cu reduced the per-slot rows); where neither kRoundDh nor
+// kRoundDraw rounds (fold), a slot's term is coef * g alone and the item
+// adds d(raw)'s sums @ a_src^T after its slots, the products once an
+// item. A cut run's partial rows are added in item order by the tail. At
+// 16 or more elements a lane (one team a warp) the sums and the sender's
+// own row live in shared memory, the row read once an item: held in
+// registers beside the g rows they spilled, and read a slot from device
+// memory the row missed L1, which the gathered rows fill. Each item's
+// d(raw) sums (kRoundDraw) go to dsum; at the end the block takes its
+// items' h[s]^T dsum into its partial row of d(a_src) (the products once
+// an item: the association is linear, so it holds for a cut run).
 template <int V, int C>
-constexpr bool kWideRow = V * C >= 16;
+constexpr bool kWideRow = V * C >= 12;
+
+// the blocks of kWarps warps an SM that an instance must fit
+// (__launch_bounds__): two of the plans of one vector a lane or two
+// elements, and of three vectors of four (a 320-float row), whose slots
+// wait on memory and shuffles and want the warps, and which fit 128
+// registers without a spill (ptxas); one of the others
+template <int V, int C>
+constexpr int kBwdBlocks = C == 1 || V * C <= 2 || V * C == 12 ? 2 : 1;
 
 // AL: heads of whole lanes (C == 1, V divides f), the fast path below.
-// The body of a __global__ kernel of kWarps warps
-// (__launch_bounds__(kWarps * 32, 1)) with the dynamic shared memory of
+// The body of a __global__ kernel of kWarps warps, kBwdBlocks<V, C> of
+// them an SM (__launch_bounds__), with the dynamic shared memory of
 // bwd_smem_bytes.
 template <int V, int C, int U, bool AL, typename T>
 __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
@@ -1292,8 +1422,10 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // kWide: this warp's sums, (d_feat,); one team, so one lane an element
+  // kWide: this warp's sums, (d_feat,), and its item's sender's row as the
+  // dots read it, (d_feat,); one team, so one lane an element
   float* sacc = smem + d_feat * nh + warp * d_feat;
+  float* sown = smem + d_feat * nh + (kWarps + warp) * d_feat;
   const RowLanes<V, C> r(lane, lanes, d_feat, a.f);
   const int teams = r.teams;
   const int per = 32 / nh;                            // positions a batch
@@ -1309,6 +1441,10 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
   const bool r_rows = a.flags & kRoundRows, r_pay = a.flags & kRoundPayload,
              r_dh = a.flags & kRoundDh, r_draw = a.flags & kRoundDraw,
              r_sds = a.flags & kRoundDsdst;
+  // d(h)'s d(raw) @ a_src^T is linear in d(raw): where neither a slot's
+  // d(h) term nor d(raw) is rounded, it is taken once an item from the
+  // item's d(raw) sums, and a slot adds coef * g alone
+  const bool fold = !(r_dh || r_draw);
   float dcap = 0.f;
 
   // the sum over head (lane / hl)'s lanes of x, in every one of them
@@ -1335,8 +1471,10 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
     }
   }
 
-  for (int s = blockIdx.x * kWarps + warp; s < a.n_src;
-       s += gridDim.x * kWarps) {
+  for (int it = blockIdx.x * kWarps + warp; it < a.n_items;
+       it += gridDim.x * kWarps) {
+    const BwdItem item = bwd_item(a, it);
+    const int s = item.s;
     // the sender's own row, rounded where kRoundRows (the dots and d(a_src)
     // read it so)
     const T* hrow = a.h + (size_t)s * d_feat;
@@ -1357,6 +1495,11 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
         if (r.live(c)) {
 #pragma unroll
           for (int v = 0; v < V; ++v) sacc[r.j0(c) + v] = 0.f;
+          // read once an item: from device memory a slot, L1 lost it to
+          // the gathered rows
+          float x[V];
+          own(c, x);
+          sts_vec<V>(sown + r.j0(c), x);
         }
       } else {
         own(c, hv[c]);
@@ -1366,18 +1509,27 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
     }
     const float ss = a.s_src[(size_t)s * nh + kh];
     float dsa = 0.f;  // lane (i, k): its slots' d(raw) as d(a_src) reads it
-    const int lo = a.src_ptr[s], hi = a.src_ptr[s + 1];
+    const int lo = item.lo, hi = item.hi;
+    // the slot of position p of the item, and of the next batch's
+    auto slot_at = [&](int p) { return p < hi ? a.src_perm[p] : 0; };
+    int slot1 = slot_at(lo + mine);
+    int dst1 = lo + mine < hi ? a.recv[slot1] : 0;
+    int slot2 = slot_at(lo + per + mine);
     for (int b = lo; b < hi; b += per) {
       const int cnt = min(per, hi - b);
       const bool mine_ok = mine < cnt;
-      int slot = 0, dst = 0;
+      const int slot = slot1, dst = dst1;
+      // the next batch's destination (its slot came a batch ago) and the
+      // slot of the one after, in flight while this batch runs
+      slot1 = slot2;
+      dst1 = b + per + mine < hi ? a.recv[slot1] : 0;
+      slot2 = slot_at(b + 2 * per + mine);
       float ex = 0.f, m = 1.f, inv = 0.f, inv_p = 0.f, dn = 0.f, coef = 0.f,
-            pre = 0.f;
+            pre = 0.f, dd_dst = 0.f;
       if (mine_ok) {
-        slot = a.src_perm[b + mine];
-        dst = a.recv[slot];
         const size_t dk = (size_t)dst * nh + kh;
         dn = a.den[dk];
+        if (!parts) dd_dst = a.dden[dk];
         // the caller's epilogue owns the quotient in the parts mode
         inv = parts ? 1.f : dn > 0.f ? 1.f / (dn + eps_p) : 0.f;
         inv_p = round_if(inv, r_pay);  // the payload's, rounded
@@ -1412,30 +1564,15 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
             }
           }
         }
-        // slot by slot of the U in flight: the per-head dots out . g
-        // (d(den), from the unrounded g) and h . g (from the payload's g),
-        // the slot's lane's d(raw), then the team's d(h) term
+        // slot by slot of the U in flight: the per-head dots h . g (from
+        // the payload's g), the slot's lane's d(raw), then the team's d(h)
+        // term
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           if (i0 + u * teams >= cnt) break;  // the same for every lane
-          const int i = i0 + u * teams + r.g;
-          const float* orow =
-              a.out + (size_t)__shfl_sync(kFull, dst, base[u]) * d_feat;
-          float red_og = 0.f, red_hg;
+          float red_hg;
           if constexpr (AL) {  // C == 1: the lane's vector is one head's
-            float xo = 0.f, xh = 0.f;
-            if (!parts) {
-              float ov[V];
-              if (i < cnt && r.live(0)) {
-                load_vec<V>(orow + r.j0(0), ov);
-              } else {
-#pragma unroll
-                for (int v = 0; v < V; ++v) ov[v] = 0.f;
-              }
-#pragma unroll
-              for (int v = 0; v < V; ++v) xo = fmaf(ov[v], gv[u][0][v], xo);
-              red_og = head_sum(xo);
-            }
+            float xh = 0.f;
 #pragma unroll
             for (int v = 0; v < V; ++v) {
               gv[u][0][v] = round_if(gv[u][0][v], r_pay);
@@ -1444,22 +1581,6 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
             red_hg = head_sum(xh);
           } else {
             float q[kMaxHeads];
-            if (!parts) {
-#pragma unroll
-              for (int k = 0; k < kMaxHeads; ++k) q[k] = 0.f;
-#pragma unroll
-              for (int c = 0; c < C; ++c) {
-                float ov[V];
-                if (i < cnt && r.live(c)) {
-                  load_vec<V>(orow + r.j0(c), ov);
-                } else {
-#pragma unroll
-                  for (int v = 0; v < V; ++v) ov[v] = 0.f;
-                }
-                r.add_head_dots(ov, gv[u][c], c, q);
-              }
-              red_og = team_sums<kMaxHeads>(q, lane, lanes);
-            }
             if (r_pay) {
 #pragma unroll
               for (int c = 0; c < C; ++c)
@@ -1473,7 +1594,12 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
             for (int c = 0; c < C; ++c) {
               float x[V];
               if constexpr (kWide) {
-                own(c, x);
+                if (r.live(c)) {
+                  lds_vec<V>(sown + r.j0(c), x);
+                } else {
+#pragma unroll
+                  for (int v = 0; v < V; ++v) x[v] = 0.f;
+                }
               } else {
 #pragma unroll
                 for (int v = 0; v < V; ++v) x[v] = hv[c][v];
@@ -1486,10 +1612,9 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
           const int gg = mine - i0 - u * teams;  // the team of slot mine
           const int src = ((gg & (teams - 1)) * lanes + from) & 31;
           const float hg = __shfl_sync(kFull, red_hg, src);
-          const float og = parts ? 0.f : __shfl_sync(kFull, red_og, src);
           float draw = 0.f;
           if (mine_ok && gg >= 0 && gg < teams) {
-            const float dd = round_if(parts ? dn : -og * inv, r_pay);
+            const float dd = round_if(parts ? dn : dd_dst, r_pay);
             const float q = hg * inv_p * m + dd;
             if (two) {
               // the slope where pre <= 0: the argmax slot has pre == 0
@@ -1507,12 +1632,14 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
           }
           // the team's d(h) term of its slot, a vector at a time; every
           // lane adds the teams' terms in slot order (every team ends with
-          // the same sums)
+          // the same sums). Where fold, the term is coef * g, and d(raw) @
+          // a_src^T is added once an item, below
           float dr[kMaxHeads];
 #pragma unroll
           for (int k = 0; k < kMaxHeads; ++k)
-            dr[k] = k < nh ? __shfl_sync(kFull, draw, (base[u] + k) & 31)
-                           : 0.f;
+            dr[k] = !fold && k < nh
+                        ? __shfl_sync(kFull, draw, (base[u] + k) & 31)
+                        : 0.f;
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             const float c0 =
@@ -1523,7 +1650,7 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
             float term[V];
 #pragma unroll
             for (int v = 0; v < V; ++v) term[v] = 0.f;
-            if (r.live(c)) {
+            if (!fold && r.live(c)) {
 #pragma unroll
               for (int k = 0; k < kMaxHeads; ++k) {
                 if (k >= nh) continue;
@@ -1539,13 +1666,7 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
               term[v] = round_if(
                   fmaf(r.first(c, v) ? c0 : c1, gv[u][c][v], term[v]), r_dh);
             if constexpr (kWide) {  // one team: this lane's elements alone
-              if (r.live(c)) {
-#pragma unroll
-                for (int v = 0; v < V; ++v) {
-                  float* p = sacc + r.j0(c) + v;
-                  *p = __fadd_rn(*p, term[v]);
-                }
-              }
+              if (r.live(c)) sts_add<V>(sacc + r.j0(c), term);
             } else {
               for (int t2 = 0; t2 < teams; ++t2) {
                 const bool real = i0 + u * teams + t2 < cnt;  // all lanes
@@ -1561,8 +1682,40 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
         }
       }
     }
+    // the item's d(raw) sums, head k's in lane k
+    float tot = 0.f;
+    for (int i = 0; i < per; ++i)
+      tot += __shfl_sync(kFull, dsa, (i * nh + lane) & 31);
+    if (fold) {  // d(raw) @ a_src^T of the item's slots, from their sums
+      float dr[kMaxHeads];
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k)
+        dr[k] = k < nh ? __shfl_sync(kFull, tot, k) : 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!r.live(c)) continue;
+        float term[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) term[v] = 0.f;
+#pragma unroll
+        for (int k = 0; k < kMaxHeads; ++k) {
+          if (k >= nh) continue;
+          float av[V];
+          lds_vec<V>(sa + k * d_feat + r.j0(c), av);
+#pragma unroll
+          for (int v = 0; v < V; ++v) term[v] = fmaf(av[v], dr[k], term[v]);
+        }
+        if constexpr (kWide) {
+          sts_add<V>(sacc + r.j0(c), term);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[c][v] = __fadd_rn(acc[c][v], term[v]);
+        }
+      }
+    }
     if (r.g == 0) {
-      float* drow = a.d_h + (size_t)s * d_feat;
+      float* drow = item.part < 0 ? a.d_h + (size_t)s * d_feat
+                                  : a.dh_part + (size_t)item.part * d_feat;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         if (!r.live(c)) continue;
@@ -1576,16 +1729,14 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
         }
       }
     }
-    // the sender's d(raw) sums, head k's in lane k
-    float tot = 0.f;
-    for (int i = 0; i < per; ++i)
-      tot += __shfl_sync(kFull, dsa, (i * nh + lane) & 31);
-    if (lane < nh) a.dsum[(size_t)s * nh + lane] = tot;
+    if (lane < nh) a.dsum[(size_t)it * nh + lane] = tot;
   }
 
-  // the block's d(a_src): sum over its senders s of hq[s, j] * dsum[s, k],
-  // the senders of its warps in turn (eight loads in flight); then -d(cap)
-  // (kTwoPhase), the warps' sums in warp order
+  // the block's d(a_src): sum over its items of hq[s, j] * dsum[item, k],
+  // s the item's sender, the items of its warps in turn: thread t takes
+  // the features t, t + 256, ... and every head, so that an item's row is
+  // read once a block, coalesced, and its dsum row once a thread; then
+  // -d(cap) (kTwoPhase), the warps' sums in warp order
   if (two) {
     const float w = warp_sum(dcap);
     if (lane == 0) wdcap[warp] = w;
@@ -1593,24 +1744,42 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
   __syncthreads();  // the block's dsum rows are written
   const int len = d_feat * nh;
   float* prow = a.part + (size_t)blockIdx.x * a.stride;
-  for (int q = threadIdx.x; q < len; q += blockDim.x) {
-    const int j = q / nh, k = q - j * nh;
-    float x = 0.f;
-    for (int s0 = blockIdx.x * kWarps; s0 < a.n_src;
-         s0 += gridDim.x * kWarps) {
-      float hq[kWarps], ds[kWarps];
+  const int* it_src = a.items + a.n_items + 1;
+  constexpr int kJ = 1024 / (kWarps * 32);  // features a thread at 1024
+  float xs[kJ][kMaxHeads];
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int s = s0 + w;
-        hq[w] = s < a.n_src
-                    ? round_if(load_h(a.h + (size_t)s * d_feat + j), r_rows)
-                    : 0.f;
-        ds[w] = s < a.n_src ? a.dsum[(size_t)s * nh + k] : 0.f;
+  for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+    for (int k = 0; k < kMaxHeads; ++k) xs[jj][k] = 0.f;
+  for (int i0 = blockIdx.x * kWarps; i0 < a.n_items;
+       i0 += gridDim.x * kWarps) {
+#pragma unroll 2
+    for (int w = 0; w < kWarps; ++w) {
+      const int it = i0 + w;
+      if (it >= a.n_items) break;  // the same for every thread
+      const T* hrow = a.h + (size_t)it_src[it] * d_feat;
+      float ds[kMaxHeads];
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k)
+        ds[k] = k < nh ? a.dsum[(size_t)it * nh + k] : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        const int j = threadIdx.x + jj * kWarps * 32;
+        if (j >= d_feat) break;
+        const float hq = round_if(load_h(hrow + j), r_rows);
+#pragma unroll
+        for (int k = 0; k < kMaxHeads; ++k)
+          xs[jj][k] = fmaf(hq, ds[k], xs[jj][k]);
       }
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) x = fmaf(hq[w], ds[w], x);
     }
-    prow[q] = x;  // (d_feat, nh)
+  }
+#pragma unroll
+  for (int jj = 0; jj < kJ; ++jj) {
+    const int j = threadIdx.x + jj * kWarps * 32;
+    if (j >= d_feat) break;
+#pragma unroll
+    for (int k = 0; k < kMaxHeads; ++k)
+      if (k < nh) prow[(size_t)j * nh + k] = xs[jj][k];  // (d_feat, nh)
   }
   if (two && threadIdx.x == 0) {
     float t = 0.f;
@@ -1619,12 +1788,20 @@ __device__ __forceinline__ void attention_bwd_by_sender(const BwdArgs<T>& a) {
   }
 }
 
-// After the backward: d_sdst[d, k] = sum over d's run of dst_perm (the
-// identity where NULL) below e_real, in order, of the slots' d(s_dst)
-// terms (blocks below sd_blocks, a thread a (destination, head)), and the
+// After the backward: d_sdst[d, k] = sum over d's run of dst_perm below
+// e_real of the slots' d(s_dst) terms (blocks below sd_blocks): with a
+// dst_perm, a thread a (destination, head), in run order; without one (the
+// v5 op's dst-sorted edges, whose run is a block of dsd's rows) a warp a
+// destination, lane l adding the elements l, l + 32, ... of the block to
+// its head's sum (one sum a lane where nh divides 32), then a butterfly
+// per head, so that a hub's run is read by 32 lanes and not one thread a
+// head; the
 // d(a_src) [| d(cap)] partial rows summed in row order (sum_rows_block,
-// the blocks from sd_blocks on, 32 warps a block: a warp adds every 32nd
-// row).
+// the next sum_blocks blocks, 32 warps a block: a warp adds every 32nd
+// row); and the d(h) rows of the senders whose runs were cut, each the sum
+// of its items' partial rows in item order, from 0 (the blocks after
+// those, a thread a (cut sender, element): split_src[j]'s partial rows are
+// dh_part[split_ptr[j]:split_ptr[j+1]]).
 constexpr int kTailWarps = 32;
 
 __global__ void __launch_bounds__(kTailWarps * 32, 1)
@@ -1632,37 +1809,89 @@ bwd_tail_kernel(const float* __restrict__ dsd,
                 const int* __restrict__ dst_perm,
                 const int* __restrict__ dst_ptr, int n, int nh, int e_real,
                 int sd_blocks, const float* __restrict__ part, int nrows,
-                int len, float* __restrict__ d_sdst,
-                float* __restrict__ d_asrc) {
+                int len, int sum_blocks, const int* __restrict__ split_src,
+                const int* __restrict__ split_ptr, int n_split, int d_feat,
+                const float* __restrict__ dh_part,
+                float* __restrict__ d_sdst, float* __restrict__ d_asrc,
+                float* __restrict__ d_h) {
   if ((int)blockIdx.x < sd_blocks) {
+    if (!dst_perm) {
+      const int d = blockIdx.x * kTailWarps + (threadIdx.x >> 5);
+      const int lane = threadIdx.x & 31;
+      if (d >= n) return;  // the whole warp
+      const int lo = dst_ptr[d] * nh, hi = min(dst_ptr[d + 1], e_real) * nh;
+      if (32 % nh == 0) {  // lane l adds head l % nh's elements alone
+        float acc = 0.f;
+#pragma unroll 8
+        for (int i = lo + lane; i < hi; i += 32) acc += dsd[i];
+        for (int o = 16; o >= nh; o >>= 1)
+          acc += __shfl_xor_sync(kFull, acc, o);
+        if (lane < nh) d_sdst[(size_t)d * nh + lane] = acc;
+        return;
+      }
+      float acc[kMaxHeads];
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k) acc[k] = 0.f;
+      const int step = 32 % nh;  // the head moves by this a row of lanes
+      int hd = lane % nh;
+#pragma unroll 4
+      for (int i = lo + lane; i < hi; i += 32) {
+        const float v = dsd[i];
+#pragma unroll
+        for (int k = 0; k < kMaxHeads; ++k) acc[k] += k == hd ? v : 0.f;
+        hd += step;
+        if (hd >= nh) hd -= nh;
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxHeads; ++k) {
+        if (k >= nh) break;  // the same for every lane
+        const float t = warp_sum(acc[k]);
+        if (lane == k) d_sdst[(size_t)d * nh + k] = t;
+      }
+      return;
+    }
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n * nh) return;
     const int d = i / nh, k = i - d * nh;
     const int hi = min(dst_ptr[d + 1], e_real);
     float s = 0.f;
     for (int p = dst_ptr[d]; p < hi; ++p)
-      s += dsd[(size_t)(dst_perm ? dst_perm[p] : p) * nh + k];
+      s += dsd[(size_t)dst_perm[p] * nh + k];
     d_sdst[i] = s;
     return;
   }
-  sum_rows_block<kTailWarps>(part, nrows, len, blockIdx.x - sd_blocks,
-                            d_asrc);
+  if ((int)blockIdx.x < sd_blocks + sum_blocks) {
+    sum_rows_block<kTailWarps>(part, nrows, len, blockIdx.x - sd_blocks,
+                              d_asrc);
+    return;
+  }
+  const int i = (blockIdx.x - sd_blocks - sum_blocks) * blockDim.x +
+                threadIdx.x;
+  if (i >= n_split * d_feat) return;
+  const int j = i / d_feat, c = i - j * d_feat;
+  float s = 0.f;
+  for (int r = split_ptr[j]; r < split_ptr[j + 1]; ++r)
+    s += dh_part[(size_t)r * d_feat + c];
+  d_h[(size_t)split_src[j] * d_feat + c] = s;
 }
 
 // the dynamic shared memory of attention_bwd_by_sender: a_src, and at wide
-// rows the warps' sums
+// rows the warps' sums and their senders' rows
 template <int V, int C>
 size_t bwd_smem_bytes(int d_feat, int nh) {
-  return ((size_t)d_feat * nh + (kWideRow<V, C> ? kWarps * d_feat : 0)) *
+  return ((size_t)d_feat * nh + (kWideRow<V, C> ? 2 * kWarps * d_feat : 0)) *
          sizeof(float);
 }
 
 // The backward by sender over the plan (vec, per_lane, lanes, unroll) of
-// v5_attention.row_plan: the kernel on a fixed grid of nblk blocks, then
-// the tail (d(s_dst) by destination, d(a_src) [| d(cap)] from the partial
-// rows): two launches in every mode. kernel_of(Int<V>, Int<C>, Int<U>,
-// Int<AL>) is the source's __global__ kernel of that instance, among the
-// plans of V * C <= LIMIT elements a lane and C <= MAXC.
+// v5_attention.row_plan: in the normalised and 2-phase modes each
+// destination's d(den) (bwd_dden), then the kernel on a fixed grid of nblk
+// blocks, then the tail (d(s_dst) by destination, d(a_src) [| d(cap)] from
+// the partial rows, the cut runs' d(h) rows): three launches, two in the
+// parts mode. kernel_of(Int<V>, Int<C>, Int<U>, Int<AL>, Int<DDEN>) is the
+// source's __global__ kernel of that instance (DDEN: the d(den) launch,
+// the others unread), among the plans of V * C <= LIMIT elements a lane
+// and C <= MAXC.
 template <int LIMIT, int MAXC, typename T, typename K>
 int launch_bwd_by_sender(BwdArgs<T> a, float* d_sdst, float* d_asrc,
                          int vec, int per_lane, int unroll, int nblk,
@@ -1672,10 +1901,20 @@ int launch_bwd_by_sender(BwdArgs<T> a, float* d_sdst, float* d_asrc,
       nblk < 1 || a.n < 1 || a.n_src < 1 || a.e_real < 1 ||
       !aligned(a.h, vec * sizeof(T)) || !aligned(a.g, vec * sizeof(float)) ||
       !aligned(a.d_h, vec * sizeof(float)) || (parts != !a.out) ||
-      (a.out && !aligned(a.out, vec * sizeof(float))))
+      (a.out && !aligned(a.out, vec * sizeof(float))) || !a.items ||
+      a.n_items < a.n_src || a.n_split < 0 ||
+      (a.n_split > 0 && !aligned(a.dh_part, vec * sizeof(float))) ||
+      (!parts && !a.dden))
     return (int)cudaErrorInvalidValue;
   a.stride = a.d_feat * a.nh + (a.mode == Bwd::kTwoPhase ? 1 : 0);
-  int err = with_vc<LIMIT, MAXC>(vec, per_lane, [&](auto vv, auto cc) {
+  if (!parts) {  // each destination's d(den), before the walk
+    const int pairs = a.n * a.nh, per = a.f >= 32 ? kWarps : kWarps * 32;
+    kernel_of(Int<1>{}, Int<1>{}, Int<1>{}, Int<0>{}, Int<1>{})
+        <<<(pairs + per - 1) / per, kWarps * 32, 0, st>>>(a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  int err = with_vc_rows<LIMIT, MAXC>(vec, per_lane, [&](auto vv, auto cc) {
     constexpr int V = decltype(vv)::value, C = decltype(cc)::value;
     constexpr int U = row_flight(V * C);
     const size_t smem = bwd_smem_bytes<V, C>(a.d_feat, a.nh);
@@ -1689,8 +1928,9 @@ int launch_bwd_by_sender(BwdArgs<T> a, float* d_sdst, float* d_asrc,
     // the instance for heads of whole lanes where the plan gives them
     auto with_u = [&](auto uu) {
       if constexpr (C == 1)
-        if (a.f % V == 0) return launch(kernel_of(vv, cc, uu, Int<1>{}));
-      return launch(kernel_of(vv, cc, uu, Int<0>{}));
+        if (a.f % V == 0)
+          return launch(kernel_of(vv, cc, uu, Int<1>{}, Int<0>{}));
+      return launch(kernel_of(vv, cc, uu, Int<0>{}, Int<0>{}));
     };
     if (unroll == U) return with_u(Int<U>{});
     // two in flight: where a batch gives a team at most two slots (teams
@@ -1700,12 +1940,20 @@ int launch_bwd_by_sender(BwdArgs<T> a, float* d_sdst, float* d_asrc,
     return (int)cudaErrorInvalidValue;
   });
   if (err) return err;
+  // a thread a (destination, head), or with no dst_perm a warp a
+  // destination
   const int sd_blocks =
-      (a.n * a.nh + kTailWarps * 32 - 1) / (kTailWarps * 32);
+      a.dst_perm ? (a.n * a.nh + kTailWarps * 32 - 1) / (kTailWarps * 32)
+                 : (a.n + kTailWarps - 1) / kTailWarps;
   const int sum_blocks = (a.stride + kSumCols - 1) / kSumCols;
-  bwd_tail_kernel<<<sd_blocks + sum_blocks, kTailWarps * 32, 0, st>>>(
+  const int split_blocks =
+      (a.n_split * a.d_feat + kTailWarps * 32 - 1) / (kTailWarps * 32);
+  const int* split = a.items + 3 * a.n_items + 1;
+  bwd_tail_kernel<<<sd_blocks + sum_blocks + split_blocks, kTailWarps * 32,
+                    0, st>>>(
       a.dsd, a.dst_perm, a.dst_ptr, a.n, a.nh, a.e_real, sd_blocks, a.part,
-      nblk, a.stride, d_sdst, d_asrc);
+      nblk, a.stride, sum_blocks, split, split + a.n_split,
+      a.n_split, a.d_feat, a.dh_part, d_sdst, d_asrc, a.d_h);
   return (int)cudaGetLastError();
 }
 

@@ -80,18 +80,31 @@
 // The lane plan (vector width, vectors a lane, lanes a row) comes from the
 // wrapper (v5_attention.lane_plan), which the CPU tests check. The cap pass
 // (v5_cap) is a stream over the E x nh scores (cap_stream_kernel). The
-// backward walks each destination's edges with one warp: it loads the
-// sender's h row (lane l holds features l, l+32, ...), reduces q = h . g
-// per head through warp shuffles, reads raw from the table, and
-// accumulates d(a_src) in registers. Every output row is written by
-// exactly one warp or block, so no atomics are needed and the sums run in
-// a fixed order: the results are bitwise reproducible.
+// backward is owned by senders (v5_bwd_sender_kernel, the body
+// attention_bwd_by_sender of attention_common.cuh, shared with the
+// windowed op): a warp takes an item, a run of at most L slots of one
+// sender (build.sender_items: L a function of the edge count and the
+// grid, a longer run cut into several in slot order, so that no warp
+// walks a hub alone), reads the sender's h row and walks the item's slots
+// in batches, gathering g[dst] and reading each destination's d(den),
+// taken once a destination by the kernel's first launch (its instance
+// DDEN), and sums the item's coef * g terms, then its d(raw) sums @
+// a_src^T (each slot's whole term where a bfloat16 mode rounds it), into
+// its d(h) row; a cut run's items write partial d(h) rows,
+// which the tail (bwd_tail_kernel) adds in item order. Every
+// output row is written by exactly one warp, block or tail thread, so no
+// atomics are needed and the sums run in a fixed order: the results are
+// bitwise reproducible.
 // Cross-block reductions (the cap and its argmax, d(a_src), d(cap)) go
 // through per-block partials over a fixed grid and a second, ordered pass.
-// Rows wider than 256 floats take the backward's wide form (kWideC): a
-// per-lane d(a_src) accumulator there would not fit in registers, so the
-// kernel writes each edge's d(raw) row and v5_dasrc_kernel takes d(a_src)
-// by sender, h^T S with S the per-sender sums of those rows.
+// The float32 library runs every row width by sender; the bfloat16-table
+// library instantiates plans of up to 8 elements a lane only, so rows
+// wider than 256 floats from a bfloat16 table take the backward's older
+// wide form (kWideC, one warp a destination): a per-lane d(a_src)
+// accumulator there would not fit in registers, so the kernel writes each
+// edge's d(raw) row and v5_dasrc_kernel takes d(a_src) by sender, h^T S
+// with S the per-sender sums of those rows, and row 3 (segment_sum.cu)
+// sums its per-edge d(h) rows by sender.
 // The TPU's merged 2-phase launch (grid 2T: cap tiles, then attention
 // tiles, the cap carried in VMEM scratch) has no counterpart here: blocks
 // do not run in order, so the cap is a launch of its own (cap stream and
@@ -111,12 +124,21 @@
 namespace {
 
 // Rows wider than 256 floats (C >= 16 features a lane: PPI's 1024 and 726)
-// take the backward's wide form, v5_bwd_kernel below: per-edge d(h) rows,
-// then row 3 (segment_sum.cu) by sender, and d(a_src) by v5_dasrc_kernel.
-// Rows of 256 floats or fewer take the backward by sender
+// from a bfloat16 table take the backward's wide form, v5_bwd_kernel below:
+// per-edge d(h) rows, then row 3 (segment_sum.cu) by sender, and d(a_src)
+// by v5_dasrc_kernel. Every other backward runs by sender
 // (v5_bwd_sender_kernel, attention_common.cuh attention_bwd_by_sender),
 // which writes d(h) per node.
 constexpr int kWideC = 16;
+
+// The plans of the backward by sender: every row of up to 1024 floats (32
+// elements a lane) in the float32 library; up to 256 floats (8 elements a
+// lane) in the bfloat16-table library, which instantiates no wide plan
+#ifdef GAT_BF16_TABLE
+constexpr int kBwdLimit = 8, kBwdMaxC = 8;
+#else
+constexpr int kBwdLimit = 32, kBwdMaxC = 32;
+#endif
 
 // The forward in both its modes (FwdArgs.two_phase): attention_fwd_wide
 // at f >= 32 (a block of nh warps a destination), attention_fwd_narrow
@@ -132,13 +154,20 @@ v5_fwd_kernel(const FwdArgs<T> a) {
   }
 }
 
-// The backward by sender at rows of 256 floats or fewer, every mode, over
-// the dst-sorted edges (a slot is an edge, src_order's real prefix the
-// sender runs): d(h) per node, no per-edge rows and no row 3 after it
-template <int V, int C, int U, bool AL, typename T>
-__global__ void __launch_bounds__(kWarps * 32, 1)
+// The backward by sender, every mode, over the dst-sorted edges (a slot is
+// an edge, src_order's real prefix the sender runs) in the items of
+// build.sender_items: d(h) per node, no per-edge rows and no row 3 after
+// it. Its instance DDEN (one a table type, the plan's parameters unread)
+// is the first launch in the normalised and 2-phase modes
+// (launch_bwd_by_sender): each destination's d(den) into a.dden.
+template <int V, int C, int U, bool AL, typename T, bool DDEN = false>
+__global__ void __launch_bounds__(kWarps * 32, (kBwdBlocks<V, C>))
 v5_bwd_sender_kernel(const BwdArgs<T> a) {
-  attention_bwd_by_sender<V, C, U, AL>(a);
+  if constexpr (DDEN) {
+    bwd_dden(a);
+  } else {
+    attention_bwd_by_sender<V, C, U, AL>(a);
+  }
 }
 
 // The wide form (C >= kWideC features a lane). One warp walks a
@@ -487,8 +516,8 @@ int launch_v5_forward(const T* h, const float* s_src, const float* s_dst,
       });
 }
 
-// The wide form's launch (rows over 256 floats); its d(a_src) is
-// v5_dasrc's, from draw
+// The wide form's launch (rows over 256 floats from a bfloat16 table); its
+// d(a_src) is v5_dasrc's, from draw
 template <Bwd MODE, typename T>
 int launch_v5_backward(const T* h, const float* a_src, const float* s_src,
                        const float* s_dst,
@@ -587,54 +616,65 @@ int v5_forward_two_phase(const void* h, const float* s_src,
   });
 }
 
-// Backward by sender, the form of rows of 256 floats or fewer, mode 0
-// (normalised: g = d(out), out and den the forward's, eps' at epsp on the
-// device), 1 (parts: g = d(num), den = d(den); out, epsp and cap unread) or
-// 2 (2-phase: the cap at `cap`, the plain eps). d_h (n_src, d_feat) per
+// Backward by sender, mode 0 (normalised: g = d(out), out and den the
+// forward's, eps' at epsp on the device), 1 (parts: g = d(num), den =
+// d(den); out, epsp and cap unread) or 2 (2-phase: the cap at `cap`, the
+// plain eps), at every row width of the float32 library and at rows of 256
+// floats or fewer of the bfloat16-table library. d_h (n_src, d_feat) per
 // node, d_drop (e_total, nh) or NULL, d_sdst (n, nh), d_asrc (d_feat, nh)
-// and in mode 2 d(cap) after it. Scratch: dsd (e_total, nh), dsum (n_src,
-// nh), part (nblk, d_feat*nh [+ 1]). receivers (e_total,); src_order and
-// src_ptr (n_src + 1,): the real edges' sender runs (build.sender_runs);
-// row_ptr (n + 1,): the edges' offsets by destination; (vec, per_lane,
-// lanes, unroll): v5_attention.row_plan. Two launches: the kernel by
-// sender and the tail.
+// and in mode 2 d(cap) after it. items: the item table of the sender runs
+// (build.SenderItems.table, n_items items, n_split cut runs). Scratch: dsd
+// (e_total, nh), dsum (n_items, nh), part (nblk, d_feat*nh [+ 1]), dh_part
+// (the cut runs' partial rows, d_feat; NULL where n_split is 0), dden (n,
+// nh; unread in mode 1). receivers (e_total,); src_order and src_ptr
+// (n_src + 1,): the real edges' sender runs (build.sender_runs); row_ptr
+// (n + 1,): the edges' offsets by destination; (vec, per_lane, lanes,
+// unroll): v5_attention.row_plan. Three launches in modes 0 and 2 (each
+// destination's d(den), the kernel by sender and the tail), two in mode 1.
 int v5_backward_by_sender(const void* h, const float* a_src,
                           const float* s_src, const float* s_dst,
                           const float* drop, const int* receivers,
                           const int* src_order, const int* src_ptr,
-                          const int* row_ptr, int n_src, int n, int e_real,
-                          int e_total, int d_feat, int nh, int f, int mode,
-                          float slope, float eps, const float* g,
+                          const int* row_ptr, const int* items,
+                          int n_items, int n_split, int n_src, int n,
+                          int e_real, int e_total, int d_feat, int nh, int f,
+                          int mode, float slope, float eps, const float* g,
                           const float* out, const float* den,
                           const float* epsp, const float* cap, float* d_h,
                           float* d_drop, float* d_sdst, float* d_asrc,
-                          float* dsd, float* dsum, float* part, int vec,
-                          int per_lane, int lanes, int unroll, int nblk,
-                          int flags, void* stream) {
-  if (mode < 0 || mode > 2 || d_feat > 32 * (kWideC / 2) ||
-      e_real > e_total)
+                          float* dsd, float* dsum, float* part,
+                          float* dh_part, float* dden, int vec, int per_lane,
+                          int lanes, int unroll, int nblk, int flags,
+                          void* stream) {
+  if (mode < 0 || mode > 2 || e_real > e_total)
     return (int)cudaErrorInvalidValue;
   return with_table(h, flags, [&](auto hp) {
     using T = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
-    const BwdArgs<T> a{hp,       a_src,     s_src,   s_dst,   drop,
-                       receivers, src_order, src_ptr, nullptr, row_ptr,
-                       n_src,    n,         e_total, e_real,  d_feat,
-                       nh,       f,         lanes,   (Bwd)mode, slope,
-                       eps,      flags,     g,       out,     den,
-                       epsp,     cap,       d_h,     d_drop,  dsd,
-                       dsum,     part,      0};
-    // at most 8 elements a lane at 256 floats
-    return launch_bwd_by_sender<8, 8>(
+    BwdArgs<T> a{hp,       a_src,     s_src,   s_dst,   drop,
+                 receivers, src_order, src_ptr, nullptr, row_ptr,
+                 n_src,    n,         e_total, e_real,  d_feat,
+                 nh,       f,         lanes,   (Bwd)mode, slope,
+                 eps,      flags,     g,       out,     den,
+                 epsp,     cap,       d_h,     d_drop,  dsd,
+                 dsum,     part,      0};
+    a.items = items;
+    a.n_items = n_items;
+    a.n_split = n_split;
+    a.dh_part = dh_part;
+    a.dden = dden;
+    return launch_bwd_by_sender<kBwdLimit, kBwdMaxC>(
         a, d_sdst, d_asrc, vec, per_lane, unroll, nblk, (cudaStream_t)stream,
-        [](auto v, auto c, auto u, auto al) {
+        [](auto v, auto c, auto u, auto al, auto dd) {
           return &v5_bwd_sender_kernel<decltype(v)::value, decltype(c)::value,
                                        decltype(u)::value,
-                                       decltype(al)::value != 0, T>;
+                                       decltype(al)::value != 0, T,
+                                       decltype(dd)::value != 0>;
         });
   });
 }
 
-// The wide form (rows over 256 floats), three entries, one a mode: d_h_rows
+// The wide form (rows over 256 floats from a bfloat16 table), three
+// entries, one a mode: d_h_rows
 // (E, d_feat) in dst order, d_drop (E, nh) or NULL, d_sdst (n, nh), and
 // draw (E, nh), each edge's d(raw), from which v5_dasrc takes d(a_src).
 // Normalised mode: g = d(out), out and den the forward's, epsp points at

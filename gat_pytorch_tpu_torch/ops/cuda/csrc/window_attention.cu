@@ -75,25 +75,26 @@
 //
 // The backward is owned by senders (window_bwd_kernel, whose body,
 // attention_bwd_by_sender of attention_common.cuh, the v5 op's backward
-// shares over its dst-sorted edges): a warp takes a
-// sender, reads its own h row once and walks its run of src_perm (the real
-// slots by sender) in batches, a lane a (slot, head) taking the slot's
-// destination, payload and exp once, teams of lanes sized to the row (the
-// forward's) gathering g[dst] for a slot each; the per-head dots h . g of
-// a team are reduced together (team_sums), and the slots' d(h) terms are
-// added in ascending position of the run, from 0, with no contraction: the
-// order of the per-slot rows' reduction by sender that it replaces
-// (segment_sum.cu), so no (E7, d) rows are written or read back. d(den)
-// = -inv * sum out * g, a destination's, is taken per slot from out[dst]
-// gathered beside g[dst] (a second row from L2, where a prologue of its
-// own would be a third launch); d(s_dst), each destination's slots' terms
-// summed in dst_perm order, is the tail's (bwd_tail_kernel), which also
-// adds the blocks' d(a_src) [| d(cap)] partial rows in row order. d(a_src)
-// is h^T S with S each sender's d(raw) summed over its slots: the
-// products once a sender. Every output row has
-// one writer and a fixed order of sums: no atomics, bitwise reproducible;
-// the cap with its argmax code, d(a_src) and d(cap) go through per-block
-// partials over a fixed grid and an ordered second pass.
+// shares over its dst-sorted edges): a warp takes an item, a run of at
+// most L slots of a sender's run of src_perm (the real slots by sender;
+// build.sender_items cuts a longer run into items whose partial d(h) rows
+// the tail adds in item order), reads the sender's h row once and walks
+// the item in batches, a lane a (slot, head) taking the slot's
+// destination, payload, d(den) and exp once, teams of lanes sized to the
+// row (the forward's) gathering g[dst] for a slot each; the per-head dots
+// h . g of a team are reduced together (team_sums), and the slots' coef * g
+// terms are added in ascending position of the run, from 0, so no (E7, d)
+// rows are written or read back. d(den) = -inv * sum out * g, a
+// destination's, is a launch of its own before the walk (bwd_dden);
+// d(s_dst), each destination's slots' terms summed in dst_perm order, is
+// the tail's (bwd_tail_kernel), which also adds the blocks' d(a_src) [|
+// d(cap)] partial rows in row order. d(h)'s d(raw) @ a_src^T and d(a_src)
+// = h^T S take S, each item's d(raw) summed over its slots: the products
+// once an item (each slot's whole d(h) term where a bfloat16 mode rounds
+// it). Every output row has one writer and a fixed order of sums: no
+// atomics, bitwise reproducible; the cap with its argmax code, d(a_src)
+// and d(cap) go through per-block partials over a fixed grid and an
+// ordered second pass.
 //
 // What the layout can buy on this card is locality: the warps of the grid
 // work on neighbouring rows at the same time, whose neighbours sit in a
@@ -127,11 +128,16 @@ window_fwd_kernel(const FwdArgs<T> a) {
 }
 
 // The backward by sender over the layout's slots (attention_common.cuh,
-// attention_bwd_by_sender, shared with the v5 op's v5_bwd_sender_kernel)
-template <int V, int C, int U, bool AL, typename T>
-__global__ void __launch_bounds__(kWarps * 32, 1)
+// attention_bwd_by_sender, shared with the v5 op's v5_bwd_sender_kernel);
+// its instance DDEN is the d(den) launch before it (bwd_dden)
+template <int V, int C, int U, bool AL, typename T, bool DDEN = false>
+__global__ void __launch_bounds__(kWarps * 32, (kBwdBlocks<V, C>))
 window_bwd_kernel(const BwdArgs<T> a) {
-  attention_bwd_by_sender<V, C, U, AL>(a);
+  if constexpr (DDEN) {
+    bwd_dden(a);
+  } else {
+    attention_bwd_by_sender<V, C, U, AL>(a);
+  }
 }
 
 // The bfloat16-table library (-DGAT_BF16_TABLE) serves the packed window
@@ -247,22 +253,26 @@ int window_forward_two_phase(const void* h, const float* s_src,
 // rows, the destinations n (fewer on a dst-owned shard's layout, whose
 // senders index the whole table). d_h (n_src, d_feat), d_drop (e7, nh) or
 // NULL, d_sdst (n, nh), d_asrc (d_feat, nh) and in mode 2 d(cap) after
-// it. Scratch: dsd (e7, nh), dsum (n_src, nh), part (nblk, d_feat*nh [+
-// 1]). recv, src_perm, dst_perm (e7,), src_ptr (n_src + 1,), dst_ptr (n +
-// 1,): the layout's; (vec, per_lane, lanes, unroll):
+// it. items: the item table of the layout's sender runs
+// (build.SenderItems.table, n_items items, n_split cut runs). Scratch: dsd
+// (e7, nh), dsum (n_items, nh), part (nblk, d_feat*nh [+ 1]), dh_part (the
+// cut runs' partial rows, d_feat; NULL where n_split is 0), dden (n, nh;
+// unread in mode 1). recv, src_perm, dst_perm (e7,), src_ptr (n_src + 1,),
+// dst_ptr (n + 1,): the layout's; (vec, per_lane, lanes, unroll):
 // v5_attention.row_plan.
 int window_backward(const void* h, const float* a_src, const float* s_src,
                     const float* s_dst, const float* drop, const int* recv,
                     const int* src_perm, const int* src_ptr,
-                    const int* dst_perm, const int* dst_ptr, int n_src,
+                    const int* dst_perm, const int* dst_ptr,
+                    const int* items, int n_items, int n_split, int n_src,
                     int n, int e7,
                     int d_feat, int nh, int f, int mode, float slope,
                     float eps, const float* g, const float* out,
                     const float* den, const float* epsp, const float* cap,
                     float* d_h, float* d_drop, float* d_sdst, float* d_asrc,
-                    float* dsd, float* dsum, float* part,
-                    int vec, int per_lane, int lanes, int unroll, int nblk,
-                    int flags, void* stream) {
+                    float* dsd, float* dsum, float* part, float* dh_part,
+                    float* dden, int vec, int per_lane, int lanes,
+                    int unroll, int nblk, int flags, void* stream) {
   if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
 #ifdef GAT_BF16_TABLE
   if (mode == 2) return (int)cudaErrorInvalidValue;
@@ -270,19 +280,25 @@ int window_backward(const void* h, const float* a_src, const float* s_src,
   return with_table(h, flags, [&](auto hp) {
     using T = std::remove_const_t<std::remove_pointer_t<decltype(hp)>>;
     // every slot of dst_perm's runs is real (e_real: no bound)
-    const BwdArgs<T> a{hp,       a_src,   s_src,    s_dst,   drop,
-                       recv,     src_perm, src_ptr, dst_perm, dst_ptr,
-                       n_src,    n,       e7,       INT_MAX, d_feat,
-                       nh,       f,       lanes,    (Bwd)mode, slope,
-                       eps,      flags,   g,        out,     den,
-                       epsp,     cap,     d_h,      d_drop,  dsd,
-                       dsum,     part,    0};
+    BwdArgs<T> a{hp,       a_src,   s_src,    s_dst,   drop,
+                 recv,     src_perm, src_ptr, dst_perm, dst_ptr,
+                 n_src,    n,       e7,       INT_MAX, d_feat,
+                 nh,       f,       lanes,    (Bwd)mode, slope,
+                 eps,      flags,   g,        out,     den,
+                 epsp,     cap,     d_h,      d_drop,  dsd,
+                 dsum,     part,    0};
+    a.items = items;
+    a.n_items = n_items;
+    a.n_split = n_split;
+    a.dh_part = dh_part;
+    a.dden = dden;
     return launch_bwd_by_sender<kBwdLimit, kBwdMaxC>(
         a, d_sdst, d_asrc, vec, per_lane, unroll, nblk, (cudaStream_t)stream,
-        [](auto v, auto c, auto u, auto al) {
+        [](auto v, auto c, auto u, auto al, auto dd) {
           return &window_bwd_kernel<decltype(v)::value, decltype(c)::value,
                                     decltype(u)::value,
-                                    decltype(al)::value != 0, T>;
+                                    decltype(al)::value != 0, T,
+                                    decltype(dd)::value != 0>;
         });
   });
 }

@@ -6,14 +6,20 @@ fused_gat_table_autocap (:1551) with its VJP `_fgta_fwd`/`_fgta_bwd`
 default, and v5_sweep1_parts (:1674) with `_v5sp_fwd`/`_v5sp_bwd`, the
 same sweep without its epilogue. The kernels are csrc/v5_attention.cu
 (forward: `_kernel_v5_auto`; backward: segment_attention_bwd.py:
-`_kernel_v5_bwd`, in its normalised and its parts mode). At rows of
-WIDE_D = 256 floats or fewer the backward is owned by senders and returns
-d(h) per node (`v5_backward_by_sender_plain` is its plain version): the
-d(h) reduction that the JAX package runs after the TPU kernel
-(ops/cuda/segment_sum.py) is inside it. Wider rows take its wide form:
-per-edge rows (`v5_backward_plain`, the TPU kernel's contract), d(a_src)
-by sender (`dasrc_by_sender`, kernel v5_dasrc) and then the d(h) reduce.
-`v5_forward_plain` is the forward's plain version.
+`_kernel_v5_bwd`, in its normalised and its parts mode). On the card the
+backward is owned by senders and returns d(h) per node
+(`v5_backward_by_sender_plain` is its plain version): the d(h) reduction
+that the JAX package runs after the TPU kernel (ops/cuda/segment_sum.py)
+is inside it. Its warps take items, runs of at most L slots of one
+sender (build.sender_items), a longer run cut into several whose partial
+d(h) rows the backward's tail adds in item order
+(`v5_backward_split_plain` is that association's plain version). Rows
+wider than WIDE_D = 256 floats from a bfloat16 table (whose library has
+no wide plan by sender) take the older wide form: per-edge rows
+(`v5_backward_plain`, the TPU kernel's contract), d(a_src) by sender
+(`dasrc_by_sender`, kernel v5_dasrc) and then the d(h) reduce
+(`by_sender_on_card` says which). `v5_forward_plain` is the forward's
+plain version.
 
 Every kernel here, and every windowed one (window_attention.py), takes
 its raw logit from the source-score table s_src = h @ a_src
@@ -70,8 +76,8 @@ mode, a bfloat16 table cast once; an explicit `rounding` (the v6 form of
 window_attention.fused_gat_window, which runs on these kernels) replaces
 the knobs. GAT_TPU_DH_REDUCE_NT=0 (segment_sum.dh_transposed) reduces
 d(h) through the feature-major kernel where a reduce runs: the wide form
-on the card, and the CPU route. It changes no value in the JAX package,
-and the kernel by sender does not read it.
+of a bfloat16 table on the card, and the CPU route. It changes no value
+in the JAX package, and the kernel by sender does not read it.
 """
 
 from __future__ import annotations
@@ -82,7 +88,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ...utils.profiling import op_spans
+from ...utils.profiling import count, op_spans
 from .. import segment as seg
 from . import build
 from .build import sender_runs
@@ -140,8 +146,9 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.v5_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 7
                                           + [i, i, p])
         lib.v5_backward_parts.restype = ctypes.c_int
-        lib.v5_backward_by_sender.argtypes = ([p] * 9 + [i] * 8 + [fl] * 2
-                                              + [p] * 12 + [i] * 6 + [p])
+        lib.v5_backward_by_sender.argtypes = ([p] * 10 + [i] * 10
+                                              + [fl] * 2 + [p] * 14
+                                              + [i] * 6 + [p])
         lib.v5_backward_by_sender.restype = ctypes.c_int
         lib.v5_cap.argtypes = [p] * 4 + [i] * 2 + [p] * 4 + [i, p]
         lib.v5_cap.restype = ctypes.c_int
@@ -241,7 +248,8 @@ def lane_plan(nh: int, f: int, align: int = 4) -> LanePlan:
                     2 if few else in_flight(vec * per_lane))
 
 
-def row_plan(nh: int, f: int, align: int = 4) -> RowPlan:
+def row_plan(nh: int, f: int, align: int = 4,
+             three: bool = False) -> RowPlan:
     """The team-per-row plan at nh heads of f features, vectors of at most
     `align` elements: the widest vector that divides the row and meets at
     most two heads (as lane_plan's narrow rows), and the fewest lanes, a
@@ -250,17 +258,25 @@ def row_plan(nh: int, f: int, align: int = 4) -> RowPlan:
     one vector each, or 32 lanes of several: the most teams a warp (at
     Pubmed's 8 x 3, four teams of 8 lanes beat one of 32 lanes with heads
     of whole lanes, PERF.md). A team keeps two rows in flight where a batch
-    of 32 // nh rows gives it at most two, else in_flight's, at most four
-    (csrc/attention_common.cuh row_flight)."""
+    of 32 // nh rows gives it at most two; one at 12 or more elements a
+    lane (one team a warp), else in_flight's, at most four
+    (csrc/attention_common.cuh row_flight). three: a team of 32 lanes takes
+    three vectors a lane where three cover the row (the backwards by
+    sender, whose kernels have those plans: a 320-float row in three
+    vectors of four, where four left the last one dead in every lane)."""
     d = nh * f
     vec = next(v for v in (4, 2, 1)
                if v <= align and d % v == 0 and (f % v == 0 or v <= f + 1))
     nvec = d // vec
     lanes = min(32, max(MAX_HEADS, _pow2(nvec)))
-    per_lane = _pow2(-(-nvec // lanes))
+    per_lane = -(-nvec // lanes)
+    if not (three and lanes == 32 and per_lane == 3):
+        per_lane = _pow2(per_lane)
     few = -(-(32 // nh) // (32 // lanes)) <= 2
+    elems = vec * per_lane
     return RowPlan(vec, per_lane, lanes,
-                   2 if few else min(4, in_flight(vec * per_lane)))
+                   2 if few else 1 if elems >= 12
+                   else min(4, in_flight(elems)))
 
 
 def score_plan(d: int, align: int = 4) -> ScorePlan:
@@ -612,9 +628,10 @@ def v5_backward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
 
 # -- the wide backward's d(a_src), by sender ----------------------------------
 #
-# Rows wider than WIDE_D floats take the backward kernel's wide form
-# (csrc/v5_attention.cu, kWideC): it writes each edge's d(raw) row
-# (E, nh) and leaves d(a_src) to v5_dasrc, which sums those rows by
+# Rows wider than WIDE_D floats from a bfloat16 table take the backward
+# kernel's wide form on the card (csrc/v5_attention.cu, kWideC), and the
+# CPU route takes its steps at every table: it writes each edge's d(raw)
+# row (E, nh) and leaves d(a_src) to v5_dasrc, which sums those rows by
 # sender, S = (n_src, nh), and takes h^T S in per-block partials and an
 # ordered second pass. The steps below are the same on the CPU (plain)
 # and on the card (the kernel), so the CPU runs this plumbing too.
@@ -623,8 +640,17 @@ WIDE_D = 256
 
 
 def wide_form(d: int) -> bool:
-    """Whether the backward at row width d takes the wide form."""
+    """Whether rows of width d are wide: the CPU route takes d(a_src) by
+    sender from the per-edge d(raw) rows there."""
     return d > WIDE_D
+
+
+def by_sender_on_card(d: int, rounding: Rounding = FLOAT32) -> bool:
+    """Whether the backward on the card at row width d runs by sender
+    (C entry v5_backward_by_sender): at every width of a float32 table; of
+    a bfloat16 table (whose library instantiates no wide plan) at
+    WIDE_D floats or fewer, the wide form above that."""
+    return not (rounding.table and wide_form(d))
 
 
 def dasrc_by_sender_plain(h, draw, order, ptr, rounding: Rounding = FLOAT32):
@@ -678,14 +704,19 @@ def dasrc_by_sender(h, draw, order, ptr, rounding: Rounding = FLOAT32,
 
 # -- the backward by sender --------------------------------------------------
 #
-# At rows of WIDE_D floats or fewer the backward kernel is owned by senders
+# On the card the backward kernel is owned by senders
 # (csrc/attention_common.cuh attention_bwd_by_sender, the windowed op's
 # body over the dst-sorted edges): it sums d(h) per node itself, each
 # sender's edges' terms in ascending position of its run of src_order, and
 # takes d(a_src) = h^T S by sender, S the per-sender sums of d(raw). The
 # plain versions below have that contract; the per-edge rows of
 # v5_backward_plain are the TPU kernel's, whose reduction by sender the
-# JAX package runs after it.
+# JAX package runs after it. The kernel's warps take items
+# (build.sender_items over sender_warps(n_src) warps): where a run is cut,
+# each item sums its own slots' terms, from 0, and the tail adds the
+# items' partial rows in item order; d(a_src) takes h[s]^T S per item. The
+# split plain versions have that association: the same terms, so within
+# float32 rounding of the by-sender ones, to the bits where no run is cut.
 
 def _by_sender_plain(grads, h, senders, e_real: int, src_order, src_ptr,
                      rounding: Rounding):
@@ -698,6 +729,69 @@ def _by_sender_plain(grads, h, senders, e_real: int, src_order, src_ptr,
     grads[0] = dh_reduce_plain(grads[0], order, ptr)
     grads[3] = dasrc_by_sender_plain(h, draw, order, ptr, rounding)
     return tuple(grads)
+
+
+def sender_warps(n_src: int) -> int:
+    """The warps of the backward by sender over n_src senders (its grid,
+    build.grid_blocks, of WARPS_PER_BLOCK warps): the item table's."""
+    return build.grid_blocks(n_src) * build.WARPS_PER_BLOCK
+
+
+def _split_plain(grads, h, senders, e_real: int, src_order, src_ptr,
+                 rounding: Rounding):
+    """A plain backward's grads (with draw last) in the kernel's items
+    (build.sender_items over sender_warps warps): each item's per-edge
+    d(h) rows summed from 0 in slot order (dh_reduce_plain), a cut run's
+    partial rows then summed in item order; d(a_src) the sum over items of
+    h[s]^T S, S the item's d(raw) sums; draw dropped."""
+    *grads, draw = grads
+    n_src = h.shape[0]
+    order, ptr = sender_runs(senders, e_real, n_src, src_order, src_ptr)
+    it = build.sender_items(ptr, sender_warps(n_src))
+    rows = dh_reduce_plain(grads[0], order, it.ptr)
+    whole = it.part < 0
+    d_h = rows.new_zeros((n_src, rows.shape[1]))
+    d_h[it.src[whole].long()] = rows[whole]
+    if it.n_split:
+        d_h[it.split_src.long()] = dh_reduce_plain(
+            rows[~whole], torch.arange(it.n_parts, device=rows.device),
+            it.split_ptr)
+    grads[0] = d_h
+    s_items = segment_sum_sorted_plain(draw, None, it.n_items, order=order,
+                                       ptr=it.ptr)
+    h_items = maybe_bf16(h.float(), rounding.rows).index_select(
+        0, it.src.long())
+    grads[3] = h_items.t() @ s_items
+    return tuple(grads)
+
+
+def v5_backward_split_plain(h, a_src, s_dst_eff, drop, senders, receivers,
+                            e_real: int, slope: float, g, out, den, epsp,
+                            need_drop: bool, normalize: bool = True,
+                            rounding: Rounding = FLOAT32, s_src=None,
+                            src_order=None, src_ptr=None):
+    """v5_backward_by_sender_plain's outputs in the kernel's association
+    (_split_plain): d(drop) and d(s_dst) its bits; d(h) its bits where
+    no run is cut."""
+    return _split_plain(v5_backward_plain(
+        h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g, out,
+        den, epsp, need_drop, normalize, rounding, with_draw=True,
+        s_src=s_src), h, senders, e_real, src_order, src_ptr, rounding)
+
+
+def v5_backward_two_phase_split_plain(h, a_src, s_dst, cap, drop, senders,
+                                      receivers, e_real: int, eps: float,
+                                      slope: float, g, out, den,
+                                      need_drop: bool,
+                                      rounding: Rounding = FLOAT32,
+                                      s_src=None, src_order=None,
+                                      src_ptr=None):
+    """v5_backward_two_phase_by_sender_plain's outputs in the kernel's
+    association (_split_plain)."""
+    return _split_plain(v5_backward_two_phase_plain(
+        h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
+        g, out, den, need_drop, rounding, with_draw=True, s_src=s_src), h,
+        senders, e_real, src_order, src_ptr, rounding)
 
 
 def v5_backward_by_sender_plain(h, a_src, s_dst_eff, drop, senders,
@@ -812,8 +906,11 @@ def _v5_backward_by_sender_cuda(name, h, a_src, s_src, s_dst, drop,
                                 cap, need_drop: bool, rounding: Rounding,
                                 dst_ptr, src_order, src_ptr):
     """One call of the C entry v5_backward_by_sender in the mode of
-    `name` (rows of WIDE_D floats or fewer): (d_h (rows of h, d) per node,
-    d_drop | None, d_sdst, d_asrc (d*nh [+ 1]))."""
+    `name` (by_sender_on_card): (d_h (rows of h, d) per node, d_drop |
+    None, d_sdst, d_asrc (d*nh [+ 1])). Its warps take the items of the
+    sender runs (build.sender_items, built on the first call with the
+    caller's runs or senders and kept); counts the real slots (counter
+    bwd_slots) and those in cut runs (bwd_split_slots)."""
     dev = h.device
     n_src, d = h.shape
     n, nh = s_dst.shape
@@ -827,6 +924,14 @@ def _v5_backward_by_sender_cuda(name, h, a_src, s_src, s_dst, drop,
     # blocks at Cora's and Pubmed's shapes, where the tail's sum over the
     # blocks' partial rows is a part of the call (PERF.md)
     nblk = build.grid_blocks(n_src)
+    # the table is kept with the caller's runs, or with the senders the
+    # runs were derived from
+    given = src_order is not None and src_ptr is not None
+    items = build.sender_items(ptr, nblk * build.WARPS_PER_BLOCK,
+                               src_ptr if given else senders,
+                               () if given else (e_real, n_src))
+    count("bwd_slots", items.slots)
+    count("bwd_split_slots", items.split_slots)
     f32 = dict(dtype=torch.float32, device=dev)
     d_h = torch.empty((n_src, d), **f32)
     d_drop = torch.empty((e, nh), **f32) if need_drop else None
@@ -834,20 +939,24 @@ def _v5_backward_by_sender_cuda(name, h, a_src, s_src, s_dst, drop,
     stride = d * nh + (1 if mode == 2 else 0)
     d_asrc = torch.empty((stride,), **f32)
     dsd = torch.empty((e, nh), **f32)
-    dsum = torch.empty((n_src, nh), **f32)
+    dsum = torch.empty((items.n_items, nh), **f32)
     part = torch.empty((nblk, stride), **f32)
+    dh_part = (torch.empty((items.n_parts, d), **f32) if items.n_split
+               else None)
+    # each destination's d(den), taken once before the walk (modes 0, 2)
+    dden = torch.empty((n, nh), **f32) if mode != 1 else None
     aligns = [align_of(h), align_of(g)] + ([] if out is None
                                            else [align_of(out)])
-    plan = row_plan(nh, d // nh, min(aligns))
+    plan = row_plan(nh, d // nh, min(aligns), three=True)
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib(rounding.table).v5_backward_by_sender(
             p(h), p(a_src), p(s_src), p(s_dst), p(drop), p(receivers),
-            p(order), p(ptr), p(row_ptr), n_src, n, e_real, e, d, nh,
-            d // nh, mode, slope, eps, p(g), p(out), p(den), p(epsp),
-            p(cap), p(d_h), p(d_drop), p(d_sdst), p(d_asrc), p(dsd),
-            p(dsum), p(part), *plan, nblk, rounding.flags(),
-            build.stream(dev))
+            p(order), p(ptr), p(row_ptr), p(items.table), items.n_items,
+            items.n_split, n_src, n, e_real, e, d, nh, d // nh, mode, slope,
+            eps, p(g), p(out), p(den), p(epsp), p(cap), p(d_h), p(d_drop),
+            p(d_sdst), p(d_asrc), p(dsd), p(dsum), p(part), p(dh_part),
+            p(dden), *plan, nblk, rounding.flags(), build.stream(dev))
     build.check(err, name)
     build.LAUNCHES[rounding.counter(name)] += 1
     return d_h, d_drop, d_sdst, d_asrc
@@ -869,15 +978,16 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
         return empty_grads(h.shape[0], n, d, nh, e, need_drop, dev)
     s_src = scores_of(h, a_src, s_src)
     name = "v5_backward" if normalize else "v5_backward_parts"
-    if not wide_form(d):
+    if by_sender_on_card(d, rounding):
         d_h, d_drop, d_sdst, d_asrc = _v5_backward_by_sender_cuda(
             name, h, a_src, s_src, s_dst_eff, drop, senders, receivers,
             e_real, slope, 0.0, g, out if normalize else None, den,
             epsp if normalize else None, None, need_drop, rounding,
             dst_ptr, src_order, src_ptr)
         return d_h, d_drop, d_sdst, d_asrc.view(d, nh)
-    # the wide form: per-edge rows, d(a_src) by sender (v5_dasrc), then the
-    # rows summed by sender (row 3, or row 4 where `transposed`)
+    # the wide form of a bfloat16 table: per-edge rows, d(a_src) by sender
+    # (v5_dasrc), then the rows summed by sender (row 3, or row 4 where
+    # `transposed`)
     row_ptr = build.row_offsets(receivers, n, dst_ptr)
     nblk = build.grid_blocks(n)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -971,7 +1081,7 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     if e_real == 0:
         return empty_grads(h.shape[0], n, d, nh, e, need_drop, dev, True)
     s_src = scores_of(h, a_src, s_src)
-    if not wide_form(d):
+    if by_sender_on_card(d, rounding):
         d_h, d_drop, d_sdst, d_asrc_cap = _v5_backward_by_sender_cuda(
             "v5_backward_two_phase", h, a_src, s_src, s_dst, drop, senders,
             receivers, e_real, slope, eps, g, out, den, None, cap, need_drop,
@@ -1053,13 +1163,14 @@ def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
     real edges' sender runs (sender_runs), derived where None. s_src: as
     v5_forward's.
 
-    On CUDA tensors, rows of WIDE_D floats or fewer take the kernel by
-    sender (C entry v5_backward_by_sender: two launches, d(h) per node,
-    reading no knob); wider rows the wide form (per-edge rows, v5_dasrc,
-    then the d(h) reduce, feature-major where `transposed`, the op's
-    GAT_TPU_DH_REDUCE_NT=0). On CPU tensors the JAX package's route: the
-    plain per-edge rows, then the d(h) reduce in the form `transposed`
-    names (d(a_src) by sender at wide rows)."""
+    On CUDA tensors the kernel by sender (C entry v5_backward_by_sender:
+    three launches, two in the parts mode, d(h) per node, reading no
+    knob) where by_sender_on_card;
+    rows over WIDE_D floats of a bfloat16 table the wide form (per-edge
+    rows, v5_dasrc, then the d(h) reduce, feature-major where
+    `transposed`, the op's GAT_TPU_DH_REDUCE_NT=0). On CPU tensors the JAX
+    package's route: the plain per-edge rows, then the d(h) reduce in the
+    form `transposed` names (d(a_src) by sender at wide rows)."""
     if h.is_cuda:
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
@@ -1115,10 +1226,10 @@ def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                           dst_ptr=None, src_order=None, src_ptr=None,
                           s_src=None, transposed: bool = False):
     """(d_h (rows of h, D) per node, d_drop | None, d_s_dst, d_a_src,
-    d_cap) of the 2-phase op: the kernel by sender on CUDA tensors (at
-    wide rows the wide form and the d(h) reduce), the JAX package's route
-    on CPU tensors, as v5_backward's. dst_ptr, s_src: as v5_forward's;
-    src_order, src_ptr, transposed: as v5_backward's."""
+    d_cap) of the 2-phase op: the kernel by sender on CUDA tensors (the
+    wide form and the d(h) reduce where not by_sender_on_card), the JAX
+    package's route on CPU tensors, as v5_backward's. dst_ptr, s_src: as
+    v5_forward's; src_order, src_ptr, transposed: as v5_backward's."""
     if h.is_cuda:
         return _v5_backward_two_phase_cuda(
             h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,

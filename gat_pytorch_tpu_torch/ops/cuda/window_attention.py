@@ -130,8 +130,8 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.window_forward.argtypes = ([p] * 7 + [i] * 4 + [fl] + [p] * 6
                                        + plan + [i, i, p])
         lib.window_forward.restype = ctypes.c_int
-        lib.window_backward.argtypes = ([p] * 10 + [i] * 7 + [fl] * 2
-                                        + [p] * 12 + [i] * 6 + [p])
+        lib.window_backward.argtypes = ([p] * 11 + [i] * 9 + [fl] * 2
+                                        + [p] * 14 + [i] * 6 + [p])
         lib.window_backward.restype = ctypes.c_int
         _configured.add(name)
         if bf16_table:
@@ -362,24 +362,31 @@ def _window_backward_launch(name, h, a_src, s_src, s_dst, drop, layout,
     # senders' runs differ in length, and more blocks than fit at once
     # balance them
     nblk = max(1, min(-(-n_src // build.WARPS_PER_BLOCK), 8 * 132))
+    # the warps take items of the layout's sender runs, built once a layout
+    items = build.sender_items(layout.src_ptr,
+                               nblk * build.WARPS_PER_BLOCK, layout.src_ptr)
     d_h = torch.empty((n_src, d), **f32)
     d_drop = torch.empty((e7, nh), **f32) if need_drop else None
     d_sdst = torch.empty((n, nh), **f32)
     d_asrc = torch.empty((stride,), **f32)
     dsd = torch.empty((e7, nh), **f32)
-    dsum = torch.empty((n_src, nh), **f32)
+    dsum = torch.empty((items.n_items, nh), **f32)
     part = torch.empty((nblk, stride), **f32)
-    plan = row_plan(nh, d // nh, min(align_of(h), align_of(g)))
+    dh_part = (torch.empty((items.n_parts, d), **f32) if items.n_split
+               else None)
+    dden = torch.empty((n, nh), **f32) if mode != 1 else None
+    plan = row_plan(nh, d // nh, min(align_of(h), align_of(g)), three=True)
     p = build.ptr
     with torch.cuda.device(dev):
         err = _lib(rounding.table).window_backward(
             p(h), p(a_src), p(s_src), p(s_dst), p(drop), p(layout.recv),
             p(layout.src_perm), p(layout.src_ptr), p(layout.dst_perm),
-            p(layout.dst_ptr), n_src, n, e7, d, nh, d // nh, mode, slope,
+            p(layout.dst_ptr), p(items.table), items.n_items, items.n_split,
+            n_src, n, e7, d, nh, d // nh, mode, slope,
             eps, p(g), p(out) if mode != 1 else None, p(den),
             p(epsp) if mode == 0 else None, p(cap) if mode == 2 else None,
             p(d_h), p(d_drop), p(d_sdst), p(d_asrc), p(dsd), p(dsum),
-            p(part), *plan, nblk, rounding.flags(),
+            p(part), p(dh_part), p(dden), *plan, nblk, rounding.flags(),
             build.stream(dev))
     build.check(err, name)
     build.LAUNCHES[rounding.counter(name)] += 1

@@ -1,10 +1,12 @@
 """The v5 backward's wide form and the sorted segment sum with offsets,
 against the JAX package.
 
-Rows wider than 256 floats take the backward's wide form: d(a_src) is
-taken by sender from the per-edge d(raw) rows (v5_attention.
-dasrc_by_sender), on the CPU as on the card. The same numpy inputs, made
-from a seed, go through both packages, the JAX ops in interpret mode:
+Rows wider than 256 floats are wide: the CPU route takes d(a_src) by
+sender from the per-edge d(raw) rows (v5_attention.dasrc_by_sender), as
+the card does for a bfloat16 table's wide rows; the card runs a float32
+table's rows of every width by sender (by_sender_on_card). The same numpy
+inputs, made from a seed, go through both packages, the JAX ops in
+interpret mode:
   * the v5 op, its parts op and its 2-phase op (v5_local_cap,
     fused_gat_table) at widths 320 (2 x 160 and 4 x 80), with and without
     dropout, at eps 1e-8 and 1, on a real argmax tie, and with more
@@ -42,6 +44,8 @@ from gat_pytorch_tpu_torch.models import gat as tgat
 from gat_pytorch_tpu_torch.ops import segment as tseg
 from gat_pytorch_tpu_torch.ops.cuda import segment_sum as tss
 from gat_pytorch_tpu_torch.ops.cuda import v5_attention as tv5
+from gat_pytorch_tpu_torch.ops.cuda.rounding import FLOAT32, Rounding
+from gat_pytorch_tpu_torch.ops.cuda.window_attention import V6_BF16
 from gat_pytorch_tpu_torch.train.tasks import ppi_task as tppi_task
 from gat_pytorch_tpu_torch.utils.convert import params_from_jax
 
@@ -58,8 +62,18 @@ WIDE = [(2, 160), (4, 80)]
 
 
 def test_the_shapes_take_the_wide_form():
-    assert all(tv5.wide_form(nh * f) for nh, f in WIDE)
+    """The shapes are wide; on the card a float32 table runs them by
+    sender, in every rounding mode that keeps the table float32, and a
+    bfloat16 table (whose library has no wide plan by sender) the wide
+    form, which it leaves only at 256 floats or fewer."""
+    widths = [nh * f for nh, f in WIDE] + [726, 1024]
+    assert all(tv5.wide_form(d) for d in widths)
     assert not tv5.wide_form(256) and tv5.wide_form(726)
+    table = Rounding(table=True, acc=True)
+    for rnd in (FLOAT32, Rounding(acc=True), V6_BF16):
+        assert all(tv5.by_sender_on_card(d, rnd) for d in widths + [256])
+    assert not any(tv5.by_sender_on_card(d, table) for d in widths)
+    assert tv5.by_sender_on_card(256, table)
 
 
 # -- the v5 ops at wide rows ------------------------------------------------
