@@ -4,9 +4,11 @@ correctness check against the plain reference, and the result line.
 The entry the window drives is the port's training step,
 `Trainer.train_step` (forward with dropout, the task's loss, backward, the
 Adam step with L2), full batch, with the configuration's backend. Set-up,
-as `Trainer.fit_epochs` sets a fit up: the cell's graph is built by the
-port (`canonicalize`, in the graph's own order) and moved to the device,
-the benchmark's weights for the seed are handed to the port, the
+as `Trainer.fit_epochs` sets a fit up: the port's GATConfig takes its
+arguments from the configuration's model form (portbench/forms), the
+cell's graph is built by the port (`canonicalize`, in the graph's own
+order) and moved to the device, the benchmark's weights for the seed, in
+the form's layout, are handed to the port, the
 optimiser and the dropout generator are made from the seed. The same
 objects then take the first steps, whose readout the reference checks
 after the window, then run the window: steps back to back, nothing
@@ -91,16 +93,7 @@ def build_program(cell: Cell, data: traffic_mod.HostGraph, seed: int,
     phase("import")
     cfg = cell.config
     _set_knobs(cfg)
-    gcfg = gat.GATConfig(
-        num_input_node_features=cfg["num_input_node_features"],
-        num_layers=cfg["num_layers"],
-        num_heads_per_layer=list(cfg["num_heads_per_layer"]),
-        heads_concat_per_layer=list(cfg["heads_concat_per_layer"]),
-        head_output_features_per_layer=list(
-            cfg["head_output_features_per_layer"]),
-        num_classes=cfg["num_classes"],
-        add_skip_connection=list(cfg["add_skip_connection"]),
-        dropout=float(cfg["dropout"]))
+    gcfg = gat.GATConfig(**cell.form().port_args(cfg))
     task = {"planetoid": tasks.planetoid_task}[cfg["task"]]()
     trainer = Trainer(cfg=gcfg, task=task,
                       learning_rate=float(cfg["learning_rate"]),
@@ -226,8 +219,8 @@ def traced_steps(cell: Cell, prog: Program) -> Tuple[dict, dict]:
         "steps": n, "host_step_s": host_s,
         "window_s": rec.window_s, "busy_s": rec.busy_s,
         "kernels": rec.kernels, "launches": launches,
-        "counts": counts.Counts(cell.config, [prog.real_nodes] * n,
-                                [prog.real_edges] * n),
+        "counts": counts.Counts(cell.form(), cell.config,
+                                [prog.real_nodes] * n, [prog.real_edges] * n),
     }
     device = {"busy_s": rec.busy_s, "window_s": rec.window_s}
     return ctx, {"device": device, "breakdown": rec.breakdown()}

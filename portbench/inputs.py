@@ -2,11 +2,11 @@
 the model's weights and the seeds of the dropout stream. Plain torch; it
 imports nothing of the port, so the reference may use it too.
 
-The weights have the port's parameter layout (models/gat.py): per layer
-W (F_in, NH*F) and the cross-head attention map a (NH*2F, NH); per skip
-connection {} (an identity) or {"w": (in, out)}. They are drawn on the device in one call
-and scaled per leaf: xavier-uniform for W and a, torch Linear's bound for
-a skip projection.
+The weights have the port's parameter layout (models/gat.py), leaf by
+leaf as the configuration's model form gives it (portbench/forms: per
+layer W and the form's attention leaves; per skip connection {} (an
+identity) or {"w": (in, out)}). They are drawn on the device in one call,
+in the form's order, and scaled per leaf by the form's bound.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from portbench.spec import form_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,23 +58,11 @@ def torch_seed(seed: int, stream: int) -> int:
 WEIGHTS, DROPOUT = 0, 1      # streams
 
 
-def _leaf_shapes(config: dict):
-    shapes = []
-    for i, ld in enumerate(layer_dims(config)):
-        shapes.append((("layers", i, "W"), (ld.fin, ld.d),
-                       (6.0 / (ld.fin + ld.d)) ** 0.5))
-        shapes.append((("layers", i, "a"), (ld.d * 2, ld.nh),
-                       (6.0 / (ld.d * 2 + ld.nh)) ** 0.5))
-        if ld.skip == "project":
-            shapes.append((("skips", i, "w"), (ld.fin, ld.d),
-                           1.0 / ld.fin ** 0.5))
-    return shapes
-
-
 def make_weights(config: dict, seed: int, device) -> Dict[str, list]:
     """The weights of `config` for the run `seed`, float32 on `device`,
-    in the port's layout (a skip's entry only where the layer has one)."""
-    shapes = _leaf_shapes(config)
+    in the port's layout (a skip's entry only where the layer has one),
+    in the layout of the form it names (spec.form_of)."""
+    shapes = form_of(config).leaf_shapes(config)
     total = sum(int(np.prod(s)) for _, s, _ in shapes)
     gen = torch.Generator(device=device)
     gen.manual_seed(torch_seed(seed, WEIGHTS))

@@ -1,7 +1,8 @@
 """Finding a cell's files by name.
 
 A cell (`BENCHMARK.json` "workloads", and `workloads/<cell>.json`) names a
-configuration (`configs/<config>.json`) and a traffic mix
+configuration (`configs/<config>.json`, which names its model form,
+`forms/<form>.py`, "gat" where it names none) and a traffic mix
 (`traffic/<traffic>.json`, which names its generator,
 `traffic/<generator>.py`). Its metrics are the `BENCHMARK.json` entries that
 list it under "workloads", or that list no cells at all; each per-layer
@@ -22,6 +23,7 @@ from typing import List, Optional
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 BENCHMARK = REPO / "BENCHMARK.json"
+DEFAULT_FORM = "gat"
 
 
 def _json(path: Path) -> dict:
@@ -41,11 +43,30 @@ def load_module(path: Path) -> ModuleType:
     return module
 
 
+class Config(dict):
+    """A configuration as loaded (configs/<config>.json), and the data root
+    it was found under, where its form is found too."""
+
+    def __init__(self, values: dict, root: Path = HERE):
+        super().__init__(values)
+        self.root = Path(root)
+
+
+def form_of(config: dict) -> ModuleType:
+    """The model form module that `config` names: forms/<form>.py under
+    the data root a Config was found under, this folder for a plain
+    dict. The one lookup of a form, for the port's set-up and the
+    reference alike."""
+    root = getattr(config, "root", HERE)
+    return load_module(root / "forms"
+                       / f"{config.get('form', DEFAULT_FORM)}.py")
+
+
 @dataclasses.dataclass
 class Cell:
     name: str
     workload: dict          # workloads/<cell>.json
-    config: dict            # configs/<config>.json
+    config: Config          # configs/<config>.json
     traffic: dict           # traffic/<traffic>.json
     end_to_end: List[dict]  # BENCHMARK.json metrics this cell reports
     per_layer: List[dict]
@@ -59,6 +80,9 @@ class Cell:
     def limits(self) -> dict:
         """The limit of each number the correctness check compares."""
         return self.workload["limits"]
+
+    def form(self) -> ModuleType:
+        return form_of(self.config)
 
     def generator(self) -> ModuleType:
         return load_module(self.data_root / "traffic"
@@ -80,7 +104,8 @@ def load_cell(name: str, data_root: Optional[Path] = None,
     root = Path(data_root) if data_root is not None else HERE
     bench = _json(Path(benchmark) if benchmark is not None else BENCHMARK)
     workload = _json(root / "workloads" / f"{name}.json")
-    config = _json(root / "configs" / f"{workload['config']}.json")
+    config = Config(_json(root / "configs" / f"{workload['config']}.json"),
+                    root)
     traffic = _json(root / "traffic" / f"{workload['traffic']}.json")
     return Cell(name=name, workload=workload, config=config, traffic=traffic,
                 end_to_end=[m for m in bench["end_to_end"]

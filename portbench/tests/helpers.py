@@ -1,6 +1,7 @@
 """A small copy of the benchmark's data for the CPU tests: the cells'
-configurations, metrics and reference as they are, the traffic mixes at a
-reduced scale (the same generators and every other parameter)."""
+configurations, forms, metrics and reference as they are, the traffic
+mixes at a reduced scale (the same generators and every other
+parameter)."""
 
 import json
 import shutil
@@ -23,7 +24,8 @@ WORKLOADS = sorted(p.stem for p in (BENCH / "workloads").glob("*.json"))
 def small_root(tmp: Path) -> Path:
     """A data root under `tmp` with the traffic mixes at reduced scale."""
     root = tmp / "data"
-    for sub in ("configs", "workloads", "traffic", "metrics", "reference"):
+    for sub in ("configs", "forms", "workloads", "traffic", "metrics",
+                "reference"):
         shutil.copytree(BENCH / sub, root / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     for name, params in SMALL.items():

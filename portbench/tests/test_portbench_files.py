@@ -1,6 +1,7 @@
 """Every file BENCHMARK.json names loads by its name, and the file keeps
 to the benchmark's contract on names, units, bounds and links."""
 
+import json
 import re
 
 import pytest
@@ -40,6 +41,30 @@ def test_cell_loads_by_name(name):
     assert (BENCH / "reference" / f"{cell.config['reference']}.py").exists()
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
     assert cell.per_layer
+
+
+FORM_API = ("port_args", "leaf_shapes", "attention_forward",
+            "attention_backward", "outside_ops")
+
+
+def test_forms_are_found_and_used():
+    """Each configuration's form (forms/<form>.py, "gat" where it names
+    none) loads by its name and gives what set-up and counting take; each
+    form file is some configuration's."""
+    used = set()
+    for c in BENCH_JSON["configs"]:
+        config = json.loads((REPO / c["file"]).read_text())
+        name = config.get("form", spec.DEFAULT_FORM)
+        used.add(name)
+        form = spec.form_of(config)
+        for attr in FORM_API:
+            assert callable(getattr(form, attr)), (name, attr)
+        args = form.port_args(config)
+        for key in ("num_layers", "num_heads_per_layer",
+                    "head_output_features_per_layer", "num_classes"):
+            assert args[key] == config[key]
+    files = {p.stem for p in (BENCH / "forms").glob("*.py")} - {"__init__"}
+    assert files == used
 
 
 def test_configs_are_their_files_and_used():

@@ -1,5 +1,5 @@
 """Nothing the benchmark runs loads JAX or the JAX package, and the
-reference imports nothing of the port."""
+reference and the form modules import nothing of the port."""
 
 import ast
 import subprocess
@@ -34,7 +34,10 @@ def module_file(name):
 
 
 def test_reference_imports_nothing_of_the_port():
-    todo = list((BENCH / "reference").glob("*.py"))
+    """The reference, and the form modules it takes the weights' layout
+    from, with all they import of the benchmark."""
+    todo = (list((BENCH / "reference").glob("*.py"))
+            + list((BENCH / "forms").glob("*.py")))
     seen, tops = set(), set()
     while todo:
         path = todo.pop()

@@ -1,6 +1,7 @@
-"""The plain reference against the port's `backend="segment"` path (its
-plain torch segment ops) at a small size: the same weights and graph, the
-same dropout stream, the same logits, loss and gradients."""
+"""The plain references (each configuration's, in its model form) against
+the port's `backend="segment"` path (its plain torch segment ops) at a
+small size: the same weights and graph, the same dropout stream, the same
+logits, loss and gradients."""
 
 import json
 
@@ -30,16 +31,7 @@ def graph_of(name, seed):
 def port_side(cfg, graph, seed):
     from gat_pytorch_tpu_torch.models import gat
     from gat_pytorch_tpu_torch.train import tasks
-    gcfg = gat.GATConfig(
-        num_input_node_features=cfg["num_input_node_features"],
-        num_layers=cfg["num_layers"],
-        num_heads_per_layer=cfg["num_heads_per_layer"],
-        heads_concat_per_layer=cfg["heads_concat_per_layer"],
-        head_output_features_per_layer=cfg[
-            "head_output_features_per_layer"],
-        num_classes=cfg["num_classes"],
-        add_skip_connection=cfg["add_skip_connection"],
-        dropout=cfg["dropout"])
+    gcfg = gat.GATConfig(**spec.form_of(cfg).port_args(cfg))
     params = inputs.make_weights(cfg, seed, CPU)
     ps = inputs.leaves(params)
     for p in ps:
@@ -54,13 +46,14 @@ def port_side(cfg, graph, seed):
 
 
 def reference_side(cfg, b, seed):
+    ref = spec.load_module(BENCH / "reference" / f"{cfg['reference']}.py")
     params = inputs.make_weights(cfg, seed, CPU)
     ps = inputs.leaves(params)
     for p in ps:
         p.requires_grad_(True)
     (masks,) = list(R.masks(cfg, b, 1, inputs.torch_seed(
         seed, inputs.DROPOUT), CPU))
-    logits = R.forward(cfg, params, b, masks)
+    logits = ref.forward(cfg, params, b, masks)
     loss = R.loss(cfg, logits, b)
     return logits, loss, torch.autograd.grad(loss, ps)
 
@@ -75,10 +68,13 @@ def assert_close(port, ref, n):
 
 
 @pytest.mark.parametrize("seed", [1, 2 ** 31 + 9])
-@pytest.mark.parametrize("mix", ["arxiv_like", "arxiv_powerlaw"])
-def test_transductive_with_dropout(mix, seed):
+@pytest.mark.parametrize("mix,name", [
+    ("arxiv_like", "gat-transductive"),
+    ("arxiv_powerlaw", "gat-transductive"),
+    ("arxiv_like", "gat-paper-transductive")])
+def test_transductive_with_dropout(mix, name, seed):
     from gat_pytorch_tpu_torch.graph import transforms
-    cfg = config("gat-transductive")
+    cfg = config(name)
     g = graph_of(mix, seed)
     graph = transforms.canonicalize(
         g.x, g.senders, g.receivers, y=g.y, train_mask=g.train_mask,
