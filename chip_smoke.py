@@ -8,6 +8,10 @@
     python3 chip_smoke.py --hub-only       (phase 1, then the backward
                                             by sender on the hub graph)
 
+    python3 chip_smoke.py --gatv2-only     (--hub-only's, then the GATv2
+                                            op at its benchmark cell's
+                                            shapes)
+
 Six paths, three 2-phase forms and the bfloat16 modes, each at the full
 width and depth of its configuration on the synthetic stand-in of its
 dataset:
@@ -71,6 +75,10 @@ dataset:
           subgraphs of the train nodes (data/sampling.py, one bucket,
           the next epoch's built by the prefetch thread) on the v5 op, and
           the full graph's validation forward;
+  Cora gatv2 `cli.train --dataset Cora --gatv2`: GATv2's dynamic
+          attention on the GATv2 op (kernels gatv2_forward and
+          gatv2_backward: a pass by destination, a pass by sender, the
+          tail);
   and the edge-sharded path (Trainer.fit_sharded, the cut-neighbourhood
   layout) under a one-rank NCCL process group: Cora sharded, PPI
   paper_faithful sharded (also with the regulariser, two more sorted sums
@@ -95,9 +103,10 @@ Phases (every failure is fatal):
      (cuobjdump -res-usage; no instance of the wide v5 backward, rows over
      256 floats, of the v5, windowed, table and v2 forwards, of the
      source-score pass, of the window and v5 backwards by sender and
-     their tail, of the v2 backward or of the d(den) prologue may use any,
-     nor may the backwards by sender, their tail, the v2 kernels, the
-     table forward and the d(den) prologue spill: ptxas's report); build
+     their tail, of the v2 backward, of the d(den) prologue or of the
+     GATv2 op may use any, nor may the backwards by sender, their tail,
+     the v2 kernels, the table forward, the d(den) prologue and the GATv2
+     kernels spill: ptxas's report); build
      the native graphcore library (csrc/graphcore.cpp with $CXX or g++
      into build/graphcore/; a [build] line with its seconds), with which
      every graph below is built; and print the card's name and power
@@ -145,7 +154,14 @@ Phases (every failure is fatal):
      a graph whose node 0 sends 14,521 edges (check_hub_backward: its run
      cut into items) at 8 x 40 and 8 x 8 in every mode, against the split
      plain versions, launched twice, and timed (--hub-only: phase 1, this
-     check, then stop);
+     check, then stop); then the GATv2 op (check_gatv2) on the graph of
+     the benchmark's arxiv_powerlaw traffic as the port builds it
+     (169,344 rows, 2.5M edges, a run of 14,521 slots by destination and
+     by sender, the longest sender runs cut into items) at the
+     arxiv-powerlaw-gatv2 cell's 8 x 8 and 8 x 40, with and without the
+     attention mask, each output within 1e-5 of its plain version's
+     largest value, launched twice, and timed beside the warm plain
+     versions and the op's contract (--gatv2-only: stop after it);
      the 2-phase entries (cap pass, forward, backward with d(cap)) at
      the Cora, PPI and PATTERN shapes, on the RCM layout and on the
      cluster-ordered edge list, at the cap, above and below it, eps =
@@ -304,7 +320,16 @@ SHAPES = {"Cora": ((8, 8), (1, 7)),      # (heads, features) per layer
           "PATTERN": ((4, 12), (4, 24), (1, 1))}   # layer 3 is 4 x 12 again
 DROPOUT = 0.6
 SLOPE = 0.01
-PF_SLOPE = 0.2      # LeakyReLU slope under paper_faithful
+PF_SLOPE = 0.2      # LeakyReLU slope under paper_faithful and gatv2
+# the GATv2 op's check (check_gatv2): the benchmark cell whose graph it
+# runs on (its traffic drawn from GATV2_SEED), the cell's layer shapes, the
+# hub's slots (the largest in- and out-run of that traffic, self-loop in)
+# and the tolerance, a share of each output's largest value
+GATV2_CELL = "arxiv-powerlaw-gatv2"
+GATV2_SEED = 2147484301
+GATV2_SHAPES = ((8, 8), (8, 40))
+GATV2_HUB = 14_521
+GATV2_TOL = 1e-5
 # the fits of phase 3: name -> (dataset, config overrides, epochs, layer
 # path, layers); the first two are cut from up to 1000 epochs with early
 # stopping, PPI and PATTERN further, since an epoch there is 10 and 32
@@ -355,6 +380,8 @@ CELLS = {
     # train nodes, in one bucket, and the full graph's validation forward
     "Cora sampled": ("Cora", {"sampling_fanouts": "10,10",
                               "sampling_batch_size": 128}, 20, "v5", 2),
+    # GATv2's dynamic attention (cli: --gatv2) on the GATv2 op
+    "Cora gatv2": ("Cora", {"gatv2": True}, 20, "gatv2", 2),
 }
 # the environment each fit runs under, set and restored around it; the
 # float32 fits of the windowed op pin its contraction dtype (the JAX
@@ -480,9 +507,13 @@ PATH_KERNELS = {
                                       "segment_sum_sorted": 3 + 2}),
     # the oracle layer: plain torch, no kernel of this repository
     "naive": ((), {}),
+    # the GATv2 op: its forward, and its backward's three launches (the
+    # passes by destination and by sender, the tail) in one entry
+    "gatv2": (("gatv2_forward",), {"gatv2_backward": 1}),
 }
 REPRO_EPOCHS = {"PPI paper_faithful": 2, "Pubmed cluster": 5,
-                "Pubmed bf16": 5, "Cora attention": 5, "Cora sampled": 5}
+                "Pubmed bf16": 5, "Cora attention": 5, "Cora sampled": 5,
+                "Cora gatv2": 5}
 # fits held to the same bits with the prefetch thread and without it
 # (Trainer.prefetch): cells of multi-batch epochs
 PREFETCH_REPRO = {"Cora sampled": 5, "PPI paper_faithful": 3}
@@ -569,6 +600,9 @@ REPLACES = {
     # _kernel_v5_cap, _kernel_v5_bwd, _kernel_v6, _kernel_v6_bwd): one pass
     # over the h table an op call, read by every v5 and windowed kernel
     "source_scores": _PALLAS + "segment_attention.py:1265",
+    # GATv2's op: the JAX package has no GATv2 layer, so no TPU kernel
+    "gatv2_forward": "none",
+    "gatv2_backward": "none",
 }
 SOURCES = {
     "v5_forward": _CSRC + "v5_attention.cu",
@@ -593,13 +627,15 @@ SOURCES = {
     "v2_backward": _CSRC + "segment_attention.cu",
     "v5_dasrc": _CSRC + "v5_attention.cu",
     "source_scores": _CSRC + "attention_common.cuh",
+    "gatv2_forward": _CSRC + "gatv2_attention.cu",
+    "gatv2_backward": _CSRC + "gatv2_attention.cu",
 }
 # every bfloat16 mode of an entry: the same TPU kernel and source, its
 # launches counted apart (rounding.Rounding.counter)
 BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
                   if not k.startswith(("segment_sum", "window_cap",
                                        "v2_backward", "v5_dasrc",
-                                       "table_dden")))
+                                       "table_dden", "gatv2")))
 for _k in BF16_KEYS:
     REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
 BWD_NAMES = ("d_h", "d_drop", "d_s_dst", "d_a_src")
@@ -628,7 +664,7 @@ def fail(msg):
 # the wide v5 backward (rows over 256 floats), the forwards (the v5,
 # windowed, table and v2 ops'), the source-score pass, the backwards by
 # sender (the windowed op's and the v5 op's) with their tail, the v2
-# backward and the d(den) prologue
+# backward and the d(den) prologue, and the GATv2 op's kernels
 NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
             "v5_fwd_kernel": r"v5_fwd_kernel",
             "window_fwd_kernel": r"window_fwd_kernel",
@@ -639,13 +675,15 @@ NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
             "v5_bwd_sender_kernel": r"v5_bwd_sender_kernel",
             "bwd_tail_kernel": r"bwd_tail_kernel",
             "v2_bwd_kernel": r"v2_bwd_(wide_)?kernel",
-            "dden_kernel": r"\d+dden_(narrow_)?kernel"}
+            "dden_kernel": r"\d+dden_(narrow_)?kernel",
+            "gatv2_fwd_kernel": r"gatv2_fwd_kernel",
+            "gatv2_bwd_kernel": r"gatv2_bwd_(dst|src)_kernel"}
 # of those, the kernels whose registers must not spill either (ptxas's
 # spill stores and loads, which cuobjdump's LOCAL does not count: they go
 # to the stack frame)
 NO_SPILL = ("window_bwd_kernel", "v5_bwd_sender_kernel", "bwd_tail_kernel",
             "v2_bwd_kernel", "dden_kernel", "v2_fwd_kernel",
-            "table_fwd_kernel")
+            "table_fwd_kernel", "gatv2_fwd_kernel", "gatv2_bwd_kernel")
 
 
 def check_resource_usage(build):
@@ -700,17 +738,17 @@ def max_err(got, want, floor=1.0):
             max(floor, float(want.abs().max())))
 
 
-def hold(name, got, want, errs, floor=1.0):
-    """Fail unless got is within REL_TOL x max(floor, max |want|) of want.
+def hold(name, got, want, errs, floor=1.0, tol=REL_TOL):
+    """Fail unless got is within tol x max(floor, max |want|) of want.
     floor=0 holds an output at its own magnitude, which must be non-zero
     for the check to mean anything."""
     err, scale = max_err(got, want, floor)
     print(f"  {name}: max_abs_err {err:.3e} (scale {scale:.3e})")
     if not scale > 0.0:
         fail(f"{name}: the plain version is all zeros, nothing to hold")
-    if not err <= REL_TOL * scale:
+    if not err <= tol * scale:
         fail(f"{name} differs from its plain version: {err} > "
-             f"{REL_TOL} x {scale}")
+             f"{tol} x {scale}")
     errs.append(err)
 
 
@@ -1316,10 +1354,10 @@ def main():
     gen.manual_seed(0)
     errs = {k: [] for k in REPLACES}
 
-    def hold_all(prefix, names, got, want, key, floor=1.0):
+    def hold_all(prefix, names, got, want, key, floor=1.0, tol=REL_TOL):
         torch.cuda.synchronize()
         for nm, x, y in zip(names, got, want):
-            hold(f"{prefix} {nm}", x, y, errs[key], floor)
+            hold(f"{prefix} {nm}", x, y, errs[key], floor, tol)
 
     def same_bits(name, first, second):
         """The kernels sum in a fixed order and use no atomics: a second
@@ -1737,6 +1775,127 @@ def main():
     if "--hub-only" in sys.argv[1:]:
         print("chip_smoke: --hub-only: built, the backward by sender held "
               f"and timed on the hub graph: {hub_times}")
+        return 0
+
+    # -- the GATv2 op at the arxiv-powerlaw-gatv2 cell's shapes -----------
+    def check_gatv2():
+        """The GATv2 op's kernels (gatv2_forward; gatv2_backward: the pass
+        by destination, the pass by sender over build.sender_items, the
+        tail) on the graph of the benchmark's arxiv_powerlaw traffic
+        (GATV2_SEED) as the port builds it, at GATV2_SHAPES, with and
+        without the attention mask, as the main path calls them (the
+        Graph's offsets and sender runs): each output within GATV2_TOL of
+        the plain version's largest value, the same bits on a second
+        launch, a destination without a real edge a zero row. Timed with
+        the mask (the cell's training step): the kernel calls (CUDA-graph
+        replay), the plain versions warm (eager), and the bound of the op's
+        contract (portbench/counts/gatv2.py). Returns {entry: {ms,
+        plain_ms, bound_ms, bytes, ops}}, both shapes summed."""
+        from gat_pytorch_tpu_torch.graph import transforms as TT
+        from gat_pytorch_tpu_torch.ops.cuda import gatv2_attention as g2
+        from portbench import spec as pb_spec
+        from portbench import traffic as pb_traffic
+        from portbench.counts import gatv2 as gatv2_counts
+        cell = pb_spec.load_cell(GATV2_CELL)
+        data = pb_traffic.make(cell.traffic, cell.generator(), GATV2_SEED)
+        graph = TT.canonicalize(
+            np.zeros((data.x.shape[0], 1), np.float32), data.senders,
+            data.receivers).to(dev)
+        n_g, er = graph.num_nodes, graph.num_real_edges
+        n_real = int(graph.node_mask.sum())
+        snd_g, rcv_g = graph.senders, graph.receivers
+        ptrs = dict(dst_ptr=graph.dst_ptr, src_order=graph.src_order,
+                    src_ptr=graph.src_ptr)
+        in_deg = torch.diff(torch.clamp(graph.dst_ptr.long(), max=er))
+        out_deg = torch.diff(graph.src_ptr.long())
+        items = build.sender_items(graph.src_ptr, g2.SENDER_BLOCKS)
+        print(f"[graph] {GATV2_CELL} seed {GATV2_SEED}: {n_g} nodes "
+              f"(padded; {n_real} real), {graph.num_edges} edges, {er} "
+              f"real; largest run by destination {int(in_deg.max())}, by "
+              f"sender {int(out_deg.max())}; the pass by sender's items "
+              f"of at most L = {items.limit} slots: {items.n_items} items, "
+              f"{items.n_split} runs cut into {items.n_parts}, "
+              f"{items.split_slots} of {items.slots} slots in cut runs")
+        if int(in_deg.max()) < GATV2_HUB or int(out_deg.max()) < GATV2_HUB \
+                or not items.n_split:
+            fail(f"{GATV2_CELL}: no hub of {GATV2_HUB} slots, or no run cut")
+        empty = torch.nonzero(in_deg == 0).flatten()
+        timed = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0,
+                         ops=0.0) for k in ("gatv2_forward",
+                                            "gatv2_backward")}
+
+        for nh, f in GATV2_SHAPES:
+            d = nh * f
+            xl = torch.randn((n_g, d), generator=gen, device=dev)
+            xr = torch.randn((n_g, d), generator=gen, device=dev)
+            a = torch.randn((nh, f), generator=gen, device=dev) / f ** 0.5
+            g = torch.randn((n_g, d), generator=gen, device=dev)
+            mask = ((torch.rand((graph.num_edges, nh), generator=gen,
+                                device=dev) >= DROPOUT).float()
+                    / (1.0 - DROPOUT))
+            for drop in (mask, None):
+                tag = (f"gatv2 {nh}x{f} {GATV2_CELL} "
+                       f"{'with' if drop is not None else 'without'} the "
+                       f"attention mask")
+                args = (xl, xr, a, drop, snd_g, rcv_g)
+                got = g2.gatv2_forward(*args, n_g, er, PF_SLOPE,
+                                       dst_ptr=graph.dst_ptr)
+                want = g2.gatv2_forward_plain(*args, n_g, er, PF_SLOPE)
+                hold_all(tag + " forward", ("out", "max", "den"), got, want,
+                         "gatv2_forward", floor=0.0, tol=GATV2_TOL)
+                same_bits(tag + " forward", got, g2.gatv2_forward(
+                    *args, n_g, er, PF_SLOPE, dst_ptr=graph.dst_ptr))
+                if len(empty) and bool(got[0][empty].any()):
+                    fail(f"{tag}: a row without a real edge is not zero")
+                out, mx, den = want
+                bwd = args + (er, PF_SLOPE, g, out, mx, den)
+                got_b = g2.gatv2_backward(*bwd, **ptrs)
+                want_b = g2.gatv2_backward_plain(*bwd)
+                hold_all(tag + " backward", ("d_xl", "d_xr", "d_a"), got_b,
+                         want_b, "gatv2_backward", floor=0.0, tol=GATV2_TOL)
+                same_bits(tag + " backward", got_b,
+                          g2.gatv2_backward(*bwd, **ptrs))
+                del got, want, got_b, want_b
+                if drop is None:
+                    continue
+                runs = {
+                    "gatv2_forward": (
+                        lambda: g2.gatv2_forward(*args, n_g, er, PF_SLOPE,
+                                                 dst_ptr=graph.dst_ptr),
+                        lambda: g2.gatv2_forward_plain(*args, n_g, er,
+                                                       PF_SLOPE),
+                        gatv2_counts.forward(n_real, er, nh, f, True)),
+                    "gatv2_backward": (
+                        lambda: g2.gatv2_backward(*bwd, **ptrs),
+                        lambda: g2.gatv2_backward_plain(*bwd),
+                        gatv2_counts.backward(n_real, er, nh, f, True))}
+                for k, (kern, plain, (ops, nbytes)) in runs.items():
+                    km = time_ms(torch, kern)
+                    # the plain versions eagerly (a CUDA graph would hold
+                    # their allocations of some GB): one call, then three
+                    pm = step_time_ms(torch, plain, iters=3, warmup=1)
+                    bm, by = bound_ms(nbytes, ops)
+                    print(f"[timing] {k} {nh}x{f} on the {GATV2_CELL} "
+                          f"graph: kernel_ms {km:.4f} plain_ms {pm:.4f} "
+                          f"(warm) bound_ms {bm:.5f} ({by}), "
+                          f"{km / bm:.1f}x")
+                    t = timed[k]
+                    t["ms"] += km
+                    t["plain_ms"] += pm
+                    t["bound_ms"] += bm
+                    t["bytes"] += nbytes
+                    t["ops"] += ops
+                torch.cuda.empty_cache()
+        print(f"[kernels] gatv2_forward, gatv2_backward on the {GATV2_CELL} "
+              f"graph at {', '.join(f'{a}x{b}' for a, b in GATV2_SHAPES)}, "
+              f"with and without the mask: within {GATV2_TOL} of the plain "
+              f"versions' largest values, the same bits on two launches")
+        return timed
+
+    gatv2_times = check_gatv2()
+    if "--gatv2-only" in sys.argv[1:]:
+        print("chip_smoke: --gatv2-only: built, the GATv2 op held and "
+              f"timed at the {GATV2_CELL} cell's shapes: {gatv2_times}")
         return 0
 
     cora_raw = datasets.load_planetoid("Cora", synthetic_override=True,
@@ -3714,6 +3873,9 @@ def main():
     # -- 5. timings ---------------------------------------------------------
     timing = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                       bytes=0, ops=0) for k in REPLACES}
+    # the GATv2 entries: check_gatv2's times at the benchmark cell's graph
+    for k, t in gatv2_times.items():
+        timing[k].update(t)
 
     def time_rows(label, rows, into_json):
         """Time each row's kernel, plain version and library call;
@@ -4553,7 +4715,8 @@ def main():
               f"2-phase entries Cora's, the window 2-phase "
               f"entries Pubmed's, each bfloat16 mode its entry's, "
               f"segment_sum_rows_t Cora's, the v2 entries PPI's in the "
-              f"partial mode); launches {launches[k]} over the "
+              f"partial mode, the gatv2 entries the {GATV2_CELL} graph's "
+              f"at its layer shapes); launches {launches[k]} over the "
               f"{len(per_epoch)} fits and phase 4e's forwards (per epoch: "
               f"{per})")
         kernels.append({

@@ -32,7 +32,8 @@ block layout, which puts the kernel path on the windowed attention op;
 `--reorder cluster` relabels them by community and builds the hybrid
 split-locality layout, whose in-window edges take the windowed parts op
 and whose remainder the v5 parts op;
-`--paper_faithful` and `--const_attention` put it on the table op. PPI and
+`--paper_faithful` and `--const_attention` put it on the table op, and
+`--gatv2` (GATv2's dynamic attention) on the GATv2 op. PPI and
 PATTERN train on reshuffled block-diagonal batches of whole graphs.
 `--sampling_fanouts 10,10 --sampling_batch_size 128` (Planetoid) trains on
 neighbour-sampled subgraphs around minibatches of the train nodes
@@ -71,6 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention_penalty", type=float)
     p.add_argument("--const_attention", action="store_true", default=None)
     p.add_argument("--paper_faithful", action="store_true", default=None)
+    p.add_argument("--gatv2", action="store_true", default=None,
+                   help="GATv2's dynamic attention (arXiv:2105.14491)")
     p.add_argument("--batch_size", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--device", default=None,

@@ -5,7 +5,8 @@ layout so the two packages compute the same function from the same
 numbers (utils/convert.py carries JAX parameters over):
   W: (F_in, NH*F_out), right-multiplied;
   a: (NH*2F, NH), the reference's cross-head attention map
-     (or (NH, 2F) per head with paper_faithful);
+     (or (NH, 2F) per head with paper_faithful; (NH, F) with gatv2);
+  W_r: (F_in, NH*F), GATv2's destination-side transform (gatv2 only);
   bias: (NH*F,) when enabled; skips: {} (identity) or {"w": (in, out)}.
 
 Reference quirks kept (paper_faithful=False, the default): cross-head
@@ -49,6 +50,17 @@ Three layer paths, chosen by `backend`:
             backend "naive", which --layer_type naive selects): a second
             transcription of the layer that shares none of this module's
             code; single device only.
+
+gatv2 (GATv2's dynamic attention, Brody, Alon and Yahav, ICLR 2022,
+arXiv:2105.14491; PyG's GATv2Conv with share_weights=False and no bias):
+W is the sender-side and message transform W_l, W_r the destination-side
+one, a (NH, F) per head, LeakyReLU 0.2 inside the dot with a, a softmax
+over each destination's edges (its maximum subtracted, no epsilon) and
+attention dropout after it. The kernel path takes the GATv2 op
+(ops/cuda/gatv2_attention.py, PATH_TRACE "gatv2"), the segment path the
+same layer in plain torch. Its naive, edge-sharded and dst-owned layers,
+block layouts, the 2-phase knobs and the bfloat16 tables have no
+counterpart and raise ValueError.
 
 return_attention: every path also returns the layer's attention
 coefficients alpha, (E, NH) over the graph's dst-sorted edges (never over
@@ -123,6 +135,7 @@ import torch.nn.functional as F
 from ..graph.graph import BlockLayout, Graph
 from ..ops import collectives as C
 from ..ops import segment as seg
+from ..ops.cuda import gatv2_attention as g2
 from ..ops.cuda import segment_attention as v2
 from ..ops.cuda import table_attention as v4
 from ..ops.cuda import v5_attention as v5
@@ -214,13 +227,14 @@ class GATLayerConfig:
     bias: bool = False
     const_attention: bool = False
     paper_faithful: bool = False
-    negative_slope: Optional[float] = None  # default depends on faithfulness
+    gatv2: bool = False
+    negative_slope: Optional[float] = None  # default depends on the form
 
     @property
     def slope(self) -> float:
         if self.negative_slope is not None:
             return self.negative_slope
-        return 0.2 if self.paper_faithful else 0.01
+        return 0.2 if self.paper_faithful or self.gatv2 else 0.01
 
 
 def _xavier_uniform(gen: torch.Generator, shape, fan_in: int, fan_out: int,
@@ -235,7 +249,13 @@ def init_gat_layer(gen: torch.Generator, cfg: GATLayerConfig,
     nh, f = cfg.num_heads, cfg.out_features
     params = {"W": _xavier_uniform(gen, (cfg.in_features, nh * f),
                                    cfg.in_features, nh * f, device)}
-    if not cfg.const_attention:
+    if cfg.gatv2:
+        # the destination-side transform, and a per head with the bound of
+        # PyG's glorot on its (1, NH, F) att
+        params["W_r"] = _xavier_uniform(gen, (cfg.in_features, nh * f),
+                                        cfg.in_features, nh * f, device)
+        params["a"] = _xavier_uniform(gen, (nh, f), f, nh, device)
+    elif not cfg.const_attention:
         if cfg.paper_faithful:
             params["a"] = _xavier_uniform(gen, (nh, 2 * f), 2 * f, 1, device)
         else:
@@ -545,6 +565,64 @@ def _dst_owned_layer(params, cfg: GATLayerConfig, x, senders, receivers,
     return finish(out.reshape(rows, nh * f), alpha)
 
 
+def _gatv2_layer(params, cfg: GATLayerConfig, x, h_flat, senders, receivers,
+                 edge_mask, num_nodes: int, *, num_real_edges, src_order,
+                 src_ptr, dst_ptr, block_layout, generator, training: bool,
+                 backend: str, gemm_dtype, return_attention: bool):
+    """The GATv2 layer (module doc): h_flat = x @ W is the sender side,
+    x @ W_r the destination side. The attention mask is drawn as the v5
+    branch draws it, (E, NH) over the dst-sorted edges."""
+    nh, f = cfg.num_heads, cfg.out_features
+    kernel = backend == "kernel"
+    if kernel:
+        v5_two, v7_two = two_phase_modes()
+        r = v5.v5_rounding()
+        unsupported = [name for name, on in (
+            ("a block layout", block_layout is not None),
+            ("the 2-phase knobs GAT_TPU_V10=0 / GAT_TPU_V5_MERGED=0",
+             v5_two or v7_two),
+            ("a bfloat16 table (GAT_TPU_KERNEL_DTYPE / GAT_TPU_H_DTYPE)",
+             r.table or r.acc)) if on]
+        if unsupported:
+            raise ValueError(f"gatv2 on the kernel path has no form for "
+                             f"{' or '.join(unsupported)}")
+    xr = bf16_product(x, params["W_r"], gemm_dtype)
+    e = senders.shape[0]
+    drop = (_attention_dropout((e, nh), cfg.dropout, generator, x.device)
+            if training and cfg.dropout > 0.0 else None)
+
+    def finish(out, alpha):
+        out = _head_combine(out, cfg, num_nodes, params)
+        return (out, alpha) if return_attention else out
+
+    def softmax():
+        """alpha in plain torch from gathered rows: the segment path's,
+        and return_attention's on the kernel path (eval, vis)."""
+        z = (seg.gather_rows(h_flat.reshape(-1, nh, f), senders)
+             + seg.gather_rows(xr.reshape(-1, nh, f), receivers))
+        logits = (F.leaky_relu(z, cfg.slope) * params["a"]).sum(-1)
+        return seg.segment_softmax(logits, receivers, num_nodes,
+                                   edge_mask=edge_mask, eps=0.0,
+                                   subtract_segment_max=True)
+
+    if kernel:
+        PATH_TRACE.append("gatv2")
+        e_real = (int(edge_mask.sum()) if num_real_edges is None
+                  else num_real_edges)
+        out = g2.gatv2_attention(h_flat, xr, params["a"], drop, senders,
+                                 receivers, num_nodes, cfg.slope, e_real,
+                                 src_order=src_order, src_ptr=src_ptr,
+                                 dst_ptr=dst_ptr)
+        return finish(out, softmax() if return_attention else None)
+    PATH_TRACE.append("segment")
+    alpha = softmax()
+    weights = alpha if drop is None else alpha * drop
+    out = seg.segment_sum(
+        seg.gather_rows(h_flat.reshape(num_nodes, nh, f), senders)
+        * weights[:, :, None], receivers, num_nodes)
+    return finish(out, alpha)
+
+
 def _node_transform(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
                     edge_axis, num_nodes: int) -> torch.Tensor:
     """h = x @ W (bf16_product). Under an edge axis whose size divides
@@ -600,6 +678,11 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     backend "naive" takes none of these but the generator."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
+    if cfg.gatv2 and (backend == "naive" or edge_axis is not None
+                      or dst_owned):
+        raise ValueError("gatv2 has no naive, edge-sharded or dst-owned "
+                         "layer: backend 'kernel' or 'segment' on one "
+                         "device")
     if backend == "naive":
         if edge_axis is not None:
             raise ValueError("backend 'naive' is the single-device oracle "
@@ -626,6 +709,13 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
     # (utils/device.resolve_device turns TF32 off) or from bfloat16
     # operands
     h_flat = _node_transform(x, params["W"], gdt, ax, num_nodes)
+    if cfg.gatv2:
+        return _gatv2_layer(
+            params, cfg, x, h_flat, senders, receivers, edge_mask, num_nodes,
+            num_real_edges=num_real_edges, src_order=src_order,
+            src_ptr=src_ptr, dst_ptr=dst_ptr, block_layout=block_layout,
+            generator=generator, training=training, backend=backend,
+            gemm_dtype=gdt, return_attention=return_attention)
     dropping = training and cfg.dropout > 0.0
     given_logits = cfg.paper_faithful or cfg.const_attention
 
@@ -830,10 +920,14 @@ class GATConfig:
     dropout: float = 0.0
     const_attention: bool = False
     paper_faithful: bool = False
+    gatv2: bool = False
 
     def validate(self) -> None:
         """Shape-consistency checks; raises ValueError."""
         nl = self.num_layers
+        if self.gatv2 and (self.paper_faithful or self.const_attention):
+            raise ValueError("gatv2 is its own attention form: not with "
+                             "paper_faithful or const_attention")
         if len(self.num_heads_per_layer) != nl:
             raise ValueError(
                 f"num_heads_per_layer has {len(self.num_heads_per_layer)} "
@@ -876,7 +970,7 @@ class GATConfig:
             concat=self.heads_concat_per_layer[i],
             dropout=self.dropout, bias=False,
             const_attention=self.const_attention,
-            paper_faithful=self.paper_faithful)
+            paper_faithful=self.paper_faithful, gatv2=self.gatv2)
             for i in range(self.num_layers)]
 
     def skip_dims(self) -> List[Optional[Tuple[int, int]]]:
@@ -896,8 +990,8 @@ class GATConfig:
 
 def init_gat_model(cfg: GATConfig, *, seed: int = 0,
                    device="cuda") -> Params:
-    """Random parameters from `seed` (xavier for W and a, torch Linear's
-    default for skip projections), requiring grad, on `device`."""
+    """Random parameters from `seed` (xavier for W, W_r and a, torch
+    Linear's default for skip projections), requiring grad, on `device`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

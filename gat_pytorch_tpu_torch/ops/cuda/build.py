@@ -38,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("v5_attention", "segment_sum", "window_attention",
-           "table_attention", "segment_attention")
+           "table_attention", "segment_attention", "gatv2_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the sources built again for a bfloat16 h table, and the libraries
@@ -52,6 +52,7 @@ LIBRARIES = SOURCES + tuple(s + _BF16_TABLE for s in TABLE_SOURCES)
 # (rounding.Rounding.counter); the cap passes, v5_dasrc and table_dden
 # have no such mode, and of the v2 entries only the forward has one. The
 # source-score pass counts a bfloat16 table apart ("source_scores_bf16").
+# The GATv2 op's entries (gatv2_forward, gatv2_backward) are float32 only.
 _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
             "table_forward", "table_backward", "v5_backward_parts",
             "window_backward_parts", "v5_cap", "v5_forward_two_phase",
@@ -61,7 +62,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
     _ENTRIES + ("segment_sum_rows", "segment_sum_sorted", "window_cap",
                 "segment_sum_rows_t", "v2_forward", "v2_backward",
                 "v2_forward_bf16", "v5_dasrc", "table_dden",
-                "source_scores", "source_scores_bf16")
+                "source_scores", "source_scores_bf16", "gatv2_forward",
+                "gatv2_backward")
     + tuple(k + "_bf16" for k in _ENTRIES), 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -361,10 +363,26 @@ def _build_items(src_ptr: torch.Tensor, warps: int) -> SenderItems:
                        slots, int(lens[cut].sum()))
 
 
-# the tables of the callers' runs: (id(owner), warps, *key) -> (a weak
-# reference to the owner, its table), dropped with the owner. A graph's
+# what is derived from the callers' graphs: (id(owner), *key) -> (a weak
+# reference to the owner, the value), dropped with the owner. A graph's
 # arrays are never written after it is built.
 _ITEMS: Dict[tuple, tuple] = {}
+
+
+def kept(owner: Optional[torch.Tensor], key: tuple, make):
+    """make(), kept while `owner` lives under `key` and handed back by
+    later calls with the same owner and key; made anew where owner is
+    None."""
+    if owner is None:
+        return make()
+    k = (id(owner),) + tuple(key)
+    held = _ITEMS.get(k)
+    if held is not None and held[0]() is owner:
+        return held[1]
+    value = make()
+    weakref.finalize(owner, _ITEMS.pop, k, None)
+    _ITEMS[k] = (weakref.ref(owner), value)
+    return value
 
 
 def sender_items(src_ptr: torch.Tensor, warps: int,
@@ -375,19 +393,11 @@ def sender_items(src_ptr: torch.Tensor, warps: int,
     contents, with `key`, fix the runs: the caller's src_ptr, or the
     senders they were derived from (key: e_real and the senders' count).
     Its table is built on the first call, a copy of the offsets to the
-    host, and kept while the owner lives, so that later calls copy nothing
-    (and can be captured in a CUDA graph); with no owner it is built for
-    this call."""
-    if owner is None:
-        return _build_items(src_ptr, warps)
-    k = (id(owner), warps) + tuple(key)
-    held = _ITEMS.get(k)
-    if held is not None and held[0]() is owner:
-        return held[1]
-    items = _build_items(src_ptr, warps)
-    weakref.finalize(owner, _ITEMS.pop, k, None)
-    _ITEMS[k] = (weakref.ref(owner), items)
-    return items
+    host, and kept while the owner lives (`kept`), so that later calls
+    copy nothing (and can be captured in a CUDA graph); with no owner it
+    is built for this call."""
+    return kept(owner, (warps,) + tuple(key),
+                lambda: _build_items(src_ptr, warps))
 
 
 def ptr(t) -> Optional[int]:

@@ -29,6 +29,7 @@ class RunConfig:
     num_epochs: int
     const_attention: bool = False
     paper_faithful: bool = False
+    gatv2: bool = False                   # GATv2's dynamic attention
     attention_reward: float = 0.0
     attention_penalty: float = 0.0
     patience: int = 100
@@ -62,7 +63,7 @@ class RunConfig:
             add_skip_connection=list(self.add_skip_connection),
             dropout=self.dropout,
             const_attention=self.const_attention,
-            paper_faithful=self.paper_faithful)
+            paper_faithful=self.paper_faithful, gatv2=self.gatv2)
 
 
 # the reference's values (run_config.py:17-98 of the reference)
