@@ -12,6 +12,10 @@
                                             op at its benchmark cell's
                                             shapes)
 
+    python3 chip_smoke.py --paper-logits-only  (phase 1, then the paper
+                                            form's logits op at its
+                                            benchmark cell's shapes)
+
 Six paths, three 2-phase forms and the bfloat16 modes, each at the full
 width and depth of its configuration on the synthetic stand-in of its
 dataset:
@@ -162,6 +166,12 @@ Phases (every failure is fatal):
      attention mask, each output within 1e-5 of its plain version's
      largest value, launched twice, and timed beside the warm plain
      versions and the op's contract (--gatv2-only: stop after it);
+     then the paper form's logits op (check_paper_logits) on the graph
+     of the benchmark's arxiv_like traffic at the arxiv-full-paper
+     cell's 8 x 8 and 8 x 40: its logits and the gradients into the two
+     score tables the bits of the torch chain it replaced, on two
+     launches, timed beside the chain and the bytes bound
+     (--paper-logits-only: phase 1, this check, then stop);
      the 2-phase entries (cap pass, forward, backward with d(cap)) at
      the Cora, PPI and PATTERN shapes, on the RCM layout and on the
      cluster-ordered edge list, at the cap, above and below it, eps =
@@ -330,6 +340,12 @@ GATV2_SEED = 2147484301
 GATV2_SHAPES = ((8, 8), (8, 40))
 GATV2_HUB = 14_521
 GATV2_TOL = 1e-5
+# the paper form's logits op's check (check_paper_logits): the benchmark
+# cell whose graph it runs on (its traffic drawn from PAPER_SEED) and the
+# cell's layer shapes
+PAPER_CELL = "arxiv-full-paper"
+PAPER_SEED = 2147484401
+PAPER_SHAPES = ((8, 8), (8, 40))
 # the fits of phase 3: name -> (dataset, config overrides, epochs, layer
 # path, layers); the first two are cut from up to 1000 epochs with early
 # stopping, PPI and PATTERN further, since an epoch there is 10 and 32
@@ -420,7 +436,9 @@ BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
 # ops where their kernels read the same h table, else one each. The
 # table path's two sorted sums are the gradients of its logits' score
 # gathers (by sender and by receiver), which every model on that path
-# here has.
+# here has. Under paper_faithful (every table fit here) the logits are
+# one op, its forward and its backward launched once a layer; those two
+# sums are its backward's.
 PATH_KERNELS = {
     # the backward sums d(h) by sender itself at every width of a float32
     # table (PPI's too); only a bfloat16 table's rows over 256 floats,
@@ -429,9 +447,9 @@ PATH_KERNELS = {
     # the window backward sums d(h) by sender itself: no segment_sum_rows
     "v7": (("source_scores", "window_forward"), {"window_backward": 1}),
     # the table backward sums d(h) by sender itself: no segment_sum_rows
-    "v4_table": (("table_forward",),
-                 {"table_dden": 1, "table_backward": 1,
-                  "segment_sum_sorted": 2}),
+    "v4_table": (("paper_logits_forward", "table_forward"),
+                 {"paper_logits_backward": 1, "table_dden": 1,
+                  "table_backward": 1, "segment_sum_sorted": 2}),
     # the remainder's backward sums its d(h) by sender too
     "v7_hybrid": (("source_scores", "window_forward", "v5_forward"),
                   {"window_backward_parts": 1, "v5_backward_parts": 1}),
@@ -458,9 +476,10 @@ PATH_KERNELS = {
     # knob (the feature-major reduce runs only after the wide form)
     "v5 bf16": (("source_scores_bf16", "v5_forward_bf16"),
                 {"v5_backward_bf16": 1}),
-    "v4_table bf16": (("table_forward_bf16",),
-                      {"table_dden": 1, "table_backward_bf16": 1,
-                       "segment_sum_sorted": 2}),
+    # the logits op is float32 in every mode
+    "v4_table bf16": (("paper_logits_forward", "table_forward_bf16"),
+                      {"paper_logits_backward": 1, "table_dden": 1,
+                       "table_backward_bf16": 1, "segment_sum_sorted": 2}),
     "v5 2-phase bf16": (("source_scores_bf16", "v5_cap_bf16",
                          "v5_forward_two_phase_bf16"),
                         {"v5_backward_two_phase_bf16": 1}),
@@ -494,14 +513,17 @@ PATH_KERNELS = {
     # alpha's denominator and the backwards of its three sorted-gradient
     # gathers (the two score gathers and the denominator's); a table or
     # sharded layer two, the denominator's sum and gather, since alpha
-    # shares the layer's logits and their score gathers
+    # shares the layer's logits and their score gathers; a paper_faithful
+    # table layer two more, as alpha takes its logits from the score
+    # gathers (the logits op's are past the max)
     "v5 attention": (("source_scores", "v5_forward"),
                      {"v5_backward": 1, "segment_sum_sorted": 4}),
     "v7 attention": (("source_scores", "window_forward"),
                      {"window_backward": 1, "segment_sum_sorted": 4}),
-    "v4_table attention": (("table_forward",),
-                           {"table_dden": 1, "table_backward": 1,
-                            "segment_sum_sorted": 2 + 2}),
+    "v4_table attention": (("paper_logits_forward", "table_forward"),
+                           {"paper_logits_backward": 1, "table_dden": 1,
+                            "table_backward": 1,
+                            "segment_sum_sorted": 2 + 2 + 2}),
     "sharded_v4_partial attention": (("v2_forward",),
                                      {"v2_backward": 1,
                                       "segment_sum_sorted": 3 + 2}),
@@ -603,6 +625,9 @@ REPLACES = {
     # GATv2's op: the JAX package has no GATv2 layer, so no TPU kernel
     "gatv2_forward": "none",
     "gatv2_backward": "none",
+    # the paper form's logits: the JAX package forms them in XLA
+    "paper_logits_forward": "none",
+    "paper_logits_backward": "none",
 }
 SOURCES = {
     "v5_forward": _CSRC + "v5_attention.cu",
@@ -629,13 +654,16 @@ SOURCES = {
     "source_scores": _CSRC + "attention_common.cuh",
     "gatv2_forward": _CSRC + "gatv2_attention.cu",
     "gatv2_backward": _CSRC + "gatv2_attention.cu",
+    "paper_logits_forward": _CSRC + "paper_logits.cu",
+    "paper_logits_backward": _CSRC + "paper_logits.cu",
 }
 # every bfloat16 mode of an entry: the same TPU kernel and source, its
 # launches counted apart (rounding.Rounding.counter)
 BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
                   if not k.startswith(("segment_sum", "window_cap",
                                        "v2_backward", "v5_dasrc",
-                                       "table_dden", "gatv2")))
+                                       "table_dden", "gatv2",
+                                       "paper_logits")))
 for _k in BF16_KEYS:
     REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
 BWD_NAMES = ("d_h", "d_drop", "d_s_dst", "d_a_src")
@@ -664,7 +692,8 @@ def fail(msg):
 # the wide v5 backward (rows over 256 floats), the forwards (the v5,
 # windowed, table and v2 ops'), the source-score pass, the backwards by
 # sender (the windowed op's and the v5 op's) with their tail, the v2
-# backward and the d(den) prologue, and the GATv2 op's kernels
+# backward and the d(den) prologue, the GATv2 op's kernels and the paper
+# form's logits
 NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
             "v5_fwd_kernel": r"v5_fwd_kernel",
             "window_fwd_kernel": r"window_fwd_kernel",
@@ -677,13 +706,15 @@ NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
             "v2_bwd_kernel": r"v2_bwd_(wide_)?kernel",
             "dden_kernel": r"\d+dden_(narrow_)?kernel",
             "gatv2_fwd_kernel": r"gatv2_fwd_kernel",
-            "gatv2_bwd_kernel": r"gatv2_bwd_(dst|src)_kernel"}
+            "gatv2_bwd_kernel": r"gatv2_bwd_(dst|src)_kernel",
+            "paper_logits_kernel": r"paper_logits_(fwd|bwd)_kernel"}
 # of those, the kernels whose registers must not spill either (ptxas's
 # spill stores and loads, which cuobjdump's LOCAL does not count: they go
 # to the stack frame)
 NO_SPILL = ("window_bwd_kernel", "v5_bwd_sender_kernel", "bwd_tail_kernel",
             "v2_bwd_kernel", "dden_kernel", "v2_fwd_kernel",
-            "table_fwd_kernel", "gatv2_fwd_kernel", "gatv2_bwd_kernel")
+            "table_fwd_kernel", "gatv2_fwd_kernel", "gatv2_bwd_kernel",
+            "paper_logits_kernel")
 
 
 def check_resource_usage(build):
@@ -1058,9 +1089,11 @@ VIS_GRAPHS = {"Cora": ("Cora", {}, "v5"),
               "PATTERN paper_faithful": ("PATTERN", {"paper_faithful": True},
                                          "v4_table")}
 # the kernels a layer's eval forward with return_attention launches, once
-# each: the path's forward and alpha's denominator (segment_sum_sorted)
+# each: the path's forward (the table path's paper_faithful logits op and
+# the table op) and alpha's denominator (segment_sum_sorted)
 VIS_KERNELS = {"v5": ("source_scores", "v5_forward", "segment_sum_sorted"),
-               "v4_table": ("table_forward", "segment_sum_sorted")}
+               "v4_table": ("paper_logits_forward", "table_forward",
+                            "segment_sum_sorted")}
 # the kernels a written trace must name (train steps on the v5 path, and
 # an attention extraction for the sorted sum)
 TRACE_KERNELS = ("v5_fwd_kernel", "source_scores_kernel",
@@ -1771,6 +1804,152 @@ def main():
               f"on two launches")
         return timed
 
+    # -- the paper form's logits at the arxiv-full-paper cell's shapes -----
+    def check_paper_logits():
+        """The paper form's logits op (paper_logits_forward;
+        paper_logits_backward and the two sorted sums after it) on the
+        graph of the benchmark's arxiv_like traffic (PAPER_SEED) as the
+        port builds it, at PAPER_SHAPES (the scores from a random h and a
+        by the model's einsums), as the main path calls it (the Graph's
+        offsets and sender order): the logits, d(s_src) and d(s_dst) the
+        bits of the torch chain it replaced (paper_logits_plain through
+        torch's autograd, the sorted sums on the card) on each of two
+        launches, the launches counted. Timed: each kernel (CUDA-graph
+        replay) beside its plain version (eager, warm) and its bytes
+        bound; the op's whole backward (the kernel and the two sums)
+        beside the chain's through autograd. Returns {entry: {ms,
+        plain_ms, bound_ms, bytes, ops}}, both shapes summed."""
+        from gat_pytorch_tpu_torch.graph import transforms as TT
+        from gat_pytorch_tpu_torch.ops.cuda import paper_logits as pl
+        from portbench import spec as pb_spec
+        from portbench import traffic as pb_traffic
+        cell = pb_spec.load_cell(PAPER_CELL)
+        data = pb_traffic.make(cell.traffic, cell.generator(), PAPER_SEED)
+        graph = TT.canonicalize(
+            np.zeros((data.x.shape[0], 1), np.float32), data.senders,
+            data.receivers).to(dev)
+        n_g, e_g, er = graph.num_nodes, graph.num_edges, graph.num_real_edges
+        snd_g, rcv_g, mask_g = graph.senders, graph.receivers, graph.edge_mask
+        args = (snd_g, rcv_g, mask_g, n_g, PF_SLOPE, er)
+        kw = dict(src_order=graph.src_order, src_ptr=graph.src_ptr,
+                  dst_ptr=graph.dst_ptr)
+        print(f"[graph] {PAPER_CELL} seed {PAPER_SEED}: {n_g} nodes "
+              f"(padded), {e_g} edges, {er} real")
+        timed = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0,
+                         ops=0.0) for k in ("paper_logits_forward",
+                                            "paper_logits_backward")}
+        for nh, f in PAPER_SHAPES:
+            h = torch.randn((n_g, nh, f), generator=gen, device=dev)
+            a = torch.randn((nh, 2 * f), generator=gen, device=dev) / f ** 0.5
+            s_src = torch.einsum("nhf,hf->nh", h, a[:, :f]).contiguous()
+            s_dst = torch.einsum("nhf,hf->nh", h, a[:, f:]).contiguous()
+            g = torch.randn((e_g, nh), generator=gen, device=dev)
+            del h
+            tag = f"paper_logits {nh}x{f} on the {PAPER_CELL} graph"
+            res = []
+            for fn in (pl.paper_logits_plain, pl.paper_logits,
+                       pl.paper_logits):
+                src = s_src.clone().requires_grad_(True)
+                dst = s_dst.clone().requires_grad_(True)
+                before = dict(build.LAUNCHES)
+                out = fn(src, dst, *args, **kw)
+                grads = torch.autograd.grad(out, (src, dst), g)
+                torch.cuda.synchronize()
+                ran = {k: v - before[k] for k, v in build.LAUNCHES.items()
+                       if v != before[k]}
+                res.append(((out.detach(),) + grads, ran))
+            (want, ran_chain), *got = res
+            if ran_chain != {"segment_sum_sorted": 2}:
+                fail(f"{tag}: the chain launched {ran_chain}")
+            for i, (outs, ran) in enumerate(got):
+                if ran != {"paper_logits_forward": 1,
+                           "paper_logits_backward": 1,
+                           "segment_sum_sorted": 2}:
+                    fail(f"{tag}: launch {i + 1} ran {ran}")
+                for name, x, y in zip(("logits", "d_s_src", "d_s_dst"),
+                                      outs, want):
+                    if not torch.equal(x, y):
+                        fail(f"{tag} {name}: launch {i + 1} is not the "
+                             f"chain's bits (max abs diff "
+                             f"{float((x - y).abs().max()):.3e})")
+            same_bits(tag, got[0][0], got[1][0])
+            errs["paper_logits_forward"].append(0.0)
+            errs["paper_logits_backward"].append(0.0)
+            padding = int((want[0][~mask_g] == pl.NEG_INF).sum())
+            print(f"  {tag}: logits, d_s_src, d_s_dst the chain's bits on "
+                  f"two launches; {padding} of {(e_g - er) * nh} padding "
+                  f"entries at NEG_INF")
+            del res, got, want
+
+            def bwd_kernel():
+                return pl.paper_logits_backward(g, s_src, s_dst, snd_g,
+                                                rcv_g, mask_g, PF_SLOPE)
+
+            def bwd_op():
+                d_z = bwd_kernel()
+                return (seg.sorted_gather_grad(d_z, snd_g, n_g,
+                                               graph.src_order,
+                                               graph.src_ptr),
+                        seg.sorted_gather_grad(d_z, rcv_g, n_g, None,
+                                               graph.dst_ptr, er))
+
+            e4, n4 = 4.0 * e_g, 4.0 * n_g
+            runs = {
+                # senders, mask, offsets and both tables read; logits
+                # written
+                "paper_logits_forward": (
+                    lambda: pl.paper_logits_forward(s_src, s_dst, *args,
+                                                    **kw),
+                    lambda: pl.paper_logits_plain(s_src, s_dst, *args,
+                                                  **kw),
+                    3.0 * e_g * nh,
+                    e4 + e_g + n4 + 4 + 2 * n4 * nh + e4 * nh),
+                # g, senders, receivers, mask and both tables read; d_z
+                # written
+                "paper_logits_backward": (
+                    bwd_kernel,
+                    lambda: pl.paper_logits_backward_plain(
+                        g, s_src, s_dst, snd_g, rcv_g, mask_g, PF_SLOPE),
+                    2.0 * e_g * nh,
+                    e4 * nh + 2 * e4 + e_g + 2 * n4 * nh + e4 * nh)}
+            for k, (kern, plain, ops, nbytes) in runs.items():
+                km = time_ms(torch, kern)
+                pm = step_time_ms(torch, plain, iters=5, warmup=2)
+                bm, by = bound_ms(nbytes, ops)
+                print(f"[timing] {k} {nh}x{f} on the {PAPER_CELL} graph: "
+                      f"kernel_ms {km:.4f} plain_ms {pm:.4f} (warm) "
+                      f"bound_ms {bm:.5f} ({by}), {km / bm:.1f}x")
+                t = timed[k]
+                t["ms"] += km
+                t["plain_ms"] += pm
+                t["bound_ms"] += bm
+                t["bytes"] += nbytes
+                t["ops"] += ops
+            # the whole backward: the op's (its kernel and the two sorted
+            # sums) against the chain's through autograd
+            src = s_src.clone().requires_grad_(True)
+            dst = s_dst.clone().requires_grad_(True)
+            chain = pl.paper_logits_plain(src, dst, *args, **kw)
+            om = time_ms(torch, bwd_op)
+            cm = step_time_ms(torch, lambda: torch.autograd.grad(
+                chain, (src, dst), g, retain_graph=True), iters=5, warmup=2)
+            print(f"[timing] paper_logits whole backward {nh}x{f} on the "
+                  f"{PAPER_CELL} graph: op {om:.4f} ms (the kernel and two "
+                  f"sorted sums), the torch chain's {cm:.4f} ms (warm)")
+            del chain, src, dst, g
+            torch.cuda.empty_cache()
+        print(f"[kernels] paper_logits_forward, paper_logits_backward on "
+              f"the {PAPER_CELL} graph at "
+              f"{', '.join(f'{a}x{b}' for a, b in PAPER_SHAPES)}: the torch "
+              f"chain's bits on two launches")
+        return timed
+
+    if "--paper-logits-only" in sys.argv[1:]:
+        print("chip_smoke: --paper-logits-only: built, the paper form's "
+              f"logits op held and timed at the {PAPER_CELL} cell's "
+              f"shapes: {check_paper_logits()}")
+        return 0
+
     hub_times = check_hub_backward()
     if "--hub-only" in sys.argv[1:]:
         print("chip_smoke: --hub-only: built, the backward by sender held "
@@ -1897,6 +2076,7 @@ def main():
         print("chip_smoke: --gatv2-only: built, the GATv2 op held and "
               f"timed at the {GATV2_CELL} cell's shapes: {gatv2_times}")
         return 0
+    paper_times = check_paper_logits()
 
     cora_raw = datasets.load_planetoid("Cora", synthetic_override=True,
                                        seed=0)
@@ -3873,8 +4053,9 @@ def main():
     # -- 5. timings ---------------------------------------------------------
     timing = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                       bytes=0, ops=0) for k in REPLACES}
-    # the GATv2 entries: check_gatv2's times at the benchmark cell's graph
-    for k, t in gatv2_times.items():
+    # the GATv2 entries: check_gatv2's times at the benchmark cell's graph;
+    # the paper form's logits: check_paper_logits's
+    for k, t in {**gatv2_times, **paper_times}.items():
         timing[k].update(t)
 
     def time_rows(label, rows, into_json):

@@ -18,9 +18,11 @@ Three layer paths, chosen by `backend`:
             plain versions on a CPU graph. paper_faithful,
             const_attention and a graph without `src_order` take the
             table op (ops/cuda/table_attention.py, PATH_TRACE
-            "v4_table"), which gets its edge logits from plain torch
-            (their gathers through ops/segment.gather_rows_sorted_grad,
-            so that the step is reproducible bit for bit);
+            "v4_table"). paper_faithful's logits and their
+            per-destination max are one op (ops/cuda/paper_logits.py);
+            the others' come from plain torch (their gathers through
+            ops/segment.gather_rows_sorted_grad, so that the step is
+            reproducible bit for bit);
             otherwise a graph that carries a block layout
             (canonicalize(..., src_windows=True)) takes the windowed op
             (ops/cuda/window_attention.py, "v7"), one whose layout has a
@@ -136,6 +138,7 @@ from ..graph.graph import BlockLayout, Graph
 from ..ops import collectives as C
 from ..ops import segment as seg
 from ..ops.cuda import gatv2_attention as g2
+from ..ops.cuda import paper_logits as pl
 from ..ops.cuda import segment_attention as v2
 from ..ops.cuda import table_attention as v4
 from ..ops.cuda import v5_attention as v5
@@ -327,10 +330,7 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
         return torch.zeros((senders.shape[0], nh), dtype=h_flat.dtype,
                            device=h_flat.device)
     if cfg.paper_faithful:
-        h = h_flat.reshape(-1, nh, f)
-        a = params["a"]
-        s_both = torch.cat([torch.einsum("nhf,hf->nh", h, a[:, :f]),
-                            torch.einsum("nhf,hf->nh", h, a[:, f:])], dim=1)
+        s_both = torch.cat(_paper_scores(params, cfg, h_flat), dim=1)
     else:
         s_both = h_flat @ torch.cat(_split_attention_map(params["a"], nh, f),
                                     dim=1)
@@ -358,6 +358,17 @@ def _edge_logits(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
     # torch's LeakyReLU gradient at exactly 0 is the slope; the capped
     # argmax logit sits at 0, so the convention matters here
     return F.leaky_relu(logits, cfg.slope)
+
+
+def _paper_scores(params, cfg: GATLayerConfig, h_flat: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """paper_faithful's per-head scores (N, NH): s_src = a[:, :F] . h_j
+    of a sender, s_dst = a[:, F:] . h_i of a destination."""
+    nh, f = cfg.num_heads, cfg.out_features
+    h = h_flat.reshape(-1, nh, f)
+    a = params["a"]
+    return (torch.einsum("nhf,hf->nh", h, a[:, :f]),
+            torch.einsum("nhf,hf->nh", h, a[:, f:]))
 
 
 def _alpha_replica(params, cfg: GATLayerConfig, h_flat: torch.Tensor,
@@ -831,9 +842,20 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
                      if ax is None
                      else seg.real_first_order(senders, edge_mask, num_nodes))
         src_ptr = None      # the table op derives the offsets of this order
-    logits = _edge_logits(params, cfg, h_flat, senders, receivers, edge_mask,
-                          src_order if kernel else None, ax, src_ptr=src_ptr,
-                          dst_ptr=dst_ptr, num_real_edges=num_real_edges)
+    # the paper form's logits on one device: one op, the per-destination
+    # max subtracted and the padding edges at NEG_INF, as the table op
+    # takes them
+    paper = kernel and cfg.paper_faithful and ax is None
+    if paper:
+        logits = pl.paper_logits(
+            *_paper_scores(params, cfg, h_flat), senders, receivers,
+            edge_mask, num_nodes, cfg.slope, num_real_edges,
+            src_order=src_order, src_ptr=src_ptr, dst_ptr=dst_ptr)
+    else:
+        logits = _edge_logits(params, cfg, h_flat, senders, receivers,
+                              edge_mask, src_order if kernel else None, ax,
+                              src_ptr=src_ptr, dst_ptr=dst_ptr,
+                              num_real_edges=num_real_edges)
     eps = 0.0 if cfg.paper_faithful else 1e-8
 
     def table_alpha(num_real):
@@ -850,23 +872,31 @@ def gat_layer_apply(params, cfg: GATLayerConfig, x: torch.Tensor,
             if dropping else None)
 
     if kernel:
-        # the table op (paper_faithful, const_attention, and graphs
-        # without src_order; the op then derives the order itself), or on
-        # an edge shard the partial v2 op
-        raw_logits = logits
-        pad = torch.full_like(logits, v4.NEG_INF)
-        logits = torch.where(edge_mask[:, None], logits, pad)
-        if cfg.paper_faithful:
-            # the per-destination max, detached (softmax is invariant to
-            # it) and completed over the shards, is subtracted here; the
-            # op then only needs exp
-            seg_max = seg.segment_max(logits, receivers, num_nodes,
-                                      edge_axis=ax).detach()
-            seg_max = torch.where(torch.isfinite(seg_max), seg_max,
-                                  torch.zeros_like(seg_max))
-            logits = torch.where(
-                edge_mask[:, None],
-                logits - seg.gather_rows(seg_max, receivers), pad)
+        if paper:
+            # alpha from the logits before the max and the padding, as
+            # the other table branches take it
+            raw_logits = (_edge_logits(
+                params, cfg, h_flat, senders, receivers, edge_mask,
+                src_order, src_ptr=src_ptr, dst_ptr=dst_ptr,
+                num_real_edges=num_real_edges) if return_attention else None)
+        else:
+            # the table op (const_attention, and graphs without src_order;
+            # the op then derives the order itself), or on an edge shard
+            # the partial v2 op, also under paper_faithful
+            raw_logits = logits
+            pad = torch.full_like(logits, v4.NEG_INF)
+            logits = torch.where(edge_mask[:, None], logits, pad)
+            if cfg.paper_faithful:
+                # the per-destination max, detached (softmax is invariant
+                # to it) and completed over the shards, is subtracted
+                # here; the op then only needs exp
+                seg_max = seg.segment_max(logits, receivers, num_nodes,
+                                          edge_axis=ax).detach()
+                seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                                      torch.zeros_like(seg_max))
+                logits = torch.where(
+                    edge_mask[:, None],
+                    logits - seg.gather_rows(seg_max, receivers), pad)
         if ax is None:
             PATH_TRACE.append("v4_table")
             out = v4.fused_segment_attention_table(

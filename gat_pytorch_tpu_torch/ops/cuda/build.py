@@ -38,7 +38,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("v5_attention", "segment_sum", "window_attention",
-           "table_attention", "segment_attention", "gatv2_attention")
+           "table_attention", "segment_attention", "gatv2_attention",
+           "paper_logits")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the sources built again for a bfloat16 h table, and the libraries
@@ -52,7 +53,9 @@ LIBRARIES = SOURCES + tuple(s + _BF16_TABLE for s in TABLE_SOURCES)
 # (rounding.Rounding.counter); the cap passes, v5_dasrc and table_dden
 # have no such mode, and of the v2 entries only the forward has one. The
 # source-score pass counts a bfloat16 table apart ("source_scores_bf16").
-# The GATv2 op's entries (gatv2_forward, gatv2_backward) are float32 only.
+# The GATv2 op's entries (gatv2_forward, gatv2_backward) and the paper
+# form's logits (paper_logits_forward, paper_logits_backward) are float32
+# only.
 _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
             "table_forward", "table_backward", "v5_backward_parts",
             "window_backward_parts", "v5_cap", "v5_forward_two_phase",
@@ -63,7 +66,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
                 "segment_sum_rows_t", "v2_forward", "v2_backward",
                 "v2_forward_bf16", "v5_dasrc", "table_dden",
                 "source_scores", "source_scores_bf16", "gatv2_forward",
-                "gatv2_backward")
+                "gatv2_backward", "paper_logits_forward",
+                "paper_logits_backward")
     + tuple(k + "_bf16" for k in _ENTRIES), 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}

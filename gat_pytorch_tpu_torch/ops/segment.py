@@ -72,19 +72,31 @@ class _GatherRowsSortedGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # imported here: ops/cuda/segment_sum.py imports this module
-        from .cuda.segment_sum import segment_sum_sorted
         indices, order, ptr = ctx.saved_tensors
-        rows = g.reshape(g.shape[0], math.prod(g.shape[1:])).contiguous()
-        if rows.shape[0] == 0:    # e.g. an edge shard without real edges
-            d_table = rows.new_zeros((ctx.num_segments, rows.shape[1]))
-        else:
-            d_table = segment_sum_sorted(
-                rows, None if ptr is not None else indices,
-                ctx.num_segments, order=order, ptr=ptr,
-                row_limit=ctx.num_real)
-        return (d_table.reshape((ctx.num_segments,) + tuple(g.shape[1:])),
+        return (sorted_gather_grad(g, indices, ctx.num_segments, order, ptr,
+                                   ctx.num_real),
                 None, None, None, None, None)
+
+
+def sorted_gather_grad(g: torch.Tensor, indices: torch.Tensor,
+                       num_segments: int,
+                       order: Optional[torch.Tensor] = None,
+                       ptr: Optional[torch.Tensor] = None,
+                       num_real: Optional[int] = None) -> torch.Tensor:
+    """The backward of gather_rows_sorted_grad(table, indices,
+    num_segments, order, ptr=ptr, num_real=num_real): the cotangent rows g
+    (E, ...) summed into the (num_segments, ...) table by the sorted
+    segment sum, one launch on CUDA tensors."""
+    # imported here: ops/cuda/segment_sum.py imports this module
+    from .cuda.segment_sum import segment_sum_sorted
+    rows = g.reshape(g.shape[0], math.prod(g.shape[1:])).contiguous()
+    if rows.shape[0] == 0:    # e.g. an edge shard without real edges
+        d_table = rows.new_zeros((num_segments, rows.shape[1]))
+    else:
+        d_table = segment_sum_sorted(
+            rows, None if ptr is not None else indices, num_segments,
+            order=order, ptr=ptr, row_limit=num_real)
+    return d_table.reshape((num_segments,) + tuple(g.shape[1:]))
 
 
 def gather_rows_sorted_grad(table: torch.Tensor, indices: torch.Tensor,
