@@ -104,9 +104,8 @@ Phases (every failure is fatal):
      (one nvcc per library, started together: each source, and the three
      attention sources again for a bfloat16 h table), print a [build]
      line per kernel instance with its registers and local memory
-     (cuobjdump -res-usage; no instance of the wide v5 backward, rows over
-     256 floats, of the v5, windowed, table and v2 forwards, of the
-     source-score pass, of the window and v5 backwards by sender and
+     (cuobjdump -res-usage; no instance of the v5, windowed, table and v2
+     forwards, of the source-score pass, of the window and v5 backwards by sender and
      their tail, of the v2 backward, of the d(den) prologue or of the
      GATv2 op may use any, nor may the backwards by sender, their tail,
      the v2 kernels, the table forward, the d(den) prologue and the GATv2
@@ -150,15 +149,16 @@ Phases (every failure is fatal):
      a table off 16-byte alignment; the forms to each other's bits), and
      the sorted-gradient gather built on it, also as the main path calls
      it with the Graph's offsets (one launch, the bits of the call
-     without); at PPI's widths the v5 backward by sender in every mode,
-     and v5_dasrc (d(a_src) by sender from per-edge d(raw) rows, the
-     wide form's, which only a bfloat16 table's wide rows take) against
-     its plain version and h^T draw, and fused_gat_table with more source
-     rows than destinations; before Cora's, the v5 backward by sender on
-     a graph whose node 0 sends 14,521 edges (check_hub_backward: its run
-     cut into items) at 8 x 40 and 8 x 8 in every mode, against the split
-     plain versions, launched twice, and timed (--hub-only: phase 1, this
-     check, then stop); then the GATv2 op (check_gatv2) on the graph of
+     without); at PPI's widths the v5 backward by sender in every mode
+     and fused_gat_table with more source rows than destinations; before
+     Cora's, the v5 backward by sender on a graph whose node 0 sends
+     14,521 edges (check_hub_backward: its run cut into items) at 8 x 40
+     and 8 x 8 in every mode, against the split plain versions, launched
+     twice, and timed, and from a bfloat16 h table at PPI's 4 x 256 and
+     6 x 121 and at 8 x 40 (check_bf16_wide_by_sender: the wide plans of
+     the bfloat16-table library) in every mode, within 1e-2 of the split
+     plain versions, launched twice (--hub-only: phase 1, these checks,
+     then stop); then the GATv2 op (check_gatv2) on the graph of
      the benchmark's arxiv_powerlaw traffic as the port builds it
      (169,344 rows, 2.5M edges, a run of 14,521 slots by destination and
      by sender, the longest sender runs cut into items) at the
@@ -440,9 +440,8 @@ BF16_KNOBS = ("GAT_TPU_GEMM_DTYPE", "GAT_TPU_KERNEL_DTYPE", "GAT_TPU_H_DTYPE")
 # one op, its forward and its backward launched once a layer; those two
 # sums are its backward's.
 PATH_KERNELS = {
-    # the backward sums d(h) by sender itself at every width of a float32
-    # table (PPI's too); only a bfloat16 table's rows over 256 floats,
-    # which no fit has, take the wide form and row 3 after it
+    # the backward sums d(h) by sender itself at every width and table
+    # type (PPI's too): no segment_sum_rows
     "v5": (("source_scores", "v5_forward"), {"v5_backward": 1}),
     # the window backward sums d(h) by sender itself: no segment_sum_rows
     "v7": (("source_scores", "window_forward"), {"window_backward": 1}),
@@ -473,7 +472,7 @@ PATH_KERNELS = {
     "v6 bf16": (("source_scores", "v5_cap", "v5_forward_two_phase_bf16"),
                 {"v5_backward_two_phase_bf16": 1}),
     # under GAT_TPU_DH_REDUCE_NT=0 too: the backward by sender reads no
-    # knob (the feature-major reduce runs only after the wide form)
+    # knob and runs no d(h) reduce
     "v5 bf16": (("source_scores_bf16", "v5_forward_bf16"),
                 {"v5_backward_bf16": 1}),
     # the logits op is float32 in every mode
@@ -615,9 +614,6 @@ REPLACES = {
     # path runs its partial mode)
     "v2_forward": _PALLAS + "segment_attention.py:65",
     "v2_backward": _PALLAS + "segment_attention_bwd.py:39",
-    # the d(a_src) of _kernel_v5_bwd at rows wider than 256 floats: the
-    # backward's wide form leaves it to this kernel, by sender (every mode)
-    "v5_dasrc": _PALLAS + "segment_attention_bwd.py:537",
     # the per-edge h_blk @ a_src inside _kernel_v5_auto (and _kernel_v5,
     # _kernel_v5_cap, _kernel_v5_bwd, _kernel_v6, _kernel_v6_bwd): one pass
     # over the h table an op call, read by every v5 and windowed kernel
@@ -650,7 +646,6 @@ SOURCES = {
     "segment_sum_rows_t": _CSRC + "segment_sum.cu",
     "v2_forward": _CSRC + "segment_attention.cu",
     "v2_backward": _CSRC + "segment_attention.cu",
-    "v5_dasrc": _CSRC + "v5_attention.cu",
     "source_scores": _CSRC + "attention_common.cuh",
     "gatv2_forward": _CSRC + "gatv2_attention.cu",
     "gatv2_backward": _CSRC + "gatv2_attention.cu",
@@ -661,8 +656,8 @@ SOURCES = {
 # launches counted apart (rounding.Rounding.counter)
 BF16_KEYS = tuple(k + "_bf16" for k in REPLACES
                   if not k.startswith(("segment_sum", "window_cap",
-                                       "v2_backward", "v5_dasrc",
-                                       "table_dden", "gatv2",
+                                       "v2_backward", "table_dden",
+                                       "gatv2",
                                        "paper_logits")))
 for _k in BF16_KEYS:
     REPLACES[_k], SOURCES[_k] = REPLACES[_k[:-5]], SOURCES[_k[:-5]]
@@ -689,13 +684,11 @@ def fail(msg):
 
 
 # the kernels that must use no local memory in any instance (cuobjdump):
-# the wide v5 backward (rows over 256 floats), the forwards (the v5,
-# windowed, table and v2 ops'), the source-score pass, the backwards by
+# the forwards (the v5, windowed, table and v2 ops'), the source-score pass, the backwards by
 # sender (the windowed op's and the v5 op's) with their tail, the v2
 # backward and the d(den) prologue, the GATv2 op's kernels and the paper
 # form's logits
-NO_LOCAL = {"wide v5_bwd_kernel": r"v5_bwd_kernelILi(1[6-9]|[2-9]\d)E",
-            "v5_fwd_kernel": r"v5_fwd_kernel",
+NO_LOCAL = {"v5_fwd_kernel": r"v5_fwd_kernel",
             "window_fwd_kernel": r"window_fwd_kernel",
             "table_fwd_kernel": r"table_fwd_kernel",
             "v2_fwd_kernel": r"v2_fwd_kernel",
@@ -1633,22 +1626,6 @@ def main():
         if bool(idle.any()) and bool(got[0][idle].any()):
             fail(f"v5_backward {nh}x{f}: a sender without a real edge has a "
                  f"non-zero d(h) row")
-        dasrc_args = None
-        if v5.wide_form(nh * f):
-            # the wide form: d(a_src) by sender from the per-edge d(raw)
-            # rows, against its plain version and the direct h^T draw
-            draw = v5.v5_backward_plain(*bwd_args, with_draw=True)[-1]
-            dasrc_args = (h, draw) + tuple(v5.sender_runs(snd, e_real, n,
-                                                          order, src_ptr))
-            got_a = v5.dasrc_by_sender(*dasrc_args)[0]
-            hold_all("v5_dasrc", ("d_a_src by sender",), (got_a,),
-                     (v5.dasrc_by_sender_plain(*dasrc_args),), "v5_dasrc",
-                     floor=0.0)
-            hold_all("v5_dasrc", ("d_a_src against h^T draw",), (got_a,),
-                     (v5.v5_backward_plain(*bwd_args)[3],), "v5_dasrc",
-                     floor=0.0)
-            same_bits("v5_dasrc", (got_a,),
-                      (v5.dasrc_by_sender(*dasrc_args)[0],))
         # At eps = 1e-8, d(s_dst) is about eps' (the softmax's own terms
         # cancel), so the check above cannot see eps' or a d(s_dst) left
         # at zero. At eps = 1, eps' is of the size of den: hold every
@@ -1697,7 +1674,7 @@ def main():
                                     src_ptr=src_ptr),))
         return dict(nh=nh, f=f, drop=with_drop, fwd_args=fwd_args,
                     bwd_args=bwd_args, parts_args=parts_args, rows=rows,
-                    dasrc_args=dasrc_args, runs=runs)
+                    runs=runs)
 
     # -- the backward by sender on a hub: its run cut into items ---------
     HUB_RUN = 14_521
@@ -1726,16 +1703,16 @@ def main():
                  f"other run is {int(runs[1:].max())}")
         return graph
 
-    def check_hub_backward():
+    def check_hub_backward(graph):
         """The v5 backward by sender at HUB_SHAPES (8 x 40, a 320-float
-        row, the wide plan; 8 x 8) on hub_graph, as the main path calls it
+        row, the wide plan; 8 x 8) on `graph` (hub_graph), as the main
+        path calls it
         (the Graph's sender runs and offsets), in its normalised, parts
         and 2-phase modes: against the split plain versions (the kernel's
         association) at REL_TOL, d(drop) and d(s_dst) also against the
         by-sender plain version, the same bits on a second launch, and
         timed (the whole call given its op's table, CUDA-graph replay)
         beside its bound. Returns {shape: (ms, bound ms)}."""
-        graph = hub_graph()
         n_h, e_h, er = (graph.num_nodes, graph.num_edges,
                         graph.num_real_edges)
         snd_h, rcv_h = graph.senders, graph.receivers
@@ -1803,6 +1780,66 @@ def main():
               f"within {REL_TOL} of the split plain version, the same bits "
               f"on two launches")
         return timed
+
+    # rows over 256 floats from a bfloat16 table: the wide plans of the
+    # bfloat16-table library, at PPI's widths and the hub's 8 x 40
+    BF16_WIDE_SHAPES = ((4, 256), (6, 121), (8, 40))
+
+    def check_bf16_wide_by_sender(graph):
+        """The v5 backward by sender from a bfloat16 h table
+        (Rounding(table=True): every product reads the rounded rows) at
+        BF16_WIDE_SHAPES on `graph` (hub_graph: its hub's run cut into
+        items), as the main path calls it (the Graph's runs and offsets,
+        the op's source-score table), in its normalised, parts and
+        2-phase modes: every output within BF16_TOL of its own magnitude
+        of the split plain version in the same mode (the kernel's
+        association), and the same bits on two launches."""
+        rnd = Rounding(table=True)
+        n_h, e_h, er = (graph.num_nodes, graph.num_edges,
+                        graph.num_real_edges)
+        edges = (graph.senders, graph.receivers, er)
+        runs = dict(src_order=graph.src_order, src_ptr=graph.src_ptr,
+                    dst_ptr=graph.dst_ptr)
+        plain_runs = dict(src_order=graph.src_order, src_ptr=graph.src_ptr)
+        for nh, f in BF16_WIDE_SHAPES:
+            h, a_src, s_eff, drop, g = op_inputs(torch, gen, n_h, nh, f,
+                                                 e_h, dev)
+            hk = rnd.table_of(h)
+            s_src = v5.source_scores(hk, a_src)
+            fa = (hk, a_src, s_eff, drop) + edges + (SLOPE,)
+            num, den, cap, _ = v5.v5_forward_plain(*fa, rounding=rnd,
+                                                   s_src=s_src)
+            out, epsp = epilogue(torch, num, den, cap, f, 1.0)
+            d_den = torch.randn((n_h, nh), generator=gen, device=dev)
+            norm = {"rounding": rnd, "s_src": s_src}
+            cases = {
+                "normalised": (fa + (g, out, den, epsp, True), norm,
+                               v5.v5_backward, v5.v5_backward_split_plain,
+                               "v5_backward_bf16"),
+                "parts": (fa + (g, None, d_den, None, True),
+                          {"normalize": False, **norm}, v5.v5_backward,
+                          v5.v5_backward_split_plain,
+                          "v5_backward_parts_bf16"),
+                "2-phase": ((hk, a_src, s_eff, cap.clone(), drop) + edges
+                            + (1.0, SLOPE, g, out, den, True), norm,
+                            v5.v5_backward_two_phase,
+                            v5.v5_backward_two_phase_split_plain,
+                            "v5_backward_two_phase_bf16")}
+            for mode, (args, kw, kern, split, key) in cases.items():
+                tag = f"v5_backward {nh}x{f} hub {mode} [{mode_tag(rnd)}]"
+                got = kern(*args, **kw, **runs)
+                want = split(*args, **kw, **plain_runs)
+                names = BWD_NAMES + (("d_cap",) if len(want) > 4 else ())
+                hold_all(tag, names, got, want, key, floor=0.0,
+                         tol=BF16_TOL)
+                same_bits(tag, got, kern(*args, **kw, **runs))
+            del h, hk, s_src, drop, g, num, out, cases, got, want
+            torch.cuda.empty_cache()
+        print(f"[kernels] v5_backward by sender from a bfloat16 table on "
+              f"the hub graph at "
+              f"{', '.join(f'{a}x{b}' for a, b in BF16_WIDE_SHAPES)}: every "
+              f"mode within {BF16_TOL} of the split plain version, the same "
+              f"bits on two launches")
 
     # -- the paper form's logits at the arxiv-full-paper cell's shapes -----
     def check_paper_logits():
@@ -1950,10 +1987,14 @@ def main():
               f"shapes: {check_paper_logits()}")
         return 0
 
-    hub_times = check_hub_backward()
+    hub = hub_graph()
+    hub_times = check_hub_backward(hub)
+    check_bf16_wide_by_sender(hub)
+    del hub
     if "--hub-only" in sys.argv[1:]:
         print("chip_smoke: --hub-only: built, the backward by sender held "
-              f"and timed on the hub graph: {hub_times}")
+              f"and timed on the hub graph (also from a bfloat16 table at "
+              f"rows over 256 floats): {hub_times}")
         return 0
 
     # -- the GATv2 op at the arxiv-powerlaw-gatv2 cell's shapes -----------
@@ -2103,11 +2144,10 @@ def main():
     # destinations: 256 rows put in front of the table and every sender
     # moved up by 256 give the bits of the square call, but for the sums
     # over blocks of senders, held at REL_TOL (more senders move the
-    # blocks' bounds): at rows over 256 floats d(a_src) (v5_dasrc), at 256
-    # or fewer d(a_src) and d(cap) (the backward by sender's partial rows),
-    # and so the argmax edge's d(h) row and d(s_dst) entry, where the cap
-    # op routes d(cap); every other d(h) row and d(s_dst) entry keeps its
-    # bits
+    # blocks' bounds): d(a_src) and d(cap) (the backward by sender's
+    # partial rows), and so the argmax edge's d(h) row and d(s_dst) entry,
+    # where the cap op routes d(cap); every other d(h) row and d(s_dst)
+    # entry keeps its bits
     def more_source_rows(label, graph, c2, shift=256):
         n_, e_real_ = graph.num_nodes, graph.num_real_edges
         snd_, rcv_ = graph.senders, graph.receivers
@@ -2136,24 +2176,19 @@ def main():
                  f"has the wrong rows")
         wider[2] = wider[2][shift:]
         tag = f"fused_gat_table {label} with {n_ + shift} source rows"
-        if not v5.by_sender_on_card(nh * f):
-            hold_all(tag, ("d_a_src",), wider[3:4], square[3:4], "v5_dasrc",
-                     floor=0.0)
-            square, wider = square[:3] + square[4:], wider[:3] + wider[4:]
-        else:
-            hold_all(tag, ("d_h", "d_a_src", "d_s_dst"), wider[2:5],
-                     square[2:5], "v5_backward_two_phase", floor=0.0)
-            code = int(v5.v5_cap(h, a_src, s_dst, snd_, rcv_, e_real_)[1])
-            e_star, k_star = code // nh, code % nh
-            rows_ = torch.ones(n_, dtype=torch.bool, device=dev)
-            rows_[snd_[e_star].long()] = False
-            cells = torch.ones((n_, nh), dtype=torch.bool, device=dev)
-            cells[rcv_[e_star].long(), k_star] = False
-            same_bits(f"{tag}: d(h) but the argmax sender's row, d(s_dst) "
-                      f"but the argmax entry",
-                      (square[2][rows_], square[4][cells]),
-                      (wider[2][rows_], wider[4][cells]))
-            square, wider = square[:2], wider[:2]
+        hold_all(tag, ("d_h", "d_a_src", "d_s_dst"), wider[2:5],
+                 square[2:5], "v5_backward_two_phase", floor=0.0)
+        code = int(v5.v5_cap(h, a_src, s_dst, snd_, rcv_, e_real_)[1])
+        e_star, k_star = code // nh, code % nh
+        rows_ = torch.ones(n_, dtype=torch.bool, device=dev)
+        rows_[snd_[e_star].long()] = False
+        cells = torch.ones((n_, nh), dtype=torch.bool, device=dev)
+        cells[rcv_[e_star].long(), k_star] = False
+        same_bits(f"{tag}: d(h) but the argmax sender's row, d(s_dst) "
+                  f"but the argmax entry",
+                  (square[2][rows_], square[4][cells]),
+                  (wider[2][rows_], wider[4][cells]))
+        square, wider = square[:2], wider[:2]
         same_bits(f"fused_gat_table {label} with more source rows than "
                   f"destinations", square, wider)
         print(f"[kernels] v5_local_cap and fused_gat_table on {label} with "
@@ -2928,9 +2963,9 @@ def main():
     ppi_table_modes = [check_table_modes(ppi, nh, f, 0.0, True,
                                          f"PPI {nh}x{f}")
                        for nh, f in SHAPES["PPI"]]
-    # the v5 entries' modes at PPI's widths: the wide backward in every
-    # mode (its draw rounded where kRoundDraw says, its h rows where
-    # kRoundRows does)
+    # the v5 entries' modes at PPI's widths: the backward by sender's wide
+    # plans in every mode (d(raw) rounded where kRoundDraw says, the h rows
+    # where kRoundRows does), from a bfloat16 table too
     ppi_v5_modes = []
     for nh, f in SHAPES["PPI"]:
         ppi_v5_modes.append(check_v5_modes(ppi, f"PPI {nh}x{f}", nh, f,
@@ -4113,15 +4148,11 @@ def main():
         """The v5 kernels and the d(h) reduce at one case of check_v5, as
         the main path calls them (the Graph's offsets and sender runs
         where it carries them; a backward given its op's table). The
-        backward, the whole call with d(h) per node (at rows over 256
-        floats of a bfloat16 table the wide form, v5_dasrc and row 3
-        after it): reads h,
-        a_src, the score tables, the mask and, over the real edges, the
-        receivers, the sender order, the sender and receiver offsets, g,
-        out, den and eps'; writes d(h) per node, d(mask) over all E edges
-        (zeros past E_real), d(s_dst) and d(a_src). Intermediates (the
-        wide form's per-edge rows and d(raw)) are no part of the
-        function, and not of its bound."""
+        backward, the whole call with d(h) per node: reads h, a_src, the
+        score tables, the mask and, over the real edges, the receivers,
+        the sender order, the sender and receiver offsets, g, out, den
+        and eps'; writes d(h) per node, d(mask) over all E edges (zeros
+        past E_real), d(s_dst) and d(a_src)."""
         n_, e_ = graph.num_nodes, graph.num_edges
         snd_, order_ = graph.senders, graph.src_order
         nh, d = c["nh"], c["nh"] * c["f"]
@@ -4146,18 +4177,7 @@ def main():
         # the d(h) reduce as the main path calls it: by the graph's
         # offsets where it carries them, over its real rows
         src_ptr = getattr(graph, "src_ptr", None)
-        rows_out = {}
-        if c["dasrc_args"] is not None:
-            # draw, the sender order and offsets read, h read, d(a_src)
-            # written; a multiply-add per (sender, feature, head) and an
-            # add per (edge, head)
-            da = c["dasrc_args"]
-            rows_out["v5_dasrc"] = (
-                lambda: v5.dasrc_by_sender(*da),
-                lambda: v5.dasrc_by_sender_plain(*da), None,
-                4 * (er * nh + er + n_ + 1 + n_ * d + d * nh),
-                er * nh + 2 * n_ * d * nh)
-        return rows_out | {
+        return {
             "v5_forward": (lambda: v5.v5_forward(*fa),
                            lambda: v5.v5_forward_plain(*fa), None,
                            b_fwd, o_fwd),
@@ -4453,10 +4473,10 @@ def main():
     for ct, c5 in zip(ppi_table_cases, ppi_v5_cases):
         label = f"PPI {ct['nh']}x{ct['f']}"
         time_rows(label, table_time_rows(ppi, ct), into_json=True)
-        # row 2 at the widths the PPI fit launches it (by sender); v5_dasrc's
-        # and row 3's result-line times from here, each timed on its own
+        # row 2 at the widths the PPI fit launches it (by sender); row 3's
+        # result-line time from here, timed on its own
         time_rows(label, v5_time_rows(ppi, c5),
-                  into_json=("v5_dasrc", "segment_sum_rows"))
+                  into_json=("segment_sum_rows",))
     for c in ppi_two:
         pe, per_ = ppi.num_edges, ppi.num_real_edges
         time_rows(f"PPI {c['nh']}x{c['f']} 2-phase", two_phase_time_rows(
@@ -4892,7 +4912,7 @@ def main():
               f"Pubmed's, "
               f"table PPI's, the parts modes the hybrid Pubmed layout's and "
               f"its remainder's, segment_sum_sorted PPI's score widths by "
-              f"receiver with the Graph's offsets, v5_dasrc PPI's, the v5 "
+              f"receiver with the Graph's offsets, the v5 "
               f"2-phase entries Cora's, the window 2-phase "
               f"entries Pubmed's, each bfloat16 mode its entry's, "
               f"segment_sum_rows_t Cora's, the v2 entries PPI's in the "

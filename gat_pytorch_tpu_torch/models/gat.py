@@ -44,7 +44,9 @@ Three layer paths, chosen by `backend`:
             ops); those gates price the TPU's launches, do not apply to
             this card and are not ported. The ops read the JAX package's
             dtype knobs of their kernels themselves (GAT_TPU_V6_DTYPE,
-            GAT_TPU_KERNEL_DTYPE, GAT_TPU_H_DTYPE, GAT_TPU_DH_REDUCE_NT).
+            GAT_TPU_KERNEL_DTYPE, GAT_TPU_H_DTYPE); their backwards sum
+            d(h) by sender at every width and read no
+            GAT_TPU_DH_REDUCE_NT.
   "segment" plain torch segment ops (ops/segment.py), the counterpart of
             the JAX "xla" path and the reference the kernel path is held
             against.

@@ -50,8 +50,8 @@ LIBRARIES = SOURCES + tuple(s + _BF16_TABLE for s in TABLE_SOURCES)
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel on a CUDA tensor, and nowhere else (chip_smoke.py reads these).
 # An entry's bfloat16 modes count apart, under "<entry>_bf16"
-# (rounding.Rounding.counter); the cap passes, v5_dasrc and table_dden
-# have no such mode, and of the v2 entries only the forward has one. The
+# (rounding.Rounding.counter); the cap passes and table_dden have no such
+# mode, and of the v2 entries only the forward has one. The
 # source-score pass counts a bfloat16 table apart ("source_scores_bf16").
 # The GATv2 op's entries (gatv2_forward, gatv2_backward) and the paper
 # form's logits (paper_logits_forward, paper_logits_backward) are float32
@@ -64,7 +64,7 @@ _ENTRIES = ("v5_forward", "v5_backward", "window_forward", "window_backward",
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     _ENTRIES + ("segment_sum_rows", "segment_sum_sorted", "window_cap",
                 "segment_sum_rows_t", "v2_forward", "v2_backward",
-                "v2_forward_bf16", "v5_dasrc", "table_dden",
+                "v2_forward_bf16", "table_dden",
                 "source_scores", "source_scores_bf16", "gatv2_forward",
                 "gatv2_backward", "paper_logits_forward",
                 "paper_logits_backward")

@@ -138,16 +138,6 @@ cap_reduce_kernel(const float* __restrict__ blk_max,
   }
 }
 
-// out[i] = sum over blocks b (in order) of part[b, i]
-__global__ void sum_partials_kernel(const float* __restrict__ part, int nblk,
-                                    int len, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
-  float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += part[(size_t)b * len + i];
-  out[i] = s;
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -1,6 +1,6 @@
-"""Sorted row segment sums: the attention backward's d(h) reduction, in
-its row-major and its feature-major form, and the plain sorted segment
-sum.
+"""Sorted row segment sums: the d(h) reduction of the JAX package's
+attention backwards, in its row-major and its feature-major form, and the
+plain sorted segment sum.
 
 Counterpart of gat_pytorch_tpu/ops/pallas/segment_sum.py:
 segment_sum_pallas_rows (:176) in its two forms, `_kernel_rows_nt`
@@ -22,6 +22,11 @@ a block layout's src_ptr) passes them, and the reduction is then one
 kernel launch; `dh_reduce` without them derives them from the senders
 per call (build.sender_runs: a stable sort of the real edges' senders, a
 gather and a searchsorted before the kernel).
+
+The port's attention backwards sum d(h) by sender themselves, so no op
+runs the d(h) reduction: `dh_reduce` stands for the JAX package's
+`_dh_reduce` (the only reader of GAT_TPU_DH_REDUCE_NT here), and the tests
+and chip_smoke.py hold the port's backwards to it.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version. Every sum has a fixed order: each d(h) segment's rows are

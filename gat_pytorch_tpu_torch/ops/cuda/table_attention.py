@@ -29,13 +29,12 @@ branch; chip_smoke.py holds the kernels at N/4 destination rows).
 
 d(h). The JAX package's backward writes a d(h) row per edge and sums them
 by sender (`_dh_reduce`), a TPU workaround: Mosaic has no in-kernel
-gather or scatter. On the card the backward sums each sender's terms
-itself, in the order of src_order and with the per-edge products rounded
-as the rows were, so d(h) has the bits of the rows summed by either form
-of ops/cuda/segment_sum.py's reduction; the op therefore reads
-GAT_TPU_DH_REDUCE_NT only on CPU tensors, where it takes the per-edge
-rows and `dh_reduce` in the form the knob names, as the JAX `_fsat_bwd`
-does.
+gather or scatter. Here the backward sums each sender's terms itself, in
+the order of src_order and with the per-edge products rounded as the rows
+were, so d(h) has the bits of the rows summed by either form of
+ops/cuda/segment_sum.py's reduction: the kernel on CUDA tensors, its plain
+version `table_backward_by_sender_plain` on CPU tensors. The op reads no
+GAT_TPU_DH_REDUCE_NT, which picks that form in the JAX package.
 
 The JAX package's dtype knobs of this op (ops/cuda/v5_attention.py's
 v5_rounding, read when the op is called): GAT_TPU_KERNEL_DTYPE=bfloat16
@@ -57,7 +56,7 @@ from .. import segment as seg
 from . import build
 from .build import sender_runs
 from .rounding import FLOAT32, Rounding, check_table, maybe_bf16
-from .segment_sum import dh_reduce, dh_reduce_plain, dh_transposed
+from .segment_sum import dh_reduce_plain
 from .v5_attention import MAX_HEADS, NEG_INF, v5_rounding
 _KERNEL = "table_attention"
 _configured = set()
@@ -310,7 +309,7 @@ class _TableAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, h_flat, drop_mask, senders, receivers,
                 src_order, src_ptr, dst_ptr, num_nodes, e_real, eps,
-                rounding, dh_t):
+                rounding):
         h_k = rounding.table_of(h_flat)
         out, den = table_forward(logits, h_k, drop_mask, senders,
                                  receivers, num_nodes, e_real, eps, rounding,
@@ -318,7 +317,7 @@ class _TableAttention(torch.autograd.Function):
         ctx.save_for_backward(logits, h_k, drop_mask, senders, receivers,
                               src_order, src_ptr, den, out)
         ctx.e_real, ctx.eps = e_real, eps
-        ctx.rounding, ctx.dh_t = rounding, dh_t
+        ctx.rounding = rounding
         return out
 
     @staticmethod
@@ -326,20 +325,11 @@ class _TableAttention(torch.autograd.Function):
         (logits, h_k, drop_mask, senders, receivers, src_order, src_ptr,
          den, out) = ctx.saved_tensors
         need_drop = drop_mask is not None and ctx.needs_input_grad[2]
-        args = (logits, h_k, drop_mask, senders, receivers, ctx.e_real,
-                ctx.eps, g.contiguous(), out, den, need_drop)
-        if logits.is_cuda:
-            d_h, d_logits, d_drop = table_backward(
-                *args, ctx.rounding, src_order=src_order, src_ptr=src_ptr)
-            return (d_logits, d_h, d_drop) + (None,) * 10
-        # the JAX package's route: per-edge rows, then the d(h) reduce in
-        # the form GAT_TPU_DH_REDUCE_NT names
-        build.require_cpu(logits)
-        check_table(h_k, ctx.rounding)
-        d_h_rows, d_logits, d_drop = table_backward_plain(*args)
-        d_h = dh_reduce(d_h_rows, src_order, senders, h_k.shape[0],
-                        ctx.e_real, transposed=ctx.dh_t, src_ptr=src_ptr)
-        return (d_logits, d_h, d_drop) + (None,) * 10
+        d_h, d_logits, d_drop = table_backward(
+            logits, h_k, drop_mask, senders, receivers, ctx.e_real, ctx.eps,
+            g.contiguous(), out, den, need_drop, ctx.rounding,
+            src_order=src_order, src_ptr=src_ptr)
+        return (d_logits, d_h, d_drop) + (None,) * 9
 
 
 def fused_segment_attention_table(logits: torch.Tensor,
@@ -384,4 +374,4 @@ def fused_segment_attention_table(logits: torch.Tensor,
     return _TableAttention.apply(logits.contiguous(), h_flat.contiguous(),
                                  drop_mask, senders, receivers, src_order,
                                  src_ptr, dst_ptr, num_nodes, e_real, eps,
-                                 v5_rounding(), dh_transposed())
+                                 v5_rounding())

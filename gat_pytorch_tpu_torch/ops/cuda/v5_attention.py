@@ -6,20 +6,17 @@ fused_gat_table_autocap (:1551) with its VJP `_fgta_fwd`/`_fgta_bwd`
 default, and v5_sweep1_parts (:1674) with `_v5sp_fwd`/`_v5sp_bwd`, the
 same sweep without its epilogue. The kernels are csrc/v5_attention.cu
 (forward: `_kernel_v5_auto`; backward: segment_attention_bwd.py:
-`_kernel_v5_bwd`, in its normalised and its parts mode). On the card the
-backward is owned by senders and returns d(h) per node
+`_kernel_v5_bwd`, in its normalised and its parts mode). The backward
+is owned by senders and returns d(h) per node
 (`v5_backward_by_sender_plain` is its plain version): the d(h) reduction
 that the JAX package runs after the TPU kernel (ops/cuda/segment_sum.py)
-is inside it. Its warps take items, runs of at most L slots of one
-sender (build.sender_items), a longer run cut into several whose partial
-d(h) rows the backward's tail adds in item order
-(`v5_backward_split_plain` is that association's plain version). Rows
-wider than WIDE_D = 256 floats from a bfloat16 table (whose library has
-no wide plan by sender) take the older wide form: per-edge rows
-(`v5_backward_plain`, the TPU kernel's contract), d(a_src) by sender
-(`dasrc_by_sender`, kernel v5_dasrc) and then the d(h) reduce
-(`by_sender_on_card` says which). `v5_forward_plain` is the forward's
-plain version.
+is inside it, at every row width and table type. Its warps take items,
+runs of at most L slots of one sender (build.sender_items), a longer run
+cut into several whose partial d(h) rows the backward's tail adds in item
+order (`v5_backward_split_plain` is that association's plain version, and
+the backward on CPU tensors). `v5_backward_plain` keeps the TPU kernel's
+per-edge rows, the contract the versions by sender are built on.
+`v5_forward_plain` is the forward's plain version.
 
 Every kernel here, and every windowed one (window_attention.py), takes
 its raw logit from the source-score table s_src = h @ a_src
@@ -74,10 +71,9 @@ backward and the cap chain read rounded rows (d(h) stays float32). The
 op hands its kernels the policy (rounding.Rounding) and, in the table
 mode, a bfloat16 table cast once; an explicit `rounding` (the v6 form of
 window_attention.fused_gat_window, which runs on these kernels) replaces
-the knobs. GAT_TPU_DH_REDUCE_NT=0 (segment_sum.dh_transposed) reduces
-d(h) through the feature-major kernel where a reduce runs: the wide form
-of a bfloat16 table on the card, and the CPU route. It changes no value
-in the JAX package, and the kernel by sender does not read it.
+the knobs. GAT_TPU_DH_REDUCE_NT, which picks the form of the JAX
+package's d(h) reduce and changes no value there, is not read: the
+backward by sender runs no reduce after it.
 """
 
 from __future__ import annotations
@@ -94,8 +90,7 @@ from . import build
 from .build import sender_runs
 from .rounding import (BF16_TABLE, FLOAT32, Rounding, check_table,
                        maybe_bf16)
-from .segment_sum import (dh_reduce, dh_reduce_plain, dh_transposed,
-                          segment_sum_sorted_plain)
+from .segment_sum import dh_reduce_plain, segment_sum_sorted_plain
 
 _KERNEL = "v5_attention"
 MAX_HEADS = 8
@@ -140,12 +135,6 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.v5_forward.argtypes = ([p] * 6 + [i] * 5 + [fl] + [p] * 6
                                    + plan + [i, i, p])
         lib.v5_forward.restype = ctypes.c_int
-        lib.v5_backward.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 9
-                                    + [i, i, p])
-        lib.v5_backward.restype = ctypes.c_int
-        lib.v5_backward_parts.argtypes = ([p] * 7 + [i] * 5 + [fl] + [p] * 7
-                                          + [i, i, p])
-        lib.v5_backward_parts.restype = ctypes.c_int
         lib.v5_backward_by_sender.argtypes = ([p] * 10 + [i] * 10
                                               + [fl] * 2 + [p] * 14
                                               + [i] * 6 + [p])
@@ -155,11 +144,6 @@ def _lib(bf16_table: bool = False) -> ctypes.CDLL:
         lib.v5_forward_two_phase.argtypes = ([p] * 7 + [i] * 5 + [fl] * 2
                                              + [p] * 2 + plan + [i, i, p])
         lib.v5_forward_two_phase.restype = ctypes.c_int
-        lib.v5_backward_two_phase.argtypes = ([p] * 8 + [i] * 5 + [fl] * 2
-                                              + [p] * 8 + [i, i, p])
-        lib.v5_backward_two_phase.restype = ctypes.c_int
-        lib.v5_dasrc.argtypes = [p] * 4 + [i] * 3 + [p, i, p, i, i, p]
-        lib.v5_dasrc.restype = ctypes.c_int
         _configured.add(name)
     return lib
 
@@ -524,7 +508,8 @@ def attention_backward_plain(h, a_src, s_dst_eff, drop, snd, rcv, valid,
     `epsp` is the plain eps, and d_cap () = -sum d(raw) (float32) comes
     fifth. rounding: rows, payload, d_h, d_raw and d_sdst are read.
     with_draw: d(raw) (E, nh), rounded as d(a_src) reads it, comes last
-    (the wide backward's per-edge rows, 0 on slots that are no edges)."""
+    (0 on slots that are no edges), which the versions by sender sum per
+    sender for d(a_src)."""
     n, nh = s_dst_eff.shape
     e, d = snd.shape[0], h.shape[1]
     f = d // nh
@@ -626,82 +611,6 @@ def v5_backward_two_phase_plain(h, a_src, s_dst, cap, drop, senders,
         with_draw=with_draw, s_src=s_src)
 
 
-# -- the wide backward's d(a_src), by sender ----------------------------------
-#
-# Rows wider than WIDE_D floats from a bfloat16 table take the backward
-# kernel's wide form on the card (csrc/v5_attention.cu, kWideC), and the
-# CPU route takes its steps at every table: it writes each edge's d(raw)
-# row (E, nh) and leaves d(a_src) to v5_dasrc, which sums those rows by
-# sender, S = (n_src, nh), and takes h^T S in per-block partials and an
-# ordered second pass. The steps below are the same on the CPU (plain)
-# and on the card (the kernel), so the CPU runs this plumbing too.
-
-WIDE_D = 256
-
-
-def wide_form(d: int) -> bool:
-    """Whether rows of width d are wide: the CPU route takes d(a_src) by
-    sender from the per-edge d(raw) rows there."""
-    return d > WIDE_D
-
-
-def by_sender_on_card(d: int, rounding: Rounding = FLOAT32) -> bool:
-    """Whether the backward on the card at row width d runs by sender
-    (C entry v5_backward_by_sender): at every width of a float32 table; of
-    a bfloat16 table (whose library instantiates no wide plan) at
-    WIDE_D floats or fewer, the wide form above that."""
-    return not (rounding.table and wide_form(d))
-
-
-def dasrc_by_sender_plain(h, draw, order, ptr, rounding: Rounding = FLOAT32):
-    """h^T S, S[s] = the sum of draw's rows of sender s's edges (in the
-    order of `order`, the runs `ptr`); h the table the kernel reads, its
-    rows rounded as d(a_src) reads them (rows)."""
-    s_rows = segment_sum_sorted_plain(draw, None, ptr.shape[0] - 1,
-                                      order=order, ptr=ptr)
-    return maybe_bf16(h.float(), rounding.rows).t() @ s_rows
-
-
-def _dasrc_cuda(h, draw, order, ptr, part, rounding: Rounding):
-    """The ordered sum (stride,) of v5_dasrc's partial rows, `part`
-    (nblk, stride) as the backward kernel left it."""
-    dev = h.device
-    n_src, d = h.shape
-    nh = draw.shape[1]
-    build.require(draw, "draw", dev, torch.float32, (None, nh))
-    build.require(order, "src_order", dev, torch.int32, (None,))
-    build.require(ptr, "src_ptr", dev, torch.int32, (n_src + 1,))
-    nblk, stride = part.shape
-    out = torch.empty((stride,), dtype=torch.float32, device=dev)
-    p = build.ptr
-    with torch.cuda.device(dev):
-        err = _lib(rounding.table).v5_dasrc(
-            p(h), p(draw), p(order), p(ptr), n_src, d, nh, p(part), stride,
-            p(out), nblk, rounding.flags(), build.stream(dev))
-    build.check(err, "v5_dasrc")
-    build.LAUNCHES["v5_dasrc"] += 1
-    return out
-
-
-def dasrc_by_sender(h, draw, order, ptr, rounding: Rounding = FLOAT32,
-                    part=None):
-    """d(a_src) (d, nh) of the wide backward from its per-edge d(raw) rows
-    draw (E, nh), by sender (sender_runs gives order and ptr). Kernel on
-    CUDA tensors: `part` is the (nblk, stride) partial rows the backward
-    kernel launched over (a fresh one where None); the whole ordered sum
-    (stride,) comes second (its last entry the 2-phase backward's d(cap)
-    where stride = d*nh + 1). Plain version on CPU tensors (second None)."""
-    d, nh = h.shape[1], draw.shape[1]
-    if h.is_cuda:
-        if part is None:
-            part = torch.empty((build.grid_blocks(h.shape[0]), d * nh),
-                               dtype=torch.float32, device=h.device)
-        flat = _dasrc_cuda(h, draw, order, ptr, part, rounding)
-        return flat[:d * nh].view(d, nh), flat
-    build.require_cpu(h)
-    return dasrc_by_sender_plain(h, draw, order, ptr, rounding), None
-
-
 # -- the backward by sender --------------------------------------------------
 #
 # On the card the backward kernel is owned by senders
@@ -717,17 +626,23 @@ def dasrc_by_sender(h, draw, order, ptr, rounding: Rounding = FLOAT32,
 # items' partial rows in item order; d(a_src) takes h[s]^T S per item. The
 # split plain versions have that association: the same terms, so within
 # float32 rounding of the by-sender ones, to the bits where no run is cut.
+# The item table depends on no device (build.grid_blocks and
+# WARPS_PER_BLOCK are constants), so the backward on CPU tensors is the
+# split plain version.
 
 def _by_sender_plain(grads, h, senders, e_real: int, src_order, src_ptr,
                      rounding: Rounding):
     """A plain backward's grads (with draw last) by sender: its per-edge
     d(h) rows summed per node over sender_runs (dh_reduce_plain), d(a_src)
-    taken as h^T S (dasrc_by_sender_plain); draw dropped."""
+    taken as h^T S, S the per-sender sums of draw, h's rows rounded as
+    d(a_src) reads them; draw dropped."""
     *grads, draw = grads
-    order, ptr = sender_runs(senders, e_real, h.shape[0], src_order,
-                             src_ptr)
+    n_src = h.shape[0]
+    order, ptr = sender_runs(senders, e_real, n_src, src_order, src_ptr)
     grads[0] = dh_reduce_plain(grads[0], order, ptr)
-    grads[3] = dasrc_by_sender_plain(h, draw, order, ptr, rounding)
+    s_rows = segment_sum_sorted_plain(draw, None, n_src, order=order,
+                                      ptr=ptr)
+    grads[3] = maybe_bf16(h.float(), rounding.rows).t() @ s_rows
     return tuple(grads)
 
 
@@ -906,8 +821,8 @@ def _v5_backward_by_sender_cuda(name, h, a_src, s_src, s_dst, drop,
                                 cap, need_drop: bool, rounding: Rounding,
                                 dst_ptr, src_order, src_ptr):
     """One call of the C entry v5_backward_by_sender in the mode of
-    `name` (by_sender_on_card): (d_h (rows of h, d) per node, d_drop |
-    None, d_sdst, d_asrc (d*nh [+ 1])). Its warps take the items of the
+    `name`: (d_h (rows of h, d) per node, d_drop | None, d_sdst, d_asrc
+    (d*nh [+ 1])). Its warps take the items of the
     sender runs (build.sender_items, built on the first call with the
     caller's runs or senders and kept); counts the real slots (counter
     bwd_slots) and those in cut runs (bwd_split_slots)."""
@@ -966,7 +881,7 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
                       e_real: int, slope: float, g, out, den, epsp,
                       need_drop: bool, normalize: bool = True, dst_ptr=None,
                       rounding: Rounding = FLOAT32, src_order=None,
-                      src_ptr=None, s_src=None, transposed: bool = False):
+                      src_ptr=None, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst_eff, drop, senders,
                                      receivers, e_real, rounding)
     build.require(g, "g", dev, torch.float32, (n, d))
@@ -978,43 +893,12 @@ def _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders, receivers,
         return empty_grads(h.shape[0], n, d, nh, e, need_drop, dev)
     s_src = scores_of(h, a_src, s_src)
     name = "v5_backward" if normalize else "v5_backward_parts"
-    if by_sender_on_card(d, rounding):
-        d_h, d_drop, d_sdst, d_asrc = _v5_backward_by_sender_cuda(
-            name, h, a_src, s_src, s_dst_eff, drop, senders, receivers,
-            e_real, slope, 0.0, g, out if normalize else None, den,
-            epsp if normalize else None, None, need_drop, rounding,
-            dst_ptr, src_order, src_ptr)
-        return d_h, d_drop, d_sdst, d_asrc.view(d, nh)
-    # the wide form of a bfloat16 table: per-edge rows, d(a_src) by sender
-    # (v5_dasrc), then the rows summed by sender (row 3, or row 4 where
-    # `transposed`)
-    row_ptr = build.row_offsets(receivers, n, dst_ptr)
-    nblk = build.grid_blocks(n)
-    f32 = dict(dtype=torch.float32, device=dev)
-    d_h_rows = torch.empty((e, d), **f32)
-    d_drop = torch.empty((e, nh), **f32) if need_drop else None
-    d_sdst = torch.empty((n, nh), **f32)
-    part = torch.empty((nblk, d * nh), **f32)
-    draw = torch.empty((e, nh), **f32)
-    p = build.ptr
-    lib = _lib(rounding.table)
-    graph_args = (p(h), p(a_src), p(s_src), p(s_dst_eff), p(drop),
-                  p(senders), p(row_ptr), n, e_real, d, nh, d // nh, slope)
-    outputs = (p(d_h_rows), p(d_drop), p(d_sdst), p(part), p(draw), nblk,
-               rounding.flags(), build.stream(dev))
-    with torch.cuda.device(dev):
-        if normalize:
-            err = lib.v5_backward(*graph_args, p(g), p(out), p(den), p(epsp),
-                                  *outputs)
-        else:       # g is d(num), den is d(den)
-            err = lib.v5_backward_parts(*graph_args, p(g), p(den), *outputs)
-    build.check(err, name)
-    build.LAUNCHES[rounding.counter(name)] += 1
-    order, ptr = sender_runs(senders, e_real, h.shape[0], src_order, src_ptr)
-    d_asrc, _ = dasrc_by_sender(h, draw, order, ptr, rounding, part)
-    d_h = dh_reduce(d_h_rows, order, senders, h.shape[0], e_real,
-                    transposed, src_ptr=ptr)
-    return d_h, d_drop, d_sdst, d_asrc
+    d_h, d_drop, d_sdst, d_asrc = _v5_backward_by_sender_cuda(
+        name, h, a_src, s_src, s_dst_eff, drop, senders, receivers, e_real,
+        slope, 0.0, g, out if normalize else None, den,
+        epsp if normalize else None, None, need_drop, rounding, dst_ptr,
+        src_order, src_ptr)
+    return d_h, d_drop, d_sdst, d_asrc.view(d, nh)
 
 
 def _v5_cap_cuda(h, a_src, s_dst, senders, receivers, e_real: int,
@@ -1070,8 +954,7 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
                                 receivers, e_real: int, eps: float,
                                 slope: float, g, out, den, need_drop: bool,
                                 rounding: Rounding = FLOAT32, dst_ptr=None,
-                                src_order=None, src_ptr=None, s_src=None,
-                                transposed: bool = False):
+                                src_order=None, src_ptr=None, s_src=None):
     dev, n, e, d, nh = _check_inputs(h, a_src, s_dst, drop, senders,
                                      receivers, e_real, rounding)
     build.require(cap, "cap", dev, torch.float32, ())
@@ -1081,35 +964,10 @@ def _v5_backward_two_phase_cuda(h, a_src, s_dst, cap, drop, senders,
     if e_real == 0:
         return empty_grads(h.shape[0], n, d, nh, e, need_drop, dev, True)
     s_src = scores_of(h, a_src, s_src)
-    if by_sender_on_card(d, rounding):
-        d_h, d_drop, d_sdst, d_asrc_cap = _v5_backward_by_sender_cuda(
-            "v5_backward_two_phase", h, a_src, s_src, s_dst, drop, senders,
-            receivers, e_real, slope, eps, g, out, den, None, cap, need_drop,
-            rounding, dst_ptr, src_order, src_ptr)
-        return (d_h, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
-                d_asrc_cap[d * nh])
-    row_ptr = build.row_offsets(receivers, n, dst_ptr)
-    nblk = build.grid_blocks(n)
-    f32 = dict(dtype=torch.float32, device=dev)
-    d_h_rows = torch.empty((e, d), **f32)
-    d_drop = torch.empty((e, nh), **f32) if need_drop else None
-    d_sdst = torch.empty((n, nh), **f32)
-    part = torch.empty((nblk, d * nh + 1), **f32)
-    draw = torch.empty((e, nh), **f32)
-    p = build.ptr
-    with torch.cuda.device(dev):
-        err = _lib(rounding.table).v5_backward_two_phase(
-            p(h), p(a_src), p(s_src), p(s_dst), p(cap), p(drop),
-            p(senders), p(row_ptr), n, e_real, d, nh, d // nh, eps, slope,
-            p(g), p(out), p(den), p(d_h_rows), p(d_drop), p(d_sdst),
-            p(part), p(draw), nblk, rounding.flags(), build.stream(dev))
-    build.check(err, "v5_backward_two_phase")
-    build.LAUNCHES[rounding.counter("v5_backward_two_phase")] += 1
-    # d(a_src), then the kernel's d(cap) column; the rows by sender
-    order, ptr = sender_runs(senders, e_real, h.shape[0], src_order, src_ptr)
-    _, d_asrc_cap = dasrc_by_sender(h, draw, order, ptr, rounding, part)
-    d_h = dh_reduce(d_h_rows, order, senders, h.shape[0], e_real,
-                    transposed, src_ptr=ptr)
+    d_h, d_drop, d_sdst, d_asrc_cap = _v5_backward_by_sender_cuda(
+        "v5_backward_two_phase", h, a_src, s_src, s_dst, drop, senders,
+        receivers, e_real, slope, eps, g, out, den, None, cap, need_drop,
+        rounding, dst_ptr, src_order, src_ptr)
     return (d_h, d_drop, d_sdst, d_asrc_cap[:d * nh].view(d, nh),
             d_asrc_cap[d * nh])
 
@@ -1133,58 +991,30 @@ def v5_forward(h, a_src, s_dst_eff, drop, senders, receivers,
         rounding, scores_of(h, a_src, s_src))
 
 
-def _per_node(grads, h, senders, e_real, src_order, src_ptr, rounding,
-              transposed: bool, wide: bool):
-    """A plain backward's grads as the op's CPU route takes them: the
-    per-edge d(h) rows (index 0) reduced by sender with the JAX package's
-    d(h) reduce (dh_reduce, the feature-major form where `transposed`)
-    and, at wide rows, d(a_src) (index 3) by sender from its draw (last,
-    dropped) as the wide form takes it."""
-    grads = list(grads)
-    if wide:
-        draw = grads.pop()
-        grads[3] = dasrc_by_sender(
-            h, draw, *sender_runs(senders, e_real, h.shape[0], src_order,
-                                  src_ptr), rounding)[0]
-    grads[0] = dh_reduce(grads[0], src_order, senders, h.shape[0], e_real,
-                         transposed, src_ptr=src_ptr)
-    return tuple(grads)
-
-
 def v5_backward(h, a_src, s_dst_eff, drop, senders, receivers,
                 e_real: int, slope: float, g, out, den, epsp,
                 need_drop: bool, normalize: bool = True, dst_ptr=None,
                 rounding: Rounding = FLOAT32, *, src_order=None,
-                src_ptr=None, s_src=None, transposed: bool = False):
+                src_ptr=None, s_src=None):
     """(d_h (rows of h, D) per node, d_drop (E, nh) | None, d_s_dst (N,
     nh), d_a_src (D, nh)) before the cap chain. normalize=False is the
     parts mode (attention_backward_plain says what `g` and `den` carry
     then); it counts as "v5_backward_parts". src_order and src_ptr: the
     real edges' sender runs (sender_runs), derived where None. s_src: as
-    v5_forward's.
-
-    On CUDA tensors the kernel by sender (C entry v5_backward_by_sender:
-    three launches, two in the parts mode, d(h) per node, reading no
-    knob) where by_sender_on_card;
-    rows over WIDE_D floats of a bfloat16 table the wide form (per-edge
-    rows, v5_dasrc, then the d(h) reduce, feature-major where
-    `transposed`, the op's GAT_TPU_DH_REDUCE_NT=0). On CPU tensors the JAX
-    package's route: the plain per-edge rows, then the d(h) reduce in the
-    form `transposed` names (d(a_src) by sender at wide rows)."""
+    v5_forward's. The backward by sender at every row width and table
+    type: on CUDA tensors the kernel (C entry v5_backward_by_sender: three
+    launches, two in the parts mode), on CPU tensors its plain version in
+    the kernel's association (v5_backward_split_plain)."""
     if h.is_cuda:
         return _v5_backward_cuda(h, a_src, s_dst_eff, drop, senders,
                                  receivers, e_real, slope, g, out, den,
                                  epsp, need_drop, normalize, dst_ptr,
-                                 rounding, src_order, src_ptr, s_src,
-                                 transposed)
+                                 rounding, src_order, src_ptr, s_src)
     build.require_cpu(h)
-    wide = wide_form(h.shape[1])
-    grads = v5_backward_plain(
+    return v5_backward_split_plain(
         h, a_src, s_dst_eff, drop, senders, receivers, e_real, slope, g,
-        out, den, epsp, need_drop, normalize, rounding, with_draw=wide,
-        s_src=scores_of(h, a_src, s_src))
-    return _per_node(grads, h, senders, e_real, src_order, src_ptr,
-                     rounding, transposed, wide)
+        out, den, epsp, need_drop, normalize, rounding,
+        scores_of(h, a_src, s_src), src_order, src_ptr)
 
 
 def v5_cap(h, a_src, s_dst, senders, receivers, e_real: int,
@@ -1224,25 +1054,22 @@ def v5_backward_two_phase(h, a_src, s_dst, cap, drop, senders, receivers,
                           e_real: int, eps: float, slope: float, g, out, den,
                           need_drop: bool, rounding: Rounding = FLOAT32, *,
                           dst_ptr=None, src_order=None, src_ptr=None,
-                          s_src=None, transposed: bool = False):
+                          s_src=None):
     """(d_h (rows of h, D) per node, d_drop | None, d_s_dst, d_a_src,
-    d_cap) of the 2-phase op: the kernel by sender on CUDA tensors (the
-    wide form and the d(h) reduce where not by_sender_on_card), the JAX
-    package's route on CPU tensors, as v5_backward's. dst_ptr, s_src: as
-    v5_forward's; src_order, src_ptr, transposed: as v5_backward's."""
+    d_cap) of the 2-phase op: the kernel by sender on CUDA tensors, its
+    plain version in the kernel's association
+    (v5_backward_two_phase_split_plain) on CPU tensors. dst_ptr, s_src: as
+    v5_forward's; src_order, src_ptr: as v5_backward's."""
     if h.is_cuda:
         return _v5_backward_two_phase_cuda(
             h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps,
             slope, g, out, den, need_drop, rounding, dst_ptr, src_order,
-            src_ptr, s_src, transposed)
+            src_ptr, s_src)
     build.require_cpu(h)
-    wide = wide_form(h.shape[1])
-    grads = v5_backward_two_phase_plain(
+    return v5_backward_two_phase_split_plain(
         h, a_src, s_dst, cap, drop, senders, receivers, e_real, eps, slope,
-        g, out, den, need_drop, rounding, with_draw=wide,
-        s_src=scores_of(h, a_src, s_src))
-    return _per_node(grads, h, senders, e_real, src_order, src_ptr,
-                     rounding, transposed, wide)
+        g, out, den, need_drop, rounding, scores_of(h, a_src, s_src),
+        src_order, src_ptr)
 
 
 # -- the differentiable op ----------------------------------------------------
@@ -1311,7 +1138,7 @@ class _V5Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, drop_mask, senders, receivers,
                 src_order, src_ptr, dst_ptr, bound, e_real, nh, eps, slope,
-                rounding, dh_t):
+                rounding):
         h_k = rounding.table_of(h_flat)
         s_src = op_scores(h_k, a_src)
         if bound is None:
@@ -1326,7 +1153,7 @@ class _V5Attention(torch.autograd.Function):
                               senders, receivers, src_order, src_ptr,
                               dst_ptr, den, out, epsp, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
-        ctx.rounding, ctx.dh_t = rounding, dh_t
+        ctx.rounding = rounding
         return out
 
     @staticmethod
@@ -1341,11 +1168,11 @@ class _V5Attention(torch.autograd.Function):
             h_k, a_src, s_dst_eff, drop_mask, senders, receivers,
             ctx.e_real, slope, g, out, den, epsp, need_drop,
             dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
-            src_ptr=src_ptr, s_src=s_src, transposed=ctx.dh_t)
+            src_ptr=src_ptr, s_src=s_src)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, cap_cotangent(g, out, den, epsp, slope, nh),
             code, senders, receivers, h_k, a_src, nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 12
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 11
 
 
 def _check_table_shapes(h_flat, s_dst, num_nodes, n_src, nh, f):
@@ -1406,7 +1233,7 @@ def fused_gat_table_autocap(h_flat: torch.Tensor,
                               src_order, src_ptr, dst_ptr,
                               None if score_bound is None
                               else score_bound.detach(), int(e_real), nh,
-                              eps, slope, rounding, dh_transposed())
+                              eps, slope, rounding)
 
 
 @op_spans("v5_local_cap")
@@ -1467,7 +1294,7 @@ class _V5TwoPhase(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst, cap, drop_mask, senders,
                 receivers, src_order, src_ptr, dst_ptr, e_real, eps, slope,
-                rounding, dh_t, s_src):
+                rounding, s_src):
         h_k = rounding.table_of(h_flat)
         s_src = op_scores(h_k, a_src, s_src)
         out, den = v5_forward_two_phase(h_k, a_src, s_dst, cap, drop_mask,
@@ -1478,7 +1305,7 @@ class _V5TwoPhase(torch.autograd.Function):
                               senders, receivers, src_order, src_ptr,
                               dst_ptr, out, den)
         ctx.e_real, ctx.eps, ctx.slope = e_real, eps, slope
-        ctx.rounding, ctx.dh_t = rounding, dh_t
+        ctx.rounding = rounding
         return out
 
     @staticmethod
@@ -1492,8 +1319,8 @@ class _V5TwoPhase(torch.autograd.Function):
             h_k, a_src, s_dst, cap, drop_mask, senders, receivers,
             ctx.e_real, ctx.eps, ctx.slope, g.contiguous(), out, den,
             need_drop, ctx.rounding, dst_ptr=dst_ptr, src_order=src_order,
-            src_ptr=src_ptr, s_src=s_src, transposed=ctx.dh_t)
-        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 11
+            src_ptr=src_ptr, s_src=s_src)
+        return (d_h, d_asrc, d_sdst, d_cap, d_drop) + (None,) * 10
 
 
 def fused_gat_table(h_flat: torch.Tensor,
@@ -1537,8 +1364,7 @@ def fused_gat_table(h_flat: torch.Tensor,
     return _V5TwoPhase.apply(h_flat.contiguous(), a_src.contiguous(),
                              s_dst.contiguous(), cap.reshape(()), drop_mask,
                              senders, receivers, src_order, src_ptr, dst_ptr,
-                             int(e_real), eps, slope, rounding,
-                             dh_transposed(), s_src)
+                             int(e_real), eps, slope, rounding, s_src)
 
 
 @op_spans("v5_sweep1_parts")
@@ -1547,7 +1373,7 @@ class _V5Sweep1Parts(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h_flat, a_src, s_dst_eff, drop_mask, senders, receivers,
                 src_order, dst_ptr, src_ptr, e_real, nh, slope, rounding,
-                dh_t, s_src):
+                s_src):
         h_k = rounding.table_of(h_flat)
         if e_real == 0:     # no edges: no score pass either
             num, den, cap, code = empty_parts(
@@ -1561,7 +1387,7 @@ class _V5Sweep1Parts(torch.autograd.Function):
                               senders, receivers, src_order, dst_ptr,
                               src_ptr, code)
         ctx.e_real, ctx.nh, ctx.slope = e_real, nh, slope
-        ctx.rounding, ctx.dh_t = rounding, dh_t
+        ctx.rounding = rounding
         ctx.mark_non_differentiable(code)
         return num, den, cap, code
 
@@ -1574,7 +1400,7 @@ class _V5Sweep1Parts(torch.autograd.Function):
             d_h, d_drop, d_sdst, d_asrc = empty_grads(
                 h_k.shape[0], s_dst_eff.shape[0], h_k.shape[1], ctx.nh,
                 senders.shape[0], need_drop, h_k.device)
-            return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 11
+            return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 10
         # senders index the h table, which may have more rows than the
         # destinations: d(h) has the table's rows
         d_h, d_drop, d_sdst, d_asrc = v5_backward(
@@ -1582,11 +1408,11 @@ class _V5Sweep1Parts(torch.autograd.Function):
             ctx.e_real, ctx.slope, d_num.contiguous(), None,
             d_den.contiguous(), None, need_drop, normalize=False,
             dst_ptr=dst_ptr, rounding=ctx.rounding, src_order=src_order,
-            src_ptr=src_ptr, s_src=s_src, transposed=ctx.dh_t)
+            src_ptr=src_ptr, s_src=s_src)
         d_h, d_asrc, d_sdst = route_cap_cotangent(
             d_h, d_asrc, d_sdst, d_cap, code, senders, receivers, h_k,
             a_src, ctx.nh)
-        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 11
+        return (d_h, d_asrc, d_sdst, d_drop) + (None,) * 10
 
 
 def v5_sweep1_parts(h_flat: torch.Tensor,
@@ -1637,4 +1463,4 @@ def v5_sweep1_parts(h_flat: torch.Tensor,
     return _V5Sweep1Parts.apply(
         h_flat.contiguous(), a_src.contiguous(), s_dst.contiguous(),
         drop_mask, senders, receivers, src_order, dst_ptr, src_ptr,
-        int(e_real), nh, slope, v5_rounding(), dh_transposed(), s_src)
+        int(e_real), nh, slope, v5_rounding(), s_src)

@@ -2,9 +2,9 @@
 
 `Graph.src_ptr` (each sender's run of real edges in src_order) and
 `Graph.dst_ptr` (each destination's run of edges) are built once with the
-graph; the kernel ops take them in place of deriving them per call, so the
-d(h) reduce of a backward is one launch on the card. Held here, on the
-CPU:
+graph; the kernel ops take them in place of deriving them per call (the
+backwards by sender as their sender runs, dh_reduce as one launch on the
+card). Held here, on the CPU:
   * the offsets of the Cora stand-in, of a PPI batch of InductiveBatcher
     and of each shard of a 4-way edge_shard equal np.searchsorted over the
     JAX package's canonicalize output (senders[src_order[:E_real]] and
@@ -36,6 +36,7 @@ from gat_pytorch_tpu_torch.data import synthetic as tsyn
 from gat_pytorch_tpu_torch.graph.graph import from_numpy
 from gat_pytorch_tpu_torch.models import gat as tgat
 from gat_pytorch_tpu_torch.ops.cuda import segment_sum as tss
+from gat_pytorch_tpu_torch.ops.cuda import v5_attention as tv5
 from gat_pytorch_tpu_torch.parallel import edge_shard
 
 from .test_torch_knobs import default_knobs  # noqa: F401
@@ -191,13 +192,14 @@ def test_model_with_carried_offsets_matches_jax(monkeypatch):
     assert tg.src_ptr is not None and tg.dst_ptr is not None
     jlogits, jgrads = jax_loss_and_grads(jcfg, jg, jparams, "pallas")
     by_offsets = []
-    reduce_ptr = tss.dh_reduce_ptr
+    runs = tv5.sender_runs
 
-    def counted(rows, order, ptr, transposed=False):
-        by_offsets.append(ptr is tg.src_ptr)
-        return reduce_ptr(rows, order, ptr, transposed)
+    def counted(senders, e_real, n_src, src_order=None, src_ptr=None):
+        by_offsets.append(src_ptr is tg.src_ptr)
+        return runs(senders, e_real, n_src, src_order, src_ptr)
 
-    monkeypatch.setattr(tss, "dh_reduce_ptr", counted)
+    # the backward by sender takes the sender runs of its d(h) sums once
+    monkeypatch.setattr(tv5, "sender_runs", counted)
     tgat.PATH_TRACE.clear()
     tlogits = torch_loss_and_grads(tcfg, tg, tparams, "kernel")
     assert tgat.PATH_TRACE == ["v5", "v5"]

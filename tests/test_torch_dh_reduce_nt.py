@@ -11,9 +11,9 @@ the segment_sum_rows_t kernel. Held here:
     1e-6 of the scale (float32 sums in another order: the one-hot
     product against index_add);
   * the v5 ops (single sweep, 2-phase, sweep-1 parts by the layout's
-    offsets and per call) and the table op: under the knob their d(h)
-    goes through the feature-major form, and equals the default's bit
-    for bit (both forms add each sender's rows in ascending order).
+    offsets and per call) and the table op: their backwards sum d(h) by
+    sender and run no d(h) reduce, so under both values of the knob they
+    give the same bits and call neither form.
 """
 
 import jax.numpy as jnp
@@ -85,24 +85,31 @@ def test_both_forms_give_the_same_bits():
                       transposed=True)
 
 
+REDUCES = ("dh_reduce", "dh_reduce_ptr", "segment_rows_t_plain")
+
+
 def grads_under(monkeypatch, nt, fn, args):
-    """(d(args) of sum(sin(fn(*args))), calls of the feature-major plain
-    version) under GAT_TPU_DH_REDUCE_NT=nt."""
+    """(d(args) of sum(sin(fn(*args))), calls of the d(h) reduce in
+    either form) under GAT_TPU_DH_REDUCE_NT=nt."""
     monkeypatch.setenv("GAT_TPU_DH_REDUCE_NT", nt)
     calls = []
-    plain = tss.segment_rows_t_plain
+    plain = {name: getattr(tss, name) for name in REDUCES}
 
-    def counted(*a):
-        calls.append(a[0].shape)
-        return plain(*a)
+    def counted(name):
+        def call(*a, **kw):
+            calls.append(name)
+            return plain[name](*a, **kw)
+        return call
 
-    monkeypatch.setattr(tss, "segment_rows_t_plain", counted)
+    for name in REDUCES:
+        monkeypatch.setattr(tss, name, counted(name))
     leaves = [torch.tensor(a, requires_grad=True) for a in args]
     out = fn(*leaves)
     if isinstance(out, tuple):
         out = torch.cat([t.reshape(-1) for t in out[:3]])
     torch.sin(out).sum().backward()
-    monkeypatch.setattr(tss, "segment_rows_t_plain", plain)
+    for name in REDUCES:
+        monkeypatch.setattr(tss, name, plain[name])
     return [t.grad for t in leaves], len(calls)
 
 
@@ -140,6 +147,9 @@ def v5_ops(c):
 @pytest.mark.parametrize("op", ["autocap", "two-phase", "parts",
                                 "parts by offsets", "table"])
 def test_ops_take_the_feature_major_form_under_the_knob(op, monkeypatch):
+    """The knob picks the form of the JAX package's d(h) reduce, which the
+    ops' backwards by sender no longer run: under either value they give
+    the same bits and call no reduce, row-major or feature-major."""
     c = v5_case(4, 8, False, seed=5, n_src=300)
     if op in ("autocap", "two-phase", "table"):
         c = v5_case(4, 8, False, seed=5)
@@ -147,7 +157,7 @@ def test_ops_take_the_feature_major_form_under_the_knob(op, monkeypatch):
     fn = v5_ops(c)[op]
     default, calls = grads_under(monkeypatch, "1", fn, args)
     assert calls == 0
-    transposed, calls = grads_under(monkeypatch, "0", fn, args)
-    assert calls == 1
-    for a, b in zip(transposed, default):
+    knob, calls = grads_under(monkeypatch, "0", fn, args)
+    assert calls == 0
+    for a, b in zip(knob, default):
         assert torch.equal(a, b)

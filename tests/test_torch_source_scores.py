@@ -5,8 +5,10 @@ call, s_src = h @ a_src (ops/cuda/v5_attention.source_scores), which the
 op's autograd Function computes once in its forward, hands to its cap
 pass and saves for its backward. On CPU tensors the port runs the plain
 versions of its kernels, which read the same table. Held here:
-  * source_scores_plain against jnp.dot(h, a_src) at 1e-6 of
-    max(|ref|, 1), from a float32 table and from a bfloat16-rounded one;
+  * source_scores_plain against jnp.dot(h, a_src) at 1e-5 of
+    max(|ref|, 1), the v5 op's output tolerance (two float32 products in
+    the orders of two BLAS builds), from a float32 table and from a
+    bfloat16-rounded one;
   * the v5 ops (sweep-1, parts, 2-phase) and the windowed ops (sweep-1,
     2-phase) against the JAX package's, run as its own tests run them
     (Pallas in interpret mode; the windowed ones with float32
@@ -69,8 +71,10 @@ def test_source_scores_plain_matches_jnp_dot(nh, f, bf16):
     got = tv5.source_scores(h_t, torch.tensor(a))
     assert got.dtype == torch.float32 and got.shape == (h.shape[0], nh)
     assert torch.equal(got, tv5.source_scores_plain(h_t, torch.tensor(a)))
+    # two float32 products of up to 1024 terms, each BLAS build summing in
+    # its own order: held as the v5 op's outputs are, which carry them
     scale = max(float(np.abs(want).max()), 1.0)
-    assert float(np.abs(got.numpy() - want).max()) <= 1e-6 * scale
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * scale
 
 
 # -- the ops against the JAX package -----------------------------------------

@@ -1,24 +1,27 @@
-"""The v5 op's backward by sender (row 2 at rows of 256 floats or fewer):
-d(h) summed by sender inside the backward and returned per node, in every
-mode.
+"""The v5 op's backward by sender (row 2): d(h) summed by sender inside
+the backward and returned per node, in every mode, at every row width
+and table type.
 
-On the card the backward entries (v5_backward in its normalised and parts
-modes, v5_backward_two_phase) run the kernel by sender at rows of WIDE_D
-floats or fewer, whose contract is the plain versions
-v5_backward_by_sender_plain and v5_backward_two_phase_by_sender_plain:
-d(h) (rows of h, D) per node, each sender's edges' d(h) terms summed in
-ascending position of its run of src_order, from 0, and d(a_src) = h^T S,
-S the per-sender sums of d(raw). chip_smoke.py holds the kernel to them.
-Here the plain versions are held:
+The backward entries (v5_backward in its normalised and parts modes,
+v5_backward_two_phase) run the kernel by sender on CUDA tensors, whose
+contract is the plain versions v5_backward_by_sender_plain and
+v5_backward_two_phase_by_sender_plain: d(h) (rows of h, D) per node, each
+sender's edges' d(h) terms summed in ascending position of its run of
+src_order, from 0, and d(a_src) = h^T S, S the per-sender sums of
+d(raw). chip_smoke.py holds the kernel to them. On CPU tensors the
+entries run the split plain versions, the same sums in the kernel's
+items (a long run cut, its partial rows added in item order). Here the
+plain versions are held:
   * to the route they replace, the TPU kernel's per-edge rows
     (v5_backward_plain) reduced by sender through dh_reduce_ptr: d(h),
     d(drop) and d(s_dst) to the bits; d(a_src) and d(cap), the same sums
-    in another association, within 1e-5 of max(1, |ref|); the ops' CPU
-    route (v5_backward and v5_backward_two_phase on CPU tensors: the rows,
-    then the JAX package's d(h) reduce) to the same d(h) bits;
-  * through the ops, their backward routed through the plain versions by
-    sender (as the card routes it through the kernel), to the JAX
-    package's VJP in interpret mode: fused_gat_table_autocap,
+    in another association, within 1e-5 of max(1, |ref|); the entries on
+    CPU tensors to the same d(h) bits where no run is cut;
+  * each op's backward on CPU tensors to its kernel's plain version bit
+    for bit, on a graph whose hub's run the kernel's items cut: the v5
+    op, its parts op and its 2-phase op (the split plain versions), and
+    the table op (table_backward_by_sender_plain);
+  * through the ops to the JAX package's VJP in interpret mode: fused_gat_table_autocap,
     v5_sweep1_parts with more source rows than destinations, the 2-phase
     fused_gat_table with more source rows and a cap below the largest
     logit, and the v6 form (window_attention.fused_gat_window). float32
@@ -42,6 +45,8 @@ from gat_pytorch_tpu.graph import transforms as JT
 from gat_pytorch_tpu.ops.pallas import segment_attention as jfsa
 from gat_pytorch_tpu.ops.pallas import segment_attention_window as jfsw
 from gat_pytorch_tpu_torch.graph import transforms as TT
+from gat_pytorch_tpu_torch.ops.cuda import build
+from gat_pytorch_tpu_torch.ops.cuda import table_attention as tv4
 from gat_pytorch_tpu_torch.ops.cuda import v5_attention as tv5
 from gat_pytorch_tpu_torch.ops.cuda import window_attention as tw
 from gat_pytorch_tpu_torch.ops.cuda.rounding import FLOAT32, Rounding
@@ -144,7 +149,7 @@ def test_by_sender_has_the_bits_of_the_per_edge_route(nh, f, mode,
                       src_ptr=ptr)
     for x, y in zip(got, again):
         assert torch.equal(x, y)
-    # the ops' CPU route: the rows, then the d(h) reduce
+    # the entries on CPU tensors, in the kernel's items: no run is cut here
     assert torch.equal(op_route(*args, **kw)[0], got[0])
     # senders without a real edge, destinations without one, padding edges
     idle = np.ones(N_SRC, bool)
@@ -229,21 +234,6 @@ OPS = {"autocap": autocap_fns, "parts": parts_fns,
        "two_phase": two_phase_fns}
 
 
-@pytest.fixture
-def by_sender(monkeypatch):
-    """The ops' backward through the plain versions by sender, the card
-    kernel's contract (the CPU route takes the per-edge rows and the JAX
-    package's d(h) reduce)."""
-    def bwd(*a, dst_ptr=None, transposed=False, **kw):
-        return tv5.v5_backward_by_sender_plain(*a, **kw)
-
-    def bwd2(*a, dst_ptr=None, transposed=False, **kw):
-        return tv5.v5_backward_two_phase_by_sender_plain(*a, **kw)
-
-    monkeypatch.setattr(tv5, "v5_backward", bwd)
-    monkeypatch.setattr(tv5, "v5_backward_two_phase", bwd2)
-
-
 def args_of(c):
     return [c[k] for k in ("h", "a_src", "s_dst", "drop")]
 
@@ -255,7 +245,7 @@ def args_of(c):
 @pytest.mark.parametrize("op,nh,f", [
     ("autocap", 8, 8), ("autocap", 1, 7), ("parts", 8, 8), ("parts", 8, 3),
     ("two_phase", 4, 12), ("two_phase", 8, 3)])
-def test_ops_by_sender_match_jax(op, nh, f, by_sender):
+def test_ops_by_sender_match_jax(op, nh, f):
     n_src = N if op == "autocap" else N_SRC
     c = sender_case(nh, f, seed=nh * 10 + f, n_src=n_src)
     (jout, jg), (tout, tg) = run_both(args_of(c), *OPS[op](c))
@@ -265,8 +255,7 @@ def test_ops_by_sender_match_jax(op, nh, f, by_sender):
 
 
 @pytest.mark.parametrize("op", ["autocap", "two_phase"])
-def test_ops_by_sender_bf16_table_mode_matches_jax(op, by_sender,
-                                                   monkeypatch):
+def test_ops_by_sender_bf16_table_mode_matches_jax(op, monkeypatch):
     """GAT_TPU_H_DTYPE=bfloat16 (the modes of the Cora bf16 fits): every
     product of the backward reads the rounded rows; d(h) stays
     float32."""
@@ -280,7 +269,7 @@ def test_ops_by_sender_bf16_table_mode_matches_jax(op, by_sender,
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
-def test_v6_form_by_sender_matches_jax(bf16, by_sender, monkeypatch):
+def test_v6_form_by_sender_matches_jax(bf16, monkeypatch):
     """fused_gat_window (the v6 form: the v5 2-phase entries over the
     graph's own edges) on a banded graph; its bfloat16 mode rounds the
     rows, each edge's d(h) term (kRoundDh) and d(raw) in d(a_src)."""
@@ -320,3 +309,120 @@ def test_v6_form_by_sender_matches_jax(bf16, by_sender, monkeypatch):
     f32 = run_both(args, jfn, tfn)[1]
     monkeypatch.delenv("GAT_TPU_V6_DTYPE")
     assert_bf16_mode(got, want, f32)
+
+
+# -- each op's backward on CPU tensors: its kernel's plain version -----------
+
+HUB = 150       # sender 3's slots: more than build.SPLIT_MIN, so cut
+
+
+def hub_case(nh, f, seed=31):
+    """sender_case's graph (N source rows) with HUB more real edges from
+    sender 3 into the even destinations, dst-sorted, the padding edges
+    last, and a dropout mask over them all."""
+    c = sender_case(nh, f, seed=seed, n_src=N)
+    rng = np.random.default_rng(seed)
+    er = c["e_real"]
+    send = np.concatenate([c["send"][:er], np.full(HUB, 3)])
+    recv = np.concatenate([c["recv"][:er],
+                           rng.choice(np.arange(0, N - 1, 2), HUB)])
+    by_dst = np.argsort(recv, kind="stable")
+    c.update(e_real=er + HUB,
+             send=np.concatenate([send[by_dst], c["send"][er:]]
+                                 ).astype(np.int32),
+             recv=np.concatenate([recv[by_dst], c["recv"][er:]]
+                                 ).astype(np.int32),
+             drop=(rng.random((er + HUB + PAD, nh)) > 0.4
+                   ).astype(np.float32) / 0.6)
+    c["order"] = np.argsort(c["send"], kind="stable").astype(np.int32)
+    return c
+
+
+def op_and_plain(op, c):
+    """(the leaves' gradients through the op for the loss sum(out * w),
+    the kernel's plain version's, in the same order)."""
+    t = {k: torch.tensor(c[k]) for k in ("h", "a_src", "s_dst", "drop",
+                                         "send", "recv", "order")}
+    h, a, s, drop = t["h"], t["a_src"], t["s_dst"], t["drop"]
+    send, recv, order = t["send"], t["recv"], t["order"]
+    er, nh, f = c["e_real"], c["nh"], c["f"]
+    w = torch.tensor(np.random.default_rng(4).normal(
+        size=(N, nh * f)).astype(np.float32))
+    s_src = tv5.source_scores_plain(h, a)
+    graph = (send, recv, er)
+    if op == "table":
+        raw = s_src.index_select(0, send.long()) + s.index_select(
+            0, recv.long())
+        lg = torch.where((torch.arange(send.shape[0]) < er)[:, None],
+                         SLOPE * (raw - raw.max()),
+                         torch.full_like(raw, tv4.NEG_INF))
+        leaves = [x.clone().requires_grad_(True) for x in (lg, h, drop)]
+        out = tv4.fused_segment_attention_table(
+            leaves[0], leaves[1], send, recv, leaves[2], order, N, nh, f,
+            EPS, er)
+        out_, den = tv4.table_forward_plain(lg, h, drop, send, recv, N, er,
+                                            EPS)
+        d_h, d_lg, d_drop = tv4.table_backward_by_sender_plain(
+            lg, h, drop, send, recv, er, EPS, w, out_, den, True, order)
+        want = (d_lg, d_h, d_drop)
+    elif op == "two_phase":
+        cap = torch.tensor(0.3)
+        leaves = [x.clone().requires_grad_(True) for x in (h, a, s, cap,
+                                                            drop)]
+        out = tv5.fused_gat_table(*leaves[:4], leaves[4], send, recv, order,
+                                  er, N, nh, f, 1.0, SLOPE)
+        fa = (h, a, s, cap, drop) + graph + (1.0, SLOPE)
+        out_, den = tv5.v5_forward_two_phase_plain(*fa, s_src=s_src)
+        d_h, d_drop, d_sdst, d_asrc, d_cap = (
+            tv5.v5_backward_two_phase_split_plain(*fa, w, out_, den, True,
+                                                  s_src=s_src))
+        want = (d_h, d_asrc, d_sdst, d_cap, d_drop)
+    elif op == "parts":
+        w_den = torch.tensor(np.random.default_rng(5).normal(
+            size=(N, nh)).astype(np.float32))
+        leaves = [x.clone().requires_grad_(True) for x in (h, a, s, drop)]
+        num, den, _, _ = tv5.v5_sweep1_parts(*leaves[:3], leaves[3], send,
+                                             recv, order, er, N, nh, f)
+        out, w = torch.cat([num, den], 1), torch.cat([w, w_den], 1)
+        fa = (h, a, s, drop) + graph + (SLOPE,)
+        _, _, _, code = tv5.v5_forward_plain(*fa, s_src=s_src)
+        d_h, d_drop, d_sdst, d_asrc = tv5.v5_backward_split_plain(
+            *fa, w[:, :nh * f], None, w_den, None, True, normalize=False,
+            s_src=s_src)
+        d_h, d_asrc, d_sdst = tv5.route_cap_cotangent(
+            d_h, d_asrc, d_sdst, torch.zeros(()), code, send, recv, h, a,
+            nh)
+        want = (d_h, d_asrc, d_sdst, d_drop)
+    else:
+        leaves = [x.clone().requires_grad_(True) for x in (h, a, s, drop)]
+        out = tv5.fused_gat_table_autocap(*leaves[:3], leaves[3], send,
+                                          recv, order, er, None, N, nh, f,
+                                          EPS, SLOPE)
+        s_eff = (s - tv5.score_bound_of(h, a, s, s_src)).contiguous()
+        fa = (h, a, s_eff, drop) + graph + (SLOPE,)
+        num, den, cap, code = tv5.v5_forward_plain(*fa, s_src=s_src)
+        out_, epsp = tv5.normalise(num, den, cap, EPS, SLOPE, nh)
+        d_h, d_drop, d_sdst, d_asrc = tv5.v5_backward_split_plain(
+            *fa, w, out_, den, epsp, True, s_src=s_src)
+        d_h, d_asrc, d_sdst = tv5.route_cap_cotangent(
+            d_h, d_asrc, d_sdst,
+            tv5.cap_cotangent(w, out_, den, epsp, SLOPE, nh), code, send,
+            recv, h, a, nh)
+        want = (d_h, d_asrc, d_sdst, d_drop)
+    (out * w).sum().backward()
+    return [x.grad for x in leaves], want
+
+
+@pytest.mark.parametrize("op", ["normalised", "parts", "two_phase",
+                                "table"])
+def test_op_cpu_backward_is_the_kernel_plain_version(op):
+    """On CPU tensors an op's backward takes no route of its own: its
+    gradients are its kernel's plain version's, bit for bit, here on a
+    graph whose hub's run the kernel's items cut."""
+    c = hub_case(4, 12)
+    ptr = build.sender_runs(torch.tensor(c["send"]), c["e_real"], N)[1]
+    assert build.sender_items(ptr, tv5.sender_warps(N)).n_split == 1
+    got, want = op_and_plain(op, c)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.equal(x, y)

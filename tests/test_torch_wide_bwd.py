@@ -1,20 +1,20 @@
-"""The v5 backward's wide form and the sorted segment sum with offsets,
-against the JAX package.
+"""The v5 ops at rows wider than 256 floats and the sorted segment sum
+with offsets, against the JAX package.
 
-Rows wider than 256 floats are wide: the CPU route takes d(a_src) by
-sender from the per-edge d(raw) rows (v5_attention.dasrc_by_sender), as
-the card does for a bfloat16 table's wide rows; the card runs a float32
-table's rows of every width by sender (by_sender_on_card). The same numpy
-inputs, made from a seed, go through both packages, the JAX ops in
+Rows wider than 256 floats take the backward by sender's wide plans (an
+item's sums and its sender's row in shared memory), from a float32 and
+from a bfloat16 table alike; on CPU tensors its plain version. The same
+numpy inputs, made from a seed, go through both packages, the JAX ops in
 interpret mode:
   * the v5 op, its parts op and its 2-phase op (v5_local_cap,
     fused_gat_table) at widths 320 (2 x 160 and 4 x 80), with and without
     dropout, at eps 1e-8 and 1, on a real argmax tie, and with more
     source rows than destinations: output 1e-5, cotangents 2e-5 of
     max(|ref|, 1), as tests/test_torch_v5_attention.py holds them;
-  * the draw -> S -> h^T S steps against the direct h^T draw, and the
-    backward with the graph's sender offsets against the one that derives
-    them (equal bits);
+  * the v5 op in the bfloat16 table mode (GAT_TPU_H_DTYPE) at those
+    widths, with the checks of tests/test_torch_bf16_window.py;
+  * the backward with the graph's sender offsets against the one that
+    derives them (equal bits);
   * gather_rows_sorted_grad with ptr= / num_real= against JAX
     gather_rows_src_sorted (interpret) on a PPI-like batch at 1e-6, and
     bit-equal to the call without offsets where the padding cotangent is
@@ -44,11 +44,10 @@ from gat_pytorch_tpu_torch.models import gat as tgat
 from gat_pytorch_tpu_torch.ops import segment as tseg
 from gat_pytorch_tpu_torch.ops.cuda import segment_sum as tss
 from gat_pytorch_tpu_torch.ops.cuda import v5_attention as tv5
-from gat_pytorch_tpu_torch.ops.cuda.rounding import FLOAT32, Rounding
-from gat_pytorch_tpu_torch.ops.cuda.window_attention import V6_BF16
 from gat_pytorch_tpu_torch.train.tasks import ppi_task as tppi_task
 from gat_pytorch_tpu_torch.utils.convert import params_from_jax
 
+from .test_torch_bf16_window import assert_bf16_mode
 from .test_torch_inductive import _small
 from .test_torch_knobs import default_knobs  # noqa: F401
 from .test_torch_parts import assert_close
@@ -56,24 +55,10 @@ from .test_torch_parts import assert_same as assert_parts_same
 from .test_torch_parts import v5_case, v5_parts_pair
 from .test_torch_two_phase_ops import NAMES, edge_arrays, jax_edges, run_both
 from .test_torch_v5_attention import assert_same, make_case
+from .test_torch_v5_by_sender import N, args_of, autocap_fns, sender_case
 
 SLOPE = 0.01
 WIDE = [(2, 160), (4, 80)]
-
-
-def test_the_shapes_take_the_wide_form():
-    """The shapes are wide; on the card a float32 table runs them by
-    sender, in every rounding mode that keeps the table float32, and a
-    bfloat16 table (whose library has no wide plan by sender) the wide
-    form, which it leaves only at 256 floats or fewer."""
-    widths = [nh * f for nh, f in WIDE] + [726, 1024]
-    assert all(tv5.wide_form(d) for d in widths)
-    assert not tv5.wide_form(256) and tv5.wide_form(726)
-    table = Rounding(table=True, acc=True)
-    for rnd in (FLOAT32, Rounding(acc=True), V6_BF16):
-        assert all(tv5.by_sender_on_card(d, rnd) for d in widths + [256])
-    assert not any(tv5.by_sender_on_card(d, table) for d in widths)
-    assert tv5.by_sender_on_card(256, table)
 
 
 # -- the v5 ops at wide rows ------------------------------------------------
@@ -154,7 +139,21 @@ def test_fused_gat_table_matches_jax_at_wide_rows(dropout, eps, n_src):
     assert tg[0].shape == (n_src, nh * f)
 
 
-# -- the plumbing: draw -> S -> h^T S ----------------------------------------
+@pytest.mark.parametrize("nh,f", WIDE)
+def test_v5_op_bf16_table_mode_matches_jax_at_wide_rows(nh, f, monkeypatch):
+    """GAT_TPU_H_DTYPE=bfloat16 at rows of 320 floats: the backward by
+    sender reads the rounded rows in every product, d(h) stays float32;
+    within 1e-2 of the JAX op, live, and 10x nearer it than the port's
+    float32 result."""
+    c = sender_case(nh, f, seed=nh * 10 + 7, n_src=N)
+    fns = autocap_fns(c)
+    f32 = run_both(args_of(c), *fns)[1]
+    monkeypatch.setenv("GAT_TPU_H_DTYPE", "bfloat16")
+    want, got = run_both(args_of(c), *fns)
+    assert_bf16_mode(got, want, f32)
+
+
+# -- the backward with the graph's sender runs --------------------------------
 
 def wide_backward_args(nh=4, f=80, seed=17):
     c = make_case(nh, f, seed=seed, e_real=600, dropout=True)
@@ -171,21 +170,10 @@ def wide_backward_args(nh=4, f=80, seed=17):
                c["e_real"], SLOPE, g, out, den, epsp, True)
 
 
-def test_dasrc_by_sender_is_h_transpose_draw():
-    c, args = wide_backward_args()
-    *grads, draw = tv5.v5_backward_plain(*args, with_draw=True)
-    order, ptr = tv5.sender_runs(args[4], c["e_real"], c["n"])
-    got, extra = tv5.dasrc_by_sender(args[0], draw, order, ptr)
-    assert extra is None and got.shape == grads[3].shape
-    scale = float(grads[3].abs().max())
-    assert float((got - grads[3]).abs().max()) <= 1e-5 * max(scale, 1.0)
-    # the wrapper's own call goes the same way
-    assert torch.equal(tv5.v5_backward(*args)[3], got)
-
-
 def test_wide_backward_with_the_graph_s_sender_runs_gives_the_bits():
-    """The real edges' runs from the graph (src_order, src_ptr) and the
-    ones the wrapper derives when it has none sum in the same order."""
+    """The backward by sender (its plain version on CPU tensors): the real
+    edges' runs from the graph (src_order, src_ptr) and the ones the
+    wrapper derives when it has none sum in the same order."""
     c, args = wide_backward_args(seed=18)
     send, e_real = args[4], c["e_real"]
     order = torch.argsort(send, stable=True).to(torch.int32)
